@@ -1,0 +1,89 @@
+'''
+Point-transformer encoder (port of occlusions4d_tpu/models/encoder.py):
+pre-MLP -> down_blocks x [PT block + DownTransition] -> center PT block ->
+global embedding, with the multi-level abstract output of abstract_levels > 1.
+The optional UpTransition decoder (enable_decoder) is dead in every shipped
+configuration and is not ported.
+'''
+
+import torch
+from torch import nn
+
+from .layers import DownTransition, PointTransformerBlock
+
+__all__ = ['PointEncoder']
+
+
+class PointEncoder(nn.Module):
+    '''Constructor arguments are the checkpoint's encoder_args.'''
+
+    def __init__(self, n_input=4096, n_output=1024, d_in=6, d_out=6, d_feat=32,
+                 down_blocks=3, up_blocks=2, transition_factor=4,
+                 pt_num_neighbors=16, pt_norm_type='none', down_neighbors=8,
+                 abstract_levels=1, skip_connections=False, enable_decoder=False,
+                 output_featurized=True, output_global_emb=True, global_dim=512,
+                 fps_random_start=True):
+        super().__init__()
+        if enable_decoder:
+            raise NotImplementedError('enable_decoder (UpTransition path) is not ported')
+        if abstract_levels > 1 and skip_connections:
+            raise ValueError('abstract_levels > 1 excludes skip_connections')
+        self.d_feat = d_feat
+        self.down_blocks = down_blocks
+        self.abstract_levels = abstract_levels
+        self.output_featurized = output_featurized
+        self.output_global_emb = output_global_emb
+        self.pre_mlp = nn.Sequential(nn.Linear(d_in, d_feat), nn.ReLU(),
+                                     nn.Linear(d_feat, d_feat))
+        blocks = []
+        dim = d_feat
+        for _ in range(down_blocks):
+            blocks.append(PointTransformerBlock(dim, dim, dim, pt_num_neighbors))
+            blocks.append(DownTransition(dim, dim * 2, transition_factor,
+                                         down_neighbors, pt_norm_type))
+            dim *= 2
+        blocks.append(PointTransformerBlock(dim, dim, dim, pt_num_neighbors))
+        self.blocks = nn.ModuleList(blocks)
+        final_dim = d_feat * 2 ** down_blocks
+        self._skip_at = {}  # width after a DownTransition -> skip index.
+        skips = []
+        for j in range(abstract_levels - 1):
+            cur = final_dim // int(2 ** (abstract_levels - 1 - j))
+            self._skip_at[cur] = j
+            skips.append(nn.Linear(cur, final_dim))
+        self.abstract_skip_mlps = nn.ModuleList(skips)
+        if output_global_emb:
+            self.global_mlp = nn.Sequential(nn.Linear(dim, global_dim), nn.ReLU(),
+                                            nn.Linear(global_dim, global_dim))
+
+    def forward(self, pcl):
+        '''
+        :param pcl (B, N, d_in): (x, y, z, R, G, B, t, mark_track).
+        :return (pcl_out (B, M_total, 3 + E) or None, x_global (B, G) or None).
+        '''
+        pos = pcl[..., :3]
+        x = self.pre_mlp(pcl)
+        skips = []
+        blocks = list(self.blocks)
+        for i in range(self.down_blocks):
+            x, pos = blocks[2 * i](x, pos)
+            x, pos = blocks[2 * i + 1](x, pos)
+            j = self._skip_at.get(x.shape[-1])
+            if j is not None:
+                y = self.abstract_skip_mlps[j](x)
+                y = torch.cat([y[..., :-1], torch.full_like(y[..., -1:], j + 1.0)], -1)
+                skips.append(torch.cat([pos, y], -1))
+        x, pos = blocks[-1](x, pos)
+
+        x_global = None
+        if self.output_global_emb:
+            x_global = self.global_mlp(x.mean(dim=1))
+        if not self.output_featurized:
+            return None, x_global
+        pcl_out = torch.cat([pos, x], -1)
+        if self.abstract_levels > 1:
+            # Last feature channel of every level holds the 1-based level index.
+            pcl_out = torch.cat([pcl_out[..., :-1], torch.full_like(
+                pcl_out[..., -1:], float(self.abstract_levels))], -1)
+            pcl_out = torch.cat(skips + [pcl_out], dim=1)
+        return pcl_out, x_global

@@ -1,0 +1,98 @@
+'''
+Kernel path of the implicit decoder (port of occlusions4d_tpu/models/fused.py).
+
+fused_field_apply re-expresses LocalImplicitField.forward (attention mode)
+over the module's own weights with one shared kNN extraction (kNN kernel),
+the interpolation kernel and the attention kernel per cross-attention block.
+The backbone's Linear layers stay plain matmuls, as they stay XLA dots in the
+JAX package. On CPU tensors every operator runs its plain version.
+
+The abstract cloud of gv1 has 531 points, below the 1024 at which the JAX
+package switches to its shared-gather kernels. Those kernels are not ported
+yet: on CUDA tensors fused_field_apply raises at or above the threshold rather
+than run another path. On the CPU the plain versions compute the same function
+at any size.
+'''
+
+import torch
+from torch.nn import functional as F
+
+from ..ops.attention import fused_knn_interp, fused_knn_vector_attention, knn_extract
+from .implicit import BASE_FREQUENCY, activation, positional_encode
+
+__all__ = ['fused_field_apply', 'supports_fused', 'attention_params',
+           'SHARED_GATHER_MIN_M']
+
+SHARED_GATHER_MIN_M = 1024
+
+
+def supports_fused(decoder):
+    '''The fused path covers the shipped decoder configuration.'''
+    return (decoder.local_mode == 'attention' and decoder.num_local_features > 0
+            and decoder.cross_attn_neighbors <= 32
+            and decoder.num_local_features <= 32
+            and all(c == 'c' for c in
+                    decoder.cr_attn_type[:decoder.cross_attn_layers]))
+
+
+def attention_params(att):
+    '''A VectorAttention module's weights in the JAX layout the attention
+    operator takes: {name: {'kernel' (in, out), ['bias']}}.'''
+    def lin(m):
+        p = {'kernel': m.weight.t()}
+        if m.bias is not None:
+            p['bias'] = m.bias
+        return p
+    return {'to_k': lin(att.to_k), 'to_v': lin(att.to_v),
+            'pos_mlp_0': lin(att.pos_mlp[0]), 'pos_mlp_2': lin(att.pos_mlp[2]),
+            'attn_mlp_0': lin(att.attn_mlp[0]), 'attn_mlp_2': lin(att.attn_mlp[2])}
+
+
+def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
+                      abstract_mask=None):
+    '''
+    :param decoder: LocalImplicitField (weights and static configuration).
+    :param points_query (B, N, 4); pcl_abstract (B, M, 3 + E);
+        features_global (B, D); abstract_mask (B, M) bool or None.
+    :return (output (B, N, d_out), penult (B, N, d_hidden)), float32.
+    '''
+    if not supports_fused(decoder):
+        raise NotImplementedError('configuration not covered by the fused path')
+    if pcl_abstract.is_cuda and pcl_abstract.shape[1] >= SHARED_GATHER_MIN_M:
+        raise NotImplementedError(
+            f'abstract clouds of {SHARED_GATHER_MIN_M}+ points need the '
+            'shared-gather kernels, which are not ported yet')
+    act = activation(decoder.activation)
+    pts_abs = pcl_abstract[..., :3]
+    feats_abs = pcl_abstract[..., 3:]
+    B, N, _ = points_query.shape
+    q_xyz = points_query[..., :3]
+
+    # One exact kNN extraction feeds the interpolation and every attention
+    # layer; each reads the prefix of its own k.
+    k_ext = max(decoder.cross_attn_neighbors if decoder.use_pt_inds else 0,
+                decoder.num_local_features)
+    knn = knn_extract(q_xyz, pts_abs, k_ext, key_mask=abstract_mask)
+    features_local = fused_knn_interp(q_xyz, pts_abs, feats_abs,
+                                      decoder.num_local_features, eps=1e-4,
+                                      key_mask=abstract_mask, knn=knn)
+    fg = features_global[:, None, :].expand(B, N, features_global.shape[-1])
+    features_query = torch.cat([fg, features_local], dim=-1)
+
+    enc = points_query
+    if decoder.pos_encoding_freqs > 0:
+        enc = positional_encode(enc, BASE_FREQUENCY, decoder.pos_encoding_freqs)
+    x = decoder.lin_in(enc)
+    use_pt = decoder.use_pt_inds
+    for i in range(decoder.n_blocks):
+        x = x + decoder.lin_z[i](features_query)
+        x = decoder.blocks[i](x)
+        if i in use_pt:
+            blk = decoder.pt_blocks[use_pt[i]]
+            att = blk.layer2
+            q_proj = F.linear(blk.layer1(x), att.to_q.weight)
+            y = fused_knn_vector_attention(
+                q_proj, q_xyz, feats_abs, pts_abs, attention_params(att),
+                decoder.cross_attn_neighbors, key_mask=abstract_mask, knn=knn)
+            x = x + blk.layer3(y)
+    return decoder.lin_out(act(x)), x

@@ -1,0 +1,124 @@
+'''
+Point-transformer building blocks (port of occlusions4d_tpu/models/layers.py).
+
+Attribute names follow the reference torch layout that the JAX package's
+export_torch_state_dict emits (`layer2.pos_mlp.0.weight`, `mlp.1.weight`),
+so checkpoint.from_jax_params output loads with strict=True.
+
+VectorAttention is the plain PyTorch chain (kNN graph, gathers, theta/gamma
+MLPs, per-channel softmax): the encoder's self-attention runs it in eval, as
+the JAX engine runs its XLA chain (fused_attention='off'). Its kNN graph goes
+through ops.knn, hence through the kNN kernels on CUDA.
+'''
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops import fps_batched, gather_neighbors, knn
+
+__all__ = ['NormLayer', 'VectorAttention', 'PointTransformerBlock', 'DownTransition']
+
+
+class NormLayer(nn.Module):
+    '''none / batch (eval statistics, eps 1e-3) / layer (eps 1e-5). Parameters
+    sit on the module itself, as the reference's nn.BatchNorm1d/LayerNorm.'''
+
+    def __init__(self, norm_type, dim):
+        super().__init__()
+        if norm_type not in ('none', 'batch', 'layer'):
+            raise ValueError(norm_type)
+        self.norm_type = norm_type
+        self.dim = dim
+        if norm_type != 'none':
+            self.weight = nn.Parameter(torch.ones(dim))
+            self.bias = nn.Parameter(torch.zeros(dim))
+        if norm_type == 'batch':
+            self.register_buffer('running_mean', torch.zeros(dim))
+            self.register_buffer('running_var', torch.ones(dim))
+
+    def forward(self, x):
+        if self.norm_type == 'none':
+            return x
+        if self.norm_type == 'layer':
+            return nn.functional.layer_norm(x, (self.dim,), self.weight, self.bias,
+                                            eps=1e-5)
+        inv = torch.rsqrt(self.running_var + 1e-3)
+        return (x - self.running_mean) * (inv * self.weight) + self.bias
+
+
+def _mlp(d_in, d_hidden, d_out):
+    return nn.Sequential(nn.Linear(d_in, d_hidden), nn.ReLU(), nn.Linear(d_hidden, d_out))
+
+
+class VectorAttention(nn.Module):
+    '''attn = softmax_K(gamma(q - k + theta(dp)) / sqrt(dim));
+    out = sum_K attn * (v + theta).'''
+
+    def __init__(self, dim, d_query=None, dim2=None, num_neighbors=16,
+                 pos_mlp_hidden_dim=32, attn_mlp_hidden_mult=2):
+        super().__init__()
+        self.dim = dim
+        self.num_neighbors = num_neighbors
+        self.to_q = nn.Linear(d_query or dim, dim, bias=False)
+        self.to_k = nn.Linear(dim2 or dim, dim, bias=False)
+        self.to_v = nn.Linear(dim2 or dim, dim, bias=False)
+        self.pos_mlp = _mlp(3, pos_mlp_hidden_dim, dim)
+        self.attn_mlp = _mlp(dim, dim * attn_mlp_hidden_mult, dim)
+
+    def forward(self, x, pos, x2=None, pos2=None, key_mask=None):
+        '''x (B, N, D), pos (B, N, 3); x2 (B, M, D2), pos2 (B, M, 3) for cross
+        attention (None: self attention); key_mask (B, M) bool or None.'''
+        self_attention = x2 is None
+        if self_attention:
+            x2, pos2 = x, pos
+        # The same object as query and key set lets the pruned kNN sort once.
+        _, idx = knn(pos, pos if self_attention else pos2, self.num_neighbors,
+                     key_mask=key_mask)
+        knn_xyz = gather_neighbors(pos2[..., :3], idx)
+        q = self.to_q(x)
+        k = gather_neighbors(self.to_k(x2), idx)
+        v = gather_neighbors(self.to_v(x2), idx)
+        pe = self.pos_mlp(pos[..., None, :3] - knn_xyz)
+        a = self.attn_mlp(q[..., None, :] - k + pe)
+        attn = torch.softmax(a / math.sqrt(self.dim), dim=-2)
+        return torch.einsum('bnkd,bnkd->bnd', attn, v + pe)
+
+
+class PointTransformerBlock(nn.Module):
+    '''Linear -> vector attention -> linear, with residual.'''
+
+    def __init__(self, d_in, d_hidden, d_out, num_neighbors=16,
+                 d_hidden_abstract=None):
+        super().__init__()
+        self.layer1 = nn.Linear(d_in, d_hidden)
+        self.layer2 = VectorAttention(d_hidden, dim2=d_hidden_abstract,
+                                      num_neighbors=num_neighbors)
+        self.layer3 = nn.Linear(d_hidden, d_out)
+
+    def forward(self, x, p, x2=None, p2=None, key_mask=None):
+        y = self.layer2(self.layer1(x), p, x2=x2, pos2=p2, key_mask=key_mask)
+        return x + self.layer3(y), p
+
+
+class DownTransition(nn.Module):
+    '''FPS by 1/factor, per-point MLP, max-pool over the knn_k nearest input
+    points of each kept point. Deterministic FPS start 0 unless start_idx is
+    given (the training-time random start).'''
+
+    def __init__(self, d_in, d_out, factor=2, knn_k=8, norm_type='none'):
+        super().__init__()
+        self.factor = factor
+        self.knn_k = knn_k
+        self.mlp = nn.Sequential(nn.Linear(d_in, d_out), NormLayer(norm_type, d_out),
+                                 nn.ReLU())
+
+    def forward(self, x, p, start_idx=None):
+        B, N, _ = x.shape
+        n_new = -(-N // self.factor)
+        sub_idx = fps_batched(p, n_new, start_idx=start_idx)          # (B, n_new).
+        p_sub = torch.gather(p, 1, sub_idx[..., None].expand(B, n_new, p.shape[-1]))
+        _, nbr = knn(p_sub, p, self.knn_k)
+        z = gather_neighbors(self.mlp(x), nbr)
+        return z.amax(dim=-2), p_sub

@@ -1,0 +1,95 @@
+'''
+Farthest point sampling (port of occlusions4d_tpu/ops/fps.py and
+ops/pallas_fps.py::fps_pallas_batched).
+
+Semantics: n_out picks per example, the first at start_idx (0 at inference);
+each later pick is the first index attaining the max of the running minimum
+squared distance to the picks so far, invalid points never winning while a
+valid one remains. Indices are returned sorted ascending (mirroring
+`torch.sort(inds)` of the reference's DownTransition) unless sort_result is
+False. A CUDA tensor launches csrc/fps.cu; a CPU tensor runs the plain loop.
+'''
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ['fps_batched', 'fps_plain', 'LAUNCHES']
+
+LAUNCHES = {'fps': 0}
+
+
+def fps_plain(xyz, n_out, valid, start_idx):
+    '''Plain version of the FPS kernel.
+    :param xyz (B, N, 3) f32; valid (B, N) bool; start_idx (B,) int.
+    :return (B, n_out) int64 picks in pick order.'''
+    B, N, _ = xyz.shape
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    min_d = torch.full((B, N), float('inf'), dtype=torch.float32, device=xyz.device)
+    neg_inf = torch.full_like(min_d, float('-inf'))
+    sel = torch.empty((B, n_out), dtype=torch.int64, device=xyz.device)
+    last = start_idx.to(torch.int64).reshape(B, 1)
+    sel[:, 0] = last[:, 0]
+    for i in range(1, n_out):
+        dx = x - torch.gather(x, 1, last)
+        dy = y - torch.gather(y, 1, last)
+        dz = z - torch.gather(z, 1, last)
+        min_d = torch.minimum(min_d, dx * dx + dy * dy + dz * dz)
+        last = torch.argmax(torch.where(valid, min_d, neg_inf), dim=1, keepdim=True)
+        sel[:, i] = last[:, 0]
+    return sel
+
+
+def _fps_cuda(xyz, n_out, valid, start_idx):
+    B, N, _ = xyz.shape
+    lib = _build.library('fps')
+    lib.o4d_fps_max_points.argtypes, lib.o4d_fps_max_points.restype = [], ctypes.c_int
+    if N > lib.o4d_fps_max_points():
+        raise NotImplementedError(
+            f'FPS kernel holds at most {lib.o4d_fps_max_points()} points per '
+            f'example in one block; got N={N}')
+    penalty = torch.where(valid, torch.zeros_like(xyz[..., 0]),
+                          torch.full_like(xyz[..., 0], float('-inf'))).contiguous()
+    start = start_idx.to(device=xyz.device, dtype=torch.int32).contiguous()
+    if not (xyz.is_cuda and xyz.dtype == torch.float32 and xyz.is_contiguous()):
+        raise ValueError('fps: xyz must be a contiguous CUDA float32 tensor')
+    if tuple(start.shape) != (B,) or tuple(penalty.shape) != (B, N):
+        raise ValueError(f'fps: bad start/valid shapes {tuple(start.shape)}, '
+                         f'{tuple(penalty.shape)} for xyz {tuple(xyz.shape)}')
+    out = torch.empty((B, n_out), dtype=torch.int32, device=xyz.device)
+    fn = lib.o4d_fps
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xyz.device):
+        _build.check(fn(_build.ptr(xyz), _build.ptr(penalty), _build.ptr(start),
+                        _build.ptr(out), B, N, n_out,
+                        _build.stream_ptr(xyz.device)), 'fps')
+    LAUNCHES['fps'] += 1
+    return out.long()
+
+
+def fps_batched(xyz, n_out, *, valid=None, start_idx=None, sort_result=True):
+    '''
+    Batched farthest point sampling.
+    :param xyz (B, N, C>=3): only xyz is used.
+    :param n_out (int): picks per example.
+    :param valid (B, N) bool or None: invalid points are never picked.
+    :param start_idx (B,) int or None (deterministic start 0).
+    :return (B, n_out) int64 indices into N, sorted ascending when sort_result.
+    '''
+    xyz = xyz[..., :3].to(torch.float32).contiguous()
+    B, N, _ = xyz.shape
+    if not 1 <= n_out <= N:
+        raise ValueError(f'n_out={n_out} must lie in [1, N={N}]')
+    if valid is None:
+        valid = torch.ones((B, N), dtype=torch.bool, device=xyz.device)
+    if start_idx is None:
+        start_idx = torch.zeros((B,), dtype=torch.int64, device=xyz.device)
+    start_idx = torch.as_tensor(start_idx, device=xyz.device)
+    if xyz.is_cuda:
+        sel = _fps_cuda(xyz, n_out, valid.to(torch.bool), start_idx)
+    else:
+        sel = fps_plain(xyz, n_out, valid.to(torch.bool), start_idx)
+    return torch.sort(sel, dim=-1).values if sort_result else sel

@@ -1,0 +1,301 @@
+'''
+Exact k-nearest-neighbour search (port of occlusions4d_tpu/ops/knn.py and the
+Hilbert-sorted search of ops/pallas_knn.py::knn_pallas_spatial).
+
+Semantics, shared by the CUDA kernels (csrc/knn.cu) and their plain versions:
+  * ranking value d = |k|^2 - 2 q.k in f32, computed as elementwise products
+    and sums ((q0 k0 + q1 k1) + q2 k2), never a TF32 or fused product;
+  * the K smallest (d, key index) pairs, ascending, ties to the lower key
+    index (a stable sort in the plain version); masked keys carry |k|^2 = +inf
+    and are never chosen while a valid key remains (filler rows report index 0
+    and an infinite distance);
+  * returned distances are sqrt(max(d + |q|^2, 0)) (or the squared value).
+
+Dispatch: a CUDA tensor always launches a kernel (brute force, or the pruned
+entry when N * M >= PRUNED_MIN_ELEMS, the JAX package's TPU crossover kept
+until it is re-measured on the H100); a CPU tensor runs the plain version.
+The pruned entry returns exactly the brute-force result (ties compare on the
+original key index), so its plain version is the brute-force one.
+'''
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ['knn', 'knn_pruned', 'knn_rank', 'knn_rank_plain', 'pairwise_sqdist',
+           'gather_neighbors', 'hilbert_codes', 'sq_norm', 'LAUNCHES',
+           'PRUNED_MIN_ELEMS']
+
+LAUNCHES = {'knn_brute': 0, 'knn_pruned': 0}
+PRUNED_MIN_ELEMS = 2 ** 27
+_MAX_K = 32
+_PLAIN_CHUNK = 2 ** 25  # distance entries per plain-version slab.
+
+
+def sq_norm(x):
+    '''|x|^2 over the last (xyz) axis as ((x0 x0 + x1 x1) + x2 x2).'''
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
+
+
+def pairwise_sqdist(query, keys):
+    '''(..., N, M) squared distances |q|^2 + |k|^2 - 2 q.k, clamped at 0.'''
+    q2 = sq_norm(query)[..., :, None]
+    k2 = sq_norm(keys)[..., None, :]
+    qk = (query[..., :, None, 0] * keys[..., None, :, 0]
+          + query[..., :, None, 1] * keys[..., None, :, 1]
+          + query[..., :, None, 2] * keys[..., None, :, 2])
+    return torch.clamp(q2 + k2 - 2.0 * qk, min=0.0)
+
+
+def gather_neighbors(values, idx):
+    '''values (B, M, D), idx (B, N, K) -> (B, N, K, D).'''
+    B, N, K = idx.shape
+    flat = idx.reshape(B, N * K).long()
+    out = torch.gather(values, 1, flat[..., None].expand(B, N * K, values.shape[-1]))
+    return out.reshape(B, N, K, values.shape[-1])
+
+
+def knn_rank_plain(q, keys, kn, k):
+    '''Plain version of the kNN kernels.
+    :param q (B, N, 3) f32; keys (B, M, 3) f32; kn (B, M) f32 (|k|^2, +inf
+        masked).
+    :return (d (B, N, k) f32 ranking values, idx (B, N, k) int32).'''
+    B, N, _ = q.shape
+    M = keys.shape[1]
+    rows = max(1, _PLAIN_CHUNK // max(M, 1))
+    ds, ids = [], []
+    for r0 in range(0, N, rows):
+        qc = q[:, r0:r0 + rows]
+        dot = (qc[:, :, None, 0] * keys[:, None, :, 0]
+               + qc[:, :, None, 1] * keys[:, None, :, 1]
+               + qc[:, :, None, 2] * keys[:, None, :, 2])
+        d = kn[:, None, :] - 2.0 * dot
+        vals, order = torch.sort(d, dim=-1, stable=True)
+        vals, order = vals[..., :k], order[..., :k]
+        ds.append(vals)
+        ids.append(torch.where(torch.isinf(vals), torch.zeros_like(order), order))
+    return torch.cat(ds, 1), torch.cat(ids, 1).to(torch.int32)
+
+
+def _check_cuda(name, t, shape, dtype):
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous CUDA {dtype} tensor, got '
+                         f'{t.device} {t.dtype} contiguous={t.is_contiguous()}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}')
+
+
+def _brute_cuda(q, keys, kn, k):
+    B, N, _ = q.shape
+    M = keys.shape[1]
+    keys4 = torch.cat([keys, kn[..., None]], dim=-1).contiguous()
+    _check_cuda('q', q, (B, N, 3), torch.float32)
+    _check_cuda('keys4', keys4, (B, M, 4), torch.float32)
+    out_d = torch.empty((B, N, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, N, k), dtype=torch.int32, device=q.device)
+    lib = _build.library('knn')
+    fn = lib.o4d_knn_brute
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        _build.check(fn(_build.ptr(q), _build.ptr(keys4), _build.ptr(out_d),
+                        _build.ptr(out_i), B, N, M, k,
+                        _build.stream_ptr(q.device)), 'knn_brute')
+    LAUNCHES['knn_brute'] += 1
+    return out_d, out_i
+
+
+def knn_rank(q, keys, kn, k):
+    '''Brute-force entry: kernel on CUDA, plain version on the CPU.'''
+    if not 1 <= k <= min(_MAX_K, keys.shape[1]):
+        raise ValueError(f'k={k} must lie in [1, min(32, M={keys.shape[1]})]')
+    if q.is_cuda:
+        return _brute_cuda(q, keys, kn, k)
+    return knn_rank_plain(q, keys, kn, k)
+
+
+def _part1by2(x):
+    x = x & 0x3ff
+    x = (x | (x << 16)) & 0x030000ff
+    x = (x | (x << 8)) & 0x0300f00f
+    x = (x | (x << 4)) & 0x030c30c3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def hilbert_codes(pts, lo, hi, bits=10):
+    '''30-bit Hilbert codes of (B, N, 3) points within per-example bounds
+    (Skilling's transpose form; the same integers as
+    occlusions4d_tpu/ops/pallas_knn.py::_hilbert_codes).'''
+    top = 2.0 ** bits - 1.0
+    scale = torch.clamp(hi - lo, min=1e-9)
+    q = torch.clamp((pts - lo) / scale * top, 0.0, top).to(torch.int32)
+    X = [q[..., 0], q[..., 1], q[..., 2]]
+    Q = 1 << (bits - 1)
+    while Q > 1:
+        P = Q - 1
+        for i in range(3):
+            hit = (X[i] & Q) > 0
+            t = (X[0] ^ X[i]) & P
+            new_x0 = torch.where(hit, X[0] ^ P, X[0] ^ t)
+            if i != 0:
+                X[i] = torch.where(hit, X[i], X[i] ^ t)
+            X[0] = new_x0
+        Q >>= 1
+    X[1] = X[1] ^ X[0]
+    X[2] = X[2] ^ X[1]
+    t = torch.zeros_like(X[0])
+    Q = 1 << (bits - 1)
+    while Q > 1:
+        t = torch.where((X[2] & Q) > 0, t ^ (Q - 1), t)
+        Q >>= 1
+    X = [x ^ t for x in X]
+    return _part1by2(X[2]) | (_part1by2(X[1]) << 1) | (_part1by2(X[0]) << 2)
+
+
+def _pad_rows(x, n):
+    '''Pad (B, R, C) to n rows by repeating the last row.'''
+    if x.shape[1] == n:
+        return x
+    return torch.cat([x, x[:, -1:].expand(x.shape[0], n - x.shape[1], x.shape[2])], 1)
+
+
+def _boxes(pts, size):
+    '''(B, R, 3) with R a multiple of size -> (B, R / size, 6) (lo, hi).'''
+    B, R, _ = pts.shape
+    p = pts.reshape(B, R // size, size, 3)
+    return torch.cat([p.amin(2), p.amax(2)], -1).contiguous()
+
+
+def pruned_inputs(q, keys, kn, same, tile, block):
+    '''Operands of the pruned kernel: both sets sorted along the keys' Hilbert
+    curve and padded (last row repeated; padded keys get |k|^2 = +inf), the
+    sorted keys' original indices, per-block key and per-tile query boxes, and
+    the bbox test's rounding slack as a (1,) tensor (computed where the
+    points are, so the CUDA path never waits for the host). Device-agnostic, so the CPU tests can hold
+    it against the brute-force search with an emulated kernel.'''
+    B, N, _ = q.shape
+    M = keys.shape[1]
+    lo = keys.amin(1, keepdim=True)
+    hi = keys.amax(1, keepdim=True)
+    perm_k = torch.sort(hilbert_codes(keys, lo, hi), dim=-1, stable=True).indices
+    keys_s = torch.gather(keys, 1, perm_k[..., None].expand(B, M, 3))
+    kn_s = torch.gather(kn, 1, perm_k)
+    if same and N == M:
+        perm_q, q_s = perm_k, keys_s
+    else:
+        perm_q = torch.sort(hilbert_codes(q, lo, hi), dim=-1, stable=True).indices
+        q_s = torch.gather(q, 1, perm_q[..., None].expand(B, N, 3))
+    N_pad = -(-N // tile) * tile
+    M_pad = -(-M // block) * block
+    q_p = _pad_rows(q_s, N_pad).contiguous()
+    k_p = _pad_rows(keys_s, M_pad)
+    kn_p = torch.cat([kn_s, kn_s.new_full((B, M_pad - M), float('inf'))], 1)
+    korig = torch.cat([perm_k, perm_k.new_zeros((B, M_pad - M))], 1)
+    korig = korig.to(torch.int32).contiguous()
+    keys4 = torch.cat([k_p, kn_p[..., None]], -1).contiguous()
+    qn = sq_norm(q_p).contiguous()
+    kbox, tbox = _boxes(k_p, block), _boxes(q_p, tile)
+    # Rounding slack of the bbox test: the expanded distance |k|^2 - 2 q.k +
+    # |q|^2 carries an absolute error of a few ulps of |k|^2 + |q|^2, so a key
+    # block is skipped only when its gap^2 exceeds the bound by far more.
+    kn_fin = torch.where(torch.isfinite(kn_p), kn_p, torch.zeros_like(kn_p))
+    slack = (1e-5 * (kn_fin.max() + qn.max())).reshape(1)
+    return dict(q=q_p, qn=qn, keys4=keys4, korig=korig, kbox=kbox, tbox=tbox,
+                slack=slack, perm_q=perm_q)
+
+
+def unsort_rows(out, perm_q):
+    '''Rows of the sorted-query result (B, N_pad, k) back to query order.'''
+    B, N = perm_q.shape
+    res = torch.empty((B, N) + out.shape[2:], dtype=out.dtype, device=out.device)
+    res.scatter_(1, perm_q[..., None].expand(B, N, out.shape[2]), out[:, :N])
+    return res
+
+
+def _pruned_cuda(q, keys, kn, k, same):
+    B, N, _ = q.shape
+    lib = _build.library('knn')
+    for f in (lib.o4d_knn_prune_tile, lib.o4d_knn_prune_block):
+        f.argtypes, f.restype = [], ctypes.c_int
+    tile, block = lib.o4d_knn_prune_tile(), lib.o4d_knn_prune_block()
+    ops = pruned_inputs(q, keys, kn, same, tile, block)
+    q_p, qn, keys4, korig = ops['q'], ops['qn'], ops['keys4'], ops['korig']
+    kbox, tbox, slack = ops['kbox'], ops['tbox'], ops['slack']
+    N_pad, M_pad = q_p.shape[1], keys4.shape[1]
+    out_d = torch.empty((B, N_pad, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, N_pad, k), dtype=torch.int32, device=q.device)
+    for name, t in (('q', q_p), ('qn', qn), ('keys4', keys4), ('korig', korig),
+                    ('kbox', kbox), ('tbox', tbox), ('slack', slack)):
+        _check_cuda(name, t, t.shape, torch.int32 if name == 'korig'
+                    else torch.float32)
+    fn = lib.o4d_knn_pruned
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        _build.check(fn(_build.ptr(q_p), _build.ptr(qn), _build.ptr(keys4),
+                        _build.ptr(korig), _build.ptr(kbox), _build.ptr(tbox),
+                        _build.ptr(out_d), _build.ptr(out_i), B, N_pad, M_pad, k,
+                        _build.ptr(slack), _build.stream_ptr(q.device)),
+                     'knn_pruned')
+    LAUNCHES['knn_pruned'] += 1
+    return unsort_rows(out_d, ops['perm_q']), unsort_rows(out_i, ops['perm_q'])
+
+
+def _prepare(query, keys, key_mask):
+    q = query[..., :3].to(torch.float32)
+    kk = keys[..., :3].to(torch.float32)
+    batch_shape = q.shape[:-2]
+    N, M = q.shape[-2], kk.shape[-2]
+    q = q.reshape(-1, N, 3).contiguous()
+    kk = kk.reshape(-1, M, 3).contiguous()
+    kn = sq_norm(kk)
+    if key_mask is not None:
+        km = key_mask.reshape(-1, M).to(torch.bool)
+        kn = torch.where(km, kn, torch.full_like(kn, float('inf')))
+    return q, kk, kn.contiguous(), batch_shape
+
+
+def _finish(q, d, idx, batch_shape, euclidean):
+    d2 = torch.clamp(d + sq_norm(q)[..., None], min=0.0)
+    dist = torch.sqrt(d2) if euclidean else d2
+    N, k = d.shape[-2:]
+    return dist.reshape(batch_shape + (N, k)), idx.reshape(batch_shape + (N, k))
+
+
+def knn_pruned(query, keys, k, *, key_mask=None, euclidean=True, same=None):
+    '''Exact kNN through the Hilbert-sorted, bbox-pruned kernel (CUDA); the
+    plain version is the brute-force search, whose result it equals.'''
+    if same is None:
+        same = query is keys
+    q, kk, kn, batch_shape = _prepare(query, keys, key_mask)
+    if not 1 <= k <= min(_MAX_K, kk.shape[1]):
+        raise ValueError(f'k={k} must lie in [1, min(32, M={kk.shape[1]})]')
+    if q.is_cuda:
+        d, idx = _pruned_cuda(q, kk, kn, k, same)
+    else:
+        d, idx = knn_rank_plain(q, kk, kn, k)
+    return _finish(q, d, idx, batch_shape, euclidean)
+
+
+def knn(query, keys, k, *, key_mask=None, euclidean=True, pruned=None):
+    '''
+    For each query point, the k nearest key points by 3D Euclidean distance.
+    :param query (..., N, C>=3); keys (..., M, C>=3): only xyz is used.
+    :param key_mask (..., M) bool or None: invalid keys are never returned.
+    :param pruned (bool or None): force the pruned entry on/off; None picks
+        it for N * M >= PRUNED_MIN_ELEMS.
+    :return (dists (..., N, k), idx (..., N, k) int32), ascending.
+    '''
+    same = query is keys
+    N, M = query.shape[-2], keys.shape[-2]
+    if pruned is None:
+        pruned = N * M >= PRUNED_MIN_ELEMS
+    if pruned:
+        return knn_pruned(query, keys, k, key_mask=key_mask, euclidean=euclidean,
+                          same=same)
+    q, kk, kn, batch_shape = _prepare(query, keys, key_mask)
+    d, idx = knn_rank(q, kk, kn, k)
+    return _finish(q, d, idx, batch_shape, euclidean)

@@ -1,0 +1,148 @@
+'''
+The port's CUDA kernels against their plain PyTorch versions on the card, on
+the edge cases the gv1 shapes of chip_smoke.py do not reach: batches of two,
+masked keys, exact ties, ragged sizes, every projection mode. Needs an NVIDIA
+GPU and nvcc; skips elsewhere (the decision is taken inside the fixture).
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(--noconftest: tests/conftest.py configures JAX, which a CUDA machine
+running only the port need not have.)
+
+Tolerances: kNN and FPS exact (the kernels round like the plain versions);
+interpolation atol 1e-5 and attention atol 1e-4 / rtol 1e-3 (fused
+multiply-adds and another summation order than cuBLAS in 100-term dots).
+'''
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
+t_fps = importlib.import_module('occlusions4d_torch.ops.fps')
+t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (kernels have no CPU mode)')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+def _t(a, dev):
+    return torch.tensor(np.asarray(a), device=dev)
+
+
+@pytest.mark.parametrize('K', [1, 5, 16, 32])
+@pytest.mark.parametrize('ties', [False, True])
+def test_knn_kernels_match_plain(dev, K, ties):
+    rng = np.random.RandomState(K)
+    if ties:
+        k = rng.randint(0, 4, size=(2, 700, 3)).astype(np.float32)
+        q = rng.randint(0, 4, size=(2, 333, 3)).astype(np.float32)
+    else:
+        k = rng.rand(2, 700, 3).astype(np.float32) * 8 - 4
+        q = rng.rand(2, 333, 3).astype(np.float32) * 8 - 4
+    mask = _t(rng.rand(2, 700) > 0.2, dev)
+    for key_mask in (None, mask):
+        qq, kk, kn, _ = t_knn._prepare(_t(q, dev), _t(k, dev), key_mask)
+        d_p, i_p = t_knn.knn_rank_plain(qq, kk, kn, K)
+        d_b, i_b = t_knn.knn_rank(qq, kk, kn, K)
+        d_s, i_s = t_knn._pruned_cuda(qq, kk, kn, K, False)
+        torch.cuda.synchronize()
+        for d, i in ((d_b, i_b), (d_s, i_s)):
+            assert torch.equal(i, i_p)
+            assert torch.equal(d, d_p)
+    # Self search through the public entry (one shared sort).
+    pts = _t(k[:, :500], dev)
+    a = t_knn.knn(pts, pts, K, pruned=True)
+    b = t_knn.knn(pts, pts, K, pruned=False)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize('case', ['plain', 'mask_start', 'n_out_one', 'duplicates'])
+def test_fps_kernel_matches_plain(dev, case):
+    rng = np.random.RandomState(1)
+    B, N, n_out = 2, 1391, 300
+    xyz = rng.rand(B, N, 3).astype(np.float32)
+    valid = np.ones((B, N), bool)
+    start = np.zeros(B, np.int64)
+    if case == 'mask_start':
+        valid = rng.rand(B, N) > 0.4
+        start = np.array([np.flatnonzero(valid[b])[3] for b in range(B)])
+    elif case == 'n_out_one':
+        n_out, start = 1, np.array([7, 11])
+    elif case == 'duplicates':
+        xyz = rng.randint(0, 5, size=(B, N, 3)).astype(np.float32)
+    args = (_t(xyz, dev), n_out, _t(valid, dev), _t(start, dev))
+    assert torch.equal(t_fps._fps_cuda(*args), t_fps.fps_plain(*args))
+
+
+@pytest.mark.parametrize('premul', [True, False])
+def test_interp_and_attention_match_plain(dev, premul):
+    rng = np.random.RandomState(2)
+    B, N, M, D, E, K = 2, 301, 97, 40, 24, 6
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    mask = _t(rng.rand(B, M) > 0.3, dev)
+    ki, kd = t_attn.knn_extract(q_pos, pos2, 9, key_mask=mask)
+    o_k = t_attn.fused_knn_interp(q_pos, pos2, feats, 5, knn=(ki, kd))
+    o_p = t_attn.interp_plain(ki, kd, feats, 5, 1e-4)
+    torch.testing.assert_close(o_k, o_p, atol=1e-5, rtol=1e-5)
+
+    def lin(i, o, bias=True):
+        p = {'kernel': _t((rng.randn(i, o) / np.sqrt(i)).astype(np.float32), dev)}
+        if bias:
+            p['bias'] = _t((rng.randn(o) * 0.1).astype(np.float32), dev)
+        return p
+    params = {'to_k': lin(E, D, False), 'to_v': lin(E, D, False),
+              'pos_mlp_0': lin(3, 32), 'pos_mlp_2': lin(32, D),
+              'attn_mlp_0': lin(D, 2 * D), 'attn_mlp_2': lin(2 * D, D)}
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    out = t_attn.fused_knn_vector_attention(q_proj, q_pos, feats, pos2, params, K,
+                                            knn=(ki, kd), premul=premul)
+    kv = (torch.cat([feats @ params['to_k']['kernel'], feats @ params['to_v']['kernel']],
+                    -1) if premul else feats)
+    ref = t_attn.attn_plain(q_pos, q_proj, ki, pos2, kv, params, K, premul)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+
+
+def test_launch_counters_count_kernel_launches(dev):
+    from occlusions4d_torch.ops import _build
+    _build.reset_launch_counts()
+    pts = torch.rand(1, 200, 3, device=dev)
+    t_knn.knn(pts, pts, 4)
+    t_fps.fps_batched(pts, 20)
+    assert _build.launch_counts()['knn_brute'] == 1
+    assert _build.launch_counts()['fps'] == 1
+    t_knn.knn(pts.cpu(), pts.cpu(), 4)  # plain version: no launch.
+    assert _build.launch_counts()['knn_brute'] == 1
+
+
+def test_fused_decoder_raises_at_shared_gather_size(dev):
+    '''Abstract clouds of SHARED_GATHER_MIN_M+ points need the shared-gather
+    kernels: on the card the fused decoder raises instead of running plain
+    versions.'''
+    from occlusions4d_torch.models import LocalImplicitField
+    from occlusions4d_torch.models.fused import SHARED_GATHER_MIN_M, fused_field_apply
+    dec = LocalImplicitField(d_in=4, d_hidden=32, d_out=5, d_latent=32, n_blocks=3,
+                             num_local_features=8, local_mode='attention',
+                             d_latent_local=16, cross_attn_neighbors=8,
+                             cross_attn_layers=1, cr_attn_type='c').to(dev).eval()
+    q = torch.rand(1, 64, 4, device=dev)
+    fg = torch.rand(1, 16, device=dev)
+    for M, raises in ((SHARED_GATHER_MIN_M - 1, False), (SHARED_GATHER_MIN_M, True)):
+        abstract = torch.rand(1, M, 3 + 16, device=dev)
+        with torch.no_grad():
+            if raises:
+                with pytest.raises(NotImplementedError):
+                    fused_field_apply(dec, q, abstract, fg)
+            else:
+                assert torch.isfinite(fused_field_apply(dec, q, abstract, fg)[0]).all()

@@ -1,0 +1,124 @@
+'''
+The port's slice as a whole against the JAX package, on the CPU: both
+committed anchors load through each package's load_models and run
+perform_inference on the same seeded input cloud and grid queries with
+track_mode='all' and two tracked instances. The JAX engine runs with
+precision='highest' (its module path on the CPU); the port runs its kernel
+path with the kernels' plain versions.
+
+Tolerance: densities within the JAX tests' f32 CPU tolerance, atol 3e-5
+(measured: 2.1e-6 on the GREATER anchor, 7.7e-7 on the CARLA one); the
+solid/air split must agree except for queries whose density lies within 1e-3
+of the threshold.
+'''
+
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+# Six test workers share eight cores: keep PyTorch's CPU pool small.
+torch.set_num_threads(2)
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ANCHORS = {'greater': 'tests/assets/anchor/checkpoint.pkl',
+            'carla': 'tests/assets/anchor_carla/checkpoint.pkl'}
+
+
+def _inputs(data_kind, n=256, seed=3):
+    rng = np.random.RandomState(seed)
+    pcl = rng.rand(n, 8).astype(np.float32) * 2 - 1
+    pcl[:, 2] = rng.rand(n).astype(np.float32) * 2 - 0.4  # above min_z.
+    pcl[:, -1] = 0.0
+    inst = (rng.rand(n) > 0.5).astype(np.int64)           # two instances.
+    sem = np.stack([inst, inst, np.full(n, 4)], -1)
+    target = rng.rand(400, 11).astype(np.float32) * 2 - 1
+    return pcl, sem, target
+
+
+def _run(pkg, data_kind):
+    pcl, sem, target = _inputs(data_kind)
+    path = os.path.join(_ROOT, _ANCHORS[data_kind])
+    if pkg == 'jax':
+        from occlusions4d_tpu.evaluate import inference as inf
+        loaded = inf.load_models(path)
+        kw = dict(precision='highest')
+    else:
+        from occlusions4d_torch.evaluate import inference as inf
+        loaded = inf.load_models(path, device='cpu')
+        kw = {}
+    cfg = loaded['train_config']
+    seg = cfg.segmentation_lw > 0
+    engine = inf.InferenceEngine(loaded, cfg.color_mode, seg, cfg.semantic_classes,
+                                 track_mode='all', implicit_batch_size=4096, **kw)
+    return inf.perform_inference(
+        pcl, sem, target, engine, cfg.min_z, cfg.cr_cube_bounds, cfg.color_mode, 0,
+        num_sample=6000, point_sample_mode='grid', predict_segmentation=seg,
+        track_mode='all', semantic_classes=cfg.semantic_classes,
+        data_kind=loaded['data_kind'], cube_mode=cfg.cube_mode)
+
+
+@pytest.mark.parametrize('data_kind', ['greater', 'carla'])
+def test_anchor_inference_matches_jax(data_kind):
+    ref = _run('jax', data_kind)
+    out = _run('torch', data_kind)
+    assert ref['phase_s']['track_reruns'] == out['phase_s']['track_reruns'] == 2
+    np.testing.assert_array_equal(out['points_query'], ref['points_query'])
+    np.testing.assert_array_equal(out['pcl_abstract'][..., :3],
+                                  ref['pcl_abstract'][..., :3])
+    np.testing.assert_allclose(out['pcl_abstract'], ref['pcl_abstract'],
+                               atol=1e-4, rtol=1e-4)
+    d_ref = ref['implicit_output'][:, 0]
+    d_out = out['implicit_output'][:, 0]
+    assert np.isfinite(out['implicit_output']).all()
+    np.testing.assert_allclose(d_out, d_ref, atol=3e-5, rtol=0)
+    far = np.abs(d_ref - 0.5) > 1e-3
+    np.testing.assert_array_equal((d_out >= 0.5)[far], (d_ref >= 0.5)[far])
+    assert 0 < len(out['output_solid']) < len(d_out)
+    # GT labels: 1-NN of the queries among the target frame.
+    assert out['gt_solid'].shape[0] == out['output_solid'].shape[0]
+    np.testing.assert_array_equal(
+        np.concatenate([out['gt_solid'][:, 0], out['gt_air'][:, 0]]).sum(),
+        np.concatenate([ref['gt_solid'][:, 0], ref['gt_air'][:, 0]]).sum())
+
+
+def test_anchors_load_and_infer_without_jax_or_optax():
+    '''The checkpoint reader needs neither optax (whose classes the anchors
+    pickle in their optimizer state) nor jax.'''
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'occlusions4d_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from occlusions4d_torch.evaluate import load_models, InferenceEngine\n"
+        f"for p in {list(_ANCHORS.values())!r}:\n"
+        "    L = load_models(p, device='cpu', logger=None)\n"
+        "    e = InferenceEngine(L, 'rgb_nosigmoid', False, 13, implicit_batch_size=64)\n"
+        "    a, g = e.encode(np.random.RandomState(0).rand(256, 8).astype(np.float32))\n"
+        "    out = e.decode_all(np.zeros((100, 4), np.float32), a, g)\n"
+        "    assert np.isfinite(out).all() and out.shape[0] == 100\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, '-c', code], cwd=_ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith('ok'), res.stderr
+
+
+def test_checkpoint_crc_is_verified(tmp_path):
+    from occlusions4d_torch.checkpoint import load_native_checkpoint
+    with open(os.path.join(_ROOT, _ANCHORS['carla']), 'rb') as f:
+        env = pickle.load(f)
+    assert env['format'] == 'o4d_ckpt'
+    payload = bytearray(env['payload'])
+    payload[len(payload) // 2] ^= 0xFF
+    env['payload'] = bytes(payload)
+    bad = tmp_path / 'checkpoint.pkl'
+    with open(bad, 'wb') as f:
+        pickle.dump(env, f)
+    with pytest.raises(ValueError, match='integrity'):
+        load_native_checkpoint(str(bad))
+    good = load_native_checkpoint(os.path.join(_ROOT, _ANCHORS['greater']))
+    assert set(good['params']) == {'encoder', 'decoder'} and good['epoch'] >= 0

@@ -1,0 +1,321 @@
+'''
+The PyTorch port's kernel modules (occlusions4d_torch.ops) held against the JAX
+package on the CPU. The port runs its kernels' plain versions here (CPU
+tensors); the JAX side runs as its own tests run it: the XLA path where
+knn/fps_batched pick it off-TPU, Pallas kernels in interpret mode. Inputs are
+made with numpy from a seed and handed to both.
+
+Tolerances: kNN and FPS indices are exact (the port reproduces the selection
+arithmetic and the tie rule); float outputs follow the JAX tests' f32 CPU
+tolerance atol=3e-5, rtol=1e-4 (different summation order and fused
+multiply-adds between XLA and PyTorch's CPU kernels).
+'''
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# Six test workers share eight cores: keep PyTorch's CPU pool small.
+torch.set_num_threads(2)
+
+from occlusions4d_tpu.ops.knn import knn as j_knn
+from occlusions4d_tpu.ops.fps import fps_batched as j_fps_batched
+from occlusions4d_tpu.ops.interpolate import knn_interpolate as j_knn_interpolate
+from occlusions4d_tpu.ops.pallas_attention import (
+    fused_knn_interp as j_fused_knn_interp,
+    fused_knn_vector_attention as j_fused_attn,
+    knn_extract as j_knn_extract)
+from occlusions4d_tpu.ops.pallas_fps import fps_pallas_batched as j_fps_pallas
+from occlusions4d_tpu.ops.pallas_knn import (_hilbert_codes, knn_pallas,
+                                             knn_pallas_spatial)
+from occlusions4d_torch.ops.fps import fps_batched as t_fps_batched
+
+# The packages re-export functions named like their modules: load by path.
+t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
+t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
+
+ATOL, RTOL = 3e-5, 1e-4
+
+
+@pytest.fixture
+def rng():
+    return np.random.RandomState(23)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _knn_both(q, k, K, mask=None):
+    jd, ji = j_knn(jnp.asarray(q), jnp.asarray(k), K,
+                          key_mask=None if mask is None else jnp.asarray(mask))
+    td, ti = t_knn.knn(_t(q), _t(k), K, key_mask=None if mask is None else _t(mask))
+    return (np.asarray(jd), np.asarray(ji)), (td.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize('masked', [False, True])
+def test_knn_matches_jax_xla(rng, masked):
+    q = rng.rand(2, 150, 3).astype(np.float32) * 2 - 1
+    k = rng.rand(2, 300, 3).astype(np.float32) * 2 - 1
+    mask = (rng.rand(2, 300) > 0.3) if masked else None
+    (jd, ji), (td, ti) = _knn_both(q, k, 8, mask)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(td, jd, atol=ATOL, rtol=RTOL)
+    if masked:
+        assert all(mask[b][ti[b]].all() for b in range(2))
+
+
+def test_knn_matches_pallas_kernels(rng):
+    q = rng.rand(1, 200, 3).astype(np.float32) * 4 - 2
+    k = rng.rand(1, 260, 3).astype(np.float32) * 4 - 2
+    mask = rng.rand(1, 260) > 0.2
+    for K in (1, 12, 16):
+        jd, ji = knn_pallas(jnp.asarray(q), jnp.asarray(k), K,
+                            key_mask=jnp.asarray(mask), euclidean=False)
+        td, ti = t_knn.knn(_t(q), _t(k), K, key_mask=_t(mask), euclidean=False,
+                           pruned=False)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=ATOL, rtol=RTOL)
+
+
+def test_knn_pruned_matches_pallas_spatial(rng):
+    pts = rng.rand(1, 300, 3).astype(np.float32) * 6 - 3
+    jd, ji = knn_pallas_spatial(jnp.asarray(pts), jnp.asarray(pts), 16,
+                                same=True, block_k=128)
+    td, ti = t_knn.knn_pruned(_t(pts), _t(pts), 16, same=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=ATOL, rtol=RTOL)
+
+
+def test_knn_extract_matches_pallas(rng):
+    q = rng.rand(1, 140, 3).astype(np.float32) * 2 - 1
+    k = rng.rand(1, 70, 3).astype(np.float32) * 2 - 1
+    mask = rng.rand(1, 70) > 0.25
+    ji, jd = j_knn_extract(jnp.asarray(q), jnp.asarray(k), 14, key_mask=jnp.asarray(mask))
+    ti, tdd = t_attn.knn_extract(_t(q), _t(k), 14, key_mask=_t(mask))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji)[:, :140, :14])
+    np.testing.assert_allclose(tdd.numpy(), np.asarray(jd)[:, :140, :14],
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_knn_exact_ties_go_to_lower_index(rng):
+    '''Integer coordinates make every distance exact: duplicate keys and
+    equidistant keys tie, and all paths must pick the lower key index.'''
+    k = rng.randint(0, 3, size=(1, 90, 3)).astype(np.float32)
+    k[0, 50:60] = k[0, 10:20]                                 # exact duplicates.
+    q = rng.randint(0, 3, size=(1, 40, 3)).astype(np.float32)
+    (jd, ji), (td, ti) = _knn_both(q, k, 12)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+    _, jpi = knn_pallas(jnp.asarray(q), jnp.asarray(k), 12)
+    np.testing.assert_array_equal(ti, np.asarray(jpi))
+    # Within a run of equal distances indices ascend.
+    d2 = ((q[0, :, None] - k[0, ti[0]]) ** 2).sum(-1)
+    same = d2[:, 1:] == d2[:, :-1]
+    assert same.any() and (ti[0][:, 1:][same] > ti[0][:, :-1][same]).all()
+    # The pruned entry compares ties on the ORIGINAL key index: same result.
+    _, tpi = t_knn.knn_pruned(_t(q), _t(k), 12)
+    np.testing.assert_array_equal(tpi.numpy(), ti)
+
+
+def _emulate_pruned_kernel(ops, k, tile, block):
+    '''Python model of csrc/knn.cu::knn_pruned_kernel over pruned_inputs():
+    seed block first, then every block whose bbox gap^2 is within the tile's
+    worst K-th distance + slack; lexicographic (d, original index) top-k.'''
+    q, qn, keys4, korig = ops['q'][0], ops['qn'][0], ops['keys4'][0], ops['korig'][0]
+    kbox, tbox, slack = ops['kbox'][0], ops['tbox'][0], float(ops['slack'])
+    nt, nb = q.shape[0] // tile, keys4.shape[0] // block
+    out_d = torch.empty(q.shape[0], k)
+    out_i = torch.empty(q.shape[0], k, dtype=torch.int32)
+    processed = 0
+    for t in range(nt):
+        rows = slice(t * tile, (t + 1) * tile)
+        qt = q[rows]
+        acc_d = torch.full((tile, k), float('inf'))
+        acc_i = torch.zeros((tile, k), dtype=torch.int64)
+
+        def process(b):
+            kb = keys4[b * block:(b + 1) * block]
+            dot = qt[:, None, 0] * kb[None, :, 0] + qt[:, None, 1] * kb[None, :, 1] \
+                + qt[:, None, 2] * kb[None, :, 2]
+            d = kb[None, :, 3] - 2.0 * dot
+            cd = torch.cat([acc_d, d], 1)
+            ci = torch.cat([acc_i, korig[b * block:(b + 1) * block].long()[None]
+                            .expand(tile, block)], 1)
+            # Lexicographic (d, index): sort by index, then stably by d.
+            o = torch.argsort(ci, dim=1, stable=True)
+            cd, ci = torch.gather(cd, 1, o), torch.gather(ci, 1, o)
+            o = torch.argsort(cd, dim=1, stable=True)[:, :k]
+            return torch.gather(cd, 1, o), torch.gather(ci, 1, o)
+
+        seed = (t * nb) // nt
+        acc_d, acc_i = process(seed)
+        processed += 1
+        bound = float((acc_d[:, -1] + qn[rows]).max())
+        for b in range(nb):
+            if b == seed:
+                continue
+            gap = torch.clamp(torch.maximum(kbox[b, :3] - tbox[t, 3:],
+                                            tbox[t, :3] - kbox[b, 3:]), min=0.0)
+            if float((gap * gap).sum()) <= bound + slack:
+                acc_d, acc_i = process(b)
+                processed += 1
+                bound = float((acc_d[:, -1] + qn[rows]).max())
+        out_d[rows], out_i[rows] = acc_d, acc_i.to(torch.int32)
+    return out_d[None], out_i[None], processed / (nt * nb)
+
+
+def test_knn_pruned_inputs_and_emulated_kernel_equal_brute_force(rng):
+    '''The pruned path's Python side (Hilbert sort, padding, boxes, unsort)
+    with a model of its kernel reproduces the brute-force search exactly, and
+    actually prunes on clustered data.'''
+    centers = rng.rand(6, 3).astype(np.float32) * 20 - 10
+    pts = (centers[rng.randint(0, 6, 500)]
+           + rng.randn(500, 3).astype(np.float32) * 0.5)[None].astype(np.float32)
+    q_t, k_t = _t(pts[:, :300]), _t(pts)
+    q, kk, kn, _ = t_knn._prepare(q_t, k_t, None)
+    ops = t_knn.pruned_inputs(q, kk, kn, False, 16, 32)
+    d, i, frac = _emulate_pruned_kernel(ops, 10, 16, 32)
+    d, i = t_knn.unsort_rows(d, ops['perm_q']), t_knn.unsort_rows(i, ops['perm_q'])
+    bd, bi = t_knn.knn_rank_plain(q, kk, kn, 10)
+    np.testing.assert_array_equal(i.numpy(), bi.numpy())
+    np.testing.assert_array_equal(d.numpy(), bd.numpy())
+    assert frac < 0.7, frac
+
+
+def test_pairwise_sqdist_and_knn_interpolate_match_jax(rng):
+    from occlusions4d_tpu.ops.knn import pairwise_sqdist as j_pairwise_sqdist
+    from occlusions4d_torch.ops.interpolate import knn_interpolate as t_knn_interpolate
+    q = rng.rand(2, 40, 3).astype(np.float32) * 2 - 1
+    k = rng.rand(2, 70, 3).astype(np.float32) * 2 - 1
+    f = rng.randn(2, 70, 5).astype(np.float32)
+    np.testing.assert_allclose(t_knn.pairwise_sqdist(_t(q), _t(k)).numpy(),
+                               np.asarray(j_pairwise_sqdist(jnp.asarray(q), jnp.asarray(k))),
+                               atol=ATOL, rtol=RTOL)
+    ref = np.asarray(j_knn_interpolate(jnp.asarray(f), jnp.asarray(k), jnp.asarray(q), 3))
+    out = t_knn_interpolate(_t(f), _t(k), _t(q), 3).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+def test_hilbert_codes_match_jax(rng):
+    pts = rng.rand(2, 257, 3).astype(np.float32) * 10 - 5
+    lo, hi = pts.min(1, keepdims=True), pts.max(1, keepdims=True)
+    jc = np.asarray(_hilbert_codes(jnp.asarray(pts), jnp.asarray(lo), jnp.asarray(hi)))
+    tc = t_knn.hilbert_codes(_t(pts), _t(lo), _t(hi)).numpy()
+    np.testing.assert_array_equal(tc, jc)
+
+
+@pytest.mark.parametrize('case', ['plain', 'mask_start', 'n_out_one', 'ragged',
+                                  'duplicates'])
+def test_fps_matches_jax(rng, case):
+    B, N, n_out = 2, 300, 64
+    valid, start = None, None
+    xyz = rng.rand(B, N, 3).astype(np.float32)
+    if case == 'mask_start':
+        valid = rng.rand(B, N) > 0.4
+        start = np.array([np.flatnonzero(valid[b])[0] for b in range(B)], np.int32)
+    elif case == 'n_out_one':
+        n_out, start = 1, np.array([9, 4], np.int32)
+    elif case == 'ragged':
+        B, N, n_out = 1, 391, 137
+        xyz = rng.rand(B, N, 3).astype(np.float32)
+    elif case == 'duplicates':
+        xyz = rng.randint(0, 4, size=(B, N, 3)).astype(np.float32)
+        n_out = 40
+    jkw = dict(valid=None if valid is None else jnp.asarray(valid),
+               start_idx=None if start is None else jnp.asarray(start))
+    tkw = dict(valid=None if valid is None else _t(valid),
+               start_idx=None if start is None else _t(start))
+    ref = np.asarray(j_fps_batched(jnp.asarray(xyz), n_out, use_pallas=False, **jkw))
+    ref_pallas = np.asarray(j_fps_pallas(jnp.asarray(xyz), n_out, **jkw))
+    out = t_fps_batched(_t(xyz), n_out, **tkw).numpy()
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, ref_pallas)
+    if valid is not None:
+        assert all(valid[b][out[b]].all() for b in range(B))
+    unsorted = t_fps_batched(_t(xyz), n_out, sort_result=False, **tkw).numpy()
+    assert unsorted[0, 0] == (0 if start is None else start[0])
+
+
+def test_interp_matches_jax(rng):
+    q = rng.rand(1, 150, 3).astype(np.float32) * 2 - 1
+    k = rng.rand(1, 60, 3).astype(np.float32) * 2 - 1
+    f = rng.randn(1, 60, 24).astype(np.float32)
+    mask = rng.rand(1, 60) > 0.2
+    ref = np.asarray(j_fused_knn_interp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(f),
+                                        8, key_mask=jnp.asarray(mask)))
+    ref_mod = np.asarray(j_knn_interpolate(jnp.asarray(f), jnp.asarray(k),
+                                           jnp.asarray(q), 8, eps=1e-4,
+                                           key_mask=jnp.asarray(mask)))
+    knn = t_attn.knn_extract(_t(q), _t(k), 14, key_mask=_t(mask))
+    out = t_attn.fused_knn_interp(_t(q), _t(k), _t(f), 8, key_mask=_t(mask),
+                                  knn=knn).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(out, ref_mod, atol=ATOL, rtol=RTOL)
+
+
+def _attn_case(rng, N, M, D, E, K):
+    import jax
+    from occlusions4d_tpu.models.layers import VectorAttention
+    x = rng.rand(1, N, D).astype(np.float32) - 0.5
+    pos = rng.rand(1, N, 3).astype(np.float32) * 2 - 1
+    x2 = rng.rand(1, M, E).astype(np.float32) - 0.5
+    pos2 = rng.rand(1, M, 3).astype(np.float32) * 2 - 1
+    mod = VectorAttention(dim=D, num_neighbors=K, dim2=E)
+    variables = jax.jit(mod.init)(jax.random.PRNGKey(0), jnp.asarray(x),
+                                  jnp.asarray(pos), x2=jnp.asarray(x2),
+                                  pos2=jnp.asarray(pos2))
+    p = jax.tree_util.tree_map(np.asarray, variables['params'])
+    ref_mod = np.asarray(jax.jit(mod.apply)(variables, x, pos, x2=x2, pos2=pos2))
+    qp = x @ p['to_q']['kernel']
+    ref_fused = np.asarray(j_fused_attn(jnp.asarray(qp), jnp.asarray(pos),
+                                        jnp.asarray(x2), jnp.asarray(pos2), p, K))
+    tp = {n: {kk: _t(v) for kk, v in d.items()} for n, d in p.items()}
+    return (qp, pos, x2, pos2, tp), ref_mod, ref_fused
+
+
+@pytest.mark.parametrize('shape', [(96, 40, 32, 56, 6), (120, 300, 16, 16, 8)],
+                         ids=['premul_rule', 'per_row_rule'])
+def test_attention_matches_jax(rng, shape):
+    N, M, D, E, K = shape
+    (qp, pos, x2, pos2, tp), ref_mod, ref_fused = _attn_case(rng, N, M, D, E, K)
+    np.testing.assert_allclose(ref_fused, ref_mod, atol=2e-5, rtol=1e-4)
+    auto = t_attn.use_premul(M, D, E)
+    assert auto == (shape[1] == 40)
+    for premul in (True, False):  # both modes, whichever the rule picks.
+        out = t_attn.fused_knn_vector_attention(_t(qp), _t(pos), _t(x2), _t(pos2),
+                                                tp, K, premul=premul).numpy()
+        np.testing.assert_allclose(out, ref_fused, atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(out, ref_mod, atol=ATOL, rtol=RTOL)
+
+
+def test_attention_plain_module_path_agree(rng):
+    '''The port's VectorAttention (plain chain, module path) and its fused
+    operator agree on the same weights and a masked key set.'''
+    from occlusions4d_torch.models.fused import attention_params
+    from occlusions4d_torch.models.layers import VectorAttention
+    torch.manual_seed(0)
+    N, M, D, E, K = 70, 50, 24, 20, 6
+    att = VectorAttention(D, dim2=E, num_neighbors=K)
+    x, pos = _t(rng.rand(1, N, D).astype(np.float32)), _t(rng.rand(1, N, 3).astype(np.float32))
+    x2, pos2 = _t(rng.rand(1, M, E).astype(np.float32)), _t(rng.rand(1, M, 3).astype(np.float32))
+    mask = _t(rng.rand(1, M) > 0.3)
+    with torch.no_grad():
+        ref = att(x, pos, x2=x2, pos2=pos2, key_mask=mask)
+        out = t_attn.fused_knn_vector_attention(att.to_q(x), pos, x2, pos2,
+                                                attention_params(att), K,
+                                                key_mask=mask)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
+
+
+def test_cuda_entry_raises_without_cuda():
+    '''Entry points never fall back to the CPU on their own.'''
+    from occlusions4d_torch import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip('CUDA present: nothing to refuse')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        resolve_device('cuda')
+    assert resolve_device('cpu').type == 'cpu'

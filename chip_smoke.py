@@ -12,8 +12,10 @@ each printing one JSON line:
      ptxas register/shared-memory report goes to chiprun_out/
      chip_smoke_build.log);
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
-     card at the gv1 shapes of the main path, with kernel, plain and library
-     times (CUDA events);
+     card at the gv1 shapes of its path, with kernel, plain and library times
+     (CUDA events); the backward kernels run at the train step's frame
+     (3 examples x 17920 queries; the plain attention backward one example
+     at a time) and also run twice and must give the same bits;
   4. main path: gv1 at full width with seeded random weights (numpy, loaded
      through checkpoint.from_jax_params): encode a 14336-point cloud, decode
      the dense grid in chunks of 32768; launch counters are zeroed just before
@@ -21,6 +23,17 @@ each printing one JSON line:
   5. anchors: both committed checkpoints through load_models and
      perform_inference on the card, against the same run on the CPU (plain
      versions);
+  6. train: the gv1 train step (Trainer, batch 3, 4 frames, seeded numpy
+     weights and a bench.py-shaped synthetic batch): 1 warm-up step, 3 timed
+     steps with the launch counters zeroed just before and read just after
+     (every kernel of the step must launch, the backward kernels included),
+     finite losses, gradients and parameters, changed parameters; then one
+     more Trainer.step timed phase by phase through its phase marks
+     (encoder, sampler, decoder forward, decoder backward, encoder backward,
+     optimizer);
+  7. sampler_moving: one gv1-sized sample_frame batch with the 'moving'
+     bias, which must launch the bidirectional 1-NN kernel, whose result must
+     equal its plain version exactly;
 then the card's nvidia-smi line, the {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
 or without the package beside this file, it exits non-zero and prints no
@@ -52,6 +65,11 @@ _GV1 = dict(n_points=14336, pt_feat_dim=36, up_down_blocks=3, transition_factor=
             cr_cube_bounds=5.0, min_z=-1.0, num_cr_local_feats=8)
 _NUM_SAMPLE = 524288
 _CHUNK = 32768
+# The gv1 training recipe (MIGRATION.md:19-31): loss weights, sampler, frames.
+_GV1_TRAIN = dict(_GV1, color_lw=1.0, density_lw=1.0, segmentation_lw=0.0,
+                  point_occupancy_radius=0.2, air_sampling_ratio=1.5,
+                  num_cr_solid=7168, past_frames=4, future_frames=0, batch_size=3,
+                  point_sample_bias='none')
 _REPLACES = {
     'knn_brute': 'occlusions4d_tpu/ops/pallas_knn.py:88; '
                  'occlusions4d_tpu/ops/pallas_attention.py:1367',
@@ -59,9 +77,18 @@ _REPLACES = {
     'fps': 'occlusions4d_tpu/ops/pallas_fps.py:39',
     'interp': 'occlusions4d_tpu/ops/pallas_attention.py:554',
     'attn': 'occlusions4d_tpu/ops/pallas_attention.py:78',
+    'attn_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:246',
+    'interp_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:661',
+    'nn1_bidir': 'occlusions4d_tpu/ops/pallas_knn.py:521',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
-           'attn': 'attn'}
+           'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
+           'nn1_bidir': 'knn'}
+# The path whose run gives each kernel's launch count.
+_INFER = ('knn_brute', 'knn_pruned', 'fps', 'interp', 'attn')
+_TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
+_PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
+             nn1_bidir='sampler_moving')
 
 
 def emit(obj):
@@ -151,6 +178,185 @@ def knn_agree(d_a, i_a, d_b, i_b):
     scale = d_a.abs().clamp(min=1e-30) * 2.0 ** -22
     bad = diff & ((d_a - d_b).abs() > scale)
     return int(diff.sum()), int(bad.sum())
+
+
+def max_err(a, b):
+    return float((a - b).detach().abs().max())
+
+
+def attn_bwd_plain_per_example(torch, t_attn, args):
+    """The plain attention backward one example at a time (its autograd
+    graph for the whole batch would hold tens of GB); the weight gradients
+    of the examples add up, d(q_proj) and d(kv) stack."""
+    qpos, q_proj, ki, pos2, kv, params, K, premul, g = args
+    parts = [t_attn.attn_bwd_plain(qpos[b:b + 1], q_proj[b:b + 1], ki[b:b + 1],
+                                   pos2[b:b + 1], kv[b:b + 1], params, K, premul,
+                                   g[b:b + 1]) for b in range(q_proj.shape[0])]
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+            {n: sum(p[2][n] for p in parts) for n in parts[0][2]})
+
+
+def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
+    """Kernels A (both modes) and B at the train step's frame (3 examples of
+    17920 queries, each against its own 531-point abstract cloud), kernel C
+    at 28672^2, each against its plain version (A per example); A and B also
+    run twice for reproducibility."""
+    B, N, M, K, KI = 3, 17920, 531, 14, 8
+    D = params['attn_mlp_0']['kernel'].shape[0]
+    H, P = params['attn_mlp_0']['kernel'].shape[1], params['pos_mlp_0']['kernel'].shape[1]
+
+    def rand(*shape, scale=None):
+        a = rng.rand(*shape) * scale - scale / 2 if scale else rng.randn(*shape)
+        return torch.tensor(a.astype(np.float32), device=dev)
+    pos2, feats2 = rand(B, M, 3, scale=10.0), rand(B, M, E)
+    qpos = rand(B, N, 3, scale=10.0)
+    ki, kd = t_attn.knn_extract(qpos, pos2, K)
+    q_proj, g = rand(B, N, D), rand(B, N, D)
+    for premul in (True, False):
+        with torch.no_grad():
+            kv = (torch.cat([feats2 @ params['to_k']['kernel'],
+                             feats2 @ params['to_v']['kernel']], -1).contiguous()
+                  if premul else feats2)
+            args = (qpos, q_proj, ki, pos2, kv, params, K, premul, g)
+            dq, dkv, dw = t_attn.attn_bwd(*args)
+            dq2, dkv2, dw2 = t_attn.attn_bwd(*args)
+        rq, rkv, rw = attn_bwd_plain_per_example(torch, t_attn, args)
+        torch.cuda.synchronize()
+        pairs = [(dq, rq), (dkv, rkv)] + [(dw[n], rw[n]) for n in sorted(rw)]
+        err = max(max_err(a, b) for a, b in pairs)
+        # Each gradient's error over its own scale max(1, max|plain|), the
+        # tolerance's yardstick (attn_mlp_2's bias has an exactly-zero true
+        # gradient, so a plain relative error means nothing there).
+        scaled = max(max_err(a, b) / max(1.0, float(b.abs().max())) for a, b in pairs)
+        ok = all(bool(torch.allclose(a, b, atol=1e-4 * max(1.0, float(b.abs().max())),
+                                     rtol=1e-3)) for a, b in pairs)
+        repro = max([max_err(dq, dq2), max_err(dkv, dkv2)]
+                    + [max_err(dw[n], dw2[n]) for n in dw])
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: t_attn.attn_bwd(*args), 3)
+        plain_ms = cuda_ms(torch, lambda: attn_bwd_plain_per_example(torch, t_attn, args), 2)
+        CW = kv.shape[-1]
+        extra = 0 if premul else E * D
+        # Per row: the recomputed forward and the backward products.
+        macs = B * N * K * ((3 * P + P * D + 2 * D * H + 2 * extra)
+                            + (4 * D * H + 2 * P * D + 3 * P + 4 * extra))
+        n_w = 3 * P + P + P * D + D + D * H + H + H * D + D + 2 * extra
+        nbytes = 4 * (B * N * (3 + D + K + D + D) + 2 * B * M * CW + B * M * 3 + 2 * n_w)
+        b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
+        f32_ms = bound(nbytes, 2.0 * macs)[0]
+        name = 'attn_bwd' if premul else 'attn_bwd_per_row'
+        shape = [B, N, M, K, D, E]
+        emit(dict(phase='kernel', name=name, shape=shape, agree=ok,
+                  max_abs_err=err, max_scaled_err=scaled,
+                  tolerance='atol 1e-4 x max(1, max|plain|), rtol 1e-3',
+                  repeat_max_abs_diff=repro, ms=ms, plain_ms=plain_ms,
+                  plain='autograd through attn_plain, one example at a time',
+                  library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                  bound_peak='bf16 tensor core 989 TFLOP/s',
+                  bound_f32_cuda_core_ms=f32_ms, flop=2.0 * macs))
+        if not ok or repro != 0.0:
+            raise AssertionError(f'{name} disagrees (err {err}) or is not reproducible '
+                                 f'({repro})')
+        if premul:
+            rows['attn_bwd'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                    bound_peak='bf16 tensor core 989 TFLOP/s',
+                                    bound_f32_cuda_core_ms=f32_ms, shape=shape,
+                                    repeat_max_abs_diff=repro)
+        del dq, dkv, dw, dq2, dkv2, dw2, rq, rkv, rw
+
+    gi = rand(B, N, E)
+    d1 = t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4)
+    d2 = t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4)
+    ref = t_attn.interp_bwd_plain(ki, kd, gi, M, KI, 1e-4)
+    torch.cuda.synchronize()
+    err, repro = max_err(d1, ref), max_err(d1, d2)
+    ok = bool(torch.allclose(d1, ref, atol=1e-4 * max(1.0, float(ref.abs().max())),
+                             rtol=1e-3))
+    ms = cuda_ms(torch, lambda: t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4), 20)
+    plain_ms = cuda_ms(torch, lambda: t_attn.interp_bwd_plain(ki, kd, gi, M, KI, 1e-4), 5)
+    # Library: index_add_ of the weighted rows into the (B * M, E) stack
+    # (the weighting is not timed).
+    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
+    wrows = ((w / w.sum(-1, keepdim=True))[..., None] * gi[:, :, None, :]).reshape(-1, E)
+    flat = (ki[..., :KI].long()
+            + M * torch.arange(B, device=dev).view(B, 1, 1)).reshape(-1)
+    lib_ms = cuda_ms(torch, lambda: torch.zeros((B * M, E), device=dev).index_add_(
+        0, flat, wrows), 20)
+    b_ms, b_by = bound(B * (N * KI * 8 + N * E * 4 + M * E * 4), 2.0 * B * N * KI * E)
+    shape = [B, N, M, KI, E]
+    emit(dict(phase='kernel', name='interp_bwd', shape=shape, agree=ok,
+              max_abs_err=err, tolerance='atol 1e-4 x max(1, max|plain|), rtol 1e-3',
+              repeat_max_abs_diff=repro, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+              bound_ms=b_ms, bound_by=b_by))
+    if not ok or repro != 0.0:
+        raise AssertionError(f'interp_bwd disagrees (err {err}) or is not reproducible '
+                             f'({repro})')
+    rows['interp_bwd'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib_ms, shape=shape,
+                              repeat_max_abs_diff=repro)
+
+    NC = 28672
+    a = torch.tensor(rng.rand(1, NC, 3).astype(np.float32) * 10.0 - 5.0, device=dev)
+    b = torch.tensor(rng.rand(1, NC, 3).astype(np.float32) * 10.0 - 5.0, device=dev)
+    inf = float('inf')
+    an = torch.where(torch.tensor(rng.rand(1, NC) > 0.05, device=dev), t_knn.sq_norm(a),
+                     torch.full((1, NC), inf, device=dev))
+    bn = torch.where(torch.tensor(rng.rand(1, NC) > 0.05, device=dev), t_knn.sq_norm(b),
+                     torch.full((1, NC), inf, device=dev))
+    ka, kb = t_knn.nn1_bidir_rank(a, an, b, bn)
+    pa, pb = t_knn.nn1_bidir_plain(a, an, b, bn)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(ka, pa)) and bool(torch.equal(kb, pb))
+    fin = torch.isfinite(pa)
+    err = max(max_err(ka[fin], pa[fin]), max_err(kb[torch.isfinite(pb)],
+                                                  pb[torch.isfinite(pb)]))
+    ms = cuda_ms(torch, lambda: t_knn.nn1_bidir_rank(a, an, b, bn), 10)
+    plain_ms = cuda_ms(torch, lambda: t_knn.nn1_bidir_plain(a, an, b, bn), 2)
+
+    def lib():
+        d = torch.cdist(a, b)
+        return d.amin(-1), d.amin(-2)
+    lib_ms = cuda_ms(torch, lib, 3)
+    # Per pair: 3 mul + 2 add for the dot, 1 mul, 2 sub (mins not counted).
+    b_ms, b_by = bound((2 * NC) * 16 + (2 * NC) * 4, 8.0 * NC * NC)
+    emit(dict(phase='kernel', name='nn1_bidir', shape=[NC, NC], agree=ok, exact=ok,
+              max_abs_err=err, tolerance='exact (bit-equal)', ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+              library='torch.cdist + amin along both axes', bound_ms=b_ms, bound_by=b_by))
+    if not ok:
+        raise AssertionError(f'nn1_bidir differs from its plain version (err {err})')
+    rows['nn1_bidir'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms, shape=[NC, NC])
+
+
+def train_batch(torch, cfg, dev, seed=1):
+    """A seeded synthetic batch shaped as bench.py:57-82 builds it (GREATER
+    layout, target budget 2 x n_points), on the card."""
+    rng = np.random.RandomState(seed)
+    B, N, T = cfg.batch_size, cfg.n_points, cfg.past_frames + cfg.future_frames
+    M, E, half = 2 * N, 9, cfg.cr_cube_bounds
+    tgt = np.zeros((B, T, M, E), np.float32)
+    tgt[..., :3] = rng.rand(B, T, M, 3) * 2.0 * half - half
+    tgt[..., 2] = np.abs(tgt[..., 2])
+    tgt[..., 5:8] = rng.rand(B, T, M, 3)
+    batch = dict(pcl_input=(rng.rand(B, N, 8) * 2 - 1).astype(np.float32),
+                 pcl_target=tgt, pcl_target_valid=np.ones((B, T, M), bool),
+                 valo_ids=np.tile(np.arange(32, dtype=np.int32), (B, 1)),
+                 num_valo_ids=np.full((B,), 8, np.int32))
+    return {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+
+
+def split_step(torch, tr, batch):
+    """One more Trainer.step, with a synchronize at each phase mark of the
+    step: ms of each phase (make_train_step's names), in order."""
+    torch.cuda.synchronize()
+    marks = [('start', time.time())]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.time()))
+    tr.step(batch, mark=mark)
+    return {n: (t - marks[i][1]) * 1e3 for i, (n, t) in enumerate(marks[1:])}
 
 
 def main():
@@ -374,6 +580,9 @@ def main():
                                 shape=[_CHUNK, 531, 14, D, E])
     del o_k, o_p
 
+    # K5 / K6 / K7: the backward kernels and the bidirectional 1-NN.
+    check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows)
+
     # 4. The main path: encode + dense decode at gv1 width.
     loaded = dict(encoder=encoder, decoder=decoder, device=dev)
     engine = InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
@@ -404,9 +613,10 @@ def main():
     if not finite or list(abstract.shape) != [1, 531, 3 + 288] \
             or list(out.shape) != [queries.shape[0], 5]:
         raise AssertionError('main path output is not finite or has the wrong shape')
-    missing = [k for k in _REPLACES if counts.get(k, 0) <= 0]
+    missing = [k for k in _INFER if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the main path: {missing}')
+    path_counts = {'main_path': counts}
     del out
 
     # 5. Both anchors on the card, against the CPU plain versions.
@@ -443,11 +653,94 @@ def main():
         if not ok:
             raise AssertionError(f'{name}: GPU inference disagrees with the CPU run')
 
-    # 6. Summary lines.
+    # 6. The gv1 train step.
+    from occlusions4d_torch.train import Trainer
+    tcfg = TrainConfig(**_GV1_TRAIN)
+    tr = Trainer(tcfg, 'greater', 'cuda')
+    wrng = np.random.RandomState(2)
+    tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                              decoder=random_jax_params(tr.decoder, wrng)),
+                  seed=0, steps_per_epoch=100)
+    batch = train_batch(torch, tcfg, dev)
+    before = [p.detach().clone() for p in tr.optimizer.params]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr.step(batch)                              # warm-up step, not counted.
+    torch.cuda.synchronize()
+    warm_ms = (time.time() - t0) * 1e3
+    _build.reset_launch_counts()
+    steps = []
+    for _ in range(3):
+        t0 = time.time()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.time() - t0) * 1e3,
+                          **{k: (v.tolist() if v.dim() else v.item())
+                             for k, v in m.items()}))
+    counts = _build.launch_counts()
+    path_counts['train'] = counts
+    changed = max(max_err(p, q) for p, q in zip(tr.optimizer.params, before))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = split_step(torch, tr, batch)
+    # The sampler's pruned 1-NN (air rejections) at its gv1 shape.
+    tgt0 = batch['pcl_target'][:, 0, :, :3].contiguous()
+    cand = tgt0[:, :6996] + 0.3
+    calls = counts['knn_pruned'] // 3 - 1      # per step, less the encoder's.
+    pruned_ms = cuda_ms(torch, lambda: t_knn.nn1_min_dist(cand, tgt0), 5)
+    step_ms = float(np.mean([st['ms'] for st in steps]))
+    ok = (all(np.isfinite(st['total_loss']) and st['grads_finite'] and st['params_finite']
+              for st in steps) and changed > 0.0
+          and list(split) == ['encoder', 'sampler', 'decoder_forward', 'decoder_backward',
+                              'encoder_backward', 'optimizer'])
+    emit(dict(phase='train', model='gv1', batch_size=tcfg.batch_size,
+              frames=tcfg.past_frames, queries_per_frame=7168 + 10752,
+              warmup_ms=warm_ms, step_ms=[st['ms'] for st in steps], mean_step_ms=step_ms,
+              steps=steps, launches=counts, params_changed_max_abs=changed,
+              split_ms=split, peak_mem_gib=peak_gb,
+              sampler_pruned_knn_ms_per_call=pruned_ms, sampler_pruned_knn_calls=calls,
+              sampler_pruned_knn_share=pruned_ms * calls / step_ms, ok=ok, gpu=smi))
+    missing = [k for k in _TRAIN if counts.get(k, 0) <= 0]
+    if missing or not ok:
+        raise AssertionError(f'train phase failed: not launched {missing}, ok={ok}')
+
+    # 7. The sampler's 'moving' branch at gv1 sizes.
+    from occlusions4d_torch.models.factory import build_sampler_args
+    from occlusions4d_torch.sampler import GuidedPointSampler, SamplerConfig
+    sampler = GuidedPointSampler(SamplerConfig(**dict(
+        build_sampler_args(tcfg, 'greater'), point_sample_bias='moving')))
+    tgt = batch['pcl_target'][:, 0]
+    valid = batch['pcl_target_valid'][:, 0]
+    other = tgt.clone()
+    other[:, :2000, :3] += 3.0                   # a moved object.
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = sampler.sample_frame(tr.generator, tgt, valid, other, valid, batch['valo_ids'],
+                               batch['num_valo_ids'], 0)
+    torch.cuda.synchronize()
+    s_ms = (time.time() - t0) * 1e3
+    counts = _build.launch_counts()
+    path_counts['sampler_moving'] = counts
+    a, b3 = tgt[..., :3].contiguous(), other[..., :3].contiguous()
+    ka, kb = t_knn.nn1_bidir_rank(a, t_knn.sq_norm(a), b3, t_knn.sq_norm(b3))
+    pa, pb = t_knn.nn1_bidir_plain(a, t_knn.sq_norm(a), b3, t_knn.sq_norm(b3))
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(ka, pa)) and bool(torch.equal(kb, pb))
+    finite = all(bool(torch.isfinite(res[k]).all())
+                 for k in ('solid_input', 'air_input', 'solid_target', 'air_target'))
+    emit(dict(phase='sampler_moving', ms=s_ms, launches=counts, nn1_exact=exact,
+              finite=finite, solid_sbs=res['solid_sbs'].mean(0).tolist(),
+              air_sbs=res['air_sbs'].mean(0).tolist(), ok=bool(res['ok'].all()),
+              air_pool_counts=res['air_pool_counts'].tolist()))
+    if counts['nn1_bidir'] <= 0 or not exact or not finite:
+        raise AssertionError('sampler_moving failed: nn1_bidir launches '
+                             f'{counts["nn1_bidir"]}, exact {exact}, finite {finite}')
+
+    # 8. Summary lines.
     kernels = []
     for name, src in _SOURCE.items():
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',
-                   replaces=_REPLACES[name], launches=int(counts[name]))
+                   replaces=_REPLACES[name], path=_PATH[name],
+                   launches=int(path_counts[_PATH[name]][name]))
         row.update(rows[name])
         kernels.append(row)
     emit(dict(phase='done', seconds=time.time() - t_start))

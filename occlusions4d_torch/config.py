@@ -1,7 +1,7 @@
 '''
-The training-configuration fields that model assembly and evaluation read
-(own copy of part of occlusions4d_tpu/config.py::TrainConfig, same names and
-defaults). Checkpoints carry the full JAX config dict; config_from_dict keeps
+The training-configuration fields that model assembly, evaluation and the
+train step read (own copy of part of occlusions4d_tpu/config.py::TrainConfig,
+same names and defaults). Checkpoints carry the full JAX config dict; config_from_dict keeps
 the fields known here and ignores the rest.
 '''
 
@@ -24,6 +24,8 @@ class TrainConfig:
     num_cr_local_feats: int = 8
     # Data and scene cuboids.
     n_points: int = 8192
+    n_data_rnd: int = 16384
+    video_len: int = 6
     min_z: float = -1.0
     cr_cube_bounds: float = -1.0
     cube_mode: int = 4
@@ -41,7 +43,22 @@ class TrainConfig:
     semantic_classes: int = 13
     segmentation_lw: float = 0.0
     tracking_lw: float = 0.0
+    # Training.
+    seed: int = 1830
+    batch_size: int = 8
+    learn_rate: float = 1e-3
+    lr_decay: float = 0.4
+    num_epochs: int = 20
+    gradient_clip: float = 0.2
+    # Loss and query sampling.
+    density_lw: float = 1.0
+    color_lw: float = 0.0
     point_occupancy_radius: float = 0.2
+    num_cr_solid: int = 7168
+    air_sampling_ratio: float = 1.5
+    point_sample_bias: str = 'none'
+    past_frames: int = 2
+    future_frames: int = 0
 
 
 def config_from_dict(cls, d):

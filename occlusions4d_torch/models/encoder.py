@@ -9,6 +9,7 @@ configuration and is not ported.
 import torch
 from torch import nn
 
+from ..ops.fps import random_start_indices
 from .layers import DownTransition, PointTransformerBlock
 
 __all__ = ['PointEncoder']
@@ -29,6 +30,7 @@ class PointEncoder(nn.Module):
         if abstract_levels > 1 and skip_connections:
             raise ValueError('abstract_levels > 1 excludes skip_connections')
         self.d_feat = d_feat
+        self.fps_random_start = fps_random_start
         self.down_blocks = down_blocks
         self.abstract_levels = abstract_levels
         self.output_featurized = output_featurized
@@ -56,18 +58,23 @@ class PointEncoder(nn.Module):
             self.global_mlp = nn.Sequential(nn.Linear(dim, global_dim), nn.ReLU(),
                                             nn.Linear(global_dim, global_dim))
 
-    def forward(self, pcl):
+    def forward(self, pcl, generator=None):
         '''
         :param pcl (B, N, d_in): (x, y, z, R, G, B, t, mark_track).
+        :param generator: torch.Generator of the training-time random FPS
+            starts (used in train mode when fps_random_start; start 0 else).
         :return (pcl_out (B, M_total, 3 + E) or None, x_global (B, G) or None).
         '''
+        random_start = self.training and self.fps_random_start and generator is not None
         pos = pcl[..., :3]
         x = self.pre_mlp(pcl)
         skips = []
         blocks = list(self.blocks)
         for i in range(self.down_blocks):
             x, pos = blocks[2 * i](x, pos)
-            x, pos = blocks[2 * i + 1](x, pos)
+            start = (random_start_indices(generator, x.shape[0], x.shape[1],
+                                          device=x.device) if random_start else None)
+            x, pos = blocks[2 * i + 1](x, pos, start_idx=start)
             j = self._skip_at.get(x.shape[-1])
             if j is not None:
                 y = self.abstract_skip_mlps[j](x)

@@ -1,14 +1,16 @@
 '''
 Model assembly from a config (port of occlusions4d_tpu/models/factory.py):
-head widths per color mode and the latent plumbing between encoder and
-decoder. The constructor kwarg dicts are the ones checkpoints store.
+head widths per color mode, the latent plumbing between encoder and decoder,
+and the sampler arguments. The constructor kwarg dicts are the ones
+checkpoints store.
 '''
 
 from .encoder import PointEncoder
 from .implicit import LocalImplicitField
 
 __all__ = ['color_channels', 'track_idx', 'decoder_out_channels',
-           'build_encoder_args', 'build_decoder_args', 'build_models']
+           'build_encoder_args', 'build_decoder_args', 'build_models',
+           'build_sampler_args']
 
 _COLOR_Q = {'rgb': 3, 'rgb_nosigmoid': 3, 'hsv': 14, 'bins': 9}
 
@@ -73,3 +75,16 @@ def build_models(cfg=None, encoder_args=None, decoder_args=None):
     decoder_args = dict(decoder_args or build_decoder_args(cfg))
     return (PointEncoder(**encoder_args), LocalImplicitField(**decoder_args),
             encoder_args, decoder_args)
+
+
+def build_sampler_args(cfg, data_kind):
+    '''SamplerConfig keyword arguments of a training config.'''
+    return dict(
+        min_z=cfg.min_z, cube_bounds=cfg.cr_cube_bounds,
+        point_occupancy_radius=cfg.point_occupancy_radius,
+        num_solid=cfg.num_cr_solid,
+        num_air=int(cfg.num_cr_solid * cfg.air_sampling_ratio),
+        predict_segmentation=cfg.segmentation_lw > 0.0,
+        semantic_classes=cfg.semantic_classes,
+        predict_tracking=cfg.tracking_lw > 0.0, data_kind=data_kind,
+        point_sample_bias=cfg.point_sample_bias, cube_mode=cfg.cube_mode)

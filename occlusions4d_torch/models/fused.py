@@ -7,6 +7,14 @@ the interpolation kernel and the attention kernel per cross-attention block.
 The backbone's Linear layers stay plain matmuls, as they stay XLA dots in the
 JAX package. On CPU tensors every operator runs its plain version.
 
+The path is differentiable (the train step's decoder): the interpolation and
+attention operators are autograd Functions whose backward is a kernel
+(csrc/interp_bwd.cu, csrc/attn_bwd.cu); the attention weights reach them as
+tensors, so their gradients flow back to the nn.Linear parameters, and the
+premul projection stays outside the kernel, so autograd chains d(kv) to the
+abstract features and to_k/to_v. The kNN graph and the abstract positions
+carry no gradient (as the JAX path's stop_gradient).
+
 The abstract cloud of gv1 has 531 points, below the 1024 at which the JAX
 package switches to its shared-gather kernels. Those kernels are not ported
 yet: on CUDA tensors fused_field_apply raises at or above the threshold rather

@@ -23,7 +23,10 @@ __all__ = ['NormLayer', 'VectorAttention', 'PointTransformerBlock', 'DownTransit
 
 class NormLayer(nn.Module):
     '''none / batch (eval statistics, eps 1e-3) / layer (eps 1e-5). Parameters
-    sit on the module itself, as the reference's nn.BatchNorm1d/LayerNorm.'''
+    sit on the module itself, as the reference's nn.BatchNorm1d/LayerNorm.
+    Batch norm in train mode (batch statistics, running-average updates) is
+    not ported: it raises rather than quietly normalize with the running
+    statistics.'''
 
     def __init__(self, norm_type, dim):
         super().__init__()
@@ -44,6 +47,9 @@ class NormLayer(nn.Module):
         if self.norm_type == 'layer':
             return nn.functional.layer_norm(x, (self.dim,), self.weight, self.bias,
                                             eps=1e-5)
+        if self.training:
+            raise NotImplementedError('NormLayer(batch) in train mode (batch '
+                                      'statistics) is not ported; call .eval()')
         inv = torch.rsqrt(self.running_var + 1e-3)
         return (x - self.running_mean) * (inv * self.weight) + self.bias
 

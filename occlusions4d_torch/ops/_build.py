@@ -41,6 +41,8 @@ SOURCES = {
     'fps': ['-fmad=false'],
     'interp': [],
     'attn': [],
+    'interp_bwd': [],
+    'attn_bwd': [],
 }
 
 _LIBS = {}

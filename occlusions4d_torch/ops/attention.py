@@ -1,17 +1,25 @@
 '''
 The fused decoder operators (port of occlusions4d_tpu/ops/pallas_attention.py,
-the use_idx forms that the gv1 decode runs):
+the use_idx forms that the gv1 decode and train step run):
 
   knn_extract                 shared exact kNN of the decoder queries against
                               the abstract cloud; the brute-force kNN kernel
-                              (csrc/knn.cu) serves it;
-  fused_knn_interp            inverse-distance interpolation, csrc/interp.cu;
+                              (csrc/knn.cu) serves it; no gradient;
+  fused_knn_interp            inverse-distance interpolation, csrc/interp.cu,
+                              differentiable in the key features through
+                              csrc/interp_bwd.cu;
   fused_knn_vector_attention  one vector cross-attention block, csrc/attn.cu,
-                              in premul or per-row projection mode.
+                              in premul or per-row projection mode,
+                              differentiable in the queries, the key set and
+                              every weight through csrc/attn_bwd.cu.
 
-A CUDA tensor launches the kernel; a CPU tensor runs the plain version beside
-it. Layouts follow the port, not the TPU: knn_extract returns (B, N, k)
-arrays, not 128-lane padded tiles.
+The two differentiable operators are torch.autograd.Functions whose forward
+is the forward kernel and whose backward is the backward kernel; like the
+JAX custom VJPs they save only their inputs, never an (N, K, D) tensor, and
+positions get no gradient. A CUDA tensor launches the kernels; a CPU tensor
+runs the plain versions beside them (the plain backward is autograd through
+the plain forward). Layouts follow the port, not the TPU: knn_extract returns
+(B, N, k) arrays, not 128-lane padded tiles.
 '''
 
 import ctypes
@@ -23,22 +31,27 @@ from . import _build
 from .knn import _prepare, gather_neighbors, knn_rank, sq_norm
 
 __all__ = ['knn_extract', 'fused_knn_interp', 'fused_knn_vector_attention',
-           'interp_plain', 'attn_plain', 'use_premul', 'LAUNCHES']
+           'interp_plain', 'interp_bwd_plain', 'attn_plain', 'attn_bwd_plain',
+           'attn_bwd', 'interp_bwd', 'use_premul', 'LAUNCHES']
 
-LAUNCHES = {'interp': 0, 'attn': 0}
+LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0}
+_MLP = ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use.
 
 
 def knn_extract(q_pos, pos2, k, *, key_mask=None):
     '''
     Exact kNN of every query among the abstract points, shared by the
-    interpolation and both attention layers of one decode.
+    interpolation and both attention layers of one decode. Outside autograd:
+    indices and distances carry no gradient.
     :param q_pos (B, N, >=3); pos2 (B, M, >=3); key_mask (B, M) bool or None.
     :return (ki (B, N, k) int32, kd (B, N, k) f32): neighbour rows, ascending,
         and squared distances d + |q|^2 (not clamped, as the TPU producer).
     '''
-    q, kk, kn, _ = _prepare(q_pos, pos2, key_mask)
-    d, idx = knn_rank(q, kk, kn, k)
-    return idx, d + sq_norm(q)[..., None]
+    with torch.no_grad():
+        q, kk, kn, _ = _prepare(q_pos, pos2, key_mask)
+        d, idx = knn_rank(q, kk, kn, k)
+        return idx, d + sq_norm(q)[..., None]
 
 
 def _cuda_f32(name, t):
@@ -48,20 +61,51 @@ def _cuda_f32(name, t):
     return t
 
 
+def _cuda_ki(name, ki):
+    if not (ki.is_cuda and ki.dtype == torch.int32 and ki.is_contiguous()):
+        raise ValueError(f'{name}: ki must be a contiguous CUDA int32 tensor')
+    return ki
+
+
+def _slots(device, B, work):
+    '''Persistent blocks per example of the backward kernels: about one per
+    SM over the whole batch, never more than the example has work items.'''
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-sms // B), work))
+
+
+# ------------------------------------------------------------ interpolation --
+
+def _interp_weights(kd, k, eps):
+    return 1.0 / (torch.sqrt(torch.clamp(kd[..., :k], min=0.0)) + eps)
+
+
 def interp_plain(ki, kd, feats, k, eps):
     '''Plain version of the interpolation kernel.
     :param ki (B, N, >=k) int; kd (B, N, >=k) f32; feats (B, M, E).
     :return (B, N, E) f32.'''
-    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :k], min=0.0)) + eps)
+    w = _interp_weights(kd, k, eps)
     g = gather_neighbors(feats, ki[..., :k])
     return (w[..., None] * g).sum(2) / w.sum(-1, keepdim=True)
+
+
+def interp_bwd_plain(ki, kd, g, M, k, eps):
+    '''Plain version of the interpolation backward kernel: d(feats) (B, M, E)
+    = sum over queries n and neighbours j of (w_nj / sum_i w_ni) g_n,
+    scattered to row ki_nj.'''
+    B, N, _ = ki.shape
+    E = g.shape[-1]
+    w = _interp_weights(kd, k, eps)
+    rows = (w / w.sum(-1, keepdim=True))[..., None] * g[:, :, None, :]
+    idx = ki[..., :k].reshape(B, N * k, 1).long().expand(B, N * k, E)
+    out = torch.zeros((B, M, E), dtype=torch.float32, device=g.device)
+    return out.scatter_add_(1, idx, rows.reshape(B, N * k, E))
 
 
 def _interp_cuda(ki, kd, feats, k, eps):
     B, N, KS = ki.shape
     M, E = feats.shape[1:]
-    if not (ki.is_cuda and ki.dtype == torch.int32 and ki.is_contiguous()):
-        raise ValueError('interp: ki must be a contiguous CUDA int32 tensor')
+    _cuda_ki('interp', ki)
     _cuda_f32('kd', kd)
     _cuda_f32('feats', feats)
     if tuple(kd.shape) != (B, N, KS) or feats.shape[0] != B or not 1 <= k <= min(KS, 32):
@@ -80,10 +124,67 @@ def _interp_cuda(ki, kd, feats, k, eps):
     return out
 
 
+def _interp_bwd_cuda(ki, kd, g, M, k, eps):
+    B, N, KS = ki.shape
+    E = g.shape[-1]
+    _cuda_ki('interp_bwd', ki)
+    _cuda_f32('kd', kd)
+    _cuda_f32('g', g)
+    if tuple(kd.shape) != (B, N, KS) or tuple(g.shape[:2]) != (B, N) \
+            or not 1 <= k <= min(KS, 32):
+        raise ValueError(f'interp_bwd: bad shapes ki {tuple(ki.shape)}, kd '
+                         f'{tuple(kd.shape)}, g {tuple(g.shape)}, k={k}')
+    lib = _build.library('interp_bwd')
+    lib.o4d_interp_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.o4d_interp_bwd_smem_bytes.restype = ctypes.c_longlong
+    if lib.o4d_interp_bwd_smem_bytes(M) > _SMEM_LIMIT:
+        raise NotImplementedError(f'interp_bwd holds an M x 32 partial in shared '
+                                  f'memory; M={M} does not fit')
+    G = _slots(g.device, B, N)
+    scratch = torch.empty((B * G * M * E,), dtype=torch.float32, device=g.device)
+    out = torch.empty((B, M, E), dtype=torch.float32, device=g.device)
+    fn = lib.o4d_interp_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(g.device):
+        _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(g),
+                        _build.ptr(scratch), _build.ptr(out), B, N, M, E, KS, k, G,
+                        float(eps), _build.stream_ptr(g.device)), 'interp_bwd')
+    LAUNCHES['interp_bwd'] += 1
+    return out
+
+
+def interp_bwd(ki, kd, g, M, k, eps):
+    '''d(feats) of the interpolation: kernel B on CUDA, plain version on the CPU.'''
+    g = g.to(torch.float32).contiguous()
+    if g.is_cuda:
+        return _interp_bwd_cuda(ki.contiguous(), kd.contiguous(), g, M, k, eps)
+    return interp_bwd_plain(ki, kd, g, M, k, eps)
+
+
+class _Interp(torch.autograd.Function):
+    '''Forward csrc/interp.cu, backward csrc/interp_bwd.cu (plain versions on
+    the CPU); saves only ki and kd.'''
+
+    @staticmethod
+    def forward(ctx, ki, kd, feats, k, eps):
+        ctx.save_for_backward(ki, kd)
+        ctx.k, ctx.eps, ctx.M = k, eps, feats.shape[1]
+        if feats.is_cuda:
+            return _interp_cuda(ki, kd, feats, k, eps)
+        return interp_plain(ki, kd, feats, k, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        ki, kd = ctx.saved_tensors
+        return None, None, interp_bwd(ki, kd, g, ctx.M, ctx.k, ctx.eps), None, None
+
+
 def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None):
     '''
     out_n = sum_j w_j f_j / sum_j w_j with w_j = 1 / (|q_n - p_j| + eps) over
-    the k nearest keys.
+    the k nearest keys. Differentiable in feats.
     :param q_pos (B, N, 3); pos2 (B, M, 3); feats (B, M, E).
     :param knn: optional knn_extract(q_pos, pos2, k' >= k, key_mask) result.
     :return (B, N, E) f32.
@@ -92,10 +193,10 @@ def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None
         knn = knn_extract(q_pos, pos2, k, key_mask=key_mask)
     ki, kd = knn
     feats = feats.to(torch.float32).contiguous()
-    if feats.is_cuda:
-        return _interp_cuda(ki.contiguous(), kd.contiguous(), feats, k, eps)
-    return interp_plain(ki, kd, feats, k, eps)
+    return _Interp.apply(ki.contiguous(), kd.contiguous(), feats, k, eps)
 
+
+# ---------------------------------------------------------------- attention --
 
 def use_premul(M, dim, feat):
     '''Projection placement rule of the TPU wrapper (pallas_attention.py:1630):
@@ -130,7 +231,47 @@ def attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul):
     return (attn * (vg + pe)).sum(2)
 
 
-def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul):
+def _grad_names(premul):
+    '''The differentiable weight leaves of the attention operator, in the
+    order its backward returns them.'''
+    names = [] if premul else [('to_k', 'kernel'), ('to_v', 'kernel')]
+    for n in _MLP:
+        names += [(n, 'kernel'), (n, 'bias')]
+    return names
+
+
+def _params(names, weights):
+    '''{name: {leaf: tensor}} from _grad_names(...) and matching tensors.'''
+    p = {n: {} for n in ('to_k', 'to_v') + _MLP}
+    for (n, leaf), t in zip(names, weights):
+        p[n][leaf] = t
+    return p
+
+
+def attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
+    '''Plain version of the attention backward kernel: autograd through
+    attn_plain. :return (d(q_proj), d(kv), {(name, leaf): d(weight)}).'''
+    with torch.enable_grad():
+        qp = q_proj.detach().requires_grad_(True)
+        kvl = kv.detach().requires_grad_(True)
+        leaves = {nl: params[nl[0]][nl[1]].detach().to(torch.float32).requires_grad_(True)
+                  for nl in _grad_names(premul)}
+        p = _params(leaves, leaves.values())
+        out = attn_plain(q_pos.detach(), qp, ki, pos2.detach(), kvl, p, k, premul)
+        grads = torch.autograd.grad(out, [qp, kvl] + list(leaves.values()), g)
+    return grads[0], grads[1], dict(zip(leaves, grads[2:]))
+
+
+def _attn_lib():
+    lib = _build.library('attn')
+    lib.o4d_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.o4d_attn_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul):
+    '''Checked, contiguous operands shared by the forward and backward
+    kernels: (dims dict, weight dict, bias dict, wk, wv).'''
     B, N, D = q_proj.shape
     M = pos2.shape[1]
     KS = ki.shape[-1]
@@ -138,18 +279,15 @@ def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul):
     if kv.shape[-1] != (2 * D if premul else E) or kv.shape[:2] != (B, M):
         raise ValueError(f'attn: kv {tuple(kv.shape)} does not fit B={B}, M={M}, '
                          f'D={D}, premul={premul}')
-    if not (ki.is_cuda and ki.dtype == torch.int32 and ki.is_contiguous()):
-        raise ValueError('attn: ki must be a contiguous CUDA int32 tensor')
+    _cuda_ki('attn', ki)
     if tuple(ki.shape[:2]) != (B, N) or not 1 <= k <= min(KS, 32):
         raise ValueError(f'attn: bad ki {tuple(ki.shape)} for N={N}, k={k}')
-    w = {n: _cuda_f32(n, _kernel(params, n).contiguous())
-         for n in ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')}
-    b = {n: _cuda_f32(n, params[n]['bias'].to(torch.float32).contiguous())
-         for n in ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')}
+    w = {n: _cuda_f32(n, _kernel(params, n).contiguous()) for n in _MLP}
+    b = {n: _cuda_f32(n, params[n]['bias'].to(torch.float32).contiguous()) for n in _MLP}
     P = w['pos_mlp_0'].shape[1]
     H = w['attn_mlp_0'].shape[1]
     if premul:
-        wk = wv = kv  # unused by the kernel in this mode.
+        wk = wv = kv  # unused by the kernels in this mode.
     else:
         wk = _cuda_f32('to_k', _kernel(params, 'to_k').contiguous())
         wv = _cuda_f32('to_v', _kernel(params, 'to_v').contiguous())
@@ -157,33 +295,128 @@ def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul):
             or w['attn_mlp_0'].shape != (D, H) or w['attn_mlp_2'].shape != (H, D)
             or (not premul and wk.shape != (E, D))):
         raise ValueError(f'attn: weight shapes do not fit D={D}, E={E}')
-    lib = _build.library('attn')
-    lib.o4d_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.o4d_attn_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.o4d_attn_smem_bytes(D, E, P)
-    if smem > 232448:
-        raise NotImplementedError(f'attn kernel needs {smem} B of shared memory '
-                                  f'at D={D}, E={E}; the H100 block limit is 232448')
     for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('pos2', pos2), ('kv', kv)):
         _cuda_f32(name, t)
+    dims = dict(B=B, N=N, M=M, D=D, E=E, H=H, P=P, KS=KS)
+    return dims, w, b, wk, wv
+
+
+def _weight_ptrs(w, b):
+    return [w['pos_mlp_0'], b['pos_mlp_0'], w['pos_mlp_2'], b['pos_mlp_2'],
+            w['attn_mlp_0'], b['attn_mlp_0'], w['attn_mlp_2'], b['attn_mlp_2']]
+
+
+def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul):
+    dims, w, b, wk, wv = _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+    B, N, D = dims['B'], dims['N'], dims['D']
+    lib = _attn_lib()
+    smem = lib.o4d_attn_smem_bytes(D, dims['E'], dims['P'])
+    if smem > _SMEM_LIMIT:
+        raise NotImplementedError(f'attn kernel needs {smem} B of shared memory '
+                                  f'at D={D}, E={dims["E"]}; the H100 block limit '
+                                  f'is {_SMEM_LIMIT}')
     out = torch.empty((B, N, D), dtype=torch.float32, device=q_proj.device)
     fn = lib.o4d_attn
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = [q_pos, q_proj, ki, pos2, kv, wk, wv, w['pos_mlp_0'], b['pos_mlp_0'],
-            w['pos_mlp_2'], b['pos_mlp_2'], w['attn_mlp_0'], b['attn_mlp_0'],
-            w['attn_mlp_2'], b['attn_mlp_2'], out]
+    ptrs = [q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b) + [out]
     with torch.cuda.device(q_proj.device):
-        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, M, D, E, H, P, KS, k,
-                        int(premul), _build.stream_ptr(q_proj.device)), 'attn')
+        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, dims['M'], D, dims['E'],
+                        dims['H'], dims['P'], dims['KS'], k, int(premul),
+                        _build.stream_ptr(q_proj.device)), 'attn')
     LAUNCHES['attn'] += 1
     return out
+
+
+def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
+    dims, w, b, wk, wv = _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+    B, N, M, D, E, H, P = (dims[x] for x in 'BNMDEHP')
+    _cuda_f32('g', g)
+    if tuple(g.shape) != (B, N, D):
+        raise ValueError(f'attn_bwd: g {tuple(g.shape)} does not fit {(B, N, D)}')
+    lib = _build.library('attn_bwd')
+    lib.o4d_attn_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.o4d_attn_bwd_smem_bytes.restype = ctypes.c_longlong
+    smem = lib.o4d_attn_bwd_smem_bytes(D, E, P)
+    if smem + 1024 > _SMEM_LIMIT:
+        raise NotImplementedError(f'attn_bwd kernel needs {smem} B of shared '
+                                  f'memory at D={D}, E={E}; the H100 block limit '
+                                  f'is {_SMEM_LIMIT}')
+    for f in (lib.o4d_attn_bwd_weight_floats, lib.o4d_attn_bwd_slot_floats):
+        f.restype = ctypes.c_longlong
+    lib.o4d_attn_bwd_weight_floats.argtypes = [ctypes.c_int] * 5
+    lib.o4d_attn_bwd_slot_floats.argtypes = [ctypes.c_int] * 6
+    n_w = lib.o4d_attn_bwd_weight_floats(D, E, H, P, int(premul))
+    slot = lib.o4d_attn_bwd_slot_floats(M, D, E, H, P, int(premul))
+    G = _slots(q_proj.device, B, -(-N // (32 // k)))
+    dev = q_proj.device
+    scratch = torch.empty((B * G * slot,), dtype=torch.float32, device=dev)
+    dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
+    dw = torch.empty((n_w,), dtype=torch.float32, device=dev)
+    dkv = torch.empty(kv.shape, dtype=torch.float32, device=dev)
+    fn = lib.o4d_attn_bwd
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = ([q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b)
+            + [g, dq, dw, dkv, scratch])
+    with torch.cuda.device(dev):
+        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, M, D, E, H, P,
+                        dims['KS'], k, int(premul), G, _build.stream_ptr(dev)),
+                     'attn_bwd')
+    LAUNCHES['attn_bwd'] += 1
+    # The weight-gradient block's layout (csrc/attn_bwd.cu::weight_floats).
+    sizes = [('attn_mlp_0', 'kernel', (D, H)), ('attn_mlp_2', 'kernel', (H, D)),
+             ('pos_mlp_2', 'kernel', (P, D)), ('pos_mlp_0', 'kernel', (3, P)),
+             ('attn_mlp_0', 'bias', (H,)), ('attn_mlp_2', 'bias', (D,)),
+             ('pos_mlp_2', 'bias', (D,)), ('pos_mlp_0', 'bias', (P,))]
+    if not premul:
+        sizes += [('to_k', 'kernel', (E, D)), ('to_v', 'kernel', (E, D))]
+    grads, off = {}, 0
+    for name, leaf, shape in sizes:
+        n = math.prod(shape)
+        grads[(name, leaf)] = dw[off:off + n].view(shape)
+        off += n
+    return dq, dkv, grads
+
+
+def attn_bwd(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
+    '''Backward of the attention operator: kernel A on CUDA, plain version on
+    the CPU. :return (d(q_proj), d(kv), {(name, leaf): d(weight)}).'''
+    g = g.to(torch.float32).contiguous()
+    if q_proj.is_cuda:
+        return _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g)
+    return attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g)
+
+
+class _Attention(torch.autograd.Function):
+    '''Forward csrc/attn.cu, backward csrc/attn_bwd.cu (plain versions on the
+    CPU). Saves only its inputs. Gradients: q_proj, kv and the weights;
+    positions and indices get none.'''
+
+    @staticmethod
+    def forward(ctx, q_pos, q_proj, ki, pos2, kv, k, premul, *weights):
+        names = _grad_names(premul)
+        params = _params(names, weights)
+        ctx.save_for_backward(q_pos, q_proj, ki, pos2, kv, *weights)
+        ctx.k, ctx.premul, ctx.names = k, premul, names
+        if q_proj.is_cuda:
+            return _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+        return attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+
+    @staticmethod
+    def backward(ctx, g):
+        q_pos, q_proj, ki, pos2, kv, *weights = ctx.saved_tensors
+        dq, dkv, dws = attn_bwd(q_pos, q_proj, ki, pos2, kv, _params(ctx.names, weights),
+                                ctx.k, ctx.premul, g)
+        return ((None, dq, None, None, dkv, None, None)
+                + tuple(dws[nl] for nl in ctx.names))
 
 
 def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
                                key_mask=None, knn=None, premul=None):
     '''
-    One fused vector cross-attention block.
+    One fused vector cross-attention block, differentiable in q_proj, feats2
+    and every weight (positions are constants, as in the JAX module path).
     :param q_proj (B, N, D): projected queries (to_q applied).
     :param q_pos (B, N, 3); feats2 (B, M, E) raw key features; pos2 (B, M, 3).
     :param params: {'to_k', 'to_v', 'pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0',
@@ -203,14 +436,14 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
         premul = use_premul(M, D, E)
     feats2 = feats2.to(torch.float32)
     if premul:
+        # Outside the kernel, so autograd chains d(kv) to feats2, Wk and Wv.
         kv = torch.cat([feats2 @ _kernel(params, 'to_k'),
                         feats2 @ _kernel(params, 'to_v')], dim=-1)
     else:
         kv = feats2
-    q_pos = q_pos[..., :3].to(torch.float32).contiguous()
-    pos2 = pos2[..., :3].to(torch.float32).contiguous()
+    q_pos = q_pos[..., :3].detach().to(torch.float32).contiguous()
+    pos2 = pos2[..., :3].detach().to(torch.float32).contiguous()
     q_proj = q_proj.to(torch.float32).contiguous()
-    kv = kv.contiguous()
-    if q_proj.is_cuda:
-        return _attn_cuda(q_pos, q_proj, ki.contiguous(), pos2, kv, params, k, premul)
-    return attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+    weights = [params[n][leaf].to(torch.float32) for n, leaf in _grad_names(premul)]
+    return _Attention.apply(q_pos, q_proj, ki.contiguous(), pos2, kv.contiguous(),
+                            k, premul, *weights)

@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 
-__all__ = ['fps_batched', 'fps_plain', 'LAUNCHES']
+__all__ = ['fps_batched', 'fps_plain', 'random_start_indices', 'LAUNCHES']
 
 LAUNCHES = {'fps': 0}
 
@@ -93,3 +93,17 @@ def fps_batched(xyz, n_out, *, valid=None, start_idx=None, sort_result=True):
     else:
         sel = fps_plain(xyz, n_out, valid.to(torch.bool), start_idx)
     return torch.sort(sel, dim=-1).values if sort_result else sel
+
+
+def random_start_indices(generator, batch, n_points, valid=None, device=None):
+    '''Random FPS start per example (the training-time fps_random_start
+    behaviour): uniform over [0, n_points), or uniform over the valid points
+    (Gumbel-argmax, as the JAX package draws it) when a (B, N) mask is given.
+    :param generator: torch.Generator on the device the indices go to.
+    :return (batch,) int64.'''
+    device = generator.device if device is None else device
+    if valid is None:
+        return torch.randint(0, n_points, (batch,), generator=generator, device=device)
+    u = torch.rand((batch, n_points), generator=generator, device=device)
+    g = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    return torch.argmax(torch.where(valid, g, torch.full_like(g, float('-inf'))), dim=-1)

@@ -25,10 +25,11 @@ import torch
 from . import _build
 
 __all__ = ['knn', 'knn_pruned', 'knn_rank', 'knn_rank_plain', 'pairwise_sqdist',
-           'gather_neighbors', 'hilbert_codes', 'sq_norm', 'LAUNCHES',
+           'gather_neighbors', 'hilbert_codes', 'sq_norm', 'nn1_min_dist',
+           'nn1_bidirectional', 'nn1_bidir_rank', 'nn1_bidir_plain', 'LAUNCHES',
            'PRUNED_MIN_ELEMS']
 
-LAUNCHES = {'knn_brute': 0, 'knn_pruned': 0}
+LAUNCHES = {'knn_brute': 0, 'knn_pruned': 0, 'nn1_bidir': 0}
 PRUNED_MIN_ELEMS = 2 ** 27
 _MAX_K = 32
 _PLAIN_CHUNK = 2 ** 25  # distance entries per plain-version slab.
@@ -299,3 +300,87 @@ def knn(query, keys, k, *, key_mask=None, euclidean=True, pruned=None):
     q, kk, kn, batch_shape = _prepare(query, keys, key_mask)
     d, idx = knn_rank(q, kk, kn, k)
     return _finish(q, d, idx, batch_shape, euclidean)
+
+
+def nn1_min_dist(query, keys, *, key_mask=None):
+    '''Euclidean distance from each query to its nearest valid key: the k = 1
+    case of knn (brute-force or pruned kernel by size). :return (..., N).'''
+    d, _ = knn(query, keys, 1, key_mask=key_mask)
+    return d[..., 0]
+
+
+def nn1_bidir_plain(a, an, b, bn):
+    '''Plain version of the bidirectional 1-NN kernel.
+    :param a (B, N, 3), b (B, M, 3) f32; an (B, N), bn (B, M) squared norms
+        (+inf at masked points).
+    :return (out_a (B, N), out_b (B, M)): min_j (bn_j - 2 a_i.b_j) and
+        min_i (an_i - 2 a_i.b_j).'''
+    B, N, _ = a.shape
+    M = b.shape[1]
+    rows = max(1, _PLAIN_CHUNK // max(M, 1))
+    outs_a = []
+    out_b = torch.full((B, M), float('inf'), dtype=torch.float32, device=a.device)
+    for r0 in range(0, N, rows):
+        ac = a[:, r0:r0 + rows]
+        dot = (ac[:, :, None, 0] * b[:, None, :, 0] + ac[:, :, None, 1] * b[:, None, :, 1]
+               + ac[:, :, None, 2] * b[:, None, :, 2])
+        t = 2.0 * dot
+        outs_a.append((bn[:, None, :] - t).amin(-1))
+        out_b = torch.minimum(out_b, (an[:, r0:r0 + rows, None] - t).amin(1))
+    return torch.cat(outs_a, 1), out_b
+
+
+def _nn1_bidir_cuda(a, an, b, bn):
+    B, N, _ = a.shape
+    M = b.shape[1]
+    a4 = torch.cat([a, an[..., None]], -1).contiguous()
+    b4 = torch.cat([b, bn[..., None]], -1).contiguous()
+    _check_cuda('a4', a4, (B, N, 4), torch.float32)
+    _check_cuda('b4', b4, (B, M, 4), torch.float32)
+    out_a = torch.full((B, N), float('inf'), dtype=torch.float32, device=a.device)
+    out_b = torch.full((B, M), float('inf'), dtype=torch.float32, device=a.device)
+    fn = _build.library('knn').o4d_nn1_bidir
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        _build.check(fn(_build.ptr(a4), _build.ptr(b4), _build.ptr(out_a),
+                        _build.ptr(out_b), B, N, M, _build.stream_ptr(a.device)),
+                     'nn1_bidir')
+    LAUNCHES['nn1_bidir'] += 1
+    return out_a, out_b
+
+
+def nn1_bidir_rank(a, an, b, bn):
+    '''Bidirectional 1-NN ranking values: kernel on CUDA, plain version on
+    the CPU (same arguments and result as nn1_bidir_plain).'''
+    if a.is_cuda:
+        return _nn1_bidir_cuda(a, an, b, bn)
+    return nn1_bidir_plain(a, an, b, bn)
+
+
+def nn1_bidirectional(a, b, *, a_mask=None, b_mask=None):
+    '''
+    Both directions of exact 1-NN between two point sets in one pass:
+    dist_a[i] = min over valid b_j of |a_i - b_j|, dist_b[j] = min over valid
+    a_i of |a_i - b_j| (port of occlusions4d_tpu/ops/knn.py::nn1_bidirectional).
+    :param a (..., N, C>=3); b (..., M, C>=3): only xyz is used.
+    :param a_mask (..., N) / b_mask (..., M) bool or None: a masked point never
+        acts as the nearest neighbour of the other set.
+    :return (dist_a (..., N), dist_b (..., M)) f32.
+    '''
+    a3 = a[..., :3].to(torch.float32)
+    b3 = b[..., :3].to(torch.float32)
+    batch_shape = a3.shape[:-2]
+    N, M = a3.shape[-2], b3.shape[-2]
+    a3 = a3.reshape(-1, N, 3).contiguous()
+    b3 = b3.reshape(-1, M, 3).contiguous()
+    an_true, bn_true = sq_norm(a3), sq_norm(b3)
+    an, bn = an_true, bn_true
+    if a_mask is not None:
+        an = torch.where(a_mask.reshape(-1, N), an, torch.full_like(an, float('inf')))
+    if b_mask is not None:
+        bn = torch.where(b_mask.reshape(-1, M), bn, torch.full_like(bn, float('inf')))
+    out_a, out_b = nn1_bidir_rank(a3, an, b3, bn)
+    d_a = torch.sqrt(torch.clamp(out_a + an_true, min=0.0))
+    d_b = torch.sqrt(torch.clamp(out_b + bn_true, min=0.0))
+    return d_a.reshape(batch_shape + (N,)), d_b.reshape(batch_shape + (M,))

@@ -1,14 +1,39 @@
 '''
-Host-side blind query generation for evaluation (own copy of
-occlusions4d_tpu/ops/sampling.py::grid_points_numpy / blind_points_numpy; the
-same points for the same arguments and rng).
+Point sampling (own copy of occlusions4d_tpu/ops/sampling.py): uniform
+3-ball jitter and blind queries in a cuboid on the device, from an explicit
+torch.Generator, and the host-side numpy grids of evaluation (the same points
+for the same arguments and rng as the JAX package).
 '''
 
 import numpy as np
+import torch
 
 from .bounds import Cuboid, blind_sample_bounds
 
-__all__ = ['grid_points_numpy', 'blind_points_numpy']
+__all__ = ['sample_uniform_3ball', 'sample_blind_random', 'grid_points_numpy',
+           'blind_points_numpy']
+
+
+def sample_uniform_3ball(generator, shape, max_radius, min_radius=0.0):
+    '''Points in the shell [min_radius, max_radius]: gaussian direction, cube-
+    root-uniform radius linearly remapped into the shell (the reference's law).
+    :param shape: leading shape, e.g. (B, n). :return shape + (3,) f32.'''
+    device = generator.device
+    direction = torch.randn(tuple(shape) + (3,), generator=generator, device=device)
+    norm = torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
+    direction = direction / torch.clamp(norm, min=1e-12)
+    radius = torch.rand(tuple(shape), generator=generator, device=device) ** (1.0 / 3.0)
+    radius = radius * (max_radius - min_radius) + min_radius
+    return direction * radius[..., None]
+
+
+def sample_blind_random(generator, shape, cuboid: Cuboid):
+    '''Uniform points in a cuboid. :return shape + (3,) f32.'''
+    device = generator.device
+    u = torch.rand(tuple(shape) + (3,), generator=generator, device=device)
+    lo = torch.tensor([cuboid.x_min, cuboid.y_min, cuboid.z_min], device=device)
+    hi = torch.tensor([cuboid.x_max, cuboid.y_max, cuboid.z_max], device=device)
+    return u * (hi - lo) + lo
 
 
 def grid_points_numpy(num_sample, cuboid: Cuboid):

@@ -9,9 +9,12 @@ GPU and nvcc; skips elsewhere (the decision is taken inside the fixture).
 (--noconftest: tests/conftest.py configures JAX, which a CUDA machine
 running only the port need not have.)
 
-Tolerances: kNN and FPS exact (the kernels round like the plain versions);
-interpolation atol 1e-5 and attention atol 1e-4 / rtol 1e-3 (fused
-multiply-adds and another summation order than cuBLAS in 100-term dots).
+Tolerances: kNN, FPS and the bidirectional 1-NN exact (the kernels round like
+the plain versions); interpolation atol 1e-5 and attention atol 1e-4 / rtol
+1e-3 (fused multiply-adds and another summation order than cuBLAS in 100-term
+dots); the backward kernels 1e-4 of the largest gradient entry / rtol 1e-3
+(weight gradients sum thousands of rows in another order than autograd).
+The backward kernels are also checked to give the same bits twice.
 '''
 
 import importlib
@@ -146,3 +149,109 @@ def test_fused_decoder_raises_at_shared_gather_size(dev):
                     fused_field_apply(dec, q, abstract, fg)
             else:
                 assert torch.isfinite(fused_field_apply(dec, q, abstract, fg)[0]).all()
+
+
+def _attn_params(rng, dev, D, E, P=32):
+    def lin(i, o, bias=True):
+        p = {'kernel': _t((rng.randn(i, o) / np.sqrt(i)).astype(np.float32), dev)}
+        if bias:
+            p['bias'] = _t((rng.randn(o) * 0.1).astype(np.float32), dev)
+        return p
+    return {'to_k': lin(E, D, False), 'to_v': lin(E, D, False),
+            'pos_mlp_0': lin(3, P), 'pos_mlp_2': lin(P, D),
+            'attn_mlp_0': lin(D, 2 * D), 'attn_mlp_2': lin(2 * D, D)}
+
+
+def _close(a, b):
+    scale = max(1.0, float(b.abs().max()))
+    torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=1e-3)
+
+
+@pytest.mark.parametrize('K', [1, 14, 32])
+@pytest.mark.parametrize('premul', [True, False])
+def test_attn_bwd_kernel_matches_plain(dev, K, premul):
+    rng = np.random.RandomState(K)
+    B, N, M, D, E = 2, 203, 97, 40, 24  # N not a multiple of any row tile.
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    mask = _t(rng.rand(B, M) > 0.3, dev)
+    params = _attn_params(rng, dev, D, E)
+    ki, _ = t_attn.knn_extract(q_pos, pos2, K, key_mask=mask)
+    kv = (torch.cat([feats @ params['to_k']['kernel'], feats @ params['to_v']['kernel']],
+                    -1).contiguous() if premul else feats)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    g = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    args = (q_pos, q_proj, ki, pos2, kv, params, K, premul, g)
+    dq, dkv, dw = t_attn.attn_bwd(*args)
+    dq2, dkv2, dw2 = t_attn.attn_bwd(*args)
+    rq, rkv, rw = t_attn.attn_bwd_plain(*args)
+    torch.cuda.synchronize()
+    _close(dq, rq)
+    _close(dkv, rkv)
+    assert set(dw) == set(rw)
+    for name in rw:
+        _close(dw[name], rw[name])
+        assert torch.equal(dw[name], dw2[name]), name
+    assert torch.equal(dq, dq2) and torch.equal(dkv, dkv2)
+
+
+@pytest.mark.parametrize('K', [1, 8, 32])
+def test_interp_bwd_kernel_matches_plain(dev, K):
+    rng = np.random.RandomState(K)
+    B, N, M, E = 2, 301, 97, 40
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    mask = _t(rng.rand(B, M) > 0.3, dev)
+    ki, kd = t_attn.knn_extract(q_pos, pos2, K, key_mask=mask)
+    g = _t(rng.randn(B, N, E).astype(np.float32), dev)
+    d1 = t_attn.interp_bwd(ki, kd, g, M, K, 1e-4)
+    d2 = t_attn.interp_bwd(ki, kd, g, M, K, 1e-4)
+    ref = t_attn.interp_bwd_plain(ki, kd, g, M, K, 1e-4)
+    torch.cuda.synchronize()
+    _close(d1, ref)
+    assert torch.equal(d1, d2)
+
+
+def test_autograd_runs_backward_kernels(dev):
+    from occlusions4d_torch.ops import _build
+    rng = np.random.RandomState(5)
+    B, N, M, D, E, K = 1, 64, 40, 32, 16, 6
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev).requires_grad_(True)
+    params = _attn_params(rng, dev, D, E)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev).requires_grad_(True)
+    _build.reset_launch_counts()
+    knn = t_attn.knn_extract(q_pos, pos2, K)
+    y = t_attn.fused_knn_vector_attention(q_proj, q_pos, feats, pos2, params, K, knn=knn)
+    z = t_attn.fused_knn_interp(q_pos, pos2, feats, 4, knn=knn)
+    (y.sum() + z.sum()).backward()
+    counts = _build.launch_counts()
+    assert counts['attn_bwd'] == 1 and counts['interp_bwd'] == 1
+    assert torch.isfinite(feats.grad).all() and torch.isfinite(q_proj.grad).all()
+
+
+@pytest.mark.parametrize('case', ['random', 'duplicates'])
+def test_nn1_bidir_kernel_matches_plain(dev, case):
+    rng = np.random.RandomState(7)
+    B, N, M = 2, 1333, 4711  # ragged against the row and key tiles.
+    if case == 'duplicates':
+        a = rng.randint(0, 6, size=(B, N, 3)).astype(np.float32)
+        b = rng.randint(0, 6, size=(B, M, 3)).astype(np.float32)
+        b[:, :500] = a[:, :500]
+    else:
+        a = rng.rand(B, N, 3).astype(np.float32) * 8 - 4
+        b = rng.rand(B, M, 3).astype(np.float32) * 8 - 4
+    am = _t(rng.rand(B, N) > 0.2, dev)
+    bm = _t(rng.rand(B, M) > 0.2, dev)
+    a, b = _t(a, dev), _t(b, dev)
+    for masks in ((None, None), (am, bm)):
+        an, bn = t_knn.sq_norm(a), t_knn.sq_norm(b)
+        if masks[0] is not None:
+            an = torch.where(masks[0], an, torch.full_like(an, float('inf')))
+            bn = torch.where(masks[1], bn, torch.full_like(bn, float('inf')))
+        ka, kb = t_knn.nn1_bidir_rank(a, an, b, bn)
+        pa, pb = t_knn.nn1_bidir_plain(a, an, b, bn)
+        torch.cuda.synchronize()
+        assert torch.equal(ka, pa) and torch.equal(kb, pb)

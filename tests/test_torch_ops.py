@@ -319,3 +319,271 @@ def test_cuda_entry_raises_without_cuda():
     with pytest.raises(RuntimeError, match='CUDA'):
         resolve_device('cuda')
     assert resolve_device('cpu').type == 'cpu'
+
+
+# ------------------------------------------------- backward operators (train) --
+# Plain backward of the attention / interpolation operators (the CPU side of
+# csrc/attn_bwd.cu and csrc/interp_bwd.cu) against the JAX custom-VJP
+# kernels in interpret mode, at the shapes of tests/test_pallas_ops.py:181-243,
+# for every live input. Tolerance atol 5e-6, rtol 2e-4 (the JAX tests' own).
+GATOL, GRTOL = 5e-6, 2e-4
+
+
+def _relu_margin(qp, pos, x2, pos2, p, K):
+    '''Smallest |pre-activation| of the theta and gamma MLPs' ReLUs, in
+    float64: the gradient jumps where one crosses zero, so two f32
+    implementations may disagree on a row that sits within rounding of it.'''
+    d = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
+    ki, _ = t_attn.knn_extract(_t(pos), _t(pos2), K)
+    idx = ki[0].long()
+    rel = d(pos)[0][:, None] - d(pos2)[0][idx]
+    ph = rel @ d(p['pos_mlp_0']['kernel']) + d(p['pos_mlp_0']['bias'])
+    pe = torch.relu(ph) @ d(p['pos_mlp_2']['kernel']) + d(p['pos_mlp_2']['bias'])
+    f = d(x2)[0][idx]
+    a = d(qp)[0][:, None] - f @ d(p['to_k']['kernel']) + pe
+    h = a @ d(p['attn_mlp_0']['kernel']) + d(p['attn_mlp_0']['bias'])
+    return min(float(ph.abs().min()), float(h.abs().min()))
+
+
+@pytest.mark.parametrize('shape', [(96, 40, 32, 56, 6), (96, 50, 32, 24, 6)],
+                         ids=['premul', 'per_row'])
+def test_attention_grads_match_jax_vjp(shape):
+    import jax
+    rng = np.random.RandomState(5)
+    N, M, D, E, K = shape
+    x = rng.rand(1, N, D).astype(np.float32) - 0.5
+    pos = rng.rand(1, N, 3).astype(np.float32) * 2 - 1
+    x2 = rng.rand(1, M, E).astype(np.float32) - 0.5
+    pos2 = rng.rand(1, M, 3).astype(np.float32) * 2 - 1
+    w = rng.randn(1, N, D).astype(np.float32)
+    p = {}
+    for name, (di, do) in dict(pos_mlp_0=(3, 32), pos_mlp_2=(32, D), attn_mlp_0=(D, 2 * D),
+                               attn_mlp_2=(2 * D, D)).items():
+        p[name] = dict(kernel=rng.randn(di, do).astype(np.float32) * 0.1,
+                       bias=rng.randn(do).astype(np.float32) * 0.01)
+    for name in ('to_k', 'to_v'):
+        p[name] = dict(kernel=rng.randn(E, D).astype(np.float32) * 0.1)
+    qp = (x @ rng.randn(D, D).astype(np.float32) * 0.1).astype(np.float32)
+    assert _relu_margin(qp, pos, x2, pos2, p, K) > 1e-6
+
+    def loss(q, f, pp):
+        return jnp.mean(j_fused_attn(q, jnp.asarray(pos), f, jnp.asarray(pos2), pp, K) * w)
+    jg = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jnp.asarray(qp), jnp.asarray(x2), jax.tree_util.tree_map(jnp.asarray, p))
+    assert t_attn.use_premul(M, D, E) == (shape[1] == 40)
+    tq = _t(qp).requires_grad_(True)
+    tf = _t(x2).requires_grad_(True)
+    tp = {n: {k: _t(v).requires_grad_(True) for k, v in d.items()} for n, d in p.items()}
+    out = t_attn.fused_knn_vector_attention(tq, _t(pos), tf, _t(pos2), tp, K)
+    (out * _t(w)).mean().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(jg[0]), atol=GATOL, rtol=GRTOL)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jg[1]), atol=GATOL, rtol=GRTOL)
+    for n, d in tp.items():
+        for k, v in d.items():
+            np.testing.assert_allclose(v.grad.numpy(), np.asarray(jg[2][n][k]),
+                                       atol=GATOL, rtol=GRTOL, err_msg=f'{n}/{k}')
+
+
+@pytest.mark.parametrize('premul', [True, False])
+def test_attn_bwd_plain_is_the_operator_gradient(rng, premul):
+    '''attn_bwd (the CPU entry of kernel A's wrapper) returns what autograd
+    through the operator gives, in the kernel's output layout.'''
+    B, N, M, D, E, K = 2, 37, 23, 16, 12, 5
+    q_pos, pos2 = _t(rng.rand(B, N, 3).astype(np.float32)), _t(rng.rand(B, M, 3).astype(np.float32))
+    feats = _t(rng.randn(B, M, E).astype(np.float32))
+    p = {n: {'kernel': _t(rng.randn(i, o).astype(np.float32) * 0.2)}
+         for n, (i, o) in dict(to_k=(E, D), to_v=(E, D), pos_mlp_0=(3, 8), pos_mlp_2=(8, D),
+                               attn_mlp_0=(D, 2 * D), attn_mlp_2=(2 * D, D)).items()}
+    for n in ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2'):
+        p[n]['bias'] = _t(rng.randn(p[n]['kernel'].shape[1]).astype(np.float32) * 0.1)
+    ki, _ = t_attn.knn_extract(q_pos, pos2, K)
+    kv = (torch.cat([feats @ p['to_k']['kernel'], feats @ p['to_v']['kernel']], -1)
+          if premul else feats)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32))
+    g = _t(rng.randn(B, N, D).astype(np.float32))
+    dq, dkv, dw = t_attn.attn_bwd(q_pos, q_proj, ki, pos2, kv, p, K, premul, g)
+    assert dq.shape == q_proj.shape and dkv.shape == kv.shape
+    names = {('pos_mlp_0', 'kernel'), ('pos_mlp_0', 'bias'), ('pos_mlp_2', 'kernel'),
+             ('pos_mlp_2', 'bias'), ('attn_mlp_0', 'kernel'), ('attn_mlp_0', 'bias'),
+             ('attn_mlp_2', 'kernel'), ('attn_mlp_2', 'bias')}
+    if not premul:
+        names |= {('to_k', 'kernel'), ('to_v', 'kernel')}
+    assert set(dw) == names
+    for (n, leaf), d in dw.items():
+        assert d.shape == p[n][leaf].shape
+    # The softmax over K is shift-invariant: the logits' bias gets no gradient.
+    assert float(dw[('attn_mlp_2', 'bias')].abs().max()) < 1e-5
+
+
+def test_interp_grads_match_jax_vjp(rng):
+    import jax
+    N, M, E, K = 130, 60, 24, 8
+    q = rng.rand(1, N, 3).astype(np.float32) * 2 - 1
+    k = rng.rand(1, M, 3).astype(np.float32) * 2 - 1
+    f = rng.rand(1, M, E).astype(np.float32)
+    mask = rng.rand(1, M) > 0.2
+    w = rng.randn(1, N, E).astype(np.float32)
+    jg = jax.jit(jax.grad(lambda ff: jnp.mean(j_fused_knn_interp(
+        jnp.asarray(q), jnp.asarray(k), ff, K, eps=1e-4, key_mask=jnp.asarray(mask))
+        * w)))(jnp.asarray(f))
+    tf = _t(f).requires_grad_(True)
+    out = t_attn.fused_knn_interp(_t(q), _t(k), tf, K, eps=1e-4, key_mask=_t(mask))
+    (out * _t(w)).mean().backward()
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jg), atol=GATOL, rtol=GRTOL)
+    # The CPU entry of kernel B's wrapper gives the same gradient.
+    ki, kd = t_attn.knn_extract(_t(q), _t(k), 14, key_mask=_t(mask))
+    d = t_attn.interp_bwd(ki, kd, _t(w) / w.size, M, K, 1e-4)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jg), atol=GATOL, rtol=GRTOL)
+
+
+def test_knn_extract_is_outside_autograd(rng):
+    q = _t(rng.rand(1, 20, 3).astype(np.float32)).requires_grad_(True)
+    k = _t(rng.rand(1, 15, 3).astype(np.float32)).requires_grad_(True)
+    ki, kd = t_attn.knn_extract(q, k, 4)
+    assert not kd.requires_grad and not ki.requires_grad
+
+
+# ------------------------------------------------------ bidirectional 1-NN --
+
+@pytest.mark.parametrize('case', ['masks_and_ties', 'no_masks'])
+def test_nn1_bidirectional_matches_jax_exactly(rng, case):
+    '''Integer coordinates make every product exact, so any summation order
+    gives the same bits: duplicates and equidistant points tie, masks exclude.'''
+    from occlusions4d_tpu.ops.knn import nn1_bidirectional as j_nn1
+    a = rng.randint(-3, 4, size=(2, 170, 3)).astype(np.float32)
+    b = rng.randint(-3, 4, size=(2, 230, 3)).astype(np.float32)
+    b[:, :40] = a[:, :40]                                       # duplicates.
+    am = bm = None
+    if case == 'masks_and_ties':
+        am, bm = rng.rand(2, 170) > 0.3, rng.rand(2, 230) > 0.3
+        bm[1] = False                                           # one key set empty.
+    ja, jb = j_nn1(jnp.asarray(a), jnp.asarray(b),
+                   a_mask=None if am is None else jnp.asarray(am),
+                   b_mask=None if bm is None else jnp.asarray(bm))
+    ta, tb = t_knn.nn1_bidirectional(_t(a), _t(b), a_mask=None if am is None else _t(am),
+                                     b_mask=None if bm is None else _t(bm))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    if case == 'masks_and_ties':
+        assert np.isinf(ta.numpy()[1]).all()
+
+
+def test_nn1_bidirectional_and_min_dist_match_jax_floats(rng):
+    '''Random float clouds: XLA's dot may fuse multiply-adds the port keeps
+    apart, so distances agree to f32 tolerance (atol 3e-5, rtol 1e-4).'''
+    from occlusions4d_tpu.ops.knn import nn1_bidirectional as j_nn1, nn1_min_dist as j_md
+    a = rng.rand(2, 300, 3).astype(np.float32) * 4 - 2
+    b = rng.rand(2, 411, 3).astype(np.float32) * 4 - 2
+    am, bm = rng.rand(2, 300) > 0.3, rng.rand(2, 411) > 0.3
+    ja, jb = j_nn1(jnp.asarray(a), jnp.asarray(b), a_mask=jnp.asarray(am),
+                   b_mask=jnp.asarray(bm))
+    ta, tb = t_knn.nn1_bidirectional(_t(a), _t(b), a_mask=_t(am), b_mask=_t(bm))
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=ATOL, rtol=RTOL)
+    jd = j_md(jnp.asarray(a), jnp.asarray(b), key_mask=jnp.asarray(bm))
+    td = t_knn.nn1_min_dist(_t(a), _t(b), key_mask=_t(bm))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=ATOL, rtol=RTOL)
+    # The ranking values are the brute-force kNN's at k = 1, in both directions.
+    an, bn = t_knn.sq_norm(_t(a)), t_knn.sq_norm(_t(b))
+    bn = torch.where(_t(bm), bn, torch.full_like(bn, float('inf')))
+    ra, _ = t_knn.nn1_bidir_plain(_t(a), an, _t(b), bn)
+    da, _ = t_knn.knn_rank_plain(_t(a), _t(b), bn, 1)
+    np.testing.assert_array_equal(ra.numpy(), da[..., 0].numpy())
+
+
+# --------------------------------------------- selection, sampling, bounds --
+
+@pytest.mark.parametrize('case', ['uniform', 'weighted', 'plateau', 'one_valid'])
+def test_masked_choice_matches_jax_given_the_same_uniforms(rng, case):
+    '''The inverse CDF (cumsum, cummax, scaled draws clamped below the top,
+    right-searchsorted): fed JAX's own uniforms, the port picks the same
+    indices wherever the two cumsums round alike. At 28672 thirds ('plateau')
+    XLA's tree scan and torch's running sum round the cdf differently, so a
+    draw on a step boundary may move to a neighbouring entry; every draw must
+    still land on a positive-weight entry.'''
+    import jax
+    from occlusions4d_tpu.ops.select import masked_choice as j_mc
+    from occlusions4d_torch.ops.select import masked_choice_from_uniforms
+    n = 28672 if case == 'plateau' else 500
+    valid = rng.rand(n) > 0.4
+    w = None
+    if case == 'weighted':
+        w = rng.rand(n).astype(np.float32) * 3
+    elif case == 'plateau':
+        w = np.where(rng.rand(n) > 0.5, 1.0 / 3.0, 1e-3).astype(np.float32)
+    elif case == 'one_valid':
+        valid = np.zeros(n, bool)
+        valid[137] = True
+    key = jax.random.PRNGKey(11)
+    ji, jok = j_mc(key, jnp.asarray(valid), 999, weights=None if w is None else jnp.asarray(w))
+    u = np.asarray(jax.random.uniform(key, (999,), minval=0.0, maxval=1.0))
+    ti, tok = masked_choice_from_uniforms(_t(valid)[None], _t(u)[None],
+                                          None if w is None else _t(w)[None])
+    ti = ti[0].numpy()
+    if case == 'plateau':
+        assert (ti != np.asarray(ji)).mean() < 0.01
+    else:
+        np.testing.assert_array_equal(ti, np.asarray(ji))
+    assert bool(tok[0]) == bool(jok)
+    assert valid[ti].all() and (w is None or (w[ti] > 0).all())
+
+
+def test_valid_first_order_and_take_valid_match_jax(rng):
+    from occlusions4d_tpu.ops.select import take_valid as j_take, valid_first_order as j_vfo
+    from occlusions4d_torch.ops.select import take_valid, valid_first_order
+    valid = rng.rand(3, 50) > 0.6
+    valid[2] = False
+    x = rng.randn(3, 50, 4).astype(np.float32)
+    np.testing.assert_array_equal(valid_first_order(_t(valid)).numpy(),
+                                  np.stack([np.asarray(j_vfo(jnp.asarray(v))) for v in valid]))
+    rows, cnt = take_valid(_t(x), _t(valid), 40)
+    for b in range(3):
+        jr, jc = j_take(jnp.asarray(x[b]), jnp.asarray(valid[b]), 40)
+        np.testing.assert_array_equal(rows[b].numpy(), np.asarray(jr))
+        assert int(cnt[b]) == int(jc)
+
+
+def test_bounds_and_masks_match_jax(rng):
+    from occlusions4d_tpu.ops import bounds as jb
+    from occlusions4d_torch.ops import bounds as tb
+    pts = (rng.rand(2, 500, 3).astype(np.float32) * 50 - 20)
+    for mode in (1, 2, 3, 4):
+        for fn in ('carla_input_bounds', 'carla_output_bounds'):
+            jc = getattr(jb, fn)(16.0, -0.5, mode)
+            tc = getattr(tb, fn)(16.0, -0.5, mode)
+            assert tuple(jc) == tuple(tc)
+            np.testing.assert_array_equal(tb.cuboid_mask(_t(pts), tc).numpy(),
+                                          np.asarray(jb.cuboid_mask(jnp.asarray(pts), jc)))
+    assert tuple(tb.greater_bounds(5.0, -1.0)) == tuple(jb.greater_bounds(5.0, -1.0))
+    np.testing.assert_array_equal(tb.greater_floor_mask(_t(pts)).numpy(),
+                                  np.asarray(jb.greater_floor_mask(jnp.asarray(pts))))
+    np.testing.assert_array_equal(tb.greater_floor_mask(pts), jb.greater_floor_mask(pts))
+
+
+def test_device_sampling_laws():
+    '''3-ball jitter stays in its shell and blind points in their cuboid
+    (the JAX package's laws; the numbers differ, the generator being torch's).'''
+    from occlusions4d_torch.ops.bounds import Cuboid
+    from occlusions4d_torch.ops.sampling import sample_blind_random, sample_uniform_3ball
+    gen = torch.Generator().manual_seed(0)
+    v = sample_uniform_3ball(gen, (2, 4000), 0.6, 0.2)
+    r = torch.linalg.vector_norm(v, dim=-1)
+    assert v.shape == (2, 4000, 3) and float(r.min()) >= 0.2 - 1e-6 and float(r.max()) <= 0.6 + 1e-6
+    # Cube-root law: the median radius of the full-ball part sits at 0.5^(1/3).
+    assert abs(float(torch.median(sample_uniform_3ball(gen, (20000,), 1.0).norm(dim=-1)))
+               - 0.5 ** (1 / 3)) < 0.02
+    c = Cuboid(-1.0, 2.0, 0.0, 1.0, -3.0, -2.0)
+    p = sample_blind_random(gen, (3, 1000), c)
+    assert float(p[..., 0].min()) >= -1 and float(p[..., 0].max()) <= 2
+    assert float(p[..., 2].min()) >= -3 and float(p[..., 2].max()) <= -2
+
+
+def test_random_fps_starts():
+    from occlusions4d_torch.ops.fps import random_start_indices
+    gen = torch.Generator().manual_seed(1)
+    s = random_start_indices(gen, 4000, 37)
+    assert s.shape == (4000,) and int(s.min()) == 0 and int(s.max()) == 36
+    valid = torch.zeros(4000, 37, dtype=torch.bool)
+    valid[:, 5] = valid[:, 30] = True
+    s = random_start_indices(gen, 4000, 37, valid=valid)
+    assert set(s.tolist()) == {5, 30}

@@ -15,11 +15,19 @@ each printing one JSON line:
      card at the gv1 shapes of its path, with kernel, plain and library times
      (CUDA events); the backward kernels run at the train step's frame
      (3 examples x 17920 queries; the plain attention backward one example
-     at a time) and also run twice and must give the same bits;
+     at a time) and also run twice and must give the same bits; the three
+     shared-gather kernels run at one cv1 decode chunk (32768 queries, a
+     2124-point abstract cloud), where the per-row index-route attention is
+     timed beside gather + attn_g;
   4. main path: gv1 at full width with seeded random weights (numpy, loaded
      through checkpoint.from_jax_params): encode a 14336-point cloud, decode
      the dense grid in chunks of 32768; launch counters are zeroed just before
      and read just after, and every kernel must have launched;
+  4b. main_path_cv1: the same for cv1 (layer norm, two abstract levels, 13
+     semantic classes) over the CARLA grid: the decoder takes the
+     shared-gather route, which must launch gather, interp_g and attn_g and
+     neither index-route kernel; one 4096-query chunk is decoded again on the
+     CPU (plain versions) from the card's abstract cloud and must agree;
   5. anchors: both committed checkpoints through load_models and
      perform_inference on the card, against the same run on the CPU (plain
      versions);
@@ -70,6 +78,14 @@ _GV1_TRAIN = dict(_GV1, color_lw=1.0, density_lw=1.0, segmentation_lw=0.0,
                   point_occupancy_radius=0.2, air_sampling_ratio=1.5,
                   num_cr_solid=7168, past_frames=4, future_frames=0, batch_size=3,
                   point_sample_bias='none')
+# cv1 (bench.py:385-393): gv1 with layer norm, two abstract levels (a
+# 1593 + 531 = 2124-point abstract cloud, so the decoder takes the
+# shared-gather route), 13 semantic classes and the CARLA cuboid.
+_CV1 = dict(_GV1, pt_norm_type='layer', segmentation_lw=0.6, color_lw=0.0,
+            tracking_lw=0.0, cr_cube_bounds=16.0, cube_mode=4, abstract_levels=2,
+            semantic_classes=13)
+_CV1_M = 1593 + 531
+_CHECK_CHUNK = 4096
 _REPLACES = {
     'knn_brute': 'occlusions4d_tpu/ops/pallas_knn.py:88; '
                  'occlusions4d_tpu/ops/pallas_attention.py:1367',
@@ -80,15 +96,19 @@ _REPLACES = {
     'attn_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:246',
     'interp_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:661',
     'nn1_bidir': 'occlusions4d_tpu/ops/pallas_knn.py:521',
+    'gather': 'occlusions4d_tpu/ops/pallas_attention.py:814',
+    'interp_g': 'occlusions4d_tpu/ops/pallas_attention.py:1254',
+    'attn_g': 'occlusions4d_tpu/ops/pallas_attention.py:934',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
            'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
-           'nn1_bidir': 'knn'}
+           'nn1_bidir': 'knn', 'gather': 'gather', 'interp_g': 'interp', 'attn_g': 'attn'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
+_SHARED = ('gather', 'interp_g', 'attn_g')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
-             nn1_bidir='sampler_moving')
+             nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED})
 
 
 def emit(obj):
@@ -329,6 +349,139 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
                              bound_by=b_by, library_ms=lib_ms, shape=[NC, NC])
 
 
+def seeded_models(torch, cfg, dev, seed):
+    """Encoder and decoder of `cfg` with seeded random weights, on `dev`."""
+    from occlusions4d_torch.checkpoint import from_jax_params
+    from occlusions4d_torch.models import build_models
+    encoder, decoder, _, dec_args = build_models(cfg)
+    wrng = np.random.RandomState(seed)
+    encoder.load_state_dict(from_jax_params(random_jax_params(encoder, wrng), encoder),
+                            strict=True)
+    decoder.load_state_dict(from_jax_params(random_jax_params(decoder, wrng), decoder),
+                            strict=True)
+    encoder.fps_random_start = False
+    return encoder.to(dev).eval(), decoder.to(dev).eval(), dec_args
+
+
+def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
+    """gather, interp_g and attn_g at one cv1 decode chunk (32768 queries
+    against a 2124-point abstract cloud; K 14 gathered, interpolation over
+    8), each against its plain version; the index-route attention (per-row
+    and premul) and interpolation kernels run on the same neighbours for the
+    comparison of the two routes."""
+    N, M, K, KI, C = _CHUNK, _CV1_M, 14, 8, E + 3
+    D = params['attn_mlp_0']['kernel'].shape[0]
+    H, P = params['attn_mlp_0']['kernel'].shape[1], params['pos_mlp_0']['kernel'].shape[1]
+
+    def cloud(n):
+        return torch.tensor(rng.rand(1, n, 3).astype(np.float32) * 10.0 - 5.0, device=dev)
+    pos2, qpos = cloud(M), cloud(N)
+    feats2 = torch.tensor(rng.randn(1, M, E).astype(np.float32), device=dev)
+    q_proj = torch.tensor(rng.randn(1, N, D).astype(np.float32), device=dev)
+    knn = t_attn.knn_extract(qpos, pos2, K)
+    ki, kd = knn
+    fv = torch.cat([feats2, pos2], -1).contiguous()
+
+    # The gather: a copy, bit-equal.
+    gather = lambda: t_attn.knn_gather_rows(pos2, feats2, knn, K)  # noqa: E731
+    g = gather()
+    g_p = t_attn.gather_rows_plain(fv, ki, K)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(g, g_p))
+    err = max_err(g, g_p)
+    ms = cuda_ms(torch, gather, 20)
+    plain_ms = cuda_ms(torch, lambda: t_attn.gather_rows_plain(fv, ki, K), 5)
+    flat = ki[..., :K].long().transpose(1, 2).reshape(-1)
+    lib_ms = cuda_ms(torch, lambda: torch.index_select(fv.reshape(-1, C), 0, flat), 20)
+    del g_p
+    b_ms, b_by = bound(N * K * 4 + M * C * 4 + K * N * C * 4, 0.0)
+    shape = [N, M, K, C]
+    emit(dict(phase='kernel', name='gather', shape=shape, agree=exact, exact=exact,
+              max_abs_err=err, tolerance='exact (bit-equal)', ms=ms, plain_ms=plain_ms,
+              library_ms=lib_ms, library='torch.index_select of the flattened rows',
+              bound_ms=b_ms, bound_by=b_by))
+    if not exact:
+        raise AssertionError(f'gather differs from its plain version (err {err})')
+    rows['gather'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms, shape=shape)
+
+    # Interpolation over the gathered rows (the decoder's k-prefix of 8).
+    interp_g = lambda: t_attn.fused_knn_interp(qpos, pos2, feats2, KI, knn=knn,  # noqa: E731
+                                               gathered=g)
+    o_k = interp_g()
+    o_p = t_attn.interp_g_plain(kd, g, KI, 1e-4)
+    o_i = t_attn.fused_knn_interp(qpos, pos2, feats2, KI, knn=knn)
+    torch.cuda.synchronize()
+    err = max_err(o_k, o_p)
+    ok = bool(torch.allclose(o_k, o_p, atol=1e-5, rtol=1e-5))
+    route_diff = max_err(o_k, o_i)
+    ms = cuda_ms(torch, interp_g, 20)
+    plain_ms = cuda_ms(torch, lambda: t_attn.interp_g_plain(kd, g, KI, 1e-4), 5)
+    idx_ms = cuda_ms(torch, lambda: t_attn.fused_knn_interp(qpos, pos2, feats2, KI,
+                                                             knn=knn), 20)
+    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
+    wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2).contiguous()
+    gf = g[:, :KI, :, :E]
+    lib_ms = cuda_ms(torch, lambda: torch.einsum('bkn,bknc->bnc', wn, gf), 20)
+    b_ms, b_by = bound(N * KI * 4 + N * KI * E * 4 + N * E * 4, 2.0 * N * KI * E)
+    shape = [N, M, KI, E]
+    emit(dict(phase='kernel', name='interp_g', shape=shape, agree=ok, max_abs_err=err,
+              tolerance='atol 1e-5, rtol 1e-5', index_route_max_abs_diff=route_diff,
+              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+              library="torch.einsum('bkn,bknc->bnc') of the normalised weights and rows",
+              index_route_interp_ms=idx_ms, bound_ms=b_ms, bound_by=b_by))
+    if not ok:
+        raise AssertionError(f'interp_g disagrees: max abs err {err}')
+    rows['interp_g'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms, shape=shape)
+
+    # Attention over the gathered rows, and the two routes at M = 2124.
+    with torch.no_grad():
+        attn_g = lambda gg: t_attn.fused_knn_vector_attention(  # noqa: E731
+            q_proj, qpos, feats2, pos2, params, K, gathered=gg)
+        index = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, feats2, params, K,  # noqa: E731
+                                          False)
+        # The index route in premul mode (key set projected first), which
+        # use_premul's TPU rule does not pick at M = 2124.
+        premul = lambda: t_attn._attn_cuda(  # noqa: E731
+            qpos, q_proj, ki, pos2, torch.cat([feats2 @ params['to_k']['kernel'],
+                                               feats2 @ params['to_v']['kernel']], -1),
+            params, K, True)
+        o_k = attn_g(g)
+        o_p = t_attn.attn_g_plain(qpos, q_proj, g, params, K)
+        o_i = index()
+        torch.cuda.synchronize()
+        err = max_err(o_k, o_p)
+        rel = err / float(o_p.abs().max())
+        ok = bool(torch.allclose(o_k, o_p, atol=1e-4, rtol=1e-3))
+        route_diff = max_err(o_k, o_i)
+        del o_p, o_i
+        ms = cuda_ms(torch, lambda: attn_g(g), 3)
+        plain_ms = cuda_ms(torch, lambda: t_attn.attn_g_plain(qpos, q_proj, g, params, K), 2)
+        idx_ms = cuda_ms(torch, index, 3)
+        premul_ms = cuda_ms(torch, premul, 3)
+        both_ms = cuda_ms(torch, lambda: attn_g(gather()), 3)
+    macs = N * K * (3 * P + P * D + 2 * D * H + 2 * E * D)
+    nbytes = (N * (3 + D) * 4 + N * K * C * 4
+              + (3 * P + P * D + 2 * D * H + 2 * E * D + P + 2 * D + H) * 4 + N * D * 4)
+    b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
+    f32_ms = bound(nbytes, 2.0 * macs)[0]
+    shape = [N, M, K, D, E]
+    routes = dict(route_index_per_row_attn_ms=idx_ms, route_index_premul_attn_ms=premul_ms,
+                  route_gather_plus_attn_g_ms=both_ms)
+    emit(dict(phase='kernel', name='attn_g', shape=shape, agree=ok, max_abs_err=err,
+              max_rel_err=rel, tolerance='atol 1e-4, rtol 1e-3', ms=ms, plain_ms=plain_ms,
+              library_ms=None, bound_ms=b_ms, bound_by=b_by,
+              bound_peak='bf16 tensor core 989 TFLOP/s', bound_f32_cuda_core_ms=f32_ms,
+              flop=2.0 * macs, index_route_max_abs_diff=route_diff, **routes))
+    if not ok:
+        raise AssertionError(f'attn_g disagrees: max abs err {err}')
+    rows['attn_g'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None,
+                          bound_peak='bf16 tensor core 989 TFLOP/s',
+                          bound_f32_cuda_core_ms=f32_ms, shape=shape, **routes)
+
+
 def train_batch(torch, cfg, dev, seed=1):
     """A seeded synthetic batch shaped as bench.py:57-82 builds it (GREATER
     layout, target budget 2 x n_points), on the card."""
@@ -372,13 +525,12 @@ def main():
         print(f'chip_smoke: occlusions4d_torch not found beside this script ({e})',
               file=sys.stderr)
         return 2
+    import copy
     import importlib
     from occlusions4d_torch import environment
-    from occlusions4d_torch.checkpoint import from_jax_params
     from occlusions4d_torch.config import TrainConfig
     from occlusions4d_torch.evaluate import InferenceEngine, load_models, \
         perform_inference
-    from occlusions4d_torch.models import build_models
     from occlusions4d_torch.models.fused import attention_params
     from occlusions4d_torch.ops import _build, blind_points_numpy
     t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
@@ -497,14 +649,7 @@ def main():
 
     # K3 / K4 on one decode chunk with the gv1 decoder's attention weights.
     cfg = TrainConfig(**_GV1)
-    encoder, decoder, enc_args, dec_args = build_models(cfg)
-    wrng = np.random.RandomState(1)
-    encoder.load_state_dict(from_jax_params(random_jax_params(encoder, wrng), encoder),
-                            strict=True)
-    decoder.load_state_dict(from_jax_params(random_jax_params(decoder, wrng), decoder),
-                            strict=True)
-    enc_args['fps_random_start'] = False
-    encoder, decoder = encoder.to(dev).eval(), decoder.to(dev).eval()
+    encoder, decoder, dec_args = seeded_models(torch, cfg, dev, 1)
     E, D = dec_args['d_latent_local'], dec_args['d_latent']
     pos2 = cloud(531, 10.0)
     feats2 = torch.tensor(rng.randn(1, 531, E).astype(np.float32), device=dev)
@@ -583,6 +728,12 @@ def main():
     # K5 / K6 / K7: the backward kernels and the bidirectional 1-NN.
     check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows)
 
+    # K8 / K9 / K10: the shared-gather kernels with the cv1 decoder's weights.
+    ccfg = TrainConfig(**_CV1)
+    cv1_encoder, cv1_decoder, _ = seeded_models(torch, ccfg, dev, 4)
+    check_shared_gather_kernels(torch, t_attn, dev, rng,
+                                attention_params(cv1_decoder.pt_blocks[0].layer2), E, rows)
+
     # 4. The main path: encode + dense decode at gv1 width.
     loaded = dict(encoder=encoder, decoder=decoder, device=dev)
     engine = InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
@@ -614,10 +765,70 @@ def main():
             or list(out.shape) != [queries.shape[0], 5]:
         raise AssertionError('main path output is not finite or has the wrong shape')
     missing = [k for k in _INFER if counts.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f'kernels not launched on the main path: {missing}')
+    shared = [k for k in _SHARED if counts.get(k, 0) != 0]
+    if missing or shared:
+        raise AssertionError(f'kernels not launched on the main path: {missing}; '
+                             f'shared-gather kernels launched at M = 531: {shared}')
     path_counts = {'main_path': counts}
     del out
+
+    # 4b. cv1 at full width over the CARLA grid: the shared-gather route.
+    engine = InferenceEngine(dict(encoder=cv1_encoder, decoder=cv1_decoder, device=dev),
+                             ccfg.color_mode, True, ccfg.semantic_classes,
+                             track_mode='none', implicit_batch_size=_CHUNK)
+    queries = blind_points_numpy(_NUM_SAMPLE, ccfg.min_z, ccfg.cr_cube_bounds, 0,
+                                 'carla', ccfg.cube_mode, 'grid')
+    r = np.random.RandomState(5)
+    pcl = r.rand(14336, 8).astype(np.float32) * 2 - 1
+    lo, hi = queries[:, :3].min(0), queries[:, :3].max(0)
+    pcl[:, :3] = r.rand(14336, 3).astype(np.float32) * (hi - lo) + lo  # in the cuboid.
+    abstract, fg = engine.encode(pcl)          # warm-up run, not counted.
+    engine.decode_all(queries[:_CHUNK], abstract, fg, fetch=False)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    abstract, fg = engine.encode(pcl)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    out = engine.decode_all(queries, abstract, fg, fetch=False)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    counts = _build.launch_counts()
+    path_counts['main_path_cv1'] = counts
+    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(abstract).all())
+    # One chunk again on the CPU (plain versions, the same shared-gather
+    # route) from the card's abstract cloud and global vector.
+    cpu = InferenceEngine(dict(encoder=None, decoder=copy.deepcopy(cv1_decoder).cpu(),
+                               device=torch.device('cpu')),
+                          ccfg.color_mode, True, ccfg.semantic_classes,
+                          track_mode='none', implicit_batch_size=_CHECK_CHUNK)
+    t3 = time.time()
+    ref = cpu.decode_all(queries[:_CHECK_CHUNK], abstract.cpu(), fg.cpu())
+    cpu_s = time.time() - t3
+    got = out[:_CHECK_CHUNK].cpu().numpy()
+    d_err = float(np.abs(got[:, 0] - ref[:, 0]).max())
+    all_err = float(np.abs(got - ref).max())
+    chunks = -(-queries.shape[0] // _CHUNK)
+    expect = dict(gather=chunks, interp_g=chunks, attn_g=2 * chunks, attn=0, interp=0)
+    counts_ok = all(counts.get(k, 0) == v for k, v in expect.items())
+    emit(dict(phase='main_path_cv1', model='cv1', n_points=14336,
+              abstract_shape=list(abstract.shape), global_shape=list(fg.shape),
+              queries=int(queries.shape[0]), chunk=_CHUNK, chunks=chunks,
+              out_shape=list(out.shape), finite=finite, encode_ms=(t1 - t0) * 1e3,
+              decode_ms=(t2 - t1) * 1e3, scene_ms=(t2 - t0) * 1e3,
+              queries_per_s=queries.shape[0] / (t2 - t1),
+              solid_frac=float((out[:, 0] >= 0.5).float().mean()), launches=counts,
+              expected_launches=expect, cpu_check_queries=_CHECK_CHUNK,
+              cpu_check_s=cpu_s, density_max_abs_err_vs_cpu=d_err,
+              all_channels_max_abs_err_vs_cpu=all_err, gpu=smi))
+    if not finite or list(abstract.shape) != [1, _CV1_M, 3 + 288] \
+            or list(out.shape) != [queries.shape[0], 18]:
+        raise AssertionError('cv1 output is not finite or has the wrong shape')
+    if not counts_ok:
+        raise AssertionError(f'cv1 launches {counts} differ from {expect}')
+    if not d_err <= 1e-4:
+        raise AssertionError(f'cv1 density differs from the CPU run by {d_err}')
+    del out, cv1_encoder, cv1_decoder, engine, cpu
 
     # 5. Both anchors on the card, against the CPU plain versions.
     for name in ('anchor', 'anchor_carla'):

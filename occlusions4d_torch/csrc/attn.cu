@@ -1,8 +1,16 @@
-// Fused kNN vector cross-attention for Hopper. Replaces
-// occlusions4d_tpu/ops/pallas_attention.py::_attn_kernel (:78), in its use_idx
-// form (neighbours from the kNN kernel), in both projection modes:
-//   premul  - the key set arrives projected, kv = [feats2 Wk | feats2 Wv];
-//   per-row - kv = feats2 (E wide) and Wk/Wv are applied per gathered row.
+// Fused kNN vector cross-attention for Hopper, two entries:
+//   o4d_attn   replaces occlusions4d_tpu/ops/pallas_attention.py::_attn_kernel
+//              (:78), in its use_idx form (neighbours from the kNN kernel), in
+//              both projection modes:
+//                premul  - the key set arrives projected,
+//                          kv = [feats2 Wk | feats2 Wv];
+//                per-row - kv = feats2 (E wide) and Wk/Wv are applied per
+//                          gathered row;
+//   o4d_attn_g replaces _attn_g_kernel (:934): per-row mode over the rows of
+//              the shared gather, g (B, K_ext, N, E + 3) = [feats | pos] per
+//              (neighbour, query) (csrc/gather.cu). Only the row loader
+//              differs (template parameter GATHERED), so on the same rows both
+//              entries give the same bits.
 //
 // Function, per query n with neighbours j = ki[n, :k] (f32 throughout):
 //   theta_j = W2 relu(W1 (qpos_n - kpos_j) + b1) + b2           (3 -> P -> D)
@@ -95,6 +103,7 @@ struct AttnArgs {
   const int* ki;       // (B, N, KS)
   const float* kpos;   // (B, M, 3)
   const float* kv;     // premul (B, M, 2D) [k | v]; per-row (B, M, E)
+  const float* g;      // gathered only: (B, KE, N, E + 3)
   const float* wk;     // (E, D), per-row only
   const float* wv;     // (E, D), per-row only
   const float* wp1;    // (3, P)
@@ -106,7 +115,7 @@ struct AttnArgs {
   const float* wa2;    // (H, D)
   const float* ba2;    // (D)
   float* out;          // (B, N, D)
-  int N, M, D, E, H, P, KS, k, premul;
+  int N, M, D, E, H, P, KS, KE, k, premul;
   float inv_sqrt_d;
 };
 
@@ -116,6 +125,7 @@ size_t smem_floats(int D, int E, int P) {
          (size_t)kKTile * kColTile + (size_t)kRows * P + (size_t)kRows * 3;
 }
 
+template <bool GATHERED>
 __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   extern __shared__ float sm[];
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
@@ -128,6 +138,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   float* PH = WS + kKTile * kColTile;    // theta hidden layer
   float* REL = PH + kRows * P;           // qpos - kpos
   __shared__ int rq[kRows], ridx[kRows];
+  __shared__ const float* rrow[kRows];  // GATHERED: the row's [feats | pos].
 
   const int b = blockIdx.y, tid = threadIdx.x;
   const int tq_per = kRows / k;
@@ -135,14 +146,21 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   if (tid < kRows) {
     const int tq = tid / k, j = tid % k, n = n0 + tq;
     const bool valid = tq < tq_per && n < p.N;
-    const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
     rq[tid] = valid ? n : -1;
-    ridx[tid] = idx;
+    const float* kp;
+    if (GATHERED) {
+      const float* row =
+          p.g + (((size_t)b * p.KE + j) * p.N + (valid ? n : 0)) * (E + 3);
+      rrow[tid] = row;
+      kp = row + E;
+    } else {
+      const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
+      ridx[tid] = idx;
+      kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+    }
     for (int c = 0; c < 3; ++c)
       REL[tid * 3 + c] =
-          valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] -
-                      p.kpos[((size_t)b * p.M + idx) * 3 + c]
-                : 0.f;
+          valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
   }
   __syncthreads();
 
@@ -150,7 +168,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   gemm_rows<false, false>(PH, P, p.wp2, D, p.bp2, P, D, PE, D, WS);
 
   const float* kvb = p.kv + (size_t)b * p.M * (p.premul ? 2 * D : E);
-  if (p.premul) {
+  if (!GATHERED && p.premul) {
     for (int idx = tid; idx < kRows * D; idx += kThreads) {
       const int r = idx / D, c = idx % D;
       A[idx] = rq[r] >= 0 ? kvb[(size_t)ridx[r] * 2 * D + c] : 0.f;
@@ -158,7 +176,9 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   } else {
     for (int idx = tid; idx < kRows * E; idx += kThreads) {
       const int r = idx / E, c = idx % E;
-      LG[r * LD + c] = rq[r] >= 0 ? kvb[(size_t)ridx[r] * E + c] : 0.f;
+      LG[r * LD + c] = rq[r] < 0   ? 0.f
+                       : GATHERED ? rrow[r][c]
+                                  : kvb[(size_t)ridx[r] * E + c];
     }
     gemm_rows<false, false>(LG, LD, p.wk, D, nullptr, E, D, A, D, WS);
   }
@@ -199,6 +219,20 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   }
 }
 
+template <bool GATHERED>
+int launch(AttnArgs& a, int B, void* stream) {
+  a.inv_sqrt_d = 1.0f / sqrtf((float)a.D);
+  const size_t smem = smem_floats(a.D, a.E, a.P) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_kernel<GATHERED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tq_per = kRows / a.k;
+  dim3 grid((a.N + tq_per - 1) / tq_per, B);
+  attn_kernel<GATHERED><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" long long o4d_attn_smem_bytes(int D, int E, int P) {
@@ -214,7 +248,7 @@ extern "C" int o4d_attn(const void* qpos, const void* qproj, const void* ki,
                         int P, int KS, int k, int premul, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > kRows || k > KS) return (int)cudaErrorInvalidValue;
-  AttnArgs a;
+  AttnArgs a = {};
   a.qpos = (const float*)qpos;
   a.qproj = (const float*)qproj;
   a.ki = (const int*)ki;
@@ -240,13 +274,41 @@ extern "C" int o4d_attn(const void* qpos, const void* qproj, const void* ki,
   a.KS = KS;
   a.k = k;
   a.premul = premul;
-  a.inv_sqrt_d = 1.0f / sqrtf((float)D);
-  const size_t smem = smem_floats(D, E, P) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tq_per = kRows / k;
-  dim3 grid((N + tq_per - 1) / tq_per, B);
-  attn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch<false>(a, B, stream);
+}
+
+// o4d_attn over the shared gather's rows: g (B, KE, N, E + 3) replaces ki,
+// kpos and kv; per-row mode only.
+extern "C" int o4d_attn_g(const void* qpos, const void* qproj, const void* g,
+                          const void* wk, const void* wv, const void* wp1,
+                          const void* bp1, const void* wp2, const void* bp2,
+                          const void* wa1, const void* ba1, const void* wa2,
+                          const void* ba2, void* out, int B, int N, int D,
+                          int E, int H, int P, int KE, int k, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > kRows || k > KE) return (int)cudaErrorInvalidValue;
+  AttnArgs a = {};
+  a.qpos = (const float*)qpos;
+  a.qproj = (const float*)qproj;
+  a.g = (const float*)g;
+  a.wk = (const float*)wk;
+  a.wv = (const float*)wv;
+  a.wp1 = (const float*)wp1;
+  a.bp1 = (const float*)bp1;
+  a.wp2 = (const float*)wp2;
+  a.bp2 = (const float*)bp2;
+  a.wa1 = (const float*)wa1;
+  a.ba1 = (const float*)ba1;
+  a.wa2 = (const float*)wa2;
+  a.ba2 = (const float*)ba2;
+  a.out = (float*)out;
+  a.N = N;
+  a.D = D;
+  a.E = E;
+  a.H = H;
+  a.P = P;
+  a.KE = KE;
+  a.k = k;
+  a.premul = 0;
+  return launch<true>(a, B, stream);
 }

@@ -1,17 +1,25 @@
-// Inverse-distance kNN feature interpolation for Hopper. Replaces
-// occlusions4d_tpu/ops/pallas_attention.py::_interp_kernel (:554), in its
-// use_idx form: the neighbours come from the kNN kernel (knn_extract).
+// Inverse-distance kNN feature interpolation for Hopper, two entries:
+//   o4d_interp   replaces occlusions4d_tpu/ops/pallas_attention.py::
+//                _interp_kernel (:554), in its use_idx form: the neighbours
+//                come from the kNN kernel (knn_extract) and the rows from the
+//                key features;
+//   o4d_interp_g replaces _interp_g_kernel (:1254): the rows come from the
+//                shared gather's g (B, K_ext, N, E + 3) (csrc/gather.cu),
+//                first E columns.
 //
 // Function, per query n over its first k neighbours j (ascending):
 //   w_j   = 1 / (sqrt(max(kd_j, 0)) + eps)          (kd: squared distance)
-//   out_n = (sum_j w_j f[ki_j]) / (sum_j w_j)
+//   out_n = (sum_j w_j f_j) / (sum_j w_j)
+// Both entries run the same arithmetic on the same rows, so they give the
+// same bits.
 //
 // What bounds it on the H100: bytes. Each query reads k index/distance pairs
-// and k feature rows (the key set is small and stays in L2) and writes one
-// E-wide row; at the decoder's 32768 x 288 chunk the output write dominates
-// (37.7 MB per chunk). Design: one thread block per query; the k weights are
-// formed once in shared memory, then the threads stride over the E channels so
-// that both the gathered feature reads and the output write are coalesced.
+// and k feature rows and writes one E-wide row. From the small key set (L2)
+// the output write dominates (37.7 MB per 32768 x 288 chunk); from g the k
+// rows read do (302 MB per cv1 chunk at k 8). Design: one thread block per
+// query; the k weights and row addresses are formed once in shared memory,
+// then the threads stride over the E channels so that both the row reads and
+// the output write are coalesced.
 
 #include <cuda_runtime.h>
 
@@ -19,19 +27,23 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool GATHERED>
 __global__ void interp_kernel(const int* __restrict__ ki,
                               const float* __restrict__ kd,
-                              const float* __restrict__ feats,
+                              const float* __restrict__ src,
                               float* __restrict__ out, int N, int M, int E,
-                              int KS, int k, float eps) {
+                              int KS, int KE, int k, float eps) {
   __shared__ float w[32];
-  __shared__ int id[32];
+  __shared__ const float* rowp[32];
   __shared__ float den;
   const int n = blockIdx.x, b = blockIdx.y;
   const size_t row = (size_t)b * N + n;
   if (threadIdx.x < k) {
-    w[threadIdx.x] = 1.0f / (sqrtf(fmaxf(kd[row * KS + threadIdx.x], 0.f)) + eps);
-    id[threadIdx.x] = ki[row * KS + threadIdx.x];
+    const int j = threadIdx.x;
+    w[j] = 1.0f / (sqrtf(fmaxf(kd[row * KS + j], 0.f)) + eps);
+    // src: key features (B, M, E), or g (B, KE, N, E + 3).
+    rowp[j] = GATHERED ? src + (((size_t)b * KE + j) * N + n) * (E + 3)
+                       : src + ((size_t)b * M + ki[row * KS + j]) * E;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -40,10 +52,9 @@ __global__ void interp_kernel(const int* __restrict__ ki,
     den = s;
   }
   __syncthreads();
-  const float* fb = feats + (size_t)b * M * E;
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     float acc = 0.f;
-    for (int j = 0; j < k; ++j) acc += w[j] * fb[(size_t)id[j] * E + e];
+    for (int j = 0; j < k; ++j) acc += w[j] * rowp[j][e];
     out[row * E + e] = acc / den;
   }
 }
@@ -58,8 +69,22 @@ extern "C" int o4d_interp(const void* ki, const void* kd, const void* feats,
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > 32 || k > KS) return (int)cudaErrorInvalidValue;
   dim3 grid(N, B);
-  interp_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  interp_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)ki, (const float*)kd, (const float*)feats, (float*)out, N, M,
-      E, KS, k, eps);
+      E, KS, 0, k, eps);
+  return (int)cudaGetLastError();
+}
+
+// kd (B, N, KS) f32 (first k columns used); g (B, KE, N, E + 3) f32 (first k
+// rows used); out (B, N, E) f32.
+extern "C" int o4d_interp_g(const void* kd, const void* g, void* out, int B,
+                            int N, int E, int KS, int KE, int k, float eps,
+                            void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || k > KS || k > KE) return (int)cudaErrorInvalidValue;
+  dim3 grid(N, B);
+  interp_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      nullptr, (const float*)kd, (const float*)g, (float*)out, N, 0, E, KS, KE,
+      k, eps);
   return (int)cudaGetLastError();
 }

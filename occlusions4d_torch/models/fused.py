@@ -7,25 +7,31 @@ the interpolation kernel and the attention kernel per cross-attention block.
 The backbone's Linear layers stay plain matmuls, as they stay XLA dots in the
 JAX package. On CPU tensors every operator runs its plain version.
 
-The path is differentiable (the train step's decoder): the interpolation and
-attention operators are autograd Functions whose backward is a kernel
-(csrc/interp_bwd.cu, csrc/attn_bwd.cu); the attention weights reach them as
-tensors, so their gradients flow back to the nn.Linear parameters, and the
-premul projection stays outside the kernel, so autograd chains d(kv) to the
-abstract features and to_k/to_v. The kNN graph and the abstract positions
-carry no gradient (as the JAX path's stop_gradient).
+Two routes, as in the JAX package. Below SHARED_GATHER_MIN_M abstract points
+(gv1's 531) every consumer reads its neighbours through the kNN indices
+(csrc/interp.cu, csrc/attn.cu in the mode use_premul picks). At or above it
+(cv1's 2124) the neighbours' raw [feats | pos] rows are gathered once
+(csrc/gather.cu) and the interpolation and both attention layers read them
+(o4d_interp_g, o4d_attn_g, per-row projections). The CPU takes the same
+route through the plain versions. The threshold is copied from the TPU
+(module global, so tests can lower it) until it is re-measured on the H100.
 
-The abstract cloud of gv1 has 531 points, below the 1024 at which the JAX
-package switches to its shared-gather kernels. Those kernels are not ported
-yet: on CUDA tensors fused_field_apply raises at or above the threshold rather
-than run another path. On the CPU the plain versions compute the same function
-at any size.
+The path is differentiable (the train step's decoder): the operators are
+autograd Functions; the attention weights reach them as tensors, so their
+gradients flow back to the nn.Linear parameters, and the premul projection
+stays outside the kernel, so autograd chains d(kv) to the abstract features
+and to_k/to_v. The kNN graph and the abstract positions carry no gradient
+(as the JAX path's stop_gradient). The index route has backward kernels
+(csrc/interp_bwd.cu, csrc/attn_bwd.cu); the shared-gather route's backward
+kernels are not ported yet, so its backward raises on CUDA and runs the
+plain versions on the CPU.
 '''
 
 import torch
 from torch.nn import functional as F
 
-from ..ops.attention import fused_knn_interp, fused_knn_vector_attention, knn_extract
+from ..ops.attention import (fused_knn_interp, fused_knn_vector_attention, knn_extract,
+                             knn_gather_rows)
 from .implicit import BASE_FREQUENCY, activation, positional_encode
 
 __all__ = ['fused_field_apply', 'supports_fused', 'attention_params',
@@ -66,10 +72,6 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
     '''
     if not supports_fused(decoder):
         raise NotImplementedError('configuration not covered by the fused path')
-    if pcl_abstract.is_cuda and pcl_abstract.shape[1] >= SHARED_GATHER_MIN_M:
-        raise NotImplementedError(
-            f'abstract clouds of {SHARED_GATHER_MIN_M}+ points need the '
-            'shared-gather kernels, which are not ported yet')
     act = activation(decoder.activation)
     pts_abs = pcl_abstract[..., :3]
     feats_abs = pcl_abstract[..., 3:]
@@ -81,9 +83,15 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
     k_ext = max(decoder.cross_attn_neighbors if decoder.use_pt_inds else 0,
                 decoder.num_local_features)
     knn = knn_extract(q_xyz, pts_abs, k_ext, key_mask=abstract_mask)
+    # Large abstract clouds: gather the neighbours' raw rows once for every
+    # consumer (the JAX package's shared-gather route).
+    gathered = None
+    if pts_abs.shape[1] >= SHARED_GATHER_MIN_M:
+        gathered = knn_gather_rows(pts_abs, feats_abs, knn, k_ext)
     features_local = fused_knn_interp(q_xyz, pts_abs, feats_abs,
                                       decoder.num_local_features, eps=1e-4,
-                                      key_mask=abstract_mask, knn=knn)
+                                      key_mask=abstract_mask, knn=knn,
+                                      gathered=gathered)
     fg = features_global[:, None, :].expand(B, N, features_global.shape[-1])
     features_query = torch.cat([fg, features_local], dim=-1)
 
@@ -101,6 +109,7 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
             q_proj = F.linear(blk.layer1(x), att.to_q.weight)
             y = fused_knn_vector_attention(
                 q_proj, q_xyz, feats_abs, pts_abs, attention_params(att),
-                decoder.cross_attn_neighbors, key_mask=abstract_mask, knn=knn)
+                decoder.cross_attn_neighbors, key_mask=abstract_mask, knn=knn,
+                gathered=gathered)
             x = x + blk.layer3(y)
     return decoder.lin_out(act(x)), x

@@ -43,6 +43,7 @@ SOURCES = {
     'attn': [],
     'interp_bwd': [],
     'attn_bwd': [],
+    'gather': [],
 }
 
 _LIBS = {}

@@ -1,25 +1,34 @@
 '''
 The fused decoder operators (port of occlusions4d_tpu/ops/pallas_attention.py,
-the use_idx forms that the gv1 decode and train step run):
+its use_idx and gathered forms):
 
   knn_extract                 shared exact kNN of the decoder queries against
                               the abstract cloud; the brute-force kNN kernel
                               (csrc/knn.cu) serves it; no gradient;
+  knn_gather_rows             the shared gather: the raw [feats | pos] rows of
+                              every query's neighbours, once, for all the
+                              consumers below (csrc/gather.cu); used when the
+                              abstract cloud is large (models/fused.py);
   fused_knn_interp            inverse-distance interpolation, csrc/interp.cu,
                               differentiable in the key features through
-                              csrc/interp_bwd.cu;
+                              csrc/interp_bwd.cu; with gathered= it reads the
+                              shared gather's rows (o4d_interp_g);
   fused_knn_vector_attention  one vector cross-attention block, csrc/attn.cu,
                               in premul or per-row projection mode,
                               differentiable in the queries, the key set and
-                              every weight through csrc/attn_bwd.cu.
+                              every weight through csrc/attn_bwd.cu; with
+                              gathered= it runs per-row over the shared
+                              gather's rows (o4d_attn_g).
 
-The two differentiable operators are torch.autograd.Functions whose forward
-is the forward kernel and whose backward is the backward kernel; like the
-JAX custom VJPs they save only their inputs, never an (N, K, D) tensor, and
-positions get no gradient. A CUDA tensor launches the kernels; a CPU tensor
-runs the plain versions beside them (the plain backward is autograd through
-the plain forward). Layouts follow the port, not the TPU: knn_extract returns
-(B, N, k) arrays, not 128-lane padded tiles.
+Every operator is a torch.autograd.Function. A CUDA tensor launches the
+kernels; a CPU tensor runs the plain versions beside them (the plain backward
+is autograd through the plain forward). Index-route operators have backward
+kernels; like the JAX custom VJPs they save only their inputs, never an
+(N, K, D) tensor, and positions get no gradient. The gathered operators'
+backward kernels (_scatter_kernel, _attn_g_bwd_kernel, _interp_g_bwd_kernel)
+are not ported yet: on CUDA tensors their backward raises. Layouts follow the
+port, not the TPU: knn_extract returns (B, N, k) arrays, not 128-lane padded
+tiles, and the gather's (B, k, N, E + 3) rows are not padded to a tile grid.
 '''
 
 import ctypes
@@ -30,11 +39,13 @@ import torch
 from . import _build
 from .knn import _prepare, gather_neighbors, knn_rank, sq_norm
 
-__all__ = ['knn_extract', 'fused_knn_interp', 'fused_knn_vector_attention',
-           'interp_plain', 'interp_bwd_plain', 'attn_plain', 'attn_bwd_plain',
-           'attn_bwd', 'interp_bwd', 'use_premul', 'LAUNCHES']
+__all__ = ['knn_extract', 'knn_gather_rows', 'fused_knn_interp',
+           'fused_knn_vector_attention', 'gather_rows_plain', 'interp_plain',
+           'interp_g_plain', 'interp_bwd_plain', 'attn_plain', 'attn_g_plain',
+           'attn_bwd_plain', 'attn_bwd', 'interp_bwd', 'use_premul', 'LAUNCHES']
 
-LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0}
+LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0, 'gather': 0,
+            'interp_g': 0, 'attn_g': 0}
 _MLP = ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use.
 
@@ -67,11 +78,89 @@ def _cuda_ki(name, ki):
     return ki
 
 
+def _plain_vjp(fn, tensors, g):
+    '''Gradients of fn(*tensors) against g with respect to every tensor, by
+    autograd through the plain version (the CPU backward of the gathered
+    operators).'''
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in tensors]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+def _no_cuda_backward(kernel):
+    return NotImplementedError(
+        f'the backward of the shared-gather path on CUDA needs {kernel} '
+        '(occlusions4d_tpu/ops/pallas_attention.py), which is not ported yet')
+
+
 def _slots(device, B, work):
     '''Persistent blocks per example of the backward kernels: about one per
     SM over the whole batch, never more than the example has work items.'''
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-sms // B), work))
+
+
+# ------------------------------------------------------------ shared gather --
+
+def gather_rows_plain(fv, ki, k):
+    '''Plain version of the gather kernel.
+    :param fv (B, M, C) f32; ki (B, N, >=k) int. :return g (B, k, N, C).'''
+    return gather_neighbors(fv, ki[..., :k]).transpose(1, 2).contiguous()
+
+
+def _gather_cuda(fv, ki, k):
+    B, N, KS = ki.shape
+    M, C = fv.shape[1:]
+    _cuda_ki('gather', ki)
+    _cuda_f32('fv', fv)
+    if fv.shape[0] != B or not 1 <= k <= min(KS, 32):
+        raise ValueError(f'gather: bad shapes fv {tuple(fv.shape)}, ki '
+                         f'{tuple(ki.shape)}, k={k}')
+    g = torch.empty((B, k, N, C), dtype=torch.float32, device=fv.device)
+    fn = _build.library('gather').o4d_gather
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(fv.device):
+        _build.check(fn(_build.ptr(fv), _build.ptr(ki), _build.ptr(g), B, N, M, C, KS,
+                        k, _build.stream_ptr(fv.device)), 'gather')
+    LAUNCHES['gather'] += 1
+    return g
+
+
+class _GatherRows(torch.autograd.Function):
+    '''Forward csrc/gather.cu (plain version on the CPU); gradient in fv.
+    The backward kernel (a scatter-add) is not ported: CUDA raises.'''
+
+    @staticmethod
+    def forward(ctx, fv, ki, k):
+        ctx.save_for_backward(fv, ki)
+        ctx.k = k
+        if fv.is_cuda:
+            return _gather_cuda(fv, ki, k)
+        return gather_rows_plain(fv, ki, k)
+
+    @staticmethod
+    def backward(ctx, dg):
+        fv, ki = ctx.saved_tensors
+        if dg.is_cuda:
+            raise _no_cuda_backward('_scatter_kernel (:837)')
+        dfv, = _plain_vjp(lambda f: gather_rows_plain(f, ki, ctx.k), [fv], dg)
+        return dfv, None, None
+
+
+def knn_gather_rows(pos2, feats2, knn, k):
+    '''
+    The raw neighbour rows g[b, j, n] = [feats2 | pos2][b, ki[b, n, j]] for
+    j < k, gathered once for every consumer of one decode (interpolation and
+    attention take them through gathered=). Differentiable in feats2; the
+    positions are constants.
+    :param pos2 (B, M, 3); feats2 (B, M, E); knn: knn_extract result with
+        k' >= k columns; k: rows to gather (>= every consumer's k).
+    :return g (B, k, N, E + 3) f32.
+    '''
+    fv = torch.cat([feats2.to(torch.float32),
+                    pos2[..., :3].detach().to(torch.float32)], dim=-1).contiguous()
+    return _GatherRows.apply(fv, knn[0].contiguous(), k)
 
 
 # ------------------------------------------------------------ interpolation --
@@ -80,13 +169,25 @@ def _interp_weights(kd, k, eps):
     return 1.0 / (torch.sqrt(torch.clamp(kd[..., :k], min=0.0)) + eps)
 
 
+def _interp_rows(kd, rows, k, eps):
+    '''sum_j w_j rows_j / sum_j w_j over rows (B, N, k, E).'''
+    w = _interp_weights(kd, k, eps)
+    return (w[..., None] * rows).sum(2) / w.sum(-1, keepdim=True)
+
+
 def interp_plain(ki, kd, feats, k, eps):
     '''Plain version of the interpolation kernel.
     :param ki (B, N, >=k) int; kd (B, N, >=k) f32; feats (B, M, E).
     :return (B, N, E) f32.'''
-    w = _interp_weights(kd, k, eps)
-    g = gather_neighbors(feats, ki[..., :k])
-    return (w[..., None] * g).sum(2) / w.sum(-1, keepdim=True)
+    return _interp_rows(kd, gather_neighbors(feats, ki[..., :k]), k, eps)
+
+
+def interp_g_plain(kd, g, k, eps):
+    '''Plain version of the gathered interpolation kernel: interp_plain's
+    arithmetic on the same rows, read from the shared gather (same bits).
+    :param kd (B, N, >=k) f32; g (B, >=k, N, E + 3). :return (B, N, E) f32.'''
+    E = g.shape[-1] - 3
+    return _interp_rows(kd, g[:, :k, :, :E].transpose(1, 2).contiguous(), k, eps)
 
 
 def interp_bwd_plain(ki, kd, g, M, k, eps):
@@ -181,14 +282,69 @@ class _Interp(torch.autograd.Function):
         return None, None, interp_bwd(ki, kd, g, ctx.M, ctx.k, ctx.eps), None, None
 
 
-def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None):
+def _interp_g_cuda(kd, g, k, eps):
+    B, N, KS = kd.shape
+    KE, E = g.shape[1], g.shape[-1] - 3
+    _cuda_f32('kd', kd)
+    _cuda_f32('g', g)
+    if tuple(g.shape) != (B, KE, N, E + 3) or not 1 <= k <= min(KS, KE, 32):
+        raise ValueError(f'interp_g: bad shapes kd {tuple(kd.shape)}, g '
+                         f'{tuple(g.shape)}, k={k}')
+    out = torch.empty((B, N, E), dtype=torch.float32, device=g.device)
+    fn = _build.library('interp').o4d_interp_g
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(g.device):
+        _build.check(fn(_build.ptr(kd), _build.ptr(g), _build.ptr(out), B, N, E, KS,
+                        KE, k, float(eps), _build.stream_ptr(g.device)), 'interp_g')
+    LAUNCHES['interp_g'] += 1
+    return out
+
+
+class _InterpG(torch.autograd.Function):
+    '''Forward o4d_interp_g of csrc/interp.cu (plain version on the CPU);
+    gradient in g. The backward kernel is not ported: CUDA raises.'''
+
+    @staticmethod
+    def forward(ctx, kd, g, k, eps):
+        ctx.save_for_backward(kd, g)
+        ctx.k, ctx.eps = k, eps
+        if g.is_cuda:
+            return _interp_g_cuda(kd, g, k, eps)
+        return interp_g_plain(kd, g, k, eps)
+
+    @staticmethod
+    def backward(ctx, go):
+        kd, g = ctx.saved_tensors
+        if go.is_cuda:
+            raise _no_cuda_backward('_interp_g_bwd_kernel (:1294)')
+        dg, = _plain_vjp(lambda gg: interp_g_plain(kd, gg, ctx.k, ctx.eps), [g], go)
+        return None, dg, None, None
+
+
+def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None,
+                     gathered=None):
     '''
     out_n = sum_j w_j f_j / sum_j w_j with w_j = 1 / (|q_n - p_j| + eps) over
     the k nearest keys. Differentiable in feats.
     :param q_pos (B, N, 3); pos2 (B, M, 3); feats (B, M, E).
     :param knn: optional knn_extract(q_pos, pos2, k' >= k, key_mask) result.
+    :param gathered: optional knn_gather_rows(pos2, feats, knn, k' >= k)
+        result (needs knn for the distances): the rows are read from it, with
+        the same result; the gradient flows back through the gather.
     :return (B, N, E) f32.
     '''
+    if gathered is not None:
+        if knn is None:
+            raise ValueError('gathered= needs the knn distances')
+        B, N = q_pos.shape[:2]
+        E = feats.shape[-1]
+        if gathered.shape[0] != B or gathered.shape[1] < k \
+                or tuple(gathered.shape[2:]) != (N, E + 3):
+            raise ValueError(f'gathered {tuple(gathered.shape)} does not fit B={B}, '
+                             f'N={N}, E={E}, k={k}')
+        return _InterpG.apply(knn[1].contiguous(), gathered.contiguous(), k, eps)
     if knn is None:
         knn = knn_extract(q_pos, pos2, k, key_mask=key_mask)
     ki, kd = knn
@@ -210,25 +366,41 @@ def _kernel(params, name):
     return params[name]['kernel'].to(torch.float32)
 
 
-def attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul):
-    '''Plain version of the attention kernel (same arguments as its wrapper:
-    kv is [feats2 Wk | feats2 Wv] in premul mode, else feats2).'''
+def _attn_rows(q_pos, q_proj, kpos, rows, params, premul):
+    '''The attention over each query's neighbour rows: kpos (B, N, k, 3),
+    rows (B, N, k, 2D) projected [k | v] in premul mode, else (B, N, k, E).'''
     D = q_proj.shape[-1]
-    idx = ki[..., :k]
-    rel = q_pos[:, :, None, :] - gather_neighbors(pos2, idx)
+    rel = q_pos[:, :, None, :] - kpos
     pe = torch.relu(rel @ _kernel(params, 'pos_mlp_0') + params['pos_mlp_0']['bias'])
     pe = pe @ _kernel(params, 'pos_mlp_2') + params['pos_mlp_2']['bias']
-    g = gather_neighbors(kv, idx)
     if premul:
-        kg, vg = g[..., :D], g[..., D:]
+        kg, vg = rows[..., :D], rows[..., D:]
     else:
-        kg, vg = g @ _kernel(params, 'to_k'), g @ _kernel(params, 'to_v')
+        kg, vg = rows @ _kernel(params, 'to_k'), rows @ _kernel(params, 'to_v')
     a = (q_proj[:, :, None, :] - kg) + pe
     h = torch.relu(a @ _kernel(params, 'attn_mlp_0') + params['attn_mlp_0']['bias'])
     lg = (h @ _kernel(params, 'attn_mlp_2') + params['attn_mlp_2']['bias'])
     lg = lg * (1.0 / math.sqrt(D))
     attn = torch.softmax(lg, dim=2)
     return (attn * (vg + pe)).sum(2)
+
+
+def attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul):
+    '''Plain version of the attention kernel (same arguments as its wrapper:
+    kv is [feats2 Wk | feats2 Wv] in premul mode, else feats2).'''
+    idx = ki[..., :k]
+    return _attn_rows(q_pos, q_proj, gather_neighbors(pos2, idx),
+                      gather_neighbors(kv, idx), params, premul)
+
+
+def attn_g_plain(q_pos, q_proj, g, params, k):
+    '''Plain version of the gathered attention kernel: per-row mode over the
+    shared gather's rows g (B, >=k, N, E + 3); the positions carry no
+    gradient.'''
+    E = g.shape[-1] - 3
+    rows = g[:, :k].transpose(1, 2)
+    return _attn_rows(q_pos, q_proj, rows[..., E:].detach().contiguous(),
+                      rows[..., :E].contiguous(), params, False)
 
 
 def _grad_names(premul):
@@ -282,6 +454,16 @@ def _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul):
     _cuda_ki('attn', ki)
     if tuple(ki.shape[:2]) != (B, N) or not 1 <= k <= min(KS, 32):
         raise ValueError(f'attn: bad ki {tuple(ki.shape)} for N={N}, k={k}')
+    w, b, wk, wv, H, P = _weight_operands(params, D, E, premul, kv)
+    for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('pos2', pos2), ('kv', kv)):
+        _cuda_f32(name, t)
+    dims = dict(B=B, N=N, M=M, D=D, E=E, H=H, P=P, KS=KS)
+    return dims, w, b, wk, wv
+
+
+def _weight_operands(params, D, E, premul, kv=None):
+    '''Checked, contiguous attention weights: (weight dict, bias dict, wk, wv,
+    H, P); in premul mode wk and wv are placeholders (kv).'''
     w = {n: _cuda_f32(n, _kernel(params, n).contiguous()) for n in _MLP}
     b = {n: _cuda_f32(n, params[n]['bias'].to(torch.float32).contiguous()) for n in _MLP}
     P = w['pos_mlp_0'].shape[1]
@@ -295,10 +477,7 @@ def _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul):
             or w['attn_mlp_0'].shape != (D, H) or w['attn_mlp_2'].shape != (H, D)
             or (not premul and wk.shape != (E, D))):
         raise ValueError(f'attn: weight shapes do not fit D={D}, E={E}')
-    for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('pos2', pos2), ('kv', kv)):
-        _cuda_f32(name, t)
-    dims = dict(B=B, N=N, M=M, D=D, E=E, H=H, P=P, KS=KS)
-    return dims, w, b, wk, wv
+    return w, b, wk, wv, H, P
 
 
 def _weight_ptrs(w, b):
@@ -325,6 +504,33 @@ def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul):
                         dims['H'], dims['P'], dims['KS'], k, int(premul),
                         _build.stream_ptr(q_proj.device)), 'attn')
     LAUNCHES['attn'] += 1
+    return out
+
+
+def _attn_g_cuda(q_pos, q_proj, g, params, k):
+    B, N, D = q_proj.shape
+    KE, E = g.shape[1], g.shape[-1] - 3
+    if tuple(g.shape) != (B, KE, N, E + 3) or not 1 <= k <= min(KE, 32):
+        raise ValueError(f'attn_g: g {tuple(g.shape)} does not fit B={B}, N={N}, '
+                         f'k={k}')
+    w, b, wk, wv, H, P = _weight_operands(params, D, E, False)
+    for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('g', g)):
+        _cuda_f32(name, t)
+    lib = _attn_lib()
+    smem = lib.o4d_attn_smem_bytes(D, E, P)
+    if smem > _SMEM_LIMIT:
+        raise NotImplementedError(f'attn_g kernel needs {smem} B of shared memory '
+                                  f'at D={D}, E={E}; the H100 block limit is '
+                                  f'{_SMEM_LIMIT}')
+    out = torch.empty((B, N, D), dtype=torch.float32, device=q_proj.device)
+    fn = lib.o4d_attn_g
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [out]
+    with torch.cuda.device(q_proj.device):
+        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k,
+                        _build.stream_ptr(q_proj.device)), 'attn_g')
+    LAUNCHES['attn_g'] += 1
     return out
 
 
@@ -412,8 +618,33 @@ class _Attention(torch.autograd.Function):
                 + tuple(dws[nl] for nl in ctx.names))
 
 
+class _AttentionG(torch.autograd.Function):
+    '''Forward o4d_attn_g of csrc/attn.cu (plain version on the CPU);
+    gradients in q_proj, g and the per-row mode's weights. The backward
+    kernel is not ported: CUDA raises.'''
+
+    @staticmethod
+    def forward(ctx, q_pos, q_proj, g, k, *weights):
+        names = _grad_names(False)
+        ctx.save_for_backward(q_pos, q_proj, g, *weights)
+        ctx.k, ctx.names = k, names
+        params = _params(names, weights)
+        if q_proj.is_cuda:
+            return _attn_g_cuda(q_pos, q_proj, g, params, k)
+        return attn_g_plain(q_pos, q_proj, g, params, k)
+
+    @staticmethod
+    def backward(ctx, go):
+        q_pos, q_proj, g, *weights = ctx.saved_tensors
+        if go.is_cuda:
+            raise _no_cuda_backward('_attn_g_bwd_kernel (:1030)')
+        grads = _plain_vjp(lambda qp, gg, *w: attn_g_plain(
+            q_pos, qp, gg, _params(ctx.names, w), ctx.k), [q_proj, g] + weights, go)
+        return (None, grads[0], grads[1], None) + tuple(grads[2:])
+
+
 def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
-                               key_mask=None, knn=None, premul=None):
+                               key_mask=None, knn=None, premul=None, gathered=None):
     '''
     One fused vector cross-attention block, differentiable in q_proj, feats2
     and every weight (positions are constants, as in the JAX module path).
@@ -425,10 +656,23 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
     :param knn: optional knn_extract(q_pos, pos2, k' >= k, key_mask) result.
     :param premul (bool or None): project the key set before the gather; None
         applies use_premul.
+    :param gathered: optional knn_gather_rows(pos2, feats2, knn, k' >= k)
+        result: per-row mode over its rows (premul is not consulted, knn and
+        key_mask are not needed); the gradient of the key set flows back
+        through the gather.
     :return (B, N, D) f32.
     '''
     B, N, D = q_proj.shape
     M, E = feats2.shape[1:]
+    q_proj = q_proj.to(torch.float32).contiguous()
+    if gathered is not None:
+        if gathered.shape[0] != B or gathered.shape[1] < k \
+                or tuple(gathered.shape[2:]) != (N, E + 3):
+            raise ValueError(f'gathered {tuple(gathered.shape)} does not fit B={B}, '
+                             f'N={N}, E={E}, k={k}')
+        q_pos = q_pos[..., :3].detach().to(torch.float32).contiguous()
+        weights = [params[n][leaf].to(torch.float32) for n, leaf in _grad_names(False)]
+        return _AttentionG.apply(q_pos, q_proj, gathered.contiguous(), k, *weights)
     if knn is None:
         knn = knn_extract(q_pos, pos2, k, key_mask=key_mask)
     ki = knn[0]
@@ -443,7 +687,6 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
         kv = feats2
     q_pos = q_pos[..., :3].detach().to(torch.float32).contiguous()
     pos2 = pos2[..., :3].detach().to(torch.float32).contiguous()
-    q_proj = q_proj.to(torch.float32).contiguous()
     weights = [params[n][leaf].to(torch.float32) for n, leaf in _grad_names(premul)]
     return _Attention.apply(q_pos, q_proj, ki.contiguous(), pos2, kv.contiguous(),
                             k, premul, *weights)

@@ -129,26 +129,87 @@ def test_launch_counters_count_kernel_launches(dev):
     assert _build.launch_counts()['knn_brute'] == 1
 
 
-def test_fused_decoder_raises_at_shared_gather_size(dev):
-    '''Abstract clouds of SHARED_GATHER_MIN_M+ points need the shared-gather
-    kernels: on the card the fused decoder raises instead of running plain
-    versions.'''
+def _small_decoder(dev):
     from occlusions4d_torch.models import LocalImplicitField
+    torch.manual_seed(0)
+    return LocalImplicitField(d_in=4, d_hidden=32, d_out=5, d_latent=32, n_blocks=3,
+                              num_local_features=8, local_mode='attention',
+                              d_latent_local=16, cross_attn_neighbors=14,
+                              cross_attn_layers=2, cr_attn_type='cc').to(dev).eval()
+
+
+def test_fused_decoder_takes_shared_gather_route_and_matches_cpu(dev):
+    '''At SHARED_GATHER_MIN_M+ abstract points the fused decoder launches the
+    shared-gather kernels and neither index-route kernel, and agrees with its
+    CPU run (plain versions, same route); below the threshold it launches
+    the index-route kernels only.'''
+    import copy
     from occlusions4d_torch.models.fused import SHARED_GATHER_MIN_M, fused_field_apply
-    dec = LocalImplicitField(d_in=4, d_hidden=32, d_out=5, d_latent=32, n_blocks=3,
-                             num_local_features=8, local_mode='attention',
-                             d_latent_local=16, cross_attn_neighbors=8,
-                             cross_attn_layers=1, cr_attn_type='c').to(dev).eval()
+    from occlusions4d_torch.ops import _build
+    dec = _small_decoder(dev)
+    rng = np.random.RandomState(11)
+    q = _t(rng.rand(1, 301, 4).astype(np.float32), dev)
+    fg = _t(rng.rand(1, 16).astype(np.float32), dev)
+    for M, shared in ((SHARED_GATHER_MIN_M - 1, False), (SHARED_GATHER_MIN_M + 77, True)):
+        abstract = _t(rng.rand(1, M, 3 + 16).astype(np.float32), dev)
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            out, _ = fused_field_apply(dec, q, abstract, fg)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            ref, _ = fused_field_apply(copy.deepcopy(dec).cpu(), q.cpu(), abstract.cpu(),
+                                       fg.cpu())
+        want = dict(gather=1, interp_g=1, attn_g=2, interp=0, attn=0) if shared else \
+            dict(gather=0, interp_g=0, attn_g=0, interp=1, attn=2)
+        assert {k: counts[k] for k in want} == want
+        torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-3)
+
+
+def test_shared_gather_backward_raises_on_card(dev):
+    '''The shared-gather route's backward kernels are not ported: autograd
+    through it raises on the card instead of running plain versions.'''
+    from occlusions4d_torch.models.fused import SHARED_GATHER_MIN_M, fused_field_apply
+    dec = _small_decoder(dev)
     q = torch.rand(1, 64, 4, device=dev)
     fg = torch.rand(1, 16, device=dev)
-    for M, raises in ((SHARED_GATHER_MIN_M - 1, False), (SHARED_GATHER_MIN_M, True)):
-        abstract = torch.rand(1, M, 3 + 16, device=dev)
-        with torch.no_grad():
-            if raises:
-                with pytest.raises(NotImplementedError):
-                    fused_field_apply(dec, q, abstract, fg)
-            else:
-                assert torch.isfinite(fused_field_apply(dec, q, abstract, fg)[0]).all()
+    abstract = torch.rand(1, SHARED_GATHER_MIN_M, 3 + 16, device=dev).requires_grad_(True)
+    out, _ = fused_field_apply(dec, q, abstract, fg)
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize('K', [1, 14, 32])
+def test_shared_gather_kernels_match_plain(dev, K):
+    '''gather (bit-equal), interp_g and attn_g against their plain versions,
+    and against the index route on the same neighbours: B 2, N not a
+    multiple of any tile, masked keys, every consumer reading a k-prefix.'''
+    rng = np.random.RandomState(20 + K)
+    B, N, M, D, E = 2, 203, 97, 40, 24
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    mask = _t(rng.rand(B, M) > 0.3, dev)
+    knn = t_attn.knn_extract(q_pos, pos2, K, key_mask=mask)
+    ki, kd = knn
+    g = t_attn.knn_gather_rows(pos2, feats, knn, K)
+    fv = torch.cat([feats, pos2], -1).contiguous()
+    assert torch.equal(g, t_attn.gather_rows_plain(fv, ki, K))
+    ki_n = min(K, 8)
+    o_g = t_attn.fused_knn_interp(q_pos, pos2, feats, ki_n, knn=knn, gathered=g)
+    torch.testing.assert_close(o_g, t_attn.interp_g_plain(kd, g, ki_n, 1e-4),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(o_g, t_attn.fused_knn_interp(q_pos, pos2, feats, ki_n, knn=knn))
+    params = _attn_params(rng, dev, D, E)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    with torch.no_grad():
+        out = t_attn.fused_knn_vector_attention(q_proj, q_pos, feats, pos2, params, K,
+                                                knn=knn, gathered=g)
+        ref = t_attn.attn_g_plain(q_pos, q_proj, g, params, K)
+        idx = t_attn.fused_knn_vector_attention(q_proj, q_pos, feats, pos2, params, K,
+                                                knn=knn, premul=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+    assert torch.equal(out, idx)  # same kernel body, same rows: same bits.
 
 
 def _attn_params(rng, dev, D, E, P=32):

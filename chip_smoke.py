@@ -18,7 +18,11 @@ each printing one JSON line:
      at a time) and also run twice and must give the same bits; the three
      shared-gather kernels run at one cv1 decode chunk (32768 queries, a
      2124-point abstract cloud), where the per-row index-route attention is
-     timed beside gather + attn_g;
+     timed beside gather + attn_g; the shared-gather backward kernels
+     (scatter, interp_g_bwd, attn_g_bwd) run at one cv1 train frame (3
+     examples x 17203 queries against 2124-point abstract clouds; the plain
+     attention backward one example at a time), each twice for the same
+     bits;
   4. main path: gv1 at full width with seeded random weights (numpy, loaded
      through checkpoint.from_jax_params): encode a 14336-point cloud, decode
      the dense grid in chunks of 32768; launch counters are zeroed just before
@@ -42,6 +46,17 @@ each printing one JSON line:
   7. sampler_moving: one gv1-sized sample_frame batch with the 'moving'
      bias, which must launch the bidirectional 1-NN kernel, whose result must
      equal its plain version exactly;
+  8. train_cv1: the cv1 train step (Trainer on 'carla', batch 3, 4 frames of
+     7168 + 10035 queries, low_moving_ivalo_sembal, seeded numpy weights and
+     a CARLA-layout batch as bench.py builds it): 1 warm-up step, 2 timed
+     steps with the launch counters zeroed just before and read just after
+     (per step gather 4, interp_g 4, attn_g 8, scatter 4, interp_g_bwd 4,
+     attn_g_bwd 8, no index-route attention or interpolation kernel, and
+     nn1_bidir), finite losses (segmentation included), gradients and
+     parameters, changed parameters; one phase-split step; before the
+     steps, one decoder forward + backward of a sampled frame's first 1024
+     queries on the card and on the CPU (plain versions, same route), loss
+     and gradients compared;
 then the card's nvidia-smi line, the {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
 or without the package beside this file, it exits non-zero and prints no
@@ -85,6 +100,12 @@ _CV1 = dict(_GV1, pt_norm_type='layer', segmentation_lw=0.6, color_lw=0.0,
             tracking_lw=0.0, cr_cube_bounds=16.0, cube_mode=4, abstract_levels=2,
             semantic_classes=13)
 _CV1_M = 1593 + 531
+# The cv1 training recipe (bench.py:385-397): the gv1 recipe with cv1's
+# model, loss weights and sampler bias; 7168 solid + 10035 air queries.
+_CV1_TRAIN = dict(_GV1_TRAIN, **dict(_CV1, point_sample_bias='low_moving_ivalo_sembal',
+                                     air_sampling_ratio=1.4))
+_CV1_N = 7168 + int(7168 * 1.4)
+_GRAD_CHECK_Q = 1024
 _CHECK_CHUNK = 4096
 _REPLACES = {
     'knn_brute': 'occlusions4d_tpu/ops/pallas_knn.py:88; '
@@ -99,16 +120,25 @@ _REPLACES = {
     'gather': 'occlusions4d_tpu/ops/pallas_attention.py:814',
     'interp_g': 'occlusions4d_tpu/ops/pallas_attention.py:1254',
     'attn_g': 'occlusions4d_tpu/ops/pallas_attention.py:934',
+    'scatter': 'occlusions4d_tpu/ops/pallas_attention.py:837',
+    'interp_g_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:1294',
+    'attn_g_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:1030',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
            'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
-           'nn1_bidir': 'knn', 'gather': 'gather', 'interp_g': 'interp', 'attn_g': 'attn'}
+           'nn1_bidir': 'knn', 'gather': 'gather', 'interp_g': 'interp', 'attn_g': 'attn',
+           'scatter': 'gather', 'interp_g_bwd': 'interp', 'attn_g_bwd': 'attn_bwd'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
 _SHARED = ('gather', 'interp_g', 'attn_g')
+_SHARED_BWD = ('scatter', 'interp_g_bwd', 'attn_g_bwd')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
-             nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED})
+             nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED},
+             **{k: 'train_cv1' for k in _SHARED_BWD})
+# Launches per cv1 train step (4 frames, 2 attention layers each).
+_CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=4, interp_g_bwd=4, attn_g_bwd=8,
+                 attn=0, interp=0, attn_bwd=0, interp_bwd=0)
 
 
 def emit(obj):
@@ -204,14 +234,13 @@ def max_err(a, b):
     return float((a - b).detach().abs().max())
 
 
-def attn_bwd_plain_per_example(torch, t_attn, args):
-    """The plain attention backward one example at a time (its autograd
-    graph for the whole batch would hold tens of GB); the weight gradients
-    of the examples add up, d(q_proj) and d(kv) stack."""
-    qpos, q_proj, ki, pos2, kv, params, K, premul, g = args
-    parts = [t_attn.attn_bwd_plain(qpos[b:b + 1], q_proj[b:b + 1], ki[b:b + 1],
-                                   pos2[b:b + 1], kv[b:b + 1], params, K, premul,
-                                   g[b:b + 1]) for b in range(q_proj.shape[0])]
+def plain_per_example(torch, fn, args):
+    """A plain attention backward one example at a time (its autograd graph
+    for the whole batch would hold tens of GB): every tensor argument is
+    sliced to one example; the weight gradients of the examples add up, the
+    other two results stack."""
+    parts = [fn(*[a[b:b + 1] if isinstance(a, torch.Tensor) else a for a in args])
+             for b in range(args[1].shape[0])]
     return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
             {n: sum(p[2][n] for p in parts) for n in parts[0][2]})
 
@@ -240,7 +269,7 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
             args = (qpos, q_proj, ki, pos2, kv, params, K, premul, g)
             dq, dkv, dw = t_attn.attn_bwd(*args)
             dq2, dkv2, dw2 = t_attn.attn_bwd(*args)
-        rq, rkv, rw = attn_bwd_plain_per_example(torch, t_attn, args)
+        rq, rkv, rw = plain_per_example(torch, t_attn.attn_bwd_plain, args)
         torch.cuda.synchronize()
         pairs = [(dq, rq), (dkv, rkv)] + [(dw[n], rw[n]) for n in sorted(rw)]
         err = max(max_err(a, b) for a, b in pairs)
@@ -254,7 +283,7 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
                     + [max_err(dw[n], dw2[n]) for n in dw])
         with torch.no_grad():
             ms = cuda_ms(torch, lambda: t_attn.attn_bwd(*args), 3)
-        plain_ms = cuda_ms(torch, lambda: attn_bwd_plain_per_example(torch, t_attn, args), 2)
+        plain_ms = cuda_ms(torch, lambda: plain_per_example(torch, t_attn.attn_bwd_plain, args), 2)
         CW = kv.shape[-1]
         extra = 0 if premul else E * D
         # Per row: the recomputed forward and the backward products.
@@ -482,19 +511,166 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
                           bound_f32_cuda_core_ms=f32_ms, shape=shape, **routes)
 
 
-def train_batch(torch, cfg, dev, seed=1):
+def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, rows):
+    """scatter, interp_g_bwd and attn_g_bwd at one cv1 train frame (3
+    examples of 17203 queries, each against its own 2124-point abstract
+    cloud; K 14 gathered, interpolation over 8), each against its plain
+    version (the attention one example at a time) and twice for the same
+    bits; the gathered attention backward also against the per-row index
+    route on the same rows (d(q_proj) and weight gradients bit-equal)."""
+    B, N, M, K, KI, C = 3, _CV1_N, _CV1_M, 14, 8, E + 3
+    D = params['attn_mlp_0']['kernel'].shape[0]
+    H, P = params['attn_mlp_0']['kernel'].shape[1], params['pos_mlp_0']['kernel'].shape[1]
+    tol = 'atol 5e-6 x max(1, max|plain|)'
+
+    def rand(*shape, scale=None):
+        a = rng.rand(*shape) * scale - scale / 2 if scale else rng.randn(*shape)
+        return torch.tensor(a.astype(np.float32), device=dev)
+
+    def agree(pairs):
+        err = max(max_err(a, b) for a, b in pairs)
+        scaled = max(max_err(a, b) / max(1.0, float(b.abs().max())) for a, b in pairs)
+        return err, scaled, scaled <= 5e-6
+
+    pos2, feats2, qpos = rand(B, M, 3, scale=10.0), rand(B, M, E), rand(B, N, 3, scale=10.0)
+    knn = t_attn.knn_extract(qpos, pos2, K)
+    ki, kd = knn
+    with torch.no_grad():
+        g = t_attn.knn_gather_rows(pos2, feats2, knn, K)
+
+    # The scatter (the gather's VJP), the inverse-index build included.
+    dg = rand(B, K, N, C)
+    d1 = t_attn.gather_bwd(ki, dg, M, K)
+    d2 = t_attn.gather_bwd(ki, dg, M, K)
+    ref = t_attn.gather_bwd_plain(ki, dg, M, K)
+    torch.cuda.synchronize()
+    err, scaled, ok = agree([(d1, ref)])
+    repro = max_err(d1, d2)
+    ms = cuda_ms(torch, lambda: t_attn.gather_bwd(ki, dg, M, K), 20)
+    index_ms = cuda_ms(torch, lambda: t_attn.scatter_index(ki, M, K, K), 20)
+    plain_ms = cuda_ms(torch, lambda: t_attn.gather_bwd_plain(ki, dg, M, K), 5)
+    flat = (ki.long() + M * torch.arange(B, device=dev).view(B, 1, 1)).transpose(1, 2)
+    flat, dg_rows = flat.reshape(-1), dg.reshape(-1, C)
+    lib_ms = cuda_ms(torch, lambda: torch.zeros((B * M, C), device=dev).index_add_(
+        0, flat, dg_rows), 20)
+    seg = int(torch.diff(t_attn.scatter_index(ki, M, K, K)[1]).max())
+    b_ms, b_by = bound(4 * (B * K * N * C + B * N * K + B * M * C), 1.0 * B * K * N * C)
+    shape = [B, N, M, K, C]
+    emit(dict(phase='kernel', name='scatter', shape=shape, agree=ok, max_abs_err=err,
+              max_scaled_err=scaled, tolerance=tol, repeat_max_abs_diff=repro, ms=ms,
+              inverse_index_ms=index_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              library='index_add_ of the flattened rows', longest_segment=seg,
+              mean_segment=B * K * N / (B * M), bound_ms=b_ms, bound_by=b_by))
+    if not ok or repro != 0.0:
+        raise AssertionError(f'scatter disagrees (err {err}) or is not reproducible ({repro})')
+    rows['scatter'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms, shape=shape,
+                           inverse_index_ms=index_ms, longest_segment=seg,
+                           repeat_max_abs_diff=repro)
+    del d1, d2, ref, dg, dg_rows
+
+    # The gathered interpolation's backward: a write pass over dg.
+    go = rand(B, N, E)
+    o1 = t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4)
+    o2 = t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4)
+    ref = t_attn.interp_g_bwd_plain(kd, go, KI, K, E, 1e-4)
+    torch.cuda.synchronize()
+    err, scaled, ok = agree([(o1, ref)])
+    zeros_exact = bool(torch.equal(o1[:, KI:], ref[:, KI:])) and bool(
+        torch.equal(o1[..., E:], ref[..., E:]))
+    repro = max_err(o1, o2)
+    ms = cuda_ms(torch, lambda: t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4), 20)
+    plain_ms = cuda_ms(torch, lambda: t_attn.interp_g_bwd_plain(kd, go, KI, K, E, 1e-4), 5)
+    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
+    wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2)[..., None]
+    lib_out = torch.zeros_like(ref)
+    lib_ms = cuda_ms(torch, lambda: torch.mul(wn, go[:, None], out=lib_out[:, :KI, :, :E]),
+                     20)
+    b_ms, b_by = bound(4 * (B * N * KI + B * N * E + B * K * N * C), 1.0 * B * N * KI * E)
+    shape = [B, N, KI, K, C]
+    emit(dict(phase='kernel', name='interp_g_bwd', shape=shape, agree=ok and zeros_exact,
+              max_abs_err=err, max_scaled_err=scaled, tolerance=tol,
+              zero_rows_and_columns_exact=zeros_exact, repeat_max_abs_diff=repro, ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms,
+              library='torch.mul of the normalised weights and go into the row slice',
+              bound_ms=b_ms, bound_by=b_by))
+    if not (ok and zeros_exact) or repro != 0.0:
+        raise AssertionError(f'interp_g_bwd disagrees (err {err}, zeros {zeros_exact}) '
+                             f'or is not reproducible ({repro})')
+    rows['interp_g_bwd'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms, shape=shape,
+                                repeat_max_abs_diff=repro)
+    del o1, o2, ref, lib_out
+
+    # The gathered attention's backward, and the per-row index route on the
+    # same rows.
+    q_proj, go = rand(B, N, D), rand(B, N, D)
+    args = (qpos, q_proj, g, params, K, go)
+    with torch.no_grad():
+        dq, dgk, dw = t_attn.attn_g_bwd(*args)
+        dq2, dgk2, dw2 = t_attn.attn_g_bwd(*args)
+        iq, _, iw = t_attn.attn_bwd(qpos, q_proj, ki, pos2, feats2, params, K, False, go)
+    rq, rg, rw = plain_per_example(torch, t_attn.attn_g_bwd_plain, args)
+    torch.cuda.synchronize()
+    err, scaled, ok = agree([(dq, rq), (dgk, rg)] + [(dw[n], rw[n]) for n in sorted(rw)])
+    zeros_exact = bool(torch.equal(dgk[:, K:], rg[:, K:])) and bool(
+        torch.equal(dgk[..., E:], rg[..., E:]))
+    repro = max([max_err(dq, dq2), max_err(dgk, dgk2)] + [max_err(dw[n], dw2[n]) for n in dw])
+    same_as_index = bool(torch.equal(dq, iq)) and all(bool(torch.equal(dw[n], iw[n]))
+                                                       for n in iw)
+    del rq, rg, rw, dq2, dgk2, dw2, iq, iw
+    with torch.no_grad():
+        ms = cuda_ms(torch, lambda: t_attn.attn_g_bwd(*args), 3)
+        idx_ms = cuda_ms(torch, lambda: t_attn.attn_bwd(qpos, q_proj, ki, pos2, feats2,
+                                                        params, K, False, go), 2)
+    plain_ms = cuda_ms(torch, lambda: plain_per_example(torch, t_attn.attn_g_bwd_plain, args), 2)
+    macs = B * N * K * ((3 * P + P * D + 2 * D * H + 2 * E * D)
+                        + (4 * D * H + 2 * P * D + 3 * P + 4 * E * D))
+    n_w = 3 * P + P + P * D + D + D * H + H + H * D + D + 2 * E * D
+    nbytes = 4 * (B * N * (3 + D + D) + B * K * N * C + n_w
+                  + B * N * D + B * K * N * C + n_w)
+    b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
+    f32_ms = bound(nbytes, 2.0 * macs)[0]
+    shape = [B, N, M, K, D, E]
+    emit(dict(phase='kernel', name='attn_g_bwd', shape=shape, agree=ok and zeros_exact,
+              max_abs_err=err, max_scaled_err=scaled, tolerance=tol,
+              zero_rows_and_columns_exact=zeros_exact, repeat_max_abs_diff=repro,
+              dq_and_weight_grads_equal_index_route=same_as_index, ms=ms,
+              plain_ms=plain_ms, plain='autograd through attn_g_plain, one example at a time',
+              library_ms=None, index_route_per_row_bwd_ms=idx_ms, bound_ms=b_ms,
+              bound_by=b_by, bound_peak='bf16 tensor core 989 TFLOP/s',
+              bound_f32_cuda_core_ms=f32_ms, flop=2.0 * macs))
+    if not (ok and zeros_exact and same_as_index) or repro != 0.0:
+        raise AssertionError(f'attn_g_bwd disagrees (err {err}, zeros {zeros_exact}, '
+                             f'index route {same_as_index}) or is not reproducible ({repro})')
+    rows['attn_g_bwd'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None,
+                              bound_peak='bf16 tensor core 989 TFLOP/s',
+                              bound_f32_cuda_core_ms=f32_ms, shape=shape,
+                              repeat_max_abs_diff=repro, index_route_per_row_bwd_ms=idx_ms)
+
+
+def train_batch(torch, cfg, dev, seed=1, data_kind='greater'):
     """A seeded synthetic batch shaped as bench.py:57-82 builds it (GREATER
-    layout, target budget 2 x n_points), on the card."""
+    or CARLA layout, target budget 2 x n_points), on the card."""
     rng = np.random.RandomState(seed)
     B, N, T = cfg.batch_size, cfg.n_points, cfg.past_frames + cfg.future_frames
-    M, E, half = 2 * N, 9, cfg.cr_cube_bounds
+    M, half = 2 * N, cfg.cr_cube_bounds
+    E = 9 if data_kind == 'greater' else 11
     tgt = np.zeros((B, T, M, E), np.float32)
     tgt[..., :3] = rng.rand(B, T, M, 3) * 2.0 * half - half
     tgt[..., 2] = np.abs(tgt[..., 2])
-    tgt[..., 5:8] = rng.rand(B, T, M, 3)
+    if data_kind == 'greater':
+        tgt[..., 5:8] = rng.rand(B, T, M, 3)
+    else:  # CARLA layout: inst 4, segm 5, view 6, rgb 7:10.
+        tgt[..., 4] = rng.randint(0, 50, (B, T, M))
+        tgt[..., 5] = rng.randint(0, 23, (B, T, M))
+        tgt[..., 6] = rng.randint(0, 4, (B, T, M))
+        tgt[..., 7:10] = rng.rand(B, T, M, 3)
+    R = 32 if data_kind == 'greater' else 256   # valo capacity per dataset.
     batch = dict(pcl_input=(rng.rand(B, N, 8) * 2 - 1).astype(np.float32),
                  pcl_target=tgt, pcl_target_valid=np.ones((B, T, M), bool),
-                 valo_ids=np.tile(np.arange(32, dtype=np.int32), (B, 1)),
+                 valo_ids=np.tile(np.arange(R, dtype=np.int32), (B, 1)),
                  num_valo_ids=np.full((B,), 8, np.int32))
     return {k: torch.tensor(v, device=dev) for k, v in batch.items()}
 
@@ -510,6 +686,137 @@ def split_step(torch, tr, batch):
         marks.append((name, time.time()))
     tr.step(batch, mark=mark)
     return {n: (t - marks[i][1]) * 1e3 for i, (n, t) in enumerate(marks[1:])}
+
+
+def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
+    """One decoder forward + backward of a sampled frame's first 1024
+    queries on the card and on the CPU (plain versions, the same route):
+    loss, d(abstract) and every decoder parameter gradient compared.
+
+    Each gradient passes on its L2 error over max(1, its CPU L2 norm) <=
+    1e-4. Its largest single-element error is reported and not gated: an
+    f32 pre-activation within rounding of zero can take the other side of
+    a ReLU on the card than on the CPU, which moves that row's share of a
+    gradient: single elements read 4.2e-5 to 3.7e-4 of the tensor's largest
+    entry over three runs on the H100."""
+    import copy
+    from occlusions4d_torch.losses import total_loss
+    from occlusions4d_torch.ops import _build
+    from occlusions4d_torch.pipeline import TrainPipeline
+    from occlusions4d_torch.sampler import SamplerConfig
+    sub = dict(frame, points_query=frame['points_query'][:, :_GRAD_CHECK_Q],
+               implicit_target=frame['implicit_target'][:, :_GRAD_CHECK_Q])
+    cpu_pipe = TrainPipeline(None, copy.deepcopy(tr.decoder).cpu(),
+                             SamplerConfig(**tr.sampler_args), tr.pipeline_cfg)
+    names = ['abstract'] + [n for n, _ in tr.decoder.named_parameters()]
+    res, launched = {}, None
+    for name, pipe, d in (('cuda', tr.pipeline, dev), ('cpu', cpu_pipe, torch.device('cpu'))):
+        fr = {k: v.to(d) for k, v in sub.items()}
+        a = abstract.detach().to(d).requires_grad_(True)
+        _build.reset_launch_counts()
+        t0 = time.time()
+        losses, _ = pipe.decode_frames([fr], a, fg.to(d))
+        loss = total_loss(losses, pipe.cfg.loss_config)
+        grads = torch.autograd.grad(loss, [a] + list(pipe.decoder.parameters()))
+        if d.type == 'cuda':
+            torch.cuda.synchronize()
+            launched = {k: _build.launch_counts()[k] for k in _SHARED + _SHARED_BWD}
+        res[name] = (float(loss.detach()), [x.cpu() for x in grads], time.time() - t0)
+    per = []
+    for n, a, b in zip(names, res['cuda'][1], res['cpu'][1]):
+        diff, scale = (a - b).abs(), max(1.0, float(b.abs().max()))
+        per.append(dict(name=n, rel_l2=float(diff.norm()) / max(1.0, float(b.norm())),
+                        max_scaled=float(diff.max()) / scale,
+                        over_1e4=int((diff > 1e-4 * scale).sum()), size=b.numel()))
+    worst = max(per, key=lambda x: x['max_scaled'])
+    out = dict(queries=_GRAD_CHECK_Q, loss=[res['cuda'][0], res['cpu'][0]],
+               loss_rel_err=abs(res['cuda'][0] - res['cpu'][0]) / max(1.0, abs(res['cpu'][0])),
+               max_rel_l2=max(x['rel_l2'] for x in per),
+               max_scaled_err=worst['max_scaled'], worst=worst,
+               elements_over_1e4=sum(x['over_1e4'] for x in per),
+               elements=sum(x['size'] for x in per),
+               tolerance='loss 1e-5; each gradient L2 error <= 1e-4 x max(1, its L2 norm)',
+               launches=launched, cpu_s=res['cpu'][2])
+    out['ok'] = (out['loss_rel_err'] <= 1e-5 and out['max_rel_l2'] <= 1e-4
+                 and launched == dict(gather=1, interp_g=1, attn_g=2, scatter=1,
+                                      interp_g_bwd=1, attn_g_bwd=2))
+    return out
+
+
+def train_cv1(torch, dev, smi, path_counts):
+    """Phase 8, from seeded weights: one sampled frame (its scatter segments
+    and the scatter's time on them, and decoder_grad_check), then 1 warm-up
+    + 2 timed cv1 train steps (launch counts per step, finite and changed
+    state) and one phase-split step."""
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.ops import _build
+    from occlusions4d_torch.train import Trainer
+    import importlib
+    t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
+    cfg = TrainConfig(**_CV1_TRAIN)
+    tr = Trainer(cfg, 'carla', 'cuda')
+    wrng = np.random.RandomState(6)
+    tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                              decoder=random_jax_params(tr.decoder, wrng)),
+                  seed=0, steps_per_epoch=100)
+    batch = train_batch(torch, cfg, dev, seed=7, data_kind='carla')
+
+    # One sampled frame of the seeded state (the same inputs in every run).
+    with torch.no_grad():
+        abstract, fg = tr.encoder(batch['pcl_input'], generator=tr.generator)
+        frame = tr.pipeline.sample_frames(batch, tr.generator)[0]
+        ki, _ = t_attn.knn_extract(frame['points_query'][..., :3], abstract[..., :3],
+                                   cfg.cross_attn_neighbors)
+        M, K = abstract.shape[1], ki.shape[-1]
+        seg = torch.diff(t_attn.scatter_index(ki, M, K, K)[1])
+        # The scatter on this skewed frame, against uniform clouds' (kernel line).
+        dg = torch.randn((ki.shape[0], K, ki.shape[1], abstract.shape[2]), device=dev)
+        frame_scatter_ms = cuda_ms(torch, lambda: t_attn.gather_bwd(ki, dg, M, K), 10)
+        del dg
+    check = decoder_grad_check(torch, tr, abstract, fg, frame, dev)
+
+    before = [p.detach().clone() for p in tr.optimizer.params]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr.step(batch)                              # warm-up step, not counted.
+    torch.cuda.synchronize()
+    warm_ms = (time.time() - t0) * 1e3
+    n_steps = 2
+    _build.reset_launch_counts()
+    steps = []
+    for _ in range(n_steps):
+        t0 = time.time()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.time() - t0) * 1e3,
+                          **{k: (v.tolist() if v.dim() else v.item())
+                             for k, v in m.items()}))
+    counts = _build.launch_counts()
+    path_counts['train_cv1'] = counts
+    changed = max(max_err(p, q) for p, q in zip(tr.optimizer.params, before))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = split_step(torch, tr, batch)
+    per_step = {k: counts.get(k, 0) / n_steps for k in _CV1_STEP}
+    counts_ok = per_step == {k: float(v) for k, v in _CV1_STEP.items()} \
+        and counts.get('nn1_bidir', 0) > 0
+    finite = all(np.isfinite(st['total_loss']) and np.isfinite(st['loss_segm'])
+                 and st['loss_segm'] > 0 and st['grads_finite'] and st['params_finite']
+                 and st['sample_ok'] for st in steps)
+    ok = counts_ok and finite and changed > 0.0 and check['ok']
+    emit(dict(phase='train_cv1', model='cv1', batch_size=cfg.batch_size,
+              frames=cfg.past_frames, queries_per_frame=_CV1_N,
+              abstract_points=int(abstract.shape[1]), warmup_ms=warm_ms,
+              step_ms=[st['ms'] for st in steps],
+              mean_step_ms=float(np.mean([st['ms'] for st in steps])), steps=steps,
+              launches=counts, launches_per_step=per_step, expected_per_step=_CV1_STEP,
+              params_changed_max_abs=changed, split_ms=split, peak_mem_gib=peak_gb,
+              scatter_longest_segment=int(seg.max()),
+              scatter_mean_segment=float(seg.float().mean()),
+              scatter_ms_on_frame=frame_scatter_ms, grad_check=check, ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'train_cv1 failed: launches {per_step} (expected '
+                             f'{_CV1_STEP}, nn1_bidir {counts.get("nn1_bidir")}), finite '
+                             f'{finite}, changed {changed}, card vs CPU {check}')
 
 
 def main():
@@ -731,8 +1038,12 @@ def main():
     # K8 / K9 / K10: the shared-gather kernels with the cv1 decoder's weights.
     ccfg = TrainConfig(**_CV1)
     cv1_encoder, cv1_decoder, _ = seeded_models(torch, ccfg, dev, 4)
-    check_shared_gather_kernels(torch, t_attn, dev, rng,
-                                attention_params(cv1_decoder.pt_blocks[0].layer2), E, rows)
+    cv1_params = attention_params(cv1_decoder.pt_blocks[0].layer2)
+    check_shared_gather_kernels(torch, t_attn, dev, rng, cv1_params, E, rows)
+    # K11 / K12 / K13: their backward kernels at one cv1 train frame.
+    with torch.no_grad():
+        check_shared_gather_backward_kernels(torch, t_attn, dev, rng, cv1_params, E, rows)
+    del cv1_params
 
     # 4. The main path: encode + dense decode at gv1 width.
     loaded = dict(encoder=encoder, decoder=decoder, device=dev)
@@ -946,7 +1257,13 @@ def main():
         raise AssertionError('sampler_moving failed: nn1_bidir launches '
                              f'{counts["nn1_bidir"]}, exact {exact}, finite {finite}')
 
-    # 8. Summary lines.
+    del tr, batch, res
+    torch.cuda.empty_cache()
+
+    # 8. The cv1 train step: the shared-gather route's backward kernels.
+    train_cv1(torch, dev, smi, path_counts)
+
+    # 9. Summary lines.
     kernels = []
     for name, src in _SOURCE.items():
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',

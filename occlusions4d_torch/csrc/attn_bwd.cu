@@ -1,8 +1,18 @@
-// Backward of the fused kNN vector cross-attention for Hopper. Replaces
-// occlusions4d_tpu/ops/pallas_attention.py::_attn_bwd_kernel (:246), in its
-// use_idx form, in both projection modes of the forward (csrc/attn.cu):
-//   premul  - kv = [feats2 Wk | feats2 Wv] (B, M, 2D); d(kv) holds [dk | dv];
-//   per-row - kv = feats2 (B, M, E); d(kv) = d(feats2), plus dWk and dWv.
+// Backward of the fused kNN vector cross-attention for Hopper, two entries:
+//   o4d_attn_bwd   replaces occlusions4d_tpu/ops/pallas_attention.py::
+//                  _attn_bwd_kernel (:246), in its use_idx form, in both
+//                  projection modes of the forward (csrc/attn.cu):
+//     premul  - kv = [feats2 Wk | feats2 Wv] (B, M, 2D); d(kv) holds [dk | dv];
+//     per-row - kv = feats2 (B, M, E); d(kv) = d(feats2), plus dWk and dWv;
+//   o4d_attn_g_bwd replaces _attn_g_bwd_kernel (:1030): per-row mode over the
+//                  shared gather's rows g (B, K_ext, N, E + 3) (csrc/gather.cu).
+//                  Only the row loader and the row gradients' destination
+//                  differ (template parameter GATHERED): the rows' gradients
+//                  dk Wk^T + dv Wv^T are WRITTEN to dg[b, j, n, :E] (the first
+//                  pass stores, the second adds; exactly one block owns each
+//                  (j, n) row), the position columns and the rows j >= k of
+//                  dg are zeroed, and the scatter of csrc/gather.cu takes dg
+//                  to the key rows. The slots then hold the weight block only.
 //
 // Function: with the forward of csrc/attn.cu recomputed per row tile
 // (theta = W2 relu(W1 rel + b1) + b2, hpre = q - k + theta,
@@ -116,10 +126,11 @@ __device__ void gemm_rows(const float* A, int lda, const float* __restrict__ W,
 
 // out[i * ldo + c] += scale * sum_{r < 32} L(r, i) Rm[r * ldr + c] for
 // i < Kd, c < Nc: a weight-gradient product added into a global partial.
-// L(r, i) = L[r * ldl + i] in shared memory, or with GATHER the key row
-// L[ridx[r] * ldl + i] in global memory (0 for an invalid row).
+// L(r, i) = L[r * ldl + i] in shared memory, or with GATHER the row
+// lrow[r][i] in global memory (a key row, or a row of the shared gather; 0
+// for an invalid row).
 template <bool GATHER>
-__device__ void outer_acc(const float* L, int ldl, const int* ridx,
+__device__ void outer_acc(const float* L, int ldl, const float* const* lrow,
                           const int* rvalid, const float* Rm, int ldr, int Kd,
                           int Nc, float scale, float* __restrict__ out, int ldo) {
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
@@ -137,7 +148,7 @@ __device__ void outer_acc(const float* L, int ldl, const int* ridx,
         for (int i = 0; i < 4; ++i) {
           const int ii = ib + ty * 4 + i;
           if (GATHER)
-            a[i] = (rvalid[r] && ii < Kd) ? L[(size_t)ridx[r] * ldl + ii] : 0.f;
+            a[i] = (rvalid[r] && ii < Kd) ? lrow[r][ii] : 0.f;
           else
             a[i] = ii < Kd ? L[r * ldl + ii] : 0.f;
         }
@@ -177,6 +188,21 @@ __device__ void scatter_rows(const float* V, int ldv, const int* ridx,
   }
 }
 
+// drow[r][c0 + c] (+)= scale * V[r * ldv + c] for valid rows r, c < Nc: the
+// gathered form's row gradients, each (j, n) row owned by one block.
+template <bool ACCUM>
+__device__ void write_rows(const float* V, int ldv, float* const* drow,
+                           const int* rvalid, int c0, int Nc, float scale) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kRows * Nc; idx += kThreads) {
+    const int r = idx / Nc, c = idx % Nc;
+    if (!rvalid[r]) continue;
+    float* o = drow[r] + c0 + c;
+    const float v = scale * V[r * ldv + c];
+    *o = ACCUM ? *o + v : v;
+  }
+}
+
 // out[c] += sum over valid rows of V[r * ldv + c].
 __device__ void colsum(const float* V, int ldv, int Nc, const int* rvalid,
                        float* __restrict__ out) {
@@ -195,6 +221,7 @@ struct BwdArgs {
   const int* ki;       // (B, N, KS)
   const float* kpos;   // (B, M, 3)
   const float* kv;     // premul (B, M, 2D); per-row (B, M, E)
+  const float* gin;    // gathered only: (B, KE, N, E + 3)
   const float* wk;     // (E, D), per-row only
   const float* wv;     // (E, D), per-row only
   const float* wp1;    // (3, P)
@@ -207,9 +234,10 @@ struct BwdArgs {
   const float* ba2;    // (D)
   const float* g;      // (B, N, D)
   float* dqproj;       // (B, N, D)
+  float* dg;           // gathered only: (B, KE, N, E + 3)
   float* part;         // (B * G) slots of slot_floats
   long long slot;
-  int N, M, D, E, H, P, KS, k, premul, G;
+  int N, M, D, E, H, P, KS, KE, k, premul, G;
   float inv_sqrt_d;
 };
 
@@ -227,6 +255,7 @@ size_t smem_floats(int D, int E, int P) {
          (size_t)kKTile * kWS + 2 * (size_t)kRows * P + (size_t)kRows * 3;
 }
 
+template <bool GATHERED>
 __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
   extern __shared__ float sm[];
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
@@ -241,6 +270,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
   float* DPH = PH + kRows * P;        // its gradient
   float* REL = DPH + kRows * P;       // qpos - kpos
   __shared__ int rq[kRows], ridx[kRows], rvalid[kRows];
+  __shared__ const float* rrow[kRows];  // the row's features (key or gather row)
+  __shared__ float* drow[kRows];        // GATHERED: the row's gradient in dg
 
   const int b = blockIdx.y, tid = threadIdx.x;
   const int tq_per = kRows / k;
@@ -258,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
   float* dwk = dbp1 + P;
   float* dwv = dwk + (p.premul ? 0 : (size_t)E * D);
   float* dkv = dwv + (p.premul ? 0 : (size_t)E * D);
-  const float* kvb = p.kv + (size_t)b * p.M * CW;
+  const float* kvb = GATHERED ? nullptr : p.kv + (size_t)b * p.M * CW;
 
   for (int tile = blockIdx.x; tile < tiles; tile += p.G) {
     const int n0 = tile * tq_per;
@@ -266,21 +297,41 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
     if (tid < kRows) {
       const int tq = tid / k, j = tid % k, n = n0 + tq;
       const bool valid = tq < tq_per && n < p.N;
-      const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
       rq[tid] = valid ? n : -1;
-      ridx[tid] = idx;
       rvalid[tid] = valid ? 1 : 0;
+      const float* kp;
+      if (GATHERED) {
+        const size_t row = ((size_t)b * p.KE + j) * p.N + (valid ? n : 0);
+        rrow[tid] = p.gin + row * (E + 3);
+        drow[tid] = p.dg + row * (E + 3);
+        kp = rrow[tid] + E;
+      } else {
+        const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
+        ridx[tid] = idx;
+        rrow[tid] = kvb + (size_t)idx * CW;
+        kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+      }
       for (int c = 0; c < 3; ++c)
-        REL[tid * 3 + c] = valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] -
-                                       p.kpos[((size_t)b * p.M + idx) * 3 + c]
-                                 : 0.f;
+        REL[tid * 3 + c] = valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
     }
     __syncthreads();
+    if (GATHERED) {
+      // dg's position columns and the rows j >= k of the tile's queries are
+      // zero; the feature columns of the rows j < k are written below.
+      const int C = E + 3, extra = (p.KE - k) * C;
+      for (int idx = tid; idx < kRows * 3; idx += kThreads)
+        if (rvalid[idx / 3]) drow[idx / 3][E + idx % 3] = 0.f;
+      for (int idx = tid; idx < tq_per * extra; idx += kThreads) {
+        const int tq = idx / extra, j = k + (idx % extra) / C, c = idx % C;
+        if (rvalid[tq * k])
+          p.dg[(((size_t)b * p.KE + j) * p.N + rq[tq * k]) * C + c] = 0.f;
+      }
+    }
 
     // ---- Forward recompute (the arithmetic of csrc/attn.cu) ----
     gemm_rows<false, true, false>(REL, 3, p.wp1, P, p.bp1, 3, P, PH, P, WS);
     gemm_rows<false, false, false>(PH, P, p.wp2, D, p.bp2, P, D, B0, D, WS);
-    if (p.premul) {
+    if (!GATHERED && p.premul) {
       for (int idx = tid; idx < kRows * D; idx += kThreads) {
         const int r = idx / D, c = idx % D;
         B1[idx] = rvalid[r] ? kvb[(size_t)ridx[r] * 2 * D + c] : 0.f;
@@ -288,7 +339,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
     } else {
       for (int idx = tid; idx < kRows * E; idx += kThreads) {
         const int r = idx / E, c = idx % E;
-        B2[r * LD + c] = rvalid[r] ? kvb[(size_t)ridx[r] * E + c] : 0.f;
+        B2[r * LD + c] = rvalid[r] ? rrow[r][c] : 0.f;
       }
       gemm_rows<false, false, false>(B2, LD, p.wk, D, nullptr, E, D, B1, D, WS);
     }
@@ -296,10 +347,10 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
       const int r = idx / D, c = idx % D;
       const float q = rvalid[r] ? p.qproj[((size_t)b * p.N + rq[r]) * D + c] : 0.f;
       B1[idx] = (q - B1[idx]) + B0[idx];
-      if (p.premul)
+      if (!GATHERED && p.premul)
         B0[idx] = (rvalid[r] ? kvb[(size_t)ridx[r] * 2 * D + D + c] : 0.f) + B0[idx];
     }
-    if (!p.premul)
+    if (GATHERED || !p.premul)
       gemm_rows<false, false, true>(B2, LD, p.wv, D, nullptr, E, D, B0, D, WS);
     __syncthreads();
     for (int idx = tid; idx < kRows * D; idx += kThreads) B2[idx] = 0.f;
@@ -350,18 +401,21 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
     }
 
     // ---- Everything d(v + theta) feeds, then B0 is free ----
-    if (p.premul) {
+    if (!GATHERED && p.premul) {
       scatter_rows(B0, D, ridx, rvalid, dkv + D, CW, D, 1.f);
     } else {
-      outer_acc<true>(kvb, E, ridx, rvalid, B0, D, E, D, 1.f, dwv, D);
+      outer_acc<true>(nullptr, 0, rrow, rvalid, B0, D, E, D, 1.f, dwv, D);
       for (int e0 = 0; e0 < E; e0 += kColTile) {
         const int ec = min(kColTile, E - e0);
         gemm_rows<true, false, false>(B0, D, p.wv + (size_t)e0 * D, D, nullptr, D,
                                       ec, HC, kColTile, WS);
-        scatter_rows(HC, kColTile, ridx, rvalid, dkv + e0, CW, ec, 1.f);
+        if (GATHERED)
+          write_rows<false>(HC, kColTile, drow, rvalid, e0, ec, 1.f);
+        else
+          scatter_rows(HC, kColTile, ridx, rvalid, dkv + e0, CW, ec, 1.f);
       }
     }
-    outer_acc<false>(PH, P, ridx, rvalid, B0, D, P, D, 1.f, dwp2, D);
+    outer_acc<false>(PH, P, nullptr, rvalid, B0, D, P, D, 1.f, dwp2, D);
     colsum(B0, D, D, rvalid, dbp2);
     gemm_rows<true, false, false>(B0, D, p.wp2, D, nullptr, D, P, DPH, P, WS);
 
@@ -377,9 +431,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
         const int c = idx % kColTile;
         if (c < hc && !(HC[idx] > 0.f)) DH[idx] = 0.f;
       }
-      outer_acc<false>(HC, kColTile, ridx, rvalid, B2, D, hc, D, 1.f,
+      outer_acc<false>(HC, kColTile, nullptr, rvalid, B2, D, hc, D, 1.f,
                        dwa2 + (size_t)h0 * D, D);
-      outer_acc<false>(B1, D, ridx, rvalid, DH, kColTile, D, hc, 1.f, dwa1 + h0, H);
+      outer_acc<false>(B1, D, nullptr, rvalid, DH, kColTile, D, hc, 1.f, dwa1 + h0, H);
       colsum(DH, kColTile, hc, rvalid, dba1 + h0);
       gemm_rows<true, false, true>(DH, kColTile, p.wa1 + h0, H, nullptr, hc, D, B0, D,
                                    WS);
@@ -396,29 +450,33 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
     }
 
     // ---- Everything d(hpre) feeds: dk = -d(hpre), d(theta) ----
-    if (p.premul) {
+    if (!GATHERED && p.premul) {
       scatter_rows(B0, D, ridx, rvalid, dkv, CW, D, -1.f);
     } else {
-      outer_acc<true>(kvb, E, ridx, rvalid, B0, D, E, D, -1.f, dwk, D);
+      outer_acc<true>(nullptr, 0, rrow, rvalid, B0, D, E, D, -1.f, dwk, D);
       for (int e0 = 0; e0 < E; e0 += kColTile) {
         const int ec = min(kColTile, E - e0);
         gemm_rows<true, false, false>(B0, D, p.wk + (size_t)e0 * D, D, nullptr, D,
                                       ec, HC, kColTile, WS);
-        scatter_rows(HC, kColTile, ridx, rvalid, dkv + e0, CW, ec, -1.f);
+        if (GATHERED)
+          write_rows<true>(HC, kColTile, drow, rvalid, e0, ec, -1.f);
+        else
+          scatter_rows(HC, kColTile, ridx, rvalid, dkv + e0, CW, ec, -1.f);
       }
     }
-    outer_acc<false>(PH, P, ridx, rvalid, B0, D, P, D, 1.f, dwp2, D);
+    outer_acc<false>(PH, P, nullptr, rvalid, B0, D, P, D, 1.f, dwp2, D);
     colsum(B0, D, D, rvalid, dbp2);
     gemm_rows<true, false, true>(B0, D, p.wp2, D, nullptr, D, P, DPH, P, WS);
     for (int idx = tid; idx < kRows * P; idx += kThreads)
       if (!(PH[idx] > 0.f)) DPH[idx] = 0.f;
-    outer_acc<false>(REL, 3, ridx, rvalid, DPH, P, 3, P, 1.f, dwp1, P);
+    outer_acc<false>(REL, 3, nullptr, rvalid, DPH, P, 3, P, 1.f, dwp1, P);
     colsum(DPH, P, P, rvalid, dbp1);
   }
 }
 
 // Sums the slots in a fixed order: the weight block over all B * G slots,
-// each example's d(kv) over its own G slots.
+// each example's d(kv) over its own G slots (none in the gathered form,
+// MCW = 0).
 __global__ void attn_bwd_reduce(const float* __restrict__ part, long long slot,
                                 long long W, long long MCW, int B, int G,
                                 float* __restrict__ dw, float* __restrict__ dkv) {
@@ -456,6 +514,32 @@ extern "C" long long o4d_attn_bwd_slot_floats(int M, int D, int E, int H, int P,
   return weight_floats(D, E, H, P, premul) + (long long)M * (premul ? 2 * D : E);
 }
 
+// Zeroes the slots, runs the kernel over (G, B) persistent blocks and sums
+// the slots into dw (and dkv, index route only).
+template <bool GATHERED>
+int launch(BwdArgs& a, int B, float* dw, float* dkv, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  a.inv_sqrt_d = 1.0f / sqrtf((float)a.D);
+  cudaError_t e = cudaMemsetAsync(a.part, 0, (size_t)B * a.G * a.slot * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = smem_floats(a.D, a.E, a.P) * sizeof(float);
+  e = cudaFuncSetAttribute(attn_bwd_kernel<GATHERED>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.G, B);
+  attn_bwd_kernel<GATHERED><<<grid, kThreads, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long W = weight_floats(a.D, a.E, a.H, a.P, a.premul);
+  const long long MCW = a.slot - W;
+  const long long total = W + (long long)B * MCW;
+  const int threads = 256;
+  const long long want = (total + threads - 1) / threads;
+  attn_bwd_reduce<<<(int)(want < 8192 ? want : 8192), threads, 0, s>>>(
+      a.part, a.slot, W, MCW, B, a.G, dw, dkv);
+  return (int)cudaGetLastError();
+}
+
 // Inputs as o4d_attn (csrc/attn.cu) plus g (B, N, D). Outputs: dqproj
 // (B, N, D); dw, the weight-gradient block; dkv (B, M, 2D | E). scratch holds
 // B * G slots of o4d_attn_bwd_slot_floats(...) floats (zeroed here).
@@ -470,8 +554,7 @@ extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
                             void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > kRows || k > KS || G < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  BwdArgs a;
+  BwdArgs a = {};
   a.qpos = (const float*)qpos;
   a.qproj = (const float*)qproj;
   a.ki = (const int*)ki;
@@ -501,23 +584,51 @@ extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
   a.k = k;
   a.premul = premul;
   a.G = G;
-  a.inv_sqrt_d = 1.0f / sqrtf((float)D);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)B * G * a.slot * sizeof(float), s);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = smem_floats(D, E, P) * sizeof(float);
-  e = cudaFuncSetAttribute(attn_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(G, B);
-  attn_bwd_kernel<<<grid, kThreads, smem, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long W = weight_floats(D, E, H, P, premul);
-  const long long MCW = (long long)M * (premul ? 2 * D : E);
-  const long long total = W + (long long)B * MCW;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  attn_bwd_reduce<<<(int)(want < 8192 ? want : 8192), threads, 0, s>>>(
-      (const float*)scratch, a.slot, W, MCW, B, G, (float*)dw, (float*)dkv);
-  return (int)cudaGetLastError();
+  return launch<false>(a, B, (float*)dw, (float*)dkv, stream);
+}
+
+// The gathered form: gin (B, KE, N, E + 3) replaces ki, kpos and kv (per-row
+// mode); go (B, N, D) is d(out). Outputs: dqproj (B, N, D); dw, the
+// weight-gradient block (premul = 0 layout); dg (B, KE, N, E + 3), every
+// element written. scratch holds B * G slots of
+// o4d_attn_bwd_weight_floats(D, E, H, P, 0) floats (zeroed here).
+extern "C" int o4d_attn_g_bwd(const void* qpos, const void* qproj, const void* gin,
+                              const void* wk, const void* wv, const void* wp1,
+                              const void* bp1, const void* wp2, const void* bp2,
+                              const void* wa1, const void* ba1, const void* wa2,
+                              const void* ba2, const void* go, void* dqproj,
+                              void* dw, void* dg, void* scratch, int B, int N,
+                              int D, int E, int H, int P, int KE, int k, int G,
+                              void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > kRows || k > KE || G < 1) return (int)cudaErrorInvalidValue;
+  BwdArgs a = {};
+  a.qpos = (const float*)qpos;
+  a.qproj = (const float*)qproj;
+  a.gin = (const float*)gin;
+  a.wk = (const float*)wk;
+  a.wv = (const float*)wv;
+  a.wp1 = (const float*)wp1;
+  a.bp1 = (const float*)bp1;
+  a.wp2 = (const float*)wp2;
+  a.bp2 = (const float*)bp2;
+  a.wa1 = (const float*)wa1;
+  a.ba1 = (const float*)ba1;
+  a.wa2 = (const float*)wa2;
+  a.ba2 = (const float*)ba2;
+  a.g = (const float*)go;
+  a.dqproj = (float*)dqproj;
+  a.dg = (float*)dg;
+  a.part = (float*)scratch;
+  a.slot = weight_floats(D, E, H, P, 0);
+  a.N = N;
+  a.D = D;
+  a.E = E;
+  a.H = H;
+  a.P = P;
+  a.KE = KE;
+  a.k = k;
+  a.premul = 0;
+  a.G = G;
+  return launch<true>(a, B, (float*)dw, nullptr, stream);
 }

@@ -5,13 +5,18 @@
 //                key features;
 //   o4d_interp_g replaces _interp_g_kernel (:1254): the rows come from the
 //                shared gather's g (B, K_ext, N, E + 3) (csrc/gather.cu),
-//                first E columns.
+//                first E columns;
+//   o4d_interp_g_bwd replaces _interp_g_bwd_kernel (:1294): the cotangent of
+//                those rows, dg (B, K_ext, N, E + 3).
 //
 // Function, per query n over its first k neighbours j (ascending):
 //   w_j   = 1 / (sqrt(max(kd_j, 0)) + eps)          (kd: squared distance)
 //   out_n = (sum_j w_j f_j) / (sum_j w_j)
 // Both entries run the same arithmetic on the same rows, so they give the
-// same bits.
+// same bits. The backward, with go = d(out):
+//   dg[b, j, n, :E] = (w_j / sum_i w_i) go_n   for j < k;  0 in the position
+//   columns and in the rows k <= j < K_ext
+// (the scatter of csrc/gather.cu then adds dg to the key rows).
 //
 // What bounds it on the H100: bytes. Each query reads k index/distance pairs
 // and k feature rows and writes one E-wide row. From the small key set (L2)
@@ -19,7 +24,12 @@
 // rows read do (302 MB per cv1 chunk at k 8). Design: one thread block per
 // query; the k weights and row addresses are formed once in shared memory,
 // then the threads stride over the E channels so that both the row reads and
-// the output write are coalesced.
+// the output write are coalesced. The backward is a pure write pass, bound by
+// its 841 MB of dg at one cv1 train frame (0.27 ms): one block per query forms
+// the k normalised weights once in shared memory and writes all K_ext rows of
+// the query, zeros included, its threads striding each row's E + 3 floats.
+// (Two variants that wrote 8 queries' rows, or whole (b, j) planes, as
+// contiguous runs measured no faster on the H100; see PERF.md.)
 
 #include <cuda_runtime.h>
 
@@ -59,6 +69,30 @@ __global__ void interp_kernel(const int* __restrict__ ki,
   }
 }
 
+__global__ void interp_g_bwd_kernel(const float* __restrict__ kd,
+                                    const float* __restrict__ go,
+                                    float* __restrict__ dg, int N, int E, int KS,
+                                    int KE, int k, float eps) {
+  __shared__ float wn[32];
+  const int n = blockIdx.x, b = blockIdx.y, C = E + 3;
+  const size_t row = (size_t)b * N + n;
+  if (threadIdx.x == 0) {
+    float w[32], den = 0.f;
+    for (int j = 0; j < k; ++j) {
+      w[j] = 1.0f / (sqrtf(fmaxf(kd[row * KS + j], 0.f)) + eps);
+      den += w[j];
+    }
+    for (int j = 0; j < k; ++j) wn[j] = w[j] / den;
+  }
+  __syncthreads();
+  const float* g = go + row * E;
+  for (int j = 0; j < KE; ++j) {
+    float* out = dg + (((size_t)b * KE + j) * N + n) * C;
+    for (int c = threadIdx.x; c < C; c += blockDim.x)
+      out[c] = (j < k && c < E) ? wn[j] * g[c] : 0.f;
+  }
+}
+
 }  // namespace
 
 // ki (B, N, KS) int32, kd (B, N, KS) f32 (first k columns used);
@@ -86,5 +120,18 @@ extern "C" int o4d_interp_g(const void* kd, const void* g, void* out, int B,
   interp_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       nullptr, (const float*)kd, (const float*)g, (float*)out, N, 0, E, KS, KE,
       k, eps);
+  return (int)cudaGetLastError();
+}
+
+// kd (B, N, KS) f32 (first k columns used); go (B, N, E) f32;
+// dg (B, KE, N, E + 3) f32, every element written.
+extern "C" int o4d_interp_g_bwd(const void* kd, const void* go, void* dg, int B,
+                                int N, int E, int KS, int KE, int k, float eps,
+                                void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || k > KS || k > KE) return (int)cudaErrorInvalidValue;
+  dim3 grid(N, B);
+  interp_g_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)kd, (const float*)go, (float*)dg, N, E, KS, KE, k, eps);
   return (int)cudaGetLastError();
 }

@@ -21,10 +21,10 @@ autograd Functions; the attention weights reach them as tensors, so their
 gradients flow back to the nn.Linear parameters, and the premul projection
 stays outside the kernel, so autograd chains d(kv) to the abstract features
 and to_k/to_v. The kNN graph and the abstract positions carry no gradient
-(as the JAX path's stop_gradient). The index route has backward kernels
-(csrc/interp_bwd.cu, csrc/attn_bwd.cu); the shared-gather route's backward
-kernels are not ported yet, so its backward raises on CUDA and runs the
-plain versions on the CPU.
+(as the JAX path's stop_gradient). Both routes have backward kernels: the
+index route csrc/interp_bwd.cu and csrc/attn_bwd.cu; the shared-gather route
+o4d_interp_g_bwd and o4d_attn_g_bwd (each writes its cotangent of the
+gathered rows) and o4d_scatter (one scatter of their sum to the key rows).
 '''
 
 import torch

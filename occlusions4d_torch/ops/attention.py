@@ -9,24 +9,30 @@ its use_idx and gathered forms):
                               every query's neighbours, once, for all the
                               consumers below (csrc/gather.cu); used when the
                               abstract cloud is large (models/fused.py);
+                              differentiable in feats through the scatter
+                              (o4d_scatter, csrc/gather.cu);
   fused_knn_interp            inverse-distance interpolation, csrc/interp.cu,
                               differentiable in the key features through
                               csrc/interp_bwd.cu; with gathered= it reads the
-                              shared gather's rows (o4d_interp_g);
+                              shared gather's rows (o4d_interp_g, backward
+                              o4d_interp_g_bwd);
   fused_knn_vector_attention  one vector cross-attention block, csrc/attn.cu,
                               in premul or per-row projection mode,
                               differentiable in the queries, the key set and
                               every weight through csrc/attn_bwd.cu; with
                               gathered= it runs per-row over the shared
-                              gather's rows (o4d_attn_g).
+                              gather's rows (o4d_attn_g, backward
+                              o4d_attn_g_bwd in csrc/attn_bwd.cu).
 
 Every operator is a torch.autograd.Function. A CUDA tensor launches the
-kernels; a CPU tensor runs the plain versions beside them (the plain backward
-is autograd through the plain forward). Index-route operators have backward
-kernels; like the JAX custom VJPs they save only their inputs, never an
-(N, K, D) tensor, and positions get no gradient. The gathered operators'
-backward kernels (_scatter_kernel, _attn_g_bwd_kernel, _interp_g_bwd_kernel)
-are not ported yet: on CUDA tensors their backward raises. Layouts follow the
+kernels; a CPU tensor runs the plain versions beside them (each backward
+kernel has an explicit plain version with the kernel's own output layout).
+Like the JAX custom VJPs the index-route operators save only their inputs,
+never an (N, K, D) tensor, and positions get no gradient. The shared-gather
+route's backward is three kernels: the gathered consumers write their row
+cotangents dg (B, k', N, E + 3) directly (o4d_attn_g_bwd, o4d_interp_g_bwd;
+zero rows past their k and zero position columns), autograd sums them, and
+one scatter (o4d_scatter) adds the sum to the key rows. Layouts follow the
 port, not the TPU: knn_extract returns (B, N, k) arrays, not 128-lane padded
 tiles, and the gather's (B, k, N, E + 3) rows are not padded to a tile grid.
 '''
@@ -40,12 +46,15 @@ from . import _build
 from .knn import _prepare, gather_neighbors, knn_rank, sq_norm
 
 __all__ = ['knn_extract', 'knn_gather_rows', 'fused_knn_interp',
-           'fused_knn_vector_attention', 'gather_rows_plain', 'interp_plain',
-           'interp_g_plain', 'interp_bwd_plain', 'attn_plain', 'attn_g_plain',
-           'attn_bwd_plain', 'attn_bwd', 'interp_bwd', 'use_premul', 'LAUNCHES']
+           'fused_knn_vector_attention', 'gather_rows_plain', 'gather_bwd_plain',
+           'interp_plain', 'interp_g_plain', 'interp_bwd_plain', 'interp_g_bwd_plain',
+           'attn_plain', 'attn_g_plain', 'attn_bwd_plain', 'attn_g_bwd_plain',
+           'attn_bwd', 'attn_g_bwd', 'gather_bwd', 'interp_bwd', 'interp_g_bwd',
+           'use_premul', 'LAUNCHES']
 
 LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0, 'gather': 0,
-            'interp_g': 0, 'attn_g': 0}
+            'interp_g': 0, 'attn_g': 0, 'scatter': 0, 'interp_g_bwd': 0,
+            'attn_g_bwd': 0}
 _MLP = ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use.
 
@@ -76,21 +85,6 @@ def _cuda_ki(name, ki):
     if not (ki.is_cuda and ki.dtype == torch.int32 and ki.is_contiguous()):
         raise ValueError(f'{name}: ki must be a contiguous CUDA int32 tensor')
     return ki
-
-
-def _plain_vjp(fn, tensors, g):
-    '''Gradients of fn(*tensors) against g with respect to every tensor, by
-    autograd through the plain version (the CPU backward of the gathered
-    operators).'''
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in tensors]
-        return torch.autograd.grad(fn(*leaves), leaves, g)
-
-
-def _no_cuda_backward(kernel):
-    return NotImplementedError(
-        f'the backward of the shared-gather path on CUDA needs {kernel} '
-        '(occlusions4d_tpu/ops/pallas_attention.py), which is not ported yet')
 
 
 def _slots(device, B, work):
@@ -127,25 +121,78 @@ def _gather_cuda(fv, ki, k):
     return g
 
 
+def gather_bwd_plain(ki, dg, M, k):
+    '''Plain version of the scatter kernel (the gather's VJP): dfv[b, m] =
+    sum of dg[b, j, n] over the rows j < k, n with ki[b, n, j] = m.
+    :param ki (B, N, >=k) int; dg (B, >=k, N, C) f32. :return dfv (B, M, C).'''
+    B, _, N, C = dg.shape
+    idx = ki[..., :k].transpose(1, 2).reshape(B, k * N, 1).long().expand(B, k * N, C)
+    out = torch.zeros((B, M, C), dtype=torch.float32, device=dg.device)
+    return out.scatter_add_(1, idx, dg[:, :k].reshape(B, k * N, C))
+
+
+def scatter_index(ki, M, k, KE):
+    '''The scatter kernel's inverse index (bookkeeping, no arithmetic on the
+    rows): every key row (b, m) -> the rows of dg (B, KE, N, C) that add into
+    it, in ascending row order (a stable sort), as (rows (B k N,) int32,
+    offsets (B M + 1,) int32): key b M + m owns rows[offsets[bM+m]:
+    offsets[bM+m+1]].'''
+    B, N = ki.shape[:2]
+    keys = (ki[..., :k].transpose(1, 2).reshape(B, k * N).long()
+            + M * torch.arange(B, device=ki.device)[:, None]).reshape(-1)
+    perm = torch.sort(keys, stable=True)[1]
+    # Flat position b k N + r -> row b KE N + r of dg (KE >= k rows per b).
+    rows = perm + (perm // (k * N)) * ((KE - k) * N)
+    offsets = torch.zeros(B * M + 1, dtype=torch.int64, device=ki.device)
+    offsets[1:] = torch.cumsum(torch.bincount(keys, minlength=B * M), 0)
+    return rows.to(torch.int32), offsets.to(torch.int32)
+
+
+def _scatter_cuda(ki, dg, M, k):
+    B, KE, N, C = dg.shape
+    _cuda_ki('scatter', ki)
+    _cuda_f32('dg', dg)
+    if tuple(ki.shape[:2]) != (B, N) or not 1 <= k <= min(ki.shape[-1], KE, 32) \
+            or B * KE * N >= 2 ** 31:
+        raise ValueError(f'scatter: bad shapes ki {tuple(ki.shape)}, dg '
+                         f'{tuple(dg.shape)}, k={k}')
+    rows, offsets = scatter_index(ki, M, k, KE)
+    dfv = torch.empty((B, M, C), dtype=torch.float32, device=dg.device)
+    fn = _build.library('gather').o4d_scatter
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dg.device):
+        _build.check(fn(_build.ptr(dg), _build.ptr(rows), _build.ptr(offsets),
+                        _build.ptr(dfv), B * M, C, _build.stream_ptr(dg.device)),
+                     'scatter')
+    LAUNCHES['scatter'] += 1
+    return dfv
+
+
+def gather_bwd(ki, dg, M, k):
+    '''The gather's VJP: the scatter kernel on CUDA, plain version on the CPU.'''
+    dg = dg.to(torch.float32).contiguous()
+    if dg.is_cuda:
+        return _scatter_cuda(ki.contiguous(), dg, M, k)
+    return gather_bwd_plain(ki, dg, M, k)
+
+
 class _GatherRows(torch.autograd.Function):
-    '''Forward csrc/gather.cu (plain version on the CPU); gradient in fv.
-    The backward kernel (a scatter-add) is not ported: CUDA raises.'''
+    '''Forward csrc/gather.cu o4d_gather, backward o4d_scatter (plain
+    versions on the CPU); gradient in fv. Saves only ki.'''
 
     @staticmethod
     def forward(ctx, fv, ki, k):
-        ctx.save_for_backward(fv, ki)
-        ctx.k = k
+        ctx.save_for_backward(ki)
+        ctx.k, ctx.M = k, fv.shape[1]
         if fv.is_cuda:
             return _gather_cuda(fv, ki, k)
         return gather_rows_plain(fv, ki, k)
 
     @staticmethod
     def backward(ctx, dg):
-        fv, ki = ctx.saved_tensors
-        if dg.is_cuda:
-            raise _no_cuda_backward('_scatter_kernel (:837)')
-        dfv, = _plain_vjp(lambda f: gather_rows_plain(f, ki, ctx.k), [fv], dg)
-        return dfv, None, None
+        ki, = ctx.saved_tensors
+        return gather_bwd(ki, dg, ctx.M, ctx.k), None, None
 
 
 def knn_gather_rows(pos2, feats2, knn, k):
@@ -302,25 +349,64 @@ def _interp_g_cuda(kd, g, k, eps):
     return out
 
 
+def interp_g_bwd_plain(kd, go, k, k_ext, E, eps):
+    '''Plain version of the gathered interpolation's backward kernel: the
+    cotangent of its rows, dg[b, j, n, :E] = (w_nj / sum_i w_ni) go[b, n]
+    for j < k; the position columns and the rows j >= k are zero.
+    :param kd (B, N, >=k) f32; go (B, N, E). :return dg (B, k_ext, N, E + 3).'''
+    B, N = go.shape[:2]
+    w = _interp_weights(kd, k, eps)
+    wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2)
+    dg = torch.zeros((B, k_ext, N, E + 3), dtype=torch.float32, device=go.device)
+    dg[:, :k, :, :E] = wn[..., None] * go[:, None]
+    return dg
+
+
+def _interp_g_bwd_cuda(kd, go, k, k_ext, E, eps):
+    B, N, KS = kd.shape
+    _cuda_f32('kd', kd)
+    _cuda_f32('go', go)
+    if tuple(go.shape) != (B, N, E) or not 1 <= k <= min(KS, k_ext, 32):
+        raise ValueError(f'interp_g_bwd: bad shapes kd {tuple(kd.shape)}, go '
+                         f'{tuple(go.shape)}, k={k}, k_ext={k_ext}')
+    dg = torch.empty((B, k_ext, N, E + 3), dtype=torch.float32, device=go.device)
+    fn = _build.library('interp').o4d_interp_g_bwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(go.device):
+        _build.check(fn(_build.ptr(kd), _build.ptr(go), _build.ptr(dg), B, N, E, KS,
+                        k_ext, k, float(eps), _build.stream_ptr(go.device)),
+                     'interp_g_bwd')
+    LAUNCHES['interp_g_bwd'] += 1
+    return dg
+
+
+def interp_g_bwd(kd, go, k, k_ext, E, eps):
+    '''d(rows) of the gathered interpolation: its kernel on CUDA, plain
+    version on the CPU.'''
+    go = go.to(torch.float32).contiguous()
+    if go.is_cuda:
+        return _interp_g_bwd_cuda(kd.contiguous(), go, k, k_ext, E, eps)
+    return interp_g_bwd_plain(kd, go, k, k_ext, E, eps)
+
+
 class _InterpG(torch.autograd.Function):
-    '''Forward o4d_interp_g of csrc/interp.cu (plain version on the CPU);
-    gradient in g. The backward kernel is not ported: CUDA raises.'''
+    '''Forward o4d_interp_g, backward o4d_interp_g_bwd of csrc/interp.cu
+    (plain versions on the CPU); gradient in g. Saves only kd.'''
 
     @staticmethod
     def forward(ctx, kd, g, k, eps):
-        ctx.save_for_backward(kd, g)
-        ctx.k, ctx.eps = k, eps
+        ctx.save_for_backward(kd)
+        ctx.k, ctx.eps, ctx.k_ext, ctx.E = k, eps, g.shape[1], g.shape[-1] - 3
         if g.is_cuda:
             return _interp_g_cuda(kd, g, k, eps)
         return interp_g_plain(kd, g, k, eps)
 
     @staticmethod
     def backward(ctx, go):
-        kd, g = ctx.saved_tensors
-        if go.is_cuda:
-            raise _no_cuda_backward('_interp_g_bwd_kernel (:1294)')
-        dg, = _plain_vjp(lambda gg: interp_g_plain(kd, gg, ctx.k, ctx.eps), [g], go)
-        return None, dg, None, None
+        kd, = ctx.saved_tensors
+        return None, interp_g_bwd(kd, go, ctx.k, ctx.k_ext, ctx.E, ctx.eps), None, None
 
 
 def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None,
@@ -434,6 +520,21 @@ def attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
     return grads[0], grads[1], dict(zip(leaves, grads[2:]))
 
 
+def attn_g_bwd_plain(q_pos, q_proj, g, params, k, go):
+    '''Plain version of the gathered attention's backward kernel: autograd
+    through attn_g_plain. :return (d(q_proj), dg (B, k', N, E + 3) with zero
+    position columns and zero rows j >= k, {(name, leaf): d(weight)}).'''
+    with torch.enable_grad():
+        qp = q_proj.detach().requires_grad_(True)
+        gl = g.detach().requires_grad_(True)
+        leaves = {nl: params[nl[0]][nl[1]].detach().to(torch.float32).requires_grad_(True)
+                  for nl in _grad_names(False)}
+        p = _params(leaves, leaves.values())
+        out = attn_g_plain(q_pos.detach(), qp, gl, p, k)
+        grads = torch.autograd.grad(out, [qp, gl] + list(leaves.values()), go)
+    return grads[0], grads[1], dict(zip(leaves, grads[2:]))
+
+
 def _attn_lib():
     lib = _build.library('attn')
     lib.o4d_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -540,18 +641,7 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
     _cuda_f32('g', g)
     if tuple(g.shape) != (B, N, D):
         raise ValueError(f'attn_bwd: g {tuple(g.shape)} does not fit {(B, N, D)}')
-    lib = _build.library('attn_bwd')
-    lib.o4d_attn_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.o4d_attn_bwd_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.o4d_attn_bwd_smem_bytes(D, E, P)
-    if smem + 1024 > _SMEM_LIMIT:
-        raise NotImplementedError(f'attn_bwd kernel needs {smem} B of shared '
-                                  f'memory at D={D}, E={E}; the H100 block limit '
-                                  f'is {_SMEM_LIMIT}')
-    for f in (lib.o4d_attn_bwd_weight_floats, lib.o4d_attn_bwd_slot_floats):
-        f.restype = ctypes.c_longlong
-    lib.o4d_attn_bwd_weight_floats.argtypes = [ctypes.c_int] * 5
-    lib.o4d_attn_bwd_slot_floats.argtypes = [ctypes.c_int] * 6
+    lib = _attn_bwd_lib(D, E, P)
     n_w = lib.o4d_attn_bwd_weight_floats(D, E, H, P, int(premul))
     slot = lib.o4d_attn_bwd_slot_floats(M, D, E, H, P, int(premul))
     G = _slots(q_proj.device, B, -(-N // (32 // k)))
@@ -570,7 +660,30 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
                         dims['KS'], k, int(premul), G, _build.stream_ptr(dev)),
                      'attn_bwd')
     LAUNCHES['attn_bwd'] += 1
-    # The weight-gradient block's layout (csrc/attn_bwd.cu::weight_floats).
+    return dq, dkv, _split_weight_grads(dw, D, E, H, P, premul)
+
+
+def _attn_bwd_lib(D, E, P):
+    '''The backward kernels' library, its size queries typed, after the
+    shared-memory check.'''
+    lib = _build.library('attn_bwd')
+    lib.o4d_attn_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.o4d_attn_bwd_smem_bytes.restype = ctypes.c_longlong
+    smem = lib.o4d_attn_bwd_smem_bytes(D, E, P)
+    if smem + 1024 > _SMEM_LIMIT:
+        raise NotImplementedError(f'attn_bwd kernel needs {smem} B of shared '
+                                  f'memory at D={D}, E={E}; the H100 block limit '
+                                  f'is {_SMEM_LIMIT}')
+    for f in (lib.o4d_attn_bwd_weight_floats, lib.o4d_attn_bwd_slot_floats):
+        f.restype = ctypes.c_longlong
+    lib.o4d_attn_bwd_weight_floats.argtypes = [ctypes.c_int] * 5
+    lib.o4d_attn_bwd_slot_floats.argtypes = [ctypes.c_int] * 6
+    return lib
+
+
+def _split_weight_grads(dw, D, E, H, P, premul):
+    '''{(name, leaf): view} of the weight-gradient block (its layout:
+    csrc/attn_bwd.cu::weight_floats).'''
     sizes = [('attn_mlp_0', 'kernel', (D, H)), ('attn_mlp_2', 'kernel', (H, D)),
              ('pos_mlp_2', 'kernel', (P, D)), ('pos_mlp_0', 'kernel', (3, P)),
              ('attn_mlp_0', 'bias', (H,)), ('attn_mlp_2', 'bias', (D,)),
@@ -582,7 +695,7 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
         n = math.prod(shape)
         grads[(name, leaf)] = dw[off:off + n].view(shape)
         off += n
-    return dq, dkv, grads
+    return grads
 
 
 def attn_bwd(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
@@ -592,6 +705,47 @@ def attn_bwd(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
     if q_proj.is_cuda:
         return _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g)
     return attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g)
+
+
+def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go):
+    B, N, D = q_proj.shape
+    KE, E = g.shape[1], g.shape[-1] - 3
+    if tuple(g.shape) != (B, KE, N, E + 3) or not 1 <= k <= min(KE, 32) \
+            or tuple(go.shape) != (B, N, D):
+        raise ValueError(f'attn_g_bwd: g {tuple(g.shape)}, go {tuple(go.shape)} do '
+                         f'not fit B={B}, N={N}, D={D}, k={k}')
+    w, b, wk, wv, H, P = _weight_operands(params, D, E, False)
+    for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('g', g), ('go', go)):
+        _cuda_f32(name, t)
+    lib = _attn_bwd_lib(D, E, P)
+    n_w = lib.o4d_attn_bwd_weight_floats(D, E, H, P, 0)
+    G = _slots(q_proj.device, B, -(-N // (32 // k)))
+    dev = q_proj.device
+    # A persistent block's slot holds only the weight block: the row
+    # gradients are written to dg, each (j, n) row by the one block owning it.
+    scratch = torch.empty((B * G * n_w,), dtype=torch.float32, device=dev)
+    dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
+    dw = torch.empty((n_w,), dtype=torch.float32, device=dev)
+    dg = torch.empty(g.shape, dtype=torch.float32, device=dev)
+    fn = lib.o4d_attn_g_bwd
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [go, dq, dw, dg, scratch]
+    with torch.cuda.device(dev):
+        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, G,
+                        _build.stream_ptr(dev)), 'attn_g_bwd')
+    LAUNCHES['attn_g_bwd'] += 1
+    return dq, dg, _split_weight_grads(dw, D, E, H, P, False)
+
+
+def attn_g_bwd(q_pos, q_proj, g, params, k, go):
+    '''Backward of the gathered attention operator: its kernel on CUDA,
+    plain version on the CPU. :return (d(q_proj), dg, {(name, leaf):
+    d(weight)}).'''
+    go = go.to(torch.float32).contiguous()
+    if q_proj.is_cuda:
+        return _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go)
+    return attn_g_bwd_plain(q_pos, q_proj, g, params, k, go)
 
 
 class _Attention(torch.autograd.Function):
@@ -619,9 +773,9 @@ class _Attention(torch.autograd.Function):
 
 
 class _AttentionG(torch.autograd.Function):
-    '''Forward o4d_attn_g of csrc/attn.cu (plain version on the CPU);
-    gradients in q_proj, g and the per-row mode's weights. The backward
-    kernel is not ported: CUDA raises.'''
+    '''Forward o4d_attn_g of csrc/attn.cu, backward o4d_attn_g_bwd of
+    csrc/attn_bwd.cu (plain versions on the CPU); gradients in q_proj, g and
+    the per-row mode's weights.'''
 
     @staticmethod
     def forward(ctx, q_pos, q_proj, g, k, *weights):
@@ -636,11 +790,8 @@ class _AttentionG(torch.autograd.Function):
     @staticmethod
     def backward(ctx, go):
         q_pos, q_proj, g, *weights = ctx.saved_tensors
-        if go.is_cuda:
-            raise _no_cuda_backward('_attn_g_bwd_kernel (:1030)')
-        grads = _plain_vjp(lambda qp, gg, *w: attn_g_plain(
-            q_pos, qp, gg, _params(ctx.names, w), ctx.k), [q_proj, g] + weights, go)
-        return (None, grads[0], grads[1], None) + tuple(grads[2:])
+        dq, dg, dws = attn_g_bwd(q_pos, q_proj, g, _params(ctx.names, weights), ctx.k, go)
+        return (None, dq, dg, None) + tuple(dws[nl] for nl in ctx.names)
 
 
 def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,

@@ -165,17 +165,90 @@ def test_fused_decoder_takes_shared_gather_route_and_matches_cpu(dev):
         torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-3)
 
 
-def test_shared_gather_backward_raises_on_card(dev):
-    '''The shared-gather route's backward kernels are not ported: autograd
-    through it raises on the card instead of running plain versions.'''
+def test_shared_gather_backward_launches_kernels_and_matches_cpu(dev):
+    '''Autograd through the fused decoder on the shared-gather route launches
+    the route's backward kernels (one scatter, one interp_g_bwd, one
+    attn_g_bwd per attention layer) and no index-route backward kernel, and
+    its gradients (abstract features, decoder weights) agree with the CPU
+    run (plain versions, same route).'''
+    import copy
     from occlusions4d_torch.models.fused import SHARED_GATHER_MIN_M, fused_field_apply
+    from occlusions4d_torch.ops import _build
     dec = _small_decoder(dev)
-    q = torch.rand(1, 64, 4, device=dev)
-    fg = torch.rand(1, 16, device=dev)
-    abstract = torch.rand(1, SHARED_GATHER_MIN_M, 3 + 16, device=dev).requires_grad_(True)
-    out, _ = fused_field_apply(dec, q, abstract, fg)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    cpu = copy.deepcopy(dec).cpu()
+    rng = np.random.RandomState(12)
+    q = rng.rand(1, 301, 4).astype(np.float32)
+    fg = rng.rand(1, 16).astype(np.float32)
+    abstract = rng.rand(1, SHARED_GATHER_MIN_M + 77, 3 + 16).astype(np.float32)
+    grads = []
+    for net, d in ((dec, dev), (cpu, torch.device('cpu'))):
+        a = _t(abstract, d).requires_grad_(True)
+        _build.reset_launch_counts()
+        out, _ = fused_field_apply(net, _t(q, d), a, _t(fg, d))
+        (out ** 2).sum().backward()
+        if d.type == 'cuda':
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            want = dict(scatter=1, interp_g_bwd=1, attn_g_bwd=2, attn_bwd=0,
+                        interp_bwd=0)
+            assert {k: counts[k] for k in want} == want
+        grads.append([a.grad] + [p.grad for p in net.parameters()])
+    for g_dev, g_cpu in zip(*grads):
+        _close(g_dev.cpu(), g_cpu)
+
+
+@pytest.mark.parametrize('K', [1, 14, 32])
+def test_shared_gather_backward_kernels_match_plain(dev, K):
+    '''scatter, interp_g_bwd and attn_g_bwd against their plain versions: B 2,
+    masked keys, gathered rows past every consumer's k (k_ext > k where K
+    allows), 150 queries on one key (a long scatter segment); the zero rows
+    and zero position columns exact; each twice with the same bits. The
+    gathered attention backward also gives d(q_proj) and the weight
+    gradients of the per-row index route on the same rows, bit for bit.'''
+    rng = np.random.RandomState(40 + K)
+    B, N, M, D, E = 2, 203, 97, 40, 24
+    k_ext = min(K + 4, 32)
+    q = rng.rand(B, N, 3).astype(np.float32)
+    pos2 = rng.rand(B, M, 3).astype(np.float32)
+    q[:, :150] = pos2[:, :1] + 1e-3 * rng.rand(B, 150, 3).astype(np.float32)
+    q_pos, pos2 = _t(q, dev), _t(pos2, dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    mask = rng.rand(B, M) > 0.3
+    mask[:, 0] = True
+    knn = t_attn.knn_extract(q_pos, pos2, k_ext, key_mask=_t(mask, dev))
+    ki, kd = knn
+    g = t_attn.knn_gather_rows(pos2, feats, knn, k_ext)
+    assert int((ki == 0).sum(dim=(1, 2)).min()) >= 150
+
+    dg = _t(rng.randn(B, k_ext, N, E + 3).astype(np.float32), dev)
+    d1, d2 = (t_attn.gather_bwd(ki, dg, M, k_ext) for _ in range(2))
+    _close(d1, t_attn.gather_bwd_plain(ki, dg, M, k_ext))
+    assert torch.equal(d1, d2)
+
+    ki_n = min(K, 8)
+    go = _t(rng.randn(B, N, E).astype(np.float32), dev)
+    o1, o2 = (t_attn.interp_g_bwd(kd, go, ki_n, k_ext, E, 1e-4) for _ in range(2))
+    ref = t_attn.interp_g_bwd_plain(kd, go, ki_n, k_ext, E, 1e-4)
+    _close(o1, ref)
+    assert torch.equal(o1[:, ki_n:], ref[:, ki_n:]) and torch.equal(o1[..., E:], ref[..., E:])
+    assert torch.equal(o1, o2)
+
+    params = _attn_params(rng, dev, D, E)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    go = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    dq, dgk, dw = t_attn.attn_g_bwd(q_pos, q_proj, g, params, K, go)
+    dq2, dgk2, dw2 = t_attn.attn_g_bwd(q_pos, q_proj, g, params, K, go)
+    rq, rg, rw = t_attn.attn_g_bwd_plain(q_pos, q_proj, g, params, K, go)
+    iq, _, iw = t_attn.attn_bwd(q_pos, q_proj, ki, pos2, feats, params, K, False, go)
+    torch.cuda.synchronize()
+    _close(dq, rq)
+    _close(dgk, rg)
+    assert torch.equal(dgk[:, K:], rg[:, K:]) and torch.equal(dgk[..., E:], rg[..., E:])
+    assert set(dw) == set(rw)
+    for name in rw:
+        _close(dw[name], rw[name])
+        assert torch.equal(dw[name], dw2[name]) and torch.equal(dw[name], iw[name]), name
+    assert torch.equal(dq, dq2) and torch.equal(dgk, dgk2) and torch.equal(dq, iq)
 
 
 @pytest.mark.parametrize('K', [1, 14, 32])

@@ -22,7 +22,12 @@ each printing one JSON line:
      (scatter, interp_g_bwd, attn_g_bwd) run at one cv1 train frame (3
      examples x 17203 queries against 2124-point abstract clouds; the plain
      attention backward one example at a time), each twice for the same
-     bits;
+     bits; the FPS cluster entry at the n57344 encoder's first level
+     (57344 -> 19115, four cases, indices equal to the plain loop's); the
+     encoder's fused self-attention (sattn, sattn_bwd) at the four blocks of
+     the gv1 train step (B 3) and the n57344 step's first block (B 1), with
+     the block's plain chain and the fused route (gather + sattn, backward
+     with the scatter) timed beside them;
   4. main path: gv1 at full width with seeded random weights (numpy, loaded
      through checkpoint.from_jax_params): encode a 14336-point cloud, decode
      the dense grid in chunks of 32768; launch counters are zeroed just before
@@ -57,6 +62,17 @@ each printing one JSON line:
      steps, one decoder forward + backward of a sampled frame's first 1024
      queries on the card and on the CPU (plain versions, same route), loss
      and gradients compared;
+  9. train_sattn: the gv1 train step with fused_attention='on' (the
+     encoder's four PT blocks through gather, sattn, sattn_bwd, scatter):
+     first the encoder 'on' against 'auto' on the seeded state (each PT
+     block alone, the outputs, every encoder gradient, the DownTransition
+     max-pool flips counted), then 1 warm-up + 2 timed steps (launches per
+     step checked), finite and changed state, one phase-split step;
+  10. train_57k: the n57344 train step (BASELINE.json configs[4]: the gv1
+     recipe at 57344 points, batch 1, fused_attention='on'): FPS level 0 on
+     the cluster entry, the decoder on the shared-gather route; 1 warm-up +
+     2 timed steps (launches per step checked), finite and changed state,
+     one phase-split step;
 then the card's nvidia-smi line, the {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
 or without the package beside this file, it exits non-zero and prints no
@@ -105,6 +121,22 @@ _CV1_M = 1593 + 531
 _CV1_TRAIN = dict(_GV1_TRAIN, **dict(_CV1, point_sample_bias='low_moving_ivalo_sembal',
                                      air_sampling_ratio=1.4))
 _CV1_N = 7168 + int(7168 * 1.4)
+# The n57344 scale-out train step (BASELINE.json configs[4], bench.py:366,383):
+# the gv1 recipe at 57344 points, batch 1 (pyramid 57344 -> 19115 -> 6372 ->
+# 2124: FPS level 0 takes the cluster entry, the decoder the shared gather).
+_N57 = dict(_GV1_TRAIN, n_points=57344, batch_size=1)
+# Launches per step with fused_attention='on' (4 frames, 2 attention layers
+# each; the encoder's four PT blocks gather, attend and scatter once each).
+_SATTN_STEP = dict(sattn=4, sattn_bwd=4, gather=4, scatter=4, fps=3, fps_cluster=0,
+                   attn=8, interp=4, attn_bwd=8, interp_bwd=4, attn_g=0, interp_g=0,
+                   attn_g_bwd=0, interp_g_bwd=0)
+_57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=8, fps=2, fps_cluster=1,
+                 attn=0, interp=0, attn_bwd=0, interp_bwd=0, attn_g=8, interp_g=4,
+                 attn_g_bwd=8, interp_g_bwd=4)
+# The encoder's self-attention blocks the sattn kernels are checked at:
+# (name, batch, points, index of the PT block in PointEncoder.blocks).
+_SATTN_SHAPES = [('gv1_l0', 3, 14336, 0), ('gv1_l1', 3, 4779, 2), ('gv1_l2', 3, 1593, 4),
+                 ('gv1_center', 3, 531, 6), ('n57344_l0', 1, 57344, 0)]
 _GRAD_CHECK_Q = 1024
 _CHECK_CHUNK = 4096
 _REPLACES = {
@@ -123,11 +155,15 @@ _REPLACES = {
     'scatter': 'occlusions4d_tpu/ops/pallas_attention.py:837',
     'interp_g_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:1294',
     'attn_g_bwd': 'occlusions4d_tpu/ops/pallas_attention.py:1030',
+    'fps_cluster': 'occlusions4d_tpu/ops/pallas_fps.py:39',
+    'sattn': 'occlusions4d_tpu/ops/pallas_self_attention.py:56',
+    'sattn_bwd': 'occlusions4d_tpu/ops/pallas_self_attention.py:132',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
            'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
            'nn1_bidir': 'knn', 'gather': 'gather', 'interp_g': 'interp', 'attn_g': 'attn',
-           'scatter': 'gather', 'interp_g_bwd': 'interp', 'attn_g_bwd': 'attn_bwd'}
+           'scatter': 'gather', 'interp_g_bwd': 'interp', 'attn_g_bwd': 'attn_bwd',
+           'fps_cluster': 'fps', 'sattn': 'attn', 'sattn_bwd': 'attn_bwd'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
@@ -135,7 +171,8 @@ _SHARED = ('gather', 'interp_g', 'attn_g')
 _SHARED_BWD = ('scatter', 'interp_g_bwd', 'attn_g_bwd')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
              nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED},
-             **{k: 'train_cv1' for k in _SHARED_BWD})
+             **{k: 'train_cv1' for k in _SHARED_BWD}, fps_cluster='train_57k',
+             sattn='train_sattn', sattn_bwd='train_sattn')
 # Launches per cv1 train step (4 frames, 2 attention layers each).
 _CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=4, interp_g_bwd=4, attn_g_bwd=8,
                  attn=0, interp=0, attn_bwd=0, interp_bwd=0)
@@ -650,6 +687,347 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                               repeat_max_abs_diff=repro, index_route_per_row_bwd_ms=idx_ms)
 
 
+def check_self_attention_kernels(torch, dev, rng, encoder, rows):
+    """sattn and sattn_bwd at the encoder's four self-attention blocks of the
+    gv1 train step (B 3: 14336 / 4779 / 1593 / 531 queries at D 36 / 72 /
+    144 / 288, each with that block's seeded weights) and at the n57344
+    step's first block (B 1, 57344 x 16 x 36), on neighbours from the kNN
+    kernel: each against its plain version, the backward twice for the same
+    bits. Beside them the block's chain (the 'auto' path after the kNN:
+    project, gather, MLPs, softmax) and the fused route (gather + sattn;
+    backward sattn_bwd + scatter), forward and forward + backward. The
+    kernels line carries the sums over the four gv1 blocks (one step's
+    launches)."""
+    import importlib
+    t_sattn = importlib.import_module('occlusions4d_torch.ops.self_attention')
+    t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
+    t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
+    K, P = 16, 32
+    tol = 'forward atol 1e-4, rtol 1e-3; backward atol 1e-4 x max(1, max|plain|), rtol 1e-3'
+    per = []
+    for name, B, N, blk in _SATTN_SHAPES:
+        att = encoder.blocks[blk].layer2
+        D = E = att.dim
+        H = 2 * D
+        params = {n: {leaf: t.detach().contiguous() for leaf, t in d.items()}
+                  for n, d in att.kernel_params().items()}
+
+        def rand(*shape, scale=None):
+            a = rng.rand(*shape) * scale - scale / 2 if scale else rng.randn(*shape)
+            return torch.tensor(a.astype(np.float32), device=dev)
+        pos, x, q, go = rand(B, N, 3, scale=4.0), rand(B, N, D), rand(B, N, D), rand(B, N, D)
+        _, idx = t_knn.knn(pos, pos, K)
+        with torch.no_grad():
+            gf = t_attn.gather_rows(x, idx)
+            rel = (pos[:, :, None] - t_knn.gather_neighbors(pos, idx)).contiguous()
+            out = t_sattn.fused_gathered_attention(q, gf, rel, params, K)
+            ref = t_sattn.sattn_plain(q, gf, rel, params)
+            torch.cuda.synchronize()
+            f_err = max_err(out, ref)
+            f_ok = bool(torch.allclose(out, ref, atol=1e-4, rtol=1e-3))
+            del out, ref
+            bwd = lambda: t_sattn.sattn_bwd(q, gf, rel, params, K, go)  # noqa: E731
+            dq, dgf, dw = bwd()
+            dq2, dgf2, dw2 = bwd()
+            rq, rgf, rw = t_sattn.sattn_bwd_plain(q, gf, rel, params, go)
+            torch.cuda.synchronize()
+            pairs = [(dq, rq), (dgf, rgf)] + [(dw[n], rw[n]) for n in sorted(rw)]
+            b_err = max(max_err(a, b) for a, b in pairs)
+            b_scaled = max(max_err(a, b) / max(1.0, float(b.abs().max())) for a, b in pairs)
+            b_ok = len(rw) == 10 and all(
+                bool(torch.allclose(a, b, atol=1e-4 * max(1.0, float(b.abs().max())),
+                                    rtol=1e-3)) for a, b in pairs)
+            repro = max([max_err(dq, dq2), max_err(dgf, dgf2)]
+                        + [max_err(dw[n], dw2[n]) for n in dw])
+            del dq, dgf, dw, dq2, dgf2, dw2, rq, rgf, rw
+            f_ms = cuda_ms(torch, lambda: t_sattn.fused_gathered_attention(
+                q, gf, rel, params, K), 5)
+            f_plain_ms = cuda_ms(torch, lambda: t_sattn.sattn_plain(q, gf, rel, params), 3)
+            b_ms = cuda_ms(torch, bwd, 3)
+            b_plain_ms = cuda_ms(torch, lambda: t_sattn.sattn_bwd_plain(
+                q, gf, rel, params, go), 2)
+
+        def chain(qq, xx, p):
+            '''The module's 'auto' path after the kNN (models/layers.py).'''
+            kk = t_knn.gather_neighbors(xx @ p['to_k']['kernel'], idx)
+            vv = t_knn.gather_neighbors(xx @ p['to_v']['kernel'], idx)
+            pe = torch.relu(rel @ p['pos_mlp_0']['kernel'] + p['pos_mlp_0']['bias'])
+            pe = pe @ p['pos_mlp_2']['kernel'] + p['pos_mlp_2']['bias']
+            a = torch.relu((qq[:, :, None] - kk + pe) @ p['attn_mlp_0']['kernel']
+                           + p['attn_mlp_0']['bias'])
+            a = a @ p['attn_mlp_2']['kernel'] + p['attn_mlp_2']['bias']
+            att_w = torch.softmax(a / math.sqrt(D), dim=-2)
+            return torch.einsum('bnkd,bnkd->bnd', att_w, vv + pe)
+
+        def fused(qq, xx, p):
+            return t_sattn.fused_gathered_attention(qq, t_attn.gather_rows(xx, idx), rel, p, K)
+
+        def fwd_bwd(fn):
+            qq, xx = q.detach().requires_grad_(True), x.detach().requires_grad_(True)
+            p = {n: {leaf: t.detach().requires_grad_(True) for leaf, t in d.items()}
+                 for n, d in params.items()}
+            leaves = [t for d in p.values() for t in d.values()]
+            torch.autograd.grad(fn(qq, xx, p), [qq, xx] + leaves, go)
+        with torch.no_grad():
+            chain_ms = cuda_ms(torch, lambda: chain(q, x, params), 3)
+            route_ms = cuda_ms(torch, lambda: fused(q, x, params), 3)
+        chain_fb_ms = cuda_ms(torch, lambda: fwd_bwd(chain), 2)
+        route_fb_ms = cuda_ms(torch, lambda: fwd_bwd(fused), 2)
+        rows_n = B * N * K
+        n_w = 2 * E * D + 3 * P + P + P * D + D + D * H + H + H * D + D
+        f_macs = rows_n * (2 * E * D + 3 * P + P * D + 2 * D * H)
+        b_macs = f_macs + rows_n * (4 * D * H + 2 * P * D + 3 * P + 4 * E * D)
+        f_bytes = 4 * (B * N * D + rows_n * (E + 3) + n_w + B * N * D)
+        b_bytes = 4 * (2 * B * N * D + rows_n * (E + 3) + n_w + B * N * D + rows_n * E + n_w)
+        fb_ms, fb_by = bound(f_bytes, 2.0 * f_macs, _BF16_TC_FLOPS)
+        bb_ms, bb_by = bound(b_bytes, 2.0 * b_macs, _BF16_TC_FLOPS)
+        line = dict(name=name, shape=[B, N, K, D, E], fwd_max_abs_err=f_err, fwd_agree=f_ok,
+                    bwd_max_abs_err=b_err, bwd_max_scaled_err=b_scaled, bwd_agree=b_ok,
+                    bwd_repeat_max_abs_diff=repro, fwd_ms=f_ms, fwd_plain_ms=f_plain_ms,
+                    bwd_ms=b_ms, bwd_plain_ms=b_plain_ms, chain_fwd_ms=chain_ms,
+                    fused_route_fwd_ms=route_ms, chain_fwd_bwd_ms=chain_fb_ms,
+                    fused_route_fwd_bwd_ms=route_fb_ms, fwd_bound_ms=fb_ms,
+                    fwd_bound_by=fb_by, bwd_bound_ms=bb_ms, bwd_bound_by=bb_by,
+                    fwd_bound_f32_cuda_core_ms=bound(f_bytes, 2.0 * f_macs)[0],
+                    bwd_bound_f32_cuda_core_ms=bound(b_bytes, 2.0 * b_macs)[0],
+                    fwd_flop=2.0 * f_macs, bwd_flop=2.0 * b_macs)
+        emit(dict(phase='kernel', kernel='sattn+sattn_bwd', tolerance=tol, **line))
+        if not (f_ok and b_ok) or repro != 0.0:
+            raise AssertionError(f'sattn at {name} disagrees (fwd {f_err}, bwd {b_err}) or '
+                                 f'its backward is not reproducible ({repro})')
+        per.append(line)
+        del gf, rel, x, q, go, pos, idx
+
+    gv1 = [p for p in per if p['name'].startswith('gv1')]
+    total = lambda key: sum(p[key] for p in gv1)  # noqa: E731
+    common = dict(library_ms=None, bound_peak='bf16 tensor core 989 TFLOP/s',
+                  sums_over='the four gv1 train-step blocks (B 3), one launch each')
+    rows['sattn'] = dict(max_abs_err=max(p['fwd_max_abs_err'] for p in per),
+                         ms=total('fwd_ms'), plain_ms=total('fwd_plain_ms'),
+                         bound_ms=total('fwd_bound_ms'), bound_by='operations',
+                         bound_f32_cuda_core_ms=total('fwd_bound_f32_cuda_core_ms'),
+                         chain_ms=total('chain_fwd_ms'), **common)
+    rows['sattn_bwd'] = dict(max_abs_err=max(p['bwd_max_abs_err'] for p in per),
+                             ms=total('bwd_ms'), plain_ms=total('bwd_plain_ms'),
+                             bound_ms=total('bwd_bound_ms'), bound_by='operations',
+                             bound_f32_cuda_core_ms=total('bwd_bound_f32_cuda_core_ms'),
+                             chain_fwd_bwd_ms=total('chain_fwd_bwd_ms'),
+                             fused_route_fwd_bwd_ms=total('fused_route_fwd_bwd_ms'),
+                             repeat_max_abs_diff=max(p['bwd_repeat_max_abs_diff']
+                                                     for p in per), **common)
+
+
+def check_fps_cluster(torch, t_fps, dev, rng, rows):
+    """The FPS cluster entry at the n57344 encoder's first level (57344 ->
+    19115): a random start, start 0, an invalid-point mask with a random
+    valid start, and duplicated points; indices equal to the plain loop's on
+    the card in every case."""
+    N, n_out = 57344, 19115
+    xyz = torch.tensor(rng.rand(1, N, 3).astype(np.float32) * 4.0 - 2.0, device=dev)
+    dup = xyz.clone()
+    dup[:, N // 2:] = dup[:, :N - N // 2]                       # every point twice.
+    ones = torch.ones((1, N), dtype=torch.bool, device=dev)
+    mask = torch.tensor(rng.rand(1, N) > 0.25, device=dev)
+    starts = torch.tensor([int(rng.randint(N))], device=dev)
+    cases = [('random_start', xyz, ones, starts),
+             ('start_0', xyz, ones, torch.zeros((1,), dtype=torch.int64, device=dev)),
+             ('masked', xyz, mask, torch.tensor([int(torch.nonzero(mask[0])[123])],
+                                               device=dev)),
+             ('duplicates', dup, ones, starts)]
+    eq = {}
+    for name, pts, valid, start in cases:
+        got = t_fps._fps_cuda(pts, n_out, valid, start)
+        want = t_fps.fps_plain(pts, n_out, valid, start)
+        torch.cuda.synchronize()
+        eq[name] = bool(torch.equal(got, want))
+    ok = all(eq.values())
+    args = (xyz, n_out, ones, starts)
+    ms = cuda_ms(torch, lambda: t_fps._fps_cuda(*args), 5)
+    plain_ms = cuda_ms(torch, lambda: t_fps.fps_plain(*args), 1, warmup=0)
+    one_block_14336_ms = rows['fps']['ms']
+    b_ms, b_by = bound(N * 12 + N * 4 + n_out * 4, 10.0 * N * n_out)
+    emit(dict(phase='kernel', name='fps_cluster', shape=[N, n_out], agree=ok, exact=eq,
+              max_abs_err=0 if ok else -1, tolerance='exact (equal indices)', ms=ms,
+              us_per_pick=ms * 1e3 / (n_out - 1), plain_ms=plain_ms, library_ms=None,
+              one_block_kernel_us_per_pick_at_14336=one_block_14336_ms * 1e3 / 4778,
+              bound_ms=b_ms, bound_by=b_by))
+    if not ok:
+        raise AssertionError(f'fps_cluster differs from its plain version: {eq}')
+    rows['fps_cluster'] = dict(max_abs_err=0.0, ms=ms, us_per_pick=ms * 1e3 / (n_out - 1),
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=None, shape=[N, n_out])
+
+
+def set_fused_attention(encoder, mode):
+    """The self-attention path of every PT block of `encoder`."""
+    for block in encoder.blocks:
+        if hasattr(block, 'layer2'):
+            block.layer2.fused = mode
+
+
+def encoder_on_off_check(torch, tr, batch, dev):
+    """The encoder with fused_attention 'on' against 'auto' on the card, on
+    the seeded state and batch with the same FPS starts, the loss a fixed
+    seeded projection of both outputs. Three gates, each on a tensor's L2
+    error over max(1, its 'auto' L2 norm):
+
+    * every PT block alone, on the inputs and the output cotangent the
+      'auto' run gave it: its output, d(input) and every weight gradient
+      within 1e-4 (the decoder check's gate; only ReLU flips separate the
+      two paths);
+    * the encoder's two outputs within 1e-5;
+    * every encoder gradient within 1e-2: upstream of a DownTransition the
+      two paths also differ where the max-pool over 12 neighbours has two
+      candidates within rounding of each other, and such a flip sends that
+      (point, channel)'s whole gradient to another point. The flips are
+      counted (pool_argmax_flips) and reported with the errors."""
+    import importlib
+    from occlusions4d_torch.ops import _build
+    t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
+    enc = tr.encoder
+    pts = [b for b in enc.blocks if hasattr(b, 'layer2')]
+    downs = [b for b in enc.blocks if not hasattr(b, 'layer2')]
+    params = list(enc.parameters())
+    names = ['pcl_out', 'x_global'] + [n for n, _ in enc.named_parameters()]
+    wrng = np.random.RandomState(12)
+    w_out = w_glob = None
+    res = {}
+
+    def rel_l2(a, b):
+        return float((a - b).norm()) / max(1.0, float(b.norm()))
+
+    for mode in ('on', 'auto'):
+        set_fused_attention(enc, mode)
+        seen = dict(att=[], pool=[])
+
+        def att_hook(m, args, out):
+            seen['att'].append((args[0].detach(), args[1].detach(), out))
+
+        def pool_hook(m, args, out):
+            with torch.no_grad():
+                _, nbr = t_knn.knn(out[1], args[1], m.knn_k)
+                z = t_knn.gather_neighbors(m.mlp(args[0]), nbr)
+                seen['pool'].append(z.argmax(dim=-2))
+        hooks = ([b.layer2.register_forward_hook(att_hook) for b in pts]
+                 + [d.register_forward_hook(pool_hook) for d in downs])
+        _build.reset_launch_counts()
+        try:
+            out, glob = enc(batch['pcl_input'],
+                            generator=torch.Generator(dev).manual_seed(13))
+        finally:
+            for h in hooks:
+                h.remove()
+        if w_out is None:
+            w_out = torch.tensor(wrng.randn(*out.shape).astype(np.float32), device=dev)
+            w_glob = torch.tensor(wrng.randn(*glob.shape).astype(np.float32), device=dev)
+        loss = (out * w_out).sum() + (glob * w_glob).sum()
+        grads = torch.autograd.grad(loss, params + [o for _, _, o in seen['att']])
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        res[mode] = dict(
+            tensors=[out.detach(), glob.detach()] + [g.detach() for g in grads[:len(params)]],
+            blocks=[(x, p, g) for (x, p, _), g in zip(seen['att'], grads[len(params):])],
+            pool=seen['pool'], launches={k: counts[k] for k in ('sattn', 'sattn_bwd',
+                                                                'gather', 'scatter')})
+
+    # Every PT block alone on the 'auto' run's inputs and output cotangent.
+    block_err = []
+    for i, (b, (x, p, g_up)) in enumerate(zip(pts, res['auto']['blocks'])):
+        att = b.layer2
+        got = {}
+        for mode in ('on', 'auto'):
+            att.fused = mode
+            xx = x.clone().requires_grad_(True)
+            y = att(xx, p)
+            got[mode] = [y.detach()] + list(torch.autograd.grad(
+                y, [xx] + list(att.parameters()), g_up))
+        block_err.append(max(rel_l2(a, c) for a, c in zip(got['on'], got['auto'])))
+    set_fused_attention(enc, tr.fused_attention)
+
+    per = [dict(name=n, rel_l2=rel_l2(a, b),
+                max_scaled=float((a - b).abs().max()) / max(1.0, float(b.abs().max())))
+           for n, a, b in zip(names, res['on']['tensors'], res['auto']['tensors'])]
+    worst = max(per[2:], key=lambda x: x['rel_l2'])
+    flips = [int((a != b).sum()) for a, b in zip(res['on']['pool'], res['auto']['pool'])]
+    check = dict(tensors=len(per), output_rel_l2=max(x['rel_l2'] for x in per[:2]),
+                 grad_max_rel_l2=worst['rel_l2'], worst_grad=worst,
+                 grad_max_scaled_err=max(x['max_scaled'] for x in per[2:]),
+                 block_max_rel_l2=block_err, pool_argmax_flips=flips,
+                 pool_outputs=[int(a.numel()) for a in res['auto']['pool']],
+                 tolerance=('L2 error over max(1, L2 norm): each PT block alone 1e-4, '
+                            'encoder outputs 1e-5, encoder gradients 1e-2'),
+                 launches_on=res['on']['launches'], launches_auto=res['auto']['launches'])
+    check['ok'] = (max(block_err) <= 1e-4 and check['output_rel_l2'] <= 1e-5
+                   and worst['rel_l2'] <= 1e-2
+                   and res['on']['launches'] == dict(sattn=4, sattn_bwd=4, gather=4,
+                                                     scatter=4)
+                   and res['auto']['launches'] == dict(sattn=0, sattn_bwd=0, gather=0,
+                                                       scatter=0))
+    return check
+
+
+def run_train_phase(torch, tr, batch, n_steps):
+    """1 warm-up + n_steps timed Trainer steps (launch counters zeroed just
+    before the timed steps, read just after), then one phase-split step:
+    (steps, counts, largest parameter change, peak GiB, split, warm-up ms)."""
+    from occlusions4d_torch.ops import _build
+    before = [p.detach().clone() for p in tr.optimizer.params]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr.step(batch)                              # warm-up step, not counted.
+    torch.cuda.synchronize()
+    warm_ms = (time.time() - t0) * 1e3
+    _build.reset_launch_counts()
+    steps = []
+    for _ in range(n_steps):
+        t0 = time.time()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.time() - t0) * 1e3,
+                          **{k: (v.tolist() if v.dim() else v.item()) for k, v in m.items()}))
+    counts = _build.launch_counts()
+    changed = max(max_err(p, q) for p, q in zip(tr.optimizer.params, before))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    return steps, counts, changed, peak_gb, split_step(torch, tr, batch), warm_ms
+
+
+def train_fused_phase(torch, dev, smi, path_counts, name, cfg_kw, expect, seed):
+    """A train step with fused_attention='on' (Trainer on 'greater', seeded
+    numpy weights, a bench.py-shaped batch): for train_sattn first the
+    encoder 'on' vs 'auto' check; then 1 warm-up + 2 timed steps with the
+    launches per step checked against `expect`, finite losses, gradients
+    and parameters, changed parameters, one phase-split step."""
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.train import Trainer
+    cfg = TrainConfig(**cfg_kw)
+    tr = Trainer(cfg, 'greater', 'cuda', fused_attention='on')
+    wrng = np.random.RandomState(seed)
+    tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                              decoder=random_jax_params(tr.decoder, wrng)),
+                  seed=0, steps_per_epoch=100)
+    batch = train_batch(torch, cfg, dev, seed=seed + 1)
+    check = encoder_on_off_check(torch, tr, batch, dev) if name == 'train_sattn' else None
+    n_steps = 2
+    steps, counts, changed, peak_gb, split, warm_ms = run_train_phase(torch, tr, batch,
+                                                                      n_steps)
+    path_counts[name] = counts
+    per_step = {k: counts.get(k, 0) / n_steps for k in expect}
+    counts_ok = per_step == {k: float(v) for k, v in expect.items()}
+    finite = all(np.isfinite(st['total_loss']) and st['grads_finite'] and st['params_finite']
+                 and st['sample_ok'] for st in steps)
+    ok = counts_ok and finite and changed > 0.0 and (check is None or check['ok'])
+    emit(dict(phase=name, model='gv1', n_points=cfg.n_points, batch_size=cfg.batch_size,
+              frames=cfg.past_frames, fused_attention='on', warmup_ms=warm_ms,
+              step_ms=[st['ms'] for st in steps],
+              mean_step_ms=float(np.mean([st['ms'] for st in steps])), steps=steps,
+              launches=counts, launches_per_step=per_step, expected_per_step=expect,
+              params_changed_max_abs=changed, split_ms=split, peak_mem_gib=peak_gb,
+              encoder_on_vs_auto=check, ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'{name} failed: launches {per_step} (expected {expect}), '
+                             f'finite {finite}, changed {changed}, on vs auto {check}')
+
+
 def train_batch(torch, cfg, dev, seed=1, data_kind='greater'):
     """A seeded synthetic batch shaped as bench.py:57-82 builds it (GREATER
     or CARLA layout, target budget 2 x n_points), on the card."""
@@ -749,7 +1127,6 @@ def train_cv1(torch, dev, smi, path_counts):
     + 2 timed cv1 train steps (launch counts per step, finite and changed
     state) and one phase-split step."""
     from occlusions4d_torch.config import TrainConfig
-    from occlusions4d_torch.ops import _build
     from occlusions4d_torch.train import Trainer
     import importlib
     t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
@@ -775,27 +1152,10 @@ def train_cv1(torch, dev, smi, path_counts):
         del dg
     check = decoder_grad_check(torch, tr, abstract, fg, frame, dev)
 
-    before = [p.detach().clone() for p in tr.optimizer.params]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    tr.step(batch)                              # warm-up step, not counted.
-    torch.cuda.synchronize()
-    warm_ms = (time.time() - t0) * 1e3
     n_steps = 2
-    _build.reset_launch_counts()
-    steps = []
-    for _ in range(n_steps):
-        t0 = time.time()
-        m = tr.step(batch)
-        torch.cuda.synchronize()
-        steps.append(dict(ms=(time.time() - t0) * 1e3,
-                          **{k: (v.tolist() if v.dim() else v.item())
-                             for k, v in m.items()}))
-    counts = _build.launch_counts()
+    steps, counts, changed, peak_gb, split, warm_ms = run_train_phase(torch, tr, batch,
+                                                                      n_steps)
     path_counts['train_cv1'] = counts
-    changed = max(max_err(p, q) for p, q in zip(tr.optimizer.params, before))
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    split = split_step(torch, tr, batch)
     per_step = {k: counts.get(k, 0) / n_steps for k in _CV1_STEP}
     counts_ok = per_step == {k: float(v) for k, v in _CV1_STEP.items()} \
         and counts.get('nn1_bidir', 0) > 0
@@ -838,7 +1198,6 @@ def main():
     from occlusions4d_torch.config import TrainConfig
     from occlusions4d_torch.evaluate import InferenceEngine, load_models, \
         perform_inference
-    from occlusions4d_torch.models.fused import attention_params
     from occlusions4d_torch.ops import _build, blind_points_numpy
     t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
     t_fps = importlib.import_module('occlusions4d_torch.ops.fps')
@@ -953,6 +1312,8 @@ def main():
         if N == 14336:
             rows['fps'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=None, shape=[N, n_out])
+    # K2': the cluster entry at the n57344 encoder's first level.
+    check_fps_cluster(torch, t_fps, dev, np.random.RandomState(20), rows)
 
     # K3 / K4 on one decode chunk with the gv1 decoder's attention weights.
     cfg = TrainConfig(**_GV1)
@@ -988,7 +1349,7 @@ def main():
                           bound_by=b_by, library_ms=lib_ms, shape=[_CHUNK, 531, 8, E])
 
     att = decoder.pt_blocks[0].layer2
-    params = attention_params(att)
+    params = att.kernel_params()
     q_proj = torch.tensor(rng.randn(1, _CHUNK, D).astype(np.float32), device=dev)
     H, P = 2 * D, 32
     for premul in (True, False):
@@ -1038,12 +1399,15 @@ def main():
     # K8 / K9 / K10: the shared-gather kernels with the cv1 decoder's weights.
     ccfg = TrainConfig(**_CV1)
     cv1_encoder, cv1_decoder, _ = seeded_models(torch, ccfg, dev, 4)
-    cv1_params = attention_params(cv1_decoder.pt_blocks[0].layer2)
+    cv1_params = cv1_decoder.pt_blocks[0].layer2.kernel_params()
     check_shared_gather_kernels(torch, t_attn, dev, rng, cv1_params, E, rows)
     # K11 / K12 / K13: their backward kernels at one cv1 train frame.
     with torch.no_grad():
         check_shared_gather_backward_kernels(torch, t_attn, dev, rng, cv1_params, E, rows)
     del cv1_params
+    # K14 / K15: the encoder's fused self-attention, forward and backward.
+    check_self_attention_kernels(torch, dev, np.random.RandomState(21), encoder, rows)
+    torch.cuda.empty_cache()
 
     # 4. The main path: encode + dense decode at gv1 width.
     loaded = dict(encoder=encoder, decoder=decoder, device=dev)
@@ -1184,26 +1548,8 @@ def main():
                               decoder=random_jax_params(tr.decoder, wrng)),
                   seed=0, steps_per_epoch=100)
     batch = train_batch(torch, tcfg, dev)
-    before = [p.detach().clone() for p in tr.optimizer.params]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    tr.step(batch)                              # warm-up step, not counted.
-    torch.cuda.synchronize()
-    warm_ms = (time.time() - t0) * 1e3
-    _build.reset_launch_counts()
-    steps = []
-    for _ in range(3):
-        t0 = time.time()
-        m = tr.step(batch)
-        torch.cuda.synchronize()
-        steps.append(dict(ms=(time.time() - t0) * 1e3,
-                          **{k: (v.tolist() if v.dim() else v.item())
-                             for k, v in m.items()}))
-    counts = _build.launch_counts()
+    steps, counts, changed, peak_gb, split, warm_ms = run_train_phase(torch, tr, batch, 3)
     path_counts['train'] = counts
-    changed = max(max_err(p, q) for p, q in zip(tr.optimizer.params, before))
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    split = split_step(torch, tr, batch)
     # The sampler's pruned 1-NN (air rejections) at its gv1 shape.
     tgt0 = batch['pcl_target'][:, 0, :, :3].contiguous()
     cand = tgt0[:, :6996] + 0.3
@@ -1262,8 +1608,16 @@ def main():
 
     # 8. The cv1 train step: the shared-gather route's backward kernels.
     train_cv1(torch, dev, smi, path_counts)
+    torch.cuda.empty_cache()
 
-    # 9. Summary lines.
+    # 9. The gv1 train step through the encoder's fused self-attention.
+    train_fused_phase(torch, dev, smi, path_counts, 'train_sattn', _GV1_TRAIN, _SATTN_STEP,
+                      8)
+    torch.cuda.empty_cache()
+    # 10. The n57344 train step (FPS cluster entry, shared-gather decoder).
+    train_fused_phase(torch, dev, smi, path_counts, 'train_57k', _N57, _57K_STEP, 10)
+
+    # 11. Summary lines.
     kernels = []
     for name, src in _SOURCE.items():
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',

@@ -1,4 +1,4 @@
-// Fused kNN vector cross-attention for Hopper, two entries:
+// Fused kNN vector attention for Hopper, three entries:
 //   o4d_attn   replaces occlusions4d_tpu/ops/pallas_attention.py::_attn_kernel
 //              (:78), in its use_idx form (neighbours from the kNN kernel), in
 //              both projection modes:
@@ -8,9 +8,14 @@
 //                          gathered row;
 //   o4d_attn_g replaces _attn_g_kernel (:934): per-row mode over the rows of
 //              the shared gather, g (B, K_ext, N, E + 3) = [feats | pos] per
-//              (neighbour, query) (csrc/gather.cu). Only the row loader
-//              differs (template parameter GATHERED), so on the same rows both
-//              entries give the same bits.
+//              (neighbour, query) (csrc/gather.cu);
+//   o4d_sattn  replaces occlusions4d_tpu/ops/pallas_self_attention.py::
+//              _fwd_kernel (:56), the encoder's fused gathered self-attention:
+//              per-row mode over gf (B, N, K, E), the raw features of each
+//              query's K neighbours (n-major), with the coordinate deltas
+//              rel (B, N, K, 3) read as given instead of qpos - kpos.
+// Only the row loader differs (template parameter MODE), so on the same rows
+// the three entries give the same bits.
 //
 // Function, per query n with neighbours j = ki[n, :k] (f32 throughout):
 //   theta_j = W2 relu(W1 (qpos_n - kpos_j) + b1) + b2           (3 -> P -> D)
@@ -22,6 +27,10 @@
 // gamma MLP is 2*D*H multiply-adds (692k at D = 416, H = 832), against a few
 // KB of inputs; the whole decode is ~2e13 FLOP per dense scene. This first
 // kernel runs them on the f32 CUDA cores, far from the tensor-core bound.
+// In the encoder (o4d_sattn, D 36 ... 288, H = 2D) the same count is about
+// 12 D^2 + 64 D FLOP per row: 98 GFLOP over the four blocks of an n57344
+// train step. The narrow widths leave most of a 128-column weight tile idle
+// (D 36 uses 36 of 128 columns); that is later work.
 // Design: a thread block owns 32 rows = floor(32 / k) queries x k neighbours,
 // so the softmax over j closes inside the block. The rows' theta, a and
 // logits stay in shared memory; the gamma MLP's hidden layer is produced and
@@ -104,6 +113,8 @@ struct AttnArgs {
   const float* kpos;   // (B, M, 3)
   const float* kv;     // premul (B, M, 2D) [k | v]; per-row (B, M, E)
   const float* g;      // gathered only: (B, KE, N, E + 3)
+  const float* gf;     // self only: (B, N, k, E)
+  const float* rel;    // self only: (B, N, k, 3)
   const float* wk;     // (E, D), per-row only
   const float* wv;     // (E, D), per-row only
   const float* wp1;    // (3, P)
@@ -125,7 +136,11 @@ size_t smem_floats(int D, int E, int P) {
          (size_t)kKTile * kColTile + (size_t)kRows * P + (size_t)kRows * 3;
 }
 
-template <bool GATHERED>
+// Row loaders: neighbour indices into kv, the shared gather's rows, or the
+// self-attention's n-major gathered features.
+enum { kIndex = 0, kGathered = 1, kSelf = 2 };
+
+template <int MODE>
 __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   extern __shared__ float sm[];
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
@@ -138,7 +153,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   float* PH = WS + kKTile * kColTile;    // theta hidden layer
   float* REL = PH + kRows * P;           // qpos - kpos
   __shared__ int rq[kRows], ridx[kRows];
-  __shared__ const float* rrow[kRows];  // GATHERED: the row's [feats | pos].
+  __shared__ const float* rrow[kRows];  // gathered / self: the row's features.
 
   const int b = blockIdx.y, tid = threadIdx.x;
   const int tq_per = kRows / k;
@@ -147,28 +162,35 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
     const int tq = tid / k, j = tid % k, n = n0 + tq;
     const bool valid = tq < tq_per && n < p.N;
     rq[tid] = valid ? n : -1;
-    const float* kp;
-    if (GATHERED) {
-      const float* row =
-          p.g + (((size_t)b * p.KE + j) * p.N + (valid ? n : 0)) * (E + 3);
-      rrow[tid] = row;
-      kp = row + E;
+    if (MODE == kSelf) {
+      const size_t row = ((size_t)b * p.N + (valid ? n : 0)) * k + j;
+      rrow[tid] = p.gf + row * E;
+      for (int c = 0; c < 3; ++c) REL[tid * 3 + c] = valid ? p.rel[row * 3 + c] : 0.f;
     } else {
-      const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
-      ridx[tid] = idx;
-      kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+      const float* kp;
+      if (MODE == kGathered) {
+        const float* row =
+            p.g + (((size_t)b * p.KE + j) * p.N + (valid ? n : 0)) * (E + 3);
+        rrow[tid] = row;
+        kp = row + E;
+      } else {
+        const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
+        ridx[tid] = idx;
+        kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+      }
+      for (int c = 0; c < 3; ++c)
+        REL[tid * 3 + c] =
+            valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
     }
-    for (int c = 0; c < 3; ++c)
-      REL[tid * 3 + c] =
-          valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
   }
   __syncthreads();
 
   gemm_rows<true, false>(REL, 3, p.wp1, P, p.bp1, 3, P, PH, P, WS);
   gemm_rows<false, false>(PH, P, p.wp2, D, p.bp2, P, D, PE, D, WS);
 
-  const float* kvb = p.kv + (size_t)b * p.M * (p.premul ? 2 * D : E);
-  if (!GATHERED && p.premul) {
+  const float* kvb = MODE == kIndex ? p.kv + (size_t)b * p.M * (p.premul ? 2 * D : E)
+                                    : nullptr;
+  if (MODE == kIndex && p.premul) {
     for (int idx = tid; idx < kRows * D; idx += kThreads) {
       const int r = idx / D, c = idx % D;
       A[idx] = rq[r] >= 0 ? kvb[(size_t)ridx[r] * 2 * D + c] : 0.f;
@@ -176,9 +198,9 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   } else {
     for (int idx = tid; idx < kRows * E; idx += kThreads) {
       const int r = idx / E, c = idx % E;
-      LG[r * LD + c] = rq[r] < 0   ? 0.f
-                       : GATHERED ? rrow[r][c]
-                                  : kvb[(size_t)ridx[r] * E + c];
+      LG[r * LD + c] = rq[r] < 0         ? 0.f
+                       : MODE != kIndex ? rrow[r][c]
+                                        : kvb[(size_t)ridx[r] * E + c];
     }
     gemm_rows<false, false>(LG, LD, p.wk, D, nullptr, E, D, A, D, WS);
   }
@@ -219,17 +241,17 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   }
 }
 
-template <bool GATHERED>
+template <int MODE>
 int launch(AttnArgs& a, int B, void* stream) {
   a.inv_sqrt_d = 1.0f / sqrtf((float)a.D);
   const size_t smem = smem_floats(a.D, a.E, a.P) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<GATHERED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int tq_per = kRows / a.k;
   dim3 grid((a.N + tq_per - 1) / tq_per, B);
-  attn_kernel<GATHERED><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  attn_kernel<MODE><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -274,7 +296,7 @@ extern "C" int o4d_attn(const void* qpos, const void* qproj, const void* ki,
   a.KS = KS;
   a.k = k;
   a.premul = premul;
-  return launch<false>(a, B, stream);
+  return launch<kIndex>(a, B, stream);
 }
 
 // o4d_attn over the shared gather's rows: g (B, KE, N, E + 3) replaces ki,
@@ -310,5 +332,40 @@ extern "C" int o4d_attn_g(const void* qpos, const void* qproj, const void* g,
   a.KE = KE;
   a.k = k;
   a.premul = 0;
-  return launch<true>(a, B, stream);
+  return launch<kGathered>(a, B, stream);
+}
+
+// The encoder's fused self-attention: q (B, N, D) projected queries, gf
+// (B, N, k, E) raw neighbour features (row n k + j is query n's j-th
+// neighbour), rel (B, N, k, 3) coordinate deltas; out (B, N, D).
+extern "C" int o4d_sattn(const void* q, const void* gf, const void* rel, const void* wk,
+                         const void* wv, const void* wp1, const void* bp1,
+                         const void* wp2, const void* bp2, const void* wa1,
+                         const void* ba1, const void* wa2, const void* ba2, void* out,
+                         int B, int N, int D, int E, int H, int P, int k, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > kRows) return (int)cudaErrorInvalidValue;
+  AttnArgs a = {};
+  a.qproj = (const float*)q;
+  a.gf = (const float*)gf;
+  a.rel = (const float*)rel;
+  a.wk = (const float*)wk;
+  a.wv = (const float*)wv;
+  a.wp1 = (const float*)wp1;
+  a.bp1 = (const float*)bp1;
+  a.wp2 = (const float*)wp2;
+  a.bp2 = (const float*)bp2;
+  a.wa1 = (const float*)wa1;
+  a.ba1 = (const float*)ba1;
+  a.wa2 = (const float*)wa2;
+  a.ba2 = (const float*)ba2;
+  a.out = (float*)out;
+  a.N = N;
+  a.D = D;
+  a.E = E;
+  a.H = H;
+  a.P = P;
+  a.k = k;
+  a.premul = 0;
+  return launch<kSelf>(a, B, stream);
 }

@@ -1,4 +1,4 @@
-// Backward of the fused kNN vector cross-attention for Hopper, two entries:
+// Backward of the fused kNN vector attention for Hopper, three entries:
 //   o4d_attn_bwd   replaces occlusions4d_tpu/ops/pallas_attention.py::
 //                  _attn_bwd_kernel (:246), in its use_idx form, in both
 //                  projection modes of the forward (csrc/attn.cu):
@@ -7,12 +7,22 @@
 //   o4d_attn_g_bwd replaces _attn_g_bwd_kernel (:1030): per-row mode over the
 //                  shared gather's rows g (B, K_ext, N, E + 3) (csrc/gather.cu).
 //                  Only the row loader and the row gradients' destination
-//                  differ (template parameter GATHERED): the rows' gradients
+//                  differ: the rows' gradients
 //                  dk Wk^T + dv Wv^T are WRITTEN to dg[b, j, n, :E] (the first
 //                  pass stores, the second adds; exactly one block owns each
 //                  (j, n) row), the position columns and the rows j >= k of
 //                  dg are zeroed, and the scatter of csrc/gather.cu takes dg
-//                  to the key rows. The slots then hold the weight block only.
+//                  to the key rows. The slots then hold the weight block only;
+//   o4d_sattn_bwd  replaces occlusions4d_tpu/ops/pallas_self_attention.py::
+//                  _bwd_kernel (:132), the encoder's fused self-attention
+//                  (o4d_sattn of csrc/attn.cu): the rows come from gf
+//                  (B, N, k, E) and rel (B, N, k, 3), and their gradients are
+//                  written to dgf (B, N, k, E) as the gathered form writes dg
+//                  (one block owns each row; no position columns, no rows past
+//                  k). The kernel at pallas_self_attention.py:182-214 computes
+//                  the same chain.
+// The three entries share one body; the template parameter MODE picks the
+// row loader and where the rows' gradients go.
 //
 // Function: with the forward of csrc/attn.cu recomputed per row tile
 // (theta = W2 relu(W1 rel + b1) + b2, hpre = q - k + theta,
@@ -32,7 +42,9 @@
 // (dh1, dhpre and the two weight-gradient products): about 2.1 M per row at
 // D 416, H 832, 3.1 TFLOP for one gv1 train frame (3 x 17920 queries, K 14),
 // against tens of MB of inputs. This first kernel runs them on the f32 CUDA
-// cores, like the forward.
+// cores, like the forward. In the encoder (o4d_sattn_bwd, D 36 ... 288) the
+// weight block is small (under 10 k floats at D 36, about 0.5 M at D 288), so
+// the slots' read-modify-writes cost little beside the products.
 //
 // Design:
 //   * a block owns 32 rows = floor(32 / k) queries x k neighbours, so the
@@ -222,6 +234,8 @@ struct BwdArgs {
   const float* kpos;   // (B, M, 3)
   const float* kv;     // premul (B, M, 2D); per-row (B, M, E)
   const float* gin;    // gathered only: (B, KE, N, E + 3)
+  const float* gf;     // self only: (B, N, k, E)
+  const float* rel;    // self only: (B, N, k, 3)
   const float* wk;     // (E, D), per-row only
   const float* wv;     // (E, D), per-row only
   const float* wp1;    // (3, P)
@@ -234,7 +248,7 @@ struct BwdArgs {
   const float* ba2;    // (D)
   const float* g;      // (B, N, D)
   float* dqproj;       // (B, N, D)
-  float* dg;           // gathered only: (B, KE, N, E + 3)
+  float* dg;           // gathered only: (B, KE, N, E + 3); self: dgf (B, N, k, E)
   float* part;         // (B * G) slots of slot_floats
   long long slot;
   int N, M, D, E, H, P, KS, KE, k, premul, G;
@@ -255,8 +269,13 @@ size_t smem_floats(int D, int E, int P) {
          (size_t)kKTile * kWS + 2 * (size_t)kRows * P + (size_t)kRows * 3;
 }
 
-template <bool GATHERED>
+// Row loaders: neighbour indices into kv, the shared gather's rows, or the
+// self-attention's n-major gathered features.
+enum { kIndex = 0, kGathered = 1, kSelf = 2 };
+
+template <int MODE>
 __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
+  constexpr bool GATHERED = MODE != kIndex;  // rows read from g / gf, dg written.
   extern __shared__ float sm[];
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
   const int LD = D > E ? D : E;
@@ -271,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
   float* REL = DPH + kRows * P;       // qpos - kpos
   __shared__ int rq[kRows], ridx[kRows], rvalid[kRows];
   __shared__ const float* rrow[kRows];  // the row's features (key or gather row)
-  __shared__ float* drow[kRows];        // GATHERED: the row's gradient in dg
+  __shared__ float* drow[kRows];        // gathered / self: the row's gradient
 
   const int b = blockIdx.y, tid = threadIdx.x;
   const int tq_per = kRows / k;
@@ -299,23 +318,30 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
       const bool valid = tq < tq_per && n < p.N;
       rq[tid] = valid ? n : -1;
       rvalid[tid] = valid ? 1 : 0;
-      const float* kp;
-      if (GATHERED) {
-        const size_t row = ((size_t)b * p.KE + j) * p.N + (valid ? n : 0);
-        rrow[tid] = p.gin + row * (E + 3);
-        drow[tid] = p.dg + row * (E + 3);
-        kp = rrow[tid] + E;
+      if (MODE == kSelf) {
+        const size_t row = ((size_t)b * p.N + (valid ? n : 0)) * k + j;
+        rrow[tid] = p.gf + row * E;
+        drow[tid] = p.dg + row * E;
+        for (int c = 0; c < 3; ++c) REL[tid * 3 + c] = valid ? p.rel[row * 3 + c] : 0.f;
       } else {
-        const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
-        ridx[tid] = idx;
-        rrow[tid] = kvb + (size_t)idx * CW;
-        kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+        const float* kp;
+        if (MODE == kGathered) {
+          const size_t row = ((size_t)b * p.KE + j) * p.N + (valid ? n : 0);
+          rrow[tid] = p.gin + row * (E + 3);
+          drow[tid] = p.dg + row * (E + 3);
+          kp = rrow[tid] + E;
+        } else {
+          const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
+          ridx[tid] = idx;
+          rrow[tid] = kvb + (size_t)idx * CW;
+          kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+        }
+        for (int c = 0; c < 3; ++c)
+          REL[tid * 3 + c] = valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
       }
-      for (int c = 0; c < 3; ++c)
-        REL[tid * 3 + c] = valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
     }
     __syncthreads();
-    if (GATHERED) {
+    if (MODE == kGathered) {
       // dg's position columns and the rows j >= k of the tile's queries are
       // zero; the feature columns of the rows j < k are written below.
       const int C = E + 3, extra = (p.KE - k) * C;
@@ -516,18 +542,18 @@ extern "C" long long o4d_attn_bwd_slot_floats(int M, int D, int E, int H, int P,
 
 // Zeroes the slots, runs the kernel over (G, B) persistent blocks and sums
 // the slots into dw (and dkv, index route only).
-template <bool GATHERED>
+template <int MODE>
 int launch(BwdArgs& a, int B, float* dw, float* dkv, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   a.inv_sqrt_d = 1.0f / sqrtf((float)a.D);
   cudaError_t e = cudaMemsetAsync(a.part, 0, (size_t)B * a.G * a.slot * sizeof(float), s);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = smem_floats(a.D, a.E, a.P) * sizeof(float);
-  e = cudaFuncSetAttribute(attn_bwd_kernel<GATHERED>,
+  e = cudaFuncSetAttribute(attn_bwd_kernel<MODE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.G, B);
-  attn_bwd_kernel<GATHERED><<<grid, kThreads, smem, s>>>(a);
+  attn_bwd_kernel<MODE><<<grid, kThreads, smem, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long W = weight_floats(a.D, a.E, a.H, a.P, a.premul);
@@ -584,7 +610,7 @@ extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
   a.k = k;
   a.premul = premul;
   a.G = G;
-  return launch<false>(a, B, (float*)dw, (float*)dkv, stream);
+  return launch<kIndex>(a, B, (float*)dw, (float*)dkv, stream);
 }
 
 // The gathered form: gin (B, KE, N, E + 3) replaces ki, kpos and kv (per-row
@@ -630,5 +656,49 @@ extern "C" int o4d_attn_g_bwd(const void* qpos, const void* qproj, const void* g
   a.k = k;
   a.premul = 0;
   a.G = G;
-  return launch<true>(a, B, (float*)dw, nullptr, stream);
+  return launch<kGathered>(a, B, (float*)dw, nullptr, stream);
+}
+
+// The encoder's fused self-attention backward: inputs as o4d_sattn
+// (csrc/attn.cu) plus go (B, N, D) = d(out). Outputs: dq (B, N, D); dw, the
+// weight-gradient block (premul = 0 layout); dgf (B, N, k, E), every element
+// written. scratch holds B * G slots of o4d_attn_bwd_weight_floats(D, E, H,
+// P, 0) floats (zeroed here).
+extern "C" int o4d_sattn_bwd(const void* q, const void* gf, const void* rel,
+                             const void* wk, const void* wv, const void* wp1,
+                             const void* bp1, const void* wp2, const void* bp2,
+                             const void* wa1, const void* ba1, const void* wa2,
+                             const void* ba2, const void* go, void* dq, void* dw,
+                             void* dgf, void* scratch, int B, int N, int D, int E,
+                             int H, int P, int k, int G, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > kRows || G < 1) return (int)cudaErrorInvalidValue;
+  BwdArgs a = {};
+  a.qproj = (const float*)q;
+  a.gf = (const float*)gf;
+  a.rel = (const float*)rel;
+  a.wk = (const float*)wk;
+  a.wv = (const float*)wv;
+  a.wp1 = (const float*)wp1;
+  a.bp1 = (const float*)bp1;
+  a.wp2 = (const float*)wp2;
+  a.bp2 = (const float*)bp2;
+  a.wa1 = (const float*)wa1;
+  a.ba1 = (const float*)ba1;
+  a.wa2 = (const float*)wa2;
+  a.ba2 = (const float*)ba2;
+  a.g = (const float*)go;
+  a.dqproj = (float*)dq;
+  a.dg = (float*)dgf;
+  a.part = (float*)scratch;
+  a.slot = weight_floats(D, E, H, P, 0);
+  a.N = N;
+  a.D = D;
+  a.E = E;
+  a.H = H;
+  a.P = P;
+  a.k = k;
+  a.premul = 0;
+  a.G = G;
+  return launch<kSelf>(a, B, (float*)dw, nullptr, stream);
 }

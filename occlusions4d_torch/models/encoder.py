@@ -16,14 +16,18 @@ __all__ = ['PointEncoder']
 
 
 class PointEncoder(nn.Module):
-    '''Constructor arguments are the checkpoint's encoder_args.'''
+    '''Constructor arguments are the checkpoint's encoder_args, plus
+    fused_attention ('auto'|'on'|'off'), the PT blocks' self-attention path
+    (models/layers.py::VectorAttention.fused; 'on' = the fused self-attention
+    kernels). Like the JAX encoder's, it is a runtime choice of how the same
+    parameters are computed with, not part of encoder_args.'''
 
     def __init__(self, n_input=4096, n_output=1024, d_in=6, d_out=6, d_feat=32,
                  down_blocks=3, up_blocks=2, transition_factor=4,
                  pt_num_neighbors=16, pt_norm_type='none', down_neighbors=8,
                  abstract_levels=1, skip_connections=False, enable_decoder=False,
                  output_featurized=True, output_global_emb=True, global_dim=512,
-                 fps_random_start=True):
+                 fps_random_start=True, fused_attention='auto'):
         super().__init__()
         if enable_decoder:
             raise NotImplementedError('enable_decoder (UpTransition path) is not ported')
@@ -40,11 +44,13 @@ class PointEncoder(nn.Module):
         blocks = []
         dim = d_feat
         for _ in range(down_blocks):
-            blocks.append(PointTransformerBlock(dim, dim, dim, pt_num_neighbors))
+            blocks.append(PointTransformerBlock(dim, dim, dim, pt_num_neighbors,
+                                                fused=fused_attention))
             blocks.append(DownTransition(dim, dim * 2, transition_factor,
                                          down_neighbors, pt_norm_type))
             dim *= 2
-        blocks.append(PointTransformerBlock(dim, dim, dim, pt_num_neighbors))
+        blocks.append(PointTransformerBlock(dim, dim, dim, pt_num_neighbors,
+                                            fused=fused_attention))
         self.blocks = nn.ModuleList(blocks)
         final_dim = d_feat * 2 ** down_blocks
         self._skip_at = {}  # width after a DownTransition -> skip index.

@@ -65,15 +65,21 @@ def build_decoder_args(cfg):
         cross_attn_layers=cfg.cross_attn_layers, cr_attn_type=cfg.cr_attn_type)
 
 
-def build_models(cfg=None, encoder_args=None, decoder_args=None):
+def build_models(cfg=None, encoder_args=None, decoder_args=None, fused_attention=None):
     '''
     :return (encoder, decoder, encoder_args, decoder_args): freshly initialized
         torch modules (load weights with checkpoint.from_jax_params) plus the
         constructor kwarg dicts.
+
+    `fused_attention` ('auto'|'on'|'off', None = the encoder's default
+    'auto') selects the encoder's self-attention path (models/layers.py). As
+    in the JAX factory it is not merged into the returned encoder_args:
+    checkpoints stay path-agnostic.
     '''
     encoder_args = dict(encoder_args or build_encoder_args(cfg))
     decoder_args = dict(decoder_args or build_decoder_args(cfg))
-    return (PointEncoder(**encoder_args), LocalImplicitField(**decoder_args),
+    extra = {} if fused_attention is None else dict(fused_attention=fused_attention)
+    return (PointEncoder(**encoder_args, **extra), LocalImplicitField(**decoder_args),
             encoder_args, decoder_args)
 
 

@@ -34,8 +34,7 @@ from ..ops.attention import (fused_knn_interp, fused_knn_vector_attention, knn_e
                              knn_gather_rows)
 from .implicit import BASE_FREQUENCY, activation, positional_encode
 
-__all__ = ['fused_field_apply', 'supports_fused', 'attention_params',
-           'SHARED_GATHER_MIN_M']
+__all__ = ['fused_field_apply', 'supports_fused', 'SHARED_GATHER_MIN_M']
 
 SHARED_GATHER_MIN_M = 1024
 
@@ -47,19 +46,6 @@ def supports_fused(decoder):
             and decoder.num_local_features <= 32
             and all(c == 'c' for c in
                     decoder.cr_attn_type[:decoder.cross_attn_layers]))
-
-
-def attention_params(att):
-    '''A VectorAttention module's weights in the JAX layout the attention
-    operator takes: {name: {'kernel' (in, out), ['bias']}}.'''
-    def lin(m):
-        p = {'kernel': m.weight.t()}
-        if m.bias is not None:
-            p['bias'] = m.bias
-        return p
-    return {'to_k': lin(att.to_k), 'to_v': lin(att.to_v),
-            'pos_mlp_0': lin(att.pos_mlp[0]), 'pos_mlp_2': lin(att.pos_mlp[2]),
-            'attn_mlp_0': lin(att.attn_mlp[0]), 'attn_mlp_2': lin(att.attn_mlp[2])}
 
 
 def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
@@ -108,7 +94,7 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
             att = blk.layer2
             q_proj = F.linear(blk.layer1(x), att.to_q.weight)
             y = fused_knn_vector_attention(
-                q_proj, q_xyz, feats_abs, pts_abs, attention_params(att),
+                q_proj, q_xyz, feats_abs, pts_abs, att.kernel_params(),
                 decoder.cross_attn_neighbors, key_mask=abstract_mask, knn=knn,
                 gathered=gathered)
             x = x + blk.layer3(y)

@@ -5,10 +5,17 @@ Attribute names follow the reference torch layout that the JAX package's
 export_torch_state_dict emits (`layer2.pos_mlp.0.weight`, `mlp.1.weight`),
 so checkpoint.from_jax_params output loads with strict=True.
 
-VectorAttention is the plain PyTorch chain (kNN graph, gathers, theta/gamma
-MLPs, per-channel softmax): the encoder's self-attention runs it in eval, as
-the JAX engine runs its XLA chain (fused_attention='off'). Its kNN graph goes
-through ops.knn, hence through the kNN kernels on CUDA.
+VectorAttention has two paths over the same parameters, chosen as the JAX
+module chooses them (its `fused` flag):
+  * the plain PyTorch chain (kNN graph, gathers, theta/gamma MLPs,
+    per-channel softmax), taken by cross attention, by a key mask, by K not a
+    multiple of 8, and by fused 'auto' / 'off'. The inference engine runs it,
+    as the JAX engine forces its XLA chain (fused_attention='off');
+  * the fused self-attention operator (ops/self_attention.py: o4d_sattn
+    forward and o4d_sattn_bwd backward on CUDA) over the neighbours' raw
+    features, gathered by the gather kernel and scattered back by its
+    scatter (ops/attention.py::gather_rows), with fused 'on'.
+Both take their kNN graph from ops.knn, hence from the kNN kernels on CUDA.
 '''
 
 import math
@@ -17,6 +24,8 @@ import torch
 from torch import nn
 
 from ..ops import fps_batched, gather_neighbors, knn
+from ..ops.attention import gather_rows
+from ..ops.self_attention import fused_gathered_attention
 
 __all__ = ['NormLayer', 'VectorAttention', 'PointTransformerBlock', 'DownTransition']
 
@@ -60,18 +69,38 @@ def _mlp(d_in, d_hidden, d_out):
 
 class VectorAttention(nn.Module):
     '''attn = softmax_K(gamma(q - k + theta(dp)) / sqrt(dim));
-    out = sum_K attn * (v + theta).'''
+    out = sum_K attn * (v + theta).
+
+    fused ('auto'|'on'|'off'): 'on' runs the fused self-attention operator
+    when the call is self attention without a key mask and num_neighbors is
+    a multiple of 8 (the JAX rule, occlusions4d_tpu/models/layers.py:142-156);
+    every other case, and 'auto' and 'off', runs the chain.'''
 
     def __init__(self, dim, d_query=None, dim2=None, num_neighbors=16,
-                 pos_mlp_hidden_dim=32, attn_mlp_hidden_mult=2):
+                 pos_mlp_hidden_dim=32, attn_mlp_hidden_mult=2, fused='auto'):
         super().__init__()
+        if fused not in ('auto', 'on', 'off'):
+            raise ValueError(f'fused={fused!r}')
         self.dim = dim
         self.num_neighbors = num_neighbors
+        self.fused = fused
         self.to_q = nn.Linear(d_query or dim, dim, bias=False)
         self.to_k = nn.Linear(dim2 or dim, dim, bias=False)
         self.to_v = nn.Linear(dim2 or dim, dim, bias=False)
         self.pos_mlp = _mlp(3, pos_mlp_hidden_dim, dim)
         self.attn_mlp = _mlp(dim, dim * attn_mlp_hidden_mult, dim)
+
+    def kernel_params(self):
+        '''The weights in the JAX layout the fused operators take:
+        {name: {'kernel' (in, out), ['bias']}} (views of the parameters).'''
+        def lin(m):
+            p = {'kernel': m.weight.t()}
+            if m.bias is not None:
+                p['bias'] = m.bias
+            return p
+        return {'to_k': lin(self.to_k), 'to_v': lin(self.to_v),
+                'pos_mlp_0': lin(self.pos_mlp[0]), 'pos_mlp_2': lin(self.pos_mlp[2]),
+                'attn_mlp_0': lin(self.attn_mlp[0]), 'attn_mlp_2': lin(self.attn_mlp[2])}
 
     def forward(self, x, pos, x2=None, pos2=None, key_mask=None):
         '''x (B, N, D), pos (B, N, 3); x2 (B, M, D2), pos2 (B, M, 3) for cross
@@ -84,6 +113,12 @@ class VectorAttention(nn.Module):
                      key_mask=key_mask)
         knn_xyz = gather_neighbors(pos2[..., :3], idx)
         q = self.to_q(x)
+        if (self.fused == 'on' and self_attention and key_mask is None
+                and self.num_neighbors % 8 == 0):
+            gf = gather_rows(x2, idx)                                   # (B, N, K, E).
+            rel = pos[..., None, :3] - knn_xyz                          # (B, N, K, 3).
+            return fused_gathered_attention(q, gf, rel.detach(), self.kernel_params(),
+                                            self.num_neighbors)
         k = gather_neighbors(self.to_k(x2), idx)
         v = gather_neighbors(self.to_v(x2), idx)
         pe = self.pos_mlp(pos[..., None, :3] - knn_xyz)
@@ -96,11 +131,11 @@ class PointTransformerBlock(nn.Module):
     '''Linear -> vector attention -> linear, with residual.'''
 
     def __init__(self, d_in, d_hidden, d_out, num_neighbors=16,
-                 d_hidden_abstract=None):
+                 d_hidden_abstract=None, fused='auto'):
         super().__init__()
         self.layer1 = nn.Linear(d_in, d_hidden)
         self.layer2 = VectorAttention(d_hidden, dim2=d_hidden_abstract,
-                                      num_neighbors=num_neighbors)
+                                      num_neighbors=num_neighbors, fused=fused)
         self.layer3 = nn.Linear(d_hidden, d_out)
 
     def forward(self, x, p, x2=None, p2=None, key_mask=None):

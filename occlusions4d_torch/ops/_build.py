@@ -146,7 +146,7 @@ def _counter_modules():
     # By module path: the package re-exports functions named knn/fps_batched.
     import importlib
     return tuple(importlib.import_module(f'{__package__}.{m}')
-                 for m in ('knn', 'fps', 'attention'))
+                 for m in ('knn', 'fps', 'attention', 'self_attention'))
 
 
 def launch_counts():

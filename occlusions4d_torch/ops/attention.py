@@ -11,6 +11,9 @@ its use_idx and gathered forms):
                               abstract cloud is large (models/fused.py);
                               differentiable in feats through the scatter
                               (o4d_scatter, csrc/gather.cu);
+  gather_rows                 the same gather and scatter in the n-major
+                              layout of any (B, N, K) index grid (the
+                              encoder's self-attention neighbours);
   fused_knn_interp            inverse-distance interpolation, csrc/interp.cu,
                               differentiable in the key features through
                               csrc/interp_bwd.cu; with gathered= it reads the
@@ -45,7 +48,7 @@ import torch
 from . import _build
 from .knn import _prepare, gather_neighbors, knn_rank, sq_norm
 
-__all__ = ['knn_extract', 'knn_gather_rows', 'fused_knn_interp',
+__all__ = ['knn_extract', 'knn_gather_rows', 'gather_rows', 'fused_knn_interp',
            'fused_knn_vector_attention', 'gather_rows_plain', 'gather_bwd_plain',
            'interp_plain', 'interp_g_plain', 'interp_bwd_plain', 'interp_g_bwd_plain',
            'attn_plain', 'attn_g_plain', 'attn_bwd_plain', 'attn_g_bwd_plain',
@@ -208,6 +211,21 @@ def knn_gather_rows(pos2, feats2, knn, k):
     fv = torch.cat([feats2.to(torch.float32),
                     pos2[..., :3].detach().to(torch.float32)], dim=-1).contiguous()
     return _GatherRows.apply(fv, knn[0].contiguous(), k)
+
+
+def gather_rows(values, idx):
+    '''
+    rows[b, n, j] = values[b, idx[b, n, j]] (n-major, as gather_neighbors),
+    through the same gather kernel, differentiable in values through the
+    scatter kernel: the (N, K) index grid is one column of N K rows.
+    :param values (B, M, C); idx (B, N, K) int. :return (B, N, K, C) f32.
+    '''
+    B, N, K = idx.shape
+    ki = idx.reshape(B, N * K, 1)
+    if ki.is_cuda:
+        ki = ki.to(torch.int32)
+    g = _GatherRows.apply(values.to(torch.float32).contiguous(), ki.contiguous(), 1)
+    return g.reshape(B, N, K, values.shape[-1])
 
 
 # ------------------------------------------------------------ interpolation --

@@ -7,7 +7,9 @@ each later pick is the first index attaining the max of the running minimum
 squared distance to the picks so far, invalid points never winning while a
 valid one remains. Indices are returned sorted ascending (mirroring
 `torch.sort(inds)` of the reference's DownTransition) unless sort_result is
-False. A CUDA tensor launches csrc/fps.cu; a CPU tensor runs the plain loop.
+False. A CUDA tensor launches csrc/fps.cu (one block per example up to
+o4d_fps_max_points() points, one thread-block cluster per example above it,
+up to o4d_fps_cluster_max_points()); a CPU tensor runs the plain loop.
 '''
 
 import ctypes
@@ -18,7 +20,7 @@ from . import _build
 
 __all__ = ['fps_batched', 'fps_plain', 'random_start_indices', 'LAUNCHES']
 
-LAUNCHES = {'fps': 0}
+LAUNCHES = {'fps': 0, 'fps_cluster': 0}
 
 
 def fps_plain(xyz, n_out, valid, start_idx):
@@ -45,11 +47,13 @@ def fps_plain(xyz, n_out, valid, start_idx):
 def _fps_cuda(xyz, n_out, valid, start_idx):
     B, N, _ = xyz.shape
     lib = _build.library('fps')
-    lib.o4d_fps_max_points.argtypes, lib.o4d_fps_max_points.restype = [], ctypes.c_int
-    if N > lib.o4d_fps_max_points():
+    for f in (lib.o4d_fps_max_points, lib.o4d_fps_cluster_max_points):
+        f.argtypes, f.restype = [], ctypes.c_int
+    cluster = N > lib.o4d_fps_max_points()
+    if N > lib.o4d_fps_cluster_max_points():
         raise NotImplementedError(
-            f'FPS kernel holds at most {lib.o4d_fps_max_points()} points per '
-            f'example in one block; got N={N}')
+            f'FPS kernels hold at most {lib.o4d_fps_cluster_max_points()} points '
+            f'per example (one thread-block cluster); got N={N}')
     penalty = torch.where(valid, torch.zeros_like(xyz[..., 0]),
                           torch.full_like(xyz[..., 0], float('-inf'))).contiguous()
     start = start_idx.to(device=xyz.device, dtype=torch.int32).contiguous()
@@ -59,14 +63,15 @@ def _fps_cuda(xyz, n_out, valid, start_idx):
         raise ValueError(f'fps: bad start/valid shapes {tuple(start.shape)}, '
                          f'{tuple(penalty.shape)} for xyz {tuple(xyz.shape)}')
     out = torch.empty((B, n_out), dtype=torch.int32, device=xyz.device)
-    fn = lib.o4d_fps
+    name = 'fps_cluster' if cluster else 'fps'
+    fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(xyz.device):
         _build.check(fn(_build.ptr(xyz), _build.ptr(penalty), _build.ptr(start),
                         _build.ptr(out), B, N, n_out,
-                        _build.stream_ptr(xyz.device)), 'fps')
-    LAUNCHES['fps'] += 1
+                        _build.stream_ptr(xyz.device)), name)
+    LAUNCHES[name] += 1
     return out.long()
 
 

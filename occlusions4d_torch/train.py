@@ -137,16 +137,20 @@ def _to_device(batch, dev):
 
 
 class Trainer:
-    '''Models, optimizer and generator of one training run.'''
+    '''Models, optimizer and generator of one training run.
+    `fused_attention` ('auto'|'on'|'off', None = 'auto') is the encoder's
+    self-attention path, forwarded to build_models as the JAX Trainer
+    forwards it; 'on' trains through the fused self-attention kernels.'''
 
-    def __init__(self, cfg, data_kind='greater', device='cuda'):
+    def __init__(self, cfg, data_kind='greater', device='cuda', fused_attention=None):
         self.cfg = cfg
         self.data_kind = data_kind
         self.device = resolve_device(device)
+        self.fused_attention = fused_attention
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         (self.encoder, self.decoder, self.encoder_args,
-         self.decoder_args) = build_models(cfg)
+         self.decoder_args) = build_models(cfg, fused_attention=fused_attention)
         self.sampler_args = build_sampler_args(cfg, data_kind)
         self.pipeline_cfg = PipelineConfig(
             color_mode=cfg.color_mode, semantic_classes=cfg.semantic_classes,
@@ -168,7 +172,8 @@ class Trainer:
         if params is None:
             torch.manual_seed(seed)
             (self.encoder, self.decoder, _, _) = build_models(
-                encoder_args=self.encoder_args, decoder_args=self.decoder_args)
+                encoder_args=self.encoder_args, decoder_args=self.decoder_args,
+                fused_attention=self.fused_attention)
         else:
             self.encoder.load_state_dict(from_jax_params(params['encoder'], self.encoder),
                                          strict=True)

@@ -14,7 +14,9 @@ the plain versions); interpolation atol 1e-5 and attention atol 1e-4 / rtol
 1e-3 (fused multiply-adds and another summation order than cuBLAS in 100-term
 dots); the backward kernels 1e-4 of the largest gradient entry / rtol 1e-3
 (weight gradients sum thousands of rows in another order than autograd).
-The backward kernels are also checked to give the same bits twice.
+The backward kernels are also checked to give the same bits twice. The
+encoder's fused self-attention kernels (sattn, sattn_bwd) take the attention
+tolerances, and the FPS cluster entry is exact like the one-block kernel.
 '''
 
 import importlib
@@ -26,6 +28,7 @@ import torch
 t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
 t_fps = importlib.import_module('occlusions4d_torch.ops.fps')
 t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
+t_sattn = importlib.import_module('occlusions4d_torch.ops.self_attention')
 
 pytestmark = pytest.mark.cuda
 
@@ -389,3 +392,95 @@ def test_nn1_bidir_kernel_matches_plain(dev, case):
         pa, pb = t_knn.nn1_bidir_plain(a, an, b, bn)
         torch.cuda.synchronize()
         assert torch.equal(ka, pa) and torch.equal(kb, pb)
+
+
+def _sattn_case(rng, dev, B, N, K, D):
+    q = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    gf = _t(rng.randn(B, N, K, D).astype(np.float32), dev)
+    rel = _t((rng.rand(B, N, K, 3) * 2 - 1).astype(np.float32), dev)
+    return q, gf, rel, _attn_params(rng, dev, D, D)
+
+
+@pytest.mark.parametrize('K', [8, 16, 32])
+@pytest.mark.parametrize('D', [36, 288])
+def test_sattn_kernels_match_plain(dev, K, D):
+    '''o4d_sattn and o4d_sattn_bwd against their plain versions at odd N
+    (ragged against every query tile), B 2, the encoder's widths: the
+    forward, d(q), d(gf) and the ten weight gradients; the backward twice
+    with the same bits.'''
+    rng = np.random.RandomState(60 + K + D)
+    B, N = 2, 203
+    q, gf, rel, params = _sattn_case(rng, dev, B, N, K, D)
+    with torch.no_grad():
+        out = t_sattn.fused_gathered_attention(q, gf, rel, params, K)
+        ref = t_sattn.sattn_plain(q, gf, rel, params)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+    go = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    dq, dgf, dw = t_sattn.sattn_bwd(q, gf, rel, params, K, go)
+    dq2, dgf2, dw2 = t_sattn.sattn_bwd(q, gf, rel, params, K, go)
+    rq, rgf, rw = t_sattn.sattn_bwd_plain(q, gf, rel, params, go)
+    torch.cuda.synchronize()
+    _close(dq, rq)
+    _close(dgf, rgf)
+    assert set(dw) == set(rw) and len(rw) == 10
+    for name in rw:
+        _close(dw[name], rw[name])
+        assert torch.equal(dw[name], dw2[name]), name
+    assert torch.equal(dq, dq2) and torch.equal(dgf, dgf2)
+
+
+def test_fused_self_attention_module_launches_kernels_and_matches_chain(dev):
+    '''VectorAttention(fused='on') on the card launches gather, sattn and,
+    in the backward, sattn_bwd and scatter once each, and agrees with the
+    'auto' chain in the output and every gradient.'''
+    from occlusions4d_torch.models import VectorAttention
+    from occlusions4d_torch.ops import _build
+    torch.manual_seed(3)
+    rng = np.random.RandomState(4)
+    att = VectorAttention(24, num_neighbors=16, fused='on').to(dev)
+    x = _t(rng.randn(2, 301, 24).astype(np.float32), dev)
+    pos = _t(rng.rand(2, 301, 3).astype(np.float32), dev)
+    res = {}
+    for mode in ('on', 'auto'):
+        att.fused = mode
+        xx = x.clone().requires_grad_(True)
+        _build.reset_launch_counts()
+        y = att(xx, pos)
+        grads = torch.autograd.grad((y.sin() * 3).sum(), [xx] + list(att.parameters()))
+        torch.cuda.synchronize()
+        res[mode] = (y, grads, _build.launch_counts())
+    want = dict(gather=1, scatter=1, sattn=1, sattn_bwd=1)
+    assert {k: res['on'][2][k] for k in want} == want
+    assert res['auto'][2]['sattn'] == 0 and res['auto'][2]['sattn_bwd'] == 0
+    torch.testing.assert_close(res['on'][0], res['auto'][0], atol=1e-4, rtol=1e-3)
+    for a, b in zip(res['on'][1], res['auto'][1]):
+        _close(a, b)
+
+
+@pytest.mark.parametrize('N', [19201, 30000, 57344])
+def test_fps_cluster_kernel_matches_plain(dev, N):
+    '''The cluster entry (N above the one-block cap) against the plain loop,
+    exactly: B 2 with a random start and an invalid-point mask on example 1,
+    and duplicated points (exact distance ties).'''
+    rng = np.random.RandomState(N)
+    B, n_out = 2, 700
+    xyz = rng.rand(B, N, 3).astype(np.float32) * 8 - 4
+    xyz[:, N // 2:N // 2 + 900] = xyz[:, :900]           # duplicates.
+    xyz[1, -2000:] = np.round(xyz[1, -2000:])             # ties on a grid.
+    valid = np.ones((B, N), bool)
+    valid[1] = rng.rand(N) > 0.3
+    start = np.array([0, int(np.flatnonzero(valid[1])[17])])
+    from occlusions4d_torch.ops import _build
+    _build.reset_launch_counts()
+    args = (_t(xyz, dev), n_out, _t(valid, dev), _t(start, dev))
+    got = t_fps._fps_cuda(*args)
+    assert _build.launch_counts()['fps_cluster'] == 1
+    assert torch.equal(got, t_fps.fps_plain(*args))
+
+
+def test_fps_above_the_cluster_cap_raises(dev):
+    lib = t_fps._build.library('fps')
+    cap = lib.o4d_fps_cluster_max_points()
+    xyz = torch.rand(1, cap + 1, 3, device=dev)
+    with pytest.raises(NotImplementedError):
+        t_fps.fps_batched(xyz, 10)

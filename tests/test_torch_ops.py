@@ -295,7 +295,6 @@ def test_attention_matches_jax(rng, shape):
 def test_attention_plain_module_path_agree(rng):
     '''The port's VectorAttention (plain chain, module path) and its fused
     operator agree on the same weights and a masked key set.'''
-    from occlusions4d_torch.models.fused import attention_params
     from occlusions4d_torch.models.layers import VectorAttention
     torch.manual_seed(0)
     N, M, D, E, K = 70, 50, 24, 20, 6
@@ -306,7 +305,7 @@ def test_attention_plain_module_path_agree(rng):
     with torch.no_grad():
         ref = att(x, pos, x2=x2, pos2=pos2, key_mask=mask)
         out = t_attn.fused_knn_vector_attention(att.to_q(x), pos, x2, pos2,
-                                                attention_params(att), K,
+                                                att.kernel_params(), K,
                                                 key_mask=mask)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
 

@@ -15,14 +15,21 @@ each printing one JSON line:
      card at the gv1 shapes of its path, with kernel, plain and library times
      (CUDA events); the backward kernels run at the train step's frame
      (3 examples x 17920 queries; the plain attention backward one example
-     at a time) and also run twice and must give the same bits; the three
+     at a time) and also run twice and must give the same bits (interp_bwd
+     also at M 2124 on the index route, and on one real train frame's
+     indices in phase 6, its inverse index against a stable argsort, with
+     index_add_ timed beside it); the eval labels' direct-difference 1-NN
+     (nn1_direct) at CARLA scale (the 541314-query grid against a
+     100000-point frame), equal to its plain version; the three
      shared-gather kernels run at one cv1 decode chunk (32768 queries, a
      2124-point abstract cloud), where the per-row index-route attention is
      timed beside gather + attn_g; the shared-gather backward kernels
      (scatter, interp_g_bwd, attn_g_bwd) run at one cv1 train frame (3
      examples x 17203 queries against 2124-point abstract clouds; the plain
      attention backward one example at a time), each twice for the same
-     bits; the FPS cluster entry at the n57344 encoder's first level
+     bits, and the decoder route's scatter with interp_g_bwd folded in
+     (scatter_interp: bit-equal to the scatter of dg plus interp_g_bwd's
+     rows, its marginal time over the plain scatter); the FPS cluster entry at the n57344 encoder's first level
      (57344 -> 19115, four cases, indices equal to the plain loop's); the
      encoder's fused self-attention (sattn, sattn_bwd) at the four blocks of
      the gv1 train step (B 3) and the n57344 step's first block (B 1), with
@@ -39,7 +46,8 @@ each printing one JSON line:
      CPU (plain versions) from the card's abstract cloud and must agree;
   5. anchors: both committed checkpoints through load_models and
      perform_inference on the card, against the same run on the CPU (plain
-     versions);
+     versions), the ground-truth labels and 1-NN rows (nn1_direct, whose
+     launches this path counts) equal query by query;
   6. train: the gv1 train step (Trainer, batch 3, 4 frames, seeded numpy
      weights and a bench.py-shaped synthetic batch): 1 warm-up step, 3 timed
      steps with the launch counters zeroed just before and read just after
@@ -55,9 +63,9 @@ each printing one JSON line:
      7168 + 10035 queries, low_moving_ivalo_sembal, seeded numpy weights and
      a CARLA-layout batch as bench.py builds it): 1 warm-up step, 2 timed
      steps with the launch counters zeroed just before and read just after
-     (per step gather 4, interp_g 4, attn_g 8, scatter 4, interp_g_bwd 4,
-     attn_g_bwd 8, no index-route attention or interpolation kernel, and
-     nn1_bidir), finite losses (segmentation included), gradients and
+     (per step gather 4, interp_g 4, attn_g 8, scatter_interp 4,
+     attn_g_bwd 8, no plain scatter, no interp_g_bwd, no index-route
+     attention or interpolation kernel, and nn1_bidir), finite losses (segmentation included), gradients and
      parameters, changed parameters; one phase-split step; before the
      steps, one decoder forward + backward of a sampled frame's first 1024
      queries on the card and on the CPU (plain versions, same route), loss
@@ -73,7 +81,9 @@ each printing one JSON line:
      the cluster entry, the decoder on the shared-gather route; 1 warm-up +
      2 timed steps (launches per step checked), finite and changed state,
      one phase-split step;
-then the card's nvidia-smi line, the {"kernels": [...]} line and, last,
+then the card's nvidia-smi line, the {"kernels": [...]} line (interp_g_bwd
+is listed with on_main_path false: no main path calls the standalone
+operator it serves) and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
 or without the package beside this file, it exits non-zero and prints no
 result. Imports nothing of JAX.
@@ -129,10 +139,12 @@ _N57 = dict(_GV1_TRAIN, n_points=57344, batch_size=1)
 # each; the encoder's four PT blocks gather, attend and scatter once each).
 _SATTN_STEP = dict(sattn=4, sattn_bwd=4, gather=4, scatter=4, fps=3, fps_cluster=0,
                    attn=8, interp=4, attn_bwd=8, interp_bwd=4, attn_g=0, interp_g=0,
-                   attn_g_bwd=0, interp_g_bwd=0)
-_57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=8, fps=2, fps_cluster=1,
-                 attn=0, interp=0, attn_bwd=0, interp_bwd=0, attn_g=8, interp_g=4,
-                 attn_g_bwd=8, interp_g_bwd=4)
+                   attn_g_bwd=0, interp_g_bwd=0, scatter_interp=0)
+# n57344: the encoder's four blocks gather and scatter, the decoder's shared
+# route gathers 4 times and scatters 4 times with the interpolation folded in.
+_57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=4, scatter_interp=4, fps=2,
+                 fps_cluster=1, attn=0, interp=0, attn_bwd=0, interp_bwd=0, attn_g=8,
+                 interp_g=4, attn_g_bwd=8, interp_g_bwd=0)
 # The encoder's self-attention blocks the sattn kernels are checked at:
 # (name, batch, points, index of the PT block in PointEncoder.blocks).
 _SATTN_SHAPES = [('gv1_l0', 3, 14336, 0), ('gv1_l1', 3, 4779, 2), ('gv1_l2', 3, 1593, 4),
@@ -158,24 +170,38 @@ _REPLACES = {
     'fps_cluster': 'occlusions4d_tpu/ops/pallas_fps.py:39',
     'sattn': 'occlusions4d_tpu/ops/pallas_self_attention.py:56',
     'sattn_bwd': 'occlusions4d_tpu/ops/pallas_self_attention.py:132',
+    'scatter_interp': 'occlusions4d_tpu/ops/pallas_attention.py:837; '
+                      'occlusions4d_tpu/ops/pallas_attention.py:1294',
+    'nn1_direct': 'occlusions4d_tpu/native/host_ops.cpp:240 (o4d_nn1 behind nn1_host, '
+                  'a host op; no Pallas kernel)',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
            'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
            'nn1_bidir': 'knn', 'gather': 'gather', 'interp_g': 'interp', 'attn_g': 'attn',
            'scatter': 'gather', 'interp_g_bwd': 'interp', 'attn_g_bwd': 'attn_bwd',
-           'fps_cluster': 'fps', 'sattn': 'attn', 'sattn_bwd': 'attn_bwd'}
+           'fps_cluster': 'fps', 'sattn': 'attn', 'sattn_bwd': 'attn_bwd',
+           'scatter_interp': 'gather', 'nn1_direct': 'knn'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
 _SHARED = ('gather', 'interp_g', 'attn_g')
-_SHARED_BWD = ('scatter', 'interp_g_bwd', 'attn_g_bwd')
+# The shared route's backward: the scatter with the interpolation folded in
+# and the attention's (interp_g_bwd no longer runs there; the plain scatter
+# runs on the encoder's fused self-attention route).
+_SHARED_BWD = ('scatter_interp', 'attn_g_bwd', 'interp_g_bwd')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
              nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED},
              **{k: 'train_cv1' for k in _SHARED_BWD}, fps_cluster='train_57k',
-             sattn='train_sattn', sattn_bwd='train_sattn')
+             sattn='train_sattn', sattn_bwd='train_sattn', nn1_direct='anchor',
+             scatter='train_57k')
+# Kernels kept for an operator that no main path calls: o4d_interp_g_bwd is
+# the backward of the standalone fused_knn_interp(gathered=); the decoder's
+# route folds it into scatter_interp.
+_OFF_PATH = {'interp_g_bwd': 'the standalone fused_knn_interp(gathered=) backward; '
+                             'the decoder route folds it into scatter_interp'}
 # Launches per cv1 train step (4 frames, 2 attention layers each).
-_CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=4, interp_g_bwd=4, attn_g_bwd=8,
-                 attn=0, interp=0, attn_bwd=0, interp_bwd=0)
+_CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=0, scatter_interp=4,
+                 interp_g_bwd=0, attn_g_bwd=8, attn=0, interp=0, attn_bwd=0, interp_bwd=0)
 
 
 def emit(obj):
@@ -282,6 +308,89 @@ def plain_per_example(torch, fn, args):
             {n: sum(p[2][n] for p in parts) for n in parts[0][2]})
 
 
+def interp_bwd_line(torch, t_attn, dev, ki, kd, gi, M, KI, case):
+    """interp_bwd at one input: against its plain version, twice for the
+    same bits, its inverse index against a stable argsort, its time beside
+    the plain version's and index_add_'s, and the bound; emits a kernel line
+    and returns its numbers."""
+    B, N, E = gi.shape
+    d1, perm, offsets = t_attn._interp_bwd_launch(ki, kd, gi, M, KI, 1e-4)
+    d2 = t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4)
+    ref = t_attn.interp_bwd_plain(ki, kd, gi, M, KI, 1e-4)
+    keys = (ki[..., :KI].long() + M * torch.arange(B, device=dev).view(B, 1, 1)).reshape(-1)
+    torch.cuda.synchronize()
+    index_ok = bool(torch.equal(perm.long(), torch.argsort(keys, stable=True)))
+    runs = torch.diff(offsets)
+    err, repro = max_err(d1, ref), max_err(d1, d2)
+    ok = bool(torch.allclose(d1, ref, atol=1e-4 * max(1.0, float(ref.abs().max())),
+                             rtol=1e-3)) and index_ok
+    del d1, d2, perm, offsets
+    ms = cuda_ms(torch, lambda: t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4), 20)
+    plain_ms = cuda_ms(torch, lambda: t_attn.interp_bwd_plain(ki, kd, gi, M, KI, 1e-4), 5)
+    # Library: index_add_ of the weighted rows into the (B * M, E) stack
+    # (the weighting is not timed).
+    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
+    wrows = ((w / w.sum(-1, keepdim=True))[..., None] * gi[:, :, None, :]).reshape(-1, E)
+    lib_ms = cuda_ms(torch, lambda: torch.zeros((B * M, E), device=dev).index_add_(
+        0, keys, wrows), 20)
+    del wrows
+    b_ms, b_by = bound(B * (N * KI * 8 + N * E * 4 + M * E * 4), 2.0 * B * N * KI * E)
+    shape = [B, N, M, KI, E]
+    line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, shape=shape, repeat_max_abs_diff=repro,
+                longest_run=int(runs.max()), mean_run=float(runs.float().mean()))
+    emit(dict(phase='kernel', name='interp_bwd', case=case, agree=ok,
+              index_equals_stable_argsort=index_ok,
+              tolerance='atol 1e-4 x max(1, max|plain|), rtol 1e-3',
+              library='index_add_ of the weighted rows', **line))
+    if not ok or repro != 0.0:
+        raise AssertionError(f'interp_bwd ({case}) disagrees (err {err}, index '
+                             f'{index_ok}) or is not reproducible ({repro})')
+    return line
+
+
+def gt_per_query(res):
+    """[label | 1-NN target row] of every query of a perform_inference
+    result, in query order (its solid/air split undone)."""
+    solid = res['implicit_output'][:, 0] >= 0.5
+    gt = np.empty((len(solid), res['gt_solid'].shape[1]), res['gt_solid'].dtype)
+    gt[solid], gt[~solid] = res['gt_solid'], res['gt_air']
+    return gt
+
+
+def nn1_direct_line(torch, t_knn, dev, query, keys, case, radius=0.2):
+    """nn1_direct at one (query, keys) pair of numpy clouds: distances and
+    indices equal to the plain version on the card, its time, the plain
+    version's, the bound, and how many labels (d < radius) the kNN
+    operator's expansion would flip; emits a kernel line and returns its
+    numbers."""
+    q = torch.tensor(np.asarray(query, np.float32)[:, :3], device=dev)
+    k = torch.tensor(np.asarray(keys, np.float32)[:, :3], device=dev)
+    N, M = q.shape[0], k.shape[0]
+    d, i = t_knn.nn1_direct(q, k)
+    pd, pi = t_knn.nn1_direct_plain(q, k)
+    kd, _ = t_knn.knn(q[None], k[None], 1)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(d, pd)) and bool(torch.equal(i, pi))
+    flips = int(((kd[0, :, 0] < radius) != (d < radius)).sum())
+    err = max_err(d, pd)
+    del pd, pi, kd
+    ms = cuda_ms(torch, lambda: t_knn.nn1_direct(q, k), 3)
+    plain_ms = cuda_ms(torch, lambda: t_knn.nn1_direct_plain(q, k), 1, warmup=0)
+    # Per pair: 3 subtractions, 3 products, 2 sums (the compare not counted).
+    b_ms, b_by = bound(N * 12 + M * 12 + N * 8, 8.0 * N * M)
+    line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, shape=[N, M])
+    emit(dict(phase='kernel', name='nn1_direct', case=case, agree=exact, exact=exact,
+              tolerance='exact (bit-equal distances and indices)',
+              solid_labels=int((d < radius).sum()), knn_expansion_label_flips=flips,
+              library='none: one PyTorch call (cdist) would hold the N x M matrix',
+              **line))
+    if not exact:
+        raise AssertionError(f'nn1_direct ({case}) differs from its plain version')
+    return line
+
+
 def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
     """Kernels A (both modes) and B at the train step's frame (3 examples of
     17920 queries, each against its own 531-point abstract cloud), kernel C
@@ -352,35 +461,14 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
         del dq, dkv, dw, dq2, dkv2, dw2, rq, rkv, rw
 
     gi = rand(B, N, E)
-    d1 = t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4)
-    d2 = t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4)
-    ref = t_attn.interp_bwd_plain(ki, kd, gi, M, KI, 1e-4)
-    torch.cuda.synchronize()
-    err, repro = max_err(d1, ref), max_err(d1, d2)
-    ok = bool(torch.allclose(d1, ref, atol=1e-4 * max(1.0, float(ref.abs().max())),
-                             rtol=1e-3))
-    ms = cuda_ms(torch, lambda: t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4), 20)
-    plain_ms = cuda_ms(torch, lambda: t_attn.interp_bwd_plain(ki, kd, gi, M, KI, 1e-4), 5)
-    # Library: index_add_ of the weighted rows into the (B * M, E) stack
-    # (the weighting is not timed).
-    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
-    wrows = ((w / w.sum(-1, keepdim=True))[..., None] * gi[:, :, None, :]).reshape(-1, E)
-    flat = (ki[..., :KI].long()
-            + M * torch.arange(B, device=dev).view(B, 1, 1)).reshape(-1)
-    lib_ms = cuda_ms(torch, lambda: torch.zeros((B * M, E), device=dev).index_add_(
-        0, flat, wrows), 20)
-    b_ms, b_by = bound(B * (N * KI * 8 + N * E * 4 + M * E * 4), 2.0 * B * N * KI * E)
-    shape = [B, N, M, KI, E]
-    emit(dict(phase='kernel', name='interp_bwd', shape=shape, agree=ok,
-              max_abs_err=err, tolerance='atol 1e-4 x max(1, max|plain|), rtol 1e-3',
-              repeat_max_abs_diff=repro, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-              bound_ms=b_ms, bound_by=b_by))
-    if not ok or repro != 0.0:
-        raise AssertionError(f'interp_bwd disagrees (err {err}) or is not reproducible '
-                             f'({repro})')
-    rows['interp_bwd'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=lib_ms, shape=shape,
-                              repeat_max_abs_diff=repro)
+    rows['interp_bwd'] = interp_bwd_line(torch, t_attn, dev, ki, kd, gi, M, KI,
+                                         'gv1_train_frame')
+    # M 2124 on the index route (above the old shared-memory cap of 1816).
+    pos2b = rand(B, _CV1_M, 3, scale=10.0)
+    kib, kdb = t_attn.knn_extract(qpos, pos2b, K)
+    rows['interp_bwd']['m2124'] = interp_bwd_line(torch, t_attn, dev, kib, kdb, gi,
+                                                  _CV1_M, KI, 'm2124_index_route')
+    del pos2b, kib, kdb
 
     NC = 28672
     a = torch.tensor(rng.rand(1, NC, 3).astype(np.float32) * 10.0 - 5.0, device=dev)
@@ -549,12 +637,13 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
 
 
 def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, rows):
-    """scatter, interp_g_bwd and attn_g_bwd at one cv1 train frame (3
-    examples of 17203 queries, each against its own 2124-point abstract
-    cloud; K 14 gathered, interpolation over 8), each against its plain
-    version (the attention one example at a time) and twice for the same
-    bits; the gathered attention backward also against the per-row index
-    route on the same rows (d(q_proj) and weight gradients bit-equal)."""
+    """scatter, interp_g_bwd, scatter_interp (the two folded) and attn_g_bwd
+    at one cv1 train frame (3 examples of 17203 queries, each against its
+    own 2124-point abstract cloud; K 14 gathered, interpolation over 8), each
+    against its plain version (the attention one example at a time) and
+    twice for the same bits; the gathered attention backward also against
+    the per-row index route on the same rows (d(q_proj) and weight gradients
+    bit-equal)."""
     B, N, M, K, KI, C = 3, _CV1_N, _CV1_M, 14, 8, E + 3
     D = params['attn_mlp_0']['kernel'].shape[0]
     H, P = params['attn_mlp_0']['kernel'].shape[1], params['pos_mlp_0']['kernel'].shape[1]
@@ -621,8 +710,8 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
     w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
     wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2)[..., None]
     lib_out = torch.zeros_like(ref)
-    lib_ms = cuda_ms(torch, lambda: torch.mul(wn, go[:, None], out=lib_out[:, :KI, :, :E]),
-                     20)
+    lib_ms = lib_mul_ms = cuda_ms(
+        torch, lambda: torch.mul(wn, go[:, None], out=lib_out[:, :KI, :, :E]), 20)
     b_ms, b_by = bound(4 * (B * N * KI + B * N * E + B * K * N * C), 1.0 * B * N * KI * E)
     shape = [B, N, KI, K, C]
     emit(dict(phase='kernel', name='interp_g_bwd', shape=shape, agree=ok and zeros_exact,
@@ -638,6 +727,79 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                                 bound_by=b_by, library_ms=lib_ms, shape=shape,
                                 repeat_max_abs_diff=repro)
     del o1, o2, ref, lib_out
+
+    # The decoder route's scatter with the interpolation's backward folded
+    # in, on the same rows: against its plain version, bit-equal to the
+    # scatter of dg + o4d_interp_g_bwd's rows, twice for the same bits; its
+    # marginal time over the plain scatter of dg on the same rows.
+    dg = rand(B, K, N, C)
+    args = (ki, kd, dg, go, M, K, KI, 1e-4)
+    f1 = t_attn.gather_interp_bwd(*args)
+    f2 = t_attn.gather_interp_bwd(*args)
+    ref = t_attn.gather_interp_bwd_plain(*args)
+    dense = dg + t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4)
+    unfolded = t_attn.gather_bwd(ki, dense, M, K)
+
+    def split():
+        """The other way to the same sum: the plain-dg scatter, then the
+        index route's interp_bwd of go added to the first E channels."""
+        out = t_attn.gather_bwd(ki, dg, M, K)
+        out[..., :E] += t_attn.interp_bwd(ki, kd, go, M, KI, 1e-4)
+        return out
+    torch.cuda.synchronize()
+    err, scaled, ok = agree([(f1, ref)])
+    split_err = agree([(split(), ref)])[1]
+    repro = max_err(f1, f2)
+    same_as_unfolded = bool(torch.equal(f1, unfolded))
+    del f1, f2, ref, unfolded
+    ms = cuda_ms(torch, lambda: t_attn.gather_interp_bwd(*args), 20)
+    scatter_ms = cuda_ms(torch, lambda: t_attn.gather_bwd(ki, dg, M, K), 20)
+    split_ms = cuda_ms(torch, split, 20)
+    unfolded_ms = cuda_ms(torch, lambda: t_attn.gather_bwd(
+        ki, dg + t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4), M, K), 10)
+    plain_ms = cuda_ms(torch, lambda: t_attn.gather_interp_bwd_plain(*args), 5)
+    flat = (ki.long() + M * torch.arange(B, device=dev).view(B, 1, 1)).transpose(1, 2)
+    flat, dense_rows = flat.reshape(-1), dense.reshape(-1, C)
+    lib_ms = cuda_ms(torch, lambda: torch.zeros((B * M, C), device=dev).index_add_(
+        0, flat, dense_rows), 20)
+    del dense, dense_rows
+    b_ms, b_by = bound(4 * (B * K * N * C + B * N * E + B * N * (K + KI) + B * M * C),
+                       1.0 * B * K * N * C + 3.0 * B * N * KI * E)
+    shape = [B, N, M, K, KI, C]
+    emit(dict(phase='kernel', name='scatter_interp', shape=shape,
+              agree=ok and same_as_unfolded, max_abs_err=err, max_scaled_err=scaled,
+              tolerance=tol, equals_scatter_of_dg_plus_interp_g_bwd=same_as_unfolded,
+              repeat_max_abs_diff=repro, ms=ms, scatter_same_rows_ms=scatter_ms,
+              fold_marginal_ms=ms - scatter_ms, unfolded_ms=unfolded_ms,
+              unfolded='o4d_interp_g_bwd + the add + o4d_scatter',
+              scatter_plus_interp_bwd_ms=split_ms,
+              scatter_plus_interp_bwd_scaled_err=split_err,
+              interp_g_bwd_mul_ms=lib_mul_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              library='index_add_ of the flattened dg + interpolation rows (their sum '
+                      'not timed)', bound_ms=b_ms, bound_by=b_by))
+    if not (ok and same_as_unfolded) or repro != 0.0:
+        raise AssertionError(f'scatter_interp disagrees (err {err}, unfolded '
+                             f'{same_as_unfolded}) or is not reproducible ({repro})')
+    # PERF.md's write-bandwidth question: a write pass over dg's size into a
+    # buffer held across calls, one that allocates each call, and a copy.
+    buf = torch.empty_like(dg)
+    nbytes = dg.numel() * 4
+    fill_ms = cuda_ms(torch, lambda: buf.fill_(0.0), 20)
+    zeros_ms = cuda_ms(torch, lambda: torch.zeros_like(dg), 20)
+    copy_ms = cuda_ms(torch, lambda: buf.copy_(dg), 20)
+    emit(dict(phase='write_probe', bytes=nbytes, fill_ms=fill_ms,
+              fill_tb_s=nbytes / fill_ms / 1e9, zeros_ms=zeros_ms,
+              zeros_tb_s=nbytes / zeros_ms / 1e9, copy_ms=copy_ms,
+              copy_tb_s=2 * nbytes / copy_ms / 1e9))
+    del buf
+    rows['scatter_interp'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                  shape=shape, repeat_max_abs_diff=repro,
+                                  fold_marginal_ms=ms - scatter_ms,
+                                  scatter_same_rows_ms=scatter_ms,
+                                  unfolded_ms=unfolded_ms,
+                                  scatter_plus_interp_bwd_ms=split_ms)
+    del dg, args
 
     # The gathered attention's backward, and the per-row index route on the
     # same rows.
@@ -1098,7 +1260,8 @@ def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
         grads = torch.autograd.grad(loss, [a] + list(pipe.decoder.parameters()))
         if d.type == 'cuda':
             torch.cuda.synchronize()
-            launched = {k: _build.launch_counts()[k] for k in _SHARED + _SHARED_BWD}
+            launched = {k: _build.launch_counts()[k]
+                        for k in _SHARED + _SHARED_BWD + ('scatter',)}
         res[name] = (float(loss.detach()), [x.cpu() for x in grads], time.time() - t0)
     per = []
     for n, a, b in zip(names, res['cuda'][1], res['cpu'][1]):
@@ -1116,8 +1279,8 @@ def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
                tolerance='loss 1e-5; each gradient L2 error <= 1e-4 x max(1, its L2 norm)',
                launches=launched, cpu_s=res['cpu'][2])
     out['ok'] = (out['loss_rel_err'] <= 1e-5 and out['max_rel_l2'] <= 1e-4
-                 and launched == dict(gather=1, interp_g=1, attn_g=2, scatter=1,
-                                      interp_g_bwd=1, attn_g_bwd=2))
+                 and launched == dict(gather=1, interp_g=1, attn_g=2, scatter_interp=1,
+                                      attn_g_bwd=2, scatter=0, interp_g_bwd=0))
     return out
 
 
@@ -1395,6 +1558,13 @@ def main():
 
     # K5 / K6 / K7: the backward kernels and the bidirectional 1-NN.
     check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows)
+    # The eval labels' 1-NN at CARLA scale: the 541314-query grid against a
+    # 100000-point frame in the same cuboid.
+    grid = blind_points_numpy(_NUM_SAMPLE, -1.0, 16.0, 0, 'carla', 4, 'grid')
+    lo, hi = grid[:, :3].min(0), grid[:, :3].max(0)
+    frame = np.random.RandomState(22).rand(100000, 3).astype(np.float32) * (hi - lo) + lo
+    rows['nn1_direct'] = nn1_direct_line(torch, t_knn, dev, grid, frame, 'carla_scale')
+    del grid, frame
 
     # K8 / K9 / K10: the shared-gather kernels with the cv1 decoder's weights.
     ccfg = TrainConfig(**_CV1)
@@ -1505,7 +1675,9 @@ def main():
         raise AssertionError(f'cv1 density differs from the CPU run by {d_err}')
     del out, cv1_encoder, cv1_decoder, engine, cpu
 
-    # 5. Both anchors on the card, against the CPU plain versions.
+    # 5. Both anchors on the card, against the CPU plain versions; the
+    # ground-truth labels through nn1_direct (the 'anchor' path's launches).
+    path_counts['anchor'] = {}
     for name in ('anchor', 'anchor_carla'):
         path = os.path.join(_HERE, 'tests', 'assets', name, 'checkpoint.pkl')
         res = {}
@@ -1522,22 +1694,40 @@ def main():
             inst = (r.rand(n) > 0.5).astype(np.int64)
             sem = np.stack([inst, inst, np.full(n, 4)], -1)
             tgt = r.rand(2000, 11).astype(np.float32) * 2 - 1
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
             res[device] = perform_inference(
                 cl, sem, tgt, eng, c.min_z, c.cr_cube_bounds, c.color_mode, 0,
                 num_sample=65536, point_sample_mode='grid', predict_segmentation=seg,
                 track_mode='all', semantic_classes=c.semantic_classes,
                 data_kind=L['data_kind'], cube_mode=c.cube_mode)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                for k, v in _build.launch_counts().items():
+                    path_counts['anchor'][k] = path_counts['anchor'].get(k, 0) + v
         g, cpu = res['cuda']['implicit_output'], res['cpu']['implicit_output']
         err = float(np.abs(g[:, 0] - cpu[:, 0]).max())
         far = np.abs(cpu[:, 0] - 0.5) > 1e-3
         split_ok = bool(np.array_equal((g[:, 0] >= 0.5)[far], (cpu[:, 0] >= 0.5)[far]))
-        ok = bool(np.isfinite(g).all()) and err <= 1e-4 and split_ok
+        # Labels and 1-NN target rows, query by query, equal to the CPU's.
+        gt_g, gt_c = gt_per_query(res['cuda']), gt_per_query(res['cpu'])
+        gt_equal = bool(np.array_equal(gt_g, gt_c))
+        ok = bool(np.isfinite(g).all()) and err <= 1e-4 and split_ok and gt_equal
         emit(dict(phase='anchor', name=name, queries=int(g.shape[0]),
                   reruns=res['cuda']['phase_s']['track_reruns'],
                   solid=int(len(res['cuda']['output_solid'])),
-                  density_max_abs_err_vs_cpu=err, split_agrees=split_ok, ok=ok))
+                  density_max_abs_err_vs_cpu=err, split_agrees=split_ok,
+                  gt_labels_and_rows_equal_cpu=gt_equal,
+                  gt_label_mismatches=int((gt_g[:, 0] != gt_c[:, 0]).sum()),
+                  gt_solid_labels=int(gt_g[:, 0].sum()), ok=ok))
         if not ok:
             raise AssertionError(f'{name}: GPU inference disagrees with the CPU run')
+        if name == 'anchor':
+            nn1_direct_line(torch, t_knn, dev, res['cuda']['points_query'], tgt,
+                            'anchor_grid_x_target')
+    if path_counts['anchor'].get('nn1_direct', 0) <= 0:
+        raise AssertionError('the anchors\' ground-truth labels did not launch nn1_direct')
 
     # 6. The gv1 train step.
     from occlusions4d_torch.train import Trainer
@@ -1570,6 +1760,18 @@ def main():
     missing = [k for k in _TRAIN if counts.get(k, 0) <= 0]
     if missing or not ok:
         raise AssertionError(f'train phase failed: not launched {missing}, ok={ok}')
+    # interp_bwd on the indices of one real train frame (sampled queries
+    # against the seeded encoder's abstract cloud), for their key skew.
+    with torch.no_grad():
+        abstract, _ = tr.encoder(batch['pcl_input'], generator=tr.generator)
+        frame = tr.pipeline.sample_frames(batch, tr.generator)[0]
+        ki, kd = t_attn.knn_extract(frame['points_query'][..., :3], abstract[..., :3],
+                                    tcfg.cross_attn_neighbors)
+        gi = torch.randn((ki.shape[0], ki.shape[1], abstract.shape[2] - 3), device=dev)
+        rows['interp_bwd']['real_frame'] = interp_bwd_line(
+            torch, t_attn, dev, ki, kd, gi, abstract.shape[1], tcfg.num_cr_local_feats,
+            'gv1_real_frame')
+        del abstract, frame, ki, kd, gi
 
     # 7. The sampler's 'moving' branch at gv1 sizes.
     from occlusions4d_torch.models.factory import build_sampler_args
@@ -1622,7 +1824,12 @@ def main():
     for name, src in _SOURCE.items():
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',
                    replaces=_REPLACES[name], path=_PATH[name],
-                   launches=int(path_counts[_PATH[name]][name]))
+                   launches=int(path_counts[_PATH[name]].get(name, 0)))
+        if name in _OFF_PATH:
+            row['on_main_path'] = False
+            row['note'] = _OFF_PATH[name]
+        elif row['launches'] <= 0:
+            raise AssertionError(f'{name} did not launch on its path {_PATH[name]}')
         row.update(rows[name])
         kernels.append(row)
     emit(dict(phase='done', seconds=time.time() - t_start))

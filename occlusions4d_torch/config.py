@@ -43,7 +43,11 @@ class TrainConfig:
     semantic_classes: int = 13
     segmentation_lw: float = 0.0
     tracking_lw: float = 0.0
-    # Training.
+    # Training. mixed_precision (bf16 modules, AdamW eps 1e-4 in the JAX
+    # package) is carried so that a checkpoint's config survives; the port
+    # trains in f32 only and refuses it (train.py), and evaluates such a
+    # checkpoint in f32 as the JAX engine does.
+    mixed_precision: bool = False
     seed: int = 1830
     batch_size: int = 8
     learn_rate: float = 1e-3

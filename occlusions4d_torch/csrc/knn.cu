@@ -8,7 +8,10 @@
 //                  query tile's current K-th distance;
 //   o4d_nn1_bidir  replaces ops/pallas_knn.py::_nn1_bidir_kernel (:521): both
 //                  exact 1-NN directions between two clouds in one pass
-//                  (design notes at the kernel).
+//                  (design notes at the kernel);
+//   o4d_nn1_direct the eval engine's ground-truth 1-NN, the counterpart of the
+//                  JAX engine's host op nn1_host (not a Pallas kernel; design
+//                  notes at the kernel).
 //
 // Function: for each query q and key k (rows of x, y, z), the ranking value is
 //   d = |k|^2 - 2 q.k        (f32; |k|^2 = +inf marks a masked/padded key)
@@ -288,6 +291,63 @@ __global__ void __launch_bounds__(kNN1Warps * 32)
   }
 }
 
+// Direct-difference exact 1-NN for the eval engine's ground-truth labels:
+// the counterpart of occlusions4d_tpu/native/host_ops.cpp::o4d_nn1
+// (:240-263), which the JAX engine calls through nn1_host. Per pair
+//   d2 = (dx dx + dy dy) + dz dz,   dx = key.x - q.x, ...
+// in that order, each product and sum rounded on its own (__fmul_rn /
+// __fadd_rn, and this file builds with -fmad=false); the winner is the first
+// key in ascending order with d2 < best (best starts at FLT_MAX, index 0), so
+// the lowest index wins a tie; the distance is sqrt(best). Unlike the kNN
+// ranking value |k|^2 - 2 q.k, the differences keep the low bits of d2 at
+// CARLA's coordinate scale, where labels are read against a 0.2 radius.
+// What bounds it on the H100: operations (8 f32 operations and a compare per
+// pair: 541314 grid queries x 1e5 target points is 5.4e10 pairs); the
+// inputs are a few MB. Design: one thread per query keeps (best, index) in
+// registers; the keys stream through shared memory in tiles of float4
+// (x, y, z, 0) that every thread of the block reads as broadcasts.
+constexpr int kNN1DThreads = 128;
+constexpr int kNN1DTile = 1024;
+constexpr float kFltMax = 3.402823466e+38f;
+
+__global__ void __launch_bounds__(kNN1DThreads)
+    nn1_direct_kernel(const float* __restrict__ q, const float4* __restrict__ keys,
+                      float* __restrict__ out_d, int* __restrict__ out_i, int N,
+                      int M) {
+  __shared__ float4 tile[kNN1DTile];
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = n < N;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    qx = q[(size_t)n * 3];
+    qy = q[(size_t)n * 3 + 1];
+    qz = q[(size_t)n * 3 + 2];
+  }
+  float best = kFltMax;
+  int bi = 0;
+  for (int t0 = 0; t0 < M; t0 += kNN1DTile) {
+    const int cnt = min(kNN1DTile, M - t0);
+    __syncthreads();
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x) tile[j] = keys[t0 + j];
+    __syncthreads();
+    for (int j = 0; j < cnt; ++j) {
+      const float4 k = tile[j];
+      const float dx = __fsub_rn(k.x, qx), dy = __fsub_rn(k.y, qy),
+                  dz = __fsub_rn(k.z, qz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      if (d < best) {
+        best = d;
+        bi = t0 + j;
+      }
+    }
+  }
+  if (active) {
+    out_d[n] = __fsqrt_rn(best);
+    out_i[n] = bi;
+  }
+}
+
 #define O4D_K_CASES(X)                                                       \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) \
   X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25) X(26)    \
@@ -365,5 +425,17 @@ extern "C" int o4d_nn1_bidir(const void* a, const void* b, void* out_a,
             (M + kNN1KeysPerBlock - 1) / kNN1KeysPerBlock, B);
   nn1_bidir_kernel<<<grid, kNN1Warps * 32, 0, (cudaStream_t)stream>>>(
       (const float4*)a, (const float4*)b, (float*)out_a, (float*)out_b, N, M);
+  return (int)cudaGetLastError();
+}
+
+// q (N, 3) f32; keys (M, 4) f32 rows (x, y, z, unused); out_d (N) f32
+// Euclidean distances, out_i (N) int32 key rows.
+extern "C" int o4d_nn1_direct(const void* q, const void* keys, void* out_d,
+                              void* out_i, int N, int M, void* stream) {
+  if (N <= 0) return 0;
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  nn1_direct_kernel<<<(N + kNN1DThreads - 1) / kNN1DThreads, kNN1DThreads, 0,
+                      (cudaStream_t)stream>>>((const float*)q, (const float4*)keys,
+                                              (float*)out_d, (int*)out_i, N, M);
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,8 @@ from ..models import factory
 from ..models.encoder import PointEncoder
 from ..models.fused import fused_field_apply, supports_fused
 from ..models.implicit import LocalImplicitField
-from ..ops import blind_points_numpy, knn
+from ..ops import blind_points_numpy
+from ..ops.knn import nn1_direct
 from ..utils.misc import multi_track_merge
 
 __all__ = ['load_models', 'squash_eval', 'InferenceEngine', 'dispatch_inference',
@@ -33,6 +34,8 @@ def load_models(checkpoint_path, epoch=-1, device='cuda', logger=None):
     '''
     :param checkpoint_path: native .pkl file or checkpoint directory.
     :param device: where the networks live ('cuda' raises without CUDA).
+        The networks are f32 whatever the checkpoint's mixed_precision says,
+        as the JAX load_models evaluates in f32.
     :return dict(encoder, decoder, encoder_args, decoder_args, train_config,
         dset_args, data_kind, epoch, device).
     '''
@@ -177,12 +180,14 @@ def dispatch_inference(pcl_input, pcl_input_sem, engine, min_z, cube_bounds,
 
 
 def nn1(query, keys, device):
-    '''Exact 1-NN (Euclidean) of query rows among key rows through the kNN
-    operator (a kernel on CUDA). :return (dists (N,) f32, idx (N,) int64).'''
+    '''Exact 1-NN (Euclidean) of query rows among key rows for the
+    ground-truth labels: ops.knn.nn1_direct, the per-pair differences and
+    lowest-index ties of the JAX engine's nn1_host (a kernel on CUDA).
+    :return (dists (N,) f32, idx (N,) int64).'''
     q = _to_device(np.asarray(query)[:, :3], device)
     k = _to_device(np.asarray(keys)[:, :3], device)
-    d, idx = knn(q[None], k[None], 1)
-    return d[0, :, 0].cpu().numpy(), idx[0, :, 0].long().cpu().numpy()
+    d, idx = nn1_direct(q, k)
+    return d.cpu().numpy(), idx.long().cpu().numpy()
 
 
 def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=False,

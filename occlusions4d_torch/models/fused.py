@@ -12,7 +12,8 @@ Two routes, as in the JAX package. Below SHARED_GATHER_MIN_M abstract points
 (csrc/interp.cu, csrc/attn.cu in the mode use_premul picks). At or above it
 (cv1's 2124) the neighbours' raw [feats | pos] rows are gathered once
 (csrc/gather.cu) and the interpolation and both attention layers read them
-(o4d_interp_g, o4d_attn_g, per-row projections). The CPU takes the same
+(o4d_interp_g, o4d_attn_g, per-row projections); the gather and the
+interpolation are one operator (knn_gather_interp). The CPU takes the same
 route through the plain versions. The threshold is copied from the TPU
 (module global, so tests can lower it) until it is re-measured on the H100.
 
@@ -23,15 +24,16 @@ stays outside the kernel, so autograd chains d(kv) to the abstract features
 and to_k/to_v. The kNN graph and the abstract positions carry no gradient
 (as the JAX path's stop_gradient). Both routes have backward kernels: the
 index route csrc/interp_bwd.cu and csrc/attn_bwd.cu; the shared-gather route
-o4d_interp_g_bwd and o4d_attn_g_bwd (each writes its cotangent of the
-gathered rows) and o4d_scatter (one scatter of their sum to the key rows).
+o4d_attn_g_bwd (each layer writes its cotangent of the gathered rows) and
+o4d_scatter_interp (one scatter of their sum to the key rows, with the
+interpolation's term added in the same pass instead of written as rows).
 '''
 
 import torch
 from torch.nn import functional as F
 
 from ..ops.attention import (fused_knn_interp, fused_knn_vector_attention, knn_extract,
-                             knn_gather_rows)
+                             knn_gather_interp)
 from .implicit import BASE_FREQUENCY, activation, positional_encode
 
 __all__ = ['fused_field_apply', 'supports_fused', 'SHARED_GATHER_MIN_M']
@@ -70,14 +72,17 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
                 decoder.num_local_features)
     knn = knn_extract(q_xyz, pts_abs, k_ext, key_mask=abstract_mask)
     # Large abstract clouds: gather the neighbours' raw rows once for every
-    # consumer (the JAX package's shared-gather route).
+    # consumer (the JAX package's shared-gather route); the interpolation
+    # reads them inside the same operator, whose backward folds its term
+    # into the scatter.
     gathered = None
     if pts_abs.shape[1] >= SHARED_GATHER_MIN_M:
-        gathered = knn_gather_rows(pts_abs, feats_abs, knn, k_ext)
-    features_local = fused_knn_interp(q_xyz, pts_abs, feats_abs,
-                                      decoder.num_local_features, eps=1e-4,
-                                      key_mask=abstract_mask, knn=knn,
-                                      gathered=gathered)
+        gathered, features_local = knn_gather_interp(
+            pts_abs, feats_abs, knn, k_ext, decoder.num_local_features, eps=1e-4)
+    else:
+        features_local = fused_knn_interp(q_xyz, pts_abs, feats_abs,
+                                          decoder.num_local_features, eps=1e-4,
+                                          key_mask=abstract_mask, knn=knn)
     fg = features_global[:, None, :].expand(B, N, features_global.shape[-1])
     features_query = torch.cat([fg, features_local], dim=-1)
 

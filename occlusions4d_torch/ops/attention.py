@@ -7,16 +7,24 @@ its use_idx and gathered forms):
                               (csrc/knn.cu) serves it; no gradient;
   knn_gather_rows             the shared gather: the raw [feats | pos] rows of
                               every query's neighbours, once, for all the
-                              consumers below (csrc/gather.cu); used when the
-                              abstract cloud is large (models/fused.py);
+                              consumers below (csrc/gather.cu);
                               differentiable in feats through the scatter
                               (o4d_scatter, csrc/gather.cu);
+  knn_gather_interp           the shared gather and the gathered
+                              interpolation as one operator, the decoder's
+                              route when the abstract cloud is large
+                              (models/fused.py); its backward folds the
+                              interpolation's term into the scatter
+                              (o4d_scatter_interp, csrc/gather.cu);
   gather_rows                 the same gather and scatter in the n-major
                               layout of any (B, N, K) index grid (the
                               encoder's self-attention neighbours);
   fused_knn_interp            inverse-distance interpolation, csrc/interp.cu,
                               differentiable in the key features through
-                              csrc/interp_bwd.cu; with gathered= it reads the
+                              csrc/interp_bwd.cu (an inverse index by counting
+                              sort, then sums per key in entry order; plain
+                              version of the index: inverse_index_plain);
+                              with gathered= it reads the
                               shared gather's rows (o4d_interp_g, backward
                               o4d_interp_g_bwd);
   fused_knn_vector_attention  one vector cross-attention block, csrc/attn.cu,
@@ -32,10 +40,13 @@ kernels; a CPU tensor runs the plain versions beside them (each backward
 kernel has an explicit plain version with the kernel's own output layout).
 Like the JAX custom VJPs the index-route operators save only their inputs,
 never an (N, K, D) tensor, and positions get no gradient. The shared-gather
-route's backward is three kernels: the gathered consumers write their row
-cotangents dg (B, k', N, E + 3) directly (o4d_attn_g_bwd, o4d_interp_g_bwd;
-zero rows past their k and zero position columns), autograd sums them, and
-one scatter (o4d_scatter) adds the sum to the key rows. Layouts follow the
+route's backward: the attention layers write their row cotangents dg
+(B, k', N, E + 3) directly (o4d_attn_g_bwd; zero rows past their k and zero
+position columns), autograd sums them, and one scatter adds the sum and the
+interpolation's term (o4d_scatter_interp, which reads the interpolation's
+cotangent (B, N, E) instead of a dense dg of its own) to the key rows. The
+standalone fused_knn_interp(gathered=) keeps o4d_interp_g_bwd, which writes
+that dense dg for autograd to add. Layouts follow the
 port, not the TPU: knn_extract returns (B, N, k) arrays, not 128-lane padded
 tiles, and the gather's (B, k, N, E + 3) rows are not padded to a tile grid.
 '''
@@ -48,8 +59,10 @@ import torch
 from . import _build
 from .knn import _prepare, gather_neighbors, knn_rank, sq_norm
 
-__all__ = ['knn_extract', 'knn_gather_rows', 'gather_rows', 'fused_knn_interp',
-           'fused_knn_vector_attention', 'gather_rows_plain', 'gather_bwd_plain',
+__all__ = ['knn_extract', 'knn_gather_rows', 'knn_gather_interp', 'gather_rows',
+           'fused_knn_interp', 'fused_knn_vector_attention', 'gather_rows_plain',
+           'gather_bwd_plain', 'gather_interp_bwd_plain', 'gather_interp_bwd',
+           'inverse_index_plain',
            'interp_plain', 'interp_g_plain', 'interp_bwd_plain', 'interp_g_bwd_plain',
            'attn_plain', 'attn_g_plain', 'attn_bwd_plain', 'attn_g_bwd_plain',
            'attn_bwd', 'attn_g_bwd', 'gather_bwd', 'interp_bwd', 'interp_g_bwd',
@@ -57,9 +70,10 @@ __all__ = ['knn_extract', 'knn_gather_rows', 'gather_rows', 'fused_knn_interp',
 
 LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0, 'gather': 0,
             'interp_g': 0, 'attn_g': 0, 'scatter': 0, 'interp_g_bwd': 0,
-            'attn_g_bwd': 0}
+            'attn_g_bwd': 0, 'scatter_interp': 0}
 _MLP = ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use.
+_INDEX_TILE = 2048    # entries per counting-sort tile of csrc/interp_bwd.cu (kTile).
 
 
 def knn_extract(q_pos, pos2, k, *, key_mask=None):
@@ -290,42 +304,79 @@ def _interp_cuda(ki, kd, feats, k, eps):
     return out
 
 
-def _interp_bwd_cuda(ki, kd, g, M, k, eps):
+def inverse_index_plain(ki, M, k, tile=_INDEX_TILE):
+    '''Plain version of the interpolation backward kernel's inverse index
+    (csrc/interp_bwd.cu), step by step as the kernel takes them: the flat
+    (B, N, k) neighbour list e = (b N + n) k + j with keys b M + ki[b, n, j],
+    cut into tiles of `tile` entries; per tile, each entry's rank among the
+    tile's entries of its key (the kernel sorts the unique (key, position)
+    pairs of the tile) and each (key, tile)'s count; a scan of every key's
+    counts over the tiles, one over the keys' totals, and the placement
+    perm[offsets[key] + tile base + rank] = e.
+    :return (perm (B N k,) int32: every key's entries in ascending order,
+        offsets (B M + 1,) int32: key x owns perm[offsets[x]:offsets[x + 1]]).'''
+    B, N = ki.shape[:2]
+    dev = ki.device
+    keys = (ki[..., :k].long() + M * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+    total, n_keys = keys.numel(), B * M
+    T = -(-total // tile)
+    e = torch.arange(total, device=dev)
+    t = e // tile
+    group = keys * T + t                          # (key, tile), key-major.
+    cnt = torch.bincount(group, minlength=n_keys * T).view(n_keys, T)
+    # The tile's entries ordered by (key, position); their sorted positions.
+    order = torch.sort(t * n_keys + keys, stable=True)[1]
+    pos = torch.empty_like(e)
+    pos[order] = e
+    first = torch.full((n_keys * T,), total, dtype=torch.int64, device=dev)
+    rank = pos - first.scatter_reduce(0, group, pos, 'amin')[group]
+    base = (torch.cumsum(cnt, 1) - cnt).reshape(-1)
+    offsets = torch.zeros(n_keys + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(cnt.sum(1), 0)
+    perm = torch.empty(total, dtype=torch.int64, device=dev)
+    perm[offsets[keys] + base[group] + rank] = e
+    return perm.to(torch.int32), offsets.to(torch.int32)
+
+
+def _interp_bwd_launch(ki, kd, g, M, k, eps):
+    '''The interpolation backward kernel (o4d_interp_bwd).
+    :return (dfeats (B, M, E), perm, offsets): the last two its inverse
+        index, in inverse_index_plain's layout.'''
     B, N, KS = ki.shape
     E = g.shape[-1]
     _cuda_ki('interp_bwd', ki)
     _cuda_f32('kd', kd)
     _cuda_f32('g', g)
     if tuple(kd.shape) != (B, N, KS) or tuple(g.shape[:2]) != (B, N) \
-            or not 1 <= k <= min(KS, 32):
+            or not 1 <= k <= min(KS, 32) or B * N * k >= 2 ** 31:
         raise ValueError(f'interp_bwd: bad shapes ki {tuple(ki.shape)}, kd '
                          f'{tuple(kd.shape)}, g {tuple(g.shape)}, k={k}')
     lib = _build.library('interp_bwd')
-    lib.o4d_interp_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.o4d_interp_bwd_smem_bytes.restype = ctypes.c_longlong
-    if lib.o4d_interp_bwd_smem_bytes(M) > _SMEM_LIMIT:
-        raise NotImplementedError(f'interp_bwd holds an M x 32 partial in shared '
-                                  f'memory; M={M} does not fit')
-    G = _slots(g.device, B, N)
-    scratch = torch.empty((B * G * M * E,), dtype=torch.float32, device=g.device)
+    ws = lib.o4d_interp_bwd_workspace
+    ws.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    ws.restype = None
+    n_int, n_float = ctypes.c_longlong(), ctypes.c_longlong()
+    ws(B, N, M, E, k, ctypes.byref(n_int), ctypes.byref(n_float))
+    iws = torch.empty((n_int.value,), dtype=torch.int32, device=g.device)
+    fws = torch.empty((max(1, n_float.value),), dtype=torch.float32, device=g.device)
     out = torch.empty((B, M, E), dtype=torch.float32, device=g.device)
     fn = lib.o4d_interp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(g.device):
-        _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(g),
-                        _build.ptr(scratch), _build.ptr(out), B, N, M, E, KS, k, G,
+        _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(g), _build.ptr(iws),
+                        _build.ptr(fws), _build.ptr(out), B, N, M, E, KS, k,
                         float(eps), _build.stream_ptr(g.device)), 'interp_bwd')
     LAUNCHES['interp_bwd'] += 1
-    return out
+    return out, iws[B * M + 1:B * M + 1 + B * N * k], iws[:B * M + 1]
 
 
 def interp_bwd(ki, kd, g, M, k, eps):
     '''d(feats) of the interpolation: kernel B on CUDA, plain version on the CPU.'''
     g = g.to(torch.float32).contiguous()
     if g.is_cuda:
-        return _interp_bwd_cuda(ki.contiguous(), kd.contiguous(), g, M, k, eps)
+        return _interp_bwd_launch(ki.contiguous(), kd.contiguous(), g, M, k, eps)[0]
     return interp_bwd_plain(ki, kd, g, M, k, eps)
 
 
@@ -425,6 +476,109 @@ class _InterpG(torch.autograd.Function):
     def backward(ctx, go):
         kd, = ctx.saved_tensors
         return None, interp_g_bwd(kd, go, ctx.k, ctx.k_ext, ctx.E, ctx.eps), None, None
+
+
+def gather_interp_bwd_plain(ki, kd, dg, go, M, k, k_interp, eps):
+    '''Plain version of the scatter with the gathered interpolation's
+    backward folded in: gather_bwd_plain of dg (None: zeros) plus, in the
+    first E channels, interp_bwd_plain of go (the same sum as scattering
+    dg + interp_g_bwd_plain(kd, go, ...)).
+    :param ki, kd (B, N, >=k); dg (B, k, N, E + 3) or None; go (B, N, E).
+    :return dfv (B, M, E + 3).'''
+    B, N, E = go.shape
+    if dg is None:
+        dfv = torch.zeros((B, M, E + 3), dtype=torch.float32, device=go.device)
+    else:
+        dfv = gather_bwd_plain(ki, dg, M, k)
+    dfv[..., :E] += interp_bwd_plain(ki, kd, go, M, k_interp, eps)
+    return dfv
+
+
+def _scatter_interp_cuda(ki, kd, dg, go, M, k, k_interp, eps):
+    B, N, E = go.shape
+    C, KS = E + 3, ki.shape[-1]
+    _cuda_ki('scatter_interp', ki)
+    _cuda_f32('kd', kd)
+    _cuda_f32('go', go)
+    if dg is not None:
+        _cuda_f32('dg', dg)
+    if tuple(ki.shape[:2]) != (B, N) or tuple(kd.shape) != tuple(ki.shape) \
+            or (dg is not None and tuple(dg.shape) != (B, k, N, C)) \
+            or not 1 <= k_interp <= k <= min(KS, 32) or B * k * N >= 2 ** 31:
+        raise ValueError(f'scatter_interp: bad shapes ki {tuple(ki.shape)}, go '
+                         f'{tuple(go.shape)}, dg {None if dg is None else tuple(dg.shape)}, '
+                         f'k={k}, k_interp={k_interp}')
+    rows, offsets = scatter_index(ki, M, k, k)
+    wn = torch.empty((B, N, k_interp), dtype=torch.float32, device=go.device)
+    dfv = torch.empty((B, M, C), dtype=torch.float32, device=go.device)
+    fn = _build.library('gather').o4d_scatter_interp
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(go.device):
+        _build.check(fn(None if dg is None else _build.ptr(dg), _build.ptr(rows),
+                        _build.ptr(offsets), _build.ptr(kd), _build.ptr(go),
+                        _build.ptr(wn), _build.ptr(dfv), B * M, C, B, N, k, KS, E,
+                        k_interp, float(eps), _build.stream_ptr(go.device)),
+                     'scatter_interp')
+    LAUNCHES['scatter_interp'] += 1
+    return dfv
+
+
+def gather_interp_bwd(ki, kd, dg, go, M, k, k_interp, eps):
+    '''The gather's VJP with the gathered interpolation's folded in: the
+    scatter_interp kernel on CUDA, the plain version on the CPU.'''
+    go = go.to(torch.float32).contiguous()
+    if dg is not None:
+        dg = dg.to(torch.float32).contiguous()
+    if go.is_cuda:
+        return _scatter_interp_cuda(ki.contiguous(), kd.contiguous(), dg, go, M, k,
+                                    k_interp, eps)
+    return gather_interp_bwd_plain(ki, kd, dg, go, M, k, k_interp, eps)
+
+
+class _GatherInterp(torch.autograd.Function):
+    '''The shared gather and the gathered interpolation as one operator:
+    forward o4d_gather then o4d_interp_g (the outputs of knn_gather_rows and
+    fused_knn_interp(gathered=)); backward one o4d_scatter_interp, which adds
+    the interpolation's row cotangent inside the scatter instead of writing
+    it (plain versions on the CPU). Gradient in fv; saves ki and kd.'''
+
+    @staticmethod
+    def forward(ctx, fv, ki, kd, k, k_interp, eps):
+        ctx.save_for_backward(ki, kd)
+        ctx.k, ctx.k_interp, ctx.eps, ctx.M = k, k_interp, eps, fv.shape[1]
+        ctx.set_materialize_grads(False)
+        if fv.is_cuda:
+            g = _gather_cuda(fv, ki, k)
+            return g, _interp_g_cuda(kd, g, k_interp, eps)
+        g = gather_rows_plain(fv, ki, k)
+        return g, interp_g_plain(kd, g, k_interp, eps)
+
+    @staticmethod
+    def backward(ctx, dg, go):
+        ki, kd = ctx.saved_tensors
+        if go is None:
+            dfv = None if dg is None else gather_bwd(ki, dg, ctx.M, ctx.k)
+        else:
+            dfv = gather_interp_bwd(ki, kd, dg, go, ctx.M, ctx.k, ctx.k_interp, ctx.eps)
+        return dfv, None, None, None, None, None
+
+
+def knn_gather_interp(pos2, feats2, knn, k, k_interp, eps=1e-4):
+    '''
+    knn_gather_rows and the gathered fused_knn_interp in one differentiable
+    operator (the decoder's shared-gather route): the same outputs, and a
+    backward that folds the interpolation's cotangent into the scatter.
+    :param pos2 (B, M, 3); feats2 (B, M, E); knn: knn_extract result with k'
+        >= k columns; k: rows to gather; k_interp <= k: the interpolation's
+        neighbours.
+    :return (g (B, k, N, E + 3), features_local (B, N, E)) f32.
+    '''
+    fv = torch.cat([feats2.to(torch.float32),
+                    pos2[..., :3].detach().to(torch.float32)], dim=-1).contiguous()
+    return _GatherInterp.apply(fv, knn[0].contiguous(), knn[1].contiguous(), k,
+                               k_interp, eps)
 
 
 def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None,

@@ -11,6 +11,11 @@ Semantics, shared by the CUDA kernels (csrc/knn.cu) and their plain versions:
     and an infinite distance);
   * returned distances are sqrt(max(d + |q|^2, 0)) (or the squared value).
 
+nn1_direct, the eval engine's ground-truth 1-NN, ranks by another value on
+purpose: the direct differences (dx dx + dy dy) + dz dz of the JAX engine's
+host op nn1_host, lowest index on ties, which keep the low bits of the
+distance at CARLA's coordinate scale (see nn1_direct_plain).
+
 Dispatch: a CUDA tensor always launches a kernel (brute force, or the pruned
 entry when N * M >= PRUNED_MIN_ELEMS, the JAX package's TPU crossover kept
 until it is re-measured on the H100); a CPU tensor runs the plain version.
@@ -26,13 +31,14 @@ from . import _build
 
 __all__ = ['knn', 'knn_pruned', 'knn_rank', 'knn_rank_plain', 'pairwise_sqdist',
            'gather_neighbors', 'hilbert_codes', 'sq_norm', 'nn1_min_dist',
-           'nn1_bidirectional', 'nn1_bidir_rank', 'nn1_bidir_plain', 'LAUNCHES',
-           'PRUNED_MIN_ELEMS']
+           'nn1_bidirectional', 'nn1_bidir_rank', 'nn1_bidir_plain', 'nn1_direct',
+           'nn1_direct_plain', 'LAUNCHES', 'PRUNED_MIN_ELEMS']
 
-LAUNCHES = {'knn_brute': 0, 'knn_pruned': 0, 'nn1_bidir': 0}
+LAUNCHES = {'knn_brute': 0, 'knn_pruned': 0, 'nn1_bidir': 0, 'nn1_direct': 0}
 PRUNED_MIN_ELEMS = 2 ** 27
 _MAX_K = 32
 _PLAIN_CHUNK = 2 ** 25  # distance entries per plain-version slab.
+_FLT_MAX = 3.4028234663852886e38
 
 
 def sq_norm(x):
@@ -384,3 +390,64 @@ def nn1_bidirectional(a, b, *, a_mask=None, b_mask=None):
     d_a = torch.sqrt(torch.clamp(out_a + an_true, min=0.0))
     d_b = torch.sqrt(torch.clamp(out_b + bn_true, min=0.0))
     return d_a.reshape(batch_shape + (N,)), d_b.reshape(batch_shape + (M,))
+
+
+def nn1_direct_plain(query, keys):
+    '''Plain version of the direct-difference 1-NN kernel, the arithmetic of
+    occlusions4d_tpu/native/host_ops.cpp::o4d_nn1: per pair d2 = (dx dx + dy dy)
+    + dz dz with dx = key - query (each product and sum its own rounding), the
+    first key of the smallest d2 below FLT_MAX (index 0 when none is), and
+    sqrt at the end. Chunked over queries (2^23 pairs per slab).
+    :param query (N, 3) f32; keys (M, 3) f32.
+    :return (dist (N,) f32, idx (N,) int32).'''
+    N, M = query.shape[0], keys.shape[0]
+    rows = max(1, 2 ** 23 // max(M, 1))
+    ds, ids = [], []
+    for r0 in range(0, N, rows):
+        qc = query[r0:r0 + rows]
+        dx = keys[None, :, 0] - qc[:, None, 0]
+        dy = keys[None, :, 1] - qc[:, None, 1]
+        dz = keys[None, :, 2] - qc[:, None, 2]
+        d = (dx * dx + dy * dy) + dz * dz
+        best, idx = torch.min(d, dim=1)     # the first index of the minimum.
+        found = best < _FLT_MAX
+        ds.append(torch.where(found, best, torch.full_like(best, _FLT_MAX)))
+        ids.append(torch.where(found, idx, torch.zeros_like(idx)))
+    # A correctly rounded f32 root (as sqrtf): through f64, exact for f32.
+    dist = torch.sqrt(torch.cat(ds).to(torch.float64)).to(torch.float32)
+    return dist, torch.cat(ids).to(torch.int32)
+
+
+def _nn1_direct_cuda(q, keys):
+    N, M = q.shape[0], keys.shape[0]
+    keys4 = torch.cat([keys, keys.new_zeros((M, 1))], -1).contiguous()
+    _check_cuda('query', q, (N, 3), torch.float32)
+    _check_cuda('keys4', keys4, (M, 4), torch.float32)
+    out_d = torch.empty((N,), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((N,), dtype=torch.int32, device=q.device)
+    fn = _build.library('knn').o4d_nn1_direct
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        _build.check(fn(_build.ptr(q), _build.ptr(keys4), _build.ptr(out_d),
+                        _build.ptr(out_i), N, M, _build.stream_ptr(q.device)),
+                     'nn1_direct')
+    LAUNCHES['nn1_direct'] += 1
+    return out_d, out_i
+
+
+def nn1_direct(query, keys):
+    '''
+    Exact Euclidean 1-NN of every query row among the key rows by direct
+    differences, as the JAX engine's nn1_host computes the eval labels: the
+    kernel on CUDA, the plain version on the CPU.
+    :param query (N, C>=3); keys (M>=1, C>=3): only xyz is used.
+    :return (dist (N,) f32, idx (N,) int32).
+    '''
+    q = query[:, :3].to(torch.float32).contiguous()
+    k = keys[:, :3].to(torch.float32).contiguous()
+    if k.shape[0] < 1:
+        raise ValueError('nn1_direct needs at least one key')
+    if q.is_cuda:
+        return _nn1_direct_cuda(q, k)
+    return nn1_direct_plain(q, k)

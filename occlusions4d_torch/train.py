@@ -12,6 +12,8 @@ as the JAX package's `optax.chain(clip_by_global_norm, masked(adamw))` does:
     u = (mu / (1 - b1^c)) / (sqrt(nu / (1 - b2^c)) + eps) + wd p;
     p <- p + (-lr(c - 1)) u, with b1 0.9, b2 0.999, eps 1e-8, wd 1e-2 on
     every parameter (batch-norm statistics are buffers, not parameters);
+    f32 only: a config with mixed_precision (the JAX package's bf16 mode)
+    raises NotImplementedError in Trainer and build_optimizer;
   * lr(count) = learn_rate x lr_decay for every boundary <= count, the
     boundaries at 2/5, 3/5 and 4/5 of num_epochs x steps_per_epoch.
 A step with a non-finite gradient leaves the parameters, the moments and the
@@ -80,9 +82,19 @@ class AdamW:
         self.count.copy_(torch.where(apply, count_inc, self.count))
 
 
+def _refuse_mixed_precision(cfg):
+    if cfg.mixed_precision:
+        raise NotImplementedError(
+            'mixed_precision=True (the bf16 mode: bf16 modules and AdamW eps 1e-4 '
+            'in the JAX package) is not ported; the port trains in f32 only '
+            '(ROADMAP.md, Queue 2: the bf16 compute mode)')
+
+
 def build_optimizer(cfg, steps_per_epoch, params):
     '''AdamW + multistep schedule + global-norm clip of a training config
-    (f32: eps 1e-8). :param params: the parameters to train.'''
+    (f32: eps 1e-8; raises NotImplementedError for mixed_precision).
+    :param params: the parameters to train.'''
+    _refuse_mixed_precision(cfg)
     milestones = [(cfg.num_epochs * 2) // 5, (cfg.num_epochs * 3) // 5,
                   (cfg.num_epochs * 4) // 5]
     boundaries = {m * steps_per_epoch: cfg.lr_decay for m in milestones if m > 0}
@@ -143,6 +155,7 @@ class Trainer:
     forwards it; 'on' trains through the fused self-attention kernels.'''
 
     def __init__(self, cfg, data_kind='greater', device='cuda', fused_attention=None):
+        _refuse_mixed_precision(cfg)
         self.cfg = cfg
         self.data_kind = data_kind
         self.device = resolve_device(device)

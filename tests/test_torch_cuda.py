@@ -9,12 +9,14 @@ GPU and nvcc; skips elsewhere (the decision is taken inside the fixture).
 (--noconftest: tests/conftest.py configures JAX, which a CUDA machine
 running only the port need not have.)
 
-Tolerances: kNN, FPS and the bidirectional 1-NN exact (the kernels round like
-the plain versions); interpolation atol 1e-5 and attention atol 1e-4 / rtol
+Tolerances: kNN, FPS, the bidirectional 1-NN and the eval labels' 1-NN
+(nn1_direct) exact (the kernels round like the plain versions); interpolation atol 1e-5 and attention atol 1e-4 / rtol
 1e-3 (fused multiply-adds and another summation order than cuBLAS in 100-term
 dots); the backward kernels 1e-4 of the largest gradient entry / rtol 1e-3
 (weight gradients sum thousands of rows in another order than autograd).
-The backward kernels are also checked to give the same bits twice. The
+The backward kernels are also checked to give the same bits twice, and the
+scatter with the interpolation's backward folded in to give the bits of the
+scatter of dg plus o4d_interp_g_bwd's rows. The
 encoder's fused self-attention kernels (sattn, sattn_bwd) take the attention
 tolerances, and the FPS cluster entry is exact like the one-block kernel.
 '''
@@ -170,8 +172,9 @@ def test_fused_decoder_takes_shared_gather_route_and_matches_cpu(dev):
 
 def test_shared_gather_backward_launches_kernels_and_matches_cpu(dev):
     '''Autograd through the fused decoder on the shared-gather route launches
-    the route's backward kernels (one scatter, one interp_g_bwd, one
-    attn_g_bwd per attention layer) and no index-route backward kernel, and
+    the route's backward kernels (one scatter with the interpolation's
+    backward folded in, one attn_g_bwd per attention layer; no plain scatter,
+    no interp_g_bwd) and no index-route backward kernel, and
     its gradients (abstract features, decoder weights) agree with the CPU
     run (plain versions, same route).'''
     import copy
@@ -192,8 +195,8 @@ def test_shared_gather_backward_launches_kernels_and_matches_cpu(dev):
         if d.type == 'cuda':
             torch.cuda.synchronize()
             counts = _build.launch_counts()
-            want = dict(scatter=1, interp_g_bwd=1, attn_g_bwd=2, attn_bwd=0,
-                        interp_bwd=0)
+            want = dict(scatter_interp=1, scatter=0, interp_g_bwd=0, attn_g_bwd=2,
+                        attn_bwd=0, interp_bwd=0)
             assert {k: counts[k] for k in want} == want
         grads.append([a.grad] + [p.grad for p in net.parameters()])
     for g_dev, g_cpu in zip(*grads):
@@ -348,6 +351,88 @@ def test_interp_bwd_kernel_matches_plain(dev, K):
     torch.cuda.synchronize()
     _close(d1, ref)
     assert torch.equal(d1, d2)
+
+
+@pytest.mark.parametrize('case', ['m2124', 'one_key'])
+def test_interp_bwd_kernel_beyond_the_old_cap_and_on_one_key(dev, case):
+    '''The counting-sort interp_bwd at M 2124 (above the old shared-memory
+    cap of 1816) and with every entry on one key (one run over many summing
+    chunks): against its plain version, the same bits twice, and its inverse
+    index equal to inverse_index_plain's and to a stable argsort.'''
+    rng = np.random.RandomState(11)
+    B, N, E, K = 2, 3001, 40, 8
+    M = 2124 if case == 'm2124' else 50
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    ki, kd = t_attn.knn_extract(q_pos, pos2, K)
+    if case == 'one_key':
+        ki = torch.full_like(ki, 7)
+    g = _t(rng.randn(B, N, E).astype(np.float32), dev)
+    d1, perm, offsets = t_attn._interp_bwd_launch(ki, kd, g, M, K, 1e-4)
+    d2 = t_attn.interp_bwd(ki, kd, g, M, K, 1e-4)
+    ref = t_attn.interp_bwd_plain(ki, kd, g, M, K, 1e-4)
+    p_ref, o_ref = t_attn.inverse_index_plain(ki, M, K)
+    torch.cuda.synchronize()
+    _close(d1, ref)
+    assert torch.equal(d1, d2)
+    assert torch.equal(perm, p_ref) and torch.equal(offsets, o_ref)
+    keys = (ki.long() + M * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+    assert torch.equal(perm.long(), torch.argsort(keys, stable=True))
+    if case == 'one_key':
+        assert not d1[:, :7].any() and not d1[:, 8:].any()
+
+
+@pytest.mark.parametrize('KI', [4, 10])
+def test_scatter_interp_kernel_matches_plain(dev, KI):
+    '''The scatter with the gathered interpolation's backward folded in, at
+    k_interp < k_ext and k_interp = k_ext (10), B 2, masked keys, 150
+    queries on one key: against its plain version, bit-equal to o4d_scatter
+    of dg plus o4d_interp_g_bwd's rows, the same bits twice; without dg (no
+    other consumer of the rows) against the plain version too.'''
+    rng = np.random.RandomState(60 + KI)
+    B, N, M, E, k_ext = 2, 203, 97, 24, 10
+    q = rng.rand(B, N, 3).astype(np.float32)
+    pos2 = rng.rand(B, M, 3).astype(np.float32)
+    q[:, :150] = pos2[:, :1] + 1e-3 * rng.rand(B, 150, 3).astype(np.float32)
+    mask = rng.rand(B, M) > 0.3
+    mask[:, 0] = True
+    ki, kd = t_attn.knn_extract(_t(q, dev), _t(pos2, dev), k_ext, key_mask=_t(mask, dev))
+    dg = _t(rng.randn(B, k_ext, N, E + 3).astype(np.float32), dev)
+    go = _t(rng.randn(B, N, E).astype(np.float32), dev)
+    d1, d2 = (t_attn.gather_interp_bwd(ki, kd, dg, go, M, k_ext, KI, 1e-4)
+              for _ in range(2))
+    ref = t_attn.gather_interp_bwd_plain(ki, kd, dg, go, M, k_ext, KI, 1e-4)
+    unfolded = t_attn.gather_bwd(
+        ki, dg + t_attn.interp_g_bwd(kd, go, KI, k_ext, E, 1e-4), M, k_ext)
+    no_dg = t_attn.gather_interp_bwd(ki, kd, None, go, M, k_ext, KI, 1e-4)
+    no_dg_ref = t_attn.gather_interp_bwd_plain(ki, kd, None, go, M, k_ext, KI, 1e-4)
+    torch.cuda.synchronize()
+    _close(d1, ref)
+    assert torch.equal(d1, d2) and torch.equal(d1, unfolded)
+    _close(no_dg, no_dg_ref)
+    assert not no_dg[..., E:].any()
+
+
+@pytest.mark.parametrize('case', ['carla_scale', 'duplicates'])
+def test_nn1_direct_kernel_matches_plain(dev, case):
+    '''The eval 1-NN kernel equals its plain version exactly (distances and
+    indices): a cloud 40-80 m from the origin with queries about 0.2 from a
+    key, and integer grids with duplicate keys (the lowest index wins).'''
+    rng = np.random.RandomState(9)
+    N, M = 5003, 20011
+    if case == 'duplicates':
+        keys = rng.randint(0, 8, size=(M, 3)).astype(np.float32)
+        query = rng.randint(0, 8, size=(N, 3)).astype(np.float32) + 0.5
+    else:
+        keys = (rng.rand(M, 3) * [40.0, 30.0, 4.0] + [40.0, -15.0, -1.0]).astype(np.float32)
+        step = rng.randn(N, 3)
+        step *= rng.uniform(0.195, 0.205, (N, 1)) / np.linalg.norm(step, axis=1, keepdims=True)
+        query = (keys[rng.randint(0, M, N)] + step).astype(np.float32)
+    qt, kt = _t(query, dev), _t(keys, dev)
+    d, i = t_knn.nn1_direct(qt, kt)
+    pd, pi = t_knn.nn1_direct_plain(qt, kt)
+    torch.cuda.synchronize()
+    assert i.dtype == torch.int32 and torch.equal(i, pi) and torch.equal(d, pd)
 
 
 def test_autograd_runs_backward_kernels(dev):

@@ -187,13 +187,14 @@ _DEC = dict(d_in=4, d_hidden=40, d_out=18, d_latent=40, n_blocks=4, pos_encoding
 
 
 def _spy_gather(monkeypatch):
-    '''Count the decoder's calls of knn_gather_rows (the shared route).'''
+    '''Count the decoder's calls of knn_gather_interp (the shared route's
+    gather and interpolation).'''
     calls = []
 
     def spy(*args, **kw):
         calls.append(1)
-        return t_attn.knn_gather_rows(*args, **kw)
-    monkeypatch.setattr(t_fused, 'knn_gather_rows', spy)
+        return t_attn.knn_gather_interp(*args, **kw)
+    monkeypatch.setattr(t_fused, 'knn_gather_interp', spy)
     return calls
 
 

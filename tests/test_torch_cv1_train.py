@@ -150,6 +150,55 @@ def test_attn_g_bwd_plain_matches_jax(K):
                                    rtol=GRTOL, err_msg=f'{n}/{leaf}')
 
 
+@pytest.mark.parametrize('K,KI', [(1, 1), (6, 9), (14, 8)])
+def test_gather_interp_bwd_plain_matches_jax_shared_route(K, KI):
+    '''The decoder route's folded backward against jax.vjp of the JAX shared
+    route in the key features: knn_gather_rows, then fused_knn_interp
+    (gathered=, its KI neighbours) and fused_knn_vector_attention(gathered=,
+    K) over the same rows (the _scatter, _interp_g_bwd and _attn_g_bwd
+    kernels in interpret mode). The port: gather_interp_bwd_plain of the
+    attention's row cotangent and the interpolation's cotangent, and the
+    same through autograd of knn_gather_interp; KI = k_ext (9) and KI <
+    k_ext.'''
+    rng, c = _gathered_case(K)
+    B, N, M, D, E, k_ext = c['B'], c['N'], c['M'], c['D'], c['E'], c['k_ext']
+    p = _attn_params(rng, D, E)
+    q_proj = rng.randn(B, N, D).astype(np.float32)
+    go_i = rng.randn(B, N, E).astype(np.float32)
+    go_a = rng.randn(B, N, D).astype(np.float32)
+    q, pos2 = jnp.asarray(c['q']), jnp.asarray(c['pos2'])
+    jp = jax.tree_util.tree_map(jnp.asarray, p)
+
+    def route(f):
+        g = j_pa.knn_gather_rows(pos2, f, c['jknn'], k_ext)
+        return (j_pa.fused_knn_interp(q, pos2, f, KI, knn=c['jknn'], gathered=g),
+                j_pa.fused_knn_vector_attention(jnp.asarray(q_proj), q, f, pos2, jp, K,
+                                                knn=c['jknn'], gathered=g))
+    _, vjp = jax.vjp(route, jnp.asarray(c['feats']))
+    ref = np.asarray(vjp((jnp.asarray(go_i), jnp.asarray(go_a)))[0])
+
+    ki, kd = c['tknn']
+    tp = {n: {leaf: _t(v) for leaf, v in d.items()} for n, d in p.items()}
+    tg = t_attn.knn_gather_rows(_t(c['pos2']), _t(c['feats']), c['tknn'], k_ext)
+    dg = t_attn.attn_g_bwd_plain(_t(c['q']), _t(q_proj), tg, tp, K, _t(go_a))[1]
+    dfv = t_attn.gather_interp_bwd_plain(ki, kd, dg, _t(go_i), M, k_ext, KI, 1e-4)
+    assert dfv.shape == (B, M, E + 3)
+    np.testing.assert_allclose(dfv[..., :E].numpy(), ref, atol=GATOL, rtol=GRTOL)
+
+    feats = _t(c['feats']).requires_grad_(True)
+    g, fl = t_attn.knn_gather_interp(_t(c['pos2']), feats, c['tknn'], k_ext, KI)
+    att = t_attn.fused_knn_vector_attention(_t(q_proj), _t(c['q']), feats, _t(c['pos2']),
+                                            tp, K, knn=c['tknn'], gathered=g)
+    ((fl * _t(go_i)).sum() + (att * _t(go_a)).sum()).backward()
+    np.testing.assert_allclose(feats.grad.numpy(), ref, atol=GATOL, rtol=GRTOL)
+    # The forward outputs are the separate operators' (same arithmetic).
+    np.testing.assert_array_equal(g.detach().numpy(), tg.numpy())
+    np.testing.assert_array_equal(
+        fl.detach().numpy(),
+        t_attn.fused_knn_interp(_t(c['q']), _t(c['pos2']), _t(c['feats']), KI,
+                                knn=c['tknn'], gathered=tg).numpy())
+
+
 # ---------------------------------------------------------------- lockstep --
 
 _ENC = dict(n_input=256, n_output=256, d_in=8, d_out=1, d_feat=8, down_blocks=2,
@@ -193,7 +242,8 @@ def _spy(monkeypatch, names):
     return calls
 
 
-_BWD = ('gather_bwd_plain', 'interp_g_bwd_plain', 'attn_g_bwd_plain')
+_BWD = ('gather_interp_bwd_plain', 'gather_bwd_plain', 'interp_g_bwd_plain',
+        'attn_g_bwd_plain')
 
 
 def test_cv1_train_step_lockstep_with_jax(monkeypatch):
@@ -241,9 +291,11 @@ def test_cv1_train_step_lockstep_with_jax(monkeypatch):
         'dec.' + n: p for n, p in tdec.named_parameters()})
     loss, _ = tpipe.loss(tbatch, torch.Generator())
     tg = dict(zip(t_params, torch.autograd.grad(loss, list(t_params.values()))))
-    # Two frames: one scatter and one interpolation backward each, and one
-    # attention backward per frame and layer.
-    assert calls == dict(gather_bwd_plain=2, interp_g_bwd_plain=2, attn_g_bwd_plain=4)
+    # Two frames: one scatter each, with the interpolation's backward folded
+    # in (no dense interpolation cotangent), and one attention backward per
+    # frame and layer.
+    assert calls == dict(gather_interp_bwd_plain=2, gather_bwd_plain=2,
+                         interp_g_bwd_plain=0, attn_g_bwd_plain=4)
     ref = dict(from_jax_params(jax.tree_util.tree_map(np.asarray, jg['encoder']), tenc))
     ref.update({'dec.' + k: v for k, v in from_jax_params(
         jax.tree_util.tree_map(np.asarray, jg['decoder']), tdec).items()})
@@ -277,7 +329,9 @@ def test_cv1_trainer_steps_on_cpu_take_the_shared_route_backward(monkeypatch):
     '''Two Trainer(cv1-shaped config, 'carla', device='cpu') steps with the
     low_moving_ivalo_sembal sampler bias on a CARLA-layout batch (bench.py:
     57-82), the threshold lowered: finite losses (segmentation included), the
-    parameters change, and the route's three plain backward functions run.'''
+    parameters change, and the route's plain backward functions run (the
+    scatter with the interpolation's backward folded in, and the
+    attention's).'''
     monkeypatch.setattr(t_fused, 'SHARED_GATHER_MIN_M', 1)
     cfg = TrainConfig(n_points=256, pt_feat_dim=8, up_down_blocks=2, pt_num_neighbors=8,
                       down_neighbors=6, global_size=16, implicit_mlp_blocks=3,
@@ -309,5 +363,6 @@ def test_cv1_trainer_steps_on_cpu_take_the_shared_route_backward(monkeypatch):
         m = tr.step(batch)
         assert np.isfinite(float(m['total_loss'])) and float(m['loss_segm']) > 0
         assert bool(m['grads_finite']) and bool(m['params_finite']) and bool(m['sample_ok'])
-    assert calls == dict(gather_bwd_plain=4, interp_g_bwd_plain=4, attn_g_bwd_plain=8)
+    assert calls == dict(gather_interp_bwd_plain=4, gather_bwd_plain=4,
+                         interp_g_bwd_plain=0, attn_g_bwd_plain=8)
     assert any(not torch.equal(p, q) for p, q in zip(tr.optimizer.params, before))

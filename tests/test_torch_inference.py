@@ -9,13 +9,15 @@ path with the kernels' plain versions.
 Tolerance: densities within the JAX tests' f32 CPU tolerance, atol 3e-5
 (measured: 2.1e-6 on the GREATER anchor, 7.7e-7 on the CARLA one); the
 solid/air split must agree except for queries whose density lies within 1e-3
-of the threshold.
+of the threshold; the ground-truth labels and 1-NN target rows equal query
+by query.
 '''
 
 import os
 import pickle
 import subprocess
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -23,6 +25,8 @@ import torch
 
 # Six test workers share eight cores: keep PyTorch's CPU pool small.
 torch.set_num_threads(2)
+
+from test_torch_nn1 import ambiguous_rows
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ANCHORS = {'greater': 'tests/assets/anchor/checkpoint.pkl',
@@ -40,9 +44,9 @@ def _inputs(data_kind, n=256, seed=3):
     return pcl, sem, target
 
 
-def _run(pkg, data_kind):
+def _run(pkg, data_kind, path=None):
     pcl, sem, target = _inputs(data_kind)
-    path = os.path.join(_ROOT, _ANCHORS[data_kind])
+    path = path or os.path.join(_ROOT, _ANCHORS[data_kind])
     if pkg == 'jax':
         from occlusions4d_tpu.evaluate import inference as inf
         loaded = inf.load_models(path)
@@ -79,11 +83,58 @@ def test_anchor_inference_matches_jax(data_kind):
     far = np.abs(d_ref - 0.5) > 1e-3
     np.testing.assert_array_equal((d_out >= 0.5)[far], (d_ref >= 0.5)[far])
     assert 0 < len(out['output_solid']) < len(d_out)
-    # GT labels: 1-NN of the queries among the target frame.
+    # GT labels and 1-NN target rows, query by query (each package's
+    # solid/air split undone), equal outside the rows a last-bit difference
+    # could change (test_torch_nn1.py): 2 (GREATER) and 3 (CARLA) of the
+    # grid queries, far outside the [-1, 1] targets, have two targets within
+    # 1e-6 of the same distance; they are counted, not held.
     assert out['gt_solid'].shape[0] == out['output_solid'].shape[0]
-    np.testing.assert_array_equal(
-        np.concatenate([out['gt_solid'][:, 0], out['gt_air'][:, 0]]).sum(),
-        np.concatenate([ref['gt_solid'][:, 0], ref['gt_air'][:, 0]]).sum())
+    gt_out, gt_ref = _gt_per_query(out), _gt_per_query(ref)
+    amb = ambiguous_rows(out['points_query'], _inputs(data_kind)[2])
+    same = (gt_out == gt_ref).all(1)
+    print(f'{data_kind}: ambiguous rows {int(amb.sum())}, of which equal '
+          f'{int(same[amb].sum())}')
+    assert int(amb.sum()) <= len(amb) // 1000
+    assert 0 < gt_ref[:, 0].sum() < len(gt_ref)
+    np.testing.assert_array_equal(gt_out[~amb], gt_ref[~amb])
+
+
+def _gt_per_query(res):
+    '''[label | 1-NN target row] of every query, in query order.'''
+    solid = res['implicit_output'][:, 0] >= 0.5
+    gt = np.empty((len(solid), res['gt_solid'].shape[1]), res['gt_solid'].dtype)
+    gt[solid], gt[~solid] = res['gt_solid'], res['gt_air']
+    return gt
+
+
+@pytest.mark.parametrize('data_kind', ['greater', 'carla'])
+def test_mixed_precision_checkpoint_evaluates_in_f32(tmp_path, data_kind):
+    '''A copy of the anchor whose config says mixed_precision: true (the JAX
+    bf16 training mode) loads with the flag kept, in f32, and infers exactly
+    as the anchor does, as the JAX load_models evaluates such checkpoints in
+    f32. Both checkpoint layouts: the bare pickle (GREATER) and the crc32
+    envelope (CARLA).'''
+    from occlusions4d_torch.evaluate import inference as inf
+    src = os.path.join(_ROOT, _ANCHORS[data_kind])
+    with open(src, 'rb') as f:
+        env = pickle.load(f)
+    wrapped = env.get('format') == 'o4d_ckpt'
+    obj = pickle.loads(env['payload']) if wrapped else env
+    assert obj['meta']['config']['mixed_precision'] is False
+    obj['meta']['config']['mixed_precision'] = True
+    if wrapped:
+        env['payload'] = pickle.dumps(obj)
+        env['crc32'] = zlib.crc32(env['payload'])
+    dst = tmp_path / 'checkpoint.pkl'
+    with open(dst, 'wb') as f:
+        pickle.dump(env if wrapped else obj, f)
+    loaded = inf.load_models(str(dst), device='cpu')
+    assert loaded['train_config'].mixed_precision is True
+    nets = (loaded['encoder'], loaded['decoder'])
+    assert all(p.dtype == torch.float32 for n in nets for p in n.parameters())
+    out, ref = _run('torch', data_kind, str(dst)), _run('torch', data_kind)
+    for key in ('implicit_output', 'pcl_abstract', 'gt_solid', 'gt_air'):
+        np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
 
 
 def test_anchors_load_and_infer_without_jax_or_optax():

@@ -435,6 +435,34 @@ def test_interp_grads_match_jax_vjp(rng):
     np.testing.assert_allclose(d.numpy(), np.asarray(jg), atol=GATOL, rtol=GRTOL)
 
 
+@pytest.mark.parametrize('case', ['random', 'empty_keys', 'one_key', 'many_tiles'])
+def test_interp_bwd_inverse_index_equals_stable_argsort(rng, case):
+    '''The counting sort of csrc/interp_bwd.cu, step by step in its plain
+    version (per-tile ranks and counts, the scans, the placement), equals a
+    stable argsort of the flat (B, N, k) neighbour keys, with per-key
+    offsets from their counts: keys no query names (empty runs), one key
+    holding every entry, entries spread over many tiles.'''
+    B, N, KS, k, M, tile = 2, 301, 10, 8, 97, 2048
+    ki = rng.randint(0, M, (B, N, KS))
+    if case == 'empty_keys':
+        M = 5000                                  # most keys have no entry.
+        ki = rng.randint(0, 40, (B, N, KS)) * 100
+    elif case == 'one_key':
+        ki[:] = 3
+    elif case == 'many_tiles':
+        tile = 64
+    ki = torch.tensor(ki, dtype=torch.int32)
+    perm, offsets = t_attn.inverse_index_plain(ki, M, k, tile)
+    keys = (ki[..., :k].long() + M * torch.arange(B)[:, None, None]).reshape(-1)
+    ref = torch.argsort(keys, stable=True)
+    counts = torch.bincount(keys, minlength=B * M)
+    assert perm.dtype == offsets.dtype == torch.int32
+    assert torch.equal(perm.long(), ref)
+    assert torch.equal(torch.diff(offsets.long()), counts) and int(offsets[0]) == 0
+    if case == 'one_key':
+        assert int(counts.max()) == N * k and int((counts > 0).sum()) == B
+
+
 def test_knn_extract_is_outside_autograd(rng):
     q = _t(rng.rand(1, 20, 3).astype(np.float32)).requires_grad_(True)
     k = _t(rng.rand(1, 15, 3).astype(np.float32)).requires_grad_(True)

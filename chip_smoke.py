@@ -15,7 +15,9 @@ each printing one JSON line:
      card at the gv1 shapes of its path, with kernel, plain and library times
      (CUDA events); the backward kernels run at the train step's frame
      (3 examples x 17920 queries; the plain attention backward one example
-     at a time) and also run twice and must give the same bits (interp_bwd
+     at a time; both projection modes; each attention backward line with
+     its TFLOP/s, its shares of the bf16 and 3xTF32 tensor-core bounds and
+     its own peak memory) and also run twice and must give the same bits (interp_bwd
      also at M 2124 on the index route, and on one real train frame's
      indices in phase 6, its inverse index against a stable argsort, with
      index_add_ timed beside it); the eval labels' direct-difference 1-NN
@@ -27,9 +29,9 @@ each printing one JSON line:
      (scatter, interp_g_bwd, attn_g_bwd) run at one cv1 train frame (3
      examples x 17203 queries against 2124-point abstract clouds; the plain
      attention backward one example at a time), each twice for the same
-     bits, and the decoder route's scatter with interp_g_bwd folded in
-     (scatter_interp: bit-equal to the scatter of dg plus interp_g_bwd's
-     rows, its marginal time over the plain scatter); the FPS cluster entry at the n57344 encoder's first level
+     bits, scatter_add_ timed beside the scatter, and the decoder route's
+     scatter + interp_bwd of the interpolation's cotangent against its plain
+     version; the FPS cluster entry at the n57344 encoder's first level
      (57344 -> 19115, four cases, indices equal to the plain loop's); the
      encoder's fused self-attention (sattn, sattn_bwd) at the four blocks of
      the gv1 train step (B 3) and the n57344 step's first block (B 1), with
@@ -63,9 +65,9 @@ each printing one JSON line:
      7168 + 10035 queries, low_moving_ivalo_sembal, seeded numpy weights and
      a CARLA-layout batch as bench.py builds it): 1 warm-up step, 2 timed
      steps with the launch counters zeroed just before and read just after
-     (per step gather 4, interp_g 4, attn_g 8, scatter_interp 4,
-     attn_g_bwd 8, no plain scatter, no interp_g_bwd, no index-route
-     attention or interpolation kernel, and nn1_bidir), finite losses (segmentation included), gradients and
+     (per step gather 4, interp_g 4, attn_g 8, scatter 4, interp_bwd 4,
+     attn_g_bwd 8, no interp_g_bwd, no index-route
+     attention kernel, and nn1_bidir), finite losses (segmentation included), gradients and
      parameters, changed parameters; one phase-split step; before the
      steps, one decoder forward + backward of a sampled frame's first 1024
      queries on the card and on the CPU (plain versions, same route), loss
@@ -100,11 +102,12 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, f32 CUDA-core
-# and bf16 tensor-core FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, f32 CUDA-core,
+# bf16 and TF32 tensor-core FLOP/s.
 _HBM_BPS = 3.35e12
 _F32_FLOPS = 67e12
 _BF16_TC_FLOPS = 989e12
+_TF32_TC_FLOPS = 495e12
 
 # gv1 (bench.py's configuration of the JAX package).
 _GV1 = dict(n_points=14336, pt_feat_dim=36, up_down_blocks=3, transition_factor=3,
@@ -139,11 +142,11 @@ _N57 = dict(_GV1_TRAIN, n_points=57344, batch_size=1)
 # each; the encoder's four PT blocks gather, attend and scatter once each).
 _SATTN_STEP = dict(sattn=4, sattn_bwd=4, gather=4, scatter=4, fps=3, fps_cluster=0,
                    attn=8, interp=4, attn_bwd=8, interp_bwd=4, attn_g=0, interp_g=0,
-                   attn_g_bwd=0, interp_g_bwd=0, scatter_interp=0)
+                   attn_g_bwd=0, interp_g_bwd=0)
 # n57344: the encoder's four blocks gather and scatter, the decoder's shared
-# route gathers 4 times and scatters 4 times with the interpolation folded in.
-_57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=4, scatter_interp=4, fps=2,
-                 fps_cluster=1, attn=0, interp=0, attn_bwd=0, interp_bwd=0, attn_g=8,
+# route gathers 4 times, scatters 4 times and runs interp_bwd 4 times.
+_57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=8, fps=2,
+                 fps_cluster=1, attn=0, interp=0, attn_bwd=0, interp_bwd=4, attn_g=8,
                  interp_g=4, attn_g_bwd=8, interp_g_bwd=0)
 # The encoder's self-attention blocks the sattn kernels are checked at:
 # (name, batch, points, index of the PT block in PointEncoder.blocks).
@@ -170,8 +173,6 @@ _REPLACES = {
     'fps_cluster': 'occlusions4d_tpu/ops/pallas_fps.py:39',
     'sattn': 'occlusions4d_tpu/ops/pallas_self_attention.py:56',
     'sattn_bwd': 'occlusions4d_tpu/ops/pallas_self_attention.py:132',
-    'scatter_interp': 'occlusions4d_tpu/ops/pallas_attention.py:837; '
-                      'occlusions4d_tpu/ops/pallas_attention.py:1294',
     'nn1_direct': 'occlusions4d_tpu/native/host_ops.cpp:240 (o4d_nn1 behind nn1_host, '
                   'a host op; no Pallas kernel)',
 }
@@ -180,28 +181,26 @@ _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'int
            'nn1_bidir': 'knn', 'gather': 'gather', 'interp_g': 'interp', 'attn_g': 'attn',
            'scatter': 'gather', 'interp_g_bwd': 'interp', 'attn_g_bwd': 'attn_bwd',
            'fps_cluster': 'fps', 'sattn': 'attn', 'sattn_bwd': 'attn_bwd',
-           'scatter_interp': 'gather', 'nn1_direct': 'knn'}
+           'nn1_direct': 'knn'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
 _SHARED = ('gather', 'interp_g', 'attn_g')
-# The shared route's backward: the scatter with the interpolation folded in
-# and the attention's (interp_g_bwd no longer runs there; the plain scatter
-# runs on the encoder's fused self-attention route).
-_SHARED_BWD = ('scatter_interp', 'attn_g_bwd', 'interp_g_bwd')
+# The shared route's backward: the scatter and the attention's; the
+# interpolation's term goes through the index route's interp_bwd
+# (interp_g_bwd serves an operator no main path calls).
+_SHARED_BWD = ('scatter', 'attn_g_bwd', 'interp_g_bwd')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
              nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED},
              **{k: 'train_cv1' for k in _SHARED_BWD}, fps_cluster='train_57k',
-             sattn='train_sattn', sattn_bwd='train_sattn', nn1_direct='anchor',
-             scatter='train_57k')
+             sattn='train_sattn', sattn_bwd='train_sattn', nn1_direct='anchor')
 # Kernels kept for an operator that no main path calls: o4d_interp_g_bwd is
-# the backward of the standalone fused_knn_interp(gathered=); the decoder's
-# route folds it into scatter_interp.
+# the backward of the standalone fused_knn_interp(gathered=).
 _OFF_PATH = {'interp_g_bwd': 'the standalone fused_knn_interp(gathered=) backward; '
-                             'the decoder route folds it into scatter_interp'}
+                             'the decoder route runs scatter + interp_bwd'}
 # Launches per cv1 train step (4 frames, 2 attention layers each).
-_CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=0, scatter_interp=4,
-                 interp_g_bwd=0, attn_g_bwd=8, attn=0, interp=0, attn_bwd=0, interp_bwd=0)
+_CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=4, interp_g_bwd=0, attn_g_bwd=8,
+                 attn=0, interp=0, attn_bwd=0, interp_bwd=4)
 
 
 def emit(obj):
@@ -236,6 +235,27 @@ def bound(nbytes, flops, peak_flops=_F32_FLOPS):
     t_bytes = nbytes / _HBM_BPS * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def launch_peak_gib(torch, fn):
+    """The device memory one call of fn allocates at its peak beyond what
+    was allocated before it (its outputs included), in GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del out
+    return peak
+
+
+def attn_bwd_rates(flop, ms, b_ms):
+    """Achieved rate and shares of the attention backward's bounds: the bf16
+    tensor-core bound, and 3xTF32's (three TF32 products per product)."""
+    tf32x3_ms = 3.0 * flop / _TF32_TC_FLOPS * 1e3
+    return dict(tflop_s=flop / ms / 1e9, share_of_bound=b_ms / ms,
+                bound_3xtf32_ms=tf32x3_ms, share_of_3xtf32_bound=tf32x3_ms / ms)
 
 
 def random_jax_params(net, rng):
@@ -429,6 +449,7 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
                     + [max_err(dw[n], dw2[n]) for n in dw])
         with torch.no_grad():
             ms = cuda_ms(torch, lambda: t_attn.attn_bwd(*args), 3)
+            peak = launch_peak_gib(torch, lambda: t_attn.attn_bwd(*args))
         plain_ms = cuda_ms(torch, lambda: plain_per_example(torch, t_attn.attn_bwd_plain, args), 2)
         CW = kv.shape[-1]
         extra = 0 if premul else E * D
@@ -439,6 +460,7 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
         nbytes = 4 * (B * N * (3 + D + K + D + D) + 2 * B * M * CW + B * M * 3 + 2 * n_w)
         b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
         f32_ms = bound(nbytes, 2.0 * macs)[0]
+        rates = attn_bwd_rates(2.0 * macs, ms, b_ms)
         name = 'attn_bwd' if premul else 'attn_bwd_per_row'
         shape = [B, N, M, K, D, E]
         emit(dict(phase='kernel', name=name, shape=shape, agree=ok,
@@ -448,7 +470,8 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
                   plain='autograd through attn_plain, one example at a time',
                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
                   bound_peak='bf16 tensor core 989 TFLOP/s',
-                  bound_f32_cuda_core_ms=f32_ms, flop=2.0 * macs))
+                  bound_f32_cuda_core_ms=f32_ms, flop=2.0 * macs, launch_peak_gib=peak,
+                  **rates))
         if not ok or repro != 0.0:
             raise AssertionError(f'{name} disagrees (err {err}) or is not reproducible '
                                  f'({repro})')
@@ -457,7 +480,12 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
                                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
                                     bound_peak='bf16 tensor core 989 TFLOP/s',
                                     bound_f32_cuda_core_ms=f32_ms, shape=shape,
-                                    repeat_max_abs_diff=repro)
+                                    repeat_max_abs_diff=repro, launch_peak_gib=peak,
+                                    **rates)
+        else:
+            rows['attn_bwd']['per_row'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                               bound_ms=b_ms, bound_f32_cuda_core_ms=f32_ms,
+                                               launch_peak_gib=peak, **rates)
         del dq, dkv, dw, dq2, dkv2, dw2, rq, rkv, rw
 
     gi = rand(B, N, E)
@@ -636,9 +664,31 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
                           bound_f32_cuda_core_ms=f32_ms, shape=shape, **routes)
 
 
+def scatter_add_ms(torch, ki, dg, M, K, dev):
+    """The scatter's library yardstick: one scatter_add_ of dg's first K row
+    planes into a zeroed (B, M, C) tensor (the index expanded beforehand,
+    not timed); returns (ms, what was timed)."""
+    B, _, N, C = dg.shape
+    idx = ki[..., :K].transpose(1, 2).reshape(B, K * N, 1).long().expand(B, K * N, C)
+    src = dg[:, :K].reshape(B, K * N, C)
+    out = torch.zeros((B, M, C), device=dev)
+    return (cuda_ms(torch, lambda: out.scatter_add_(1, idx, src), 20),
+            'scatter_add_ of the rows into a zeroed (B, M, C) tensor')
+
+
+def segments(torch, offsets, chunk=64):
+    """The longest key's rows and the number of 64-row summing chunks they
+    span (csrc/inverse_index.cuh kChunk)."""
+    off = offsets.long()
+    seg = torch.diff(off)
+    x = int(seg.argmax())
+    s, f = int(off[x]), int(off[x + 1])
+    return int(seg.max()), (f - 1) // chunk - s // chunk + 1
+
+
 def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, rows):
-    """scatter, interp_g_bwd, scatter_interp (the two folded) and attn_g_bwd
-    at one cv1 train frame (3 examples of 17203 queries, each against its
+    """scatter, interp_g_bwd, the decoder route's scatter + interp_bwd and
+    attn_g_bwd at one cv1 train frame (3 examples of 17203 queries, each against its
     own 2124-point abstract cloud; K 14 gathered, interpolation over 8), each
     against its plain version (the attention one example at a time) and
     twice for the same bits; the gathered attention backward also against
@@ -669,29 +719,37 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
     d1 = t_attn.gather_bwd(ki, dg, M, K)
     d2 = t_attn.gather_bwd(ki, dg, M, K)
     ref = t_attn.gather_bwd_plain(ki, dg, M, K)
+    rows_i, offsets = t_attn.scatter_index(ki, M, K, K)
+    index_ok = all(bool(torch.equal(a, b)) for a, b in zip(
+        (rows_i, offsets), t_attn.scatter_index_plain(ki, M, K, K)))
     torch.cuda.synchronize()
     err, scaled, ok = agree([(d1, ref)])
     repro = max_err(d1, d2)
     ms = cuda_ms(torch, lambda: t_attn.gather_bwd(ki, dg, M, K), 20)
     index_ms = cuda_ms(torch, lambda: t_attn.scatter_index(ki, M, K, K), 20)
     plain_ms = cuda_ms(torch, lambda: t_attn.gather_bwd_plain(ki, dg, M, K), 5)
+    lib_ms, lib_name = scatter_add_ms(torch, ki, dg, M, K, dev)
     flat = (ki.long() + M * torch.arange(B, device=dev).view(B, 1, 1)).transpose(1, 2)
     flat, dg_rows = flat.reshape(-1), dg.reshape(-1, C)
-    lib_ms = cuda_ms(torch, lambda: torch.zeros((B * M, C), device=dev).index_add_(
+    index_add_ms = cuda_ms(torch, lambda: torch.zeros((B * M, C), device=dev).index_add_(
         0, flat, dg_rows), 20)
-    seg = int(torch.diff(t_attn.scatter_index(ki, M, K, K)[1]).max())
+    seg, chunks = segments(torch, offsets)
     b_ms, b_by = bound(4 * (B * K * N * C + B * N * K + B * M * C), 1.0 * B * K * N * C)
     shape = [B, N, M, K, C]
-    emit(dict(phase='kernel', name='scatter', shape=shape, agree=ok, max_abs_err=err,
-              max_scaled_err=scaled, tolerance=tol, repeat_max_abs_diff=repro, ms=ms,
+    emit(dict(phase='kernel', name='scatter', shape=shape, agree=ok and index_ok,
+              max_abs_err=err, max_scaled_err=scaled, tolerance=tol,
+              index_equals_stable_sort=index_ok, repeat_max_abs_diff=repro, ms=ms,
               inverse_index_ms=index_ms, plain_ms=plain_ms, library_ms=lib_ms,
-              library='index_add_ of the flattened rows', longest_segment=seg,
-              mean_segment=B * K * N / (B * M), bound_ms=b_ms, bound_by=b_by))
-    if not ok or repro != 0.0:
-        raise AssertionError(f'scatter disagrees (err {err}) or is not reproducible ({repro})')
+              library=lib_name, index_add_ms=index_add_ms, longest_segment=seg,
+              longest_segment_chunks=chunks, mean_segment=B * K * N / (B * M),
+              bound_ms=b_ms, bound_by=b_by))
+    if not (ok and index_ok) or repro != 0.0:
+        raise AssertionError(f'scatter disagrees (err {err}, index {index_ok}) or is not '
+                             f'reproducible ({repro})')
     rows['scatter'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=lib_ms, shape=shape,
-                           inverse_index_ms=index_ms, longest_segment=seg,
+                           bound_by=b_by, library_ms=lib_ms, library=lib_name, shape=shape,
+                           inverse_index_ms=index_ms, index_add_ms=index_add_ms,
+                           longest_segment=seg, longest_segment_chunks=chunks,
                            repeat_max_abs_diff=repro)
     del d1, d2, ref, dg, dg_rows
 
@@ -710,7 +768,7 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
     w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
     wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2)[..., None]
     lib_out = torch.zeros_like(ref)
-    lib_ms = lib_mul_ms = cuda_ms(
+    lib_ms = cuda_ms(
         torch, lambda: torch.mul(wn, go[:, None], out=lib_out[:, :KI, :, :E]), 20)
     b_ms, b_by = bound(4 * (B * N * KI + B * N * E + B * K * N * C), 1.0 * B * N * KI * E)
     shape = [B, N, KI, K, C]
@@ -728,58 +786,29 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                                 repeat_max_abs_diff=repro)
     del o1, o2, ref, lib_out
 
-    # The decoder route's scatter with the interpolation's backward folded
-    # in, on the same rows: against its plain version, bit-equal to the
-    # scatter of dg + o4d_interp_g_bwd's rows, twice for the same bits; its
-    # marginal time over the plain scatter of dg on the same rows.
+    # The decoder route's backward of the gather and the interpolation: the
+    # scatter of dg plus interp_bwd of go (gather_interp_bwd_split), against
+    # its plain version, twice for the same bits; its time beside the
+    # scatter's on the same rows.
     dg = rand(B, K, N, C)
     args = (ki, kd, dg, go, M, K, KI, 1e-4)
-    f1 = t_attn.gather_interp_bwd(*args)
-    f2 = t_attn.gather_interp_bwd(*args)
+    f1 = t_attn.gather_interp_bwd_split(*args)
+    f2 = t_attn.gather_interp_bwd_split(*args)
     ref = t_attn.gather_interp_bwd_plain(*args)
-    dense = dg + t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4)
-    unfolded = t_attn.gather_bwd(ki, dense, M, K)
-
-    def split():
-        """The other way to the same sum: the plain-dg scatter, then the
-        index route's interp_bwd of go added to the first E channels."""
-        out = t_attn.gather_bwd(ki, dg, M, K)
-        out[..., :E] += t_attn.interp_bwd(ki, kd, go, M, KI, 1e-4)
-        return out
     torch.cuda.synchronize()
     err, scaled, ok = agree([(f1, ref)])
-    split_err = agree([(split(), ref)])[1]
     repro = max_err(f1, f2)
-    same_as_unfolded = bool(torch.equal(f1, unfolded))
-    del f1, f2, ref, unfolded
-    ms = cuda_ms(torch, lambda: t_attn.gather_interp_bwd(*args), 20)
+    del f1, f2, ref
+    route_ms = cuda_ms(torch, lambda: t_attn.gather_interp_bwd_split(*args), 20)
     scatter_ms = cuda_ms(torch, lambda: t_attn.gather_bwd(ki, dg, M, K), 20)
-    split_ms = cuda_ms(torch, split, 20)
-    unfolded_ms = cuda_ms(torch, lambda: t_attn.gather_bwd(
-        ki, dg + t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4), M, K), 10)
-    plain_ms = cuda_ms(torch, lambda: t_attn.gather_interp_bwd_plain(*args), 5)
-    flat = (ki.long() + M * torch.arange(B, device=dev).view(B, 1, 1)).transpose(1, 2)
-    flat, dense_rows = flat.reshape(-1), dense.reshape(-1, C)
-    lib_ms = cuda_ms(torch, lambda: torch.zeros((B * M, C), device=dev).index_add_(
-        0, flat, dense_rows), 20)
-    del dense, dense_rows
-    b_ms, b_by = bound(4 * (B * K * N * C + B * N * E + B * N * (K + KI) + B * M * C),
-                       1.0 * B * K * N * C + 3.0 * B * N * KI * E)
-    shape = [B, N, M, K, KI, C]
-    emit(dict(phase='kernel', name='scatter_interp', shape=shape,
-              agree=ok and same_as_unfolded, max_abs_err=err, max_scaled_err=scaled,
-              tolerance=tol, equals_scatter_of_dg_plus_interp_g_bwd=same_as_unfolded,
-              repeat_max_abs_diff=repro, ms=ms, scatter_same_rows_ms=scatter_ms,
-              fold_marginal_ms=ms - scatter_ms, unfolded_ms=unfolded_ms,
-              unfolded='o4d_interp_g_bwd + the add + o4d_scatter',
-              scatter_plus_interp_bwd_ms=split_ms,
-              scatter_plus_interp_bwd_scaled_err=split_err,
-              interp_g_bwd_mul_ms=lib_mul_ms, plain_ms=plain_ms, library_ms=lib_ms,
-              library='index_add_ of the flattened dg + interpolation rows (their sum '
-                      'not timed)', bound_ms=b_ms, bound_by=b_by))
-    if not (ok and same_as_unfolded) or repro != 0.0:
-        raise AssertionError(f'scatter_interp disagrees (err {err}, unfolded '
-                             f'{same_as_unfolded}) or is not reproducible ({repro})')
+    emit(dict(phase='route', name='gather_interp_bwd', shape=[B, N, M, K, KI, C],
+              agree=ok, max_abs_err=err, max_scaled_err=scaled, tolerance=tol,
+              repeat_max_abs_diff=repro, ms=route_ms, scatter_same_rows_ms=scatter_ms,
+              kernels='o4d_scatter + o4d_interp_bwd'))
+    if not ok or repro != 0.0:
+        raise AssertionError(f'the decoder route\'s gather + interpolation backward '
+                             f'disagrees (err {err}) or is not reproducible ({repro})')
+    rows['scatter']['route_ms'] = route_ms
     # PERF.md's write-bandwidth question: a write pass over dg's size into a
     # buffer held across calls, one that allocates each call, and a copy.
     buf = torch.empty_like(dg)
@@ -791,15 +820,7 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
               fill_tb_s=nbytes / fill_ms / 1e9, zeros_ms=zeros_ms,
               zeros_tb_s=nbytes / zeros_ms / 1e9, copy_ms=copy_ms,
               copy_tb_s=2 * nbytes / copy_ms / 1e9))
-    del buf
-    rows['scatter_interp'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                  shape=shape, repeat_max_abs_diff=repro,
-                                  fold_marginal_ms=ms - scatter_ms,
-                                  scatter_same_rows_ms=scatter_ms,
-                                  unfolded_ms=unfolded_ms,
-                                  scatter_plus_interp_bwd_ms=split_ms)
-    del dg, args
+    del buf, dg, args
 
     # The gathered attention's backward, and the per-row index route on the
     # same rows.
@@ -820,6 +841,7 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
     del rq, rg, rw, dq2, dgk2, dw2, iq, iw
     with torch.no_grad():
         ms = cuda_ms(torch, lambda: t_attn.attn_g_bwd(*args), 3)
+        peak = launch_peak_gib(torch, lambda: t_attn.attn_g_bwd(*args))
         idx_ms = cuda_ms(torch, lambda: t_attn.attn_bwd(qpos, q_proj, ki, pos2, feats2,
                                                         params, K, False, go), 2)
     plain_ms = cuda_ms(torch, lambda: plain_per_example(torch, t_attn.attn_g_bwd_plain, args), 2)
@@ -830,6 +852,7 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                   + B * N * D + B * K * N * C + n_w)
     b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
     f32_ms = bound(nbytes, 2.0 * macs)[0]
+    rates = attn_bwd_rates(2.0 * macs, ms, b_ms)
     shape = [B, N, M, K, D, E]
     emit(dict(phase='kernel', name='attn_g_bwd', shape=shape, agree=ok and zeros_exact,
               max_abs_err=err, max_scaled_err=scaled, tolerance=tol,
@@ -838,7 +861,8 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
               plain_ms=plain_ms, plain='autograd through attn_g_plain, one example at a time',
               library_ms=None, index_route_per_row_bwd_ms=idx_ms, bound_ms=b_ms,
               bound_by=b_by, bound_peak='bf16 tensor core 989 TFLOP/s',
-              bound_f32_cuda_core_ms=f32_ms, flop=2.0 * macs))
+              bound_f32_cuda_core_ms=f32_ms, flop=2.0 * macs, launch_peak_gib=peak,
+              **rates))
     if not (ok and zeros_exact and same_as_index) or repro != 0.0:
         raise AssertionError(f'attn_g_bwd disagrees (err {err}, zeros {zeros_exact}, '
                              f'index route {same_as_index}) or is not reproducible ({repro})')
@@ -846,7 +870,8 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                               bound_by=b_by, library_ms=None,
                               bound_peak='bf16 tensor core 989 TFLOP/s',
                               bound_f32_cuda_core_ms=f32_ms, shape=shape,
-                              repeat_max_abs_diff=repro, index_route_per_row_bwd_ms=idx_ms)
+                              repeat_max_abs_diff=repro, index_route_per_row_bwd_ms=idx_ms,
+                              launch_peak_gib=peak, **rates)
 
 
 def check_self_attention_kernels(torch, dev, rng, encoder, rows):
@@ -1261,7 +1286,7 @@ def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
         if d.type == 'cuda':
             torch.cuda.synchronize()
             launched = {k: _build.launch_counts()[k]
-                        for k in _SHARED + _SHARED_BWD + ('scatter',)}
+                        for k in _SHARED + _SHARED_BWD + ('interp_bwd',)}
         res[name] = (float(loss.detach()), [x.cpu() for x in grads], time.time() - t0)
     per = []
     for n, a, b in zip(names, res['cuda'][1], res['cpu'][1]):
@@ -1279,8 +1304,8 @@ def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
                tolerance='loss 1e-5; each gradient L2 error <= 1e-4 x max(1, its L2 norm)',
                launches=launched, cpu_s=res['cpu'][2])
     out['ok'] = (out['loss_rel_err'] <= 1e-5 and out['max_rel_l2'] <= 1e-4
-                 and launched == dict(gather=1, interp_g=1, attn_g=2, scatter_interp=1,
-                                      attn_g_bwd=2, scatter=0, interp_g_bwd=0))
+                 and launched == dict(gather=1, interp_g=1, attn_g=2, scatter=1,
+                                      interp_bwd=1, attn_g_bwd=2, interp_g_bwd=0))
     return out
 
 
@@ -1308,10 +1333,14 @@ def train_cv1(torch, dev, smi, path_counts):
         ki, _ = t_attn.knn_extract(frame['points_query'][..., :3], abstract[..., :3],
                                    cfg.cross_attn_neighbors)
         M, K = abstract.shape[1], ki.shape[-1]
-        seg = torch.diff(t_attn.scatter_index(ki, M, K, K)[1])
-        # The scatter on this skewed frame, against uniform clouds' (kernel line).
+        offsets = t_attn.scatter_index(ki, M, K, K)[1]
+        seg = torch.diff(offsets)
+        longest, chunks = segments(torch, offsets)
+        # The scatter on this skewed frame, against uniform clouds' (kernel
+        # line), beside scatter_add_ on the same rows.
         dg = torch.randn((ki.shape[0], K, ki.shape[1], abstract.shape[2]), device=dev)
         frame_scatter_ms = cuda_ms(torch, lambda: t_attn.gather_bwd(ki, dg, M, K), 10)
+        frame_lib_ms = scatter_add_ms(torch, ki, dg, M, K, dev)[0]
         del dg
     check = decoder_grad_check(torch, tr, abstract, fg, frame, dev)
 
@@ -1335,11 +1364,14 @@ def train_cv1(torch, dev, smi, path_counts):
               params_changed_max_abs=changed, split_ms=split, peak_mem_gib=peak_gb,
               scatter_longest_segment=int(seg.max()),
               scatter_mean_segment=float(seg.float().mean()),
-              scatter_ms_on_frame=frame_scatter_ms, grad_check=check, ok=bool(ok), gpu=smi))
+              scatter_longest_segment_chunks=chunks, scatter_ms_on_frame=frame_scatter_ms,
+              scatter_add_ms_on_frame=frame_lib_ms, grad_check=check, ok=bool(ok), gpu=smi))
     if not ok:
         raise AssertionError(f'train_cv1 failed: launches {per_step} (expected '
                              f'{_CV1_STEP}, nn1_bidir {counts.get("nn1_bidir")}), finite '
                              f'{finite}, changed {changed}, card vs CPU {check}')
+    return dict(ms=frame_scatter_ms, library_ms=frame_lib_ms, longest_segment=longest,
+                longest_segment_chunks=chunks)
 
 
 def main():
@@ -1809,7 +1841,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 8. The cv1 train step: the shared-gather route's backward kernels.
-    train_cv1(torch, dev, smi, path_counts)
+    rows['scatter']['real_frame'] = train_cv1(torch, dev, smi, path_counts)
     torch.cuda.empty_cache()
 
     # 9. The gv1 train step through the encoder's fused self-attention.

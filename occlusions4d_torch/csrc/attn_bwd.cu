@@ -1,231 +1,461 @@
-// Backward of the fused kNN vector attention for Hopper, three entries:
+// Backward of the fused kNN vector attention for Hopper, three entries on one
+// body:
 //   o4d_attn_bwd   replaces occlusions4d_tpu/ops/pallas_attention.py::
 //                  _attn_bwd_kernel (:246), in its use_idx form, in both
 //                  projection modes of the forward (csrc/attn.cu):
 //     premul  - kv = [feats2 Wk | feats2 Wv] (B, M, 2D); d(kv) holds [dk | dv];
 //     per-row - kv = feats2 (B, M, E); d(kv) = d(feats2), plus dWk and dWv;
 //   o4d_attn_g_bwd replaces _attn_g_bwd_kernel (:1030): per-row mode over the
-//                  shared gather's rows g (B, K_ext, N, E + 3) (csrc/gather.cu).
-//                  Only the row loader and the row gradients' destination
-//                  differ: the rows' gradients
-//                  dk Wk^T + dv Wv^T are WRITTEN to dg[b, j, n, :E] (the first
-//                  pass stores, the second adds; exactly one block owns each
-//                  (j, n) row), the position columns and the rows j >= k of
-//                  dg are zeroed, and the scatter of csrc/gather.cu takes dg
-//                  to the key rows. The slots then hold the weight block only;
+//                  shared gather's rows g (B, K_ext, N, E + 3) (csrc/gather.cu):
+//                  the rows' gradients dv Wv^T - dhpre Wk^T are WRITTEN to
+//                  dg[b, j, n, :E], its position columns and rows j >= k
+//                  zeroed; the scatter of csrc/gather.cu takes dg to the keys;
 //   o4d_sattn_bwd  replaces occlusions4d_tpu/ops/pallas_self_attention.py::
-//                  _bwd_kernel (:132), the encoder's fused self-attention
-//                  (o4d_sattn of csrc/attn.cu): the rows come from gf
-//                  (B, N, k, E) and rel (B, N, k, 3), and their gradients are
-//                  written to dgf (B, N, k, E) as the gathered form writes dg
-//                  (one block owns each row; no position columns, no rows past
-//                  k). The kernel at pallas_self_attention.py:182-214 computes
-//                  the same chain.
-// The three entries share one body; the template parameter MODE picks the
-// row loader and where the rows' gradients go.
+//                  _bwd_kernel (:132), the encoder's fused self-attention: the
+//                  rows come from gf (B, N, k, E) and rel (B, N, k, 3), their
+//                  gradients go to dgf (B, N, k, E).
+// The MODE template parameter picks only how a chunk's rows are found
+// (load_rows_kernel) and where their gradients go.
 //
-// Function: with the forward of csrc/attn.cu recomputed per row tile
+// Function: with the forward of csrc/attn.cu recomputed per row
 // (theta = W2 relu(W1 rel + b1) + b2, hpre = q - k + theta,
 // h1 = A1 hpre + c1, logits = (A2 relu(h1) + c2) / sqrt(D), a = softmax_K,
-// out = sum_K a (v + theta)) and g = d(out), in the order of :358-405:
+// out = sum_K a (v + theta)) and g = d(out):
 //   dvpe  = a g;  s = sum_K a g (v + theta);  dlog = a (g (v + theta) - s) / sqrt(D)
-//   dA2 += relu(h1)^T dlog;  dc2 += sum dlog;  dh1 = [h1 > 0] dlog A2^T
-//   dA1 += hpre^T dh1;  dc1 += sum dh1;  dhpre = dh1 A1^T;  dq = sum_K dhpre
-//   dk = -dhpre, dv = dvpe (scattered to their key rows);  dtheta = dhpre + dvpe
-//   dW2 += relu(W1 rel + b1)^T dtheta;  db2 += sum dtheta
-//   dtheta_h = [theta_h > 0] dtheta W2^T;  dW1 += rel^T dtheta_h;  db1 += sum dtheta_h
-// (per-row: dWk += F^T dk, dWv += F^T dv, d(feats2) rows = dk Wk^T + dv Wv^T).
+//   dh1 = [h1 > 0] dlog A2^T;  dhpre = dh1 A1^T;  dq = sum_K dhpre
+//   dk = -dhpre, dv = dvpe;  dtheta = dhpre + dvpe
+//   dtheta_h = [theta_h > 0] dtheta W2^T
+//   dA2 = sum relu(h1)^T dlog;  dA1 = sum hpre^T dh1;  dW2 = sum relu(theta_h)^T dtheta
+//   dW1 = sum rel^T dtheta_h;  dc2, dc1, db2, db1 = column sums of dlog, dh1,
+//   dtheta, dtheta_h;  per-row: dWk = -sum F^T dhpre, dWv = sum F^T dvpe,
+//   d(feats2) rows = dvpe Wv^T - dhpre Wk^T.
 // Positions carry no gradient.
 //
 // What bounds it on the H100: operations. Per (query, neighbour) row the
-// recomputed gamma MLP is 2 D H multiply-adds and its backward 4 D H more
-// (dh1, dhpre and the two weight-gradient products): about 2.1 M per row at
-// D 416, H 832, 3.1 TFLOP for one gv1 train frame (3 x 17920 queries, K 14),
-// against tens of MB of inputs. This first kernel runs them on the f32 CUDA
-// cores, like the forward. In the encoder (o4d_sattn_bwd, D 36 ... 288) the
-// weight block is small (under 10 k floats at D 36, about 0.5 M at D 288), so
-// the slots' read-modify-writes cost little beside the products.
+// recomputed gamma MLP is 2 D H multiply-adds and its backward 4 D H more:
+// about 2.1 M per row at D 416, H 832, 4.1 TFLOP for one cv1 train frame
+// (3 x 17203 queries, K 14, R = 722526 rows). f32 accuracy on the tensor
+// cores takes three TF32 products per product (3xTF32: a = a_big + a_small,
+// each a TF32 value; a b ~ a_small b_big + a_big b_small + a_big b_big,
+// summed in f32), the counterpart of the TPU kernel's f32 products at
+// Precision.HIGHEST: 3 x 4.1 TFLOP / 495 TFLOP/s = 25 ms at the cv1 frame.
 //
-// Design:
-//   * a block owns 32 rows = floor(32 / k) queries x k neighbours, so the
-//     full-K softmax of a query closes inside the block, and holds its rows'
-//     per-channel tensors in 213 KB of shared memory, reusing three (32, D)
-//     buffers as the chain proceeds; the (rows, H) hidden layer is recomputed
-//     and consumed in 128-column chunks and never stored whole;
-//   * the weight gradients and d(kv) are summed over all rows: a grid of
-//     (G, B) persistent blocks walks the example's row tiles (tile = x, x + G,
-//     ...), and each block adds into its own slot of a scratch array (one
-//     partial copy of every weight gradient and of the example's d(kv)) with
-//     plain read-modify-writes. No two threads ever add to one address, so
-//     there are no atomics; a second kernel sums the slots in a fixed order.
-//     The result is bitwise reproducible from call to call;
-//   * every product is a register-tiled loop (256 threads, 4 x 4 outputs
-//     each) over 32 x 128 weight tiles staged through shared memory (padded
-//     rows, so transposed staging is free of bank conflicts).
-// wgmma/TMA tiles, bf16 and a smaller scratch are later work.
-
+// Design (the previous kernel ran every product on the f32 CUDA cores inside
+// one 32-row tile per block, restaged every weight from L2 for each 32 rows
+// and added rank-32 updates of every weight gradient into a private global
+// slot per block after each tile: about 7.5 MB of read-modify-writes per
+// tile, 150-190 GB per cv1 launch, at one block of 8 warps per SM):
+//   * phases: the rows are processed in chunks of whole queries (QC queries
+//     of one example, at most about 1 GiB of per-row operands); per chunk a
+//     row phase recomputes the forward and runs the softmax backward, every
+//     per-row operand (rel, F, relu(theta_h), theta / dtheta, hpre, relu(h1),
+//     dlog, dvpe, dh1, dhpre, dtheta_h) going through device memory;
+//   * every product is one tensor-core GEMM kernel (gemm3_kernel): 128 x 128
+//     output tiles of 8 warps, each warp 64 x 32 through mma.sync m16n8k8
+//     TF32 in the 3xTF32 split (each 8-deep step's three products summed by
+//     the tensor core, then added to the f32 sum in registers, rounded to
+//     nearest), 32-deep k-steps staged by cp.async (16-byte copies where a
+//     tile is whole and aligned, else 4-byte ones at any stride with ragged
+//     edges zero-filled; transposed operands kept in their memory
+//     orientation) in a 3-stage ring, 2 blocks (16 warps) per SM. In
+//     the row phase a weight tile is staged once per 128 rows; the epilogue
+//     applies the bias, the ReLU, the [x > 0] mask, the sign and the
+//     destination row map (dg's (j, n) layout);
+//   * the weight gradients are long-K products over the chunk's rows: a
+//     block owns a 128 x 128 output tile and a fixed slice of the rows,
+//     accumulates in registers and writes its partial once; a reduce adds
+//     the slices in slice order and the chunks in chunk order. No atomics:
+//     the result is bit-reproducible from call to call, and the gathered
+//     and index routes, which see the same rows in the same chunks, give the
+//     same bits for d(q_proj) and the weight gradients;
+//   * the index route's d(kv) rows are summed per key by the inverse index
+//     and chunked sums of csrc/inverse_index.cuh, chunk after chunk.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include "inverse_index.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 32;
-constexpr int kColTile = 128;
-constexpr int kKTile = 32;
-constexpr int kWS = kColTile + 1;  // staged tile row stride.
+// ------------------------------------------------------------ 3xTF32 GEMM --
+constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3, kGemmThreads = 256;
+constexpr int kLdMK = kBK + 4;  // tiles kept [row][k]: 36 floats per row.
+constexpr int kLdKN = kBN + 8;  // tiles kept [k][col]: 136 floats per row.
+constexpr int kTileFloats = kBM * kLdMK;  // >= kBK * kLdKN.
+constexpr int kGemmSmem = kStages * 2 * kTileFloats * (int)sizeof(float);
+constexpr int kSplitBlocks = 264;  // 2 blocks on each of the 132 SMs.
 
-// C[r][c] (+)= act(sum_kk A[r][kk] W(kk, c) + bias[c]) for r < 32, c < Nc,
-// where W(kk, c) = W[kk * ldw + c], or W[c * ldw + kk] when TRANS (A W^T).
-// A and C in shared memory, W in global memory.
-template <bool TRANS, bool RELU, bool ACCUM>
-__device__ void gemm_rows(const float* A, int lda, const float* __restrict__ W,
-                          int ldw, const float* __restrict__ bias, int Kd, int Nc,
-                          float* C, int ldc, float* ws) {
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  for (int cb = 0; cb < Nc; cb += kColTile) {
-    float acc[4][4];
+// Destination row of output row r: (r / rk) * q + (r % rk) * j floats.
+struct RowMap {
+  long long q, j;
+  int rk;
+};
+
+// C (M x N) (+)= alpha op(A) op(B) over the K range of blockIdx.z's slice,
+// where op(A)(m, k) = A[m lda + k], or A[k lda + m] with TA; op(B)(k, n) =
+// B[k ldb + n], or B[n ldb + k] with TB. Epilogue: + bias[n], ReLU, zero
+// where mask[m ldm + n] <= 0, store or add at C + map(m) + n; slice z writes
+// at C + z zstride.
+struct GemmArgs {
+  const float* A;
+  long long lda;
+  const float* B;
+  long long ldb;
+  float* C;
+  RowMap map;
+  long long zstride;
+  const float* bias;
+  const float* mask;
+  long long ldm;
+  int M, N, K, kslice;
+  float alpha;
+  int relu, accum;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// its 13 low bits cleared, so that the f32 residual below is exact.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32 values (x - big is exact in f32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+
+// c = a b (ZERO) or c += a b, one m16n8k8 TF32 tensor-core product.
+template <bool ZERO>
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  if (ZERO)
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The product of a block's 128 x 128 tile, in registers: on the tensor cores
+// (3xTF32; the thread's fragments of its warp's 64 x 32), or with FMA on
+// the CUDA cores (the thread's 8 x 8 outputs, rows ty + 16 i, columns
+// 4 tx + {0..3} and 64 + 4 tx + {0..3}): every output a sequential chain
+// acc = fma(a_k, b_k, acc) over k = 0, 1, ... from zero, the rounding of a
+// plain f32 matrix product.
+template <bool TA, bool TB, bool FMA>
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm3_kernel(GemmArgs p) {
+  static_assert(!FMA || (!TA && !TB), "the FMA product takes row-major operands");
+  extern __shared__ float smg[];
+  float* As = smg;
+  float* Bs = smg + kStages * kTileFloats;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;          // mma group and thread in group.
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // the warp's 64 x 32.
+  const int tx = tid & 15, ty = tid >> 4;           // FMA: the thread's 8 x 8.
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int kb = blockIdx.z * p.kslice, ke = min(p.K, kb + p.kslice);
+  const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
+
+  // 16-byte copies where the whole tile is in range and aligned (the
+  // operand's row stride a multiple of 4 floats), 4-byte copies elsewhere.
+  const bool a_vec = m0 + kBM <= p.M && p.lda % 4 == 0 && ((size_t)p.A & 15) == 0;
+  const bool b_vec = n0 + kBN <= p.N && p.ldb % 4 == 0 && ((size_t)p.B & 15) == 0;
+  auto load = [&](int stage, int kt) {
+    const int k0 = kb + kt * kBK;
+    float* as = As + stage * kTileFloats;
+    float* bs = Bs + stage * kTileFloats;
+    const bool k_full = k0 + kBK <= ke;
+    if (a_vec && k_full) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][t] = 0.f;
-    for (int k0 = 0; k0 < Kd; k0 += kKTile) {
-      const int kc = min(kKTile, Kd - k0);
-      __syncthreads();
-      for (int idx = tid; idx < kKTile * kColTile; idx += kThreads) {
-        const int kk = TRANS ? idx % kKTile : idx / kColTile;
-        const int c = TRANS ? idx / kKTile : idx % kColTile;
-        float v = 0.f;
-        if (kk < kc && cb + c < Nc)
-          v = TRANS ? W[(size_t)(cb + c) * ldw + k0 + kk]
-                    : W[(size_t)(k0 + kk) * ldw + cb + c];
-        ws[kk * kWS + c] = v;
+      for (int i = 0; i < kBM * kBK / 4 / kGemmThreads; ++i) {
+        const int idx = tid + i * kGemmThreads;
+        if (TA) {
+          const int m4 = idx & (kBM / 4 - 1), k = idx / (kBM / 4);
+          cp_async16(as + k * kLdKN + 4 * m4, p.A + (size_t)(k0 + k) * p.lda + m0 + 4 * m4);
+        } else {
+          const int k4 = idx & (kBK / 4 - 1), m = idx / (kBK / 4);
+          cp_async16(as + m * kLdMK + 4 * k4, p.A + (size_t)(m0 + m) * p.lda + k0 + 4 * k4);
+        }
       }
-      __syncthreads();
+    } else {
 #pragma unroll 4
-      for (int kk = 0; kk < kc; ++kk) {
-        float a[4], w[4];
+    for (int i = 0; i < kBM * kBK / kGemmThreads; ++i) {
+      const int idx = tid + i * kGemmThreads;
+      int m, k;
+      float* dst;
+      if (TA) {
+        m = idx & (kBM - 1), k = idx / kBM;
+        dst = as + k * kLdKN + m;
+      } else {
+        k = idx & (kBK - 1), m = idx / kBK;
+        dst = as + m * kLdMK + k;
+      }
+      const int gm = m0 + m, gk = k0 + k;
+      const bool ok = gm < p.M && gk < ke;
+      const float* src = !ok ? p.A
+                         : TA ? p.A + (size_t)gk * p.lda + gm
+                              : p.A + (size_t)gm * p.lda + gk;
+      cp_async4(dst, src, ok);
+    }
+    }
+    if (b_vec && k_full) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * lda + k0 + kk];
+      for (int i = 0; i < kBN * kBK / 4 / kGemmThreads; ++i) {
+        const int idx = tid + i * kGemmThreads;
+        if (TB) {
+          const int k4 = idx & (kBK / 4 - 1), n = idx / (kBK / 4);
+          cp_async16(bs + n * kLdMK + 4 * k4, p.B + (size_t)(n0 + n) * p.ldb + k0 + 4 * k4);
+        } else {
+          const int n4 = idx & (kBN / 4 - 1), k = idx / (kBN / 4);
+          cp_async16(bs + k * kLdKN + 4 * n4, p.B + (size_t)(k0 + k) * p.ldb + n0 + 4 * n4);
+        }
+      }
+      return;
+    }
+#pragma unroll 4
+    for (int i = 0; i < kBN * kBK / kGemmThreads; ++i) {
+      const int idx = tid + i * kGemmThreads;
+      int n, k;
+      float* dst;
+      if (TB) {
+        k = idx & (kBK - 1), n = idx / kBK;
+        dst = bs + n * kLdMK + k;
+      } else {
+        n = idx & (kBN - 1), k = idx / kBN;
+        dst = bs + k * kLdKN + n;
+      }
+      const int gn = n0 + n, gk = k0 + k;
+      const bool ok = gn < p.N && gk < ke;
+      const float* src = !ok ? p.B
+                         : TB ? p.B + (size_t)gn * p.ldb + gk
+                              : p.B + (size_t)gk * p.ldb + gn;
+      cp_async4(dst, src, ok);
+    }
+  };
+
+  float acc[64];
 #pragma unroll
-        for (int t = 0; t < 4; ++t) w[t] = ws[kk * kWS + tx + 32 * t];
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (kt + kStages - 1 < nk) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+    const float* as = As + (kt % kStages) * kTileFloats;
+    const float* bs = Bs + (kt % kStages) * kTileFloats;
+    if constexpr (FMA) {
+      // Zero-filled k past the end add exact zeros: the chain is unchanged.
+#pragma unroll 4
+      for (int k = 0; k < kBK; ++k) {
+        float av[8], bv[8];
 #pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(a[i], w[t], acc[i][t]);
+        for (int i = 0; i < 8; ++i)
+          av[i] = as[(ty + 16 * i) * kLdMK + k];
+        const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kLdKN + 4 * tx);
+        const float4 b1 = *reinterpret_cast<const float4*>(bs + k * kLdKN + 64 + 4 * tx);
+        bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
+        bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
+      }
+    } else {
+#pragma unroll
+      for (int k8 = 0; k8 < kBK; k8 += 8) {
+        uint32_t bb[4][2], bsm[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = wn + nt * 8 + gq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = k8 + tq + 4 * h;
+            const float v = TB ? bs[n * kLdMK + k] : bs[k * kLdKN + n];
+            split_tf32(v, bb[nt][h], bsm[nt][h]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t ab[4], asm_[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int m = wm + mt * 16 + gq + 8 * (h & 1);
+            const int k = k8 + tq + 4 * (h >> 1);
+            const float v = TA ? as[k * kLdKN + m] : as[m * kLdMK + k];
+            split_tf32(v, ab[h], asm_[h]);
+          }
+          // The three products of one 8-deep step summed by the tensor core,
+          // then added to the f32 sum with one rounding: the tensor core's own
+          // accumulation rounds toward zero, which over hundreds of steps
+          // drifts a long sum past the f32 tolerance.
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            float t[4];
+            mma_tf32<true>(t, asm_, bb[nt]);
+            mma_tf32<false>(t, ab, bsm[nt]);
+            mma_tf32<false>(t, ab, bb[nt]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[(mt * 4 + nt) * 4 + c] += t[c];
+          }
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int c = cb + tx + 32 * t;
-        if (c < Nc) {
-          float v = acc[i][t];
-          if (bias != nullptr) v += bias[c];
-          if (RELU) v = fmaxf(v, 0.f);
-          float* dst = C + (ty * 4 + i) * ldc + c;
-          if (ACCUM)
-            *dst += v;
-          else
-            *dst = v;
-        }
-      }
-    }
   }
-  __syncthreads();
-}
+  cp_async_wait<0>();
 
-// out[i * ldo + c] += scale * sum_{r < 32} L(r, i) Rm[r * ldr + c] for
-// i < Kd, c < Nc: a weight-gradient product added into a global partial.
-// L(r, i) = L[r * ldl + i] in shared memory, or with GATHER the row
-// lrow[r][i] in global memory (a key row, or a row of the shared gather; 0
-// for an invalid row).
-template <bool GATHER>
-__device__ void outer_acc(const float* L, int ldl, const float* const* lrow,
-                          const int* rvalid, const float* Rm, int ldr, int Kd,
-                          int Nc, float scale, float* __restrict__ out, int ldo) {
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  __syncthreads();
-  for (int ib = 0; ib < Kd; ib += 32) {
-    for (int cb = 0; cb < Nc; cb += kColTile) {
-      float acc[4][4];
+  float* C = p.C + (size_t)blockIdx.z * p.zstride;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) acc[i][t] = 0.f;
-      for (int r = 0; r < kRows; ++r) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int ii = ib + ty * 4 + i;
-          if (GATHER)
-            a[i] = (rvalid[r] && ii < Kd) ? lrow[r][ii] : 0.f;
-          else
-            a[i] = ii < Kd ? L[r * ldl + ii] : 0.f;
-        }
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int c = cb + tx + 32 * t;
-          b[t] = c < Nc ? Rm[r * ldr + c] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(a[i], b[t], acc[i][t]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ii = ib + ty * 4 + i;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int c = cb + tx + 32 * t;
-          if (ii < Kd && c < Nc) out[(size_t)ii * ldo + c] += scale * acc[i][t];
-        }
-      }
-    }
+  for (int i = 0; i < 64; ++i) {
+    // tensor cores: i = (mt 4 + nt) 4 + c; FMA: i = 8 row + col.
+    const int m = FMA ? m0 + ty + 16 * (i >> 3)
+                      : m0 + wm + (i >> 4) * 16 + gq + 8 * ((i & 3) >> 1);
+    const int n = FMA ? n0 + 4 * tx + (i & 3) + 64 * ((i >> 2) & 1)
+                      : n0 + wn + ((i >> 2) & 3) * 8 + 2 * tq + (i & 1);
+    if (m >= p.M || n >= p.N) continue;
+    float* row = C + (size_t)(m / p.map.rk) * p.map.q + (size_t)(m % p.map.rk) * p.map.j;
+    float v = p.alpha * acc[i];
+    if (p.bias != nullptr) v += p.bias[n];
+    if (p.relu) v = fmaxf(v, 0.f);
+    if (p.mask != nullptr && !(p.mask[(size_t)m * p.ldm + n] > 0.f)) v = 0.f;
+    row[n] = p.accum ? row[n] + v : v;
   }
 }
 
-// out[ridx[r] * ldo + c] += scale * V[r * ldv + c] for valid rows r, in row
-// order; thread c owns column c, so repeated keys add in a fixed order.
-__device__ void scatter_rows(const float* V, int ldv, const int* ridx,
-                             const int* rvalid, float* __restrict__ out, int ldo,
-                             int Nc, float scale) {
-  __syncthreads();
-  for (int r = 0; r < kRows; ++r) {
-    if (!rvalid[r]) continue;
-    float* o = out + (size_t)ridx[r] * ldo;
-    for (int c = threadIdx.x; c < Nc; c += kThreads) o[c] += scale * V[r * ldv + c];
-  }
+template <bool TA, bool TB, bool FMA = false>
+cudaError_t gemm(const GemmArgs& a, int splits, cudaStream_t s) {
+  if (a.M <= 0 || a.N <= 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm3_kernel<TA, TB, FMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM, splits);
+  gemm3_kernel<TA, TB, FMA><<<grid, kGemmThreads, kGemmSmem, s>>>(a);
+  return cudaGetLastError();
 }
 
-// drow[r][c0 + c] (+)= scale * V[r * ldv + c] for valid rows r, c < Nc: the
-// gathered form's row gradients, each (j, n) row owned by one block.
-template <bool ACCUM>
-__device__ void write_rows(const float* V, int ldv, float* const* drow,
-                           const int* rvalid, int c0, int Nc, float scale) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kRows * Nc; idx += kThreads) {
-    const int r = idx / Nc, c = idx % Nc;
-    if (!rvalid[r]) continue;
-    float* o = drow[r] + c0 + c;
-    const float v = scale * V[r * ldv + c];
-    *o = ACCUM ? *o + v : v;
-  }
+GemmArgs gemm_args(const float* A, long long lda, const float* B, long long ldb,
+                   float* C, long long ldc, int M, int N, int K) {
+  GemmArgs a = {};
+  a.A = A;
+  a.lda = lda;
+  a.B = B;
+  a.ldb = ldb;
+  a.C = C;
+  a.map = RowMap{ldc, 0, 1};
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.kslice = K;
+  a.alpha = 1.f;
+  return a;
 }
 
-// out[c] += sum over valid rows of V[r * ldv + c].
-__device__ void colsum(const float* V, int ldv, int Nc, const int* rvalid,
-                       float* __restrict__ out) {
-  __syncthreads();
-  for (int c = threadIdx.x; c < Nc; c += kThreads) {
+// ----------------------------------------------------- weight-gradient phase --
+// Slices of the rows for a long-K product with `tiles` output tiles: at most
+// two blocks per SM (one wave), each slice a multiple of kBK rows.
+int row_slice(int R, int tiles) {
+  const int want = tiles < kSplitBlocks ? kSplitBlocks / tiles : 1;
+  int slice = (R + want - 1) / want;
+  slice = ((slice + kBK - 1) / kBK) * kBK;
+  return slice < kBK ? kBK : slice;
+}
+
+int out_tiles(int K1, int N) { return ((K1 + kBM - 1) / kBM) * ((N + kBN - 1) / kBN); }
+
+int n_slices(int R, int slice) { return (R + slice - 1) / slice; }
+
+// Column sums of X (R x N, row stride ldx) over row slices: part[z * N + c].
+__global__ void colsum_kernel(const float* __restrict__ X, long long ldx, int R, int N,
+                              int slice, float* __restrict__ part) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= N) return;
+  const int r0 = blockIdx.y * slice, r1 = min(R, r0 + slice);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) s += X[(size_t)r * ldx + c];
+  part[(size_t)blockIdx.y * N + c] = s;
+}
+
+// out[i] = (first ? 0 : out[i]) + (sum over the slices z, in order, of
+// part[z * cnt + i]).
+__global__ void reduce_kernel(const float* __restrict__ part, int S, long long cnt,
+                              int first, float* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < cnt;
+       i += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int r = 0; r < kRows; ++r)
-      if (rvalid[r]) s += V[r * ldv + c];
-    out[c] += s;
+    for (int z = 0; z < S; ++z) s += part[(size_t)z * cnt + i];
+    out[i] = first ? s : out[i] + s;
   }
 }
+
+cudaError_t reduce(const float* part, int S, long long cnt, int first, float* out,
+                   cudaStream_t s) {
+  const long long want = (cnt + 255) / 256;
+  reduce_kernel<<<(int)(want < 4096 ? want : 4096), 256, 0, s>>>(part, S, cnt, first, out);
+  return cudaGetLastError();
+}
+
+// out (K1 x N) (+)= alpha X^T Y over R rows (X: R x K1, Y: R x N, row-major).
+cudaError_t wgrad(const float* X, int K1, const float* Y, int N, int R, float alpha,
+                  float* part, float* out, int first, cudaStream_t s) {
+  const int slice = row_slice(R, out_tiles(K1, N)), S = n_slices(R, slice);
+  GemmArgs a = gemm_args(X, K1, Y, N, part, N, K1, N, R);
+  a.kslice = slice;
+  a.zstride = (long long)K1 * N;
+  a.alpha = alpha;
+  cudaError_t e = gemm<true, false>(a, S, s);
+  if (e != cudaSuccess) return e;
+  return reduce(part, S, (long long)K1 * N, first, out, s);
+}
+
+// Row slices of a column sum: about eight blocks of 128 columns per SM, so
+// enough loads are in flight (a thread sums its column down its slice).
+int colsum_slice(int R, int N) { return row_slice(R, ((N + kBN - 1) / kBN + 7) / 8); }
+
+// out (N) (+)= the column sums of X (R x N).
+cudaError_t bias_grad(const float* X, int N, int R, float* part, float* out, int first,
+                      cudaStream_t s) {
+  const int slice = colsum_slice(R, N), S = n_slices(R, slice);
+  colsum_kernel<<<dim3((N + 127) / 128, S), 128, 0, s>>>(X, N, R, N, slice, part);
+  return reduce(part, S, N, first, out, s);
+}
+
+long long part_floats(int R, int K1, int N) {
+  return (long long)n_slices(R, row_slice(R, out_tiles(K1, N))) * K1 * N;
+}
+
+// --------------------------------------------------------------- row phase --
+enum { kIndex = 0, kGathered = 1, kSelf = 2 };
 
 struct BwdArgs {
   const float* qpos;   // (B, N, 3)
@@ -248,285 +478,338 @@ struct BwdArgs {
   const float* ba2;    // (D)
   const float* g;      // (B, N, D)
   float* dqproj;       // (B, N, D)
-  float* dg;           // gathered only: (B, KE, N, E + 3); self: dgf (B, N, k, E)
-  float* part;         // (B * G) slots of slot_floats
-  long long slot;
-  int N, M, D, E, H, P, KS, KE, k, premul, G;
+  float* dw;           // the weight-gradient block (weight_floats)
+  float* dkv;          // index route: (B, M, 2D | E)
+  float* dg;           // gathered: (B, KE, N, E + 3); self: dgf (B, N, k, E)
+  float* ws;           // workspace floats (plan)
+  int* iws;            // index route: inverse-index ints (plan)
+  int N, M, D, E, H, P, KS, KE, k, premul, QC;
   float inv_sqrt_d;
 };
 
-// Weight-gradient block of a slot (and of the reduced output), in order:
-// dA1 (D, H), dA2 (H, D), dW2 (P, D), dW1 (3, P), dc1 (H), dc2 (D), db2 (D),
-// db1 (P), then per-row dWk (E, D), dWv (E, D); the example's d(kv) follows.
+// Weight-gradient block, in order: dA1 (D, H), dA2 (H, D), dW2 (P, D),
+// dW1 (3, P), dc1 (H), dc2 (D), db2 (D), db1 (P), then per-row dWk (E, D),
+// dWv (E, D).
 long long weight_floats(int D, int E, int H, int P, int premul) {
   return 2LL * D * H + (long long)P * D + 3LL * P + H + 2LL * D + P +
          (premul ? 0LL : 2LL * E * D);
 }
 
-size_t smem_floats(int D, int E, int P) {
-  const int LD = D > E ? D : E;
-  return (size_t)kRows * D * 2 + (size_t)kRows * LD + 2 * (size_t)kRows * kColTile +
-         (size_t)kKTile * kWS + 2 * (size_t)kRows * P + (size_t)kRows * 3;
+// Floats of one row's operands (the same for every mode, so that the
+// gathered and index routes cut their rows into the same chunks).
+long long row_floats(int D, int E, int H, int P) {
+  return 3LL + 2LL * E + 2LL * P + 6LL * D + 2LL * H;
 }
 
-// Row loaders: neighbour indices into kv, the shared gather's rows, or the
-// self-attention's n-major gathered features.
-enum { kIndex = 0, kGathered = 1, kSelf = 2 };
+struct Chunk {  // per-row operand buffers of one chunk, R rows at most.
+  float *rel, *f, *ph, *th, *kk, *vv, *hp, *r1, *lg, *dh, *dhp, *dph, *drow, *part;
+};
+
+// The chunk's buffers in ws, each 16-byte aligned; *used: their floats.
+Chunk carve(float* ws, long long R, int D, int E, int H, int P, long long* used) {
+  Chunk c;
+  long long off = 0;
+  auto take = [&](long long n) {
+    float* r = ws == nullptr ? nullptr : ws + off;
+    off += (n + 3) / 4 * 4;
+    return r;
+  };
+  c.rel = take(R * 3);
+  c.f = take(R * E);
+  c.ph = take(R * P);
+  c.th = take(R * D);   // theta, then dtheta.
+  c.kk = take(R * D);   // k rows, then dvpe.
+  c.vv = take(R * D);   // v rows, then v + theta.
+  c.hp = take(R * D);
+  c.r1 = take(R * H);
+  c.lg = take(R * D);   // logits, then dlog.
+  c.dh = take(R * H);
+  c.dhp = take(R * D);
+  c.dph = take(R * P);
+  c.drow = take(R * E);
+  c.part = take(0);  // then the weight partials, then the index route's sums.
+  *used = off;
+  return c;
+}
+
+long long part_max(int R, int D, int E, int H, int P) {
+  const int dims[][2] = {{D, H}, {H, D}, {P, D}, {3, P}, {E, D}};
+  long long m = 0;
+  for (auto& d : dims) {
+    const long long v = part_floats(R, d[0], d[1]);
+    if (v > m) m = v;
+  }
+  const int cols[] = {H, D, P};
+  for (int c : cols) {
+    const long long v = (long long)n_slices(R, colsum_slice(R, c)) * c;
+    if (v > m) m = v;
+  }
+  return m;
+}
+
+// One warp per row r = nl k + j of the chunk (query n0 + nl of example b):
+// rel = qpos - the key's position, and the row's features (F), or in
+// premul mode its projected [k | v] (kk, vv). The gathered form also zeroes
+// the row's position columns of dg and, once per query, dg's rows j >= k.
+template <int MODE>
+__global__ void load_rows_kernel(BwdArgs p, Chunk c, int b, int n0, int R) {
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= R) return;
+  const int k = p.k, nl = r / k, j = r - nl * k, n = n0 + nl;
+  const int D = p.D, E = p.E;
+  const float* qp = p.qpos + ((size_t)b * p.N + n) * 3;
+  const float* kp;
+  const float* src;
+  if (MODE == kGathered) {
+    src = p.gin + (((size_t)b * p.KE + j) * p.N + n) * (E + 3);
+    kp = src + E;
+    float* drow = p.dg + (((size_t)b * p.KE + j) * p.N + n) * (E + 3);
+    if (lane < 3) drow[E + lane] = 0.f;
+    if (j == 0)
+      for (int jj = k; jj < p.KE; ++jj) {
+        float* z = p.dg + (((size_t)b * p.KE + jj) * p.N + n) * (E + 3);
+        for (int col = lane; col < E + 3; col += 32) z[col] = 0.f;
+      }
+  } else {
+    const int idx = p.ki[((size_t)b * p.N + n) * p.KS + j];
+    src = p.kv + ((size_t)b * p.M + idx) * (p.premul ? 2 * D : E);
+    kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+  }
+  if (lane < 3) c.rel[(size_t)r * 3 + lane] = qp[lane] - kp[lane];
+  if (MODE == kIndex && p.premul) {
+    for (int col = lane; col < D; col += 32) {
+      c.kk[(size_t)r * D + col] = src[col];
+      c.vv[(size_t)r * D + col] = src[D + col];
+    }
+  } else {
+    for (int col = lane; col < E; col += 32) c.f[(size_t)r * E + col] = src[col];
+  }
+}
+
+// ph = relu(rel W1 + b1), one thread per (row, hidden unit).
+__global__ void pos_hidden_kernel(const float* __restrict__ rel,
+                                  const float* __restrict__ w1,
+                                  const float* __restrict__ b1, float* __restrict__ ph,
+                                  int R, int P) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)R * P) return;
+  const int r = (int)(i / P), c = (int)(i % P);
+  float acc = 0.f;
+  for (int kk = 0; kk < 3; ++kk) acc = fmaf(rel[(size_t)r * 3 + kk], w1[kk * P + c], acc);
+  ph[i] = fmaxf(acc + b1[c], 0.f);
+}
+
+// hpre = (q - k) + theta; v + theta (in place of v).
+__global__ void hpre_kernel(const float* __restrict__ qproj, const float* __restrict__ kk,
+                            const float* __restrict__ th, float* __restrict__ hp,
+                            float* __restrict__ vv, int R, int D, int k) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)R * D) return;
+  const int r = (int)(i / D), c = (int)(i % D);
+  hp[i] = (qproj[(size_t)(r / k) * D + c] - kk[i]) + th[i];
+  vv[i] = vv[i] + th[i];
+}
+
+// The softmax over a query's k rows and its backward, per (query, channel):
+// lg (logits without c2) -> dlog in place, dvpe into dv.
+__global__ void softmax_bwd_kernel(float* __restrict__ lg, const float* __restrict__ vpe,
+                                   const float* __restrict__ g, const float* __restrict__ c2,
+                                   float* __restrict__ dv, int nq, int D, int k,
+                                   float inv_sqrt_d) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)nq * D) return;
+  const int nl = (int)(i / D), c = (int)(i % D);
+  const size_t o0 = (size_t)nl * k * D + c;
+  const float bias = c2[c];
+  float mx = -CUDART_INF_F;
+  for (int j = 0; j < k; ++j) mx = fmaxf(mx, (lg[o0 + (size_t)j * D] + bias) * inv_sqrt_d);
+  float den = 0.f;
+  for (int j = 0; j < k; ++j) {
+    const size_t o = o0 + (size_t)j * D;
+    const float e = expf((lg[o] + bias) * inv_sqrt_d - mx);
+    lg[o] = e;
+    den += e;
+  }
+  const float gc = g[(size_t)nl * D + c];
+  float s = 0.f;
+  for (int j = 0; j < k; ++j) {
+    const size_t o = o0 + (size_t)j * D;
+    s += (lg[o] / den) * (gc * vpe[o]);
+  }
+  for (int j = 0; j < k; ++j) {
+    const size_t o = o0 + (size_t)j * D;
+    const float a = lg[o] / den;
+    lg[o] = a * (gc * vpe[o] - s) * inv_sqrt_d;
+    dv[o] = a * gc;
+  }
+}
+
+// dq = sum over the query's k rows of dhpre (in row order); dtheta = dhpre +
+// dvpe (in place of theta).
+__global__ void dq_dtheta_kernel(const float* __restrict__ dhp, const float* __restrict__ dv,
+                                 float* __restrict__ th, float* __restrict__ dq, int nq,
+                                 int D, int k) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)nq * D) return;
+  const int nl = (int)(i / D), c = (int)(i % D);
+  const size_t o0 = (size_t)nl * k * D + c;
+  float s = 0.f;
+  for (int j = 0; j < k; ++j) {
+    const size_t o = o0 + (size_t)j * D;
+    s += dhp[o];
+    th[o] = dhp[o] + dv[o];
+  }
+  dq[i] = s;
+}
+
+// The index route's row gradients, entry e = row e of the chunk: premul
+// [-dhpre | dvpe] (2D), per-row the d(feats2) rows (E).
+struct KvRows {
+  static constexpr bool kWeighted = false;
+  struct Entry {
+    int r;
+  };
+  const float* dhp;
+  const float* dv;
+  const float* drow;
+  int D, E, premul;
+  __device__ Entry entry(int e, float*) const { return Entry{e}; }
+  __device__ float value(const Entry& x, int c) const {
+    if (!premul) return __ldg(drow + (size_t)x.r * E + c);
+    return c < D ? -__ldg(dhp + (size_t)x.r * D + c) : __ldg(dv + (size_t)x.r * D + c - D);
+  }
+};
+
+inline unsigned blocks_for(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+#define O4D_TRY(x)                          \
+  do {                                      \
+    const cudaError_t e_ = (x);             \
+    if (e_ != cudaSuccess) return (int)e_;  \
+  } while (0)
 
 template <int MODE>
-__global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs p) {
-  constexpr bool GATHERED = MODE != kIndex;  // rows read from g / gf, dg written.
-  extern __shared__ float sm[];
+int run(BwdArgs& p, int B, cudaStream_t s) {
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
-  const int LD = D > E ? D : E;
-  float* B0 = sm;                     // theta -> v + theta -> d(v + theta) -> d(hpre)
-  float* B1 = B0 + kRows * D;         // k -> hpre
-  float* B2 = B1 + kRows * D;         // F (per-row) -> logits -> softmax -> d(logits)
-  float* HC = B2 + kRows * LD;        // relu(h1) chunk; d(feats2) row chunk
-  float* DH = HC + kRows * kColTile;  // d(h1) chunk
-  float* WS = DH + kRows * kColTile;  // staged weight tile
-  float* PH = WS + kKTile * kWS;      // relu(theta hidden layer)
-  float* DPH = PH + kRows * P;        // its gradient
-  float* REL = DPH + kRows * P;       // qpos - kpos
-  __shared__ int rq[kRows], ridx[kRows], rvalid[kRows];
-  __shared__ const float* rrow[kRows];  // the row's features (key or gather row)
-  __shared__ float* drow[kRows];        // gathered / self: the row's gradient
-
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int tq_per = kRows / k;
-  const int tiles = (p.N + tq_per - 1) / tq_per;
-  const int CW = p.premul ? 2 * D : E;
-  float* part = p.part + ((size_t)b * p.G + blockIdx.x) * p.slot;
-  float* dwa1 = part;
-  float* dwa2 = dwa1 + (size_t)D * H;
-  float* dwp2 = dwa2 + (size_t)H * D;
-  float* dwp1 = dwp2 + (size_t)P * D;
-  float* dba1 = dwp1 + 3 * P;
-  float* dba2 = dba1 + H;
-  float* dbp2 = dba2 + D;
-  float* dbp1 = dbp2 + D;
-  float* dwk = dbp1 + P;
-  float* dwv = dwk + (p.premul ? 0 : (size_t)E * D);
-  float* dkv = dwv + (p.premul ? 0 : (size_t)E * D);
-  const float* kvb = GATHERED ? nullptr : p.kv + (size_t)b * p.M * CW;
-
-  for (int tile = blockIdx.x; tile < tiles; tile += p.G) {
-    const int n0 = tile * tq_per;
-    __syncthreads();
-    if (tid < kRows) {
-      const int tq = tid / k, j = tid % k, n = n0 + tq;
-      const bool valid = tq < tq_per && n < p.N;
-      rq[tid] = valid ? n : -1;
-      rvalid[tid] = valid ? 1 : 0;
+  const bool premul = MODE == kIndex && p.premul;
+  const int CW = premul ? 2 * D : E;
+  const long long Rmax = (long long)p.QC * k;
+  long long used;
+  Chunk c = carve(p.ws, Rmax, D, E, H, P, &used);
+  float* sumf = p.ws + used + part_max((int)Rmax, D, E, H, P);
+  float* dw = p.dw;
+  float* dA1 = dw;
+  float* dA2 = dA1 + (size_t)D * H;
+  float* dW2 = dA2 + (size_t)H * D;
+  float* dW1 = dW2 + (size_t)P * D;
+  float* dc1 = dW1 + 3 * P;
+  float* dc2 = dc1 + H;
+  float* db2 = dc2 + D;
+  float* db1 = db2 + D;
+  float* dWk = db1 + P;
+  float* dWv = dWk + (size_t)E * D;
+  if (MODE == kIndex)
+    O4D_TRY(cudaMemsetAsync(p.dkv, 0, sizeof(float) * (size_t)B * p.M * CW, s));
+  int first = 1;
+  for (int b = 0; b < B; ++b) {
+    for (int n0 = 0; n0 < p.N; n0 += p.QC, first = 0) {
+      const int nq = min(p.QC, p.N - n0), R = nq * k;
+      const size_t q0 = (size_t)b * p.N + n0;  // the chunk's first query.
+      const float* rel = c.rel;
+      const float* F = c.f;
       if (MODE == kSelf) {
-        const size_t row = ((size_t)b * p.N + (valid ? n : 0)) * k + j;
-        rrow[tid] = p.gf + row * E;
-        drow[tid] = p.dg + row * E;
-        for (int c = 0; c < 3; ++c) REL[tid * 3 + c] = valid ? p.rel[row * 3 + c] : 0.f;
+        rel = p.rel + q0 * k * 3;
+        F = p.gf + q0 * k * E;
       } else {
-        const float* kp;
+        load_rows_kernel<MODE><<<blocks_for(R, 8), 256, 0, s>>>(p, c, b, n0, R);
+      }
+      // ---- Forward recompute ----
+      pos_hidden_kernel<<<blocks_for((long long)R * P, 256), 256, 0, s>>>(rel, p.wp1, p.bp1,
+                                                                         c.ph, R, P);
+      // theta, k, v and h1 on the CUDA cores (FMA chains, the rounding of
+      // the plain f32 products): h1's sign is the ReLU mask of dh1, and a
+      // mask that flips where h1 is within rounding of zero moves d(q_proj)
+      // and dA1 far past the f32 tolerance.
+      GemmArgs a = gemm_args(c.ph, P, p.wp2, D, c.th, D, R, D, P);
+      a.bias = p.bp2;
+      O4D_TRY((gemm<false, false, true>(a, 1, s)));
+      if (!premul) {
+        O4D_TRY((gemm<false, false, true>(gemm_args(F, E, p.wk, D, c.kk, D, R, D, E), 1,
+                                          s)));
+        O4D_TRY((gemm<false, false, true>(gemm_args(F, E, p.wv, D, c.vv, D, R, D, E), 1,
+                                          s)));
+      }
+      hpre_kernel<<<blocks_for((long long)R * D, 256), 256, 0, s>>>(
+          p.qproj + q0 * D, c.kk, c.th, c.hp, c.vv, R, D, k);
+      a = gemm_args(c.hp, D, p.wa1, H, c.r1, H, R, H, D);
+      a.bias = p.ba1;
+      a.relu = 1;
+      O4D_TRY((gemm<false, false, true>(a, 1, s)));
+      O4D_TRY((gemm<false, false>(gemm_args(c.r1, H, p.wa2, D, c.lg, D, R, D, H), 1, s)));
+      // ---- Softmax backward: dlog (in lg), dvpe (in kk) ----
+      float* dv = c.kk;
+      softmax_bwd_kernel<<<blocks_for((long long)nq * D, 256), 256, 0, s>>>(
+          c.lg, c.vv, p.g + q0 * D, p.ba2, dv, nq, D, k, p.inv_sqrt_d);
+      // ---- dh1 = [relu(h1) > 0] dlog A2^T; dhpre = dh1 A1^T ----
+      a = gemm_args(c.lg, D, p.wa2, D, c.dh, H, R, H, D);
+      a.mask = c.r1;
+      a.ldm = H;
+      O4D_TRY((gemm<false, true>(a, 1, s)));
+      O4D_TRY((gemm<false, true>(gemm_args(c.dh, H, p.wa1, H, c.dhp, D, R, D, H), 1, s)));
+      dq_dtheta_kernel<<<blocks_for((long long)nq * D, 256), 256, 0, s>>>(
+          c.dhp, dv, c.th, p.dqproj + q0 * D, nq, D, k);
+      // dtheta_h = [relu(theta_h) > 0] dtheta W2^T.
+      a = gemm_args(c.th, D, p.wp2, D, c.dph, P, R, P, D);
+      a.mask = c.ph;
+      a.ldm = P;
+      O4D_TRY((gemm<false, true>(a, 1, s)));
+      // ---- The rows' gradients: dvpe Wv^T - dhpre Wk^T ----
+      if (!premul) {
+        GemmArgs r1 = gemm_args(dv, D, p.wv, D, c.drow, E, R, E, D);
         if (MODE == kGathered) {
-          const size_t row = ((size_t)b * p.KE + j) * p.N + (valid ? n : 0);
-          rrow[tid] = p.gin + row * (E + 3);
-          drow[tid] = p.dg + row * (E + 3);
-          kp = rrow[tid] + E;
-        } else {
-          const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
-          ridx[tid] = idx;
-          rrow[tid] = kvb + (size_t)idx * CW;
-          kp = p.kpos + ((size_t)b * p.M + idx) * 3;
+          r1.C = p.dg + ((size_t)b * p.KE * p.N + n0) * (E + 3);
+          r1.map = RowMap{E + 3, (long long)p.N * (E + 3), k};
+        } else if (MODE == kSelf) {
+          r1.C = p.dg + q0 * k * E;
         }
-        for (int c = 0; c < 3; ++c)
-          REL[tid * 3 + c] = valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
+        O4D_TRY((gemm<false, true>(r1, 1, s)));
+        GemmArgs r2 = r1;
+        r2.A = c.dhp;
+        r2.B = p.wk;
+        r2.alpha = -1.f;
+        r2.accum = 1;
+        O4D_TRY((gemm<false, true>(r2, 1, s)));
       }
-    }
-    __syncthreads();
-    if (MODE == kGathered) {
-      // dg's position columns and the rows j >= k of the tile's queries are
-      // zero; the feature columns of the rows j < k are written below.
-      const int C = E + 3, extra = (p.KE - k) * C;
-      for (int idx = tid; idx < kRows * 3; idx += kThreads)
-        if (rvalid[idx / 3]) drow[idx / 3][E + idx % 3] = 0.f;
-      for (int idx = tid; idx < tq_per * extra; idx += kThreads) {
-        const int tq = idx / extra, j = k + (idx % extra) / C, c = idx % C;
-        if (rvalid[tq * k])
-          p.dg[(((size_t)b * p.KE + j) * p.N + rq[tq * k]) * C + c] = 0.f;
+      if (MODE == kIndex) {
+        const o4d_index::Entries x{p.ki + q0 * p.KS, nq, p.M, p.KS, k, false};
+        O4D_TRY(o4d_index::build(x, R, p.M, p.iws, s));
+        const KvRows rows{c.dhp, dv, c.drow, D, E, premul ? 1 : 0};
+        O4D_TRY((o4d_index::sum<KvRows, true>(rows, x, p.iws, sumf,
+                                              p.dkv + (size_t)b * p.M * CW, R, p.M, CW,
+                                              s)));
       }
-    }
-
-    // ---- Forward recompute (the arithmetic of csrc/attn.cu) ----
-    gemm_rows<false, true, false>(REL, 3, p.wp1, P, p.bp1, 3, P, PH, P, WS);
-    gemm_rows<false, false, false>(PH, P, p.wp2, D, p.bp2, P, D, B0, D, WS);
-    if (!GATHERED && p.premul) {
-      for (int idx = tid; idx < kRows * D; idx += kThreads) {
-        const int r = idx / D, c = idx % D;
-        B1[idx] = rvalid[r] ? kvb[(size_t)ridx[r] * 2 * D + c] : 0.f;
+      // ---- Weight gradients over the chunk's rows ----
+      O4D_TRY(wgrad(c.hp, D, c.dh, H, R, 1.f, c.part, dA1, first, s));
+      O4D_TRY(wgrad(c.r1, H, c.lg, D, R, 1.f, c.part, dA2, first, s));
+      O4D_TRY(wgrad(c.ph, P, c.th, D, R, 1.f, c.part, dW2, first, s));
+      O4D_TRY(wgrad(rel, 3, c.dph, P, R, 1.f, c.part, dW1, first, s));
+      O4D_TRY(bias_grad(c.dh, H, R, c.part, dc1, first, s));
+      O4D_TRY(bias_grad(c.lg, D, R, c.part, dc2, first, s));
+      O4D_TRY(bias_grad(c.th, D, R, c.part, db2, first, s));
+      O4D_TRY(bias_grad(c.dph, P, R, c.part, db1, first, s));
+      if (!premul) {
+        O4D_TRY(wgrad(F, E, c.dhp, D, R, -1.f, c.part, dWk, first, s));
+        O4D_TRY(wgrad(F, E, dv, D, R, 1.f, c.part, dWv, first, s));
       }
-    } else {
-      for (int idx = tid; idx < kRows * E; idx += kThreads) {
-        const int r = idx / E, c = idx % E;
-        B2[r * LD + c] = rvalid[r] ? rrow[r][c] : 0.f;
-      }
-      gemm_rows<false, false, false>(B2, LD, p.wk, D, nullptr, E, D, B1, D, WS);
-    }
-    for (int idx = tid; idx < kRows * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const float q = rvalid[r] ? p.qproj[((size_t)b * p.N + rq[r]) * D + c] : 0.f;
-      B1[idx] = (q - B1[idx]) + B0[idx];
-      if (!GATHERED && p.premul)
-        B0[idx] = (rvalid[r] ? kvb[(size_t)ridx[r] * 2 * D + D + c] : 0.f) + B0[idx];
-    }
-    if (GATHERED || !p.premul)
-      gemm_rows<false, false, true>(B2, LD, p.wv, D, nullptr, E, D, B0, D, WS);
-    __syncthreads();
-    for (int idx = tid; idx < kRows * D; idx += kThreads) B2[idx] = 0.f;
-    for (int h0 = 0; h0 < H; h0 += kColTile) {
-      const int hc = min(kColTile, H - h0);
-      gemm_rows<false, true, false>(B1, D, p.wa1 + h0, H, p.ba1 + h0, D, hc, HC,
-                                    kColTile, WS);
-      gemm_rows<false, false, true>(HC, kColTile, p.wa2 + (size_t)h0 * D, D, nullptr,
-                                    hc, D, B2, D, WS);
-    }
-
-    // ---- Softmax over K and its backward, per (query, channel) ----
-    // Rows of no query (the ragged tile, the padding rows) get zero
-    // gradients; they are disjoint from the rows written below.
-    for (int idx = tid; idx < kRows * D; idx += kThreads) {
-      const int r = idx / D;
-      if (!rvalid[r]) {
-        B0[idx] = 0.f;
-        B2[idx] = 0.f;
-      }
-    }
-    for (int idx = tid; idx < tq_per * D; idx += kThreads) {
-      const int tq = idx / D, c = idx % D, r0 = tq * k;
-      if (!rvalid[r0]) continue;
-      const float bias = p.ba2[c];
-      float mx = -CUDART_INF_F;
-      for (int j = 0; j < k; ++j)
-        mx = fmaxf(mx, (B2[(r0 + j) * D + c] + bias) * p.inv_sqrt_d);
-      float den = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const float e = expf((B2[(r0 + j) * D + c] + bias) * p.inv_sqrt_d - mx);
-        B2[(r0 + j) * D + c] = e;
-        den += e;
-      }
-      const float gc = p.g[((size_t)b * p.N + rq[r0]) * D + c];
-      float s = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const float a = B2[(r0 + j) * D + c] / den;
-        s += a * (gc * B0[(r0 + j) * D + c]);
-      }
-      for (int j = 0; j < k; ++j) {
-        const int o = (r0 + j) * D + c;
-        const float a = B2[o] / den;
-        const float da = gc * B0[o];
-        B2[o] = a * (da - s) * p.inv_sqrt_d;  // d(logits)
-        B0[o] = a * gc;                        // d(v + theta)
-      }
-    }
-
-    // ---- Everything d(v + theta) feeds, then B0 is free ----
-    if (!GATHERED && p.premul) {
-      scatter_rows(B0, D, ridx, rvalid, dkv + D, CW, D, 1.f);
-    } else {
-      outer_acc<true>(nullptr, 0, rrow, rvalid, B0, D, E, D, 1.f, dwv, D);
-      for (int e0 = 0; e0 < E; e0 += kColTile) {
-        const int ec = min(kColTile, E - e0);
-        gemm_rows<true, false, false>(B0, D, p.wv + (size_t)e0 * D, D, nullptr, D,
-                                      ec, HC, kColTile, WS);
-        if (GATHERED)
-          write_rows<false>(HC, kColTile, drow, rvalid, e0, ec, 1.f);
-        else
-          scatter_rows(HC, kColTile, ridx, rvalid, dkv + e0, CW, ec, 1.f);
-      }
-    }
-    outer_acc<false>(PH, P, nullptr, rvalid, B0, D, P, D, 1.f, dwp2, D);
-    colsum(B0, D, D, rvalid, dbp2);
-    gemm_rows<true, false, false>(B0, D, p.wp2, D, nullptr, D, P, DPH, P, WS);
-
-    // ---- The gamma MLP backward, in hidden-layer chunks ----
-    for (int idx = tid; idx < kRows * D; idx += kThreads) B0[idx] = 0.f;
-    for (int h0 = 0; h0 < H; h0 += kColTile) {
-      const int hc = min(kColTile, H - h0);
-      gemm_rows<false, true, false>(B1, D, p.wa1 + h0, H, p.ba1 + h0, D, hc, HC,
-                                    kColTile, WS);
-      gemm_rows<true, false, false>(B2, D, p.wa2 + (size_t)h0 * D, D, nullptr, D, hc,
-                                    DH, kColTile, WS);
-      for (int idx = tid; idx < kRows * kColTile; idx += kThreads) {
-        const int c = idx % kColTile;
-        if (c < hc && !(HC[idx] > 0.f)) DH[idx] = 0.f;
-      }
-      outer_acc<false>(HC, kColTile, nullptr, rvalid, B2, D, hc, D, 1.f,
-                       dwa2 + (size_t)h0 * D, D);
-      outer_acc<false>(B1, D, nullptr, rvalid, DH, kColTile, D, hc, 1.f, dwa1 + h0, H);
-      colsum(DH, kColTile, hc, rvalid, dba1 + h0);
-      gemm_rows<true, false, true>(DH, kColTile, p.wa1 + h0, H, nullptr, hc, D, B0, D,
-                                   WS);
-    }
-    colsum(B2, D, D, rvalid, dba2);
-
-    // ---- d(q_proj) = sum over the query's k rows of d(hpre) ----
-    for (int idx = tid; idx < tq_per * D; idx += kThreads) {
-      const int tq = idx / D, c = idx % D, r0 = tq * k;
-      if (!rvalid[r0]) continue;
-      float s = B0[r0 * D + c];
-      for (int j = 1; j < k; ++j) s += B0[(r0 + j) * D + c];
-      p.dqproj[((size_t)b * p.N + rq[r0]) * D + c] = s;
-    }
-
-    // ---- Everything d(hpre) feeds: dk = -d(hpre), d(theta) ----
-    if (!GATHERED && p.premul) {
-      scatter_rows(B0, D, ridx, rvalid, dkv, CW, D, -1.f);
-    } else {
-      outer_acc<true>(nullptr, 0, rrow, rvalid, B0, D, E, D, -1.f, dwk, D);
-      for (int e0 = 0; e0 < E; e0 += kColTile) {
-        const int ec = min(kColTile, E - e0);
-        gemm_rows<true, false, false>(B0, D, p.wk + (size_t)e0 * D, D, nullptr, D,
-                                      ec, HC, kColTile, WS);
-        if (GATHERED)
-          write_rows<true>(HC, kColTile, drow, rvalid, e0, ec, -1.f);
-        else
-          scatter_rows(HC, kColTile, ridx, rvalid, dkv + e0, CW, ec, -1.f);
-      }
-    }
-    outer_acc<false>(PH, P, nullptr, rvalid, B0, D, P, D, 1.f, dwp2, D);
-    colsum(B0, D, D, rvalid, dbp2);
-    gemm_rows<true, false, true>(B0, D, p.wp2, D, nullptr, D, P, DPH, P, WS);
-    for (int idx = tid; idx < kRows * P; idx += kThreads)
-      if (!(PH[idx] > 0.f)) DPH[idx] = 0.f;
-    outer_acc<false>(REL, 3, nullptr, rvalid, DPH, P, 3, P, 1.f, dwp1, P);
-    colsum(DPH, P, P, rvalid, dbp1);
-  }
-}
-
-// Sums the slots in a fixed order: the weight block over all B * G slots,
-// each example's d(kv) over its own G slots (none in the gathered form,
-// MCW = 0).
-__global__ void attn_bwd_reduce(const float* __restrict__ part, long long slot,
-                                long long W, long long MCW, int B, int G,
-                                float* __restrict__ dw, float* __restrict__ dkv) {
-  const long long total = W + (long long)B * MCW;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    if (i < W) {
-      for (int x = 0; x < B * G; ++x) s += part[x * slot + i];
-      dw[i] = s;
-    } else {
-      const long long j = i - W;
-      const long long b = j / MCW, o = j % MCW;
-      for (int x = 0; x < G; ++x) s += part[(b * G + x) * slot + W + o];
-      dkv[j] = s;
     }
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-extern "C" long long o4d_attn_bwd_smem_bytes(int D, int E, int P) {
-  return (long long)(smem_floats(D, E, P) * sizeof(float));
-}
 
 // Floats of the reduced weight-gradient block (layout at weight_floats).
 extern "C" long long o4d_attn_bwd_weight_floats(int D, int E, int H, int P,
@@ -534,58 +817,33 @@ extern "C" long long o4d_attn_bwd_weight_floats(int D, int E, int H, int P,
   return weight_floats(D, E, H, P, premul);
 }
 
-// Floats of one scratch slot: the weight block plus one example's d(kv).
-extern "C" long long o4d_attn_bwd_slot_floats(int M, int D, int E, int H, int P,
-                                              int premul) {
-  return weight_floats(D, E, H, P, premul) + (long long)M * (premul ? 2 * D : E);
+// The chunking of a launch: QC, queries per chunk (whole queries of one
+// example; at most N; the largest whose per-row operands fit budget bytes,
+// the same for every mode), and the workspace it needs: f32 floats and, for
+// the index route, int32 ints.
+extern "C" void o4d_attn_bwd_plan(int N, int M, int D, int E, int H, int P, int k,
+                                  int premul, long long budget, int* QC,
+                                  long long* floats, long long* ints) {
+  long long qc = budget / ((long long)sizeof(float) * k * row_floats(D, E, H, P));
+  if (qc > N) qc = N;
+  if (qc < 1) qc = 1;
+  const long long R = qc * k;
+  const int CW = premul ? 2 * D : E;
+  *QC = (int)qc;
+  long long used;
+  carve(nullptr, R, D, E, H, P, &used);
+  *floats = used + part_max((int)R, D, E, H, P) + o4d_index::sum_floats(R, CW);
+  *ints = M > 0 ? o4d_index::index_ints(R, M) : 0;
 }
 
-// Zeroes the slots, runs the kernel over (G, B) persistent blocks and sums
-// the slots into dw (and dkv, index route only).
-template <int MODE>
-int launch(BwdArgs& a, int B, float* dw, float* dkv, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  a.inv_sqrt_d = 1.0f / sqrtf((float)a.D);
-  cudaError_t e = cudaMemsetAsync(a.part, 0, (size_t)B * a.G * a.slot * sizeof(float), s);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = smem_floats(a.D, a.E, a.P) * sizeof(float);
-  e = cudaFuncSetAttribute(attn_bwd_kernel<MODE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(a.G, B);
-  attn_bwd_kernel<MODE><<<grid, kThreads, smem, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long W = weight_floats(a.D, a.E, a.H, a.P, a.premul);
-  const long long MCW = a.slot - W;
-  const long long total = W + (long long)B * MCW;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  attn_bwd_reduce<<<(int)(want < 8192 ? want : 8192), threads, 0, s>>>(
-      a.part, a.slot, W, MCW, B, a.G, dw, dkv);
-  return (int)cudaGetLastError();
-}
+namespace {
 
-// Inputs as o4d_attn (csrc/attn.cu) plus g (B, N, D). Outputs: dqproj
-// (B, N, D); dw, the weight-gradient block; dkv (B, M, 2D | E). scratch holds
-// B * G slots of o4d_attn_bwd_slot_floats(...) floats (zeroed here).
-extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
-                            const void* kpos, const void* kv, const void* wk,
-                            const void* wv, const void* wp1, const void* bp1,
-                            const void* wp2, const void* bp2, const void* wa1,
-                            const void* ba1, const void* wa2, const void* ba2,
-                            const void* g, void* dqproj, void* dw, void* dkv,
-                            void* scratch, int B, int N, int M, int D, int E,
-                            int H, int P, int KS, int k, int premul, int G,
-                            void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > kRows || k > KS || G < 1) return (int)cudaErrorInvalidValue;
+BwdArgs weights_args(const void* wk, const void* wv, const void* wp1, const void* bp1,
+                     const void* wp2, const void* bp2, const void* wa1, const void* ba1,
+                     const void* wa2, const void* ba2, const void* g, void* dqproj,
+                     void* dw, void* ws, int N, int D, int E, int H, int P, int k,
+                     int QC) {
   BwdArgs a = {};
-  a.qpos = (const float*)qpos;
-  a.qproj = (const float*)qproj;
-  a.ki = (const int*)ki;
-  a.kpos = (const float*)kpos;
-  a.kv = (const float*)kv;
   a.wk = (const float*)wk;
   a.wv = (const float*)wv;
   a.wp1 = (const float*)wp1;
@@ -598,107 +856,91 @@ extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
   a.ba2 = (const float*)ba2;
   a.g = (const float*)g;
   a.dqproj = (float*)dqproj;
-  a.part = (float*)scratch;
-  a.slot = o4d_attn_bwd_slot_floats(M, D, E, H, P, premul);
+  a.dw = (float*)dw;
+  a.ws = (float*)ws;
   a.N = N;
-  a.M = M;
   a.D = D;
   a.E = E;
   a.H = H;
   a.P = P;
-  a.KS = KS;
   a.k = k;
+  a.QC = QC;
+  a.inv_sqrt_d = 1.0f / sqrtf((float)D);
+  return a;
+}
+
+}  // namespace
+
+// Inputs as o4d_attn (csrc/attn.cu) plus g (B, N, D). Outputs: dqproj
+// (B, N, D); dw, the weight-gradient block; dkv (B, M, 2D | E). ws / iws:
+// the workspace of o4d_attn_bwd_plan for QC.
+extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
+                            const void* kpos, const void* kv, const void* wk,
+                            const void* wv, const void* wp1, const void* bp1,
+                            const void* wp2, const void* bp2, const void* wa1,
+                            const void* ba1, const void* wa2, const void* ba2,
+                            const void* g, void* dqproj, void* dw, void* dkv, void* ws,
+                            void* iws, int B, int N, int M, int D, int E, int H, int P,
+                            int KS, int k, int premul, int QC, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || k > KS || QC < 1 || (long long)QC * k >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a = weights_args(wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, g, dqproj, dw,
+                           ws, N, D, E, H, P, k, QC);
+  a.qpos = (const float*)qpos;
+  a.qproj = (const float*)qproj;
+  a.ki = (const int*)ki;
+  a.kpos = (const float*)kpos;
+  a.kv = (const float*)kv;
+  a.dkv = (float*)dkv;
+  a.iws = (int*)iws;
+  a.M = M;
+  a.KS = KS;
   a.premul = premul;
-  a.G = G;
-  return launch<kIndex>(a, B, (float*)dw, (float*)dkv, stream);
+  return run<kIndex>(a, B, (cudaStream_t)stream);
 }
 
 // The gathered form: gin (B, KE, N, E + 3) replaces ki, kpos and kv (per-row
 // mode); go (B, N, D) is d(out). Outputs: dqproj (B, N, D); dw, the
 // weight-gradient block (premul = 0 layout); dg (B, KE, N, E + 3), every
-// element written. scratch holds B * G slots of
-// o4d_attn_bwd_weight_floats(D, E, H, P, 0) floats (zeroed here).
+// element written. ws: the workspace of o4d_attn_bwd_plan for QC.
 extern "C" int o4d_attn_g_bwd(const void* qpos, const void* qproj, const void* gin,
                               const void* wk, const void* wv, const void* wp1,
                               const void* bp1, const void* wp2, const void* bp2,
                               const void* wa1, const void* ba1, const void* wa2,
-                              const void* ba2, const void* go, void* dqproj,
-                              void* dw, void* dg, void* scratch, int B, int N,
-                              int D, int E, int H, int P, int KE, int k, int G,
-                              void* stream) {
+                              const void* ba2, const void* go, void* dqproj, void* dw,
+                              void* dg, void* ws, int B, int N, int D, int E, int H,
+                              int P, int KE, int k, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > kRows || k > KE || G < 1) return (int)cudaErrorInvalidValue;
-  BwdArgs a = {};
+  if (k < 1 || k > 32 || k > KE || QC < 1) return (int)cudaErrorInvalidValue;
+  BwdArgs a = weights_args(wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dqproj, dw,
+                           ws, N, D, E, H, P, k, QC);
   a.qpos = (const float*)qpos;
   a.qproj = (const float*)qproj;
   a.gin = (const float*)gin;
-  a.wk = (const float*)wk;
-  a.wv = (const float*)wv;
-  a.wp1 = (const float*)wp1;
-  a.bp1 = (const float*)bp1;
-  a.wp2 = (const float*)wp2;
-  a.bp2 = (const float*)bp2;
-  a.wa1 = (const float*)wa1;
-  a.ba1 = (const float*)ba1;
-  a.wa2 = (const float*)wa2;
-  a.ba2 = (const float*)ba2;
-  a.g = (const float*)go;
-  a.dqproj = (float*)dqproj;
   a.dg = (float*)dg;
-  a.part = (float*)scratch;
-  a.slot = weight_floats(D, E, H, P, 0);
-  a.N = N;
-  a.D = D;
-  a.E = E;
-  a.H = H;
-  a.P = P;
   a.KE = KE;
-  a.k = k;
-  a.premul = 0;
-  a.G = G;
-  return launch<kGathered>(a, B, (float*)dw, nullptr, stream);
+  return run<kGathered>(a, B, (cudaStream_t)stream);
 }
 
 // The encoder's fused self-attention backward: inputs as o4d_sattn
 // (csrc/attn.cu) plus go (B, N, D) = d(out). Outputs: dq (B, N, D); dw, the
 // weight-gradient block (premul = 0 layout); dgf (B, N, k, E), every element
-// written. scratch holds B * G slots of o4d_attn_bwd_weight_floats(D, E, H,
-// P, 0) floats (zeroed here).
+// written. ws: the workspace of o4d_attn_bwd_plan for QC.
 extern "C" int o4d_sattn_bwd(const void* q, const void* gf, const void* rel,
                              const void* wk, const void* wv, const void* wp1,
                              const void* bp1, const void* wp2, const void* bp2,
                              const void* wa1, const void* ba1, const void* wa2,
                              const void* ba2, const void* go, void* dq, void* dw,
-                             void* dgf, void* scratch, int B, int N, int D, int E,
-                             int H, int P, int k, int G, void* stream) {
+                             void* dgf, void* ws, int B, int N, int D, int E, int H,
+                             int P, int k, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > kRows || G < 1) return (int)cudaErrorInvalidValue;
-  BwdArgs a = {};
+  if (k < 1 || k > 32 || QC < 1) return (int)cudaErrorInvalidValue;
+  BwdArgs a = weights_args(wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dq, dw,
+                           ws, N, D, E, H, P, k, QC);
   a.qproj = (const float*)q;
   a.gf = (const float*)gf;
   a.rel = (const float*)rel;
-  a.wk = (const float*)wk;
-  a.wv = (const float*)wv;
-  a.wp1 = (const float*)wp1;
-  a.bp1 = (const float*)bp1;
-  a.wp2 = (const float*)wp2;
-  a.bp2 = (const float*)bp2;
-  a.wa1 = (const float*)wa1;
-  a.ba1 = (const float*)ba1;
-  a.wa2 = (const float*)wa2;
-  a.ba2 = (const float*)ba2;
-  a.g = (const float*)go;
-  a.dqproj = (float*)dq;
   a.dg = (float*)dgf;
-  a.part = (float*)scratch;
-  a.slot = weight_floats(D, E, H, P, 0);
-  a.N = N;
-  a.D = D;
-  a.E = E;
-  a.H = H;
-  a.P = P;
-  a.k = k;
-  a.premul = 0;
-  a.G = G;
-  return launch<kSelf>(a, B, (float*)dw, nullptr, stream);
+  return run<kSelf>(a, B, (cudaStream_t)stream);
 }

@@ -24,9 +24,10 @@ stays outside the kernel, so autograd chains d(kv) to the abstract features
 and to_k/to_v. The kNN graph and the abstract positions carry no gradient
 (as the JAX path's stop_gradient). Both routes have backward kernels: the
 index route csrc/interp_bwd.cu and csrc/attn_bwd.cu; the shared-gather route
-o4d_attn_g_bwd (each layer writes its cotangent of the gathered rows) and
-o4d_scatter_interp (one scatter of their sum to the key rows, with the
-interpolation's term added in the same pass instead of written as rows).
+o4d_attn_g_bwd (each layer writes its cotangent of the gathered rows),
+o4d_scatter (one scatter of their sum to the key rows) and o4d_interp_bwd
+(the interpolation's term, from its (B, N, E) cotangent, never written as
+rows).
 '''
 
 import torch
@@ -73,8 +74,8 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
     knn = knn_extract(q_xyz, pts_abs, k_ext, key_mask=abstract_mask)
     # Large abstract clouds: gather the neighbours' raw rows once for every
     # consumer (the JAX package's shared-gather route); the interpolation
-    # reads them inside the same operator, whose backward folds its term
-    # into the scatter.
+    # reads them inside the same operator, whose backward adds its term
+    # through the index route's interp_bwd, never as dense row cotangents.
     gathered = None
     if pts_abs.shape[1] >= SHARED_GATHER_MIN_M:
         gathered, features_local = knn_gather_interp(

@@ -13,9 +13,9 @@ its use_idx and gathered forms):
   knn_gather_interp           the shared gather and the gathered
                               interpolation as one operator, the decoder's
                               route when the abstract cloud is large
-                              (models/fused.py); its backward folds the
-                              interpolation's term into the scatter
-                              (o4d_scatter_interp, csrc/gather.cu);
+                              (models/fused.py); its backward is the scatter
+                              plus the interpolation backward of its
+                              cotangent (gather_interp_bwd_split);
   gather_rows                 the same gather and scatter in the n-major
                               layout of any (B, N, K) index grid (the
                               encoder's self-attention neighbours);
@@ -42,11 +42,11 @@ Like the JAX custom VJPs the index-route operators save only their inputs,
 never an (N, K, D) tensor, and positions get no gradient. The shared-gather
 route's backward: the attention layers write their row cotangents dg
 (B, k', N, E + 3) directly (o4d_attn_g_bwd; zero rows past their k and zero
-position columns), autograd sums them, and one scatter adds the sum and the
-interpolation's term (o4d_scatter_interp, which reads the interpolation's
-cotangent (B, N, E) instead of a dense dg of its own) to the key rows. The
-standalone fused_knn_interp(gathered=) keeps o4d_interp_g_bwd, which writes
-that dense dg for autograd to add. Layouts follow the
+position columns), autograd sums them, one scatter adds the sum to the key
+rows, and the index route's interpolation backward (o4d_interp_bwd) adds the
+interpolation's term from its cotangent (B, N, E), never written as rows.
+The standalone fused_knn_interp(gathered=) keeps o4d_interp_g_bwd, which
+writes that dense dg for autograd to add. Layouts follow the
 port, not the TPU: knn_extract returns (B, N, k) arrays, not 128-lane padded
 tiles, and the gather's (B, k, N, E + 3) rows are not padded to a tile grid.
 '''
@@ -61,19 +61,21 @@ from .knn import _prepare, gather_neighbors, knn_rank, sq_norm
 
 __all__ = ['knn_extract', 'knn_gather_rows', 'knn_gather_interp', 'gather_rows',
            'fused_knn_interp', 'fused_knn_vector_attention', 'gather_rows_plain',
-           'gather_bwd_plain', 'gather_interp_bwd_plain', 'gather_interp_bwd',
-           'inverse_index_plain',
+           'gather_bwd_plain', 'gather_interp_bwd_plain', 'gather_interp_bwd_split',
+           'inverse_index_plain', 'key_sums_plain', 'scatter_index', 'scatter_index_plain',
            'interp_plain', 'interp_g_plain', 'interp_bwd_plain', 'interp_g_bwd_plain',
            'attn_plain', 'attn_g_plain', 'attn_bwd_plain', 'attn_g_bwd_plain',
-           'attn_bwd', 'attn_g_bwd', 'gather_bwd', 'interp_bwd', 'interp_g_bwd',
+           'attn_bwd', 'attn_g_bwd', 'attn_bwd_rows_plain', 'gather_bwd', 'interp_bwd',
+           'interp_g_bwd',
            'use_premul', 'LAUNCHES']
 
 LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0, 'gather': 0,
             'interp_g': 0, 'attn_g': 0, 'scatter': 0, 'interp_g_bwd': 0,
-            'attn_g_bwd': 0, 'scatter_interp': 0}
+            'attn_g_bwd': 0}
 _MLP = ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use.
-_INDEX_TILE = 2048    # entries per counting-sort tile of csrc/interp_bwd.cu (kTile).
+_INDEX_TILE = 2048    # entries per counting-sort tile of csrc/inverse_index.cuh (kTile).
+_SUM_CHUNK = 64       # sorted entries per summing block of csrc/inverse_index.cuh (kChunk).
 
 
 def knn_extract(q_pos, pos2, k, *, key_mask=None):
@@ -104,11 +106,21 @@ def _cuda_ki(name, ki):
     return ki
 
 
-def _slots(device, B, work):
-    '''Persistent blocks per example of the backward kernels: about one per
-    SM over the whole batch, never more than the example has work items.'''
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-sms // B), work))
+# Bytes of per-row operands one attention backward launch may hold at once
+# (csrc/attn_bwd.cu cuts its rows into chunks of whole queries to fit).
+_BWD_BUDGET = 1 << 30
+
+
+def _bwd_plan(lib, device, N, M, D, E, H, P, k, premul):
+    '''(QC, f32 workspace, int32 workspace) of one attention backward
+    launch: QC queries per chunk, the same for every mode at the same sizes
+    (csrc/attn_bwd.cu o4d_attn_bwd_plan), within _BWD_BUDGET bytes of
+    per-row operands.'''
+    qc, n_f, n_i = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    lib.o4d_attn_bwd_plan(N, M, D, E, H, P, k, int(premul), _BWD_BUDGET, ctypes.byref(qc),
+                          ctypes.byref(n_f), ctypes.byref(n_i))
+    return (qc.value, torch.empty((n_f.value,), dtype=torch.float32, device=device),
+            torch.empty((max(1, n_i.value),), dtype=torch.int32, device=device))
 
 
 # ------------------------------------------------------------ shared gather --
@@ -148,12 +160,11 @@ def gather_bwd_plain(ki, dg, M, k):
     return out.scatter_add_(1, idx, dg[:, :k].reshape(B, k * N, C))
 
 
-def scatter_index(ki, M, k, KE):
-    '''The scatter kernel's inverse index (bookkeeping, no arithmetic on the
-    rows): every key row (b, m) -> the rows of dg (B, KE, N, C) that add into
-    it, in ascending row order (a stable sort), as (rows (B k N,) int32,
-    offsets (B M + 1,) int32): key b M + m owns rows[offsets[bM+m]:
-    offsets[bM+m+1]].'''
+def scatter_index_plain(ki, M, k, KE):
+    '''Plain version of the scatter kernel's inverse index: every key row
+    (b, m) -> the rows of dg (B, KE, N, C) that add into it, in ascending row
+    order (a stable sort), as (rows (B k N,) int32, offsets (B M + 1,) int32):
+    key b M + m owns rows[offsets[bM+m]:offsets[bM+m+1]].'''
     B, N = ki.shape[:2]
     keys = (ki[..., :k].transpose(1, 2).reshape(B, k * N).long()
             + M * torch.arange(B, device=ki.device)[:, None]).reshape(-1)
@@ -165,23 +176,64 @@ def scatter_index(ki, M, k, KE):
     return rows.to(torch.int32), offsets.to(torch.int32)
 
 
+def _scatter_lib():
+    lib = _build.library('gather')
+    lib.o4d_scatter_workspace.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] * 2
+    lib.o4d_scatter_workspace.restype = None
+    return lib
+
+
+def _scatter_workspace(lib, B, N, M, k, C, device):
+    '''The scatter's int32 and f32 workspace (csrc/gather.cu).'''
+    n_int, n_float = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.o4d_scatter_workspace(B, N, M, k, C, ctypes.byref(n_int), ctypes.byref(n_float))
+    return (torch.empty((n_int.value,), dtype=torch.int32, device=device),
+            torch.empty((max(1, n_float.value),), dtype=torch.float32, device=device))
+
+
+def scatter_index(ki, M, k, KE):
+    '''The scatter kernel's inverse index, in scatter_index_plain's layout:
+    on CUDA the counting sort of csrc/inverse_index.cuh (no host sort), on
+    the CPU the plain version.'''
+    if not ki.is_cuda:
+        return scatter_index_plain(ki, M, k, KE)
+    B, N, KS = ki.shape
+    ki = _cuda_ki('scatter_index', ki.contiguous())
+    if not 1 <= k <= min(KS, KE, 32) or B * KE * N >= 2 ** 31:
+        raise ValueError(f'scatter_index: bad shapes ki {tuple(ki.shape)}, k={k}, KE={KE}')
+    lib = _scatter_lib()
+    iws, _ = _scatter_workspace(lib, B, N, M, k, 1, ki.device)
+    fn = lib.o4d_scatter_index
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(ki.device):
+        _build.check(fn(_build.ptr(ki), _build.ptr(iws), B, N, M, KS, k,
+                        _build.stream_ptr(ki.device)), 'scatter_index')
+    perm = iws[B * M + 1:B * M + 1 + B * k * N].long()
+    rows = perm + (perm // (k * N)) * ((KE - k) * N)
+    return rows.to(torch.int32), iws[:B * M + 1].clone()
+
+
 def _scatter_cuda(ki, dg, M, k):
     B, KE, N, C = dg.shape
     _cuda_ki('scatter', ki)
     _cuda_f32('dg', dg)
-    if tuple(ki.shape[:2]) != (B, N) or not 1 <= k <= min(ki.shape[-1], KE, 32) \
+    KS = ki.shape[-1]
+    if tuple(ki.shape[:2]) != (B, N) or not 1 <= k <= min(KS, KE, 32) \
             or B * KE * N >= 2 ** 31:
         raise ValueError(f'scatter: bad shapes ki {tuple(ki.shape)}, dg '
                          f'{tuple(dg.shape)}, k={k}')
-    rows, offsets = scatter_index(ki, M, k, KE)
+    lib = _scatter_lib()
+    iws, fws = _scatter_workspace(lib, B, N, M, k, C, dg.device)
     dfv = torch.empty((B, M, C), dtype=torch.float32, device=dg.device)
-    fn = _build.library('gather').o4d_scatter
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn = lib.o4d_scatter
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dg.device):
-        _build.check(fn(_build.ptr(dg), _build.ptr(rows), _build.ptr(offsets),
-                        _build.ptr(dfv), B * M, C, _build.stream_ptr(dg.device)),
-                     'scatter')
+        _build.check(fn(_build.ptr(dg), _build.ptr(ki), _build.ptr(iws), _build.ptr(fws),
+                        _build.ptr(dfv), B, N, M, KE, KS, k, C,
+                        _build.stream_ptr(dg.device)), 'scatter')
     LAUNCHES['scatter'] += 1
     return dfv
 
@@ -304,10 +356,11 @@ def _interp_cuda(ki, kd, feats, k, eps):
     return out
 
 
-def inverse_index_plain(ki, M, k, tile=_INDEX_TILE):
-    '''Plain version of the interpolation backward kernel's inverse index
-    (csrc/interp_bwd.cu), step by step as the kernel takes them: the flat
-    (B, N, k) neighbour list e = (b N + n) k + j with keys b M + ki[b, n, j],
+def inverse_index_plain(ki, M, k, tile=_INDEX_TILE, jmajor=False):
+    '''Plain version of the counting-sort inverse index of
+    csrc/inverse_index.cuh, step by step as the kernels take them: the flat
+    (B, N, k) neighbour list e = (b N + n) k + j (jmajor: the rows
+    e = (b k + j) N + n of a (B, k, N, C) gather) with keys b M + ki[b, n, j],
     cut into tiles of `tile` entries; per tile, each entry's rank among the
     tile's entries of its key (the kernel sorts the unique (key, position)
     pairs of the tile) and each (key, tile)'s count; a scan of every key's
@@ -317,7 +370,8 @@ def inverse_index_plain(ki, M, k, tile=_INDEX_TILE):
         offsets (B M + 1,) int32: key x owns perm[offsets[x]:offsets[x + 1]]).'''
     B, N = ki.shape[:2]
     dev = ki.device
-    keys = (ki[..., :k].long() + M * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+    keys = ki[..., :k].long() + M * torch.arange(B, device=dev)[:, None, None]
+    keys = (keys.transpose(1, 2) if jmajor else keys).reshape(-1)
     total, n_keys = keys.numel(), B * M
     T = -(-total // tile)
     e = torch.arange(total, device=dev)
@@ -336,6 +390,29 @@ def inverse_index_plain(ki, M, k, tile=_INDEX_TILE):
     perm = torch.empty(total, dtype=torch.int64, device=dev)
     perm[offsets[keys] + base[group] + rank] = e
     return perm.to(torch.int32), offsets.to(torch.int32)
+
+
+def key_sums_plain(rows, perm, offsets, chunk=_SUM_CHUNK):
+    '''Plain version of the chunked per-key sums of csrc/inverse_index.cuh:
+    the entries in index order (perm) cut into chunks of `chunk`; per chunk
+    the sum of each key's run (its rows in entry order); per key the sum of
+    its chunk partials in chunk order; zeros for a key no entry names.
+    :param rows (entries, C) f32: entry e's row; perm, offsets: an inverse
+        index (inverse_index_plain). :return (keys, C) f32.'''
+    n_keys, C = offsets.numel() - 1, rows.shape[1]
+    counts = torch.diff(offsets.long())
+    keys = torch.repeat_interleave(torch.arange(n_keys, device=rows.device), counts)
+    chunk_of = torch.arange(perm.numel(), device=rows.device) // chunk
+    out = torch.zeros((n_keys, C), dtype=torch.float32, device=rows.device)
+    sorted_rows = rows[perm.long()]
+    for c in range(int(chunk_of.max()) + 1 if perm.numel() else 0):
+        sel = chunk_of == c
+        part = torch.zeros((n_keys, C), dtype=torch.float32, device=rows.device)
+        for i in torch.nonzero(sel).flatten().tolist():  # entry order.
+            part[keys[i]] += sorted_rows[i]
+        touched = torch.unique(keys[sel])
+        out[touched] += part[touched]
+    return out
 
 
 def _interp_bwd_launch(ki, kd, g, M, k, eps):
@@ -479,10 +556,10 @@ class _InterpG(torch.autograd.Function):
 
 
 def gather_interp_bwd_plain(ki, kd, dg, go, M, k, k_interp, eps):
-    '''Plain version of the scatter with the gathered interpolation's
-    backward folded in: gather_bwd_plain of dg (None: zeros) plus, in the
-    first E channels, interp_bwd_plain of go (the same sum as scattering
-    dg + interp_g_bwd_plain(kd, go, ...)).
+    '''Plain version of the decoder route's backward of the gather and the
+    gathered interpolation (gather_interp_bwd_split): gather_bwd_plain of dg
+    (None: zeros) plus, in the first E channels, interp_bwd_plain of go (the
+    same sum as scattering dg + interp_g_bwd_plain(kd, go, ...)).
     :param ki, kd (B, N, >=k); dg (B, k, N, E + 3) or None; go (B, N, E).
     :return dfv (B, M, E + 3).'''
     B, N, E = go.shape
@@ -494,55 +571,29 @@ def gather_interp_bwd_plain(ki, kd, dg, go, M, k, k_interp, eps):
     return dfv
 
 
-def _scatter_interp_cuda(ki, kd, dg, go, M, k, k_interp, eps):
+def gather_interp_bwd_split(ki, kd, dg, go, M, k, k_interp, eps):
+    '''The decoder route's backward of the gather and the gathered
+    interpolation on CUDA, gather_interp_bwd_plain's composition through
+    kernels: the scatter of dg (o4d_scatter; zeros when dg is None), then the
+    interpolation's backward of go (o4d_interp_bwd) added to the first E
+    channels. On the H100 it is faster than folding the interpolation's term
+    into the scatter (PERF.md, the kernel table).'''
     B, N, E = go.shape
-    C, KS = E + 3, ki.shape[-1]
-    _cuda_ki('scatter_interp', ki)
-    _cuda_f32('kd', kd)
-    _cuda_f32('go', go)
-    if dg is not None:
-        _cuda_f32('dg', dg)
-    if tuple(ki.shape[:2]) != (B, N) or tuple(kd.shape) != tuple(ki.shape) \
-            or (dg is not None and tuple(dg.shape) != (B, k, N, C)) \
-            or not 1 <= k_interp <= k <= min(KS, 32) or B * k * N >= 2 ** 31:
-        raise ValueError(f'scatter_interp: bad shapes ki {tuple(ki.shape)}, go '
-                         f'{tuple(go.shape)}, dg {None if dg is None else tuple(dg.shape)}, '
-                         f'k={k}, k_interp={k_interp}')
-    rows, offsets = scatter_index(ki, M, k, k)
-    wn = torch.empty((B, N, k_interp), dtype=torch.float32, device=go.device)
-    dfv = torch.empty((B, M, C), dtype=torch.float32, device=go.device)
-    fn = _build.library('gather').o4d_scatter_interp
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(go.device):
-        _build.check(fn(None if dg is None else _build.ptr(dg), _build.ptr(rows),
-                        _build.ptr(offsets), _build.ptr(kd), _build.ptr(go),
-                        _build.ptr(wn), _build.ptr(dfv), B * M, C, B, N, k, KS, E,
-                        k_interp, float(eps), _build.stream_ptr(go.device)),
-                     'scatter_interp')
-    LAUNCHES['scatter_interp'] += 1
+    if dg is None:
+        dfv = torch.zeros((B, M, E + 3), dtype=torch.float32, device=go.device)
+    else:
+        dfv = gather_bwd(ki, dg, M, k)
+    dfv[..., :E] += interp_bwd(ki, kd, go, M, k_interp, eps)
     return dfv
-
-
-def gather_interp_bwd(ki, kd, dg, go, M, k, k_interp, eps):
-    '''The gather's VJP with the gathered interpolation's folded in: the
-    scatter_interp kernel on CUDA, the plain version on the CPU.'''
-    go = go.to(torch.float32).contiguous()
-    if dg is not None:
-        dg = dg.to(torch.float32).contiguous()
-    if go.is_cuda:
-        return _scatter_interp_cuda(ki.contiguous(), kd.contiguous(), dg, go, M, k,
-                                    k_interp, eps)
-    return gather_interp_bwd_plain(ki, kd, dg, go, M, k, k_interp, eps)
 
 
 class _GatherInterp(torch.autograd.Function):
     '''The shared gather and the gathered interpolation as one operator:
     forward o4d_gather then o4d_interp_g (the outputs of knn_gather_rows and
-    fused_knn_interp(gathered=)); backward one o4d_scatter_interp, which adds
-    the interpolation's row cotangent inside the scatter instead of writing
-    it (plain versions on the CPU). Gradient in fv; saves ki and kd.'''
+    fused_knn_interp(gathered=)); backward the scatter of the rows'
+    cotangent plus the interpolation's backward of its own, never written as
+    rows (gather_interp_bwd_split; plain versions on the CPU). Gradient in
+    fv; saves ki and kd.'''
 
     @staticmethod
     def forward(ctx, fv, ki, kd, k, k_interp, eps):
@@ -560,8 +611,13 @@ class _GatherInterp(torch.autograd.Function):
         ki, kd = ctx.saved_tensors
         if go is None:
             dfv = None if dg is None else gather_bwd(ki, dg, ctx.M, ctx.k)
+        elif go.is_cuda:
+            dfv = gather_interp_bwd_split(ki, kd, None if dg is None else dg.contiguous(),
+                                          go.contiguous(), ctx.M, ctx.k, ctx.k_interp,
+                                          ctx.eps)
         else:
-            dfv = gather_interp_bwd(ki, kd, dg, go, ctx.M, ctx.k, ctx.k_interp, ctx.eps)
+            dfv = gather_interp_bwd_plain(ki, kd, dg, go, ctx.M, ctx.k, ctx.k_interp,
+                                          ctx.eps)
         return dfv, None, None, None, None, None
 
 
@@ -569,7 +625,8 @@ def knn_gather_interp(pos2, feats2, knn, k, k_interp, eps=1e-4):
     '''
     knn_gather_rows and the gathered fused_knn_interp in one differentiable
     operator (the decoder's shared-gather route): the same outputs, and a
-    backward that folds the interpolation's cotangent into the scatter.
+    backward that takes the interpolation's cotangent (B, N, E) to the key
+    rows through interp_bwd instead of as (B, k, N, E + 3) row cotangents.
     :param pos2 (B, M, 3); feats2 (B, M, E); knn: knn_extract result with k'
         >= k columns; k: rows to gather; k_interp <= k: the interpolation's
         neighbours.
@@ -707,6 +764,84 @@ def attn_g_bwd_plain(q_pos, q_proj, g, params, k, go):
     return grads[0], grads[1], dict(zip(leaves, grads[2:]))
 
 
+def attn_bwd_rows_plain(q_proj, rel, rows, params, go, premul, qc, slices=2):
+    '''The backward kernels' decomposition (csrc/attn_bwd.cu) in plain
+    PyTorch, on the rows of every query whatever the route: per chunk of qc
+    queries of one example, the row phase (the forward recomputed, the
+    softmax backward, dh1, dhpre, dtheta, dtheta_h, d(q_proj) and the rows'
+    gradients), then the chunk's weight gradients as sums over its rows cut
+    into `slices` slices, the slices added in order and the chunks in chunk
+    order.
+    :param q_proj (B, N, D); rel (B, N, k, 3) = q_pos - the keys' positions;
+        rows (B, N, k, 2D) projected [k | v] in premul mode, else the raw
+        features F (B, N, k, E); go (B, N, D) = d(out).
+    :return (d(q_proj) (B, N, D), the rows' gradients (B, N, k, 2D | E),
+        {(name, leaf): d(weight)}).'''
+    B, N, k, _ = rel.shape
+    D = q_proj.shape[-1]
+    w = {n: _kernel(params, n) for n in _MLP}
+    bias = {n: params[n]['bias'].to(torch.float32) for n in _MLP}
+    wk = None if premul else _kernel(params, 'to_k')
+    wv = None if premul else _kernel(params, 'to_v')
+    names = _grad_names(premul)
+    grads = {nl: None for nl in names}
+    dq = torch.empty_like(q_proj, dtype=torch.float32)
+    drows = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
+
+    def add(nl, parts):
+        '''The chunk's slice partials added in order, then to the sum.'''
+        s = parts[0]
+        for p in parts[1:]:
+            s = s + p
+        grads[nl] = s if grads[nl] is None else grads[nl] + s
+
+    for b in range(B):
+        for n0 in range(0, N, qc):
+            n1 = min(N, n0 + qc)
+            nq = n1 - n0
+            R = nq * k
+            rl = rel[b, n0:n1].reshape(R, 3)
+            x = rows[b, n0:n1].reshape(R, -1)
+            # Row phase: the forward recomputed.
+            ph = torch.relu(rl @ w['pos_mlp_0'] + bias['pos_mlp_0'])
+            th = ph @ w['pos_mlp_2'] + bias['pos_mlp_2']
+            kk, vv = (x[:, :D], x[:, D:]) if premul else (x @ wk, x @ wv)
+            hp = (q_proj[b, n0:n1].repeat_interleave(k, 0) - kk) + th
+            vpe = vv + th
+            r1 = torch.relu(hp @ w['attn_mlp_0'] + bias['attn_mlp_0'])
+            lg = (r1 @ w['attn_mlp_2'] + bias['attn_mlp_2']) / math.sqrt(D)
+            a = torch.softmax(lg.view(nq, k, D), dim=1)
+            gq = go[b, n0:n1, None, :]
+            vq = vpe.view(nq, k, D)
+            s = (a * gq * vq).sum(1, keepdim=True)
+            dlog = (a * (gq * vq - s) / math.sqrt(D)).reshape(R, D)
+            dv = (a * gq).reshape(R, D)
+            dh = (dlog @ w['attn_mlp_2'].T) * (r1 > 0)
+            dhp = dh @ w['attn_mlp_0'].T
+            dq[b, n0:n1] = dhp.view(nq, k, D).sum(1)
+            dth = dhp + dv
+            dph = (dth @ w['pos_mlp_2'].T) * (ph > 0)
+            if premul:
+                drow = torch.cat([-dhp, dv], dim=-1)
+            else:
+                drow = dv @ wv.T - dhp @ wk.T
+            drows[b, n0:n1] = drow.view(nq, k, -1)
+            # Weight-gradient phase: long-K sums over the chunk's rows.
+            cuts = [(R * i) // slices for i in range(slices + 1)]
+            pieces = [slice(cuts[i], cuts[i + 1]) for i in range(slices)]
+            ops = {('attn_mlp_0', 'kernel'): (hp, dh), ('attn_mlp_2', 'kernel'): (r1, dlog),
+                   ('pos_mlp_2', 'kernel'): (ph, dth), ('pos_mlp_0', 'kernel'): (rl, dph)}
+            if not premul:
+                ops[('to_k', 'kernel')] = (x, -dhp)
+                ops[('to_v', 'kernel')] = (x, dv)
+            for nl, (X, Y) in ops.items():
+                add(nl, [X[p].T @ Y[p] for p in pieces])
+            for n, Y in (('attn_mlp_0', dh), ('attn_mlp_2', dlog), ('pos_mlp_2', dth),
+                         ('pos_mlp_0', dph)):
+                add((n, 'bias'), [Y[p].sum(0) for p in pieces])
+    return dq, drows, grads
+
+
 def _attn_lib():
     lib = _build.library('attn')
     lib.o4d_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -813,43 +948,35 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
     _cuda_f32('g', g)
     if tuple(g.shape) != (B, N, D):
         raise ValueError(f'attn_bwd: g {tuple(g.shape)} does not fit {(B, N, D)}')
-    lib = _attn_bwd_lib(D, E, P)
+    lib = _attn_bwd_lib()
     n_w = lib.o4d_attn_bwd_weight_floats(D, E, H, P, int(premul))
-    slot = lib.o4d_attn_bwd_slot_floats(M, D, E, H, P, int(premul))
-    G = _slots(q_proj.device, B, -(-N // (32 // k)))
     dev = q_proj.device
-    scratch = torch.empty((B * G * slot,), dtype=torch.float32, device=dev)
+    QC, ws, iws = _bwd_plan(lib, dev, N, M, D, E, H, P, k, premul)
     dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
     dw = torch.empty((n_w,), dtype=torch.float32, device=dev)
     dkv = torch.empty(kv.shape, dtype=torch.float32, device=dev)
     fn = lib.o4d_attn_bwd
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = ([q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b)
-            + [g, dq, dw, dkv, scratch])
+            + [g, dq, dw, dkv, ws, iws])
     with torch.cuda.device(dev):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, M, D, E, H, P,
-                        dims['KS'], k, int(premul), G, _build.stream_ptr(dev)),
+                        dims['KS'], k, int(premul), QC, _build.stream_ptr(dev)),
                      'attn_bwd')
     LAUNCHES['attn_bwd'] += 1
     return dq, dkv, _split_weight_grads(dw, D, E, H, P, premul)
 
 
-def _attn_bwd_lib(D, E, P):
-    '''The backward kernels' library, its size queries typed, after the
-    shared-memory check.'''
+def _attn_bwd_lib():
+    '''The backward kernels' library, its size queries typed.'''
     lib = _build.library('attn_bwd')
-    lib.o4d_attn_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.o4d_attn_bwd_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.o4d_attn_bwd_smem_bytes(D, E, P)
-    if smem + 1024 > _SMEM_LIMIT:
-        raise NotImplementedError(f'attn_bwd kernel needs {smem} B of shared '
-                                  f'memory at D={D}, E={E}; the H100 block limit '
-                                  f'is {_SMEM_LIMIT}')
-    for f in (lib.o4d_attn_bwd_weight_floats, lib.o4d_attn_bwd_slot_floats):
-        f.restype = ctypes.c_longlong
+    lib.o4d_attn_bwd_weight_floats.restype = ctypes.c_longlong
     lib.o4d_attn_bwd_weight_floats.argtypes = [ctypes.c_int] * 5
-    lib.o4d_attn_bwd_slot_floats.argtypes = [ctypes.c_int] * 6
+    lib.o4d_attn_bwd_plan.restype = None
+    lib.o4d_attn_bwd_plan.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_longlong]
+                                      + [ctypes.POINTER(ctypes.c_int)]
+                                      + [ctypes.POINTER(ctypes.c_longlong)] * 2)
     return lib
 
 
@@ -889,22 +1016,20 @@ def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go):
     w, b, wk, wv, H, P = _weight_operands(params, D, E, False)
     for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('g', g), ('go', go)):
         _cuda_f32(name, t)
-    lib = _attn_bwd_lib(D, E, P)
+    lib = _attn_bwd_lib()
     n_w = lib.o4d_attn_bwd_weight_floats(D, E, H, P, 0)
-    G = _slots(q_proj.device, B, -(-N // (32 // k)))
     dev = q_proj.device
-    # A persistent block's slot holds only the weight block: the row
-    # gradients are written to dg, each (j, n) row by the one block owning it.
-    scratch = torch.empty((B * G * n_w,), dtype=torch.float32, device=dev)
+    # The same chunks as the index route at these sizes (M plays no part).
+    QC, ws, _ = _bwd_plan(lib, dev, N, 0, D, E, H, P, k, False)
     dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
     dw = torch.empty((n_w,), dtype=torch.float32, device=dev)
     dg = torch.empty(g.shape, dtype=torch.float32, device=dev)
     fn = lib.o4d_attn_g_bwd
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [go, dq, dw, dg, scratch]
+    ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [go, dq, dw, dg, ws]
     with torch.cuda.device(dev):
-        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, G,
+        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
                         _build.stream_ptr(dev)), 'attn_g_bwd')
     LAUNCHES['attn_g_bwd'] += 1
     return dq, dg, _split_weight_grads(dw, D, E, H, P, False)

@@ -26,8 +26,8 @@ import math
 import torch
 
 from . import _build
-from .attention import (_SMEM_LIMIT, _attn_bwd_lib, _attn_lib, _cuda_f32, _grad_names,
-                        _params, _slots, _split_weight_grads, _weight_operands,
+from .attention import (_SMEM_LIMIT, _attn_bwd_lib, _attn_lib, _bwd_plan, _cuda_f32,
+                        _grad_names, _params, _split_weight_grads, _weight_operands,
                         _weight_ptrs)
 
 __all__ = ['fused_gathered_attention', 'sattn_plain', 'sattn_bwd_plain', 'sattn_bwd',
@@ -144,22 +144,19 @@ def _sattn_bwd_cuda(q, gf, rel, params, k, go):
     _cuda_f32('go', go)
     if tuple(go.shape) != (B, N, D):
         raise ValueError(f'sattn_bwd: go {tuple(go.shape)} does not fit {(B, N, D)}')
-    lib = _attn_bwd_lib(D, E, P)
+    lib = _attn_bwd_lib()
     n_w = lib.o4d_attn_bwd_weight_floats(D, E, H, P, 0)
-    G = _slots(q.device, B, -(-N // (32 // k)))
     dev = q.device
-    # One slot per persistent block holds the weight block only: each row's
-    # gradient is written to dgf by the one block owning it.
-    scratch = torch.empty((B * G * n_w,), dtype=torch.float32, device=dev)
+    QC, ws, _ = _bwd_plan(lib, dev, N, 0, D, E, H, P, k, False)
     dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
     dw = torch.empty((n_w,), dtype=torch.float32, device=dev)
     dgf = torch.empty(gf.shape, dtype=torch.float32, device=dev)
     fn = lib.o4d_sattn_bwd
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = [q, gf, rel] + weights + [go, dq, dw, dgf, scratch]
+    ptrs = [q, gf, rel] + weights + [go, dq, dw, dgf, ws]
     with torch.cuda.device(dev):
-        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, k, G,
+        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, k, QC,
                         _build.stream_ptr(dev)), 'sattn_bwd')
     LAUNCHES['sattn_bwd'] += 1
     return dq, dgf, _split_weight_grads(dw, D, E, H, P, False)

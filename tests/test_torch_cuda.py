@@ -14,9 +14,7 @@ Tolerances: kNN, FPS, the bidirectional 1-NN and the eval labels' 1-NN
 1e-3 (fused multiply-adds and another summation order than cuBLAS in 100-term
 dots); the backward kernels 1e-4 of the largest gradient entry / rtol 1e-3
 (weight gradients sum thousands of rows in another order than autograd).
-The backward kernels are also checked to give the same bits twice, and the
-scatter with the interpolation's backward folded in to give the bits of the
-scatter of dg plus o4d_interp_g_bwd's rows. The
+The backward kernels are also checked to give the same bits twice. The
 encoder's fused self-attention kernels (sattn, sattn_bwd) take the attention
 tolerances, and the FPS cluster entry is exact like the one-block kernel.
 '''
@@ -172,9 +170,9 @@ def test_fused_decoder_takes_shared_gather_route_and_matches_cpu(dev):
 
 def test_shared_gather_backward_launches_kernels_and_matches_cpu(dev):
     '''Autograd through the fused decoder on the shared-gather route launches
-    the route's backward kernels (one scatter with the interpolation's
-    backward folded in, one attn_g_bwd per attention layer; no plain scatter,
-    no interp_g_bwd) and no index-route backward kernel, and
+    the route's backward kernels (one scatter, one interp_bwd for the
+    interpolation's term, one attn_g_bwd per attention layer; no
+    interp_g_bwd) and no index-route attention backward, and
     its gradients (abstract features, decoder weights) agree with the CPU
     run (plain versions, same route).'''
     import copy
@@ -195,8 +193,8 @@ def test_shared_gather_backward_launches_kernels_and_matches_cpu(dev):
         if d.type == 'cuda':
             torch.cuda.synchronize()
             counts = _build.launch_counts()
-            want = dict(scatter_interp=1, scatter=0, interp_g_bwd=0, attn_g_bwd=2,
-                        attn_bwd=0, interp_bwd=0)
+            want = dict(scatter=1, interp_g_bwd=0, attn_g_bwd=2, attn_bwd=0,
+                        interp_bwd=1)
             assert {k: counts[k] for k in want} == want
         grads.append([a.grad] + [p.grad for p in net.parameters()])
     for g_dev, g_cpu in zip(*grads):
@@ -336,6 +334,102 @@ def test_attn_bwd_kernel_matches_plain(dev, K, premul):
     assert torch.equal(dq, dq2) and torch.equal(dkv, dkv2)
 
 
+# (B, N, M, D, E, K, K_ext, chunks): every case runs the gathered and both
+# index-route backward kernels; `chunks` > 1 shrinks the per-row operand
+# budget so the launch cuts its rows into about that many query chunks.
+_ATTN_EDGE = {'n_ragged_k14': (2, 203, 97, 40, 24, 14, 16, 1),
+              'k1': (2, 203, 97, 40, 24, 1, 3, 1),
+              'k32': (2, 77, 97, 40, 24, 32, 32, 1),
+              'd36_h72_e20': (2, 150, 80, 36, 20, 16, 18, 1),
+              'b1_chunks': (1, 301, 120, 40, 24, 14, 16, 9),
+              'b3_chunks': (3, 203, 97, 40, 24, 14, 14, 4)}
+
+
+@pytest.mark.parametrize('case', sorted(_ATTN_EDGE))
+def test_attn_backward_redesign_edge_shapes(dev, case, monkeypatch):
+    '''The chunked tensor-core attention backward (csrc/attn_bwd.cu) at
+    edge shapes: N not a multiple of any tile, k 1 and 32, rows gathered
+    past k, D, E and H off the 128-wide tiles, B 1, several query chunks
+    with a ragged last one. Each of attn_g_bwd, attn_bwd premul and per-row
+    against its plain version, twice for the same bits; the zero rows and
+    columns of dg exact; d(q_proj) and the weight gradients of the gathered
+    and per-row index routes bit-equal.'''
+    B, N, M, D, E, K, k_ext, chunks = _ATTN_EDGE[case]
+    if chunks > 1:
+        row_bytes = 4 * K * (3 + 2 * E + 2 * 32 + 6 * D + 4 * D)
+        monkeypatch.setattr(t_attn, '_BWD_BUDGET', row_bytes * (-(-N // chunks)))
+    rng = np.random.RandomState(300 + K + N)
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    params = _attn_params(rng, dev, D, E)
+    knn = t_attn.knn_extract(q_pos, pos2, k_ext)
+    ki = knn[0]
+    g = t_attn.knn_gather_rows(pos2, feats, knn, k_ext)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    go = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    dq, dgk, dw = t_attn.attn_g_bwd(q_pos, q_proj, g, params, K, go)
+    dq2, dgk2, dw2 = t_attn.attn_g_bwd(q_pos, q_proj, g, params, K, go)
+    rq, rg, rw = t_attn.attn_g_bwd_plain(q_pos, q_proj, g, params, K, go)
+    torch.cuda.synchronize()
+    _close(dq, rq)
+    _close(dgk, rg)
+    assert torch.equal(dgk[:, K:], rg[:, K:]) and torch.equal(dgk[..., E:], rg[..., E:])
+    assert torch.equal(dq, dq2) and torch.equal(dgk, dgk2)
+    assert set(dw) == set(rw)
+    for name in rw:
+        _close(dw[name], rw[name])
+        assert torch.equal(dw[name], dw2[name]), name
+    for premul in (False, True):
+        kv = (torch.cat([feats @ params['to_k']['kernel'],
+                         feats @ params['to_v']['kernel']], -1).contiguous()
+              if premul else feats)
+        args = (q_pos, q_proj, ki, pos2, kv, params, K, premul, go)
+        iq, ikv, iw = t_attn.attn_bwd(*args)
+        iq2, ikv2, iw2 = t_attn.attn_bwd(*args)
+        pq, pkv, pw = t_attn.attn_bwd_plain(*args)
+        torch.cuda.synchronize()
+        _close(iq, pq)
+        _close(ikv, pkv)
+        assert torch.equal(iq, iq2) and torch.equal(ikv, ikv2)
+        for name in pw:
+            _close(iw[name], pw[name])
+            assert torch.equal(iw[name], iw2[name]), name
+        if not premul:
+            assert torch.equal(iq, dq)
+            assert all(torch.equal(iw[name], dw[name]) for name in iw)
+
+
+@pytest.mark.parametrize('case', ['one_key', 'ke_gt_k', 'skew'])
+def test_scatter_kernel_index_and_chunked_sums(dev, case):
+    '''The scatter's counting-sort inverse index equals the stable sort of
+    scatter_index_plain (rows past k skipped when KE > k), and its chunked
+    per-key sums agree with gather_bwd_plain (scatter_add_) and give the same
+    bits twice: every row on one key (about 190 summing chunks per
+    example), KE > k, and 80% of the rows on one key.'''
+    rng = np.random.RandomState(70)
+    B, N, M, C, k, KE = 2, 2003, 50, 27, 6, 6
+    ki = rng.randint(0, M, size=(B, N, k + 2)).astype(np.int32)
+    if case == 'one_key':
+        ki[:] = 5
+    elif case == 'ke_gt_k':
+        KE = 9
+    else:
+        ki[rng.rand(B, N, k + 2) < 0.8] = 3
+    ki = _t(ki, dev)
+    dg = _t(rng.randn(B, KE, N, C).astype(np.float32), dev)
+    rows, offsets = t_attn.scatter_index(ki, M, k, KE)
+    p_rows, p_offsets = t_attn.scatter_index_plain(ki, M, k, KE)
+    d1, d2 = (t_attn.gather_bwd(ki, dg, M, k) for _ in range(2))
+    ref = t_attn.gather_bwd_plain(ki, dg, M, k)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, p_rows) and torch.equal(offsets, p_offsets)
+    _close(d1, ref)
+    assert torch.equal(d1, d2)
+    if case == 'one_key':
+        assert not d1[:, :5].any() and not d1[:, 6:].any()
+
+
 @pytest.mark.parametrize('K', [1, 8, 32])
 def test_interp_bwd_kernel_matches_plain(dev, K):
     rng = np.random.RandomState(K)
@@ -384,11 +478,13 @@ def test_interp_bwd_kernel_beyond_the_old_cap_and_on_one_key(dev, case):
 
 @pytest.mark.parametrize('KI', [4, 10])
 def test_scatter_interp_kernel_matches_plain(dev, KI):
-    '''The scatter with the gathered interpolation's backward folded in, at
-    k_interp < k_ext and k_interp = k_ext (10), B 2, masked keys, 150
-    queries on one key: against its plain version, bit-equal to o4d_scatter
-    of dg plus o4d_interp_g_bwd's rows, the same bits twice; without dg (no
-    other consumer of the rows) against the plain version too.'''
+    '''The decoder route's backward of the gather and the gathered
+    interpolation (the scatter of dg, then interp_bwd of go in the first E
+    channels), at k_interp < k_ext and k_interp = k_ext (10), B 2, masked
+    keys, 150 queries on one key: against its plain version, the same bits
+    twice; without dg (no other consumer of the rows) against the plain
+    version too, launching interp_bwd and no scatter.'''
+    from occlusions4d_torch.ops import _build
     rng = np.random.RandomState(60 + KI)
     B, N, M, E, k_ext = 2, 203, 97, 24, 10
     q = rng.rand(B, N, 3).astype(np.float32)
@@ -399,16 +495,20 @@ def test_scatter_interp_kernel_matches_plain(dev, KI):
     ki, kd = t_attn.knn_extract(_t(q, dev), _t(pos2, dev), k_ext, key_mask=_t(mask, dev))
     dg = _t(rng.randn(B, k_ext, N, E + 3).astype(np.float32), dev)
     go = _t(rng.randn(B, N, E).astype(np.float32), dev)
-    d1, d2 = (t_attn.gather_interp_bwd(ki, kd, dg, go, M, k_ext, KI, 1e-4)
+    d1, d2 = (t_attn.gather_interp_bwd_split(ki, kd, dg, go, M, k_ext, KI, 1e-4)
               for _ in range(2))
     ref = t_attn.gather_interp_bwd_plain(ki, kd, dg, go, M, k_ext, KI, 1e-4)
-    unfolded = t_attn.gather_bwd(
-        ki, dg + t_attn.interp_g_bwd(kd, go, KI, k_ext, E, 1e-4), M, k_ext)
-    no_dg = t_attn.gather_interp_bwd(ki, kd, None, go, M, k_ext, KI, 1e-4)
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    no_dg = t_attn.gather_interp_bwd_split(ki, kd, None, go, M, k_ext, KI, 1e-4)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
     no_dg_ref = t_attn.gather_interp_bwd_plain(ki, kd, None, go, M, k_ext, KI, 1e-4)
     torch.cuda.synchronize()
     _close(d1, ref)
-    assert torch.equal(d1, d2) and torch.equal(d1, unfolded)
+    assert torch.equal(d1, d2)
+    assert after['interp_bwd'] - before['interp_bwd'] == 1
+    assert after['scatter'] == before['scatter']
     _close(no_dg, no_dg_ref)
     assert not no_dg[..., E:].any()
 

@@ -152,8 +152,9 @@ def test_attn_g_bwd_plain_matches_jax(K):
 
 @pytest.mark.parametrize('K,KI', [(1, 1), (6, 9), (14, 8)])
 def test_gather_interp_bwd_plain_matches_jax_shared_route(K, KI):
-    '''The decoder route's folded backward against jax.vjp of the JAX shared
-    route in the key features: knn_gather_rows, then fused_knn_interp
+    '''The decoder route's backward of the gather and the interpolation
+    against jax.vjp of the JAX shared route in the key features:
+    knn_gather_rows, then fused_knn_interp
     (gathered=, its KI neighbours) and fused_knn_vector_attention(gathered=,
     K) over the same rows (the _scatter, _interp_g_bwd and _attn_g_bwd
     kernels in interpret mode). The port: gather_interp_bwd_plain of the
@@ -291,9 +292,9 @@ def test_cv1_train_step_lockstep_with_jax(monkeypatch):
         'dec.' + n: p for n, p in tdec.named_parameters()})
     loss, _ = tpipe.loss(tbatch, torch.Generator())
     tg = dict(zip(t_params, torch.autograd.grad(loss, list(t_params.values()))))
-    # Two frames: one scatter each, with the interpolation's backward folded
-    # in (no dense interpolation cotangent), and one attention backward per
-    # frame and layer.
+    # Two frames: one scatter each, with the interpolation's backward added
+    # from its (B, N, E) cotangent (no dense row cotangent), and one
+    # attention backward per frame and layer.
     assert calls == dict(gather_interp_bwd_plain=2, gather_bwd_plain=2,
                          interp_g_bwd_plain=0, attn_g_bwd_plain=4)
     ref = dict(from_jax_params(jax.tree_util.tree_map(np.asarray, jg['encoder']), tenc))
@@ -330,7 +331,7 @@ def test_cv1_trainer_steps_on_cpu_take_the_shared_route_backward(monkeypatch):
     low_moving_ivalo_sembal sampler bias on a CARLA-layout batch (bench.py:
     57-82), the threshold lowered: finite losses (segmentation included), the
     parameters change, and the route's plain backward functions run (the
-    scatter with the interpolation's backward folded in, and the
+    scatter with the interpolation's backward added, and the
     attention's).'''
     monkeypatch.setattr(t_fused, 'SHARED_GATHER_MIN_M', 1)
     cfg = TrainConfig(n_points=256, pt_feat_dim=8, up_down_blocks=2, pt_num_neighbors=8,
@@ -366,3 +367,61 @@ def test_cv1_trainer_steps_on_cpu_take_the_shared_route_backward(monkeypatch):
     assert calls == dict(gather_interp_bwd_plain=4, gather_bwd_plain=4,
                          interp_g_bwd_plain=0, attn_g_bwd_plain=8)
     assert any(not torch.equal(p, q) for p, q in zip(tr.optimizer.params, before))
+
+
+@pytest.mark.parametrize('case', ['uniform', 'skew', 'one_key'])
+def test_scatter_counting_sort_index_and_chunked_sums(case):
+    '''The scatter kernel's steps in plain PyTorch: its counting-sort inverse
+    index over the gather's rows (inverse_index_plain, j-major, several sort
+    tiles) equals the stable sort of scatter_index_plain with the rows past
+    k skipped (KE > k) and a stable argsort; its chunked per-key sums
+    (key_sums_plain, 64-row chunks, a long key cut across many) agree with
+    gather_bwd_plain (scatter_add_) and index_add_: uniform keys, 80% of the
+    rows on one key, and every row on one key.'''
+    rng = np.random.RandomState(90)
+    B, N, M, C, k, KE = 2, 300, 40, 11, 6, 9
+    ki = rng.randint(0, M, size=(B, N, k + 2))
+    if case == 'skew':
+        ki[rng.rand(B, N, k + 2) < 0.8] = 3
+    elif case == 'one_key':
+        ki[:] = 5
+    ki = _t(ki.astype(np.int32))
+    dg = _t(rng.randn(B, KE, N, C).astype(np.float32))
+    perm, offsets = t_attn.inverse_index_plain(ki, M, k, tile=256, jmajor=True)
+    perm = perm.long()
+    rows = perm + (perm // (k * N)) * ((KE - k) * N)
+    p_rows, p_offsets = t_attn.scatter_index_plain(ki, M, k, KE)
+    assert torch.equal(rows.int(), p_rows) and torch.equal(offsets, p_offsets)
+    keys = (ki[..., :k].long() + M * torch.arange(B)[:, None, None]).transpose(1, 2)
+    assert torch.equal(perm, torch.argsort(keys.reshape(-1), stable=True))
+    entry_rows = dg[:, :k].reshape(B * k * N, C)
+    sums = t_attn.key_sums_plain(entry_rows, perm, offsets).view(B, M, C)
+    ref = t_attn.gather_bwd_plain(ki, dg, M, k)
+    lib = torch.zeros((B * M, C)).index_add_(0, keys.reshape(-1), entry_rows).view(B, M, C)
+    np.testing.assert_allclose(sums.numpy(), ref.numpy(), atol=GATOL, rtol=GRTOL)
+    np.testing.assert_allclose(sums.numpy(), lib.numpy(), atol=GATOL, rtol=GRTOL)
+    longest = int(torch.diff(offsets.long()).max())
+    assert longest > (1000 if case != 'uniform' else 0)
+
+
+def test_gather_interp_bwd_compositions_agree():
+    '''The decoder route's backward of the gather and the gathered
+    interpolation, in its three spellings on the CPU: the plain version
+    (scatter + interpolation backward, what the route runs on the card),
+    the scatter of dg plus interp_g_bwd's rows, and autograd through
+    knn_gather_interp.'''
+    rng, c = _gathered_case(14)
+    B, N, M, E, k_ext = c['B'], c['N'], c['M'], c['E'], c['k_ext']
+    ki, kd = c['tknn']
+    dg = _t(rng.randn(B, k_ext, N, E + 3).astype(np.float32))
+    go = _t(rng.randn(B, N, E).astype(np.float32))
+    plain = t_attn.gather_interp_bwd_plain(ki, kd, dg, go, M, k_ext, 8, 1e-4)
+    unfolded = t_attn.gather_bwd_plain(
+        ki, dg + t_attn.interp_g_bwd_plain(kd, go, 8, k_ext, E, 1e-4), M, k_ext)
+    feats = _t(c['feats']).requires_grad_(True)
+    g, fl = t_attn.knn_gather_interp(_t(c['pos2']), feats, c['tknn'], k_ext, 8)
+    (g * dg).sum().backward(retain_graph=True)
+    fl.backward(go)
+    np.testing.assert_allclose(plain.numpy(), unfolded.numpy(), atol=GATOL, rtol=GRTOL)
+    np.testing.assert_allclose(feats.grad.numpy(), plain[..., :E].numpy(), atol=GATOL,
+                               rtol=GRTOL)

@@ -13,11 +13,14 @@ each printing one JSON line:
      chip_smoke_build.log);
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
      card at the gv1 shapes of its path, with kernel, plain and library times
-     (CUDA events); the backward kernels run at the train step's frame
-     (3 examples x 17920 queries; the plain attention backward one example
-     at a time; both projection modes; each attention backward line with
-     its TFLOP/s, its shares of the bf16 and 3xTF32 tensor-core bounds and
-     its own peak memory) and also run twice and must give the same bits (interp_bwd
+     (CUDA events); each attention forward line (attn premul and per-row
+     at one gv1 decode chunk, premul also at the gv1 train frame, attn_g)
+     with its TFLOP/s, its shares of the bf16 and 3xTF32 tensor-core
+     bounds, its own peak memory and whether it beats its plain version,
+     run twice for the same bits; the backward kernels run at the train
+     step's frame (3 examples x 17920 queries; the plain attention backward
+     one example at a time; both projection modes; each attention backward
+     line with the same rates) and also run twice and must give the same bits (interp_bwd
      also at M 2124 on the index route, and on one real train frame's
      indices in phase 6, its inverse index against a stable argsort, with
      index_add_ timed beside it); the eval labels' direct-difference 1-NN
@@ -25,7 +28,8 @@ each printing one JSON line:
      100000-point frame), equal to its plain version; the three
      shared-gather kernels run at one cv1 decode chunk (32768 queries, a
      2124-point abstract cloud), where the per-row index-route attention is
-     timed beside gather + attn_g; the shared-gather backward kernels
+     timed beside gather + attn_g and must give attn_g's bits on the same
+     rows; the shared-gather backward kernels
      (scatter, interp_g_bwd, attn_g_bwd) run at one cv1 train frame (3
      examples x 17203 queries against 2124-point abstract clouds; the plain
      attention backward one example at a time), each twice for the same
@@ -250,12 +254,57 @@ def launch_peak_gib(torch, fn):
     return peak
 
 
-def attn_bwd_rates(flop, ms, b_ms):
-    """Achieved rate and shares of the attention backward's bounds: the bf16
+def attn_rates(flop, ms, b_ms):
+    """Achieved rate and shares of an attention kernel's bounds: the bf16
     tensor-core bound, and 3xTF32's (three TF32 products per product)."""
     tf32x3_ms = 3.0 * flop / _TF32_TC_FLOPS * 1e3
     return dict(tflop_s=flop / ms / 1e9, share_of_bound=b_ms / ms,
                 bound_3xtf32_ms=tf32x3_ms, share_of_3xtf32_bound=tf32x3_ms / ms)
+
+
+def attn_fwd_line(torch, name, call, plain, macs, nbytes, shape, reps=3, **extra):
+    """One attention forward kernel line: the kernel against its plain
+    version (atol 1e-4, rtol 1e-3), twice for the same bits, its time, its
+    plain version's, its launch peak, TFLOP/s and its shares of the bf16
+    and 3xTF32 tensor-core bounds. Returns (the {"kernels"} row, the
+    kernel's output)."""
+    with torch.no_grad():
+        o_k, o_2 = call(), call()
+        o_p = plain()
+        torch.cuda.synchronize()
+        err = max_err(o_k, o_p)
+        rel = err / float(o_p.abs().max())
+        ok = bool(torch.allclose(o_k, o_p, atol=1e-4, rtol=1e-3))
+        repro = max_err(o_k, o_2)
+        del o_p, o_2
+        ms = cuda_ms(torch, call, reps)
+        plain_ms = cuda_ms(torch, plain, 2)
+        peak = launch_peak_gib(torch, call)
+    b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
+    f32_ms = bound(nbytes, 2.0 * macs)[0]
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, bound_peak='bf16 tensor core 989 TFLOP/s',
+               bound_f32_cuda_core_ms=f32_ms, shape=shape, repeat_max_abs_diff=repro,
+               launch_peak_gib=peak, beats_plain=ms < plain_ms,
+               **attn_rates(2.0 * macs, ms, b_ms))
+    emit(dict(phase='kernel', name=name, agree=ok, max_rel_err=rel,
+              tolerance='atol 1e-4, rtol 1e-3', flop=2.0 * macs, **row, **extra))
+    if not ok or repro != 0.0:
+        raise AssertionError(f'{name} disagrees (max abs err {err}) or is not '
+                             f'reproducible ({repro})')
+    return row, o_k
+
+
+def attn_fwd_work(rows_n, n_q, m_keys, kv_w, D, E, H, P, per_row):
+    """(multiply-adds, bytes) of the attention forward over rows_n rows of
+    n_q queries: theta, gamma and, per row, k and v; each input read once
+    (queries, indices or gathered rows, keys, weights), the output written
+    once."""
+    extra = 2 * E * D if per_row else 0
+    macs = rows_n * (3 * P + P * D + 2 * D * H + extra)
+    n_w = 3 * P + P * D + 2 * D * H + P + 2 * D + H + extra
+    nbytes = 4 * (n_q * (3 + D) + m_keys * kv_w + n_w + n_q * D)
+    return macs, nbytes
 
 
 def random_jax_params(net, rng):
@@ -412,10 +461,11 @@ def nn1_direct_line(torch, t_knn, dev, query, keys, case, radius=0.2):
 
 
 def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
-    """Kernels A (both modes) and B at the train step's frame (3 examples of
-    17920 queries, each against its own 531-point abstract cloud), kernel C
-    at 28672^2, each against its plain version (A per example); A and B also
-    run twice for reproducibility."""
+    """The attention forward (premul) and kernels A (both modes) and B at
+    the train step's frame (3 examples of 17920 queries, each against its
+    own 531-point abstract cloud), kernel C at 28672^2, each against its
+    plain version (A per example); the forward, A and B also run twice for
+    reproducibility."""
     B, N, M, K, KI = 3, 17920, 531, 14, 8
     D = params['attn_mlp_0']['kernel'].shape[0]
     H, P = params['attn_mlp_0']['kernel'].shape[1], params['pos_mlp_0']['kernel'].shape[1]
@@ -433,6 +483,16 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
                              feats2 @ params['to_v']['kernel']], -1).contiguous()
                   if premul else feats2)
             args = (qpos, q_proj, ki, pos2, kv, params, K, premul, g)
+        if premul:
+            # The forward at the train step's frame, where a gv1 step launches
+            # it 8 times.
+            macs_f, nbytes_f = attn_fwd_work(B * N * K, B * N, B * M, 3 + kv.shape[-1], D, E,
+                                             H, P, False)
+            rows['attn']['train_frame'], _ = attn_fwd_line(
+                torch, 'attn_train_frame', lambda: t_attn._attn_cuda(*args[:-1]),
+                lambda: t_attn.attn_plain(*args[:-1]), macs_f, nbytes_f + B * N * K * 4,
+                [B, N, M, K, D, E])
+        with torch.no_grad():
             dq, dkv, dw = t_attn.attn_bwd(*args)
             dq2, dkv2, dw2 = t_attn.attn_bwd(*args)
         rq, rkv, rw = plain_per_example(torch, t_attn.attn_bwd_plain, args)
@@ -460,7 +520,7 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
         nbytes = 4 * (B * N * (3 + D + K + D + D) + 2 * B * M * CW + B * M * 3 + 2 * n_w)
         b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
         f32_ms = bound(nbytes, 2.0 * macs)[0]
-        rates = attn_bwd_rates(2.0 * macs, ms, b_ms)
+        rates = attn_rates(2.0 * macs, ms, b_ms)
         name = 'attn_bwd' if premul else 'attn_bwd_per_row'
         shape = [B, N, M, K, D, E]
         emit(dict(phase='kernel', name=name, shape=shape, agree=ok,
@@ -618,50 +678,37 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
                             bound_by=b_by, library_ms=lib_ms, shape=shape)
 
     # Attention over the gathered rows, and the two routes at M = 2124.
+    attn_g = lambda gg: t_attn.fused_knn_vector_attention(  # noqa: E731
+        q_proj, qpos, feats2, pos2, params, K, gathered=gg)
+    index = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, feats2, params, K,  # noqa: E731
+                                      False)
     with torch.no_grad():
-        attn_g = lambda gg: t_attn.fused_knn_vector_attention(  # noqa: E731
-            q_proj, qpos, feats2, pos2, params, K, gathered=gg)
-        index = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, feats2, params, K,  # noqa: E731
-                                          False)
-        # The index route in premul mode (key set projected first), which
-        # use_premul's TPU rule does not pick at M = 2124.
-        premul = lambda: t_attn._attn_cuda(  # noqa: E731
-            qpos, q_proj, ki, pos2, torch.cat([feats2 @ params['to_k']['kernel'],
-                                               feats2 @ params['to_v']['kernel']], -1),
-            params, K, True)
-        o_k = attn_g(g)
-        o_p = t_attn.attn_g_plain(qpos, q_proj, g, params, K)
+        kv_pre = torch.cat([feats2 @ params['to_k']['kernel'],
+                            feats2 @ params['to_v']['kernel']], -1).contiguous()
+    # The index route in premul mode (key set projected first), which
+    # use_premul's TPU rule does not pick at M = 2124.
+    premul = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, kv_pre, params, K,  # noqa: E731
+                                       True)
+    macs, nbytes = attn_fwd_work(N * K, N, 0, 0, D, E, H, P, True)
+    shape = [N, M, K, D, E]
+    row, o_k = attn_fwd_line(torch, 'attn_g', lambda: attn_g(g),
+                             lambda: t_attn.attn_g_plain(qpos, q_proj, g, params, K),
+                             macs, nbytes + N * K * C * 4, shape)
+    with torch.no_grad():
         o_i = index()
         torch.cuda.synchronize()
-        err = max_err(o_k, o_p)
-        rel = err / float(o_p.abs().max())
-        ok = bool(torch.allclose(o_k, o_p, atol=1e-4, rtol=1e-3))
+        # The same rows through the index route's per-row mode: the same bits.
         route_diff = max_err(o_k, o_i)
-        del o_p, o_i
-        ms = cuda_ms(torch, lambda: attn_g(g), 3)
-        plain_ms = cuda_ms(torch, lambda: t_attn.attn_g_plain(qpos, q_proj, g, params, K), 2)
-        idx_ms = cuda_ms(torch, index, 3)
-        premul_ms = cuda_ms(torch, premul, 3)
-        both_ms = cuda_ms(torch, lambda: attn_g(gather()), 3)
-    macs = N * K * (3 * P + P * D + 2 * D * H + 2 * E * D)
-    nbytes = (N * (3 + D) * 4 + N * K * C * 4
-              + (3 * P + P * D + 2 * D * H + 2 * E * D + P + 2 * D + H) * 4 + N * D * 4)
-    b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
-    f32_ms = bound(nbytes, 2.0 * macs)[0]
-    shape = [N, M, K, D, E]
-    routes = dict(route_index_per_row_attn_ms=idx_ms, route_index_premul_attn_ms=premul_ms,
-                  route_gather_plus_attn_g_ms=both_ms)
-    emit(dict(phase='kernel', name='attn_g', shape=shape, agree=ok, max_abs_err=err,
-              max_rel_err=rel, tolerance='atol 1e-4, rtol 1e-3', ms=ms, plain_ms=plain_ms,
-              library_ms=None, bound_ms=b_ms, bound_by=b_by,
-              bound_peak='bf16 tensor core 989 TFLOP/s', bound_f32_cuda_core_ms=f32_ms,
-              flop=2.0 * macs, index_route_max_abs_diff=route_diff, **routes))
-    if not ok:
-        raise AssertionError(f'attn_g disagrees: max abs err {err}')
-    rows['attn_g'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None,
-                          bound_peak='bf16 tensor core 989 TFLOP/s',
-                          bound_f32_cuda_core_ms=f32_ms, shape=shape, **routes)
+        del o_k, o_i
+        routes = dict(route_index_per_row_attn_ms=cuda_ms(torch, index, 3),
+                      route_index_premul_attn_ms=cuda_ms(torch, premul, 3),
+                      route_gather_plus_attn_g_ms=cuda_ms(torch, lambda: attn_g(gather()), 3))
+    emit(dict(phase='route', name='attn_g_vs_index_route', shape=shape,
+              index_route_max_abs_diff=route_diff, **routes))
+    if route_diff != 0.0:
+        raise AssertionError(f'attn_g and the per-row index route differ on the same rows '
+                             f'({route_diff})')
+    rows['attn_g'] = dict(row, index_route_max_abs_diff=route_diff, **routes)
 
 
 def scatter_add_ms(torch, ki, dg, M, K, dev):
@@ -852,7 +899,7 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                   + B * N * D + B * K * N * C + n_w)
     b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
     f32_ms = bound(nbytes, 2.0 * macs)[0]
-    rates = attn_bwd_rates(2.0 * macs, ms, b_ms)
+    rates = attn_rates(2.0 * macs, ms, b_ms)
     shape = [B, N, M, K, D, E]
     emit(dict(phase='kernel', name='attn_g_bwd', shape=shape, agree=ok and zeros_exact,
               max_abs_err=err, max_scaled_err=scaled, tolerance=tol,
@@ -1552,41 +1599,20 @@ def main():
             kv = (torch.cat([feats2 @ params['to_k']['kernel'],
                              feats2 @ params['to_v']['kernel']], -1).contiguous()
                   if premul else feats2)
-            call = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, kv, params, 14,  # noqa: E731
-                                             premul)
-            o_k = call()
-            o_p = t_attn.attn_plain(qpos, q_proj, ki, pos2, kv, params, 14, premul)
-            torch.cuda.synchronize()
-            err = float((o_k - o_p).abs().max())
-            rel = err / float(o_p.abs().max())
-            ok = bool(torch.allclose(o_k, o_p, atol=1e-4, rtol=1e-3))
-            ms = cuda_ms(torch, call, 3)
-            plain_ms = cuda_ms(torch, lambda: t_attn.attn_plain(
-                qpos, q_proj, ki, pos2, kv, params, 14, premul), 2)
-        rows_n = _CHUNK * 14
-        macs = rows_n * (3 * P + P * D + 2 * D * H + (0 if premul else 2 * E * D))
-        nbytes = (_CHUNK * (3 + D) * 4 + _CHUNK * 14 * 4 + 531 * (3 + kv.shape[-1]) * 4
-                  + (3 * P + P * D + 2 * D * H + P + 2 * D + H) * 4 + _CHUNK * D * 4)
-        # The work is matrix products: its bound is the bf16 tensor-core
-        # peak; the f32 CUDA-core figure (what this f32 kernel runs on) is
-        # a side field.
-        b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
-        f32_ms = bound(nbytes, 2.0 * macs)[0]
+        call = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, kv, params, 14,  # noqa: E731
+                                         premul)
+        plain = lambda: t_attn.attn_plain(qpos, q_proj, ki, pos2, kv, params, 14,  # noqa: E731
+                                          premul)
+        # Keys: the 531 rows' kv and positions; plus the (N, 14) indices.
+        macs, nbytes = attn_fwd_work(_CHUNK * 14, _CHUNK, 531, 3 + kv.shape[-1], D, E, H, P,
+                                     not premul)
         name = 'attn' if premul else 'attn_per_row'
-        emit(dict(phase='kernel', name=name, shape=[_CHUNK, 531, 14, D, E], agree=ok,
-                  max_abs_err=err, max_rel_err=rel, tolerance='atol 1e-4, rtol 1e-3',
-                  ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                  bound_by=b_by, bound_peak='bf16 tensor core 989 TFLOP/s',
-                  bound_f32_cuda_core_ms=f32_ms, flop=2.0 * macs))
-        if not ok:
-            raise AssertionError(f'{name} disagrees: max abs err {err}')
+        row, _ = attn_fwd_line(torch, name, call, plain, macs, nbytes + _CHUNK * 14 * 4,
+                               [_CHUNK, 531, 14, D, E])
         if premul:
-            rows['attn'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                                bound_peak='bf16 tensor core 989 TFLOP/s',
-                                bound_f32_cuda_core_ms=f32_ms,
-                                shape=[_CHUNK, 531, 14, D, E])
-    del o_k, o_p
+            rows['attn'] = row
+        else:
+            rows['attn']['per_row'] = row
 
     # K5 / K6 / K7: the backward kernels and the bidirectional 1-NN.
     check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows)

@@ -14,8 +14,6 @@
 //              per-row mode over gf (B, N, K, E), the raw features of each
 //              query's K neighbours (n-major), with the coordinate deltas
 //              rel (B, N, K, 3) read as given instead of qpos - kpos.
-// Only the row loader differs (template parameter MODE), so on the same rows
-// the three entries give the same bits.
 //
 // Function, per query n with neighbours j = ki[n, :k] (f32 throughout):
 //   theta_j = W2 relu(W1 (qpos_n - kpos_j) + b1) + b2           (3 -> P -> D)
@@ -24,27 +22,62 @@
 //   out_n   = sum_j softmax_j(l_j) * (v_j + theta_j)   (softmax per channel)
 //
 // What bounds it on the H100: operations. Per (query, neighbour) row the
-// gamma MLP is 2*D*H multiply-adds (692k at D = 416, H = 832), against a few
-// KB of inputs; the whole decode is ~2e13 FLOP per dense scene. This first
-// kernel runs them on the f32 CUDA cores, far from the tensor-core bound.
-// In the encoder (o4d_sattn, D 36 ... 288, H = 2D) the same count is about
-// 12 D^2 + 64 D FLOP per row: 98 GFLOP over the four blocks of an n57344
-// train step. The narrow widths leave most of a 128-column weight tile idle
-// (D 36 uses 36 of 128 columns); that is later work.
-// Design: a thread block owns 32 rows = floor(32 / k) queries x k neighbours,
-// so the softmax over j closes inside the block. The rows' theta, a and
-// logits stay in shared memory; the gamma MLP's hidden layer is produced and
-// consumed in chunks of 128 columns (relu(a A1) chunk -> accumulate chunk A2
-// into the logits), so the (rows, H) activation never exists whole. Every
-// product is a register-tiled loop (256 threads, 4 x 4 outputs each) over
-// weight tiles staged through shared memory. wgmma/TMA tiles and bf16 are
-// later work.
+// gamma MLP is 2 D H multiply-adds (692k at D = 416, H = 832), plus 2 E D for
+// k and v in per-row mode, against a few KB of inputs: 6.5e11 FLOP per
+// 32768-query premul chunk, 8.7e11 per gathered cv1 chunk. f32 accuracy on
+// the tensor cores takes three TF32 products per product (3xTF32, the
+// counterpart of the TPU kernel's Precision.HIGHEST): 3.9 / 5.3 ms at 495
+// TFLOP/s.
+//
+// Design of o4d_attn and o4d_attn_g (PR 1's kernel ran every product on the
+// f32 CUDA cores in 32-row tiles, restaging every weight from L2 for each
+// 28 useful rows):
+//   * the rows go in chunks of whole queries of one example (QC queries, the
+//     per-row operands within a budget; o4d_attn_plan), per chunk:
+//     load_rows_kernel (rel and F, or premul's k and v rows; shared with the
+//     backward), theta's hidden layer and theta on the CUDA cores (FMA chains
+//     in k order, the rounding of PR 1's kernel), attn_tile_kernel, then
+//     combine_kernel (the softmax over each query's k rows, per channel, in
+//     j order, as PR 1's kernel);
+//   * the weights are laid out once per call in mma fragment order
+//     (frag_b_kernel, frag_a1_kernel), in f32, so that a tile's B operands
+//     stream as contiguous slabs and a lane reads its fragment with one 8- or
+//     16-byte shared load;
+//   * attn_tile_kernel: 64 rows per block of 8 warps. The rows' hpre =
+//     (q - k) + theta sit in shared memory (per-row mode: k = F Wk and
+//     v = F Wv first, on the tensor cores, v written for the combine); gamma
+//     runs in chunks of 128 hidden columns: h^T = relu(A1^T hpre^T + c1)
+//     (32 x 32 per warp), h into shared memory, then logits += h A2 with the
+//     64 x D logits in registers (2 x 13 n-tiles of 16 x 8 per warp at
+//     D 416). h never reaches device memory. Every product is mma.sync
+//     m16n8k8 TF32 in 3xTF32, both operands split into (big, small) TF32
+//     parts as they are read, the tensor core accumulating across the
+//     product's whole K (the forward's longest sum is 832 deep and its gate
+//     rtol 1e-3; the backward's per-step f32 sums serve its long
+//     weight-gradient sums);
+//   * the B operands stream through a 3-stage ring of 26 KB slabs, each one
+//     bulk copy by the tensor memory accelerator completing an mbarrier, one
+//     block barrier per slab. Splitting the weights once into (big, small)
+//     pairs in device memory doubled the bytes every tile streams from L2
+//     (5.5 MB per 64 rows), and the stream then set the pace; in f32 it
+//     hides under the products (the same time with the copies left out);
+//   * ReLU masks may flip where h is within rounding of zero; in the forward
+//     such a flip moves an output by about that rounding.
+// Every kernel is row-local, so the index route and the gathered route give
+// the same bits on the same rows, and no sum uses atomics.
+//
+// o4d_sattn keeps PR 5's body (sattn_kernel): 32-row tiles, every product a
+// register-tiled f32 loop over weight tiles staged through shared memory.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include "attn_common.cuh"
 
 namespace {
 
+// ============================================================ o4d_sattn ==
 constexpr int kThreads = 256;
 constexpr int kRows = 32;
 constexpr int kColTile = 128;
@@ -106,17 +139,12 @@ __device__ void gemm_rows(const float* A, int lda, const float* __restrict__ W,
   __syncthreads();
 }
 
-struct AttnArgs {
-  const float* qpos;   // (B, N, 3)
+struct SattnArgs {
   const float* qproj;  // (B, N, D)
-  const int* ki;       // (B, N, KS)
-  const float* kpos;   // (B, M, 3)
-  const float* kv;     // premul (B, M, 2D) [k | v]; per-row (B, M, E)
-  const float* g;      // gathered only: (B, KE, N, E + 3)
-  const float* gf;     // self only: (B, N, k, E)
-  const float* rel;    // self only: (B, N, k, 3)
-  const float* wk;     // (E, D), per-row only
-  const float* wv;     // (E, D), per-row only
+  const float* gf;     // (B, N, k, E)
+  const float* rel;    // (B, N, k, 3)
+  const float* wk;     // (E, D)
+  const float* wv;     // (E, D)
   const float* wp1;    // (3, P)
   const float* bp1;    // (P)
   const float* wp2;    // (P, D)
@@ -126,34 +154,34 @@ struct AttnArgs {
   const float* wa2;    // (H, D)
   const float* ba2;    // (D)
   float* out;          // (B, N, D)
-  int N, M, D, E, H, P, KS, KE, k, premul;
+  int N, D, E, H, P, k;
   float inv_sqrt_d;
 };
 
-size_t smem_floats(int D, int E, int P) {
+size_t sattn_smem_floats(int D, int E, int P) {
   const int LD = D > E ? D : E;
   return (size_t)kRows * D * 2 + (size_t)kRows * LD + (size_t)kRows * kColTile +
          (size_t)kKTile * kColTile + (size_t)kRows * P + (size_t)kRows * 3;
 }
 
-// Row loaders: neighbour indices into kv, the shared gather's rows, or the
-// self-attention's n-major gathered features.
-enum { kIndex = 0, kGathered = 1, kSelf = 2 };
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
+// A thread block owns 32 rows = floor(32 / k) queries x k neighbours, so the
+// softmax over j closes inside the block. The rows' theta, a and logits stay
+// in shared memory; the gamma MLP's hidden layer is produced and consumed in
+// chunks of 128 columns (relu(a A1) chunk -> accumulate chunk A2 into the
+// logits).
+__global__ void __launch_bounds__(kThreads) sattn_kernel(SattnArgs p) {
   extern __shared__ float sm[];
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
   const int LD = D > E ? D : E;
   float* PE = sm;                        // theta, then v + theta
   float* A = PE + kRows * D;             // (q - k) + theta
-  float* LG = A + kRows * D;             // raw features (per-row), then logits
+  float* LG = A + kRows * D;             // raw features, then logits
   float* HC = LG + kRows * LD;           // gamma hidden-layer chunk
   float* WS = HC + kRows * kColTile;     // staged weight tile
   float* PH = WS + kKTile * kColTile;    // theta hidden layer
-  float* REL = PH + kRows * P;           // qpos - kpos
-  __shared__ int rq[kRows], ridx[kRows];
-  __shared__ const float* rrow[kRows];  // gathered / self: the row's features.
+  float* REL = PH + kRows * P;           // coordinate deltas
+  __shared__ int rq[kRows];
+  __shared__ const float* rrow[kRows];  // the row's features.
 
   const int b = blockIdx.y, tid = threadIdx.x;
   const int tq_per = kRows / k;
@@ -162,57 +190,27 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
     const int tq = tid / k, j = tid % k, n = n0 + tq;
     const bool valid = tq < tq_per && n < p.N;
     rq[tid] = valid ? n : -1;
-    if (MODE == kSelf) {
-      const size_t row = ((size_t)b * p.N + (valid ? n : 0)) * k + j;
-      rrow[tid] = p.gf + row * E;
-      for (int c = 0; c < 3; ++c) REL[tid * 3 + c] = valid ? p.rel[row * 3 + c] : 0.f;
-    } else {
-      const float* kp;
-      if (MODE == kGathered) {
-        const float* row =
-            p.g + (((size_t)b * p.KE + j) * p.N + (valid ? n : 0)) * (E + 3);
-        rrow[tid] = row;
-        kp = row + E;
-      } else {
-        const int idx = valid ? p.ki[((size_t)b * p.N + n) * p.KS + j] : 0;
-        ridx[tid] = idx;
-        kp = p.kpos + ((size_t)b * p.M + idx) * 3;
-      }
-      for (int c = 0; c < 3; ++c)
-        REL[tid * 3 + c] =
-            valid ? p.qpos[((size_t)b * p.N + n) * 3 + c] - kp[c] : 0.f;
-    }
+    const size_t row = ((size_t)b * p.N + (valid ? n : 0)) * k + j;
+    rrow[tid] = p.gf + row * E;
+    for (int c = 0; c < 3; ++c) REL[tid * 3 + c] = valid ? p.rel[row * 3 + c] : 0.f;
   }
   __syncthreads();
 
   gemm_rows<true, false>(REL, 3, p.wp1, P, p.bp1, 3, P, PH, P, WS);
   gemm_rows<false, false>(PH, P, p.wp2, D, p.bp2, P, D, PE, D, WS);
 
-  const float* kvb = MODE == kIndex ? p.kv + (size_t)b * p.M * (p.premul ? 2 * D : E)
-                                    : nullptr;
-  if (MODE == kIndex && p.premul) {
-    for (int idx = tid; idx < kRows * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      A[idx] = rq[r] >= 0 ? kvb[(size_t)ridx[r] * 2 * D + c] : 0.f;
-    }
-  } else {
-    for (int idx = tid; idx < kRows * E; idx += kThreads) {
-      const int r = idx / E, c = idx % E;
-      LG[r * LD + c] = rq[r] < 0         ? 0.f
-                       : MODE != kIndex ? rrow[r][c]
-                                        : kvb[(size_t)ridx[r] * E + c];
-    }
-    gemm_rows<false, false>(LG, LD, p.wk, D, nullptr, E, D, A, D, WS);
+  for (int idx = tid; idx < kRows * E; idx += kThreads) {
+    const int r = idx / E, c = idx % E;
+    LG[r * LD + c] = rq[r] < 0 ? 0.f : rrow[r][c];
   }
+  gemm_rows<false, false>(LG, LD, p.wk, D, nullptr, E, D, A, D, WS);
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const float q = rq[r] >= 0 ? p.qproj[((size_t)b * p.N + rq[r]) * D + c] : 0.f;
     A[idx] = (q - A[idx]) + PE[idx];
-    if (p.premul)  // same thread, same idx: PE[idx] was read just above.
-      PE[idx] = (rq[r] >= 0 ? kvb[(size_t)ridx[r] * 2 * D + D + c] : 0.f) + PE[idx];
   }
-  if (!p.premul)  // PE += F Wv (its first barrier orders the loop above).
-    gemm_rows<false, true>(LG, LD, p.wv, D, nullptr, E, D, PE, D, WS);
+  // PE += F Wv (its first barrier orders the loop above).
+  gemm_rows<false, true>(LG, LD, p.wv, D, nullptr, E, D, PE, D, WS);
   __syncthreads();
   for (int idx = tid; idx < kRows * D; idx += kThreads) LG[idx] = 0.f;
 
@@ -241,62 +239,616 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(AttnArgs p) {
   }
 }
 
+// ================================================= o4d_attn / o4d_attn_g ==
+constexpr int kFwdThreads = 256;  // 8 warps: 2 (rows or hidden columns) x 4
+constexpr int kTileRows = 64;
+constexpr int kHC = 128;          // gamma's hidden columns per chunk
+constexpr int kHK8 = kHC / 8;     // k8 steps of gamma's second layer per chunk
+constexpr int kWarpsM = kFwdThreads / 32 / 4;  // warps along the rows in a wide product (2)
+constexpr int kMT = kTileRows / 16 / kWarpsM;  // a warp's m-tiles in a wide product (2)
+// Gamma's first layer: 4 warps along the hidden columns x 2 along the rows,
+// each warp 32 x 32 (2 hidden m-tiles x 4 row n-tiles).
+constexpr int kMT1 = 2, kNT1 = 4;
+constexpr int kMaxWidth = 416;    // the widest D or E a tile takes
+constexpr int kMaxNT = kMaxWidth / 8;  // 52 n-tiles of 8 columns, the wide B operands' width
+constexpr int kNTW = kMaxNT / 4;       // a warp's n-tiles in a wide product (13)
+constexpr int kSlab = kMaxNT * 32 * 4;  // floats per ring stage: two k8 steps at 416
+constexpr int kA1Step = (kHC / 16) * 32 * 4;  // floats of one k8 step of an A1 chunk
+constexpr int kA1Steps = kSlab / kA1Step;     // A1 k8 steps per slab (6)
+constexpr int kFwdStages = 3;
+constexpr int kLdH = kHC + 4;  // the h chunk [row][column]; 4 mod 32: no conflicts
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Shared floats of attn_tile_kernel: the rows (F, then hpre), the h chunk, the
+// ring. Row strides are 4 mod 8, so fragment reads hit 32 distinct banks.
+size_t tile_smem_floats(int D, int E) {
+  const int W = 8 * max(cdiv(D, 8), cdiv(E, 8));
+  return (size_t)kTileRows * (W + 4) + (size_t)kTileRows * kLdH +
+         (size_t)kFwdStages * kSlab;
+}
+
+// B (K x N, row-major) in mma B-fragment order, zero past K and N: float2
+// (kb NT + nt) 32 + lane, lane = 4 gq + tq, holds b0 = B[8 kb + tq][8 nt + gq]
+// and b1 = B[8 kb + tq + 4][8 nt + gq].
+__global__ void frag_b_kernel(const float* __restrict__ B, int K, int N, int KB, int NT,
+                              float2* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)KB * NT * 32) return;
+  const int lane = (int)(i & 31), t = (int)(i >> 5), nt = t % NT, kb = t / NT;
+  const int n = 8 * nt + (lane >> 2), k0 = 8 * kb + (lane & 3), k1 = k0 + 4;
+  out[i] = make_float2(k0 < K && n < N ? B[(size_t)k0 * N + n] : 0.f,
+                       k1 < K && n < N ? B[(size_t)k1 * N + n] : 0.f);
+}
+
+// A1 (D x H) transposed, in chunks of kHC hidden columns, in mma A-fragment
+// order, zero past D and H: for chunk c, k8 step kb and m-tile mt (hidden
+// columns h = kHC c + 16 mt + gq and h + 8), float4 ((c D8 + kb) kHC / 16 +
+// mt) 32 + lane holds a0 = A1[8 kb + tq][h], a1 = A1[8 kb + tq][h + 8],
+// a2 = A1[8 kb + tq + 4][h], a3 = A1[8 kb + tq + 4][h + 8].
+__global__ void frag_a1_kernel(const float* __restrict__ A1, int D, int H, int D8, int NC,
+                               float4* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int MT = kHC / 16;  // m-tiles of a chunk
+  if (i >= (long long)NC * D8 * MT * 32) return;
+  const int lane = (int)(i & 31), u = (int)(i >> 5);  // u = (c D8 + kb) MT + mt
+  const int mt = u % MT, kb = (u / MT) % D8, c = (u / MT) / D8;
+  const int h = c * kHC + 16 * mt + (lane >> 2), d = 8 * kb + (lane & 3);
+  float v[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int hh = h + 8 * (x & 1), dd = d + 4 * (x >> 1);
+    v[x] = dd < D && hh < H ? A1[(size_t)dd * H + hh] : 0.f;
+  }
+  out[i] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The ring's bulk copies (TMA, cp.async.bulk) and their mbarriers.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// dst <- bytes from src by the tensor memory accelerator; the mbarrier
+// completes its phase once they have landed.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits for the mbarrier's phase of the given parity; a copy that never
+// lands fails the launch (trap) instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  for (long long spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (spin > (1LL << 26)) __trap();
+  }
+}
+
+struct TileArgs {
+  const float* q;   // (nq, D): the chunk's projected queries
+  const float* th;  // (R, D) theta
+  const float* kk;  // premul: (R, D) the rows' k
+  const float* f;   // per-row: (R, E) the rows' features
+  float* vv;        // per-row: (R, D) v = F Wv, written here
+  float* lg;        // (R, D) the logits before c2 and 1 / sqrt(D), written here
+  const float* wv;  // per-row: Wv and Wk in fragment order (frag_b_kernel)
+  const float* wk;
+  const float* a1;  // A1 in fragment order (frag_a1_kernel)
+  const float* a2;  // A2 in fragment order (frag_b_kernel, K padded to whole chunks)
+  const float* c1;  // (H)
+  int R, D, E, H, k, premul;
+};
+
+__device__ __forceinline__ void zero_acc(float (&acc)[kMT][kNTW][4]) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][i][c] = 0.f;
+}
+
+// acc (the warp's rows 16 kMT wm + [0, 16 kMT) x its kNTW n-tiles nt0 + i) +=
+// A (the tile's rows, row stride lda; k8 steps k8 ... k8 + steps - 1) times
+// `steps` k8 steps of a B slab (kMaxNT n-tiles a step), both split into TF32
+// (big, small) as they are read.
+// The mma order is pass-major within groups of n-tiles (all small_a big_b
+// products of the group, then big_a small_b, then big_a big_b), so that an
+// accumulator's next product is 2 x group instructions away: the tensor
+// core's latency is hidden by independent products, not by other warps.
+__device__ __forceinline__ void wide_steps(float (&acc)[kMT][kNTW][4], const float* A, int lda,
+                                           int k8, const float* slab, int steps, int nt0,
+                                           int wm, int lane) {
+  constexpr int G = 7;  // n-tiles whose fragments are held at once
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int kb = 0; kb < steps; ++kb) {
+    uint32_t ab[kMT][4], as[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int m = (wm * kMT + mt) * 16 + gq + 8 * (h & 1);
+        const int kx = 8 * (k8 + kb) + tq + 4 * (h >> 1);
+        split_tf32(A[m * lda + kx], ab[mt][h], as[mt][h]);
+      }
+    const float2* bs =
+        reinterpret_cast<const float2*>(slab) + ((size_t)kb * kMaxNT + nt0) * 32 + lane;
+#pragma unroll
+    for (int g0 = 0; g0 < kNTW; g0 += G) {
+      uint32_t bb[G][2], bsm[G][2];
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (g0 + i < kNTW) {
+          const float2 w = bs[(g0 + i) * 32];
+          split_tf32(w.x, bb[i][0], bsm[i][0]);
+          split_tf32(w.y, bb[i][1], bsm[i][1]);
+        }
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+          if (g0 + i < kNTW)
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+              mma_tf32<false>(acc[mt][g0 + i], pass == 0 ? as[mt] : ab[mt],
+                              pass == 1 ? bsm[i] : bb[i]);
+    }
+  }
+}
+
+// acc (the warp's hidden columns 32 wm + [0, 32) x rows 32 wn + [0, 32)) +=
+// A1^T (a slab of `steps` k8 steps) times hpre^T (the tile's rows X, row
+// stride ldx, k8 steps from k8), both split as they are read; pass-major
+// mma order as in wide_steps.
+__device__ __forceinline__ void g1_steps(float (&acc)[kMT1][kNT1][4], const float* slab, int steps,
+                                         const float* X, int ldx, int k8, int wm, int wn,
+                                         int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int kb = 0; kb < kA1Steps; ++kb) {  // unrolled: loads run ahead of products
+    if (kb >= steps) break;
+    uint32_t ab[kMT1][4], as[kMT1][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT1; ++mt) {
+      const float4 a =
+          reinterpret_cast<const float4*>(slab)[((size_t)kb * (kHC / 16) + wm * kMT1 + mt) * 32 +
+                                                lane];
+      split_tf32(a.x, ab[mt][0], as[mt][0]);
+      split_tf32(a.y, ab[mt][1], as[mt][1]);
+      split_tf32(a.z, ab[mt][2], as[mt][2]);
+      split_tf32(a.w, ab[mt][3], as[mt][3]);
+    }
+    uint32_t bb[kNT1][2], bsm[kNT1][2];
+#pragma unroll
+    for (int nt = 0; nt < kNT1; ++nt) {
+      const float* row = X + (wn * 8 * kNT1 + nt * 8 + gq) * ldx + 8 * (k8 + kb) + tq;
+      split_tf32(row[0], bb[nt][0], bsm[nt][0]);
+      split_tf32(row[4], bb[nt][1], bsm[nt][1]);
+    }
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int mt = 0; mt < kMT1; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT1; ++nt)
+          mma_tf32<false>(acc[mt][nt], pass == 0 ? as[mt] : ab[mt],
+                          pass == 1 ? bsm[nt] : bb[nt]);
+  }
+}
+
+// One B slab of the tile's stream: its source, k8 steps and bytes.
+struct Slab {
+  const float* src;
+  int steps;
+  uint32_t bytes;
+};
+
+// The tile's rows r0 ... r0 + 63 of the chunk: per-row mode k and v on the
+// tensor cores, hpre, gamma, the logits (the design at the top of the file).
+// The wide products always span 416 columns (zero past D).
+__global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
+  extern __shared__ __align__(16) float smf[];
+  __shared__ __align__(8) uint64_t full[kFwdStages];  // a slab has landed in the stage
+  constexpr int NT = kMaxNT;
+  const int D = p.D, E = p.E, H = p.H;
+  const int D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC);
+  const int W8 = 8 * max(D8, E8), ldx = W8 + 4;
+  float* X = smf;                       // F (per-row mode), then hpre
+  float* Hs = X + kTileRows * ldx;      // h chunk [row][hidden column]
+  float* ring = Hs + kTileRows * kLdH;  // kFwdStages B slabs
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3, nt0 = wn * kNTW;
+  const int r0 = blockIdx.x * kTileRows, rows = min(kTileRows, p.R - r0);
+  const bool perrow = !p.premul;
+
+  // The B slabs in stream order: per-row mode's Wv then Wk (nw each), then
+  // per hidden chunk A1's (n1) and A2's (n2; the last chunk's K8L k8 steps
+  // in n2l).
+  constexpr int kbw = kSlab / (NT * 64);  // k8 steps per slab of a wide B
+  const int nw = perrow ? cdiv(E8, kbw) : 0;
+  const int K8L = cdiv(H - (NC - 1) * kHC, 8);
+  const int n1 = cdiv(D8, kA1Steps), n2 = cdiv(kHK8, kbw), n2l = cdiv(K8L, kbw);
+  const int total = 2 * nw + (NC - 1) * (n1 + n2) + n1 + n2l;
+  auto slab = [&](int s) {
+    Slab x;
+    if (s < 2 * nw) {
+      const int i = s < nw ? s : s - nw;
+      x.steps = min(kbw, E8 - i * kbw);
+      x.src = (s < nw ? p.wv : p.wk) + (size_t)i * kbw * NT * 64;
+      x.bytes = x.steps * NT * 64 * 4;
+      return x;
+    }
+    s -= 2 * nw;
+    const int c = min(s / (n1 + n2), NC - 1), i = s - c * (n1 + n2);
+    if (i < n1) {
+      x.steps = min(kA1Steps, D8 - i * kA1Steps);
+      x.src = p.a1 + ((size_t)c * D8 + i * kA1Steps) * kA1Step;
+      x.bytes = x.steps * kA1Step * 4;
+    } else {
+      const int j = i - n1;
+      x.steps = min(kbw, (c < NC - 1 ? kHK8 : K8L) - j * kbw);
+      x.src = p.a2 + ((size_t)c * kHK8 + j * kbw) * NT * 64;
+      x.bytes = x.steps * NT * 64 * 4;
+    }
+    return x;
+  };
+  // Thread 0 issues slab s into its stage as one bulk copy.
+  auto load = [&](int s) {
+    const Slab x = slab(s);
+    bulk_load(ring + (s % kFwdStages) * kSlab, x.src, x.bytes, &full[s % kFwdStages]);
+  };
+  int s_next = 0;  // the next slab to consume
+  // One barrier (every warp is done with the stage the refill overwrites),
+  // the refill, then the wait for the next slab, which it returns.
+  auto acquire = [&](int& steps) {
+    __syncthreads();
+    if (tid == 0 && s_next + kFwdStages - 1 < total) load(s_next + kFwdStages - 1);
+    mbar_wait(&full[s_next % kFwdStages], (s_next / kFwdStages) & 1);
+    steps = slab(s_next).steps;
+    const float* r = ring + (s_next % kFwdStages) * kSlab;
+    ++s_next;
+    return r;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kFwdStages; ++i) mbar_init(&full[i]);
+    fence_mbar_init();
+    for (int i = 0; i < kFwdStages - 1 && i < total; ++i) load(i);
+  }
+
+  // The tile's rows: F (per-row), or hpre = (q - k) + theta (premul); zero
+  // past the widths and past the chunk's rows.
+  for (int idx = tid; idx < kTileRows * W8; idx += kFwdThreads) {
+    const int r = idx / W8, c = idx - r * W8;
+    float v = 0.f;
+    if (r < rows) {
+      const size_t row = (size_t)(r0 + r);
+      if (perrow) {
+        if (c < E) v = p.f[row * E + c];
+      } else if (c < D) {
+        v = (p.q[(row / p.k) * D + c] - p.kk[row * D + c]) + p.th[row * D + c];
+      }
+    }
+    X[r * ldx + c] = v;
+  }
+
+  float acc[kMT][kNTW][4];
+  int steps;
+  if (perrow) {
+    for (int which = 0; which < 2; ++which) {  // 0: v = F Wv; 1: k = F Wk.
+      zero_acc(acc);
+      for (int i = 0, k8 = 0; i < nw; ++i, k8 += steps) {
+        const float* b = acquire(steps);
+        wide_steps(acc, X, ldx, k8, b, steps, nt0, wm, lane);
+      }
+      if (which == 0) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
+              const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
+              if (m < rows && n < D) p.vv[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
+            }
+      }
+    }
+    __syncthreads();  // every warp is done reading F.
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
+          const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
+          if (n < 8 * D8) {  // GEMM1 reads hpre's D8 k8 steps.
+            float v = 0.f;
+            if (m < rows && n < D) {
+              const size_t row = (size_t)(r0 + m);
+              v = (p.q[(row / p.k) * D + n] - acc[mt][i][c]) + p.th[row * D + n];
+            }
+            X[m * ldx + n] = v;
+          }
+        }
+  }
+
+  // gamma: per chunk of kHC hidden columns, h = relu(hpre A1 + c1) into Hs,
+  // then logits += h A2 over the chunk's valid columns. A warp whose hidden
+  // columns all lie past H in the last chunk skips its products.
+  const int w1m = warp >> 1, w1n = warp & 1;  // gamma's first layer: 4 x 2 warps
+  zero_acc(acc);
+  for (int c = 0; c < NC; ++c) {
+    const bool live = c * kHC + w1m * 16 * kMT1 < H;
+    float acc1[kMT1][kNT1][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT1; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT1; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc1[mt][nt][x] = 0.f;
+    for (int i = 0, k8 = 0; i < n1; ++i, k8 += steps) {
+      const float* a = acquire(steps);
+      if (live) g1_steps(acc1, a, steps, X, ldx, k8, w1m, w1n, lane);
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT1; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT1; ++nt) {
+        const int hc = (w1m * kMT1 + mt) * 16 + gq, row = w1n * 8 * kNT1 + nt * 8 + 2 * tq;
+        const int h = c * kHC + hc;
+        const float b0 = h < H ? p.c1[h] : 0.f, b1 = h + 8 < H ? p.c1[h + 8] : 0.f;
+        Hs[row * kLdH + hc] = fmaxf(acc1[mt][nt][0] + b0, 0.f);
+        Hs[(row + 1) * kLdH + hc] = fmaxf(acc1[mt][nt][1] + b0, 0.f);
+        Hs[row * kLdH + hc + 8] = fmaxf(acc1[mt][nt][2] + b1, 0.f);
+        Hs[(row + 1) * kLdH + hc + 8] = fmaxf(acc1[mt][nt][3] + b1, 0.f);
+      }
+    for (int i = 0, k8 = 0; i < (c < NC - 1 ? n2 : n2l); ++i, k8 += steps) {
+      const float* b = acquire(steps);
+      wide_steps(acc, Hs, kLdH, k8, b, steps, nt0, wm, lane);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
+        const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
+        if (m < rows && n < D) p.lg[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
+      }
+}
+
+// The softmax over each query's k rows and the weighted sum, per (query,
+// channel), in j order: out = sum_j e_j (v_j + theta_j) / sum_j e_j with
+// e_j = exp((lg_j + c2) / sqrt(D) - max).
+__global__ void combine_kernel(const float* __restrict__ lg, const float* __restrict__ vv,
+                               const float* __restrict__ th, const float* __restrict__ c2,
+                               float* __restrict__ out, int nq, int D, int k,
+                               float inv_sqrt_d) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)nq * D) return;
+  const int nl = (int)(i / D), c = (int)(i % D);
+  const size_t o0 = (size_t)nl * k * D + c;
+  const float bias = c2[c];
+  float mx = -CUDART_INF_F;
+  for (int j = 0; j < k; ++j) mx = fmaxf(mx, (lg[o0 + (size_t)j * D] + bias) * inv_sqrt_d);
+  float den = 0.f, acc = 0.f;
+  for (int j = 0; j < k; ++j) {
+    const size_t o = o0 + (size_t)j * D;
+    const float e = expf((lg[o] + bias) * inv_sqrt_d - mx);
+    den += e;
+    acc += e * (vv[o] + th[o]);
+  }
+  out[i] = acc / den;
+}
+
+// The launch's workspace: the weights in fragment order, then one chunk's per-row
+// operands (R rows), each 16-byte aligned.
+struct FwdWs {
+  float *wv, *wk, *a1, *a2;  // the weights in fragment order
+  float *rel, *f, *kk, *ph, *th, *vv, *lg;
+};
+
+FwdWs carve_fwd(float* ws, long long R, int D, int E, int H, int P, bool premul,
+                long long* used) {
+  FwdWs w = {};
+  long long off = 0;
+  auto take = [&](long long n) {
+    float* r = ws == nullptr ? nullptr : ws + off;
+    off += (n + 3) / 4 * 4;
+    return r;
+  };
+  const long long D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NT = kMaxNT;
+  if (!premul) {
+    w.wv = take(E8 * NT * 64);
+    w.wk = take(E8 * NT * 64);
+  }
+  w.a1 = take(NC * D8 * kA1Step);
+  w.a2 = take(NC * kHK8 * NT * 64);
+  w.rel = take(R * 3);
+  if (premul)
+    w.kk = take(R * D);
+  else
+    w.f = take(R * E);
+  w.ph = take(R * P);
+  w.th = take(R * D);
+  w.vv = take(R * D);
+  w.lg = take(R * D);
+  *used = off;
+  return w;
+}
+
+// Floats of one row's operands (the same for the index route's per-row mode
+// and the gathered form, so that they cut their rows into the same chunks).
+long long fwd_row_floats(int D, int E, int P, bool premul) {
+  return 3LL + P + 3LL * D + (premul ? D : E);
+}
+
+struct FwdCall {
+  RowSrc src;  // N, D, E, k, premul and the rows' sources
+  const float *qproj, *wk, *wv, *wp1, *bp1, *wp2, *bp2, *wa1, *ba1, *wa2, *ba2;
+  float* out;  // (B, N, D)
+  float* ws;   // o4d_attn_plan's workspace for QC
+  int B, H, P, QC;
+};
+
 template <int MODE>
-int launch(AttnArgs& a, int B, void* stream) {
-  a.inv_sqrt_d = 1.0f / sqrtf((float)a.D);
-  const size_t smem = smem_floats(a.D, a.E, a.P) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tq_per = kRows / a.k;
-  dim3 grid((a.N + tq_per - 1) / tq_per, B);
-  attn_kernel<MODE><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+int run_fwd(const FwdCall& p, cudaStream_t s) {
+  const int N = p.src.N, D = p.src.D, E = p.src.E, k = p.src.k, H = p.H, P = p.P;
+  const bool premul = MODE == kIndex && p.src.premul;
+  const int D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NT = kMaxNT;
+  long long used;
+  const FwdWs w = carve_fwd(p.ws, (long long)p.QC * k, D, E, H, P, premul, &used);
+  const size_t smem = tile_smem_floats(D, E) * sizeof(float);
+  O4D_TRY(cudaFuncSetAttribute(attn_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem));
+  // The weights in fragment order, once per call.
+  if (!premul) {
+    frag_b_kernel<<<blocks_for((long long)E8 * NT * 32, 256), 256, 0, s>>>(
+        p.wv, E, D, E8, NT, reinterpret_cast<float2*>(w.wv));
+    frag_b_kernel<<<blocks_for((long long)E8 * NT * 32, 256), 256, 0, s>>>(
+        p.wk, E, D, E8, NT, reinterpret_cast<float2*>(w.wk));
+  }
+  frag_a1_kernel<<<blocks_for((long long)NC * D8 * (kHC / 16) * 32, 256), 256, 0, s>>>(
+      p.wa1, D, H, D8, NC, reinterpret_cast<float4*>(w.a1));
+  frag_b_kernel<<<blocks_for((long long)NC * kHK8 * NT * 32, 256), 256, 0, s>>>(
+      p.wa2, H, D, NC * kHK8, NT, reinterpret_cast<float2*>(w.a2));
+  const float inv_sqrt_d = 1.0f / sqrtf((float)D);
+  for (int b = 0; b < p.B; ++b) {
+    for (int n0 = 0; n0 < N; n0 += p.QC) {
+      const int nq = min(p.QC, N - n0), R = nq * k;
+      const size_t q0 = (size_t)b * N + n0;  // the chunk's first query.
+      load_rows_kernel<MODE><<<blocks_for(R, 8), 256, 0, s>>>(
+          p.src, RowDst{w.rel, w.f, w.kk, w.vv}, b, n0, R);
+      pos_hidden_kernel<<<blocks_for((long long)R * P, 256), 256, 0, s>>>(w.rel, p.wp1, p.bp1,
+                                                                         w.ph, R, P);
+      // theta = ph W2 + b2 as FMA chains in k order.
+      GemmArgs a = gemm_args(w.ph, P, p.wp2, D, w.th, D, R, D, P);
+      a.bias = p.bp2;
+      O4D_TRY((gemm<false, false, true>(a, 1, s)));
+      const TileArgs t{p.qproj + q0 * D, w.th, w.kk, w.f, w.vv, w.lg, w.wv, w.wk, w.a1, w.a2,
+                       p.ba1, R, D, E, H, k, premul ? 1 : 0};
+      attn_tile_kernel<<<cdiv(R, kTileRows), kFwdThreads, smem, s>>>(t);
+      combine_kernel<<<blocks_for((long long)nq * D, 256), 256, 0, s>>>(
+          w.lg, w.vv, w.th, p.ba2, p.out + q0 * D, nq, D, k, inv_sqrt_d);
+    }
+  }
   return (int)cudaGetLastError();
+}
+
+FwdCall fwd_call(const void* qproj, const void* wk, const void* wv, const void* wp1,
+                 const void* bp1, const void* wp2, const void* bp2, const void* wa1,
+                 const void* ba1, const void* wa2, const void* ba2, void* out, void* ws,
+                 int B, int N, int D, int E, int H, int P, int k, int QC) {
+  FwdCall c = {};
+  c.qproj = (const float*)qproj;
+  c.wk = (const float*)wk;
+  c.wv = (const float*)wv;
+  c.wp1 = (const float*)wp1;
+  c.bp1 = (const float*)bp1;
+  c.wp2 = (const float*)wp2;
+  c.bp2 = (const float*)bp2;
+  c.wa1 = (const float*)wa1;
+  c.ba1 = (const float*)ba1;
+  c.wa2 = (const float*)wa2;
+  c.ba2 = (const float*)ba2;
+  c.out = (float*)out;
+  c.ws = (float*)ws;
+  c.B = B;
+  c.H = H;
+  c.P = P;
+  c.QC = QC;
+  c.src.N = N;
+  c.src.D = D;
+  c.src.E = E;
+  c.src.k = k;
+  return c;
+}
+
+bool fwd_shape_ok(int B, int N, int D, int E, int k, int QC) {
+  return B > 0 && N > 0 && k >= 1 && k <= 32 && D <= kMaxWidth && E <= kMaxWidth &&
+         QC >= 1 && (long long)QC * k < (1LL << 31);
 }
 
 }  // namespace
 
+// Shared memory of one o4d_attn / o4d_attn_g block at widths D and E (P plays
+// no part), and the widest D or E the tile takes.
 extern "C" long long o4d_attn_smem_bytes(int D, int E, int P) {
-  return (long long)(smem_floats(D, E, P) * sizeof(float));
+  (void)P;
+  return (long long)(tile_smem_floats(D, E) * sizeof(float));
 }
 
+extern "C" int o4d_attn_max_width() { return kMaxWidth; }
+
+// The chunking of one o4d_attn / o4d_attn_g launch: QC queries per chunk
+// (whole queries of one example, the chunks of an example as equal as the
+// budget allows; at most N; the per-row operands of a chunk within budget
+// bytes, the same for the index route's per-row mode and the gathered
+// form), and the workspace it needs in f32 floats.
+extern "C" void o4d_attn_plan(int N, int D, int E, int H, int P, int k, int premul,
+                              long long budget, int* QC, long long* floats) {
+  long long qmax = budget / ((long long)sizeof(float) * k * fwd_row_floats(D, E, P, premul));
+  if (qmax > N) qmax = N;
+  if (qmax < 1) qmax = 1;
+  const long long chunks = (N + qmax - 1) / qmax;
+  const long long qc = (N + chunks - 1) / chunks;
+  *QC = (int)qc;
+  carve_fwd(nullptr, qc * k, D, E, H, P, premul != 0, floats);
+}
+
+extern "C" long long o4d_sattn_smem_bytes(int D, int E, int P) {
+  return (long long)(sattn_smem_floats(D, E, P) * sizeof(float));
+}
+
+// Inputs: qpos (B, N, 3), qproj (B, N, D), ki (B, N, KS) int32, kpos (B, M, 3),
+// kv (premul: (B, M, 2D) [k | v]; per-row: (B, M, E)), wk / wv (E, D, per-row
+// only), the MLP weights; out (B, N, D); ws: o4d_attn_plan's workspace for QC.
 extern "C" int o4d_attn(const void* qpos, const void* qproj, const void* ki,
                         const void* kpos, const void* kv, const void* wk,
                         const void* wv, const void* wp1, const void* bp1,
                         const void* wp2, const void* bp2, const void* wa1,
                         const void* ba1, const void* wa2, const void* ba2,
-                        void* out, int B, int N, int M, int D, int E, int H,
-                        int P, int KS, int k, int premul, void* stream) {
+                        void* out, void* ws, int B, int N, int M, int D, int E, int H,
+                        int P, int KS, int k, int premul, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > kRows || k > KS) return (int)cudaErrorInvalidValue;
-  AttnArgs a = {};
-  a.qpos = (const float*)qpos;
-  a.qproj = (const float*)qproj;
-  a.ki = (const int*)ki;
-  a.kpos = (const float*)kpos;
-  a.kv = (const float*)kv;
-  a.wk = (const float*)wk;
-  a.wv = (const float*)wv;
-  a.wp1 = (const float*)wp1;
-  a.bp1 = (const float*)bp1;
-  a.wp2 = (const float*)wp2;
-  a.bp2 = (const float*)bp2;
-  a.wa1 = (const float*)wa1;
-  a.ba1 = (const float*)ba1;
-  a.wa2 = (const float*)wa2;
-  a.ba2 = (const float*)ba2;
-  a.out = (float*)out;
-  a.N = N;
-  a.M = M;
-  a.D = D;
-  a.E = E;
-  a.H = H;
-  a.P = P;
-  a.KS = KS;
-  a.k = k;
-  a.premul = premul;
-  return launch<kIndex>(a, B, stream);
+  if (!fwd_shape_ok(B, N, D, E, k, QC) || k > KS) return (int)cudaErrorInvalidValue;
+  FwdCall c = fwd_call(qproj, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, ws, B, N,
+                       D, E, H, P, k, QC);
+  c.src.qpos = (const float*)qpos;
+  c.src.ki = (const int*)ki;
+  c.src.kpos = (const float*)kpos;
+  c.src.kv = (const float*)kv;
+  c.src.M = M;
+  c.src.KS = KS;
+  c.src.premul = premul;
+  return run_fwd<kIndex>(c, (cudaStream_t)stream);
 }
 
 // o4d_attn over the shared gather's rows: g (B, KE, N, E + 3) replaces ki,
@@ -305,34 +857,16 @@ extern "C" int o4d_attn_g(const void* qpos, const void* qproj, const void* g,
                           const void* wk, const void* wv, const void* wp1,
                           const void* bp1, const void* wp2, const void* bp2,
                           const void* wa1, const void* ba1, const void* wa2,
-                          const void* ba2, void* out, int B, int N, int D,
-                          int E, int H, int P, int KE, int k, void* stream) {
+                          const void* ba2, void* out, void* ws, int B, int N, int D,
+                          int E, int H, int P, int KE, int k, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > kRows || k > KE) return (int)cudaErrorInvalidValue;
-  AttnArgs a = {};
-  a.qpos = (const float*)qpos;
-  a.qproj = (const float*)qproj;
-  a.g = (const float*)g;
-  a.wk = (const float*)wk;
-  a.wv = (const float*)wv;
-  a.wp1 = (const float*)wp1;
-  a.bp1 = (const float*)bp1;
-  a.wp2 = (const float*)wp2;
-  a.bp2 = (const float*)bp2;
-  a.wa1 = (const float*)wa1;
-  a.ba1 = (const float*)ba1;
-  a.wa2 = (const float*)wa2;
-  a.ba2 = (const float*)ba2;
-  a.out = (float*)out;
-  a.N = N;
-  a.D = D;
-  a.E = E;
-  a.H = H;
-  a.P = P;
-  a.KE = KE;
-  a.k = k;
-  a.premul = 0;
-  return launch<kGathered>(a, B, stream);
+  if (!fwd_shape_ok(B, N, D, E, k, QC) || k > KE) return (int)cudaErrorInvalidValue;
+  FwdCall c = fwd_call(qproj, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, ws, B, N,
+                       D, E, H, P, k, QC);
+  c.src.qpos = (const float*)qpos;
+  c.src.gin = (const float*)g;
+  c.src.KE = KE;
+  return run_fwd<kGathered>(c, (cudaStream_t)stream);
 }
 
 // The encoder's fused self-attention: q (B, N, D) projected queries, gf
@@ -345,7 +879,7 @@ extern "C" int o4d_sattn(const void* q, const void* gf, const void* rel, const v
                          int B, int N, int D, int E, int H, int P, int k, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > kRows) return (int)cudaErrorInvalidValue;
-  AttnArgs a = {};
+  SattnArgs a = {};
   a.qproj = (const float*)q;
   a.gf = (const float*)gf;
   a.rel = (const float*)rel;
@@ -366,6 +900,13 @@ extern "C" int o4d_sattn(const void* q, const void* gf, const void* rel, const v
   a.H = H;
   a.P = P;
   a.k = k;
-  a.premul = 0;
-  return launch<kSelf>(a, B, stream);
+  a.inv_sqrt_d = 1.0f / sqrtf((float)D);
+  const size_t smem = sattn_smem_floats(D, E, P) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(sattn_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tq_per = kRows / k;
+  dim3 grid((N + tq_per - 1) / tq_per, B);
+  sattn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

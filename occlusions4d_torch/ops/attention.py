@@ -65,7 +65,8 @@ __all__ = ['knn_extract', 'knn_gather_rows', 'knn_gather_interp', 'gather_rows',
            'inverse_index_plain', 'key_sums_plain', 'scatter_index', 'scatter_index_plain',
            'interp_plain', 'interp_g_plain', 'interp_bwd_plain', 'interp_g_bwd_plain',
            'attn_plain', 'attn_g_plain', 'attn_bwd_plain', 'attn_g_bwd_plain',
-           'attn_bwd', 'attn_g_bwd', 'attn_bwd_rows_plain', 'gather_bwd', 'interp_bwd',
+           'attn_bwd', 'attn_g_bwd', 'attn_bwd_rows_plain', 'attn_fwd_rows_plain',
+           'gather_bwd', 'interp_bwd',
            'interp_g_bwd',
            'use_premul', 'LAUNCHES']
 
@@ -842,11 +843,105 @@ def attn_bwd_rows_plain(q_proj, rel, rows, params, go, premul, qc, slices=2):
     return dq, drows, grads
 
 
+def attn_fwd_rows_plain(q_proj, rel, rows, params, premul, qc, product=None):
+    '''The forward kernels' decomposition (csrc/attn.cu o4d_attn and
+    o4d_attn_g) in plain PyTorch, on the rows of every query whatever the
+    route: per chunk of qc queries of one example, theta from rel, the rows'
+    k and v (premul: the rows are [k | v]; per-row: F Wk and F Wv), hpre =
+    (q - k) + theta; per tile of 64 rows, gamma in chunks of 128 hidden
+    columns, h = relu(hpre A1[:, chunk] + c1[chunk]) and logits += h
+    A2[chunk], the logits one running sum across the chunks; then per query
+    and channel the softmax over its k rows and the weighted sum of v +
+    theta, each summed in j order.
+    :param q_proj (B, N, D); rel (B, N, k, 3) = q_pos - the keys' positions;
+        rows (B, N, k, 2D) projected [k | v] in premul mode, else the raw
+        features F (B, N, k, E).
+    :param product: (a, b, c) -> c + a b for the products the kernel runs on
+        the tensor cores (c None: a b); default the f32 matrix product.
+    :return (B, N, D) in q_proj's dtype (the weights cast to it).'''
+    if product is None:
+        def product(a, b, c):
+            return a @ b if c is None else c + a @ b
+    tile, hc = 64, 128  # the kernel's rows per tile and hidden columns per chunk.
+    B, N, k, _ = rel.shape
+    D, dt, dev = q_proj.shape[-1], q_proj.dtype, q_proj.device
+    w = {n: params[n]['kernel'].to(dt) for n in _MLP + ('to_k', 'to_v')
+         if n in params and not (premul and n in ('to_k', 'to_v'))}
+    bias = {n: params[n]['bias'].to(dt) for n in _MLP}
+    H = w['attn_mlp_0'].shape[1]
+    out = torch.empty((B, N, D), dtype=dt, device=dev)
+    for b in range(B):
+        for n0 in range(0, N, qc):
+            n1 = min(N, n0 + qc)
+            nq = n1 - n0
+            R = nq * k
+            rl = rel[b, n0:n1].reshape(R, 3)
+            x = rows[b, n0:n1].reshape(R, -1)
+            th = torch.relu(rl @ w['pos_mlp_0'] + bias['pos_mlp_0']) @ w['pos_mlp_2'] \
+                + bias['pos_mlp_2']
+            if premul:
+                kk, vv = x[:, :D], x[:, D:]
+            else:
+                kk = product(x, w['to_k'], None)
+                vv = product(x, w['to_v'], None)
+            hp = (q_proj[b, n0:n1].repeat_interleave(k, 0) - kk) + th
+            lg = torch.empty((R, D), dtype=dt, device=dev)
+            for t0 in range(0, R, tile):
+                a, acc = hp[t0:t0 + tile], None
+                for h0 in range(0, H, hc):
+                    h = torch.relu(product(a, w['attn_mlp_0'][:, h0:h0 + hc], None)
+                                   + bias['attn_mlp_0'][h0:h0 + hc])
+                    acc = product(h, w['attn_mlp_2'][h0:h0 + hc], acc)
+                lg[t0:t0 + tile] = acc
+            lg = ((lg + bias['attn_mlp_2']) * (1.0 / math.sqrt(D))).view(nq, k, D)
+            vpe = (vv + th).view(nq, k, D)
+            mx = lg.max(dim=1).values
+            den = torch.zeros((nq, D), dtype=dt, device=dev)
+            acc = torch.zeros_like(den)
+            for j in range(k):
+                e = torch.exp(lg[:, j] - mx)
+                den = den + e
+                acc = acc + e * vpe[:, j]
+            out[b, n0:n1] = acc / den
+    return out
+
+
 def _attn_lib():
+    '''The forward kernels' library, its size queries typed.'''
     lib = _build.library('attn')
-    lib.o4d_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.o4d_attn_smem_bytes.restype = ctypes.c_longlong
+    for fn in (lib.o4d_attn_smem_bytes, lib.o4d_sattn_smem_bytes):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+    lib.o4d_attn_max_width.argtypes = []
+    lib.o4d_attn_max_width.restype = ctypes.c_int
+    lib.o4d_attn_plan.restype = None
+    lib.o4d_attn_plan.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_longlong]
+                                  + [ctypes.POINTER(ctypes.c_int),
+                                     ctypes.POINTER(ctypes.c_longlong)])
     return lib
+
+
+# Bytes of per-row operands one attention forward launch may hold at once
+# (csrc/attn.cu cuts its rows into chunks of whole queries to fit).
+_FWD_BUDGET = 1 << 30
+
+
+def _fwd_plan(lib, what, device, N, D, E, H, P, k, premul):
+    '''(QC, f32 workspace) of one o4d_attn / o4d_attn_g launch: QC queries
+    per chunk (csrc/attn.cu o4d_attn_plan), the chunk's per-row operands
+    within _FWD_BUDGET bytes; the workspace also holds the weights in
+    fragment order. Raises NotImplementedError for widths the tile does not
+    take.'''
+    width = lib.o4d_attn_max_width()
+    smem = lib.o4d_attn_smem_bytes(D, E, P)
+    if max(D, E) > width or smem > _SMEM_LIMIT:
+        raise NotImplementedError(f'{what} kernel takes D and E up to {width} (and '
+                                  f'{_SMEM_LIMIT} B of shared memory, it needs {smem}); '
+                                  f'got D={D}, E={E}')
+    qc, n_f = ctypes.c_int(), ctypes.c_longlong()
+    lib.o4d_attn_plan(N, D, E, H, P, k, int(premul), _FWD_BUDGET, ctypes.byref(qc),
+                      ctypes.byref(n_f))
+    return qc.value, torch.empty((n_f.value,), dtype=torch.float32, device=device)
 
 
 def _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul):
@@ -897,19 +992,16 @@ def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul):
     dims, w, b, wk, wv = _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul)
     B, N, D = dims['B'], dims['N'], dims['D']
     lib = _attn_lib()
-    smem = lib.o4d_attn_smem_bytes(D, dims['E'], dims['P'])
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(f'attn kernel needs {smem} B of shared memory '
-                                  f'at D={D}, E={dims["E"]}; the H100 block limit '
-                                  f'is {_SMEM_LIMIT}')
+    QC, ws = _fwd_plan(lib, 'attn', q_proj.device, N, D, dims['E'], dims['H'], dims['P'],
+                       k, premul)
     out = torch.empty((B, N, D), dtype=torch.float32, device=q_proj.device)
     fn = lib.o4d_attn
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = [q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b) + [out]
+    ptrs = [q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b) + [out, ws]
     with torch.cuda.device(q_proj.device):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, dims['M'], D, dims['E'],
-                        dims['H'], dims['P'], dims['KS'], k, int(premul),
+                        dims['H'], dims['P'], dims['KS'], k, int(premul), QC,
                         _build.stream_ptr(q_proj.device)), 'attn')
     LAUNCHES['attn'] += 1
     return out
@@ -925,18 +1017,15 @@ def _attn_g_cuda(q_pos, q_proj, g, params, k):
     for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('g', g)):
         _cuda_f32(name, t)
     lib = _attn_lib()
-    smem = lib.o4d_attn_smem_bytes(D, E, P)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(f'attn_g kernel needs {smem} B of shared memory '
-                                  f'at D={D}, E={E}; the H100 block limit is '
-                                  f'{_SMEM_LIMIT}')
+    # The same chunks as the index route's per-row mode at these sizes.
+    QC, ws = _fwd_plan(lib, 'attn_g', q_proj.device, N, D, E, H, P, k, False)
     out = torch.empty((B, N, D), dtype=torch.float32, device=q_proj.device)
     fn = lib.o4d_attn_g
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [out]
+    ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [out, ws]
     with torch.cuda.device(q_proj.device):
-        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k,
+        _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
                         _build.stream_ptr(q_proj.device)), 'attn_g')
     LAUNCHES['attn_g'] += 1
     return out

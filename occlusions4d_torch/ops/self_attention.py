@@ -124,7 +124,7 @@ def _operands(q, gf, rel, params, k):
 def _sattn_cuda(q, gf, rel, params, k):
     B, N, D, E, H, P, weights = _operands(q, gf, rel, params, k)
     lib = _attn_lib()
-    smem = lib.o4d_attn_smem_bytes(D, E, P)
+    smem = lib.o4d_sattn_smem_bytes(D, E, P)
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(f'sattn kernel needs {smem} B of shared memory at '
                                   f'D={D}, E={E}; the H100 block limit is {_SMEM_LIMIT}')

@@ -10,10 +10,12 @@ GPU and nvcc; skips elsewhere (the decision is taken inside the fixture).
 running only the port need not have.)
 
 Tolerances: kNN, FPS, the bidirectional 1-NN and the eval labels' 1-NN
-(nn1_direct) exact (the kernels round like the plain versions); interpolation atol 1e-5 and attention atol 1e-4 / rtol
-1e-3 (fused multiply-adds and another summation order than cuBLAS in 100-term
-dots); the backward kernels 1e-4 of the largest gradient entry / rtol 1e-3
-(weight gradients sum thousands of rows in another order than autograd).
+(nn1_direct) exact (the kernels round like the plain versions);
+interpolation atol 1e-5 and attention atol 1e-4 / rtol 1e-3 (the attention
+forward's products in 3xTF32 on the tensor cores, another summation order
+than cuBLAS); the backward kernels 1e-4 of the largest gradient entry / rtol
+1e-3 (weight gradients sum thousands of rows in another order than
+autograd).
 The backward kernels are also checked to give the same bits twice. The
 encoder's fused self-attention kernels (sattn, sattn_bwd) take the attention
 tolerances, and the FPS cluster entry is exact like the one-block kernel.
@@ -332,6 +334,77 @@ def test_attn_bwd_kernel_matches_plain(dev, K, premul):
         _close(dw[name], rw[name])
         assert torch.equal(dw[name], dw2[name]), name
     assert torch.equal(dq, dq2) and torch.equal(dkv, dkv2)
+
+
+# (B, N, M, D, E, K, K_ext, chunks): every case runs the gathered forward
+# and both index-route forward kernels; `chunks` > 1 shrinks the per-row
+# operand budget so the launch cuts its rows into about that many query
+# chunks.
+_ATTN_FWD_EDGE = {'k1_n301': (2, 301, 97, 40, 24, 1, 3, 1),
+                  'k14_n301': (2, 301, 97, 40, 24, 14, 16, 1),
+                  'k32_n301': (2, 301, 97, 40, 24, 32, 32, 1),
+                  'k14_n1': (2, 1, 60, 40, 24, 14, 16, 1),
+                  'k32_n1': (1, 1, 60, 40, 24, 32, 32, 1),
+                  'k14_chunks': (2, 301, 97, 40, 24, 14, 14, 5),
+                  'd416_e288': (1, 150, 120, 416, 288, 14, 16, 1)}
+
+
+@pytest.mark.parametrize('case', sorted(_ATTN_FWD_EDGE))
+def test_attn_forward_redesign_edge_shapes(dev, case, monkeypatch):
+    '''The tensor-core attention forward (csrc/attn.cu o4d_attn, o4d_attn_g)
+    at edge shapes: k 1, 14 and 32, N 1 and 301 (no multiple of the 64-row
+    tile), D 40 and E 24 off the 8-column fragments, masked keys, rows
+    gathered past k, several query chunks, and the gv1 widths D 416, E 288.
+    attn_g and attn in both projection modes against their plain versions,
+    each twice for the same bits; the gathered and per-row index routes
+    bit-equal on the same rows.'''
+    B, N, M, D, E, K, k_ext, chunks = _ATTN_FWD_EDGE[case]
+    if chunks > 1:
+        row_bytes = 4 * K * (3 + 32 + 4 * D + max(D, E))
+        monkeypatch.setattr(t_attn, '_FWD_BUDGET', row_bytes * (-(-N // chunks)))
+    rng = np.random.RandomState(400 + K + N + D)
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    mask = _t(rng.rand(B, M) > 0.3, dev)
+    params = _attn_params(rng, dev, D, E)
+    knn = t_attn.knn_extract(q_pos, pos2, k_ext, key_mask=mask)
+    g = t_attn.knn_gather_rows(pos2, feats, knn, k_ext)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    with torch.no_grad():
+        og = t_attn._attn_g_cuda(q_pos, q_proj, g, params, K)
+        og2 = t_attn._attn_g_cuda(q_pos, q_proj, g, params, K)
+        rg = t_attn.attn_g_plain(q_pos, q_proj, g, params, K)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(og, rg, atol=1e-4, rtol=1e-3)
+        assert torch.equal(og, og2)
+        for premul in (True, False):
+            kv = (torch.cat([feats @ params['to_k']['kernel'],
+                             feats @ params['to_v']['kernel']], -1).contiguous()
+                  if premul else feats)
+            args = (q_pos, q_proj, knn[0], pos2, kv, params, K, premul)
+            oi, oi2 = t_attn._attn_cuda(*args), t_attn._attn_cuda(*args)
+            ri = t_attn.attn_plain(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(oi, ri, atol=1e-4, rtol=1e-3)
+            assert torch.equal(oi, oi2)
+            if not premul:
+                assert torch.equal(oi, og)
+
+
+def test_attn_forward_above_the_tile_width_raises(dev):
+    '''D above the 416 columns a tile keeps in registers raises rather than
+    computing something else.'''
+    rng = np.random.RandomState(5)
+    B, N, M, D, E, K = 1, 20, 30, 424, 24, 6
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    params = _attn_params(rng, dev, D, E)
+    ki, _ = t_attn.knn_extract(q_pos, pos2, K)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    with pytest.raises(NotImplementedError):
+        t_attn._attn_cuda(q_pos, q_proj, ki, pos2, feats, params, K, False)
 
 
 # (B, N, M, D, E, K, K_ext, chunks): every case runs the gathered and both

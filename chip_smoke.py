@@ -17,7 +17,18 @@ each printing one JSON line:
      at one gv1 decode chunk, premul also at the gv1 train frame, attn_g)
      with its TFLOP/s, its shares of the bf16 and 3xTF32 tensor-core
      bounds, its own peak memory and whether it beats its plain version,
-     run twice for the same bits; the backward kernels run at the train
+     run twice for the same bits; the pruned kNN (preparation included,
+     exact against the plain version and the brute kernel, with the
+     preparation's time, the brute kernel's, the share of (query tile, key
+     block) pairs processed) at the gv1 level-0 self search (14336^2, K 16),
+     the sampler's air rejections (3 x 6996 x 28672, K 1, 20% of keys
+     masked, candidates jittered from the keys) and the n57344 level-0 self
+     search (57344^2, K 16), then the brute/pruned crossover over the main
+     paths' searches (knn_crossover); FPS (exact against the plain loop,
+     with microseconds per pick and the launch shape of the speed rule) at
+     14336 -> 4779, 4779 -> 1593 and 1593 -> 531 at B 1 and 3, 19115 ->
+     6372, 200000 -> 2048 (points in device memory) and, for the one-block
+     launch, 512 -> 171 at B 3; the backward kernels run at the train
      step's frame (3 examples x 17920 queries; the plain attention backward
      one example at a time; both projection modes; each attention backward
      line with the same rates) and also run twice and must give the same bits (interp_bwd
@@ -61,7 +72,8 @@ each printing one JSON line:
      finite losses, gradients and parameters, changed parameters; then one
      more Trainer.step timed phase by phase through its phase marks
      (encoder, sampler, decoder forward, decoder backward, encoder backward,
-     optimizer);
+     optimizer); the sampler's pruned 1-NN calls per step (the step's
+     launches less the encoder's) and their time;
   7. sampler_moving: one gv1-sized sample_frame batch with the 'moving'
      bias, which must launch the bidirectional 1-NN kernel, whose result must
      equal its plain version exactly;
@@ -87,9 +99,20 @@ each printing one JSON line:
      the cluster entry, the decoder on the shared-gather route; 1 warm-up +
      2 timed steps (launches per step checked), finite and changed state,
      one phase-split step;
+  11. decoder_wide: decoders wider than one 416-column attention block,
+     D 448 (E 320, pt_feat_dim 40) and D 544 (E 288, global_size 256), with
+     seeded weights: the engine on one 4096-query chunk against the CPU,
+     the first attention layer's forward kernels (attn both modes, attn_g)
+     against their plain versions on the chunk's rows, its backward kernels
+     (attn_bwd, attn_g_bwd) on the train and cv1 frames their gates were
+     set on, and attn_g_bwd on the chunk against float64, held to twice the
+     plain version's error there; the same at gv1's D 416 for comparison;
+     one Trainer step at D 448 (batch 1, one frame) after a decoder
+     gradient check against the CPU;
 then the card's nvidia-smi line, the {"kernels": [...]} line (interp_g_bwd
 is listed with on_main_path false: no main path calls the standalone
-operator it serves) and, last,
+operator it serves; so is fps, the FPS kernel's one-block launch, which the
+speed rule keeps for clouds of 512 points or fewer) and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
 or without the package beside this file, it exits non-zero and prints no
 result. Imports nothing of JAX.
@@ -144,13 +167,13 @@ _CV1_N = 7168 + int(7168 * 1.4)
 _N57 = dict(_GV1_TRAIN, n_points=57344, batch_size=1)
 # Launches per step with fused_attention='on' (4 frames, 2 attention layers
 # each; the encoder's four PT blocks gather, attend and scatter once each).
-_SATTN_STEP = dict(sattn=4, sattn_bwd=4, gather=4, scatter=4, fps=3, fps_cluster=0,
+_SATTN_STEP = dict(sattn=4, sattn_bwd=4, gather=4, scatter=4, fps=0, fps_cluster=3,
                    attn=8, interp=4, attn_bwd=8, interp_bwd=4, attn_g=0, interp_g=0,
                    attn_g_bwd=0, interp_g_bwd=0)
 # n57344: the encoder's four blocks gather and scatter, the decoder's shared
 # route gathers 4 times, scatters 4 times and runs interp_bwd 4 times.
-_57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=8, fps=2,
-                 fps_cluster=1, attn=0, interp=0, attn_bwd=0, interp_bwd=4, attn_g=8,
+_57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=8, fps=0,
+                 fps_cluster=3, attn=0, interp=0, attn_bwd=0, interp_bwd=4, attn_g=8,
                  interp_g=4, attn_g_bwd=8, interp_g_bwd=0)
 # The encoder's self-attention blocks the sattn kernels are checked at:
 # (name, batch, points, index of the PT block in PointEncoder.blocks).
@@ -187,7 +210,7 @@ _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'int
            'fps_cluster': 'fps', 'sattn': 'attn', 'sattn_bwd': 'attn_bwd',
            'nn1_direct': 'knn'}
 # The path whose run gives each kernel's launch count.
-_INFER = ('knn_brute', 'knn_pruned', 'fps', 'interp', 'attn')
+_INFER = ('knn_brute', 'knn_pruned', 'fps_cluster', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
 _SHARED = ('gather', 'interp_g', 'attn_g')
 # The shared route's backward: the scatter and the attention's; the
@@ -196,18 +219,27 @@ _SHARED = ('gather', 'interp_g', 'attn_g')
 _SHARED_BWD = ('scatter', 'attn_g_bwd', 'interp_g_bwd')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
              nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED},
-             **{k: 'train_cv1' for k in _SHARED_BWD}, fps_cluster='train_57k',
+             **{k: 'train_cv1' for k in _SHARED_BWD}, fps='main_path',
              sattn='train_sattn', sattn_bwd='train_sattn', nn1_direct='anchor')
 # Kernels kept for an operator that no main path calls: o4d_interp_g_bwd is
 # the backward of the standalone fused_knn_interp(gathered=).
 _OFF_PATH = {'interp_g_bwd': 'the standalone fused_knn_interp(gathered=) backward; '
-                             'the decoder route runs scatter + interp_bwd'}
+                             'the decoder route runs scatter + interp_bwd',
+             'fps': 'the one-block launch of the FPS kernel: the speed rule '
+                    '(csrc/fps.cu o4d_fps_plan) sends clouds of 512 points or '
+                    'fewer there, every main-path level to a cluster (fps_cluster)'}
 # Launches per cv1 train step (4 frames, 2 attention layers each).
 _CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=4, interp_g_bwd=0, attn_g_bwd=8,
                  attn=0, interp=0, attn_bwd=0, interp_bwd=4)
 
 
+_T0 = time.time()
+
+
 def emit(obj):
+    """One JSON line; a phase line also carries the seconds since the start."""
+    if 'phase' in obj:
+        obj = dict(obj, t_s=round(time.time() - _T0, 2))
     print(json.dumps(obj), flush=True)
 
 
@@ -1051,6 +1083,126 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
                                                      for p in per), **common)
 
 
+def sampler_like(torch, t_knn, dev, rng, B, N, M):
+    """The sampler's air rejection search (sampler/guided.py:236-239): keys
+    uniform in the gv1 cube (z >= 0), about 20% masked; candidates drawn
+    from the keys and jittered 0.2 to 0.6 (r to 3 r) in a random direction.
+    :return the pruned entry's (q, keys, |k|^2 with +inf masked)."""
+    k = rng.rand(B, M, 3).astype(np.float32) * 10 - 5
+    k[..., 2] = np.abs(k[..., 2])
+    u = rng.randn(B, N, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    q = (np.take_along_axis(k, rng.randint(0, M, (B, N))[..., None], 1)
+         + u * (0.2 + 0.4 * rng.rand(B, N, 1))).astype(np.float32)
+    mask = torch.tensor(rng.rand(B, M) > 0.2, device=dev)
+    return t_knn._prepare(torch.tensor(q, device=dev), torch.tensor(k, device=dev), mask)[:3]
+
+
+def knn_pruned_line(torch, t_knn, dev, case, q, kk, kn, K, same):
+    """One pruned-entry line: the result against the plain version and the
+    brute-force kernel (exact: distances and indices), its time with the
+    preparation (ms), the preparation alone (sort_and_boxes_ms: box, codes,
+    sorts, arrangement), the brute kernel's time, the library's
+    (torch.cdist and torch.topk), the share of (query tile, key block) pairs
+    processed, and its bound: each input read once, each output written
+    once, one distance per output neighbour. :return the {"kernels"} row."""
+    B, N, M = q.shape[0], q.shape[1], kk.shape[1]
+    visited = torch.zeros(1, dtype=torch.int32, device=dev)
+    d_k, i_k = t_knn._pruned_cuda(q, kk, kn, K, same, visited=visited)
+    d_b, i_b = t_knn.knn_rank(q, kk, kn, K)
+    d_p, i_p = t_knn.knn_rank_plain(q, kk, kn, K)
+    torch.cuda.synchronize()
+    n_diff, n_bad = knn_agree(d_k, i_k, d_p, i_p)
+    err = float((d_k - d_p).abs().max())
+    exact = bool(torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+                 and torch.equal(d_b, d_p) and torch.equal(i_b, i_p))
+    del d_b, i_b, d_p, i_p
+    lib = t_knn._pruned_lib()
+    pairs = B * -(-N // lib.o4d_knn_prune_tile()) * -(-M // lib.o4d_knn_prune_block())
+    ms = cuda_ms(torch, lambda: t_knn._pruned_cuda(q, kk, kn, K, same), 10)
+    prep_ms = cuda_ms(torch, lambda: t_knn.pruned_prepare_cuda(q, kk, kn, same), 10)
+    brute_ms = cuda_ms(torch, lambda: t_knn.knn_rank(q, kk, kn, K), 5)
+    plain_ms = cuda_ms(torch, lambda: t_knn.knn_rank_plain(q, kk, kn, K), 1)
+    lib_ms = cuda_ms(torch, lambda: torch.topk(torch.cdist(q, kk), K, largest=False), 1)
+    b_ms, b_by = bound(B * (N * 3 * 4 + M * 4 * 4) + B * N * K * 8, 7.0 * B * N * K)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, library='torch.cdist + torch.topk', shape=[B, N, M, K],
+               brute_kernel_ms=brute_ms, sort_and_boxes_ms=prep_ms,
+               processed_share=int(visited) / pairs)
+    emit(dict(phase='kernel', name='knn_pruned', case=case, agree=exact,
+              index_mismatches=n_diff, tolerance='exact (distances and indices)', **row))
+    if not exact or n_bad:
+        raise AssertionError(f'knn_pruned {case} disagrees: {n_bad} mismatches, err {err}')
+    return row
+
+
+def knn_crossover_line(torch, t_knn, dev, rng):
+    """The brute/pruned crossover (ops/knn.py PRUNED_MIN_ELEMS and
+    PRUNED_MIN_KEYS): both kernels at the searches the main paths run and
+    self searches of a uniform cloud at K 1 and 16; whether the rule sends
+    each to the faster one."""
+    shapes = [(3, 531, 1593, 12), (3, 1593, 4779, 12), (3, 4779, 14336, 12),
+              (1, 32768, 531, 14), (1, 32768, 2124, 14), (3, 531, 531, 16),
+              (3, 1593, 1593, 16), (3, 4779, 4779, 16), (3, 14336, 14336, 16)]
+    shapes += [(1, n, n, k) for n in (1024, 2048, 4779, 9000) for k in (1, 16)]
+    table = []
+    for B, N, M, K in shapes:
+        keys = torch.tensor(rng.rand(B, M, 3).astype(np.float32) * 4 - 2, device=dev)
+        same = N == M
+        qs = keys if same else torch.tensor(rng.rand(B, N, 3).astype(np.float32) * 4 - 2,
+                                            device=dev)
+        q, kk, kn, _ = t_knn._prepare(qs, keys, None)
+        p_ms = cuda_ms(torch, lambda: t_knn._pruned_cuda(q, kk, kn, K, same), 5)
+        b_ms = cuda_ms(torch, lambda: t_knn.knn_rank(q, kk, kn, K), 5)
+        rule = t_knn.use_pruned(N, M, K)
+        table.append(dict(shape=[B, N, M, K], pruned_ms=p_ms, brute_ms=b_ms,
+                          rule='pruned' if rule else 'brute',
+                          rule_picks_faster=(p_ms <= b_ms) == rule))
+    emit(dict(phase='knn_crossover', pruned_min_elems=t_knn.PRUNED_MIN_ELEMS,
+              pruned_min_keys=t_knn.PRUNED_MIN_KEYS,
+              rule='pruned iff N * M * K >= PRUNED_MIN_ELEMS and M >= PRUNED_MIN_KEYS',
+              rule_picks_faster=sum(r['rule_picks_faster'] for r in table), of=len(table),
+              table=table))
+
+
+def fps_line(torch, t_fps, dev, rng, B, N, n_out):
+    """One FPS line: B clouds of N points (the second example with a
+    quarter of its points invalid and a random valid start, above 100000
+    points duplicates and integer-grid ties), the kernel's picks against
+    the plain loop's (exact), its time and time per pick, the entry and
+    launch shape the speed rule takes, the bound. :return the {"kernels"}
+    row."""
+    xyz = rng.rand(B, N, 3).astype(np.float32) * 4 - 2
+    valid = np.ones((B, N), bool)
+    start = np.zeros(B, np.int64)
+    if B > 1:
+        valid[1] = rng.rand(N) > 0.25
+        start[1] = int(rng.choice(np.flatnonzero(valid[1])))
+    if N > 100000:
+        xyz[:, N // 2:N // 2 + 1000] = xyz[:, :1000]
+        xyz[:, -5000:] = np.round(xyz[:, -5000:])
+        start[0] = int(rng.randint(N))
+    args = (torch.tensor(xyz, device=dev), n_out, torch.tensor(valid, device=dev),
+            torch.tensor(start, device=dev))
+    s_k = t_fps._fps_cuda(*args)
+    s_p = t_fps.fps_plain(*args)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(s_k, s_p))
+    ms = cuda_ms(torch, lambda: t_fps._fps_cuda(*args), 3)
+    plain_ms = cuda_ms(torch, lambda: t_fps.fps_plain(*args), 1, warmup=0)
+    C, T = t_fps.fps_plan(B, N)
+    b_ms, b_by = bound(B * (N * 12 + N + n_out * 4), 10.0 * B * N * n_out)
+    row = dict(max_abs_err=0.0 if ok else int((s_k != s_p).sum()), ms=ms,
+               us_per_pick=ms * 1e3 / max(1, n_out - 1), plain_ms=plain_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, shape=[B, N, n_out],
+               entry='fps_cluster' if C > 1 else 'fps', cluster=C, threads=T)
+    emit(dict(phase='kernel', name=row['entry'], agree=ok, tolerance='exact (equal indices)',
+              **row))
+    if not ok:
+        raise AssertionError(f'fps disagrees at {(B, N, n_out)}')
+    return row
+
+
 def check_fps_cluster(torch, t_fps, dev, rng, rows):
     """The FPS cluster entry at the n57344 encoder's first level (57344 ->
     19115): a random start, start 0, an invalid-point mask with a random
@@ -1078,12 +1230,10 @@ def check_fps_cluster(torch, t_fps, dev, rng, rows):
     args = (xyz, n_out, ones, starts)
     ms = cuda_ms(torch, lambda: t_fps._fps_cuda(*args), 5)
     plain_ms = cuda_ms(torch, lambda: t_fps.fps_plain(*args), 1, warmup=0)
-    one_block_14336_ms = rows['fps']['ms']
     b_ms, b_by = bound(N * 12 + N * 4 + n_out * 4, 10.0 * N * n_out)
     emit(dict(phase='kernel', name='fps_cluster', shape=[N, n_out], agree=ok, exact=eq,
               max_abs_err=0 if ok else -1, tolerance='exact (equal indices)', ms=ms,
               us_per_pick=ms * 1e3 / (n_out - 1), plain_ms=plain_ms, library_ms=None,
-              one_block_kernel_us_per_pick_at_14336=one_block_14336_ms * 1e3 / 4778,
               bound_ms=b_ms, bound_by=b_by))
     if not ok:
         raise AssertionError(f'fps_cluster differs from its plain version: {eq}')
@@ -1300,10 +1450,17 @@ def split_step(torch, tr, batch):
     return {n: (t - marks[i][1]) * 1e3 for i, (n, t) in enumerate(marks[1:])}
 
 
-def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
+_SHARED_ROUTE = dict(gather=1, interp_g=1, attn_g=2, scatter=1, interp_bwd=1, attn_g_bwd=2,
+                     interp_g_bwd=0)
+_INDEX_ROUTE = dict(interp=1, attn=2, interp_bwd=1, attn_bwd=2, gather=0, attn_g=0,
+                    attn_g_bwd=0)
+
+
+def decoder_grad_check(torch, tr, abstract, fg, frame, dev, expect=_SHARED_ROUTE):
     """One decoder forward + backward of a sampled frame's first 1024
     queries on the card and on the CPU (plain versions, the same route):
-    loss, d(abstract) and every decoder parameter gradient compared.
+    loss, d(abstract) and every decoder parameter gradient compared; the
+    card's launches must be `expect` (the route's kernels).
 
     Each gradient passes on its L2 error over max(1, its CPU L2 norm) <=
     1e-4. Its largest single-element error is reported and not gated: an
@@ -1332,8 +1489,7 @@ def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
         grads = torch.autograd.grad(loss, [a] + list(pipe.decoder.parameters()))
         if d.type == 'cuda':
             torch.cuda.synchronize()
-            launched = {k: _build.launch_counts()[k]
-                        for k in _SHARED + _SHARED_BWD + ('interp_bwd',)}
+            launched = {k: _build.launch_counts()[k] for k in expect}
         res[name] = (float(loss.detach()), [x.cpu() for x in grads], time.time() - t0)
     per = []
     for n, a, b in zip(names, res['cuda'][1], res['cpu'][1]):
@@ -1351,8 +1507,7 @@ def decoder_grad_check(torch, tr, abstract, fg, frame, dev):
                tolerance='loss 1e-5; each gradient L2 error <= 1e-4 x max(1, its L2 norm)',
                launches=launched, cpu_s=res['cpu'][2])
     out['ok'] = (out['loss_rel_err'] <= 1e-5 and out['max_rel_l2'] <= 1e-4
-                 and launched == dict(gather=1, interp_g=1, attn_g=2, scatter=1,
-                                      interp_bwd=1, attn_g_bwd=2, interp_g_bwd=0))
+                 and launched == expect)
     return out
 
 
@@ -1419,6 +1574,239 @@ def train_cv1(torch, dev, smi, path_counts):
                              f'{finite}, changed {changed}, card vs CPU {check}')
     return dict(ms=frame_scatter_ms, library_ms=frame_lib_ms, longest_segment=longest,
                 longest_segment_chunks=chunks)
+
+
+def attn_g_grads_f64(torch, t_attn, q_pos, q_proj, g, params, k, go):
+    """d(q_proj) and the weight gradients of the gathered attention in
+    float64 (autograd through attn_g_plain on float64 inputs and weights):
+    the reference of attn_g_bwd_chunk_line."""
+    leaves = {nl: params[nl[0]][nl[1]].detach().double().requires_grad_(True)
+              for nl in t_attn._grad_names(False)}
+    qp = q_proj.detach().double().requires_grad_(True)
+    with torch.enable_grad():
+        out = t_attn.attn_g_plain(q_pos.double(), qp, g.double(),
+                                  t_attn._params(leaves, leaves.values()), k)
+        grads = torch.autograd.grad(out, [qp] + list(leaves.values()), go.double())
+    return grads[0], dict(zip(leaves, grads[1:]))
+
+
+def attn_g_bwd_chunk_line(torch, t_attn, name, qxyz, q_proj, g, params, K, go, shape):
+    """attn_g_bwd on one decode chunk's rows, the kernel and its plain f32
+    version each against float64. Gate, on every leaf (d(q_proj) and each
+    weight gradient), in units of max(1, max|plain|): the kernel's error
+    against float64 at most twice the plain version's, or 1e-6 where that
+    is smaller. (On the chunk both f32 versions lie about 7e-3 from float64,
+    far above the 5e-6 by which the cv1 frames hold the kernel to its plain
+    version.) :return the line's row."""
+    with torch.no_grad():
+        a = t_attn.attn_g_bwd(qxyz, q_proj, g, params, K, go)
+    b = t_attn.attn_g_bwd_plain(qxyz, q_proj, g, params, K, go)
+    c = attn_g_grads_f64(torch, t_attn, qxyz, q_proj, g, params, K, go)
+    torch.cuda.synchronize()
+    leaves = {'q_proj': (a[0], b[0], c[0])}
+    leaves.update({'/'.join(n): (a[2][n], b[2][n], c[1][n]) for n in sorted(b[2])})
+    per_leaf = {}
+    for leaf, (u, v, w) in leaves.items():
+        sc = max(1.0, float(v.abs().max()))
+        kf, pf = (float((u.double() - w).abs().max()) / sc,
+                  float((v.double() - w).abs().max()) / sc)
+        per_leaf[leaf] = dict(kernel_vs_plain=float((u - v).abs().max()) / sc,
+                              kernel_vs_f64=kf, plain_vs_f64=pf,
+                              ok=kf <= 2.0 * max(pf, 1e-6))
+    ok = all(r['ok'] for r in per_leaf.values())
+    row = dict(agree=ok, kernel_vs_plain=max(r['kernel_vs_plain'] for r in per_leaf.values()),
+               kernel_vs_f64=max(r['kernel_vs_f64'] for r in per_leaf.values()),
+               plain_vs_f64=max(r['plain_vs_f64'] for r in per_leaf.values()),
+               worst_ratio=max(r['kernel_vs_f64'] / max(r['plain_vs_f64'], 1e-6)
+                               for r in per_leaf.values()),
+               tolerance='per leaf: kernel vs float64 <= 2 x max(plain vs float64, 1e-6), '
+                         'of max(1, max|plain|)',
+               shape=shape, per_leaf=per_leaf)
+    emit(dict(phase='kernel', name=f'{name}_attn_g_bwd_chunk', **row))
+    if not ok:
+        raise AssertionError(f'{name} attn_g_bwd on the decode chunk: farther from float64 '
+                             f'than twice its plain version: {per_leaf}')
+    return row
+
+
+def wide_attention_lines(torch, t_attn, dev, rng, name, params, qxyz, abstract):
+    """The decoder's first attention layer at a width above one 416-column
+    block. Forward, on one decode chunk's rows: attn (premul and per-row)
+    and attn_g against their plain versions (atol 1e-4, rtol 1e-3, twice for
+    the same bits, attn_g and the per-row route bit-equal). Backward, on the
+    recipes their gates were set on: attn_bwd (premul) at the train step's
+    frame (3 x 17920 queries, 531 keys; 1e-4 of scale, rtol 1e-3, as
+    check_backward_kernels) and attn_g_bwd at one cv1 train frame (3 x 17203
+    queries, 2124 keys; 5e-6 of scale, as check_shared_gather_backward_kernels),
+    each twice for the same bits. Also attn_g_bwd on the decode chunk
+    against float64 (attn_g_bwd_chunk_line).
+    :return {line name: row}."""
+    D = params['attn_mlp_0']['kernel'].shape[0]
+    H, P = params['attn_mlp_0']['kernel'].shape[1], params['pos_mlp_0']['kernel'].shape[1]
+    pos2, feats2 = abstract[..., :3].contiguous(), abstract[..., 3:].contiguous()
+    N, M, E, K = qxyz.shape[1], pos2.shape[1], feats2.shape[-1], 14
+
+    def rand(*shape, scale=None):
+        a = rng.rand(*shape) * scale - scale / 2 if scale else rng.randn(*shape)
+        return torch.tensor(a.astype(np.float32), device=dev)
+
+    knn = t_attn.knn_extract(qxyz, pos2, K)
+    q_proj = rand(1, N, D)
+    out = {}
+    with torch.no_grad():
+        g = t_attn.knn_gather_rows(pos2, feats2, knn, K)
+        kvp = torch.cat([feats2 @ params['to_k']['kernel'],
+                         feats2 @ params['to_v']['kernel']], -1).contiguous()
+    o_route = {}
+    for mode, kv in (('premul', kvp), ('per_row', feats2)):
+        args = (qxyz, q_proj, knn[0], pos2, kv, params, K, mode == 'premul')
+        macs, nbytes = attn_fwd_work(N * K, N, M, 3 + kv.shape[-1], D, E, H, P,
+                                     mode == 'per_row')
+        out[f'attn_{mode}'], o_route[mode] = attn_fwd_line(
+            torch, f'{name}_attn_{mode}', lambda: t_attn._attn_cuda(*args),
+            lambda: t_attn.attn_plain(*args), macs, nbytes + N * K * 4, [N, M, K, D, E])
+    macs, nbytes = attn_fwd_work(N * K, N, M, 3 + E, D, E, H, P, True)
+    out['attn_g'], o_g = attn_fwd_line(
+        torch, f'{name}_attn_g', lambda: t_attn._attn_g_cuda(qxyz, q_proj, g, params, K),
+        lambda: t_attn.attn_g_plain(qxyz, q_proj, g, params, K), macs, nbytes,
+        [N, M, K, D, E])
+    out['attn_g']['routes_bit_equal'] = bool(torch.equal(o_g, o_route['per_row']))
+    if not out['attn_g']['routes_bit_equal']:
+        raise AssertionError(f'{name}: attn_g and the per-row index route differ')
+    del o_g, o_route
+
+    out['attn_g_bwd_chunk'] = attn_g_bwd_chunk_line(torch, t_attn, name, qxyz, q_proj, g,
+                                                    params, K, rand(1, N, D), [N, M, K, D, E])
+    del g
+
+    for bname, (B, NB, MB), gate in (('attn_bwd', (3, 17920, 531), 1e-4),
+                                     ('attn_g_bwd', (3, _CV1_N, _CV1_M), 5e-6)):
+        bpos, bfeats = rand(B, MB, 3, scale=10.0), rand(B, MB, E)
+        bq, bqp, bgo = rand(B, NB, 3, scale=10.0), rand(B, NB, D), rand(B, NB, D)
+        bknn = t_attn.knn_extract(bq, bpos, K)
+        with torch.no_grad():
+            if bname == 'attn_bwd':
+                bkv = torch.cat([bfeats @ params['to_k']['kernel'],
+                                 bfeats @ params['to_v']['kernel']], -1).contiguous()
+                args = (bq, bqp, bknn[0], bpos, bkv, params, K, True, bgo)
+                call, plain_fn = (lambda: t_attn.attn_bwd(*args)), t_attn.attn_bwd_plain
+            else:
+                bg = t_attn.knn_gather_rows(bpos, bfeats, bknn, K)
+                args = (bq, bqp, bg, params, K, bgo)
+                call, plain_fn = (lambda: t_attn.attn_g_bwd(*args)), t_attn.attn_g_bwd_plain
+            x, x2 = call(), call()
+        y = plain_per_example(torch, plain_fn, args)
+        torch.cuda.synchronize()
+        pairs = [(x[0], y[0]), (x[1], y[1])] + [(x[2][n], y[2][n]) for n in sorted(y[2])]
+        scaled = max(max_err(u, v) / max(1.0, float(v.abs().max())) for u, v in pairs)
+        ok = (scaled <= gate if bname == 'attn_g_bwd' else
+              all(bool(torch.allclose(u, v, atol=1e-4 * max(1.0, float(v.abs().max())),
+                                      rtol=1e-3)) for u, v in pairs))
+        repro = max([max_err(x[0], x2[0]), max_err(x[1], x2[1])]
+                    + [max_err(x[2][n], x2[2][n]) for n in x[2]])
+        with torch.no_grad():
+            ms = cuda_ms(torch, call, 2)
+        plain_ms = cuda_ms(torch, lambda: plain_per_example(torch, plain_fn, args), 1)
+        row = dict(max_scaled_err=scaled, tolerance=(
+            f'atol {gate} x max(1, max|plain|)' + ('' if bname == 'attn_g_bwd' else ', rtol 1e-3')),
+            repeat_max_abs_diff=repro, ms=ms, plain_ms=plain_ms, shape=[B, NB, MB, K, D, E])
+        emit(dict(phase='kernel', name=f'{name}_{bname}', agree=ok, **row))
+        if not ok or repro != 0.0:
+            raise AssertionError(f'{name} {bname} disagrees ({scaled}) or is not '
+                                 f'reproducible ({repro})')
+        out[bname] = row
+        del x, x2, y, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def decoder_wide(torch, t_attn, dev, smi):
+    """Phase 11: decoders wider than one 416-column block of the attention
+    forward tile, which the JAX CLI reaches with --pt_feat_dim 40 (D 448,
+    E 320) and --global_size 256 (D 544, E 288). Per width, with seeded
+    weights: the engine encodes a 14336-point cloud and decodes one
+    4096-query chunk of the gv1 grid on the card, and the same chunk on the
+    CPU (plain versions) from the card's abstract cloud must agree (density
+    1e-4, as main_path_cv1); the first attention layer's kernels against
+    their plain versions (wide_attention_lines). The same at gv1's D 416,
+    one block wide, for comparison. At D 448: one Trainer step (batch 1,
+    one frame) after a decoder gradient check against the CPU
+    (decoder_grad_check's gate)."""
+    import copy
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.evaluate import InferenceEngine
+    from occlusions4d_torch.ops import blind_points_numpy
+    from occlusions4d_torch.train import Trainer
+    rng = np.random.RandomState(30)
+    out = {}
+    for name, kw in (('d448_e320', dict(pt_feat_dim=40)), ('d544_e288', dict(global_size=256)),
+                     ('d416_e288', {})):
+        cfg = TrainConfig(**dict(_GV1, **kw))
+        encoder, decoder, dec_args = seeded_models(torch, cfg, dev, 31)
+        engine = InferenceEngine(dict(encoder=encoder, decoder=decoder, device=dev),
+                                 cfg.color_mode, False, cfg.semantic_classes,
+                                 track_mode='none', implicit_batch_size=_CHECK_CHUNK)
+        pcl = rng.rand(14336, 8).astype(np.float32) * 2 - 1
+        queries = blind_points_numpy(_NUM_SAMPLE, cfg.min_z, cfg.cr_cube_bounds, 0,
+                                     'greater', cfg.cube_mode, 'grid')[:_CHECK_CHUNK]
+        abstract, fg = engine.encode(pcl)
+        got = engine.decode_all(queries, abstract, fg, fetch=False)
+        torch.cuda.synchronize()
+        cpu = InferenceEngine(dict(encoder=None, decoder=copy.deepcopy(decoder).cpu(),
+                                   device=torch.device('cpu')),
+                              cfg.color_mode, False, cfg.semantic_classes,
+                              track_mode='none', implicit_batch_size=_CHECK_CHUNK)
+        ref = cpu.decode_all(queries, abstract.cpu(), fg.cpu())
+        got = got.cpu().numpy()
+        d_err = float(np.abs(got[:, 0] - ref[:, 0]).max())
+        all_err = float(np.abs(got - ref).max())
+        D = dec_args['d_latent']
+        qxyz = torch.tensor(queries[None, :, :3].astype(np.float32), device=dev)
+        lines = wide_attention_lines(torch, t_attn, dev, rng, name,
+                                     decoder.pt_blocks[0].layer2.kernel_params(), qxyz,
+                                     abstract)
+        ok = (d_err <= 1e-4 and bool(np.isfinite(got).all())
+              and list(abstract.shape) == [1, 531, 3 + dec_args['d_latent_local']])
+        out[name] = dict(D=D, E=dec_args['d_latent_local'], density_max_abs_err_vs_cpu=d_err,
+                         all_channels_max_abs_err_vs_cpu=all_err, ok=ok,
+                         attention=lines)
+        emit(dict(phase='decoder_wide', case=name, D=D, E=dec_args['d_latent_local'],
+                  queries=_CHECK_CHUNK, density_max_abs_err_vs_cpu=d_err,
+                  all_channels_max_abs_err_vs_cpu=all_err, tolerance='density 1e-4',
+                  ok=ok, gpu=smi))
+        if not ok:
+            raise AssertionError(f'decoder_wide {name}: error {d_err} vs the CPU')
+        del encoder, decoder, engine, cpu
+        torch.cuda.empty_cache()
+    # One Trainer step at D 448, batch 1, one frame.
+    cfg = TrainConfig(**dict(_GV1_TRAIN, pt_feat_dim=40, batch_size=1, past_frames=1))
+    tr = Trainer(cfg, 'greater', 'cuda')
+    wrng = np.random.RandomState(32)
+    tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                              decoder=random_jax_params(tr.decoder, wrng)),
+                  seed=0, steps_per_epoch=100)
+    batch = train_batch(torch, cfg, dev, seed=33)
+    with torch.no_grad():
+        abstract, fg = tr.encoder(batch['pcl_input'], generator=tr.generator)
+        frame = tr.pipeline.sample_frames(batch, tr.generator)[0]
+    check = decoder_grad_check(torch, tr, abstract, fg, frame, dev, expect=_INDEX_ROUTE)
+    before = [p.detach().clone() for p in tr.optimizer.params]
+    t0 = time.time()
+    m = tr.step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    changed = max(max_err(p, q) for p, q in zip(tr.optimizer.params, before))
+    finite = (bool(np.isfinite(float(m['total_loss']))) and bool(m['grads_finite'])
+              and bool(m['params_finite']))
+    ok = check['ok'] and finite and changed > 0.0
+    emit(dict(phase='decoder_wide', case='train_step_d448', D=448, E=320, batch_size=1,
+              frames=1, step_ms=step_ms, total_loss=float(m['total_loss']),
+              params_changed_max_abs=changed, decoder_grad_check=check, ok=ok, gpu=smi))
+    if not ok:
+        raise AssertionError(f'decoder_wide train step failed: {check}, finite {finite}, '
+                             f'changed {changed}')
+    out['train_step_d448'] = dict(step_ms=step_ms, decoder_grad_check=check)
+    return out
 
 
 def main():
@@ -1507,53 +1895,31 @@ def main():
                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                                      shape=[N, M, K])
 
-    # K1' pruned: the level-0 self-search.
+    # K1' pruned: the level-0 self-search, the sampler's air rejections, the
+    # n57344 level-0 self-search; then the brute/pruned crossover.
     pts = cloud(14336)
     q, kk, kn = prep(pts, pts)
-    d_k, i_k = t_knn._pruned_cuda(q, kk, kn, 16, True)
-    d_p, i_p = t_knn.knn_rank_plain(q, kk, kn, 16)
-    torch.cuda.synchronize()
-    n_diff, n_bad = knn_agree(d_k, i_k, d_p, i_p)
-    err = float((d_k - d_p).abs().max())
-    ms = cuda_ms(torch, lambda: t_knn._pruned_cuda(q, kk, kn, 16, True), 10)
-    plain_ms = cuda_ms(torch, lambda: t_knn.knn_rank_plain(q, kk, kn, 16), 2)
-    lib_ms = cuda_ms(torch, lambda: torch.sort(torch.cdist(q, kk), dim=-1,
-                                               stable=True)[0][..., :16], 2)
-    # Least work: every output neighbour needs one distance; bytes dominate.
-    b_ms, b_by = bound(14336 * 3 * 4 * 2 + 14336 * 16 * 8, 7.0 * 14336 * 16)
-    brute_ms = cuda_ms(torch, lambda: t_knn.knn_rank(q, kk, kn, 16), 10)
-    prep_ms = cuda_ms(torch, lambda: t_knn.pruned_inputs(q, kk, kn, True, 64, 256), 10)
-    emit(dict(phase='kernel', name='knn_pruned', shape=[14336, 14336, 16],
-              agree=n_bad == 0 and err == 0.0, index_mismatches=n_diff,
-              max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-              bound_ms=b_ms, bound_by=b_by, brute_kernel_ms=brute_ms,
-              sort_and_boxes_ms=prep_ms))
-    if n_bad or err != 0.0:
-        raise AssertionError(f'knn_pruned disagrees: {n_bad} mismatches, err {err}')
-    rows['knn_pruned'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=lib_ms, shape=[14336, 14336, 16])
+    rows['knn_pruned'] = knn_pruned_line(torch, t_knn, dev, 'gv1_level0', q, kk, kn, 16,
+                                         True)
+    q, kk, kn = sampler_like(torch, t_knn, dev, np.random.RandomState(23), 3, 6996, 28672)
+    rows['knn_pruned']['sampler'] = knn_pruned_line(torch, t_knn, dev, 'sampler_air', q, kk,
+                                                    kn, 1, False)
+    q, kk, kn = prep(*(cloud(57344),) * 2)
+    rows['knn_pruned']['n57344_level0'] = knn_pruned_line(torch, t_knn, dev,
+                                                          'n57344_level0', q, kk, kn, 16, True)
+    del q, kk, kn
+    knn_crossover_line(torch, t_knn, dev, np.random.RandomState(24))
 
-    # K2 FPS: the three DownTransitions.
-    for (N, n_out) in ((14336, 4779), (4779, 1593), (1593, 531)):
-        xyz = cloud(N)
-        valid = torch.ones((1, N), dtype=torch.bool, device=dev)
-        start = torch.zeros((1,), dtype=torch.int64, device=dev)
-        s_k = t_fps._fps_cuda(xyz, n_out, valid, start)
-        s_p = t_fps.fps_plain(xyz, n_out, valid, start)
-        torch.cuda.synchronize()
-        ok = bool(torch.equal(s_k, s_p))
-        ms = cuda_ms(torch, lambda: t_fps._fps_cuda(xyz, n_out, valid, start), 5)
-        plain_ms = cuda_ms(torch, lambda: t_fps.fps_plain(xyz, n_out, valid, start), 1,
-                           warmup=0)
-        b_ms, b_by = bound(N * 12 + N * 4 + n_out * 4, 10.0 * N * n_out)
-        emit(dict(phase='kernel', name='fps', shape=[N, n_out], agree=ok,
-                  max_abs_err=0 if ok else int((s_k != s_p).sum()), ms=ms,
-                  plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
-        if not ok:
-            raise AssertionError(f'fps disagrees at {(N, n_out)}')
-        if N == 14336:
-            rows['fps'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=None, shape=[N, n_out])
+    # K2 FPS (the cluster launches): the three DownTransitions at B 1
+    # (inference) and 3 (train), the n57344 step's second level, and a cloud
+    # above 153600 points (once the cap of a cluster holding the points in
+    # shared memory).
+    for (B, N, n_out) in ((1, 14336, 4779), (3, 14336, 4779), (1, 4779, 1593),
+                          (3, 4779, 1593), (1, 1593, 531), (3, 1593, 531), (1, 19115, 6372),
+                          (1, 200000, 2048)):
+        fps_line(torch, t_fps, dev, rng, B, N, n_out)
+    # The one-block launch, which the speed rule keeps for 512 points or fewer.
+    rows['fps'] = fps_line(torch, t_fps, dev, rng, 3, 512, 171)
     # K2': the cluster entry at the n57344 encoder's first level.
     check_fps_cluster(torch, t_fps, dev, np.random.RandomState(20), rows)
 
@@ -1801,7 +2167,11 @@ def main():
     # The sampler's pruned 1-NN (air rejections) at its gv1 shape.
     tgt0 = batch['pcl_target'][:, 0, :, :3].contiguous()
     cand = tgt0[:, :6996] + 0.3
-    calls = counts['knn_pruned'] // 3 - 1      # per step, less the encoder's.
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        tr.encoder(batch['pcl_input'], generator=tr.generator)
+    enc_pruned = _build.launch_counts()['knn_pruned']
+    calls = counts['knn_pruned'] // 3 - enc_pruned   # per step, less the encoder's.
     pruned_ms = cuda_ms(torch, lambda: t_knn.nn1_min_dist(cand, tgt0), 5)
     step_ms = float(np.mean([st['ms'] for st in steps]))
     ok = (all(np.isfinite(st['total_loss']) and st['grads_finite'] and st['params_finite']
@@ -1877,7 +2247,11 @@ def main():
     # 10. The n57344 train step (FPS cluster entry, shared-gather decoder).
     train_fused_phase(torch, dev, smi, path_counts, 'train_57k', _N57, _57K_STEP, 10)
 
-    # 11. Summary lines.
+    torch.cuda.empty_cache()
+    # 11. Decoders wider than one 416-column attention block.
+    decoder_wide(torch, t_attn, dev, smi)
+
+    # 12. Summary lines.
     kernels = []
     for name, src in _SOURCE.items():
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',

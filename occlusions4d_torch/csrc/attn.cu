@@ -49,18 +49,25 @@
 //     runs in chunks of 128 hidden columns: h^T = relu(A1^T hpre^T + c1)
 //     (32 x 32 per warp), h into shared memory, then logits += h A2 with the
 //     64 x D logits in registers (2 x 13 n-tiles of 16 x 8 per warp at
-//     D 416). h never reaches device memory. Every product is mma.sync
-//     m16n8k8 TF32 in 3xTF32, both operands split into (big, small) TF32
-//     parts as they are read, the tensor core accumulating across the
-//     product's whole K (the forward's longest sum is 832 deep and its gate
-//     rtol 1e-3; the backward's per-step f32 sums serve its long
-//     weight-gradient sums);
-//   * the B operands stream through a 3-stage ring of 26 KB slabs, each one
-//     bulk copy by the tensor memory accelerator completing an mbarrier, one
-//     block barrier per slab. Splitting the weights once into (big, small)
-//     pairs in device memory doubled the bytes every tile streams from L2
-//     (5.5 MB per 64 rows), and the stream then set the pace; in f32 it
-//     hides under the products (the same time with the copies left out);
+//     D 416). h never reaches device memory. Wider decoders (the JAX CLI's
+//     --pt_feat_dim and --global_size reach D 448 and 544) run the wide
+//     products in column blocks of 416: per-row mode stages each block's
+//     hpre in device memory (F stays in shared memory for the next block),
+//     and gamma's first layer is recomputed per block, since h (64 x H)
+//     does not fit beside the rows; above 448 the ring has two stages.
+//     The rows' 64 x max(D, E) floats bound the width at 560. Every
+//     product is mma.sync m16n8k8 TF32 in 3xTF32, both operands split into
+//     (big, small) TF32 parts as they are read, the tensor core accumulating
+//     across the product's whole K (the forward's longest sum is 832 deep at
+//     D 416, 1088 at 544, and its gate rtol 1e-3; the backward's per-step
+//     f32 sums serve its long weight-gradient sums);
+//   * the B operands stream through a 3-stage ring of 26 KB slabs (two
+//     above D 448), each one bulk copy by the tensor memory accelerator
+//     completing an mbarrier, one block barrier per slab. Splitting the
+//     weights once into (big, small) pairs in device memory doubled the
+//     bytes every tile streams from L2 (5.5 MB per 64 rows), and the stream
+//     then set the pace; in f32 it hides under the products (the same time
+//     with the copies left out);
 //   * ReLU masks may flip where h is within rounding of zero; in the forward
 //     such a flip moves an output by about that rounding.
 // Every kernel is row-local, so the index route and the gathered route give
@@ -249,34 +256,53 @@ constexpr int kMT = kTileRows / 16 / kWarpsM;  // a warp's m-tiles in a wide pro
 // Gamma's first layer: 4 warps along the hidden columns x 2 along the rows,
 // each warp 32 x 32 (2 hidden m-tiles x 4 row n-tiles).
 constexpr int kMT1 = 2, kNT1 = 4;
-constexpr int kMaxWidth = 416;    // the widest D or E a tile takes
-constexpr int kMaxNT = kMaxWidth / 8;  // 52 n-tiles of 8 columns, the wide B operands' width
+// The wide products (k, v and the logits) run in column blocks of at most
+// kColBlock columns: a warp keeps its share of one block's 64 x 416 sums in
+// registers. Wider decoders loop over the blocks (see attn_tile_kernel).
+constexpr int kColBlock = 416;
+constexpr int kMaxNT = kColBlock / 8;  // 52 n-tiles of 8 columns, a column block's width
 constexpr int kNTW = kMaxNT / 4;       // a warp's n-tiles in a wide product (13)
-constexpr int kSlab = kMaxNT * 32 * 4;  // floats per ring stage: two k8 steps at 416
+constexpr int kSlab = kMaxNT * 32 * 4;  // floats per ring stage: two k8 steps of a block
 constexpr int kA1Step = (kHC / 16) * 32 * 4;  // floats of one k8 step of an A1 chunk
 constexpr int kA1Steps = kSlab / kA1Step;     // A1 k8 steps per slab (6)
-constexpr int kFwdStages = 3;
 constexpr int kLdH = kHC + 4;  // the h chunk [row][column]; 4 mod 32: no conflicts
+// Shared memory one block may use (the H100's opt-in limit), less room for
+// the static mbarriers.
+constexpr int kSmemOptin = 232448;
+constexpr int kSmemDynMax = kSmemOptin - 64;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Shared floats of attn_tile_kernel: the rows (F, then hpre), the h chunk, the
-// ring. Row strides are 4 mod 8, so fragment reads hit 32 distinct banks.
-size_t tile_smem_floats(int D, int E) {
+// Shared floats of attn_tile_kernel with a ring of `stages` slabs: the rows
+// (F, then hpre), the h chunk, the ring. Row strides are 4 mod 8, so
+// fragment reads hit 32 distinct banks.
+size_t tile_smem_floats(int D, int E, int stages) {
   const int W = 8 * max(cdiv(D, 8), cdiv(E, 8));
-  return (size_t)kTileRows * (W + 4) + (size_t)kTileRows * kLdH +
-         (size_t)kFwdStages * kSlab;
+  return (size_t)kTileRows * (W + 4) + (size_t)kTileRows * kLdH + (size_t)stages * kSlab;
 }
 
-// B (K x N, row-major) in mma B-fragment order, zero past K and N: float2
-// (kb NT + nt) 32 + lane, lane = 4 gq + tq, holds b0 = B[8 kb + tq][8 nt + gq]
-// and b1 = B[8 kb + tq + 4][8 nt + gq].
+// Three ring stages where they fit (every width up to 448), else two.
+int tile_stages(int D, int E) {
+  return tile_smem_floats(D, E, 3) * sizeof(float) <= (size_t)kSmemDynMax ? 3 : 2;
+}
+
+// The widest D or E the tile takes: the rows of 64 x max(D, E) floats beside
+// the h chunk and a two-stage ring fill the shared memory at 560.
+constexpr int kMaxWidth =
+    ((kSmemDynMax / 4 - kTileRows * kLdH - 2 * kSlab) / kTileRows - 4) / 8 * 8;
+static_assert(kMaxWidth == 560, "the shared-memory width limit moved");
+
+// B (K x N, row-major) in mma B-fragment order per column block of 8 NT
+// columns, zero past K and N: float2 ((cb KB + kb) NT + nt) 32 + lane,
+// lane = 4 gq + tq, holds b0 = B[8 kb + tq][n] and b1 = B[8 kb + tq + 4][n],
+// n = 8 (cb NT + nt) + gq.
 __global__ void frag_b_kernel(const float* __restrict__ B, int K, int N, int KB, int NT,
-                              float2* __restrict__ out) {
+                              int NCB, float2* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)KB * NT * 32) return;
-  const int lane = (int)(i & 31), t = (int)(i >> 5), nt = t % NT, kb = t / NT;
-  const int n = 8 * nt + (lane >> 2), k0 = 8 * kb + (lane & 3), k1 = k0 + 4;
+  if (i >= (long long)NCB * KB * NT * 32) return;
+  const int lane = (int)(i & 31), t = (int)(i >> 5), nt = t % NT, kb = (t / NT) % KB;
+  const int cb = t / NT / KB;
+  const int n = 8 * (cb * NT + nt) + (lane >> 2), k0 = 8 * kb + (lane & 3), k1 = k0 + 4;
   out[i] = make_float2(k0 < K && n < N ? B[(size_t)k0 * N + n] : 0.f,
                        k1 < K && n < N ? B[(size_t)k1 * N + n] : 0.f);
 }
@@ -353,10 +379,11 @@ struct TileArgs {
   const float* f;   // per-row: (R, E) the rows' features
   float* vv;        // per-row: (R, D) v = F Wv, written here
   float* lg;        // (R, D) the logits before c2 and 1 / sqrt(D), written here
-  const float* wv;  // per-row: Wv and Wk in fragment order (frag_b_kernel)
+  const float* wv;  // per-row: Wv and Wk in fragment order (frag_b_kernel, per column block)
   const float* wk;
   const float* a1;  // A1 in fragment order (frag_a1_kernel)
-  const float* a2;  // A2 in fragment order (frag_b_kernel, K padded to whole chunks)
+  const float* a2;  // A2 in fragment order (frag_b_kernel, K padded to whole chunks, per
+                    // column block)
   const float* c1;  // (H)
   int R, D, E, H, k, premul;
 };
@@ -467,13 +494,19 @@ struct Slab {
 
 // The tile's rows r0 ... r0 + 63 of the chunk: per-row mode k and v on the
 // tensor cores, hpre, gamma, the logits (the design at the top of the file).
-// The wide products always span 416 columns (zero past D).
+// The wide products run per column block of 416 columns (zero past D). Above
+// one block (D > 416), per-row mode stages each block's hpre in the tile's
+// own rows of lg (F must stay in shared memory for the next block's k and v)
+// and reloads it whole, and gamma's first layer is recomputed per column
+// block: the softmax is per channel, so the blocks' logits are independent
+// once h is known, and h (64 x H) does not fit beside the rows.
+template <int kFwdStages>
 __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   extern __shared__ __align__(16) float smf[];
   __shared__ __align__(8) uint64_t full[kFwdStages];  // a slab has landed in the stage
   constexpr int NT = kMaxNT;
   const int D = p.D, E = p.E, H = p.H;
-  const int D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC);
+  const int D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NCB = cdiv(D, kColBlock);
   const int W8 = 8 * max(D8, E8), ldx = W8 + 4;
   float* X = smf;                       // F (per-row mode), then hpre
   float* Hs = X + kTileRows * ldx;      // h chunk [row][hidden column]
@@ -484,24 +517,28 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   const int r0 = blockIdx.x * kTileRows, rows = min(kTileRows, p.R - r0);
   const bool perrow = !p.premul;
 
-  // The B slabs in stream order: per-row mode's Wv then Wk (nw each), then
-  // per hidden chunk A1's (n1) and A2's (n2; the last chunk's K8L k8 steps
-  // in n2l).
+  // The B slabs in stream order: per-row mode's Wv then Wk (nw each) per
+  // column block, then per column block and hidden chunk A1's (n1) and A2's
+  // (n2; the last chunk's K8L k8 steps in n2l).
   constexpr int kbw = kSlab / (NT * 64);  // k8 steps per slab of a wide B
   const int nw = perrow ? cdiv(E8, kbw) : 0;
   const int K8L = cdiv(H - (NC - 1) * kHC, 8);
   const int n1 = cdiv(D8, kA1Steps), n2 = cdiv(kHK8, kbw), n2l = cdiv(K8L, kbw);
-  const int total = 2 * nw + (NC - 1) * (n1 + n2) + n1 + n2l;
+  const int per_cb = (NC - 1) * (n1 + n2) + n1 + n2l;  // gamma's slabs per column block
+  const int total = NCB * (2 * nw + per_cb);
   auto slab = [&](int s) {
     Slab x;
-    if (s < 2 * nw) {
-      const int i = s < nw ? s : s - nw;
+    if (s < NCB * 2 * nw) {
+      const int cb = s / (2 * nw), r = s - cb * 2 * nw;
+      const int i = r < nw ? r : r - nw;
       x.steps = min(kbw, E8 - i * kbw);
-      x.src = (s < nw ? p.wv : p.wk) + (size_t)i * kbw * NT * 64;
+      x.src = (r < nw ? p.wv : p.wk) + ((size_t)cb * E8 + (size_t)i * kbw) * NT * 64;
       x.bytes = x.steps * NT * 64 * 4;
       return x;
     }
-    s -= 2 * nw;
+    s -= NCB * 2 * nw;
+    const int cb = s / per_cb;
+    s -= cb * per_cb;
     const int c = min(s / (n1 + n2), NC - 1), i = s - c * (n1 + n2);
     if (i < n1) {
       x.steps = min(kA1Steps, D8 - i * kA1Steps);
@@ -510,7 +547,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
     } else {
       const int j = i - n1;
       x.steps = min(kbw, (c < NC - 1 ? kHK8 : K8L) - j * kbw);
-      x.src = p.a2 + ((size_t)c * kHK8 + j * kbw) * NT * 64;
+      x.src = p.a2 + ((size_t)(cb * NC + c) * kHK8 + j * kbw) * NT * 64;
       x.bytes = x.steps * NT * 64 * 4;
     }
     return x;
@@ -558,13 +595,28 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   float acc[kMT][kNTW][4];
   int steps;
   if (perrow) {
-    for (int which = 0; which < 2; ++which) {  // 0: v = F Wv; 1: k = F Wk.
-      zero_acc(acc);
-      for (int i = 0, k8 = 0; i < nw; ++i, k8 += steps) {
-        const float* b = acquire(steps);
-        wide_steps(acc, X, ldx, k8, b, steps, nt0, wm, lane);
+    for (int cb = 0; cb < NCB; ++cb) {
+      const int col0 = cb * kColBlock;
+      for (int which = 0; which < 2; ++which) {  // 0: v = F Wv; 1: k = F Wk.
+        zero_acc(acc);
+        for (int i = 0, k8 = 0; i < nw; ++i, k8 += steps) {
+          const float* b = acquire(steps);
+          wide_steps(acc, X, ldx, k8, b, steps, nt0, wm, lane);
+        }
+        if (which == 0) {
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
+                const int n = col0 + 8 * (nt0 + i) + 2 * tq + (c & 1);
+                if (m < rows && n < D) p.vv[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
+              }
+        }
       }
-      if (which == 0) {
+      if (NCB > 1) {  // this block's hpre into the tile's rows of lg.
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -572,12 +624,79 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
               const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
-              const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
-              if (m < rows && n < D) p.vv[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
+              const int n = col0 + 8 * (nt0 + i) + 2 * tq + (c & 1);
+              if (m < rows && n < D) {
+                const size_t row = (size_t)(r0 + m);
+                p.lg[row * D + n] = (p.q[(row / p.k) * D + n] - acc[mt][i][c]) + p.th[row * D + n];
+              }
             }
       }
     }
-    __syncthreads();  // every warp is done reading F.
+    __syncthreads();  // every warp is done reading F (and its hpre stores are visible).
+    if (NCB > 1) {
+      for (int idx = tid; idx < kTileRows * 8 * D8; idx += kFwdThreads) {
+        const int m = idx / (8 * D8), n = idx - m * 8 * D8;
+        X[m * ldx + n] = m < rows && n < D ? p.lg[(size_t)(r0 + m) * D + n] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
+            const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
+            if (n < 8 * D8) {  // GEMM1 reads hpre's D8 k8 steps.
+              float v = 0.f;
+              if (m < rows && n < D) {
+                const size_t row = (size_t)(r0 + m);
+                v = (p.q[(row / p.k) * D + n] - acc[mt][i][c]) + p.th[row * D + n];
+              }
+              X[m * ldx + n] = v;
+            }
+          }
+    }
+  }
+
+  // gamma, per column block: per chunk of kHC hidden columns, h = relu(hpre
+  // A1 + c1) into Hs, then the block's logits += h A2 over the chunk's valid
+  // columns. A warp whose hidden columns all lie past H in the last chunk
+  // skips its products.
+  const int w1m = warp >> 1, w1n = warp & 1;  // gamma's first layer: 4 x 2 warps
+  for (int cb = 0; cb < NCB; ++cb) {
+    const int col0 = cb * kColBlock;
+    zero_acc(acc);
+    for (int c = 0; c < NC; ++c) {
+      const bool live = c * kHC + w1m * 16 * kMT1 < H;
+      float acc1[kMT1][kNT1][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT1; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT1; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc1[mt][nt][x] = 0.f;
+      for (int i = 0, k8 = 0; i < n1; ++i, k8 += steps) {
+        const float* a = acquire(steps);
+        if (live) g1_steps(acc1, a, steps, X, ldx, k8, w1m, w1n, lane);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT1; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT1; ++nt) {
+          const int hc = (w1m * kMT1 + mt) * 16 + gq, row = w1n * 8 * kNT1 + nt * 8 + 2 * tq;
+          const int h = c * kHC + hc;
+          const float b0 = h < H ? p.c1[h] : 0.f, b1 = h + 8 < H ? p.c1[h + 8] : 0.f;
+          Hs[row * kLdH + hc] = fmaxf(acc1[mt][nt][0] + b0, 0.f);
+          Hs[(row + 1) * kLdH + hc] = fmaxf(acc1[mt][nt][1] + b0, 0.f);
+          Hs[row * kLdH + hc + 8] = fmaxf(acc1[mt][nt][2] + b1, 0.f);
+          Hs[(row + 1) * kLdH + hc + 8] = fmaxf(acc1[mt][nt][3] + b1, 0.f);
+        }
+      for (int i = 0, k8 = 0; i < (c < NC - 1 ? n2 : n2l); ++i, k8 += steps) {
+        const float* b = acquire(steps);
+        wide_steps(acc, Hs, kLdH, k8, b, steps, nt0, wm, lane);
+      }
+    }
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -585,63 +704,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
-          const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
-          if (n < 8 * D8) {  // GEMM1 reads hpre's D8 k8 steps.
-            float v = 0.f;
-            if (m < rows && n < D) {
-              const size_t row = (size_t)(r0 + m);
-              v = (p.q[(row / p.k) * D + n] - acc[mt][i][c]) + p.th[row * D + n];
-            }
-            X[m * ldx + n] = v;
-          }
+          const int n = col0 + 8 * (nt0 + i) + 2 * tq + (c & 1);
+          if (m < rows && n < D) p.lg[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
         }
   }
-
-  // gamma: per chunk of kHC hidden columns, h = relu(hpre A1 + c1) into Hs,
-  // then logits += h A2 over the chunk's valid columns. A warp whose hidden
-  // columns all lie past H in the last chunk skips its products.
-  const int w1m = warp >> 1, w1n = warp & 1;  // gamma's first layer: 4 x 2 warps
-  zero_acc(acc);
-  for (int c = 0; c < NC; ++c) {
-    const bool live = c * kHC + w1m * 16 * kMT1 < H;
-    float acc1[kMT1][kNT1][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT1; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT1; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) acc1[mt][nt][x] = 0.f;
-    for (int i = 0, k8 = 0; i < n1; ++i, k8 += steps) {
-      const float* a = acquire(steps);
-      if (live) g1_steps(acc1, a, steps, X, ldx, k8, w1m, w1n, lane);
-    }
-#pragma unroll
-    for (int mt = 0; mt < kMT1; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT1; ++nt) {
-        const int hc = (w1m * kMT1 + mt) * 16 + gq, row = w1n * 8 * kNT1 + nt * 8 + 2 * tq;
-        const int h = c * kHC + hc;
-        const float b0 = h < H ? p.c1[h] : 0.f, b1 = h + 8 < H ? p.c1[h + 8] : 0.f;
-        Hs[row * kLdH + hc] = fmaxf(acc1[mt][nt][0] + b0, 0.f);
-        Hs[(row + 1) * kLdH + hc] = fmaxf(acc1[mt][nt][1] + b0, 0.f);
-        Hs[row * kLdH + hc + 8] = fmaxf(acc1[mt][nt][2] + b1, 0.f);
-        Hs[(row + 1) * kLdH + hc + 8] = fmaxf(acc1[mt][nt][3] + b1, 0.f);
-      }
-    for (int i = 0, k8 = 0; i < (c < NC - 1 ? n2 : n2l); ++i, k8 += steps) {
-      const float* b = acquire(steps);
-      wide_steps(acc, Hs, kLdH, k8, b, steps, nt0, wm, lane);
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int i = 0; i < kNTW; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
-        const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
-        if (m < rows && n < D) p.lg[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
-      }
 }
 
 // The softmax over each query's k rows and the weighted sum, per (query,
@@ -685,12 +751,13 @@ FwdWs carve_fwd(float* ws, long long R, int D, int E, int H, int P, bool premul,
     return r;
   };
   const long long D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NT = kMaxNT;
+  const long long NCB = cdiv(D, kColBlock);
   if (!premul) {
-    w.wv = take(E8 * NT * 64);
-    w.wk = take(E8 * NT * 64);
+    w.wv = take(NCB * E8 * NT * 64);
+    w.wk = take(NCB * E8 * NT * 64);
   }
   w.a1 = take(NC * D8 * kA1Step);
-  w.a2 = take(NC * kHK8 * NT * 64);
+  w.a2 = take(NCB * NC * kHK8 * NT * 64);
   w.rel = take(R * 3);
   if (premul)
     w.kk = take(R * D);
@@ -723,22 +790,24 @@ int run_fwd(const FwdCall& p, cudaStream_t s) {
   const int N = p.src.N, D = p.src.D, E = p.src.E, k = p.src.k, H = p.H, P = p.P;
   const bool premul = MODE == kIndex && p.src.premul;
   const int D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NT = kMaxNT;
+  const int NCB = cdiv(D, kColBlock);
   long long used;
   const FwdWs w = carve_fwd(p.ws, (long long)p.QC * k, D, E, H, P, premul, &used);
-  const size_t smem = tile_smem_floats(D, E) * sizeof(float);
-  O4D_TRY(cudaFuncSetAttribute(attn_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem));
+  const int stages = tile_stages(D, E);
+  const size_t smem = tile_smem_floats(D, E, stages) * sizeof(float);
+  auto tile = stages == 3 ? attn_tile_kernel<3> : attn_tile_kernel<2>;
+  O4D_TRY(cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   // The weights in fragment order, once per call.
   if (!premul) {
-    frag_b_kernel<<<blocks_for((long long)E8 * NT * 32, 256), 256, 0, s>>>(
-        p.wv, E, D, E8, NT, reinterpret_cast<float2*>(w.wv));
-    frag_b_kernel<<<blocks_for((long long)E8 * NT * 32, 256), 256, 0, s>>>(
-        p.wk, E, D, E8, NT, reinterpret_cast<float2*>(w.wk));
+    frag_b_kernel<<<blocks_for((long long)NCB * E8 * NT * 32, 256), 256, 0, s>>>(
+        p.wv, E, D, E8, NT, NCB, reinterpret_cast<float2*>(w.wv));
+    frag_b_kernel<<<blocks_for((long long)NCB * E8 * NT * 32, 256), 256, 0, s>>>(
+        p.wk, E, D, E8, NT, NCB, reinterpret_cast<float2*>(w.wk));
   }
   frag_a1_kernel<<<blocks_for((long long)NC * D8 * (kHC / 16) * 32, 256), 256, 0, s>>>(
       p.wa1, D, H, D8, NC, reinterpret_cast<float4*>(w.a1));
-  frag_b_kernel<<<blocks_for((long long)NC * kHK8 * NT * 32, 256), 256, 0, s>>>(
-      p.wa2, H, D, NC * kHK8, NT, reinterpret_cast<float2*>(w.a2));
+  frag_b_kernel<<<blocks_for((long long)NCB * NC * kHK8 * NT * 32, 256), 256, 0, s>>>(
+      p.wa2, H, D, NC * kHK8, NT, NCB, reinterpret_cast<float2*>(w.a2));
   const float inv_sqrt_d = 1.0f / sqrtf((float)D);
   for (int b = 0; b < p.B; ++b) {
     for (int n0 = 0; n0 < N; n0 += p.QC) {
@@ -754,7 +823,7 @@ int run_fwd(const FwdCall& p, cudaStream_t s) {
       O4D_TRY((gemm<false, false, true>(a, 1, s)));
       const TileArgs t{p.qproj + q0 * D, w.th, w.kk, w.f, w.vv, w.lg, w.wv, w.wk, w.a1, w.a2,
                        p.ba1, R, D, E, H, k, premul ? 1 : 0};
-      attn_tile_kernel<<<cdiv(R, kTileRows), kFwdThreads, smem, s>>>(t);
+      tile<<<cdiv(R, kTileRows), kFwdThreads, smem, s>>>(t);
       combine_kernel<<<blocks_for((long long)nq * D, 256), 256, 0, s>>>(
           w.lg, w.vv, w.th, p.ba2, p.out + q0 * D, nq, D, k, inv_sqrt_d);
     }
@@ -799,10 +868,12 @@ bool fwd_shape_ok(int B, int N, int D, int E, int k, int QC) {
 }  // namespace
 
 // Shared memory of one o4d_attn / o4d_attn_g block at widths D and E (P plays
-// no part), and the widest D or E the tile takes.
+// no part), and the widest D or E the tile takes: 560, where the 64 rows of
+// max(D, E) floats, the h chunk and a two-stage ring of weight slabs fill the
+// block's 232,448 bytes of shared memory (D above 416 runs in column blocks).
 extern "C" long long o4d_attn_smem_bytes(int D, int E, int P) {
   (void)P;
-  return (long long)(tile_smem_floats(D, E) * sizeof(float));
+  return (long long)(tile_smem_floats(D, E, tile_stages(D, E)) * sizeof(float));
 }
 
 extern "C" int o4d_attn_max_width() { return kMaxWidth; }

@@ -27,14 +27,43 @@
 // its running top-K sorted in registers (unrolled insertion, K is a template
 // parameter), keys stream through shared memory as float4 (x, y, z, |k|^2).
 // A candidate that does not beat the current K-th costs one compare, which is
-// the common case after the first few hundred keys. The pruned entry adds a
-// per-tile bound: a CUDA block is a tile of 64 Hilbert-consecutive queries,
-// keys come in blocks of 256 Hilbert-consecutive keys; the seed block (the
-// tile's own curve position) goes first, then every other block whose bbox
-// gap^2 is within the tile's worst K-th distance (+ a rounding slack) is
-// processed. Since ties compare on the ORIGINAL key index, the pruned result
-// equals the brute-force one exactly. Tiling for tensor cores (q.k as an MMA)
-// and multi-thread-per-query splits are later work.
+// the common case after the first few hundred keys.
+//
+// The pruned entry is bound by its fixed cost, about 0.1 ms of launches and
+// sorts before the first distance, then by the distances of the key blocks
+// it visits (13% of the (tile, block) pairs at the sampler's shape, 7% at
+// 57344^2). Its design (a first version ran its preparation as hundreds of
+// small PyTorch launches, 6.3 of its 6.7 ms at the sampler's shape on an
+// H100, and one thread per query in blocks of 64):
+//   * preparation on the card in three kernels and the sorts: knn_bbox_kernel
+//     (the keys' box per example), knn_codes_kernel (30-bit Hilbert codes of
+//     keys and queries within it, the integers of ops/knn.py hilbert_codes),
+//     torch.sort of the codes (stable), then knn_arrange_kernel: both sets in
+//     curve order, padded (last row repeated, padded keys at |k|^2 = +inf),
+//     rows (x, y, z, |p|^2), the sorted keys' original indices, the boxes of
+//     every 256-key block and 32-query tile, and the largest finite |k|^2 and
+//     |q|^2 (integer atomic max of their bits, exact) for the bbox test's
+//     rounding slack;
+//   * knn_pruned_kernel: a CUDA block is a tile of 32 curve-consecutive
+//     queries, kPruneLanes (8) lanes per query, each lane keeping the top K of
+//     its share of the keys (key c of a block goes to lane c mod
+//     kPruneLanes), merged by shuffles at the end. The block computes the
+//     gap^2 between its box and every key block's box and ranks the blocks
+//     by (gap^2, curve distance from the seed block, index); the seed block
+//     holds the first key whose code is at least the tile's middle query
+//     code (a binary search of the sorted key codes). Blocks are visited in
+//     that order while gap^2 <= bound + slack, where bound is the tile's
+//     worst K-th distance, min over a query's lanes (each lane's K-th is an
+//     upper bound of the query's) plus |q|^2, max over the tile. One barrier
+//     per visited block: the next block's keys are fetched into registers
+//     while the current one is processed, and the bound read after the
+//     barrier is the one after the previous block (a block chosen with an
+//     older bound is tested again before it is processed). The list being
+//     sorted by gap^2, the first block that fails ends the search;
+//   * the rows land in their original query order (no unsort pass).
+// Since ties compare on the ORIGINAL key index and every lane inserts
+// exactly, the pruned result equals the brute-force one bit for bit,
+// whatever order the blocks come in.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -43,8 +72,15 @@ namespace {
 
 constexpr int kBruteThreads = 128;
 constexpr int kBruteKeyTile = 512;
-constexpr int kPruneTile = 64;     // queries per CUDA block (one per thread).
-constexpr int kPruneBlockK = 256;  // keys per bbox block.
+// Tile and lanes measured on an H100 against 64 x 4 and 128 x 2: 32 x 8 ran
+// the sampler's search (3 x 6996 x 28672, K 1) in 0.30 ms against 0.36 and
+// 0.45, the 57344-point self search (K 16) in 0.68 against 0.58 and 0.63.
+constexpr int kPruneTile = 32;     // queries per CUDA block
+constexpr int kPruneLanes = 8;     // lanes per query
+constexpr int kPruneThreads = kPruneTile * kPruneLanes;
+constexpr int kPruneBlockK = 256;  // keys per bbox block
+static_assert(kPruneThreads == kPruneBlockK, "a block's keys load one per thread");
+constexpr int kPrepThreads = 1024;  // knn_bbox_kernel
 
 __device__ __forceinline__ bool better(float d, int i, float D, int I) {
   return d < D || (d == D && i < I);
@@ -121,43 +157,240 @@ __global__ void knn_brute_kernel(const float* __restrict__ q,
   }
 }
 
-__device__ float block_max(float v, float* red) {
+// Block-wide min (MIN) or max of v over the block's warps; red holds one
+// float per warp. Every thread gets the result.
+template <bool MIN>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = MIN ? fminf(v, o) : fmaxf(v, o);
+  }
   __syncthreads();
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float m = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = MIN ? fminf(m, red[w]) : fmaxf(m, red[w]);
   return m;
 }
 
+// The keys' box (lo xyz, hi xyz) per example: one block per example.
+__global__ void __launch_bounds__(kPrepThreads)
+    knn_bbox_kernel(const float* __restrict__ keys, float* __restrict__ lohi, int M) {
+  __shared__ float red[kPrepThreads / 32];
+  const int b = blockIdx.x;
+  const float* kb = keys + (size_t)b * M * 3;
+  float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
+  float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+  for (int i = threadIdx.x; i < M; i += blockDim.x)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], kb[(size_t)i * 3 + a]);
+      hi[a] = fmaxf(hi[a], kb[(size_t)i * 3 + a]);
+    }
+  for (int a = 0; a < 3; ++a) {
+    const float l = block_reduce<true>(lo[a], red);
+    const float h = block_reduce<false>(hi[a], red);
+    if (threadIdx.x == 0) {
+      lohi[b * 6 + a] = l;
+      lohi[b * 6 + 3 + a] = h;
+    }
+  }
+}
+
+__device__ __forceinline__ int part1by2(int x) {
+  x &= 0x3ff;
+  x = (x | (x << 16)) & 0x030000ff;
+  x = (x | (x << 8)) & 0x0300f00f;
+  x = (x | (x << 4)) & 0x030c30c3;
+  x = (x | (x << 2)) & 0x09249249;
+  return x;
+}
+
+// The 30-bit Hilbert code of a point within the box lh (Skilling's transpose
+// form): the integers of ops/knn.py hilbert_codes, its quantisation rounded
+// step by step as there.
+__device__ int hilbert_code(const float* p, const float* lh) {
+  const float top = 1023.0f;
+  int X[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float scale = fmaxf(__fsub_rn(lh[3 + a], lh[a]), 1e-9f);
+    float v = __fmul_rn(__fdiv_rn(__fsub_rn(p[a], lh[a]), scale), top);
+    v = fminf(fmaxf(v, 0.0f), top);
+    X[a] = (int)v;
+  }
+  for (int Q = 512; Q > 1; Q >>= 1) {
+    const int P = Q - 1;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const bool hit = (X[i] & Q) != 0;
+      const int t = (X[0] ^ X[i]) & P;
+      const int x0 = hit ? X[0] ^ P : X[0] ^ t;
+      if (i != 0 && !hit) X[i] ^= t;
+      X[0] = x0;
+    }
+  }
+  X[1] ^= X[0];
+  X[2] ^= X[1];
+  int t = 0;
+  for (int Q = 512; Q > 1; Q >>= 1)
+    if (X[2] & Q) t ^= Q - 1;
+  return part1by2(X[2] ^ t) | (part1by2(X[1] ^ t) << 1) | (part1by2(X[0] ^ t) << 2);
+}
+
+// Codes of the keys (B, M) and, unless nq is null, the queries (B, N).
+__global__ void knn_codes_kernel(const float* __restrict__ keys, const float* __restrict__ q,
+                                 const float* __restrict__ lohi, int* __restrict__ ck,
+                                 int* __restrict__ cq, int B, int N, int M) {
+  const long long nk = (long long)B * M, total = nk + (q != nullptr ? (long long)B * N : 0);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    if (i < nk) {
+      ck[i] = hilbert_code(keys + i * 3, lohi + (i / M) * 6);
+    } else {
+      const long long j = i - nk;
+      cq[j] = hilbert_code(q + j * 3, lohi + (j / N) * 6);
+    }
+  }
+}
+
+struct ArrangeArgs {
+  const float* keys;     // (B, M, 3)
+  const float* kn;       // (B, M) |k|^2, +inf masked
+  const float* q;        // (B, N, 3)
+  const long long* pk;   // (B, M) keys in curve order (stable sort of the codes)
+  const long long* pq;   // (B, N) queries in curve order
+  float4* keys4;         // (B, Mpad) rows (x, y, z, |k|^2)
+  int* korig;            // (B, Mpad) original key index, 0 at padding
+  float4* q4;            // (B, Npad) rows (x, y, z, |q|^2)
+  int* qorig;            // (B, Npad) original query row, -1 at padding
+  float* kbox;           // (B, nb, 6)
+  float* tbox;           // (B, nt, 6)
+  unsigned* maxbits;     // (2) bits of the largest finite |k|^2 and |q|^2
+  int N, M, Npad, Mpad;
+};
+
+// One block per key block (x < nb) or query tile: the rows in curve order,
+// the box over the padded rows and the largest finite norm.
+__global__ void __launch_bounds__(kPruneBlockK) knn_arrange_kernel(ArrangeArgs a) {
+  __shared__ float red[kPruneBlockK / 32];
+  const int b = blockIdx.y, x = blockIdx.x, c = threadIdx.x;
+  const int nb = a.Mpad / kPruneBlockK;
+  const bool key = x < nb;
+  const int n = key ? a.M : a.N, size = key ? kPruneBlockK : kPruneTile;
+  const int row = (key ? x : x - nb) * size + c;
+  const bool live = c < size;
+  float v[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F}, w = 0.f;
+  if (live) {
+    const long long src = (key ? a.pk : a.pq)[(size_t)b * n + min(row, n - 1)];
+    const float* pt = (key ? a.keys : a.q) + ((size_t)b * n + src) * 3;
+    v[0] = pt[0];
+    v[1] = pt[1];
+    v[2] = pt[2];
+    if (key) {
+      w = row < n ? a.kn[(size_t)b * n + src] : CUDART_INF_F;
+      a.keys4[(size_t)b * a.Mpad + row] = make_float4(v[0], v[1], v[2], w);
+      a.korig[(size_t)b * a.Mpad + row] = row < n ? (int)src : 0;
+    } else {
+      w = __fadd_rn(__fadd_rn(__fmul_rn(v[0], v[0]), __fmul_rn(v[1], v[1])),
+                    __fmul_rn(v[2], v[2]));
+      a.q4[(size_t)b * a.Npad + row] = make_float4(v[0], v[1], v[2], w);
+      a.qorig[(size_t)b * a.Npad + row] = row < n ? (int)src : -1;
+    }
+  }
+  float* box = key ? a.kbox + ((size_t)b * nb + x) * 6
+                   : a.tbox + ((size_t)b * (a.Npad / kPruneTile) + x - nb) * 6;
+  for (int d = 0; d < 3; ++d) {
+    const float lo = block_reduce<true>(v[d], red);
+    const float hi = block_reduce<false>(live ? v[d] : -CUDART_INF_F, red);
+    if (c == 0) {
+      box[d] = lo;
+      box[3 + d] = hi;
+    }
+  }
+  const float m = block_reduce<false>(live && isfinite(w) ? w : 0.f, red);
+  if (c == 0) atomicMax(a.maxbits + (key ? 0 : 1), __float_as_uint(m));  // m >= 0
+}
+
+struct PrunedArgs {
+  const float4* q4;        // (B, Npad)
+  const int* qorig;        // (B, Npad)
+  const int* qcode;        // (B, N) sorted query codes
+  const float4* keys4;     // (B, Mpad)
+  const int* korig;        // (B, Mpad)
+  const int* kcode;        // (B, M) sorted key codes
+  const float* kbox;       // (B, nb, 6)
+  const float* tbox;       // (B, nt, 6)
+  const unsigned* maxbits;  // (2)
+  float* out_d;            // (B, N, K) in the original query order
+  int* out_i;
+  int* visited;            // null, or (1): key blocks processed, summed over the tiles
+  int N, M, Npad, Mpad, K;  // K: the neighbours written, at most the kernel's
+};
+
+// Shared floats of knn_pruned_kernel beyond its static arrays: the key
+// blocks' gap^2, the visiting order and its gaps.
+size_t pruned_smem_bytes(int Mpad) { return (size_t)3 * (Mpad / kPruneBlockK) * 4; }
+
 template <int K>
-__global__ void knn_pruned_kernel(const float* __restrict__ q,
-                                  const float* __restrict__ qn,
-                                  const float4* __restrict__ keys,
-                                  const int* __restrict__ korig,
-                                  const float* __restrict__ kbox,
-                                  const float* __restrict__ tbox,
-                                  float* __restrict__ out_d,
-                                  int* __restrict__ out_i, int Npad, int Mpad,
-                                  const float* __restrict__ slack_p) {
-  __shared__ float4 blk[kPruneBlockK];
-  __shared__ int blk_i[kPruneBlockK];
-  __shared__ float red[kPruneTile / 32];
-  const int b = blockIdx.y;
-  const int t = blockIdx.x;
-  const int nt = gridDim.x;
-  const int nb = Mpad / kPruneBlockK;
-  const int n = t * kPruneTile + threadIdx.x;  // Npad is a tile multiple.
-  const size_t row = (size_t)b * Npad + n;
-  const float qx = q[row * 3], qy = q[row * 3 + 1], qz = q[row * 3 + 2];
-  const float qnv = qn[row];
-  const float* tb = tbox + ((size_t)b * nt + t) * 6;
+__global__ void __launch_bounds__(kPruneThreads) knn_pruned_kernel(PrunedArgs p) {
+  extern __shared__ float smk[];
+  __shared__ float4 blk[2][kPruneBlockK];
+  __shared__ int blk_i[2][kPruneBlockK];
+  __shared__ float red[2][kPruneThreads / 32];
+  __shared__ int s_seed;
+  constexpr int G = kPruneLanes;
+  const int b = blockIdx.y, t = blockIdx.x, nt = gridDim.x;
+  const int nb = p.Mpad / kPruneBlockK;
+  float* gap = smk;                                  // [nb] by block index
+  float* gs = smk + nb;                              // [nb] in visiting order
+  int* order = reinterpret_cast<int*>(smk + 2 * nb);  // [nb] block indices
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = tid % G;
+  const size_t row = (size_t)b * p.Npad + t * kPruneTile + tid / G;
+  const float4 qv = p.q4[row];
+  const float* tb = p.tbox + ((size_t)b * nt + t) * 6;
   const float tlo0 = tb[0], tlo1 = tb[1], tlo2 = tb[2];
   const float thi0 = tb[3], thi1 = tb[4], thi2 = tb[5];
-  const float slack = *slack_p;
+  const float slack =
+      1e-5f * (__uint_as_float(p.maxbits[0]) + __uint_as_float(p.maxbits[1]));
+
+  if (tid == 0) {  // the seed: the block of the first key code >= the tile's middle query code
+    const int code = p.qcode[(size_t)b * p.N + min(t * kPruneTile + kPruneTile / 2, p.N - 1)];
+    const int* kc = p.kcode + (size_t)b * p.M;
+    int lo = 0, hi = p.M;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (kc[mid] < code)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    s_seed = min(lo / kPruneBlockK, nb - 1);
+  }
+  const float* bb = p.kbox + (size_t)b * nb * 6;
+  for (int j = tid; j < nb; j += kPruneThreads) {
+    const float* bx = bb + (size_t)j * 6;
+    const float g0 = fmaxf(fmaxf(bx[0] - thi0, tlo0 - bx[3]), 0.f);
+    const float g1 = fmaxf(fmaxf(bx[1] - thi1, tlo1 - bx[4]), 0.f);
+    const float g2 = fmaxf(fmaxf(bx[2] - thi2, tlo2 - bx[5]), 0.f);
+    gap[j] = g0 * g0 + g1 * g1 + g2 * g2;
+  }
+  __syncthreads();
+  const int seed = s_seed;
+  for (int j = tid; j < nb; j += kPruneThreads) {  // rank by (gap^2, |j - seed|, j)
+    const float gj = gap[j];
+    const int dj = abs(j - seed);
+    int rank = 0;
+    for (int i = 0; i < nb; ++i) {
+      const float gi = gap[i];
+      const int di = abs(i - seed);
+      rank += gi < gj || (gi == gj && (di < dj || (di == dj && i < j)));
+    }
+    order[rank] = j;
+    gs[rank] = gj;
+  }
+  __syncthreads();
 
   float ad[K];
   int ai[K];
@@ -166,41 +399,77 @@ __global__ void knn_pruned_kernel(const float* __restrict__ q,
     ad[s] = CUDART_INF_F;
     ai[s] = 0;
   }
-  const float4* kb = keys + (size_t)b * Mpad;
-  const int* ko = korig + (size_t)b * Mpad;
-
-  // Block order: the tile's seed block first, then every other block in
-  // curve order that passes the bbox test. The test reads only block-uniform
-  // values, so every thread takes the same branch around the barriers.
-  const int seed = (int)(((long long)t * nb) / max(nt, 1));
-  const float* bb = kbox + (size_t)b * nb * 6;
+  const float4* kb = p.keys4 + (size_t)b * p.Mpad;
+  const int* ko = p.korig + (size_t)b * p.Mpad;
+  int cur = order[0], pos = 1;
+  blk[0][tid] = kb[(size_t)cur * kPruneBlockK + tid];
+  blk_i[0][tid] = ko[(size_t)cur * kPruneBlockK + tid];
   float bound = CUDART_INF_F;
-  for (int it = 0; it <= nb; ++it) {
-    const int j = it == 0 ? seed : it - 1;
+  int visited = 0;
+  for (int it = 0;; ++it) {
+    __syncthreads();  // block cur is in blk[buf]; the warps' bounds of it - 1 are in red.
+    const int buf = it & 1;
     if (it > 0) {
-      if (j == seed) continue;
-      const float* bx = bb + (size_t)j * 6;
-      const float g0 = fmaxf(fmaxf(bx[0] - thi0, tlo0 - bx[3]), 0.f);
-      const float g1 = fmaxf(fmaxf(bx[1] - thi1, tlo1 - bx[4]), 0.f);
-      const float g2 = fmaxf(fmaxf(bx[2] - thi2, tlo2 - bx[5]), 0.f);
-      if (g0 * g0 + g1 * g1 + g2 * g2 > bound + slack) continue;
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < kPruneBlockK; c += blockDim.x) {
-      blk[c] = kb[(size_t)j * kPruneBlockK + c];
-      blk_i[c] = ko[(size_t)j * kPruneBlockK + c];
-    }
-    __syncthreads();
-    for (int c = 0; c < kPruneBlockK; ++c)
-      insert<K>(ad, ai, rank_value(qx, qy, qz, blk[c]), blk_i[c]);
-    bound = block_max(__fadd_rn(ad[K - 1], qnv), red);
-  }
-  float* od = out_d + row * K;
-  int* oi = out_i + row * K;
+      bound = red[buf ^ 1][0];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    od[s] = ad[s];
-    oi[s] = ai[s];
+      for (int w = 1; w < kPruneThreads / 32; ++w) bound = fmaxf(bound, red[buf ^ 1][w]);
+    }
+    const bool proc = it == 0 || gap[cur] <= bound + slack;
+    const int nxt = pos < nb && gs[pos] <= bound + slack ? order[pos] : -1;
+    pos += nxt >= 0;
+    float4 nk = make_float4(0.f, 0.f, 0.f, 0.f);
+    int ni = 0;
+    if (nxt >= 0) {
+      nk = kb[(size_t)nxt * kPruneBlockK + tid];
+      ni = ko[(size_t)nxt * kPruneBlockK + tid];
+    }
+    visited += proc;
+    if (proc) {
+#pragma unroll 2
+      for (int c = g; c < kPruneBlockK; c += G)
+        insert<K>(ad, ai, rank_value(qv.x, qv.y, qv.z, blk[buf][c]), blk_i[buf][c]);
+    }
+    if (nxt >= 0) {
+      blk[buf ^ 1][tid] = nk;
+      blk_i[buf ^ 1][tid] = ni;
+    }
+    float v = ad[K - 1];
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = __fadd_rn(v, qv.w);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (lane == 0) red[buf][warp] = v;
+    if (nxt < 0) break;
+    cur = nxt;
+  }
+  // Merge the query's G lists: every lane ends with the top K of their
+  // union. Rolled loops over the partner's entries (held in local memory):
+  // unrolled, K x K inserts per round multiplied the build time.
+#pragma unroll 1
+  for (int off = 1; off < G; off <<= 1) {
+    float od[K];
+    int oi[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      od[s] = __shfl_xor_sync(0xffffffffu, ad[s], off);
+      oi[s] = __shfl_xor_sync(0xffffffffu, ai[s], off);
+    }
+#pragma unroll 1
+    for (int s = 0; s < K; ++s) insert<K>(ad, ai, od[s], oi[s]);
+  }
+  if (p.visited != nullptr && tid == 0) atomicAdd(p.visited, visited);
+  const int orig = p.qorig[row];
+  if (g == 0 && orig >= 0) {  // the first p.K of the K kept (K >= p.K).
+    float* od = p.out_d + ((size_t)b * p.N + orig) * p.K;
+    int* oi = p.out_i + ((size_t)b * p.N + orig) * p.K;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (s < p.K) {
+        od[s] = ad[s];
+        oi[s] = ai[s];
+      }
+    }
   }
 }
 
@@ -384,36 +653,133 @@ extern "C" int o4d_knn_brute(const void* q, const void* keys, void* out_d,
   return (int)cudaGetLastError();
 }
 
-// q (B, Npad, 3) Hilbert-sorted, Npad a multiple of the tile; qn (B, Npad);
-// keys (B, Mpad, 4) sorted, Mpad a multiple of the block; korig (B, Mpad)
-// original key index of each sorted row; kbox (B, Mpad/block, 6) and
-// tbox (B, Npad/tile, 6) rows (lo xyz, hi xyz); slack (1,) f32 on the device
-// (the bbox test's rounding slack, read there so the host never waits for
-// it); out_d/out_i (B, Npad, K) with ORIGINAL key indices.
-extern "C" int o4d_knn_pruned(const void* q, const void* qn, const void* keys,
-                              const void* korig, const void* kbox,
-                              const void* tbox, void* out_d, void* out_i,
-                              int B, int Npad, int Mpad, int K,
-                              const void* slack, void* stream) {
-  if (Npad <= 0 || B <= 0) return 0;
-  if (Npad % kPruneTile || Mpad % kPruneBlockK || Mpad <= 0)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(Npad / kPruneTile, B);
+// The pruned search's first launches: the keys' box per example and the
+// Hilbert codes. keys (B, M, 3), q (B, N, 3) or null (a self search: the
+// queries are the keys); lohi (B, 6) scratch; ck (B, M), cq (B, N) int32.
+extern "C" int o4d_knn_prune_codes(const void* keys, const void* q, void* lohi, void* ck,
+                                   void* cq, int B, int N, int M, void* stream) {
+  if (B <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (K) {
-#define O4D_PRUNED(KK)                                                     \
-  case KK:                                                                 \
-    knn_pruned_kernel<KK><<<grid, kPruneTile, 0, s>>>(                     \
-        (const float*)q, (const float*)qn, (const float4*)keys,            \
-        (const int*)korig, (const float*)kbox, (const float*)tbox,         \
-        (float*)out_d, (int*)out_i, Npad, Mpad, (const float*)slack);      \
-    break;
-    O4D_K_CASES(O4D_PRUNED)
-#undef O4D_PRUNED
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  knn_bbox_kernel<<<B, kPrepThreads, 0, s>>>((const float*)keys, (float*)lohi, M);
+  const long long total = (long long)B * M + (q != nullptr ? (long long)B * N : 0);
+  const int blocks = (int)((total + 255) / 256 < 132 * 16 ? (total + 255) / 256 : 132 * 16);
+  knn_codes_kernel<<<blocks, 256, 0, s>>>((const float*)keys, (const float*)q,
+                                          (const float*)lohi, (int*)ck, (int*)cq, B, N, M);
   return (int)cudaGetLastError();
+}
+
+// Bytes of the pruned search's workspace for B examples, N queries, M keys.
+extern "C" long long o4d_knn_pruned_ws_bytes(int B, int N, int M) {
+  const long long Npad = (long long)(N + kPruneTile - 1) / kPruneTile * kPruneTile;
+  const long long Mpad = (long long)(M + kPruneBlockK - 1) / kPruneBlockK * kPruneBlockK;
+  return 16 + B * (Mpad * 20 + Npad * 20 + (Mpad / kPruneBlockK + Npad / kPruneTile) * 24);
+}
+
+// The widest key set the kernel's block ordering holds in shared memory.
+extern "C" int o4d_knn_pruned_max_keys() {
+  return (int)((232448 - 20 * 1024) / 12) * kPruneBlockK;
+}
+
+// The workspace's parts: maxbits, keys4, q4, korig, qorig, kbox, tbox.
+static ArrangeArgs carve_pruned(void* ws, int B, int N, int M) {
+  ArrangeArgs a = {};
+  a.N = N;
+  a.M = M;
+  a.Npad = (N + kPruneTile - 1) / kPruneTile * kPruneTile;
+  a.Mpad = (M + kPruneBlockK - 1) / kPruneBlockK * kPruneBlockK;
+  char* w = (char*)ws;
+  a.maxbits = (unsigned*)w;
+  w += 16;
+  a.keys4 = (float4*)w;
+  w += (size_t)B * a.Mpad * 16;
+  a.q4 = (float4*)w;
+  w += (size_t)B * a.Npad * 16;
+  a.korig = (int*)w;
+  w += (size_t)B * a.Mpad * 4;
+  a.qorig = (int*)w;
+  w += (size_t)B * a.Npad * 4;
+  a.kbox = (float*)w;
+  w += (size_t)B * (a.Mpad / kPruneBlockK) * 24;
+  a.tbox = (float*)w;
+  return a;
+}
+
+// The pruned search's arrangement, after the codes were sorted (stably):
+// keys (B, M, 3), kn (B, M) (|k|^2, +inf masked), q (B, N, 3) (the keys for a
+// self search), pk / pq (B, M) / (B, N) int64 sort permutations; ws
+// o4d_knn_pruned_ws_bytes bytes, filled here.
+extern "C" int o4d_knn_pruned_arrange(const void* keys, const void* kn, const void* q,
+                                      const void* pk, const void* pq, void* ws, int B, int N,
+                                      int M, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (M <= 0 || M > o4d_knn_pruned_max_keys()) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  ArrangeArgs a = carve_pruned(ws, B, N, M);
+  a.keys = (const float*)keys;
+  a.kn = (const float*)kn;
+  a.q = (const float*)q;
+  a.pk = (const long long*)pk;
+  a.pq = (const long long*)pq;
+  const cudaError_t e = cudaMemsetAsync(a.maxbits, 0, 8, s);
+  if (e != cudaSuccess) return (int)e;
+  knn_arrange_kernel<<<dim3(a.Mpad / kPruneBlockK + a.Npad / kPruneTile, B), kPruneBlockK, 0,
+                       s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The search over o4d_knn_pruned_arrange's workspace: sk / sq the sorted
+// int32 codes of keys and queries; out_d / out_i (B, N, K) ranking values
+// and ORIGINAL key indices, in query order; visited null or one int32 the
+// (query tile, key block) pairs processed are added to.
+extern "C" int o4d_knn_pruned(const void* sk, const void* sq, const void* ws, void* out_d,
+                              void* out_i, void* visited, int B, int N, int M, int K,
+                              void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (M <= 0 || K < 1 || K > 32 || M > o4d_knn_pruned_max_keys())
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const ArrangeArgs a = carve_pruned(const_cast<void*>(ws), B, N, M);
+  PrunedArgs p;
+  p.q4 = a.q4;
+  p.qorig = a.qorig;
+  p.qcode = (const int*)sq;
+  p.keys4 = a.keys4;
+  p.korig = a.korig;
+  p.kcode = (const int*)sk;
+  p.kbox = a.kbox;
+  p.tbox = a.tbox;
+  p.maxbits = a.maxbits;
+  p.out_d = (float*)out_d;
+  p.out_i = (int*)out_i;
+  p.visited = (int*)visited;
+  p.N = N;
+  p.M = M;
+  p.Npad = a.Npad;
+  p.Mpad = a.Mpad;
+  p.K = K;
+  const size_t smem = pruned_smem_bytes(a.Mpad);
+  dim3 grid(a.Npad / kPruneTile, B);
+  // The kernel keeps the next instantiated K at or above the one asked for
+  // and writes the first K: the order is total, so that is the top K (its
+  // bound, the larger K-th distance, still holds). Fewer instantiations
+  // keep the build short.
+  auto launch = [&](auto kern) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kern<<<grid, kPruneThreads, smem, s>>>(p);
+    return (int)cudaGetLastError();
+  };
+  if (K <= 1) return launch(knn_pruned_kernel<1>);
+  if (K <= 2) return launch(knn_pruned_kernel<2>);
+  if (K <= 4) return launch(knn_pruned_kernel<4>);
+  if (K <= 8) return launch(knn_pruned_kernel<8>);
+  if (K <= 12) return launch(knn_pruned_kernel<12>);
+  if (K <= 16) return launch(knn_pruned_kernel<16>);
+  if (K <= 24) return launch(knn_pruned_kernel<24>);
+  return launch(knn_pruned_kernel<32>);
 }
 
 // a (B, N, 4) f32 rows (x, y, z, |a|^2 or +inf); b (B, M, 4) likewise;

@@ -678,24 +678,25 @@ def use_premul(M, dim, feat):
     return M_pad * (2 * dim - feat) < 4 * feat * dim
 
 
-def _kernel(params, name):
-    return params[name]['kernel'].to(torch.float32)
+def _kernel(params, name, dtype=torch.float32):
+    return params[name]['kernel'].to(dtype)
 
 
 def _attn_rows(q_pos, q_proj, kpos, rows, params, premul):
     '''The attention over each query's neighbour rows: kpos (B, N, k, 3),
-    rows (B, N, k, 2D) projected [k | v] in premul mode, else (B, N, k, E).'''
-    D = q_proj.shape[-1]
+    rows (B, N, k, 2D) projected [k | v] in premul mode, else (B, N, k, E).
+    Computes in q_proj's dtype (float64 serves as a reference).'''
+    D, dt = q_proj.shape[-1], q_proj.dtype
     rel = q_pos[:, :, None, :] - kpos
-    pe = torch.relu(rel @ _kernel(params, 'pos_mlp_0') + params['pos_mlp_0']['bias'])
-    pe = pe @ _kernel(params, 'pos_mlp_2') + params['pos_mlp_2']['bias']
+    pe = torch.relu(rel @ _kernel(params, 'pos_mlp_0', dt) + params['pos_mlp_0']['bias'])
+    pe = pe @ _kernel(params, 'pos_mlp_2', dt) + params['pos_mlp_2']['bias']
     if premul:
         kg, vg = rows[..., :D], rows[..., D:]
     else:
-        kg, vg = rows @ _kernel(params, 'to_k'), rows @ _kernel(params, 'to_v')
+        kg, vg = rows @ _kernel(params, 'to_k', dt), rows @ _kernel(params, 'to_v', dt)
     a = (q_proj[:, :, None, :] - kg) + pe
-    h = torch.relu(a @ _kernel(params, 'attn_mlp_0') + params['attn_mlp_0']['bias'])
-    lg = (h @ _kernel(params, 'attn_mlp_2') + params['attn_mlp_2']['bias'])
+    h = torch.relu(a @ _kernel(params, 'attn_mlp_0', dt) + params['attn_mlp_0']['bias'])
+    lg = (h @ _kernel(params, 'attn_mlp_2', dt) + params['attn_mlp_2']['bias'])
     lg = lg * (1.0 / math.sqrt(D))
     attn = torch.softmax(lg, dim=2)
     return (attn * (vg + pe)).sum(2)
@@ -931,7 +932,8 @@ def _fwd_plan(lib, what, device, N, D, E, H, P, k, premul):
     per chunk (csrc/attn.cu o4d_attn_plan), the chunk's per-row operands
     within _FWD_BUDGET bytes; the workspace also holds the weights in
     fragment order. Raises NotImplementedError for widths the tile does not
-    take.'''
+    take: max(D, E) above o4d_attn_max_width() (560, where the tile's rows
+    fill the block's shared memory; D above 416 runs in column blocks).'''
     width = lib.o4d_attn_max_width()
     smem = lib.o4d_attn_smem_bytes(D, E, P)
     if max(D, E) > width or smem > _SMEM_LIMIT:

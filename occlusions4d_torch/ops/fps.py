@@ -7,9 +7,11 @@ each later pick is the first index attaining the max of the running minimum
 squared distance to the picks so far, invalid points never winning while a
 valid one remains. Indices are returned sorted ascending (mirroring
 `torch.sort(inds)` of the reference's DownTransition) unless sort_result is
-False. A CUDA tensor launches csrc/fps.cu (one block per example up to
-o4d_fps_max_points() points, one thread-block cluster per example above it,
-up to o4d_fps_cluster_max_points()); a CPU tensor runs the plain loop.
+False. A CUDA tensor launches csrc/fps.cu o4d_fps: one thread-block cluster
+of 1 to 8 blocks per example, by the speed rule o4d_fps_plan measured on the
+H100 (counted as 'fps' with one block, 'fps_cluster' with more); any N that
+fits in device memory. A CPU tensor runs the plain loop. packed_argmax_plain
+models the kernel's reduction key.
 '''
 
 import ctypes
@@ -18,7 +20,8 @@ import torch
 
 from . import _build
 
-__all__ = ['fps_batched', 'fps_plain', 'random_start_indices', 'LAUNCHES']
+__all__ = ['fps_batched', 'fps_plain', 'fps_plan', 'packed_argmax_plain',
+           'random_start_indices', 'LAUNCHES']
 
 LAUNCHES = {'fps': 0, 'fps_cluster': 0}
 
@@ -44,33 +47,64 @@ def fps_plain(xyz, n_out, valid, start_idx):
     return sel
 
 
-def _fps_cuda(xyz, n_out, valid, start_idx):
-    B, N, _ = xyz.shape
+def packed_argmax_plain(scores, index=None):
+    '''The FPS kernel's argmax in plain PyTorch: per row, the largest
+    order-preserving 32-bit key of the score (csrc/fps.cu float_key: -inf
+    lowest, -0 below +0, denormals in place), and among equal keys the
+    largest complement of the index, i.e. the lowest index attaining the
+    max. :param scores (..., N) f32; index (..., N) int64 the candidates'
+    point indices (default their positions). :return (...,) int64 the
+    winner's index.'''
+    if index is None:
+        index = torch.arange(scores.shape[-1], device=scores.device).expand(scores.shape)
+    u = scores.contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
+    key = torch.where(u >= 2 ** 31, 0xffffffff - u, u | 2 ** 31)
+    top = key.amax(-1, keepdim=True)
+    nidx = 0xffffffff - index
+    return 0xffffffff - torch.where(key == top, nidx, torch.zeros_like(nidx)).amax(-1)
+
+
+def _fps_lib():
     lib = _build.library('fps')
-    for f in (lib.o4d_fps_max_points, lib.o4d_fps_cluster_max_points):
-        f.argtypes, f.restype = [], ctypes.c_int
-    cluster = N > lib.o4d_fps_max_points()
-    if N > lib.o4d_fps_cluster_max_points():
-        raise NotImplementedError(
-            f'FPS kernels hold at most {lib.o4d_fps_cluster_max_points()} points '
-            f'per example (one thread-block cluster); got N={N}')
-    penalty = torch.where(valid, torch.zeros_like(xyz[..., 0]),
-                          torch.full_like(xyz[..., 0], float('-inf'))).contiguous()
+    lib.o4d_fps_plan.restype = None
+    lib.o4d_fps_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.o4d_fps_ws_floats.restype = ctypes.c_longlong
+    lib.o4d_fps_ws_floats.argtypes = [ctypes.c_int] * 3
+    lib.o4d_fps.restype = ctypes.c_int
+    lib.o4d_fps.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
+def fps_plan(B, N):
+    '''(cluster size, threads per block) of the kernel launch for B
+    examples of N points: csrc/fps.cu o4d_fps_plan.'''
+    c, t = ctypes.c_int(), ctypes.c_int()
+    _fps_lib().o4d_fps_plan(B, N, ctypes.byref(c), ctypes.byref(t))
+    return c.value, t.value
+
+
+def _fps_cuda(xyz, n_out, valid, start_idx, plan=None):
+    '''The FPS kernel on the card: picks in pick order (B, n_out) int64.
+    plan (cluster size, threads) overrides fps_plan's speed rule (the card
+    tests run every launch shape).'''
+    B, N, _ = xyz.shape
+    lib = _fps_lib()
+    C, T = fps_plan(B, N) if plan is None else plan
+    valid = valid.to(device=xyz.device, dtype=torch.bool).contiguous()
     start = start_idx.to(device=xyz.device, dtype=torch.int32).contiguous()
     if not (xyz.is_cuda and xyz.dtype == torch.float32 and xyz.is_contiguous()):
         raise ValueError('fps: xyz must be a contiguous CUDA float32 tensor')
-    if tuple(start.shape) != (B,) or tuple(penalty.shape) != (B, N):
+    if tuple(start.shape) != (B,) or tuple(valid.shape) != (B, N):
         raise ValueError(f'fps: bad start/valid shapes {tuple(start.shape)}, '
-                         f'{tuple(penalty.shape)} for xyz {tuple(xyz.shape)}')
+                         f'{tuple(valid.shape)} for xyz {tuple(xyz.shape)}')
     out = torch.empty((B, n_out), dtype=torch.int32, device=xyz.device)
-    name = 'fps_cluster' if cluster else 'fps'
-    fn = getattr(lib, f'o4d_{name}')
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ws = torch.empty((max(1, lib.o4d_fps_ws_floats(B, N, T)),), dtype=torch.float32,
+                     device=xyz.device)
+    ptrs = [_build.ptr(t) for t in (xyz, valid, start, out, ws)]
+    name = 'fps_cluster' if C > 1 else 'fps'
     with torch.cuda.device(xyz.device):
-        _build.check(fn(_build.ptr(xyz), _build.ptr(penalty), _build.ptr(start),
-                        _build.ptr(out), B, N, n_out,
-                        _build.stream_ptr(xyz.device)), name)
+        stream = _build.stream_ptr(xyz.device)
+        _build.check(lib.o4d_fps(*ptrs, B, N, n_out, C, T, stream), name)
     LAUNCHES[name] += 1
     return out.long()
 

@@ -16,11 +16,11 @@ purpose: the direct differences (dx dx + dy dy) + dz dz of the JAX engine's
 host op nn1_host, lowest index on ties, which keep the low bits of the
 distance at CARLA's coordinate scale (see nn1_direct_plain).
 
-Dispatch: a CUDA tensor always launches a kernel (brute force, or the pruned
-entry when N * M >= PRUNED_MIN_ELEMS, the JAX package's TPU crossover kept
-until it is re-measured on the H100); a CPU tensor runs the plain version.
-The pruned entry returns exactly the brute-force result (ties compare on the
-original key index), so its plain version is the brute-force one.
+Dispatch: a CUDA tensor always launches a kernel, the brute-force one or the
+pruned entry by use_pruned (the H100's crossover); a CPU tensor runs the
+plain version. The pruned entry returns exactly the brute-force result (ties
+compare on the original key index), so its plain version is the brute-force
+one and the switch changes nothing but time.
 '''
 
 import ctypes
@@ -32,10 +32,24 @@ from . import _build
 __all__ = ['knn', 'knn_pruned', 'knn_rank', 'knn_rank_plain', 'pairwise_sqdist',
            'gather_neighbors', 'hilbert_codes', 'sq_norm', 'nn1_min_dist',
            'nn1_bidirectional', 'nn1_bidir_rank', 'nn1_bidir_plain', 'nn1_direct',
-           'nn1_direct_plain', 'LAUNCHES', 'PRUNED_MIN_ELEMS']
+           'nn1_direct_plain', 'use_pruned', 'pruned_prepare_cuda', 'LAUNCHES',
+           'PRUNED_MIN_ELEMS', 'PRUNED_MIN_KEYS', 'PRUNED_MAX_KEYS']
 
 LAUNCHES = {'knn_brute': 0, 'knn_pruned': 0, 'nn1_bidir': 0, 'nn1_direct': 0}
-PRUNED_MIN_ELEMS = 2 ** 27
+# The brute/pruned crossover on an NVIDIA H100 80GB HBM3 at 700 W (the sweep
+# in PERF.md; chip_smoke.py prints it as its knn_crossover line): the brute
+# kernel's time grows with N * M * K, the pruned entry costs about 0.1 ms of
+# preparation and launches plus a search that pays only once the keys span
+# enough 256-key blocks to skip some (K 1: brute up to 3000^2, pruned from
+# 4779^2; K 16: pruned from 1024^2; 3 x 531 x 1593 at K 12: brute 0.18 ms,
+# pruned 0.22; 531^2: brute).
+PRUNED_MIN_ELEMS = 2 ** 24   # N * M * K
+PRUNED_MIN_KEYS = 1024
+# The widest key set the pruned kernel takes: its per-block gap and order
+# arrays (12 B per 256-key block) fill the shared memory left beside 20 KB
+# (csrc/knn.cu o4d_knn_pruned_max_keys, the same formula). Wider searches
+# take the brute kernel, which has no such limit and gives the same bits.
+PRUNED_MAX_KEYS = (232448 - 20 * 1024) // 12 * 256
 _MAX_K = 32
 _PLAIN_CHUNK = 2 ** 25  # distance entries per plain-version slab.
 _FLT_MAX = 3.4028234663852886e38
@@ -177,78 +191,115 @@ def _boxes(pts, size):
 
 
 def pruned_inputs(q, keys, kn, same, tile, block):
-    '''Operands of the pruned kernel: both sets sorted along the keys' Hilbert
-    curve and padded (last row repeated; padded keys get |k|^2 = +inf), the
-    sorted keys' original indices, per-block key and per-tile query boxes, and
-    the bbox test's rounding slack as a (1,) tensor (computed where the
-    points are, so the CUDA path never waits for the host). Device-agnostic, so the CPU tests can hold
-    it against the brute-force search with an emulated kernel.'''
+    '''Plain version of the pruned search's preparation (csrc/knn.cu
+    knn_bbox_kernel, knn_codes_kernel, the sorts and knn_arrange_kernel), the
+    operands of knn_pruned_kernel: both sets in curve order (the keys'
+    Hilbert curve within the keys' box), padded (last row repeated; padded
+    keys get |k|^2 = +inf), as rows (x, y, z, |p|^2); the sorted keys'
+    original indices (0 at padding) and the queries' (-1 at padding); per
+    block key and per tile query boxes; the sorted codes of both sets; and
+    the bbox test's rounding slack, 1e-5 (largest finite |k|^2 + largest
+    |q|^2), as a (1,) tensor.'''
     B, N, _ = q.shape
     M = keys.shape[1]
     lo = keys.amin(1, keepdim=True)
     hi = keys.amax(1, keepdim=True)
-    perm_k = torch.sort(hilbert_codes(keys, lo, hi), dim=-1, stable=True).indices
-    keys_s = torch.gather(keys, 1, perm_k[..., None].expand(B, M, 3))
-    kn_s = torch.gather(kn, 1, perm_k)
+    kcode, perm_k = torch.sort(hilbert_codes(keys, lo, hi), dim=-1, stable=True)
     if same and N == M:
-        perm_q, q_s = perm_k, keys_s
+        qcode, perm_q = kcode, perm_k
     else:
-        perm_q = torch.sort(hilbert_codes(q, lo, hi), dim=-1, stable=True).indices
-        q_s = torch.gather(q, 1, perm_q[..., None].expand(B, N, 3))
+        qcode, perm_q = torch.sort(hilbert_codes(q, lo, hi), dim=-1, stable=True)
     N_pad = -(-N // tile) * tile
     M_pad = -(-M // block) * block
-    q_p = _pad_rows(q_s, N_pad).contiguous()
+    keys_s = torch.gather(keys, 1, perm_k[..., None].expand(B, M, 3))
+    q_s = torch.gather(q, 1, perm_q[..., None].expand(B, N, 3))
     k_p = _pad_rows(keys_s, M_pad)
-    kn_p = torch.cat([kn_s, kn_s.new_full((B, M_pad - M), float('inf'))], 1)
-    korig = torch.cat([perm_k, perm_k.new_zeros((B, M_pad - M))], 1)
-    korig = korig.to(torch.int32).contiguous()
-    keys4 = torch.cat([k_p, kn_p[..., None]], -1).contiguous()
-    qn = sq_norm(q_p).contiguous()
-    kbox, tbox = _boxes(k_p, block), _boxes(q_p, tile)
+    q_p = _pad_rows(q_s, N_pad)
+    kn_p = torch.cat([torch.gather(kn, 1, perm_k),
+                      kn.new_full((B, M_pad - M), float('inf'))], 1)
+    qn = sq_norm(q_p)
+    korig = torch.cat([perm_k, perm_k.new_zeros((B, M_pad - M))], 1).to(torch.int32)
+    qorig = torch.cat([perm_q, perm_q.new_full((B, N_pad - N), -1)], 1).to(torch.int32)
     # Rounding slack of the bbox test: the expanded distance |k|^2 - 2 q.k +
     # |q|^2 carries an absolute error of a few ulps of |k|^2 + |q|^2, so a key
     # block is skipped only when its gap^2 exceeds the bound by far more.
     kn_fin = torch.where(torch.isfinite(kn_p), kn_p, torch.zeros_like(kn_p))
-    slack = (1e-5 * (kn_fin.max() + qn.max())).reshape(1)
-    return dict(q=q_p, qn=qn, keys4=keys4, korig=korig, kbox=kbox, tbox=tbox,
-                slack=slack, perm_q=perm_q)
+    slack = ((kn_fin.max() + qn.max()) * 1e-5).reshape(1)
+    return dict(q4=torch.cat([q_p, qn[..., None]], -1), qorig=qorig,
+                keys4=torch.cat([k_p, kn_p[..., None]], -1), korig=korig,
+                kbox=_boxes(k_p, block), tbox=_boxes(q_p, tile), kcode=kcode,
+                qcode=qcode, slack=slack)
 
 
-def unsort_rows(out, perm_q):
-    '''Rows of the sorted-query result (B, N_pad, k) back to query order.'''
-    B, N = perm_q.shape
-    res = torch.empty((B, N) + out.shape[2:], dtype=out.dtype, device=out.device)
-    res.scatter_(1, perm_q[..., None].expand(B, N, out.shape[2]), out[:, :N])
-    return res
-
-
-def _pruned_cuda(q, keys, kn, k, same):
-    B, N, _ = q.shape
+def _pruned_lib():
     lib = _build.library('knn')
-    for f in (lib.o4d_knn_prune_tile, lib.o4d_knn_prune_block):
+    for f in (lib.o4d_knn_prune_tile, lib.o4d_knn_prune_block, lib.o4d_knn_pruned_max_keys):
         f.argtypes, f.restype = [], ctypes.c_int
-    tile, block = lib.o4d_knn_prune_tile(), lib.o4d_knn_prune_block()
-    ops = pruned_inputs(q, keys, kn, same, tile, block)
-    q_p, qn, keys4, korig = ops['q'], ops['qn'], ops['keys4'], ops['korig']
-    kbox, tbox, slack = ops['kbox'], ops['tbox'], ops['slack']
-    N_pad, M_pad = q_p.shape[1], keys4.shape[1]
-    out_d = torch.empty((B, N_pad, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, N_pad, k), dtype=torch.int32, device=q.device)
-    for name, t in (('q', q_p), ('qn', qn), ('keys4', keys4), ('korig', korig),
-                    ('kbox', kbox), ('tbox', tbox), ('slack', slack)):
-        _check_cuda(name, t, t.shape, torch.int32 if name == 'korig'
-                    else torch.float32)
-    fn = lib.o4d_knn_pruned
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        _build.check(fn(_build.ptr(q_p), _build.ptr(qn), _build.ptr(keys4),
-                        _build.ptr(korig), _build.ptr(kbox), _build.ptr(tbox),
-                        _build.ptr(out_d), _build.ptr(out_i), B, N_pad, M_pad, k,
-                        _build.ptr(slack), _build.stream_ptr(q.device)),
+    lib.o4d_knn_pruned_ws_bytes.argtypes = [ctypes.c_int] * 3
+    lib.o4d_knn_pruned_ws_bytes.restype = ctypes.c_longlong
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.o4d_knn_prune_codes.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    lib.o4d_knn_pruned_arrange.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+    lib.o4d_knn_pruned.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    for f in (lib.o4d_knn_prune_codes, lib.o4d_knn_pruned_arrange, lib.o4d_knn_pruned):
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else _build.ptr(t)
+
+
+def pruned_prepare_cuda(q, keys, kn, same):
+    '''The pruned search's preparation on the card (the kernels'
+    counterpart of pruned_inputs): the keys' box, the Hilbert codes, their
+    stable sorts and the arrangement. :return (workspace, sorted key codes,
+    sorted query codes).'''
+    B, N, _ = q.shape
+    M = keys.shape[1]
+    lib = _pruned_lib()
+    if M > lib.o4d_knn_pruned_max_keys():
+        raise NotImplementedError(f'the pruned kNN kernel takes at most '
+                                  f'{lib.o4d_knn_pruned_max_keys()} keys; got M={M}')
+    self_search = same and N == M
+    _check_cuda('q', q, (B, N, 3), torch.float32)
+    _check_cuda('keys', keys, (B, M, 3), torch.float32)
+    _check_cuda('kn', kn, (B, M), torch.float32)
+    dev = q.device
+    lohi = torch.empty((B, 6), dtype=torch.float32, device=dev)
+    ck = torch.empty((B, M), dtype=torch.int32, device=dev)
+    cq = None if self_search else torch.empty((B, N), dtype=torch.int32, device=dev)
+    qq = keys if self_search else q
+    with torch.cuda.device(dev):
+        stream = _build.stream_ptr(dev)
+        _build.check(lib.o4d_knn_prune_codes(_ptr(keys), _ptr(None if self_search else q),
+                                             _ptr(lohi), _ptr(ck), _ptr(cq), B, N, M, stream),
                      'knn_pruned')
+        sk, pk = torch.sort(ck, dim=-1, stable=True)
+        sq, pq = (sk, pk) if self_search else torch.sort(cq, dim=-1, stable=True)
+        ws = torch.empty((lib.o4d_knn_pruned_ws_bytes(B, N, M),), dtype=torch.uint8,
+                         device=dev)
+        _build.check(lib.o4d_knn_pruned_arrange(_ptr(keys), _ptr(kn), _ptr(qq), _ptr(pk),
+                                                _ptr(pq), _ptr(ws), B, N, M, stream),
+                     'knn_pruned')
+    return ws, sk, sq
+
+
+def _pruned_cuda(q, keys, kn, k, same, visited=None):
+    '''The pruned search on the card: pruned_prepare_cuda, then the pruned
+    kernel. visited: None, or a (1,) int32 CUDA tensor the number of
+    (query tile, key block) pairs processed is added to.'''
+    B, N, _ = q.shape
+    M = keys.shape[1]
+    ws, sk, sq = pruned_prepare_cuda(q, keys, kn, same)
+    out_d = torch.empty((B, N, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, N, k), dtype=torch.int32, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.check(_pruned_lib().o4d_knn_pruned(
+            _ptr(sk), _ptr(sq), _ptr(ws), _ptr(out_d), _ptr(out_i), _ptr(visited), B, N, M, k,
+            _build.stream_ptr(q.device)), 'knn_pruned')
     LAUNCHES['knn_pruned'] += 1
-    return unsort_rows(out_d, ops['perm_q']), unsort_rows(out_i, ops['perm_q'])
+    return out_d, out_i
 
 
 def _prepare(query, keys, key_mask):
@@ -287,19 +338,27 @@ def knn_pruned(query, keys, k, *, key_mask=None, euclidean=True, same=None):
     return _finish(q, d, idx, batch_shape, euclidean)
 
 
+def use_pruned(N, M, k):
+    '''Whether knn sends an (N queries, M keys, k) search to the pruned
+    entry: the H100's crossover (PRUNED_MIN_ELEMS, PRUNED_MIN_KEYS), within
+    the pruned kernel's key limit (PRUNED_MAX_KEYS).'''
+    return (N * M * k >= PRUNED_MIN_ELEMS
+            and PRUNED_MIN_KEYS <= M <= PRUNED_MAX_KEYS)
+
+
 def knn(query, keys, k, *, key_mask=None, euclidean=True, pruned=None):
     '''
     For each query point, the k nearest key points by 3D Euclidean distance.
     :param query (..., N, C>=3); keys (..., M, C>=3): only xyz is used.
     :param key_mask (..., M) bool or None: invalid keys are never returned.
     :param pruned (bool or None): force the pruned entry on/off; None picks
-        it for N * M >= PRUNED_MIN_ELEMS.
+        it by use_pruned.
     :return (dists (..., N, k), idx (..., N, k) int32), ascending.
     '''
     same = query is keys
     N, M = query.shape[-2], keys.shape[-2]
     if pruned is None:
-        pruned = N * M >= PRUNED_MIN_ELEMS
+        pruned = use_pruned(N, M, k)
     if pruned:
         return knn_pruned(query, keys, k, key_mask=key_mask, euclidean=euclidean,
                           same=same)

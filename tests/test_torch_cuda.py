@@ -346,7 +346,9 @@ _ATTN_FWD_EDGE = {'k1_n301': (2, 301, 97, 40, 24, 1, 3, 1),
                   'k14_n1': (2, 1, 60, 40, 24, 14, 16, 1),
                   'k32_n1': (1, 1, 60, 40, 24, 32, 32, 1),
                   'k14_chunks': (2, 301, 97, 40, 24, 14, 14, 5),
-                  'd416_e288': (1, 150, 120, 416, 288, 14, 16, 1)}
+                  'd416_e288': (1, 150, 120, 416, 288, 14, 16, 1),
+                  'd448_e320': (1, 150, 120, 448, 320, 14, 16, 1),
+                  'd544_e288': (1, 150, 120, 544, 288, 14, 16, 1)}
 
 
 @pytest.mark.parametrize('case', sorted(_ATTN_FWD_EDGE))
@@ -354,7 +356,8 @@ def test_attn_forward_redesign_edge_shapes(dev, case, monkeypatch):
     '''The tensor-core attention forward (csrc/attn.cu o4d_attn, o4d_attn_g)
     at edge shapes: k 1, 14 and 32, N 1 and 301 (no multiple of the 64-row
     tile), D 40 and E 24 off the 8-column fragments, masked keys, rows
-    gathered past k, several query chunks, and the gv1 widths D 416, E 288.
+    gathered past k, several query chunks, the gv1 widths D 416, E 288, and
+    decoders wider than one 416-column block (D 448 with E 320, D 544).
     attn_g and attn in both projection modes against their plain versions,
     each twice for the same bits; the gathered and per-row index routes
     bit-equal on the same rows.'''
@@ -393,10 +396,12 @@ def test_attn_forward_redesign_edge_shapes(dev, case, monkeypatch):
 
 
 def test_attn_forward_above_the_tile_width_raises(dev):
-    '''D above the 416 columns a tile keeps in registers raises rather than
-    computing something else.'''
+    '''D above the width whose 64 tile rows fill the block's shared memory
+    (o4d_attn_max_width, 560) raises rather than computing something else.'''
+    width = t_attn._attn_lib().o4d_attn_max_width()
+    assert width == 560
     rng = np.random.RandomState(5)
-    B, N, M, D, E, K = 1, 20, 30, 424, 24, 6
+    B, N, M, D, E, K = 1, 20, 30, width + 8, 24, 6
     q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
     pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
     feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
@@ -415,7 +420,9 @@ _ATTN_EDGE = {'n_ragged_k14': (2, 203, 97, 40, 24, 14, 16, 1),
               'k32': (2, 77, 97, 40, 24, 32, 32, 1),
               'd36_h72_e20': (2, 150, 80, 36, 20, 16, 18, 1),
               'b1_chunks': (1, 301, 120, 40, 24, 14, 16, 9),
-              'b3_chunks': (3, 203, 97, 40, 24, 14, 14, 4)}
+              'b3_chunks': (3, 203, 97, 40, 24, 14, 14, 4),
+              'd448_e320': (1, 150, 120, 448, 320, 14, 16, 1),
+              'd544_e288': (1, 150, 120, 544, 288, 14, 16, 1)}
 
 
 @pytest.mark.parametrize('case', sorted(_ATTN_EDGE))
@@ -660,7 +667,7 @@ def _sattn_case(rng, dev, B, N, K, D):
 
 
 @pytest.mark.parametrize('K', [8, 16, 32])
-@pytest.mark.parametrize('D', [36, 288])
+@pytest.mark.parametrize('D', [36, 288, 320])
 def test_sattn_kernels_match_plain(dev, K, D):
     '''o4d_sattn and o4d_sattn_bwd against their plain versions at odd N
     (ragged against every query tile), B 2, the encoder's widths: the
@@ -737,8 +744,215 @@ def test_fps_cluster_kernel_matches_plain(dev, N):
 
 
 def test_fps_above_the_cluster_cap_raises(dev):
-    lib = t_fps._build.library('fps')
-    cap = lib.o4d_fps_cluster_max_points()
-    xyz = torch.rand(1, cap + 1, 3, device=dev)
+    '''No cap: at N 200000 FPS runs (points in device memory) and equals the
+    plain loop pick for pick: B 2, a random start, an invalid-point mask on
+    example 1, duplicated points and ties on a grid.'''
+    rng = np.random.RandomState(200000)
+    B, N, n_out = 2, 200000, 2048
+    xyz = rng.rand(B, N, 3).astype(np.float32) * 8 - 4
+    xyz[:, N // 2:N // 2 + 900] = xyz[:, :900]
+    xyz[1, -5000:] = np.round(xyz[1, -5000:])
+    valid = np.ones((B, N), bool)
+    valid[1] = rng.rand(N) > 0.3
+    start = np.array([int(rng.randint(N)), int(np.flatnonzero(valid[1])[17])])
+    args = (_t(xyz, dev), n_out, _t(valid, dev), _t(start, dev))
+    assert torch.equal(t_fps._fps_cuda(*args), t_fps.fps_plain(*args))
+
+
+@pytest.mark.parametrize('plan', [(1, 256), (1, 1024), (2, 256), (5, 256), (8, 256)])
+def test_fps_every_cluster_and_block_size(dev, plan):
+    '''Every launch shape of the FPS kernel (cluster size, block size; points
+    in registers with 256 threads, in device memory with 1024) against the
+    plain loop: B 3, N not a multiple of any block, an invalid-point mask, a
+    random start, duplicates.'''
+    C, T = plan
+    rng = np.random.RandomState(C * T)
+    B, n_out = 3, 300
+    N = 4001 if T == 256 else 30001
+    xyz = rng.rand(B, N, 3).astype(np.float32) * 8 - 4
+    xyz[:, -300:] = xyz[:, :300]
+    valid = rng.rand(B, N) > 0.2
+    start = np.array([int(np.flatnonzero(valid[b])[b * 5]) for b in range(B)])
+    args = (_t(xyz, dev), n_out, _t(valid, dev), _t(start, dev))
+    assert torch.equal(t_fps._fps_cuda(*args, plan=plan), t_fps.fps_plain(*args))
+
+
+def _sampler_like(rng, B, N, M, far=False):
+    '''Keys uniform in a 10 x 10 x 5 box (20% masked); queries jittered 0.2 to
+    0.6 from random keys, as the sampler's air pools draw them, or (far)
+    moved up to 30 units further out.'''
+    k = rng.rand(B, M, 3).astype(np.float32) * 10 - 5
+    k[..., 2] = np.abs(k[..., 2])
+    u = rng.randn(B, N, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    q = np.take_along_axis(k, rng.randint(0, M, (B, N))[..., None], 1) \
+        + u * (0.2 + 0.4 * rng.rand(B, N, 1))
+    if far:
+        q = q + np.sign(q) * rng.rand(B, N, 1) * 30
+    return q.astype(np.float32), k, rng.rand(B, M) > 0.2
+
+
+@pytest.mark.parametrize('case', ['sampler_k1', 'far_queries_k1', 'far_queries_k16',
+                                  'one_valid_key', 'grid_ties_k8', 'ragged_k32'])
+def test_knn_pruned_kernel_matches_plain(dev, case):
+    '''The pruned entry (preparation kernels, sorts, pruned kernel) equals the
+    brute-force kernel and the plain version exactly, distances and
+    indices: the sampler's cross search at K 1 with masked keys; queries far
+    outside the keys' box (the seed block and the visiting order matter
+    most); all keys but one masked (filler rows: index 0 at +inf past it);
+    integer-grid duplicates and ties; N and M off the tile and block sizes.'''
+    rng = np.random.RandomState(len(case))
+    K, mask = 1, None
+    if case in ('sampler_k1', 'far_queries_k1', 'far_queries_k16'):
+        q, k, mask = _sampler_like(rng, 3, 2333, 7001, far=case.startswith('far'))
+        K = 16 if case.endswith('k16') else 1
+    elif case == 'one_valid_key':
+        q, k, _ = _sampler_like(rng, 2, 500, 3000)
+        mask = np.zeros((2, 3000), bool)
+        mask[:, 1234] = True
+        K = 4
+    elif case == 'grid_ties_k8':
+        k = rng.randint(0, 6, size=(2, 5000, 3)).astype(np.float32)
+        q = rng.randint(0, 6, size=(2, 1200, 3)).astype(np.float32)
+        K = 8
+    else:
+        k = rng.rand(1, 4097, 3).astype(np.float32)
+        q = rng.rand(1, 333, 3).astype(np.float32)
+        K = 32
+    qq, kk, kn, _ = t_knn._prepare(_t(q, dev), _t(k, dev),
+                                   None if mask is None else _t(mask, dev))
+    d_s, i_s = t_knn._pruned_cuda(qq, kk, kn, K, False)
+    d_b, i_b = t_knn.knn_rank(qq, kk, kn, K)
+    d_p, i_p = t_knn.knn_rank_plain(qq, kk, kn, K)
+    torch.cuda.synchronize()
+    assert torch.equal(d_b, d_p) and torch.equal(i_b, i_p)
+    assert torch.equal(d_s, d_p) and torch.equal(i_s, i_p)
+    if case == 'one_valid_key':
+        assert (i_s[..., 0] == 1234).all() and torch.isinf(d_s[..., 1:]).all()
+        assert (i_s[..., 1:] == 0).all()
+
+
+def test_knn_pruned_preparation_matches_plain(dev):
+    '''The preparation kernels give the operands of ops/knn.py pruned_inputs:
+    the keys' box, the Hilbert codes of both sets, and (through the sorts)
+    the same order.'''
+    from occlusions4d_torch.ops import _build
+    rng = np.random.RandomState(9)
+    q, k, mask = _sampler_like(rng, 2, 1000, 3001)
+    qq, kk, kn, _ = t_knn._prepare(_t(q, dev), _t(k, dev), _t(mask, dev))
+    lib = t_knn._pruned_lib()
+    ref = t_knn.pruned_inputs(qq, kk, kn, False, lib.o4d_knn_prune_tile(),
+                              lib.o4d_knn_prune_block())
+    lo, hi = kk.amin(1, keepdim=True), kk.amax(1, keepdim=True)
+    ck = torch.empty((2, 3001), dtype=torch.int32, device=dev)
+    cq = torch.empty((2, 1000), dtype=torch.int32, device=dev)
+    lohi = torch.empty((2, 6), device=dev)
+    _build.check(lib.o4d_knn_prune_codes(_build.ptr(kk), _build.ptr(qq), _build.ptr(lohi),
+                                         _build.ptr(ck), _build.ptr(cq), 2, 1000, 3001,
+                                         _build.stream_ptr(dev)), 'codes')
+    torch.cuda.synchronize()
+    assert torch.equal(lohi, torch.cat([lo, hi], -1)[:, 0])
+    assert torch.equal(ck, t_knn.hilbert_codes(kk, lo, hi))
+    assert torch.equal(cq, t_knn.hilbert_codes(qq, lo, hi))
+    assert torch.equal(torch.sort(ck, dim=-1, stable=True).values, ref['kcode'])
+    assert torch.equal(torch.sort(cq, dim=-1, stable=True).values, ref['qcode'])
+
+
+def test_knn_above_the_pruned_key_limit_takes_the_brute_kernel(dev):
+    '''One key above the pruned kernel's limit: PRUNED_MAX_KEYS is the
+    kernel's own (o4d_knn_pruned_max_keys), knn (pruned=None) takes the
+    brute kernel there and equals the plain version, masked keys included,
+    and the pruned entry, asked for explicitly, raises.'''
+    from occlusions4d_torch.ops import _build
+    M = t_knn.PRUNED_MAX_KEYS + 1
+    assert t_knn.PRUNED_MAX_KEYS == t_knn._pruned_lib().o4d_knn_pruned_max_keys()
+    rng = np.random.RandomState(5)
+    k = _t(rng.rand(1, M, 3).astype(np.float32) * 100 - 50, dev)
+    q = _t(rng.rand(1, 40, 3).astype(np.float32) * 100 - 50, dev)
+    mask = _t(rng.rand(1, M) > 0.2, dev)
+    _build.reset_launch_counts()
+    d, i = t_knn.knn(q, k, 16, key_mask=mask, euclidean=False)
+    counts = _build.launch_counts()
+    assert counts['knn_brute'] == 1 and counts['knn_pruned'] == 0
+    qq, kk, kn, _ = t_knn._prepare(q, k, mask)
+    d_p, i_p = t_knn.knn_rank_plain(qq, kk, kn, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(i, i_p)
+    assert torch.equal(d, torch.clamp(d_p + t_knn.sq_norm(qq)[..., None], min=0.0))
     with pytest.raises(NotImplementedError):
-        t_fps.fps_batched(xyz, 10)
+        t_knn.knn_pruned(q, k, 16, key_mask=mask)
+
+
+@pytest.mark.parametrize('dims', [(448, 320), (544, 288)])
+def test_wide_decoder_matches_cpu(dev, dims):
+    '''Decoders wider than one 416-column block (D 448 with E 320, the JAX
+    CLI's --pt_feat_dim 40; D 544 with E 288, its --global_size 256) through
+    fused_field_apply on the index route: the output and, through autograd,
+    d(abstract) and every decoder gradient agree with the CPU run (plain
+    versions); both attention layers launch their kernels.'''
+    import copy
+    from occlusions4d_torch.models import LocalImplicitField
+    from occlusions4d_torch.models.fused import fused_field_apply
+    from occlusions4d_torch.ops import _build
+    D, E = dims
+    torch.manual_seed(1)
+    dec = LocalImplicitField(d_in=4, d_hidden=D, d_out=5, d_latent=D, n_blocks=2,
+                             num_local_features=8, local_mode='attention',
+                             d_latent_local=E, cross_attn_neighbors=14,
+                             cross_attn_layers=2, cr_attn_type='cc').to(dev)
+    cpu = copy.deepcopy(dec).cpu()
+    rng = np.random.RandomState(D)
+    q = rng.rand(1, 301, 4).astype(np.float32)
+    fg = rng.randn(1, D - E).astype(np.float32)
+    abstract = rng.rand(1, 531, 3 + E).astype(np.float32)
+    res = []
+    for net, d in ((dec, dev), (cpu, torch.device('cpu'))):
+        a = _t(abstract, d).requires_grad_(True)
+        _build.reset_launch_counts()
+        out, _ = fused_field_apply(net, _t(q, d), a, _t(fg, d))
+        (out ** 2).sum().backward()
+        if d.type == 'cuda':
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            assert counts['attn'] == 2 and counts['attn_bwd'] == 2
+        res.append([out.detach(), a.grad] + [p.grad for p in net.parameters()])
+    for x, y in zip(*res):
+        _close(x.cpu(), y)
+
+
+def test_wide_decoder_trainer_step(dev):
+    '''One Trainer step with a D 448 decoder (--pt_feat_dim 40: E 320) on the
+    card, batch 1, one frame: finite losses, gradients and parameters, the
+    parameters change, and the decoder's attention kernels run both ways.'''
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.ops import _build
+    from occlusions4d_torch.train import Trainer
+    cfg = TrainConfig(n_points=1024, pt_feat_dim=40, up_down_blocks=3, transition_factor=3,
+                      pt_num_neighbors=16, down_neighbors=12, global_size=128,
+                      implicit_mlp_blocks=2, cross_attn_layers=2, cross_attn_neighbors=14,
+                      cr_attn_type='cc', color_mode='rgb_nosigmoid', cr_cube_bounds=5.0,
+                      min_z=-1.0, num_cr_local_feats=8, color_lw=1.0, density_lw=1.0,
+                      segmentation_lw=0.0, point_occupancy_radius=0.2,
+                      air_sampling_ratio=1.5, num_cr_solid=512, past_frames=1,
+                      future_frames=0, batch_size=1, point_sample_bias='none')
+    tr = Trainer(cfg, 'greater', 'cuda').init_state(seed=0)
+    rng = np.random.RandomState(3)
+    B, N, T, M = 1, 1024, 1, 2048
+    tgt = np.zeros((B, T, M, 9), np.float32)
+    tgt[..., :3] = rng.rand(B, T, M, 3) * 10 - 5
+    tgt[..., 2] = np.abs(tgt[..., 2])
+    tgt[..., 5:8] = rng.rand(B, T, M, 3)
+    batch = dict(pcl_input=(rng.rand(B, N, 8) * 2 - 1).astype(np.float32),
+                 pcl_target=tgt, pcl_target_valid=np.ones((B, T, M), bool),
+                 valo_ids=np.tile(np.arange(32, dtype=np.int32), (B, 1)),
+                 num_valo_ids=np.full((B,), 8, np.int32))
+    batch = {k: _t(v, dev) for k, v in batch.items()}
+    before = [p.detach().clone() for p in tr.optimizer.params]
+    _build.reset_launch_counts()
+    m = tr.step(batch)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert np.isfinite(float(m['total_loss']))
+    assert bool(m['grads_finite']) and bool(m['params_finite'])
+    assert counts['attn'] > 0 and counts['attn_bwd'] > 0
+    assert any(not torch.equal(p, q) for p, q in zip(tr.optimizer.params, before))

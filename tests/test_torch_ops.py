@@ -121,69 +121,146 @@ def test_knn_exact_ties_go_to_lower_index(rng):
     np.testing.assert_array_equal(tpi.numpy(), ti)
 
 
-def _emulate_pruned_kernel(ops, k, tile, block):
+def _top_k(d, i, k):
+    '''Lexicographic (d, index) top k along the last axis: sort by index,
+    then stably by d.'''
+    o = torch.argsort(i, dim=-1, stable=True)
+    d, i = torch.gather(d, -1, o), torch.gather(i, -1, o)
+    o = torch.argsort(d, dim=-1, stable=True)[..., :k]
+    return torch.gather(d, -1, o), torch.gather(i, -1, o)
+
+
+def _emulate_pruned_kernel(ops, k, tile, block, lanes=8):
     '''Python model of csrc/knn.cu::knn_pruned_kernel over pruned_inputs():
-    seed block first, then every block whose bbox gap^2 is within the tile's
-    worst K-th distance + slack; lexicographic (d, original index) top-k.'''
-    q, qn, keys4, korig = ops['q'][0], ops['qn'][0], ops['keys4'][0], ops['korig'][0]
-    kbox, tbox, slack = ops['kbox'][0], ops['tbox'][0], float(ops['slack'])
-    nt, nb = q.shape[0] // tile, keys4.shape[0] // block
-    out_d = torch.empty(q.shape[0], k)
-    out_i = torch.empty(q.shape[0], k, dtype=torch.int32)
+    per tile, the seed block (a binary search of the tile's middle query code
+    in the sorted key codes), the key blocks ranked by (gap^2, distance from
+    the seed, index) and visited while gap^2 <= bound + slack, the bound
+    read one block late (one barrier per block) and a block chosen with an
+    older bound tested again before it is processed; `lanes` lanes per
+    query, key c of a block on lane c mod lanes, each lane's exact top k,
+    the bound a query's smallest lane K-th plus |q|^2, merged at the end;
+    rows written at their original query index. :return (d, idx, the share
+    of (tile, key block) pairs processed).'''
+    q4, qorig, keys4, korig = ops['q4'][0], ops['qorig'][0], ops['keys4'][0], ops['korig'][0]
+    kbox, tbox, slack = ops['kbox'][0], ops['tbox'][0], ops['slack'][0]
+    kcode, qcode = ops['kcode'][0], ops['qcode'][0]
+    N = qcode.shape[0]
+    nt, nb = q4.shape[0] // tile, keys4.shape[0] // block
+    out_d = torch.empty(N, k)
+    out_i = torch.empty(N, k, dtype=torch.int32)
     processed = 0
     for t in range(nt):
-        rows = slice(t * tile, (t + 1) * tile)
-        qt = q[rows]
-        acc_d = torch.full((tile, k), float('inf'))
-        acc_i = torch.zeros((tile, k), dtype=torch.int64)
+        qt = q4[t * tile:(t + 1) * tile]
+        code = qcode[min(t * tile + tile // 2, N - 1)]
+        seed = min(int(torch.searchsorted(kcode, code)) // block, nb - 1)
+        g = torch.clamp(torch.maximum(kbox[:, :3] - tbox[t, 3:], tbox[t, :3] - kbox[:, 3:]),
+                        min=0.0)
+        gap = (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]) + g[:, 2] * g[:, 2]
+        order = sorted(range(nb), key=lambda j: (float(gap[j]), abs(j - seed), j))
+        acc_d = torch.full((tile, lanes, k), float('inf'))
+        acc_i = torch.zeros((tile, lanes, k), dtype=torch.int64)
 
-        def process(b):
-            kb = keys4[b * block:(b + 1) * block]
-            dot = qt[:, None, 0] * kb[None, :, 0] + qt[:, None, 1] * kb[None, :, 1] \
+        def process(j):
+            kb, ko = keys4[j * block:(j + 1) * block], korig[j * block:(j + 1) * block].long()
+            dot = (qt[:, None, 0] * kb[None, :, 0] + qt[:, None, 1] * kb[None, :, 1]) \
                 + qt[:, None, 2] * kb[None, :, 2]
             d = kb[None, :, 3] - 2.0 * dot
-            cd = torch.cat([acc_d, d], 1)
-            ci = torch.cat([acc_i, korig[b * block:(b + 1) * block].long()[None]
-                            .expand(tile, block)], 1)
-            # Lexicographic (d, index): sort by index, then stably by d.
-            o = torch.argsort(ci, dim=1, stable=True)
-            cd, ci = torch.gather(cd, 1, o), torch.gather(ci, 1, o)
-            o = torch.argsort(cd, dim=1, stable=True)[:, :k]
-            return torch.gather(cd, 1, o), torch.gather(ci, 1, o)
+            for ln in range(lanes):
+                acc_d[:, ln], acc_i[:, ln] = _top_k(
+                    torch.cat([acc_d[:, ln], d[:, ln::lanes]], 1),
+                    torch.cat([acc_i[:, ln], ko[ln::lanes][None].expand(tile, -1)], 1), k)
 
-        seed = (t * nb) // nt
-        acc_d, acc_i = process(seed)
-        processed += 1
-        bound = float((acc_d[:, -1] + qn[rows]).max())
-        for b in range(nb):
-            if b == seed:
-                continue
-            gap = torch.clamp(torch.maximum(kbox[b, :3] - tbox[t, 3:],
-                                            tbox[t, :3] - kbox[b, 3:]), min=0.0)
-            if float((gap * gap).sum()) <= bound + slack:
-                acc_d, acc_i = process(b)
+        def bound():
+            return (acc_d[:, :, -1].amin(1) + qt[:, 3]).max()
+
+        cur, pos, bnd, it = order[0], 1, torch.tensor(float('inf')), 0
+        while True:
+            if it > 0:
+                bnd = bound_after
+            proc = it == 0 or bool(gap[cur] <= bnd + slack)
+            nxt = order[pos] if pos < nb and bool(gap[order[pos]] <= bnd + slack) else None
+            pos += nxt is not None
+            if proc:
+                process(cur)
                 processed += 1
-                bound = float((acc_d[:, -1] + qn[rows]).max())
-        out_d[rows], out_i[rows] = acc_d, acc_i.to(torch.int32)
+            bound_after = bound()
+            if nxt is None:
+                break
+            cur, it = nxt, it + 1
+        d, i = _top_k(acc_d.reshape(tile, -1), acc_i.reshape(tile, -1), k)
+        live = qorig[t * tile:(t + 1) * tile] >= 0
+        rows = qorig[t * tile:(t + 1) * tile][live].long()
+        out_d[rows], out_i[rows] = d[live], i[live].to(torch.int32)
     return out_d[None], out_i[None], processed / (nt * nb)
 
 
-def test_knn_pruned_inputs_and_emulated_kernel_equal_brute_force(rng):
-    '''The pruned path's Python side (Hilbert sort, padding, boxes, unsort)
-    with a model of its kernel reproduces the brute-force search exactly, and
-    actually prunes on clustered data.'''
-    centers = rng.rand(6, 3).astype(np.float32) * 20 - 10
-    pts = (centers[rng.randint(0, 6, 500)]
-           + rng.randn(500, 3).astype(np.float32) * 0.5)[None].astype(np.float32)
-    q_t, k_t = _t(pts[:, :300]), _t(pts)
-    q, kk, kn, _ = t_knn._prepare(q_t, k_t, None)
-    ops = t_knn.pruned_inputs(q, kk, kn, False, 16, 32)
-    d, i, frac = _emulate_pruned_kernel(ops, 10, 16, 32)
-    d, i = t_knn.unsort_rows(d, ops['perm_q']), t_knn.unsort_rows(i, ops['perm_q'])
-    bd, bi = t_knn.knn_rank_plain(q, kk, kn, 10)
+def _pruned_case(rng, case):
+    '''(queries, keys, key mask, K) of one emulated-kernel case.'''
+    if case == 'clustered_self':
+        centers = rng.rand(6, 3).astype(np.float32) * 20 - 10
+        pts = (centers[rng.randint(0, 6, 500)]
+               + rng.randn(500, 3).astype(np.float32) * 0.5)[None].astype(np.float32)
+        return pts[:, :300], pts, None, 10
+    if case == 'grid_ties':
+        k = rng.randint(0, 4, size=(1, 410, 3)).astype(np.float32)
+        q = rng.randint(0, 4, size=(1, 123, 3)).astype(np.float32)
+        return q, k, None, 7
+    k = rng.rand(1, 700, 3).astype(np.float32) * 10 - 5
+    u = rng.randn(1, 250, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    q = np.take_along_axis(k, rng.randint(0, 700, (1, 250))[..., None], 1) + u * 0.4
+    if case.startswith('far'):
+        q = q + np.sign(q) * rng.rand(1, 250, 1) * 30
+    return q.astype(np.float32), k, rng.rand(1, 700) > 0.2, 1 if case.endswith('k1') else 16
+
+
+@pytest.mark.parametrize('case', ['clustered_self', 'cross_masked_k1', 'far_queries_k1',
+                                  'far_queries_k16', 'grid_ties'])
+def test_knn_pruned_inputs_and_emulated_kernel_equal_brute_force(rng, case):
+    '''The pruned path's preparation (Hilbert sort, padding, boxes, slack)
+    with a model of its kernel (seed search, gap-ordered visits, one bound
+    refresh per processed block, lanes merged at the end) reproduces the
+    brute-force search exactly: clustered data (where it processes fewer
+    than half the key blocks), the sampler's cross search at K 1 with masked
+    keys, queries far outside the keys' box, integer-grid duplicates and
+    ties; N and M off the tile (16) and block (32) sizes.'''
+    q, k, mask, K = _pruned_case(rng, case)
+    q_t, k_t = _t(q), _t(k)
+    qq, kk, kn, _ = t_knn._prepare(q_t, k_t, None if mask is None else _t(mask))
+    if case == 'clustered_self':
+        qq = kk[:, :300]
+    ops = t_knn.pruned_inputs(qq, kk, kn, False, 16, 32)
+    d, i, frac = _emulate_pruned_kernel(ops, K, 16, 32)
+    bd, bi = t_knn.knn_rank_plain(qq, kk, kn, K)
     np.testing.assert_array_equal(i.numpy(), bi.numpy())
     np.testing.assert_array_equal(d.numpy(), bd.numpy())
-    assert frac < 0.7, frac
+    if case == 'clustered_self':
+        assert frac < 0.5, frac
+
+
+def test_knn_pruned_self_search_preparation(rng):
+    '''A self search sorts once: both sets share the keys' order and codes,
+    the padded query rows repeat the last one with original index -1, and
+    the padded keys carry +inf at index 0.'''
+    pts = _t(rng.rand(1, 70, 3).astype(np.float32))
+    q, kk, kn, _ = t_knn._prepare(pts, pts, None)
+    ops = t_knn.pruned_inputs(kk, kk, kn, True, 16, 32)
+    assert torch.equal(ops['qcode'], ops['kcode'])
+    assert torch.equal(ops['q4'][0, :70, :3], ops['keys4'][0, :70, :3])
+    assert (ops['qorig'][0, 70:] == -1).all() and torch.equal(ops['q4'][0, 70:],
+                                                               ops['q4'][0, 69:70].expand(10, 4))
+    assert torch.isinf(ops['keys4'][0, 70:, 3]).all() and (ops['korig'][0, 70:] == 0).all()
+    assert torch.equal(ops['q4'][0, :, 3], t_knn.sq_norm(ops['q4'][0, :, :3]))
+
+
+@pytest.mark.parametrize('M, want', [(1023, False), (1024, True), (4_521_984, True),
+                                     (4_521_985, False)])
+def test_use_pruned_keeps_to_the_pruned_kernels_key_range(M, want):
+    '''knn sends a large search to the pruned entry only from
+    PRUNED_MIN_KEYS keys up to the pruned kernel's limit PRUNED_MAX_KEYS
+    (17664 blocks of 256 keys); wider key sets take the brute kernel.'''
+    assert t_knn.PRUNED_MAX_KEYS == 4_521_984
+    assert t_knn.use_pruned(4096, M, 16) is want
 
 
 def test_pairwise_sqdist_and_knn_interpolate_match_jax(rng):

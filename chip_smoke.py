@@ -51,7 +51,15 @@ each printing one JSON line:
      encoder's fused self-attention (sattn, sattn_bwd) at the four blocks of
      the gv1 train step (B 3) and the n57344 step's first block (B 1), with
      the block's plain chain and the fused route (gather + sattn, backward
-     with the scatter) timed beside them;
+     with the scatter) timed beside them; the bf16 compute mode
+     (precision='fast') of interp and attn (premul and per-row) at the gv1
+     decode chunk and of gather, interp_g and attn_g at the cv1 chunk, each
+     against its plain bf16 version on the same inputs (the gather exact,
+     the interpolations atol 1e-5 / rtol 1e-5, the attention relative L2
+     2e-4 and a largest error of 5e-3 of max |plain|), twice for the same
+     bits, timed beside its f32 kernel, with TFLOP/s and the share of the
+     bf16 tensor-core bound; the gathered and per-row index routes give the
+     same bits in bf16 too;
   4. main path: gv1 at full width with seeded random weights (numpy, loaded
      through checkpoint.from_jax_params): encode a 14336-point cloud, decode
      the dense grid in chunks of 32768; launch counters are zeroed just before
@@ -61,10 +69,19 @@ each printing one JSON line:
      shared-gather route, which must launch gather, interp_g and attn_g and
      neither index-route kernel; one 4096-query chunk is decoded again on the
      CPU (plain versions) from the card's abstract cloud and must agree;
+  4c. main_path_fast: the gv1 and cv1 dense scenes again, with the same
+     seeded models, cloud and grid, through InferenceEngine(precision=
+     'fast'): launch counters zeroed just before and read just after must
+     show the bf16 kernels and no f32 interpolation, gather or attention
+     launch; the scene time beside the f32 scene's; at most 0.5% of the
+     densities across 0.5 against the f32 scene (the share and the largest
+     |p - 0.5| among the flips printed);
   5. anchors: both committed checkpoints through load_models and
      perform_inference on the card, against the same run on the CPU (plain
      versions), the ground-truth labels and 1-NN rows (nn1_direct, whose
-     launches this path counts) equal query by query;
+     launches this path counts) equal query by query; then on the card in
+     precision='fast' (bf16 launches, finite), its flip share against the
+     f32 run printed;
   6. train: the gv1 train step (Trainer, batch 3, 4 frames, seeded numpy
      weights and a bench.py-shaped synthetic batch): 1 warm-up step, 3 timed
      steps with the launch counters zeroed just before and read just after
@@ -108,8 +125,11 @@ each printing one JSON line:
      set on, and attn_g_bwd on the chunk against float64, held to twice the
      plain version's error there; the same at gv1's D 416 for comparison;
      one Trainer step at D 448 (batch 1, one frame) after a decoder
-     gradient check against the CPU;
-then the card's nvidia-smi line, the {"kernels": [...]} line (interp_g_bwd
+     gradient check against the CPU; each width's chunk also in
+     precision='fast' against the same decode with the plain bf16 versions
+     on the card (density 2e-3, relative L2 1e-3);
+then the card's nvidia-smi line, the {"kernels": [...]} line (the five
+bf16 variants count their launches on main_path_fast; interp_g_bwd
 is listed with on_main_path false: no main path calls the standalone
 operator it serves; so is fps, the FPS kernel's one-block launch, which the
 speed rule keeps for clouds of 512 points or fewer) and, last,
@@ -202,13 +222,19 @@ _REPLACES = {
     'sattn_bwd': 'occlusions4d_tpu/ops/pallas_self_attention.py:132',
     'nn1_direct': 'occlusions4d_tpu/native/host_ops.cpp:240 (o4d_nn1 behind nn1_host, '
                   'a host op; no Pallas kernel)',
+    'interp_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:554 (compute_dtype=bfloat16)',
+    'attn_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:78 (compute_dtype=bfloat16)',
+    'gather_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:814 (compute_dtype=bfloat16)',
+    'interp_g_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:1254 (compute_dtype=bfloat16)',
+    'attn_g_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:934 (compute_dtype=bfloat16)',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
            'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
            'nn1_bidir': 'knn', 'gather': 'gather', 'interp_g': 'interp', 'attn_g': 'attn',
            'scatter': 'gather', 'interp_g_bwd': 'interp', 'attn_g_bwd': 'attn_bwd',
            'fps_cluster': 'fps', 'sattn': 'attn', 'sattn_bwd': 'attn_bwd',
-           'nn1_direct': 'knn'}
+           'nn1_direct': 'knn', 'interp_bf16': 'interp', 'attn_bf16': 'attn',
+           'gather_bf16': 'gather', 'interp_g_bf16': 'interp', 'attn_g_bf16': 'attn'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps_cluster', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
@@ -220,7 +246,9 @@ _SHARED_BWD = ('scatter', 'attn_g_bwd', 'interp_g_bwd')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
              nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED},
              **{k: 'train_cv1' for k in _SHARED_BWD}, fps='main_path',
-             sattn='train_sattn', sattn_bwd='train_sattn', nn1_direct='anchor')
+             sattn='train_sattn', sattn_bwd='train_sattn', nn1_direct='anchor',
+             **{k: 'main_path_fast' for k in ('interp_bf16', 'attn_bf16', 'gather_bf16',
+                                              'interp_g_bf16', 'attn_g_bf16')})
 # Kernels kept for an operator that no main path calls: o4d_interp_g_bwd is
 # the backward of the standalone fused_knn_interp(gathered=).
 _OFF_PATH = {'interp_g_bwd': 'the standalone fused_knn_interp(gathered=) backward; '
@@ -294,11 +322,29 @@ def attn_rates(flop, ms, b_ms):
                 bound_3xtf32_ms=tf32x3_ms, share_of_3xtf32_bound=tf32x3_ms / ms)
 
 
-def attn_fwd_line(torch, name, call, plain, macs, nbytes, shape, reps=3, **extra):
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def bf16_agree(o_k, o_p):
+    """The bf16 kernels' gate against their plain bf16 versions: relative L2
+    2e-4 and a largest error of 5e-3 of max |plain| (a bf16 operand may
+    round to its neighbour where an f32 intermediate moved by an ulp)."""
+    return rel_l2(o_k, o_p) <= 2e-4 and max_err(o_k, o_p) <= 5e-3 * float(o_p.abs().max())
+
+
+_BF16_TOL = 'relative L2 2e-4, max abs err 5e-3 x max|plain|'
+
+
+def attn_fwd_line(torch, name, call, plain, macs, nbytes, shape, reps=3, bf16=False,
+                  f32_call=None, **extra):
     """One attention forward kernel line: the kernel against its plain
-    version (atol 1e-4, rtol 1e-3), twice for the same bits, its time, its
-    plain version's, its launch peak, TFLOP/s and its shares of the bf16
-    and 3xTF32 tensor-core bounds. Returns (the {"kernels"} row, the
+    version (atol 1e-4, rtol 1e-3; bf16: bf16_agree), twice for the same
+    bits, its time, its plain version's, its launch peak, TFLOP/s and its
+    shares of the bf16 and 3xTF32 tensor-core bounds. f32_call (bf16 lines):
+    the f32 tile on the same inputs, whose distance from the plain bf16
+    version is printed beside the kernel's (how far a tile that skips the
+    bf16 roundings lands from the gate). Returns (the {"kernels"} row, the
     kernel's output)."""
     with torch.no_grad():
         o_k, o_2 = call(), call()
@@ -306,9 +352,19 @@ def attn_fwd_line(torch, name, call, plain, macs, nbytes, shape, reps=3, **extra
         torch.cuda.synchronize()
         err = max_err(o_k, o_p)
         rel = err / float(o_p.abs().max())
-        ok = bool(torch.allclose(o_k, o_p, atol=1e-4, rtol=1e-3))
+        l2 = rel_l2(o_k, o_p)
+        ok = bf16_agree(o_k, o_p) if bf16 else bool(torch.allclose(o_k, o_p, atol=1e-4,
+                                                                    rtol=1e-3))
         repro = max_err(o_k, o_2)
-        del o_p, o_2
+        del o_2
+        if f32_call is not None:
+            o_f = f32_call()
+            extra = dict(extra, f32_tile_rel_l2_vs_plain=rel_l2(o_f, o_p),
+                         f32_tile_max_rel_err_vs_plain=max_err(o_f, o_p) / float(
+                             o_p.abs().max()),
+                         f32_tile_within_gate=bf16_agree(o_f, o_p))
+            del o_f
+        del o_p
         ms = cuda_ms(torch, call, reps)
         plain_ms = cuda_ms(torch, plain, 2)
         peak = launch_peak_gib(torch, call)
@@ -319,8 +375,9 @@ def attn_fwd_line(torch, name, call, plain, macs, nbytes, shape, reps=3, **extra
                bound_f32_cuda_core_ms=f32_ms, shape=shape, repeat_max_abs_diff=repro,
                launch_peak_gib=peak, beats_plain=ms < plain_ms,
                **attn_rates(2.0 * macs, ms, b_ms))
-    emit(dict(phase='kernel', name=name, agree=ok, max_rel_err=rel,
-              tolerance='atol 1e-4, rtol 1e-3', flop=2.0 * macs, **row, **extra))
+    emit(dict(phase='kernel', name=name, agree=ok, max_rel_err=rel, rel_l2_err=l2,
+              tolerance=_BF16_TOL if bf16 else 'atol 1e-4, rtol 1e-3', flop=2.0 * macs,
+              **row, **extra))
     if not ok or repro != 0.0:
         raise AssertionError(f'{name} disagrees (max abs err {err}) or is not '
                              f'reproducible ({repro})')
@@ -337,6 +394,31 @@ def attn_fwd_work(rows_n, n_q, m_keys, kv_w, D, E, H, P, per_row):
     n_w = 3 * P + P * D + 2 * D * H + P + 2 * D + H + extra
     nbytes = 4 * (n_q * (3 + D) + m_keys * kv_w + n_w + n_q * D)
     return macs, nbytes
+
+
+def interp_bf16_line(torch, name, call, plain, library, library_what, b_ms, b_by, shape,
+                     f32_ms, flop):
+    """An interpolation kernel's bf16 mode against its plain bf16 version
+    (atol 1e-5, rtol 1e-5, the f32 gate: exact bf16 products), twice for the
+    same bits, its time beside the f32 kernel's, the plain version's and the
+    library call's; emits the kernel line and returns its row."""
+    o_k, o_2, o_p = call(), call(), plain()
+    torch.cuda.synchronize()
+    err = max_err(o_k, o_p)
+    ok = bool(torch.allclose(o_k, o_p, atol=1e-5, rtol=1e-5))
+    repro = max_err(o_k, o_2)
+    ms = cuda_ms(torch, call, 20)
+    plain_ms = cuda_ms(torch, plain, 5)
+    lib_ms = cuda_ms(torch, library, 20)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, shape=shape, share_of_bound=b_ms / ms,
+               tflop_s=flop / ms / 1e9, f32_kernel_ms=f32_ms, repeat_max_abs_diff=repro)
+    emit(dict(phase='kernel', name=name, agree=ok, tolerance='atol 1e-5, rtol 1e-5',
+              rel_l2_err=rel_l2(o_k, o_p), library=library_what, **row))
+    if not ok or repro != 0.0:
+        raise AssertionError(f'{name} disagrees (max abs err {err}) or is not '
+                             f'reproducible ({repro})')
+    return row
 
 
 def random_jax_params(net, rng):
@@ -710,8 +792,8 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
                             bound_by=b_by, library_ms=lib_ms, shape=shape)
 
     # Attention over the gathered rows, and the two routes at M = 2124.
-    attn_g = lambda gg: t_attn.fused_knn_vector_attention(  # noqa: E731
-        q_proj, qpos, feats2, pos2, params, K, gathered=gg)
+    attn_g = lambda gg, cd=torch.float32: t_attn.fused_knn_vector_attention(  # noqa: E731
+        q_proj, qpos, feats2, pos2, params, K, gathered=gg, compute_dtype=cd)
     index = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, feats2, params, K,  # noqa: E731
                                       False)
     with torch.no_grad():
@@ -741,6 +823,144 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
         raise AssertionError(f'attn_g and the per-row index route differ on the same rows '
                              f'({route_diff})')
     rows['attn_g'] = dict(row, index_route_max_abs_diff=route_diff, **routes)
+    del g
+    torch.cuda.empty_cache()
+
+    # The bf16 mode of the three kernels on the same chunk (precision='fast').
+    bf = torch.bfloat16
+    gather_b = lambda: t_attn.knn_gather_rows(pos2, feats2, knn, K,  # noqa: E731
+                                              compute_dtype=bf)
+    g, g_2 = gather_b(), gather_b()
+    g_p = t_attn.gather_rows_plain(fv, ki, K, bf)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(g, g_p)) and bool(torch.equal(g, g_2))
+    err = max_err(g, g_p)
+    del g_p, g_2
+    ms = cuda_ms(torch, gather_b, 20)
+    plain_ms = cuda_ms(torch, lambda: t_attn.gather_rows_plain(fv, ki, K, bf), 5)
+    fvb = t_attn.round_bf16(fv)
+    lib_ms = cuda_ms(torch, lambda: torch.index_select(fvb.reshape(-1, C), 0, flat), 20)
+    b_ms, b_by = bound(N * K * 4 + M * C * 4 + K * N * C * 4, 0.0)
+    shape = [N, M, K, C]
+    rows['gather_bf16'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms, shape=shape,
+                               share_of_bound=b_ms / ms, tflop_s=0.0,
+                               f32_kernel_ms=rows['gather']['ms'],
+                               storage='f32 (bf16 values)')
+    emit(dict(phase='kernel', name='gather_bf16', agree=exact, exact=exact,
+              tolerance='exact (bit-equal), twice the same bits',
+              library='torch.index_select of the bf16-rounded rows (the rounding not timed)',
+              **rows['gather_bf16']))
+    if not exact:
+        raise AssertionError(f'gather_bf16 differs from its plain version (err {err})')
+
+    gf = g[:, :KI, :, :E]
+    b_ms, b_by = bound(N * KI * 4 + N * KI * E * 4 + N * E * 4, 2.0 * N * KI * E)
+    interp_gb = lambda: t_attn.fused_knn_interp(qpos, pos2, feats2, KI, knn=knn,  # noqa: E731
+                                                gathered=g, compute_dtype=bf)
+    rows['interp_g_bf16'] = interp_bf16_line(
+        torch, 'interp_g_bf16', interp_gb, lambda: t_attn.interp_g_plain(kd, g, KI, 1e-4, bf),
+        lambda: torch.einsum('bkn,bknc->bnc', wn, gf),
+        "torch.einsum('bkn,bknc->bnc') of the normalised weights and bf16 rows", b_ms, b_by,
+        [N, M, KI, E], rows['interp_g']['ms'], 2.0 * N * KI * E)
+    o_k = interp_gb()
+    o_i = t_attn.fused_knn_interp(qpos, pos2, feats2, KI, knn=knn, compute_dtype=bf)
+    torch.cuda.synchronize()
+    rows['interp_g_bf16']['index_route_max_abs_diff'] = max_err(o_k, o_i)
+    if not torch.equal(o_k, o_i):
+        raise AssertionError('interp_g_bf16 and the index route\'s interp_bf16 differ')
+
+    row, o_k = attn_fwd_line(torch, 'attn_g_bf16', lambda: attn_g(g, bf),
+                             lambda: t_attn.attn_g_plain(qpos, q_proj, g, params, K, bf),
+                             macs, nbytes + N * K * C * 4, [N, M, K, D, E], bf16=True,
+                             f32_call=lambda: attn_g(g), f32_ms=rows['attn_g']['ms'])
+    index_b = lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, feats2,  # noqa: E731
+                                        params, K, False, True)
+    with torch.no_grad():
+        o_i = index_b()
+        torch.cuda.synchronize()
+        route_diff = max_err(o_k, o_i)
+        del o_k, o_i
+        routes = dict(route_index_per_row_attn_ms=cuda_ms(torch, index_b, 3),
+                      route_gather_plus_attn_g_ms=cuda_ms(torch, lambda: attn_g(gather_b(), bf),
+                                                          3))
+    emit(dict(phase='route', name='attn_g_bf16_vs_index_route', shape=[N, M, K, D, E],
+              index_route_max_abs_diff=route_diff, **routes))
+    if route_diff != 0.0:
+        raise AssertionError(f'attn_g_bf16 and the per-row index route differ on the same '
+                             f'rows ({route_diff})')
+    rows['attn_g_bf16'] = dict(row, index_route_max_abs_diff=route_diff, **routes)
+
+
+# The bf16 kernels of the 'fast' scenes, and the f32 kernels they stand in for.
+_FAST = ('interp_bf16', 'attn_bf16', 'gather_bf16', 'interp_g_bf16', 'attn_g_bf16')
+_FAST_F32 = ('interp', 'attn', 'gather', 'interp_g', 'attn_g')
+
+
+def flip_stats(p, p_ref):
+    """Densities p that fall on the other side of 0.5 than p_ref: (share,
+    count, largest |p_ref - 0.5| among them, largest |p - 0.5| among them)."""
+    flips = (p >= 0.5) != (p_ref >= 0.5)
+    n = int(flips.sum())
+    far = lambda x: float((x[flips] - 0.5).abs().max()) if n else 0.0  # noqa: E731
+    return n / p.numel(), n, far(p_ref), far(p)
+
+
+def fast_scene(torch, dev, smi, name, f32):
+    """One dense scene of main_path / main_path_cv1 again, with the same
+    seeded models, cloud and grid, through InferenceEngine(precision='fast'):
+    one warm-up chunk, then encode + decode timed with the launch counters
+    zeroed just before and read just after. Gates: the bf16 kernels launched
+    (per chunk: interpolation 1, attention 2; the shared route's gather 1)
+    and no f32 interpolation, gather or attention kernel; finite outputs of
+    the expected shape; at most 0.5% of densities across 0.5 against the f32
+    scene. :return the launch counts."""
+    from occlusions4d_torch.evaluate import InferenceEngine
+    from occlusions4d_torch.ops import _build
+    cfg, (encoder, decoder) = f32['cfg'], f32['models']
+    queries, pcl = f32['queries'], f32['pcl']
+    engine = InferenceEngine(dict(encoder=encoder, decoder=decoder, device=dev),
+                             cfg.color_mode, f32['seg'], cfg.semantic_classes,
+                             track_mode='none', implicit_batch_size=_CHUNK, precision='fast')
+    abstract, fg = engine.encode(pcl)          # warm-up run, not counted.
+    engine.decode_all(queries[:_CHUNK], abstract, fg, fetch=False)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    abstract, fg = engine.encode(pcl)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    out = engine.decode_all(queries, abstract, fg, fetch=False)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    counts = _build.launch_counts()
+    chunks = -(-queries.shape[0] // _CHUNK)
+    shared = name == 'cv1'
+    expect = dict({k: 0 for k in _FAST_F32}, interp_bf16=0 if shared else chunks,
+                  attn_bf16=0 if shared else 2 * chunks, gather_bf16=chunks if shared else 0,
+                  interp_g_bf16=chunks if shared else 0, attn_g_bf16=2 * chunks if shared else 0)
+    counts_ok = all(counts.get(k, 0) == v for k, v in expect.items())
+    finite = bool(torch.isfinite(out).all())
+    share, n, far_f32, far_fast = flip_stats(out[:, 0], f32['density'])
+    scene_ms = (t2 - t0) * 1e3
+    emit(dict(phase='main_path_fast', model=name, precision=engine.precision,
+              queries=int(queries.shape[0]), chunk=_CHUNK, chunks=chunks,
+              out_shape=list(out.shape), finite=finite, encode_ms=(t1 - t0) * 1e3,
+              decode_ms=(t2 - t1) * 1e3, scene_ms=scene_ms, f32_scene_ms=f32['scene_ms'],
+              f32_decode_ms=f32['decode_ms'], scene_speedup=f32['scene_ms'] / scene_ms,
+              queries_per_s=queries.shape[0] / (t2 - t1),
+              density_flip_share=share, density_flips=n, flip_max_abs_p_f32_minus_half=far_f32,
+              flip_max_abs_p_fast_minus_half=far_fast,
+              density_max_abs_diff_vs_f32=max_err(out[:, 0], f32['density']),
+              flip_gate='at most 0.5% of densities across 0.5 against the f32 scene',
+              launches=counts, expected_launches=expect, gpu=smi))
+    if not finite or out.shape[0] != queries.shape[0] or engine.precision != 'fast':
+        raise AssertionError(f'main_path_fast {name}: output not finite or wrong shape')
+    if not counts_ok:
+        raise AssertionError(f'main_path_fast {name}: launches {counts} differ from {expect}')
+    if share > 0.005:
+        raise AssertionError(f'main_path_fast {name}: {share:.4%} of densities cross 0.5')
+    return counts
 
 
 def scatter_add_ms(torch, ki, dg, M, K, dev):
@@ -1720,6 +1940,72 @@ def wide_attention_lines(torch, t_attn, dev, rng, name, params, qxyz, abstract):
     return out
 
 
+class plain_kernels:
+    """Inside, the decoder's forward kernels (f32 and bf16) are swapped for
+    their plain versions, on the card: the plain decode a kernel decode is
+    held against, with everything else (the backbone in TF32 included) the
+    same."""
+    _NAMES = ('_gather_cuda', '_interp_cuda', '_interp_g_cuda', '_attn_cuda', '_attn_g_cuda')
+
+    def __init__(self, torch, t_attn):
+        self.t, self.saved = t_attn, {}
+
+        def cd(bf16):
+            return torch.bfloat16 if bf16 else torch.float32
+        self.plain = dict(
+            _gather_cuda=lambda fv, ki, k, bf16=False: t_attn.gather_rows_plain(
+                fv, ki, k, cd(bf16)),
+            _interp_cuda=lambda ki, kd, feats, k, eps, bf16=False: t_attn.interp_plain(
+                ki, kd, feats, k, eps, cd(bf16)),
+            _interp_g_cuda=lambda kd, g, k, eps, bf16=False: t_attn.interp_g_plain(
+                kd, g, k, eps, cd(bf16)),
+            _attn_cuda=lambda q_pos, q_proj, ki, pos2, kv, params, k, premul, bf16=False:
+                t_attn.attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, cd(bf16)),
+            _attn_g_cuda=lambda q_pos, q_proj, g, params, k, bf16=False: t_attn.attn_g_plain(
+                q_pos, q_proj, g, params, k, cd(bf16)))
+
+    def __enter__(self):
+        for n in self._NAMES:
+            self.saved[n] = getattr(self.t, n)
+            setattr(self.t, n, self.plain[n])
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.t, n, f)
+
+
+def fast_chunk_check(torch, t_attn, dev, encoder, decoder, cfg, queries, abstract, fg,
+                     got_f32):
+    """One 4096-query chunk of a decoder in precision='fast' on the card
+    against the same decode with the plain bf16 versions on the card
+    (plain_kernels): density within 2e-3, relative L2 of all channels within
+    1e-3; the bf16 attention and interpolation kernels launched, no f32 one;
+    the flips across 0.5 against the f32 kernel decode counted."""
+    from occlusions4d_torch.evaluate import InferenceEngine
+    from occlusions4d_torch.ops import _build
+    eng = InferenceEngine(dict(encoder=encoder, decoder=decoder, device=dev), cfg.color_mode,
+                          False, cfg.semantic_classes, track_mode='none',
+                          implicit_batch_size=_CHECK_CHUNK, precision='fast')
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = eng.decode_all(queries, abstract, fg, fetch=False)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    with plain_kernels(torch, t_attn):
+        ref = eng.decode_all(queries, abstract, fg, fetch=False)
+    torch.cuda.synchronize()
+    d_err = max_err(got[:, 0], ref[:, 0])
+    l2 = rel_l2(got, ref)
+    share, n, _, _ = flip_stats(got[:, 0], torch.tensor(got_f32[:, 0], device=dev))
+    launched = (counts['attn_bf16'] == 2 and counts['interp_bf16'] == 1
+                and all(counts[k] == 0 for k in _FAST_F32))
+    ok = (d_err <= 2e-3 and l2 <= 1e-3 and launched and bool(torch.isfinite(got).all()))
+    return dict(density_max_abs_err_vs_plain_bf16=d_err, rel_l2_vs_plain_bf16=l2,
+                tolerance='density 2e-3, relative L2 1e-3',
+                density_flip_share_vs_f32=share, density_flips_vs_f32=n,
+                launches={k: counts[k] for k in _FAST + _FAST_F32}, ok=ok)
+
+
 def decoder_wide(torch, t_attn, dev, smi):
     """Phase 11: decoders wider than one 416-column block of the attention
     forward tile, which the JAX CLI reaches with --pt_feat_dim 40 (D 448,
@@ -1765,17 +2051,21 @@ def decoder_wide(torch, t_attn, dev, smi):
         lines = wide_attention_lines(torch, t_attn, dev, rng, name,
                                      decoder.pt_blocks[0].layer2.kernel_params(), qxyz,
                                      abstract)
+        fast = fast_chunk_check(torch, t_attn, dev, encoder, decoder, cfg, queries, abstract,
+                                fg, got)
         ok = (d_err <= 1e-4 and bool(np.isfinite(got).all())
               and list(abstract.shape) == [1, 531, 3 + dec_args['d_latent_local']])
         out[name] = dict(D=D, E=dec_args['d_latent_local'], density_max_abs_err_vs_cpu=d_err,
                          all_channels_max_abs_err_vs_cpu=all_err, ok=ok,
-                         attention=lines)
+                         attention=lines, fast=fast)
         emit(dict(phase='decoder_wide', case=name, D=D, E=dec_args['d_latent_local'],
                   queries=_CHECK_CHUNK, density_max_abs_err_vs_cpu=d_err,
                   all_channels_max_abs_err_vs_cpu=all_err, tolerance='density 1e-4',
-                  ok=ok, gpu=smi))
+                  fast=fast, ok=ok and fast['ok'], gpu=smi))
         if not ok:
             raise AssertionError(f'decoder_wide {name}: error {d_err} vs the CPU')
+        if not fast['ok']:
+            raise AssertionError(f"decoder_wide {name}: precision='fast' failed: {fast}")
         del encoder, decoder, engine, cpu
         torch.cuda.empty_cache()
     # One Trainer step at D 448, batch 1, one frame.
@@ -1955,6 +2245,17 @@ def main():
         raise AssertionError(f'interp disagrees: max abs err {err}')
     rows['interp'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms, shape=[_CHUNK, 531, 8, E])
+    # Its bf16 mode on the same inputs (the features rounded as they load).
+    bf = torch.bfloat16
+    fb = t_attn.round_bf16(feats2)
+    rows['interp_bf16'] = interp_bf16_line(
+        torch, 'interp_bf16', lambda: t_attn.fused_knn_interp(qpos, pos2, feats2, 8,
+                                                              knn=(ki, kd), compute_dtype=bf),
+        lambda: t_attn.interp_plain(ki, kd, feats2, 8, 1e-4, bf),
+        lambda: torch.nn.functional.embedding_bag(ki8, fb[0], per_sample_weights=w,
+                                                  mode='sum'),
+        'embedding_bag of the bf16-rounded features (the rounding not timed)',
+        b_ms, b_by, [_CHUNK, 531, 8, E], ms, 2.0 * _CHUNK * 8 * E)
 
     att = decoder.pt_blocks[0].layer2
     params = att.kernel_params()
@@ -1975,10 +2276,17 @@ def main():
         name = 'attn' if premul else 'attn_per_row'
         row, _ = attn_fwd_line(torch, name, call, plain, macs, nbytes + _CHUNK * 14 * 4,
                                [_CHUNK, 531, 14, D, E])
+        # The bf16 mode on the same inputs, against its plain bf16 version.
+        row_bf, _ = attn_fwd_line(
+            torch, name.replace('attn', 'attn_bf16'),
+            lambda: t_attn._attn_cuda(qpos, q_proj, ki, pos2, kv, params, 14, premul, True),
+            lambda: t_attn.attn_plain(qpos, q_proj, ki, pos2, kv, params, 14, premul, bf),
+            macs, nbytes + _CHUNK * 14 * 4, [_CHUNK, 531, 14, D, E], bf16=True,
+            f32_call=call, f32_ms=row['ms'])
         if premul:
-            rows['attn'] = row
+            rows['attn'], rows['attn_bf16'] = row, row_bf
         else:
-            rows['attn']['per_row'] = row
+            rows['attn']['per_row'], rows['attn_bf16']['per_row'] = row, row_bf
 
     # K5 / K6 / K7: the backward kernels and the bidirectional 1-NN.
     check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows)
@@ -2039,6 +2347,10 @@ def main():
         raise AssertionError(f'kernels not launched on the main path: {missing}; '
                              f'shared-gather kernels launched at M = 531: {shared}')
     path_counts = {'main_path': counts}
+    # The f32 scene that the 'fast' scene of main_path_fast is held against.
+    f32_scenes = {'gv1': dict(density=out[:, 0].clone(), scene_ms=(t2 - t0) * 1e3,
+                              decode_ms=(t2 - t1) * 1e3, pcl=pcl, queries=queries,
+                              cfg=cfg, models=(encoder, decoder), seg=False)}
     del out
 
     # 4b. cv1 at full width over the CARLA grid: the shared-gather route.
@@ -2097,20 +2409,33 @@ def main():
         raise AssertionError(f'cv1 launches {counts} differ from {expect}')
     if not d_err <= 1e-4:
         raise AssertionError(f'cv1 density differs from the CPU run by {d_err}')
-    del out, cv1_encoder, cv1_decoder, engine, cpu
+    f32_scenes['cv1'] = dict(density=out[:, 0].clone(), scene_ms=(t2 - t0) * 1e3,
+                             decode_ms=(t2 - t1) * 1e3, pcl=pcl, queries=queries, cfg=ccfg,
+                             models=(cv1_encoder, cv1_decoder), seg=True)
+    del out, engine, cpu
+
+    # 4c. main_path_fast: both dense scenes again in precision='fast'.
+    path_counts['main_path_fast'] = {}
+    for name, f32 in f32_scenes.items():
+        for k, v in fast_scene(torch, dev, smi, name, f32).items():
+            path_counts['main_path_fast'][k] = path_counts['main_path_fast'].get(k, 0) + v
+    del f32_scenes, cv1_encoder, cv1_decoder
+    torch.cuda.empty_cache()
 
     # 5. Both anchors on the card, against the CPU plain versions; the
     # ground-truth labels through nn1_direct (the 'anchor' path's launches).
     path_counts['anchor'] = {}
     for name in ('anchor', 'anchor_carla'):
         path = os.path.join(_HERE, 'tests', 'assets', name, 'checkpoint.pkl')
-        res = {}
-        for device in ('cuda', 'cpu'):
+        res, fast_counts = {}, {}
+        for run, device, precision in (('cuda', 'cuda', 'auto'), ('cpu', 'cpu', 'auto'),
+                                       ('fast', 'cuda', 'fast')):
             L = load_models(path, device=device)
             c = L['train_config']
             seg = c.segmentation_lw > 0
             eng = InferenceEngine(L, c.color_mode, seg, c.semantic_classes,
-                                  track_mode='all', implicit_batch_size=_CHUNK)
+                                  track_mode='all', implicit_batch_size=_CHUNK,
+                                  precision=precision)
             r = np.random.RandomState(3)
             n = L['encoder_args']['n_input']
             cl = r.rand(n, 8).astype(np.float32) * 2 - 1
@@ -2121,15 +2446,18 @@ def main():
             if device == 'cuda':
                 torch.cuda.synchronize()
                 _build.reset_launch_counts()
-            res[device] = perform_inference(
+            res[run] = perform_inference(
                 cl, sem, tgt, eng, c.min_z, c.cr_cube_bounds, c.color_mode, 0,
                 num_sample=65536, point_sample_mode='grid', predict_segmentation=seg,
                 track_mode='all', semantic_classes=c.semantic_classes,
                 data_kind=L['data_kind'], cube_mode=c.cube_mode)
-            if device == 'cuda':
+            if run == 'cuda':
                 torch.cuda.synchronize()
                 for k, v in _build.launch_counts().items():
                     path_counts['anchor'][k] = path_counts['anchor'].get(k, 0) + v
+            elif run == 'fast':
+                torch.cuda.synchronize()
+                fast_counts = _build.launch_counts()
         g, cpu = res['cuda']['implicit_output'], res['cpu']['implicit_output']
         err = float(np.abs(g[:, 0] - cpu[:, 0]).max())
         far = np.abs(cpu[:, 0] - 0.5) > 1e-3
@@ -2137,16 +2465,29 @@ def main():
         # Labels and 1-NN target rows, query by query, equal to the CPU's.
         gt_g, gt_c = gt_per_query(res['cuda']), gt_per_query(res['cpu'])
         gt_equal = bool(np.array_equal(gt_g, gt_c))
-        ok = bool(np.isfinite(g).all()) and err <= 1e-4 and split_ok and gt_equal
+        # precision='fast' on the card against the f32 run: its flip share.
+        fast = res['fast']['implicit_output']
+        f_share, f_n, f_far32, f_far = flip_stats(torch.tensor(fast[:, 0]), torch.tensor(g[:, 0]))
+        fast_bf16 = (fast_counts.get('attn_bf16', 0) + fast_counts.get('attn_g_bf16', 0) > 0
+                     and all(fast_counts.get(k, 0) == 0 for k in _FAST_F32))
+        ok = bool(np.isfinite(g).all()) and err <= 1e-4 and split_ok and gt_equal \
+            and bool(np.isfinite(fast).all()) and fast.shape == g.shape and fast_bf16
         emit(dict(phase='anchor', name=name, queries=int(g.shape[0]),
                   reruns=res['cuda']['phase_s']['track_reruns'],
                   solid=int(len(res['cuda']['output_solid'])),
                   density_max_abs_err_vs_cpu=err, split_agrees=split_ok,
                   gt_labels_and_rows_equal_cpu=gt_equal,
                   gt_label_mismatches=int((gt_g[:, 0] != gt_c[:, 0]).sum()),
-                  gt_solid_labels=int(gt_g[:, 0].sum()), ok=ok))
+                  gt_solid_labels=int(gt_g[:, 0].sum()),
+                  fast_density_flip_share=f_share, fast_density_flips=f_n,
+                  fast_flip_max_abs_p_f32_minus_half=f_far32,
+                  fast_flip_max_abs_p_fast_minus_half=f_far,
+                  fast_density_max_abs_diff_vs_f32=float(np.abs(fast[:, 0] - g[:, 0]).max()),
+                  fast_launches={k: fast_counts.get(k, 0) for k in _FAST + _FAST_F32},
+                  ok=ok))
         if not ok:
-            raise AssertionError(f'{name}: GPU inference disagrees with the CPU run')
+            raise AssertionError(f'{name}: GPU inference disagrees with the CPU run, or the '
+                                 f"'fast' run failed (bf16 launches {fast_bf16})")
         if name == 'anchor':
             nn1_direct_line(torch, t_knn, dev, res['cuda']['points_query'], tgt,
                             'anchor_grid_x_target')

@@ -73,12 +73,35 @@
 // Every kernel is row-local, so the index route and the gathered route give
 // the same bits on the same rows, and no sum uses atomics.
 //
+// The bf16 compute mode, o4d_attn_bf16 and o4d_attn_g_bf16 (the TPU
+// kernels' compute_dtype=bfloat16, which the engine's precision='fast' runs):
+// _mm2 (pallas_attention.py:66) rounds both operands of every product to
+// bf16 and sums in f32. Here: the weights are rounded once per call (W1 and
+// W2 by the caller, the rest as the fragment kernels lay them out); the row
+// loader rounds every value of the key rows, positions included (the TPU
+// wrapper rounds its whole value matrix before the gather); theta_bf16_kernel
+// rounds rel and theta's hidden layer as operands (products of two bf16
+// values are exact in f32, so its FMA chains are the plain version's sums);
+// the tile rounds F, hpre and h once, as it writes them into shared memory,
+// and runs every product as one mma.sync m16n8k16 bf16 per 16-deep step,
+// f32 accumulation in the tensor core, no split: six times fewer mma
+// instructions than 3xTF32 and a 32-bit fragment register holding two
+// operands. The chunking, workspace, slab order and combine are the f32
+// mode's; the slabs are 52 KB (half as many barriers per tile), the row
+// loader reads 16 bytes a load and the epilogues store column pairs (the
+// f32 tile keeps its own). The logits, v, theta, the softmax and every
+// output stay f32. Bound: the same operations on the bf16 tensor cores (989
+// TFLOP/s): 0.66 ms per premul gv1 chunk; the tile is held back by its
+// unhidden row loads and per-slab synchronisation (PERF.md).
+//
 // o4d_sattn keeps PR 5's body (sattn_kernel): 32-row tiles, every product a
 // register-tiled f32 loop over weight tiles staged through shared memory.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attn_common.cuh"
 
@@ -292,6 +315,29 @@ constexpr int kMaxWidth =
     ((kSmemDynMax / 4 - kTileRows * kLdH - 2 * kSlab) / kTileRows - 4) / 8 * 8;
 static_assert(kMaxWidth == 560, "the shared-memory width limit moved");
 
+// The bf16 mode (o4d_attn_bf16 / o4d_attn_g_bf16): the rows and the h chunk
+// in shared memory as bf16, row strides 8 mod 16 elements (4 mod 8 words),
+// so that a lane's 32-bit fragment reads hit 32 distinct banks; the same
+// slab ring, each slab holding twice the depth (16-deep steps).
+// A bf16 slab is twice the f32 one (52 KB: four 16-deep steps of a wide B,
+// thirteen of A1): the per-slab barrier, wait and bookkeeping weigh more
+// against a bf16 step's few instructions (PERF.md).
+constexpr int kLdHB = kHC + 8;  // the bf16 h chunk [row][column]
+constexpr int kSlabBf16 = 2 * kSlab;
+
+size_t tile_smem_bytes(int D, int E, int stages, bool bf16) {
+  if (!bf16) return tile_smem_floats(D, E, stages) * sizeof(float);
+  const int W = 16 * max(cdiv(D, 16), cdiv(E, 16));
+  return 2 * ((size_t)kTileRows * (W + 8) + (size_t)kTileRows * kLdHB) +
+         sizeof(float) * (size_t)stages * kSlabBf16;
+}
+
+// The bf16 ring: three stages where they fit (every width up to 416), else
+// two (the depth measured within 4% either way; PERF.md).
+int tile_stages_bf16(int D, int E) {
+  return tile_smem_bytes(D, E, 3, true) <= (size_t)kSmemDynMax ? 3 : 2;
+}
+
 // B (K x N, row-major) in mma B-fragment order per column block of 8 NT
 // columns, zero past K and N: float2 ((cb KB + kb) NT + nt) 32 + lane,
 // lane = 4 gq + tq, holds b0 = B[8 kb + tq][n] and b1 = B[8 kb + tq + 4][n],
@@ -327,6 +373,47 @@ __global__ void frag_a1_kernel(const float* __restrict__ A1, int D, int H, int D
     v[x] = dd < D && hh < H ? A1[(size_t)dd * H + hh] : 0.f;
   }
   out[i] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Two f32 values rounded to bf16 in one 32-bit register, lo in the low half
+// (the lower k or column index of an mma fragment register).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// frag_b_kernel's counterpart for mma.sync m16n8k16 bf16, 16-deep steps:
+// uint2 ((cb KB + kb) NT + nt) 32 + lane holds {B[k][n], B[k + 1][n]} and
+// {B[k + 8][n], B[k + 9][n]}, k = 16 kb + 2 tq, n = 8 (cb NT + nt) + gq,
+// rounded to bf16 (the weights' one rounding), zero past K and N.
+__global__ void frag_b_bf16_kernel(const float* __restrict__ B, int K, int N, int KB, int NT,
+                                   int NCB, uint2* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)NCB * KB * NT * 32) return;
+  const int lane = (int)(i & 31), t = (int)(i >> 5), nt = t % NT, kb = (t / NT) % KB;
+  const int cb = t / NT / KB;
+  const int n = 8 * (cb * NT + nt) + (lane >> 2), k = 16 * kb + 2 * (lane & 3);
+  auto at = [&](int kk) { return kk < K && n < N ? B[(size_t)kk * N + n] : 0.f; };
+  out[i] = make_uint2(pack_bf16(at(k), at(k + 1)), pack_bf16(at(k + 8), at(k + 9)));
+}
+
+// frag_a1_kernel's counterpart for m16n8k16 bf16: A1^T per chunk of kHC
+// hidden columns, 16-deep steps; uint4 ((c D16 + kb) kHC / 16 + mt) 32 + lane
+// holds a0 = {A1[d][h], A1[d + 1][h]}, a1 = the same at h + 8, a2 = at d + 8,
+// a3 = at d + 8 and h + 8, with h = kHC c + 16 mt + gq, d = 16 kb + 2 tq;
+// rounded to bf16, zero past D and H.
+__global__ void frag_a1_bf16_kernel(const float* __restrict__ A1, int D, int H, int D16, int NC,
+                                    uint4* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int MT = kHC / 16;
+  if (i >= (long long)NC * D16 * MT * 32) return;
+  const int lane = (int)(i & 31), u = (int)(i >> 5);
+  const int mt = u % MT, kb = (u / MT) % D16, c = (u / MT) / D16;
+  const int h = c * kHC + 16 * mt + (lane >> 2), d = 16 * kb + 2 * (lane & 3);
+  auto at = [&](int dd, int hh) { return dd < D && hh < H ? A1[(size_t)dd * H + hh] : 0.f; };
+  out[i] = make_uint4(pack_bf16(at(d, h), at(d + 1, h)), pack_bf16(at(d, h + 8), at(d + 1, h + 8)),
+                      pack_bf16(at(d + 8, h), at(d + 9, h)),
+                      pack_bf16(at(d + 8, h + 8), at(d + 9, h + 8)));
 }
 
 // The ring's bulk copies (TMA, cp.async.bulk) and their mbarriers.
@@ -485,6 +572,97 @@ __device__ __forceinline__ void g1_steps(float (&acc)[kMT1][kNT1][4], const floa
   }
 }
 
+// c += a b, one m16n8k16 bf16 tensor-core product with f32 accumulation:
+// one instruction per 16-deep step, no split.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wide_steps in the bf16 mode: A (the tile's bf16 rows, row stride lda
+// elements) times `steps` 16-deep steps of a bf16 B slab, from step k16; a
+// lane's A and B fragments are 32-bit and 64-bit shared loads.
+__device__ __forceinline__ void wide_steps_bf16(float (&acc)[kMT][kNTW][4],
+                                                const __nv_bfloat16* A, int lda, int k16,
+                                                const float* slab, int steps, int nt0, int wm,
+                                                int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int kb = 0; kb < steps; ++kb) {
+    uint32_t a[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int m = (wm * kMT + mt) * 16 + gq + 8 * (h & 1);
+        const int kx = 16 * (k16 + kb) + 2 * tq + 8 * (h >> 1);
+        a[mt][h] = *reinterpret_cast<const uint32_t*>(A + m * lda + kx);
+      }
+    const uint2* bs = reinterpret_cast<const uint2*>(slab) + ((size_t)kb * kMaxNT + nt0) * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < kNTW; ++i) {
+      const uint2 w = bs[i * 32];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) mma_bf16(acc[mt][i], a[mt], w.x, w.y);
+    }
+  }
+}
+
+// g1_steps in the bf16 mode: A1^T from a bf16 slab (one 16-byte load per
+// m-tile) times hpre^T (the tile's bf16 rows X, row stride ldx elements).
+template <int kMaxSteps>
+__device__ __forceinline__ void g1_steps_bf16(float (&acc)[kMT1][kNT1][4], const float* slab,
+                                              int steps, const __nv_bfloat16* X, int ldx, int k16,
+                                              int wm, int wn, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int kb = 0; kb < kMaxSteps; ++kb) {
+    if (kb >= steps) break;
+    uint32_t a[kMT1][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT1; ++mt) {
+      const uint4 v =
+          reinterpret_cast<const uint4*>(slab)[((size_t)kb * (kHC / 16) + wm * kMT1 + mt) * 32 +
+                                               lane];
+      a[mt][0] = v.x, a[mt][1] = v.y, a[mt][2] = v.z, a[mt][3] = v.w;
+    }
+    uint32_t b[kNT1][2];
+#pragma unroll
+    for (int nt = 0; nt < kNT1; ++nt) {
+      const __nv_bfloat16* row = X + (wn * 8 * kNT1 + nt * 8 + gq) * ldx + 16 * (k16 + kb) + 2 * tq;
+      b[nt][0] = *reinterpret_cast<const uint32_t*>(row);
+      b[nt][1] = *reinterpret_cast<const uint32_t*>(row + 8);
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT1; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT1; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+  }
+}
+
+// A value into the tile's rows: f32 as is, or rounded once to bf16.
+template <typename T>
+__device__ __forceinline__ T to_row(float v) {
+  if constexpr (sizeof(T) == 2)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
+// d[0] = a and d[1] = b for the columns n, n + 1 below `limit`, as one
+// 8-byte store where both are (d 8-byte aligned when `even`).
+__device__ __forceinline__ void store_pair(float* d, int n, int limit, bool even, float a,
+                                           float b) {
+  if (even && n + 1 < limit) {
+    *reinterpret_cast<float2*>(d) = make_float2(a, b);
+  } else {
+    if (n < limit) d[0] = a;
+    if (n + 1 < limit) d[1] = b;
+  }
+}
+
 // One B slab of the tile's stream: its source, k8 steps and bytes.
 struct Slab {
   const float* src;
@@ -500,17 +678,30 @@ struct Slab {
 // and reloads it whole, and gamma's first layer is recomputed per column
 // block: the softmax is per channel, so the blocks' logits are independent
 // once h is known, and h (64 x H) does not fit beside the rows.
-template <int kFwdStages>
+// BF16: the bf16 compute mode. F, hpre and h are rounded to bf16 once, as
+// they are written into shared memory (where the TPU kernel casts each
+// product's operand), every product is one m16n8k16 bf16 mma per 16-deep
+// step with f32 accumulation, and the slabs hold the weights rounded to
+// bf16 in that mma's fragment order (frag_b_bf16_kernel,
+// frag_a1_bf16_kernel). The variables named for 8-deep steps (D8, k8, ...)
+// count 16-deep steps there; the slab stream is otherwise the same.
+template <int kFwdStages, bool BF16>
 __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
+  using T = std::conditional_t<BF16, __nv_bfloat16, float>;  // the rows' type
+  constexpr int KD = BF16 ? 16 : 8;                          // depth of one step
+  constexpr int kLdHT = BF16 ? kLdHB : kLdH;
+  constexpr int kHK = kHC / KD;  // steps of gamma's second layer per chunk
+  constexpr int kSlabT = BF16 ? kSlabBf16 : kSlab;  // floats per ring stage
+  constexpr int kA1S = kSlabT / kA1Step;            // A1 steps per slab
   extern __shared__ __align__(16) float smf[];
   __shared__ __align__(8) uint64_t full[kFwdStages];  // a slab has landed in the stage
   constexpr int NT = kMaxNT;
   const int D = p.D, E = p.E, H = p.H;
-  const int D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NCB = cdiv(D, kColBlock);
-  const int W8 = 8 * max(D8, E8), ldx = W8 + 4;
-  float* X = smf;                       // F (per-row mode), then hpre
-  float* Hs = X + kTileRows * ldx;      // h chunk [row][hidden column]
-  float* ring = Hs + kTileRows * kLdH;  // kFwdStages B slabs
+  const int D8 = cdiv(D, KD), E8 = cdiv(E, KD), NC = cdiv(H, kHC), NCB = cdiv(D, kColBlock);
+  const int W8 = KD * max(D8, E8), ldx = W8 + (BF16 ? 8 : 4);
+  T* X = reinterpret_cast<T*>(smf);    // F (per-row mode), then hpre
+  T* Hs = X + kTileRows * ldx;         // h chunk [row][hidden column]
+  float* ring = reinterpret_cast<float*>(Hs + kTileRows * kLdHT);  // kFwdStages B slabs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int wm = warp >> 2, wn = warp & 3, nt0 = wn * kNTW;
@@ -520,10 +711,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   // The B slabs in stream order: per-row mode's Wv then Wk (nw each) per
   // column block, then per column block and hidden chunk A1's (n1) and A2's
   // (n2; the last chunk's K8L k8 steps in n2l).
-  constexpr int kbw = kSlab / (NT * 64);  // k8 steps per slab of a wide B
+  constexpr int kbw = kSlabT / (NT * 64);  // k8 steps per slab of a wide B
   const int nw = perrow ? cdiv(E8, kbw) : 0;
-  const int K8L = cdiv(H - (NC - 1) * kHC, 8);
-  const int n1 = cdiv(D8, kA1Steps), n2 = cdiv(kHK8, kbw), n2l = cdiv(K8L, kbw);
+  const int K8L = cdiv(H - (NC - 1) * kHC, KD);
+  const int n1 = cdiv(D8, kA1S), n2 = cdiv(kHK, kbw), n2l = cdiv(K8L, kbw);
   const int per_cb = (NC - 1) * (n1 + n2) + n1 + n2l;  // gamma's slabs per column block
   const int total = NCB * (2 * nw + per_cb);
   auto slab = [&](int s) {
@@ -541,13 +732,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
     s -= cb * per_cb;
     const int c = min(s / (n1 + n2), NC - 1), i = s - c * (n1 + n2);
     if (i < n1) {
-      x.steps = min(kA1Steps, D8 - i * kA1Steps);
-      x.src = p.a1 + ((size_t)c * D8 + i * kA1Steps) * kA1Step;
+      x.steps = min(kA1S, D8 - i * kA1S);
+      x.src = p.a1 + ((size_t)c * D8 + i * kA1S) * kA1Step;
       x.bytes = x.steps * kA1Step * 4;
     } else {
       const int j = i - n1;
-      x.steps = min(kbw, (c < NC - 1 ? kHK8 : K8L) - j * kbw);
-      x.src = p.a2 + ((size_t)(cb * NC + c) * kHK8 + j * kbw) * NT * 64;
+      x.steps = min(kbw, (c < NC - 1 ? kHK : K8L) - j * kbw);
+      x.src = p.a2 + ((size_t)(cb * NC + c) * kHK + j * kbw) * NT * 64;
       x.bytes = x.steps * NT * 64 * 4;
     }
     return x;
@@ -555,7 +746,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   // Thread 0 issues slab s into its stage as one bulk copy.
   auto load = [&](int s) {
     const Slab x = slab(s);
-    bulk_load(ring + (s % kFwdStages) * kSlab, x.src, x.bytes, &full[s % kFwdStages]);
+    bulk_load(ring + (s % kFwdStages) * kSlabT, x.src, x.bytes, &full[s % kFwdStages]);
   };
   int s_next = 0;  // the next slab to consume
   // One barrier (every warp is done with the stage the refill overwrites),
@@ -565,7 +756,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
     if (tid == 0 && s_next + kFwdStages - 1 < total) load(s_next + kFwdStages - 1);
     mbar_wait(&full[s_next % kFwdStages], (s_next / kFwdStages) & 1);
     steps = slab(s_next).steps;
-    const float* r = ring + (s_next % kFwdStages) * kSlab;
+    const float* r = ring + (s_next % kFwdStages) * kSlabT;
     ++s_next;
     return r;
   };
@@ -578,21 +769,83 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
 
   // The tile's rows: F (per-row), or hpre = (q - k) + theta (premul); zero
   // past the widths and past the chunk's rows.
-  for (int idx = tid; idx < kTileRows * W8; idx += kFwdThreads) {
-    const int r = idx / W8, c = idx - r * W8;
-    float v = 0.f;
-    if (r < rows) {
-      const size_t row = (size_t)(r0 + r);
-      if (perrow) {
-        if (c < E) v = p.f[row * E + c];
-      } else if (c < D) {
-        v = (p.q[(row / p.k) * D + c] - p.kk[row * D + c]) + p.th[row * D + c];
+  if constexpr (BF16) {
+    // Four columns a thread, 16-byte loads where aligned, the query row
+    // once per four (32-bit: a chunk has fewer than 2^31 rows); one 8-byte
+    // store of the four rounded values. (The f32 mode's per-element loop
+    // with its 64-bit division took a third of this tile's time.)
+    const int W4 = W8 / 4;
+    const bool vec = perrow ? E % 4 == 0 && ((uintptr_t)p.f & 15) == 0
+                            : D % 4 == 0 && (((uintptr_t)p.q | (uintptr_t)p.kk |
+                                              (uintptr_t)p.th) & 15) == 0;
+    for (int idx = tid; idx < kTileRows * W4; idx += kFwdThreads) {
+      const int r = idx / W4, c = 4 * (idx - r * W4);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < rows) {
+        const int row = r0 + r;
+        if (perrow) {
+          const float* f = p.f + (size_t)row * E + c;
+          if (vec && c + 4 <= E) {
+            const float4 x = *reinterpret_cast<const float4*>(f);
+            v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+          } else {
+            for (int u = 0; u < 4; ++u)
+              if (c + u < E) v[u] = f[u];
+          }
+        } else {
+          const float* q = p.q + (size_t)(row / p.k) * D + c;
+          const float* kk = p.kk + (size_t)row * D + c;
+          const float* th = p.th + (size_t)row * D + c;
+          if (vec && c + 4 <= D) {
+            const float4 a = *reinterpret_cast<const float4*>(q);
+            const float4 b = *reinterpret_cast<const float4*>(kk);
+            const float4 t = *reinterpret_cast<const float4*>(th);
+            v[0] = (a.x - b.x) + t.x, v[1] = (a.y - b.y) + t.y;
+            v[2] = (a.z - b.z) + t.z, v[3] = (a.w - b.w) + t.w;
+          } else {
+            for (int u = 0; u < 4; ++u)
+              if (c + u < D) v[u] = (q[u] - kk[u]) + th[u];
+          }
+        }
       }
+      *reinterpret_cast<uint2*>(X + r * ldx + c) =
+          make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
     }
-    X[r * ldx + c] = v;
+  } else {
+    for (int idx = tid; idx < kTileRows * W8; idx += kFwdThreads) {
+      const int r = idx / W8, c = idx - r * W8;
+      float v = 0.f;
+      if (r < rows) {
+        const size_t row = (size_t)(r0 + r);
+        if (perrow) {
+          if (c < E) v = p.f[row * E + c];
+        } else if (c < D) {
+          v = (p.q[(row / p.k) * D + c] - p.kk[row * D + c]) + p.th[row * D + c];
+        }
+      }
+      X[r * ldx + c] = to_row<T>(v);
+    }
   }
+  // BF16's epilogues: a thread's accumulator pairs (c, c + 1) are columns n,
+  // n + 1 of one row, stored as 8-byte pairs; hpre's query row in 32 bits.
+  const bool evenD = (D & 1) == 0;
+  auto hpre_pair = [&](int m, int n, float a0, float a1, float& v0, float& v1) {
+    const int row = r0 + m;
+    const float* q = p.q + (size_t)(row / p.k) * D;
+    const float* th = p.th + (size_t)row * D;
+    v0 = n < D ? (q[n] - a0) + th[n] : 0.f;
+    v1 = n + 1 < D ? (q[n + 1] - a1) + th[n + 1] : 0.f;
+  };
 
   float acc[kMT][kNTW][4];
+  // The wide product of the tile's rows A (row stride lda) with `steps`
+  // steps of slab b from step k8.
+  auto wide = [&](const T* A, int lda, int k8, const float* b, int steps) {
+    if constexpr (BF16)
+      wide_steps_bf16(acc, A, lda, k8, b, steps, nt0, wm, lane);
+    else
+      wide_steps(acc, A, lda, k8, b, steps, nt0, wm, lane);
+  };
   int steps;
   if (perrow) {
     for (int cb = 0; cb < NCB; ++cb) {
@@ -601,9 +854,22 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
         zero_acc(acc);
         for (int i = 0, k8 = 0; i < nw; ++i, k8 += steps) {
           const float* b = acquire(steps);
-          wide_steps(acc, X, ldx, k8, b, steps, nt0, wm, lane);
+          wide(X, ldx, k8, b, steps);
         }
-        if (which == 0) {
+        if (which == 0 && BF16) {
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
+                const int n = col0 + 8 * (nt0 + i) + 2 * tq;
+                if (m < rows)
+                  store_pair(p.vv + (size_t)(r0 + m) * D + n, n, D, evenD, acc[mt][i][2 * h],
+                             acc[mt][i][2 * h + 1]);
+              }
+        } else if (which == 0) {
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -616,7 +882,22 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
               }
         }
       }
-      if (NCB > 1) {  // this block's hpre into the tile's rows of lg.
+      if (NCB > 1 && BF16) {  // this block's hpre into the tile's rows of lg.
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
+              const int n = col0 + 8 * (nt0 + i) + 2 * tq;
+              if (m < rows) {
+                float v0, v1;
+                hpre_pair(m, n, acc[mt][i][2 * h], acc[mt][i][2 * h + 1], v0, v1);
+                store_pair(p.lg + (size_t)(r0 + m) * D + n, n, D, evenD, v0, v1);
+              }
+            }
+      } else if (NCB > 1) {
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -634,10 +915,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
     }
     __syncthreads();  // every warp is done reading F (and its hpre stores are visible).
     if (NCB > 1) {
-      for (int idx = tid; idx < kTileRows * 8 * D8; idx += kFwdThreads) {
-        const int m = idx / (8 * D8), n = idx - m * 8 * D8;
-        X[m * ldx + n] = m < rows && n < D ? p.lg[(size_t)(r0 + m) * D + n] : 0.f;
+      for (int idx = tid; idx < kTileRows * KD * D8; idx += kFwdThreads) {
+        const int m = idx / (KD * D8), n = idx - m * KD * D8;
+        X[m * ldx + n] = to_row<T>(m < rows && n < D ? p.lg[(size_t)(r0 + m) * D + n] : 0.f);
       }
+    } else if constexpr (BF16) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
+            const int n = 8 * (nt0 + i) + 2 * tq;
+            if (n < KD * D8) {  // GEMM1 reads hpre's D8 steps (n even: n + 1 too).
+              float v0 = 0.f, v1 = 0.f;
+              if (m < rows) hpre_pair(m, n, acc[mt][i][2 * h], acc[mt][i][2 * h + 1], v0, v1);
+              *reinterpret_cast<uint32_t*>(X + m * ldx + n) = pack_bf16(v0, v1);
+            }
+          }
     } else {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
@@ -647,13 +943,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
           for (int c = 0; c < 4; ++c) {
             const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
             const int n = 8 * (nt0 + i) + 2 * tq + (c & 1);
-            if (n < 8 * D8) {  // GEMM1 reads hpre's D8 k8 steps.
+            if (n < KD * D8) {  // GEMM1 reads hpre's D8 steps.
               float v = 0.f;
               if (m < rows && n < D) {
                 const size_t row = (size_t)(r0 + m);
                 v = (p.q[(row / p.k) * D + n] - acc[mt][i][c]) + p.th[row * D + n];
               }
-              X[m * ldx + n] = v;
+              X[m * ldx + n] = to_row<T>(v);
             }
           }
     }
@@ -678,7 +974,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
           for (int x = 0; x < 4; ++x) acc1[mt][nt][x] = 0.f;
       for (int i = 0, k8 = 0; i < n1; ++i, k8 += steps) {
         const float* a = acquire(steps);
-        if (live) g1_steps(acc1, a, steps, X, ldx, k8, w1m, w1n, lane);
+        if (live) {
+          if constexpr (BF16)
+            g1_steps_bf16<kA1S>(acc1, a, steps, X, ldx, k8, w1m, w1n, lane);
+          else
+            g1_steps(acc1, a, steps, X, ldx, k8, w1m, w1n, lane);
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < kMT1; ++mt)
@@ -687,26 +988,120 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
           const int hc = (w1m * kMT1 + mt) * 16 + gq, row = w1n * 8 * kNT1 + nt * 8 + 2 * tq;
           const int h = c * kHC + hc;
           const float b0 = h < H ? p.c1[h] : 0.f, b1 = h + 8 < H ? p.c1[h + 8] : 0.f;
-          Hs[row * kLdH + hc] = fmaxf(acc1[mt][nt][0] + b0, 0.f);
-          Hs[(row + 1) * kLdH + hc] = fmaxf(acc1[mt][nt][1] + b0, 0.f);
-          Hs[row * kLdH + hc + 8] = fmaxf(acc1[mt][nt][2] + b1, 0.f);
-          Hs[(row + 1) * kLdH + hc + 8] = fmaxf(acc1[mt][nt][3] + b1, 0.f);
+          Hs[row * kLdHT + hc] = to_row<T>(fmaxf(acc1[mt][nt][0] + b0, 0.f));
+          Hs[(row + 1) * kLdHT + hc] = to_row<T>(fmaxf(acc1[mt][nt][1] + b0, 0.f));
+          Hs[row * kLdHT + hc + 8] = to_row<T>(fmaxf(acc1[mt][nt][2] + b1, 0.f));
+          Hs[(row + 1) * kLdHT + hc + 8] = to_row<T>(fmaxf(acc1[mt][nt][3] + b1, 0.f));
         }
       for (int i = 0, k8 = 0; i < (c < NC - 1 ? n2 : n2l); ++i, k8 += steps) {
         const float* b = acquire(steps);
-        wide_steps(acc, Hs, kLdH, k8, b, steps, nt0, wm, lane);
+        wide(Hs, kLdHT, k8, b, steps);
       }
     }
+    if constexpr (BF16) {
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int i = 0; i < kNTW; ++i)
+        for (int i = 0; i < kNTW; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
-          const int n = col0 + 8 * (nt0 + i) + 2 * tq + (c & 1);
-          if (m < rows && n < D) p.lg[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
+          for (int h = 0; h < 2; ++h) {
+            const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
+            const int n = col0 + 8 * (nt0 + i) + 2 * tq;
+            if (m < rows)
+              store_pair(p.lg + (size_t)(r0 + m) * D + n, n, D, evenD, acc[mt][i][2 * h],
+                         acc[mt][i][2 * h + 1]);
+          }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
+            const int n = col0 + 8 * (nt0 + i) + 2 * tq + (c & 1);
+            if (m < rows && n < D) p.lg[(size_t)(r0 + m) * D + n] = acc[mt][i][c];
+          }
+    }
+  }
+}
+
+// theta in the bf16 mode, both layers in one pass: ph = bf16(relu(bf16(rel)
+// W1 + b1)) and th = ph W2 + b2, W2 (P x D) in shared memory, each block
+// walking kThetaRows-row groups of its rows; a thread's outputs are four
+// consecutive columns of eight rows (each W2 load serves 32 FMAs), each an
+// FMA chain over k = 0 ... P - 1 from zero, then + b2: the f32 mode's
+// sums (pos_hidden_kernel, then the FMA GEMM) on the rounded operands,
+// without the ph round trip and with 16-byte stores (the GEMM's stores of
+// this thin product ran at a quarter of their width: 1.3 ms per gv1 chunk
+// against 0.23 of bound).
+constexpr int kThetaRows = 64;
+constexpr int kThetaRowsPerBlock = 512;
+
+size_t theta_smem_bytes(int P, int D) {
+  return sizeof(float) * ((size_t)P * D + (size_t)kThetaRows * P);
+}
+
+__global__ void __launch_bounds__(256) theta_bf16_kernel(const float* __restrict__ rel,
+                                                         const float* __restrict__ w1,
+                                                         const float* __restrict__ b1,
+                                                         const float* __restrict__ w2,
+                                                         const float* __restrict__ b2,
+                                                         float* __restrict__ th, int R, int P,
+                                                         int D) {
+  extern __shared__ __align__(16) float sth[];
+  float* W2 = sth;                 // (P, D)
+  float* ph = sth + (size_t)P * D;  // (kThetaRows, P)
+  for (int i = threadIdx.x; i < P * D; i += blockDim.x) W2[i] = w2[i];
+  const int D4 = (D + 3) / 4;
+  const bool vec = D % 4 == 0;
+  const int row_end = min(R, (blockIdx.x + 1) * kThetaRowsPerBlock);
+  for (int g0 = blockIdx.x * kThetaRowsPerBlock; g0 < row_end; g0 += kThetaRows) {
+    const int nr = min(kThetaRows, row_end - g0);
+    __syncthreads();  // W2 is in, and the last group's ph is read.
+    for (int i = threadIdx.x; i < nr * P; i += blockDim.x) {
+      const int r = i / P, c = i - r * P;
+      float acc = 0.f;
+      for (int kk = 0; kk < 3; ++kk)
+        acc = fmaf(round_bf16(rel[(size_t)(g0 + r) * 3 + kk]), w1[kk * P + c], acc);
+      ph[i] = round_bf16(fmaxf(acc + b1[c], 0.f));
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < (kThetaRows / 8) * D4; i += blockDim.x) {
+      const int rb = 8 * (i / D4), c = 4 * (i - (rb / 8) * D4);
+      if (rb >= nr) continue;
+      float acc[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
+      for (int kk = 0; kk < P; ++kk) {
+        float w[4];
+        if (vec) {
+          const float4 x = *reinterpret_cast<const float4*>(W2 + kk * D + c);
+          w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) w[u] = c + u < D ? W2[kk * D + c + u] : 0.f;
         }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float a = ph[(rb + r) * P + kk];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(a, w[u], acc[r][u]);
+        }
+      }
+      for (int r = 0; r < 8 && rb + r < nr; ++r) {
+        float* out = th + (size_t)(g0 + rb + r) * D + c;
+        if (vec) {
+          *reinterpret_cast<float4*>(out) = make_float4(acc[r][0] + b2[c], acc[r][1] + b2[c + 1],
+                                                        acc[r][2] + b2[c + 2],
+                                                        acc[r][3] + b2[c + 3]);
+        } else {
+          for (int u = 0; u < 4 && c + u < D; ++u) out[u] = acc[r][u] + b2[c + u];
+        }
+      }
+    }
   }
 }
 
@@ -785,42 +1180,74 @@ struct FwdCall {
   int B, H, P, QC;
 };
 
-template <int MODE>
+// BF16: the bf16 compute mode (o4d_attn_bf16 / o4d_attn_g_bf16). The
+// caller passes W1 and W2 already rounded to bf16; the row loader rounds the
+// key rows, theta's hidden layer its operands, the fragment kernels the
+// other weights, the tile its rows. theta, v, the logits, the softmax and
+// every sum stay f32, and the workspace and chunking are the f32 mode's.
+template <int MODE, bool BF16>
 int run_fwd(const FwdCall& p, cudaStream_t s) {
   const int N = p.src.N, D = p.src.D, E = p.src.E, k = p.src.k, H = p.H, P = p.P;
   const bool premul = MODE == kIndex && p.src.premul;
-  const int D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NT = kMaxNT;
+  const int NC = cdiv(H, kHC), NT = kMaxNT;
   const int NCB = cdiv(D, kColBlock);
   long long used;
   const FwdWs w = carve_fwd(p.ws, (long long)p.QC * k, D, E, H, P, premul, &used);
-  const int stages = tile_stages(D, E);
-  const size_t smem = tile_smem_floats(D, E, stages) * sizeof(float);
-  auto tile = stages == 3 ? attn_tile_kernel<3> : attn_tile_kernel<2>;
+  const int stages = BF16 ? tile_stages_bf16(D, E) : tile_stages(D, E);
+  const size_t smem = tile_smem_bytes(D, E, stages, BF16);
+  if (smem > (size_t)kSmemDynMax) return (int)cudaErrorInvalidValue;
+  auto tile = stages == 3 ? attn_tile_kernel<3, BF16> : attn_tile_kernel<2, BF16>;
+  const size_t theta_smem = theta_smem_bytes(P, D);
+  if (BF16) {
+    if (theta_smem > (size_t)kSmemDynMax) return (int)cudaErrorInvalidValue;
+    O4D_TRY(cudaFuncSetAttribute(theta_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)theta_smem));
+  }
   O4D_TRY(cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   // The weights in fragment order, once per call.
-  if (!premul) {
-    frag_b_kernel<<<blocks_for((long long)NCB * E8 * NT * 32, 256), 256, 0, s>>>(
-        p.wv, E, D, E8, NT, NCB, reinterpret_cast<float2*>(w.wv));
-    frag_b_kernel<<<blocks_for((long long)NCB * E8 * NT * 32, 256), 256, 0, s>>>(
-        p.wk, E, D, E8, NT, NCB, reinterpret_cast<float2*>(w.wk));
+  if constexpr (BF16) {
+    const int D16 = cdiv(D, 16), E16 = cdiv(E, 16), HK = kHC / 16;
+    if (!premul) {
+      frag_b_bf16_kernel<<<blocks_for((long long)NCB * E16 * NT * 32, 256), 256, 0, s>>>(
+          p.wv, E, D, E16, NT, NCB, reinterpret_cast<uint2*>(w.wv));
+      frag_b_bf16_kernel<<<blocks_for((long long)NCB * E16 * NT * 32, 256), 256, 0, s>>>(
+          p.wk, E, D, E16, NT, NCB, reinterpret_cast<uint2*>(w.wk));
+    }
+    frag_a1_bf16_kernel<<<blocks_for((long long)NC * D16 * (kHC / 16) * 32, 256), 256, 0, s>>>(
+        p.wa1, D, H, D16, NC, reinterpret_cast<uint4*>(w.a1));
+    frag_b_bf16_kernel<<<blocks_for((long long)NCB * NC * HK * NT * 32, 256), 256, 0, s>>>(
+        p.wa2, H, D, NC * HK, NT, NCB, reinterpret_cast<uint2*>(w.a2));
+  } else {
+    const int D8 = cdiv(D, 8), E8 = cdiv(E, 8);
+    if (!premul) {
+      frag_b_kernel<<<blocks_for((long long)NCB * E8 * NT * 32, 256), 256, 0, s>>>(
+          p.wv, E, D, E8, NT, NCB, reinterpret_cast<float2*>(w.wv));
+      frag_b_kernel<<<blocks_for((long long)NCB * E8 * NT * 32, 256), 256, 0, s>>>(
+          p.wk, E, D, E8, NT, NCB, reinterpret_cast<float2*>(w.wk));
+    }
+    frag_a1_kernel<<<blocks_for((long long)NC * D8 * (kHC / 16) * 32, 256), 256, 0, s>>>(
+        p.wa1, D, H, D8, NC, reinterpret_cast<float4*>(w.a1));
+    frag_b_kernel<<<blocks_for((long long)NCB * NC * kHK8 * NT * 32, 256), 256, 0, s>>>(
+        p.wa2, H, D, NC * kHK8, NT, NCB, reinterpret_cast<float2*>(w.a2));
   }
-  frag_a1_kernel<<<blocks_for((long long)NC * D8 * (kHC / 16) * 32, 256), 256, 0, s>>>(
-      p.wa1, D, H, D8, NC, reinterpret_cast<float4*>(w.a1));
-  frag_b_kernel<<<blocks_for((long long)NCB * NC * kHK8 * NT * 32, 256), 256, 0, s>>>(
-      p.wa2, H, D, NC * kHK8, NT, NCB, reinterpret_cast<float2*>(w.a2));
   const float inv_sqrt_d = 1.0f / sqrtf((float)D);
   for (int b = 0; b < p.B; ++b) {
     for (int n0 = 0; n0 < N; n0 += p.QC) {
       const int nq = min(p.QC, N - n0), R = nq * k;
       const size_t q0 = (size_t)b * N + n0;  // the chunk's first query.
-      load_rows_kernel<MODE><<<blocks_for(R, 8), 256, 0, s>>>(
+      load_rows_kernel<MODE, BF16><<<blocks_for(R, 8), 256, 0, s>>>(
           p.src, RowDst{w.rel, w.f, w.kk, w.vv}, b, n0, R);
-      pos_hidden_kernel<<<blocks_for((long long)R * P, 256), 256, 0, s>>>(w.rel, p.wp1, p.bp1,
-                                                                         w.ph, R, P);
-      // theta = ph W2 + b2 as FMA chains in k order.
-      GemmArgs a = gemm_args(w.ph, P, p.wp2, D, w.th, D, R, D, P);
-      a.bias = p.bp2;
-      O4D_TRY((gemm<false, false, true>(a, 1, s)));
+      if constexpr (BF16) {
+        theta_bf16_kernel<<<blocks_for(R, kThetaRowsPerBlock), 256, theta_smem, s>>>(
+            w.rel, p.wp1, p.bp1, p.wp2, p.bp2, w.th, R, P, D);
+      } else {
+        pos_hidden_kernel<<<blocks_for((long long)R * P, 256), 256, 0, s>>>(
+            w.rel, p.wp1, p.bp1, w.ph, R, P);
+        // theta = ph W2 + b2 as FMA chains in k order.
+        GemmArgs a = gemm_args(w.ph, P, p.wp2, D, w.th, D, R, D, P);
+        a.bias = p.bp2;
+        O4D_TRY((gemm<false, false, true>(a, 1, s)));
+      }
       const TileArgs t{p.qproj + q0 * D, w.th, w.kk, w.f, w.vv, w.lg, w.wv, w.wk, w.a1, w.a2,
                        p.ba1, R, D, E, H, k, premul ? 1 : 0};
       tile<<<cdiv(R, kTileRows), kFwdThreads, smem, s>>>(t);
@@ -898,16 +1325,14 @@ extern "C" long long o4d_sattn_smem_bytes(int D, int E, int P) {
   return (long long)(sattn_smem_floats(D, E, P) * sizeof(float));
 }
 
-// Inputs: qpos (B, N, 3), qproj (B, N, D), ki (B, N, KS) int32, kpos (B, M, 3),
-// kv (premul: (B, M, 2D) [k | v]; per-row: (B, M, E)), wk / wv (E, D, per-row
-// only), the MLP weights; out (B, N, D); ws: o4d_attn_plan's workspace for QC.
-extern "C" int o4d_attn(const void* qpos, const void* qproj, const void* ki,
-                        const void* kpos, const void* kv, const void* wk,
-                        const void* wv, const void* wp1, const void* bp1,
-                        const void* wp2, const void* bp2, const void* wa1,
-                        const void* ba1, const void* wa2, const void* ba2,
-                        void* out, void* ws, int B, int N, int M, int D, int E, int H,
-                        int P, int KS, int k, int premul, int QC, void* stream) {
+namespace {
+
+template <bool BF16>
+int attn_index(const void* qpos, const void* qproj, const void* ki, const void* kpos,
+               const void* kv, const void* wk, const void* wv, const void* wp1, const void* bp1,
+               const void* wp2, const void* bp2, const void* wa1, const void* ba1, const void* wa2,
+               const void* ba2, void* out, void* ws, int B, int N, int M, int D, int E, int H,
+               int P, int KS, int k, int premul, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (!fwd_shape_ok(B, N, D, E, k, QC) || k > KS) return (int)cudaErrorInvalidValue;
   FwdCall c = fwd_call(qproj, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, ws, B, N,
@@ -919,17 +1344,15 @@ extern "C" int o4d_attn(const void* qpos, const void* qproj, const void* ki,
   c.src.M = M;
   c.src.KS = KS;
   c.src.premul = premul;
-  return run_fwd<kIndex>(c, (cudaStream_t)stream);
+  return run_fwd<kIndex, BF16>(c, (cudaStream_t)stream);
 }
 
-// o4d_attn over the shared gather's rows: g (B, KE, N, E + 3) replaces ki,
-// kpos and kv; per-row mode only.
-extern "C" int o4d_attn_g(const void* qpos, const void* qproj, const void* g,
-                          const void* wk, const void* wv, const void* wp1,
-                          const void* bp1, const void* wp2, const void* bp2,
-                          const void* wa1, const void* ba1, const void* wa2,
-                          const void* ba2, void* out, void* ws, int B, int N, int D,
-                          int E, int H, int P, int KE, int k, int QC, void* stream) {
+template <bool BF16>
+int attn_gathered(const void* qpos, const void* qproj, const void* g, const void* wk,
+                  const void* wv, const void* wp1, const void* bp1, const void* wp2,
+                  const void* bp2, const void* wa1, const void* ba1, const void* wa2,
+                  const void* ba2, void* out, void* ws, int B, int N, int D, int E, int H, int P,
+                  int KE, int k, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (!fwd_shape_ok(B, N, D, E, k, QC) || k > KE) return (int)cudaErrorInvalidValue;
   FwdCall c = fwd_call(qproj, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, ws, B, N,
@@ -937,7 +1360,57 @@ extern "C" int o4d_attn_g(const void* qpos, const void* qproj, const void* g,
   c.src.qpos = (const float*)qpos;
   c.src.gin = (const float*)g;
   c.src.KE = KE;
-  return run_fwd<kGathered>(c, (cudaStream_t)stream);
+  return run_fwd<kGathered, BF16>(c, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// Inputs: qpos (B, N, 3), qproj (B, N, D), ki (B, N, KS) int32, kpos (B, M, 3),
+// kv (premul: (B, M, 2D) [k | v]; per-row: (B, M, E)), wk / wv (E, D, per-row
+// only), the MLP weights; out (B, N, D); ws: o4d_attn_plan's workspace for QC.
+extern "C" int o4d_attn(const void* qpos, const void* qproj, const void* ki, const void* kpos,
+                        const void* kv, const void* wk, const void* wv, const void* wp1,
+                        const void* bp1, const void* wp2, const void* bp2, const void* wa1,
+                        const void* ba1, const void* wa2, const void* ba2, void* out, void* ws,
+                        int B, int N, int M, int D, int E, int H, int P, int KS, int k, int premul,
+                        int QC, void* stream) {
+  return attn_index<false>(qpos, qproj, ki, kpos, kv, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2,
+                           ba2, out, ws, B, N, M, D, E, H, P, KS, k, premul, QC, stream);
+}
+
+// o4d_attn in the bf16 compute mode (the same arguments, all f32; wp1 and
+// wp2 rounded to bf16 by the caller): the function of _attn_kernel at
+// compute_dtype=bfloat16.
+extern "C" int o4d_attn_bf16(const void* qpos, const void* qproj, const void* ki, const void* kpos,
+                             const void* kv, const void* wk, const void* wv, const void* wp1,
+                             const void* bp1, const void* wp2, const void* bp2, const void* wa1,
+                             const void* ba1, const void* wa2, const void* ba2, void* out,
+                             void* ws, int B, int N, int M, int D, int E, int H, int P, int KS,
+                             int k, int premul, int QC, void* stream) {
+  return attn_index<true>(qpos, qproj, ki, kpos, kv, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2,
+                          ba2, out, ws, B, N, M, D, E, H, P, KS, k, premul, QC, stream);
+}
+
+// o4d_attn over the shared gather's rows: g (B, KE, N, E + 3) replaces ki,
+// kpos and kv; per-row mode only.
+extern "C" int o4d_attn_g(const void* qpos, const void* qproj, const void* g, const void* wk,
+                          const void* wv, const void* wp1, const void* bp1, const void* wp2,
+                          const void* bp2, const void* wa1, const void* ba1, const void* wa2,
+                          const void* ba2, void* out, void* ws, int B, int N, int D, int E, int H,
+                          int P, int KE, int k, int QC, void* stream) {
+  return attn_gathered<false>(qpos, qproj, g, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out,
+                              ws, B, N, D, E, H, P, KE, k, QC, stream);
+}
+
+// o4d_attn_g in the bf16 compute mode (as o4d_attn_bf16): _attn_g_kernel at
+// compute_dtype=bfloat16.
+extern "C" int o4d_attn_g_bf16(const void* qpos, const void* qproj, const void* g, const void* wk,
+                               const void* wv, const void* wp1, const void* bp1, const void* wp2,
+                               const void* bp2, const void* wa1, const void* ba1, const void* wa2,
+                               const void* ba2, void* out, void* ws, int B, int N, int D, int E,
+                               int H, int P, int KE, int k, int QC, void* stream) {
+  return attn_gathered<true>(qpos, qproj, g, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out,
+                             ws, B, N, D, E, H, P, KE, k, QC, stream);
 }
 
 // The encoder's fused self-attention: q (B, N, D) projected queries, gf

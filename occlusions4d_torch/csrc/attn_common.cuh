@@ -3,10 +3,12 @@
 // tensor-core product (mma.sync m16n8k8), the 128 x 128 tiled GEMM of the
 // backward's phases (tensor cores in 3xTF32, or f32 FMA chains, with its
 // epilogue), and the row phase's first kernels: the row loader of the
-// three entry modes and theta's hidden layer. Everything sits in an unnamed
+// three entry modes (with the forward's bf16 rounding of the key rows as an
+// option) and theta's hidden layer. Everything sits in an unnamed
 // namespace, as it did inside each source: each .cu is its own library.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +47,13 @@ struct GemmArgs {
   float alpha;
   int relu, accum;
 };
+
+// x rounded to bf16 (to nearest, ties to even) and back: the operand
+// rounding of the bf16 compute mode (pallas_attention.py::_mm2 casts every
+// product's operands to bf16).
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -342,8 +351,10 @@ struct RowDst {
 // rel = qpos - the key's position, and the row's features (F), or in
 // premul mode its projected [k | v] (kk, vv). The gathered backward also
 // zeroes the row's position columns of dg and, once per query, dg's rows
-// j >= k.
-template <int MODE>
+// j >= k. RND (the forward's bf16 mode): every value read from the key
+// rows, positions included, is rounded to bf16 first, as the TPU kernel
+// rounds its whole value matrix before the gather.
+template <int MODE, bool RND = false>
 __global__ void load_rows_kernel(RowSrc p, RowDst c, int b, int n0, int R) {
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -370,14 +381,15 @@ __global__ void load_rows_kernel(RowSrc p, RowDst c, int b, int n0, int R) {
     src = p.kv + ((size_t)b * p.M + idx) * (p.premul ? 2 * D : E);
     kp = p.kpos + ((size_t)b * p.M + idx) * 3;
   }
-  if (lane < 3) c.rel[(size_t)r * 3 + lane] = qp[lane] - kp[lane];
+  auto key = [&](const float* x, int col) { return RND ? round_bf16(x[col]) : x[col]; };
+  if (lane < 3) c.rel[(size_t)r * 3 + lane] = qp[lane] - key(kp, lane);
   if (MODE == kIndex && p.premul) {
     for (int col = lane; col < D; col += 32) {
-      c.kk[(size_t)r * D + col] = src[col];
-      c.vv[(size_t)r * D + col] = src[D + col];
+      c.kk[(size_t)r * D + col] = key(src, col);
+      c.vv[(size_t)r * D + col] = key(src, D + col);
     }
   } else {
-    for (int col = lane; col < E; col += 32) c.f[(size_t)r * E + col] = src[col];
+    for (int col = lane; col < E; col += 32) c.f[(size_t)r * E + col] = key(src, col);
   }
 }
 

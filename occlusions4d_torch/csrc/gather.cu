@@ -9,6 +9,13 @@
 // Functions (f32):
 //   gather:  g[b, j, n, :] = fv[b, ki[b, n, j], :]   for j < k, fv = [feats2 | pos2]
 //            (a copy; bit-equal to its plain version)
+//   o4d_gather_bf16, the bf16 compute mode (precision='fast'): the same rows
+//            rounded to bf16 (to nearest even) as they are copied, stored as
+//            f32, as the TPU kernel stores them (_gather_call pins f32). The
+//            bf16 consumers (o4d_interp_g_bf16, o4d_attn_g_bf16) read f32
+//            rows: bf16 storage would halve the rows' bytes, but the whole
+//            gather is a small share of a cv1 chunk's decode (PERF.md), and
+//            f32 keeps one row loader for both modes.
 //   scatter: dfv[b, m, :] = sum over (j < k, n) with ki[b, n, j] = m of
 //            dg[b, j, n, :]
 //
@@ -30,6 +37,7 @@
 // sort: the result is bit-reproducible from call to call, and a key that
 // owns thousands of rows (key skew: a near key shared by many queries) is
 // spread over as many blocks instead of one long block.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "inverse_index.cuh"
@@ -39,6 +47,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// RND: the bf16 mode (each value rounded to bf16 as it is copied).
+template <bool RND>
 __global__ void __launch_bounds__(kThreads)
     gather_kernel(const float* __restrict__ fv, const int* __restrict__ ki,
                   float* __restrict__ g, int B, int N, int M, int C, int KS,
@@ -53,7 +63,21 @@ __global__ void __launch_bounds__(kThreads)
   const int idx = ki[((size_t)b * N + n) * KS + j];
   const float* src = fv + ((size_t)b * M + idx) * C;
   float* dst = g + row * C;
-  for (int c = lane; c < C; c += 32) dst[c] = src[c];
+  for (int c = lane; c < C; c += 32)
+    dst[c] = RND ? __bfloat162float(__float2bfloat16_rn(src[c])) : src[c];
+}
+
+template <bool RND>
+int gather(const void* fv, const void* ki, void* g, int B, int N, int M, int C, int KS, int k,
+           void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || k > KS) return (int)cudaErrorInvalidValue;
+  const size_t rows = (size_t)B * k * N;
+  const size_t blocks = (rows + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffull) return (int)cudaErrorInvalidValue;
+  gather_kernel<RND><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)fv, (const int*)ki, (float*)g, B, N, M, C, KS, k);
+  return (int)cudaGetLastError();
 }
 
 // Entry p = (b k + j) N + n of the scatter: row (b, j, n) of dg (B, KE, N, C).
@@ -78,14 +102,13 @@ struct ScatterRows {
 // g (B, k, N, C) f32.
 extern "C" int o4d_gather(const void* fv, const void* ki, void* g, int B, int N,
                           int M, int C, int KS, int k, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > 32 || k > KS) return (int)cudaErrorInvalidValue;
-  const size_t rows = (size_t)B * k * N;
-  const size_t blocks = (rows + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffull) return (int)cudaErrorInvalidValue;
-  gather_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)fv, (const int*)ki, (float*)g, B, N, M, C, KS, k);
-  return (int)cudaGetLastError();
+  return gather<false>(fv, ki, g, B, N, M, C, KS, k, stream);
+}
+
+// o4d_gather in the bf16 mode (the same arguments; g holds bf16 values).
+extern "C" int o4d_gather_bf16(const void* fv, const void* ki, void* g, int B, int N,
+                               int M, int C, int KS, int k, void* stream) {
+  return gather<true>(fv, ki, g, B, N, M, C, KS, k, stream);
 }
 
 // Workspace of the scatter entries: int32 and f32 element counts. The int32

@@ -30,14 +30,24 @@
 // the query, zeros included, its threads striding each row's E + 3 floats.
 // (Two variants that wrote 8 queries' rows, or whole (b, j) planes, as
 // contiguous runs measured no faster on the H100; see PERF.md.)
+//
+// The bf16 compute mode, o4d_interp_bf16 and o4d_interp_g_bf16 (the TPU
+// kernels' compute_dtype=bfloat16, precision='fast'): the features are read
+// as bf16 (the TPU wrapper's cast of the features before its one-hot
+// gather): each value of the f32 features (or of g) is rounded as it is
+// loaded. A bf16 copy made once per call, which halves the L2 reads of the
+// k rows per query, measured no faster on the H100 (PERF.md). The weights,
+// their sum and every output stay f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <bool GATHERED>
+// RND: the bf16 mode (every feature value rounded to bf16 as it is read).
+template <bool GATHERED, bool RND>
 __global__ void interp_kernel(const int* __restrict__ ki,
                               const float* __restrict__ kd,
                               const float* __restrict__ src,
@@ -64,7 +74,10 @@ __global__ void interp_kernel(const int* __restrict__ ki,
   __syncthreads();
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     float acc = 0.f;
-    for (int j = 0; j < k; ++j) acc += w[j] * rowp[j][e];
+    for (int j = 0; j < k; ++j) {
+      const float f = rowp[j][e];
+      acc += w[j] * (RND ? __bfloat162float(__float2bfloat16_rn(f)) : f);
+    }
     out[row * E + e] = acc / den;
   }
 }
@@ -93,6 +106,30 @@ __global__ void interp_g_bwd_kernel(const float* __restrict__ kd,
   }
 }
 
+template <bool RND>
+int interp_index(const void* ki, const void* kd, const void* feats, void* out, int B, int N,
+                 int M, int E, int KS, int k, float eps, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || k > KS) return (int)cudaErrorInvalidValue;
+  dim3 grid(N, B);
+  interp_kernel<false, RND><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)ki, (const float*)kd, (const float*)feats, (float*)out, N, M,
+      E, KS, 0, k, eps);
+  return (int)cudaGetLastError();
+}
+
+template <bool RND>
+int interp_gathered(const void* kd, const void* g, void* out, int B, int N, int E, int KS,
+                    int KE, int k, float eps, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || k > KS || k > KE) return (int)cudaErrorInvalidValue;
+  dim3 grid(N, B);
+  interp_kernel<true, RND><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      nullptr, (const float*)kd, (const float*)g, (float*)out, N, 0, E, KS, KE,
+      k, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ki (B, N, KS) int32, kd (B, N, KS) f32 (first k columns used);
@@ -100,13 +137,15 @@ __global__ void interp_g_bwd_kernel(const float* __restrict__ kd,
 extern "C" int o4d_interp(const void* ki, const void* kd, const void* feats,
                           void* out, int B, int N, int M, int E, int KS, int k,
                           float eps, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > 32 || k > KS) return (int)cudaErrorInvalidValue;
-  dim3 grid(N, B);
-  interp_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)ki, (const float*)kd, (const float*)feats, (float*)out, N, M,
-      E, KS, 0, k, eps);
-  return (int)cudaGetLastError();
+  return interp_index<false>(ki, kd, feats, out, B, N, M, E, KS, k, eps, stream);
+}
+
+// o4d_interp in the bf16 mode (the same arguments; each value of feats
+// rounded to bf16 as it is read).
+extern "C" int o4d_interp_bf16(const void* ki, const void* kd, const void* feats,
+                               void* out, int B, int N, int M, int E, int KS, int k,
+                               float eps, void* stream) {
+  return interp_index<true>(ki, kd, feats, out, B, N, M, E, KS, k, eps, stream);
 }
 
 // kd (B, N, KS) f32 (first k columns used); g (B, KE, N, E + 3) f32 (first k
@@ -114,13 +153,14 @@ extern "C" int o4d_interp(const void* ki, const void* kd, const void* feats,
 extern "C" int o4d_interp_g(const void* kd, const void* g, void* out, int B,
                             int N, int E, int KS, int KE, int k, float eps,
                             void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > 32 || k > KS || k > KE) return (int)cudaErrorInvalidValue;
-  dim3 grid(N, B);
-  interp_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      nullptr, (const float*)kd, (const float*)g, (float*)out, N, 0, E, KS, KE,
-      k, eps);
-  return (int)cudaGetLastError();
+  return interp_gathered<false>(kd, g, out, B, N, E, KS, KE, k, eps, stream);
+}
+
+// o4d_interp_g in the bf16 mode (the same arguments).
+extern "C" int o4d_interp_g_bf16(const void* kd, const void* g, void* out, int B,
+                                 int N, int E, int KS, int KE, int k, float eps,
+                                 void* stream) {
+  return interp_gathered<true>(kd, g, out, B, N, E, KS, KE, k, eps, stream);
 }
 
 // kd (B, N, KS) f32 (first k columns used); go (B, N, E) f32;

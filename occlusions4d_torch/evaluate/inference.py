@@ -4,10 +4,25 @@ networks from a native checkpoint, encode the input cloud, decode the dense
 query grid in chunks, merge per-instance track reruns, attach 1-NN ground-truth
 labels and split solid from air by predicted density.
 
-Numerics: the only mode of this slice is f32. On CUDA the decoder runs the
-kernel path (models/fused.py) and every kNN/FPS goes through its kernel, the
-counterpart of the JAX engine's precision='highest' fused path; on the CPU the
-same code runs the kernels' plain versions. bf16 ('fast') is later work.
+Numerics, InferenceEngine(precision=...), resolved as the JAX engine's
+__init__ resolves it (self.precision holds the result):
+  'fast'          the decoder's kernel path (models/fused.py) in the bf16
+                  compute mode: the interpolation, the shared gather and both
+                  attention layers through their bf16 kernels (o4d_*_bf16),
+                  the backbone's nn.Linear layers in TF32 on CUDA; the JAX
+                  engine's fused_field_apply(compute_dtype=bfloat16). A
+                  decoder that supports_fused rejects gets 'f32'.
+  'f32', 'highest' the kernel path in f32, the counterpart of the JAX
+                  engine's 'highest' fused path. The port has no counterpart
+                  of JAX's 'f32' (XLA's default-precision dots, one bf16 pass
+                  on a TPU), so both names run this path.
+  'auto'          'f32': JAX resolves 'auto' to 'f32' off a TPU, and the
+                  anchors' committed metrics were computed that way.
+fused_decode=True / False overrides precision to 'fast' / 'f32'.
+The encoder keeps f32 in every mode: its kNN and FPS take no compute dtype
+(the TPU kernels have none), and bf16 features would move FPS's picks. On
+CUDA every kNN/FPS goes through its kernel; on the CPU the same code runs the
+kernels' plain versions. 'fast' on CUDA runs the bf16 kernels or raises.
 '''
 
 import time
@@ -26,8 +41,8 @@ from ..ops import blind_points_numpy
 from ..ops.knn import nn1_direct
 from ..utils.misc import multi_track_merge
 
-__all__ = ['load_models', 'squash_eval', 'InferenceEngine', 'dispatch_inference',
-           'finish_inference', 'perform_inference']
+__all__ = ['load_models', 'squash_eval', 'InferenceEngine', 'resolve_precision',
+           'dispatch_inference', 'finish_inference', 'perform_inference']
 
 
 def load_models(checkpoint_path, epoch=-1, device='cuda', logger=None):
@@ -88,14 +103,31 @@ def _to_device(a, device):
     return torch.tensor(np.array(a, dtype=np.float32, copy=True), device=device)
 
 
+def resolve_precision(decoder, precision='auto', fused_decode=None):
+    '''The engine's numerics mode, as the JAX engine resolves it off a TPU:
+    fused_decode overrides, 'auto' is 'f32', and 'fast' on a decoder outside
+    the fused path is 'f32'. :return 'fast', 'f32' or 'highest'.'''
+    if fused_decode is not None:
+        precision = 'fast' if fused_decode else 'f32'
+    if precision == 'auto':
+        precision = 'f32'
+    if precision == 'fast' and not supports_fused(decoder):
+        precision = 'f32'
+    if precision not in ('fast', 'f32', 'highest'):
+        raise ValueError(f'precision must be auto, fast, f32 or highest, got {precision!r}')
+    return precision
+
+
 class InferenceEngine:
     '''Encode/decode closures over loaded networks; reuse across frames and
-    track reruns.'''
+    track reruns. precision / fused_decode: the module docstring.'''
 
     def __init__(self, loaded, color_mode, predict_segmentation, semantic_classes,
-                 track_mode='none', implicit_batch_size=65536):
+                 track_mode='none', implicit_batch_size=65536, precision='auto',
+                 fused_decode=None):
         self.encoder = loaded['encoder']
         self.decoder = loaded['decoder']
+        self.precision = resolve_precision(self.decoder, precision, fused_decode)
         self.device = loaded['device']
         self.color_mode = color_mode
         self.predict_segmentation = predict_segmentation
@@ -116,7 +148,8 @@ class InferenceEngine:
         # Configurations outside the fused path have no decoder kernel in the
         # JAX package either; they run the module path there and here.
         if supports_fused(self.decoder):
-            out, _ = fused_field_apply(self.decoder, q, abstract, fg)
+            dtype = torch.bfloat16 if self.precision == 'fast' else torch.float32
+            out, _ = fused_field_apply(self.decoder, q, abstract, fg, compute_dtype=dtype)
         else:
             out, _ = self.decoder(q, abstract, fg)
         return squash_eval(out, self.color_mode, self.predict_segmentation,

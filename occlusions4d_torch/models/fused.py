@@ -28,7 +28,23 @@ o4d_attn_g_bwd (each layer writes its cotangent of the gathered rows),
 o4d_scatter (one scatter of their sum to the key rows) and o4d_interp_bwd
 (the interpolation's term, from its (B, N, E) cotangent, never written as
 rows).
+
+compute_dtype=torch.bfloat16 (the engine's precision='fast', JAX's
+fused_field_apply(compute_dtype=jnp.bfloat16)): the three operators run
+their bf16 mode (the bf16 kernels on CUDA), forward only. The backbone's
+nn.Linear layers (lin_in, lin_z, the ResNet blocks, layer1, to_q, layer3,
+lin_out) and premul mode's key projection [feats2 Wk | feats2 Wv] (JAX's
+k_all / v_all, computed in its wrapper beside the backbone) are plain large
+products that JAX leaves to XLA at its default precision (one bf16 pass on
+its TPU); on CUDA the whole decode runs in one scope that sets TF32 for
+float32 matrix products and restores the global setting on exit. The
+operators' own products are unaffected: the kernels do not consult the
+setting, and the plain versions' bf16-mode operands are bf16 values, exact
+in TF32. On the CPU everything stays f32, as JAX's does there. The kNN
+extraction stays f32 in every mode.
 '''
+
+import contextlib
 
 import torch
 from torch.nn import functional as F
@@ -51,16 +67,41 @@ def supports_fused(decoder):
                     decoder.cr_attn_type[:decoder.cross_attn_layers]))
 
 
+@contextlib.contextmanager
+def _tf32_matmul():
+    '''TF32 for the float32 matrix products inside, the global setting
+    restored on exit.'''
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('high')
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
-                      abstract_mask=None):
+                      abstract_mask=None, compute_dtype=torch.float32):
     '''
     :param decoder: LocalImplicitField (weights and static configuration).
     :param points_query (B, N, 4); pcl_abstract (B, M, 3 + E);
         features_global (B, D); abstract_mask (B, M) bool or None.
+    :param compute_dtype: torch.float32, or torch.bfloat16 (the operators'
+        bf16 mode and, on CUDA, the backbone and the premul key projection
+        in TF32; no gradient).
     :return (output (B, N, d_out), penult (B, N, d_hidden)), float32.
     '''
     if not supports_fused(decoder):
         raise NotImplementedError('configuration not covered by the fused path')
+    args = (decoder, points_query, pcl_abstract, features_global, abstract_mask,
+            compute_dtype)
+    if compute_dtype == torch.bfloat16 and points_query.is_cuda:
+        with _tf32_matmul():
+            return _field_apply(*args)
+    return _field_apply(*args)
+
+
+def _field_apply(decoder, points_query, pcl_abstract, features_global, abstract_mask,
+                 compute_dtype):
     act = activation(decoder.activation)
     pts_abs = pcl_abstract[..., :3]
     feats_abs = pcl_abstract[..., 3:]
@@ -79,11 +120,13 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
     gathered = None
     if pts_abs.shape[1] >= SHARED_GATHER_MIN_M:
         gathered, features_local = knn_gather_interp(
-            pts_abs, feats_abs, knn, k_ext, decoder.num_local_features, eps=1e-4)
+            pts_abs, feats_abs, knn, k_ext, decoder.num_local_features, eps=1e-4,
+            compute_dtype=compute_dtype)
     else:
         features_local = fused_knn_interp(q_xyz, pts_abs, feats_abs,
                                           decoder.num_local_features, eps=1e-4,
-                                          key_mask=abstract_mask, knn=knn)
+                                          key_mask=abstract_mask, knn=knn,
+                                          compute_dtype=compute_dtype)
     fg = features_global[:, None, :].expand(B, N, features_global.shape[-1])
     features_query = torch.cat([fg, features_local], dim=-1)
 
@@ -102,6 +145,6 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
             y = fused_knn_vector_attention(
                 q_proj, q_xyz, feats_abs, pts_abs, att.kernel_params(),
                 decoder.cross_attn_neighbors, key_mask=abstract_mask, knn=knn,
-                gathered=gathered)
+                gathered=gathered, compute_dtype=compute_dtype)
             x = x + blk.layer3(y)
     return decoder.lin_out(act(x)), x

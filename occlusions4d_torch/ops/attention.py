@@ -38,6 +38,23 @@ its use_idx and gathered forms):
 Every operator is a torch.autograd.Function. A CUDA tensor launches the
 kernels; a CPU tensor runs the plain versions beside them (each backward
 kernel has an explicit plain version with the kernel's own output layout).
+
+compute_dtype (knn_gather_rows, knn_gather_interp, fused_knn_interp,
+fused_knn_vector_attention and the plain versions of their forwards):
+torch.float32, or torch.bfloat16, the TPU kernels' bf16 compute mode
+(pallas_attention.py::_mm2), which the engine's precision='fast' runs. In
+bf16 every in-kernel product rounds both operands to bf16 (to nearest even:
+round_bf16) and sums the exact products in f32: the attention's weights
+to_k, to_v, pos_mlp_* and attn_mlp_* are rounded once (biases stay f32); the
+value matrix is rounded before the gather (premul's [k | v] and the key
+positions, or the raw [feats | pos] rows; so theta's input is
+q_pos - bf16(pos2), rounded again as pos_mlp_0's operand); the
+interpolation's features and the shared gather's rows are rounded. The kNN
+and its distances, the interpolation weights, the softmax, the running sums
+and every output stay f32. The bf16 kernels (o4d_attn_bf16, o4d_attn_g_bf16,
+o4d_interp_bf16, o4d_interp_g_bf16, o4d_gather_bf16) count their launches
+under their own names ('attn_bf16', ...). There is no bf16 backward yet: a
+bf16 call with an input that requires grad raises NotImplementedError.
 Like the JAX custom VJPs the index-route operators save only their inputs,
 never an (N, K, D) tensor, and positions get no gradient. The shared-gather
 route's backward: the attention layers write their row cotangents dg
@@ -68,15 +85,44 @@ __all__ = ['knn_extract', 'knn_gather_rows', 'knn_gather_interp', 'gather_rows',
            'attn_bwd', 'attn_g_bwd', 'attn_bwd_rows_plain', 'attn_fwd_rows_plain',
            'gather_bwd', 'interp_bwd',
            'interp_g_bwd',
-           'use_premul', 'LAUNCHES']
+           'use_premul', 'round_bf16', 'LAUNCHES']
 
 LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0, 'gather': 0,
             'interp_g': 0, 'attn_g': 0, 'scatter': 0, 'interp_g_bwd': 0,
-            'attn_g_bwd': 0}
+            'attn_g_bwd': 0, 'attn_bf16': 0, 'attn_g_bf16': 0, 'interp_bf16': 0,
+            'interp_g_bf16': 0, 'gather_bf16': 0}
 _MLP = ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use.
 _INDEX_TILE = 2048    # entries per counting-sort tile of csrc/inverse_index.cuh (kTile).
 _SUM_CHUNK = 64       # sorted entries per summing block of csrc/inverse_index.cuh (kChunk).
+
+
+def round_bf16(x):
+    '''x rounded to bf16 (to nearest, ties to even) in its own dtype: the
+    operand rounding of the bf16 compute mode.'''
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _is_bf16(compute_dtype):
+    '''True for torch.bfloat16, False for torch.float32; raises otherwise.'''
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'compute_dtype must be torch.float32 or torch.bfloat16, got '
+                         f'{compute_dtype}')
+    return compute_dtype == torch.bfloat16
+
+
+def _rounder(bf16):
+    return round_bf16 if bf16 else (lambda x: x)
+
+
+def _no_bf16_grad(what, *tensors):
+    '''The bf16 mode has no backward: refuse an input that would need one.'''
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f'{what}: compute_dtype=torch.bfloat16 has no backward yet; the bf16 train mode '
+            '(fused_decoder_dtype, mixed_precision and the bf16 backward kernels) is the '
+            'next slice of the port. Call it under torch.no_grad() or in float32.')
 
 
 def knn_extract(q_pos, pos2, k, *, key_mask=None):
@@ -126,13 +172,15 @@ def _bwd_plan(lib, device, N, M, D, E, H, P, k, premul):
 
 # ------------------------------------------------------------ shared gather --
 
-def gather_rows_plain(fv, ki, k):
-    '''Plain version of the gather kernel.
+def gather_rows_plain(fv, ki, k, compute_dtype=torch.float32):
+    '''Plain version of the gather kernel (bf16: of its bf16 mode, the rows
+    rounded to bf16, stored as f32).
     :param fv (B, M, C) f32; ki (B, N, >=k) int. :return g (B, k, N, C).'''
+    fv = _rounder(_is_bf16(compute_dtype))(fv)
     return gather_neighbors(fv, ki[..., :k]).transpose(1, 2).contiguous()
 
 
-def _gather_cuda(fv, ki, k):
+def _gather_cuda(fv, ki, k, bf16=False):
     B, N, KS = ki.shape
     M, C = fv.shape[1:]
     _cuda_ki('gather', ki)
@@ -141,13 +189,14 @@ def _gather_cuda(fv, ki, k):
         raise ValueError(f'gather: bad shapes fv {tuple(fv.shape)}, ki '
                          f'{tuple(ki.shape)}, k={k}')
     g = torch.empty((B, k, N, C), dtype=torch.float32, device=fv.device)
-    fn = _build.library('gather').o4d_gather
+    name = 'gather_bf16' if bf16 else 'gather'
+    fn = getattr(_build.library('gather'), f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(fv.device):
         _build.check(fn(_build.ptr(fv), _build.ptr(ki), _build.ptr(g), B, N, M, C, KS,
-                        k, _build.stream_ptr(fv.device)), 'gather')
-    LAUNCHES['gather'] += 1
+                        k, _build.stream_ptr(fv.device)), name)
+    LAUNCHES[name] += 1
     return g
 
 
@@ -265,18 +314,32 @@ class _GatherRows(torch.autograd.Function):
         return gather_bwd(ki, dg, ctx.M, ctx.k), None, None
 
 
-def knn_gather_rows(pos2, feats2, knn, k):
+def _gather_bf16(fv, ki, k):
+    '''The gather's bf16 mode (no autograd): its kernel on CUDA, plain
+    version on the CPU.'''
+    if fv.is_cuda:
+        return _gather_cuda(fv, ki, k, True)
+    return gather_rows_plain(fv, ki, k, torch.bfloat16)
+
+
+def knn_gather_rows(pos2, feats2, knn, k, compute_dtype=torch.float32):
     '''
     The raw neighbour rows g[b, j, n] = [feats2 | pos2][b, ki[b, n, j]] for
     j < k, gathered once for every consumer of one decode (interpolation and
-    attention take them through gathered=). Differentiable in feats2; the
-    positions are constants.
+    attention take them through gathered=). Differentiable in feats2 in f32;
+    the positions are constants.
     :param pos2 (B, M, 3); feats2 (B, M, E); knn: knn_extract result with
         k' >= k columns; k: rows to gather (>= every consumer's k).
+    :param compute_dtype: torch.bfloat16 rounds the rows to bf16 (stored as
+        f32, as the TPU kernel stores them); no gradient.
     :return g (B, k, N, E + 3) f32.
     '''
+    bf16 = _is_bf16(compute_dtype)
     fv = torch.cat([feats2.to(torch.float32),
                     pos2[..., :3].detach().to(torch.float32)], dim=-1).contiguous()
+    if bf16:
+        _no_bf16_grad('knn_gather_rows', fv)
+        return _gather_bf16(fv, knn[0].contiguous(), k)
     return _GatherRows.apply(fv, knn[0].contiguous(), k)
 
 
@@ -307,19 +370,23 @@ def _interp_rows(kd, rows, k, eps):
     return (w[..., None] * rows).sum(2) / w.sum(-1, keepdim=True)
 
 
-def interp_plain(ki, kd, feats, k, eps):
-    '''Plain version of the interpolation kernel.
+def interp_plain(ki, kd, feats, k, eps, compute_dtype=torch.float32):
+    '''Plain version of the interpolation kernel (bf16: the features
+    rounded to bf16 first).
     :param ki (B, N, >=k) int; kd (B, N, >=k) f32; feats (B, M, E).
     :return (B, N, E) f32.'''
+    feats = _rounder(_is_bf16(compute_dtype))(feats)
     return _interp_rows(kd, gather_neighbors(feats, ki[..., :k]), k, eps)
 
 
-def interp_g_plain(kd, g, k, eps):
+def interp_g_plain(kd, g, k, eps, compute_dtype=torch.float32):
     '''Plain version of the gathered interpolation kernel: interp_plain's
-    arithmetic on the same rows, read from the shared gather (same bits).
+    arithmetic on the same rows, read from the shared gather (same bits;
+    bf16: the rows' features rounded to bf16).
     :param kd (B, N, >=k) f32; g (B, >=k, N, E + 3). :return (B, N, E) f32.'''
     E = g.shape[-1] - 3
-    return _interp_rows(kd, g[:, :k, :, :E].transpose(1, 2).contiguous(), k, eps)
+    rows = _rounder(_is_bf16(compute_dtype))(g[:, :k, :, :E])
+    return _interp_rows(kd, rows.transpose(1, 2).contiguous(), k, eps)
 
 
 def interp_bwd_plain(ki, kd, g, M, k, eps):
@@ -335,7 +402,7 @@ def interp_bwd_plain(ki, kd, g, M, k, eps):
     return out.scatter_add_(1, idx, rows.reshape(B, N * k, E))
 
 
-def _interp_cuda(ki, kd, feats, k, eps):
+def _interp_cuda(ki, kd, feats, k, eps, bf16=False):
     B, N, KS = ki.shape
     M, E = feats.shape[1:]
     _cuda_ki('interp', ki)
@@ -345,15 +412,15 @@ def _interp_cuda(ki, kd, feats, k, eps):
         raise ValueError(f'interp: bad shapes ki {tuple(ki.shape)}, kd '
                          f'{tuple(kd.shape)}, feats {tuple(feats.shape)}, k={k}')
     out = torch.empty((B, N, E), dtype=torch.float32, device=feats.device)
-    fn = _build.library('interp').o4d_interp
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
+    name = 'interp_bf16' if bf16 else 'interp'
+    fn = getattr(_build.library('interp'), f'o4d_{name}')
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(feats.device):
         _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(feats),
                         _build.ptr(out), B, N, M, E, KS, k, float(eps),
-                        _build.stream_ptr(feats.device)), 'interp')
-    LAUNCHES['interp'] += 1
+                        _build.stream_ptr(feats.device)), name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -476,7 +543,7 @@ class _Interp(torch.autograd.Function):
         return None, None, interp_bwd(ki, kd, g, ctx.M, ctx.k, ctx.eps), None, None
 
 
-def _interp_g_cuda(kd, g, k, eps):
+def _interp_g_cuda(kd, g, k, eps, bf16=False):
     B, N, KS = kd.shape
     KE, E = g.shape[1], g.shape[-1] - 3
     _cuda_f32('kd', kd)
@@ -485,14 +552,15 @@ def _interp_g_cuda(kd, g, k, eps):
         raise ValueError(f'interp_g: bad shapes kd {tuple(kd.shape)}, g '
                          f'{tuple(g.shape)}, k={k}')
     out = torch.empty((B, N, E), dtype=torch.float32, device=g.device)
-    fn = _build.library('interp').o4d_interp_g
+    name = 'interp_g_bf16' if bf16 else 'interp_g'
+    fn = getattr(_build.library('interp'), f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(g.device):
         _build.check(fn(_build.ptr(kd), _build.ptr(g), _build.ptr(out), B, N, E, KS,
-                        KE, k, float(eps), _build.stream_ptr(g.device)), 'interp_g')
-    LAUNCHES['interp_g'] += 1
+                        KE, k, float(eps), _build.stream_ptr(g.device)), name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -622,7 +690,7 @@ class _GatherInterp(torch.autograd.Function):
         return dfv, None, None, None, None, None
 
 
-def knn_gather_interp(pos2, feats2, knn, k, k_interp, eps=1e-4):
+def knn_gather_interp(pos2, feats2, knn, k, k_interp, eps=1e-4, compute_dtype=torch.float32):
     '''
     knn_gather_rows and the gathered fused_knn_interp in one differentiable
     operator (the decoder's shared-gather route): the same outputs, and a
@@ -631,26 +699,51 @@ def knn_gather_interp(pos2, feats2, knn, k, k_interp, eps=1e-4):
     :param pos2 (B, M, 3); feats2 (B, M, E); knn: knn_extract result with k'
         >= k columns; k: rows to gather; k_interp <= k: the interpolation's
         neighbours.
+    :param compute_dtype: torch.bfloat16 runs both in the bf16 mode (no
+        gradient).
     :return (g (B, k, N, E + 3), features_local (B, N, E)) f32.
     '''
+    bf16 = _is_bf16(compute_dtype)
     fv = torch.cat([feats2.to(torch.float32),
                     pos2[..., :3].detach().to(torch.float32)], dim=-1).contiguous()
-    return _GatherInterp.apply(fv, knn[0].contiguous(), knn[1].contiguous(), k,
-                               k_interp, eps)
+    ki, kd = knn[0].contiguous(), knn[1].contiguous()
+    if bf16:
+        _no_bf16_grad('knn_gather_interp', fv)
+        g = _gather_bf16(fv, ki, k)
+        return g, _interp_g_bf16(kd, g, k_interp, eps)
+    return _GatherInterp.apply(fv, ki, kd, k, k_interp, eps)
+
+
+def _interp_bf16(ki, kd, feats, k, eps):
+    '''The interpolation's bf16 mode (no autograd): its kernel on CUDA,
+    plain version on the CPU.'''
+    if feats.is_cuda:
+        return _interp_cuda(ki, kd, feats, k, eps, True)
+    return interp_plain(ki, kd, feats, k, eps, torch.bfloat16)
+
+
+def _interp_g_bf16(kd, g, k, eps):
+    '''The gathered interpolation's bf16 mode (no autograd).'''
+    if g.is_cuda:
+        return _interp_g_cuda(kd, g, k, eps, True)
+    return interp_g_plain(kd, g, k, eps, torch.bfloat16)
 
 
 def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None,
-                     gathered=None):
+                     gathered=None, compute_dtype=torch.float32):
     '''
     out_n = sum_j w_j f_j / sum_j w_j with w_j = 1 / (|q_n - p_j| + eps) over
-    the k nearest keys. Differentiable in feats.
+    the k nearest keys. Differentiable in feats (in f32).
     :param q_pos (B, N, 3); pos2 (B, M, 3); feats (B, M, E).
     :param knn: optional knn_extract(q_pos, pos2, k' >= k, key_mask) result.
     :param gathered: optional knn_gather_rows(pos2, feats, knn, k' >= k)
         result (needs knn for the distances): the rows are read from it, with
         the same result; the gradient flows back through the gather.
+    :param compute_dtype: torch.bfloat16: the features rounded to bf16 (no
+        gradient); the weights and sums stay f32.
     :return (B, N, E) f32.
     '''
+    bf16 = _is_bf16(compute_dtype)
     if gathered is not None:
         if knn is None:
             raise ValueError('gathered= needs the knn distances')
@@ -660,11 +753,17 @@ def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None
                 or tuple(gathered.shape[2:]) != (N, E + 3):
             raise ValueError(f'gathered {tuple(gathered.shape)} does not fit B={B}, '
                              f'N={N}, E={E}, k={k}')
+        if bf16:
+            _no_bf16_grad('fused_knn_interp', gathered)
+            return _interp_g_bf16(knn[1].contiguous(), gathered.contiguous(), k, eps)
         return _InterpG.apply(knn[1].contiguous(), gathered.contiguous(), k, eps)
     if knn is None:
         knn = knn_extract(q_pos, pos2, k, key_mask=key_mask)
     ki, kd = knn
     feats = feats.to(torch.float32).contiguous()
+    if bf16:
+        _no_bf16_grad('fused_knn_interp', feats)
+        return _interp_bf16(ki.contiguous(), kd.contiguous(), feats, k, eps)
     return _Interp.apply(ki.contiguous(), kd.contiguous(), feats, k, eps)
 
 
@@ -682,42 +781,53 @@ def _kernel(params, name, dtype=torch.float32):
     return params[name]['kernel'].to(dtype)
 
 
-def _attn_rows(q_pos, q_proj, kpos, rows, params, premul):
+def _attn_rows(q_pos, q_proj, kpos, rows, params, premul, bf16=False):
     '''The attention over each query's neighbour rows: kpos (B, N, k, 3),
     rows (B, N, k, 2D) projected [k | v] in premul mode, else (B, N, k, E).
-    Computes in q_proj's dtype (float64 serves as a reference).'''
+    Computes in q_proj's dtype (float64 serves as a reference); bf16: every
+    product's operands rounded to bf16 (the caller rounds kpos and the rows
+    of premul mode).'''
     D, dt = q_proj.shape[-1], q_proj.dtype
+    r = _rounder(bf16)
+
+    def w(name):
+        return r(_kernel(params, name, dt))
     rel = q_pos[:, :, None, :] - kpos
-    pe = torch.relu(rel @ _kernel(params, 'pos_mlp_0', dt) + params['pos_mlp_0']['bias'])
-    pe = pe @ _kernel(params, 'pos_mlp_2', dt) + params['pos_mlp_2']['bias']
+    pe = torch.relu(r(rel) @ w('pos_mlp_0') + params['pos_mlp_0']['bias'])
+    pe = r(pe) @ w('pos_mlp_2') + params['pos_mlp_2']['bias']
     if premul:
         kg, vg = rows[..., :D], rows[..., D:]
     else:
-        kg, vg = rows @ _kernel(params, 'to_k', dt), rows @ _kernel(params, 'to_v', dt)
+        kg, vg = r(rows) @ w('to_k'), r(rows) @ w('to_v')
     a = (q_proj[:, :, None, :] - kg) + pe
-    h = torch.relu(a @ _kernel(params, 'attn_mlp_0', dt) + params['attn_mlp_0']['bias'])
-    lg = (h @ _kernel(params, 'attn_mlp_2', dt) + params['attn_mlp_2']['bias'])
+    h = torch.relu(r(a) @ w('attn_mlp_0') + params['attn_mlp_0']['bias'])
+    lg = (r(h) @ w('attn_mlp_2') + params['attn_mlp_2']['bias'])
     lg = lg * (1.0 / math.sqrt(D))
     attn = torch.softmax(lg, dim=2)
     return (attn * (vg + pe)).sum(2)
 
 
-def attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul):
+def attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul,
+               compute_dtype=torch.float32):
     '''Plain version of the attention kernel (same arguments as its wrapper:
-    kv is [feats2 Wk | feats2 Wv] in premul mode, else feats2).'''
+    kv is [feats2 Wk | feats2 Wv] in premul mode, else feats2; bf16: kv and
+    pos2 rounded to bf16 before the gather, then _attn_rows in bf16).'''
+    bf16 = _is_bf16(compute_dtype)
+    r = _rounder(bf16)
     idx = ki[..., :k]
-    return _attn_rows(q_pos, q_proj, gather_neighbors(pos2, idx),
-                      gather_neighbors(kv, idx), params, premul)
+    return _attn_rows(q_pos, q_proj, gather_neighbors(r(pos2), idx),
+                      gather_neighbors(r(kv), idx), params, premul, bf16)
 
 
-def attn_g_plain(q_pos, q_proj, g, params, k):
+def attn_g_plain(q_pos, q_proj, g, params, k, compute_dtype=torch.float32):
     '''Plain version of the gathered attention kernel: per-row mode over the
     shared gather's rows g (B, >=k, N, E + 3); the positions carry no
-    gradient.'''
+    gradient (bf16: the rows rounded to bf16).'''
+    bf16 = _is_bf16(compute_dtype)
     E = g.shape[-1] - 3
-    rows = g[:, :k].transpose(1, 2)
+    rows = _rounder(bf16)(g[:, :k]).transpose(1, 2)
     return _attn_rows(q_pos, q_proj, rows[..., E:].detach().contiguous(),
-                      rows[..., :E].contiguous(), params, False)
+                      rows[..., :E].contiguous(), params, False, bf16)
 
 
 def _grad_names(premul):
@@ -946,7 +1056,7 @@ def _fwd_plan(lib, what, device, N, D, E, H, P, k, premul):
     return qc.value, torch.empty((n_f.value,), dtype=torch.float32, device=device)
 
 
-def _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul):
+def _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul, bf16=False):
     '''Checked, contiguous operands shared by the forward and backward
     kernels: (dims dict, weight dict, bias dict, wk, wv).'''
     B, N, D = q_proj.shape
@@ -959,25 +1069,27 @@ def _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul):
     _cuda_ki('attn', ki)
     if tuple(ki.shape[:2]) != (B, N) or not 1 <= k <= min(KS, 32):
         raise ValueError(f'attn: bad ki {tuple(ki.shape)} for N={N}, k={k}')
-    w, b, wk, wv, H, P = _weight_operands(params, D, E, premul, kv)
+    w, b, wk, wv, H, P = _weight_operands(params, D, E, premul, kv, bf16)
     for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('pos2', pos2), ('kv', kv)):
         _cuda_f32(name, t)
     dims = dict(B=B, N=N, M=M, D=D, E=E, H=H, P=P, KS=KS)
     return dims, w, b, wk, wv
 
 
-def _weight_operands(params, D, E, premul, kv=None):
+def _weight_operands(params, D, E, premul, kv=None, bf16=False):
     '''Checked, contiguous attention weights: (weight dict, bias dict, wk, wv,
-    H, P); in premul mode wk and wv are placeholders (kv).'''
-    w = {n: _cuda_f32(n, _kernel(params, n).contiguous()) for n in _MLP}
+    H, P); in premul mode wk and wv are placeholders (kv). bf16: the kernels
+    rounded to bf16 (the biases stay f32).'''
+    r = _rounder(bf16)
+    w = {n: _cuda_f32(n, r(_kernel(params, n)).contiguous()) for n in _MLP}
     b = {n: _cuda_f32(n, params[n]['bias'].to(torch.float32).contiguous()) for n in _MLP}
     P = w['pos_mlp_0'].shape[1]
     H = w['attn_mlp_0'].shape[1]
     if premul:
         wk = wv = kv  # unused by the kernels in this mode.
     else:
-        wk = _cuda_f32('to_k', _kernel(params, 'to_k').contiguous())
-        wv = _cuda_f32('to_v', _kernel(params, 'to_v').contiguous())
+        wk = _cuda_f32('to_k', r(_kernel(params, 'to_k')).contiguous())
+        wv = _cuda_f32('to_v', r(_kernel(params, 'to_v')).contiguous())
     if (w['pos_mlp_0'].shape != (3, P) or w['pos_mlp_2'].shape != (P, D)
             or w['attn_mlp_0'].shape != (D, H) or w['attn_mlp_2'].shape != (H, D)
             or (not premul and wk.shape != (E, D))):
@@ -990,46 +1102,48 @@ def _weight_ptrs(w, b):
             w['attn_mlp_0'], b['attn_mlp_0'], w['attn_mlp_2'], b['attn_mlp_2']]
 
 
-def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul):
-    dims, w, b, wk, wv = _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, bf16=False):
+    dims, w, b, wk, wv = _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul, bf16)
     B, N, D = dims['B'], dims['N'], dims['D']
     lib = _attn_lib()
     QC, ws = _fwd_plan(lib, 'attn', q_proj.device, N, D, dims['E'], dims['H'], dims['P'],
                        k, premul)
     out = torch.empty((B, N, D), dtype=torch.float32, device=q_proj.device)
-    fn = lib.o4d_attn
+    name = 'attn_bf16' if bf16 else 'attn'
+    fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = [q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b) + [out, ws]
     with torch.cuda.device(q_proj.device):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, dims['M'], D, dims['E'],
                         dims['H'], dims['P'], dims['KS'], k, int(premul), QC,
-                        _build.stream_ptr(q_proj.device)), 'attn')
-    LAUNCHES['attn'] += 1
+                        _build.stream_ptr(q_proj.device)), name)
+    LAUNCHES[name] += 1
     return out
 
 
-def _attn_g_cuda(q_pos, q_proj, g, params, k):
+def _attn_g_cuda(q_pos, q_proj, g, params, k, bf16=False):
     B, N, D = q_proj.shape
     KE, E = g.shape[1], g.shape[-1] - 3
     if tuple(g.shape) != (B, KE, N, E + 3) or not 1 <= k <= min(KE, 32):
         raise ValueError(f'attn_g: g {tuple(g.shape)} does not fit B={B}, N={N}, '
                          f'k={k}')
-    w, b, wk, wv, H, P = _weight_operands(params, D, E, False)
+    w, b, wk, wv, H, P = _weight_operands(params, D, E, False, bf16=bf16)
     for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('g', g)):
         _cuda_f32(name, t)
     lib = _attn_lib()
     # The same chunks as the index route's per-row mode at these sizes.
     QC, ws = _fwd_plan(lib, 'attn_g', q_proj.device, N, D, E, H, P, k, False)
     out = torch.empty((B, N, D), dtype=torch.float32, device=q_proj.device)
-    fn = lib.o4d_attn_g
+    name = 'attn_g_bf16' if bf16 else 'attn_g'
+    fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [out, ws]
     with torch.cuda.device(q_proj.device):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
-                        _build.stream_ptr(q_proj.device)), 'attn_g')
-    LAUNCHES['attn_g'] += 1
+                        _build.stream_ptr(q_proj.device)), name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -1183,7 +1297,8 @@ class _AttentionG(torch.autograd.Function):
 
 
 def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
-                               key_mask=None, knn=None, premul=None, gathered=None):
+                               key_mask=None, knn=None, premul=None, gathered=None,
+                               compute_dtype=torch.float32):
     '''
     One fused vector cross-attention block, differentiable in q_proj, feats2
     and every weight (positions are constants, as in the JAX module path).
@@ -1199,10 +1314,13 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
         result: per-row mode over its rows (premul is not consulted, knn and
         key_mask are not needed); the gradient of the key set flows back
         through the gather.
+    :param compute_dtype: torch.float32, or torch.bfloat16 (the bf16 mode:
+        o4d_attn_bf16 / o4d_attn_g_bf16; no gradient).
     :return (B, N, D) f32.
     '''
     B, N, D = q_proj.shape
     M, E = feats2.shape[1:]
+    bf16 = _is_bf16(compute_dtype)
     q_proj = q_proj.to(torch.float32).contiguous()
     if gathered is not None:
         if gathered.shape[0] != B or gathered.shape[1] < k \
@@ -1211,6 +1329,12 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
                              f'N={N}, E={E}, k={k}')
         q_pos = q_pos[..., :3].detach().to(torch.float32).contiguous()
         weights = [params[n][leaf].to(torch.float32) for n, leaf in _grad_names(False)]
+        if bf16:
+            _no_bf16_grad('fused_knn_vector_attention', q_proj, gathered, *weights)
+            p = _params(_grad_names(False), weights)
+            if q_proj.is_cuda:
+                return _attn_g_cuda(q_pos, q_proj, gathered.contiguous(), p, k, True)
+            return attn_g_plain(q_pos, q_proj, gathered, p, k, torch.bfloat16)
         return _AttentionG.apply(q_pos, q_proj, gathered.contiguous(), k, *weights)
     if knn is None:
         knn = knn_extract(q_pos, pos2, k, key_mask=key_mask)
@@ -1218,6 +1342,9 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
     if premul is None:
         premul = use_premul(M, D, E)
     feats2 = feats2.to(torch.float32)
+    if bf16:
+        _no_bf16_grad('fused_knn_vector_attention', q_proj, feats2,
+                      *[params[n][leaf] for n, leaf in _grad_names(False)])
     if premul:
         # Outside the kernel, so autograd chains d(kv) to feats2, Wk and Wv.
         kv = torch.cat([feats2 @ _kernel(params, 'to_k'),
@@ -1227,5 +1354,11 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
     q_pos = q_pos[..., :3].detach().to(torch.float32).contiguous()
     pos2 = pos2[..., :3].detach().to(torch.float32).contiguous()
     weights = [params[n][leaf].to(torch.float32) for n, leaf in _grad_names(premul)]
+    if bf16:
+        p = _params(_grad_names(premul), weights)
+        if q_proj.is_cuda:
+            return _attn_cuda(q_pos, q_proj, ki.contiguous(), pos2, kv.contiguous(), p, k,
+                              premul, True)
+        return attn_plain(q_pos, q_proj, ki, pos2, kv, p, k, premul, torch.bfloat16)
     return _Attention.apply(q_pos, q_proj, ki.contiguous(), pos2, kv.contiguous(),
                             k, premul, *weights)

@@ -956,3 +956,138 @@ def test_wide_decoder_trainer_step(dev):
     assert bool(m['grads_finite']) and bool(m['params_finite'])
     assert counts['attn'] > 0 and counts['attn_bwd'] > 0
     assert any(not torch.equal(p, q) for p, q in zip(tr.optimizer.params, before))
+
+
+# ------------------------------------------------------------ bf16 mode --
+# The bf16 kernels (o4d_*_bf16, the engine's precision='fast') against their
+# plain bf16 versions: the gather exact; the interpolation atol 1e-5, rtol
+# 1e-5 (the f32 gates: exact bf16 products, f32 sums); the attention within
+# relative L2 2e-4 and a largest error of 5e-3 of max |out| (the tensor
+# core's f32 accumulation in another order than cuBLAS may move an f32
+# intermediate by an ulp, and with it a bf16 operand by one bf16 ulp).
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _bf16_close(a, b):
+    assert _rel_l2(a, b) <= 2e-4, _rel_l2(a, b)
+    assert float((a - b).abs().max()) <= 5e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize('case', sorted(_ATTN_FWD_EDGE))
+def test_bf16_attn_forward_edge_shapes(dev, case, monkeypatch):
+    '''o4d_attn_bf16 (both projection modes) and o4d_attn_g_bf16 at the f32
+    tile's edge shapes against attn_plain / attn_g_plain in bf16, each twice
+    for the same bits; the gathered and per-row index routes bit-equal on
+    the same rows, from the bf16 gather's rows or the f32 gather's (the
+    kernel rounds them as it loads them).'''
+    B, N, M, D, E, K, k_ext, chunks = _ATTN_FWD_EDGE[case]
+    if chunks > 1:
+        row_bytes = 4 * K * (3 + 32 + 4 * D + max(D, E))
+        monkeypatch.setattr(t_attn, '_FWD_BUDGET', row_bytes * (-(-N // chunks)))
+    rng = np.random.RandomState(700 + K + N + D)
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    mask = _t(rng.rand(B, M) > 0.3, dev)
+    params = _attn_params(rng, dev, D, E)
+    knn = t_attn.knn_extract(q_pos, pos2, k_ext, key_mask=mask)
+    g = t_attn.knn_gather_rows(pos2, feats, knn, k_ext, compute_dtype=torch.bfloat16)
+    g32 = t_attn.knn_gather_rows(pos2, feats, knn, k_ext)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        og = t_attn._attn_g_cuda(q_pos, q_proj, g, params, K, True)
+        og2 = t_attn._attn_g_cuda(q_pos, q_proj, g32, params, K, True)
+        rg = t_attn.attn_g_plain(q_pos, q_proj, g, params, K, bf)
+        torch.cuda.synchronize()
+        _bf16_close(og, rg)
+        assert torch.equal(og, og2)
+        for premul in (True, False):
+            kv = (torch.cat([feats @ params['to_k']['kernel'],
+                             feats @ params['to_v']['kernel']], -1).contiguous()
+                  if premul else feats)
+            args = (q_pos, q_proj, knn[0], pos2, kv, params, K, premul)
+            oi, oi2 = t_attn._attn_cuda(*args, True), t_attn._attn_cuda(*args, True)
+            ri = t_attn.attn_plain(*args, bf)
+            torch.cuda.synchronize()
+            _bf16_close(oi, ri)
+            assert torch.equal(oi, oi2)
+            if not premul:
+                assert torch.equal(oi, og)
+            # The bf16 mode is not the f32 one, and within JAX's 3e-2 of it.
+            o32 = t_attn._attn_cuda(*args)
+            assert not torch.equal(oi, o32)
+            assert float((oi - o32).abs().max()) < 3e-2 * float(o32.abs().max())
+
+
+@pytest.mark.parametrize('K', [1, 14, 32])
+def test_bf16_gather_and_interp_kernels_match_plain(dev, K):
+    '''o4d_gather_bf16 (exact), o4d_interp_bf16 and o4d_interp_g_bf16 against
+    their plain bf16 versions, twice for the same bits, the two
+    interpolation routes bit-equal on the same rows; the launch counters
+    count the bf16 names only.'''
+    from occlusions4d_torch.ops import _build
+    rng = np.random.RandomState(60 + K)
+    B, N, M, E = 2, 203, 97, 24
+    bf = torch.bfloat16
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    mask = _t(rng.rand(B, M) > 0.3, dev)
+    knn = t_attn.knn_extract(q_pos, pos2, K, key_mask=mask)
+    ki, kd = knn
+    _build.reset_launch_counts()
+    g = t_attn.knn_gather_rows(pos2, feats, knn, K, compute_dtype=bf)
+    fv = torch.cat([feats, pos2], -1).contiguous()
+    assert torch.equal(g, t_attn.gather_rows_plain(fv, ki, K, bf))
+    assert torch.equal(g, t_attn.round_bf16(t_attn.knn_gather_rows(pos2, feats, knn, K)))
+    ki_n = min(K, 8)
+    o_g = t_attn.fused_knn_interp(q_pos, pos2, feats, ki_n, knn=knn, gathered=g,
+                                  compute_dtype=bf)
+    o_i = t_attn.fused_knn_interp(q_pos, pos2, feats, ki_n, knn=knn, compute_dtype=bf)
+    o_i2 = t_attn.fused_knn_interp(q_pos, pos2, feats, ki_n, knn=knn, compute_dtype=bf)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    torch.testing.assert_close(o_g, t_attn.interp_g_plain(kd, g, ki_n, 1e-4, bf),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(o_i, t_attn.interp_plain(ki, kd, feats, ki_n, 1e-4, bf),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(o_g, o_i) and torch.equal(o_i, o_i2)
+    assert {k: counts[k] for k in ('gather_bf16', 'interp_bf16', 'interp_g_bf16', 'gather',
+                                   'interp', 'interp_g')} == dict(
+        gather_bf16=1, interp_bf16=2, interp_g_bf16=1, gather=1, interp=0, interp_g=0)
+
+
+def test_fast_decoder_launches_bf16_kernels_and_matches_cpu(dev):
+    '''fused_field_apply(compute_dtype=bf16) on both routes launches the bf16
+    kernels and no f32 interpolation, gather or attention kernel, and agrees
+    with its CPU run (plain bf16 versions, f32 backbone) within relative L2
+    1e-2 (the card runs the backbone's nn.Linear layers in TF32); the global
+    matmul precision is restored after the call.'''
+    import copy
+    from occlusions4d_torch.models.fused import SHARED_GATHER_MIN_M, fused_field_apply
+    from occlusions4d_torch.ops import _build
+    dec = _small_decoder(dev)
+    rng = np.random.RandomState(12)
+    q = _t(rng.rand(1, 301, 4).astype(np.float32), dev)
+    fg = _t(rng.rand(1, 16).astype(np.float32), dev)
+    before = torch.get_float32_matmul_precision()
+    f32_names = ('gather', 'interp', 'interp_g', 'attn', 'attn_g')
+    for M, shared in ((SHARED_GATHER_MIN_M - 1, False), (SHARED_GATHER_MIN_M + 77, True)):
+        abstract = _t(rng.rand(1, M, 3 + 16).astype(np.float32), dev)
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            out, _ = fused_field_apply(dec, q, abstract, fg, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            ref, _ = fused_field_apply(copy.deepcopy(dec).cpu(), q.cpu(), abstract.cpu(),
+                                       fg.cpu(), compute_dtype=torch.bfloat16)
+        want = dict(gather_bf16=1, interp_g_bf16=1, attn_g_bf16=2, interp_bf16=0,
+                    attn_bf16=0) if shared else \
+            dict(gather_bf16=0, interp_g_bf16=0, attn_g_bf16=0, interp_bf16=1, attn_bf16=2)
+        want.update({k: 0 for k in f32_names})
+        assert {k: counts[k] for k in want} == want
+        assert _rel_l2(out.cpu(), ref) <= 1e-2, _rel_l2(out.cpu(), ref)
+        assert torch.get_float32_matmul_precision() == before

@@ -59,7 +59,18 @@ each printing one JSON line:
      2e-4 and a largest error of 5e-3 of max |plain|), twice for the same
      bits, timed beside its f32 kernel, with TFLOP/s and the share of the
      bf16 tensor-core bound; the gathered and per-row index routes give the
-     same bits in bf16 too;
+     same bits in bf16 too; the bf16 backward kernels (the train step's
+     fused_decoder_dtype='bf16') beside their f32 lines: attn_bwd_bf16
+     (premul and per-row) and interp_bwd_bf16 at the gv1 train frame,
+     scatter_bf16 and attn_g_bwd_bf16 at the cv1 train frame, each against
+     its plain bf16 version (each gradient within relative L2 5e-3 for the
+     attention, 1e-3 for the per-key sums), twice for the
+     same bits, its weight-kernel gradients and per-key sums bf16 values,
+     the attention's ReLU masks of its last chunk against the plain
+     recompute (flips counted), the f32 kernel's distance from the plain
+     bf16 version (the gate must reject it), its time beside the f32
+     kernel's; attn_g_bwd_bf16 and the per-row index route give the same
+     bits for d(q_proj) and the weight gradients;
   4. main path: gv1 at full width with seeded random weights (numpy, loaded
      through checkpoint.from_jax_params): encode a 14336-point cloud, decode
      the dense grid in chunks of 32768; launch counters are zeroed just before
@@ -105,6 +116,14 @@ each printing one JSON line:
      steps, one decoder forward + backward of a sampled frame's first 1024
      queries on the card and on the CPU (plain versions, same route), loss
      and gradients compared;
+  8b. train_bf16: the gv1 and cv1 train steps with fused_decoder_dtype=
+     'bf16' beside f32 steps from the same seeded weights, batch and
+     generator seed, 5 steps each (the launch counters zeroed after the
+     first, read after the last: per step the decoder's bf16 kernels and no
+     f32 decoder kernel, the cv1 route's interpolation rows through the f32
+     interp_g_bwd into one bf16 scatter; the f32 run no bf16 kernel), finite
+     state, every step's loss within 3e-2 of the f32 run's (JAX's own bf16
+     gate), the step times side by side;
   9. train_sattn: the gv1 train step with fused_attention='on' (the
      encoder's four PT blocks through gather, sattn, sattn_bwd, scatter):
      first the encoder 'on' against 'auto' on the seeded state (each PT
@@ -129,10 +148,11 @@ each printing one JSON line:
      precision='fast' against the same decode with the plain bf16 versions
      on the card (density 2e-3, relative L2 1e-3);
 then the card's nvidia-smi line, the {"kernels": [...]} line (the five
-bf16 variants count their launches on main_path_fast; interp_g_bwd
-is listed with on_main_path false: no main path calls the standalone
-operator it serves; so is fps, the FPS kernel's one-block launch, which the
-speed rule keeps for clouds of 512 points or fewer) and, last,
+bf16 forward variants count their launches on main_path_fast, the four bf16
+backward ones and interp_g_bwd (the bf16 shared route's interpolation rows)
+on train_bf16; fps, the FPS kernel's one-block launch, which the speed rule
+keeps for clouds of 512 points or fewer, is listed with on_main_path false)
+and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
 or without the package beside this file, it exits non-zero and prints no
 result. Imports nothing of JAX.
@@ -227,6 +247,12 @@ _REPLACES = {
     'gather_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:814 (compute_dtype=bfloat16)',
     'interp_g_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:1254 (compute_dtype=bfloat16)',
     'attn_g_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:934 (compute_dtype=bfloat16)',
+    'attn_bwd_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:246 (compute_dtype=bfloat16)',
+    'attn_g_bwd_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:1030 '
+                       '(compute_dtype=bfloat16)',
+    'interp_bwd_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:661 '
+                       '(compute_dtype=bfloat16)',
+    'scatter_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:837 (compute_dtype=bfloat16)',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
            'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
@@ -234,31 +260,48 @@ _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'int
            'scatter': 'gather', 'interp_g_bwd': 'interp', 'attn_g_bwd': 'attn_bwd',
            'fps_cluster': 'fps', 'sattn': 'attn', 'sattn_bwd': 'attn_bwd',
            'nn1_direct': 'knn', 'interp_bf16': 'interp', 'attn_bf16': 'attn',
-           'gather_bf16': 'gather', 'interp_g_bf16': 'interp', 'attn_g_bf16': 'attn'}
+           'gather_bf16': 'gather', 'interp_g_bf16': 'interp', 'attn_g_bf16': 'attn',
+           'attn_bwd_bf16': 'attn_bwd', 'attn_g_bwd_bf16': 'attn_bwd',
+           'interp_bwd_bf16': 'interp_bwd', 'scatter_bf16': 'gather'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps_cluster', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
 _SHARED = ('gather', 'interp_g', 'attn_g')
-# The shared route's backward: the scatter and the attention's; the
-# interpolation's term goes through the index route's interp_bwd
-# (interp_g_bwd serves an operator no main path calls).
-_SHARED_BWD = ('scatter', 'attn_g_bwd', 'interp_g_bwd')
+# The shared route's backward: the scatter and the attention's; in f32 the
+# interpolation's term goes through the index route's interp_bwd, in bf16
+# through interp_g_bwd's rows into the one bf16 scatter (train_bf16).
+_SHARED_BWD = ('scatter', 'attn_g_bwd')
 _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='train',
              nn1_bidir='sampler_moving', **{k: 'main_path_cv1' for k in _SHARED},
              **{k: 'train_cv1' for k in _SHARED_BWD}, fps='main_path',
              sattn='train_sattn', sattn_bwd='train_sattn', nn1_direct='anchor',
              **{k: 'main_path_fast' for k in ('interp_bf16', 'attn_bf16', 'gather_bf16',
-                                              'interp_g_bf16', 'attn_g_bf16')})
-# Kernels kept for an operator that no main path calls: o4d_interp_g_bwd is
-# the backward of the standalone fused_knn_interp(gathered=).
-_OFF_PATH = {'interp_g_bwd': 'the standalone fused_knn_interp(gathered=) backward; '
-                             'the decoder route runs scatter + interp_bwd',
-             'fps': 'the one-block launch of the FPS kernel: the speed rule '
+                                              'interp_g_bf16', 'attn_g_bf16')},
+             **{k: 'train_bf16' for k in ('attn_bwd_bf16', 'attn_g_bwd_bf16',
+                                          'interp_bwd_bf16', 'scatter_bf16',
+                                          'interp_g_bwd')})
+# A kernel entry no main path launches.
+_OFF_PATH = {'fps': 'the one-block launch of the FPS kernel: the speed rule '
                     '(csrc/fps.cu o4d_fps_plan) sends clouds of 512 points or '
                     'fewer there, every main-path level to a cluster (fps_cluster)'}
 # Launches per cv1 train step (4 frames, 2 attention layers each).
 _CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=4, interp_g_bwd=0, attn_g_bwd=8,
                  attn=0, interp=0, attn_bwd=0, interp_bwd=4)
+# Launches per train step with fused_decoder_dtype='bf16' (phase train_bf16):
+# the decoder's bf16 kernels and none of its f32 ones; on the cv1 route the
+# interpolation's row cotangents go through the f32 o4d_interp_g_bwd (the TPU
+# kernel has no compute dtype) into the one bf16 scatter.
+_F32_DECODER = ('interp', 'attn', 'interp_bwd', 'attn_bwd', 'gather', 'interp_g', 'attn_g',
+                'scatter', 'attn_g_bwd')
+_BF16_STEP = {
+    'gv1': dict(interp_bf16=4, attn_bf16=8, interp_bwd_bf16=4, attn_bwd_bf16=8,
+                gather_bf16=0, interp_g_bf16=0, attn_g_bf16=0, attn_g_bwd_bf16=0,
+                scatter_bf16=0, interp_g_bwd=0, **{k: 0 for k in _F32_DECODER}),
+    'cv1': dict(gather_bf16=4, interp_g_bf16=4, attn_g_bf16=8, attn_g_bwd_bf16=8,
+                scatter_bf16=4, interp_g_bwd=4, interp_bf16=0, attn_bf16=0,
+                interp_bwd_bf16=0, attn_bwd_bf16=0, **{k: 0 for k in _F32_DECODER})}
+_BF16_TRAIN_STEPS = 5          # from one seeded state; the first is the warm-up.
+_BF16_LOSS_RTOL = 3e-2         # JAX's own bf16 gate (tests/test_pallas_ops.py:141-180).
 
 
 _T0 = time.time()
@@ -334,6 +377,200 @@ def bf16_agree(o_k, o_p):
 
 
 _BF16_TOL = 'relative L2 2e-4, max abs err 5e-3 x max|plain|'
+
+
+# The bf16 backward kernels' gates against their plain bf16 versions:
+# relative L2 per gradient. The per-key sums (interp_bwd_bf16, scatter_bf16)
+# add at most hundreds of rows: 1e-3. The attention's weight gradients sum
+# 250k-720k rows in another order than cuBLAS before their one rounding to
+# bf16, so a result may land one bf16 ulp (2^-8 relative) away wherever the
+# f32 sums differ in their last bits; 5e-3 allows that on most entries. The
+# f32 kernels land outside both (printed on each line).
+_SUM_GATE, _ATTN_GATE = 1e-3, 5e-3
+
+
+def bf16_tol(gate):
+    return (f'each gradient relative L2 <= {gate:g} (the logits bias, whose true gradient '
+            'is zero: atol 1e-4 x max(1, max|plain|))')
+
+
+def bf16_grads_each(pairs):
+    """{name: relative L2} of (name, kernel, plain) triples."""
+    return {'/'.join(n): rel_l2(a, b) for n, a, b in pairs}
+
+
+def bf16_grads_agree(pairs, gate):
+    """The bf16 backward kernels' gate against their plain bf16 versions,
+    over (name, kernel, plain) triples: each gradient within relative L2
+    `gate` (a ReLU mask may flip where h1 lies within an f32 rounding of
+    zero, an f32 intermediate summed in another order may round to the
+    neighbouring bf16 operand, a finished sum to the neighbouring bf16
+    value), the logits' bias, whose true gradient is zero, within atol
+    1e-4 x max(1, max|plain|). :return (ok, worst relative L2, max abs err)."""
+    ok, worst, err = True, 0.0, 0.0
+    for name, a, b in pairs:
+        e = max_err(a, b)
+        err = max(err, e)
+        if name == ('attn_mlp_2', 'bias') or not bool(b.any()):  # a zero true gradient.
+            ok = ok and e <= 1e-4 * max(1.0, float(b.abs().max()))
+            continue
+        r = rel_l2(a, b)
+        worst = max(worst, r)
+        ok = ok and r <= gate
+    return ok, worst, err
+
+
+class CaptureWorkspace:
+    """Keeps the workspace of the attention backward launches made inside
+    (ops/attention.py::_bwd_plan's QC and f32 workspace), whose first buffers
+    hold the last chunk's relu(theta_h) and relu(h1) after the launch."""
+
+    def __init__(self, t_attn):
+        self.t_attn, self.qc, self.ws = t_attn, None, None
+
+    def __enter__(self):
+        self.real = self.t_attn._bwd_plan
+
+        def plan(*a):
+            self.qc, self.ws, iws = self.real(*a)
+            return self.qc, self.ws, iws
+        self.t_attn._bwd_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.t_attn._bwd_plan = self.real
+
+
+def mask_flips(torch, t_attn, cap, q_proj, rows_fn, params, K, premul, dims):
+    """ReLU masks of the last chunk of the last example that the bf16
+    backward kernel recomputed (its workspace, csrc/attn_bwd.cu::carve)
+    against the plain bf16 recompute of the same rows
+    (attn_bwd_recompute_plain): the entries where relu(h1) > 0 or
+    relu(theta_h) > 0 differ, beside the distance of the recomputed hpre
+    and relu(h1). rows_fn(b, n0, n1) -> (rel (R, 3), rows (R, C)) as the
+    kernel loads them; dims (D, E, H, P) with the kernel's E (premul: D)."""
+    D, E, H, P = dims
+    B, N = q_proj.shape[:2]
+    QC, ws = cap.qc, cap.ws
+    n0 = ((N - 1) // QC) * QC
+    R, Rmax = (N - n0) * K, QC * K
+    off, at = 0, {}
+    for nm, width in (('rel', 3), ('f', E), ('ph', P), ('th', D), ('kk', D), ('vv', D),
+                      ('hp', D), ('r1', H)):
+        at[nm] = (off, width)
+        off += (Rmax * width + 3) // 4 * 4
+
+    def buf(nm):
+        o, width = at[nm]
+        return ws[o:o + R * width].view(R, width)
+    rel, x = rows_fn(B - 1, n0, N)
+    fw = t_attn.attn_bwd_recompute_plain(q_proj[B - 1, n0:N], rel, x, params, premul, K,
+                                         torch.bfloat16)
+    return dict(rows=R, h1_flips=int(((buf('r1') > 0) != (fw['r1'] > 0)).sum()),
+                h1_entries=R * H, h1_positive=int((fw['r1'] > 0).sum()),
+                theta_h_flips=int(((buf('ph') > 0) != (fw['ph'] > 0)).sum()),
+                theta_h_entries=R * P, rel_max_abs_diff=max_err(buf('rel'), t_attn.round_bf16(rel)),
+                hpre_rel_l2=rel_l2(buf('hp'), fw['hp']), relu_h1_rel_l2=rel_l2(buf('r1'), fw['r1']))
+
+
+def attn_bwd_bf16_line(torch, t_attn, name, call, plain, f32_call, flip_src, params, K,
+                       premul, dims, macs, nbytes, shape, f32_ms, same_as=None):
+    """One bf16 attention backward kernel line: call() -> (d(q_proj), d(rows),
+    {leaf: d(weight)}) against plain() (its plain bf16 version) at
+    bf16_grads_agree's gate, twice for the same bits, the weight kernels'
+    gradients and (index route) d(kv) bf16 values, the ReLU masks of its
+    last chunk against the plain recompute (mask_flips), the f32 kernel's
+    distance from the plain bf16 version (f32_call; the gate must reject
+    it), its time beside the f32 kernel's (f32_ms) and the plain version's.
+    same_as: (d(q_proj), weight grads) of another route on the same rows,
+    which must be bit-equal. flip_src: (q_proj, rows_fn) of mask_flips.
+    Returns the {"kernels"} row and the kernel's d(q_proj) and weight
+    gradients."""
+    with torch.no_grad(), CaptureWorkspace(t_attn) as cap:
+        dq, dx, dw = call()
+        torch.cuda.synchronize()
+        flips = mask_flips(torch, t_attn, cap, flip_src[0], flip_src[1], params, K, premul,
+                           dims)
+    with torch.no_grad():
+        dq2, dx2, dw2 = call()
+        rq, rx, rw = plain()
+    torch.cuda.synchronize()
+    names = [('q_proj',), ('rows',)] + sorted(rw)
+    triples = list(zip(names, [dq, dx] + [dw[n] for n in sorted(rw)],
+                       [rq, rx] + [rw[n] for n in sorted(rw)]))
+    ok, worst, err = bf16_grads_agree(triples, _ATTN_GATE)
+    each = bf16_grads_each(triples)
+    del triples
+    repro = max([max_err(dq, dq2), max_err(dx, dx2)] + [max_err(dw[n], dw2[n]) for n in dw])
+    kernels_bf16 = all(bool(torch.equal(dw[n], t_attn.round_bf16(dw[n]))) for n in dw
+                       if n[1] == 'kernel')
+    same = None
+    if same_as is not None:
+        same = bool(torch.equal(dq, same_as[0])) and all(
+            bool(torch.equal(dw[n], same_as[1][n])) for n in same_as[1])
+    del dq2, dx2, dw2
+    with torch.no_grad():
+        fq, fx, fw = f32_call()
+    f_ok, f_worst, _ = bf16_grads_agree(list(zip(names, [fq, fx] + [fw[n] for n in sorted(rw)],
+                                                 [rq, rx] + [rw[n] for n in sorted(rw)])),
+                                        _ATTN_GATE)
+    del fq, fx, fw, rq, rx, rw
+    with torch.no_grad():
+        ms = cuda_ms(torch, call, 3)
+        peak = launch_peak_gib(torch, call)
+        plain_ms = cuda_ms(torch, plain, 1)
+    b_ms, b_by = bound(nbytes, 2.0 * macs, _BF16_TC_FLOPS)
+    rates = attn_rates(2.0 * macs, ms, b_ms)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, bound_peak='bf16 tensor core 989 TFLOP/s', shape=shape,
+               rel_l2_err=worst, rel_l2_each=each, repeat_max_abs_diff=repro,
+               f32_kernel_ms=f32_ms,
+               speedup_vs_f32=f32_ms / ms, mask_flips=flips, launch_peak_gib=peak,
+               f32_kernel_rel_l2_vs_plain=f_worst, f32_kernel_within_gate=f_ok, **rates)
+    good = ok and repro == 0.0 and kernels_bf16 and not f_ok and same is not False
+    emit(dict(phase='kernel', name=name, agree=good, tolerance=bf16_tol(_ATTN_GATE),
+              weight_kernel_grads_are_bf16=kernels_bf16, same_bits_as_other_route=same,
+              plain='attn_bwd_plain / attn_g_bwd_plain in bf16 (attn_bwd_rows_plain, one '
+                    'example at a time inside)',
+              flop=2.0 * macs, **row))
+    if not good:
+        raise AssertionError(f'{name} disagrees (worst rel L2 {worst}), is not reproducible '
+                             f'({repro}), its weight gradients are not bf16 '
+                             f'({kernels_bf16}), its route differs ({same}), or the f32 '
+                             f'kernel passes its gate ({f_worst})')
+    return row, dq, dw
+
+
+def bf16_sum_line(torch, name, call, plain, f32_call, library, library_what, b_ms, b_by,
+                  shape):
+    """A bf16 per-key-sum kernel (interp_bwd_bf16, scatter_bf16) against
+    its plain bf16 version at bf16_grads_agree's gate, twice for the same
+    bits, its output bf16 values, the f32 kernel's distance (rejected by the
+    gate), its time beside the f32 kernel's, the plain version's and the
+    library call's; emits the kernel line and returns its row."""
+    o_k, o_2, o_p, o_f = call(), call(), plain(), f32_call()
+    torch.cuda.synchronize()
+    ok, rel, err = bf16_grads_agree([(name, o_k, o_p)], _SUM_GATE)
+    f_ok, f_rel, _ = bf16_grads_agree([(name, o_f, o_p)], _SUM_GATE)
+    repro = max_err(o_k, o_2)
+    is_bf16 = bool(torch.equal(o_k, o_k.to(torch.bfloat16).float()))
+    del o_k, o_2, o_p, o_f
+    ms = cuda_ms(torch, call, 20)
+    f32_ms = cuda_ms(torch, f32_call, 20)
+    plain_ms = cuda_ms(torch, plain, 5)
+    lib_ms = cuda_ms(torch, library, 20)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, shape=shape, rel_l2_err=rel, repeat_max_abs_diff=repro,
+               f32_kernel_ms=f32_ms, f32_kernel_rel_l2_vs_plain=f_rel,
+               f32_kernel_within_gate=f_ok, share_of_bound=b_ms / ms)
+    good = ok and repro == 0.0 and is_bf16 and not f_ok
+    emit(dict(phase='kernel', name=name, agree=good, tolerance=bf16_tol(_SUM_GATE),
+              output_is_bf16=is_bf16, library=library_what, **row))
+    if not good:
+        raise AssertionError(f'{name} disagrees (rel L2 {rel}), is not reproducible '
+                             f'({repro}), is not bf16 ({is_bf16}) or the f32 kernel passes '
+                             f'its gate ({f_rel})')
+    return row
 
 
 def attn_fwd_line(torch, name, call, plain, macs, nbytes, shape, reps=3, bf16=False,
@@ -661,10 +898,42 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
                                                bound_ms=b_ms, bound_f32_cuda_core_ms=f32_ms,
                                                launch_peak_gib=peak, **rates)
         del dq, dkv, dw, dq2, dkv2, dw2, rq, rkv, rw
+        # The bf16 mode (fused_decoder_dtype='bf16') on the same inputs.
+
+        def index_rows(b, n0, n1, kv=kv):
+            idx = ki[b, n0:n1, :K].long().reshape(-1)
+            rel = qpos[b, n0:n1, None, :].expand(-1, K, -1).reshape(-1, 3) \
+                - t_attn.round_bf16(pos2[b][idx])
+            return rel, t_attn.round_bf16(kv[b][idx])
+        bf_row, _, _ = attn_bwd_bf16_line(
+            torch, t_attn, name.replace('attn_bwd', 'attn_bwd_bf16'),
+            lambda: t_attn.attn_bwd(*args, torch.bfloat16),
+            lambda: t_attn.attn_bwd_plain(*args, torch.bfloat16),
+            lambda: t_attn.attn_bwd(*args), (q_proj, index_rows), params, K, premul,
+            (D, D if premul else E, H, P), macs, nbytes, shape, ms)
+        if premul:
+            rows['attn_bwd_bf16'] = bf_row
+        else:
+            rows['attn_bwd_bf16']['per_row'] = bf_row
 
     gi = rand(B, N, E)
     rows['interp_bwd'] = interp_bwd_line(torch, t_attn, dev, ki, kd, gi, M, KI,
                                          'gv1_train_frame')
+    # Its bf16 mode on the same inputs; library: index_add_ of the rounded
+    # weighted rows (the weighting and rounding not timed).
+    bf = torch.bfloat16
+    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
+    wrows = t_attn.round_bf16(((w / w.sum(-1, keepdim=True))[..., None]
+                               * gi[:, :, None, :]).reshape(-1, E))
+    keys = (ki[..., :KI].long() + M * torch.arange(B, device=dev).view(B, 1, 1)).reshape(-1)
+    rows['interp_bwd_bf16'] = bf16_sum_line(
+        torch, 'interp_bwd_bf16', lambda: t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4, bf),
+        lambda: t_attn.interp_bwd_plain(ki, kd, gi, M, KI, 1e-4, bf),
+        lambda: t_attn.interp_bwd(ki, kd, gi, M, KI, 1e-4),
+        lambda: torch.zeros((B * M, E), device=dev).index_add_(0, keys, wrows),
+        'index_add_ of the bf16-rounded weighted rows', rows['interp_bwd']['bound_ms'],
+        rows['interp_bwd']['bound_by'], [B, N, M, KI, E])
+    del wrows, keys
     # M 2124 on the index route (above the old shared-memory cap of 1816).
     pos2b = rand(B, _CV1_M, 3, scale=10.0)
     kib, kdb = t_attn.knn_extract(qpos, pos2b, K)
@@ -1050,7 +1319,19 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                            inverse_index_ms=index_ms, index_add_ms=index_add_ms,
                            longest_segment=seg, longest_segment_chunks=chunks,
                            repeat_max_abs_diff=repro)
-    del d1, d2, ref, dg, dg_rows
+    # Its bf16 mode on the same rows; library: scatter_add_ of the rounded
+    # rows (the rounding not timed).
+    bf = torch.bfloat16
+    idx = ki[..., :K].transpose(1, 2).reshape(B, K * N, 1).long().expand(B, K * N, C)
+    src = t_attn.round_bf16(dg[:, :K].reshape(B, K * N, C))
+    out_b = torch.zeros((B, M, C), device=dev)
+    rows['scatter_bf16'] = bf16_sum_line(
+        torch, 'scatter_bf16', lambda: t_attn.gather_bwd(ki, dg, M, K, bf),
+        lambda: t_attn.gather_bwd_plain(ki, dg, M, K, bf),
+        lambda: t_attn.gather_bwd(ki, dg, M, K),
+        lambda: out_b.scatter_add_(1, idx, src), lib_name + ' of the bf16-rounded rows',
+        b_ms, b_by, shape)
+    del d1, d2, ref, dg, dg_rows, idx, src, out_b
 
     # The gathered interpolation's backward: a write pass over dg.
     go = rand(B, N, E)
@@ -1171,6 +1452,23 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
                               bound_f32_cuda_core_ms=f32_ms, shape=shape,
                               repeat_max_abs_diff=repro, index_route_per_row_bwd_ms=idx_ms,
                               launch_peak_gib=peak, **rates)
+
+    # The bf16 mode (fused_decoder_dtype='bf16') over the bf16 gather's rows,
+    # and the per-row index route's bf16 kernel on the same rows.
+    bf = torch.bfloat16
+    g_bf = t_attn.knn_gather_rows(pos2, feats2, knn, K, compute_dtype=bf)
+    args = (qpos, q_proj, g_bf, params, K, go)
+    iq, _, iw = t_attn.attn_bwd(qpos, q_proj, ki, pos2, feats2, params, K, False, go, bf)
+
+    def gathered_rows(b, n0, n1):
+        r = g_bf[b, :K, n0:n1].transpose(0, 1).reshape(-1, C)
+        return qpos[b, n0:n1, None, :].expand(-1, K, -1).reshape(-1, 3) - r[:, E:], r[:, :E]
+    rows['attn_g_bwd_bf16'], _, _ = attn_bwd_bf16_line(
+        torch, t_attn, 'attn_g_bwd_bf16', lambda: t_attn.attn_g_bwd(*args, bf),
+        lambda: t_attn.attn_g_bwd_plain(*args, bf),
+        lambda: t_attn.attn_g_bwd(*args), (q_proj, gathered_rows), params, K, False,
+        (D, E, H, P), macs, nbytes, shape, ms, same_as=(iq, iw))
+    del g_bf, iq, iw
 
 
 def check_self_attention_kernels(torch, dev, rng, encoder, rows):
@@ -1794,6 +2092,78 @@ def train_cv1(torch, dev, smi, path_counts):
                              f'{finite}, changed {changed}, card vs CPU {check}')
     return dict(ms=frame_scatter_ms, library_ms=frame_lib_ms, longest_segment=longest,
                 longest_segment_chunks=chunks)
+
+
+def train_bf16(torch, dev, smi, path_counts):
+    """Phase 8b: the gv1 and cv1 train steps with fused_decoder_dtype='bf16'
+    beside f32 steps from the same seeded weights, batch and generator seed:
+    _BF16_TRAIN_STEPS steps each, the launch counters zeroed after the first
+    and read after the last (per step: _BF16_STEP, and the f32 run none of
+    the bf16 kernels), finite state, every step's loss within
+    _BF16_LOSS_RTOL of the f32 run's, the step times side by side."""
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.ops import _build
+    from occlusions4d_torch.train import Trainer
+    path_counts['train_bf16'] = {}
+    n = _BF16_TRAIN_STEPS - 1
+    bf16_names = sorted({k for e in _BF16_STEP.values() for k in e} - set(_F32_DECODER))
+    for model, kw, kind, wseed, bseed in (('gv1', _GV1_TRAIN, 'greater', 2, 1),
+                                          ('cv1', _CV1_TRAIN, 'carla', 6, 7)):
+        res = {}
+        for dtype in ('f32', 'bf16'):
+            cfg = TrainConfig(**dict(kw, fused_decoder_dtype=dtype))
+            tr = Trainer(cfg, kind, 'cuda')
+            wrng = np.random.RandomState(wseed)
+            tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                                      decoder=random_jax_params(tr.decoder, wrng)),
+                          seed=0, steps_per_epoch=100)
+            batch = train_batch(torch, cfg, dev, seed=bseed, data_kind=kind)
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for i in range(_BF16_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                if i == 1:
+                    _build.reset_launch_counts()
+                t0 = time.time()
+                m = tr.step(batch)
+                torch.cuda.synchronize()
+                steps.append(dict(ms=(time.time() - t0) * 1e3,
+                                  total_loss=float(m['total_loss']),
+                                  finite=bool(m['grads_finite']) and bool(m['params_finite'])
+                                  and bool(np.isfinite(float(m['total_loss'])))))
+            res[dtype] = dict(steps=steps, counts=_build.launch_counts(),
+                              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                              mean_step_ms=float(np.mean([st['ms'] for st in steps[1:]])))
+            del tr, batch
+            torch.cuda.empty_cache()
+        expect = _BF16_STEP[model]
+        per_step = {k: res['bf16']['counts'].get(k, 0) / n for k in expect}
+        counts_ok = per_step == {k: float(v) for k, v in expect.items()} and all(
+            res['f32']['counts'].get(k, 0) == 0 for k in bf16_names)
+        loss_rel = [abs(b['total_loss'] - f['total_loss']) / abs(f['total_loss'])
+                    for b, f in zip(res['bf16']['steps'], res['f32']['steps'])]
+        finite = all(st['finite'] for r in res.values() for st in r['steps'])
+        ok = counts_ok and finite and max(loss_rel) <= _BF16_LOSS_RTOL
+        for k, v in res['bf16']['counts'].items():
+            path_counts['train_bf16'][k] = path_counts['train_bf16'].get(k, 0) + v
+        emit(dict(phase='train_bf16', model=model, steps=_BF16_TRAIN_STEPS,
+                  timed_steps=n, bf16_step_ms=[st['ms'] for st in res['bf16']['steps']],
+                  f32_step_ms=[st['ms'] for st in res['f32']['steps']],
+                  bf16_mean_step_ms=res['bf16']['mean_step_ms'],
+                  f32_mean_step_ms=res['f32']['mean_step_ms'],
+                  speedup=res['f32']['mean_step_ms'] / res['bf16']['mean_step_ms'],
+                  bf16_loss=[st['total_loss'] for st in res['bf16']['steps']],
+                  f32_loss=[st['total_loss'] for st in res['f32']['steps']],
+                  loss_rel_diff=loss_rel, loss_rtol=_BF16_LOSS_RTOL,
+                  launches_per_step=per_step, expected_per_step=expect,
+                  bf16_launches=res['bf16']['counts'],
+                  bf16_peak_mem_gib=res['bf16']['peak_mem_gib'],
+                  f32_peak_mem_gib=res['f32']['peak_mem_gib'], finite=finite, ok=bool(ok),
+                  gpu=smi))
+        if not ok:
+            raise AssertionError(f'train_bf16 ({model}) failed: launches {per_step} '
+                                 f'(expected {expect}), finite {finite}, loss vs f32 '
+                                 f'{loss_rel}')
 
 
 def attn_g_grads_f64(torch, t_attn, q_pos, q_proj, g, params, k, go):
@@ -2579,6 +2949,9 @@ def main():
 
     # 8. The cv1 train step: the shared-gather route's backward kernels.
     rows['scatter']['real_frame'] = train_cv1(torch, dev, smi, path_counts)
+    torch.cuda.empty_cache()
+    # 8b. The gv1 and cv1 train steps with fused_decoder_dtype='bf16'.
+    train_bf16(torch, dev, smi, path_counts)
     torch.cuda.empty_cache()
 
     # 9. The gv1 train step through the encoder's fused self-attention.

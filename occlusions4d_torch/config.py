@@ -45,9 +45,13 @@ class TrainConfig:
     tracking_lw: float = 0.0
     # Training. mixed_precision (bf16 modules, AdamW eps 1e-4 in the JAX
     # package) is carried so that a checkpoint's config survives; the port
-    # trains in f32 only and refuses it (train.py), and evaluates such a
-    # checkpoint in f32 as the JAX engine does.
+    # refuses it in training (train.py) and evaluates such a checkpoint in
+    # f32 as the JAX engine does. fused_decoder_dtype is the compute dtype
+    # of the fused decoder's kernels in the train step, forward and backward
+    # (JAX's name and default): 'bf16', 'f32', or 'auto', which is bf16 on a
+    # TPU in the JAX package and f32 everywhere in the port (pipeline.py).
     mixed_precision: bool = False
+    fused_decoder_dtype: str = 'auto'
     seed: int = 1830
     batch_size: int = 8
     learn_rate: float = 1e-3

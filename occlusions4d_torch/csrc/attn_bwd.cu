@@ -1,4 +1,4 @@
-// Backward of the fused kNN vector attention for Hopper, three entries on one
+// Backward of the fused kNN vector attention for Hopper, five entries on one
 // body:
 //   o4d_attn_bwd   replaces occlusions4d_tpu/ops/pallas_attention.py::
 //                  _attn_bwd_kernel (:246), in its use_idx form, in both
@@ -13,9 +13,12 @@
 //   o4d_sattn_bwd  replaces occlusions4d_tpu/ops/pallas_self_attention.py::
 //                  _bwd_kernel (:132), the encoder's fused self-attention: the
 //                  rows come from gf (B, N, k, E) and rel (B, N, k, 3), their
-//                  gradients go to dgf (B, N, k, E).
+//                  gradients go to dgf (B, N, k, E);
+//   o4d_attn_bwd_bf16, o4d_attn_g_bwd_bf16: the first two in the bf16
+//                  compute mode (the train step's fused_decoder_dtype='bf16';
+//                  the TPU kernels with compute_dtype bf16), below.
 // The MODE template parameter picks only how a chunk's rows are found
-// (load_rows_kernel) and where their gradients go.
+// (load_rows_kernel) and where their gradients go; BF16 the arithmetic.
 //
 // Function: with the forward of csrc/attn.cu recomputed per row
 // (theta = W2 relu(W1 rel + b1) + b2, hpre = q - k + theta,
@@ -70,6 +73,29 @@
 //     same bits for d(q_proj) and the weight gradients;
 //   * the index route's d(kv) rows are summed per key by the inverse index
 //     and chunked sums of csrc/inverse_index.cuh, chunk after chunk.
+//
+// The bf16 mode (BF16), the TPU kernels' _mm2 (pallas_attention.py:368-405,
+// 1107-1134): every product above rounds both operands to bf16 and sums the
+// exact products in f32, the forward recompute's (theta's two layers, k, v,
+// h1) included. Here every product is gemm3_kernel's bf16 mode (each
+// staged tile rounded once, fragments by ldmatrix, one mma.sync m16n8k16
+// per 16-deep step: a sixth of the mma instructions of 3xTF32, no FMA
+// chains on the CUDA cores); the key rows and positions
+// are rounded as they are loaded (load_rows_kernel's RND) and rel once
+// after (theta's first layer on the CUDA cores reads it). Masks, softmax,
+// d(q_proj), the biases' gradients (column sums) and the rows' gradients
+// stay f32. The weight kernels' gradients are reduced in the same slice and
+// chunk order, then rounded to bf16 once (the VJP's cast to the kernels'
+// bf16); the index route's d(kv) rounds each row before its per-key sum
+// and the finished sum after the last chunk; the gathered route's dg rows
+// stay f32 (the gather's rows are f32; its scatter rounds them). Both
+// routes' properties hold: the same bits on every call, and the same bits
+// for d(q_proj) and the weight gradients from the gathered and index routes
+// on the same rows (the gathered rows are bf16 values already; rounding
+// them again changes nothing). A ReLU mask may flip against a plain bf16
+// version where h1 or theta_h lies within an f32 rounding of zero
+// (the products' sums run in another order), so the kernels are held to a
+// bf16 tolerance, not the f32 mode's 5e-6.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -127,7 +153,9 @@ cudaError_t reduce(const float* part, int S, long long cnt, int first, float* ou
   return cudaGetLastError();
 }
 
-// out (K1 x N) (+)= alpha X^T Y over R rows (X: R x K1, Y: R x N, row-major).
+// out (K1 x N) (+)= alpha X^T Y over R rows (X: R x K1, Y: R x N, row-major);
+// BF16: the operands rounded to bf16.
+template <bool BF16>
 cudaError_t wgrad(const float* X, int K1, const float* Y, int N, int R, float alpha,
                   float* part, float* out, int first, cudaStream_t s) {
   const int slice = row_slice(R, out_tiles(K1, N)), S = n_slices(R, slice);
@@ -135,7 +163,7 @@ cudaError_t wgrad(const float* X, int K1, const float* Y, int N, int R, float al
   a.kslice = slice;
   a.zstride = (long long)K1 * N;
   a.alpha = alpha;
-  cudaError_t e = gemm<true, false>(a, S, s);
+  cudaError_t e = gemm<true, false, false, BF16>(a, S, s);
   if (e != cudaSuccess) return e;
   return reduce(part, S, (long long)K1 * N, first, out, s);
 }
@@ -150,6 +178,31 @@ cudaError_t bias_grad(const float* X, int N, int R, float* part, float* out, int
   const int slice = colsum_slice(R, N), S = n_slices(R, slice);
   colsum_kernel<<<dim3((N + 127) / 128, S), 128, 0, s>>>(X, N, R, N, slice, part);
   return reduce(part, S, N, first, out, s);
+}
+
+// x[i] rounded to bf16 (stored as f32) for i < n.
+__global__ void round_bf16_kernel(float* __restrict__ x, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    x[i] = round_bf16(x[i]);
+}
+
+cudaError_t round_all(float* x, long long n, cudaStream_t s) {
+  if (n <= 0) return cudaSuccess;
+  const long long want = (n + 255) / 256;
+  round_bf16_kernel<<<(int)(want < 4096 ? want : 4096), 256, 0, s>>>(x, n);
+  return cudaGetLastError();
+}
+
+// A row-phase product (one split): bf16 tensor cores in the bf16 mode, else
+// f32 FMA chains where FMA (the products that decide a ReLU mask), else
+// 3xTF32.
+template <bool TB, bool FMA, bool BF16>
+cudaError_t row_gemm(const GemmArgs& a, cudaStream_t s) {
+  if constexpr (BF16)
+    return gemm<false, TB, false, true>(a, 1, s);
+  else
+    return gemm<false, TB, FMA>(a, 1, s);
 }
 
 long long part_floats(int R, int K1, int N) {
@@ -331,8 +384,9 @@ struct KvRows {
 };
 
 
-template <int MODE>
+template <int MODE, bool BF16>
 int run(BwdArgs& p, int B, cudaStream_t s) {
+  static_assert(!(BF16 && MODE == kSelf), "the self-attention has no bf16 mode yet");
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
   const bool premul = MODE == kIndex && p.premul;
   const int CW = premul ? 2 * D : E;
@@ -366,32 +420,33 @@ int run(BwdArgs& p, int B, cudaStream_t s) {
       } else {
         const RowSrc src{p.qpos, p.ki, p.kpos, p.kv, p.gin, p.dg,
                          p.N, p.M, D, E, p.KS, p.KE, k, p.premul};
-        load_rows_kernel<MODE><<<blocks_for(R, 8), 256, 0, s>>>(
+        load_rows_kernel<MODE, BF16><<<blocks_for(R, 8), 256, 0, s>>>(
             src, RowDst{c.rel, c.f, c.kk, c.vv}, b, n0, R);
+        // rel is an operand of theta's first layer and of dW1 only.
+        if (BF16) O4D_TRY(round_all(c.rel, (long long)R * 3, s));
       }
       // ---- Forward recompute ----
       pos_hidden_kernel<<<blocks_for((long long)R * P, 256), 256, 0, s>>>(rel, p.wp1, p.bp1,
                                                                          c.ph, R, P);
-      // theta, k, v and h1 on the CUDA cores (FMA chains, the rounding of
-      // the plain f32 products): h1's sign is the ReLU mask of dh1, and a
+      // f32: theta, k, v and h1 on the CUDA cores (FMA chains, the rounding
+      // of the plain f32 products): h1's sign is the ReLU mask of dh1, and a
       // mask that flips where h1 is within rounding of zero moves d(q_proj)
-      // and dA1 far past the f32 tolerance.
+      // and dA1 far past the f32 tolerance. bf16: on the tensor cores.
       GemmArgs a = gemm_args(c.ph, P, p.wp2, D, c.th, D, R, D, P);
       a.bias = p.bp2;
-      O4D_TRY((gemm<false, false, true>(a, 1, s)));
+      O4D_TRY((row_gemm<false, true, BF16>(a, s)));
       if (!premul) {
-        O4D_TRY((gemm<false, false, true>(gemm_args(F, E, p.wk, D, c.kk, D, R, D, E), 1,
-                                          s)));
-        O4D_TRY((gemm<false, false, true>(gemm_args(F, E, p.wv, D, c.vv, D, R, D, E), 1,
-                                          s)));
+        O4D_TRY((row_gemm<false, true, BF16>(gemm_args(F, E, p.wk, D, c.kk, D, R, D, E), s)));
+        O4D_TRY((row_gemm<false, true, BF16>(gemm_args(F, E, p.wv, D, c.vv, D, R, D, E), s)));
       }
       hpre_kernel<<<blocks_for((long long)R * D, 256), 256, 0, s>>>(
           p.qproj + q0 * D, c.kk, c.th, c.hp, c.vv, R, D, k);
       a = gemm_args(c.hp, D, p.wa1, H, c.r1, H, R, H, D);
       a.bias = p.ba1;
       a.relu = 1;
-      O4D_TRY((gemm<false, false, true>(a, 1, s)));
-      O4D_TRY((gemm<false, false>(gemm_args(c.r1, H, p.wa2, D, c.lg, D, R, D, H), 1, s)));
+      O4D_TRY((row_gemm<false, true, BF16>(a, s)));
+      O4D_TRY((row_gemm<false, false, BF16>(gemm_args(c.r1, H, p.wa2, D, c.lg, D, R, D, H),
+                                            s)));
       // ---- Softmax backward: dlog (in lg), dvpe (in kk) ----
       float* dv = c.kk;
       softmax_bwd_kernel<<<blocks_for((long long)nq * D, 256), 256, 0, s>>>(
@@ -400,15 +455,16 @@ int run(BwdArgs& p, int B, cudaStream_t s) {
       a = gemm_args(c.lg, D, p.wa2, D, c.dh, H, R, H, D);
       a.mask = c.r1;
       a.ldm = H;
-      O4D_TRY((gemm<false, true>(a, 1, s)));
-      O4D_TRY((gemm<false, true>(gemm_args(c.dh, H, p.wa1, H, c.dhp, D, R, D, H), 1, s)));
+      O4D_TRY((row_gemm<true, false, BF16>(a, s)));
+      O4D_TRY((row_gemm<true, false, BF16>(gemm_args(c.dh, H, p.wa1, H, c.dhp, D, R, D, H),
+                                           s)));
       dq_dtheta_kernel<<<blocks_for((long long)nq * D, 256), 256, 0, s>>>(
           c.dhp, dv, c.th, p.dqproj + q0 * D, nq, D, k);
       // dtheta_h = [relu(theta_h) > 0] dtheta W2^T.
       a = gemm_args(c.th, D, p.wp2, D, c.dph, P, R, P, D);
       a.mask = c.ph;
       a.ldm = P;
-      O4D_TRY((gemm<false, true>(a, 1, s)));
+      O4D_TRY((row_gemm<true, false, BF16>(a, s)));
       // ---- The rows' gradients: dvpe Wv^T - dhpre Wk^T ----
       if (!premul) {
         GemmArgs r1 = gemm_args(dv, D, p.wv, D, c.drow, E, R, E, D);
@@ -418,36 +474,41 @@ int run(BwdArgs& p, int B, cudaStream_t s) {
         } else if (MODE == kSelf) {
           r1.C = p.dg + q0 * k * E;
         }
-        O4D_TRY((gemm<false, true>(r1, 1, s)));
+        O4D_TRY((row_gemm<true, false, BF16>(r1, s)));
         GemmArgs r2 = r1;
         r2.A = c.dhp;
         r2.B = p.wk;
         r2.alpha = -1.f;
         r2.accum = 1;
-        O4D_TRY((gemm<false, true>(r2, 1, s)));
+        O4D_TRY((row_gemm<true, false, BF16>(r2, s)));
       }
       if (MODE == kIndex) {
         const o4d_index::Entries x{p.ki + q0 * p.KS, nq, p.M, p.KS, k, false};
         O4D_TRY(o4d_index::build(x, R, p.M, p.iws, s));
         const KvRows rows{c.dhp, dv, c.drow, D, E, premul ? 1 : 0};
-        O4D_TRY((o4d_index::sum<KvRows, true>(rows, x, p.iws, sumf,
-                                              p.dkv + (size_t)b * p.M * CW, R, p.M, CW,
-                                              s)));
+        O4D_TRY((o4d_index::sum<KvRows, true, BF16>(rows, x, p.iws, sumf,
+                                                    p.dkv + (size_t)b * p.M * CW, R, p.M,
+                                                    CW, s)));
       }
       // ---- Weight gradients over the chunk's rows ----
-      O4D_TRY(wgrad(c.hp, D, c.dh, H, R, 1.f, c.part, dA1, first, s));
-      O4D_TRY(wgrad(c.r1, H, c.lg, D, R, 1.f, c.part, dA2, first, s));
-      O4D_TRY(wgrad(c.ph, P, c.th, D, R, 1.f, c.part, dW2, first, s));
-      O4D_TRY(wgrad(rel, 3, c.dph, P, R, 1.f, c.part, dW1, first, s));
+      O4D_TRY(wgrad<BF16>(c.hp, D, c.dh, H, R, 1.f, c.part, dA1, first, s));
+      O4D_TRY(wgrad<BF16>(c.r1, H, c.lg, D, R, 1.f, c.part, dA2, first, s));
+      O4D_TRY(wgrad<BF16>(c.ph, P, c.th, D, R, 1.f, c.part, dW2, first, s));
+      O4D_TRY(wgrad<BF16>(rel, 3, c.dph, P, R, 1.f, c.part, dW1, first, s));
       O4D_TRY(bias_grad(c.dh, H, R, c.part, dc1, first, s));
       O4D_TRY(bias_grad(c.lg, D, R, c.part, dc2, first, s));
       O4D_TRY(bias_grad(c.th, D, R, c.part, db2, first, s));
       O4D_TRY(bias_grad(c.dph, P, R, c.part, db1, first, s));
       if (!premul) {
-        O4D_TRY(wgrad(F, E, c.dhp, D, R, -1.f, c.part, dWk, first, s));
-        O4D_TRY(wgrad(F, E, dv, D, R, 1.f, c.part, dWv, first, s));
+        O4D_TRY(wgrad<BF16>(F, E, c.dhp, D, R, -1.f, c.part, dWk, first, s));
+        O4D_TRY(wgrad<BF16>(F, E, dv, D, R, 1.f, c.part, dWv, first, s));
       }
     }
+  }
+  if (BF16) {  // the finished sums: the weight kernels' gradients and d(kv).
+    O4D_TRY(round_all(dA1, 2LL * D * H + (long long)P * D + 3LL * P, s));
+    if (!premul) O4D_TRY(round_all(dWk, 2LL * E * D, s));
+    if (MODE == kIndex) O4D_TRY(round_all(p.dkv, (long long)B * p.M * CW, s));
   }
   return (int)cudaGetLastError();
 }
@@ -512,19 +573,13 @@ BwdArgs weights_args(const void* wk, const void* wv, const void* wp1, const void
   return a;
 }
 
-}  // namespace
-
-// Inputs as o4d_attn (csrc/attn.cu) plus g (B, N, D). Outputs: dqproj
-// (B, N, D); dw, the weight-gradient block; dkv (B, M, 2D | E). ws / iws:
-// the workspace of o4d_attn_bwd_plan for QC.
-extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
-                            const void* kpos, const void* kv, const void* wk,
-                            const void* wv, const void* wp1, const void* bp1,
-                            const void* wp2, const void* bp2, const void* wa1,
-                            const void* ba1, const void* wa2, const void* ba2,
-                            const void* g, void* dqproj, void* dw, void* dkv, void* ws,
-                            void* iws, int B, int N, int M, int D, int E, int H, int P,
-                            int KS, int k, int premul, int QC, void* stream) {
+template <bool BF16>
+int attn_bwd(const void* qpos, const void* qproj, const void* ki, const void* kpos,
+             const void* kv, const void* wk, const void* wv, const void* wp1,
+             const void* bp1, const void* wp2, const void* bp2, const void* wa1,
+             const void* ba1, const void* wa2, const void* ba2, const void* g, void* dqproj,
+             void* dw, void* dkv, void* ws, void* iws, int B, int N, int M, int D, int E,
+             int H, int P, int KS, int k, int premul, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > 32 || k > KS || QC < 1 || (long long)QC * k >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -540,7 +595,60 @@ extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
   a.M = M;
   a.KS = KS;
   a.premul = premul;
-  return run<kIndex>(a, B, (cudaStream_t)stream);
+  return run<kIndex, BF16>(a, B, (cudaStream_t)stream);
+}
+
+template <bool BF16>
+int attn_g_bwd(const void* qpos, const void* qproj, const void* gin, const void* wk,
+               const void* wv, const void* wp1, const void* bp1, const void* wp2,
+               const void* bp2, const void* wa1, const void* ba1, const void* wa2,
+               const void* ba2, const void* go, void* dqproj, void* dw, void* dg, void* ws,
+               int B, int N, int D, int E, int H, int P, int KE, int k, int QC,
+               void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || k > KE || QC < 1) return (int)cudaErrorInvalidValue;
+  BwdArgs a = weights_args(wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dqproj, dw,
+                           ws, N, D, E, H, P, k, QC);
+  a.qpos = (const float*)qpos;
+  a.qproj = (const float*)qproj;
+  a.gin = (const float*)gin;
+  a.dg = (float*)dg;
+  a.KE = KE;
+  return run<kGathered, BF16>(a, B, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// Inputs as o4d_attn (csrc/attn.cu) plus g (B, N, D). Outputs: dqproj
+// (B, N, D); dw, the weight-gradient block; dkv (B, M, 2D | E). ws / iws:
+// the workspace of o4d_attn_bwd_plan for QC.
+extern "C" int o4d_attn_bwd(const void* qpos, const void* qproj, const void* ki,
+                            const void* kpos, const void* kv, const void* wk,
+                            const void* wv, const void* wp1, const void* bp1,
+                            const void* wp2, const void* bp2, const void* wa1,
+                            const void* ba1, const void* wa2, const void* ba2,
+                            const void* g, void* dqproj, void* dw, void* dkv, void* ws,
+                            void* iws, int B, int N, int M, int D, int E, int H, int P,
+                            int KS, int k, int premul, int QC, void* stream) {
+  return attn_bwd<false>(qpos, qproj, ki, kpos, kv, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1,
+                         wa2, ba2, g, dqproj, dw, dkv, ws, iws, B, N, M, D, E, H, P, KS, k,
+                         premul, QC, stream);
+}
+
+// o4d_attn_bwd in the bf16 mode (the same arguments; the weights rounded to
+// bf16 by the caller or not, the kernel rounds every product's operands):
+// dw's weight kernels and dkv hold bf16 values, dqproj and dw's biases f32.
+extern "C" int o4d_attn_bwd_bf16(const void* qpos, const void* qproj, const void* ki,
+                                 const void* kpos, const void* kv, const void* wk,
+                                 const void* wv, const void* wp1, const void* bp1,
+                                 const void* wp2, const void* bp2, const void* wa1,
+                                 const void* ba1, const void* wa2, const void* ba2,
+                                 const void* g, void* dqproj, void* dw, void* dkv, void* ws,
+                                 void* iws, int B, int N, int M, int D, int E, int H, int P,
+                                 int KS, int k, int premul, int QC, void* stream) {
+  return attn_bwd<true>(qpos, qproj, ki, kpos, kv, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1,
+                        wa2, ba2, g, dqproj, dw, dkv, ws, iws, B, N, M, D, E, H, P, KS, k,
+                        premul, QC, stream);
 }
 
 // The gathered form: gin (B, KE, N, E + 3) replaces ki, kpos and kv (per-row
@@ -554,16 +662,21 @@ extern "C" int o4d_attn_g_bwd(const void* qpos, const void* qproj, const void* g
                               const void* ba2, const void* go, void* dqproj, void* dw,
                               void* dg, void* ws, int B, int N, int D, int E, int H,
                               int P, int KE, int k, int QC, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > 32 || k > KE || QC < 1) return (int)cudaErrorInvalidValue;
-  BwdArgs a = weights_args(wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dqproj, dw,
-                           ws, N, D, E, H, P, k, QC);
-  a.qpos = (const float*)qpos;
-  a.qproj = (const float*)qproj;
-  a.gin = (const float*)gin;
-  a.dg = (float*)dg;
-  a.KE = KE;
-  return run<kGathered>(a, B, (cudaStream_t)stream);
+  return attn_g_bwd<false>(qpos, qproj, gin, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2,
+                           ba2, go, dqproj, dw, dg, ws, B, N, D, E, H, P, KE, k, QC, stream);
+}
+
+// o4d_attn_g_bwd in the bf16 mode (the same arguments): dw's weight kernels
+// hold bf16 values; dqproj, dw's biases and dg f32.
+extern "C" int o4d_attn_g_bwd_bf16(const void* qpos, const void* qproj, const void* gin,
+                                   const void* wk, const void* wv, const void* wp1,
+                                   const void* bp1, const void* wp2, const void* bp2,
+                                   const void* wa1, const void* ba1, const void* wa2,
+                                   const void* ba2, const void* go, void* dqproj, void* dw,
+                                   void* dg, void* ws, int B, int N, int D, int E, int H,
+                                   int P, int KE, int k, int QC, void* stream) {
+  return attn_g_bwd<true>(qpos, qproj, gin, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2,
+                          ba2, go, dqproj, dw, dg, ws, B, N, D, E, H, P, KE, k, QC, stream);
 }
 
 // The encoder's fused self-attention backward: inputs as o4d_sattn
@@ -585,5 +698,5 @@ extern "C" int o4d_sattn_bwd(const void* q, const void* gf, const void* rel,
   a.gf = (const float*)gf;
   a.rel = (const float*)rel;
   a.dg = (float*)dgf;
-  return run<kSelf>(a, B, (cudaStream_t)stream);
+  return run<kSelf, false>(a, B, (cudaStream_t)stream);
 }

@@ -1,8 +1,10 @@
 // Shared by the attention forward (csrc/attn.cu) and backward
 // (csrc/attn_bwd.cu): the cp.async helpers, the 3xTF32 split and the TF32
 // tensor-core product (mma.sync m16n8k8), the 128 x 128 tiled GEMM of the
-// backward's phases (tensor cores in 3xTF32, or f32 FMA chains, with its
-// epilogue), and the row phase's first kernels: the row loader of the
+// backward's phases (tensor cores in 3xTF32, f32 FMA chains, or, in the bf16
+// compute mode, bf16 tensor-core products (mma.sync m16n8k16) on operands
+// rounded to bf16; with its epilogue), and the row phase's first kernels:
+// the row loader of the
 // three entry modes (with the forward's bf16 rounding of the key rows as an
 // option) and theta's hidden layer. Everything sits in an unnamed
 // namespace, as it did inside each source: each .cu is its own library.
@@ -20,6 +22,13 @@ constexpr int kLdMK = kBK + 4;  // tiles kept [row][k]: 36 floats per row.
 constexpr int kLdKN = kBN + 8;  // tiles kept [k][col]: 136 floats per row.
 constexpr int kTileFloats = kBM * kLdMK;  // >= kBK * kLdKN.
 constexpr int kGemmSmem = kStages * 2 * kTileFloats * (int)sizeof(float);
+// The bf16 mode: a 2-stage f32 ring, each landed stage rounded once into
+// bf16 tiles kept [row][k] (40 elements a row: the 16-byte rows of an
+// ldmatrix 8 x 8 fall in distinct banks), from which ldmatrix reads the
+// fragments.
+constexpr int kStagesBf16 = 2, kLdB = kBK + 8;
+constexpr int kGemmSmemBf16 =
+    kStagesBf16 * 2 * kTileFloats * (int)sizeof(float) + 2 * kBM * kLdB * 2;
 
 // Destination row of output row r: (r / rk) * q + (r % rk) * j floats.
 struct RowMap {
@@ -75,6 +84,64 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// lo and hi rounded to bf16 (to nearest even) in one 32-bit register, lo in
+// the low half: an operand pair of mma.sync m16n8k16 bf16.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The four 8 x 8 bf16 matrices whose rows lanes 0-7, 8-15, 16-23 and 24-31
+// address, one per register, each lane holding (row lane / 4, columns
+// 2 (lane % 4) + {0, 1}) of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// A staged f32 tile of 128 rows (m or n) x 32 k, kept [row][k] (stride
+// kLdMK) or, with KR, [k][row] (stride kLdKN), rounded to bf16 into dst
+// [row][k] (stride kLdB); all kGemmThreads threads take part.
+template <bool KR>
+__device__ __forceinline__ void round_tile(const float* __restrict__ src,
+                                           __nv_bfloat16* __restrict__ dst, int tid) {
+  if (!KR) {
+#pragma unroll
+    for (int i = 0; i < kBM * kBK / 4 / kGemmThreads; ++i) {
+      const int u = tid + i * kGemmThreads, r = u / (kBK / 4), k = 4 * (u % (kBK / 4));
+      const float4 v = *reinterpret_cast<const float4*>(src + r * kLdMK + k);
+      *reinterpret_cast<uint2*>(dst + r * kLdB + k) =
+          make_uint2(bf16x2(v.x, v.y), bf16x2(v.z, v.w));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kBM * kBK / 8 / kGemmThreads; ++i) {
+      // Lanes along k: their 32-bit stores fill consecutive words of a row.
+      const int u = tid + i * kGemmThreads, k = 2 * (u % (kBK / 2)), r = 4 * (u / (kBK / 2));
+      const float4 a = *reinterpret_cast<const float4*>(src + k * kLdKN + r);
+      const float4 b = *reinterpret_cast<const float4*>(src + (k + 1) * kLdKN + r);
+      *reinterpret_cast<uint32_t*>(dst + (r + 0) * kLdB + k) = bf16x2(a.x, b.x);
+      *reinterpret_cast<uint32_t*>(dst + (r + 1) * kLdB + k) = bf16x2(a.y, b.y);
+      *reinterpret_cast<uint32_t*>(dst + (r + 2) * kLdB + k) = bf16x2(a.z, b.z);
+      *reinterpret_cast<uint32_t*>(dst + (r + 3) * kLdB + k) = bf16x2(a.w, b.w);
+    }
+  }
+}
+
+// c += a b, one m16n8k16 bf16 tensor-core product with f32 accumulators.
+// A fragment: a[h] holds row gq + 8 (h & 1), columns 2 tq + 8 (h >> 1) +
+// {0, 1}; B: b[h] holds rows 2 tq + 8 h + {0, 1}, column gq; C as
+// m16n8k8's.
+__device__ __forceinline__ void mma_bf16_acc(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
 // its 13 low bits cleared, so that the f32 residual below is exact.
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
@@ -109,13 +176,28 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint
 // the CUDA cores (the thread's 8 x 8 outputs, rows ty + 16 i, columns
 // 4 tx + {0..3} and 64 + 4 tx + {0..3}): every output a sequential chain
 // acc = fma(a_k, b_k, acc) over k = 0, 1, ... from zero, the rounding of a
-// plain f32 matrix product.
-template <bool TA, bool TB, bool FMA>
+// plain f32 matrix product. BF16 (the bf16 compute mode, the TPU kernels'
+// _mm2): each landed f32 stage rounded once into bf16 [row][k] tiles (both
+// operands), the fragments read from them by ldmatrix, one m16n8k16 bf16
+// product per 16-deep step (each product exact in f32), accumulated by the
+// tensor core across the block's K range. (Rounding as each fragment was
+// read from the f32 tiles took twice the shared-memory loads and ran the
+// GEMMs at the rate of those loads, PERF.md.) Its
+// f32 accumulation truncates: over a weight gradient's row slice (a few
+// thousand rows) that moves a sum by about 1e-5 relative, far inside the
+// bf16 mode's tolerance; adding each step's sum in registers instead (as
+// the 3xTF32 steps do, for the f32 gate) made the bf16 attention backward
+// 9% slower on the H100 (PERF.md).
+template <bool TA, bool TB, bool FMA, bool BF16 = false>
 __global__ void __launch_bounds__(kGemmThreads, 2) gemm3_kernel(GemmArgs p) {
   static_assert(!FMA || (!TA && !TB), "the FMA product takes row-major operands");
+  static_assert(!(FMA && BF16), "the bf16 mode runs on the tensor cores");
+  constexpr int S = BF16 ? kStagesBf16 : kStages;  // f32 stages in the ring.
   extern __shared__ float smg[];
   float* As = smg;
-  float* Bs = smg + kStages * kTileFloats;
+  float* Bs = smg + S * kTileFloats;
+  __nv_bfloat16* Ab = reinterpret_cast<__nv_bfloat16*>(smg + 2 * S * kTileFloats);
+  __nv_bfloat16* Bb = Ab + kBM * kLdB;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;          // mma group and thread in group.
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // the warp's 64 x 32.
@@ -206,17 +288,17 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm3_kernel(GemmArgs p) {
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < S - 1; ++s) {
     if (s < nk) load(s, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<S - 2>();
     __syncthreads();
-    if (kt + kStages - 1 < nk) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    if (kt + S - 1 < nk) load((kt + S - 1) % S, kt + S - 1);
     cp_async_commit();
-    const float* as = As + (kt % kStages) * kTileFloats;
-    const float* bs = Bs + (kt % kStages) * kTileFloats;
+    const float* as = As + (kt % S) * kTileFloats;
+    const float* bs = Bs + (kt % S) * kTileFloats;
     if constexpr (FMA) {
       // Zero-filled k past the end add exact zeros: the chain is unchanged.
 #pragma unroll 4
@@ -233,6 +315,34 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm3_kernel(GemmArgs p) {
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
+      }
+    } else if constexpr (BF16) {
+      // The stage rounded into the bf16 tiles (the previous tile's reads
+      // ended at the barrier above), then the fragments. ldmatrix: A's four
+      // matrices are rows +0 / +8 at k +0, then at k +8 (a0-a3); B's, for
+      // two n-tiles, k +0 / +8 of n +0, then of n +8.
+      round_tile<TA>(as, Ab, tid);
+      round_tile<!TB>(bs, Bb, tid);
+      __syncthreads();
+#pragma unroll
+      for (int k16 = 0; k16 < kBK; k16 += 16) {
+        uint32_t bb[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4];
+          ldmatrix_x4(r, Bb + (wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * kLdB + k16 +
+                             8 * ((lane >> 3) & 1));
+          bb[2 * np][0] = r[0], bb[2 * np][1] = r[1];
+          bb[2 * np + 1][0] = r[2], bb[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t ab[4];
+          ldmatrix_x4(ab, Ab + (wm + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLdB +
+                              k16 + 8 * (lane >> 4));
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16_acc(acc + (mt * 4 + nt) * 4, ab, bb[nt]);
+        }
       }
     } else {
 #pragma unroll
@@ -295,14 +405,15 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm3_kernel(GemmArgs p) {
   }
 }
 
-template <bool TA, bool TB, bool FMA = false>
+template <bool TA, bool TB, bool FMA = false, bool BF16 = false>
 cudaError_t gemm(const GemmArgs& a, int splits, cudaStream_t s) {
   if (a.M <= 0 || a.N <= 0) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm3_kernel<TA, TB, FMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  constexpr int smem = BF16 ? kGemmSmemBf16 : kGemmSmem;
+  cudaError_t e = cudaFuncSetAttribute(gemm3_kernel<TA, TB, FMA, BF16>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM, splits);
-  gemm3_kernel<TA, TB, FMA><<<grid, kGemmThreads, kGemmSmem, s>>>(a);
+  gemm3_kernel<TA, TB, FMA, BF16><<<grid, kGemmThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 

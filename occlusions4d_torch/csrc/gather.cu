@@ -18,6 +18,11 @@
 //            f32 keeps one row loader for both modes.
 //   scatter: dfv[b, m, :] = sum over (j < k, n) with ki[b, n, j] = m of
 //            dg[b, j, n, :]
+//   o4d_scatter_bf16, the bf16 compute mode (the train step's
+//            fused_decoder_dtype='bf16'; _scatter_kernel's _mm2 rounds the
+//            rows, the VJP casts the sum to the gather source's bf16): each
+//            dg row rounded to bf16 before the per-key sum, the sum to bf16
+//            after it (stored as f32); the same stages and bytes.
 //
 // What bounds them on the H100: bytes. At a cv1 decode chunk (32768 queries,
 // k 14, C 291) the gather writes 534 MB and reads the 2.5 MB key matrix
@@ -132,11 +137,11 @@ extern "C" int o4d_scatter_index(const void* ki, void* iws, int B, int N, int M,
   return (int)o4d_index::build(x, B * k * N, B * M, (int*)iws, (cudaStream_t)stream);
 }
 
-// dg (B, KE, N, C) f32 (rows j < k used); ki (B, N, KS) int32; iws / fws the
-// workspace (o4d_scatter_workspace); dfv (B, M, C) f32, every row written.
-extern "C" int o4d_scatter(const void* dg, const void* ki, void* iws, void* fws,
-                           void* dfv, int B, int N, int M, int KE, int KS, int k,
-                           int C, void* stream) {
+namespace {
+
+template <bool RND>
+int scatter(const void* dg, const void* ki, void* iws, void* fws, void* dfv, int B, int N,
+            int M, int KE, int KS, int k, int C, void* stream) {
   if (B <= 0 || M <= 0 || C <= 0) return 0;
   if (k < 1 || k > 32 || k > KS || k > KE || N < 0 ||
       (long long)B * KE * N >= (1LL << 31))
@@ -147,6 +152,24 @@ extern "C" int o4d_scatter(const void* dg, const void* ki, void* iws, void* fws,
   cudaError_t e = o4d_index::build(x, total, keys, (int*)iws, s);
   if (e != cudaSuccess) return (int)e;
   const ScatterRows rows{(const float*)dg, N, KE, k, C};
-  return (int)o4d_index::sum<ScatterRows, false>(rows, x, (const int*)iws, (float*)fws,
-                                                 (float*)dfv, total, keys, C, s);
+  return (int)o4d_index::sum<ScatterRows, false, RND>(rows, x, (const int*)iws,
+                                                      (float*)fws, (float*)dfv, total, keys,
+                                                      C, s);
+}
+
+}  // namespace
+
+// dg (B, KE, N, C) f32 (rows j < k used); ki (B, N, KS) int32; iws / fws the
+// workspace (o4d_scatter_workspace); dfv (B, M, C) f32, every row written.
+extern "C" int o4d_scatter(const void* dg, const void* ki, void* iws, void* fws,
+                           void* dfv, int B, int N, int M, int KE, int KS, int k,
+                           int C, void* stream) {
+  return scatter<false>(dg, ki, iws, fws, dfv, B, N, M, KE, KS, k, C, stream);
+}
+
+// o4d_scatter in the bf16 mode (the same arguments; dfv holds bf16 values).
+extern "C" int o4d_scatter_bf16(const void* dg, const void* ki, void* iws, void* fws,
+                                void* dfv, int B, int N, int M, int KE, int KS, int k,
+                                int C, void* stream) {
+  return scatter<true>(dg, ki, iws, fws, dfv, B, N, M, KE, KS, k, C, stream);
 }

@@ -26,6 +26,12 @@
 //     partials of a key cut across chunks added in chunk order
 //     (o4d_index::sum). A key held by many queries is spread over many
 //     blocks instead of making one block long.
+//
+// o4d_interp_bwd_bf16 is the bf16 compute mode (the train step's
+// fused_decoder_dtype='bf16'; the TPU kernel with compute_dtype bf16, whose
+// VJP casts d(feats) to the features' bf16): each entry's row
+// (w_nj / sum_i w_ni) g_n is rounded to bf16 before the per-key sum, the
+// sum to bf16 after it (stored as f32). The same stages, the same bytes.
 
 #include <cuda_runtime.h>
 
@@ -70,13 +76,12 @@ extern "C" void o4d_interp_bwd_workspace(int B, int N, int M, int E, int k,
   *floats = o4d_index::sum_floats(total, E);
 }
 
-// ki (B, N, KS) int32, kd (B, N, KS) f32 (first k columns used); g (B, N, E)
-// f32; iws / fws: the workspace (o4d_interp_bwd_workspace); dfeats (B, M, E)
-// f32, every element written. B N k must stay below 2^31.
-extern "C" int o4d_interp_bwd(const void* ki, const void* kd, const void* g,
-                              void* iws, void* fws, void* dfeats, int B, int N,
-                              int M, int E, int KS, int k, float eps,
-                              void* stream) {
+namespace {
+
+template <bool RND>
+int interp_bwd(const void* ki, const void* kd, const void* g, void* iws, void* fws,
+               void* dfeats, int B, int N, int M, int E, int KS, int k, float eps,
+               void* stream) {
   if (B <= 0 || M <= 0 || E <= 0) return 0;
   if (k < 1 || k > 32 || k > KS || N < 0) return (int)cudaErrorInvalidValue;
   const long long total_ll = (long long)B * N * k;
@@ -87,6 +92,27 @@ extern "C" int o4d_interp_bwd(const void* ki, const void* kd, const void* g,
   cudaError_t err = o4d_index::build(x, total, keys, (int*)iws, s);
   if (err != cudaSuccess) return (int)err;
   const InterpRows rows{(const float*)kd, (const float*)g, E, KS, k, eps};
-  return (int)o4d_index::sum<InterpRows, false>(rows, x, (const int*)iws, (float*)fws,
-                                                (float*)dfeats, total, keys, E, s);
+  return (int)o4d_index::sum<InterpRows, false, RND>(rows, x, (const int*)iws, (float*)fws,
+                                                     (float*)dfeats, total, keys, E, s);
+}
+
+}  // namespace
+
+// ki (B, N, KS) int32, kd (B, N, KS) f32 (first k columns used); g (B, N, E)
+// f32; iws / fws: the workspace (o4d_interp_bwd_workspace); dfeats (B, M, E)
+// f32, every element written. B N k must stay below 2^31.
+extern "C" int o4d_interp_bwd(const void* ki, const void* kd, const void* g,
+                              void* iws, void* fws, void* dfeats, int B, int N,
+                              int M, int E, int KS, int k, float eps,
+                              void* stream) {
+  return interp_bwd<false>(ki, kd, g, iws, fws, dfeats, B, N, M, E, KS, k, eps, stream);
+}
+
+// o4d_interp_bwd in the bf16 mode (the same arguments; dfeats holds bf16
+// values).
+extern "C" int o4d_interp_bwd_bf16(const void* ki, const void* kd, const void* g,
+                                   void* iws, void* fws, void* dfeats, int B, int N,
+                                   int M, int E, int KS, int k, float eps,
+                                   void* stream) {
+  return interp_bwd<true>(ki, kd, g, iws, fws, dfeats, B, N, M, E, KS, k, eps, stream);
 }

@@ -22,8 +22,14 @@
 //     tail and the later chunks' heads in chunk order, and zeroes the keys
 //     no entry names. A key held by many entries is spread over many blocks
 //     instead of making one block long.
+//     In the bf16 compute mode (RND) each entry's row is rounded to bf16
+//     before it is added (the TPU kernels' _mm2 rounds the rows of the
+//     transposed one-hot product) and each key's finished f32 sum is
+//     rounded to bf16 (stored as f32), as the TPU VJPs cast the sum to the
+//     operand's bf16 dtype; with ACCUM the caller rounds after its last sum.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace o4d_index {
@@ -51,6 +57,11 @@ __device__ __forceinline__ int entry_key(const Entries& x, int e) {
   }
   const int bn = e / x.k, j = e - bn * x.k;
   return (bn / x.N) * x.M + x.ki[(size_t)bn * x.KS + j];
+}
+
+// x rounded to bf16 (to nearest even) and back.
+__device__ __forceinline__ float to_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __global__ void __launch_bounds__(kSortThreads)
@@ -221,8 +232,10 @@ inline cudaError_t build(const Entries& x, int total, int keys, int* iws,
 // scaled by the weight w that entry() set, as w * value + acc (one fused
 // multiply-add); without, entry() leaves w alone and rows are added as they
 // are. With ACCUM the sums are added to out instead of stored (a key no
-// entry names is then left as it is).
-template <class ROWS, bool ACCUM>
+// entry names is then left as it is). RND: the bf16 mode, each row
+// (w * value, rounded once) rounded to bf16 before it is added, each stored
+// sum rounded to bf16 (not with ACCUM).
+template <class ROWS, bool ACCUM, bool RND>
 __global__ void __launch_bounds__(kSumThreads)
     sum_kernel(ROWS rows, Entries x, const int* __restrict__ perm,
                const int* __restrict__ offsets, float* __restrict__ out,
@@ -256,7 +269,10 @@ __global__ void __launch_bounds__(kSumThreads)
 #pragma unroll
       for (int t = 0; t < kCols; ++t) {
         const int col = c0 + tid + t * kSumThreads;
-        if (col < C) dst[col] = (ACCUM && whole) ? dst[col] + acc[t] : acc[t];
+        if (col < C)
+          dst[col] = (ACCUM && whole)         ? dst[col] + acc[t]
+                     : (RND && !ACCUM && whole) ? to_bf16(acc[t])
+                                                : acc[t];
         acc[t] = 0.f;
       }
     };
@@ -272,6 +288,7 @@ __global__ void __launch_bounds__(kSumThreads)
         for (int t = 0; t < kCols; ++t) {
           const int col = c0 + tid + t * kSumThreads;
           v[u][t] = (live && col < C) ? rows.value(en, col) : 0.f;
+          if (RND && !ROWS::kWeighted) v[u][t] = to_bf16(v[u][t]);
         }
       }
 #pragma unroll
@@ -281,7 +298,11 @@ __global__ void __launch_bounds__(kSumThreads)
           flush();
           key = ksh[i0 + u];
         }
-        if (ROWS::kWeighted) {
+        if (ROWS::kWeighted && RND) {
+          const float w = wsh[i0 + u];
+#pragma unroll
+          for (int t = 0; t < kCols; ++t) acc[t] += to_bf16(__fmul_rn(w, v[u][t]));
+        } else if (ROWS::kWeighted) {
           const float w = wsh[i0 + u];
 #pragma unroll
           for (int t = 0; t < kCols; ++t) acc[t] += w * v[u][t];
@@ -296,8 +317,9 @@ __global__ void __launch_bounds__(kSumThreads)
 }
 
 // Per key: zeros when no entry names it (left as is with ACCUM); the sum of
-// its chunk partials, in chunk order, when its run is cut across chunks.
-template <bool ACCUM>
+// its chunk partials, in chunk order, when its run is cut across chunks
+// (RND: rounded to bf16, not with ACCUM).
+template <bool ACCUM, bool RND>
 __global__ void __launch_bounds__(kSumThreads)
     finish_kernel(const int* __restrict__ offsets, const float* __restrict__ head,
                   const float* __restrict__ tail, float* __restrict__ out, int C) {
@@ -314,13 +336,13 @@ __global__ void __launch_bounds__(kSumThreads)
   for (int col = threadIdx.x; col < C; col += blockDim.x) {
     float acc = tail[(size_t)cs * C + col];
     for (int ch = cs + 1; ch <= ce; ++ch) acc += head[(size_t)ch * C + col];
-    dst[col] = ACCUM ? dst[col] + acc : acc;
+    dst[col] = ACCUM ? dst[col] + acc : RND ? to_bf16(acc) : acc;
   }
 }
 
 // out (keys, C) = the per-key sums of rows over the index that build() left
-// in iws; fws holds sum_floats(total, C) floats.
-template <class ROWS, bool ACCUM>
+// in iws; fws holds sum_floats(total, C) floats. RND: the bf16 mode.
+template <class ROWS, bool ACCUM, bool RND = false>
 cudaError_t sum(const ROWS& rows, const Entries& x, const int* iws, float* fws,
                 float* out, int total, int keys, int C, cudaStream_t s) {
   const int* offsets = iws;
@@ -328,9 +350,9 @@ cudaError_t sum(const ROWS& rows, const Entries& x, const int* iws, float* fws,
   float* head = fws;
   float* tail = head + (size_t)n_chunks(total) * C;
   if (total > 0)
-    sum_kernel<ROWS, ACCUM><<<n_chunks(total), kSumThreads, 0, s>>>(
+    sum_kernel<ROWS, ACCUM, RND><<<n_chunks(total), kSumThreads, 0, s>>>(
         rows, x, perm, offsets, out, head, tail, total, C);
-  finish_kernel<ACCUM><<<keys, kSumThreads, 0, s>>>(offsets, head, tail, out, C);
+  finish_kernel<ACCUM, RND><<<keys, kSumThreads, 0, s>>>(offsets, head, tail, out, C);
   return cudaGetLastError();
 }
 

@@ -29,19 +29,28 @@ o4d_scatter (one scatter of their sum to the key rows) and o4d_interp_bwd
 (the interpolation's term, from its (B, N, E) cotangent, never written as
 rows).
 
-compute_dtype=torch.bfloat16 (the engine's precision='fast', JAX's
-fused_field_apply(compute_dtype=jnp.bfloat16)): the three operators run
-their bf16 mode (the bf16 kernels on CUDA), forward only. The backbone's
-nn.Linear layers (lin_in, lin_z, the ResNet blocks, layer1, to_q, layer3,
-lin_out) and premul mode's key projection [feats2 Wk | feats2 Wv] (JAX's
-k_all / v_all, computed in its wrapper beside the backbone) are plain large
-products that JAX leaves to XLA at its default precision (one bf16 pass on
-its TPU); on CUDA the whole decode runs in one scope that sets TF32 for
-float32 matrix products and restores the global setting on exit. The
-operators' own products are unaffected: the kernels do not consult the
-setting, and the plain versions' bf16-mode operands are bf16 values, exact
-in TF32. On the CPU everything stays f32, as JAX's does there. The kNN
-extraction stays f32 in every mode.
+compute_dtype=torch.bfloat16 (the engine's precision='fast', the train
+step's fused_decoder_dtype='bf16', JAX's fused_field_apply(compute_dtype=
+jnp.bfloat16)): the three operators run their bf16 mode, forward and
+backward (the bf16 kernels on CUDA; ops/attention.py says what each product
+rounds). What each product gets on CUDA:
+  * the operators' own products, forward and backward: bf16 operands, f32
+    sums (the kernels do not consult PyTorch's precision setting, and the
+    plain versions' bf16-mode operands are bf16 values, exact in TF32);
+  * the backbone's nn.Linear layers (lin_in, lin_z, the ResNet blocks,
+    layer1, to_q, layer3, lin_out) and premul mode's key projection
+    [feats2 Wk | feats2 Wv] (JAX's k_all / v_all, computed in its wrapper
+    beside the backbone): plain large products that JAX leaves to XLA at its
+    default precision (one bf16 pass on its TPU), forward and backward. Here
+    TF32, in both directions: the forward runs in one scope that sets TF32
+    for float32 matrix products and restores the global setting on exit;
+    the backward reaches two identity autograd nodes around the decoder
+    (_Tf32Begin on its outputs, _Tf32End on its differentiable inputs), the
+    first of which sets TF32 and the second, whose backward runs after
+    every other node of the decoder's (its lowest sequence number), restores
+    the setting, so the encoder's backward stays f32.
+On the CPU everything stays f32, as JAX's does there. The kNN extraction
+stays f32 in every mode.
 '''
 
 import contextlib
@@ -79,6 +88,56 @@ def _tf32_matmul():
         torch.set_float32_matmul_precision(prev)
 
 
+class _Tf32Scope:
+    '''The precision setting a decoder's backward found on entry.'''
+
+    def __init__(self):
+        self.prev = None
+
+    def enter(self):
+        if self.prev is None:
+            self.prev = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision('high')
+
+    def leave(self):
+        if self.prev is not None:
+            torch.set_float32_matmul_precision(self.prev)
+            self.prev = None
+
+
+class _Tf32Begin(torch.autograd.Function):
+    '''Identity on the decoder's outputs; its backward, the first of the
+    decoder's, sets TF32 (restored by _Tf32End, or at the end of the
+    backward pass if no decoder input needs a gradient).'''
+
+    @staticmethod
+    def forward(ctx, scope, *xs):
+        ctx.scope = scope
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.scope.enter()
+        torch.autograd.Variable._execution_engine.queue_callback(ctx.scope.leave)
+        return (None,) + gs
+
+
+class _Tf32End(torch.autograd.Function):
+    '''Identity on the decoder's differentiable inputs; its backward, the
+    last of the decoder's, restores the precision setting.'''
+
+    @staticmethod
+    def forward(ctx, scope, *xs):
+        ctx.scope = scope
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.scope.leave()
+        return (None,) + gs
+
+
 def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
                       abstract_mask=None, compute_dtype=torch.float32):
     '''
@@ -86,18 +145,24 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
     :param points_query (B, N, 4); pcl_abstract (B, M, 3 + E);
         features_global (B, D); abstract_mask (B, M) bool or None.
     :param compute_dtype: torch.float32, or torch.bfloat16 (the operators'
-        bf16 mode and, on CUDA, the backbone and the premul key projection
-        in TF32; no gradient).
+        bf16 mode, forward and backward, and, on CUDA, the backbone and the
+        premul key projection in TF32 in both directions).
     :return (output (B, N, d_out), penult (B, N, d_hidden)), float32.
     '''
     if not supports_fused(decoder):
         raise NotImplementedError('configuration not covered by the fused path')
-    args = (decoder, points_query, pcl_abstract, features_global, abstract_mask,
-            compute_dtype)
-    if compute_dtype == torch.bfloat16 and points_query.is_cuda:
-        with _tf32_matmul():
-            return _field_apply(*args)
-    return _field_apply(*args)
+    if not (compute_dtype == torch.bfloat16 and points_query.is_cuda):
+        return _field_apply(decoder, points_query, pcl_abstract, features_global,
+                            abstract_mask, compute_dtype)
+    scope = _Tf32Scope()
+    if torch.is_grad_enabled():
+        pcl_abstract, features_global = _Tf32End.apply(scope, pcl_abstract, features_global)
+    with _tf32_matmul():
+        out = _field_apply(decoder, points_query, pcl_abstract, features_global,
+                           abstract_mask, compute_dtype)
+    if torch.is_grad_enabled():
+        out = _Tf32Begin.apply(scope, *out)
+    return out
 
 
 def _field_apply(decoder, points_query, pcl_abstract, features_global, abstract_mask,

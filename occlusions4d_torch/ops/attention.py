@@ -40,24 +40,40 @@ kernels; a CPU tensor runs the plain versions beside them (each backward
 kernel has an explicit plain version with the kernel's own output layout).
 
 compute_dtype (knn_gather_rows, knn_gather_interp, fused_knn_interp,
-fused_knn_vector_attention and the plain versions of their forwards):
-torch.float32, or torch.bfloat16, the TPU kernels' bf16 compute mode
-(pallas_attention.py::_mm2), which the engine's precision='fast' runs. In
-bf16 every in-kernel product rounds both operands to bf16 (to nearest even:
-round_bf16) and sums the exact products in f32: the attention's weights
-to_k, to_v, pos_mlp_* and attn_mlp_* are rounded once (biases stay f32); the
-value matrix is rounded before the gather (premul's [k | v] and the key
-positions, or the raw [feats | pos] rows; so theta's input is
-q_pos - bf16(pos2), rounded again as pos_mlp_0's operand); the
-interpolation's features and the shared gather's rows are rounded. The kNN
-and its distances, the interpolation weights, the softmax, the running sums
-and every output stay f32. The bf16 kernels (o4d_attn_bf16, o4d_attn_g_bf16,
-o4d_interp_bf16, o4d_interp_g_bf16, o4d_gather_bf16) count their launches
-under their own names ('attn_bf16', ...). There is no bf16 backward yet: a
-bf16 call with an input that requires grad raises NotImplementedError.
+fused_knn_vector_attention, their plain versions and their backward
+functions): torch.float32, or torch.bfloat16, the TPU kernels' bf16 compute
+mode (pallas_attention.py::_mm2), which the engine's precision='fast' and the
+train step's fused_decoder_dtype='bf16' run. In bf16 every in-kernel product
+rounds both operands to bf16 (to nearest even: round_bf16) and sums the exact
+products in f32: the attention's weights to_k, to_v, pos_mlp_* and
+attn_mlp_* are rounded once (biases stay f32); the value matrix is rounded
+before the gather (premul's [k | v] and the key positions, or the raw
+[feats | pos] rows; so theta's input is q_pos - bf16(pos2), rounded again as
+pos_mlp_0's operand); the interpolation's features and the shared gather's
+rows are rounded. The kNN and its distances, the interpolation weights, the
+softmax, the running sums and every output stay f32. The bf16 kernels
+(o4d_attn_bf16, o4d_attn_g_bf16, o4d_interp_bf16, o4d_interp_g_bf16,
+o4d_gather_bf16, and the backward ones o4d_attn_bwd_bf16,
+o4d_attn_g_bwd_bf16, o4d_interp_bwd_bf16, o4d_scatter_bf16) count their
+launches under their own names ('attn_bf16', ...).
+The bf16 backward follows the TPU VJPs (pallas_attention.py:368-405,
+538-545, 709-712, 780, 855, 928, 1107-1134, 1243-1248): every product of the
+recomputed forward and of the backward (theta, k, v, h1, the transposed
+products and the weight gradients' long sums) rounds both operands; the
+weight kernels' gradients are rounded to bf16 once, after the whole sum (the
+kernels are bf16 in the TPU kernel), the biases' stay f32, and so does
+d(q_proj); the per-key sums (d(kv) of the index route, d(feats) of the
+interpolation, the scatter's d(fv)) round each entry's row to bf16 before
+the sum and the sum to bf16 after it. The gathered attention's row
+cotangents dg stay f32 (the gather's rows are f32); on the shared-gather
+route the two attention layers' dg and the interpolation's rows
+(o4d_interp_g_bwd, f32, as the TPU's _interp_g_bwd_kernel) are summed in f32
+and one bf16 scatter rounds that sum, the TPU order (the f32 route instead
+adds interp_bwd's term after its scatter).
+
 Like the JAX custom VJPs the index-route operators save only their inputs,
 never an (N, K, D) tensor, and positions get no gradient. The shared-gather
-route's backward: the attention layers write their row cotangents dg
+route's backward in f32: the attention layers write their row cotangents dg
 (B, k', N, E + 3) directly (o4d_attn_g_bwd; zero rows past their k and zero
 position columns), autograd sums them, one scatter adds the sum to the key
 rows, and the index route's interpolation backward (o4d_interp_bwd) adds the
@@ -90,7 +106,8 @@ __all__ = ['knn_extract', 'knn_gather_rows', 'knn_gather_interp', 'gather_rows',
 LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0, 'gather': 0,
             'interp_g': 0, 'attn_g': 0, 'scatter': 0, 'interp_g_bwd': 0,
             'attn_g_bwd': 0, 'attn_bf16': 0, 'attn_g_bf16': 0, 'interp_bf16': 0,
-            'interp_g_bf16': 0, 'gather_bf16': 0}
+            'interp_g_bf16': 0, 'gather_bf16': 0, 'attn_bwd_bf16': 0,
+            'attn_g_bwd_bf16': 0, 'interp_bwd_bf16': 0, 'scatter_bf16': 0}
 _MLP = ('pos_mlp_0', 'pos_mlp_2', 'attn_mlp_0', 'attn_mlp_2')
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use.
 _INDEX_TILE = 2048    # entries per counting-sort tile of csrc/inverse_index.cuh (kTile).
@@ -113,16 +130,6 @@ def _is_bf16(compute_dtype):
 
 def _rounder(bf16):
     return round_bf16 if bf16 else (lambda x: x)
-
-
-def _no_bf16_grad(what, *tensors):
-    '''The bf16 mode has no backward: refuse an input that would need one.'''
-    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            f'{what}: compute_dtype=torch.bfloat16 has no backward yet; the bf16 train mode '
-            '(fused_decoder_dtype, mixed_precision and the bf16 backward kernels) is the '
-            'next slice of the port. Call it under torch.no_grad() or in float32.')
 
 
 def knn_extract(q_pos, pos2, k, *, key_mask=None):
@@ -200,14 +207,24 @@ def _gather_cuda(fv, ki, k, bf16=False):
     return g
 
 
-def gather_bwd_plain(ki, dg, M, k):
+def _key_sums(idx, rows, M, bf16):
+    '''out[b, m] = the sum of rows[b, e] over the entries e with idx[b, e] =
+    m; bf16: each row rounded to bf16 before the sum and the sum after it.
+    :param idx (B, n) int; rows (B, n, C). :return (B, M, C) f32.'''
+    B, n, C = rows.shape
+    r = _rounder(bf16)
+    out = torch.zeros((B, M, C), dtype=torch.float32, device=rows.device)
+    return r(out.scatter_add_(1, idx.reshape(B, n, 1).long().expand(B, n, C), r(rows)))
+
+
+def gather_bwd_plain(ki, dg, M, k, compute_dtype=torch.float32):
     '''Plain version of the scatter kernel (the gather's VJP): dfv[b, m] =
-    sum of dg[b, j, n] over the rows j < k, n with ki[b, n, j] = m.
+    sum of dg[b, j, n] over the rows j < k, n with ki[b, n, j] = m (bf16:
+    each row rounded to bf16 before the sum, the sum after it).
     :param ki (B, N, >=k) int; dg (B, >=k, N, C) f32. :return dfv (B, M, C).'''
     B, _, N, C = dg.shape
-    idx = ki[..., :k].transpose(1, 2).reshape(B, k * N, 1).long().expand(B, k * N, C)
-    out = torch.zeros((B, M, C), dtype=torch.float32, device=dg.device)
-    return out.scatter_add_(1, idx, dg[:, :k].reshape(B, k * N, C))
+    return _key_sums(ki[..., :k].transpose(1, 2).reshape(B, k * N),
+                     dg[:, :k].reshape(B, k * N, C), M, _is_bf16(compute_dtype))
 
 
 def scatter_index_plain(ki, M, k, KE):
@@ -265,7 +282,7 @@ def scatter_index(ki, M, k, KE):
     return rows.to(torch.int32), iws[:B * M + 1].clone()
 
 
-def _scatter_cuda(ki, dg, M, k):
+def _scatter_cuda(ki, dg, M, k, bf16=False):
     B, KE, N, C = dg.shape
     _cuda_ki('scatter', ki)
     _cuda_f32('dg', dg)
@@ -277,49 +294,50 @@ def _scatter_cuda(ki, dg, M, k):
     lib = _scatter_lib()
     iws, fws = _scatter_workspace(lib, B, N, M, k, C, dg.device)
     dfv = torch.empty((B, M, C), dtype=torch.float32, device=dg.device)
-    fn = lib.o4d_scatter
+    name = 'scatter_bf16' if bf16 else 'scatter'
+    fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dg.device):
         _build.check(fn(_build.ptr(dg), _build.ptr(ki), _build.ptr(iws), _build.ptr(fws),
                         _build.ptr(dfv), B, N, M, KE, KS, k, C,
-                        _build.stream_ptr(dg.device)), 'scatter')
-    LAUNCHES['scatter'] += 1
+                        _build.stream_ptr(dg.device)), name)
+    LAUNCHES[name] += 1
     return dfv
 
 
-def gather_bwd(ki, dg, M, k):
-    '''The gather's VJP: the scatter kernel on CUDA, plain version on the CPU.'''
+def gather_bwd(ki, dg, M, k, compute_dtype=torch.float32):
+    '''The gather's VJP: the scatter kernel (bf16: o4d_scatter_bf16) on
+    CUDA, plain version on the CPU.'''
     dg = dg.to(torch.float32).contiguous()
     if dg.is_cuda:
-        return _scatter_cuda(ki.contiguous(), dg, M, k)
-    return gather_bwd_plain(ki, dg, M, k)
+        return _scatter_cuda(ki.contiguous(), dg, M, k, _is_bf16(compute_dtype))
+    return gather_bwd_plain(ki, dg, M, k, compute_dtype)
+
+
+def _gather(fv, ki, k, cd):
+    '''The gather in compute dtype cd: its kernel on CUDA, plain version on
+    the CPU.'''
+    if fv.is_cuda:
+        return _gather_cuda(fv, ki, k, _is_bf16(cd))
+    return gather_rows_plain(fv, ki, k, cd)
 
 
 class _GatherRows(torch.autograd.Function):
-    '''Forward csrc/gather.cu o4d_gather, backward o4d_scatter (plain
-    versions on the CPU); gradient in fv. Saves only ki.'''
+    '''Forward csrc/gather.cu o4d_gather, backward o4d_scatter (bf16:
+    o4d_gather_bf16, o4d_scatter_bf16; plain versions on the CPU); gradient
+    in fv. Saves only ki.'''
 
     @staticmethod
-    def forward(ctx, fv, ki, k):
+    def forward(ctx, fv, ki, k, cd):
         ctx.save_for_backward(ki)
-        ctx.k, ctx.M = k, fv.shape[1]
-        if fv.is_cuda:
-            return _gather_cuda(fv, ki, k)
-        return gather_rows_plain(fv, ki, k)
+        ctx.k, ctx.M, ctx.cd = k, fv.shape[1], cd
+        return _gather(fv, ki, k, cd)
 
     @staticmethod
     def backward(ctx, dg):
         ki, = ctx.saved_tensors
-        return gather_bwd(ki, dg, ctx.M, ctx.k), None, None
-
-
-def _gather_bf16(fv, ki, k):
-    '''The gather's bf16 mode (no autograd): its kernel on CUDA, plain
-    version on the CPU.'''
-    if fv.is_cuda:
-        return _gather_cuda(fv, ki, k, True)
-    return gather_rows_plain(fv, ki, k, torch.bfloat16)
+        return gather_bwd(ki, dg, ctx.M, ctx.k, ctx.cd), None, None, None
 
 
 def knn_gather_rows(pos2, feats2, knn, k, compute_dtype=torch.float32):
@@ -331,16 +349,12 @@ def knn_gather_rows(pos2, feats2, knn, k, compute_dtype=torch.float32):
     :param pos2 (B, M, 3); feats2 (B, M, E); knn: knn_extract result with
         k' >= k columns; k: rows to gather (>= every consumer's k).
     :param compute_dtype: torch.bfloat16 rounds the rows to bf16 (stored as
-        f32, as the TPU kernel stores them); no gradient.
+        f32, as the TPU kernel stores them); its backward is the bf16 scatter.
     :return g (B, k, N, E + 3) f32.
     '''
-    bf16 = _is_bf16(compute_dtype)
     fv = torch.cat([feats2.to(torch.float32),
                     pos2[..., :3].detach().to(torch.float32)], dim=-1).contiguous()
-    if bf16:
-        _no_bf16_grad('knn_gather_rows', fv)
-        return _gather_bf16(fv, knn[0].contiguous(), k)
-    return _GatherRows.apply(fv, knn[0].contiguous(), k)
+    return _GatherRows.apply(fv, knn[0].contiguous(), k, compute_dtype)
 
 
 def gather_rows(values, idx):
@@ -354,7 +368,8 @@ def gather_rows(values, idx):
     ki = idx.reshape(B, N * K, 1)
     if ki.is_cuda:
         ki = ki.to(torch.int32)
-    g = _GatherRows.apply(values.to(torch.float32).contiguous(), ki.contiguous(), 1)
+    g = _GatherRows.apply(values.to(torch.float32).contiguous(), ki.contiguous(), 1,
+                          torch.float32)
     return g.reshape(B, N, K, values.shape[-1])
 
 
@@ -389,17 +404,17 @@ def interp_g_plain(kd, g, k, eps, compute_dtype=torch.float32):
     return _interp_rows(kd, rows.transpose(1, 2).contiguous(), k, eps)
 
 
-def interp_bwd_plain(ki, kd, g, M, k, eps):
+def interp_bwd_plain(ki, kd, g, M, k, eps, compute_dtype=torch.float32):
     '''Plain version of the interpolation backward kernel: d(feats) (B, M, E)
     = sum over queries n and neighbours j of (w_nj / sum_i w_ni) g_n,
-    scattered to row ki_nj.'''
+    scattered to row ki_nj (bf16: each row (w_nj / sum_i w_ni) g_n rounded
+    to bf16 before the sum, the sum after it).'''
     B, N, _ = ki.shape
     E = g.shape[-1]
     w = _interp_weights(kd, k, eps)
     rows = (w / w.sum(-1, keepdim=True))[..., None] * g[:, :, None, :]
-    idx = ki[..., :k].reshape(B, N * k, 1).long().expand(B, N * k, E)
-    out = torch.zeros((B, M, E), dtype=torch.float32, device=g.device)
-    return out.scatter_add_(1, idx, rows.reshape(B, N * k, E))
+    return _key_sums(ki[..., :k].reshape(B, N * k), rows.reshape(B, N * k, E), M,
+                     _is_bf16(compute_dtype))
 
 
 def _interp_cuda(ki, kd, feats, k, eps, bf16=False):
@@ -483,8 +498,9 @@ def key_sums_plain(rows, perm, offsets, chunk=_SUM_CHUNK):
     return out
 
 
-def _interp_bwd_launch(ki, kd, g, M, k, eps):
-    '''The interpolation backward kernel (o4d_interp_bwd).
+def _interp_bwd_launch(ki, kd, g, M, k, eps, bf16=False):
+    '''The interpolation backward kernel (o4d_interp_bwd; bf16:
+    o4d_interp_bwd_bf16).
     :return (dfeats (B, M, E), perm, offsets): the last two its inverse
         index, in inverse_index_plain's layout.'''
     B, N, KS = ki.shape
@@ -505,42 +521,46 @@ def _interp_bwd_launch(ki, kd, g, M, k, eps):
     iws = torch.empty((n_int.value,), dtype=torch.int32, device=g.device)
     fws = torch.empty((max(1, n_float.value),), dtype=torch.float32, device=g.device)
     out = torch.empty((B, M, E), dtype=torch.float32, device=g.device)
-    fn = lib.o4d_interp_bwd
+    name = 'interp_bwd_bf16' if bf16 else 'interp_bwd'
+    fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(g.device):
         _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(g), _build.ptr(iws),
                         _build.ptr(fws), _build.ptr(out), B, N, M, E, KS, k,
-                        float(eps), _build.stream_ptr(g.device)), 'interp_bwd')
-    LAUNCHES['interp_bwd'] += 1
+                        float(eps), _build.stream_ptr(g.device)), name)
+    LAUNCHES[name] += 1
     return out, iws[B * M + 1:B * M + 1 + B * N * k], iws[:B * M + 1]
 
 
-def interp_bwd(ki, kd, g, M, k, eps):
-    '''d(feats) of the interpolation: kernel B on CUDA, plain version on the CPU.'''
+def interp_bwd(ki, kd, g, M, k, eps, compute_dtype=torch.float32):
+    '''d(feats) of the interpolation: kernel B (bf16: its bf16 mode) on CUDA,
+    plain version on the CPU.'''
     g = g.to(torch.float32).contiguous()
     if g.is_cuda:
-        return _interp_bwd_launch(ki.contiguous(), kd.contiguous(), g, M, k, eps)[0]
-    return interp_bwd_plain(ki, kd, g, M, k, eps)
+        return _interp_bwd_launch(ki.contiguous(), kd.contiguous(), g, M, k, eps,
+                                  _is_bf16(compute_dtype))[0]
+    return interp_bwd_plain(ki, kd, g, M, k, eps, compute_dtype)
 
 
 class _Interp(torch.autograd.Function):
-    '''Forward csrc/interp.cu, backward csrc/interp_bwd.cu (plain versions on
-    the CPU); saves only ki and kd.'''
+    '''Forward csrc/interp.cu, backward csrc/interp_bwd.cu (bf16: their bf16
+    modes; plain versions on the CPU); saves only ki and kd.'''
 
     @staticmethod
-    def forward(ctx, ki, kd, feats, k, eps):
+    def forward(ctx, ki, kd, feats, k, eps, cd):
         ctx.save_for_backward(ki, kd)
-        ctx.k, ctx.eps, ctx.M = k, eps, feats.shape[1]
+        ctx.k, ctx.eps, ctx.M, ctx.cd = k, eps, feats.shape[1], cd
         if feats.is_cuda:
-            return _interp_cuda(ki, kd, feats, k, eps)
-        return interp_plain(ki, kd, feats, k, eps)
+            return _interp_cuda(ki, kd, feats, k, eps, _is_bf16(cd))
+        return interp_plain(ki, kd, feats, k, eps, cd)
 
     @staticmethod
     def backward(ctx, g):
         ki, kd = ctx.saved_tensors
-        return None, None, interp_bwd(ki, kd, g, ctx.M, ctx.k, ctx.eps), None, None
+        return (None, None, interp_bwd(ki, kd, g, ctx.M, ctx.k, ctx.eps, ctx.cd), None, None,
+                None)
 
 
 def _interp_g_cuda(kd, g, k, eps, bf16=False):
@@ -606,22 +626,31 @@ def interp_g_bwd(kd, go, k, k_ext, E, eps):
     return interp_g_bwd_plain(kd, go, k, k_ext, E, eps)
 
 
+def _interp_g(kd, g, k, eps, cd):
+    '''The gathered interpolation in compute dtype cd: its kernel on CUDA,
+    plain version on the CPU.'''
+    if g.is_cuda:
+        return _interp_g_cuda(kd, g, k, eps, _is_bf16(cd))
+    return interp_g_plain(kd, g, k, eps, cd)
+
+
 class _InterpG(torch.autograd.Function):
-    '''Forward o4d_interp_g, backward o4d_interp_g_bwd of csrc/interp.cu
-    (plain versions on the CPU); gradient in g. Saves only kd.'''
+    '''Forward o4d_interp_g (bf16: o4d_interp_g_bf16), backward
+    o4d_interp_g_bwd of csrc/interp.cu in both modes, as the TPU's
+    _interp_g_bwd_kernel has no compute dtype (plain versions on the CPU);
+    gradient in g. Saves only kd.'''
 
     @staticmethod
-    def forward(ctx, kd, g, k, eps):
+    def forward(ctx, kd, g, k, eps, cd):
         ctx.save_for_backward(kd)
         ctx.k, ctx.eps, ctx.k_ext, ctx.E = k, eps, g.shape[1], g.shape[-1] - 3
-        if g.is_cuda:
-            return _interp_g_cuda(kd, g, k, eps)
-        return interp_g_plain(kd, g, k, eps)
+        return _interp_g(kd, g, k, eps, cd)
 
     @staticmethod
     def backward(ctx, go):
         kd, = ctx.saved_tensors
-        return None, interp_g_bwd(kd, go, ctx.k, ctx.k_ext, ctx.E, ctx.eps), None, None
+        return (None, interp_g_bwd(kd, go, ctx.k, ctx.k_ext, ctx.E, ctx.eps), None, None,
+                None)
 
 
 def gather_interp_bwd_plain(ki, kd, dg, go, M, k, k_interp, eps):
@@ -659,26 +688,31 @@ def gather_interp_bwd_split(ki, kd, dg, go, M, k, k_interp, eps):
 class _GatherInterp(torch.autograd.Function):
     '''The shared gather and the gathered interpolation as one operator:
     forward o4d_gather then o4d_interp_g (the outputs of knn_gather_rows and
-    fused_knn_interp(gathered=)); backward the scatter of the rows'
-    cotangent plus the interpolation's backward of its own, never written as
-    rows (gather_interp_bwd_split; plain versions on the CPU). Gradient in
-    fv; saves ki and kd.'''
+    fused_knn_interp(gathered=); bf16: o4d_gather_bf16, o4d_interp_g_bf16).
+    Backward in f32: the scatter of the rows' cotangent plus the
+    interpolation's backward of its own, never written as rows
+    (gather_interp_bwd_split); in bf16, the TPU order: the interpolation's
+    row cotangents (o4d_interp_g_bwd) added to the rows' in f32, then one
+    bf16 scatter of the sum (plain versions on the CPU). Gradient in fv;
+    saves ki and kd.'''
 
     @staticmethod
-    def forward(ctx, fv, ki, kd, k, k_interp, eps):
+    def forward(ctx, fv, ki, kd, k, k_interp, eps, cd):
         ctx.save_for_backward(ki, kd)
-        ctx.k, ctx.k_interp, ctx.eps, ctx.M = k, k_interp, eps, fv.shape[1]
+        ctx.k, ctx.k_interp, ctx.eps, ctx.M, ctx.cd = k, k_interp, eps, fv.shape[1], cd
         ctx.set_materialize_grads(False)
-        if fv.is_cuda:
-            g = _gather_cuda(fv, ki, k)
-            return g, _interp_g_cuda(kd, g, k_interp, eps)
-        g = gather_rows_plain(fv, ki, k)
-        return g, interp_g_plain(kd, g, k_interp, eps)
+        g = _gather(fv, ki, k, cd)
+        return g, _interp_g(kd, g, k_interp, eps, cd)
 
     @staticmethod
     def backward(ctx, dg, go):
         ki, kd = ctx.saved_tensors
-        if go is None:
+        if _is_bf16(ctx.cd):
+            if go is not None:
+                dgi = interp_g_bwd(kd, go, ctx.k_interp, ctx.k, go.shape[-1], ctx.eps)
+                dg = dgi if dg is None else dg + dgi
+            dfv = None if dg is None else gather_bwd(ki, dg, ctx.M, ctx.k, ctx.cd)
+        elif go is None:
             dfv = None if dg is None else gather_bwd(ki, dg, ctx.M, ctx.k)
         elif go.is_cuda:
             dfv = gather_interp_bwd_split(ki, kd, None if dg is None else dg.contiguous(),
@@ -687,7 +721,7 @@ class _GatherInterp(torch.autograd.Function):
         else:
             dfv = gather_interp_bwd_plain(ki, kd, dg, go, ctx.M, ctx.k, ctx.k_interp,
                                           ctx.eps)
-        return dfv, None, None, None, None, None
+        return dfv, None, None, None, None, None, None
 
 
 def knn_gather_interp(pos2, feats2, knn, k, k_interp, eps=1e-4, compute_dtype=torch.float32):
@@ -699,34 +733,14 @@ def knn_gather_interp(pos2, feats2, knn, k, k_interp, eps=1e-4, compute_dtype=to
     :param pos2 (B, M, 3); feats2 (B, M, E); knn: knn_extract result with k'
         >= k columns; k: rows to gather; k_interp <= k: the interpolation's
         neighbours.
-    :param compute_dtype: torch.bfloat16 runs both in the bf16 mode (no
-        gradient).
+    :param compute_dtype: torch.bfloat16 runs both in the bf16 mode, and the
+        backward in the TPU's bf16 order (_GatherInterp).
     :return (g (B, k, N, E + 3), features_local (B, N, E)) f32.
     '''
-    bf16 = _is_bf16(compute_dtype)
     fv = torch.cat([feats2.to(torch.float32),
                     pos2[..., :3].detach().to(torch.float32)], dim=-1).contiguous()
-    ki, kd = knn[0].contiguous(), knn[1].contiguous()
-    if bf16:
-        _no_bf16_grad('knn_gather_interp', fv)
-        g = _gather_bf16(fv, ki, k)
-        return g, _interp_g_bf16(kd, g, k_interp, eps)
-    return _GatherInterp.apply(fv, ki, kd, k, k_interp, eps)
-
-
-def _interp_bf16(ki, kd, feats, k, eps):
-    '''The interpolation's bf16 mode (no autograd): its kernel on CUDA,
-    plain version on the CPU.'''
-    if feats.is_cuda:
-        return _interp_cuda(ki, kd, feats, k, eps, True)
-    return interp_plain(ki, kd, feats, k, eps, torch.bfloat16)
-
-
-def _interp_g_bf16(kd, g, k, eps):
-    '''The gathered interpolation's bf16 mode (no autograd).'''
-    if g.is_cuda:
-        return _interp_g_cuda(kd, g, k, eps, True)
-    return interp_g_plain(kd, g, k, eps, torch.bfloat16)
+    return _GatherInterp.apply(fv, knn[0].contiguous(), knn[1].contiguous(), k, k_interp,
+                               eps, compute_dtype)
 
 
 def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None,
@@ -739,11 +753,10 @@ def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None
     :param gathered: optional knn_gather_rows(pos2, feats, knn, k' >= k)
         result (needs knn for the distances): the rows are read from it, with
         the same result; the gradient flows back through the gather.
-    :param compute_dtype: torch.bfloat16: the features rounded to bf16 (no
-        gradient); the weights and sums stay f32.
+    :param compute_dtype: torch.bfloat16: the features rounded to bf16; the
+        weights and sums stay f32; the backward in bf16 (interp_bwd_plain).
     :return (B, N, E) f32.
     '''
-    bf16 = _is_bf16(compute_dtype)
     if gathered is not None:
         if knn is None:
             raise ValueError('gathered= needs the knn distances')
@@ -753,18 +766,13 @@ def fused_knn_interp(q_pos, pos2, feats, k, *, eps=1e-4, key_mask=None, knn=None
                 or tuple(gathered.shape[2:]) != (N, E + 3):
             raise ValueError(f'gathered {tuple(gathered.shape)} does not fit B={B}, '
                              f'N={N}, E={E}, k={k}')
-        if bf16:
-            _no_bf16_grad('fused_knn_interp', gathered)
-            return _interp_g_bf16(knn[1].contiguous(), gathered.contiguous(), k, eps)
-        return _InterpG.apply(knn[1].contiguous(), gathered.contiguous(), k, eps)
+        return _InterpG.apply(knn[1].contiguous(), gathered.contiguous(), k, eps,
+                              compute_dtype)
     if knn is None:
         knn = knn_extract(q_pos, pos2, k, key_mask=key_mask)
     ki, kd = knn
     feats = feats.to(torch.float32).contiguous()
-    if bf16:
-        _no_bf16_grad('fused_knn_interp', feats)
-        return _interp_bf16(ki.contiguous(), kd.contiguous(), feats, k, eps)
-    return _Interp.apply(ki.contiguous(), kd.contiguous(), feats, k, eps)
+    return _Interp.apply(ki.contiguous(), kd.contiguous(), feats, k, eps, compute_dtype)
 
 
 # ---------------------------------------------------------------- attention --
@@ -847,9 +855,24 @@ def _params(names, weights):
     return p
 
 
-def attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
-    '''Plain version of the attention backward kernel: autograd through
-    attn_plain. :return (d(q_proj), d(kv), {(name, leaf): d(weight)}).'''
+def attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g,
+                   compute_dtype=torch.float32):
+    '''Plain version of the attention backward kernel: f32 autograd through
+    attn_plain; bf16 the explicit decomposition of attn_bwd_rows_plain in
+    bf16 on the rows attn_plain reads (kv and pos2 rounded before the
+    gather), d(kv) the per-key sums of the rows' gradients, each row rounded
+    to bf16 before the sum, the sum after it.
+    :return (d(q_proj), d(kv), {(name, leaf): d(weight)}).'''
+    if _is_bf16(compute_dtype):
+        idx = ki[..., :k]
+        rel = q_pos[:, :, None, :3] - gather_neighbors(round_bf16(pos2), idx)
+        rows = gather_neighbors(round_bf16(kv), idx)
+        B, N = q_proj.shape[:2]
+        dq, drows, dw = attn_bwd_rows_plain(q_proj, rel, rows, params, g, premul, N, 1,
+                                            compute_dtype)
+        dkv = _key_sums(idx.reshape(B, N * k), drows.reshape(B, N * k, -1), kv.shape[1],
+                        True)
+        return dq, dkv, dw
     with torch.enable_grad():
         qp = q_proj.detach().requires_grad_(True)
         kvl = kv.detach().requires_grad_(True)
@@ -861,10 +884,21 @@ def attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
     return grads[0], grads[1], dict(zip(leaves, grads[2:]))
 
 
-def attn_g_bwd_plain(q_pos, q_proj, g, params, k, go):
-    '''Plain version of the gathered attention's backward kernel: autograd
-    through attn_g_plain. :return (d(q_proj), dg (B, k', N, E + 3) with zero
+def attn_g_bwd_plain(q_pos, q_proj, g, params, k, go, compute_dtype=torch.float32):
+    '''Plain version of the gathered attention's backward kernel: f32
+    autograd through attn_g_plain; bf16 attn_bwd_rows_plain in bf16 on the
+    rows attn_g_plain reads (the rows' cotangents stay f32, as the TPU
+    kernel's dg). :return (d(q_proj), dg (B, k', N, E + 3) with zero
     position columns and zero rows j >= k, {(name, leaf): d(weight)}).'''
+    if _is_bf16(compute_dtype):
+        B, KE, N, C = g.shape
+        rows = round_bf16(g[:, :k]).transpose(1, 2)
+        rel = q_pos[:, :, None, :3] - rows[..., C - 3:]
+        dq, drows, dw = attn_bwd_rows_plain(q_proj, rel, rows[..., :C - 3], params, go,
+                                            False, N, 1, compute_dtype)
+        dg = torch.zeros((B, KE, N, C), dtype=torch.float32, device=g.device)
+        dg[:, :k, :, :C - 3] = drows.transpose(1, 2)
+        return dq, dg, dw
     with torch.enable_grad():
         qp = q_proj.detach().requires_grad_(True)
         gl = g.detach().requires_grad_(True)
@@ -876,25 +910,61 @@ def attn_g_bwd_plain(q_pos, q_proj, g, params, k, go):
     return grads[0], grads[1], dict(zip(leaves, grads[2:]))
 
 
-def attn_bwd_rows_plain(q_proj, rel, rows, params, go, premul, qc, slices=2):
+def attn_bwd_recompute_plain(q_proj, rel, rows, params, premul, k,
+                             compute_dtype=torch.float32):
+    '''The backward's forward recompute over the rows of some queries (row r
+    = query r // k): theta's hidden layer ph = relu(rel W1 + b1), theta =
+    ph W2 + b2, the rows' k and v (premul: the rows are [k | v]; per-row:
+    F Wk and F Wv), hpre = (q - k) + theta, v + theta and relu(h1) =
+    relu(hpre A1 + c1); bf16: each product's operands rounded to bf16.
+    :param q_proj (n, D); rel (n k, 3); rows (n k, 2D | E).
+    :return dict(ph, th, kk, vpe, hp, r1), each (n k, .).'''
+    r = _rounder(_is_bf16(compute_dtype))
+    D = q_proj.shape[-1]
+
+    def w(name):
+        return r(_kernel(params, name))
+
+    def b(name):
+        return params[name]['bias'].to(torch.float32)
+    ph = torch.relu(r(rel) @ w('pos_mlp_0') + b('pos_mlp_0'))
+    th = r(ph) @ w('pos_mlp_2') + b('pos_mlp_2')
+    if premul:
+        kk, vv = rows[:, :D], rows[:, D:]
+    else:
+        kk, vv = r(rows) @ w('to_k'), r(rows) @ w('to_v')
+    hp = (q_proj.repeat_interleave(k, 0) - kk) + th
+    r1 = torch.relu(r(hp) @ w('attn_mlp_0') + b('attn_mlp_0'))
+    return dict(ph=ph, th=th, kk=kk, vpe=vv + th, hp=hp, r1=r1)
+
+
+def attn_bwd_rows_plain(q_proj, rel, rows, params, go, premul, qc, slices=2,
+                        compute_dtype=torch.float32):
     '''The backward kernels' decomposition (csrc/attn_bwd.cu) in plain
     PyTorch, on the rows of every query whatever the route: per chunk of qc
     queries of one example, the row phase (the forward recomputed, the
     softmax backward, dh1, dhpre, dtheta, dtheta_h, d(q_proj) and the rows'
     gradients), then the chunk's weight gradients as sums over its rows cut
     into `slices` slices, the slices added in order and the chunks in chunk
-    order.
+    order. bf16 (o4d_attn_bwd_bf16's arithmetic): every product's operands
+    rounded to bf16, the recomputed forward's (attn_bwd_recompute_plain),
+    the transposed products' and the weight gradients' sums; the weight
+    kernels' gradients rounded to bf16 after the whole sum, the biases' and
+    d(q_proj) f32, the rows' gradients f32 (each route rounds them where it
+    sums them).
     :param q_proj (B, N, D); rel (B, N, k, 3) = q_pos - the keys' positions;
         rows (B, N, k, 2D) projected [k | v] in premul mode, else the raw
         features F (B, N, k, E); go (B, N, D) = d(out).
     :return (d(q_proj) (B, N, D), the rows' gradients (B, N, k, 2D | E),
         {(name, leaf): d(weight)}).'''
+    bf16 = _is_bf16(compute_dtype)
+    r = _rounder(bf16)
     B, N, k, _ = rel.shape
     D = q_proj.shape[-1]
-    w = {n: _kernel(params, n) for n in _MLP}
+    w = {n: r(_kernel(params, n)) for n in _MLP}
     bias = {n: params[n]['bias'].to(torch.float32) for n in _MLP}
-    wk = None if premul else _kernel(params, 'to_k')
-    wv = None if premul else _kernel(params, 'to_v')
+    wk = None if premul else r(_kernel(params, 'to_k'))
+    wv = None if premul else r(_kernel(params, 'to_v'))
     names = _grad_names(premul)
     grads = {nl: None for nl in names}
     dq = torch.empty_like(q_proj, dtype=torch.float32)
@@ -915,28 +985,25 @@ def attn_bwd_rows_plain(q_proj, rel, rows, params, go, premul, qc, slices=2):
             rl = rel[b, n0:n1].reshape(R, 3)
             x = rows[b, n0:n1].reshape(R, -1)
             # Row phase: the forward recomputed.
-            ph = torch.relu(rl @ w['pos_mlp_0'] + bias['pos_mlp_0'])
-            th = ph @ w['pos_mlp_2'] + bias['pos_mlp_2']
-            kk, vv = (x[:, :D], x[:, D:]) if premul else (x @ wk, x @ wv)
-            hp = (q_proj[b, n0:n1].repeat_interleave(k, 0) - kk) + th
-            vpe = vv + th
-            r1 = torch.relu(hp @ w['attn_mlp_0'] + bias['attn_mlp_0'])
-            lg = (r1 @ w['attn_mlp_2'] + bias['attn_mlp_2']) / math.sqrt(D)
+            fw = attn_bwd_recompute_plain(q_proj[b, n0:n1], rl, x, params, premul, k,
+                                          compute_dtype)
+            ph, th, hp, vpe, r1 = fw['ph'], fw['th'], fw['hp'], fw['vpe'], fw['r1']
+            lg = (r(r1) @ w['attn_mlp_2'] + bias['attn_mlp_2']) / math.sqrt(D)
             a = torch.softmax(lg.view(nq, k, D), dim=1)
             gq = go[b, n0:n1, None, :]
             vq = vpe.view(nq, k, D)
             s = (a * gq * vq).sum(1, keepdim=True)
             dlog = (a * (gq * vq - s) / math.sqrt(D)).reshape(R, D)
             dv = (a * gq).reshape(R, D)
-            dh = (dlog @ w['attn_mlp_2'].T) * (r1 > 0)
-            dhp = dh @ w['attn_mlp_0'].T
+            dh = (r(dlog) @ w['attn_mlp_2'].T) * (r1 > 0)
+            dhp = r(dh) @ w['attn_mlp_0'].T
             dq[b, n0:n1] = dhp.view(nq, k, D).sum(1)
             dth = dhp + dv
-            dph = (dth @ w['pos_mlp_2'].T) * (ph > 0)
+            dph = (r(dth) @ w['pos_mlp_2'].T) * (ph > 0)
             if premul:
                 drow = torch.cat([-dhp, dv], dim=-1)
             else:
-                drow = dv @ wv.T - dhp @ wk.T
+                drow = r(dv) @ wv.T - r(dhp) @ wk.T
             drows[b, n0:n1] = drow.view(nq, k, -1)
             # Weight-gradient phase: long-K sums over the chunk's rows.
             cuts = [(R * i) // slices for i in range(slices + 1)]
@@ -947,10 +1014,13 @@ def attn_bwd_rows_plain(q_proj, rel, rows, params, go, premul, qc, slices=2):
                 ops[('to_k', 'kernel')] = (x, -dhp)
                 ops[('to_v', 'kernel')] = (x, dv)
             for nl, (X, Y) in ops.items():
+                X, Y = r(X), r(Y)
                 add(nl, [X[p].T @ Y[p] for p in pieces])
             for n, Y in (('attn_mlp_0', dh), ('attn_mlp_2', dlog), ('pos_mlp_2', dth),
                          ('pos_mlp_0', dph)):
                 add((n, 'bias'), [Y[p].sum(0) for p in pieces])
+    if bf16:
+        grads = {nl: round_bf16(v) if nl[1] == 'kernel' else v for nl, v in grads.items()}
     return dq, drows, grads
 
 
@@ -1147,8 +1217,9 @@ def _attn_g_cuda(q_pos, q_proj, g, params, k, bf16=False):
     return out
 
 
-def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
-    dims, w, b, wk, wv = _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g, bf16=False):
+    dims, w, b, wk, wv = _attn_operands(q_pos, q_proj, ki, pos2, kv, params, k, premul,
+                                        bf16)
     B, N, M, D, E, H, P = (dims[x] for x in 'BNMDEHP')
     _cuda_f32('g', g)
     if tuple(g.shape) != (B, N, D):
@@ -1160,16 +1231,16 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
     dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
     dw = torch.empty((n_w,), dtype=torch.float32, device=dev)
     dkv = torch.empty(kv.shape, dtype=torch.float32, device=dev)
-    fn = lib.o4d_attn_bwd
+    name = 'attn_bwd_bf16' if bf16 else 'attn_bwd'
+    fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = ([q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b)
             + [g, dq, dw, dkv, ws, iws])
     with torch.cuda.device(dev):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, M, D, E, H, P,
-                        dims['KS'], k, int(premul), QC, _build.stream_ptr(dev)),
-                     'attn_bwd')
-    LAUNCHES['attn_bwd'] += 1
+                        dims['KS'], k, int(premul), QC, _build.stream_ptr(dev)), name)
+    LAUNCHES[name] += 1
     return dq, dkv, _split_weight_grads(dw, D, E, H, P, premul)
 
 
@@ -1202,23 +1273,26 @@ def _split_weight_grads(dw, D, E, H, P, premul):
     return grads
 
 
-def attn_bwd(q_pos, q_proj, ki, pos2, kv, params, k, premul, g):
-    '''Backward of the attention operator: kernel A on CUDA, plain version on
-    the CPU. :return (d(q_proj), d(kv), {(name, leaf): d(weight)}).'''
+def attn_bwd(q_pos, q_proj, ki, pos2, kv, params, k, premul, g,
+             compute_dtype=torch.float32):
+    '''Backward of the attention operator: kernel A (bf16: o4d_attn_bwd_bf16)
+    on CUDA, plain version on the CPU.
+    :return (d(q_proj), d(kv), {(name, leaf): d(weight)}).'''
     g = g.to(torch.float32).contiguous()
     if q_proj.is_cuda:
-        return _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g)
-    return attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g)
+        return _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g,
+                              _is_bf16(compute_dtype))
+    return attn_bwd_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, g, compute_dtype)
 
 
-def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go):
+def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go, bf16=False):
     B, N, D = q_proj.shape
     KE, E = g.shape[1], g.shape[-1] - 3
     if tuple(g.shape) != (B, KE, N, E + 3) or not 1 <= k <= min(KE, 32) \
             or tuple(go.shape) != (B, N, D):
         raise ValueError(f'attn_g_bwd: g {tuple(g.shape)}, go {tuple(go.shape)} do '
                          f'not fit B={B}, N={N}, D={D}, k={k}')
-    w, b, wk, wv, H, P = _weight_operands(params, D, E, False)
+    w, b, wk, wv, H, P = _weight_operands(params, D, E, False, bf16=bf16)
     for name, t in (('q_pos', q_pos), ('q_proj', q_proj), ('g', g), ('go', go)):
         _cuda_f32(name, t)
     lib = _attn_bwd_lib()
@@ -1229,71 +1303,74 @@ def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go):
     dq = torch.empty((B, N, D), dtype=torch.float32, device=dev)
     dw = torch.empty((n_w,), dtype=torch.float32, device=dev)
     dg = torch.empty(g.shape, dtype=torch.float32, device=dev)
-    fn = lib.o4d_attn_g_bwd
+    name = 'attn_g_bwd_bf16' if bf16 else 'attn_g_bwd'
+    fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [go, dq, dw, dg, ws]
     with torch.cuda.device(dev):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
-                        _build.stream_ptr(dev)), 'attn_g_bwd')
-    LAUNCHES['attn_g_bwd'] += 1
+                        _build.stream_ptr(dev)), name)
+    LAUNCHES[name] += 1
     return dq, dg, _split_weight_grads(dw, D, E, H, P, False)
 
 
-def attn_g_bwd(q_pos, q_proj, g, params, k, go):
-    '''Backward of the gathered attention operator: its kernel on CUDA,
-    plain version on the CPU. :return (d(q_proj), dg, {(name, leaf):
-    d(weight)}).'''
+def attn_g_bwd(q_pos, q_proj, g, params, k, go, compute_dtype=torch.float32):
+    '''Backward of the gathered attention operator: its kernel (bf16:
+    o4d_attn_g_bwd_bf16) on CUDA, plain version on the CPU.
+    :return (d(q_proj), dg, {(name, leaf): d(weight)}).'''
     go = go.to(torch.float32).contiguous()
     if q_proj.is_cuda:
-        return _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go)
-    return attn_g_bwd_plain(q_pos, q_proj, g, params, k, go)
+        return _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go, _is_bf16(compute_dtype))
+    return attn_g_bwd_plain(q_pos, q_proj, g, params, k, go, compute_dtype)
 
 
 class _Attention(torch.autograd.Function):
-    '''Forward csrc/attn.cu, backward csrc/attn_bwd.cu (plain versions on the
-    CPU). Saves only its inputs. Gradients: q_proj, kv and the weights;
-    positions and indices get none.'''
+    '''Forward csrc/attn.cu, backward csrc/attn_bwd.cu (bf16: o4d_attn_bf16,
+    o4d_attn_bwd_bf16; plain versions on the CPU). Saves only its inputs.
+    Gradients: q_proj, kv and the weights; positions and indices get none.'''
 
     @staticmethod
-    def forward(ctx, q_pos, q_proj, ki, pos2, kv, k, premul, *weights):
+    def forward(ctx, q_pos, q_proj, ki, pos2, kv, k, premul, cd, *weights):
         names = _grad_names(premul)
         params = _params(names, weights)
         ctx.save_for_backward(q_pos, q_proj, ki, pos2, kv, *weights)
-        ctx.k, ctx.premul, ctx.names = k, premul, names
+        ctx.k, ctx.premul, ctx.names, ctx.cd = k, premul, names, cd
         if q_proj.is_cuda:
-            return _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul)
-        return attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul)
+            return _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, _is_bf16(cd))
+        return attn_plain(q_pos, q_proj, ki, pos2, kv, params, k, premul, cd)
 
     @staticmethod
     def backward(ctx, g):
         q_pos, q_proj, ki, pos2, kv, *weights = ctx.saved_tensors
         dq, dkv, dws = attn_bwd(q_pos, q_proj, ki, pos2, kv, _params(ctx.names, weights),
-                                ctx.k, ctx.premul, g)
-        return ((None, dq, None, None, dkv, None, None)
+                                ctx.k, ctx.premul, g, ctx.cd)
+        return ((None, dq, None, None, dkv, None, None, None)
                 + tuple(dws[nl] for nl in ctx.names))
 
 
 class _AttentionG(torch.autograd.Function):
     '''Forward o4d_attn_g of csrc/attn.cu, backward o4d_attn_g_bwd of
-    csrc/attn_bwd.cu (plain versions on the CPU); gradients in q_proj, g and
-    the per-row mode's weights.'''
+    csrc/attn_bwd.cu (bf16: o4d_attn_g_bf16, o4d_attn_g_bwd_bf16; plain
+    versions on the CPU); gradients in q_proj, g and the per-row mode's
+    weights.'''
 
     @staticmethod
-    def forward(ctx, q_pos, q_proj, g, k, *weights):
+    def forward(ctx, q_pos, q_proj, g, k, cd, *weights):
         names = _grad_names(False)
         ctx.save_for_backward(q_pos, q_proj, g, *weights)
-        ctx.k, ctx.names = k, names
+        ctx.k, ctx.names, ctx.cd = k, names, cd
         params = _params(names, weights)
         if q_proj.is_cuda:
-            return _attn_g_cuda(q_pos, q_proj, g, params, k)
-        return attn_g_plain(q_pos, q_proj, g, params, k)
+            return _attn_g_cuda(q_pos, q_proj, g, params, k, _is_bf16(cd))
+        return attn_g_plain(q_pos, q_proj, g, params, k, cd)
 
     @staticmethod
     def backward(ctx, go):
         q_pos, q_proj, g, *weights = ctx.saved_tensors
-        dq, dg, dws = attn_g_bwd(q_pos, q_proj, g, _params(ctx.names, weights), ctx.k, go)
-        return (None, dq, dg, None) + tuple(dws[nl] for nl in ctx.names)
+        dq, dg, dws = attn_g_bwd(q_pos, q_proj, g, _params(ctx.names, weights), ctx.k, go,
+                                 ctx.cd)
+        return (None, dq, dg, None, None) + tuple(dws[nl] for nl in ctx.names)
 
 
 def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
@@ -1315,12 +1392,12 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
         key_mask are not needed); the gradient of the key set flows back
         through the gather.
     :param compute_dtype: torch.float32, or torch.bfloat16 (the bf16 mode:
-        o4d_attn_bf16 / o4d_attn_g_bf16; no gradient).
+        o4d_attn_bf16 / o4d_attn_g_bf16, backward o4d_attn_bwd_bf16 /
+        o4d_attn_g_bwd_bf16).
     :return (B, N, D) f32.
     '''
     B, N, D = q_proj.shape
     M, E = feats2.shape[1:]
-    bf16 = _is_bf16(compute_dtype)
     q_proj = q_proj.to(torch.float32).contiguous()
     if gathered is not None:
         if gathered.shape[0] != B or gathered.shape[1] < k \
@@ -1329,22 +1406,14 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
                              f'N={N}, E={E}, k={k}')
         q_pos = q_pos[..., :3].detach().to(torch.float32).contiguous()
         weights = [params[n][leaf].to(torch.float32) for n, leaf in _grad_names(False)]
-        if bf16:
-            _no_bf16_grad('fused_knn_vector_attention', q_proj, gathered, *weights)
-            p = _params(_grad_names(False), weights)
-            if q_proj.is_cuda:
-                return _attn_g_cuda(q_pos, q_proj, gathered.contiguous(), p, k, True)
-            return attn_g_plain(q_pos, q_proj, gathered, p, k, torch.bfloat16)
-        return _AttentionG.apply(q_pos, q_proj, gathered.contiguous(), k, *weights)
+        return _AttentionG.apply(q_pos, q_proj, gathered.contiguous(), k, compute_dtype,
+                                 *weights)
     if knn is None:
         knn = knn_extract(q_pos, pos2, k, key_mask=key_mask)
     ki = knn[0]
     if premul is None:
         premul = use_premul(M, D, E)
     feats2 = feats2.to(torch.float32)
-    if bf16:
-        _no_bf16_grad('fused_knn_vector_attention', q_proj, feats2,
-                      *[params[n][leaf] for n, leaf in _grad_names(False)])
     if premul:
         # Outside the kernel, so autograd chains d(kv) to feats2, Wk and Wv.
         kv = torch.cat([feats2 @ _kernel(params, 'to_k'),
@@ -1354,11 +1423,5 @@ def fused_knn_vector_attention(q_proj, q_pos, feats2, pos2, params, k, *,
     q_pos = q_pos[..., :3].detach().to(torch.float32).contiguous()
     pos2 = pos2[..., :3].detach().to(torch.float32).contiguous()
     weights = [params[n][leaf].to(torch.float32) for n, leaf in _grad_names(premul)]
-    if bf16:
-        p = _params(_grad_names(premul), weights)
-        if q_proj.is_cuda:
-            return _attn_cuda(q_pos, q_proj, ki.contiguous(), pos2, kv.contiguous(), p, k,
-                              premul, True)
-        return attn_plain(q_pos, q_proj, ki, pos2, kv, p, k, premul, torch.bfloat16)
     return _Attention.apply(q_pos, q_proj, ki.contiguous(), pos2, kv.contiguous(),
-                            k, premul, *weights)
+                            k, premul, compute_dtype, *weights)

@@ -6,8 +6,9 @@ video, then per predicted frame: guided query sampling -> field evaluation
 The sampled queries and targets are data, not functions of the weights: they
 are detached before the decoder, as the JAX pipeline stop-gradients them.
 The decoder runs fused_field_apply (kernels on CUDA, plain versions on the
-CPU) when the configuration is covered, else the module path. Randomness
-(FPS starts, other-frame choice, sampling) comes from one torch.Generator.
+CPU) when the configuration is covered, else the module path, in the compute
+dtype of fused_decoder_dtype (resolve_decoder_dtype). Randomness (FPS
+starts, other-frame choice, sampling) comes from one torch.Generator.
 '''
 
 import dataclasses
@@ -18,7 +19,21 @@ from .losses import LossConfig, per_example_losses, total_loss
 from .models.fused import fused_field_apply, supports_fused
 from .sampler import GuidedPointSampler, SamplerConfig
 
-__all__ = ['PipelineConfig', 'TrainPipeline', 'squash_colors']
+__all__ = ['PipelineConfig', 'TrainPipeline', 'resolve_decoder_dtype', 'squash_colors']
+
+_DECODER_DTYPES = {'bf16': torch.bfloat16, 'f32': torch.float32,
+                   'auto': torch.float32}
+
+
+def resolve_decoder_dtype(fused_decoder_dtype):
+    '''The fused decoder's compute dtype of a TrainConfig.fused_decoder_dtype
+    (occlusions4d_tpu/pipeline.py:110-116): 'bf16' and 'f32' as named;
+    'auto' is bf16 only on a TPU there, so f32 here, on the card as on the
+    CPU.'''
+    if fused_decoder_dtype not in _DECODER_DTYPES:
+        raise ValueError(f"fused_decoder_dtype must be 'auto', 'bf16' or 'f32', got "
+                         f'{fused_decoder_dtype!r}')
+    return _DECODER_DTYPES[fused_decoder_dtype]
 
 
 def squash_colors(out, color_mode):
@@ -63,20 +78,25 @@ class PipelineConfig:
 
 class TrainPipeline:
     '''The training forward over torch modules (their parameters are the
-    state). Construct once; call loss() inside the train step.'''
+    state). Construct once; call loss() inside the train step.
+    fused_decoder_dtype ('auto' | 'bf16' | 'f32'): the fused decoder's
+    compute dtype (resolve_decoder_dtype); the module path, taken when the
+    configuration is not covered, stays f32.'''
 
     def __init__(self, encoder, decoder, sampler_cfg: SamplerConfig,
-                 cfg: PipelineConfig):
+                 cfg: PipelineConfig, fused_decoder_dtype='auto'):
         self.encoder = encoder
         self.decoder = decoder
         self.sampler = GuidedPointSampler(sampler_cfg)
         self.cfg = cfg
         self.fused_decoder = supports_fused(decoder)
+        self.decoder_dtype = resolve_decoder_dtype(fused_decoder_dtype)
 
     def _decode_frame(self, points_query, abstract, features_global):
         if self.fused_decoder:
             return fused_field_apply(self.decoder, points_query, abstract,
-                                     features_global)[0]
+                                     features_global,
+                                     compute_dtype=self.decoder_dtype)[0]
         return self.decoder(points_query, abstract, features_global)[0]
 
     def sample_frames(self, batch, generator):

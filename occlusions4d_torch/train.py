@@ -12,8 +12,9 @@ as the JAX package's `optax.chain(clip_by_global_norm, masked(adamw))` does:
     u = (mu / (1 - b1^c)) / (sqrt(nu / (1 - b2^c)) + eps) + wd p;
     p <- p + (-lr(c - 1)) u, with b1 0.9, b2 0.999, eps 1e-8, wd 1e-2 on
     every parameter (batch-norm statistics are buffers, not parameters);
-    f32 only: a config with mixed_precision (the JAX package's bf16 mode)
-    raises NotImplementedError in Trainer and build_optimizer;
+    eps 1e-8 only: a config with mixed_precision (the JAX package's bf16
+    modules, with eps 1e-4) raises NotImplementedError in Trainer and
+    build_optimizer;
   * lr(count) = learn_rate x lr_decay for every boundary <= count, the
     boundaries at 2/5, 3/5 and 4/5 of num_epochs x steps_per_epoch.
 A step with a non-finite gradient leaves the parameters, the moments and the
@@ -21,7 +22,11 @@ count as they were. All of it stays on the device: the step count is a
 tensor and the skip is a torch.where, so the update never waits for the host.
 The caller reads params_finite once per step (Trainer.step).
 
-Entry points run on CUDA unless asked for the CPU; TF32 stays off.
+The fused decoder computes in cfg.fused_decoder_dtype (pipeline.py:
+'auto' is f32 here; 'bf16' runs the decoder's kernels in their bf16 mode,
+forward and backward, and its plain products in TF32, models/fused.py).
+Entry points run on CUDA unless asked for the CPU; TF32 stays off outside
+that decoder.
 '''
 
 import numpy as np
@@ -30,7 +35,7 @@ import torch
 from . import resolve_device
 from .checkpoint import from_jax_params
 from .models.factory import build_models, build_sampler_args
-from .pipeline import PipelineConfig, TrainPipeline
+from .pipeline import PipelineConfig, TrainPipeline, resolve_decoder_dtype
 from .sampler import SamplerConfig
 
 __all__ = ['AdamW', 'build_optimizer', 'make_train_step', 'Trainer']
@@ -85,9 +90,10 @@ class AdamW:
 def _refuse_mixed_precision(cfg):
     if cfg.mixed_precision:
         raise NotImplementedError(
-            'mixed_precision=True (the bf16 mode: bf16 modules and AdamW eps 1e-4 '
-            'in the JAX package) is not ported; the port trains in f32 only '
-            '(ROADMAP.md, Queue 2: the bf16 compute mode)')
+            'mixed_precision=True (bf16 modules and AdamW eps 1e-4 in the JAX package, '
+            'with the bf16 mode of the fused self-attention kernels) is not ported yet: '
+            'it is the next slice of the port (ROADMAP.md, Queue 2 item 3). '
+            "fused_decoder_dtype='bf16' trains the decoder's kernels in bf16.")
 
 
 def build_optimizer(cfg, steps_per_epoch, params):
@@ -152,10 +158,13 @@ class Trainer:
     '''Models, optimizer and generator of one training run.
     `fused_attention` ('auto'|'on'|'off', None = 'auto') is the encoder's
     self-attention path, forwarded to build_models as the JAX Trainer
-    forwards it; 'on' trains through the fused self-attention kernels.'''
+    forwards it; 'on' trains through the fused self-attention kernels.
+    cfg.fused_decoder_dtype is the fused decoder's compute dtype
+    (TrainPipeline).'''
 
     def __init__(self, cfg, data_kind='greater', device='cuda', fused_attention=None):
         _refuse_mixed_precision(cfg)
+        resolve_decoder_dtype(cfg.fused_decoder_dtype)
         self.cfg = cfg
         self.data_kind = data_kind
         self.device = resolve_device(device)
@@ -195,7 +204,8 @@ class Trainer:
         self.encoder = self.encoder.to(self.device).train()
         self.decoder = self.decoder.to(self.device).train()
         self.pipeline = TrainPipeline(self.encoder, self.decoder,
-                                      SamplerConfig(**self.sampler_args), self.pipeline_cfg)
+                                      SamplerConfig(**self.sampler_args), self.pipeline_cfg,
+                                      self.cfg.fused_decoder_dtype)
         named = list(self.encoder.parameters()) + list(self.decoder.parameters())
         self.optimizer = build_optimizer(self.cfg, steps_per_epoch, named)
         self.generator = torch.Generator(self.device).manual_seed(seed)

@@ -1091,3 +1091,164 @@ def test_fast_decoder_launches_bf16_kernels_and_matches_cpu(dev):
         assert {k: counts[k] for k in want} == want
         assert _rel_l2(out.cpu(), ref) <= 1e-2, _rel_l2(out.cpu(), ref)
         assert torch.get_float32_matmul_precision() == before
+
+
+# ------------------------------------------------------- bf16 train mode --
+# The bf16 backward kernels (o4d_attn_bwd_bf16, o4d_attn_g_bwd_bf16,
+# o4d_interp_bwd_bf16, o4d_scatter_bf16; fused_decoder_dtype='bf16') against
+# their plain bf16 versions, each gradient within a relative L2 gate: 1e-3
+# for the per-key sums; 5e-3 for the attention, whose weight gradients sum
+# thousands of rows in another order than cuBLAS before their one rounding
+# to bf16, so an entry may land one bf16 ulp (2^-8 relative) away (and a
+# ReLU mask may flip where h1 lies within an f32 rounding of zero, an f32
+# intermediate may round to the neighbouring bf16 operand); the logits'
+# bias, whose true gradient is zero (and any gradient the plain version
+# gives as exact zeros: at k 1 the softmax is constant), within 1e-4
+# absolute; the f32 kernels
+# land outside the gates; each kernel gives the same bits twice.
+
+def _bf16_grad_close(a, b, name='', gate=5e-3):
+    if name == ('attn_mlp_2', 'bias') or not bool(b.any()):  # a zero true gradient.
+        assert float((a - b).abs().max()) <= 1e-4, name
+        return
+    assert _rel_l2(a, b) <= gate, (name, _rel_l2(a, b))
+
+
+@pytest.mark.parametrize('case', sorted(_ATTN_EDGE))
+def test_bf16_attn_backward_edge_shapes(dev, case, monkeypatch):
+    '''o4d_attn_g_bwd_bf16 and o4d_attn_bwd_bf16 (premul and per-row) at the
+    f32 kernels' edge shapes (ragged query chunks, k < k_ext, D 448 and 544)
+    against attn_g_bwd_plain / attn_bwd_plain in bf16, each twice for the
+    same bits; dg's zero rows and columns exact; d(q_proj) and the weight
+    gradients of the gathered and per-row index routes bit-equal; the f32
+    kernel's d(q_proj) outside the gate.'''
+    B, N, M, D, E, K, k_ext, chunks = _ATTN_EDGE[case]
+    if chunks > 1:
+        row_bytes = 4 * K * (3 + 2 * E + 2 * 32 + 6 * D + 4 * D)
+        monkeypatch.setattr(t_attn, '_BWD_BUDGET', row_bytes * (-(-N // chunks)))
+    bf = torch.bfloat16
+    rng = np.random.RandomState(800 + K + N)
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    params = _attn_params(rng, dev, D, E)
+    knn = t_attn.knn_extract(q_pos, pos2, k_ext)
+    g = t_attn.knn_gather_rows(pos2, feats, knn, k_ext, compute_dtype=bf)
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    go = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    dq, dgk, dw = t_attn.attn_g_bwd(q_pos, q_proj, g, params, K, go, bf)
+    dq2, dgk2, dw2 = t_attn.attn_g_bwd(q_pos, q_proj, g, params, K, go, bf)
+    rq, rg, rw = t_attn.attn_g_bwd_plain(q_pos, q_proj, g, params, K, go, bf)
+    fq = t_attn.attn_g_bwd(q_pos, q_proj, g, params, K, go)[0]
+    torch.cuda.synchronize()
+    _bf16_grad_close(dq, rq, 'q_proj')
+    _bf16_grad_close(dgk, rg, 'dg')
+    assert K == 1 or _rel_l2(fq, rq) > 5e-3  # K 1: d(q_proj) is zero in truth.
+    assert torch.equal(dgk[:, K:], rg[:, K:]) and torch.equal(dgk[..., E:], rg[..., E:])
+    assert torch.equal(dq, dq2) and torch.equal(dgk, dgk2)
+    assert set(dw) == set(rw)
+    for name in rw:
+        _bf16_grad_close(dw[name], rw[name], name)
+        assert torch.equal(dw[name], dw2[name]), name
+        if name[1] == 'kernel':  # rounded to bf16 once, after the whole sum.
+            assert torch.equal(dw[name], t_attn.round_bf16(dw[name])), name
+    for premul in (False, True):
+        kv = (torch.cat([feats @ params['to_k']['kernel'],
+                         feats @ params['to_v']['kernel']], -1).contiguous()
+              if premul else feats)
+        args = (q_pos, q_proj, knn[0], pos2, kv, params, K, premul, go)
+        iq, ikv, iw = t_attn.attn_bwd(*args, bf)
+        iq2, ikv2, iw2 = t_attn.attn_bwd(*args, bf)
+        pq, pkv, pw = t_attn.attn_bwd_plain(*args, bf)
+        torch.cuda.synchronize()
+        _bf16_grad_close(iq, pq, 'q_proj')
+        _bf16_grad_close(ikv, pkv, 'kv')
+        assert torch.equal(ikv, t_attn.round_bf16(ikv))
+        assert torch.equal(iq, iq2) and torch.equal(ikv, ikv2)
+        for name in pw:
+            _bf16_grad_close(iw[name], pw[name], name)
+            assert torch.equal(iw[name], iw2[name]), name
+        if not premul:
+            assert torch.equal(iq, dq)
+            assert all(torch.equal(iw[name], dw[name]) for name in iw)
+
+
+@pytest.mark.parametrize('case', ['k1', 'k8', 'k32', 'one_key'])
+def test_bf16_interp_bwd_and_scatter_kernels_match_plain(dev, case):
+    '''o4d_interp_bwd_bf16 and o4d_scatter_bf16 against interp_bwd_plain /
+    gather_bwd_plain in bf16 (rows rounded before the per-key sums, the sums
+    after them; every result a bf16 value), twice for the same bits; k 1, 8
+    and 32, and every entry on one key (about 190 summing chunks per
+    example); the f32 kernels outside the gate; the counters count the bf16
+    names.'''
+    from occlusions4d_torch.ops import _build
+    bf = torch.bfloat16
+    K = {'k1': 1, 'k8': 8, 'k32': 32, 'one_key': 6}[case]
+    rng = np.random.RandomState(90 + K)
+    B, N, M, E, KE = 2, 2003, 97, 40, min(K + 2, 32)
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    ki, kd = t_attn.knn_extract(q_pos, pos2, KE)
+    if case == 'one_key':
+        ki = torch.full_like(ki, 5)
+    g = _t(rng.randn(B, N, E).astype(np.float32), dev)
+    dg = _t(rng.randn(B, KE, N, E + 3).astype(np.float32), dev)
+    _build.reset_launch_counts()
+    i1, i2 = (t_attn.interp_bwd(ki, kd, g, M, K, 1e-4, bf) for _ in range(2))
+    s1, s2 = (t_attn.gather_bwd(ki, dg, M, K, bf) for _ in range(2))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert {n: counts[n] for n in ('interp_bwd_bf16', 'scatter_bf16', 'interp_bwd',
+                                   'scatter')} == dict(interp_bwd_bf16=2, scatter_bf16=2,
+                                                       interp_bwd=0, scatter=0)
+    for out, out2, ref, f32 in (
+            (i1, i2, t_attn.interp_bwd_plain(ki, kd, g, M, K, 1e-4, bf),
+             t_attn.interp_bwd(ki, kd, g, M, K, 1e-4)),
+            (s1, s2, t_attn.gather_bwd_plain(ki, dg, M, K, bf),
+             t_attn.gather_bwd(ki, dg, M, K))):
+        _bf16_grad_close(out, ref, gate=1e-3)
+        assert _rel_l2(f32, ref) > 1e-3
+        assert torch.equal(out, out2) and torch.equal(out, t_attn.round_bf16(out))
+    if case == 'one_key':
+        assert not s1[:, :5].any() and not s1[:, 6:].any()
+
+
+def test_bf16_decoder_backward_launches_bf16_kernels_and_matches_cpu(dev):
+    '''fused_field_apply(compute_dtype=bf16) with gradients on both routes
+    launches the bf16 backward kernels and no f32 attention, interpolation
+    or scatter backward (the shared route's interpolation rows go through
+    the f32 o4d_interp_g_bwd, as the TPU's), agrees with its CPU run (plain
+    bf16 versions, f32 backbone) within relative L2 1e-2 (the card runs the
+    backbone in TF32, forward and backward), and leaves the global matmul
+    precision as it found it.'''
+    import copy
+    from occlusions4d_torch.models.fused import SHARED_GATHER_MIN_M, fused_field_apply
+    from occlusions4d_torch.ops import _build
+    dec = _small_decoder(dev)
+    rng = np.random.RandomState(13)
+    q = _t(rng.rand(1, 301, 4).astype(np.float32), dev)
+    fg = _t(rng.rand(1, 16).astype(np.float32), dev)
+    before = torch.get_float32_matmul_precision()
+    f32_names = ('attn_bwd', 'attn_g_bwd', 'interp_bwd', 'scatter', 'attn', 'attn_g')
+    for M, shared in ((SHARED_GATHER_MIN_M - 1, False), (SHARED_GATHER_MIN_M + 77, True)):
+        abstract = _t(rng.rand(1, M, 3 + 16).astype(np.float32), dev)
+
+        def grads(d, a, qq, f):
+            d.zero_grad()
+            a = a.clone().requires_grad_(True)
+            out, _ = fused_field_apply(d, qq, a, f, compute_dtype=torch.bfloat16)
+            out.square().sum().backward()
+            return torch.cat([a.grad.ravel()] + [p.grad.ravel() for p in d.parameters()])
+        _build.reset_launch_counts()
+        got = grads(dec, abstract, q, fg)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        ref = grads(copy.deepcopy(dec).cpu(), abstract.cpu(), q.cpu(), fg.cpu())
+        want = dict(attn_g_bwd_bf16=2, scatter_bf16=1, interp_g_bwd=1, attn_bwd_bf16=0,
+                    interp_bwd_bf16=0) if shared else \
+            dict(attn_g_bwd_bf16=0, scatter_bf16=0, interp_g_bwd=0, attn_bwd_bf16=2,
+                 interp_bwd_bf16=1)
+        want.update({k: 0 for k in f32_names})
+        assert {k: counts[k] for k in want} == want
+        assert _rel_l2(got.cpu(), ref) <= 1e-2, _rel_l2(got.cpu(), ref)
+        assert torch.get_float32_matmul_precision() == before

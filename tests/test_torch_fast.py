@@ -287,31 +287,33 @@ def test_engine_fast_decodes_in_bf16(rng):
 
 
 def test_bf16_with_grad_raises(rng):
-    '''No bf16 backward yet: a bf16 call whose input requires grad raises,
-    rather than pairing a bf16 forward with an f32 backward.'''
+    '''A bf16 call whose input requires grad has the bf16 backward (held
+    against JAX in tests/test_torch_fast_train.py): each operator's gradient
+    is its plain bf16 backward's, not an f32 one paired with a bf16 forward;
+    a compute dtype other than f32 and bf16 raises.'''
     B, N, M, D, E, K = 1, 40, 30, 16, 8, 4
     q, pos2 = _t(_cloud(rng, B, N, 3)), _t(_cloud(rng, B, M, 3))
     feats = _t(rng.randn(B, M, E).astype(np.float32)).requires_grad_(True)
-    q_proj = _t(rng.randn(B, N, D).astype(np.float32))
+    q_proj = _t(rng.randn(B, N, D).astype(np.float32)).requires_grad_(True)
     tp = _torch_params(_attn_params(rng, D, E))
     knn = t_attn.knn_extract(q, pos2, K)
-    with pytest.raises(NotImplementedError, match='next slice'):
-        t_attn.fused_knn_interp(q, pos2, feats, K, knn=knn, compute_dtype=BF)
-    with pytest.raises(NotImplementedError, match='next slice'):
-        t_attn.knn_gather_rows(pos2, feats, knn, K, compute_dtype=BF)
-    with pytest.raises(NotImplementedError, match='next slice'):
-        t_attn.knn_gather_interp(pos2, feats, knn, K, K, compute_dtype=BF)
-    with pytest.raises(NotImplementedError, match='next slice'):
-        t_attn.fused_knn_vector_attention(q_proj, q, feats, pos2, tp, K, knn=knn,
-                                          compute_dtype=BF)
-    tp['attn_mlp_0']['kernel'].requires_grad_(True)
-    g = t_attn.knn_gather_rows(pos2, feats.detach(), knn, K, compute_dtype=BF)
-    with pytest.raises(NotImplementedError, match='next slice'):
-        t_attn.fused_knn_vector_attention(q_proj, q, feats.detach(), pos2, tp, K, knn=knn,
-                                          gathered=g, compute_dtype=BF)
-    # Under no_grad the same calls run.
-    with torch.no_grad():
-        t_attn.fused_knn_vector_attention(q_proj, q, feats, pos2, tp, K, knn=knn,
-                                          compute_dtype=BF)
-    with pytest.raises(ValueError):
-        t_attn.fused_knn_interp(q, pos2, feats, K, knn=knn, compute_dtype=torch.float16)
+    go_i = _t(rng.randn(B, N, E).astype(np.float32))
+    t_attn.fused_knn_interp(q, pos2, feats, K, knn=knn, compute_dtype=BF).backward(go_i)
+    np.testing.assert_array_equal(
+        feats.grad.numpy(), t_attn.interp_bwd_plain(knn[0], knn[1], go_i, M, K, 1e-4,
+                                                    BF).numpy())
+    assert not np.array_equal(feats.grad.numpy(), t_attn.interp_bwd_plain(
+        knn[0], knn[1], go_i, M, K, 1e-4).numpy())
+    go_a = _t(rng.randn(B, N, D).astype(np.float32))
+    t_attn.fused_knn_vector_attention(q_proj, q, feats.detach(), pos2, tp, K, knn=knn,
+                                      premul=False, compute_dtype=BF).backward(go_a)
+    ref = t_attn.attn_bwd_plain(q, q_proj.detach(), knn[0], pos2, feats.detach(), tp, K,
+                                False, go_a, BF)[0]
+    np.testing.assert_array_equal(q_proj.grad.numpy(), ref.numpy())
+    for fn in (lambda: t_attn.fused_knn_interp(q, pos2, feats, K, knn=knn,
+                                               compute_dtype=torch.float16),
+               lambda: t_attn.fused_knn_vector_attention(q_proj, q, feats, pos2, tp, K,
+                                                         knn=knn,
+                                                         compute_dtype=torch.float16)):
+        with pytest.raises(ValueError):
+            fn()

@@ -70,7 +70,14 @@ each printing one JSON line:
      recompute (flips counted), the f32 kernel's distance from the plain
      bf16 version (the gate must reject it), its time beside the f32
      kernel's; attn_g_bwd_bf16 and the per-row index route give the same
-     bits for d(q_proj) and the weight gradients;
+     bits for d(q_proj) and the weight gradients; the bf16 mode of the fused
+     self-attention (mixed_precision: sattn_bf16, sattn_bwd_bf16) at the
+     same five blocks as sattn, against sattn_plain / sattn_bwd_plain in
+     bf16 on the same inputs (the forward at the bf16 attention gate, each
+     gradient within relative L2 5e-3), the backward twice for the same
+     bits, dgf and the weight kernels' gradients bf16 values, the f32
+     kernels' distances from the plain bf16 versions (both gates must
+     reject them), the times beside the f32 kernels';
   4. main path: gv1 at full width with seeded random weights (numpy, loaded
      through checkpoint.from_jax_params): encode a 14336-point cloud, decode
      the dense grid in chunks of 32768; launch counters are zeroed just before
@@ -135,6 +142,17 @@ each printing one JSON line:
      the cluster entry, the decoder on the shared-gather route; 1 warm-up +
      2 timed steps (launches per step checked), finite and changed state,
      one phase-split step;
+  10b. train_mixed: the gv1 train step with mixed_precision=True (bf16
+     networks, AdamW eps 1e-4) with fused_attention 'auto' and 'on' and
+     fused_decoder_dtype 'f32' and 'bf16', and the n57344 step with 'on',
+     each beside the f32 run from the same seeded state, 5 steps each (the
+     launch counters of the mixed steps after the first: per 'on' step
+     sattn_bf16, sattn_bwd_bf16, gather_bf16, scatter_bf16 4 each and no
+     f32 self-attention kernel, per 'auto' step none of them), finite
+     state, each mixed step's loss within 3e-2 of the f32 networks' loss
+     from the same state (parameters and generator), both runs' loss
+     trajectories printed, one phase-split step each, the step times,
+     splits and peak memory side by side;
   11. decoder_wide: decoders wider than one 416-column attention block,
      D 448 (E 320, pt_feat_dim 40) and D 544 (E 288, global_size 256), with
      seeded weights: the engine on one 4096-query chunk against the CPU,
@@ -150,7 +168,8 @@ each printing one JSON line:
 then the card's nvidia-smi line, the {"kernels": [...]} line (the five
 bf16 forward variants count their launches on main_path_fast, the four bf16
 backward ones and interp_g_bwd (the bf16 shared route's interpolation rows)
-on train_bf16; fps, the FPS kernel's one-block launch, which the speed rule
+on train_bf16, the two bf16 self-attention ones on train_mixed; fps, the FPS
+kernel's one-block launch, which the speed rule
 keeps for clouds of 512 points or fewer, is listed with on_main_path false)
 and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
@@ -219,6 +238,18 @@ _57K_STEP = dict(sattn=4, sattn_bwd=4, gather=8, scatter=8, fps=0,
 # (name, batch, points, index of the PT block in PointEncoder.blocks).
 _SATTN_SHAPES = [('gv1_l0', 3, 14336, 0), ('gv1_l1', 3, 4779, 2), ('gv1_l2', 3, 1593, 4),
                  ('gv1_center', 3, 531, 6), ('n57344_l0', 1, 57344, 0)]
+# Launches per train step with mixed_precision (phase train_mixed): the
+# encoder's four PT blocks through the bf16 gather, sattn_bf16, sattn_bwd_bf16
+# and the bf16 scatter with fused_attention='on', none of them with 'auto';
+# the f32 self-attention kernels never.
+_MIXED_KERNELS = ('sattn_bf16', 'sattn_bwd_bf16', 'gather_bf16', 'scatter_bf16', 'sattn',
+                  'sattn_bwd')
+_MIXED_STEP = {'on': dict(sattn_bf16=4, sattn_bwd_bf16=4, gather_bf16=4, scatter_bf16=4,
+                          sattn=0, sattn_bwd=0),
+               'auto': {k: 0 for k in _MIXED_KERNELS}}
+# n57344 'on' (the decoder's shared route in f32 adds its own f32 gather and
+# scatter, 4 each).
+_MIXED_57K_STEP = dict(_MIXED_STEP['on'], gather=4, scatter=4)
 _GRAD_CHECK_Q = 1024
 _CHECK_CHUNK = 4096
 _REPLACES = {
@@ -253,6 +284,10 @@ _REPLACES = {
     'interp_bwd_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:661 '
                        '(compute_dtype=bfloat16)',
     'scatter_bf16': 'occlusions4d_tpu/ops/pallas_attention.py:837 (compute_dtype=bfloat16)',
+    'sattn_bf16': 'occlusions4d_tpu/ops/pallas_self_attention.py:56 '
+                  '(compute_dtype=bfloat16)',
+    'sattn_bwd_bf16': 'occlusions4d_tpu/ops/pallas_self_attention.py:132 '
+                      '(compute_dtype=bfloat16)',
 }
 _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'interp',
            'attn': 'attn', 'attn_bwd': 'attn_bwd', 'interp_bwd': 'interp_bwd',
@@ -262,7 +297,8 @@ _SOURCE = {'knn_brute': 'knn', 'knn_pruned': 'knn', 'fps': 'fps', 'interp': 'int
            'nn1_direct': 'knn', 'interp_bf16': 'interp', 'attn_bf16': 'attn',
            'gather_bf16': 'gather', 'interp_g_bf16': 'interp', 'attn_g_bf16': 'attn',
            'attn_bwd_bf16': 'attn_bwd', 'attn_g_bwd_bf16': 'attn_bwd',
-           'interp_bwd_bf16': 'interp_bwd', 'scatter_bf16': 'gather'}
+           'interp_bwd_bf16': 'interp_bwd', 'scatter_bf16': 'gather', 'sattn_bf16': 'attn',
+           'sattn_bwd_bf16': 'attn_bwd'}
 # The path whose run gives each kernel's launch count.
 _INFER = ('knn_brute', 'knn_pruned', 'fps_cluster', 'interp', 'attn')
 _TRAIN = _INFER + ('attn_bwd', 'interp_bwd')
@@ -279,7 +315,8 @@ _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='tra
                                               'interp_g_bf16', 'attn_g_bf16')},
              **{k: 'train_bf16' for k in ('attn_bwd_bf16', 'attn_g_bwd_bf16',
                                           'interp_bwd_bf16', 'scatter_bf16',
-                                          'interp_g_bwd')})
+                                          'interp_g_bwd')},
+             sattn_bf16='train_mixed', sattn_bwd_bf16='train_mixed')
 # A kernel entry no main path launches.
 _OFF_PATH = {'fps': 'the one-block launch of the FPS kernel: the speed rule '
                     '(csrc/fps.cu o4d_fps_plan) sends clouds of 512 points or '
@@ -1471,6 +1508,77 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
     del g_bf, iq, iw
 
 
+def sattn_bf16_line(torch, t_sattn, t_attn, name, q, gf, rel, params, K, go, f32, work):
+    """The bf16 mode of the fused self-attention (mixed_precision) at one
+    block: sattn_bf16 against sattn_plain in bf16 (bf16_agree's gate) and
+    sattn_bwd_bf16 against sattn_bwd_plain in bf16 (each gradient within
+    _ATTN_GATE), on the same inputs, gf rounded to bf16 as the operator hands
+    it over; the backward twice for the same bits, dgf and the weight
+    kernels' gradients bf16 values; the f32 kernels' distance from the plain
+    bf16 versions (the gates must reject them); times beside the f32
+    kernels' of the same call (f32: their ms). work: (f_bytes, f_macs,
+    b_bytes, b_macs)."""
+    BF = torch.bfloat16
+    f_bytes, f_macs, b_bytes, b_macs = work
+    with torch.no_grad():
+        gfb = t_attn.round_bf16(gf)
+        fwd = lambda: t_sattn.fused_gathered_attention(q, gfb, rel, params, K,  # noqa: E731
+                                                       compute_dtype=BF)
+        out, ref = fwd(), t_sattn.sattn_plain(q, gfb, rel, params, BF)
+        out32 = t_sattn.fused_gathered_attention(q, gf, rel, params, K)
+        torch.cuda.synchronize()
+        f_ok, f_err, f_rel = bf16_agree(out, ref), max_err(out, ref), rel_l2(out, ref)
+        f32_f_rel, f32_f_ok = rel_l2(out32, ref), bf16_agree(out32, ref)
+        del out, ref, out32
+        bwd = lambda: t_sattn.sattn_bwd(q, gfb, rel, params, K, go, BF)  # noqa: E731
+        dq, dgf, dw = bwd()
+        dq2, dgf2, dw2 = bwd()
+        rq, rgf, rw = t_sattn.sattn_bwd_plain(q, gfb, rel, params, go, BF)
+        torch.cuda.synchronize()
+        names = [('dq',), ('dgf',)] + sorted(rw)
+        ref_list = [rq, rgf] + [rw[n] for n in sorted(rw)]
+        triples = list(zip(names, [dq, dgf] + [dw[n] for n in sorted(rw)], ref_list))
+        b_ok, b_worst, b_err = bf16_grads_agree(triples, _ATTN_GATE)
+        each = bf16_grads_each(triples)
+        repro = max([max_err(dq, dq2), max_err(dgf, dgf2)]
+                    + [max_err(dw[n], dw2[n]) for n in dw])
+        rounded = bool(torch.equal(dgf, t_attn.round_bf16(dgf))) and all(
+            bool(torch.equal(dw[n], t_attn.round_bf16(dw[n]))) for n in dw if n[1] == 'kernel')
+        del triples, dq, dgf, dw, dq2, dgf2, dw2
+        fq, fgf, fw = t_sattn.sattn_bwd(q, gf, rel, params, K, go)
+        f32_triples = list(zip(names, [fq, fgf] + [fw[n] for n in sorted(rw)], ref_list))
+        f32_b_ok, f32_b_worst, _ = bf16_grads_agree(f32_triples, _ATTN_GATE)
+        f32_each = bf16_grads_each(f32_triples)
+        del f32_triples, fq, fgf, fw, rq, rgf, rw, ref_list
+        ms = cuda_ms(torch, fwd, 5)
+        plain_ms = cuda_ms(torch, lambda: t_sattn.sattn_plain(q, gfb, rel, params, BF), 3)
+        b_ms = cuda_ms(torch, bwd, 3)
+        b_plain_ms = cuda_ms(torch, lambda: t_sattn.sattn_bwd_plain(q, gfb, rel, params, go,
+                                                                     BF), 2)
+    fb_ms, fb_by = bound(f_bytes, 2.0 * f_macs, _BF16_TC_FLOPS)
+    bb_ms, bb_by = bound(b_bytes, 2.0 * b_macs, _BF16_TC_FLOPS)
+    line = dict(name=name, fwd_agree=f_ok, fwd_max_abs_err=f_err, fwd_rel_l2=f_rel,
+                f32_kernel_fwd_rel_l2_vs_plain=f32_f_rel, f32_kernel_fwd_within_gate=f32_f_ok,
+                bwd_agree=b_ok, bwd_rel_l2_worst=b_worst, bwd_max_abs_err=b_err,
+                bwd_rel_l2_each=each, f32_kernel_bwd_rel_l2_worst=f32_b_worst,
+                f32_kernel_bwd_rel_l2_each=f32_each, f32_kernel_bwd_within_gate=f32_b_ok,
+                bwd_repeat_max_abs_diff=repro, dgf_and_weight_kernel_grads_are_bf16=rounded,
+                fwd_ms=ms, fwd_plain_ms=plain_ms, f32_fwd_ms=f32[0], bwd_ms=b_ms,
+                bwd_plain_ms=b_plain_ms, f32_bwd_ms=f32[1], fwd_bound_ms=fb_ms,
+                fwd_bound_by=fb_by, fwd_share_of_bound=fb_ms / ms, bwd_bound_ms=bb_ms,
+                bwd_bound_by=bb_by, bwd_share_of_bound=bb_ms / b_ms)
+    ok = (f_ok and b_ok and repro == 0.0 and rounded and not f32_f_ok and not f32_b_ok)
+    emit(dict(phase='kernel', kernel='sattn_bf16+sattn_bwd_bf16', agree=ok,
+              tolerance=f'forward {_BF16_TOL}; backward {bf16_tol(_ATTN_GATE)}',
+              plain='sattn_plain / sattn_bwd_plain with compute_dtype=torch.bfloat16', **line))
+    if not ok:
+        raise AssertionError(f'sattn_bf16 at {name} disagrees (fwd {f_rel}, bwd {b_worst}), '
+                             f'is not reproducible ({repro}), its gradients are not bf16 '
+                             f'({rounded}), or the f32 kernels pass its gates '
+                             f'({f32_f_rel}, {f32_b_worst})')
+    return line
+
+
 def check_self_attention_kernels(torch, dev, rng, encoder, rows):
     """sattn and sattn_bwd at the encoder's four self-attention blocks of the
     gv1 train step (B 3: 14336 / 4779 / 1593 / 531 queries at D 36 / 72 /
@@ -1479,16 +1587,16 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
     kernel: each against its plain version, the backward twice for the same
     bits. Beside them the block's chain (the 'auto' path after the kNN:
     project, gather, MLPs, softmax) and the fused route (gather + sattn;
-    backward sattn_bwd + scatter), forward and forward + backward. The
-    kernels line carries the sums over the four gv1 blocks (one step's
-    launches)."""
+    backward sattn_bwd + scatter), forward and forward + backward. Then the
+    bf16 mode on the same inputs (sattn_bf16_line). The kernels lines carry
+    the sums over the four gv1 blocks (one step's launches)."""
     import importlib
     t_sattn = importlib.import_module('occlusions4d_torch.ops.self_attention')
     t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
     t_knn = importlib.import_module('occlusions4d_torch.ops.knn')
     K, P = 16, 32
     tol = 'forward atol 1e-4, rtol 1e-3; backward atol 1e-4 x max(1, max|plain|), rtol 1e-3'
-    per = []
+    per, per_bf16 = [], []
     for name, B, N, blk in _SATTN_SHAPES:
         att = encoder.blocks[blk].layer2
         D = E = att.dim
@@ -1580,6 +1688,8 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
             raise AssertionError(f'sattn at {name} disagrees (fwd {f_err}, bwd {b_err}) or '
                                  f'its backward is not reproducible ({repro})')
         per.append(line)
+        per_bf16.append(sattn_bf16_line(torch, t_sattn, t_attn, name, q, gf, rel, params, K,
+                                        go, (f_ms, b_ms), (f_bytes, f_macs, b_bytes, b_macs)))
         del gf, rel, x, q, go, pos, idx
 
     gv1 = [p for p in per if p['name'].startswith('gv1')]
@@ -1599,6 +1709,26 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
                              fused_route_fwd_bwd_ms=total('fused_route_fwd_bwd_ms'),
                              repeat_max_abs_diff=max(p['bwd_repeat_max_abs_diff']
                                                      for p in per), **common)
+    gv1_b = [p for p in per_bf16 if p['name'].startswith('gv1')]
+    total_b = lambda key: sum(p[key] for p in gv1_b)  # noqa: E731
+    n57_b = [p for p in per_bf16 if p['name'].startswith('n57344')]
+    rows['sattn_bf16'] = dict(
+        max_abs_err=max(p['fwd_max_abs_err'] for p in per_bf16), ms=total_b('fwd_ms'),
+        plain_ms=total_b('fwd_plain_ms'), bound_ms=total_b('fwd_bound_ms'),
+        bound_by='operations', f32_kernel_ms=total_b('f32_fwd_ms'),
+        rel_l2_err=max(p['fwd_rel_l2'] for p in per_bf16),
+        f32_kernel_rel_l2_vs_plain=min(p['f32_kernel_fwd_rel_l2_vs_plain'] for p in per_bf16),
+        per_block_ms=[p['fwd_ms'] for p in gv1_b], n57344_l0_ms=n57_b[0]['fwd_ms'],
+        **common)
+    rows['sattn_bwd_bf16'] = dict(
+        max_abs_err=max(p['bwd_max_abs_err'] for p in per_bf16), ms=total_b('bwd_ms'),
+        plain_ms=total_b('bwd_plain_ms'), bound_ms=total_b('bwd_bound_ms'),
+        bound_by='operations', f32_kernel_ms=total_b('f32_bwd_ms'),
+        rel_l2_err=max(p['bwd_rel_l2_worst'] for p in per_bf16),
+        f32_kernel_rel_l2_vs_plain=min(p['f32_kernel_bwd_rel_l2_worst'] for p in per_bf16),
+        repeat_max_abs_diff=max(p['bwd_repeat_max_abs_diff'] for p in per_bf16),
+        per_block_ms=[p['bwd_ms'] for p in gv1_b], n57344_l0_ms=n57_b[0]['bwd_ms'],
+        **common)
 
 
 def sampler_like(torch, t_knn, dev, rng, B, N, M):
@@ -2164,6 +2294,114 @@ def train_bf16(torch, dev, smi, path_counts):
             raise AssertionError(f'train_bf16 ({model}) failed: launches {per_step} '
                                  f'(expected {expect}), finite {finite}, loss vs f32 '
                                  f'{loss_rel}')
+
+
+def train_mixed(torch, dev, smi, path_counts):
+    """Phase 10b: the gv1 train step with mixed_precision=True (bf16
+    networks over f32 parameters, AdamW eps 1e-4) with fused_attention
+    'auto' and 'on' and fused_decoder_dtype 'f32' and 'bf16', and the
+    n57344 step with 'on', each beside the f32 run of the same options
+    (mixed_precision=False: f32 networks, eps 1e-8) from the same seeded
+    weights, batch and generator seed, _BF16_TRAIN_STEPS steps each, then
+    one phase-split step each: mean step ms, split_ms and peak memory side
+    by side. The launch counters are zeroed before each mixed step after the
+    first and read after it (per step _MIXED_STEP / _MIXED_57K_STEP; the f32
+    run launches no bf16 self-attention kernel). The loss gate compares each
+    mixed step's loss with the f32 networks' loss from the same state: the
+    f32 run's modules loaded with the mixed run's parameters and the same
+    generator state, forward only, before the step; each within
+    _BF16_LOSS_RTOL. The two runs' own trajectories part from the second
+    step on (AdamW's eps 1e-4 against 1e-8 damps every update whose moments
+    are near 1e-4, as the clipped gradients' entries are), so they are
+    printed, not gated. Every state finite."""
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.ops import _build
+    from occlusions4d_torch.train import Trainer
+    path_counts['train_mixed'] = {}
+    n = _BF16_TRAIN_STEPS - 1
+    arms = [('gv1', _GV1_TRAIN, fused, ddt, _MIXED_STEP[fused])
+            for fused in ('auto', 'on') for ddt in ('f32', 'bf16')]
+    arms.append(('n57344', _N57, 'on', 'auto', _MIXED_57K_STEP))
+
+    def trainer(kw, fused, ddt, mixed):
+        cfg = TrainConfig(**dict(kw, fused_decoder_dtype=ddt, mixed_precision=mixed))
+        tr = Trainer(cfg, 'greater', 'cuda', fused_attention=fused)
+        wrng = np.random.RandomState(2)
+        tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                                  decoder=random_jax_params(tr.decoder, wrng)),
+                      seed=0, steps_per_epoch=100)
+        return tr, train_batch(torch, cfg, dev, seed=1)
+
+    def f32_loss_at(tr32, tr, batch):
+        """The f32 networks' loss at tr's parameters and generator state."""
+        tr32.encoder.load_state_dict(tr.encoder.state_dict())
+        tr32.decoder.load_state_dict(tr.decoder.state_dict())
+        gen = torch.Generator(dev)
+        gen.set_state(tr.generator.get_state())
+        with torch.no_grad():
+            return float(tr32.pipeline.loss(batch, gen)[0])
+
+    for model, kw, fused, ddt, expect in arms:
+        res = {}
+        tr32, batch = trainer(kw, fused, ddt, False)
+        tr, _ = trainer(kw, fused, ddt, True)
+        for name, t in (('f32', tr32), ('mixed', tr)):
+            torch.cuda.reset_peak_memory_stats()
+            steps, counts = [], {}
+            for i in range(_BF16_TRAIN_STEPS):
+                same = f32_loss_at(tr32, t, batch) if name == 'mixed' else None
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                t0 = time.time()
+                m = t.step(batch)
+                torch.cuda.synchronize()
+                if i >= 1:
+                    for k, v in _build.launch_counts().items():
+                        counts[k] = counts.get(k, 0) + v
+                steps.append(dict(ms=(time.time() - t0) * 1e3,
+                                  total_loss=float(m['total_loss']), f32_same_state=same,
+                                  finite=bool(m['grads_finite']) and bool(m['params_finite'])
+                                  and bool(np.isfinite(float(m['total_loss'])))))
+            res[name] = dict(steps=steps, counts=counts,
+                             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             split_ms=split_step(torch, t, batch), eps=t.optimizer.eps,
+                             mean_step_ms=float(np.mean([st['ms'] for st in steps[1:]])))
+        del tr, tr32, batch
+        torch.cuda.empty_cache()
+        mp, f32 = res['mixed'], res['f32']
+        per_step = {k: mp['counts'].get(k, 0) / n for k in expect}
+        counts_ok = per_step == {k: float(v) for k, v in expect.items()} and all(
+            f32['counts'].get(k, 0) == 0 for k in ('sattn_bf16', 'sattn_bwd_bf16'))
+        loss_rel = [abs(st['total_loss'] - st['f32_same_state']) / abs(st['f32_same_state'])
+                    for st in mp['steps']]
+        traj_rel = [abs(b['total_loss'] - f['total_loss']) / abs(f['total_loss'])
+                    for b, f in zip(mp['steps'], f32['steps'])]
+        finite = all(st['finite'] for r in res.values() for st in r['steps'])
+        ok = (counts_ok and finite and max(loss_rel) <= _BF16_LOSS_RTOL
+              and mp['eps'] == 1e-4 and f32['eps'] == 1e-8)
+        for k, v in mp['counts'].items():
+            path_counts['train_mixed'][k] = path_counts['train_mixed'].get(k, 0) + v
+        emit(dict(phase='train_mixed', model=model, fused_attention=fused,
+                  fused_decoder_dtype=ddt, steps=_BF16_TRAIN_STEPS, timed_steps=n,
+                  mixed_step_ms=[st['ms'] for st in mp['steps']],
+                  f32_step_ms=[st['ms'] for st in f32['steps']],
+                  mixed_mean_step_ms=mp['mean_step_ms'], f32_mean_step_ms=f32['mean_step_ms'],
+                  speedup=f32['mean_step_ms'] / mp['mean_step_ms'],
+                  mixed_split_ms=mp['split_ms'], f32_split_ms=f32['split_ms'],
+                  mixed_loss=[st['total_loss'] for st in mp['steps']],
+                  f32_loss_same_state=[st['f32_same_state'] for st in mp['steps']],
+                  loss_rel_diff_same_state=loss_rel, loss_rtol=_BF16_LOSS_RTOL,
+                  f32_run_loss=[st['total_loss'] for st in f32['steps']],
+                  trajectory_rel_diff=traj_rel,
+                  launches_per_step=per_step, expected_per_step=expect,
+                  mixed_launches=mp['counts'], mixed_peak_mem_gib=mp['peak_mem_gib'],
+                  f32_peak_mem_gib=f32['peak_mem_gib'], adamw_eps=[mp['eps'], f32['eps']],
+                  finite=finite, ok=bool(ok), gpu=smi))
+        if not ok:
+            raise AssertionError(f'train_mixed ({model}, {fused}, {ddt}) failed: launches '
+                                 f'{per_step} (expected {expect}), finite {finite}, loss vs '
+                                 f'f32 from the same state {loss_rel}, eps {mp["eps"]} / '
+                                 f'{f32["eps"]}')
 
 
 def attn_g_grads_f64(torch, t_attn, q_pos, q_proj, g, params, k, go):
@@ -2960,6 +3198,9 @@ def main():
     torch.cuda.empty_cache()
     # 10. The n57344 train step (FPS cluster entry, shared-gather decoder).
     train_fused_phase(torch, dev, smi, path_counts, 'train_57k', _N57, _57K_STEP, 10)
+    torch.cuda.empty_cache()
+    # 10b. mixed_precision: gv1 'auto' / 'on' x decoder f32 / bf16, n57344 'on'.
+    train_mixed(torch, dev, smi, path_counts)
 
     torch.cuda.empty_cache()
     # 11. Decoders wider than one 416-column attention block.

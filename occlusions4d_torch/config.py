@@ -43,13 +43,15 @@ class TrainConfig:
     semantic_classes: int = 13
     segmentation_lw: float = 0.0
     tracking_lw: float = 0.0
-    # Training. mixed_precision (bf16 modules, AdamW eps 1e-4 in the JAX
-    # package) is carried so that a checkpoint's config survives; the port
-    # refuses it in training (train.py) and evaluates such a checkpoint in
-    # f32 as the JAX engine does. fused_decoder_dtype is the compute dtype
-    # of the fused decoder's kernels in the train step, forward and backward
-    # (JAX's name and default): 'bf16', 'f32', or 'auto', which is bf16 on a
-    # TPU in the JAX package and f32 everywhere in the port (pipeline.py).
+    # Training. mixed_precision trains as the JAX package does: both networks
+    # built in bf16 (bf16 linear layers over f32 parameters, the encoder's
+    # fused self-attention in its bf16 mode; models/layers.py) and AdamW's
+    # eps 1e-4 (train.py); a checkpoint trained so is still evaluated in f32,
+    # as the JAX engine evaluates it (evaluate/inference.py).
+    # fused_decoder_dtype is the compute dtype of the fused decoder's kernels
+    # in the train step, forward and backward (JAX's name and default):
+    # 'bf16', 'f32', or 'auto', which is bf16 on a TPU in the JAX package
+    # and f32 everywhere in the port (pipeline.py).
     mixed_precision: bool = False
     fused_decoder_dtype: str = 'auto'
     seed: int = 1830

@@ -96,6 +96,16 @@
 //
 // o4d_sattn keeps PR 5's body (sattn_kernel): 32-row tiles, every product a
 // register-tiled f32 loop over weight tiles staged through shared memory.
+// o4d_sattn_bf16 is the same body in the bf16 compute mode
+// (sattn_kernel<true>, the TPU kernel at compute_dtype=bfloat16, which the
+// encoder runs under mixed_precision): each product's operands are rounded
+// to bf16 once, the A rows (rel, theta's hidden layer, the raw features F,
+// hpre, gamma's hidden chunk) as they are stored in shared memory (each
+// feeds only products) and the weight tiles as they are staged; a product
+// of two bf16 values is exact in f32, so each FMA chain sums the exact
+// products in f32, as _mm2 does. Theta, v + theta, the logits, the softmax
+// and the output stay f32. Bound: the bf16 tensor cores; this simple form
+// runs at the f32 CUDA cores' pace, as the f32 entry does (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -115,7 +125,10 @@ constexpr int kKTile = 32;
 
 // C[r][c] (+)= act(sum_kk A[r][kk] W[kk][c] + bias[c]) for r < 32, c < Nc.
 // A and C in shared memory, W (Kd x Nc, row stride ldw) in global memory.
-template <bool RELU, bool ACCUM>
+// RND: W rounded to bf16 as it is staged, and a ReLU output (which feeds
+// only the next product) stored rounded; the caller stores every other A
+// operand rounded.
+template <bool RELU, bool ACCUM, bool RND>
 __device__ void gemm_rows(const float* A, int lda, const float* __restrict__ W,
                           int ldw, const float* __restrict__ bias, int Kd,
                           int Nc, float* C, int ldc, float* ws) {
@@ -131,8 +144,9 @@ __device__ void gemm_rows(const float* A, int lda, const float* __restrict__ W,
       __syncthreads();
       for (int idx = tid; idx < kKTile * kColTile; idx += kThreads) {
         const int kk = idx / kColTile, c = idx % kColTile;
-        ws[idx] = (kk < kc && cb + c < Nc) ? W[(size_t)(k0 + kk) * ldw + cb + c]
-                                           : 0.f;
+        const float w = (kk < kc && cb + c < Nc) ? W[(size_t)(k0 + kk) * ldw + cb + c]
+                                                 : 0.f;
+        ws[idx] = RND ? round_bf16(w) : w;
       }
       __syncthreads();
 #pragma unroll 4
@@ -157,6 +171,7 @@ __device__ void gemm_rows(const float* A, int lda, const float* __restrict__ W,
           float v = acc[i][t];
           if (bias != nullptr) v += bias[c];
           if (RELU) v = fmaxf(v, 0.f);
+          if (RND && RELU) v = round_bf16(v);
           float* dst = C + (ty * 4 + i) * ldc + c;
           if (ACCUM)
             *dst += v;
@@ -198,7 +213,8 @@ size_t sattn_smem_floats(int D, int E, int P) {
 // softmax over j closes inside the block. The rows' theta, a and logits stay
 // in shared memory; the gamma MLP's hidden layer is produced and consumed in
 // chunks of 128 columns (relu(a A1) chunk -> accumulate chunk A2 into the
-// logits).
+// logits). RND: every product's operands rounded to bf16 (o4d_sattn_bf16).
+template <bool RND>
 __global__ void __launch_bounds__(kThreads) sattn_kernel(SattnArgs p) {
   extern __shared__ float sm[];
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
@@ -222,34 +238,39 @@ __global__ void __launch_bounds__(kThreads) sattn_kernel(SattnArgs p) {
     rq[tid] = valid ? n : -1;
     const size_t row = ((size_t)b * p.N + (valid ? n : 0)) * k + j;
     rrow[tid] = p.gf + row * E;
-    for (int c = 0; c < 3; ++c) REL[tid * 3 + c] = valid ? p.rel[row * 3 + c] : 0.f;
+    for (int c = 0; c < 3; ++c) {
+      const float x = valid ? p.rel[row * 3 + c] : 0.f;
+      REL[tid * 3 + c] = RND ? round_bf16(x) : x;
+    }
   }
   __syncthreads();
 
-  gemm_rows<true, false>(REL, 3, p.wp1, P, p.bp1, 3, P, PH, P, WS);
-  gemm_rows<false, false>(PH, P, p.wp2, D, p.bp2, P, D, PE, D, WS);
+  gemm_rows<true, false, RND>(REL, 3, p.wp1, P, p.bp1, 3, P, PH, P, WS);
+  gemm_rows<false, false, RND>(PH, P, p.wp2, D, p.bp2, P, D, PE, D, WS);
 
   for (int idx = tid; idx < kRows * E; idx += kThreads) {
     const int r = idx / E, c = idx % E;
-    LG[r * LD + c] = rq[r] < 0 ? 0.f : rrow[r][c];
+    const float x = rq[r] < 0 ? 0.f : rrow[r][c];
+    LG[r * LD + c] = RND ? round_bf16(x) : x;
   }
-  gemm_rows<false, false>(LG, LD, p.wk, D, nullptr, E, D, A, D, WS);
+  gemm_rows<false, false, RND>(LG, LD, p.wk, D, nullptr, E, D, A, D, WS);
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const float q = rq[r] >= 0 ? p.qproj[((size_t)b * p.N + rq[r]) * D + c] : 0.f;
-    A[idx] = (q - A[idx]) + PE[idx];
+    const float h = (q - A[idx]) + PE[idx];
+    A[idx] = RND ? round_bf16(h) : h;
   }
   // PE += F Wv (its first barrier orders the loop above).
-  gemm_rows<false, true>(LG, LD, p.wv, D, nullptr, E, D, PE, D, WS);
+  gemm_rows<false, true, RND>(LG, LD, p.wv, D, nullptr, E, D, PE, D, WS);
   __syncthreads();
   for (int idx = tid; idx < kRows * D; idx += kThreads) LG[idx] = 0.f;
 
   for (int h0 = 0; h0 < H; h0 += kColTile) {
     const int hc = min(kColTile, H - h0);
-    gemm_rows<true, false>(A, D, p.wa1 + h0, H, p.ba1 + h0, D, hc, HC, kColTile,
-                           WS);
-    gemm_rows<false, true>(HC, kColTile, p.wa2 + (size_t)h0 * D, D, nullptr, hc,
-                           D, LG, D, WS);
+    gemm_rows<true, false, RND>(A, D, p.wa1 + h0, H, p.ba1 + h0, D, hc, HC, kColTile,
+                                WS);
+    gemm_rows<false, true, RND>(HC, kColTile, p.wa2 + (size_t)h0 * D, D, nullptr, hc,
+                                D, LG, D, WS);
   }
 
   for (int idx = tid; idx < tq_per * D; idx += kThreads) {
@@ -1413,14 +1434,13 @@ extern "C" int o4d_attn_g_bf16(const void* qpos, const void* qproj, const void* 
                              ws, B, N, D, E, H, P, KE, k, QC, stream);
 }
 
-// The encoder's fused self-attention: q (B, N, D) projected queries, gf
-// (B, N, k, E) raw neighbour features (row n k + j is query n's j-th
-// neighbour), rel (B, N, k, 3) coordinate deltas; out (B, N, D).
-extern "C" int o4d_sattn(const void* q, const void* gf, const void* rel, const void* wk,
-                         const void* wv, const void* wp1, const void* bp1,
-                         const void* wp2, const void* bp2, const void* wa1,
-                         const void* ba1, const void* wa2, const void* ba2, void* out,
-                         int B, int N, int D, int E, int H, int P, int k, void* stream) {
+namespace {
+
+template <bool RND>
+int sattn(const void* q, const void* gf, const void* rel, const void* wk, const void* wv,
+          const void* wp1, const void* bp1, const void* wp2, const void* bp2,
+          const void* wa1, const void* ba1, const void* wa2, const void* ba2, void* out,
+          int B, int N, int D, int E, int H, int P, int k, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > kRows) return (int)cudaErrorInvalidValue;
   SattnArgs a = {};
@@ -1446,11 +1466,37 @@ extern "C" int o4d_sattn(const void* q, const void* gf, const void* rel, const v
   a.k = k;
   a.inv_sqrt_d = 1.0f / sqrtf((float)D);
   const size_t smem = sattn_smem_floats(D, E, P) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sattn_kernel,
+  cudaError_t e = cudaFuncSetAttribute(sattn_kernel<RND>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int tq_per = kRows / k;
   dim3 grid((N + tq_per - 1) / tq_per, B);
-  sattn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  sattn_kernel<RND><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The encoder's fused self-attention: q (B, N, D) projected queries, gf
+// (B, N, k, E) raw neighbour features (row n k + j is query n's j-th
+// neighbour), rel (B, N, k, 3) coordinate deltas; out (B, N, D).
+extern "C" int o4d_sattn(const void* q, const void* gf, const void* rel, const void* wk,
+                         const void* wv, const void* wp1, const void* bp1,
+                         const void* wp2, const void* bp2, const void* wa1,
+                         const void* ba1, const void* wa2, const void* ba2, void* out,
+                         int B, int N, int D, int E, int H, int P, int k, void* stream) {
+  return sattn<false>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, B, N,
+                      D, E, H, P, k, stream);
+}
+
+// o4d_sattn in the bf16 compute mode (the same arguments; the weight
+// kernels rounded to bf16 by the caller or not, the kernel rounds every
+// product's operands): _fwd_kernel at compute_dtype=bfloat16.
+extern "C" int o4d_sattn_bf16(const void* q, const void* gf, const void* rel, const void* wk,
+                              const void* wv, const void* wp1, const void* bp1,
+                              const void* wp2, const void* bp2, const void* wa1,
+                              const void* ba1, const void* wa2, const void* ba2, void* out,
+                              int B, int N, int D, int E, int H, int P, int k, void* stream) {
+  return sattn<true>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, B, N, D,
+                     E, H, P, k, stream);
 }

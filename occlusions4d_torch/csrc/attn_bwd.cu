@@ -16,7 +16,9 @@
 //                  gradients go to dgf (B, N, k, E);
 //   o4d_attn_bwd_bf16, o4d_attn_g_bwd_bf16: the first two in the bf16
 //                  compute mode (the train step's fused_decoder_dtype='bf16';
-//                  the TPU kernels with compute_dtype bf16), below.
+//                  the TPU kernels with compute_dtype bf16), below;
+//   o4d_sattn_bwd_bf16: the third in the bf16 compute mode (the encoder's
+//                  fused self-attention under mixed_precision).
 // The MODE template parameter picks only how a chunk's rows are found
 // (load_rows_kernel) and where their gradients go; BF16 the arithmetic.
 //
@@ -95,7 +97,13 @@
 // them again changes nothing). A ReLU mask may flip against a plain bf16
 // version where h1 or theta_h lies within an f32 rounding of zero
 // (the products' sums run in another order), so the kernels are held to a
-// bf16 tolerance, not the f32 mode's 5e-6.
+// bf16 tolerance, not the f32 mode's 5e-6. The self-attention in bf16
+// (run<kSelf, true>) reads rel and gf as given: rel is copied into the
+// chunk's buffer and rounded there (theta's first layer on the CUDA cores
+// reads it), gf is rounded as each GEMM stages it; its rows' gradients dgf
+// are rounded to bf16 after the last chunk (the custom VJP's cast to gf's
+// bf16, pallas_self_attention.py:317-368), d(q_proj) stays f32 (the
+// module's cast of its bf16 q projection rounds it).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -386,7 +394,6 @@ struct KvRows {
 
 template <int MODE, bool BF16>
 int run(BwdArgs& p, int B, cudaStream_t s) {
-  static_assert(!(BF16 && MODE == kSelf), "the self-attention has no bf16 mode yet");
   const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
   const bool premul = MODE == kIndex && p.premul;
   const int CW = premul ? 2 * D : E;
@@ -415,8 +422,14 @@ int run(BwdArgs& p, int B, cudaStream_t s) {
       const float* rel = c.rel;
       const float* F = c.f;
       if (MODE == kSelf) {
-        rel = p.rel + q0 * k * 3;
         F = p.gf + q0 * k * E;
+        if (BF16) {  // rel is an operand of theta's first layer and of dW1 only.
+          O4D_TRY(cudaMemcpyAsync(c.rel, p.rel + q0 * k * 3, sizeof(float) * (size_t)R * 3,
+                                  cudaMemcpyDeviceToDevice, s));
+          O4D_TRY(round_all(c.rel, (long long)R * 3, s));
+        } else {
+          rel = p.rel + q0 * k * 3;
+        }
       } else {
         const RowSrc src{p.qpos, p.ki, p.kpos, p.kv, p.gin, p.dg,
                          p.N, p.M, D, E, p.KS, p.KE, k, p.premul};
@@ -505,10 +518,11 @@ int run(BwdArgs& p, int B, cudaStream_t s) {
       }
     }
   }
-  if (BF16) {  // the finished sums: the weight kernels' gradients and d(kv).
+  if (BF16) {  // the finished sums: the weight kernels' gradients, d(kv), dgf.
     O4D_TRY(round_all(dA1, 2LL * D * H + (long long)P * D + 3LL * P, s));
     if (!premul) O4D_TRY(round_all(dWk, 2LL * E * D, s));
     if (MODE == kIndex) O4D_TRY(round_all(p.dkv, (long long)B * p.M * CW, s));
+    if (MODE == kSelf) O4D_TRY(round_all(p.dg, (long long)B * p.N * k * E, s));
   }
   return (int)cudaGetLastError();
 }
@@ -679,6 +693,27 @@ extern "C" int o4d_attn_g_bwd_bf16(const void* qpos, const void* qproj, const vo
                           ba2, go, dqproj, dw, dg, ws, B, N, D, E, H, P, KE, k, QC, stream);
 }
 
+namespace {
+
+template <bool BF16>
+int sattn_bwd(const void* q, const void* gf, const void* rel, const void* wk, const void* wv,
+              const void* wp1, const void* bp1, const void* wp2, const void* bp2,
+              const void* wa1, const void* ba1, const void* wa2, const void* ba2,
+              const void* go, void* dq, void* dw, void* dgf, void* ws, int B, int N, int D,
+              int E, int H, int P, int k, int QC, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (k < 1 || k > 32 || QC < 1) return (int)cudaErrorInvalidValue;
+  BwdArgs a = weights_args(wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dq, dw,
+                           ws, N, D, E, H, P, k, QC);
+  a.qproj = (const float*)q;
+  a.gf = (const float*)gf;
+  a.rel = (const float*)rel;
+  a.dg = (float*)dgf;
+  return run<kSelf, BF16>(a, B, (cudaStream_t)stream);
+}
+
+}  // namespace
+
 // The encoder's fused self-attention backward: inputs as o4d_sattn
 // (csrc/attn.cu) plus go (B, N, D) = d(out). Outputs: dq (B, N, D); dw, the
 // weight-gradient block (premul = 0 layout); dgf (B, N, k, E), every element
@@ -690,13 +725,21 @@ extern "C" int o4d_sattn_bwd(const void* q, const void* gf, const void* rel,
                              const void* ba2, const void* go, void* dq, void* dw,
                              void* dgf, void* ws, int B, int N, int D, int E, int H,
                              int P, int k, int QC, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > 32 || QC < 1) return (int)cudaErrorInvalidValue;
-  BwdArgs a = weights_args(wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dq, dw,
-                           ws, N, D, E, H, P, k, QC);
-  a.qproj = (const float*)q;
-  a.gf = (const float*)gf;
-  a.rel = (const float*)rel;
-  a.dg = (float*)dgf;
-  return run<kSelf, false>(a, B, (cudaStream_t)stream);
+  return sattn_bwd<false>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dq,
+                          dw, dgf, ws, B, N, D, E, H, P, k, QC, stream);
+}
+
+// o4d_sattn_bwd in the bf16 compute mode (the same arguments; the weight
+// kernels rounded to bf16 by the caller, since theta's first layer reads W1
+// as given): _bwd_kernel at compute_dtype=bfloat16. dgf and dw's weight
+// kernels hold bf16 values; dq and dw's biases f32.
+extern "C" int o4d_sattn_bwd_bf16(const void* q, const void* gf, const void* rel,
+                                  const void* wk, const void* wv, const void* wp1,
+                                  const void* bp1, const void* wp2, const void* bp2,
+                                  const void* wa1, const void* ba1, const void* wa2,
+                                  const void* ba2, const void* go, void* dq, void* dw,
+                                  void* dgf, void* ws, int B, int N, int D, int E, int H,
+                                  int P, int k, int QC, void* stream) {
+  return sattn_bwd<true>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, go, dq,
+                         dw, dgf, ws, B, N, D, E, H, P, k, QC, stream);
 }

@@ -5,6 +5,8 @@ and the sampler arguments. The constructor kwarg dicts are the ones
 checkpoints store.
 '''
 
+import torch
+
 from .encoder import PointEncoder
 from .implicit import LocalImplicitField
 
@@ -65,22 +67,28 @@ def build_decoder_args(cfg):
         cross_attn_layers=cfg.cross_attn_layers, cr_attn_type=cfg.cr_attn_type)
 
 
-def build_models(cfg=None, encoder_args=None, decoder_args=None, fused_attention=None):
+def build_models(cfg=None, encoder_args=None, decoder_args=None, fused_attention=None,
+                 dtype=None):
     '''
     :return (encoder, decoder, encoder_args, decoder_args): freshly initialized
         torch modules (load weights with checkpoint.from_jax_params) plus the
         constructor kwarg dicts.
 
     `fused_attention` ('auto'|'on'|'off', None = the encoder's default
-    'auto') selects the encoder's self-attention path (models/layers.py). As
-    in the JAX factory it is not merged into the returned encoder_args:
-    checkpoints stay path-agnostic.
+    'auto') selects the encoder's self-attention path (models/layers.py).
+    `dtype` is both modules' compute dtype; None follows the JAX factory
+    (occlusions4d_tpu/models/factory.py:88-89): bf16 iff cfg.mixed_precision
+    (f32 without a cfg). As in the JAX factory neither is merged into the
+    returned args: checkpoints stay path- and dtype-agnostic.
     '''
+    if dtype is None:
+        dtype = (torch.bfloat16 if cfg is not None and cfg.mixed_precision
+                 else torch.float32)
     encoder_args = dict(encoder_args or build_encoder_args(cfg))
     decoder_args = dict(decoder_args or build_decoder_args(cfg))
     extra = {} if fused_attention is None else dict(fused_attention=fused_attention)
-    return (PointEncoder(**encoder_args, **extra), LocalImplicitField(**decoder_args),
-            encoder_args, decoder_args)
+    return (PointEncoder(**encoder_args, **extra, dtype=dtype),
+            LocalImplicitField(**decoder_args, dtype=dtype), encoder_args, decoder_args)
 
 
 def build_sampler_args(cfg, data_kind):

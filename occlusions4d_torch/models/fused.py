@@ -51,6 +51,15 @@ rounds). What each product gets on CUDA:
     the setting, so the encoder's backward stays f32.
 On the CPU everything stays f32, as JAX's does there. The kNN extraction
 stays f32 in every mode.
+
+A decoder built in bf16 (TrainConfig.mixed_precision) is read here in f32,
+as the JAX fused_field_apply reads its parameter tree with plain f32 dots
+whatever the module's dtype: its Dense layers are applied with their f32
+weights (_linear), not through their bf16 forward. The bf16 encoder's
+outputs are promoted on entry: the abstract cloud's positions and features
+and the global embedding as f32 values of the bf16 ones (JAX's knn_extract
+casts the positions to f32; bf16 features meeting f32 kernels promote),
+their cotangents rounded to bf16 on the way back by the casts' backward.
 '''
 
 import contextlib
@@ -151,6 +160,8 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
     '''
     if not supports_fused(decoder):
         raise NotImplementedError('configuration not covered by the fused path')
+    pcl_abstract = pcl_abstract.to(torch.float32)
+    features_global = features_global.to(torch.float32)
     if not (compute_dtype == torch.bfloat16 and points_query.is_cuda):
         return _field_apply(decoder, points_query, pcl_abstract, features_global,
                             abstract_mask, compute_dtype)
@@ -163,6 +174,19 @@ def fused_field_apply(decoder, points_query, pcl_abstract, features_global,
     if torch.is_grad_enabled():
         out = _Tf32Begin.apply(scope, *out)
     return out
+
+
+def _linear(m, x):
+    '''A Dense layer of the decoder applied in f32, whatever its dtype.'''
+    return F.linear(x, m.weight, m.bias)
+
+
+def _resnet_block(blk, x):
+    '''ResnetBlockFC.forward with _linear.'''
+    net = _linear(blk.fc_0, blk.act(x))
+    dx = _linear(blk.fc_1, blk.act(net))
+    xs = x if blk.shortcut is None else _linear(blk.shortcut, x)
+    return xs + dx
 
 
 def _field_apply(decoder, points_query, pcl_abstract, features_global, abstract_mask,
@@ -198,18 +222,18 @@ def _field_apply(decoder, points_query, pcl_abstract, features_global, abstract_
     enc = points_query
     if decoder.pos_encoding_freqs > 0:
         enc = positional_encode(enc, BASE_FREQUENCY, decoder.pos_encoding_freqs)
-    x = decoder.lin_in(enc)
+    x = _linear(decoder.lin_in, enc)
     use_pt = decoder.use_pt_inds
     for i in range(decoder.n_blocks):
-        x = x + decoder.lin_z[i](features_query)
-        x = decoder.blocks[i](x)
+        x = x + _linear(decoder.lin_z[i], features_query)
+        x = _resnet_block(decoder.blocks[i], x)
         if i in use_pt:
             blk = decoder.pt_blocks[use_pt[i]]
             att = blk.layer2
-            q_proj = F.linear(blk.layer1(x), att.to_q.weight)
+            q_proj = _linear(att.to_q, _linear(blk.layer1, x))
             y = fused_knn_vector_attention(
                 q_proj, q_xyz, feats_abs, pts_abs, att.kernel_params(),
                 decoder.cross_attn_neighbors, key_mask=abstract_mask, knn=knn,
                 gathered=gathered, compute_dtype=compute_dtype)
-            x = x + blk.layer3(y)
-    return decoder.lin_out(act(x)), x
+            x = x + _linear(blk.layer3, y)
+    return _linear(decoder.lin_out, act(x)), x

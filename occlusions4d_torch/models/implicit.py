@@ -7,6 +7,12 @@ decoder kernels; the engine uses that path.
 
 LocalImplicitField subclasses ResnetFC so the backbone's layers sit at the top
 level (lin_in, blocks.i, lin_z.i, lin_out), the reference's key layout.
+
+dtype (JAX's, bf16 under mixed_precision; models/layers.py says what a bf16
+module rounds): the module path computes in it, the points and the
+features cast to it on entry, the interpolation weights from the distances
+cast to it. models/fused.py reads the same weights in f32 whatever the
+dtype, as the JAX fused_field_apply does.
 '''
 
 import math
@@ -15,7 +21,7 @@ import torch
 from torch import nn
 
 from ..ops import gather_neighbors, inverse_distance_weights, knn
-from .layers import PointTransformerBlock
+from .layers import Dense, PointTransformerBlock
 
 __all__ = ['BASE_FREQUENCY', 'positional_encode', 'activation', 'ResnetBlockFC',
            'ResnetFC', 'LocalImplicitField']
@@ -23,11 +29,19 @@ __all__ = ['BASE_FREQUENCY', 'positional_encode', 'activation', 'ResnetBlockFC',
 BASE_FREQUENCY = 0.1
 
 
+def dtype_scalar(x, dtype):
+    '''The Python scalar x as JAX uses it against an array of dtype: rounded
+    to that dtype (a weak-typed scalar takes the array's type; PyTorch would
+    compute a bf16 tensor's product with x in f32).'''
+    return x if dtype == torch.float32 else float(torch.tensor(x, dtype=dtype))
+
+
 def positional_encode(points, base_frequency, num_powers):
-    '''cat([p, sin(p w_0), cos(p w_0), ...]) with w_f = base 2^f 2 pi.'''
+    '''cat([p, sin(p w_0), cos(p w_0), ...]) with w_f = base 2^f 2 pi, in
+    the points' dtype.'''
     terms = [points]
     for p in range(num_powers):
-        omega = base_frequency * (2.0 ** p) * 2.0 * math.pi
+        omega = dtype_scalar(base_frequency * (2.0 ** p) * 2.0 * math.pi, points.dtype)
         terms.append(torch.sin(points * omega))
         terms.append(torch.cos(points * omega))
     return torch.cat(terms, dim=-1)
@@ -44,12 +58,14 @@ def activation(name):
 class ResnetBlockFC(nn.Module):
     '''act -> fc_0 -> act -> fc_1, residual (linear shortcut when widths differ).'''
 
-    def __init__(self, d_in=64, d_hidden=256, d_out=64, activation_name='relu'):
+    def __init__(self, d_in=64, d_hidden=256, d_out=64, activation_name='relu',
+                 dtype=torch.float32):
         super().__init__()
         self.act = activation(activation_name)
-        self.fc_0 = nn.Linear(d_in, d_hidden)
-        self.fc_1 = nn.Linear(d_hidden, d_out)
-        self.shortcut = None if d_in == d_out else nn.Linear(d_in, d_out, bias=False)
+        self.fc_0 = Dense(d_in, d_hidden, dtype=dtype)
+        self.fc_1 = Dense(d_hidden, d_out, dtype=dtype)
+        self.shortcut = (None if d_in == d_out
+                         else Dense(d_in, d_out, bias=False, dtype=dtype))
 
     def forward(self, x):
         net = self.fc_0(self.act(x))
@@ -62,25 +78,27 @@ class ResnetFC(nn.Module):
     '''MLP backbone with per-block latent injection.'''
 
     def __init__(self, d_in=4, d_hidden=256, d_out=64, d_latent=256, n_blocks=5,
-                 pos_encoding_freqs=0, activation='relu'):
+                 pos_encoding_freqs=0, activation='relu', dtype=torch.float32):
         super().__init__()
         self.d_in = d_in
         self.d_latent = d_latent
         self.n_blocks = n_blocks
         self.pos_encoding_freqs = pos_encoding_freqs
         self.activation = activation
+        self.dtype = dtype
         enc_width = d_in * (2 * pos_encoding_freqs + 1)
         if d_in > 0:
-            self.lin_in = nn.Linear(enc_width, d_hidden)
-        self.lin_out = nn.Linear(d_hidden, d_out)
+            self.lin_in = Dense(enc_width, d_hidden, dtype=dtype)
+        self.lin_out = Dense(d_hidden, d_out, dtype=dtype)
         self.blocks = nn.ModuleList([ResnetBlockFC(d_hidden, d_hidden, d_hidden,
-                                                   activation)
+                                                   activation, dtype)
                                      for _ in range(n_blocks)])
         if d_latent > 0:
-            self.lin_z = nn.ModuleList([nn.Linear(d_latent, d_hidden)
+            self.lin_z = nn.ModuleList([Dense(d_latent, d_hidden, dtype=dtype)
                                         for _ in range(n_blocks)])
 
     def encode_points(self, points):
+        points = points.to(self.dtype)
         if self.pos_encoding_freqs > 0:
             points = positional_encode(points, BASE_FREQUENCY, self.pos_encoding_freqs)
         return self.lin_in(points)
@@ -90,6 +108,7 @@ class ResnetFC(nn.Module):
         :return (output (B, N, d_out), penult (B, N, d_hidden)).'''
         act = activation(self.activation)
         x = self.encode_points(points)
+        features = features.to(self.dtype)
         for i in range(self.n_blocks):
             if self.d_latent > 0:
                 z = self.lin_z[i](features)
@@ -104,9 +123,9 @@ class LocalImplicitField(ResnetFC):
     def __init__(self, d_in=4, d_hidden=256, d_out=64, d_latent=256, n_blocks=5,
                  pos_encoding_freqs=0, activation='relu', num_local_features=0,
                  local_mode='attention', d_latent_local=64, cross_attn_neighbors=12,
-                 cross_attn_layers=1, cr_attn_type='cccccccccc'):
+                 cross_attn_layers=1, cr_attn_type='cccccccccc', dtype=torch.float32):
         super().__init__(d_in, d_hidden, d_out, d_latent, n_blocks,
-                         pos_encoding_freqs, activation)
+                         pos_encoding_freqs, activation, dtype)
         self.num_local_features = num_local_features
         self.local_mode = local_mode
         self.d_latent_local = d_latent_local
@@ -123,7 +142,7 @@ class LocalImplicitField(ResnetFC):
                     raise ValueError(kind)
                 blocks.append(PointTransformerBlock(
                     d_hidden, d_latent, d_latent, cross_attn_neighbors,
-                    d_hidden_abstract=d_latent_local))
+                    d_hidden_abstract=d_latent_local, dtype=dtype))
             self.pt_blocks = nn.ModuleList(blocks)
 
     @property
@@ -146,12 +165,15 @@ class LocalImplicitField(ResnetFC):
         features_abstract = pcl_abstract[..., 3:]
         B, N, _ = points_query.shape
         q_xyz = points_query[..., :3]
-        dists, idx = knn(q_xyz, points_abstract, self.num_local_features,
-                         key_mask=abstract_mask)
-        w = inverse_distance_weights(dists, 1e-4)
+        dt = self.dtype
+        # The kNN graph and its distances carry no gradient (JAX's
+        # stop_gradient of both point sets).
+        dists, idx = knn(q_xyz.detach(), points_abstract.detach(),
+                         self.num_local_features, key_mask=abstract_mask)
+        w = inverse_distance_weights(dists.to(dt), dtype_scalar(1e-4, dt))
         sel = gather_neighbors(features_abstract, idx)
-        features_local = torch.einsum('bnk,bnke->bne', w, sel)
-        fg = features_global[:, None, :].expand(B, N, features_global.shape[-1])
+        features_local = torch.einsum('bnk,bnke->bne', w, sel.to(dt))
+        fg = features_global[:, None, :].to(dt).expand(B, N, features_global.shape[-1])
         features_query = torch.cat([fg, features_local], dim=-1)
         if self.local_mode == 'feature':
             return super().forward(points_query, features_query)
@@ -163,7 +185,7 @@ class LocalImplicitField(ResnetFC):
             x = x + self.lin_z[i](features_query)
             x = self.blocks[i](x)
             if i in use_pt:
-                x, _ = self.pt_blocks[use_pt[i]](x, q_xyz, x2=features_abstract,
+                x, _ = self.pt_blocks[use_pt[i]](x, q_xyz, x2=features_abstract.to(dt),
                                                  p2=points_abstract,
                                                  key_mask=abstract_mask)
         return self.lin_out(act(x)), x

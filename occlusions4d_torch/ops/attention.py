@@ -362,14 +362,19 @@ def gather_rows(values, idx):
     rows[b, n, j] = values[b, idx[b, n, j]] (n-major, as gather_neighbors),
     through the same gather kernel, differentiable in values through the
     scatter kernel: the (N, K) index grid is one column of N K rows.
-    :param values (B, M, C); idx (B, N, K) int. :return (B, N, K, C) f32.
+    bf16 values (the encoder under mixed_precision) take the bf16 gather
+    (their values exact in the f32 rows) and its VJP the bf16 scatter: each
+    row's cotangent rounded to bf16, the f32 sum rounded once, where the
+    JAX transpose of take_along_axis sums in bf16 in its own order.
+    :param values (B, M, C) f32 or bf16; idx (B, N, K) int.
+    :return (B, N, K, C) f32.
     '''
     B, N, K = idx.shape
     ki = idx.reshape(B, N * K, 1)
     if ki.is_cuda:
         ki = ki.to(torch.int32)
-    g = _GatherRows.apply(values.to(torch.float32).contiguous(), ki.contiguous(), 1,
-                          torch.float32)
+    cd = torch.bfloat16 if values.dtype == torch.bfloat16 else torch.float32
+    g = _GatherRows.apply(values.to(torch.float32).contiguous(), ki.contiguous(), 1, cd)
     return g.reshape(B, N, K, values.shape[-1])
 
 

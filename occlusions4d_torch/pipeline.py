@@ -6,9 +6,12 @@ video, then per predicted frame: guided query sampling -> field evaluation
 The sampled queries and targets are data, not functions of the weights: they
 are detached before the decoder, as the JAX pipeline stop-gradients them.
 The decoder runs fused_field_apply (kernels on CUDA, plain versions on the
-CPU) when the configuration is covered, else the module path, in the compute
-dtype of fused_decoder_dtype (resolve_decoder_dtype). Randomness (FPS
-starts, other-frame choice, sampling) comes from one torch.Generator.
+CPU) when the configuration is covered, in the compute dtype of
+fused_decoder_dtype (resolve_decoder_dtype), else the module path in the
+decoder's own dtype (bf16 under mixed_precision, as the JAX pipeline's
+module path). Either way the frame's output reaches the squash and the
+losses in f32. Randomness (FPS starts, other-frame choice, sampling) comes
+from one torch.Generator.
 '''
 
 import dataclasses
@@ -81,7 +84,7 @@ class TrainPipeline:
     state). Construct once; call loss() inside the train step.
     fused_decoder_dtype ('auto' | 'bf16' | 'f32'): the fused decoder's
     compute dtype (resolve_decoder_dtype); the module path, taken when the
-    configuration is not covered, stays f32.'''
+    configuration is not covered, computes in the decoder's dtype.'''
 
     def __init__(self, encoder, decoder, sampler_cfg: SamplerConfig,
                  cfg: PipelineConfig, fused_decoder_dtype='auto'):
@@ -97,7 +100,7 @@ class TrainPipeline:
             return fused_field_apply(self.decoder, points_query, abstract,
                                      features_global,
                                      compute_dtype=self.decoder_dtype)[0]
-        return self.decoder(points_query, abstract, features_global)[0]
+        return self.decoder(points_query, abstract, features_global)[0].to(torch.float32)
 
     def sample_frames(self, batch, generator):
         '''The guided queries and targets of every frame, as data (detached).

@@ -10,11 +10,9 @@ as the JAX package's `optax.chain(clip_by_global_norm, masked(adamw))` does:
     unless n < clip (no epsilon, unlike torch.nn.utils.clip_grad_norm_);
   * mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu;  c <- c + 1;
     u = (mu / (1 - b1^c)) / (sqrt(nu / (1 - b2^c)) + eps) + wd p;
-    p <- p + (-lr(c - 1)) u, with b1 0.9, b2 0.999, eps 1e-8, wd 1e-2 on
-    every parameter (batch-norm statistics are buffers, not parameters);
-    eps 1e-8 only: a config with mixed_precision (the JAX package's bf16
-    modules, with eps 1e-4) raises NotImplementedError in Trainer and
-    build_optimizer;
+    p <- p + (-lr(c - 1)) u, with b1 0.9, b2 0.999, wd 1e-2 on every
+    parameter (batch-norm statistics are buffers, not parameters), eps 1e-8,
+    or 1e-4 under mixed_precision (JAX train.py:70);
   * lr(count) = learn_rate x lr_decay for every boundary <= count, the
     boundaries at 2/5, 3/5 and 4/5 of num_epochs x steps_per_epoch.
 A step with a non-finite gradient leaves the parameters, the moments and the
@@ -25,8 +23,12 @@ The caller reads params_finite once per step (Trainer.step).
 The fused decoder computes in cfg.fused_decoder_dtype (pipeline.py:
 'auto' is f32 here; 'bf16' runs the decoder's kernels in their bf16 mode,
 forward and backward, and its plain products in TF32, models/fused.py).
-Entry points run on CUDA unless asked for the CPU; TF32 stays off outside
-that decoder.
+cfg.mixed_precision builds both networks in bf16 (models/layers.py: bf16
+linear layers over f32 parameters; the encoder's fused self-attention in
+its bf16 mode with fused_attention='on'), as the JAX Trainer does
+(train.py:254), with AdamW's eps 1e-4; the fused decoder then reads the
+bf16 encoder's outputs in its own compute dtype. Entry points run on CUDA
+unless asked for the CPU; TF32 stays off outside that decoder.
 '''
 
 import numpy as np
@@ -42,15 +44,16 @@ __all__ = ['AdamW', 'build_optimizer', 'make_train_step', 'Trainer']
 
 
 class AdamW:
-    '''optax.chain(clip_by_global_norm(clip), adamw(schedule, B1, B2, EPS,
+    '''optax.chain(clip_by_global_norm(clip), adamw(schedule, B1, B2, eps,
     WEIGHT_DECAY)) over a list of parameters, updated in place.'''
-    B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-2
+    B1, B2, WEIGHT_DECAY = 0.9, 0.999, 1e-2
 
-    def __init__(self, params, learn_rate, boundaries, clip):
+    def __init__(self, params, learn_rate, boundaries, clip, eps=1e-8):
         self.params = list(params)
         self.learn_rate = learn_rate
         self.boundaries = sorted(boundaries.items())   # [(step, scale)].
         self.clip = clip
+        self.eps = eps
         dev = self.params[0].device
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -79,7 +82,7 @@ class AdamW:
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu_new = (1.0 - self.B1) * g + self.B1 * mu
             nu_new = (1.0 - self.B2) * (g * g) + self.B2 * nu
-            u = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.EPS)
+            u = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
             u = u + self.WEIGHT_DECAY * p
             p.copy_(torch.where(apply, p + step * u, p))
             mu.copy_(torch.where(apply, mu_new, mu))
@@ -87,24 +90,15 @@ class AdamW:
         self.count.copy_(torch.where(apply, count_inc, self.count))
 
 
-def _refuse_mixed_precision(cfg):
-    if cfg.mixed_precision:
-        raise NotImplementedError(
-            'mixed_precision=True (bf16 modules and AdamW eps 1e-4 in the JAX package, '
-            'with the bf16 mode of the fused self-attention kernels) is not ported yet: '
-            'it is the next slice of the port (ROADMAP.md, Queue 2 item 3). '
-            "fused_decoder_dtype='bf16' trains the decoder's kernels in bf16.")
-
-
 def build_optimizer(cfg, steps_per_epoch, params):
     '''AdamW + multistep schedule + global-norm clip of a training config
-    (f32: eps 1e-8; raises NotImplementedError for mixed_precision).
+    (eps 1e-4 under mixed_precision, else 1e-8, as the JAX build_optimizer).
     :param params: the parameters to train.'''
-    _refuse_mixed_precision(cfg)
     milestones = [(cfg.num_epochs * 2) // 5, (cfg.num_epochs * 3) // 5,
                   (cfg.num_epochs * 4) // 5]
     boundaries = {m * steps_per_epoch: cfg.lr_decay for m in milestones if m > 0}
-    return AdamW(params, cfg.learn_rate, boundaries, cfg.gradient_clip)
+    return AdamW(params, cfg.learn_rate, boundaries, cfg.gradient_clip,
+                 eps=1e-4 if cfg.mixed_precision else 1e-8)
 
 
 def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
@@ -160,19 +154,23 @@ class Trainer:
     self-attention path, forwarded to build_models as the JAX Trainer
     forwards it; 'on' trains through the fused self-attention kernels.
     cfg.fused_decoder_dtype is the fused decoder's compute dtype
-    (TrainPipeline).'''
+    (TrainPipeline); cfg.mixed_precision builds the networks in bf16
+    (self.dtype) and sets AdamW's eps to 1e-4.'''
 
     def __init__(self, cfg, data_kind='greater', device='cuda', fused_attention=None):
-        _refuse_mixed_precision(cfg)
         resolve_decoder_dtype(cfg.fused_decoder_dtype)
         self.cfg = cfg
         self.data_kind = data_kind
         self.device = resolve_device(device)
         self.fused_attention = fused_attention
+        self.dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bf16 products sum in f32 (cuBLAS may otherwise reduce in bf16).
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         (self.encoder, self.decoder, self.encoder_args,
-         self.decoder_args) = build_models(cfg, fused_attention=fused_attention)
+         self.decoder_args) = build_models(cfg, fused_attention=fused_attention,
+                                           dtype=self.dtype)
         self.sampler_args = build_sampler_args(cfg, data_kind)
         self.pipeline_cfg = PipelineConfig(
             color_mode=cfg.color_mode, semantic_classes=cfg.semantic_classes,
@@ -195,7 +193,7 @@ class Trainer:
             torch.manual_seed(seed)
             (self.encoder, self.decoder, _, _) = build_models(
                 encoder_args=self.encoder_args, decoder_args=self.decoder_args,
-                fused_attention=self.fused_attention)
+                fused_attention=self.fused_attention, dtype=self.dtype)
         else:
             self.encoder.load_state_dict(from_jax_params(params['encoder'], self.encoder),
                                          strict=True)

@@ -19,6 +19,8 @@ autograd).
 The backward kernels are also checked to give the same bits twice. The
 encoder's fused self-attention kernels (sattn, sattn_bwd) take the attention
 tolerances, and the FPS cluster entry is exact like the one-block kernel.
+Their bf16 mode (sattn_bf16, sattn_bwd_bf16) takes chip_smoke.py's bf16
+gates against the plain bf16 versions, which the f32 kernels fail.
 '''
 
 import importlib
@@ -1252,3 +1254,87 @@ def test_bf16_decoder_backward_launches_bf16_kernels_and_matches_cpu(dev):
         assert {k: counts[k] for k in want} == want
         assert _rel_l2(got.cpu(), ref) <= 1e-2, _rel_l2(got.cpu(), ref)
         assert torch.get_float32_matmul_precision() == before
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.parametrize('K', [8, 16, 32])
+@pytest.mark.parametrize('D', [36, 288])
+def test_bf16_sattn_kernels_match_plain(dev, K, D):
+    '''o4d_sattn_bf16 and o4d_sattn_bwd_bf16 (mixed_precision) against
+    their plain bf16 versions at odd N, B 2: the forward within relative L2
+    2e-4, each gradient within 5e-3 (the logits' bias, zero in truth, atol
+    1e-4 x max(1, max|plain|)), as chip_smoke.py holds them; the backward
+    twice with the same bits, dgf and the weight kernels' gradients bf16
+    values; the f32 kernels fail the same gates.'''
+    BF = torch.bfloat16
+    rng = np.random.RandomState(80 + K + D)
+    B, N = 2, 203
+    q, gf, rel, params = _sattn_case(rng, dev, B, N, K, D)
+    gf = t_attn.round_bf16(gf)
+    go = _t(rng.randn(B, N, D).astype(np.float32), dev)
+    _build = importlib.import_module('occlusions4d_torch.ops._build')
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        out = t_sattn.fused_gathered_attention(q, gf, rel, params, K, compute_dtype=BF)
+        ref = t_sattn.sattn_plain(q, gf, rel, params, BF)
+        out32 = t_sattn.fused_gathered_attention(q, gf, rel, params, K)
+    assert _rel(out, ref) <= 2e-4 < _rel(out32, ref)
+    dq, dgf, dw = t_sattn.sattn_bwd(q, gf, rel, params, K, go, BF)
+    dq2, dgf2, dw2 = t_sattn.sattn_bwd(q, gf, rel, params, K, go, BF)
+    counts = _build.launch_counts()
+    assert (counts['sattn_bf16'], counts['sattn_bwd_bf16'], counts['sattn']) == (1, 2, 1)
+    rq, rgf, rw = t_sattn.sattn_bwd_plain(q, gf, rel, params, go, BF)
+    fq, fgf, fw = t_sattn.sattn_bwd(q, gf, rel, params, K, go)
+    torch.cuda.synchronize()
+    worst_f32 = max(_rel(fq, rq), _rel(fgf, rgf))
+    for a, b in ((dq, rq), (dgf, rgf)):
+        assert _rel(a, b) <= 5e-3
+    for name in rw:
+        if name == ('attn_mlp_2', 'bias'):
+            assert float((dw[name] - rw[name]).abs().max()) <= 1e-4 * max(
+                1.0, float(rw[name].abs().max()))
+            continue
+        assert _rel(dw[name], rw[name]) <= 5e-3, name
+        worst_f32 = max(worst_f32, _rel(fw[name], rw[name]))
+        if name[1] == 'kernel':
+            assert torch.equal(dw[name], t_attn.round_bf16(dw[name])), name
+        assert torch.equal(dw[name], dw2[name]), name
+    assert worst_f32 > 5e-3
+    assert torch.equal(dgf, t_attn.round_bf16(dgf))
+    assert torch.equal(dq, dq2) and torch.equal(dgf, dgf2)
+
+
+def test_bf16_self_attention_module_launches_bf16_kernels(dev):
+    '''A bf16 VectorAttention(fused='on') on the card launches the bf16
+    gather, sattn_bf16 and, in the backward, sattn_bwd_bf16 and the bf16
+    scatter once each (no f32 self-attention kernel), and agrees with the
+    same module on the CPU (plain bf16 versions): the output within relative
+    L2 1e-2, each gradient within 3e-2 (bf16 products summed in another
+    order on each side, the JAX package's own bf16 gate).'''
+    from occlusions4d_torch.models import VectorAttention
+    from occlusions4d_torch.ops import _build
+    torch.manual_seed(5)
+    rng = np.random.RandomState(6)
+    att = VectorAttention(24, num_neighbors=16, fused='on', dtype=torch.bfloat16)
+    x = rng.randn(2, 301, 24).astype(np.float32)
+    pos = rng.rand(2, 301, 3).astype(np.float32)
+    res = {}
+    for where in ('cuda', 'cpu'):
+        m = att.to(where)
+        xx = torch.tensor(x, device=where).requires_grad_(True)
+        _build.reset_launch_counts()
+        y = m(xx, torch.tensor(pos, device=where))
+        grads = torch.autograd.grad((y.float().sin() * 3).sum(), [xx] + list(m.parameters()))
+        res[where] = (y.detach().float().cpu(), [g.float().cpu() for g in grads],
+                      _build.launch_counts())
+    want = dict(gather_bf16=1, scatter_bf16=1, sattn_bf16=1, sattn_bwd_bf16=1, gather=0,
+                scatter=0, sattn=0, sattn_bwd=0)
+    assert {k: res['cuda'][2][k] for k in want} == want
+    assert _rel(res['cuda'][0], res['cpu'][0]) <= 1e-2
+    names = ['x'] + [n for n, _ in att.named_parameters()]
+    for n, a, b in zip(names, res['cuda'][1], res['cpu'][1]):
+        if n != 'attn_mlp.2.bias':   # zero in truth: rounding noise on both sides.
+            assert _rel(a, b) <= 3e-2, n

@@ -519,7 +519,8 @@ def test_trainer_steps_in_bf16_on_the_cpu(monkeypatch, route):
     dtype to its pipeline and steps through the plain bf16 backward
     functions, on both decoder routes (the shared one with the threshold
     lowered); 'auto' steps in f32 through the f32 ones; mixed_precision
-    still raises and names the next slice.'''
+    now builds (bf16 networks, AdamW eps 1e-4: tests/
+    test_torch_mixed_precision.py steps them).'''
     from test_torch_train import _tiny_batch
     if route == 'shared_gather':
         monkeypatch.setattr(t_fused, 'SHARED_GATHER_MIN_M', 1)
@@ -544,7 +545,7 @@ def test_trainer_steps_in_bf16_on_the_cpu(monkeypatch, route):
         assert any(not torch.equal(p, q) for p, q in zip(tr.optimizer.params, before))
         # Two frames, two attention layers, two steps.
         assert calls == [want] * 8
-    with pytest.raises(NotImplementedError, match='next slice'):
-        Trainer(_trainer_cfg(mixed_precision=True), device='cpu')
+    tr = Trainer(_trainer_cfg(mixed_precision=True), device='cpu').init_state(seed=0)
+    assert tr.dtype == BF and tr.optimizer.eps == 1e-4
     with pytest.raises(ValueError):
         Trainer(_trainer_cfg(fused_decoder_dtype='fp16'), device='cpu')

@@ -646,15 +646,18 @@ def test_batch_norm_train_mode_raises():
 
 def test_mixed_precision_is_carried_and_refused_for_training():
     '''The JAX config's mixed_precision survives config_from_dict (same
-    default as JAX), and training with it raises NotImplementedError naming
-    the bf16 mode instead of training in f32 without a word.'''
+    default as JAX), and training with it builds what the JAX Trainer
+    builds (it was refused before the port had its bf16 modules): bf16
+    networks over f32 parameters, AdamW eps 1e-4 from build_optimizer, as
+    JAX's optax chain (1e-8 without the flag).'''
     from occlusions4d_torch.config import config_from_dict
     assert TrainConfig().mixed_precision is JTrainConfig().mixed_precision is False
     cfg = config_from_dict(TrainConfig, dict(mixed_precision=True, n_points=256,
                                              not_a_field=1))
     assert cfg.mixed_precision is True and cfg.n_points == 256
-    with pytest.raises(NotImplementedError, match='bf16'):
-        Trainer(cfg, 'greater', device='cpu')
-    with pytest.raises(NotImplementedError, match='bf16'):
-        build_optimizer(cfg, 10, [torch.zeros(3, requires_grad=True)])
-    assert isinstance(build_optimizer(TrainConfig(), 10, [torch.zeros(3)]), AdamW)
+    tr = Trainer(cfg, 'greater', device='cpu')
+    assert tr.dtype == torch.bfloat16 and tr.encoder.dtype == tr.decoder.dtype == tr.dtype
+    assert all(p.dtype == torch.float32 for p in tr.encoder.parameters())
+    assert build_optimizer(cfg, 10, [torch.zeros(3, requires_grad=True)]).eps == 1e-4
+    opt = build_optimizer(TrainConfig(), 10, [torch.zeros(3)])
+    assert isinstance(opt, AdamW) and opt.eps == 1e-8

@@ -16,8 +16,9 @@ each printing one JSON line:
      (CUDA events); each attention forward line (attn premul and per-row
      at one gv1 decode chunk, premul also at the gv1 train frame, attn_g)
      with its TFLOP/s, its shares of the bf16 and 3xTF32 tensor-core
-     bounds, its own peak memory and whether it beats its plain version,
-     run twice for the same bits; the pruned kNN (preparation included,
+     bounds, its own peak memory, whether it beats its plain version and
+     the parent's time from PERF.md (_PARENT_MS), run twice for the same
+     bits; the pruned kNN (preparation included,
      exact against the plain version and the brute kernel, with the
      preparation's time, the brute kernel's, the share of (query tile, key
      block) pairs processed) at the gv1 level-0 self search (14336^2, K 16),
@@ -44,7 +45,10 @@ each printing one JSON line:
      (scatter, interp_g_bwd, attn_g_bwd) run at one cv1 train frame (3
      examples x 17203 queries against 2124-point abstract clouds; the plain
      attention backward one example at a time), each twice for the same
-     bits, scatter_add_ timed beside the scatter, and the decoder route's
+     bits (interp_g_bwd bit for bit against its plain version, with the
+     card's write ceiling for its buffer, dg.zero_() and o4d_fill16,
+     and the library call with and without its set-up timed beside it),
+     scatter_add_ timed beside the scatter, and the decoder route's
      scatter + interp_bwd of the interpolation's cotangent against its plain
      version; the FPS cluster entry at the n57344 encoder's first level
      (57344 -> 19115, four cases, indices equal to the plain loop's); the
@@ -177,6 +181,7 @@ or without the package beside this file, it exits non-zero and prints no
 result. Imports nothing of JAX.
 '''
 
+import ctypes
 import json
 import math
 import os
@@ -251,6 +256,14 @@ _MIXED_STEP = {'on': dict(sattn_bf16=4, sattn_bwd_bf16=4, gather_bf16=4, scatter
 # scatter, 4 each).
 _MIXED_57K_STEP = dict(_MIXED_STEP['on'], gather=4, scatter=4)
 _GRAD_CHECK_Q = 1024
+# The times PERF.md's kernel tables record for the attention forward lines
+# (whose tile the self-attention now shares), the self-attention sums and
+# interp_g_bwd before the tile took the encoder's widths (NVIDIA H100 80GB
+# HBM3, 700.00 W); each such line prints its time beside it.
+_PARENT_MS = {'attn': 19.302, 'attn_per_row': 23.479, 'attn_bf16': 6.514,
+              'attn_bf16_per_row': 8.231, 'attn_g': 24.031, 'attn_g_bf16': 8.335,
+              'attn_train_frame': 30.195, 'interp_g_bwd': 0.747, 'sattn': 9.80,
+              'sattn_bf16': 10.84}
 _CHECK_CHUNK = 4096
 _REPLACES = {
     'knn_brute': 'occlusions4d_tpu/ops/pallas_knn.py:88; '
@@ -651,7 +664,7 @@ def attn_fwd_line(torch, name, call, plain, macs, nbytes, shape, reps=3, bf16=Fa
                **attn_rates(2.0 * macs, ms, b_ms))
     emit(dict(phase='kernel', name=name, agree=ok, max_rel_err=rel, rel_l2_err=l2,
               tolerance=_BF16_TOL if bf16 else 'atol 1e-4, rtol 1e-3', flop=2.0 * macs,
-              **row, **extra))
+              parent_ms_perf_md=_PARENT_MS.get(name), **row, **extra))
     if not ok or repro != 0.0:
         raise AssertionError(f'{name} disagrees (max abs err {err}) or is not '
                              f'reproducible ({repro})')
@@ -1291,6 +1304,43 @@ def segments(torch, offsets, chunk=64):
     return int(seg.max()), (f - 1) // chunk - s // chunk + 1
 
 
+def interp_g_bwd_write_times(torch, t_attn, kd, go, k, E, buf, reps):
+    """The gathered interpolation backward's library call and the card's
+    write ceiling for its buffer `buf` (dg's shape, (B, k_ext, N, E + 3)),
+    each by cuda_ms over `reps` calls: torch.mul of the normalised weights
+    and go into the zeroed buffer's row slice, buffer and weights made
+    outside the timing (library_ms) and inside it (library_whole_ms);
+    buf.zero_() and o4d_fill16, a bare 16-byte store pass, with and without
+    evict-first stores (fill16_wrote_values: a fill of 1.5 read back)."""
+    dev = buf.device
+    buf.zero_()
+    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :k], min=0.0)) + 1e-4)
+    wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2)[..., None]
+    lib_ms = cuda_ms(torch, lambda: torch.mul(wn, go[:, None], out=buf[:, :k, :, :E]), reps)
+
+    def whole_library():
+        out = torch.zeros(buf.shape, device=dev)
+        wl = 1.0 / (torch.sqrt(torch.clamp(kd[..., :k], min=0.0)) + 1e-4)
+        wln = (wl / wl.sum(-1, keepdim=True)).transpose(1, 2)[..., None]
+        return torch.mul(wln, go[:, None], out=out[:, :k, :, :E])
+    lib_whole_ms = cuda_ms(torch, whole_library, reps)
+    fill = t_attn._build.library('interp').o4d_fill16
+    fill.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                     ctypes.c_void_p]
+    fill.restype = ctypes.c_int
+
+    def fill16(evict_first, v=0.0):
+        t_attn._build.check(fill(buf.data_ptr(), buf.numel(), v, evict_first,
+                                 t_attn._build.stream_ptr(dev)), 'o4d_fill16')
+    fill16(1, 1.5)
+    torch.cuda.synchronize()
+    return dict(library_ms=lib_ms, library_whole_ms=lib_whole_ms,
+                fill16_wrote_values=bool((buf == 1.5).all()),
+                zero_ms=cuda_ms(torch, buf.zero_, reps),
+                fill16_ms=cuda_ms(torch, lambda: fill16(0), reps),
+                fill16_evict_first_ms=cuda_ms(torch, lambda: fill16(1), reps))
+
+
 def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, rows):
     """scatter, interp_g_bwd, the decoder route's scatter + interp_bwd and
     attn_g_bwd at one cv1 train frame (3 examples of 17203 queries, each against its
@@ -1370,36 +1420,55 @@ def check_shared_gather_backward_kernels(torch, t_attn, dev, rng, params, E, row
         b_ms, b_by, shape)
     del d1, d2, ref, dg, dg_rows, idx, src, out_b
 
-    # The gathered interpolation's backward: a write pass over dg.
+    # The gathered interpolation's backward: a write pass over dg, held bit
+    # for bit against its plain version (the same arithmetic in the same
+    # order), zeros included; beside it the card's write ceiling for a
+    # buffer of dg's size (dg.zero_() and o4d_fill16, a bare 16-byte store
+    # loop, with and without evict-first stores) and the library call twice:
+    # torch.mul into the zeroed buffer's row slice with the buffer and the
+    # weights made outside the timing (the line PERF.md has carried since
+    # the kernel's first port), and the whole function (zeroed buffer and
+    # weights inside it).
     go = rand(B, N, E)
     o1 = t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4)
     o2 = t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4)
     ref = t_attn.interp_g_bwd_plain(kd, go, KI, K, E, 1e-4)
     torch.cuda.synchronize()
     err, scaled, ok = agree([(o1, ref)])
+    bit_equal = bool(torch.equal(o1, ref))
     zeros_exact = bool(torch.equal(o1[:, KI:], ref[:, KI:])) and bool(
         torch.equal(o1[..., E:], ref[..., E:]))
     repro = max_err(o1, o2)
     ms = cuda_ms(torch, lambda: t_attn.interp_g_bwd(kd, go, KI, K, E, 1e-4), 20)
     plain_ms = cuda_ms(torch, lambda: t_attn.interp_g_bwd_plain(kd, go, KI, K, E, 1e-4), 5)
-    w = 1.0 / (torch.sqrt(torch.clamp(kd[..., :KI], min=0.0)) + 1e-4)
-    wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2)[..., None]
     lib_out = torch.zeros_like(ref)
-    lib_ms = cuda_ms(
-        torch, lambda: torch.mul(wn, go[:, None], out=lib_out[:, :KI, :, :E]), 20)
+    n_dg = lib_out.numel()
+    ceiling = interp_g_bwd_write_times(torch, t_attn, kd, go, KI, E, lib_out, 20)
+    lib_ms, lib_whole_ms = ceiling.pop('library_ms'), ceiling.pop('library_whole_ms')
+    fill_ok = ceiling.pop('fill16_wrote_values')
+    ceiling.update({k.replace('_ms', '_tb_s'): 4.0 * n_dg / v / 1e9
+                    for k, v in list(ceiling.items())})
     b_ms, b_by = bound(4 * (B * N * KI + B * N * E + B * K * N * C), 1.0 * B * N * KI * E)
     shape = [B, N, KI, K, C]
-    emit(dict(phase='kernel', name='interp_g_bwd', shape=shape, agree=ok and zeros_exact,
-              max_abs_err=err, max_scaled_err=scaled, tolerance=tol,
+    emit(dict(phase='kernel', name='interp_g_bwd', shape=shape,
+              agree=ok and zeros_exact and bit_equal, bit_equal_to_plain=bit_equal,
+              max_abs_err=err, max_scaled_err=scaled, tolerance='bit for bit',
               zero_rows_and_columns_exact=zeros_exact, repeat_max_abs_diff=repro, ms=ms,
-              plain_ms=plain_ms, library_ms=lib_ms,
-              library='torch.mul of the normalised weights and go into the row slice',
-              bound_ms=b_ms, bound_by=b_by))
-    if not (ok and zeros_exact) or repro != 0.0:
-        raise AssertionError(f'interp_g_bwd disagrees (err {err}, zeros {zeros_exact}) '
-                             f'or is not reproducible ({repro})')
+              write_tb_s=4.0 * n_dg / ms / 1e9, plain_ms=plain_ms, library_ms=lib_ms,
+              library='torch.mul of the normalised weights and go into the row slice (buffer '
+                      'zeroed and weights normalised outside the timing)',
+              library_whole_ms=lib_whole_ms,
+              library_whole='torch.zeros + the weights + the same torch.mul, all timed',
+              write_ceiling=dict(ceiling, buffer_bytes=4 * n_dg, fill16_wrote_values=fill_ok),
+              bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+              parent_ms_perf_md=_PARENT_MS['interp_g_bwd']))
+    if not (ok and zeros_exact and bit_equal and fill_ok) or repro != 0.0:
+        raise AssertionError(f'interp_g_bwd disagrees (err {err}, bit-equal {bit_equal}, '
+                             f'zeros {zeros_exact}), is not reproducible ({repro}) or the '
+                             f'fill wrote wrong values ({fill_ok})')
     rows['interp_g_bwd'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib_ms, shape=shape,
+                                library_whole_ms=lib_whole_ms, write_ceiling=ceiling,
                                 repeat_max_abs_diff=repro)
     del o1, o2, ref, lib_out
 
@@ -1635,6 +1704,8 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
             f_ms = cuda_ms(torch, lambda: t_sattn.fused_gathered_attention(
                 q, gf, rel, params, K), 5)
             f_plain_ms = cuda_ms(torch, lambda: t_sattn.sattn_plain(q, gf, rel, params), 3)
+            f_peak = launch_peak_gib(torch, lambda: t_sattn.fused_gathered_attention(
+                q, gf, rel, params, K))
             b_ms = cuda_ms(torch, bwd, 3)
             b_plain_ms = cuda_ms(torch, lambda: t_sattn.sattn_bwd_plain(
                 q, gf, rel, params, go), 2)
@@ -1676,6 +1747,7 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
         line = dict(name=name, shape=[B, N, K, D, E], fwd_max_abs_err=f_err, fwd_agree=f_ok,
                     bwd_max_abs_err=b_err, bwd_max_scaled_err=b_scaled, bwd_agree=b_ok,
                     bwd_repeat_max_abs_diff=repro, fwd_ms=f_ms, fwd_plain_ms=f_plain_ms,
+                    fwd_launch_peak_gib=f_peak,
                     bwd_ms=b_ms, bwd_plain_ms=b_plain_ms, chain_fwd_ms=chain_ms,
                     fused_route_fwd_ms=route_ms, chain_fwd_bwd_ms=chain_fb_ms,
                     fused_route_fwd_bwd_ms=route_fb_ms, fwd_bound_ms=fb_ms,
@@ -1700,7 +1772,9 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
                          ms=total('fwd_ms'), plain_ms=total('fwd_plain_ms'),
                          bound_ms=total('fwd_bound_ms'), bound_by='operations',
                          bound_f32_cuda_core_ms=total('fwd_bound_f32_cuda_core_ms'),
-                         chain_ms=total('chain_fwd_ms'), **common)
+                         chain_ms=total('chain_fwd_ms'), per_block_ms=[p['fwd_ms'] for p in gv1],
+                         n57344_l0_ms=[p['fwd_ms'] for p in per if p['name'].startswith(
+                             'n57344')][0], **common)
     rows['sattn_bwd'] = dict(max_abs_err=max(p['bwd_max_abs_err'] for p in per),
                              ms=total('bwd_ms'), plain_ms=total('bwd_plain_ms'),
                              bound_ms=total('bwd_bound_ms'), bound_by='operations',
@@ -1718,8 +1792,13 @@ def check_self_attention_kernels(torch, dev, rng, encoder, rows):
         bound_by='operations', f32_kernel_ms=total_b('f32_fwd_ms'),
         rel_l2_err=max(p['fwd_rel_l2'] for p in per_bf16),
         f32_kernel_rel_l2_vs_plain=min(p['f32_kernel_fwd_rel_l2_vs_plain'] for p in per_bf16),
-        per_block_ms=[p['fwd_ms'] for p in gv1_b], n57344_l0_ms=n57_b[0]['fwd_ms'],
-        **common)
+        per_block_ms=[p['fwd_ms'] for p in gv1_b], n57344_l0_ms=n57_b[0]['fwd_ms'], **common)
+    # The forward sums beside the parent's figures from PERF.md (on this
+    # line only: the kernels line carries what this run measured).
+    emit(dict(phase='sattn_forward_sums', sums_over=common['sums_over'],
+              sattn_ms=rows['sattn']['ms'], sattn_parent_ms_perf_md=_PARENT_MS['sattn'],
+              sattn_bf16_ms=rows['sattn_bf16']['ms'],
+              sattn_bf16_parent_ms_perf_md=_PARENT_MS['sattn_bf16']))
     rows['sattn_bwd_bf16'] = dict(
         max_abs_err=max(p['bwd_max_abs_err'] for p in per_bf16), ms=total_b('bwd_ms'),
         plain_ms=total_b('bwd_plain_ms'), bound_ms=total_b('bwd_bound_ms'),

@@ -13,7 +13,8 @@
 //              _fwd_kernel (:56), the encoder's fused gathered self-attention:
 //              per-row mode over gf (B, N, K, E), the raw features of each
 //              query's K neighbours (n-major), with the coordinate deltas
-//              rel (B, N, K, 3) read as given instead of qpos - kpos.
+//              rel (B, N, K, 3) read as given instead of qpos - kpos; the
+//              same body as o4d_attn (see below).
 //
 // Function, per query n with neighbours j = ki[n, :k] (f32 throughout):
 //   theta_j = W2 relu(W1 (qpos_n - kpos_j) + b1) + b2           (3 -> P -> D)
@@ -79,7 +80,7 @@
 // bf16 and sums in f32. Here: the weights are rounded once per call (W1 and
 // W2 by the caller, the rest as the fragment kernels lay them out); the row
 // loader rounds every value of the key rows, positions included (the TPU
-// wrapper rounds its whole value matrix before the gather); theta_bf16_kernel
+// wrapper rounds its whole value matrix before the gather); theta_kernel<true>
 // rounds rel and theta's hidden layer as operands (products of two bf16
 // values are exact in f32, so its FMA chains are the plain version's sums);
 // the tile rounds F, hpre and h once, as it writes them into shared memory,
@@ -94,18 +95,31 @@
 // TFLOP/s): 0.66 ms per premul gv1 chunk; the tile is held back by its
 // unhidden row loads and per-slab synchronisation (PERF.md).
 //
-// o4d_sattn keeps PR 5's body (sattn_kernel): 32-row tiles, every product a
-// register-tiled f32 loop over weight tiles staged through shared memory.
-// o4d_sattn_bf16 is the same body in the bf16 compute mode
-// (sattn_kernel<true>, the TPU kernel at compute_dtype=bfloat16, which the
-// encoder runs under mixed_precision): each product's operands are rounded
-// to bf16 once, the A rows (rel, theta's hidden layer, the raw features F,
-// hpre, gamma's hidden chunk) as they are stored in shared memory (each
-// feeds only products) and the weight tiles as they are staged; a product
-// of two bf16 values is exact in f32, so each FMA chain sums the exact
-// products in f32, as _mm2 does. Theta, v + theta, the logits, the softmax
-// and the output stay f32. Bound: the bf16 tensor cores; this simple form
-// runs at the f32 CUDA cores' pace, as the f32 entry does (PERF.md).
+// o4d_sattn and o4d_sattn_bf16 (the encoder's fused self-attention, f32
+// and the bf16 mode that mixed_precision runs) take the same pipeline
+// (run_fwd<kSelf, BF16>): no row loader, since gf and rel are already the
+// chunk's rows in order (the tile reads F from gf, theta reads rel, each
+// rounded where _mm2 rounds it in the bf16 mode); theta in one kernel
+// (theta_kernel, which repeats the f32 mode's FMA chains without the ph
+// round trip); then the tile and the combine. The encoder's widths (D = E
+// = 36 / 72 / 144 / 288 at K 16, H = 2 D, P 32) are far below the
+// decoder's 416 columns, so the tile's column block is a template
+// parameter (NTW n-tiles of 8 columns a warp, 32 NTW columns a block): 64
+// columns at D 36, 96 at 72, 160 at 144, 288 at 288 (320 at 320); the
+// decoder keeps its 416-column instantiation and its instruction stream.
+// A narrow block's slab holds more k8 steps of a wide product (26 KB, 52 KB
+// in bf16, from 160 columns up); the 64- and 96-column blocks, whose short
+// tiles were latency-bound at one block per SM, take 16 KB slabs (one or two
+// per product at D 36) and run two blocks per SM. theta's
+// kernel widens its row groups at narrow D to keep its threads busy. The
+// hidden chunk stays 128 (gamma's first layer, 4 x 32 hidden columns by
+// warp): at H 72 a quarter of its warps idle in it (PERF.md). Bound at the
+// gv1 blocks: operations, 73 GFLOP over the four blocks (0.105 ms on the
+// bf16 tensor cores, 0.44 ms in 3xTF32); the rows' round trips through
+// the chunk workspace (th, v and the logits, about 0.8 GB at D 36) come
+// beside it. (A body of its own, 32-row tiles with every product an f32
+// CUDA-core loop over weight tiles restaged from L2, 128 columns at every
+// width, took 9.8 ms over the four blocks; PERF.md.)
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -117,179 +131,6 @@
 
 namespace {
 
-// ============================================================ o4d_sattn ==
-constexpr int kThreads = 256;
-constexpr int kRows = 32;
-constexpr int kColTile = 128;
-constexpr int kKTile = 32;
-
-// C[r][c] (+)= act(sum_kk A[r][kk] W[kk][c] + bias[c]) for r < 32, c < Nc.
-// A and C in shared memory, W (Kd x Nc, row stride ldw) in global memory.
-// RND: W rounded to bf16 as it is staged, and a ReLU output (which feeds
-// only the next product) stored rounded; the caller stores every other A
-// operand rounded.
-template <bool RELU, bool ACCUM, bool RND>
-__device__ void gemm_rows(const float* A, int lda, const float* __restrict__ W,
-                          int ldw, const float* __restrict__ bias, int Kd,
-                          int Nc, float* C, int ldc, float* ws) {
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  for (int cb = 0; cb < Nc; cb += kColTile) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][t] = 0.f;
-    for (int k0 = 0; k0 < Kd; k0 += kKTile) {
-      const int kc = min(kKTile, Kd - k0);
-      __syncthreads();
-      for (int idx = tid; idx < kKTile * kColTile; idx += kThreads) {
-        const int kk = idx / kColTile, c = idx % kColTile;
-        const float w = (kk < kc && cb + c < Nc) ? W[(size_t)(k0 + kk) * ldw + cb + c]
-                                                 : 0.f;
-        ws[idx] = RND ? round_bf16(w) : w;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kc; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * lda + k0 + kk];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) w[t] = ws[kk * kColTile + tx + 32 * t];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(a[i], w[t], acc[i][t]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int c = cb + tx + 32 * t;
-        if (c < Nc) {
-          float v = acc[i][t];
-          if (bias != nullptr) v += bias[c];
-          if (RELU) v = fmaxf(v, 0.f);
-          if (RND && RELU) v = round_bf16(v);
-          float* dst = C + (ty * 4 + i) * ldc + c;
-          if (ACCUM)
-            *dst += v;
-          else
-            *dst = v;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-struct SattnArgs {
-  const float* qproj;  // (B, N, D)
-  const float* gf;     // (B, N, k, E)
-  const float* rel;    // (B, N, k, 3)
-  const float* wk;     // (E, D)
-  const float* wv;     // (E, D)
-  const float* wp1;    // (3, P)
-  const float* bp1;    // (P)
-  const float* wp2;    // (P, D)
-  const float* bp2;    // (D)
-  const float* wa1;    // (D, H)
-  const float* ba1;    // (H)
-  const float* wa2;    // (H, D)
-  const float* ba2;    // (D)
-  float* out;          // (B, N, D)
-  int N, D, E, H, P, k;
-  float inv_sqrt_d;
-};
-
-size_t sattn_smem_floats(int D, int E, int P) {
-  const int LD = D > E ? D : E;
-  return (size_t)kRows * D * 2 + (size_t)kRows * LD + (size_t)kRows * kColTile +
-         (size_t)kKTile * kColTile + (size_t)kRows * P + (size_t)kRows * 3;
-}
-
-// A thread block owns 32 rows = floor(32 / k) queries x k neighbours, so the
-// softmax over j closes inside the block. The rows' theta, a and logits stay
-// in shared memory; the gamma MLP's hidden layer is produced and consumed in
-// chunks of 128 columns (relu(a A1) chunk -> accumulate chunk A2 into the
-// logits). RND: every product's operands rounded to bf16 (o4d_sattn_bf16).
-template <bool RND>
-__global__ void __launch_bounds__(kThreads) sattn_kernel(SattnArgs p) {
-  extern __shared__ float sm[];
-  const int D = p.D, E = p.E, H = p.H, P = p.P, k = p.k;
-  const int LD = D > E ? D : E;
-  float* PE = sm;                        // theta, then v + theta
-  float* A = PE + kRows * D;             // (q - k) + theta
-  float* LG = A + kRows * D;             // raw features, then logits
-  float* HC = LG + kRows * LD;           // gamma hidden-layer chunk
-  float* WS = HC + kRows * kColTile;     // staged weight tile
-  float* PH = WS + kKTile * kColTile;    // theta hidden layer
-  float* REL = PH + kRows * P;           // coordinate deltas
-  __shared__ int rq[kRows];
-  __shared__ const float* rrow[kRows];  // the row's features.
-
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int tq_per = kRows / k;
-  const int n0 = blockIdx.x * tq_per;
-  if (tid < kRows) {
-    const int tq = tid / k, j = tid % k, n = n0 + tq;
-    const bool valid = tq < tq_per && n < p.N;
-    rq[tid] = valid ? n : -1;
-    const size_t row = ((size_t)b * p.N + (valid ? n : 0)) * k + j;
-    rrow[tid] = p.gf + row * E;
-    for (int c = 0; c < 3; ++c) {
-      const float x = valid ? p.rel[row * 3 + c] : 0.f;
-      REL[tid * 3 + c] = RND ? round_bf16(x) : x;
-    }
-  }
-  __syncthreads();
-
-  gemm_rows<true, false, RND>(REL, 3, p.wp1, P, p.bp1, 3, P, PH, P, WS);
-  gemm_rows<false, false, RND>(PH, P, p.wp2, D, p.bp2, P, D, PE, D, WS);
-
-  for (int idx = tid; idx < kRows * E; idx += kThreads) {
-    const int r = idx / E, c = idx % E;
-    const float x = rq[r] < 0 ? 0.f : rrow[r][c];
-    LG[r * LD + c] = RND ? round_bf16(x) : x;
-  }
-  gemm_rows<false, false, RND>(LG, LD, p.wk, D, nullptr, E, D, A, D, WS);
-  for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const float q = rq[r] >= 0 ? p.qproj[((size_t)b * p.N + rq[r]) * D + c] : 0.f;
-    const float h = (q - A[idx]) + PE[idx];
-    A[idx] = RND ? round_bf16(h) : h;
-  }
-  // PE += F Wv (its first barrier orders the loop above).
-  gemm_rows<false, true, RND>(LG, LD, p.wv, D, nullptr, E, D, PE, D, WS);
-  __syncthreads();
-  for (int idx = tid; idx < kRows * D; idx += kThreads) LG[idx] = 0.f;
-
-  for (int h0 = 0; h0 < H; h0 += kColTile) {
-    const int hc = min(kColTile, H - h0);
-    gemm_rows<true, false, RND>(A, D, p.wa1 + h0, H, p.ba1 + h0, D, hc, HC, kColTile,
-                                WS);
-    gemm_rows<false, true, RND>(HC, kColTile, p.wa2 + (size_t)h0 * D, D, nullptr, hc,
-                                D, LG, D, WS);
-  }
-
-  for (int idx = tid; idx < tq_per * D; idx += kThreads) {
-    const int tq = idx / D, c = idx % D, r0 = tq * k;
-    if (rq[r0] < 0) continue;
-    const float bias = p.ba2[c];
-    float mx = -CUDART_INF_F;
-    for (int j = 0; j < k; ++j)
-      mx = fmaxf(mx, (LG[(r0 + j) * D + c] + bias) * p.inv_sqrt_d);
-    float den = 0.f, acc = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float e = expf((LG[(r0 + j) * D + c] + bias) * p.inv_sqrt_d - mx);
-      den += e;
-      acc += e * PE[(r0 + j) * D + c];
-    }
-    p.out[((size_t)b * p.N + rq[r0]) * D + c] = acc / den;
-  }
-}
-
 // ================================================= o4d_attn / o4d_attn_g ==
 constexpr int kFwdThreads = 256;  // 8 warps: 2 (rows or hidden columns) x 4
 constexpr int kTileRows = 64;
@@ -300,13 +141,17 @@ constexpr int kMT = kTileRows / 16 / kWarpsM;  // a warp's m-tiles in a wide pro
 // Gamma's first layer: 4 warps along the hidden columns x 2 along the rows,
 // each warp 32 x 32 (2 hidden m-tiles x 4 row n-tiles).
 constexpr int kMT1 = 2, kNT1 = 4;
-// The wide products (k, v and the logits) run in column blocks of at most
-// kColBlock columns: a warp keeps its share of one block's 64 x 416 sums in
-// registers. Wider decoders loop over the blocks (see attn_tile_kernel).
-constexpr int kColBlock = 416;
-constexpr int kMaxNT = kColBlock / 8;  // 52 n-tiles of 8 columns, a column block's width
-constexpr int kNTW = kMaxNT / 4;       // a warp's n-tiles in a wide product (13)
-constexpr int kSlab = kMaxNT * 32 * 4;  // floats per ring stage: two k8 steps of a block
+// The wide products (k, v and the logits) run in column blocks of 32 NTW
+// columns: 4 warps along the columns, each with NTW n-tiles of 8 columns,
+// keep a block's 64 x 32 NTW sums in registers (the tile's template
+// parameter NTW; tile_ntw picks it from D). The decoder's block is 416
+// columns (NTW 13); wider decoders loop over such blocks (see
+// attn_tile_kernel), narrower widths (the encoder's self-attention, D 36 to
+// 320) take the narrowest block that holds D.
+constexpr int kDecoderNTW = 13;
+constexpr int kColBlock = 32 * kDecoderNTW;  // 416: the widest column block
+constexpr int kSlab = kColBlock / 8 * 32 * 4;  // floats per ring stage, every width: two
+                                                // k8 steps of a 416-column block
 constexpr int kA1Step = (kHC / 16) * 32 * 4;  // floats of one k8 step of an A1 chunk
 constexpr int kA1Steps = kSlab / kA1Step;     // A1 k8 steps per slab (6)
 constexpr int kLdH = kHC + 4;  // the h chunk [row][column]; 4 mod 32: no conflicts
@@ -336,6 +181,18 @@ constexpr int kMaxWidth =
     ((kSmemDynMax / 4 - kTileRows * kLdH - 2 * kSlab) / kTileRows - 4) / 8 * 8;
 static_assert(kMaxWidth == 560, "the shared-memory width limit moved");
 
+// The column blocks narrower than 416 (NTW n-tiles a warp), each an
+// instantiation of the tile: 64, 96, 160, 288 and 320 columns, the
+// encoder's widths at feature sizes 36 and 40 (D 36 / 72 / 144 / 288 and
+// 40 / 80 / 160 / 320). Every other D up to 416 takes the next wider block.
+constexpr int kNarrowNTW[] = {2, 3, 5, 9, 10};
+
+int tile_ntw(int D) {
+  for (const int w : kNarrowNTW)
+    if (32 * w >= D) return w;
+  return kDecoderNTW;
+}
+
 // The bf16 mode (o4d_attn_bf16 / o4d_attn_g_bf16): the rows and the h chunk
 // in shared memory as bf16, row strides 8 mod 16 elements (4 mod 8 words),
 // so that a lane's 32-bit fragment reads hit 32 distinct banks; the same
@@ -345,18 +202,32 @@ static_assert(kMaxWidth == 560, "the shared-memory width limit moved");
 // against a bf16 step's few instructions (PERF.md).
 constexpr int kLdHB = kHC + 8;  // the bf16 h chunk [row][column]
 constexpr int kSlabBf16 = 2 * kSlab;
+// The smallest column blocks (64 and 96 columns: the encoder's first two
+// levels, whose tiles are short and latency-bound) take 16 KB slabs in both
+// modes (every product of a D 36 tile still fits one or two of them) and
+// two blocks per SM, whose row loads and slab waits then hide each other.
+constexpr int kSmallNTW = 3;
+constexpr int kSlabSmall = 4096;
 
-size_t tile_smem_bytes(int D, int E, int stages, bool bf16) {
-  if (!bf16) return tile_smem_floats(D, E, stages) * sizeof(float);
+__host__ __device__ constexpr int slab_floats(int ntw, bool bf16) {
+  return ntw <= kSmallNTW ? kSlabSmall : bf16 ? kSlabBf16 : kSlab;
+}
+
+size_t tile_smem_bytes(int D, int E, int stages, bool bf16, int slab) {
+  if (!bf16) {
+    const int W = 8 * max(cdiv(D, 8), cdiv(E, 8));
+    return sizeof(float) * ((size_t)kTileRows * (W + 4) + (size_t)kTileRows * kLdH +
+                            (size_t)stages * slab);
+  }
   const int W = 16 * max(cdiv(D, 16), cdiv(E, 16));
   return 2 * ((size_t)kTileRows * (W + 8) + (size_t)kTileRows * kLdHB) +
-         sizeof(float) * (size_t)stages * kSlabBf16;
+         sizeof(float) * (size_t)stages * slab;
 }
 
 // The bf16 ring: three stages where they fit (every width up to 416), else
 // two (the depth measured within 4% either way; PERF.md).
 int tile_stages_bf16(int D, int E) {
-  return tile_smem_bytes(D, E, 3, true) <= (size_t)kSmemDynMax ? 3 : 2;
+  return tile_smem_bytes(D, E, 3, true, kSlabBf16) <= (size_t)kSmemDynMax ? 3 : 2;
 }
 
 // B (K x N, row-major) in mma B-fragment order per column block of 8 NT
@@ -496,24 +367,26 @@ struct TileArgs {
   int R, D, E, H, k, premul;
 };
 
-__device__ __forceinline__ void zero_acc(float (&acc)[kMT][kNTW][4]) {
+template <int NTW>
+__device__ __forceinline__ void zero_acc(float (&acc)[kMT][NTW][4]) {
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int i = 0; i < kNTW; ++i)
+    for (int i = 0; i < NTW; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mt][i][c] = 0.f;
 }
 
-// acc (the warp's rows 16 kMT wm + [0, 16 kMT) x its kNTW n-tiles nt0 + i) +=
+// acc (the warp's rows 16 kMT wm + [0, 16 kMT) x its NTW n-tiles nt0 + i) +=
 // A (the tile's rows, row stride lda; k8 steps k8 ... k8 + steps - 1) times
-// `steps` k8 steps of a B slab (kMaxNT n-tiles a step), both split into TF32
+// `steps` k8 steps of a B slab (4 NTW n-tiles a step), both split into TF32
 // (big, small) as they are read.
 // The mma order is pass-major within groups of n-tiles (all small_a big_b
 // products of the group, then big_a small_b, then big_a big_b), so that an
 // accumulator's next product is 2 x group instructions away: the tensor
 // core's latency is hidden by independent products, not by other warps.
-__device__ __forceinline__ void wide_steps(float (&acc)[kMT][kNTW][4], const float* A, int lda,
+template <int NTW>
+__device__ __forceinline__ void wide_steps(float (&acc)[kMT][NTW][4], const float* A, int lda,
                                            int k8, const float* slab, int steps, int nt0,
                                            int wm, int lane) {
   constexpr int G = 7;  // n-tiles whose fragments are held at once
@@ -529,13 +402,13 @@ __device__ __forceinline__ void wide_steps(float (&acc)[kMT][kNTW][4], const flo
         split_tf32(A[m * lda + kx], ab[mt][h], as[mt][h]);
       }
     const float2* bs =
-        reinterpret_cast<const float2*>(slab) + ((size_t)kb * kMaxNT + nt0) * 32 + lane;
+        reinterpret_cast<const float2*>(slab) + ((size_t)kb * 4 * NTW + nt0) * 32 + lane;
 #pragma unroll
-    for (int g0 = 0; g0 < kNTW; g0 += G) {
+    for (int g0 = 0; g0 < NTW; g0 += G) {
       uint32_t bb[G][2], bsm[G][2];
 #pragma unroll
       for (int i = 0; i < G; ++i)
-        if (g0 + i < kNTW) {
+        if (g0 + i < NTW) {
           const float2 w = bs[(g0 + i) * 32];
           split_tf32(w.x, bb[i][0], bsm[i][0]);
           split_tf32(w.y, bb[i][1], bsm[i][1]);
@@ -544,7 +417,7 @@ __device__ __forceinline__ void wide_steps(float (&acc)[kMT][kNTW][4], const flo
       for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
         for (int i = 0; i < G; ++i)
-          if (g0 + i < kNTW)
+          if (g0 + i < NTW)
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
               mma_tf32<false>(acc[mt][g0 + i], pass == 0 ? as[mt] : ab[mt],
@@ -606,7 +479,8 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
 // wide_steps in the bf16 mode: A (the tile's bf16 rows, row stride lda
 // elements) times `steps` 16-deep steps of a bf16 B slab, from step k16; a
 // lane's A and B fragments are 32-bit and 64-bit shared loads.
-__device__ __forceinline__ void wide_steps_bf16(float (&acc)[kMT][kNTW][4],
+template <int NTW>
+__device__ __forceinline__ void wide_steps_bf16(float (&acc)[kMT][NTW][4],
                                                 const __nv_bfloat16* A, int lda, int k16,
                                                 const float* slab, int steps, int nt0, int wm,
                                                 int lane) {
@@ -621,9 +495,10 @@ __device__ __forceinline__ void wide_steps_bf16(float (&acc)[kMT][kNTW][4],
         const int kx = 16 * (k16 + kb) + 2 * tq + 8 * (h >> 1);
         a[mt][h] = *reinterpret_cast<const uint32_t*>(A + m * lda + kx);
       }
-    const uint2* bs = reinterpret_cast<const uint2*>(slab) + ((size_t)kb * kMaxNT + nt0) * 32 + lane;
+    const uint2* bs =
+        reinterpret_cast<const uint2*>(slab) + ((size_t)kb * 4 * NTW + nt0) * 32 + lane;
 #pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
+    for (int i = 0; i < NTW; ++i) {
       const uint2 w = bs[i * 32];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) mma_bf16(acc[mt][i], a[mt], w.x, w.y);
@@ -693,8 +568,8 @@ struct Slab {
 
 // The tile's rows r0 ... r0 + 63 of the chunk: per-row mode k and v on the
 // tensor cores, hpre, gamma, the logits (the design at the top of the file).
-// The wide products run per column block of 416 columns (zero past D). Above
-// one block (D > 416), per-row mode stages each block's hpre in the tile's
+// The wide products run per column block of 32 NTW columns (zero past D;
+// the narrow blocks hold all of D). Above one block (D > 416), per-row mode stages each block's hpre in the tile's
 // own rows of lg (F must stay in shared memory for the next block's k and v)
 // and reloads it whole, and gamma's first layer is recomputed per column
 // block: the softmax is per channel, so the blocks' logits are independent
@@ -706,26 +581,31 @@ struct Slab {
 // bf16 in that mma's fragment order (frag_b_bf16_kernel,
 // frag_a1_bf16_kernel). The variables named for 8-deep steps (D8, k8, ...)
 // count 16-deep steps there; the slab stream is otherwise the same.
-template <int kFwdStages, bool BF16>
-__global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
+template <int kFwdStages, bool BF16, int NTW>
+__global__ void __launch_bounds__(kFwdThreads, NTW <= kSmallNTW ? 2 : 1)
+    attn_tile_kernel(TileArgs p) {
   using T = std::conditional_t<BF16, __nv_bfloat16, float>;  // the rows' type
   constexpr int KD = BF16 ? 16 : 8;                          // depth of one step
   constexpr int kLdHT = BF16 ? kLdHB : kLdH;
   constexpr int kHK = kHC / KD;  // steps of gamma's second layer per chunk
-  constexpr int kSlabT = BF16 ? kSlabBf16 : kSlab;  // floats per ring stage
+  constexpr int kSlabT = slab_floats(NTW, BF16);  // floats per ring stage
+  // Four-column row loads and column-pair epilogues: the bf16 mode's, and
+  // the narrow blocks' in f32 too (the decoder's f32 tile keeps its own).
+  constexpr bool kPairs = BF16 || NTW != kDecoderNTW;
   constexpr int kA1S = kSlabT / kA1Step;            // A1 steps per slab
   extern __shared__ __align__(16) float smf[];
   __shared__ __align__(8) uint64_t full[kFwdStages];  // a slab has landed in the stage
-  constexpr int NT = kMaxNT;
+  constexpr int NT = 4 * NTW;  // n-tiles of a column block
+  constexpr int kCB = 8 * NT;  // its columns
   const int D = p.D, E = p.E, H = p.H;
-  const int D8 = cdiv(D, KD), E8 = cdiv(E, KD), NC = cdiv(H, kHC), NCB = cdiv(D, kColBlock);
+  const int D8 = cdiv(D, KD), E8 = cdiv(E, KD), NC = cdiv(H, kHC), NCB = cdiv(D, kCB);
   const int W8 = KD * max(D8, E8), ldx = W8 + (BF16 ? 8 : 4);
   T* X = reinterpret_cast<T*>(smf);    // F (per-row mode), then hpre
   T* Hs = X + kTileRows * ldx;         // h chunk [row][hidden column]
   float* ring = reinterpret_cast<float*>(Hs + kTileRows * kLdHT);  // kFwdStages B slabs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3, nt0 = wn * kNTW;
+  const int wm = warp >> 2, wn = warp & 3, nt0 = wn * NTW;
   const int r0 = blockIdx.x * kTileRows, rows = min(kTileRows, p.R - r0);
   const bool perrow = !p.premul;
 
@@ -790,7 +670,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
 
   // The tile's rows: F (per-row), or hpre = (q - k) + theta (premul); zero
   // past the widths and past the chunk's rows.
-  if constexpr (BF16) {
+  if constexpr (kPairs) {
     // Four columns a thread, 16-byte loads where aligned, the query row
     // once per four (32-bit: a chunk has fewer than 2^31 rows); one 8-byte
     // store of the four rounded values. (The f32 mode's per-element loop
@@ -829,8 +709,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
           }
         }
       }
-      *reinterpret_cast<uint2*>(X + r * ldx + c) =
-          make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+      if constexpr (BF16)
+        *reinterpret_cast<uint2*>(X + r * ldx + c) =
+            make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+      else
+        *reinterpret_cast<float4*>(X + r * ldx + c) = make_float4(v[0], v[1], v[2], v[3]);
     }
   } else {
     for (int idx = tid; idx < kTileRows * W8; idx += kFwdThreads) {
@@ -847,7 +730,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
       X[r * ldx + c] = to_row<T>(v);
     }
   }
-  // BF16's epilogues: a thread's accumulator pairs (c, c + 1) are columns n,
+  // The pair epilogues (kPairs): a thread's accumulator pairs (c, c + 1) are columns n,
   // n + 1 of one row, stored as 8-byte pairs; hpre's query row in 32 bits.
   const bool evenD = (D & 1) == 0;
   auto hpre_pair = [&](int m, int n, float a0, float a1, float& v0, float& v1) {
@@ -858,7 +741,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
     v1 = n + 1 < D ? (q[n + 1] - a1) + th[n + 1] : 0.f;
   };
 
-  float acc[kMT][kNTW][4];
+  float acc[kMT][NTW][4];
   // The wide product of the tile's rows A (row stride lda) with `steps`
   // steps of slab b from step k8.
   auto wide = [&](const T* A, int lda, int k8, const float* b, int steps) {
@@ -870,18 +753,18 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   int steps;
   if (perrow) {
     for (int cb = 0; cb < NCB; ++cb) {
-      const int col0 = cb * kColBlock;
+      const int col0 = cb * kCB;
       for (int which = 0; which < 2; ++which) {  // 0: v = F Wv; 1: k = F Wk.
         zero_acc(acc);
         for (int i = 0, k8 = 0; i < nw; ++i, k8 += steps) {
           const float* b = acquire(steps);
           wide(X, ldx, k8, b, steps);
         }
-        if (which == 0 && BF16) {
+        if (which == 0 && kPairs) {
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-            for (int i = 0; i < kNTW; ++i)
+            for (int i = 0; i < NTW; ++i)
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
@@ -894,7 +777,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-            for (int i = 0; i < kNTW; ++i)
+            for (int i = 0; i < NTW; ++i)
 #pragma unroll
               for (int c = 0; c < 4; ++c) {
                 const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
@@ -903,11 +786,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
               }
         }
       }
-      if (NCB > 1 && BF16) {  // this block's hpre into the tile's rows of lg.
+      if (NCB > 1 && kPairs) {  // this block's hpre into the tile's rows of lg.
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-          for (int i = 0; i < kNTW; ++i)
+          for (int i = 0; i < NTW; ++i)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
@@ -922,7 +805,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-          for (int i = 0; i < kNTW; ++i)
+          for (int i = 0; i < NTW; ++i)
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
               const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
@@ -940,11 +823,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
         const int m = idx / (KD * D8), n = idx - m * KD * D8;
         X[m * ldx + n] = to_row<T>(m < rows && n < D ? p.lg[(size_t)(r0 + m) * D + n] : 0.f);
       }
-    } else if constexpr (BF16) {
+    } else if constexpr (kPairs) {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int i = 0; i < kNTW; ++i)
+        for (int i = 0; i < NTW; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
@@ -952,14 +835,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
             if (n < KD * D8) {  // GEMM1 reads hpre's D8 steps (n even: n + 1 too).
               float v0 = 0.f, v1 = 0.f;
               if (m < rows) hpre_pair(m, n, acc[mt][i][2 * h], acc[mt][i][2 * h + 1], v0, v1);
-              *reinterpret_cast<uint32_t*>(X + m * ldx + n) = pack_bf16(v0, v1);
+              if constexpr (BF16)
+                *reinterpret_cast<uint32_t*>(X + m * ldx + n) = pack_bf16(v0, v1);
+              else
+                *reinterpret_cast<float2*>(X + m * ldx + n) = make_float2(v0, v1);
             }
           }
     } else {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int i = 0; i < kNTW; ++i)
+        for (int i = 0; i < NTW; ++i)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
@@ -982,7 +868,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   // skips its products.
   const int w1m = warp >> 1, w1n = warp & 1;  // gamma's first layer: 4 x 2 warps
   for (int cb = 0; cb < NCB; ++cb) {
-    const int col0 = cb * kColBlock;
+    const int col0 = cb * kCB;
     zero_acc(acc);
     for (int c = 0; c < NC; ++c) {
       const bool live = c * kHC + w1m * 16 * kMT1 < H;
@@ -1019,11 +905,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
         wide(Hs, kLdHT, k8, b, steps);
       }
     }
-    if constexpr (BF16) {
+    if constexpr (kPairs) {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int i = 0; i < kNTW; ++i)
+        for (int i = 0; i < NTW; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int m = (wm * kMT + mt) * 16 + gq + 8 * h;
@@ -1036,7 +922,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int i = 0; i < kNTW; ++i)
+        for (int i = 0; i < NTW; ++i)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int m = (wm * kMT + mt) * 16 + gq + 8 * (c >> 1);
@@ -1047,48 +933,71 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_tile_kernel(TileArgs p) {
   }
 }
 
-// theta in the bf16 mode, both layers in one pass: ph = bf16(relu(bf16(rel)
-// W1 + b1)) and th = ph W2 + b2, W2 (P x D) in shared memory, each block
-// walking kThetaRows-row groups of its rows; a thread's outputs are four
+// theta, both layers in one pass: ph = relu(rel W1 + b1) and th = ph W2 +
+// b2 (RND, the bf16 mode: ph = bf16(relu(bf16(rel) W1 + b1))), W2 (P x D)
+// in shared memory, each block
+// walking G-row groups of its rows; a thread's outputs are four
 // consecutive columns of eight rows (each W2 load serves 32 FMAs), each an
 // FMA chain over k = 0 ... P - 1 from zero, then + b2: the f32 mode's
 // sums (pos_hidden_kernel, then the FMA GEMM) on the rounded operands,
 // without the ph round trip and with 16-byte stores (the GEMM's stores of
 // this thin product ran at a quarter of their width: 1.3 ms per gv1 chunk
-// against 0.23 of bound).
-constexpr int kThetaRows = 64;
-constexpr int kThetaRowsPerBlock = 512;
+// against 0.23 of bound). The bf16 mode of every entry runs it, and the f32
+// mode of o4d_sattn (the decoder's f32 entries keep their two kernels,
+// pos_hidden_kernel and the FMA GEMM, whose bits it repeats).
+// A block walks RPB rows in groups of G. The decoder's tile (ntw 13) keeps
+// 64-row groups and 512 rows a block. Narrower tiles widen the groups so that
+// a group's (G / 8) x D / 4 outputs occupy the block's 256 threads (at D 36,
+// 64 rows kept 72 of them busy) and take about eight blocks per SM; the
+// groups stop at 512 rows (reached at D 16; below it fewer threads are busy)
+// and where W2 and the group's ph would outgrow shared memory.
+struct ThetaShape {
+  int G, RPB;
+};
 
-size_t theta_smem_bytes(int P, int D) {
-  return sizeof(float) * ((size_t)P * D + (size_t)kThetaRows * P);
+size_t theta_smem_bytes(int P, int D, int G) {
+  return sizeof(float) * ((size_t)P * D + (size_t)G * P);
 }
 
-__global__ void __launch_bounds__(256) theta_bf16_kernel(const float* __restrict__ rel,
-                                                         const float* __restrict__ w1,
-                                                         const float* __restrict__ b1,
-                                                         const float* __restrict__ w2,
-                                                         const float* __restrict__ b2,
-                                                         float* __restrict__ th, int R, int P,
-                                                         int D) {
+ThetaShape theta_shape(long long R, int P, int D, int ntw) {
+  if (ntw == kDecoderNTW) return ThetaShape{64, 512};
+  const int d4 = (D + 3) / 4;
+  int g = 64;
+  while (g < 512 && (g / 8) * d4 < 256 &&
+         theta_smem_bytes(P, D, g + 64) <= (size_t)kSmemDynMax)
+    g += 64;
+  const long long per = (R + (long long)g * 1056 - 1) / ((long long)g * 1056);
+  return ThetaShape{g, g * (int)(per < 1 ? 1 : per > 8 ? 8 : per)};
+}
+
+template <bool RND>
+__global__ void __launch_bounds__(256) theta_kernel(const float* __restrict__ rel,
+                                                    const float* __restrict__ w1,
+                                                    const float* __restrict__ b1,
+                                                    const float* __restrict__ w2,
+                                                    const float* __restrict__ b2,
+                                                    float* __restrict__ th, int R, int P, int D,
+                                                    int G, int RPB) {
   extern __shared__ __align__(16) float sth[];
+  auto rnd = [](float x) { return RND ? round_bf16(x) : x; };
   float* W2 = sth;                 // (P, D)
-  float* ph = sth + (size_t)P * D;  // (kThetaRows, P)
+  float* ph = sth + (size_t)P * D;  // (G, P)
   for (int i = threadIdx.x; i < P * D; i += blockDim.x) W2[i] = w2[i];
   const int D4 = (D + 3) / 4;
   const bool vec = D % 4 == 0;
-  const int row_end = min(R, (blockIdx.x + 1) * kThetaRowsPerBlock);
-  for (int g0 = blockIdx.x * kThetaRowsPerBlock; g0 < row_end; g0 += kThetaRows) {
-    const int nr = min(kThetaRows, row_end - g0);
+  const int row_end = min(R, (blockIdx.x + 1) * RPB);
+  for (int g0 = blockIdx.x * RPB; g0 < row_end; g0 += G) {
+    const int nr = min(G, row_end - g0);
     __syncthreads();  // W2 is in, and the last group's ph is read.
     for (int i = threadIdx.x; i < nr * P; i += blockDim.x) {
       const int r = i / P, c = i - r * P;
       float acc = 0.f;
       for (int kk = 0; kk < 3; ++kk)
-        acc = fmaf(round_bf16(rel[(size_t)(g0 + r) * 3 + kk]), w1[kk * P + c], acc);
-      ph[i] = round_bf16(fmaxf(acc + b1[c], 0.f));
+        acc = fmaf(rnd(rel[(size_t)(g0 + r) * 3 + kk]), w1[kk * P + c], acc);
+      ph[i] = rnd(fmaxf(acc + b1[c], 0.f));
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < (kThetaRows / 8) * D4; i += blockDim.x) {
+    for (int i = threadIdx.x; i < (G / 8) * D4; i += blockDim.x) {
       const int rb = 8 * (i / D4), c = 4 * (i - (rb / 8) * D4);
       if (rb >= nr) continue;
       float acc[8][4];
@@ -1150,14 +1059,16 @@ __global__ void combine_kernel(const float* __restrict__ lg, const float* __rest
   out[i] = acc / den;
 }
 
-// The launch's workspace: the weights in fragment order, then one chunk's per-row
-// operands (R rows), each 16-byte aligned.
+// The launch's workspace: the weights in fragment order (sized for the
+// widest column block, 416 columns), then one chunk's per-row operands (R
+// rows), each 16-byte aligned. The self-attention (self) reads rel and F
+// from its inputs and forms theta in one kernel: only th, vv and lg.
 struct FwdWs {
   float *wv, *wk, *a1, *a2;  // the weights in fragment order
   float *rel, *f, *kk, *ph, *th, *vv, *lg;
 };
 
-FwdWs carve_fwd(float* ws, long long R, int D, int E, int H, int P, bool premul,
+FwdWs carve_fwd(float* ws, long long R, int D, int E, int H, int P, bool premul, bool self,
                 long long* used) {
   FwdWs w = {};
   long long off = 0;
@@ -1166,7 +1077,7 @@ FwdWs carve_fwd(float* ws, long long R, int D, int E, int H, int P, bool premul,
     off += (n + 3) / 4 * 4;
     return r;
   };
-  const long long D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NT = kMaxNT;
+  const long long D8 = cdiv(D, 8), E8 = cdiv(E, 8), NC = cdiv(H, kHC), NT = kColBlock / 8;
   const long long NCB = cdiv(D, kColBlock);
   if (!premul) {
     w.wv = take(NCB * E8 * NT * 64);
@@ -1174,12 +1085,14 @@ FwdWs carve_fwd(float* ws, long long R, int D, int E, int H, int P, bool premul,
   }
   w.a1 = take(NC * D8 * kA1Step);
   w.a2 = take(NCB * NC * kHK8 * NT * 64);
-  w.rel = take(R * 3);
-  if (premul)
-    w.kk = take(R * D);
-  else
-    w.f = take(R * E);
-  w.ph = take(R * P);
+  if (!self) {
+    w.rel = take(R * 3);
+    if (premul)
+      w.kk = take(R * D);
+    else
+      w.f = take(R * E);
+    w.ph = take(R * P);
+  }
   w.th = take(R * D);
   w.vv = take(R * D);
   w.lg = take(R * D);
@@ -1189,39 +1102,83 @@ FwdWs carve_fwd(float* ws, long long R, int D, int E, int H, int P, bool premul,
 
 // Floats of one row's operands (the same for the index route's per-row mode
 // and the gathered form, so that they cut their rows into the same chunks).
-long long fwd_row_floats(int D, int E, int P, bool premul) {
-  return 3LL + P + 3LL * D + (premul ? D : E);
+long long fwd_row_floats(int D, int E, int P, bool premul, bool self) {
+  return self ? 3LL * D : 3LL + P + 3LL * D + (premul ? D : E);
+}
+
+// The chunking of one launch: QC queries per chunk (whole queries of one
+// example, the chunks of an example as equal as the budget allows; at most
+// N; the per-row operands of a chunk within budget bytes), and the
+// workspace it needs in f32 floats.
+void fwd_plan(int N, int D, int E, int H, int P, int k, bool premul, bool self, long long budget,
+              int* QC, long long* floats) {
+  long long qmax = budget / ((long long)sizeof(float) * k * fwd_row_floats(D, E, P, premul, self));
+  if (qmax > N) qmax = N;
+  if (qmax < 1) qmax = 1;
+  const long long chunks = (N + qmax - 1) / qmax;
+  const long long qc = (N + chunks - 1) / chunks;
+  *QC = (int)qc;
+  carve_fwd(nullptr, qc * k, D, E, H, P, premul, self, floats);
 }
 
 struct FwdCall {
   RowSrc src;  // N, D, E, k, premul and the rows' sources
+  const float *rel, *gf;  // kSelf: (B, N, k, 3) and (B, N, k, E), read as given
   const float *qproj, *wk, *wv, *wp1, *bp1, *wp2, *bp2, *wa1, *ba1, *wa2, *ba2;
   float* out;  // (B, N, D)
   float* ws;   // o4d_attn_plan's workspace for QC
   int B, H, P, QC;
 };
 
-// BF16: the bf16 compute mode (o4d_attn_bf16 / o4d_attn_g_bf16). The
-// caller passes W1 and W2 already rounded to bf16; the row loader rounds the
-// key rows, theta's hidden layer its operands, the fragment kernels the
-// other weights, the tile its rows. theta, v, the logits, the softmax and
-// every sum stay f32, and the workspace and chunking are the f32 mode's.
+using TileKernel = void (*)(TileArgs);
+
+// The tile's instantiation for a column block of 32 ntw columns and a ring
+// of `stages` slabs (the narrow blocks fit three stages at every width they
+// are picked for; run_fwd takes the 416-column block where they do not).
+template <bool BF16>
+TileKernel tile_kernel(int ntw, int stages) {
+  switch (ntw) {
+    case 2: return attn_tile_kernel<3, BF16, 2>;
+    case 3: return attn_tile_kernel<3, BF16, 3>;
+    case 5: return attn_tile_kernel<3, BF16, 5>;
+    case 9: return attn_tile_kernel<3, BF16, 9>;
+    case 10: return attn_tile_kernel<3, BF16, 10>;
+    default:
+      return stages == 3 ? attn_tile_kernel<3, BF16, kDecoderNTW>
+                         : attn_tile_kernel<2, BF16, kDecoderNTW>;
+  }
+}
+
+// BF16: the bf16 compute mode (o4d_attn_bf16 / o4d_attn_g_bf16 /
+// o4d_sattn_bf16). The caller passes W1 and W2 already rounded to bf16;
+// the row loader rounds the key rows, theta's hidden layer its operands,
+// the fragment kernels the other weights, the tile its rows. theta, v, the
+// logits, the softmax and every sum stay f32, and the workspace and
+// chunking are the f32 mode's.
+// MODE kSelf (o4d_sattn): no row loader; the tile reads F from gf and theta
+// reads rel where they lie (both are chunk-contiguous), and theta runs in
+// one kernel in both modes.
 template <int MODE, bool BF16>
 int run_fwd(const FwdCall& p, cudaStream_t s) {
   const int N = p.src.N, D = p.src.D, E = p.src.E, k = p.src.k, H = p.H, P = p.P;
   const bool premul = MODE == kIndex && p.src.premul;
-  const int NC = cdiv(H, kHC), NT = kMaxNT;
-  const int NCB = cdiv(D, kColBlock);
+  constexpr bool kFusedTheta = BF16 || MODE == kSelf;
   long long used;
-  const FwdWs w = carve_fwd(p.ws, (long long)p.QC * k, D, E, H, P, premul, &used);
+  const FwdWs w = carve_fwd(p.ws, (long long)p.QC * k, D, E, H, P, premul, MODE == kSelf, &used);
   const int stages = BF16 ? tile_stages_bf16(D, E) : tile_stages(D, E);
-  const size_t smem = tile_smem_bytes(D, E, stages, BF16);
+  const int ntw = stages == 3 ? tile_ntw(D) : kDecoderNTW;
+  const size_t smem = tile_smem_bytes(D, E, stages, BF16, slab_floats(ntw, BF16));
   if (smem > (size_t)kSmemDynMax) return (int)cudaErrorInvalidValue;
-  auto tile = stages == 3 ? attn_tile_kernel<3, BF16> : attn_tile_kernel<2, BF16>;
-  const size_t theta_smem = theta_smem_bytes(P, D);
-  if (BF16) {
+  const int NC = cdiv(H, kHC), NT = 4 * ntw;
+  const int NCB = cdiv(D, 8 * NT);
+  const TileKernel tile = tile_kernel<BF16>(ntw, stages);
+  // theta's launch shape at the largest chunk (a smaller last chunk takes
+  // the same groups; each output's sum does not depend on them).
+  const ThetaShape tsh = theta_shape((long long)p.QC * k, P, D, ntw);
+  const size_t theta_smem = theta_smem_bytes(P, D, tsh.G);
+  if (kFusedTheta) {
     if (theta_smem > (size_t)kSmemDynMax) return (int)cudaErrorInvalidValue;
-    O4D_TRY(cudaFuncSetAttribute(theta_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    O4D_TRY(cudaFuncSetAttribute(theta_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)theta_smem));
   }
   O4D_TRY(cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
@@ -1256,20 +1213,27 @@ int run_fwd(const FwdCall& p, cudaStream_t s) {
     for (int n0 = 0; n0 < N; n0 += p.QC) {
       const int nq = min(p.QC, N - n0), R = nq * k;
       const size_t q0 = (size_t)b * N + n0;  // the chunk's first query.
-      load_rows_kernel<MODE, BF16><<<blocks_for(R, 8), 256, 0, s>>>(
-          p.src, RowDst{w.rel, w.f, w.kk, w.vv}, b, n0, R);
-      if constexpr (BF16) {
-        theta_bf16_kernel<<<blocks_for(R, kThetaRowsPerBlock), 256, theta_smem, s>>>(
-            w.rel, p.wp1, p.bp1, p.wp2, p.bp2, w.th, R, P, D);
+      const float* rel = w.rel;
+      const float* F = w.f;
+      if constexpr (MODE == kSelf) {
+        rel = p.rel + q0 * k * 3;
+        F = p.gf + q0 * k * E;
+      } else {
+        load_rows_kernel<MODE, BF16><<<blocks_for(R, 8), 256, 0, s>>>(
+            p.src, RowDst{w.rel, w.f, w.kk, w.vv}, b, n0, R);
+      }
+      if constexpr (kFusedTheta) {
+        theta_kernel<BF16><<<blocks_for(R, tsh.RPB), 256, theta_smem, s>>>(
+            rel, p.wp1, p.bp1, p.wp2, p.bp2, w.th, R, P, D, tsh.G, tsh.RPB);
       } else {
         pos_hidden_kernel<<<blocks_for((long long)R * P, 256), 256, 0, s>>>(
-            w.rel, p.wp1, p.bp1, w.ph, R, P);
+            rel, p.wp1, p.bp1, w.ph, R, P);
         // theta = ph W2 + b2 as FMA chains in k order.
         GemmArgs a = gemm_args(w.ph, P, p.wp2, D, w.th, D, R, D, P);
         a.bias = p.bp2;
         O4D_TRY((gemm<false, false, true>(a, 1, s)));
       }
-      const TileArgs t{p.qproj + q0 * D, w.th, w.kk, w.f, w.vv, w.lg, w.wv, w.wk, w.a1, w.a2,
+      const TileArgs t{p.qproj + q0 * D, w.th, w.kk, F, w.vv, w.lg, w.wv, w.wk, w.a1, w.a2,
                        p.ba1, R, D, E, H, k, premul ? 1 : 0};
       tile<<<cdiv(R, kTileRows), kFwdThreads, smem, s>>>(t);
       combine_kernel<<<blocks_for((long long)nq * D, 256), 256, 0, s>>>(
@@ -1326,24 +1290,18 @@ extern "C" long long o4d_attn_smem_bytes(int D, int E, int P) {
 
 extern "C" int o4d_attn_max_width() { return kMaxWidth; }
 
-// The chunking of one o4d_attn / o4d_attn_g launch: QC queries per chunk
-// (whole queries of one example, the chunks of an example as equal as the
-// budget allows; at most N; the per-row operands of a chunk within budget
-// bytes, the same for the index route's per-row mode and the gathered
-// form), and the workspace it needs in f32 floats.
+// The chunking of one o4d_attn / o4d_attn_g launch (fwd_plan; the same
+// chunks for the index route's per-row mode and the gathered form), and the
+// workspace it needs in f32 floats.
 extern "C" void o4d_attn_plan(int N, int D, int E, int H, int P, int k, int premul,
                               long long budget, int* QC, long long* floats) {
-  long long qmax = budget / ((long long)sizeof(float) * k * fwd_row_floats(D, E, P, premul));
-  if (qmax > N) qmax = N;
-  if (qmax < 1) qmax = 1;
-  const long long chunks = (N + qmax - 1) / qmax;
-  const long long qc = (N + chunks - 1) / chunks;
-  *QC = (int)qc;
-  carve_fwd(nullptr, qc * k, D, E, H, P, premul != 0, floats);
+  fwd_plan(N, D, E, H, P, k, premul != 0, false, budget, QC, floats);
 }
 
-extern "C" long long o4d_sattn_smem_bytes(int D, int E, int P) {
-  return (long long)(sattn_smem_floats(D, E, P) * sizeof(float));
+// The chunking and workspace of one o4d_sattn / o4d_sattn_bf16 launch.
+extern "C" void o4d_sattn_plan(int N, int D, int E, int H, int P, int k, long long budget,
+                               int* QC, long long* floats) {
+  fwd_plan(N, D, E, H, P, k, false, true, budget, QC, floats);
 }
 
 namespace {
@@ -1436,67 +1394,42 @@ extern "C" int o4d_attn_g_bf16(const void* qpos, const void* qproj, const void* 
 
 namespace {
 
-template <bool RND>
+template <bool BF16>
 int sattn(const void* q, const void* gf, const void* rel, const void* wk, const void* wv,
-          const void* wp1, const void* bp1, const void* wp2, const void* bp2,
-          const void* wa1, const void* ba1, const void* wa2, const void* ba2, void* out,
-          int B, int N, int D, int E, int H, int P, int k, void* stream) {
+          const void* wp1, const void* bp1, const void* wp2, const void* bp2, const void* wa1,
+          const void* ba1, const void* wa2, const void* ba2, void* out, void* ws, int B, int N,
+          int D, int E, int H, int P, int k, int QC, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > kRows) return (int)cudaErrorInvalidValue;
-  SattnArgs a = {};
-  a.qproj = (const float*)q;
-  a.gf = (const float*)gf;
-  a.rel = (const float*)rel;
-  a.wk = (const float*)wk;
-  a.wv = (const float*)wv;
-  a.wp1 = (const float*)wp1;
-  a.bp1 = (const float*)bp1;
-  a.wp2 = (const float*)wp2;
-  a.bp2 = (const float*)bp2;
-  a.wa1 = (const float*)wa1;
-  a.ba1 = (const float*)ba1;
-  a.wa2 = (const float*)wa2;
-  a.ba2 = (const float*)ba2;
-  a.out = (float*)out;
-  a.N = N;
-  a.D = D;
-  a.E = E;
-  a.H = H;
-  a.P = P;
-  a.k = k;
-  a.inv_sqrt_d = 1.0f / sqrtf((float)D);
-  const size_t smem = sattn_smem_floats(D, E, P) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sattn_kernel<RND>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tq_per = kRows / k;
-  dim3 grid((N + tq_per - 1) / tq_per, B);
-  sattn_kernel<RND><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (!fwd_shape_ok(B, N, D, E, k, QC)) return (int)cudaErrorInvalidValue;
+  FwdCall c = fwd_call(q, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, ws, B, N, D, E,
+                       H, P, k, QC);
+  c.rel = (const float*)rel;
+  c.gf = (const float*)gf;
+  return run_fwd<kSelf, BF16>(c, (cudaStream_t)stream);
 }
 
 }  // namespace
 
 // The encoder's fused self-attention: q (B, N, D) projected queries, gf
 // (B, N, k, E) raw neighbour features (row n k + j is query n's j-th
-// neighbour), rel (B, N, k, 3) coordinate deltas; out (B, N, D).
+// neighbour), rel (B, N, k, 3) coordinate deltas, the weights as o4d_attn's
+// per-row mode; out (B, N, D); ws: o4d_sattn_plan's workspace for QC.
 extern "C" int o4d_sattn(const void* q, const void* gf, const void* rel, const void* wk,
-                         const void* wv, const void* wp1, const void* bp1,
-                         const void* wp2, const void* bp2, const void* wa1,
-                         const void* ba1, const void* wa2, const void* ba2, void* out,
-                         int B, int N, int D, int E, int H, int P, int k, void* stream) {
-  return sattn<false>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, B, N,
-                      D, E, H, P, k, stream);
+                         const void* wv, const void* wp1, const void* bp1, const void* wp2,
+                         const void* bp2, const void* wa1, const void* ba1, const void* wa2,
+                         const void* ba2, void* out, void* ws, int B, int N, int D, int E, int H,
+                         int P, int k, int QC, void* stream) {
+  return sattn<false>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, ws, B, N,
+                      D, E, H, P, k, QC, stream);
 }
 
-// o4d_sattn in the bf16 compute mode (the same arguments; the weight
-// kernels rounded to bf16 by the caller or not, the kernel rounds every
-// product's operands): _fwd_kernel at compute_dtype=bfloat16.
+// o4d_sattn in the bf16 compute mode (the same arguments; wp1 and wp2
+// rounded to bf16 by the caller): _fwd_kernel at compute_dtype=bfloat16.
 extern "C" int o4d_sattn_bf16(const void* q, const void* gf, const void* rel, const void* wk,
-                              const void* wv, const void* wp1, const void* bp1,
-                              const void* wp2, const void* bp2, const void* wa1,
-                              const void* ba1, const void* wa2, const void* ba2, void* out,
-                              int B, int N, int D, int E, int H, int P, int k, void* stream) {
-  return sattn<true>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, B, N, D,
-                     E, H, P, k, stream);
+                              const void* wv, const void* wp1, const void* bp1, const void* wp2,
+                              const void* bp2, const void* wa1, const void* ba1, const void* wa2,
+                              const void* ba2, void* out, void* ws, int B, int N, int D, int E,
+                              int H, int P, int k, int QC, void* stream) {
+  return sattn<true>(q, gf, rel, wk, wv, wp1, bp1, wp2, bp2, wa1, ba1, wa2, ba2, out, ws, B, N,
+                     D, E, H, P, k, QC, stream);
 }

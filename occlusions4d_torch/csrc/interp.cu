@@ -24,12 +24,29 @@
 // rows read do (302 MB per cv1 chunk at k 8). Design: one thread block per
 // query; the k weights and row addresses are formed once in shared memory,
 // then the threads stride over the E channels so that both the row reads and
-// the output write are coalesced. The backward is a pure write pass, bound by
-// its 841 MB of dg at one cv1 train frame (0.27 ms): one block per query forms
-// the k normalised weights once in shared memory and writes all K_ext rows of
-// the query, zeros included, its threads striding each row's E + 3 floats.
-// (Two variants that wrote 8 queries' rows, or whole (b, j) planes, as
-// contiguous runs measured no faster on the H100; see PERF.md.)
+// the output write are coalesced.
+//
+// The backward is a pure write pass, bound by its 841 MB of dg at one cv1
+// train frame (0.27 ms at 3.35 TB/s; chip_smoke.py times the card's own write
+// ceiling for this buffer beside it: dg.zero_() and o4d_fill16, a bare
+// 16-byte store loop). Design (a block per query, whose thread 0 formed
+// the weights behind a barrier before the block wrote 14 rows of 1164 bytes
+// in planes 20 MB apart with 4-byte stores, 3 of 4 rows off a 16-byte
+// boundary, wrote at 1.1 TB/s): a block of 1024 threads takes kBwdQ = 32
+// consecutive queries of one example, whose rows in each plane (b, j) form
+// one contiguous run of 32 (E + 3) floats. One warp per query forms its k
+// weights, one lane per neighbour, and the denominator by shuffles in j
+// order (the arithmetic of the first port and of the TPU kernel:
+// 1 / (sqrt(max(kd, 0)) + eps), summed from zero in j order, w_j / den
+// times go, so the same bits); then the block writes the 14 planes' runs,
+// zero planes j >= k included, as evict-first 16-byte stores (st.global.cs:
+// the buffer is 17 times the L2; plain stores measured 13% slower), scalar
+// stores only at a run's unaligned head and ragged tail; go comes from L1
+// after the first plane. Measured at the cv1 frame
+// (tools/profile_interp_g_bwd.py, PERF.md): 4, 8, 16 and 32 queries a block
+// took 0.42, 0.39, 0.37 and 0.36 ms, 64 0.38; a block per (query group,
+// plane), which rereads go from L2 for each plane, 0.43; staging each run
+// through shared memory 0.47.
 //
 // The bf16 compute mode, o4d_interp_bf16 and o4d_interp_g_bf16 (the TPU
 // kernels' compute_dtype=bfloat16, precision='fast'): the features are read
@@ -41,6 +58,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -82,28 +100,81 @@ __global__ void interp_kernel(const int* __restrict__ ki,
   }
 }
 
-__global__ void interp_g_bwd_kernel(const float* __restrict__ kd,
-                                    const float* __restrict__ go,
-                                    float* __restrict__ dg, int N, int E, int KS,
-                                    int KE, int k, float eps) {
-  __shared__ float wn[32];
-  const int n = blockIdx.x, b = blockIdx.y, C = E + 3;
-  const size_t row = (size_t)b * N + n;
-  if (threadIdx.x == 0) {
-    float w[32], den = 0.f;
-    for (int j = 0; j < k; ++j) {
-      w[j] = 1.0f / (sqrtf(fmaxf(kd[row * KS + j], 0.f)) + eps);
-      den += w[j];
-    }
-    for (int j = 0; j < k; ++j) wn[j] = w[j] / den;
+constexpr int kBwdQ = 32;  // queries per interp_g_bwd block: one warp each
+constexpr int kBwdThreads = 32 * kBwdQ;
+
+__global__ void __launch_bounds__(kBwdThreads) interp_g_bwd_kernel(
+    const float* __restrict__ kd, const float* __restrict__ go, float* __restrict__ dg, int N,
+    int E, int KS, int KE, int k, float eps) {
+  __shared__ float wn[kBwdQ][32];  // wn[q][j] = w_j / den of query n0 + q
+  const int b = blockIdx.y, n0 = blockIdx.x * kBwdQ, nq = min(kBwdQ, N - n0), C = E + 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < nq) {
+    const size_t row = (size_t)b * N + n0 + warp;
+    const float w = lane < k ? 1.0f / (sqrtf(fmaxf(kd[row * KS + lane], 0.f)) + eps) : 0.f;
+    float den = 0.f;
+    for (int j = 0; j < k; ++j) den += __shfl_sync(0xffffffffu, w, j);
+    if (lane < k) wn[warp][lane] = w / den;
   }
   __syncthreads();
-  const float* g = go + row * E;
+  const float* g = go + ((size_t)b * N + n0) * E;  // the block's go rows (nq, E).
+  const int L = nq * C;                              // floats of one plane's run.
   for (int j = 0; j < KE; ++j) {
-    float* out = dg + (((size_t)b * KE + j) * N + n) * C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-      out[c] = (j < k && c < E) ? wn[j] * g[c] : 0.f;
+    float* run = dg + (((size_t)b * KE + j) * N + n0) * C;
+    const int head = min(L, (int)((4 - (((uintptr_t)run >> 2) & 3)) & 3));
+    const int body = (L - head) >> 2, tail = head + 4 * body;
+    float4* run4 = reinterpret_cast<float4*>(run + head);  // 16-byte aligned.
+    if (j >= k) {
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = threadIdx.x; i < body; i += kBwdThreads) __stcs(run4 + i, z);
+      if (threadIdx.x < head) __stcs(run + threadIdx.x, 0.f);
+      if (threadIdx.x < L - tail) __stcs(run + tail + threadIdx.x, 0.f);
+      continue;
+    }
+    // The value at query q, column c of the run.
+    auto value = [&](int q, int c) {
+      return c < E ? wn[q][j] * __ldg(g + (size_t)q * E + c) : 0.f;
+    };
+    for (int i = threadIdx.x; i < body; i += kBwdThreads) {
+      const int pos = head + 4 * i;
+      int q = pos / C, c = pos - q * C;
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v[u] = value(q, c);
+        if (++c == C) c = 0, ++q;
+      }
+      __stcs(run4 + i, make_float4(v[0], v[1], v[2], v[3]));
+    }
+    if (threadIdx.x < head) __stcs(run + threadIdx.x, value(0, threadIdx.x));
+    if (threadIdx.x < L - tail) {
+      const int pos = tail + threadIdx.x, q = pos / C;
+      __stcs(run + pos, value(q, pos - q * C));
+    }
   }
+}
+
+// A bare write pass: out[0 .. n) = v, 16-byte stores (evict-first with CS)
+// over the aligned body, 4-byte stores at the ends. The card's write
+// ceiling for a buffer of o4d_interp_g_bwd's size (chip_smoke.py); no model
+// path runs it.
+template <bool CS>
+__global__ void fill16_kernel(float* __restrict__ out, long long n, float v) {
+  const long long a = (4 - (((uintptr_t)out >> 2) & 3)) & 3;
+  const int head = (int)(a < n ? a : n);
+  const long long n4 = (n - head) >> 2;
+  float4* out4 = reinterpret_cast<float4*>(out + head);
+  const float4 x = make_float4(v, v, v, v);
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += step) {
+    if (CS)
+      __stcs(out4 + i, x);
+    else
+      out4[i] = x;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < head) out[threadIdx.x] = v;
+  const long long tail = head + 4 * n4;
+  if (blockIdx.x == 0 && threadIdx.x < n - tail) out[tail + threadIdx.x] = v;
 }
 
 template <bool RND>
@@ -170,8 +241,20 @@ extern "C" int o4d_interp_g_bwd(const void* kd, const void* go, void* dg, int B,
                                 void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > 32 || k > KS || k > KE) return (int)cudaErrorInvalidValue;
-  dim3 grid(N, B);
-  interp_g_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  dim3 grid((N + kBwdQ - 1) / kBwdQ, B);
+  interp_g_bwd_kernel<<<grid, kBwdThreads, 0, (cudaStream_t)stream>>>(
       (const float*)kd, (const float*)go, (float*)dg, N, E, KS, KE, k, eps);
+  return (int)cudaGetLastError();
+}
+
+// out (n floats, 4-byte aligned) = v; evict_first: st.global.cs stores.
+extern "C" int o4d_fill16(void* out, long long n, float v, int evict_first, void* stream) {
+  if (n <= 0) return 0;
+  const long long n4 = n / 4 + 1;
+  const unsigned blocks = (unsigned)(n4 < 132LL * 64 * 256 ? (n4 + 255) / 256 : 132LL * 64);
+  if (evict_first)
+    fill16_kernel<true><<<blocks, 256, 0, (cudaStream_t)stream>>>((float*)out, n, v);
+  else
+    fill16_kernel<false><<<blocks, 256, 0, (cudaStream_t)stream>>>((float*)out, n, v);
   return (int)cudaGetLastError();
 }

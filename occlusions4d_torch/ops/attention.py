@@ -596,7 +596,10 @@ def interp_g_bwd_plain(kd, go, k, k_ext, E, eps):
     :param kd (B, N, >=k) f32; go (B, N, E). :return dg (B, k_ext, N, E + 3).'''
     B, N = go.shape[:2]
     w = _interp_weights(kd, k, eps)
-    wn = (w / w.sum(-1, keepdim=True)).transpose(1, 2)
+    den = w[..., 0]
+    for j in range(1, k):  # summed in j order, as the TPU kernel and the CUDA one.
+        den = den + w[..., j]
+    wn = (w / den[..., None]).transpose(1, 2)
     dg = torch.zeros((B, k_ext, N, E + 3), dtype=torch.float32, device=go.device)
     dg[:, :k, :, :E] = wn[..., None] * go[:, None]
     return dg
@@ -1029,9 +1032,10 @@ def attn_bwd_rows_plain(q_proj, rel, rows, params, go, premul, qc, slices=2,
     return dq, drows, grads
 
 
-def attn_fwd_rows_plain(q_proj, rel, rows, params, premul, qc, product=None):
-    '''The forward kernels' decomposition (csrc/attn.cu o4d_attn and
-    o4d_attn_g) in plain PyTorch, on the rows of every query whatever the
+def attn_fwd_rows_plain(q_proj, rel, rows, params, premul, qc, product=None,
+                        compute_dtype=torch.float32):
+    '''The forward kernels' decomposition (csrc/attn.cu o4d_attn, o4d_attn_g
+    and o4d_sattn) in plain PyTorch, on the rows of every query whatever the
     route: per chunk of qc queries of one example, theta from rel, the rows'
     k and v (premul: the rows are [k | v]; per-row: F Wk and F Wv), hpre =
     (q - k) + theta; per tile of 64 rows, gamma in chunks of 128 hidden
@@ -1039,19 +1043,23 @@ def attn_fwd_rows_plain(q_proj, rel, rows, params, premul, qc, product=None):
     A2[chunk], the logits one running sum across the chunks; then per query
     and channel the softmax over its k rows and the weighted sum of v +
     theta, each summed in j order.
-    :param q_proj (B, N, D); rel (B, N, k, 3) = q_pos - the keys' positions;
-        rows (B, N, k, 2D) projected [k | v] in premul mode, else the raw
-        features F (B, N, k, E).
+    :param q_proj (B, N, D); rel (B, N, k, 3) = q_pos - the keys' positions
+        (the self-attention's coordinate deltas as given); rows (B, N, k, 2D)
+        projected [k | v] in premul mode, else the raw features F (B, N, k, E).
     :param product: (a, b, c) -> c + a b for the products the kernel runs on
         the tensor cores (c None: a b); default the f32 matrix product.
+    :param compute_dtype: torch.bfloat16, the kernels' bf16 mode: both
+        operands of every product rounded to bf16 (rel, theta's hidden
+        layer, F, hpre, h and the weight kernels), every sum f32.
     :return (B, N, D) in q_proj's dtype (the weights cast to it).'''
     if product is None:
         def product(a, b, c):
             return a @ b if c is None else c + a @ b
+    r = _rounder(_is_bf16(compute_dtype))
     tile, hc = 64, 128  # the kernel's rows per tile and hidden columns per chunk.
     B, N, k, _ = rel.shape
     D, dt, dev = q_proj.shape[-1], q_proj.dtype, q_proj.device
-    w = {n: params[n]['kernel'].to(dt) for n in _MLP + ('to_k', 'to_v')
+    w = {n: r(params[n]['kernel'].to(dt)) for n in _MLP + ('to_k', 'to_v')
          if n in params and not (premul and n in ('to_k', 'to_v'))}
     bias = {n: params[n]['bias'].to(dt) for n in _MLP}
     H = w['attn_mlp_0'].shape[1]
@@ -1063,21 +1071,21 @@ def attn_fwd_rows_plain(q_proj, rel, rows, params, premul, qc, product=None):
             R = nq * k
             rl = rel[b, n0:n1].reshape(R, 3)
             x = rows[b, n0:n1].reshape(R, -1)
-            th = torch.relu(rl @ w['pos_mlp_0'] + bias['pos_mlp_0']) @ w['pos_mlp_2'] \
+            th = r(torch.relu(r(rl) @ w['pos_mlp_0'] + bias['pos_mlp_0'])) @ w['pos_mlp_2'] \
                 + bias['pos_mlp_2']
             if premul:
                 kk, vv = x[:, :D], x[:, D:]
             else:
-                kk = product(x, w['to_k'], None)
-                vv = product(x, w['to_v'], None)
-            hp = (q_proj[b, n0:n1].repeat_interleave(k, 0) - kk) + th
+                kk = product(r(x), w['to_k'], None)
+                vv = product(r(x), w['to_v'], None)
+            hp = r((q_proj[b, n0:n1].repeat_interleave(k, 0) - kk) + th)
             lg = torch.empty((R, D), dtype=dt, device=dev)
             for t0 in range(0, R, tile):
                 a, acc = hp[t0:t0 + tile], None
                 for h0 in range(0, H, hc):
                     h = torch.relu(product(a, w['attn_mlp_0'][:, h0:h0 + hc], None)
                                    + bias['attn_mlp_0'][h0:h0 + hc])
-                    acc = product(h, w['attn_mlp_2'][h0:h0 + hc], acc)
+                    acc = product(r(h), w['attn_mlp_2'][h0:h0 + hc], acc)
                 lg[t0:t0 + tile] = acc
             lg = ((lg + bias['attn_mlp_2']) * (1.0 / math.sqrt(D))).view(nq, k, D)
             vpe = (vv + th).view(nq, k, D)
@@ -1095,15 +1103,14 @@ def attn_fwd_rows_plain(q_proj, rel, rows, params, premul, qc, product=None):
 def _attn_lib():
     '''The forward kernels' library, its size queries typed.'''
     lib = _build.library('attn')
-    for fn in (lib.o4d_attn_smem_bytes, lib.o4d_sattn_smem_bytes):
-        fn.argtypes = [ctypes.c_int] * 3
-        fn.restype = ctypes.c_longlong
+    lib.o4d_attn_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.o4d_attn_smem_bytes.restype = ctypes.c_longlong
     lib.o4d_attn_max_width.argtypes = []
     lib.o4d_attn_max_width.restype = ctypes.c_int
-    lib.o4d_attn_plan.restype = None
-    lib.o4d_attn_plan.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_longlong]
-                                  + [ctypes.POINTER(ctypes.c_int),
-                                     ctypes.POINTER(ctypes.c_longlong)])
+    out = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+    lib.o4d_attn_plan.restype = lib.o4d_sattn_plan.restype = None
+    lib.o4d_attn_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_longlong] + out
+    lib.o4d_sattn_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_longlong] + out
     return lib
 
 
@@ -1112,13 +1119,14 @@ def _attn_lib():
 _FWD_BUDGET = 1 << 30
 
 
-def _fwd_plan(lib, what, device, N, D, E, H, P, k, premul):
-    '''(QC, f32 workspace) of one o4d_attn / o4d_attn_g launch: QC queries
-    per chunk (csrc/attn.cu o4d_attn_plan), the chunk's per-row operands
-    within _FWD_BUDGET bytes; the workspace also holds the weights in
-    fragment order. Raises NotImplementedError for widths the tile does not
-    take: max(D, E) above o4d_attn_max_width() (560, where the tile's rows
-    fill the block's shared memory; D above 416 runs in column blocks).'''
+def _fwd_plan(lib, what, device, N, D, E, H, P, k, premul, self_rows=False):
+    '''(QC, f32 workspace) of one o4d_attn / o4d_attn_g launch (self_rows:
+    o4d_sattn / o4d_sattn_bf16): QC queries per chunk (csrc/attn.cu
+    o4d_attn_plan, o4d_sattn_plan), the chunk's per-row operands within
+    _FWD_BUDGET bytes; the workspace also holds the weights in fragment
+    order. Raises NotImplementedError for widths the tile does not take:
+    max(D, E) above o4d_attn_max_width() (560, where the tile's rows fill
+    the block's shared memory; D above 416 runs in column blocks).'''
     width = lib.o4d_attn_max_width()
     smem = lib.o4d_attn_smem_bytes(D, E, P)
     if max(D, E) > width or smem > _SMEM_LIMIT:
@@ -1126,8 +1134,11 @@ def _fwd_plan(lib, what, device, N, D, E, H, P, k, premul):
                                   f'{_SMEM_LIMIT} B of shared memory, it needs {smem}); '
                                   f'got D={D}, E={E}')
     qc, n_f = ctypes.c_int(), ctypes.c_longlong()
-    lib.o4d_attn_plan(N, D, E, H, P, k, int(premul), _FWD_BUDGET, ctypes.byref(qc),
-                      ctypes.byref(n_f))
+    if self_rows:
+        lib.o4d_sattn_plan(N, D, E, H, P, k, _FWD_BUDGET, ctypes.byref(qc), ctypes.byref(n_f))
+    else:
+        lib.o4d_attn_plan(N, D, E, H, P, k, int(premul), _FWD_BUDGET, ctypes.byref(qc),
+                          ctypes.byref(n_f))
     return qc.value, torch.empty((n_f.value,), dtype=torch.float32, device=device)
 
 

@@ -12,10 +12,10 @@ features and rel[n, j] = pos_n - pos_neighbour,
 with the softmax per channel over the K neighbours.
 
 `fused_gathered_attention` is a torch.autograd.Function: on CUDA tensors the
-forward runs o4d_sattn (csrc/attn.cu) and the backward o4d_sattn_bwd
-(csrc/attn_bwd.cu); on CPU tensors the plain versions below, which spell out
-the kernels' formulas (pallas_self_attention.py:159-214), not autograd of a
-chain. Gradients reach q, gf and the ten weight tensors; rel is a constant
+forward runs o4d_sattn (csrc/attn.cu, the decoder's forward pipeline over
+gf and rel as given) and the backward o4d_sattn_bwd (csrc/attn_bwd.cu); on
+CPU tensors the plain versions below, which spell out the kernels' formulas
+(pallas_self_attention.py:159-214), not autograd of a chain. Gradients reach q, gf and the ten weight tensors; rel is a constant
 (the module stop-gradients the positions), as in the JAX custom VJP. Like it,
 the operator saves only its inputs.
 
@@ -40,7 +40,7 @@ import math
 import torch
 
 from . import _build
-from .attention import (_SMEM_LIMIT, _attn_bwd_lib, _attn_lib, _bwd_plan, _cuda_f32,
+from .attention import (_attn_bwd_lib, _attn_lib, _bwd_plan, _cuda_f32, _fwd_plan,
                         _grad_names, _is_bf16, _params, _rounder, _split_weight_grads,
                         _weight_operands, _weight_ptrs, round_bf16)
 
@@ -153,18 +153,15 @@ def _operands(q, gf, rel, params, k, bf16):
 def _sattn_cuda(q, gf, rel, params, k, bf16=False):
     B, N, D, E, H, P, weights = _operands(q, gf, rel, params, k, bf16)
     lib = _attn_lib()
-    smem = lib.o4d_sattn_smem_bytes(D, E, P)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(f'sattn kernel needs {smem} B of shared memory at '
-                                  f'D={D}, E={E}; the H100 block limit is {_SMEM_LIMIT}')
+    QC, ws = _fwd_plan(lib, 'sattn', q.device, N, D, E, H, P, k, False, self_rows=True)
     out = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
     name = 'sattn_bf16' if bf16 else 'sattn'
     fn = getattr(lib, f'o4d_{name}')
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        _build.check(fn(*[_build.ptr(t) for t in [q, gf, rel] + weights + [out]],
-                        B, N, D, E, H, P, k, _build.stream_ptr(q.device)), name)
+        _build.check(fn(*[_build.ptr(t) for t in [q, gf, rel] + weights + [out, ws]],
+                        B, N, D, E, H, P, k, QC, _build.stream_ptr(q.device)), name)
     LAUNCHES[name] += 1
     return out
 
@@ -236,7 +233,7 @@ def fused_gathered_attention(q_proj, gathered_feats, rel, params, k,
         constant).
     :param params: {'to_k', 'to_v' (bias-free), 'pos_mlp_0', 'pos_mlp_2',
         'attn_mlp_0', 'attn_mlp_2'}, each {'kernel' (in, out), ['bias']}.
-    :param k (int): neighbours, K; at most 32 (the kernels' 32-row tile).
+    :param k (int): neighbours, K; 1 to 32 (the kernels' limit).
     :param compute_dtype: torch.float32, or torch.bfloat16 (the kernels'
         bf16 mode; gf and the weight kernels rounded to bf16 here, as the
         JAX wrapper casts them, so that their gradients are rounded too).

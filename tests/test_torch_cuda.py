@@ -20,7 +20,9 @@ The backward kernels are also checked to give the same bits twice. The
 encoder's fused self-attention kernels (sattn, sattn_bwd) take the attention
 tolerances, and the FPS cluster entry is exact like the one-block kernel.
 Their bf16 mode (sattn_bf16, sattn_bwd_bf16) takes chip_smoke.py's bf16
-gates against the plain bf16 versions, which the f32 kernels fail.
+gates against the plain bf16 versions, which the f32 kernels fail. The
+gathered interpolation's backward (interp_g_bwd) equals its plain version
+bit for bit (the same arithmetic in the same order).
 '''
 
 import importlib
@@ -350,14 +352,16 @@ _ATTN_FWD_EDGE = {'k1_n301': (2, 301, 97, 40, 24, 1, 3, 1),
                   'k14_chunks': (2, 301, 97, 40, 24, 14, 14, 5),
                   'd416_e288': (1, 150, 120, 416, 288, 14, 16, 1),
                   'd448_e320': (1, 150, 120, 448, 320, 14, 16, 1),
-                  'd544_e288': (1, 150, 120, 544, 288, 14, 16, 1)}
+                  'd544_e288': (1, 150, 120, 544, 288, 14, 16, 1),
+                  'd4_e12': (2, 301, 97, 4, 12, 14, 16, 1)}
 
 
 @pytest.mark.parametrize('case', sorted(_ATTN_FWD_EDGE))
 def test_attn_forward_redesign_edge_shapes(dev, case, monkeypatch):
     '''The tensor-core attention forward (csrc/attn.cu o4d_attn, o4d_attn_g)
     at edge shapes: k 1, 14 and 32, N 1 and 301 (no multiple of the 64-row
-    tile), D 40 and E 24 off the 8-column fragments, masked keys, rows
+    tile), D 40 and E 24 off the 8-column fragments, D 4 with E 12 (theta's
+    widest row groups), masked keys, rows
     gathered past k, several query chunks, the gv1 widths D 416, E 288, and
     decoders wider than one 416-column block (D 448 with E 320, D 544).
     attn_g and attn in both projection modes against their plain versions,
@@ -661,27 +665,40 @@ def test_nn1_bidir_kernel_matches_plain(dev, case):
         assert torch.equal(ka, pa) and torch.equal(kb, pb)
 
 
-def _sattn_case(rng, dev, B, N, K, D):
+def _sattn_case(rng, dev, B, N, K, D, E=None):
+    E = D if E is None else E
     q = _t(rng.randn(B, N, D).astype(np.float32), dev)
-    gf = _t(rng.randn(B, N, K, D).astype(np.float32), dev)
+    gf = _t(rng.randn(B, N, K, E).astype(np.float32), dev)
     rel = _t((rng.rand(B, N, K, 3) * 2 - 1).astype(np.float32), dev)
-    return q, gf, rel, _attn_params(rng, dev, D, D)
+    return q, gf, rel, _attn_params(rng, dev, D, E)
+
+
+# (D, E) of the self-attention kernels' card tests: the encoder's widths
+# (feature sizes 36 and 40 reach D = E = 36 to 320, each level its own
+# column block of the forward's tile), E != D both ways (a narrow block
+# with wide rows, a wide block with narrow rows) and D 4, where theta's row
+# groups reach their cap.
+_SATTN_DIMS = [(36, 36), (72, 72), (144, 144), (288, 288), (320, 320), (36, 288), (144, 40),
+               (4, 4), (4, 20)]
+_SATTN_IDS = [f'd{d}_e{e}' for d, e in _SATTN_DIMS]
 
 
 @pytest.mark.parametrize('K', [8, 16, 32])
-@pytest.mark.parametrize('D', [36, 288, 320])
-def test_sattn_kernels_match_plain(dev, K, D):
+@pytest.mark.parametrize('D,E', _SATTN_DIMS, ids=_SATTN_IDS)
+def test_sattn_kernels_match_plain(dev, K, D, E):
     '''o4d_sattn and o4d_sattn_bwd against their plain versions at odd N
     (ragged against every query tile), B 2, the encoder's widths: the
-    forward, d(q), d(gf) and the ten weight gradients; the backward twice
-    with the same bits.'''
-    rng = np.random.RandomState(60 + K + D)
+    forward, d(q), d(gf) and the ten weight gradients; each twice with the
+    same bits.'''
+    rng = np.random.RandomState(60 + K + D + E)
     B, N = 2, 203
-    q, gf, rel, params = _sattn_case(rng, dev, B, N, K, D)
+    q, gf, rel, params = _sattn_case(rng, dev, B, N, K, D, E)
     with torch.no_grad():
         out = t_sattn.fused_gathered_attention(q, gf, rel, params, K)
+        out2 = t_sattn.fused_gathered_attention(q, gf, rel, params, K)
         ref = t_sattn.sattn_plain(q, gf, rel, params)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+    assert torch.equal(out, out2)
     go = _t(rng.randn(B, N, D).astype(np.float32), dev)
     dq, dgf, dw = t_sattn.sattn_bwd(q, gf, rel, params, K, go)
     dq2, dgf2, dw2 = t_sattn.sattn_bwd(q, gf, rel, params, K, go)
@@ -694,6 +711,53 @@ def test_sattn_kernels_match_plain(dev, K, D):
         _close(dw[name], rw[name])
         assert torch.equal(dw[name], dw2[name]), name
     assert torch.equal(dq, dq2) and torch.equal(dgf, dgf2)
+
+
+def test_sattn_forward_in_query_chunks_and_above_the_tile_width(dev, monkeypatch):
+    '''o4d_sattn and o4d_sattn_bf16 with the per-row budget shrunk so that
+    each example's queries run in five chunks (the last short) give the bits
+    of one chunk (every kernel of the pipeline is row-local); max(D, E)
+    above the tile's 560 raises.'''
+    rng = np.random.RandomState(64)
+    B, N, K, D = 2, 301, 16, 72
+    q, gf, rel, params = _sattn_case(rng, dev, B, N, K, D)
+    with torch.no_grad():
+        whole = [t_sattn.fused_gathered_attention(q, gf, rel, params, K, compute_dtype=cd)
+                 for cd in (torch.float32, torch.bfloat16)]
+        monkeypatch.setattr(t_attn, '_FWD_BUDGET', 4 * K * 3 * D * (-(-N // 5)))
+        parts = [t_sattn.fused_gathered_attention(q, gf, rel, params, K, compute_dtype=cd)
+                 for cd in (torch.float32, torch.bfloat16)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(whole, parts))
+    torch.testing.assert_close(whole[0], t_sattn.sattn_plain(q, gf, rel, params),
+                               atol=1e-4, rtol=1e-3)
+    width = t_attn._attn_lib().o4d_attn_max_width()
+    q, gf, rel, params = _sattn_case(rng, dev, 1, 9, 8, 36, width + 8)
+    with pytest.raises(NotImplementedError):
+        t_sattn.fused_gathered_attention(q, gf, rel, params, 8)
+
+
+@pytest.mark.parametrize('N', [200, 201, 202, 203])
+@pytest.mark.parametrize('k', [1, 8, 14])
+@pytest.mark.parametrize('E', [30, 288])
+def test_interp_g_bwd_kernel_bit_equal_to_plain(dev, N, k, E):
+    '''o4d_interp_g_bwd (a group of 32 queries' rows written as one run per
+    plane) equals interp_g_bwd_plain bit for bit, zeros included, B 2: N = 0
+    to 3 mod 4 (the runs' 16-byte offsets differ plane by plane; the last
+    group short), E + 3 = 33 and 291, k 1, 8 and K_ext 14 (no zero planes); zero and negative
+    squared distances; twice with the same bits.'''
+    rng = np.random.RandomState(90 + N + k + E)
+    B, KS, k_ext = 2, 16, 14
+    kd = rng.rand(B, N, KS).astype(np.float32) * 4
+    kd[:, :7, 0] = 0.0
+    kd[:, 7:9, 0] = -1e-7
+    kd = _t(kd, dev)
+    go = _t(rng.randn(B, N, E).astype(np.float32), dev)
+    o1, o2 = (t_attn.interp_g_bwd(kd, go, k, k_ext, E, 1e-4) for _ in range(2))
+    ref = t_attn.interp_g_bwd_plain(kd, go, k, k_ext, E, 1e-4)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, ref) and torch.equal(o1, o2)
+    assert not o1[:, k:].any() and not o1[..., E:].any()
 
 
 def test_fused_self_attention_module_launches_kernels_and_matches_chain(dev):
@@ -1261,8 +1325,11 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize('K', [8, 16, 32])
-@pytest.mark.parametrize('D', [36, 288])
-def test_bf16_sattn_kernels_match_plain(dev, K, D):
+@pytest.mark.parametrize('D,E', [(36, 36), (72, 72), (144, 144), (288, 288), (36, 288),
+                                 (144, 40), (4, 20)],
+                         ids=['d36_e36', 'd72_e72', 'd144_e144', 'd288_e288', 'd36_e288',
+                              'd144_e40', 'd4_e20'])
+def test_bf16_sattn_kernels_match_plain(dev, K, D, E):
     '''o4d_sattn_bf16 and o4d_sattn_bwd_bf16 (mixed_precision) against
     their plain bf16 versions at odd N, B 2: the forward within relative L2
     2e-4, each gradient within 5e-3 (the logits' bias, zero in truth, atol
@@ -1270,9 +1337,9 @@ def test_bf16_sattn_kernels_match_plain(dev, K, D):
     twice with the same bits, dgf and the weight kernels' gradients bf16
     values; the f32 kernels fail the same gates.'''
     BF = torch.bfloat16
-    rng = np.random.RandomState(80 + K + D)
+    rng = np.random.RandomState(80 + K + D + E)
     B, N = 2, 203
-    q, gf, rel, params = _sattn_case(rng, dev, B, N, K, D)
+    q, gf, rel, params = _sattn_case(rng, dev, B, N, K, D, E)
     gf = t_attn.round_bf16(gf)
     go = _t(rng.randn(B, N, D).astype(np.float32), dev)
     _build = importlib.import_module('occlusions4d_torch.ops._build')

@@ -13,7 +13,19 @@ each printing one JSON line:
      chip_smoke_build.log);
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
      card at the gv1 shapes of its path, with kernel, plain and library times
-     (CUDA events); each attention forward line (attn premul and per-row
+     (CUDA events); the brute kNN (knn_brute, _KNN_BRUTE_CASES) at the
+     encoder's brute searches (B 1 and 3), the decoder's per-chunk search at
+     M 531 and 2124 with grid-ordered and random queries and the train
+     frames' searches, exact, the wrapper timed (ms) and its C entry on
+     prebuilt operands (entry_ms) at the lane count the rule picks and at 16
+     and 32 (each result exact), the plain version, cdist + sort, its
+     operation bound (8 f32 instructions a pair at the CUDA cores' 33.5 T/s;
+     the old 7 FLOP a pair at the FMA rate beside it) and the parent's
+     wrapper and entry times from PERF.md (_PARENT_MS, _PARENT_ENTRY_MS);
+     the interpolation wrappers and entries (interp, interp_bf16 at the gv1
+     chunk with random and grid-ordered queries, interp_g and interp_g_bf16
+     at the cv1 chunk) timed the same way, beside the parent's; each
+     attention forward line (attn premul and per-row
      at one gv1 decode chunk, premul also at the gv1 train frame, attn_g)
      with its TFLOP/s, its shares of the bf16 and 3xTF32 tensor-core
      bounds, its own peak memory, whether it beats its plain version and
@@ -199,6 +211,10 @@ _HBM_BPS = 3.35e12
 _F32_FLOPS = 67e12
 _BF16_TC_FLOPS = 989e12
 _TF32_TC_FLOPS = 495e12
+# f32 instructions per second of the CUDA cores (132 SMs x 128 lanes x 1.98
+# GHz): the rate of work that may not fuse into FMAs, such as the kNN's
+# separately rounded products and sums and its compares.
+_CUDA_CORE_IPS = 33.5e12
 
 # gv1 (bench.py's configuration of the JAX package).
 _GV1 = dict(n_points=14336, pt_feat_dim=36, up_down_blocks=3, transition_factor=3,
@@ -258,12 +274,37 @@ _MIXED_57K_STEP = dict(_MIXED_STEP['on'], gather=4, scatter=4)
 _GRAD_CHECK_Q = 1024
 # The times PERF.md's kernel tables record for the attention forward lines
 # (whose tile the self-attention now shares), the self-attention sums and
-# interp_g_bwd before the tile took the encoder's widths (NVIDIA H100 80GB
-# HBM3, 700.00 W); each such line prints its time beside it.
+# interp_g_bwd before the tile took the encoder's widths, and for the brute
+# kNN and the interpolations before their redesign (NVIDIA H100 80GB
+# HBM3, 700.00 W); each such line prints its time beside it. Every time is
+# the wrapper's (ms); _PARENT_ENTRY_MS holds the C entries' (entry_ms).
 _PARENT_MS = {'attn': 19.302, 'attn_per_row': 23.479, 'attn_bf16': 6.514,
               'attn_bf16_per_row': 8.231, 'attn_g': 24.031, 'attn_g_bf16': 8.335,
               'attn_train_frame': 30.195, 'interp_g_bwd': 0.747, 'sattn': 9.80,
-              'sattn_bf16': 10.84}
+              'sattn_bf16': 10.84,
+              # The brute kNN and the interpolations before their redesign:
+              # the mean of two runs of this script's lines on that tree.
+              'knn_brute:enc_4779x14336_k12': 0.9121, 'knn_brute:enc_4779x4779_k16': 0.4476,
+              'knn_brute:enc_1593x4779_k12': 0.3712, 'knn_brute:enc_1593x1593_k16': 0.2068,
+              'knn_brute:enc_531x1593_k12': 0.1636, 'knn_brute:enc_531x531_k16': 0.0944,
+              'knn_brute:enc_531x1593_k12_b3': 0.1664, 'knn_brute:enc_531x531_k16_b3': 0.0971,
+              'knn_brute:dec_gv1_chunk_random': 0.1590, 'knn_brute:dec_gv1_chunk_grid': 0.0723,
+              'knn_brute:dec_cv1_chunk_random': 0.3159, 'knn_brute:dec_cv1_chunk_grid': 0.1690,
+              'knn_brute:dec_gv1_train_frame': 0.2226, 'knn_brute:dec_cv1_train_frame': 0.5110,
+              'interp:random': 0.0624, 'interp_bf16:random': 0.0639, 'interp_g': 0.1355,
+              'interp_g_bf16': 0.1440}
+# The C entries' times on prebuilt operands before the redesign of the brute
+# kNN and the interpolations (tools/profile_knn_interp.py on that tree).
+_PARENT_ENTRY_MS = {
+    'knn_brute:enc_4779x14336_k12': 0.8995, 'knn_brute:enc_4779x4779_k16': 0.4278,
+    'knn_brute:enc_1593x4779_k12': 0.3597, 'knn_brute:enc_1593x1593_k16': 0.1956,
+    'knn_brute:enc_531x1593_k12': 0.1525, 'knn_brute:enc_531x531_k16': 0.0856,
+    'knn_brute:enc_531x1593_k12_b3': 0.1568, 'knn_brute:enc_531x531_k16_b3': 0.0885,
+    'knn_brute:dec_gv1_chunk_random': 0.1173, 'knn_brute:dec_gv1_chunk_grid': 0.0625,
+    'knn_brute:dec_cv1_chunk_random': 0.3042, 'knn_brute:dec_cv1_chunk_grid': 0.1567,
+    'knn_brute:dec_gv1_train_frame': 0.2087, 'knn_brute:dec_cv1_train_frame': 0.5004,
+    'interp:random': 0.0564, 'interp_bf16:random': 0.0592, 'interp:grid': 0.0515,
+    'interp_bf16:grid': 0.0549, 'interp_g': 0.1325, 'interp_g_bf16': 0.1349}
 _CHECK_CHUNK = 4096
 _REPLACES = {
     'knn_brute': 'occlusions4d_tpu/ops/pallas_knn.py:88; '
@@ -684,24 +725,29 @@ def attn_fwd_work(rows_n, n_q, m_keys, kv_w, D, E, H, P, per_row):
 
 
 def interp_bf16_line(torch, name, call, plain, library, library_what, b_ms, b_by, shape,
-                     f32_ms, flop):
+                     f32_ms, flop, entry, parent=None, parent_entry=None):
     """An interpolation kernel's bf16 mode against its plain bf16 version
     (atol 1e-5, rtol 1e-5, the f32 gate: exact bf16 products), twice for the
-    same bits, its time beside the f32 kernel's, the plain version's and the
-    library call's; emits the kernel line and returns its row."""
+    same bits, its wrapper's time (ms) and its C entry's (entry(): entry_ms)
+    beside the f32 kernel's, the plain version's, the library call's and the
+    parent's from PERF.md (wrapper and entry); emits the kernel line and
+    returns its row."""
     o_k, o_2, o_p = call(), call(), plain()
     torch.cuda.synchronize()
     err = max_err(o_k, o_p)
     ok = bool(torch.allclose(o_k, o_p, atol=1e-5, rtol=1e-5))
     repro = max_err(o_k, o_2)
     ms = cuda_ms(torch, call, 20)
+    e_ms = entry()
     plain_ms = cuda_ms(torch, plain, 5)
     lib_ms = cuda_ms(torch, library, 20)
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms, shape=shape, share_of_bound=b_ms / ms,
-               tflop_s=flop / ms / 1e9, f32_kernel_ms=f32_ms, repeat_max_abs_diff=repro)
+    row = dict(max_abs_err=err, ms=ms, entry_ms=e_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, shape=shape, share_of_bound=b_ms / ms,
+               entry_share_of_bound=b_ms / e_ms, tflop_s=flop / ms / 1e9, f32_kernel_ms=f32_ms,
+               repeat_max_abs_diff=repro)
     emit(dict(phase='kernel', name=name, agree=ok, tolerance='atol 1e-5, rtol 1e-5',
-              rel_l2_err=rel_l2(o_k, o_p), library=library_what, **row))
+              rel_l2_err=rel_l2(o_k, o_p), library=library_what, parent_ms_perf_md=parent,
+              parent_entry_ms_perf_md=parent_entry, **row))
     if not ok or repro != 0.0:
         raise AssertionError(f'{name} disagrees (max abs err {err}) or is not '
                              f'reproducible ({repro})')
@@ -1091,6 +1137,7 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
     ok = bool(torch.allclose(o_k, o_p, atol=1e-5, rtol=1e-5))
     route_diff = max_err(o_k, o_i)
     ms = cuda_ms(torch, interp_g, 20)
+    e_ms = interp_g_entry_ms(torch, t_attn, 'interp_g', kd, g, KI)
     plain_ms = cuda_ms(torch, lambda: t_attn.interp_g_plain(kd, g, KI, 1e-4), 5)
     idx_ms = cuda_ms(torch, lambda: t_attn.fused_knn_interp(qpos, pos2, feats2, KI,
                                                              knn=knn), 20)
@@ -1102,13 +1149,15 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
     shape = [N, M, KI, E]
     emit(dict(phase='kernel', name='interp_g', shape=shape, agree=ok, max_abs_err=err,
               tolerance='atol 1e-5, rtol 1e-5', index_route_max_abs_diff=route_diff,
-              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+              ms=ms, entry_ms=e_ms, plain_ms=plain_ms, library_ms=lib_ms,
               library="torch.einsum('bkn,bknc->bnc') of the normalised weights and rows",
-              index_route_interp_ms=idx_ms, bound_ms=b_ms, bound_by=b_by))
+              index_route_interp_ms=idx_ms, bound_ms=b_ms, bound_by=b_by,
+              parent_ms_perf_md=_PARENT_MS.get('interp_g'),
+              parent_entry_ms_perf_md=_PARENT_ENTRY_MS.get('interp_g')))
     if not ok:
         raise AssertionError(f'interp_g disagrees: max abs err {err}')
-    rows['interp_g'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms, shape=shape)
+    rows['interp_g'] = dict(max_abs_err=err, ms=ms, entry_ms=e_ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=shape)
 
     # Attention over the gathered rows, and the two routes at M = 2124.
     attn_g = lambda gg, cd=torch.float32: t_attn.fused_knn_vector_attention(  # noqa: E731
@@ -1181,7 +1230,10 @@ def check_shared_gather_kernels(torch, t_attn, dev, rng, params, E, rows):
         torch, 'interp_g_bf16', interp_gb, lambda: t_attn.interp_g_plain(kd, g, KI, 1e-4, bf),
         lambda: torch.einsum('bkn,bknc->bnc', wn, gf),
         "torch.einsum('bkn,bknc->bnc') of the normalised weights and bf16 rows", b_ms, b_by,
-        [N, M, KI, E], rows['interp_g']['ms'], 2.0 * N * KI * E)
+        [N, M, KI, E], rows['interp_g']['ms'], 2.0 * N * KI * E,
+        entry=lambda: interp_g_entry_ms(torch, t_attn, 'interp_g_bf16', kd, g, KI),
+        parent=_PARENT_MS.get('interp_g_bf16'),
+        parent_entry=_PARENT_ENTRY_MS.get('interp_g_bf16'))
     o_k = interp_gb()
     o_i = t_attn.fused_knn_interp(qpos, pos2, feats2, KI, knn=knn, compute_dtype=bf)
     torch.cuda.synchronize()
@@ -1861,6 +1913,215 @@ def knn_pruned_line(torch, t_knn, dev, case, q, kk, kn, K, same):
     if not exact or n_bad:
         raise AssertionError(f'knn_pruned {case} disagrees: {n_bad} mismatches, err {err}')
     return row
+
+
+def entry_ms(torch, lib, name, args, reps):
+    """ms per launch of the C entry `name` of a kernel library on prebuilt
+    operands (tensors passed as pointers, Python floats as float, ints as
+    int, then the current stream), between CUDA events: the kernel without
+    its Python wrapper's host work, which the wrapper's own timing includes
+    once the kernel is shorter than it."""
+    conv, types = [], []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            conv.append(ctypes.c_void_p(a.data_ptr()))
+            types.append(ctypes.c_void_p)
+        elif isinstance(a, float):
+            conv.append(ctypes.c_float(a))
+            types.append(ctypes.c_float)
+        else:
+            conv.append(ctypes.c_int(a))
+            types.append(ctypes.c_int)
+    fn = getattr(lib, name)
+    fn.argtypes = types + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        rc = fn(*conv, stream)
+        if rc != 0:
+            raise RuntimeError(f'{name} failed to launch: cudaError {rc}')
+    return cuda_ms(torch, call, reps)
+
+
+# The brute kNN's lines (name, B, N, M, K, queries): 'keys' queries the
+# first N keys (the encoder's searches: FPS picks among the keys), 'grid' a
+# chunk of grid_points_numpy's order over the keys' cube (the engine's
+# stream), 'random' a uniform cloud over it. The encoder's two searches the
+# brute entry still runs (531 x 1593 K12, 531^2 K16) at B 1 (a scene) and B 3
+# (a train step); the decoder's per-chunk search at gv1's and cv1's M in
+# both query orders; the train frames' searches.
+_KNN_BRUTE_CASES = [
+    ('enc_4779x14336_k12', 1, 4779, 14336, 12, 'keys'),
+    ('enc_4779x4779_k16', 1, 4779, 4779, 16, 'keys'),
+    ('enc_1593x4779_k12', 1, 1593, 4779, 12, 'keys'),
+    ('enc_1593x1593_k16', 1, 1593, 1593, 16, 'keys'),
+    ('enc_531x1593_k12', 1, 531, 1593, 12, 'keys'),
+    ('enc_531x531_k16', 1, 531, 531, 16, 'keys'),
+    ('enc_531x1593_k12_b3', 3, 531, 1593, 12, 'keys'),
+    ('enc_531x531_k16_b3', 3, 531, 531, 16, 'keys'),
+    ('dec_gv1_chunk_random', 1, _CHUNK, 531, 14, 'random'),
+    ('dec_gv1_chunk_grid', 1, _CHUNK, 531, 14, 'grid'),
+    ('dec_cv1_chunk_random', 1, _CHUNK, _CV1_M, 14, 'random'),
+    ('dec_cv1_chunk_grid', 1, _CHUNK, _CV1_M, 14, 'grid'),
+    ('dec_gv1_train_frame', 3, 17920, 531, 14, 'random'),
+    ('dec_cv1_train_frame', 3, _CV1_N, _CV1_M, 14, 'random'),
+]
+
+
+def grid_chunk(n, b=1):
+    """(b, n, 3) queries: the eighth 32768-query chunk of the dense grid over
+    the cube [-5, 5]^3, in grid_points_numpy's order (x-major, z fastest),
+    as the engine streams a scene's queries."""
+    from occlusions4d_torch.ops.bounds import Cuboid
+    from occlusions4d_torch.ops.sampling import grid_points_numpy
+    grid = grid_points_numpy(_NUM_SAMPLE, Cuboid(-5.0, 5.0, -5.0, 5.0, -5.0, 5.0))
+    return np.broadcast_to(grid[7 * _CHUNK:7 * _CHUNK + n], (b, n, 3)).astype(np.float32)
+
+
+def knn_brute_line(torch, t_knn, lib, case, q, kk, kn, K):
+    """One brute-kNN line: the wrapper's result against the plain version
+    (distances and indices; the gate: no index mismatch outside a tie within
+    an ulp, and equal distances), the wrapper's time (ms), the C entry's on
+    prebuilt rows (entry_ms) and, where the tree has brute_lanes, at 16 and
+    32 lanes (entry_ms_by_lanes, each result against the plain version
+    too), the plain version's and the library's (cdist + stable sort), the
+    parent's wrapper and entry times from PERF.md (_PARENT_MS,
+    _PARENT_ENTRY_MS), and the bound: the larger of the bytes (each input
+    read once, each output written once) over the HBM rate and 8 f32
+    instructions per (query, key) pair (7 separately rounded products and
+    sums under -fmad=false, and a compare) over the CUDA cores' rate; the
+    old figure, 7 FLOP a pair at the FMA rate, beside it.
+    :return the {"kernels"} row."""
+    B, N, _ = q.shape
+    M = kk.shape[1]
+    d_k, i_k = t_knn.knn_rank(q, kk, kn, K)
+    d_p, i_p = t_knn.knn_rank_plain(q, kk, kn, K)
+    torch.cuda.synchronize()
+    n_diff, n_bad = knn_agree(d_k, i_k, d_p, i_p)
+    err = float((d_k - d_p).abs().max())
+    exact = bool(torch.equal(d_k, d_p)) and bool(torch.equal(i_k, i_p))
+    ok = n_bad == 0 and err == 0.0
+    keys4 = torch.cat([kk, kn[..., None]], -1).contiguous()
+    out_d, out_i = torch.empty_like(d_k), torch.empty_like(i_k)
+    args = [q, keys4, out_d, out_i, B, N, M, K]
+    extra = {}
+    lanes = getattr(t_knn, 'brute_lanes', None)  # None: an older tree's entry.
+    if lanes is None:
+        e_ms = entry_ms(torch, lib, 'o4d_knn_brute', args, 20)
+    else:
+        extra['lanes'] = lanes(B, N)
+        e_ms = entry_ms(torch, lib, 'o4d_knn_brute', args + [extra['lanes']], 20)
+        # Both lane counts, each result held to the plain version.
+        extra['entry_ms_by_lanes'], exact_l = {}, True
+        for L in (16, 32):
+            extra['entry_ms_by_lanes'][L] = entry_ms(torch, lib, 'o4d_knn_brute', args + [L], 5)
+            torch.cuda.synchronize()
+            exact_l = exact_l and bool(torch.equal(out_d, d_p)) and bool(torch.equal(out_i, i_p))
+        extra['every_lane_count_exact'] = exact_l
+        ok = ok and exact_l
+    del d_k, i_k
+    ms = cuda_ms(torch, lambda: t_knn.knn_rank(q, kk, kn, K), 20)
+    plain_ms = cuda_ms(torch, lambda: t_knn.knn_rank_plain(q, kk, kn, K), 2)
+    lib_ms = cuda_ms(torch, lambda: torch.sort(torch.cdist(q, kk), dim=-1,
+                                               stable=True)[0][..., :K], 2)
+    pairs = B * N * M
+    b_ms, b_by = bound((B * N * 3 + B * M * 4) * 4 + B * N * K * 8, 8.0 * pairs,
+                       _CUDA_CORE_IPS)
+    parent = _PARENT_MS.get(f'knn_brute:{case}')
+    parent_e = _PARENT_ENTRY_MS.get(f'knn_brute:{case}')
+    row = dict(max_abs_err=err, ms=ms, entry_ms=e_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, shape=[B, N, M, K])
+    emit(dict(phase='kernel', name='knn_brute', case=case, agree=ok, exact=exact,
+              index_mismatches=n_diff, tolerance='exact (distances and indices)',
+              share_of_bound=b_ms / ms, entry_share_of_bound=b_ms / e_ms,
+              bound_fma_rate_ms=7.0 * pairs / _F32_FLOPS * 1e3,
+              parent_ms_perf_md=parent, parent_over_ms=None if parent is None
+              else parent / ms, parent_entry_ms_perf_md=parent_e,
+              parent_entry_over_entry_ms=None if parent_e is None else parent_e / e_ms,
+              library='torch.cdist + stable torch.sort', **row, **extra))
+    if not ok:
+        raise AssertionError(f'knn_brute {case} disagrees: {n_bad} untied index '
+                             f'mismatches, err {err}, {extra}')
+    return row, (d_p, i_p, keys4)
+
+
+def knn_brute_inputs(torch, t_knn, dev):
+    """(case, q, kk, kn, K) of each _KNN_BRUTE_CASES line: seeded clouds in
+    [-5, 5]^3, prepared as knn_rank takes them."""
+    rng = np.random.RandomState(31)
+    for case, B, N, M, K, order in _KNN_BRUTE_CASES:
+        keys = torch.tensor(rng.rand(B, M, 3).astype(np.float32) * 10 - 5, device=dev)
+        if order == 'keys':
+            qs = keys[:, :N]
+        elif order == 'grid':
+            qs = torch.tensor(grid_chunk(N, B), device=dev)
+        else:
+            qs = torch.tensor(rng.rand(B, N, 3).astype(np.float32) * 10 - 5, device=dev)
+        yield (case,) + tuple(t_knn._prepare(qs, keys, None)[:3]) + (K,)
+
+
+def knn_brute_lines(torch, t_knn, dev, rows, each=None):
+    """The K1 lines of _KNN_BRUTE_CASES (knn_brute_inputs); the gv1 decoder
+    chunk with random queries gives the {"kernels"} row (the shape of the
+    earlier PRs' rows). each(case, q, kk, kn, K, plain d, plain i, keys4),
+    where given, runs after each line on its inputs."""
+    from occlusions4d_torch.ops import _build
+    lib = _build.library('knn')
+    for case, q, kk, kn, K in knn_brute_inputs(torch, t_knn, dev):
+        row, (d_p, i_p, keys4) = knn_brute_line(torch, t_knn, lib, case, q, kk, kn, K)
+        if each is not None:
+            each(case, q, kk, kn, K, d_p, i_p, keys4)
+        if case == 'dec_gv1_chunk_random':
+            rows['knn_brute'] = row
+
+
+def interp_entry_ms(torch, t_attn, name, ki, kd, feats, k, reps=20):
+    """ms per launch of o4d_<name> (interp, interp_bf16) on prebuilt
+    operands (entry_ms)."""
+    B, N, KS = ki.shape
+    M, E = feats.shape[1:]
+    out = torch.empty((B, N, E), dtype=torch.float32, device=feats.device)
+    return entry_ms(torch, t_attn._build.library('interp'), f'o4d_{name}',
+                    [ki, kd, feats, out, B, N, M, E, KS, k, 1e-4], reps)
+
+
+def interp_g_entry_ms(torch, t_attn, name, kd, g, k, reps=20):
+    """ms per launch of o4d_<name> (interp_g, interp_g_bf16) on prebuilt
+    operands (entry_ms)."""
+    B, KE, N, C = g.shape
+    out = torch.empty((B, N, C - 3), dtype=torch.float32, device=g.device)
+    return entry_ms(torch, t_attn._build.library('interp'), f'o4d_{name}',
+                    [kd, g, out, B, N, C - 3, kd.shape[2], KE, k, 1e-4], reps)
+
+
+def interp_grid_line(torch, t_attn, dev, pos2, feats2):
+    """The index-route interpolation (f32 and bf16) at the gv1 decode chunk
+    with grid-ordered queries (grid_chunk), whose neighbouring queries share
+    most of their rows: each mode against its plain version (atol 1e-5,
+    rtol 1e-5), its wrapper's time (ms) and its C entry's (entry_ms) beside
+    the parent's entry time (_PARENT_ENTRY_MS)."""
+    qg = torch.tensor(grid_chunk(_CHUNK), device=dev)
+    ki, kd = t_attn.knn_extract(qg, pos2, 14)
+    res = {}
+    for name, cd in (('interp', torch.float32), ('interp_bf16', torch.bfloat16)):
+        call = lambda: t_attn.fused_knn_interp(qg, pos2, feats2, 8, knn=(ki, kd),  # noqa: E731
+                                               compute_dtype=cd)
+        o_k = call()
+        o_p = t_attn.interp_plain(ki, kd, feats2, 8, 1e-4, cd)
+        torch.cuda.synchronize()
+        ok = bool(torch.allclose(o_k, o_p, atol=1e-5, rtol=1e-5))
+        e_ms = interp_entry_ms(torch, t_attn, name, ki, kd, feats2, 8)
+        parent_e = _PARENT_ENTRY_MS.get(f'{name}:grid')
+        res[name] = dict(agree=ok, max_abs_err=max_err(o_k, o_p), ms=cuda_ms(torch, call, 20),
+                         entry_ms=e_ms, parent_entry_ms_perf_md=parent_e,
+                         parent_entry_over_entry_ms=None if parent_e is None
+                         else parent_e / e_ms)
+        if not ok:
+            raise AssertionError(f'{name} disagrees on grid-ordered queries')
+    emit(dict(phase='kernel_grid', name='interp', shape=[_CHUNK, 531, 8, feats2.shape[-1]],
+              queries='grid_chunk', tolerance='atol 1e-5, rtol 1e-5', **res))
+    return res
 
 
 def knn_crossover_line(torch, t_knn, dev, rng):
@@ -2841,36 +3102,9 @@ def main():
     def prep(q, k):
         return t_knn._prepare(q, k, None)[:3]
 
-    # K1 brute force: encoder searches and the decoder's per-chunk search.
-    knn_cases = [(4779, 14336, 12), (4779, 4779, 16), (1593, 4779, 12),
-                 (1593, 1593, 16), (531, 1593, 12), (531, 531, 16),
-                 (_CHUNK, 531, 14)]
-    for (N, M, K) in knn_cases:
-        keys = cloud(M)
-        qs = keys[:, :N] if N <= M and N != _CHUNK else cloud(N)
-        q, kk, kn = prep(qs, keys)
-        d_k, i_k = t_knn.knn_rank(q, kk, kn, K)
-        d_p, i_p = t_knn.knn_rank_plain(q, kk, kn, K)
-        torch.cuda.synchronize()
-        n_diff, n_bad = knn_agree(d_k, i_k, d_p, i_p)
-        err = float((d_k - d_p).abs().max())
-        ok = n_bad == 0 and err == 0.0
-        ms = cuda_ms(torch, lambda: t_knn.knn_rank(q, kk, kn, K), 10)
-        plain_ms = cuda_ms(torch, lambda: t_knn.knn_rank_plain(q, kk, kn, K), 2)
-        lib_ms = cuda_ms(torch, lambda: torch.sort(torch.cdist(q, kk), dim=-1,
-                                                   stable=True)[0][..., :K], 2)
-        nbytes = (N * 3 + M * 3) * 4 + N * K * 8
-        b_ms, b_by = bound(nbytes, 7.0 * N * M)
-        emit(dict(phase='kernel', name='knn_brute', shape=[N, M, K], agree=ok,
-                  index_mismatches=n_diff, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        if not ok:
-            raise AssertionError(f'knn_brute disagrees at {(N, M, K)}: '
-                                 f'{n_bad} untied index mismatches, err {err}')
-        if N == _CHUNK:
-            rows['knn_brute'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                     shape=[N, M, K])
+    # K1 brute force: the encoder's searches, the decoder's per-chunk search
+    # (grid-ordered and random queries) and its train frames.
+    knn_brute_lines(torch, t_knn, dev, rows)
 
     # K1' pruned: the level-0 self-search, the sampler's air rejections, the
     # n57344 level-0 self-search; then the brute/pruned crossover.
@@ -2916,6 +3150,7 @@ def main():
     ok = bool(torch.allclose(o_k, o_p, atol=1e-5, rtol=1e-5))
     ms = cuda_ms(torch, lambda: t_attn.fused_knn_interp(qpos, pos2, feats2, 8,
                                                          knn=(ki, kd)), 20)
+    e_ms = interp_entry_ms(torch, t_attn, 'interp', ki, kd, feats2, 8)
     plain_ms = cuda_ms(torch, lambda: t_attn.interp_plain(ki, kd, feats2, 8, 1e-4), 5)
     w = 1.0 / (torch.sqrt(torch.clamp(kd[0, :, :8], min=0.0)) + 1e-4)
     w = (w / w.sum(-1, keepdim=True)).contiguous()
@@ -2926,12 +3161,16 @@ def main():
                        2.0 * _CHUNK * 8 * E)
     emit(dict(phase='kernel', name='interp', shape=[_CHUNK, 531, 8, E], agree=ok,
               max_abs_err=err, max_rel_err=rel, tolerance='atol 1e-5, rtol 1e-5',
-              ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-              bound_by=b_by))
+              ms=ms, entry_ms=e_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+              entry_share_of_bound=b_ms / e_ms, queries='random',
+              parent_ms_perf_md=_PARENT_MS.get('interp:random'),
+              parent_entry_ms_perf_md=_PARENT_ENTRY_MS.get('interp:random')))
     if not ok:
         raise AssertionError(f'interp disagrees: max abs err {err}')
-    rows['interp'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms, shape=[_CHUNK, 531, 8, E])
+    rows['interp'] = dict(max_abs_err=err, ms=ms, entry_ms=e_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          shape=[_CHUNK, 531, 8, E])
     # Its bf16 mode on the same inputs (the features rounded as they load).
     bf = torch.bfloat16
     fb = t_attn.round_bf16(feats2)
@@ -2942,7 +3181,14 @@ def main():
         lambda: torch.nn.functional.embedding_bag(ki8, fb[0], per_sample_weights=w,
                                                   mode='sum'),
         'embedding_bag of the bf16-rounded features (the rounding not timed)',
-        b_ms, b_by, [_CHUNK, 531, 8, E], ms, 2.0 * _CHUNK * 8 * E)
+        b_ms, b_by, [_CHUNK, 531, 8, E], ms, 2.0 * _CHUNK * 8 * E,
+        entry=lambda: interp_entry_ms(torch, t_attn, 'interp_bf16', ki, kd, feats2, 8),
+        parent=_PARENT_MS.get('interp_bf16:random'),
+        parent_entry=_PARENT_ENTRY_MS.get('interp_bf16:random'))
+    grid = interp_grid_line(torch, t_attn, dev, pos2, feats2)
+    for name in ('interp', 'interp_bf16'):
+        rows[name]['ms_grid'] = grid[name]['ms']
+        rows[name]['entry_ms_grid'] = grid[name]['entry_ms']
 
     att = decoder.pt_blocks[0].layer2
     params = att.kernel_params()

@@ -21,10 +21,28 @@
 // What bounds it on the H100: bytes. Each query reads k index/distance pairs
 // and k feature rows and writes one E-wide row. From the small key set (L2)
 // the output write dominates (37.7 MB per 32768 x 288 chunk); from g the k
-// rows read do (302 MB per cv1 chunk at k 8). Design: one thread block per
-// query; the k weights and row addresses are formed once in shared memory,
-// then the threads stride over the E channels so that both the row reads and
-// the output write are coalesced.
+// rows read do (302 MB per cv1 chunk at k 8).
+// o4d_interp (interp_index_kernel): a first version ran one 128-thread block
+// per query (two barriers, a serial denominator, 4-byte loads and stores
+// over E, no row shared between queries; 0.058-0.072 ms at the gv1 chunk,
+// the output written at about 0.6 TB/s). Now a 256-thread block takes
+// kIdxQ = 8 consecutive queries of one example (the engine streams them in
+// grid order, so they share most of their k rows, which then come from L1,
+// not L2): one warp per query forms its k weights in lanes j < k, the
+// denominator by shuffles in j order and each row's offset, one barrier for
+// the block, then the block's threads stride over the (query, 4-column
+// group) items: the k rows read 16 bytes at a time through the read-only
+// path (L1), acc += w_j f_j in j order (fused multiply-adds), acc / den,
+// written with 16-byte streaming stores. When E is not a multiple of 4 the
+// rows are not 16-byte aligned and every column is loaded and stored on its
+// own. The same arithmetic in the same order as o4d_interp_g's, so the two
+// routes give the same bits. Measured on an H100 (PERF.md): 8 queries a
+// block beat 2, 4, 16 and 32; row offsets formed once per query (not a
+// 64-bit row address per use) and the bf16 mode's roundings two values a
+// conversion (__floats2bfloat162_rn) took the gv1 chunk from 0.040 / 0.048
+// ms (f32 / bf16, 32 queries a block) to 0.032 / 0.037.
+// o4d_interp_g (interp_g_kernel) keeps one block per query: its rows, E + 3
+// floats apart, are not 16-byte aligned either.
 //
 // The backward is a pure write pass, bound by its 841 MB of dg at one cv1
 // train frame (0.27 ms at 3.35 TB/s; chip_smoke.py times the card's own write
@@ -63,14 +81,19 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kIdxQ = 8;  // queries per interp_index_kernel block
+constexpr int kIdxThreads = 256;
 
-// RND: the bf16 mode (every feature value rounded to bf16 as it is read).
-template <bool GATHERED, bool RND>
-__global__ void interp_kernel(const int* __restrict__ ki,
-                              const float* __restrict__ kd,
-                              const float* __restrict__ src,
-                              float* __restrict__ out, int N, int M, int E,
-                              int KS, int KE, int k, float eps) {
+__device__ __forceinline__ float feature(float f, bool rnd) {
+  return rnd ? __bfloat162float(__float2bfloat16_rn(f)) : f;
+}
+
+// o4d_interp_g's body: one block per query. RND: the bf16 mode (every
+// feature value rounded to bf16 as it is read).
+template <bool RND>
+__global__ void interp_g_kernel(const float* __restrict__ kd, const float* __restrict__ g,
+                                float* __restrict__ out, int N, int E, int KS, int KE, int k,
+                                float eps) {
   __shared__ float w[32];
   __shared__ const float* rowp[32];
   __shared__ float den;
@@ -79,9 +102,7 @@ __global__ void interp_kernel(const int* __restrict__ ki,
   if (threadIdx.x < k) {
     const int j = threadIdx.x;
     w[j] = 1.0f / (sqrtf(fmaxf(kd[row * KS + j], 0.f)) + eps);
-    // src: key features (B, M, E), or g (B, KE, N, E + 3).
-    rowp[j] = GATHERED ? src + (((size_t)b * KE + j) * N + n) * (E + 3)
-                       : src + ((size_t)b * M + ki[row * KS + j]) * E;
+    rowp[j] = g + (((size_t)b * KE + j) * N + n) * (E + 3);  // g (B, KE, N, E + 3)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -92,11 +113,70 @@ __global__ void interp_kernel(const int* __restrict__ ki,
   __syncthreads();
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     float acc = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float f = rowp[j][e];
-      acc += w[j] * (RND ? __bfloat162float(__float2bfloat16_rn(f)) : f);
-    }
+    for (int j = 0; j < k; ++j) acc = __fmaf_rn(w[j], feature(rowp[j][e], RND), acc);
     out[row * E + e] = acc / den;
+  }
+}
+
+// o4d_interp's body (design notes at the top of the file); VEC: E % 4 == 0
+// and 16-byte aligned feats and out.
+template <bool VEC, bool RND>
+__global__ void __launch_bounds__(kIdxThreads)
+    interp_index_kernel(const int* __restrict__ ki, const float* __restrict__ kd,
+                        const float* __restrict__ feats, float* __restrict__ out, int N, int M,
+                        int E, int KS, int k, float eps) {
+  __shared__ float w[kIdxQ][33];
+  __shared__ int rows[kIdxQ][33];
+  __shared__ float den[kIdxQ];
+  const int b = blockIdx.y, n0 = blockIdx.x * kIdxQ, nq = min(kIdxQ, N - n0);
+  const int lane = threadIdx.x & 31;
+  for (int qi = threadIdx.x >> 5; qi < nq; qi += kIdxThreads / 32) {
+    const size_t row = (size_t)b * N + n0 + qi;
+    const float wj = lane < k ? 1.0f / (sqrtf(fmaxf(kd[row * KS + lane], 0.f)) + eps) : 0.f;
+    float s = 0.f;
+    for (int j = 0; j < k; ++j) s += __shfl_sync(0xffffffffu, wj, j);
+    if (lane < k) {  // the row's offset in the example's features, in float4s if VEC
+      w[qi][lane] = wj;
+      rows[qi][lane] = ki[row * KS + lane] * (VEC ? E >> 2 : E);
+    }
+    if (lane == 0) den[qi] = s;
+  }
+  __syncthreads();
+  const float* fb = feats + (size_t)b * M * E;
+  float* ob = out + ((size_t)b * N + n0) * E;
+  if (VEC) {
+    const int E4 = E >> 2;
+    const float4* fb4 = reinterpret_cast<const float4*>(fb);
+    for (int it = threadIdx.x; it < nq * E4; it += kIdxThreads) {
+      const int qi = it / E4, c = it - qi * E4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int j = 0; j < k; ++j) {
+        float4 f = __ldg(fb4 + (rows[qi][j] + c));
+        if (RND) {  // two values a conversion
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(f.x, f.y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(f.z, f.w);
+          f = make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+        }
+        const float wj = w[qi][j];
+        acc.x = __fmaf_rn(wj, f.x, acc.x);
+        acc.y = __fmaf_rn(wj, f.y, acc.y);
+        acc.z = __fmaf_rn(wj, f.z, acc.z);
+        acc.w = __fmaf_rn(wj, f.w, acc.w);
+      }
+      const float dn = den[qi];
+      __stcs(reinterpret_cast<float4*>(ob + (size_t)qi * E) + c,
+             make_float4(acc.x / dn, acc.y / dn, acc.z / dn, acc.w / dn));
+    }
+  } else {
+    for (int it = threadIdx.x; it < nq * E; it += kIdxThreads) {
+      const int qi = it / E, e = it - qi * E;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < k; ++j)
+        acc = __fmaf_rn(w[qi][j], feature(__ldg(fb + (rows[qi][j] + e)), RND), acc);
+      __stcs(ob + (size_t)qi * E + e, acc / den[qi]);
+    }
   }
 }
 
@@ -181,11 +261,14 @@ template <bool RND>
 int interp_index(const void* ki, const void* kd, const void* feats, void* out, int B, int N,
                  int M, int E, int KS, int k, float eps, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (k < 1 || k > 32 || k > KS) return (int)cudaErrorInvalidValue;
-  dim3 grid(N, B);
-  interp_kernel<false, RND><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)ki, (const float*)kd, (const float*)feats, (float*)out, N, M,
-      E, KS, 0, k, eps);
+  if (k < 1 || k > 32 || k > KS || (long long)M * E >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kIdxQ - 1) / kIdxQ, B);
+  const bool vec = E % 4 == 0 && (((uintptr_t)feats | (uintptr_t)out) & 15) == 0;
+  (vec ? interp_index_kernel<true, RND> : interp_index_kernel<false, RND>)
+      <<<grid, kIdxThreads, 0, (cudaStream_t)stream>>>((const int*)ki, (const float*)kd,
+                                                       (const float*)feats, (float*)out, N, M,
+                                                       E, KS, k, eps);
   return (int)cudaGetLastError();
 }
 
@@ -195,9 +278,8 @@ int interp_gathered(const void* kd, const void* g, void* out, int B, int N, int 
   if (B <= 0 || N <= 0) return 0;
   if (k < 1 || k > 32 || k > KS || k > KE) return (int)cudaErrorInvalidValue;
   dim3 grid(N, B);
-  interp_kernel<true, RND><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      nullptr, (const float*)kd, (const float*)g, (float*)out, N, 0, E, KS, KE,
-      k, eps);
+  interp_g_kernel<RND><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)kd, (const float*)g, (float*)out, N, E, KS, KE, k, eps);
   return (int)cudaGetLastError();
 }
 

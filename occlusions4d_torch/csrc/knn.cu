@@ -21,13 +21,48 @@
 // -fmad=false) so every d rounds exactly like the plain PyTorch version's
 // elementwise ops: selections agree index for index, ties included.
 //
-// What bounds it on the H100: neither bytes nor tensor-core FLOPs. The work is
-// N*M distance evaluations (7 FLOP each) plus a compare per candidate, on the
-// f32 CUDA cores; the inputs are a few MB. Design: one thread per query keeps
-// its running top-K sorted in registers (unrolled insertion, K is a template
-// parameter), keys stream through shared memory as float4 (x, y, z, |k|^2).
-// A candidate that does not beat the current K-th costs one compare, which is
-// the common case after the first few hundred keys.
+// What bounds the brute entry on the H100: neither bytes nor tensor-core
+// FLOPs. The work is N*M ranking values (7 separately rounded f32 operations
+// each, which -fmad=false keeps from fusing) and a compare per (query, key)
+// pair on the CUDA cores; the inputs are a few MB. A first version ran one
+// thread per query in 128-thread blocks (8 of 64 warp slots per SM at a
+// 32768-query chunk, 5 blocks for the encoder's 531-query searches) and sent
+// every candidate through an unrolled K-step insertion at which a warp's 32
+// queries diverged; 0.117 ms at the gv1 chunk (random queries) against a
+// bound of 4 microseconds. Design (knn_brute_kernel):
+//   * L lanes per query (16, or a whole warp below 16896 queries such as the
+//     encoder's searches: ops/knn.py brute_lanes, from the sweep in PERF.md;
+//     8 lanes tied 16 at M 531 and lost by a third at M 2124, 4 lost
+//     everywhere), 256 threads a block, one
+//     resident wave of blocks per example, each block walking its example's
+//     query tiles with the keys in shared memory, loaded once by cp.async as
+//     float4 (x, y, z, |k|^2) (one stage up to kBruteStage keys, 64 KB; wider
+//     key sets stream through it in tiles, a barrier each, so M has no
+//     limit); lane g of a query scans keys c = g mod L;
+//   * a first scan keeps each lane's S smallest ranking values in registers
+//     (a min/max network, two operations a value; S the power of two with
+//     L S >= 2K), and the group's L S values give tau, their K-th smallest
+//     (ranks counted over shuffles): at least K keys lie at or below tau, so
+//     it bounds the query's K-th value from above, and with 2K values from
+//     strided shares it is tight (about 1.1 K keys pass it on uniform
+//     clouds);
+//   * a second scan rejects every key above tau with one compare; a lane
+//     keeps those that pass in its own kBruteSlots slots in shared memory (no
+//     vote per key); the group moves them to the front of the query's slots
+//     (a prefix sum over shuffles), and each lane counts the (d, index) ranks
+//     of its slots against all of them: rank r < K is the r-th neighbour,
+//     exact in (d, index) order whatever the slot order;
+//   * a lane past kBruteSlots (many keys tied at tau, masks that starve some
+//     shares): the group scans again with a vote per key, the passing keys
+//     into the query's cap slots in key order; while more pass than the slots
+//     hold, tau becomes the (d, index) K-th of the slots held, which excludes
+//     at least cap - K of them.
+// Two other designs are timed beside it on the same lines by a probe
+// (tools/knn_brute_variants.cu, built only by tools/profile_knn_interp.py
+// --variants; PERF.md has the times): each lane's top K in registers under
+// a bound the query's lanes share, merged by shuffles, and the
+// ballot-filtered warp queue, a warp per query whose lanes hold the sorted
+// top K one entry each.
 //
 // The pruned entry is bound by its fixed cost, about 0.1 ms of launches and
 // sorts before the first distance, then by the distances of the key blocks
@@ -70,8 +105,12 @@
 
 namespace {
 
-constexpr int kBruteThreads = 128;
-constexpr int kBruteKeyTile = 512;
+constexpr int kBruteThreads = 256;
+constexpr int kBruteStage = 4096;  // keys in shared memory at once (64 KB)
+constexpr int kBruteSlots = 8;     // slots a lane fills before its query falls back
+// A query's cap = L kBruteSlots slots hold more than K (<= 32) entries at
+// L 16 and 32, so that each fallback round drops at least cap - K of them.
+static_assert(16 * kBruteSlots > 32, "a query's slots must outnumber K");
 // Tile and lanes measured on an H100 against 64 x 4 and 128 x 2: 32 x 8 ran
 // the sampler's search (3 x 6996 x 28672, K 1) in 0.30 ms against 0.36 and
 // 0.45, the 57344-point self search (K 16) in 0.68 against 0.58 and 0.63.
@@ -112,48 +151,256 @@ __device__ __forceinline__ float rank_value(float qx, float qy, float qz,
   return __fsub_rn(k.w, __fmul_rn(2.0f, dot));
 }
 
-template <int K>
-__global__ void knn_brute_kernel(const float* __restrict__ q,
-                                 const float4* __restrict__ keys,
-                                 float* __restrict__ out_d,
-                                 int* __restrict__ out_i, int N, int M) {
-  __shared__ float4 tile[kBruteKeyTile];
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = n < N;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    const float* qp = q + ((size_t)b * N + n) * 3;
-    qx = qp[0];
-    qy = qp[1];
-    qz = qp[2];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gmem));
+}
+
+// Keys [t0, t0 + cnt) of one example into the block's stage (16-byte
+// cp.async, then one barrier).
+__device__ __forceinline__ void load_stage(float4* stage, const float4* kb, int t0, int cnt) {
+  for (int j = threadIdx.x; j < cnt; j += blockDim.x) cp_async16(stage + j, kb + t0 + j);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+struct Cand {
+  float d;
+  int i;
+};
+
+// The group's entry of (d, index) rank r among the n slots of buf (r < n):
+// each lane ranks its slots g, g + L, ... against all n.
+__device__ Cand group_select(const Cand* buf, int n, int r, int g, int L, unsigned gmask) {
+  Cand mine = {CUDART_INF_F, 0};
+  bool found = false;
+  for (int e = g; e < n; e += L) {
+    const Cand c = buf[e];
+    int rank = 0;
+    for (int m = 0; m < n; ++m) rank += better(buf[m].d, buf[m].i, c.d, c.i);
+    if (rank == r) {
+      mine = c;
+      found = true;
+    }
   }
-  float ad[K];
-  int ai[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    ad[s] = CUDART_INF_F;
-    ai[s] = 0;
+  const int src = __ffs(__ballot_sync(gmask, found) & gmask) - 1;
+  return Cand{__shfl_sync(gmask, mine.d, src), __shfl_sync(gmask, mine.i, src)};
+}
+
+// Scans keys [t0, t0 + tc) of the stage for the fallback of
+// knn_brute_kernel: each key at (d, index) <= (td, ti) voted into the
+// query's slots in key order (positions past cap dropped), C counting all.
+__device__ __forceinline__ void vote_scan(const float4* stage, int t0, int tc, float qx,
+                                          float qy, float qz, float td, int ti, int g, int L,
+                                          unsigned gmask, Cand* slots, int cap, int& C) {
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < tc; c0 += L) {
+    const int c = c0 + g;
+    float d = CUDART_INF_F;
+    bool pass = false;
+    if (c < tc) {
+      d = rank_value(qx, qy, qz, stage[c]);
+      pass = d < td || (d == td && t0 + c <= ti);
+    }
+    const unsigned bal = __ballot_sync(gmask, pass) & gmask;
+    if (pass) {
+      const int pos = C + __popc(bal & ((1u << lane) - 1));
+      if (pos < cap) slots[pos] = Cand{d, t0 + c};
+    }
+    C += __popc(bal);
   }
+}
+
+// The design notes at the top of the file. Grid (blocks, B): block x of
+// example y takes the tiles x, x + gridDim.x, ... of kBruteThreads / L
+// queries, L lanes each (L 16 or 32); dynamic shared memory: the stage
+// (min(M, kBruteStage) keys, loaded once when M fits), then cap = L
+// kBruteSlots slots a query.
+// Warp-uniform steps shuffle over the whole warp (width L); only the
+// fallback, whose rounds differ between a warp's queries, uses group masks.
+template <int S, int L>
+__global__ void __launch_bounds__(kBruteThreads)
+    knn_brute_kernel(const float* __restrict__ q, const float4* __restrict__ keys,
+                     float* __restrict__ out_d, int* __restrict__ out_i, int N, int M, int K) {
+  extern __shared__ float4 smb[];
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int cap = L * kBruteSlots;
+  float4* stage = smb;
+  const int tid = threadIdx.x, lane = tid & 31, g = tid & (L - 1), Q = kBruteThreads / L;
+  const unsigned gmask = L == 32 ? kAll : ((1u << L) - 1) << (lane & ~(L - 1));
+  const int b = blockIdx.y, ntiles = (N + Q - 1) / Q;
+  Cand* slots = reinterpret_cast<Cand*>(smb + min(M, kBruteStage)) + (tid / L) * cap;
   const float4* kb = keys + (size_t)b * M;
-  for (int t0 = 0; t0 < M; t0 += kBruteKeyTile) {
-    const int cnt = min(kBruteKeyTile, M - t0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x) tile[j] = kb[t0 + j];
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < cnt; ++j)
-        insert<K>(ad, ai, rank_value(qx, qy, qz, tile[j]), t0 + j);
+  const bool streamed = M > kBruteStage;
+  if (!streamed) load_stage(stage, kb, 0, M);
+
+  // The query of tile x: (0, 0, 0) past N.
+  auto query = [&](int tile) {
+    const int n = tile * Q + tid / L;
+    float3 v = make_float3(0.f, 0.f, 0.f);
+    if (n < N) {
+      const float* qp = q + ((size_t)b * N + n) * 3;
+      v = make_float3(qp[0], qp[1], qp[2]);
     }
-  }
-  if (active) {
-    float* od = out_d + ((size_t)b * N + n) * K;
-    int* oi = out_i + ((size_t)b * N + n) * K;
+    return v;
+  };
+  float3 next = query(blockIdx.x);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int n = tile * Q + tid / L;
+    const bool active = n < N;
+    const float qx = next.x, qy = next.y, qz = next.z;
+    next = query(tile + gridDim.x);  // in flight while this tile runs
+    // First scan: each lane's S smallest values, ascending.
+    float a[S];
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      od[s] = ad[s];
-      oi[s] = ai[s];
+    for (int s = 0; s < S; ++s) a[s] = CUDART_INF_F;
+    for (int t0 = 0; t0 < M; t0 += kBruteStage) {
+      const int tc = min(kBruteStage, M - t0);
+      if (streamed) {
+        __syncthreads();
+        load_stage(stage, kb, t0, tc);
+      }
+#pragma unroll 4
+      for (int c = g; c < tc; c += L) {
+        float x = rank_value(qx, qy, qz, stage[c]);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float lo = fminf(a[s], x);
+          x = fmaxf(a[s], x);
+          a[s] = lo;
+        }
+      }
     }
+    // tau: the K-th smallest of the group's L * S values (with multiplicity).
+    int lt[S], le[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) lt[s] = le[s] = 0;
+#pragma unroll
+    for (int m = 0; m < L; ++m) {
+#pragma unroll
+      for (int t = 0; t < S; ++t) {
+        const float u = __shfl_sync(kAll, a[t], m, L);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          lt[s] += u < a[s];
+          le[s] += u <= a[s];
+        }
+      }
+    }
+    float tv = CUDART_INF_F;
+    bool found = false;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!found && lt[s] < K && le[s] >= K) {
+        tv = a[s];
+        found = true;
+      }
+    }
+    tv = __shfl_sync(kAll, tv, __ffs(__ballot_sync(kAll, found) & gmask) - 1);
+    // Second scan: the keys of a lane's share at or below tau (an infinite
+    // tau passes every valid key), up to kBruteSlots of them in its own
+    // slots; no vote per key.
+    const float tau = tv < CUDART_INF_F ? tv : 3.402823466e+38f;
+    Cand* mine = slots + g * kBruteSlots;
+    int cnt = 0;
+    for (int t0 = 0; t0 < M; t0 += kBruteStage) {
+      const int tc = min(kBruteStage, M - t0);
+      if (streamed) {
+        __syncthreads();
+        load_stage(stage, kb, t0, tc);
+      }
+#pragma unroll 4
+      for (int c = g; c < tc; c += L) {
+        const float d = rank_value(qx, qy, qz, stage[c]);
+        if (d <= tau) {
+          if (cnt < kBruteSlots) mine[cnt] = Cand{d, t0 + c};
+          ++cnt;
+        }
+      }
+    }
+    // The group's keys moved to the front of the query's slots in lane order: C.
+    const unsigned over = __ballot_sync(kAll, cnt > kBruteSlots) & gmask;
+    bool need = active && over != 0;
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < L; o <<= 1) {
+      const int v = __shfl_up_sync(kAll, incl, o, L);
+      if (g >= o) incl += v;
+    }
+    int C = __shfl_sync(kAll, incl, L - 1, L);
+    Cand own[kBruteSlots];  // every lane's slots read before any is moved
+    __syncwarp(kAll);
+#pragma unroll
+    for (int r = 0; r < kBruteSlots; ++r)
+      if (r < cnt) own[r] = mine[r];
+    __syncwarp(kAll);
+    if (!need && active) {
+#pragma unroll
+      for (int r = 0; r < kBruteSlots; ++r)
+        if (r < cnt) slots[incl - cnt + r] = own[r];
+    }
+    // A lane past kBruteSlots: the group scans again with votes; while more
+    // pass than the cap slots hold, (td, ti) becomes the (d, index) K-th of
+    // the slots (group-uniform: need, C, td, ti).
+    float td = tau;
+    int ti = 0x7fffffff;
+    if (!streamed) {
+      while (need) {
+        C = 0;
+        vote_scan(stage, 0, M, qx, qy, qz, td, ti, g, L, gmask, slots, cap, C);
+        __syncwarp(gmask);
+        if (C <= cap) {
+          need = false;
+        } else {  // the K-th of the slots held bounds the K-th of all keys.
+          const Cand t = group_select(slots, cap, K - 1, g, L, gmask);
+          td = t.d;
+          ti = t.i;
+          __syncwarp(gmask);
+        }
+      }
+    } else {
+      while (__syncthreads_or(need)) {
+        if (need) C = 0;
+        for (int t0 = 0; t0 < M; t0 += kBruteStage) {
+          const int tc = min(kBruteStage, M - t0);
+          __syncthreads();
+          load_stage(stage, kb, t0, tc);
+          if (need) vote_scan(stage, t0, tc, qx, qy, qz, td, ti, g, L, gmask, slots, cap, C);
+        }
+        if (need) {
+          __syncwarp(gmask);
+          if (C <= cap) {
+            need = false;
+          } else {
+            const Cand t = group_select(slots, cap, K - 1, g, L, gmask);
+            td = t.d;
+            ti = t.i;
+            __syncwarp(gmask);
+          }
+        }
+      }
+    }
+    __syncwarp(kAll);
+    if (active) {
+      // Each slot's (d, index) rank among the C: rank r < K is the r-th
+      // neighbour; filler rows past C.
+      float* od = out_d + ((size_t)b * N + n) * K;
+      int* oi = out_i + ((size_t)b * N + n) * K;
+      for (int e = g; e < C; e += L) {
+        const Cand c = slots[e];
+        int rank = 0;
+        for (int m = 0; m < C; ++m) rank += better(slots[m].d, slots[m].i, c.d, c.i);
+        if (rank < K) {
+          od[rank] = c.d;
+          oi[rank] = c.i;
+        }
+      }
+      for (int r = C + g; r < K; r += L) {
+        od[r] = CUDART_INF_F;
+        oi[r] = 0;
+      }
+    }
+    __syncwarp(kAll);  // the slots are read before the next tile writes them.
   }
 }
 
@@ -617,40 +864,86 @@ __global__ void __launch_bounds__(kNN1DThreads)
   }
 }
 
-#define O4D_K_CASES(X)                                                       \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) \
-  X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25) X(26)    \
-  X(27) X(28) X(29) X(30) X(31) X(32)
-
 }  // namespace
 
 extern "C" int o4d_knn_prune_tile() { return kPruneTile; }
 extern "C" int o4d_knn_prune_block() { return kPruneBlockK; }
 
-// q (B, N, 3) f32; keys (B, M, 4) f32 rows (x, y, z, |k|^2 or +inf);
-// out_d (B, N, K) f32 ranking values; out_i (B, N, K) int32 key rows.
-extern "C" int o4d_knn_brute(const void* q, const void* keys, void* out_d,
-                             void* out_i, int B, int N, int M, int K,
-                             void* stream) {
-  if (N <= 0 || B <= 0) return 0;
-  dim3 grid((N + kBruteThreads - 1) / kBruteThreads, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* qp = (const float*)q;
-  const float4* kp = (const float4*)keys;
-  float* dp = (float*)out_d;
-  int* ip = (int*)out_i;
-  switch (K) {
-#define O4D_BRUTE(KK)                                                  \
-  case KK:                                                             \
-    knn_brute_kernel<KK><<<grid, kBruteThreads, 0, s>>>(qp, kp, dp, ip, \
-                                                        N, M);         \
-    break;
-    O4D_K_CASES(O4D_BRUTE)
-#undef O4D_BRUTE
-    default:
-      return (int)cudaErrorInvalidValue;
+static size_t brute_stage_bytes(int M) { return (size_t)(M < kBruteStage ? M : kBruteStage) * 16; }
+
+// The largest dynamic shared memory a brute launch asks for: a full stage
+// and kBruteSlots slots for each of a block's threads.
+constexpr int kBruteMaxSmem = kBruteStage * 16 + kBruteThreads * kBruteSlots * (int)sizeof(Cand);
+
+// Host state a brute launch keeps per device (ordinal below
+// kBruteDevices; a higher ordinal asks the runtime every launch): the
+// kernel's shared-memory limit raised once, the SM count, and the blocks an
+// SM holds at the last shared-memory size (host calls cost microseconds,
+// about a small search's whole time). Not guarded: launches from several
+// host threads at once may repeat a call, never skip one.
+constexpr int kBruteDevices = 16;
+struct BruteHostState {
+  bool raised;
+  int sms;
+  size_t smem;
+  int occ;
+};
+
+// One launch of knn_brute_kernel<S, L>: one resident wave of blocks over
+// the examples, each walking its tiles with the example's keys staged once.
+template <int S, int L>
+int brute_launch(const void* q, const void* keys, void* out_d, void* out_i, int B, int N, int M,
+                 int K, size_t smem, cudaStream_t s) {
+  static BruteHostState cache[kBruteDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  BruteHostState fresh = {};
+  BruteHostState& st = dev < kBruteDevices ? cache[dev] : fresh;
+  if (!st.raised) {
+    e = cudaFuncSetAttribute(knn_brute_kernel<S, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kBruteMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    st.raised = true;
   }
+  if (smem != st.smem || st.occ <= 0) {
+    int occ = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, knn_brute_kernel<S, L>,
+                                                      kBruteThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    st.smem = smem;
+    st.occ = occ > 0 ? occ : 1;
+  }
+  const int ntiles = (N + kBruteThreads / L - 1) / (kBruteThreads / L);
+  const int per_b = (st.sms * st.occ + B - 1) / B;
+  const dim3 grid(ntiles < per_b ? ntiles : per_b, B);
+  knn_brute_kernel<S, L><<<grid, kBruteThreads, smem, s>>>(
+      (const float*)q, (const float4*)keys, (float*)out_d, (int*)out_i, N, M, K);
   return (int)cudaGetLastError();
+}
+
+// q (B, N, 3) f32; keys (B, M, 4) f32 rows (x, y, z, |k|^2 or +inf);
+// out_d (B, N, K) f32 ranking values; out_i (B, N, K) int32 key rows; L
+// lanes per query: 16 or 32 (ops/knn.py brute_lanes).
+extern "C" int o4d_knn_brute(const void* q, const void* keys, void* out_d, void* out_i, int B,
+                             int N, int M, int K, int L, void* stream) {
+  if (N <= 0 || B <= 0) return 0;
+  if (M < K || K < 1 || K > 32 || (L != 16 && L != 32)) return (int)cudaErrorInvalidValue;
+  int S = 1;  // each lane's smallest values: L S >= 2K
+  while (L * S < 2 * K) S <<= 1;
+  const size_t smem = brute_stage_bytes(M) + (size_t)kBruteThreads * kBruteSlots * sizeof(Cand);
+  cudaStream_t s = (cudaStream_t)stream;
+#define O4D_BRUTE(SS, LL) brute_launch<SS, LL>(q, keys, out_d, out_i, B, N, M, K, smem, s)
+  switch (L * 100 + S) {  // S <= 64 / L
+    case 1601: return O4D_BRUTE(1, 16);
+    case 1602: return O4D_BRUTE(2, 16);
+    case 1604: return O4D_BRUTE(4, 16);
+    case 3201: return O4D_BRUTE(1, 32);
+    default: return O4D_BRUTE(2, 32);
+  }
+#undef O4D_BRUTE
 }
 
 // The pruned search's first launches: the keys' box per example and the

@@ -32,7 +32,7 @@ from . import _build
 __all__ = ['knn', 'knn_pruned', 'knn_rank', 'knn_rank_plain', 'pairwise_sqdist',
            'gather_neighbors', 'hilbert_codes', 'sq_norm', 'nn1_min_dist',
            'nn1_bidirectional', 'nn1_bidir_rank', 'nn1_bidir_plain', 'nn1_direct',
-           'nn1_direct_plain', 'use_pruned', 'pruned_prepare_cuda', 'LAUNCHES',
+           'nn1_direct_plain', 'use_pruned', 'pruned_prepare_cuda', 'brute_lanes', 'LAUNCHES',
            'PRUNED_MIN_ELEMS', 'PRUNED_MIN_KEYS', 'PRUNED_MAX_KEYS']
 
 LAUNCHES = {'knn_brute': 0, 'knn_pruned': 0, 'nn1_bidir': 0, 'nn1_direct': 0}
@@ -108,6 +108,17 @@ def _check_cuda(name, t, shape, dtype):
         raise ValueError(f'{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}')
 
 
+def brute_lanes(B, N):
+    '''Lanes per query of the brute kernel (csrc/knn.cu knn_brute_kernel)
+    for B * N queries: a warp per query while 16 lanes would leave the H100
+    under two waves of 1024 threads per SM (fewer than 16896 queries: the
+    encoder's searches), else 16, the two counts the kernel takes. Measured
+    on an H100 (PERF.md, chip_smoke.py entry_ms_by_lanes): 16 lanes beat 32
+    at the decoder chunks and train frames; 32 wins at the encoder's
+    searches.'''
+    return 32 if B * N * 16 < 2 * 132 * 1024 else 16
+
+
 def _brute_cuda(q, keys, kn, k):
     B, N, _ = q.shape
     M = keys.shape[1]
@@ -118,11 +129,11 @@ def _brute_cuda(q, keys, kn, k):
     out_i = torch.empty((B, N, k), dtype=torch.int32, device=q.device)
     lib = _build.library('knn')
     fn = lib.o4d_knn_brute
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         _build.check(fn(_build.ptr(q), _build.ptr(keys4), _build.ptr(out_d),
-                        _build.ptr(out_i), B, N, M, k,
+                        _build.ptr(out_i), B, N, M, k, brute_lanes(B, N),
                         _build.stream_ptr(q.device)), 'knn_brute')
     LAUNCHES['knn_brute'] += 1
     return out_d, out_i

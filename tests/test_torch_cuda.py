@@ -78,6 +78,64 @@ def test_knn_kernels_match_plain(dev, K, ties):
     assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
 
 
+@pytest.mark.parametrize('K', [1, 14, 32])
+@pytest.mark.parametrize('B, N, M', [(1, 5, 700), (3, 5, 2124), (1, 531, 531),
+                                     (3, 531, 1593), (1, 32768, 531), (3, 531, 4133),
+                                     (1, 2000, 9000)])
+def test_knn_brute_lanes_and_stages_match_plain(dev, monkeypatch, B, N, M, K):
+    """The brute kernel at 16 and 32 lanes a query (the rule picks 32 at
+    N 5 and 531, 16 at 32768) against the plain version, exact: M in one
+    shared-memory stage (531 ... 2124) and streamed in 4096-key tiles (4133,
+    9000), all keys valid, 80% valid, and fewer valid keys than K (filler
+    rows; none valid at K 1)."""
+    rng = np.random.RandomState(N + M + K)
+    k = rng.rand(B, M, 3).astype(np.float32) * 8 - 4
+    q = rng.rand(B, N, 3).astype(np.float32) * 8 - 4
+    few = np.zeros((B, M), bool)
+    for b in range(B):
+        few[b, rng.choice(M, max(K - 3, 0), replace=False)] = True
+    for key_mask in (None, rng.rand(B, M) > 0.2, few):
+        qq, kk, kn, _ = t_knn._prepare(_t(q, dev), _t(k, dev),
+                                       None if key_mask is None else _t(key_mask, dev))
+        d_p, i_p = t_knn.knn_rank_plain(qq, kk, kn, K)
+        for L in (16, 32):
+            monkeypatch.setattr(t_knn, 'brute_lanes', lambda B_, N_: L)
+            d_b, i_b = t_knn.knn_rank(qq, kk, kn, K)
+            torch.cuda.synchronize()
+            assert torch.equal(i_b, i_p), L
+            assert torch.equal(d_b, d_p), L
+
+
+@pytest.mark.parametrize('M', [2124, 5000])
+@pytest.mark.parametrize('case', ['one_share_valid', 'nearest_duplicates'])
+def test_knn_brute_slot_overflow_matches_plain(dev, monkeypatch, case, M):
+    """The brute kernel's rescans when one lane's slots overflow, exact
+    against the plain version at 16 and 32 lanes, M in one stage and
+    streamed: only keys 0 mod 32 valid (all in lane 0's share; an infinite
+    bound passes every one of them), or 600 copies of the nearest key (600
+    keys tied at the bound: the vote scan overflows the query's slots and the
+    bound moves to the K-th slot held)."""
+    rng = np.random.RandomState(M)
+    B, N, K = 2, 300, 14
+    k = rng.rand(B, M, 3).astype(np.float32) * 8 - 4
+    q = rng.rand(B, N, 3).astype(np.float32) * 8 - 4
+    mask = None
+    if case == 'one_share_valid':
+        mask = np.zeros((B, M), bool)
+        mask[:, ::32] = True
+    else:
+        k[:, 1000:1600] = q[:, :1, :] + 1e-3
+    qq, kk, kn, _ = t_knn._prepare(_t(q, dev), _t(k, dev),
+                                   None if mask is None else _t(mask, dev))
+    d_p, i_p = t_knn.knn_rank_plain(qq, kk, kn, K)
+    for L in (16, 32):
+        monkeypatch.setattr(t_knn, 'brute_lanes', lambda B_, N_: L)
+        d_b, i_b = t_knn.knn_rank(qq, kk, kn, K)
+        torch.cuda.synchronize()
+        assert torch.equal(i_b, i_p), L
+        assert torch.equal(d_b, d_p), L
+
+
 @pytest.mark.parametrize('case', ['plain', 'mask_start', 'n_out_one', 'duplicates'])
 def test_fps_kernel_matches_plain(dev, case):
     rng = np.random.RandomState(1)
@@ -124,6 +182,31 @@ def test_interp_and_attention_match_plain(dev, premul):
                     -1) if premul else feats)
     ref = t_attn.attn_plain(q_pos, q_proj, ki, pos2, kv, params, K, premul)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize('E', [36, 288, 291])
+@pytest.mark.parametrize('k', [1, 8, 14])
+def test_interp_widths_match_plain(dev, E, k):
+    """The index-route interpolation (f32 and bf16) at the encoder's and the
+    decoder's widths and one off the 16-byte path (E 291: each column
+    loaded and stored on its own), 4100 queries at B 2 (a ragged last
+    block), against its plain version (atol 1e-5, rtol 1e-5) and bit for bit
+    against the gathered route on the same rows."""
+    rng = np.random.RandomState(E + k)
+    B, N, M = 2, 4100, 97
+    q_pos = _t(rng.rand(B, N, 3).astype(np.float32), dev)
+    pos2 = _t(rng.rand(B, M, 3).astype(np.float32), dev)
+    feats = _t(rng.randn(B, M, E).astype(np.float32), dev)
+    knn = t_attn.knn_extract(q_pos, pos2, 14, key_mask=_t(rng.rand(B, M) > 0.3, dev))
+    g = t_attn.knn_gather_rows(pos2, feats, knn, 14)
+    for cd in (torch.float32, torch.bfloat16):
+        o_k = t_attn.fused_knn_interp(q_pos, pos2, feats, k, knn=knn, compute_dtype=cd)
+        o_p = t_attn.interp_plain(knn[0], knn[1], feats, k, 1e-4, cd)
+        o_g = t_attn.fused_knn_interp(q_pos, pos2, feats, k, knn=knn, gathered=g,
+                                      compute_dtype=cd)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o_k, o_p, atol=1e-5, rtol=1e-5)
+        assert torch.equal(o_k, o_g), cd
 
 
 def test_launch_counters_count_kernel_launches(dev):

@@ -116,6 +116,26 @@ each printing one JSON line:
      launches this path counts) equal query by query; then on the card in
      precision='fast' (bf16 launches, finite), its flip share against the
      f32 run printed;
+  5b. eval_driver: the eval driver (occlusions4d_torch.evaluate.test_driver,
+     python -m occlusions4d_torch.evaluate) on both committed anchors, each
+     scene regenerated from its gen.json by the port's synthetic.py, with
+     tests/test_anchor.py's arguments (the committed eval_argv, the frame
+     fraction that leaves 3 steps): in f32 (--eval_precision auto) every
+     per-frame metric within max(0.02, 3%) of the committed metrics.json and
+     the learned-quality floors held (tests/anchor_recipe.py); the GREATER
+     anchor pipelined and with --eval_overlap false in the order A B B A (the
+     same per-frame values bit for bit; the walls and their ratio printed)
+     and through the command line in its own process (its metrics.json the
+     same bit for bit); in 'fast' the bf16 kernels and no f32 decoder kernel launched,
+     each metric's largest delta from the committed values printed, not
+     gated; then gv1 at full width (the seeded weights of phase 4, a
+     synthetic GREATER scene of 128-pixel images in which every example
+     fills the 14336 input points, 524288 grid queries, --save_metrics, 2
+     steps of 4 frames) through run_test: finite metrics, the index route's
+     kernels launched. Each run prints its wall per frame, phase_split_s,
+     scene_wall_s, the device_infer share and its launches (per frame too);
+     the host plane's build (native.status(), zlib headers) and whether the
+     JAX data plane's imaging packages are installed are printed first;
   6. train: the gv1 train step (Trainer, batch 3, 4 frames, seeded numpy
      weights and a bench.py-shaped synthetic batch): 1 warm-up step, 3 timed
      steps with the launch counters zeroed just before and read just after
@@ -181,7 +201,8 @@ each printing one JSON line:
      gradient check against the CPU; each width's chunk also in
      precision='fast' against the same decode with the plain bf16 versions
      on the card (density 2e-3, relative L2 1e-3);
-then the card's nvidia-smi line, the {"kernels": [...]} line (the five
+then the card's nvidia-smi line, the {"kernels": [...]} line (each entry
+with its launches on the eval_driver phase under "eval_driver"; the five
 bf16 forward variants count their launches on main_path_fast, the four bf16
 backward ones and interp_g_bwd (the bf16 shared route's interpolation rows)
 on train_bf16, the two bf16 self-attention ones on train_mixed; fps, the FPS
@@ -374,7 +395,8 @@ _PATH = dict({k: 'main_path' for k in _INFER}, attn_bwd='train', interp_bwd='tra
 # A kernel entry no main path launches.
 _OFF_PATH = {'fps': 'the one-block launch of the FPS kernel: the speed rule '
                     '(csrc/fps.cu o4d_fps_plan) sends clouds of 512 points or '
-                    'fewer there, every main-path level to a cluster (fps_cluster)'}
+                    'fewer there, every gv1 / cv1 level to a cluster (fps_cluster); '
+                    'the anchors\' 256-point mini-models launch it (eval_driver)'}
 # Launches per cv1 train step (4 frames, 2 attention layers each).
 _CV1_STEP = dict(gather=4, interp_g=4, attn_g=8, scatter=4, interp_g_bwd=0, attn_g_bwd=8,
                  attn=0, interp=0, attn_bwd=0, interp_bwd=4)
@@ -1332,6 +1354,270 @@ def fast_scene(torch, dev, smi, name, f32):
     if share > 0.005:
         raise AssertionError(f'main_path_fast {name}: {share:.4%} of densities cross 0.5')
     return counts
+
+
+# The eval driver (phase eval_driver): both committed anchors, each
+# per-frame metric within max(0.02, 3%) of its committed value over the
+# 3-step prefix, and the learned-quality floors: tests/test_anchor.py's
+# recipe through tests/anchor_recipe.py.
+# The anchors' mini-models decode on the index route: FPS on 256 points (the
+# one-block launch), the brute kNN, the interpolation and both attention
+# layers, f32 or bf16.
+_EVAL_F32 = ('fps', 'knn_brute', 'interp', 'attn')
+_EVAL_FAST = ('fps', 'knn_brute', 'interp_bf16', 'attn_bf16')
+# gv1 at full width on a synthetic GREATER scene: the gv1 recipe's data
+# settings (MIGRATION.md: n_data_rnd 14336, video_len 12, frame_skip 2,
+# pt_cube_bounds 5, past_frames 4) and images large enough that every example
+# fills the 14336 input points.
+_GV1_EVAL = dict(_GV1, n_data_rnd=14336, video_len=12, frame_skip=2, pt_cube_bounds=5.0,
+                 past_frames=4)
+_GV1_SCENE = dict(num_scenes=1, num_views=3, num_frames=30, image_size=128, num_objects=5)
+_GV1_EVAL_STEPS = 2
+
+
+def quiet_logger(log_dir, context='test'):
+    """The driver's StepLogger without its stdout handler (the log goes to
+    <log_dir>/<context>.log; this script's standard output stays JSON)."""
+    import logging
+    from occlusions4d_torch.utils.logvis import StepLogger
+    logger = StepLogger(log_dir=log_dir, context=context)
+    for h in list(logger.logger.handlers):
+        if not isinstance(h, logging.FileHandler):
+            logger.logger.removeHandler(h)
+    return logger
+
+
+def metric_deltas(per_frame, committed):
+    """Per metric: the largest |got - committed| over the prefix's frames,
+    and whether every frame holds max(0.02, 3%)."""
+    out = {}
+    for got, ref in zip(per_frame, committed['per_frame']):
+        for k, rv in ref.items():
+            if k in ('step', 'time_idx'):
+                continue
+            d = abs(got[k] - rv)
+            o = out.setdefault(k, dict(max_abs_delta=0.0, within=True))
+            o['max_abs_delta'] = max(o['max_abs_delta'], d)
+            o['within'] = o['within'] and d <= max(0.02, 0.03 * abs(rv))
+    return out
+
+
+def floors_hold(kind, mean):
+    import anchor_recipe
+    fl = anchor_recipe.FLOORS[kind]
+    ok = all(mean[k] > fl[k] for k in fl if k != 'chamfer_max')
+    return ok and math.isfinite(mean['chamfer']) and mean['chamfer'] < fl['chamfer_max']
+
+
+def run_driver(torch, argv, log, device='cuda'):
+    """One in-process test_driver.main on the card with the launch counters
+    zeroed just before and read just after. :return (summary, launches,
+    wall s, the loop's PhaseTimer summary unrounded)."""
+    from occlusions4d_torch.config import test_args
+    from occlusions4d_torch.evaluate import test_driver
+    from occlusions4d_torch.ops import _build
+    args = test_args(argv)
+    logger = quiet_logger(args.log_path)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    summary = test_driver.main(args, logger=logger, device=device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    split = {k: v[0] for k, v in logger.last_eval_timer.summary().items()}
+    return summary, _build.launch_counts(), wall, split
+
+
+def gv1_eval_setup(torch, dev, root, steps=_GV1_EVAL_STEPS):
+    """gv1 at full width for the eval driver: the seeded weights of phase 4
+    through from_jax_params, a synthetic GREATER scene under `root` in which
+    every example fills the 14336 input points, the test loader built from
+    _train_dset_args (`steps` examples), 524288 grid queries, --save_metrics.
+    :return dict(cfg, args, engine, data_kind, loader, sizes (input points
+    before padding per example), scene_gen_s)."""
+    from occlusions4d_torch.config import TestConfig, TrainConfig
+    from occlusions4d_torch.data import create_test_loader, synthetic
+    from occlusions4d_torch.data.loader import _train_dset_args
+    from occlusions4d_torch.evaluate import InferenceEngine
+    cfg = TrainConfig(**_GV1_EVAL)
+    encoder, decoder, _ = seeded_models(torch, cfg, dev, 1)
+    data = os.path.join(root, 'data')
+    t0 = time.time()
+    synthetic.make_greater_dataset(data, stages=('test',), **_GV1_SCENE)
+    gen_s = time.time() - t0
+    args = TestConfig(data_path=os.path.join(data, 'test'), num_sample=_NUM_SAMPLE,
+                      point_sample_mode='grid', save_metrics=True,
+                      implicit_batch_size=_CHUNK, use_json=False, num_workers=4, seed=7,
+                      use_data_frac=(steps + 0.5) / 120,
+                      log_path=os.path.join(root, 'logs'), test_tag='gv1', min_z=cfg.min_z,
+                      pt_cube_bounds=cfg.pt_cube_bounds, cr_cube_bounds=cfg.cr_cube_bounds,
+                      color_mode=cfg.color_mode, tracking_lw=cfg.tracking_lw)
+    data_kind, loader = create_test_loader(args, _train_dset_args(cfg, 'greater', None),
+                                           quiet_logger(args.log_path))
+    sizes = [int(loader.dataset[i]['meta_data']['pcl_input_size'])
+             for i in range(len(loader.dataset))]
+    engine = InferenceEngine(dict(encoder=encoder, decoder=decoder, device=dev),
+                             cfg.color_mode, False, cfg.semantic_classes,
+                             track_mode='none', implicit_batch_size=_CHUNK)
+    return dict(cfg=cfg, args=args, engine=engine, data_kind=data_kind, loader=loader,
+                sizes=sizes, scene_gen_s=gen_s)
+
+
+def run_gv1(torch, gv, **overrides):
+    """One run_test over gv1_eval_setup's loader and engine (TestConfig
+    fields replaced by `overrides`), the launch counters zeroed just before
+    and read just after. :return (summary, launches, wall s, split)."""
+    import dataclasses
+    from occlusions4d_torch.evaluate import run_test
+    from occlusions4d_torch.ops import _build
+    args = dataclasses.replace(gv['args'], **overrides)
+    logger = quiet_logger(args.log_path)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    summary = run_test(args, gv['engine'], gv['data_kind'], gv['loader'], logger)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    split = {k: v[0] for k, v in logger.last_eval_timer.summary().items()}
+    return summary, _build.launch_counts(), wall, split
+
+
+# The GREATER anchor's overlap-against-serial timing (phase eval_driver):
+# the pipelined and the serial loop in the order A B B A, so that neither
+# holds the phase's first driver call alone.
+_OVERLAP_ORDER = (('f32', 'true'), ('f32_serial', 'false'), ('f32_serial_2', 'false'),
+                  ('f32_2', 'true'))
+
+
+def eval_driver(torch, dev, smi, path_counts):
+    """Phase eval_driver: the port's eval driver (python -m
+    occlusions4d_torch.evaluate) on both committed anchors and on gv1 at full
+    width. :return {kernel: launches} summed over the phase's counted runs."""
+    import glob
+    import importlib.util
+    import shutil
+    import tempfile
+    sys.path.append(os.path.join(_HERE, 'tests'))
+    import anchor_recipe
+    from occlusions4d_torch import native
+    zlib_h = subprocess.run(['g++', '-E', '-x', 'c++', '-'], input='#include <zlib.h>\n',
+                            capture_output=True, text=True).returncode == 0
+    # Whether the imaging packages the JAX data plane uses are installed (the
+    # port uses none of them), found without importing them.
+    imaging = ('PIL', 'imageio', 'matplotlib')
+    installed = {f'{m}_installed': importlib.util.find_spec(m) is not None for m in imaging}
+    emit(dict(phase='eval_driver_env', native=native.status(), zlib_headers=zlib_h,
+              png_decode='native fused (png_ops.cpp)' if native.status()['png']
+              else 'data/png.py + the native frame pass', **installed))
+    if not native.native_available():
+        print('eval_driver: the native host library did not build; the data plane runs its '
+              'numpy fallbacks', file=sys.stderr)
+    tmp = tempfile.mkdtemp(prefix='o4d_eval_')
+    counts_all = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    try:
+        for kind in ('greater', 'carla'):
+            name = anchor_recipe.ANCHORS[kind]
+            t0 = time.time()
+            data = anchor_recipe.make_scene(kind, os.path.join(tmp, name))
+            gen_s = time.time() - t0
+            runs = ([(run, ('--eval_precision', 'auto', '--eval_overlap', ov))
+                     for run, ov in _OVERLAP_ORDER] if kind == 'greater'
+                    else [('f32', ('--eval_precision', 'auto'))])
+            runs.append(('fast', ('--eval_precision', 'fast')))
+            res, walls = {}, {}
+            for run, extra in runs:
+                log = os.path.join(tmp, name, run, 'anchor')
+                argv, committed = anchor_recipe.eval_argv(kind, data, log, extra)
+                summary, counts, wall, split = run_driver(torch, argv, log)
+                add(counts)
+                frames = len(summary['per_frame'])
+                deltas = metric_deltas(summary['per_frame'], committed)
+                within = all(d['within'] for d in deltas.values())
+                fl = floors_hold(kind, summary['mean'])
+                want = _EVAL_FAST if run == 'fast' else _EVAL_F32
+                launched = all(counts.get(k, 0) > 0 for k in want)
+                if run == 'fast':
+                    launched = launched and all(counts.get(k, 0) == 0 for k in _FAST_F32)
+                res[run], walls[run] = summary, wall
+                emit(dict(phase='eval_driver', anchor=name, run=run, frames=frames,
+                          steps=anchor_recipe.EVAL_STEPS, scene_gen_s=gen_s, wall_s=wall,
+                          frame_wall_s=wall / max(frames, 1),
+                          phase_split_s=split, scene_wall_s=summary['scene_wall_s'],
+                          device_infer_share=split.get('device_infer', 0.0) / wall,
+                          mean=summary['mean'], deltas_vs_committed=deltas,
+                          within_tolerance=within, floors_hold=fl, launches=counts,
+                          launches_per_frame={k: v / max(frames, 1) for k, v in counts.items()
+                                              if v}, gpu=smi))
+                if frames != anchor_recipe.EVAL_STEPS or not launched:
+                    raise AssertionError(f'eval_driver {name} {run}: {frames} frames, '
+                                         f'launches {counts}')
+                if run != 'fast' and not (within and fl):
+                    raise AssertionError(f'eval_driver {name} {run}: committed metrics not '
+                                         f'reproduced (within {within}, floors {fl}): {deltas}')
+            if kind == 'greater':
+                same = all(res[run]['per_frame'] == res['f32']['per_frame']
+                           for run, _ in _OVERLAP_ORDER)
+                overlap_s = [walls[run] for run, ov in _OVERLAP_ORDER if ov == 'true']
+                serial_s = [walls[run] for run, ov in _OVERLAP_ORDER if ov == 'false']
+                # The same run through the command line, in its own process.
+                log = os.path.join(tmp, name, 'cli', 'anchor')
+                argv, committed = anchor_recipe.eval_argv(kind, data, log,
+                                                          ('--eval_precision', 'auto'))
+                out_fp = os.path.join(_HERE, 'chiprun_out', 'eval_driver_cli.log')
+                t0 = time.time()
+                with open(out_fp, 'w') as fh:
+                    proc = subprocess.run([sys.executable, '-m', 'occlusions4d_torch.evaluate',
+                                           *argv], cwd=_HERE, stdout=fh,
+                                          stderr=subprocess.STDOUT, timeout=600)
+                cli_s = time.time() - t0
+                found = glob.glob(os.path.join(os.path.dirname(log), 'test_*', 'metrics.json'))
+                cli = json.load(open(found[0])) if proc.returncode == 0 and found else None
+                cli_same = cli is not None and cli['per_frame'] == res['f32']['per_frame']
+                emit(dict(phase='eval_driver_checks', anchor=name,
+                          overlap_equals_serial=same, order=[r for r, _ in _OVERLAP_ORDER],
+                          overlap_wall_s=overlap_s, serial_wall_s=serial_s,
+                          overlap_over_serial=sum(overlap_s) / sum(serial_s),
+                          cli_returncode=proc.returncode,
+                          cli_wall_s=cli_s, cli_metrics_json=found[:1],
+                          cli_equals_in_process=cli_same,
+                          cli_phase_split_s=cli and cli['phase_split_s'],
+                          cli_scene_wall_s=cli and cli['scene_wall_s']))
+                if not same or not cli_same:
+                    raise AssertionError(f'eval_driver: overlap equals serial {same}, the '
+                                         f'command line equals the in-process run {cli_same} '
+                                         f'(rc {proc.returncode}, see {out_fp})')
+
+        # gv1 at full width: seeded weights, a synthetic GREATER scene.
+        gv = gv1_eval_setup(torch, dev, os.path.join(tmp, 'gv1'))
+        cfg, sizes = gv['cfg'], gv['sizes']
+        summary, counts, wall, split = run_gv1(torch, gv)
+        add(counts)
+        frames = len(summary['per_frame'])
+        finite = all(v is not None and math.isfinite(v) for m in summary['per_frame']
+                     for v in m.values())
+        launched = all(counts.get(k, 0) > 0 for k in _INFER)
+        emit(dict(phase='eval_driver', model='gv1', n_points=cfg.n_points,
+                  scene=_GV1_SCENE, scene_gen_s=gv['scene_gen_s'], steps=_GV1_EVAL_STEPS,
+                  frames=frames, input_points_before_padding=sizes, queries=_NUM_SAMPLE,
+                  wall_s=wall, frame_wall_s=wall / max(frames, 1), phase_split_s=split,
+                  scene_wall_s=summary['scene_wall_s'],
+                  device_infer_share=split.get('device_infer', 0.0) / wall,
+                  mean=summary['mean'], finite=finite, launches=counts,
+                  launches_per_frame={k: v / max(frames, 1) for k, v in counts.items() if v},
+                  gpu=smi))
+        if not finite or not launched or frames != _GV1_EVAL_STEPS * cfg.past_frames \
+                or min(sizes) < cfg.n_points:
+            raise AssertionError(f'eval_driver gv1: finite {finite}, launches {counts}, '
+                                 f'frames {frames}, input sizes {sizes}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    path_counts['eval_driver'] = counts_all
+    return counts_all
 
 
 def scatter_add_ms(torch, ki, dg, M, K, dev):
@@ -3427,6 +3713,10 @@ def main():
     if path_counts['anchor'].get('nn1_direct', 0) <= 0:
         raise AssertionError('the anchors\' ground-truth labels did not launch nn1_direct')
 
+    # 5b. The eval driver: both anchors' committed metrics, gv1 at full width.
+    eval_driver(torch, dev, smi, path_counts)
+    torch.cuda.empty_cache()
+
     # 6. The gv1 train step.
     from occlusions4d_torch.train import Trainer
     tcfg = TrainConfig(**_GV1_TRAIN)
@@ -3537,6 +3827,7 @@ def main():
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',
                    replaces=_REPLACES[name], path=_PATH[name],
                    launches=int(path_counts[_PATH[name]].get(name, 0)))
+        row['eval_driver'] = int(path_counts['eval_driver'].get(name, 0))
         if name in _OFF_PATH:
             row['on_main_path'] = False
             row['note'] = _OFF_PATH[name]

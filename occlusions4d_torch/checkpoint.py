@@ -26,7 +26,7 @@ import zlib
 import numpy as np
 import torch
 
-__all__ = ['load_native_checkpoint', 'from_jax_params']
+__all__ = ['load_native_checkpoint', 'from_jax_params', 'resolve_resume_path']
 
 _CKPT_FORMAT = 'o4d_ckpt'
 _CKPT_VERSION = 1
@@ -156,3 +156,16 @@ def from_jax_params(variables, net):
                        f'missing {sorted(expected - set(out))}, '
                        f'unexpected {sorted(set(out) - expected)}')
     return out
+
+
+def resolve_resume_path(resume, checkpoint_root):
+    '''
+    Resolve `--resume v6` to the unique checkpoints/v6_*/ directory (an
+    existing path is returned as it is).
+    '''
+    if os.path.exists(resume):
+        return resume
+    dps = [os.path.join(checkpoint_root, dn) for dn in os.listdir(checkpoint_root)]
+    dps = [dp for dp in dps if os.path.isdir(dp) and (resume + '_') in dp]
+    assert len(dps) == 1, f'Expected exactly one matching checkpoint folder, got {dps}'
+    return dps[0]

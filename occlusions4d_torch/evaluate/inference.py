@@ -124,7 +124,15 @@ class InferenceEngine:
 
     def __init__(self, loaded, color_mode, predict_segmentation, semantic_classes,
                  track_mode='none', implicit_batch_size=65536, precision='auto',
-                 fused_decode=None):
+                 fused_decode=None, query_parallel=-1):
+        # The engine runs on one device: query_parallel -1 (all devices) and
+        # 1 mean that; sharding the queries over several is not ported
+        # (ROADMAP.md, Queue 1 item 6).
+        if query_parallel not in (-1, 1):
+            raise NotImplementedError(
+                f'query_parallel={query_parallel}: the port evaluates on one device '
+                '(-1 or 1); query-sharded eval is not ported (ROADMAP.md, Queue 1 '
+                'item 6)')
         self.encoder = loaded['encoder']
         self.decoder = loaded['decoder']
         self.precision = resolve_precision(self.decoder, precision, fused_decode)
@@ -170,14 +178,16 @@ class InferenceEngine:
 
 
 def dispatch_inference(pcl_input, pcl_input_sem, engine, min_z, cube_bounds,
-                       color_mode, time_idx, num_sample=16384,
+                       color_mode, time_idx, sample_implicit=True, num_sample=16384,
                        point_sample_mode='random', track_mode='none', data_kind='',
                        cube_mode=4, rng=None):
     '''
     Device stage of one frame: track-rerun set, blind query generation, and the
     encode/decode of every rerun, returning device tensors. Pair with
-    finish_inference.
+    finish_inference. sample_implicit must be True (blind queries), as in the
+    JAX engine.
     '''
+    assert sample_implicit
     input_inst_idx = 0 if data_kind == 'greater' else 1
     if track_mode in ('none', 'one'):
         track_instance_ids = [-1]
@@ -225,13 +235,19 @@ def nn1(query, keys, device):
 
 def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=False,
                      point_occupancy_radius=0.2, semantic_classes=13,
-                     density_threshold=0.5, compress_air=False):
+                     density_threshold=0.5, compress_air=False, store_activations=False):
     '''
     Host stage of one frame: fetch, merge track reruns, 1-NN GT labels,
     density-threshold split, compress_air.
+    :param store_activations: the decoder's penultimate activations are not
+        ported; True raises.
     :return dict with output_solid, output_air, pcl_abstract, features_global,
         implicit_output, points_query, gt_solid?, gt_air?, phase_s.
     '''
+    if store_activations:
+        raise NotImplementedError('store_activations (the decoder\'s penultimate '
+                                  'activations) is not ported (ROADMAP.md, Queue 1 '
+                                  'item 8)')
     gt_available = pcl_target_frame is not None
     output_track_idx = factory.track_idx(pending['color_mode'])
     track_instance_ids = pending['track_instance_ids']

@@ -25,10 +25,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 __all__ = ['SOURCES', 'nvcc_path', 'build_all', 'library', 'check', 'ptr',
-           'stream_ptr', 'launch_counts', 'reset_launch_counts']
+           'stream_ptr', 'count_launch', 'launch_counts', 'reset_launch_counts']
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      'csrc')
@@ -142,6 +143,18 @@ def stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+# Launch counters (each kernel module's LAUNCHES dict) are bumped from every
+# thread that launches, e.g. the eval driver's post worker (nn1_direct): one
+# lock makes each count and each reset whole.
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launches, name):
+    '''Add one to a kernel module's launch count, where it launches its kernel.'''
+    with _COUNT_LOCK:
+        launches[name] += 1
+
+
 def _counter_modules():
     # By module path: the package re-exports functions named knn/fps_batched.
     import importlib
@@ -152,12 +165,14 @@ def _counter_modules():
 def launch_counts():
     '''{kernel name: launches} summed over the kernel modules' counters.'''
     out = {}
-    for m in _counter_modules():
-        out.update(m.LAUNCHES)
+    with _COUNT_LOCK:
+        for m in _counter_modules():
+            out.update(m.LAUNCHES)
     return out
 
 
 def reset_launch_counts():
-    for m in _counter_modules():
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for m in _counter_modules():
+            for k in m.LAUNCHES:
+                m.LAUNCHES[k] = 0

@@ -203,7 +203,7 @@ def _gather_cuda(fv, ki, k, bf16=False):
     with torch.cuda.device(fv.device):
         _build.check(fn(_build.ptr(fv), _build.ptr(ki), _build.ptr(g), B, N, M, C, KS,
                         k, _build.stream_ptr(fv.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return g
 
 
@@ -302,7 +302,7 @@ def _scatter_cuda(ki, dg, M, k, bf16=False):
         _build.check(fn(_build.ptr(dg), _build.ptr(ki), _build.ptr(iws), _build.ptr(fws),
                         _build.ptr(dfv), B, N, M, KE, KS, k, C,
                         _build.stream_ptr(dg.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return dfv
 
 
@@ -440,7 +440,7 @@ def _interp_cuda(ki, kd, feats, k, eps, bf16=False):
         _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(feats),
                         _build.ptr(out), B, N, M, E, KS, k, float(eps),
                         _build.stream_ptr(feats.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -535,7 +535,7 @@ def _interp_bwd_launch(ki, kd, g, M, k, eps, bf16=False):
         _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(g), _build.ptr(iws),
                         _build.ptr(fws), _build.ptr(out), B, N, M, E, KS, k,
                         float(eps), _build.stream_ptr(g.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out, iws[B * M + 1:B * M + 1 + B * N * k], iws[:B * M + 1]
 
 
@@ -585,7 +585,7 @@ def _interp_g_cuda(kd, g, k, eps, bf16=False):
     with torch.cuda.device(g.device):
         _build.check(fn(_build.ptr(kd), _build.ptr(g), _build.ptr(out), B, N, E, KS,
                         KE, k, float(eps), _build.stream_ptr(g.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -621,7 +621,7 @@ def _interp_g_bwd_cuda(kd, go, k, k_ext, E, eps):
         _build.check(fn(_build.ptr(kd), _build.ptr(go), _build.ptr(dg), B, N, E, KS,
                         k_ext, k, float(eps), _build.stream_ptr(go.device)),
                      'interp_g_bwd')
-    LAUNCHES['interp_g_bwd'] += 1
+    _build.count_launch(LAUNCHES, 'interp_g_bwd')
     return dg
 
 
@@ -1204,7 +1204,7 @@ def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, bf16=False):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, dims['M'], D, dims['E'],
                         dims['H'], dims['P'], dims['KS'], k, int(premul), QC,
                         _build.stream_ptr(q_proj.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -1229,7 +1229,7 @@ def _attn_g_cuda(q_pos, q_proj, g, params, k, bf16=False):
     with torch.cuda.device(q_proj.device):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
                         _build.stream_ptr(q_proj.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -1256,7 +1256,7 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g, bf16=False
     with torch.cuda.device(dev):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, M, D, E, H, P,
                         dims['KS'], k, int(premul), QC, _build.stream_ptr(dev)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return dq, dkv, _split_weight_grads(dw, D, E, H, P, premul)
 
 
@@ -1327,7 +1327,7 @@ def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go, bf16=False):
     with torch.cuda.device(dev):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
                         _build.stream_ptr(dev)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return dq, dg, _split_weight_grads(dw, D, E, H, P, False)
 
 

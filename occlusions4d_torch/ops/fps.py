@@ -105,7 +105,7 @@ def _fps_cuda(xyz, n_out, valid, start_idx, plan=None):
     with torch.cuda.device(xyz.device):
         stream = _build.stream_ptr(xyz.device)
         _build.check(lib.o4d_fps(*ptrs, B, N, n_out, C, T, stream), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out.long()
 
 

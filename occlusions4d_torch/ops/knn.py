@@ -135,7 +135,7 @@ def _brute_cuda(q, keys, kn, k):
         _build.check(fn(_build.ptr(q), _build.ptr(keys4), _build.ptr(out_d),
                         _build.ptr(out_i), B, N, M, k, brute_lanes(B, N),
                         _build.stream_ptr(q.device)), 'knn_brute')
-    LAUNCHES['knn_brute'] += 1
+    _build.count_launch(LAUNCHES, 'knn_brute')
     return out_d, out_i
 
 
@@ -309,7 +309,7 @@ def _pruned_cuda(q, keys, kn, k, same, visited=None):
         _build.check(_pruned_lib().o4d_knn_pruned(
             _ptr(sk), _ptr(sq), _ptr(ws), _ptr(out_d), _ptr(out_i), _ptr(visited), B, N, M, k,
             _build.stream_ptr(q.device)), 'knn_pruned')
-    LAUNCHES['knn_pruned'] += 1
+    _build.count_launch(LAUNCHES, 'knn_pruned')
     return out_d, out_i
 
 
@@ -422,7 +422,7 @@ def _nn1_bidir_cuda(a, an, b, bn):
         _build.check(fn(_build.ptr(a4), _build.ptr(b4), _build.ptr(out_a),
                         _build.ptr(out_b), B, N, M, _build.stream_ptr(a.device)),
                      'nn1_bidir')
-    LAUNCHES['nn1_bidir'] += 1
+    _build.count_launch(LAUNCHES, 'nn1_bidir')
     return out_a, out_b
 
 
@@ -502,7 +502,7 @@ def _nn1_direct_cuda(q, keys):
         _build.check(fn(_build.ptr(q), _build.ptr(keys4), _build.ptr(out_d),
                         _build.ptr(out_i), N, M, _build.stream_ptr(q.device)),
                      'nn1_direct')
-    LAUNCHES['nn1_direct'] += 1
+    _build.count_launch(LAUNCHES, 'nn1_direct')
     return out_d, out_i
 
 

@@ -162,7 +162,7 @@ def _sattn_cuda(q, gf, rel, params, k, bf16=False):
     with torch.cuda.device(q.device):
         _build.check(fn(*[_build.ptr(t) for t in [q, gf, rel] + weights + [out, ws]],
                         B, N, D, E, H, P, k, QC, _build.stream_ptr(q.device)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -186,7 +186,7 @@ def _sattn_bwd_cuda(q, gf, rel, params, k, go, bf16=False):
     with torch.cuda.device(dev):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, k, QC,
                         _build.stream_ptr(dev)), name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return dq, dgf, _split_weight_grads(dw, D, E, H, P, False)
 
 

@@ -1,3 +1,4 @@
-'''Host-side helpers (numpy).'''
+'''Host-side helpers (numpy), phase timing and logging.'''
 
-from .misc import multi_track_merge
+from .misc import (accumulate_pcl_time, merge_pcl_views, elitist_shuffle,
+                   multi_track_merge, get_data_kind, find_mask_ranges)

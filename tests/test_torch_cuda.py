@@ -1488,3 +1488,40 @@ def test_bf16_self_attention_module_launches_bf16_kernels(dev):
     for n, a, b in zip(names, res['cuda'][1], res['cpu'][1]):
         if n != 'attn_mlp.2.bias':   # zero in truth: rounding noise on both sides.
             assert _rel(a, b) <= 3e-2, n
+
+
+@pytest.mark.parametrize('overlap', ['true', 'false'])
+def test_eval_driver_greater_anchor_on_card(dev, tmp_path, overlap):
+    '''The eval driver (test_driver.main) on the committed GREATER anchor on
+    the card: its scene regenerated from gen.json, the committed eval_argv
+    over the first 3 steps with --save_gt; every per-frame metric within
+    max(0.02, 3%) of the committed metrics.json, the index route's kernels
+    and the labels' nn1_direct (on the post worker thread with
+    --eval_overlap true) launched, and the pipelined and serial loops give
+    the same metrics bit for bit (the serial case compares its run with a
+    pipelined one).'''
+    import anchor_recipe
+    from occlusions4d_torch.config import test_args
+    from occlusions4d_torch.evaluate import test_driver
+    from occlusions4d_torch.ops import _build
+    data = anchor_recipe.make_scene('greater', tmp_path)
+
+    def run(ov, name):
+        argv, committed = anchor_recipe.eval_argv(
+            'greater', data, tmp_path / name / 'anchor',
+            ('--save_gt', 'true', '--eval_overlap', ov), steps=3)
+        _build.reset_launch_counts()
+        summary = test_driver.main(test_args(argv), device='cuda')
+        torch.cuda.synchronize()
+        return summary, committed, _build.launch_counts()
+
+    summary, committed, counts = run(overlap, 'run')
+    assert len(summary['per_frame']) == 3
+    for got, ref in zip(summary['per_frame'], committed['per_frame']):
+        for k, rv in ref.items():
+            assert abs(got[k] - rv) <= max(0.02, 0.03 * abs(rv)), (k, got[k], rv)
+    for k in ('fps', 'knn_brute', 'interp', 'attn', 'nn1_direct'):
+        assert counts[k] > 0, (k, counts)
+    if overlap == 'false':
+        other, _, _ = run('true', 'other')
+        assert other['per_frame'] == summary['per_frame']

@@ -130,12 +130,31 @@ each printing one JSON line:
      each metric's largest delta from the committed values printed, not
      gated; then gv1 at full width (the seeded weights of phase 4, a
      synthetic GREATER scene of 128-pixel images in which every example
-     fills the 14336 input points, 524288 grid queries, --save_metrics, 2
-     steps of 4 frames) through run_test: finite metrics, the index route's
+     fills the 14336 input points, 524288 grid queries, --save_metrics, 1
+     step of 4 frames) through run_test: finite metrics, the index route's
      kernels launched. Each run prints its wall per frame, phase_split_s,
      scene_wall_s, the device_infer share and its launches (per frame too);
      the host plane's build (native.status(), zlib headers) and whether the
      JAX data plane's imaging packages are installed are printed first;
+  5c. train_driver: the train driver (occlusions4d_torch.train.main, python
+     -m occlusions4d_torch.train) on the gv1 recipe's command line
+     (MIGRATION.md:19-31) over a synthetic GREATER dataset with train and
+     val stages (_GV1_SCENE's images; every example fills the 14336 input
+     points): 2 epochs of 8 train steps and 1 val_aug step, random weights
+     from the seed, the launch counters zeroed just before and read just
+     after (every kernel of the train step must launch); model_0.pkl,
+     model_1.pkl and checkpoint.pkl written; a resume from model_0 re-runs
+     epoch 1 and its logged losses equal the unbroken run's within rel 1e-4
+     (bit for bit printed); checkpoint.pkl through evaluate.load_models and
+     one dense gv1 frame (524288 grid queries), finite; each epoch's wall,
+     step count and PhaseTimer split (data / h2d / step / guard / sync /
+     viz), the step wall and the loader's share, peak memory; then the
+     committed convergence recipe (tests/assets/convergence/
+     trajectory.json's argv and scenes, 10 epochs of 19 steps) in f32, with
+     --fused_decoder_dtype bf16 and with --mixed_precision true: per-epoch
+     train and val losses and learning rates printed, the LR drops at
+     epochs 4, 6 and 8 and the best of the last 3 val losses below the best
+     of the first 3;
   6. train: the gv1 train step (Trainer, batch 3, 4 frames, seeded numpy
      weights and a bench.py-shaped synthetic batch): 1 warm-up step, 3 timed
      steps with the launch counters zeroed just before and read just after
@@ -202,7 +221,8 @@ each printing one JSON line:
      precision='fast' against the same decode with the plain bf16 versions
      on the card (density 2e-3, relative L2 1e-3);
 then the card's nvidia-smi line, the {"kernels": [...]} line (each entry
-with its launches on the eval_driver phase under "eval_driver"; the five
+with its launches on the eval_driver phase under "eval_driver" and on the
+train_driver phase's gv1 run under "train_driver"; the five
 bf16 forward variants count their launches on main_path_fast, the four bf16
 backward ones and interp_g_bwd (the bf16 shared route's interpolation rows)
 on train_bf16, the two bf16 self-attention ones on train_mixed; fps, the FPS
@@ -1372,7 +1392,7 @@ _EVAL_FAST = ('fps', 'knn_brute', 'interp_bf16', 'attn_bf16')
 _GV1_EVAL = dict(_GV1, n_data_rnd=14336, video_len=12, frame_skip=2, pt_cube_bounds=5.0,
                  past_frames=4)
 _GV1_SCENE = dict(num_scenes=1, num_views=3, num_frames=30, image_size=128, num_objects=5)
-_GV1_EVAL_STEPS = 2
+_GV1_EVAL_STEPS = 1
 
 
 def quiet_logger(log_dir, context='test'):
@@ -1618,6 +1638,202 @@ def eval_driver(torch, dev, smi, path_counts):
         shutil.rmtree(tmp, ignore_errors=True)
     path_counts['eval_driver'] = counts_all
     return counts_all
+
+
+# The train driver (phase train_driver): python -m occlusions4d_torch.train's
+# main on the gv1 recipe at full width (MIGRATION.md:19-31, a synthetic
+# GREATER dataset of _GV1_SCENE's size with train and val stages; 8 train
+# steps and 1 val_aug step an epoch: the dataset's train / val sizes are 8:1
+# and val needs a batch of 3), then the committed convergence recipe in
+# three precisions.
+_TD_GV1_ARGV = [
+    '--name', 'gv1', '--num_workers', '4', '--batch_size', '3', '--up_down_blocks', '3',
+    '--transition_factor', '3', '--pt_feat_dim', '36', '--pt_num_neighbors', '16',
+    '--pt_norm_type', 'none', '--down_neighbors', '12', '--n_points', '14336',
+    '--n_data_rnd', '14336', '--video_len', '12', '--frame_skip', '2', '--pt_cube_bounds', '5',
+    '--cr_cube_bounds', '5', '--implicit_mlp_blocks', '6', '--local_implicit_mode',
+    'attention', '--cross_attn_layers', '2', '--cross_attn_neighbors', '14',
+    '--abstract_levels', '1', '--color_mode', 'rgb_nosigmoid', '--num_epochs', '2',
+    '--density_lw', '1.0', '--color_lw', '1.0', '--segmentation_lw', '0.0', '--tracking_lw',
+    '1.0', '--point_occupancy_radius', '0.2', '--air_sampling_ratio', '1.5',
+    '--point_sample_bias', 'none', '--past_frames', '4', '--future_frames', '0',
+    '--use_data_frac', str(3.1 / 120), '--seed', '3']
+_TD_GV1_SCENE = dict(_GV1_SCENE, stages=('train', 'val'))
+# The convergence recipe's three precisions: (name, extra flags).
+_TD_CONV_MODES = (('f32', ()), ('bf16_decoder', ('--fused_decoder_dtype', 'bf16')),
+                  ('mixed_precision', ('--mixed_precision', 'true')))
+_TD_RESUME_RTOL = 1e-4
+
+
+def driver_run(torch, argv, log_root):
+    """One train.main(train_args(argv)) on the card with the launch counters
+    zeroed just before and read just after; every run_epoch's wall (around a
+    synchronize) and PhaseTimer split recorded. :return (trainer, launches,
+    wall s, epochs: [dict(epoch, stage, wall_s, split_s)])."""
+    from occlusions4d_torch import train as t_train
+    from occlusions4d_torch.config import train_args
+    from occlusions4d_torch.ops import _build
+    cfg = train_args(argv)
+    epochs = []
+    orig = t_train.Trainer.run_epoch
+
+    def timed(self, epoch, stage, data_iter, num_steps=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = orig(self, epoch, stage, data_iter, num_steps)
+        torch.cuda.synchronize()
+        epochs.append(dict(epoch=epoch, stage=stage, wall_s=time.time() - t0,
+                           steps=self.last_phase_timer.counts['step'],
+                           viz=self.last_phase_timer.counts['viz'],
+                           split_s={k: v[0] for k, v in
+                                    self.last_phase_timer.summary().items()}))
+        return out
+
+    t_train.Trainer.run_epoch = timed
+    try:
+        logger = quiet_logger(os.path.join(log_root, cfg.tag), context='train')
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        tr = t_train.main(cfg, logger=logger)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        t_train.Trainer.run_epoch = orig
+    return tr, _build.launch_counts(), wall, epochs
+
+
+def epoch_losses(tr):
+    return {row['epoch']: {k: row[k] for k in ('train/total_loss', 'val_aug/total_loss')
+                           if k in row} for row in tr.logger.scalar_history}
+
+
+def train_driver(torch, dev, smi, path_counts):
+    """Phase train_driver: (a) the gv1 recipe through train.main for 2 epochs
+    of train + val_aug, its checkpoints, a resume from model_0 re-running
+    epoch 1, checkpoint.pkl through evaluate.load_models and one dense eval
+    frame; (b) the committed convergence recipe in f32, with the bf16
+    decoder and with mixed_precision. :return {kernel: launches} of (a)'s
+    unbroken run."""
+    import shutil
+    import tempfile
+    from occlusions4d_torch.data import create_train_val_loaders, synthetic
+    from occlusions4d_torch.evaluate import InferenceEngine, load_models
+    from occlusions4d_torch.ops import blind_points_numpy
+    tmp = tempfile.mkdtemp(prefix='o4d_train_')
+    try:
+        data = os.path.join(tmp, 'gv1_data')
+        t0 = time.time()
+        synthetic.make_greater_dataset(data, **_TD_GV1_SCENE)
+        gen_s = time.time() - t0
+        base = _TD_GV1_ARGV + ['--data_path', data, '--checkpoint_root',
+                               os.path.join(tmp, 'ck')]
+        torch.cuda.reset_peak_memory_stats()
+        tr, counts, wall, epochs = driver_run(torch, base, os.path.join(tmp, 'logs'))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        path_counts['train_driver'] = counts
+        out = tr.cfg.output_path
+        ckpts = sorted(os.listdir(out))
+        train_e = [e for e in epochs if e['stage'] == 'train']
+        n_train = sum(e['steps'] for e in train_e)
+        n_val = sum(e['steps'] for e in epochs if e['stage'] != 'train')
+        # Every train step, val_aug step and viz export runs the forward
+        # kernels once; the backward kernels run once a train step.
+        forwards = n_train + n_val + sum(e['viz'] for e in epochs)
+        per_step = {k: v / (n_train if k in ('attn_bwd', 'interp_bwd') else forwards)
+                    for k, v in counts.items() if v}
+        # Input points before padding of the first train examples.
+        _, loader, _, _ = create_train_val_loaders(tr.cfg, tr.logger)
+        loader.dataset.set_epoch(0)
+        sizes = [int(loader.dataset[i]['meta_data']['pcl_input_size']) for i in range(3)]
+        # Resume from model_0 and run epoch 1 again.
+        rtr, _, r_wall, r_epochs = driver_run(
+            torch, base + ['--resume', os.path.join(out, 'model_0.pkl'),
+                           '--output_path', os.path.join(tmp, 'ck_resumed')],
+            os.path.join(tmp, 'logs_resumed'))
+        full, resumed = epoch_losses(tr), epoch_losses(rtr)
+        rel = {k: abs(resumed[1][k] - full[1][k]) / max(abs(full[1][k]), 1e-12)
+               for k in full[1]}
+        bitwise = resumed[1] == full[1]
+        # checkpoint.pkl through the eval driver's loader, one dense frame.
+        L = load_models(os.path.join(out, 'checkpoint.pkl'), device=dev, logger=tr.logger)
+        c = L['train_config']
+        engine = InferenceEngine(L, c.color_mode, False, c.semantic_classes,
+                                 track_mode='none', implicit_batch_size=_CHUNK)
+        pcl = np.random.RandomState(0).rand(14336, 8).astype(np.float32) * 2 - 1
+        queries = blind_points_numpy(_NUM_SAMPLE, c.min_z, c.cr_cube_bounds, 0, 'greater',
+                                     c.cube_mode, 'grid')
+        torch.cuda.synchronize()
+        t0 = time.time()
+        abstract, fg = engine.encode(pcl)
+        dense = engine.decode_all(queries, abstract, fg, fetch=False)
+        torch.cuda.synchronize()
+        eval_ms = (time.time() - t0) * 1e3
+        eval_ok = bool(torch.isfinite(dense).all()) and list(dense.shape) == [
+            queries.shape[0], 5] and L['epoch'] == 1
+        launched = all(counts.get(k, 0) > 0 for k in _TRAIN)
+        ok = (ckpts == ['checkpoint.pkl', 'model_0.pkl', 'model_1.pkl'] and launched
+              and n_train >= 6 and n_val >= 2 and eval_ok and rtr.start_epoch == 1
+              and min(sizes) >= tr.cfg.n_points
+              and all(v <= _TD_RESUME_RTOL for v in rel.values()) and len(rel) == 2
+              and all(math.isfinite(v) for r in full.values() for v in r.values()))
+        emit(dict(phase='train_driver', model='gv1', argv=_TD_GV1_ARGV, scene=_TD_GV1_SCENE,
+                  scene_gen_s=gen_s, steps_per_epoch=train_e[0]['steps'],
+                  input_points_before_padding=sizes, train_steps=n_train,
+                  val_steps=n_val, wall_s=wall, epochs=epochs,
+                  step_wall_ms=[1e3 * e['wall_s'] / max(e['steps'], 1) for e in train_e],
+                  data_share=[e['split_s'].get('data', 0.0) / e['wall_s'] for e in train_e],
+                  peak_mem_gib=peak_gb, losses=full, checkpoints=ckpts,
+                  resumed_losses=resumed[1], resume_rel_diff=rel, resume_bitwise=bitwise,
+                  resume_wall_s=r_wall, resume_epochs=r_epochs,
+                  eval_frame_ms=eval_ms, eval_queries=int(queries.shape[0]),
+                  eval_ok=eval_ok, launches=counts,
+                  forwards=forwards, launches_per_train_step=per_step,
+                  ok=ok, gpu=smi))
+        if not ok:
+            raise AssertionError(f'train_driver gv1 failed: checkpoints {ckpts}, launches '
+                                 f'{counts}, resume {rel}, eval {eval_ok}, input sizes '
+                                 f'{sizes}')
+        del tr, rtr, L, engine, abstract, fg, dense
+        torch.cuda.empty_cache()
+
+        # (b) The committed convergence recipe in three precisions.
+        art = json.load(open(os.path.join(_HERE, 'tests', 'assets', 'convergence',
+                                          'trajectory.json')))
+        conv = os.path.join(tmp, 'conv_data')
+        synthetic.make_greater_dataset(conv, **dict(art['gen'],
+                                                    stages=tuple(art['gen']['stages'])))
+        spe = art['steps_per_epoch']
+        for name, extra in _TD_CONV_MODES:
+            argv = list(art['argv']) + list(extra) + [
+                '--data_path', conv, '--name', f'conv_{name}',
+                '--checkpoint_root', os.path.join(tmp, 'ck_conv')]
+            tr, counts, wall, epochs = driver_run(torch, argv, os.path.join(tmp, 'logs'))
+            rows = epoch_losses(tr)
+            lrs = [float(tr.optimizer.lr(torch.tensor((e + 1) * spe - 1, device=dev)))
+                   for e in range(art['num_epochs'])]
+            drops = [e for e in range(1, len(lrs)) if lrs[e] < lrs[e - 1]]
+            lr_ok = drops == art['lr_milestone_epochs'] and all(
+                abs(lrs[e] / lrs[e - 1] - art['lr_decay']) < 1e-6 for e in drops)
+            vals = [rows[e]['val_aug/total_loss'] for e in range(art['num_epochs'])]
+            trains = [rows[e]['train/total_loss'] for e in range(art['num_epochs'])]
+            finite = all(math.isfinite(v) for v in vals + trains)
+            falls = finite and min(vals[-3:]) < min(vals[:3])
+            emit(dict(phase='train_driver_convergence', run=name, extra=list(extra),
+                      epochs=art['num_epochs'], steps_per_epoch=spe, wall_s=wall,
+                      train_loss=trains, val_loss=vals, lr=lrs, lr_drops_at=drops,
+                      lr_milestones_ok=lr_ok, val_best_last3=min(vals[-3:]),
+                      val_best_first3=min(vals[:3]), val_falls=falls,
+                      step_count=tr.step_count, launches=counts,
+                      committed_jax_cpu_val_loss=[e['val_loss'] for e in art['epochs']],
+                      gpu=smi))
+            if not (lr_ok and falls and tr.step_count == art['num_epochs'] * spe):
+                raise AssertionError(f'train_driver convergence {name}: LR drops at {drops}, '
+                                     f'val losses {vals}')
+            del tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return path_counts['train_driver']
 
 
 def scatter_add_ms(torch, ki, dg, M, K, dev):
@@ -3716,6 +3932,9 @@ def main():
     # 5b. The eval driver: both anchors' committed metrics, gv1 at full width.
     eval_driver(torch, dev, smi, path_counts)
     torch.cuda.empty_cache()
+    # 5c. The train driver: gv1 at full width, resume, the convergence recipe.
+    train_driver(torch, dev, smi, path_counts)
+    torch.cuda.empty_cache()
 
     # 6. The gv1 train step.
     from occlusions4d_torch.train import Trainer
@@ -3828,6 +4047,7 @@ def main():
                    replaces=_REPLACES[name], path=_PATH[name],
                    launches=int(path_counts[_PATH[name]].get(name, 0)))
         row['eval_driver'] = int(path_counts['eval_driver'].get(name, 0))
+        row['train_driver'] = int(path_counts['train_driver'].get(name, 0))
         if name in _OFF_PATH:
             row['on_main_path'] = False
             row['note'] = _OFF_PATH[name]

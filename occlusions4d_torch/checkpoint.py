@@ -1,20 +1,29 @@
 '''
-Reading the JAX package's native checkpoints, and turning its parameter trees
-into this package's state_dicts.
+Native checkpoints of the JAX package's layout, read and written, and the
+mapping between its parameter trees and this package's state_dicts.
 
 Native .pkl checkpoints come in two layouts: the legacy bare pickle
 {epoch, state, meta} and the crc32 envelope {format, version, crc32, payload}
-whose payload is that pickle. Both pickle the optimizer state too, whose
-classes (optax NamedTuples) do not exist where the port runs. The reader
-therefore unpickles with a restricted Unpickler: numpy's array machinery and
-plain containers load as themselves, every other class becomes an inert
-placeholder, and only state['params'], epoch and meta are kept. (Unpickle
-only files this project wrote: pickle can run code.)
+whose payload is that pickle. save_checkpoint writes the envelope, as
+model_{epoch}.pkl and the rolling checkpoint.pkl, each through a tmp file and
+os.replace. state is {'params', 'opt_state', 'step'}: params the flax-layout
+{'encoder', 'decoder'} tree of numpy arrays (to_jax_params), opt_state the
+port's AdamW as plain dicts {'mu', 'nu' (the params' layout), 'count'}.
+
+A JAX-written file pickles optax's state, whose classes (NamedTuples) do not
+exist where the port runs. The reader therefore unpickles with a restricted
+Unpickler: numpy's array machinery and plain containers load as
+themselves, every other class becomes an inert placeholder that keeps the
+arguments it was built from (a NamedTuple's fields), so adam_state can find
+ScaleByAdamState's count, mu and nu without optax. (Unpickle only files this
+project wrote: pickle can run code.) The JAX Trainer cannot resume from the
+port's opt_state dicts; its evaluation reads the port's files.
 
 from_jax_params maps a flax variables tree ({'params', ['batch_stats']}) onto
 the reference torch key layout (the same keys as the JAX package's
 export_torch_state_dict: kernels transposed to (out, in), norm scale ->
-weight, batch statistics -> running_mean/var, decoder 'backbone/' dropped).
+weight, batch statistics -> running_mean/var, decoder 'backbone/' dropped);
+to_jax_params is its inverse (the JAX package's import_torch_state_dict).
 '''
 
 import collections
@@ -26,7 +35,9 @@ import zlib
 import numpy as np
 import torch
 
-__all__ = ['load_native_checkpoint', 'from_jax_params', 'resolve_resume_path']
+__all__ = ['load_checkpoint', 'load_native_checkpoint', 'save_checkpoint', 'adam_state',
+           'from_jax_params', 'to_jax_params', 'resolve_resume_path',
+           'newest_native_layout']
 
 _CKPT_FORMAT = 'o4d_ckpt'
 _CKPT_VERSION = 1
@@ -35,10 +46,14 @@ _SAFE_BUILTINS = {'dict', 'list', 'tuple', 'set', 'frozenset', 'int', 'float',
 
 
 class _Inert:
-    '''Stand-in for a pickled class that is not needed (optimizer state).'''
+    '''Stand-in for a pickled class that does not exist here. It keeps the
+    arguments it was built from (`args`: a NamedTuple's fields, which pickle
+    passes to __new__) and its pickled state.'''
 
     def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
+        obj = object.__new__(cls)
+        obj.args = args
+        return obj
 
     def __init__(self, *args, **kwargs):
         self.args = args
@@ -66,12 +81,38 @@ def _loads(data):
     return _RestrictedUnpickler(io.BytesIO(data)).load()
 
 
-def load_native_checkpoint(path, epoch=-1):
+def _pkl_epochs(dirpath):
+    out = []
+    for name in os.listdir(dirpath):
+        stem = name[len('model_'):-len('.pkl')]
+        if name.startswith('model_') and name.endswith('.pkl') and stem.isdigit():
+            out.append(int(stem))
+    return sorted(out)
+
+
+def newest_native_layout(dirpath):
+    ''''pkl' or 'orbax', whichever layout holds the newest epoch of a run
+    directory (pkl on a tie, or when only a rolling checkpoint.pkl exists),
+    None when it holds neither.'''
+    if not os.path.isdir(dirpath):
+        return None
+    pe = _pkl_epochs(dirpath)
+    oe = [int(n[len('model_'):-len('.orbax')]) for n in os.listdir(dirpath)
+          if n.startswith('model_') and n.endswith('.orbax')
+          and n[len('model_'):-len('.orbax')].isdigit()]
+    if oe and max(oe) > max(pe, default=-1):
+        return 'orbax'
+    if pe or os.path.isfile(os.path.join(dirpath, 'checkpoint.pkl')):
+        return 'pkl'
+    return None
+
+
+def load_checkpoint(path, epoch=-1):
     '''
     :param path: a .pkl file, or a checkpoint directory (model_{epoch}.pkl, or
         the rolling checkpoint.pkl when epoch < 0).
-    :return dict(epoch, params, meta): params is the {'encoder', 'decoder'}
-        tree of flax variables dicts of numpy arrays.
+    :return the pickled dict(epoch, state, meta), its envelope's crc32
+        checked; classes that do not exist here are _Inert placeholders.
     '''
     if os.path.isdir(path):
         path = os.path.join(path, f'model_{epoch}.pkl' if epoch >= 0
@@ -90,7 +131,71 @@ def load_native_checkpoint(path, epoch=-1):
             raise ValueError(f'Checkpoint {path} failed its integrity check '
                              '(crc32 mismatch - corrupt file)')
         obj = _loads(obj['payload'])
+    return obj
+
+
+def load_native_checkpoint(path, epoch=-1):
+    '''
+    :return dict(epoch, params, meta) of load_checkpoint(path, epoch): params
+        is the {'encoder', 'decoder'} tree of flax variables dicts of numpy
+        arrays.
+    '''
+    obj = load_checkpoint(path, epoch)
     return dict(epoch=obj['epoch'], params=obj['state']['params'], meta=obj['meta'])
+
+
+def save_checkpoint(output_dir, epoch, state, meta=None):
+    '''Write {epoch, state, meta} in the crc32 envelope as model_{epoch}.pkl
+    and the rolling checkpoint.pkl, each atomically (a tmp file, then
+    os.replace). :param state: a tree of dicts, lists and numpy arrays.'''
+    os.makedirs(output_dir, exist_ok=True)
+    payload = pickle.dumps({'epoch': int(epoch), 'state': state, 'meta': meta or {}},
+                           protocol=4)
+    envelope = {'format': _CKPT_FORMAT, 'version': _CKPT_VERSION,
+                'crc32': zlib.crc32(payload), 'payload': payload}
+    for name in (f'model_{epoch}.pkl', 'checkpoint.pkl'):
+        final = os.path.join(output_dir, name)
+        with open(final + '.tmp', 'wb') as f:
+            pickle.dump(envelope, f, protocol=4)
+        os.replace(final + '.tmp', final)
+
+
+def _arrays_only(tree):
+    '''A nested dict with every leaf that is not an array (optax's
+    MaskedNode placeholders) left out.'''
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            v = _arrays_only(v)
+            if v:
+                out[k] = v
+        elif isinstance(v, (np.ndarray, np.generic)):
+            out[k] = v
+    return out
+
+
+def adam_state(opt_state):
+    '''
+    :param opt_state: state['opt_state'] of a checkpoint: the port's dict, or
+        the JAX package's optax chain (placeholders here).
+    :return dict(count (int), mu, nu): the moments in the params' flax layout.
+    '''
+    if isinstance(opt_state, dict) and {'mu', 'nu', 'count'} <= set(opt_state):
+        return dict(count=int(opt_state['count']), mu=opt_state['mu'], nu=opt_state['nu'])
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, _Inert):
+            if type(node).__name__ == 'ScaleByAdamState':
+                count, mu, nu = node.args
+                return dict(count=int(count), mu=_arrays_only(mu), nu=_arrays_only(nu))
+            stack.extend(node.args)
+            stack.append(getattr(node, 'state', None))
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, dict):
+            stack.extend(node.values())
+    raise ValueError('the checkpoint\'s optimizer state holds no Adam moments')
 
 
 def _flatten(tree, prefix=()):
@@ -125,13 +230,9 @@ def _tensor(a):
     return torch.tensor(np.array(a, dtype=np.float32, copy=True))
 
 
-def from_jax_params(variables, net):
-    '''
-    :param variables: flax variables {'params': ..., ['batch_stats': ...]}
-        (numpy or array-like leaves), or a bare params tree.
-    :param net: the torch module the state_dict is for (its keys are checked).
-    :return collections.OrderedDict state_dict of float32 tensors (copies).
-    '''
+def _torch_state(variables):
+    '''flax variables (or a bare params tree) -> OrderedDict torch key ->
+    float32 tensor (copies).'''
     if 'params' not in variables:
         variables = {'params': variables}
     out = collections.OrderedDict()
@@ -150,11 +251,97 @@ def from_jax_params(variables, net):
     for path, val in _flatten(variables.get('batch_stats', {})).items():
         leaf = {'mean': 'running_mean', 'var': 'running_var'}[path[-1]]
         out[_torch_key(path[:-2]) + '.' + leaf] = _tensor(np.asarray(val))
+    return out
+
+
+def from_jax_params(variables, net):
+    '''
+    :param variables: flax variables {'params': ..., ['batch_stats': ...]}
+        (numpy or array-like leaves), or a bare params tree.
+    :param net: the torch module the state_dict is for (its keys are checked).
+    :return collections.OrderedDict state_dict of float32 tensors (copies).
+    '''
+    out = _torch_state(variables)
     expected = set(net.state_dict().keys())
     if set(out) != expected:
         raise KeyError(f'parameter tree does not fit {type(net).__name__}: '
                        f'missing {sorted(expected - set(out))}, '
                        f'unexpected {sorted(set(out) - expected)}')
+    return out
+
+
+def jax_moments_to_torch(tree, net):
+    '''An optimizer moment in the flax layout of `net`'s parameters ->
+    {parameter name: float32 tensor}, checked against net.named_parameters().'''
+    out = _torch_state(tree)
+    expected = {n for n, _ in net.named_parameters()}
+    if set(out) != expected:
+        raise KeyError(f'moment tree does not fit {type(net).__name__}: '
+                       f'missing {sorted(expected - set(out))}, '
+                       f'unexpected {sorted(set(out) - expected)}')
+    return out
+
+
+_DECODER_BACKBONE = ('lin_in', 'lin_out', 'lin_z', 'blocks')
+
+
+def _flax_path(key, decoder):
+    '''torch key without its leaf -> flax module path: list indices become
+    name suffixes ('blocks.3.mlp.0' -> blocks_3/mlp_0), and a decoder's
+    backbone layers move under 'backbone'.'''
+    parts = []
+    for p in key.split('.'):
+        if p.isdigit() and parts:
+            parts[-1] = parts[-1] + '_' + p
+        else:
+            parts.append(p)
+    if decoder and key.split('.')[0] in _DECODER_BACKBONE:
+        parts = ['backbone'] + parts
+    return tuple(parts)
+
+
+def _nest(flat):
+    root = {}
+    for path, val in flat.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = val
+    return root
+
+
+def to_jax_params(state_dict, decoder=False):
+    '''
+    Inverse of from_jax_params (the JAX package's import_torch_state_dict):
+    a torch state_dict, or a dict of the same keys (an optimizer moment),
+    -> flax variables {'params': ..., ['batch_stats': ...]} of float32 numpy
+    arrays (copies). A 2-D weight is a kernel (transposed), a 1-D weight a
+    norm scale, a bias a norm's when its weight is 1-D. :param decoder: the
+    state is a LocalImplicitField's (its backbone layers nest under
+    'backbone').
+    '''
+    params, stats = {}, {}
+    for key, val in state_dict.items():
+        mod, leaf = key.rsplit('.', 1)
+        if leaf == 'num_batches_tracked':
+            continue
+        path = _flax_path(mod, decoder)
+        arr = np.array(val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else val,
+                       dtype=np.float32, copy=True)
+        if leaf == 'weight':
+            params[path + (('kernel',) if arr.ndim == 2 else ('norm', 'scale'))] = \
+                arr.T.copy() if arr.ndim == 2 else arr
+        elif leaf == 'bias':
+            w = state_dict.get(mod + '.weight')
+            norm = w is not None and len(w.shape) == 1
+            params[path + (('norm', 'bias') if norm else ('bias',))] = arr
+        elif leaf in ('running_mean', 'running_var'):
+            stats[path + ('norm', leaf[len('running_'):])] = arr
+        else:
+            raise ValueError(f'Unrecognized torch leaf: {key}')
+    out = {'params': _nest(params)}
+    if stats:
+        out['batch_stats'] = _nest(stats)
     return out
 
 

@@ -1,17 +1,20 @@
 '''
-Configuration (own copy of part of occlusions4d_tpu/config.py, same names and
-defaults):
-  * TrainConfig: the fields that model assembly, evaluation, the train step
-    and the train datasets' arguments read. Checkpoints carry the full JAX
-    config dict; config_from_dict keeps the fields known here and ignores the
-    rest.
-  * SharedConfig / TestConfig and test_args: the eval driver's command line,
-    flag for flag the JAX package's (str2bool booleans, verify_args checks,
-    the test split, resume and log-path resolution). device is 'cuda' (the
-    JAX package's 'tpu'), and verify_args refuses any other: the command line
-    runs on the card, the CPU run is evaluate.test_driver.main(args,
-    device='cpu'). worker_mode 'process' is refused too (threads only).
-    gpu_id and query_parallel are kept for the command line's sake.
+Configuration (own copy of occlusions4d_tpu/config.py, same names, types and
+defaults but for device):
+  * SharedConfig / TrainConfig and train_args: the train driver's command
+    line (python -m occlusions4d_torch.train), flag for flag the JAX
+    package's, with its auto tag, output path and `--resume v6` resolution.
+    device is 'cuda' (the JAX package's 'tpu'); '--device cpu' trains with
+    the plain versions. The flags the port does not implement yet parse,
+    and verify_args raises NotImplementedError naming their ROADMAP item.
+    Checkpoints carry the full config dict; config_from_dict keeps the
+    fields known here and ignores the rest.
+  * TestConfig and test_args: the eval driver's command line, flag for flag
+    the JAX package's (str2bool booleans, verify_args checks, the test
+    split, resume and log-path resolution). Its device is 'cuda' only: the
+    CPU run is evaluate.test_driver.main(args, device='cpu'). worker_mode
+    'process' is refused on both sides (threads only). gpu_id and
+    query_parallel are kept for the command line's sake.
 '''
 
 import argparse
@@ -21,8 +24,8 @@ import os
 import pathlib
 from dataclasses import dataclass
 
-__all__ = ['SharedConfig', 'TrainConfig', 'TestConfig', 'test_args', 'verify_args',
-           'str2bool', 'config_from_dict']
+__all__ = ['SharedConfig', 'TrainConfig', 'TestConfig', 'train_args', 'test_args',
+           'verify_args', 'str2bool', 'config_from_dict']
 
 
 def str2bool(v):
@@ -64,7 +67,10 @@ class SharedConfig:
 
 
 @dataclass
-class TrainConfig:
+class TrainConfig(SharedConfig):
+    batch_size: int = 8
+    output_path: str = 'auto'
+
     # Point transformer architecture.
     up_down_blocks: int = 3
     transition_factor: int = 3
@@ -74,6 +80,7 @@ class TrainConfig:
     down_neighbors: int = 8
     global_size: int = 128
     num_cr_local_feats: int = 8
+
     # Data and scene cuboids.
     n_points: int = 8192
     n_data_rnd: int = 16384
@@ -85,53 +92,68 @@ class TrainConfig:
     cube_mode: int = 4
     correct_ego_motion: bool = True
     correct_origin_ground: bool = True
-    # The train datasets' selection (data/loader.py::_train_dset_args).
-    name: str = ''
-    use_data_frac: float = 1.0
-    sample_bias: str = 'none'
-    sb_occl_frame_shift: int = 2
-    oversample_vehped_target: bool = False
-    export_visuals: bool = False
+
     # Continuous representation.
     positional_encoding: bool = True
     activation: str = 'relu'
     implicit_mlp_blocks: int = 6
+    use_global_embedding: bool = True
     local_implicit_mode: str = 'attention'
     cross_attn_layers: int = 1
     cross_attn_neighbors: int = 12
     cr_attn_type: str = 'c'
     abstract_levels: int = 1
+
     # Output heads.
     color_mode: str = 'rgb'
     semantic_classes: int = 13
-    segmentation_lw: float = 0.0
-    tracking_lw: float = 0.0
-    # Training. mixed_precision trains as the JAX package does: both networks
-    # built in bf16 (bf16 linear layers over f32 parameters, the encoder's
-    # fused self-attention in its bf16 mode; models/layers.py) and AdamW's
-    # eps 1e-4 (train.py); a checkpoint trained so is still evaluated in f32,
-    # as the JAX engine evaluates it (evaluate/inference.py).
-    # fused_decoder_dtype is the compute dtype of the fused decoder's kernels
-    # in the train step, forward and backward (JAX's name and default):
-    # 'bf16', 'f32', or 'auto', which is bf16 on a TPU in the JAX package
-    # and f32 everywhere in the port (pipeline.py).
-    mixed_precision: bool = False
-    fused_decoder_dtype: str = 'auto'
-    seed: int = 1830
-    batch_size: int = 8
+
+    # Training. mixed_precision (SharedConfig) trains as the JAX package
+    # does: both networks built in bf16 (bf16 linear layers over f32
+    # parameters, the encoder's fused self-attention in its bf16 mode;
+    # models/layers.py) and AdamW's eps 1e-4 (train.py); a checkpoint
+    # trained so is still evaluated in f32, as the JAX engine evaluates it.
+    parallel_pipeline: bool = True
     learn_rate: float = 1e-3
     lr_decay: float = 0.4
     num_epochs: int = 20
+    start_epoch: int = 0
     gradient_clip: float = 0.2
+
     # Loss and query sampling.
     density_lw: float = 1.0
     color_lw: float = 0.0
+    segmentation_lw: float = 0.0
+    tracking_lw: float = 0.0
     point_occupancy_radius: float = 0.2
     num_cr_solid: int = 7168
     air_sampling_ratio: float = 1.5
     point_sample_bias: str = 'none'
+    oversample_vehped_target: bool = False
     past_frames: int = 2
     future_frames: int = 0
+
+    # The JAX package's additions, under its names. data_parallel,
+    # query_parallel, check_numerics, watch_networks and profile_steps parse;
+    # verify_args refuses them unless they ask for what one card and the
+    # port already do (_refused_train_flags).
+    data_parallel: int = -1
+    query_parallel: int = 1
+    # The decoder in the train step: 'auto' and 'on' take the fused decoder
+    # (models/fused.py: kernels on the card, plain versions on the CPU)
+    # where supports_fused covers the configuration; 'off' (the module path
+    # for every configuration) is refused.
+    fused_decoder: str = 'auto'
+    # The fused decoder's compute dtype, forward and backward: 'bf16',
+    # 'f32', or 'auto', which is bf16 on a TPU in the JAX package and f32
+    # everywhere in the port (pipeline.py).
+    fused_decoder_dtype: str = 'auto'
+    export_visuals: bool = False  # load images for early-epoch gallery exports.
+    viz_interval: int = 80        # intermediate-export cadence (train.py).
+    watch_networks: bool = False
+    check_numerics: bool = False
+    profile_steps: int = 0
+    tag: str = ''
 
 
 @dataclass
@@ -189,22 +211,120 @@ def _add_fields(parser, cls):
             parser.add_argument(f'--{f.name}', default=f.default, type=type(f.default))
 
 
+def _refused_train_flags(args):
+    '''The train flags the port parses but does not implement yet, each with
+    the ROADMAP Queue 1 item that will: [(flag, item)].'''
+    out = []
+    if args.data_parallel > 1:
+        out.append((f'--data_parallel {args.data_parallel}', 6))
+    if args.query_parallel > 1:
+        out.append((f'--query_parallel {args.query_parallel}', 6))
+    if args.check_numerics:
+        out.append(('--check_numerics', 7))
+    if args.watch_networks or args.use_wandb:
+        out.append(('the per-layer norms of --watch_networks / --use_wandb', 7))
+    if args.profile_steps > 0:
+        out.append((f'--profile_steps {args.profile_steps}', 7))
+    if args.fused_decoder == 'off':
+        out.append(('--fused_decoder off (the module path)', 7))
+    if args.pt_norm_type == 'batch':
+        out.append(('--pt_norm_type batch in training', 4))
+    if args.worker_mode == 'process':
+        out.append(('--worker_mode process', 5))
+    if args.checkpoint_format == 'orbax':
+        out.append(('--checkpoint_format orbax', 5))
+    if str(args.resume).endswith('.pth'):
+        out.append(('a reference .pth --resume', 5))
+    return out
+
+
 def verify_args(args, is_train=False):
-    '''The JAX package's argument checks and num_workers default (eval side;
-    the train side waits for the port's train driver).'''
-    assert not is_train, 'the train command line is not part of the port yet'
-    if args.device != 'cuda':
-        raise ValueError(f'--device {args.device}: the eval command line runs on the card '
-                         "('cuda'); the CPU run is test_driver.main(args, device='cpu')")
-    if args.worker_mode != 'thread':
-        raise ValueError(f'--worker_mode {args.worker_mode}: the port\'s loader workers are '
-                         "threads ('thread'); the JAX package's fork processes are not ported")
+    '''The JAX package's argument checks and num_workers default. The train
+    side accepts --device cuda (the default) or cpu (the plain versions) and
+    raises NotImplementedError, naming the ROADMAP item, for a flag the port
+    does not implement yet; the eval side takes cuda and thread workers only.'''
+    assert args.worker_mode in ('thread', 'process')
     assert getattr(args, 'checkpoint_format', 'pkl') in ('pkl', 'orbax')
     assert args.sample_bias in ('none', 'move', 'occl', 'move_occl', 'occl_move')
+    if not is_train:
+        if args.device != 'cuda':
+            raise ValueError(f'--device {args.device}: the eval command line runs on the '
+                             "card ('cuda'); the CPU run is test_driver.main(args, "
+                             "device='cpu')")
+        if args.worker_mode != 'thread':
+            raise ValueError(f'--worker_mode {args.worker_mode}: the port\'s loader workers '
+                             "are threads ('thread'); the JAX package's fork processes are "
+                             'not ported')
+        if args.num_workers < 0:
+            args.num_workers = max(multiprocessing.cpu_count() // 4 - 6, 1)
+        assert args.point_sample_mode in ('random', 'grid')
+        assert args.eval_precision in ('auto', 'fast', 'f32', 'highest')
+        return args
+
+    if args.device not in ('cuda', 'cpu'):
+        raise ValueError(f"--device {args.device}: the port trains on 'cuda' or 'cpu'")
     if args.num_workers < 0:
-        args.num_workers = max(multiprocessing.cpu_count() // 4 - 6, 1)
-    assert args.point_sample_mode in ('random', 'grid')
-    assert args.eval_precision in ('auto', 'fast', 'f32', 'highest')
+        args.num_workers = max(int(multiprocessing.cpu_count() * 0.9) - 12, 2)
+    if args.cr_cube_bounds <= 0.0:
+        args.cr_cube_bounds = args.pt_cube_bounds
+    while len(args.cr_attn_type) < args.cross_attn_layers:
+        assert len(args.cr_attn_type) != 0
+        args.cr_attn_type = args.cr_attn_type + args.cr_attn_type
+    assert 256 <= args.n_points <= 65536
+    assert args.pt_norm_type in ('none', 'batch', 'layer')
+    assert args.past_frames + args.future_frames <= args.video_len
+    assert args.future_frames < args.video_len
+    assert args.local_implicit_mode in ('none', 'feature', 'attention')
+    assert args.color_mode in ('rgb', 'rgb_nosigmoid', 'hsv', 'bins')
+    assert args.fused_decoder in ('auto', 'on', 'off')
+    assert args.fused_decoder_dtype in ('auto', 'bf16', 'f32')
+    refused = _refused_train_flags(args)
+    if refused:
+        raise NotImplementedError('; '.join(
+            f'{flag} is not part of the port yet (ROADMAP.md Queue 1 item {item})'
+            for flag, item in refused))
+    return args
+
+
+def _auto_train_tag(args):
+    '''Experiment tag encoding key hyperparameters.'''
+    keys = {'mixed_precision': 'mp', 'up_down_blocks': 'ud', 'n_points': 'np',
+            'video_len': 'vl', 'frame_skip': 'fs', 'density_lw': 'dl',
+            'color_lw': 'cl', 'segmentation_lw': 'sl', 'tracking_lw': 'tl'}
+    tag = args.name + '_'
+    tag += '_'.join(k2 + _arg2str(getattr(args, k)) for k, k2 in keys.items())
+    if args.use_data_frac < 1.0:
+        tag += f'_df{_arg2str(args.use_data_frac)}'
+    tag += f'_gs{_arg2str(args.global_size) if args.use_global_embedding else 0}'
+    tag += f'_a{args.activation[:2]}'
+    tag += f'_im{args.local_implicit_mode[:2]}'
+    tag += f'_pt{args.past_frames}_{args.future_frames}'
+    return tag
+
+
+def train_args(argv=None):
+    '''The train command line (python -m occlusions4d_torch.train), flag for
+    flag the JAX package's: the auto tag and output path, and `--resume v6`
+    resolved to checkpoints/v6_*/checkpoint.pkl (the port reads the pkl
+    layout only; a directory whose newest epoch is an orbax store raises).'''
+    parser = argparse.ArgumentParser()
+    _add_fields(parser, TrainConfig)
+    ns = parser.parse_args(argv)
+    args = TrainConfig(**vars(ns))
+    verify_args(args, is_train=True)
+
+    if args.output_path == 'auto':
+        args.tag = _auto_train_tag(args)
+        args.output_path = os.path.join(args.checkpoint_root, args.tag)
+
+    if args.resume and not (os.path.exists(args.resume) and os.path.isfile(args.resume)):
+        from .checkpoint import newest_native_layout, resolve_resume_path
+        resolved = resolve_resume_path(args.resume, args.checkpoint_root)
+        if newest_native_layout(resolved) == 'orbax':
+            raise NotImplementedError(f'{resolved}: its newest epoch is an orbax store, '
+                                      'which the port does not read yet (ROADMAP.md Queue 1 '
+                                      'item 5)')
+        args.resume = os.path.join(resolved, 'checkpoint.pkl')
     return args
 
 

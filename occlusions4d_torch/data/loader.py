@@ -5,7 +5,6 @@ CARLA by path (own copy of occlusions4d_tpu/data/loader.py).
 A background prefetch thread assembles fixed-shape numpy batches while the
 device computes; the host only needs to stay ahead of one step. The batches are
 numpy (the consumer moves them to the card), bit for bit the JAX package's.
-create_train_val_loaders waits for the port's train driver.
 '''
 
 import collections
@@ -18,7 +17,7 @@ import numpy as np
 from .greater import GreaterDataset
 from .carla import CarlaDataset
 
-__all__ = ['Loader', 'collate', 'create_test_loader']
+__all__ = ['Loader', 'collate', 'create_train_val_loaders', 'create_test_loader']
 
 _STACK_KEYS = ('pcl_input', 'pcl_input_sem', 'pcl_target', 'pcl_target_valid',
                'valo_ids', 'num_valo_ids', 'cam_RT', 'cam_K', 'rgb', 'depth',
@@ -40,8 +39,8 @@ class Loader:
 
     num_workers > 1 decodes examples through a thread pool: the hot host ops
     (C++ FPS / kNN / frame decode via ctypes, zlib inflate, most numpy)
-    release the GIL. (The JAX package's fork-based process workers serve its
-    train loaders only; the port has none yet.) Per-example RNG is derived
+    release the GIL. (The JAX package's fork-based process workers are not
+    ported: ROADMAP.md Queue 1 item 5.) Per-example RNG is derived
     from (seed, epoch, index), so the produced batches are bit-identical
     across worker counts, and batches are always yielded in index order
     regardless of worker completion order.
@@ -169,6 +168,25 @@ def _train_dset_args(cfg, data_kind, logger):
         base.update(convert_to_pcl=True, return_segm=True,
                     track_mode='random' if cfg.tracking_lw > 0.0 else 'none')
     return base
+
+
+def create_train_val_loaders(cfg, logger):
+    '''The train and val loaders of a train configuration, the dataset kind
+    picked by its path ('carla' in it, else GREATER). The train dataset and
+    its shuffle take seed cfg.seed, the val ones cfg.seed + 1, as in the
+    JAX package. Thread workers only (verify_args refuses 'process').
+    :return (data_kind, train_loader, val_aug_loader, dset_args).
+    '''
+    data_kind = 'carla' if 'carla' in cfg.data_path.lower() else 'greater'
+    dset_args = _train_dset_args(cfg, data_kind, logger)
+    cls = CarlaDataset if data_kind == 'carla' else GreaterDataset
+    train_dset = cls(cfg.data_path, logger, stage='train', seed=cfg.seed, **dset_args)
+    val_dset = cls(cfg.data_path, logger, stage='val', seed=cfg.seed + 1, **dset_args)
+    train_loader = Loader(train_dset, cfg.batch_size, shuffle=True, drop_last=True,
+                          seed=cfg.seed, num_workers=cfg.num_workers)
+    val_loader = Loader(val_dset, cfg.batch_size, shuffle=True, drop_last=True,
+                        seed=cfg.seed + 1, num_workers=cfg.num_workers)
+    return data_kind, train_loader, val_loader, dset_args
 
 
 def create_test_loader(cfg, dset_args, logger):

@@ -71,41 +71,50 @@ class PointEncoder(nn.Module):
             self.global_mlp = nn.Sequential(Dense(dim, global_dim, dtype=dtype), nn.ReLU(),
                                             Dense(global_dim, global_dim, dtype=dtype))
 
-    def forward(self, pcl, generator=None):
+    def forward(self, pcl, generator=None, return_intermediate=False):
         '''
         :param pcl (B, N, d_in): (x, y, z, R, G, B, t, mark_track).
         :param generator: torch.Generator of the training-time random FPS
             starts (used in train mode when fps_random_start; start 0 else).
+        :param return_intermediate: also return the positions of every layer.
         :return (pcl_out (B, M_total, 3 + E) or None, x_global (B, G) or None),
-            both in the dtype.
+            both in the dtype; with return_intermediate a third item, the
+            list of (B, *, 3) positions: the input's twice (before and after
+            pre_mlp), then after every PT block and DownTransition, as the
+            JAX encoder's layer_coords.
         '''
         random_start = self.training and self.fps_random_start and generator is not None
         dt = self.dtype
         pos = pcl[..., :3]
+        coords = [pos, pos]
         x = self.pre_mlp(pcl.to(dt))
         skips = []
         blocks = list(self.blocks)
         for i in range(self.down_blocks):
             x, pos = blocks[2 * i](x, pos)
+            coords.append(pos)
             start = (random_start_indices(generator, x.shape[0], x.shape[1],
                                           device=x.device) if random_start else None)
             x, pos = blocks[2 * i + 1](x, pos, start_idx=start)
+            coords.append(pos)
             j = self._skip_at.get(x.shape[-1])
             if j is not None:
                 y = self.abstract_skip_mlps[j](x)
                 y = torch.cat([y[..., :-1], torch.full_like(y[..., -1:], j + 1.0)], -1)
                 skips.append(torch.cat([pos.to(dt), y], -1))
         x, pos = blocks[-1](x, pos)
+        coords.append(pos)
+        extra = (coords,) if return_intermediate else ()
 
         x_global = None
         if self.output_global_emb:
             x_global = self.global_mlp(x.mean(dim=1))
         if not self.output_featurized:
-            return None, x_global
+            return (None, x_global) + extra
         pcl_out = torch.cat([pos.to(dt), x], -1)
         if self.abstract_levels > 1:
             # Last feature channel of every level holds the 1-based level index.
             pcl_out = torch.cat([pcl_out[..., :-1], torch.full_like(
                 pcl_out[..., -1:], float(self.abstract_levels))], -1)
             pcl_out = torch.cat(skips + [pcl_out], dim=1)
-        return pcl_out, x_global
+        return (pcl_out, x_global) + extra

@@ -93,8 +93,11 @@ def knn_rank_plain(q, keys, kn, k):
                + qc[:, :, None, 1] * keys[:, None, :, 1]
                + qc[:, :, None, 2] * keys[:, None, :, 2])
         d = kn[:, None, :] - 2.0 * dot
-        vals, order = torch.sort(d, dim=-1, stable=True)
-        vals, order = vals[..., :k], order[..., :k]
+        if k == 1 and not torch.isnan(d).any():   # the stable sort's first entry.
+            vals, order = d.min(-1, keepdim=True)
+        else:
+            vals, order = torch.sort(d, dim=-1, stable=True)
+            vals, order = vals[..., :k], order[..., :k]
         ds.append(vals)
         ids.append(torch.where(torch.isinf(vals), torch.zeros_like(order), order))
     return torch.cat(ds, 1), torch.cat(ids, 1).to(torch.int32)

@@ -134,7 +134,10 @@ class TrainPipeline:
 
     def decode_frames(self, frames, abstract, features_global):
         '''Field evaluation, squash and losses over sampled frames.
-        :return (losses dict, aux dict).'''
+        :return (losses dict, aux dict): aux holds the JAX pipeline's
+            abstract, features_global, points_query (B, T, S + A, 4),
+            implicit_output, implicit_target, solid_sbs, air_sbs, sample_ok
+            and sample_ok_frac.'''
         cfg = self.cfg
         output = torch.stack([
             squash_colors(self._decode_frame(f['points_query'], abstract,
@@ -144,13 +147,14 @@ class TrainPipeline:
         ok_bt = torch.stack([f['ok'] for f in frames], 1)       # (B, T).
         losses = per_example_losses(output, target, cfg.loss_config, frame_weight=ok_bt)
         aux = dict(abstract=abstract, features_global=features_global,
+                   points_query=torch.stack([f['points_query'] for f in frames], 1),
                    implicit_output=output, implicit_target=target,
                    solid_sbs=torch.stack([f['solid_sbs'] for f in frames], 1).mean((0, 1)),
                    air_sbs=torch.stack([f['air_sbs'] for f in frames], 1).mean((0, 1)),
                    sample_ok=ok_bt.all(), sample_ok_frac=ok_bt.to(torch.float32).mean())
         return losses, aux
 
-    def forward(self, batch, generator, mark=None):
+    def forward(self, batch, generator, mark=None, return_intermediate=False):
         '''
         :param batch: dict of tensors on one device: pcl_input (B, N, 8);
             pcl_target (B, T, M, E); pcl_target_valid (B, T, M) bool;
@@ -160,9 +164,12 @@ class TrainPipeline:
             and 'sampler' once each part has been enqueued, and with
             'decoder_backward' from a gradient hook on the abstract cloud,
             when a later backward has passed through the decoder.
+        :param return_intermediate: aux also holds layer_coords, the
+            encoder's per-layer positions (else None).
         :return (losses dict, aux dict).
         '''
-        abstract, feats_global = self.encoder(batch['pcl_input'], generator=generator)
+        abstract, feats_global, *coords = self.encoder(
+            batch['pcl_input'], generator=generator, return_intermediate=return_intermediate)
         if mark is not None:
             mark('encoder')
             if abstract.requires_grad:
@@ -170,7 +177,9 @@ class TrainPipeline:
         frames = self.sample_frames(batch, generator)
         if mark is not None:
             mark('sampler')
-        return self.decode_frames(frames, abstract, feats_global)
+        losses, aux = self.decode_frames(frames, abstract, feats_global)
+        aux['layer_coords'] = coords[0] if coords else None
+        return losses, aux
 
     def loss(self, batch, generator, mark=None):
         '''Scalar objective plus (losses, aux). `mark` as in forward, and

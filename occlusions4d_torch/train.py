@@ -1,8 +1,9 @@
 '''
-The train step (port of occlusions4d_tpu/train.py:50-174): AdamW with a
+The train driver (port of occlusions4d_tpu/train.py): AdamW with a
 piecewise-constant learning rate, global-norm gradient clipping, the skip of
 a step whose gradients are not finite and the hard failure on a non-finite
-parameter, around the TrainPipeline forward.
+parameter, around the TrainPipeline forward; the epoch loop, checkpoints,
+resume and the intermediate exports.
 
 The optimizer is written to optax's formulas, so a step moves the weights
 as the JAX package's `optax.chain(clip_by_global_norm, masked(adamw))` does:
@@ -18,7 +19,22 @@ as the JAX package's `optax.chain(clip_by_global_norm, masked(adamw))` does:
 A step with a non-finite gradient leaves the parameters, the moments and the
 count as they were. All of it stays on the device: the step count is a
 tensor and the skip is a torch.where, so the update never waits for the host.
-The caller reads params_finite once per step (Trainer.step).
+Trainer.step reads params_finite after every step; Trainer.run_epoch reads
+a step's flags only after the next step is queued (the JAX loop's lagged
+guard), so the host never waits on the step it has just queued.
+
+run_epoch draws from one torch.Generator per epoch and stage, seeded as the
+JAX loop seeds its key (seed * 1000 + epoch * 10 + 0 for train, 1 for val),
+so a run resumed after epoch e draws what an unbroken run draws. It
+tolerates up to 11 host-side data errors per epoch (the 12th re-raises),
+logs the scalars every LOG_EVERY steps and splits its wall into the
+PhaseTimer phases data / h2d / step / guard / sync / viz.
+
+Checkpoints are the JAX package's pkl envelope (checkpoint.py): the JAX
+evaluation loads what the port writes, and the port resumes from either
+package's files (the JAX optimizer's moments come out of optax's
+ScaleByAdamState); the JAX Trainer cannot resume from the port's optimizer
+dicts.
 
 The fused decoder computes in cfg.fused_decoder_dtype (pipeline.py:
 'auto' is f32 here; 'bf16' runs the decoder's kernels in their bf16 mode,
@@ -28,19 +44,36 @@ linear layers over f32 parameters; the encoder's fused self-attention in
 its bf16 mode with fused_attention='on'), as the JAX Trainer does
 (train.py:254), with AdamW's eps 1e-4; the fused decoder then reads the
 bf16 encoder's outputs in its own compute dtype. Entry points run on CUDA
-unless asked for the CPU; TF32 stays off outside that decoder.
+unless asked for the CPU (cfg.device, --device cpu); TF32 stays off outside
+that decoder.
+
+    python -m occlusions4d_torch.train [flags of config.TrainConfig]
 '''
+
+import os
+import time
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .checkpoint import from_jax_params
+from .checkpoint import (adam_state, from_jax_params, jax_moments_to_torch,
+                         load_checkpoint, save_checkpoint, to_jax_params)
+from .config import TrainConfig, train_args
+from .losses import total_loss
 from .models.factory import build_models, build_sampler_args
 from .pipeline import PipelineConfig, TrainPipeline, resolve_decoder_dtype
 from .sampler import SamplerConfig
+from .utils.logvis import StepLogger
+from .utils.profiling import PhaseTimer
 
-__all__ = ['AdamW', 'build_optimizer', 'make_train_step', 'Trainer']
+__all__ = ['AdamW', 'build_optimizer', 'make_train_step', 'make_eval_step',
+           'make_viz_step', 'Trainer', 'main', 'LOG_EVERY']
+
+# Host-sync cadence of the scalar logging (the JAX loop's).
+LOG_EVERY = 32
+# The batch entries that stay on the host (bookkeeping and visuals).
+_HOST_KEYS = ('meta_data', 'rgb', 'depth', 'flat', 'snitch', 'cam_RT', 'cam_K')
 
 
 class AdamW:
@@ -138,9 +171,49 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
     return step
 
 
+def make_eval_step(pipeline: TrainPipeline):
+    '''
+    :return step(batch, generator) -> metrics: the pipeline's losses without
+        a gradient (total_loss, sample_ok, loss_*; device tensors).
+    '''
+
+    def step(batch, generator):
+        with torch.no_grad():
+            losses, aux = pipeline.forward(batch, generator)
+            loss = total_loss(losses, pipeline.cfg.loss_config)
+        return dict(total_loss=loss, sample_ok=aux['sample_ok'],
+                    **{f'loss_{k}': v for k, v in losses.items()})
+
+    return step
+
+
+def make_viz_step(pipeline: TrainPipeline):
+    '''The observability forward, run every cfg.viz_interval train steps:
+    :return viz(batch, generator) -> dict of device tensors (abstract,
+        points_query, implicit_output, implicit_target, features_global,
+        layer_coords), the pipeline re-run without a gradient and with
+        return_intermediate.'''
+
+    def viz(batch, generator):
+        with torch.no_grad():
+            _, aux = pipeline.forward(batch, generator, return_intermediate=True)
+        return {k: aux[k] for k in ('abstract', 'points_query', 'implicit_output',
+                                    'implicit_target', 'features_global', 'layer_coords')}
+
+    return viz
+
+
+def _numpy(t):
+    return t.detach().to(torch.float32).cpu().numpy() if t.is_floating_point() \
+        else t.detach().cpu().numpy()
+
+
 def _to_device(batch, dev):
+    '''The batch's step inputs on `dev` (the host-side entries left out).'''
     out = {}
     for k, v in batch.items():
+        if k in _HOST_KEYS:
+            continue
         if isinstance(v, torch.Tensor):
             out[k] = v.to(dev)
         else:  # a copy: the step never aliases the caller's numpy buffers.
@@ -149,20 +222,22 @@ def _to_device(batch, dev):
 
 
 class Trainer:
-    '''Models, optimizer and generator of one training run.
-    `fused_attention` ('auto'|'on'|'off', None = 'auto') is the encoder's
-    self-attention path, forwarded to build_models as the JAX Trainer
-    forwards it; 'on' trains through the fused self-attention kernels.
-    cfg.fused_decoder_dtype is the fused decoder's compute dtype
-    (TrainPipeline); cfg.mixed_precision builds the networks in bf16
-    (self.dtype) and sets AdamW's eps to 1e-4.'''
+    '''Models, optimizer and epoch loop of one training run.
+    `device` (None = cfg.device) is where it trains; `fused_attention`
+    ('auto'|'on'|'off', None = 'auto') is the encoder's self-attention path,
+    forwarded to build_models as the JAX Trainer forwards it; 'on' trains
+    through the fused self-attention kernels. cfg.fused_decoder_dtype is the
+    fused decoder's compute dtype (TrainPipeline); cfg.mixed_precision
+    builds the networks in bf16 (self.dtype) and sets AdamW's eps to 1e-4.'''
 
-    def __init__(self, cfg, data_kind='greater', device='cuda', fused_attention=None):
+    def __init__(self, cfg, data_kind='greater', device=None, fused_attention=None,
+                 logger=None):
         resolve_decoder_dtype(cfg.fused_decoder_dtype)
         self.cfg = cfg
         self.data_kind = data_kind
-        self.device = resolve_device(device)
+        self.device = resolve_device(cfg.device if device is None else device)
         self.fused_attention = fused_attention
+        self.logger = logger or StepLogger(context='train', batch_size=cfg.batch_size)
         self.dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -180,6 +255,11 @@ class Trainer:
         self.optimizer = None
         self.generator = None
         self._step = None
+        self.step_count = 0            # train steps run (the JAX state's 'step').
+        self.start_epoch = cfg.start_epoch
+        self.last_phase_timer = None
+
+    # ------------------------------------------------------------------ state --
 
     def init_state(self, params=None, seed=None, steps_per_epoch=1000):
         '''
@@ -204,18 +284,263 @@ class Trainer:
         self.pipeline = TrainPipeline(self.encoder, self.decoder,
                                       SamplerConfig(**self.sampler_args), self.pipeline_cfg,
                                       self.cfg.fused_decoder_dtype)
+        self._nets = dict(encoder=self.encoder, decoder=self.decoder)
+        self._param_names = [(net, n) for net, m in self._nets.items()
+                             for n, _ in m.named_parameters()]
         named = list(self.encoder.parameters()) + list(self.decoder.parameters())
         self.optimizer = build_optimizer(self.cfg, steps_per_epoch, named)
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.step_count = 0
         self._step = make_train_step(self.pipeline, self.optimizer)
+        self._eval_step = make_eval_step(self.pipeline)
+        self._viz_step = make_viz_step(self.pipeline)
         return self
 
+    def state(self):
+        '''The checkpoint's state: params in the flax layout, the optimizer
+        as {'mu', 'nu' (the params' layout), 'count'}, the step count; numpy.'''
+        moments = {}
+        for name, tensors in (('mu', self.optimizer.mu), ('nu', self.optimizer.nu)):
+            per_net = {net: {} for net in self._nets}
+            for (net, n), t in zip(self._param_names, tensors):
+                per_net[net][n] = t
+            moments[name] = {net: to_jax_params(d, net == 'decoder')
+                             for net, d in per_net.items()}
+        params = {net: to_jax_params(m.state_dict(), net == 'decoder')
+                  for net, m in self._nets.items()}
+        opt = dict(moments, count=np.asarray(int(self.optimizer.count), np.int32))
+        return dict(params=params, opt_state=opt,
+                    step=np.asarray(self.step_count, np.int32))
+
+    def resume(self, path, steps_per_epoch=1000):
+        '''Load a checkpoint's full state (either package's pkl; a file or
+        a run directory's rolling checkpoint.pkl): the parameters, AdamW's
+        mu, nu and count, the step count; training goes on at its epoch + 1.'''
+        if str(path).endswith('.pth'):
+            raise NotImplementedError('a reference .pth resume is not part of the port yet '
+                                      '(ROADMAP.md Queue 1 item 5)')
+        ck = load_checkpoint(path)
+        self.init_state(params=ck['state']['params'], steps_per_epoch=steps_per_epoch)
+        adam = adam_state(ck['state']['opt_state'])
+        with torch.no_grad():
+            for key, tensors in (('mu', self.optimizer.mu), ('nu', self.optimizer.nu)):
+                per_net = {net: jax_moments_to_torch(adam[key][net], m)
+                           for net, m in self._nets.items()}
+                for (net, n), t in zip(self._param_names, tensors):
+                    t.copy_(per_net[net][n].to(t.device))
+            self.optimizer.count.fill_(adam['count'])
+        self.step_count = int(np.asarray(ck['state'].get('step', adam['count'])))
+        self.start_epoch = int(ck['epoch']) + 1
+        return self
+
+    def save(self, epoch):
+        '''model_{epoch}.pkl and the rolling checkpoint.pkl under
+        cfg.output_path, with the JAX Trainer's meta.'''
+        if not self.cfg.output_path:
+            return
+        meta = dict(config=dict(vars(self.cfg)), encoder_args=self.encoder_args,
+                    decoder_args=self.decoder_args, sampler_args=self.sampler_args,
+                    data_kind=self.data_kind)
+        save_checkpoint(self.cfg.output_path, epoch, self.state(), meta=meta)
+
+    # ------------------------------------------------------------------- steps --
+
     def step(self, batch, mark=None):
-        '''One train step on a batch dict (numpy arrays or tensors). Raises
-        on a non-finite parameter; a non-finite gradient skips the update
-        (metrics['grads_finite'] is then False). `mark`: the optional
-        phase-timing callback of make_train_step.'''
+        '''One train step on a batch dict (numpy arrays or tensors) with the
+        run's generator. Raises on a non-finite parameter; a non-finite
+        gradient skips the update (metrics['grads_finite'] is then False).
+        `mark`: the optional phase-timing callback of make_train_step.'''
         metrics = self._step(_to_device(batch, self.device), self.generator, mark)
+        self.step_count += 1
         if not bool(metrics['params_finite']):
             raise RuntimeError('NaN model parameter detected!')
         return metrics
+
+    def run_epoch(self, epoch, stage, data_iter, num_steps=None):
+        '''One epoch of `stage` ('train', or 'val' / 'val_aug': the losses
+        without a step) over an iterable of batch dicts.
+        :return the metrics of the logged steps (numpy).'''
+        assert stage in ('train', 'val', 'val_aug')
+        is_train = stage == 'train'
+        gen = torch.Generator(self.device).manual_seed(
+            self.cfg.seed * 1000 + epoch * 10 + (0 if is_train else 1))
+        self.generator = gen
+        num_exceptions = 0
+        metrics_hist = []
+        timer = PhaseTimer()
+        start = time.time()
+        data_iter = iter(data_iter)
+        cur_step = -1
+        prev_guard = None      # (grads_finite, params_finite) of the last train step.
+
+        def check_guard():
+            '''Read and act on the pending step's guard flags.'''
+            nonlocal prev_guard
+            if prev_guard is None:
+                return
+            with timer.phase('guard'):
+                g_fin, p_fin = bool(prev_guard[0]), bool(prev_guard[1])
+            prev_guard = None
+            if not g_fin:
+                self.logger.error('NaN/Inf gradient detected! Step skipped.')
+            if not p_fin:
+                raise RuntimeError('NaN model parameter detected!')
+
+        while True:
+            cur_step += 1
+            if num_steps is not None and cur_step >= num_steps:
+                break
+            with timer.phase('data'):
+                batch = next(data_iter, None)
+            if batch is None:
+                break
+            try:
+                meta_list = batch.get('meta_data')
+                host_images = {k: batch[k] for k in ('rgb', 'depth') if k in batch}
+                with timer.phase('h2d'):
+                    batch = _to_device(batch, self.device)
+            except Exception as e:  # host-side data failure tolerance.
+                num_exceptions += 1
+                if num_exceptions >= 12:
+                    raise
+                self.logger.exception(e)
+                # A pending poison pill must not be masked by a data-failure
+                # streak ending in the 12-exception re-raise.
+                check_guard()
+                continue
+
+            viz_due = (is_train and self.logger.log_dir is not None
+                       and cur_step % max(self.cfg.viz_interval, 1) == 0)
+            if viz_due:  # the step's draws, on a copy that leaves `gen` as it is.
+                viz_gen = torch.Generator(self.device)
+                viz_gen.set_state(gen.get_state())
+            with timer.phase('step'):
+                if is_train:
+                    metrics = self._step(batch, gen)
+                    self.step_count += 1
+                    new_guard = (metrics['grads_finite'], metrics['params_finite'])
+                else:
+                    metrics = self._eval_step(batch, gen)
+                    new_guard = None
+
+            # The guard of step N is read after step N + 1 is queued: the
+            # read waits on a step already retiring, and the poison-pill
+            # raise still precedes the dispatch of step N + 2 (the one step
+            # queued on poisoned parameters is a skipped no-op where the
+            # poisoned leaf touches the loss).
+            if is_train:
+                check_guard()
+                prev_guard = new_guard
+
+            if viz_due:
+                with timer.phase('viz'):
+                    self._export_intermediates(epoch, stage, cur_step, batch,
+                                               host_images, meta_list, viz_gen)
+
+            if cur_step % LOG_EVERY == 0:   # host sync for scalar logging only.
+                with timer.phase('sync'):
+                    m = {k: _numpy(v) for k, v in metrics.items()}
+                loss_terms = {k: float(v) for k, v in m.items() if k.startswith('loss_')}
+                self.logger.handle_step(epoch, stage, cur_step, cur_step, num_steps or -1,
+                                        float(m['total_loss']), loss_terms)
+                for name, val in loss_terms.items():
+                    self.logger.report_scalar(f'{stage}/{name}', val, remember=True)
+                self.logger.report_scalar(f'{stage}/total_loss', float(m['total_loss']),
+                                          remember=True)
+                metrics_hist.append(m)
+
+        check_guard()  # trailing-edge guard for the final step.
+        self.logger.info(f'[{stage}] epoch {epoch} finished in {time.time() - start:.1f}s')
+        timer.report(self.logger, prefix=f'[{stage}] ')
+        self.last_phase_timer = timer
+        return metrics_hist
+
+    def _export_intermediates(self, epoch, stage, cur_step, dev_batch, host_images,
+                              meta_list, generator):
+        '''npy point-cloud exports of input / abstract / target / implicit
+        output / per-layer coordinates, per-channel output histograms, the
+        dataset's filtering-ratio histograms, and early-epoch RGB-D galleries
+        when images were loaded (the JAX Trainer's, but for save_video).'''
+        raw = self._viz_step(dev_batch, generator)
+        viz = {k: _numpy(v) for k, v in raw.items() if k != 'layer_coords'}
+        out_pcl = np.concatenate([viz['points_query'][0], viz['implicit_output'][0]],
+                                 axis=-1)                      # (T, N, 4 + C).
+        tgt_pcl = np.concatenate([viz['points_query'][0], viz['implicit_target'][0]],
+                                 axis=-1)                      # (T, N, 10).
+        arrays = dict(pcl_input=_numpy(dev_batch['pcl_input'][0]),
+                      pcl_abstract=viz['abstract'][0],
+                      pcl_target=_numpy(dev_batch['pcl_target'][0]),
+                      implicit_output=out_pcl, implicit_target=tgt_pcl)
+        for i, lc in enumerate(raw['layer_coords'] or []):
+            arrays[f'layer_coords_{i}'] = _numpy(lc[0])
+        self.logger.export_pointclouds(stage, epoch, cur_step, arrays)
+
+        cfg = self.cfg
+        for t in range(viz['implicit_output'].shape[1]):
+            io_t = viz['implicit_output'][:, t]
+            self.logger.report_implicit_histograms(
+                stage, io_t, cfg.color_mode, t, cfg.segmentation_lw > 0.0,
+                cfg.semantic_classes, cfg.tracking_lw > 0.0, step=epoch)
+            # Predicted-solid vs predicted-air per-channel split at density
+            # logit 0.
+            flat = io_t.reshape(-1, io_t.shape[-1])
+            self.logger.report_pcl_air_histograms(
+                stage, flat[flat[..., 0] >= 0.0], flat[flat[..., 0] < 0.0],
+                cfg.color_mode, t, cfg.segmentation_lw > 0.0, cfg.semantic_classes,
+                cfg.tracking_lw > 0.0, False, epoch)
+        self.logger.report_histogram(f'{stage}/features_global', viz['features_global'],
+                                     step=epoch)
+        self.logger.report_filter_ratios(stage, meta_list, epoch)
+
+        if host_images and epoch < 2 and cur_step == 0:
+            rgb = np.asarray(host_images['rgb'][0, 0])           # (T, H, W, 3).
+            self.logger.save_gallery(rgb, f'{stage}_rgb_e{epoch}', step=cur_step)
+            self.logger.info('the RGB video export (save_video) is not part of the port: '
+                             'the gallery is written instead')
+            if 'depth' in host_images:
+                d = np.asarray(host_images['depth'][0, 0])
+                d = d / max(float(d.max()), 1e-6)
+                self.logger.save_gallery(d, f'{stage}_depth_e{epoch}', step=cur_step)
+
+    def fit(self, train_loader_fn, val_loader_fn=None, steps_per_epoch=None):
+        '''
+        :param train_loader_fn: epoch -> iterable of batches (val likewise).
+        '''
+        for epoch in range(self.start_epoch, self.cfg.num_epochs):
+            self.logger.info(f'Epoch (1-based): {epoch + 1} / {self.cfg.num_epochs}')
+            self.run_epoch(epoch, 'train', train_loader_fn(epoch), steps_per_epoch)
+            self.save(epoch)
+            if val_loader_fn is not None:
+                self.run_epoch(epoch, 'val_aug', val_loader_fn(epoch), steps_per_epoch)
+            self.logger.epoch_finished(epoch)
+
+
+def main(cfg: TrainConfig, logger=None):
+    '''The command line's entry: loaders, Trainer (fresh, or resumed from
+    cfg.resume), the epochs. Trains on cfg.device ('cuda' raises without a
+    card). :return the Trainer.'''
+    from .data import create_train_val_loaders
+    logger = logger or StepLogger(
+        log_dir=os.path.join(cfg.log_root, cfg.tag or cfg.name or 'run'),
+        context='train', batch_size=cfg.batch_size)
+    logger.info(f'Args: {cfg}')
+    logger.save_args(cfg)
+    np.random.seed(cfg.seed)
+
+    data_kind, train_loader, val_loader, _ = create_train_val_loaders(cfg, logger)
+    logger.info(f'data_kind: {data_kind}  output: {cfg.output_path}')
+    trainer = Trainer(cfg, data_kind, logger=logger)
+    steps_per_epoch = train_loader.steps_per_epoch
+    if cfg.resume:
+        trainer.resume(cfg.resume, steps_per_epoch)
+        logger.info(f'Resumed from {cfg.resume} at epoch {trainer.start_epoch}')
+    else:
+        trainer.init_state(steps_per_epoch=steps_per_epoch)
+    trainer.fit(lambda e: train_loader.epoch(e),
+                (lambda e: val_loader.epoch(e)) if val_loader else None,
+                steps_per_epoch=steps_per_epoch)
+    return trainer
+
+
+if __name__ == '__main__':
+    main(train_args())

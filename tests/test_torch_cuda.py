@@ -22,7 +22,8 @@ tolerances, and the FPS cluster entry is exact like the one-block kernel.
 Their bf16 mode (sattn_bf16, sattn_bwd_bf16) takes chip_smoke.py's bf16
 gates against the plain bf16 versions, which the f32 kernels fail. The
 gathered interpolation's backward (interp_g_bwd) equals its plain version
-bit for bit (the same arithmetic in the same order).
+bit for bit (the same arithmetic in the same order). The eval and train
+drivers run end to end on the card at tiny widths.
 '''
 
 import importlib
@@ -1525,3 +1526,57 @@ def test_eval_driver_greater_anchor_on_card(dev, tmp_path, overlap):
     if overlap == 'false':
         other, _, _ = run('true', 'other')
         assert other['per_frame'] == summary['per_frame']
+
+
+def test_train_driver_on_card(dev, tmp_path):
+    '''The train driver (train.main) on the card at tiny widths: 2 epochs of
+    train and val_aug over a synthetic GREATER dataset, model_0 / model_1 /
+    checkpoint.pkl written, the train step's kernels launched; a run resumed
+    from model_0 gives epoch 1's logged losses and the final parameters of
+    the unbroken run (rel 1e-4, as chip_smoke.py's train_driver gate); its
+    checkpoint read by python -m occlusions4d_torch.evaluate.'''
+    import glob
+    import os
+    import subprocess
+    import sys
+    from occlusions4d_torch import train as t_train
+    from occlusions4d_torch.config import train_args
+    from occlusions4d_torch.data import synthetic
+    from occlusions4d_torch.ops import _build
+    data = str(tmp_path / 'data')
+    synthetic.make_greater_dataset(data, num_scenes=2, num_views=2, num_frames=14,
+                                   image_size=28, stages=('train', 'val', 'test'))
+    argv = ['--n_points', '256', '--n_data_rnd', '512', '--video_len', '4', '--frame_skip',
+            '2', '--pt_feat_dim', '8', '--up_down_blocks', '2', '--pt_num_neighbors', '8',
+            '--down_neighbors', '6', '--global_size', '16', '--num_cr_local_feats', '4',
+            '--implicit_mlp_blocks', '3', '--cross_attn_layers', '2', '--cross_attn_neighbors',
+            '6', '--num_cr_solid', '48', '--color_mode', 'rgb_nosigmoid', '--color_lw', '1.0',
+            '--tracking_lw', '1.0', '--batch_size', '2', '--num_epochs', '2', '--seed', '5',
+            '--num_workers', '2', '--use_data_frac', '0.02', '--data_path', data,
+            '--name', 'card', '--checkpoint_root', str(tmp_path / 'ck'),
+            '--log_root', str(tmp_path / 'logs')]
+    _build.reset_launch_counts()
+    full = t_train.main(train_args(argv))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for k in ('knn_brute', 'fps', 'interp', 'attn', 'attn_bwd', 'interp_bwd'):
+        assert counts[k] > 0, (k, counts)
+    out = full.cfg.output_path
+    assert sorted(os.listdir(out)) == ['checkpoint.pkl', 'model_0.pkl', 'model_1.pkl']
+    cfg = train_args(argv + ['--resume', os.path.join(out, 'model_0.pkl'),
+                             '--output_path', str(tmp_path / 'resumed')])
+    resumed = t_train.main(cfg)
+    rows = [{r['epoch']: r for r in t.logger.scalar_history} for t in (full, resumed)]
+    for key in ('train/total_loss', 'val_aug/total_loss'):
+        assert abs(rows[1][1][key] - rows[0][1][key]) <= 1e-4 * abs(rows[0][1][key]), key
+    for a, b in zip(full.optimizer.params, resumed.optimizer.params):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+    res = subprocess.run(
+        [sys.executable, '-m', 'occlusions4d_torch.evaluate', '--resume', out,
+         '--data_path', data, '--num_workers', '0', '--use_data_frac', '0.02',
+         '--num_sample', '4096', '--implicit_batch_size', '2048', '--save_metrics', 'true',
+         '--log_path', str(tmp_path / 'eval' / 'run')],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert glob.glob(str(tmp_path / 'eval' / 'test_*' / 'metrics.json'))

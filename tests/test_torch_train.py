@@ -407,8 +407,12 @@ def test_sampler_args_and_config_fields_match_jax():
         assert t_factory.build_sampler_args(tcfg, kind) == \
             j_factory.build_sampler_args(jcfg, kind)
     jdef = JTrainConfig()
+    assert [f.name for f in dataclasses.fields(TrainConfig)] == \
+        [f.name for f in dataclasses.fields(JTrainConfig)]
+    assert TrainConfig().device == 'cuda' and jdef.device == 'tpu'
     for f in dataclasses.fields(TrainConfig):
-        assert getattr(TrainConfig(), f.name) == getattr(jdef, f.name), f.name
+        if f.name != 'device':
+            assert getattr(TrainConfig(), f.name) == getattr(jdef, f.name), f.name
 
 
 # -------------------------------------------------------------- optimizer --

@@ -49,7 +49,10 @@ each printing one JSON line:
      indices in phase 6, its inverse index against a stable argsort, with
      index_add_ timed beside it); the eval labels' direct-difference 1-NN
      (nn1_direct) at CARLA scale (the 541314-query grid against a
-     100000-point frame), equal to its plain version; the three
+     100000-point frame), equal to its plain version; the bidirectional
+     1-NN (nn1_bidir) at 28672^2, the wrapper and its C entry on prebuilt
+     rows timed (entry_ms), both exact, its bound 8 f32 instructions a
+     pair at the CUDA cores' 33.5 T/s (the two fminf not counted); the three
      shared-gather kernels run at one cv1 decode chunk (32768 queries, a
      2124-point abstract cloud), where the per-row index-route attention is
      timed beside gather + attn_g and must give attn_g's bits on the same
@@ -130,7 +133,8 @@ each printing one JSON line:
      each metric's largest delta from the committed values printed, not
      gated; then gv1 at full width (the seeded weights of phase 4, a
      synthetic GREATER scene of 128-pixel images in which every example
-     fills the 14336 input points, 524288 grid queries, --save_metrics, 1
+     fills the 14336 input points, a quarter of the dense grid (131072
+     queries: the host metrics' time scales with them), --save_metrics, 1
      step of 4 frames) through run_test: finite metrics, the index route's
      kernels launched. Each run prints its wall per frame, phase_split_s,
      scene_wall_s, the device_infer share and its launches (per frame too);
@@ -155,6 +159,27 @@ each printing one JSON line:
      train and val losses and learning rates printed, the LR drops at
      epochs 4, 6 and 8 and the best of the last 3 val losses below the best
      of the first 3;
+  5d. reference_pth: phase eval_driver's gv1 weights (seed 1) written as a
+     native .pkl and as a reference .pth (the decoder's first block under
+     the legacy pt_block. name, the args Namespace, torch's Adam /
+     MultiStepLR / GradScaler state dicts); the .pkl through the eval
+     driver in this process (launches counted), the .pth through python -m
+     occlusions4d_torch.evaluate in its own at the same time, on the
+     synthetic gv1 scene at a quarter of the dense grid (131072 queries):
+     the per-frame metrics must be equal; then train.main warm-started from the .pth on the gv1
+     recipe (3 steps): start epoch, step count (epoch + 1) x steps per
+     epoch + the steps run, AdamW's fresh count, finite losses;
+  5e. train_batchnorm: the gv1 train step with pt_norm_type 'batch' beside
+     'none' from the same seed and batch (1 warm-up + 3 timed steps each,
+     one phase-split step, peak memory): finite losses, the running
+     statistics moved; a val_aug and a viz step leave them as they were;
+     the encoder in eval mode decodes one dense gv1 scene, finite;
+  5f. train_loader_workers: a child process (this script with
+     --loader-workers) builds the gv1 recipe's loaders with thread and with
+     process workers before it touches CUDA, warms the Trainer up for 2
+     steps, then times 6-step epochs fed by thread, process, process,
+     thread workers: each epoch's step wall, data share and peak memory,
+     and each mode's mean;
   6. train: the gv1 train step (Trainer, batch 3, 4 frames, seeded numpy
      weights and a bench.py-shaped synthetic batch): 1 warm-up step, 3 timed
      steps with the launch counters zeroed just before and read just after
@@ -1095,21 +1120,39 @@ def check_backward_kernels(torch, t_attn, t_knn, dev, rng, params, E, rows):
     err = max(max_err(ka[fin], pa[fin]), max_err(kb[torch.isfinite(pb)],
                                                   pb[torch.isfinite(pb)]))
     ms = cuda_ms(torch, lambda: t_knn.nn1_bidir_rank(a, an, b, bn), 10)
+    # The C entry alone on prebuilt (x, y, z, |p|^2) rows (its outputs only
+    # take minima, so repeated launches into them time the same work).
+    a4, b4 = (torch.cat([p, pn[..., None]], -1).contiguous() for p, pn in ((a, an), (b, bn)))
+    out_a, out_b = torch.full_like(an, inf), torch.full_like(bn, inf)
+    from occlusions4d_torch.ops import _build
+    e_ms = entry_ms(torch, _build.library('knn'), 'o4d_nn1_bidir',
+                    [a4, b4, out_a, out_b, 1, NC, NC], 10)
+    torch.cuda.synchronize()
+    e_ok = bool(torch.equal(out_a, pa)) and bool(torch.equal(out_b, pb))
+    del a4, b4, out_a, out_b
     plain_ms = cuda_ms(torch, lambda: t_knn.nn1_bidir_plain(a, an, b, bn), 2)
 
     def lib():
         d = torch.cdist(a, b)
         return d.amin(-1), d.amin(-2)
     lib_ms = cuda_ms(torch, lib, 3)
-    # Per pair: 3 mul + 2 add for the dot, 1 mul, 2 sub (mins not counted).
-    b_ms, b_by = bound((2 * NC) * 16 + (2 * NC) * 4, 8.0 * NC * NC)
-    emit(dict(phase='kernel', name='nn1_bidir', shape=[NC, NC], agree=ok, exact=ok,
-              max_abs_err=err, tolerance='exact (bit-equal)', ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-              library='torch.cdist + amin along both axes', bound_ms=b_ms, bound_by=b_by))
-    if not ok:
-        raise AssertionError(f'nn1_bidir differs from its plain version (err {err})')
-    rows['nn1_bidir'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms, shape=[NC, NC])
+    # Per pair 8 f32 instructions under -fmad=false (3 mul + 2 add for the
+    # dot, the doubling, 2 sub) at the CUDA cores' instruction rate; the two
+    # fminf a pair are not counted. The old figure, 8 FLOP at the FMA rate,
+    # beside it.
+    b_ms, b_by = bound((2 * NC) * 16 + (2 * NC) * 4, 8.0 * NC * NC, _CUDA_CORE_IPS)
+    emit(dict(phase='kernel', name='nn1_bidir', shape=[NC, NC], agree=ok and e_ok,
+              exact=ok and e_ok, max_abs_err=err, tolerance='exact (bit-equal)', ms=ms,
+              entry_ms=e_ms, entry_exact=e_ok, share_of_bound=b_ms / ms,
+              entry_share_of_bound=b_ms / e_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              library='torch.cdist + amin along both axes', bound_ms=b_ms, bound_by=b_by,
+              bound_fma_rate_ms=8.0 * NC * NC / _F32_FLOPS * 1e3,
+              bound_counts='8 f32 instructions a pair, the 2 fminf not counted'))
+    if not (ok and e_ok):
+        raise AssertionError(f'nn1_bidir differs from its plain version (err {err}, '
+                             f'entry exact {e_ok})')
+    rows['nn1_bidir'] = dict(max_abs_err=err, ms=ms, entry_ms=e_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=[NC, NC])
 
 
 def seeded_models(torch, cfg, dev, seed):
@@ -1393,6 +1436,10 @@ _GV1_EVAL = dict(_GV1, n_data_rnd=14336, video_len=12, frame_skip=2, pt_cube_bou
                  past_frames=4)
 _GV1_SCENE = dict(num_scenes=1, num_views=3, num_frames=30, image_size=128, num_objects=5)
 _GV1_EVAL_STEPS = 1
+# The eval driver's gv1 runs (phases eval_driver and reference_pth) take a
+# quarter of the dense grid: the host metrics' 1-NN, most of a frame's
+# wall, scales with the queries (a full grid took 138-171 s for 4 frames).
+_GV1_EVAL_SAMPLE = _NUM_SAMPLE // 4
 
 
 def quiet_logger(log_dir, context='test'):
@@ -1448,11 +1495,12 @@ def run_driver(torch, argv, log, device='cuda'):
     return summary, _build.launch_counts(), wall, split
 
 
-def gv1_eval_setup(torch, dev, root, steps=_GV1_EVAL_STEPS):
+def gv1_eval_setup(torch, dev, root, steps=_GV1_EVAL_STEPS, num_sample=_NUM_SAMPLE):
     """gv1 at full width for the eval driver: the seeded weights of phase 4
     through from_jax_params, a synthetic GREATER scene under `root` in which
     every example fills the 14336 input points, the test loader built from
-    _train_dset_args (`steps` examples), 524288 grid queries, --save_metrics.
+    _train_dset_args (`steps` examples), `num_sample` grid queries,
+    --save_metrics.
     :return dict(cfg, args, engine, data_kind, loader, sizes (input points
     before padding per example), scene_gen_s)."""
     from occlusions4d_torch.config import TestConfig, TrainConfig
@@ -1465,7 +1513,7 @@ def gv1_eval_setup(torch, dev, root, steps=_GV1_EVAL_STEPS):
     t0 = time.time()
     synthetic.make_greater_dataset(data, stages=('test',), **_GV1_SCENE)
     gen_s = time.time() - t0
-    args = TestConfig(data_path=os.path.join(data, 'test'), num_sample=_NUM_SAMPLE,
+    args = TestConfig(data_path=os.path.join(data, 'test'), num_sample=num_sample,
                       point_sample_mode='grid', save_metrics=True,
                       implicit_batch_size=_CHUNK, use_json=False, num_workers=4, seed=7,
                       use_data_frac=(steps + 0.5) / 120,
@@ -1613,7 +1661,7 @@ def eval_driver(torch, dev, smi, path_counts):
                                          f'(rc {proc.returncode}, see {out_fp})')
 
         # gv1 at full width: seeded weights, a synthetic GREATER scene.
-        gv = gv1_eval_setup(torch, dev, os.path.join(tmp, 'gv1'))
+        gv = gv1_eval_setup(torch, dev, os.path.join(tmp, 'gv1'), num_sample=_GV1_EVAL_SAMPLE)
         cfg, sizes = gv['cfg'], gv['sizes']
         summary, counts, wall, split = run_gv1(torch, gv)
         add(counts)
@@ -1623,7 +1671,8 @@ def eval_driver(torch, dev, smi, path_counts):
         launched = all(counts.get(k, 0) > 0 for k in _INFER)
         emit(dict(phase='eval_driver', model='gv1', n_points=cfg.n_points,
                   scene=_GV1_SCENE, scene_gen_s=gv['scene_gen_s'], steps=_GV1_EVAL_STEPS,
-                  frames=frames, input_points_before_padding=sizes, queries=_NUM_SAMPLE,
+                  frames=frames, input_points_before_padding=sizes,
+                  queries=_GV1_EVAL_SAMPLE,
                   wall_s=wall, frame_wall_s=wall / max(frames, 1), phase_split_s=split,
                   scene_wall_s=summary['scene_wall_s'],
                   device_infer_share=split.get('device_infer', 0.0) / wall,
@@ -1834,6 +1883,313 @@ def train_driver(torch, dev, smi, path_counts):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return path_counts['train_driver']
+
+
+# Phase reference_pth: the eval driver on a reference-layout .pth of the gv1
+# weights of phase eval_driver (seed 1), beside the same weights' .pkl, on
+# the synthetic gv1 scene at _GV1_EVAL_SAMPLE queries, then a train.main
+# warm start from it.
+_REF_EPOCH = 0
+# The warm start's train stage: 10 examples, 3 steps of batch 3, no val step.
+_REF_TRAIN_FRAC = str(10 / 960)
+
+
+def write_reference_pth(torch, path, encoder, decoder, cfg, encoder_args, decoder_args,
+                        dset_args, epoch):
+    """The reference train.py's torch.save dict of two torch modules: their
+    state dicts (the decoder's first block under the legacy 'pt_block.'
+    name), the constructor args (pcl_args with the reference's
+    mixed_precision key), dset_args, the args Namespace, the epoch, and the
+    optimizer, lr_scheduler and scaler state dicts of torch's Adam,
+    MultiStepLR and GradScaler."""
+    import argparse
+    import collections
+    dec = collections.OrderedDict(
+        ('pt_block.' + k[len('pt_blocks.0.'):] if k.startswith('pt_blocks.0.') else k,
+         v.detach().cpu()) for k, v in decoder.state_dict().items())
+    if not any(k.startswith('pt_block.') for k in dec):
+        raise AssertionError('the decoder has no first attention block to rename')
+    p = [torch.nn.Parameter(torch.ones(3))]
+    opt = torch.optim.Adam(p, lr=cfg.learn_rate)
+    p[0].grad = torch.ones(3)
+    opt.step()
+    sched = torch.optim.lr_scheduler.MultiStepLR(opt, [8, 12, 16], cfg.lr_decay)
+    torch.save(dict(pcl_net=collections.OrderedDict((k, v.detach().cpu()) for k, v in
+                                                    encoder.state_dict().items()),
+                    implicit_net=dec, pcl_args=dict(encoder_args, mixed_precision=False),
+                    implicit_args=dict(decoder_args), dset_args=dict(dset_args),
+                    args=argparse.Namespace(**vars(cfg)), epoch=epoch,
+                    optimizer=opt.state_dict(), lr_scheduler=sched.state_dict(),
+                    scaler=torch.amp.GradScaler('cuda').state_dict()), path)
+
+
+def reference_pth(torch, dev, smi, path_counts, train_data):
+    """Phase reference_pth: the gv1 weights written as a native .pkl and as
+    a reference .pth; the .pkl through the eval driver in this process
+    (test_driver.main, launches counted), the .pth through python -m
+    occlusions4d_torch.evaluate in its own; their per-frame metrics must be
+    equal. Then train.main warm-starts from the .pth on the gv1 recipe: its
+    step count (epoch + 1) x steps_per_epoch + the steps run, finite losses."""
+    import shutil
+    import tempfile
+    from occlusions4d_torch.checkpoint import save_checkpoint, to_jax_params
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.data import synthetic
+    from occlusions4d_torch.data.loader import _train_dset_args
+    from occlusions4d_torch.models import build_models
+    tmp = tempfile.mkdtemp(prefix='o4d_pth_')
+    try:
+        cfg = TrainConfig(**_GV1_EVAL)
+        encoder, decoder, _ = seeded_models(torch, cfg, dev, 1)
+        _, _, enc_args, dec_args = build_models(cfg)
+        dset_args = _train_dset_args(cfg, 'greater', None)
+        state = dict(params=dict(encoder=to_jax_params(encoder.state_dict()),
+                                 decoder=to_jax_params(decoder.state_dict(), True)),
+                     step=np.asarray(0, np.int32))
+        save_checkpoint(os.path.join(tmp, 'pkl'), _REF_EPOCH, state,
+                        meta=dict(config=dict(vars(cfg)), encoder_args=enc_args,
+                                  decoder_args=dec_args, dset_args=dset_args,
+                                  data_kind='greater'))
+        pth = os.path.join(tmp, 'gv1.pth')
+        write_reference_pth(torch, pth, encoder, decoder, cfg, enc_args, dec_args, dset_args,
+                            _REF_EPOCH)
+        del encoder, decoder
+        data = os.path.join(tmp, 'data')
+        synthetic.make_greater_dataset(data, stages=('test',), **_GV1_SCENE)
+
+        def argv(resume, log):
+            return ['--resume', resume, '--data_path', data, '--num_sample',
+                    str(_GV1_EVAL_SAMPLE), '--point_sample_mode', 'grid', '--save_metrics',
+                    'true', '--implicit_batch_size', str(_CHUNK), '--use_json', 'false',
+                    '--num_workers', '4', '--seed', '7', '--use_data_frac',
+                    str((_GV1_EVAL_STEPS + 0.5) / 120), '--log_path', log]
+
+        # The .pth through the command line while the .pkl runs here: the
+        # walls overlap, the metrics do not depend on it.
+        log_pth = os.path.join(tmp, 'eval_pth', 'run')
+        out_fp = os.path.join(_HERE, 'chiprun_out', 'reference_pth_cli.log')
+        t0 = time.time()
+        with open(out_fp, 'w') as fh:
+            proc = subprocess.Popen([sys.executable, '-m', 'occlusions4d_torch.evaluate',
+                                     *argv(pth, log_pth)], cwd=_HERE, stdout=fh,
+                                    stderr=subprocess.STDOUT)
+            try:
+                log_pkl = os.path.join(tmp, 'eval_pkl', 'run')
+                summary, counts, wall, split = run_driver(
+                    torch, argv(os.path.join(tmp, 'pkl', 'checkpoint.pkl'), log_pkl), log_pkl)
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cli_s = time.time() - t0
+        path_counts['reference_pth'] = counts
+        import glob
+        found = glob.glob(os.path.join(os.path.dirname(log_pth), 'test_*', 'metrics.json'))
+        cli = json.load(open(found[0])) if proc.returncode == 0 and found else None
+        frames = len(summary['per_frame'])
+        same = cli is not None and cli['per_frame'] == summary['per_frame']
+        finite = all(v is not None and math.isfinite(v) for m in summary['per_frame']
+                     for v in m.values())
+        launched = all(counts.get(k, 0) > 0 for k in _INFER)
+        loaded_pth = 'Loading weights from: ' + pth in open(out_fp).read()
+
+        # train.main warm-started from the .pth on the gv1 recipe.
+        argv_t = _TD_GV1_ARGV + ['--data_path', train_data, '--checkpoint_root',
+                                 os.path.join(tmp, 'ck'), '--resume', pth, '--num_epochs',
+                                 str(_REF_EPOCH + 2), '--use_data_frac', _REF_TRAIN_FRAC]
+        tr, t_counts, t_wall, epochs = driver_run(torch, argv_t, os.path.join(tmp, 'logs'))
+        spe = epochs[0]['steps'] if epochs else 0
+        losses = epoch_losses(tr)
+        t_ok = (tr.start_epoch == _REF_EPOCH + 1 and spe > 0
+                and tr.step_count == (_REF_EPOCH + 2) * spe
+                and int(tr.optimizer.count) == spe
+                and all(math.isfinite(v) for r in losses.values() for v in r.values())
+                and len(losses) == 1 and all(t_counts.get(k, 0) > 0 for k in _TRAIN))
+        ok = same and finite and launched and frames > 0 and loaded_pth and t_ok
+        emit(dict(phase='reference_pth', model='gv1', queries=_GV1_EVAL_SAMPLE,
+                  frames=frames, concurrent=True, pkl_wall_s=wall, pkl_phase_split_s=split,
+                  pth_cli_returncode=proc.returncode, pth_cli_wall_s=cli_s,
+                  pth_loaded_as_pth=loaded_pth, per_frame_equal=same,
+                  pkl_mean=summary['mean'], pth_mean=cli and cli['mean'], finite=finite,
+                  launches=counts, warm_start=dict(
+                      start_epoch=tr.start_epoch, steps_per_epoch=spe,
+                      step_count=tr.step_count, adamw_count=int(tr.optimizer.count),
+                      losses=losses, wall_s=t_wall, epochs=epochs, launches=t_counts),
+                  ok=bool(ok), gpu=smi))
+        if not ok:
+            raise AssertionError(f'reference_pth failed: per-frame equal {same} (rc '
+                                 f'{proc.returncode}, see {out_fp}), finite {finite}, '
+                                 f'launches {counts}, warm start ok {t_ok}')
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def batch_stats(encoder):
+    return {k: v.detach().clone() for k, v in encoder.state_dict().items()
+            if k.endswith(('running_mean', 'running_var'))}
+
+
+def train_batchnorm(torch, dev, smi, path_counts):
+    """Phase train_batchnorm: the gv1 train step with pt_norm_type 'batch'
+    beside 'none', from the same seed, batch and generator: 1 warm-up + 3
+    timed steps each (launches of the batch-norm steps counted), finite
+    losses, running statistics that move every step; a val_aug (eval) step
+    and a viz step that leave them as they were; then the encoder in eval
+    mode (the running statistics) and one dense gv1 scene through
+    InferenceEngine, finite."""
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.evaluate import InferenceEngine
+    from occlusions4d_torch.ops import blind_points_numpy
+    from occlusions4d_torch.train import Trainer
+    out = {}
+    for norm in ('none', 'batch'):
+        cfg = TrainConfig(**dict(_GV1_TRAIN, pt_norm_type=norm))
+        tr = Trainer(cfg, 'greater', 'cuda').init_state(seed=11, steps_per_epoch=100)
+        batch = train_batch(torch, cfg, dev, seed=12)
+        stats = batch_stats(tr.encoder)
+        steps, counts, changed, peak_gb, split, warm_ms = run_train_phase(torch, tr, batch, 3)
+        after = batch_stats(tr.encoder)
+        moved = all(not torch.equal(after[k], v) for k, v in stats.items())
+        out[norm] = dict(step_ms=[st['ms'] for st in steps], warmup_ms=warm_ms,
+                         mean_step_ms=float(np.mean([st['ms'] for st in steps])),
+                         losses=[st['total_loss'] for st in steps], split_ms=split,
+                         peak_mem_gib=peak_gb, params_changed_max_abs=changed,
+                         finite=all(np.isfinite(st['total_loss']) and st['grads_finite']
+                                    and st['params_finite'] for st in steps),
+                         statistics=len(stats), statistics_moved=moved, launches=counts)
+        if norm == 'none':
+            del tr
+            torch.cuda.empty_cache()
+    path_counts['train_batchnorm'] = out['batch']['launches']
+    before = batch_stats(tr.encoder)
+    gen = torch.Generator(dev).manual_seed(13)
+    ev = tr._eval_step(batch, gen)
+    viz = tr._viz_step(batch, gen)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(v, before[k]) for k, v in batch_stats(tr.encoder).items())
+    ev_ok = math.isfinite(float(ev['total_loss'])) and bool(torch.isfinite(
+        viz['implicit_output']).all())
+    # The dense scene with the running statistics.
+    tr.encoder.eval()
+    tr.decoder.eval()
+    engine = InferenceEngine(dict(encoder=tr.encoder, decoder=tr.decoder, device=dev),
+                             tr.cfg.color_mode, False, tr.cfg.semantic_classes,
+                             track_mode='none', implicit_batch_size=_CHUNK)
+    pcl = np.random.RandomState(14).rand(14336, 8).astype(np.float32) * 2 - 1
+    queries = blind_points_numpy(_NUM_SAMPLE, tr.cfg.min_z, tr.cfg.cr_cube_bounds, 0,
+                                 'greater', tr.cfg.cube_mode, 'grid')
+    torch.cuda.synchronize()
+    t0 = time.time()
+    abstract, fg = engine.encode(pcl)
+    dense = engine.decode_all(queries, abstract, fg, fetch=False)
+    torch.cuda.synchronize()
+    scene_ms = (time.time() - t0) * 1e3
+    dense_ok = bool(torch.isfinite(dense).all()) and dense.shape[0] == queries.shape[0]
+    bn = out['batch']
+    ok = (bn['finite'] and out['none']['finite']
+          and bn['statistics'] == 2 * _GV1_TRAIN['up_down_blocks']
+          and bn['statistics_moved'] and kept and ev_ok and dense_ok
+          and all(bn['launches'].get(k, 0) > 0 for k in _TRAIN))
+    emit(dict(phase='train_batchnorm', model='gv1', n_points=_GV1_TRAIN['n_points'],
+              batch_size=_GV1_TRAIN['batch_size'], frames=_GV1_TRAIN['past_frames'],
+              runs=out, batch_over_none_step=bn['mean_step_ms'] / out['none']['mean_step_ms'],
+              eval_and_viz_keep_statistics=kept, eval_viz_finite=ev_ok,
+              dense_scene_ms=scene_ms, dense_queries=int(queries.shape[0]),
+              dense_finite=dense_ok, ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'train_batchnorm failed: {out}, kept {kept}, eval/viz {ev_ok}, '
+                             f'dense {dense_ok}')
+    del tr, engine, abstract, fg, dense
+    torch.cuda.empty_cache()
+
+
+# Phase train_loader_workers: the train driver's epoch fed by thread and by
+# process workers, interleaved A B B A in one process that builds both
+# loaders before it touches CUDA (as train.main does); 6 train steps an
+# epoch, after a 2-step warm-up.
+_LW_FRAC = str(18.5 / 960)
+_LW_ORDER = ('thread', 'process', 'process', 'thread')
+
+
+def loader_workers_child(spec):
+    """The child process of phase train_loader_workers (python3
+    chip_smoke.py --loader-workers <json>): both modes' loaders first, then
+    the Trainer on the card, a warm-up, the A B B A epochs; prints one JSON
+    line."""
+    import torch
+    from occlusions4d_torch.config import train_args
+    from occlusions4d_torch.data import create_train_val_loaders
+    from occlusions4d_torch.train import Trainer
+    spec = json.loads(spec)
+    logger = quiet_logger(spec['log'], context='train')
+    logger.log_dir = None                   # no intermediate exports.
+    loaders, cfgs = {}, {}
+    for mode in ('thread', 'process'):
+        cfgs[mode] = train_args(spec['argv'] + ['--worker_mode', mode])
+        loaders[mode] = create_train_val_loaders(cfgs[mode], logger)[1]
+    cuda_before = torch.cuda.is_initialized()
+    tr = Trainer(cfgs['thread'], 'greater', logger=logger)
+    tr.init_state(steps_per_epoch=loaders['thread'].steps_per_epoch)
+    tr.run_epoch(0, 'train', loaders['thread'].epoch(0), num_steps=2)
+    runs = []
+    for i, mode in enumerate(_LW_ORDER):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        tr.run_epoch(i + 1, 'train', loaders[mode].epoch(i + 1))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        split = {k: v[0] for k, v in tr.last_phase_timer.summary().items()}
+        steps = tr.last_phase_timer.counts['step']
+        runs.append(dict(mode=mode, epoch=i + 1, steps=steps, wall_s=wall,
+                         step_wall_ms=1e3 * wall / max(steps, 1),
+                         data_share=split.get('data', 0.0) / wall, split_s=split,
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+    for ld in loaders.values():
+        ld.close()
+    print(json.dumps(dict(runs=runs, cuda_initialized_before_loaders=cuda_before,
+                          workers=cfgs['thread'].num_workers,
+                          batch_size=cfgs['thread'].batch_size,
+                          step_count=tr.step_count)), flush=True)
+    return 0
+
+
+def train_loader_workers(torch, smi, train_data):
+    """Phase train_loader_workers: loader_workers_child in its own process;
+    per epoch the step wall, the data share and peak memory; the mean of
+    each mode."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix='o4d_lw_')
+    argv = _TD_GV1_ARGV + ['--data_path', train_data, '--checkpoint_root',
+                           os.path.join(tmp, 'ck'), '--use_data_frac', _LW_FRAC,
+                           '--output_path', '']
+    spec = json.dumps(dict(argv=argv, log=os.path.join(tmp, 'logs')))
+    out_fp = os.path.join(_HERE, 'chiprun_out', 'train_loader_workers.log')
+    with open(out_fp, 'w') as fh:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--loader-workers',
+                               spec], cwd=_HERE, stdout=subprocess.PIPE, stderr=fh,
+                              text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{')]
+    res = json.loads(lines[-1]) if proc.returncode == 0 and lines else None
+    ok = res is not None and not res['cuda_initialized_before_loaders'] and all(
+        r['steps'] > 0 for r in res['runs'])
+    mean = {}
+    if res is not None:
+        for mode in ('thread', 'process'):
+            rs = [r for r in res['runs'] if r['mode'] == mode]
+            mean[mode] = {k: float(np.mean([r[k] for r in rs]))
+                          for k in ('step_wall_ms', 'data_share', 'peak_mem_gib')}
+    emit(dict(phase='train_loader_workers', model='gv1', order=list(_LW_ORDER),
+              returncode=proc.returncode, result=res, mean=mean,
+              process_over_thread_step=(mean['process']['step_wall_ms']
+                                        / mean['thread']['step_wall_ms']) if mean else None,
+              ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'train_loader_workers failed (rc {proc.returncode}, see '
+                             f'{out_fp}): {res}')
 
 
 def scatter_add_ms(torch, ki, dg, M, K, dev):
@@ -3936,6 +4292,22 @@ def main():
     train_driver(torch, dev, smi, path_counts)
     torch.cuda.empty_cache()
 
+    # 5d-5f. A reference .pth through the eval driver and a warm start, the
+    # gv1 step with batch norm, the train loader's process workers.
+    import shutil
+    import tempfile
+    from occlusions4d_torch.data import synthetic
+    train_tmp = tempfile.mkdtemp(prefix='o4d_train_data_')
+    try:
+        train_data = os.path.join(train_tmp, 'gv1_data')
+        synthetic.make_greater_dataset(train_data, **_TD_GV1_SCENE)
+        reference_pth(torch, dev, smi, path_counts, train_data)
+        train_batchnorm(torch, dev, smi, path_counts)
+        train_loader_workers(torch, smi, train_data)
+    finally:
+        shutil.rmtree(train_tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # 6. The gv1 train step.
     from occlusions4d_torch.train import Trainer
     tcfg = TrainConfig(**_GV1_TRAIN)
@@ -4065,4 +4437,7 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--loader-workers']:
+        sys.path.insert(0, _HERE)
+        sys.exit(loader_workers_child(sys.argv[2]))
     sys.exit(main())

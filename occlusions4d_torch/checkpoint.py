@@ -23,13 +23,29 @@ from_jax_params maps a flax variables tree ({'params', ['batch_stats']}) onto
 the reference torch key layout (the same keys as the JAX package's
 export_torch_state_dict: kernels transposed to (out, in), norm scale ->
 weight, batch statistics -> running_mean/var, decoder 'backbone/' dropped);
-to_jax_params is its inverse (the JAX package's import_torch_state_dict).
+to_jax_params is its inverse (the JAX package's import_torch_state_dict),
+with the decoder's legacy 'pt_block.' keys read as 'pt_blocks.0.'.
+
+Reference checkpoints (.pth, the layout of the reference's train.py and of
+the released weights): one torch.save dict {pcl_net, implicit_net (state
+dicts), pcl_args, implicit_args, dset_args (constructor and dataset
+kwargs), args (an argparse.Namespace), epoch, optimizer, lr_scheduler,
+scaler}. load_reference_checkpoint reads it with torch.load(weights_only=
+True), the allowed globals being the dict's own (argparse.Namespace, and
+collections.Counter in MultiStepLR's state); a file holding any other
+global is refused, as the .pkl reader refuses to build foreign classes.
+
+resolve_checkpoint_file picks the file of a run directory as the JAX
+load_models does: its pkl epochs, else model_{epoch}.pth / checkpoint.pth;
+a directory whose newest (or requested) epoch is an orbax store raises.
 '''
 
+import argparse
 import collections
 import io
 import os
 import pickle
+import re
 import zlib
 
 import numpy as np
@@ -37,7 +53,7 @@ import torch
 
 __all__ = ['load_checkpoint', 'load_native_checkpoint', 'save_checkpoint', 'adam_state',
            'from_jax_params', 'to_jax_params', 'resolve_resume_path',
-           'newest_native_layout']
+           'newest_native_layout', 'resolve_checkpoint_file', 'load_reference_checkpoint']
 
 _CKPT_FORMAT = 'o4d_ckpt'
 _CKPT_VERSION = 1
@@ -90,21 +106,44 @@ def _pkl_epochs(dirpath):
     return sorted(out)
 
 
-def newest_native_layout(dirpath):
-    ''''pkl' or 'orbax', whichever layout holds the newest epoch of a run
-    directory (pkl on a tie, or when only a rolling checkpoint.pkl exists),
-    None when it holds neither.'''
+def newest_native_layout(dirpath, epoch=-1):
+    ''''pkl' or 'orbax', the layout of a run directory that holds the
+    requested epoch (pkl on a tie), or for epoch < 0 its newest epoch (pkl
+    on a tie, or when only a rolling checkpoint.pkl exists); None when it
+    holds neither.'''
     if not os.path.isdir(dirpath):
         return None
     pe = _pkl_epochs(dirpath)
     oe = [int(n[len('model_'):-len('.orbax')]) for n in os.listdir(dirpath)
           if n.startswith('model_') and n.endswith('.orbax')
           and n[len('model_'):-len('.orbax')].isdigit()]
+    if epoch >= 0:
+        return 'pkl' if epoch in pe else ('orbax' if epoch in oe else None)
     if oe and max(oe) > max(pe, default=-1):
         return 'orbax'
     if pe or os.path.isfile(os.path.join(dirpath, 'checkpoint.pkl')):
         return 'pkl'
     return None
+
+
+def resolve_checkpoint_file(path, epoch=-1):
+    '''
+    The checkpoint file of `path` (the JAX load_models' arbitration): a file
+    as it is; a directory holding the pkl layout -> model_{epoch}.pkl, or
+    checkpoint.pkl for epoch < 0; any other directory -> model_{epoch}.pth,
+    or checkpoint.pth. Raises NotImplementedError where the directory's
+    requested or newest epoch is an orbax store (orbax is not installed
+    where the port runs).
+    '''
+    if not os.path.isdir(path):
+        return path
+    layout = newest_native_layout(path, epoch)
+    if layout == 'orbax':
+        raise NotImplementedError(f'{path}: its {"newest" if epoch < 0 else "requested"} '
+                                  'epoch is an orbax store, which the port does not read '
+                                  '(ROADMAP.md Queue 1 item 5)')
+    ext = 'pkl' if layout == 'pkl' else 'pth'
+    return os.path.join(path, f'model_{epoch}.{ext}' if epoch >= 0 else f'checkpoint.{ext}')
 
 
 def load_checkpoint(path, epoch=-1):
@@ -310,6 +349,9 @@ def _nest(flat):
     return root
 
 
+_LEGACY = re.compile(r'^pt_block\.')
+
+
 def to_jax_params(state_dict, decoder=False):
     '''
     Inverse of from_jax_params (the JAX package's import_torch_state_dict):
@@ -320,6 +362,8 @@ def to_jax_params(state_dict, decoder=False):
     state is a LocalImplicitField's (its backbone layers nest under
     'backbone').
     '''
+    if decoder:   # the legacy single-block name.
+        state_dict = {_LEGACY.sub('pt_blocks.0.', k): v for k, v in state_dict.items()}
     params, stats = {}, {}
     for key, val in state_dict.items():
         mod, leaf = key.rsplit('.', 1)
@@ -343,6 +387,42 @@ def to_jax_params(state_dict, decoder=False):
     if stats:
         out['batch_stats'] = _nest(stats)
     return out
+
+
+# The globals a reference checkpoint holds besides tensors and containers:
+# its args, and the Counter of MultiStepLR's milestones.
+_REFERENCE_GLOBALS = (argparse.Namespace, collections.Counter)
+
+
+def load_reference_checkpoint(path):
+    '''
+    Read a reference-layout .pth (torch.load with weights_only=True, the
+    globals of _REFERENCE_GLOBALS allowed; any other raises ValueError
+    naming it).
+    :return dict(encoder_variables, decoder_variables (flax variables of
+        float32 numpy arrays, to_jax_params), pcl_args, implicit_args,
+        dset_args, train_args (the file's args), epoch (-1 when absent)):
+        the JAX package's load_reference_checkpoint's fields.
+    '''
+    import torch
+    try:
+        with torch.serialization.safe_globals(list(_REFERENCE_GLOBALS)):
+            ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    except pickle.UnpicklingError as e:
+        found = re.search(r'GLOBAL (\S+)', str(e))
+        allowed = ', '.join(f'{g.__module__}.{g.__qualname__}' for g in _REFERENCE_GLOBALS)
+        raise ValueError(f'{path}: holds the global '
+                         f'{found.group(1) if found else "(unknown)"}, which a reference '
+                         f'checkpoint does not (allowed: {allowed})') from e
+    return dict(
+        encoder_variables=to_jax_params(ckpt['pcl_net']),
+        decoder_variables=to_jax_params(ckpt['implicit_net'], decoder=True),
+        pcl_args=ckpt.get('pcl_args'),
+        implicit_args=ckpt.get('implicit_args'),
+        dset_args=ckpt.get('dset_args'),
+        train_args=ckpt.get('args'),
+        epoch=ckpt.get('epoch', -1),
+    )
 
 
 def resolve_resume_path(resume, checkpoint_root):

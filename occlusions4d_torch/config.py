@@ -8,13 +8,17 @@ defaults but for device):
     the plain versions. The flags the port does not implement yet parse,
     and verify_args raises NotImplementedError naming their ROADMAP item.
     Checkpoints carry the full config dict; config_from_dict keeps the
-    fields known here and ignores the rest.
+    fields known here and ignores the rest. --resume takes either package's
+    .pkl, a reference .pth (a warm start: weights and epoch) or a run
+    directory (checkpoint.resolve_checkpoint_file).
   * TestConfig and test_args: the eval driver's command line, flag for flag
     the JAX package's (str2bool booleans, verify_args checks, the test
     split, resume and log-path resolution). Its device is 'cuda' only: the
     CPU run is evaluate.test_driver.main(args, device='cpu'). worker_mode
-    'process' is refused on both sides (threads only). gpu_id and
-    query_parallel are kept for the command line's sake.
+    'process' (fork workers) is the train side's only, as in the JAX
+    package: the test loader is built after load_models has started the
+    CUDA runtime. gpu_id and query_parallel are kept for the command line's
+    sake.
 '''
 
 import argparse
@@ -46,8 +50,8 @@ def _arg2str(v):
 class SharedConfig:
     device: str = 'cuda'
     num_workers: int = -1
-    # 'thread' only (GIL-light decode path); the JAX package's 'process'
-    # (fork workers, train loaders only) is refused by verify_args.
+    # 'thread' (GIL-light decode path) or 'process' (fork workers, train
+    # loaders only; data/loader.py). The eval side refuses 'process'.
     worker_mode: str = 'thread'
     seed: int = 1830
     mixed_precision: bool = False
@@ -227,14 +231,8 @@ def _refused_train_flags(args):
         out.append((f'--profile_steps {args.profile_steps}', 7))
     if args.fused_decoder == 'off':
         out.append(('--fused_decoder off (the module path)', 7))
-    if args.pt_norm_type == 'batch':
-        out.append(('--pt_norm_type batch in training', 4))
-    if args.worker_mode == 'process':
-        out.append(('--worker_mode process', 5))
     if args.checkpoint_format == 'orbax':
         out.append(('--checkpoint_format orbax', 5))
-    if str(args.resume).endswith('.pth'):
-        out.append(('a reference .pth --resume', 5))
     return out
 
 
@@ -252,9 +250,9 @@ def verify_args(args, is_train=False):
                              "card ('cuda'); the CPU run is test_driver.main(args, "
                              "device='cpu')")
         if args.worker_mode != 'thread':
-            raise ValueError(f'--worker_mode {args.worker_mode}: the port\'s loader workers '
-                             "are threads ('thread'); the JAX package's fork processes are "
-                             'not ported')
+            raise ValueError(f'--worker_mode {args.worker_mode}: the test loader\'s workers '
+                             "are threads ('thread'); fork workers ('process') are the train "
+                             'loaders\' only')
         if args.num_workers < 0:
             args.num_workers = max(multiprocessing.cpu_count() // 4 - 6, 1)
         assert args.point_sample_mode in ('random', 'grid')
@@ -305,8 +303,9 @@ def _auto_train_tag(args):
 def train_args(argv=None):
     '''The train command line (python -m occlusions4d_torch.train), flag for
     flag the JAX package's: the auto tag and output path, and `--resume v6`
-    resolved to checkpoints/v6_*/checkpoint.pkl (the port reads the pkl
-    layout only; a directory whose newest epoch is an orbax store raises).'''
+    resolved to the unique checkpoints/v6_*/ directory's checkpoint.pkl, or
+    its checkpoint.pth where it holds no pkl epochs (a directory whose
+    newest epoch is an orbax store raises).'''
     parser = argparse.ArgumentParser()
     _add_fields(parser, TrainConfig)
     ns = parser.parse_args(argv)
@@ -318,13 +317,9 @@ def train_args(argv=None):
         args.output_path = os.path.join(args.checkpoint_root, args.tag)
 
     if args.resume and not (os.path.exists(args.resume) and os.path.isfile(args.resume)):
-        from .checkpoint import newest_native_layout, resolve_resume_path
-        resolved = resolve_resume_path(args.resume, args.checkpoint_root)
-        if newest_native_layout(resolved) == 'orbax':
-            raise NotImplementedError(f'{resolved}: its newest epoch is an orbax store, '
-                                      'which the port does not read yet (ROADMAP.md Queue 1 '
-                                      'item 5)')
-        args.resume = os.path.join(resolved, 'checkpoint.pkl')
+        from .checkpoint import resolve_checkpoint_file, resolve_resume_path
+        args.resume = resolve_checkpoint_file(
+            resolve_resume_path(args.resume, args.checkpoint_root))
     return args
 
 

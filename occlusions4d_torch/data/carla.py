@@ -93,7 +93,7 @@ class CarlaDataset:
                  min_z=-1.0, other_bounds=20.0, target_bounds=16.0, cube_mode=4,
                  oversample_vehped_target=False, use_data_frac=1.0,
                  use_json=True, verbose=False, live_occl_mode='normal', seed=None,
-                 return_images=False, track_mode='none'):
+                 return_images=False, track_mode='none', shared_counters=False):
         self.dataset_root = dataset_root
         self.logger = logger
         self.stage = stage
@@ -158,7 +158,7 @@ class CarlaDataset:
             self.multiplier = max(int(np.ceil(target_size / max(self.num_scenes, 1))), 1)
             self.dset_size = int(self.num_scenes * self.multiplier * self.use_data_frac)
 
-            self.counter = (common.CounterBoard(self.num_scenes)
+            self.counter = (common.CounterBoard(self.num_scenes, shared=shared_counters)
                             if self.sample_bias != 'none' else None)
             self.starting_frames = None
             if 'test' in stage and use_json:

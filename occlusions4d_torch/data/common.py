@@ -1,7 +1,7 @@
 '''
 Shared data-plane machinery (own copy of occlusions4d_tpu/data/common.py):
 VALO (visible-at-least-once) instance analysis, occlusion-biased clip
-selection with a counter board the loader's threads share, and
+selection with a counter board the loader's workers share, and
 fixed-capacity padding helpers:
   * get_valo_ids;
   * the clip counter + elitist shuffle clip selection;
@@ -36,15 +36,24 @@ def example_rng(seed, epoch, index):
 
 
 class CounterBoard:
-    '''Per-(scene, frame) usage counters shared by the loader's worker
-    threads: an array behind an RLock. (The JAX package also backs it with a
-    multiprocessing.Array for its fork-process train loaders; the port's
-    Loader has threads only.)'''
+    '''Per-(scene, frame) usage counters shared by the loader's workers.
 
-    def __init__(self, num_scenes, max_frames=10101):
+    Default (shared=False): an array behind an RLock, for the loader's
+    worker threads. shared=True backs the counters with a
+    multiprocessing.Array (and its lock), so that the fork worker processes
+    of Loader(worker_mode='process') see one board.'''
+
+    def __init__(self, num_scenes, max_frames=10101, shared=False):
         self.max_frames = max_frames
-        self.counts = np.zeros((num_scenes, max_frames), np.int32)
-        self.lock = threading.RLock()
+        if shared:
+            import multiprocessing
+            self._mp_arr = multiprocessing.Array('i', int(num_scenes * max_frames))
+            self.counts = np.frombuffer(
+                self._mp_arr.get_obj(), np.int32).reshape(num_scenes, max_frames)
+            self.lock = self._mp_arr.get_lock()
+        else:
+            self.counts = np.zeros((num_scenes, max_frames), np.int32)
+            self.lock = threading.RLock()
 
     def try_claim(self, scene_idx, frame_start, ignore_taken_prob=0.0, rng=None):
         '''Claim a clip if free. With probability ignore_taken_prob the taken-check is

@@ -177,7 +177,7 @@ class GreaterDataset:
                  min_z=-1.0, other_bounds=5.0, return_segm=True, track_mode='none',
                  use_data_frac=1.0, use_json=True, verbose=False,
                  live_occl_mode='normal', force_view_idx=-1, seed=None,
-                 return_images=False):
+                 return_images=False, shared_counters=False):
         self.dataset_root = dataset_root
         self.logger = logger
         self.stage = stage
@@ -239,7 +239,7 @@ class GreaterDataset:
             self.multiplier = max(int(np.ceil(target_size / max(self.num_scenes, 1))), 1)
             self.dset_size = int(self.num_scenes * self.multiplier * self.use_data_frac)
 
-            self.counter = (common.CounterBoard(self.num_scenes)
+            self.counter = (common.CounterBoard(self.num_scenes, shared=shared_counters)
                             if self.sample_bias != 'none' else None)
             self.starting_frames = None
             if 'test' in stage and use_json:

@@ -8,16 +8,40 @@ numpy (the consumer moves them to the card), bit for bit the JAX package's.
 '''
 
 import collections
+import itertools
+import multiprocessing
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
+from .. import native
 from .greater import GreaterDataset
 from .carla import CarlaDataset
 
 __all__ = ['Loader', 'collate', 'create_train_val_loaders', 'create_test_loader']
+
+# Fork-inherited datasets of process workers. Each process-mode Loader
+# registers its dataset under a key of its own before forking its pool; the
+# children find it in their fork-inherited copy of the registry (the dataset
+# is never pickled, its multiprocessing.Array counters stay shared, and
+# loaders iterated at the same time cannot overwrite each other's).
+_FORK_REGISTRY = {}
+_FORK_KEYS = itertools.count()
+_WORKER_DATASET = None
+
+
+def _proc_worker_init(key):
+    global _WORKER_DATASET
+    _WORKER_DATASET = _FORK_REGISTRY[key]
+
+
+def _proc_get(epoch, index):
+    ds = _WORKER_DATASET
+    if hasattr(ds, 'set_epoch'):
+        ds.set_epoch(epoch)
+    return ds[index]
 
 _STACK_KEYS = ('pcl_input', 'pcl_input_sem', 'pcl_target', 'pcl_target_valid',
                'valo_ids', 'num_valo_ids', 'cam_RT', 'cam_K', 'rgb', 'depth',
@@ -37,17 +61,29 @@ def collate(examples):
 class Loader:
     '''Epoch-based iterable with shuffling, drop_last, and prefetch.
 
-    num_workers > 1 decodes examples through a thread pool: the hot host ops
-    (C++ FPS / kNN / frame decode via ctypes, zlib inflate, most numpy)
-    release the GIL. (The JAX package's fork-based process workers are not
-    ported: ROADMAP.md Queue 1 item 5.) Per-example RNG is derived
-    from (seed, epoch, index), so the produced batches are bit-identical
-    across worker counts, and batches are always yielded in index order
-    regardless of worker completion order.
+    num_workers > 1 decodes examples through a worker pool. worker_mode:
+      * 'thread' (default): a thread pool; the hot host ops (C++ FPS / kNN /
+        frame decode via ctypes, zlib inflate, most numpy) release the GIL.
+      * 'process': fork worker processes (the JAX package's, and the
+        reference's DataLoader model): the Python parts of decoding run in
+        parallel too. The dataset is inherited through the fork, never
+        pickled; occlusion-bias counters must be built with
+        shared_counters=True so that every worker sees one board. The pool
+        is forked at construction (a warm-up submit makes every fork happen
+        there) and kept across epochs; close() releases it. A fork is safe
+        where the parent holds no CUDA state the children would need: the
+        workers run numpy and the host C++ library only (loaded before the
+        fork), and train.main builds its loaders before anything touches
+        CUDA.
+    Per-example RNG is derived from (seed, epoch, index), so the produced
+    batches are bit-identical across worker modes and counts, and batches
+    are always yielded in index order regardless of worker completion order.
     '''
 
     def __init__(self, dataset, batch_size, shuffle=True, drop_last=True,
-                 prefetch=2, seed=0, num_workers=0):
+                 prefetch=2, seed=0, num_workers=0, worker_mode='thread'):
+        if worker_mode not in ('thread', 'process'):
+            raise ValueError(f"worker_mode must be 'thread' or 'process', got {worker_mode!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -55,6 +91,34 @@ class Loader:
         self.prefetch = prefetch
         self.seed = seed
         self.num_workers = num_workers
+        self.worker_mode = worker_mode
+        self._pool = None
+        self._fork_key = None
+        if worker_mode == 'process' and num_workers > 1:
+            self._start_process_pool()
+
+    def _start_process_pool(self):
+        native.native_available()   # build / load the host library once, here.
+        self._fork_key = next(_FORK_KEYS)
+        _FORK_REGISTRY[self._fork_key] = self.dataset
+        self._pool = ProcessPoolExecutor(
+            self.num_workers, mp_context=multiprocessing.get_context('fork'),
+            initializer=_proc_worker_init, initargs=(self._fork_key,))
+        # A fork-context pool starts all its processes at the first submit:
+        # one warm-up task makes construction the fork point.
+        self._pool.submit(int, 0).result()
+
+    def close(self):
+        '''Release the process pool (a no-op for threads).'''
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+        if self._fork_key is not None:
+            _FORK_REGISTRY.pop(self._fork_key, None)
+            self._fork_key = None
+
+    def __del__(self):
+        self.close()
 
     @property
     def steps_per_epoch(self):
@@ -86,8 +150,13 @@ class Loader:
 
         def producer_pool():
             window = self.num_workers + self.prefetch * self.batch_size
-            pool = ThreadPoolExecutor(self.num_workers)
-            submit = lambda i: pool.submit(self.dataset.__getitem__, i)  # noqa: E731
+            own_pool = None
+            if self.worker_mode == 'process':
+                pool = self._pool   # persistent, forked at construction.
+                submit = lambda i: pool.submit(_proc_get, epoch_idx, i)  # noqa: E731
+            else:
+                own_pool = ThreadPoolExecutor(self.num_workers)
+                submit = lambda i: own_pool.submit(self.dataset.__getitem__, i)  # noqa: E731
             try:
                 pending = collections.deque()   # (batch_futures) in order.
                 batch_iter = iter(batches())
@@ -111,7 +180,8 @@ class Loader:
                     inflight -= len(futs)
                     refill()
             finally:
-                pool.shutdown(wait=False, cancel_futures=True)
+                if own_pool is not None:
+                    own_pool.shutdown(wait=False, cancel_futures=True)
 
         def producer():
             try:
@@ -174,18 +244,22 @@ def create_train_val_loaders(cfg, logger):
     '''The train and val loaders of a train configuration, the dataset kind
     picked by its path ('carla' in it, else GREATER). The train dataset and
     its shuffle take seed cfg.seed, the val ones cfg.seed + 1, as in the
-    JAX package. Thread workers only (verify_args refuses 'process').
+    JAX package. cfg.worker_mode 'process' forks each loader's workers here
+    and gives the datasets shared occlusion-bias counters.
     :return (data_kind, train_loader, val_aug_loader, dset_args).
     '''
     data_kind = 'carla' if 'carla' in cfg.data_path.lower() else 'greater'
     dset_args = _train_dset_args(cfg, data_kind, logger)
     cls = CarlaDataset if data_kind == 'carla' else GreaterDataset
+    mode = cfg.worker_mode
+    if mode == 'process':
+        dset_args = dict(dset_args, shared_counters=True)
     train_dset = cls(cfg.data_path, logger, stage='train', seed=cfg.seed, **dset_args)
     val_dset = cls(cfg.data_path, logger, stage='val', seed=cfg.seed + 1, **dset_args)
     train_loader = Loader(train_dset, cfg.batch_size, shuffle=True, drop_last=True,
-                          seed=cfg.seed, num_workers=cfg.num_workers)
+                          seed=cfg.seed, num_workers=cfg.num_workers, worker_mode=mode)
     val_loader = Loader(val_dset, cfg.batch_size, shuffle=True, drop_last=True,
-                        seed=cfg.seed + 1, num_workers=cfg.num_workers)
+                        seed=cfg.seed + 1, num_workers=cfg.num_workers, worker_mode=mode)
     return data_kind, train_loader, val_loader, dset_args
 
 
@@ -200,11 +274,11 @@ def create_test_loader(cfg, dset_args, logger):
     dset_args['verbose'] = 'dbg' in cfg.name
     dset_args['use_json'] = cfg.use_json
 
-    # The loader's workers are threads (verify_args refuses worker_mode
+    # The test loader's workers are threads (verify_args refuses worker_mode
     # 'process': load_models has started the CUDA runtime before this loader
-    # exists, and a fork after that is a hazard). A train checkpoint's
-    # dset_args may carry the JAX package's process-worker shared_counters.
-    dset_args.pop('shared_counters', None)
+    # exists, and a fork after that is a hazard), so no board is shared; a
+    # train checkpoint's dset_args may carry shared_counters=True.
+    dset_args['shared_counters'] = False
 
     data_kind = 'carla' if 'carla' in cfg.data_path.lower() else 'greater'
     if data_kind == 'carla':

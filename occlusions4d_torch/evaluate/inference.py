@@ -1,8 +1,9 @@
 '''
 Inference engine (port of occlusions4d_tpu/evaluate/inference.py): load the
-networks from a native checkpoint, encode the input cloud, decode the dense
-query grid in chunks, merge per-instance track reruns, attach 1-NN ground-truth
-labels and split solid from air by predicted density.
+networks from a native or a reference (.pth) checkpoint, encode the input
+cloud, decode the dense query grid in chunks, merge per-instance track
+reruns, attach 1-NN ground-truth labels and split solid from air by
+predicted density.
 
 Numerics, InferenceEngine(precision=...), resolved as the JAX engine's
 __init__ resolves it (self.precision holds the result):
@@ -31,7 +32,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..checkpoint import from_jax_params, load_native_checkpoint
+from ..checkpoint import (from_jax_params, load_native_checkpoint, load_reference_checkpoint,
+                          resolve_checkpoint_file)
 from ..config import TrainConfig, config_from_dict
 from ..models import factory
 from ..models.encoder import PointEncoder
@@ -45,34 +47,54 @@ __all__ = ['load_models', 'squash_eval', 'InferenceEngine', 'resolve_precision',
            'dispatch_inference', 'finish_inference', 'perform_inference']
 
 
+def _strip_mixed_precision(d):
+    d = dict(d)
+    d.pop('mixed_precision', None)
+    return d
+
+
 def load_models(checkpoint_path, epoch=-1, device='cuda', logger=None):
     '''
-    :param checkpoint_path: native .pkl file or checkpoint directory.
+    :param checkpoint_path: a native .pkl, a reference .pth, or a checkpoint
+        directory (checkpoint.resolve_checkpoint_file: its pkl epochs, else
+        model_{epoch}.pth / checkpoint.pth).
     :param device: where the networks live ('cuda' raises without CUDA).
         The networks are f32 whatever the checkpoint's mixed_precision says,
         as the JAX load_models evaluates in f32.
     :return dict(encoder, decoder, encoder_args, decoder_args, train_config,
-        dset_args, data_kind, epoch, device).
+        dset_args, data_kind, epoch, device). A .pth gives the JAX
+        load_models' fields for it: the constructor args without
+        mixed_precision, train_config from its args, data_kind None.
     '''
     dev = resolve_device(device)
     print_fn = logger.info if logger is not None else print
-    print_fn(f'Loading weights from: {checkpoint_path}')
-    ck = load_native_checkpoint(checkpoint_path, epoch)
-    meta = ck['meta']
-    enc_args = dict(meta['encoder_args'])
+    path = resolve_checkpoint_file(checkpoint_path, epoch)
+    print_fn(f'Loading weights from: {path}')
+    if path.endswith('.pth'):
+        ref = load_reference_checkpoint(path)
+        enc_args = _strip_mixed_precision(ref['pcl_args'])
+        dec_args = _strip_mixed_precision(ref['implicit_args'])
+        params = dict(encoder=ref['encoder_variables'], decoder=ref['decoder_variables'])
+        train_args = ref['train_args']
+        train_cfg = (config_from_dict(TrainConfig, vars(train_args))
+                     if hasattr(train_args, '__dict__') else TrainConfig())
+        dset_args, data_kind, ck_epoch = ref['dset_args'], None, ref['epoch']
+    else:
+        ck = load_native_checkpoint(path)
+        meta = ck['meta']
+        enc_args = dict(meta['encoder_args'])
+        dec_args = dict(meta['decoder_args'])
+        params = ck['params']
+        train_cfg = config_from_dict(TrainConfig, meta.get('config', {}))
+        dset_args, data_kind, ck_epoch = meta.get('dset_args'), meta.get('data_kind'), ck['epoch']
     enc_args['fps_random_start'] = False  # deterministic eval.
-    dec_args = dict(meta['decoder_args'])
     encoder = PointEncoder(**enc_args)
     decoder = LocalImplicitField(**dec_args)
-    encoder.load_state_dict(from_jax_params(ck['params']['encoder'], encoder),
-                            strict=True)
-    decoder.load_state_dict(from_jax_params(ck['params']['decoder'], decoder),
-                            strict=True)
+    encoder.load_state_dict(from_jax_params(params['encoder'], encoder), strict=True)
+    decoder.load_state_dict(from_jax_params(params['decoder'], decoder), strict=True)
     return dict(encoder=encoder.to(dev).eval(), decoder=decoder.to(dev).eval(),
-                encoder_args=enc_args, decoder_args=dec_args,
-                train_config=config_from_dict(TrainConfig, meta.get('config', {})),
-                dset_args=meta.get('dset_args'), data_kind=meta.get('data_kind'),
-                epoch=ck['epoch'], device=dev)
+                encoder_args=enc_args, decoder_args=dec_args, train_config=train_cfg,
+                dset_args=dset_args, data_kind=data_kind, epoch=ck_epoch, device=dev)
 
 
 def squash_eval(out, color_mode, predict_segmentation, semantic_classes, track_mode):

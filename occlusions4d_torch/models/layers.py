@@ -29,6 +29,7 @@ only features take the dtype.
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -37,8 +38,8 @@ from ..ops import fps_batched, gather_neighbors, knn
 from ..ops.attention import gather_rows
 from ..ops.self_attention import fused_gathered_attention
 
-__all__ = ['Dense', 'NormLayer', 'VectorAttention', 'PointTransformerBlock',
-           'DownTransition']
+__all__ = ['Dense', 'NormLayer', 'take_batch_stats', 'commit_batch_stats',
+           'VectorAttention', 'PointTransformerBlock', 'DownTransition']
 
 
 class Dense(nn.Linear):
@@ -58,12 +59,50 @@ class Dense(nn.Linear):
         return y if self.bias is None else y + self.bias.to(dt)
 
 
+# XLA's CPU compiler splits a reduction longer than 32 into windows of 32
+# (the reduced axis zero-padded to a multiple of 32, half the padding in
+# front), each summed in order from zero, and repeats on the window sums
+# (TreeReductionRewriter). _xla_row_sum sums in that order, so batch
+# statistics here lose the digits the JAX package's lose.
+_XLA_WINDOW = 32
+
+
+def _xla_row_sum(x):
+    '''Sum of a (R, D) tensor over its rows, in XLA's CPU order.'''
+    while x.shape[0] > _XLA_WINDOW:
+        R = x.shape[0]
+        P = -(-R // _XLA_WINDOW) * _XLA_WINDOW
+        front = (P - R) // 2
+        w = F.pad(x, (0, 0, front, P - R - front)).view(P // _XLA_WINDOW, _XLA_WINDOW, -1)
+        x = _ordered_sum(w.unbind(1))
+    return _ordered_sum(x.unbind(0))
+
+
+def _ordered_sum(parts):
+    # unbind, not indexing: its backward is one stack, not a scatter a part.
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
 class NormLayer(nn.Module):
-    '''none / batch (eval statistics, eps 1e-3) / layer (eps 1e-5). Parameters
-    sit on the module itself, as the reference's nn.BatchNorm1d/LayerNorm.
-    Batch norm in train mode (batch statistics, running-average updates) is
-    not ported: it raises rather than quietly normalize with the running
-    statistics.'''
+    '''none / batch / layer (eps 1e-5). Parameters sit on the module itself,
+    as the reference's nn.BatchNorm1d/LayerNorm.
+
+    batch is flax's BatchNorm as the JAX package configures it (momentum 0.9,
+    eps 1e-3, use_fast_variance), not torch's BatchNorm1d. In eval mode it
+    normalises with the running statistics. In train mode it normalises with
+    the batch's: over the flattened (B*N) axis in f32, mean E[x] and biased
+    variance max(E[x^2] - E[x]^2, 0), the sums in XLA's CPU order
+    (_xla_row_sum) scaled by 1/(B*N), the difference as the JAX program
+    compiled by XLA for the CPU takes it (an fma where it normalises, two
+    rounded operations for the running variance; at a mean far from zero
+    the two keep different digits). The running statistics' update,
+    0.9 r + 0.1 batch (the biased variance), is not applied here: the forward
+    leaves it in `pending` (detached), and the train step commits it after
+    the optimizer step, or drops it (take_batch_stats, commit_batch_stats),
+    as the JAX train step merges the mutated batch_stats collection.'''
 
     def __init__(self, norm_type, dim, dtype=torch.float32):
         super().__init__()
@@ -72,6 +111,7 @@ class NormLayer(nn.Module):
         self.norm_type = norm_type
         self.dim = dim
         self.dtype = dtype
+        self.pending = None
         if norm_type != 'none':
             self.weight = nn.Parameter(torch.ones(dim))
             self.bias = nn.Parameter(torch.zeros(dim))
@@ -84,15 +124,59 @@ class NormLayer(nn.Module):
         promote to f32), the result in the module's dtype.'''
         if self.norm_type == 'none':
             return x
+        x32 = x.to(torch.float32)
         if self.norm_type == 'layer':
-            return F.layer_norm(x.to(torch.float32), (self.dim,), self.weight, self.bias,
+            return F.layer_norm(x32, (self.dim,), self.weight, self.bias,
                                 eps=1e-5).to(self.dtype)
         if self.training:
-            raise NotImplementedError('NormLayer(batch) in train mode (batch '
-                                      'statistics) is not ported; call .eval()')
-        inv = torch.rsqrt(self.running_var + 1e-3)
-        y = (x.to(torch.float32) - self.running_mean) * (inv * self.weight) + self.bias
+            rows = x32.reshape(-1, self.dim)
+            scale = float(np.float32(1.0 / rows.shape[0]))
+            s, s2 = _xla_row_sum(rows), _xla_row_sum(rows * rows)
+            mean = s * scale
+            mean_sq = mean * mean
+            # Where it normalises, XLA computes E[x^2] - E[x]^2 as
+            # fma(sum x^2, 1/R, -E[x]^2), a difference that keeps digits the
+            # rounded product loses: the f64 product is exact, so this is
+            # the fma's result (but for a rare double rounding).
+            var = torch.clamp_min((s2.double() * scale - mean_sq.double()).to(torch.float32),
+                                  0.0)
+            # The running variance takes the two rounded operations, the
+            # running mean XLA's folded constant: 0.9 r + sum x (0.1 / R).
+            var_run = torch.clamp_min(s2.detach() * scale - mean_sq.detach(), 0.0)
+            self.pending = (
+                0.9 * self.running_mean + s.detach() * float(np.float32(0.1) * np.float32(scale)),
+                0.9 * self.running_var + 0.1 * var_run)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + 1e-3)
+        y = (x32 - mean) * (inv * self.weight) + self.bias
         return y.to(self.dtype)
+
+
+def take_batch_stats(module):
+    '''The running statistics the last train-mode forward of `module`'s
+    batch-norm layers left pending, each taken (the layer's pending cleared).
+    :return [(layer, new running_mean, new running_var)], empty without
+        batch norm.'''
+    out = []
+    for m in module.modules():
+        if isinstance(m, NormLayer) and m.pending is not None:
+            out.append((m, *m.pending))
+            m.pending = None
+    return out
+
+
+@torch.no_grad()
+def commit_batch_stats(updates, keep=None):
+    '''Write take_batch_stats' updates into the layers' running statistics;
+    where the bool tensor `keep` is False the old ones stay (the train
+    step's skip of a non-finite gradient).'''
+    for layer, mean, var in updates:
+        if keep is not None:
+            mean = torch.where(keep, mean, layer.running_mean)
+            var = torch.where(keep, var, layer.running_var)
+        layer.running_mean.copy_(mean)
+        layer.running_var.copy_(var)
 
 
 def _softmax(a, dim):

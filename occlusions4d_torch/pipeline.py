@@ -12,6 +12,13 @@ decoder's own dtype (bf16 under mixed_precision, as the JAX pipeline's
 module path). Either way the frame's output reaches the squash and the
 losses in f32. Randomness (FPS starts, other-frame choice, sampling) comes
 from one torch.Generator.
+
+Batch norm (pt_norm_type 'batch'): the encoder runs in train mode, so every
+forward (the train step's, and the val_aug and viz steps') normalises with
+the batch's statistics, as the JAX pipeline's encoder.apply(..., train=True)
+does. The running statistics' update each forward computes is taken into
+aux['batch_stats'] (models/layers.py::take_batch_stats); only the train
+step commits it (train.py), after the optimizer step.
 '''
 
 import dataclasses
@@ -20,6 +27,7 @@ import torch
 
 from .losses import LossConfig, per_example_losses, total_loss
 from .models.fused import fused_field_apply, supports_fused
+from .models.layers import take_batch_stats
 from .sampler import GuidedPointSampler, SamplerConfig
 
 __all__ = ['PipelineConfig', 'TrainPipeline', 'resolve_decoder_dtype', 'squash_colors']
@@ -166,10 +174,13 @@ class TrainPipeline:
             when a later backward has passed through the decoder.
         :param return_intermediate: aux also holds layer_coords, the
             encoder's per-layer positions (else None).
-        :return (losses dict, aux dict).
+        :return (losses dict, aux dict); aux['batch_stats'] holds the
+            encoder's pending running-statistics updates (empty without
+            batch norm).
         '''
         abstract, feats_global, *coords = self.encoder(
             batch['pcl_input'], generator=generator, return_intermediate=return_intermediate)
+        bn_updates = take_batch_stats(self.encoder)
         if mark is not None:
             mark('encoder')
             if abstract.requires_grad:
@@ -179,6 +190,7 @@ class TrainPipeline:
             mark('sampler')
         losses, aux = self.decode_frames(frames, abstract, feats_global)
         aux['layer_coords'] = coords[0] if coords else None
+        aux['batch_stats'] = bn_updates
         return losses, aux
 
     def loss(self, batch, generator, mark=None):

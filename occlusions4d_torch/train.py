@@ -17,7 +17,11 @@ as the JAX package's `optax.chain(clip_by_global_norm, masked(adamw))` does:
   * lr(count) = learn_rate x lr_decay for every boundary <= count, the
     boundaries at 2/5, 3/5 and 4/5 of num_epochs x steps_per_epoch.
 A step with a non-finite gradient leaves the parameters, the moments and the
-count as they were. All of it stays on the device: the step count is a
+count as they were. Batch norm's running statistics (buffers, which AdamW
+never sees) take the update the step's forward computed after the optimizer
+step, or keep their old values on such a skipped step (the JAX step's
+merge of the batch_stats collection and its jnp.where); the val_aug and viz
+steps normalise with the batch's statistics and drop the update. All of it stays on the device: the step count is a
 tensor and the skip is a torch.where, so the update never waits for the host.
 Trainer.step reads params_finite after every step; Trainer.run_epoch reads
 a step's flags only after the next step is queued (the JAX loop's lagged
@@ -58,10 +62,12 @@ import torch
 
 from . import resolve_device
 from .checkpoint import (adam_state, from_jax_params, jax_moments_to_torch,
-                         load_checkpoint, save_checkpoint, to_jax_params)
+                         load_checkpoint, load_reference_checkpoint,
+                         resolve_checkpoint_file, save_checkpoint, to_jax_params)
 from .config import TrainConfig, train_args
 from .losses import total_loss
 from .models.factory import build_models, build_sampler_args
+from .models.layers import commit_batch_stats
 from .pipeline import PipelineConfig, TrainPipeline, resolve_decoder_dtype
 from .sampler import SamplerConfig
 from .utils.logvis import StepLogger
@@ -142,9 +148,10 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
         called with the name of each phase as its work has been enqueued:
         'encoder', 'sampler', 'decoder_forward', 'decoder_backward',
         'encoder_backward', 'optimizer'. Metrics (device tensors, the JAX
-        package's names): total_loss, grad_norm, grads_finite, params_finite,
-        sample_ok, sample_ok_frac, solid_sbs, air_sbs, loss_dens, loss_rgb,
-        loss_segm, loss_track.
+        package's names): total_loss, grad_norm, grads_finite, params_finite
+        (the parameters and the batch-norm statistics), sample_ok,
+        sample_ok_frac, solid_sbs, air_sbs, loss_dens, loss_rgb, loss_segm,
+        loss_track.
     '''
     params = optimizer.params
 
@@ -158,7 +165,11 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
             grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
             optimizer.update(grads, grad_norm, grads_finite)
-            params_finite = torch.stack([torch.isfinite(p).all() for p in params]).all()
+            commit_batch_stats(aux['batch_stats'], grads_finite)
+            stats = [t for layer, _, _ in aux['batch_stats']
+                     for t in (layer.running_mean, layer.running_var)]
+            params_finite = torch.stack([torch.isfinite(p).all()
+                                         for p in params + stats]).all()
         if mark is not None:
             mark('optimizer')
         metrics = dict(total_loss=loss.detach(), grad_norm=grad_norm,
@@ -313,12 +324,27 @@ class Trainer:
                     step=np.asarray(self.step_count, np.int32))
 
     def resume(self, path, steps_per_epoch=1000):
-        '''Load a checkpoint's full state (either package's pkl; a file or
-        a run directory's rolling checkpoint.pkl): the parameters, AdamW's
-        mu, nu and count, the step count; training goes on at its epoch + 1.'''
-        if str(path).endswith('.pth'):
-            raise NotImplementedError('a reference .pth resume is not part of the port yet '
-                                      '(ROADMAP.md Queue 1 item 5)')
+        '''Load a checkpoint (a file, or a run directory through
+        checkpoint.resolve_checkpoint_file); training goes on at its epoch + 1.
+        Either package's pkl restores the full state: the parameters (batch
+        statistics included), AdamW's mu, nu and count, the step count. A
+        reference .pth is a warm start, as in the JAX Trainer: its weights
+        and epoch, AdamW fresh (zero moments and count, so the learning-rate
+        schedule starts again), the step count at (epoch + 1) x
+        steps_per_epoch.'''
+        path = resolve_checkpoint_file(str(path))
+        if path.endswith('.pth'):
+            ref = load_reference_checkpoint(path)
+            self.init_state(params=dict(encoder=ref['encoder_variables'],
+                                        decoder=ref['decoder_variables']),
+                            steps_per_epoch=steps_per_epoch)
+            epoch = int(ref['epoch'])
+            self.step_count = (epoch + 1) * steps_per_epoch
+            self.start_epoch = epoch + 1
+            self.logger.info('Resuming from a reference .pth checkpoint: weights + epoch '
+                             'loaded, optimizer state reinitialized (torch Adam moments are '
+                             'not bridged).')
+            return self
         ck = load_checkpoint(path)
         self.init_state(params=ck['state']['params'], steps_per_epoch=steps_per_epoch)
         adam = adam_state(ck['state']['opt_state'])
@@ -527,6 +553,8 @@ def main(cfg: TrainConfig, logger=None):
     logger.save_args(cfg)
     np.random.seed(cfg.seed)
 
+    # Before anything touches CUDA: --worker_mode process forks the loaders'
+    # workers here.
     data_kind, train_loader, val_loader, _ = create_train_val_loaders(cfg, logger)
     logger.info(f'data_kind: {data_kind}  output: {cfg.output_path}')
     trainer = Trainer(cfg, data_kind, logger=logger)

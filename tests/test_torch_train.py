@@ -16,7 +16,10 @@ Tolerances, each with its reason:
     holds the JAX sampler;
   * lockstep: losses rtol 2e-4 / atol 2e-5 and whole-model parameter deltas
     within 5e-4 of JAX's (the reference-parity lockstep's measure,
-    tests/test_reference_parity.py:843-860).
+    tests/test_reference_parity.py:843-860);
+  * batch norm in train mode against flax's BatchNorm: statistics rtol 1e-6,
+    outputs 1e-6 of their largest magnitude (an output near zero is the
+    difference of two rounded values).
 '''
 
 import dataclasses
@@ -34,6 +37,7 @@ torch.set_num_threads(2)
 from occlusions4d_tpu import losses as j_losses
 from occlusions4d_tpu.config import TrainConfig as JTrainConfig
 from occlusions4d_tpu.models import factory as j_factory
+from occlusions4d_tpu.models.layers import NormLayer as JNormLayer
 from occlusions4d_tpu.pipeline import PipelineConfig as JPipelineConfig
 from occlusions4d_tpu.pipeline import TrainPipeline as JTrainPipeline
 from occlusions4d_tpu.pipeline import squash_colors as j_squash
@@ -49,7 +53,7 @@ from occlusions4d_torch.models import factory as t_factory
 from occlusions4d_torch.models.encoder import PointEncoder
 from occlusions4d_torch.models.fused import fused_field_apply
 from occlusions4d_torch.models.implicit import LocalImplicitField
-from occlusions4d_torch.models.layers import NormLayer
+from occlusions4d_torch.models.layers import NormLayer, take_batch_stats
 from occlusions4d_torch.pipeline import PipelineConfig, TrainPipeline, squash_colors
 from occlusions4d_torch.sampler import GuidedPointSampler, SamplerConfig
 from occlusions4d_torch.train import AdamW, Trainer, build_optimizer, make_train_step
@@ -640,12 +644,58 @@ def test_encoder_train_mode_draws_random_fps_starts():
     assert torch.equal(c, d)
 
 
+_NORM_CASES = [((3, 1000, 8), 0.0), ((2, 4779, 36), 1e3), ((1, 1593, 72), 1e3),
+               ((3, 256, 16), 0.0)]
+
+
+def norm_pair(rng, shape, offset):
+    '''One input, flax variables and the port's NormLayer holding them.'''
+    D = shape[-1]
+    x = (rng.standard_normal(shape) * rng.uniform(0.5, 2.0, D) + offset).astype(np.float32)
+    g, b, rm = (rng.standard_normal(D).astype(np.float32) for _ in range(3))
+    rv = rng.uniform(0.5, 2.0, D).astype(np.float32)
+    variables = {'params': {'norm': {'scale': jnp.asarray(g), 'bias': jnp.asarray(b)}},
+                 'batch_stats': {'norm': {'mean': jnp.asarray(rm), 'var': jnp.asarray(rv)}}}
+    layer = NormLayer('batch', D)
+    with torch.no_grad():
+        for t, v in ((layer.weight, g), (layer.bias, b), (layer.running_mean, rm),
+                     (layer.running_var, rv)):
+            t.copy_(_t(v))
+    return x, variables, layer
+
+
 def test_batch_norm_train_mode_raises():
-    n = NormLayer('batch', 4)
-    x = torch.rand(3, 4)
-    with pytest.raises(NotImplementedError):
-        n.train()(x)
-    assert torch.isfinite(n.eval()(x)).all()
+    '''NormLayer('batch') in train mode computes what flax's BatchNorm
+    computes (JAX NormLayer on the flattened (B*N, D) rows, train=True):
+    outputs and updated running statistics, at inputs of mean 0 and 1e3
+    (where E[x^2] - E[x]^2 keeps a few digits: the two must keep the same
+    ones), and the update stays pending until taken. Eval mode normalises
+    with the running statistics and leaves nothing pending.'''
+    rng = np.random.default_rng(0)
+    jnorm = JNormLayer('batch')
+    apply = jax.jit(lambda v, x: jnorm.apply(v, x, train=True, mutable=['batch_stats']))
+    for shape, offset in _NORM_CASES:
+        x, variables, layer = norm_pair(rng, shape, offset)
+        jy, mut = apply(variables, jnp.asarray(x.reshape(-1, shape[-1])))
+        y = layer.train()(_t(x))
+        assert y.shape == x.shape and layer.pending is not None
+        (got_layer, mean, var), = take_batch_stats(layer)
+        assert got_layer is layer and layer.pending is None and take_batch_stats(layer) == []
+        jy = np.asarray(jy).reshape(shape)
+        np.testing.assert_allclose(y.detach().numpy(), jy, rtol=1e-6,
+                                   atol=1e-6 * np.abs(jy).max(), err_msg=str(shape))
+        st = mut['batch_stats']['norm']
+        np.testing.assert_allclose(mean.numpy(), np.asarray(st['mean']), rtol=1e-6)
+        np.testing.assert_allclose(var.numpy(), np.asarray(st['var']), rtol=1e-6)
+        # The running statistics themselves move only when committed.
+        np.testing.assert_array_equal(layer.running_mean.numpy(),
+                                      np.asarray(variables['batch_stats']['norm']['mean']))
+        # Eval mode: the running statistics, nothing pending.
+        jy_eval = jnorm.apply(variables, jnp.asarray(x.reshape(-1, shape[-1])))
+        np.testing.assert_allclose(layer.eval()(_t(x)).detach().numpy(),
+                                   np.asarray(jy_eval).reshape(shape), rtol=1e-6,
+                                   atol=1e-6 * np.abs(np.asarray(jy_eval)).max())
+        assert layer.pending is None
 
 
 def test_mixed_precision_is_carried_and_refused_for_training():

@@ -180,6 +180,29 @@ each printing one JSON line:
      steps, then times 6-step epochs fed by thread, process, process,
      thread workers: each epoch's step wall, data share and peak memory,
      and each mode's mean;
+  5g. train_data_parallel: gv1 at full width, global batch 4 as 2 ranks x 2
+     rows on the one card (parallel.spawn over ['cuda:0', 'cuda:0'], gloo:
+     NCCL refuses two ranks on one device), every rank on the fixed
+     supervision with FPS from point 0, 1 warm-up + 3 timed steps against
+     the one-process batch-4 Trainer on the card from the same weights and
+     batch, run three times (logged scalars rtol 2e-5, parameter deltas
+     1e-4 relative L2, or six times the one-process runs' largest
+     distance from each other where that is larger; both ranks' parameters
+     equal), each rank's step
+     wall, its gradient all-reduce's share of a phase-split step and its
+     peak memory beside the one-process step's; one cv1 step of 2 ranks x
+     1 row, finite; then train.main over the two ranks (--data_parallel 2's
+     path with the device list given, rank 0's loaders on fork workers,
+     which refuse a process that has started CUDA) for one epoch of 4
+     steps, its checkpoint reloaded through load_models and Trainer.resume (the ranks'
+     stdout goes to chiprun_out/train_data_parallel.log);
+  5h. eval_query_parallel: the gv1 dense scene (524288 grid queries) with
+     InferenceEngine over two replicas on the card against one device at
+     the same chunk and at the replicas' per-device chunk, bit for bit (or
+     within 1e-5 at the same chunk), in the order one, replicas, one at
+     half the chunk, replicas, one, times printed; the committed GREATER
+     anchor through the eval driver with the 2-replica engine against the
+     one-device driver, per-frame metrics equal;
   6. train: the gv1 train step (Trainer, batch 3, 4 frames, seeded numpy
      weights and a bench.py-shaped synthetic batch): 1 warm-up step, 3 timed
      steps with the launch counters zeroed just before and read just after
@@ -246,8 +269,10 @@ each printing one JSON line:
      precision='fast' against the same decode with the plain bf16 versions
      on the card (density 2e-3, relative L2 1e-3);
 then the card's nvidia-smi line, the {"kernels": [...]} line (each entry
-with its launches on the eval_driver phase under "eval_driver" and on the
-train_driver phase's gv1 run under "train_driver"; the five
+with its launches on the eval_driver phase under "eval_driver", on the
+train_driver phase's gv1 run under "train_driver", on rank 0's timed steps
+of train_data_parallel and on eval_query_parallel's 2-replica scene under
+their names; the five
 bf16 forward variants count their launches on main_path_fast, the four bf16
 backward ones and interp_g_bwd (the bf16 shared route's interpolation rows)
 on train_bf16, the two bf16 self-attention ones on train_mixed; fps, the FPS
@@ -1476,10 +1501,11 @@ def floors_hold(kind, mean):
     return ok and math.isfinite(mean['chamfer']) and mean['chamfer'] < fl['chamfer_max']
 
 
-def run_driver(torch, argv, log, device='cuda'):
-    """One in-process test_driver.main on the card with the launch counters
-    zeroed just before and read just after. :return (summary, launches,
-    wall s, the loop's PhaseTimer summary unrounded)."""
+def run_driver(torch, argv, log, device='cuda', devices=None):
+    """One in-process test_driver.main on the card (the engine over
+    `devices` where given) with the launch counters zeroed just before and
+    read just after. :return (summary, launches, wall s, the loop's
+    PhaseTimer summary unrounded)."""
     from occlusions4d_torch.config import test_args
     from occlusions4d_torch.evaluate import test_driver
     from occlusions4d_torch.ops import _build
@@ -1488,7 +1514,7 @@ def run_driver(torch, argv, log, device='cuda'):
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.time()
-    summary = test_driver.main(args, logger=logger, device=device)
+    summary = test_driver.main(args, logger=logger, device=device, devices=devices)
     torch.cuda.synchronize()
     wall = time.time() - t0
     split = {k: v[0] for k, v in logger.last_eval_timer.summary().items()}
@@ -3905,6 +3931,341 @@ def decoder_wide(torch, t_attn, dev, smi):
     return out
 
 
+# Phase train_data_parallel: gv1 at full width, global batch 4 as 2 ranks x
+# 2 rows on one card over gloo (parallel.spawn with ['cuda:0', 'cuda:0']),
+# held against the one-process batch-4 Trainer on the card from the same
+# seeded weights, batch and fixed supervision (FPS from point 0); then one
+# cv1 step of 2 ranks x 1 row; then train.main with two ranks on the card.
+_DP_DEVICES = ['cuda:0', 'cuda:0']
+_DP_TRAIN = dict(_GV1_TRAIN, batch_size=4)
+_DP_CV1 = dict(_CV1_TRAIN, batch_size=2)
+_DP_STEPS = 3                    # timed steps, after one warm-up step.
+# Gates against the one-process run: logged scalars rtol 2e-5, parameter
+# deltas 1e-4 relative L2 (the CPU test's 1e-5 / 1e-4, the scalars' doubled),
+# or six times the one-process runs' largest distance from each other where
+# that is larger.
+# The card's backward sums are not bit-reproducible, and over 4 steps AdamW
+# turns rounding in near-zero gradients into lr-size moves: on an NVIDIA
+# H100 80GB HBM3 at 700 W two runs of this phase read 1.24e-5 / 3.3e-4 and
+# 1.42e-5 / 3.2e-4 against one-process spreads of 5.1e-6 / 1.3e-4 and
+# 5.0e-6 / 1.5e-4 (2.2-2.9 times), the CPU test's 3 tiny steps 3.5e-7 /
+# 4.3e-5; every naive variant the CPU tests reject is off by 8.9e-3 or more.
+_DP_RTOL, _DP_DELTA, _DP_NOISE = 2e-5, 1e-4, 6.0
+_DP_ONE_RUNS = 3                 # one-process runs: the reference and two repeats.
+# train.main over two ranks: one epoch of 4 steps of batch 4 (16 examples:
+# the dataset's train stage holds 960 x use_data_frac of them).
+_DP_MAIN_FRAC = str(16.5 / 960)
+
+
+def dp_trainer(torch, cfg_kw, data_kind, seed, group=None):
+    """A Trainer of cfg_kw (one rank of `group`, or one process on the
+    card) from seeded weights, FPS from point 0, the CPU lockstep's fixed
+    supervision (tests/torch_parallel_ranks.py) at the train frame's width
+    in the cuboid."""
+    sys.path.append(os.path.join(_HERE, 'tests'))
+    from torch_parallel_ranks import FixedSampler, supervision
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.train import Trainer
+    cfg = TrainConfig(**cfg_kw)
+    tr = Trainer(cfg, data_kind, 'cuda', group=group)
+    wrng = np.random.RandomState(seed)
+    tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                              decoder=random_jax_params(tr.decoder, wrng)),
+                  seed=0, steps_per_epoch=100)
+    tr.encoder.fps_random_start = False
+    n_q = cfg.num_cr_solid + int(cfg.num_cr_solid * cfg.air_sampling_ratio)
+    q, t = supervision(cfg.past_frames, n_q, cfg.cr_cube_bounds)
+    tr.pipeline.sampler = FixedSampler(q, t, cfg.num_cr_solid)
+    return tr
+
+
+def dp_steps(torch, tr, batch):
+    """1 warm-up + _DP_STEPS timed steps (launches counted over the timed
+    ones), then one step split at its phase marks; the parameters after
+    the timed steps. :return dict."""
+    from occlusions4d_torch.ops import _build
+    torch.cuda.reset_peak_memory_stats()
+    warm = tr.step(batch)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    steps = [{k: (v.tolist() if v.dim() else v.item()) for k, v in warm.items()}]
+    walls = []
+    for _ in range(_DP_STEPS):
+        t0 = time.time()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+        steps.append({k: (v.tolist() if v.dim() else v.item()) for k, v in m.items()})
+    counts = _build.launch_counts()
+    params = [p.detach().double().cpu().numpy().ravel() for p in tr.optimizer.params]
+    split = split_step(torch, tr, batch)
+    return dict(steps=steps, step_ms=walls, mean_step_ms=float(np.mean(walls)),
+                split_ms=split, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=counts, params=np.concatenate(params))
+
+
+def dp_rank(group, spec):
+    """One rank of phase train_data_parallel (spawned: importable by name).
+    Its rows of the seeded global batch through the gv1 steps, then one cv1
+    step; rank 0 writes every rank's results to spec['out']."""
+    import pickle
+    import torch
+    from occlusions4d_torch import parallel
+    tr = dp_trainer(torch, _DP_TRAIN, 'greater', spec['seed'], group)
+    batch = train_batch(torch, tr.cfg, group.device, seed=spec['seed'] + 1)
+    res = dp_steps(torch, tr, parallel.shard_rows(batch, group.rank, group.size))
+    del tr, batch
+    torch.cuda.empty_cache()
+    ctr = dp_trainer(torch, _DP_CV1, 'carla', spec['seed'] + 2, group)
+    cbatch = train_batch(torch, ctr.cfg, group.device, seed=spec['seed'] + 3,
+                         data_kind='carla')
+    t0 = time.time()
+    m = ctr.step(parallel.shard_rows(cbatch, group.rank, group.size))
+    torch.cuda.synchronize()
+    res['cv1'] = dict(ms=(time.time() - t0) * 1e3,
+                      **{k: (v.tolist() if v.dim() else v.item()) for k, v in m.items()})
+    res['rank'] = group.rank
+    res['backend'] = group.backend
+    everyone = [None] * group.size
+    torch.distributed.all_gather_object(everyone, res)
+    if group.is_main:
+        with open(spec['out'], 'wb') as f:
+            pickle.dump(everyone, f)
+
+
+def stdout_to(path):
+    """Send this process's file descriptor 1, and so the stdout of every
+    process it starts, to `path` until the returned callable is called (the
+    ranks' loggers write there; this script's standard output stays JSON)."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    os.dup2(fd, 1)
+    os.close(fd)
+
+    def restore():
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+    return restore
+
+
+def dp_close(dp, one):
+    """The logged scalars' largest difference of a run from the one-process
+    run, step by step, relative to the rtol + atol gate's scale (2e-5 /
+    2e-4 absolute) and so comparable to rtol."""
+    worst = 0.0
+    for a, b in zip(dp['steps'], one['steps']):
+        for k in ('total_loss', 'loss_dens', 'loss_rgb', 'loss_track', 'grad_norm'):
+            worst = max(worst, abs(a[k] - b[k]) / (abs(b[k]) + 0.1))
+    return worst
+
+
+def train_data_parallel(torch, dev, smi, path_counts, train_data):
+    """Phase train_data_parallel (see _DP_DEVICES): the one-process batch-4
+    gv1 run, then the 2-rank run (each rank's step wall, its all-reduce
+    share and peak memory), held against it; the cv1 step; train.main over
+    two ranks for one epoch and its checkpoint reloaded. :return {kernel:
+    launches} of rank 0's timed steps."""
+    import pickle
+    import shutil
+    import tempfile
+    from occlusions4d_torch import parallel
+    from occlusions4d_torch import train as t_train
+    from occlusions4d_torch.config import train_args
+    from occlusions4d_torch.evaluate import load_models
+    seed = 31
+    tmp = tempfile.mkdtemp(prefix='o4d_dp_')
+    try:
+        runs = []
+        for _ in range(_DP_ONE_RUNS):
+            tr = dp_trainer(torch, _DP_TRAIN, 'greater', seed)
+            init = np.concatenate([p.detach().double().cpu().numpy().ravel()
+                                   for p in tr.optimizer.params])
+            batch = train_batch(torch, tr.cfg, dev, seed=seed + 1)
+            runs.append(dp_steps(torch, tr, batch))
+            del tr, batch
+            torch.cuda.empty_cache()
+        one = runs[0]
+        spec = dict(seed=seed, out=os.path.join(tmp, 'ranks.pkl'))
+        log_fp = os.path.join(_HERE, 'chiprun_out', 'train_data_parallel.log')
+        open(log_fp, 'w').close()
+        restore = stdout_to(log_fp)
+        try:
+            t0 = time.time()
+            parallel.spawn(dp_rank, _DP_DEVICES, args=(spec,), run_dir=tmp, timeout=600)
+            spawn_s = time.time() - t0
+        finally:
+            restore()
+        with open(spec['out'], 'rb') as f:
+            ranks = pickle.load(f)
+        dp = ranks[0]
+        scalar_rel = dp_close(dp, one)
+        d_one, d_dp = one['params'] - init, dp['params'] - init
+        delta_rel = float(np.linalg.norm(d_dp - d_one) / np.linalg.norm(d_one))
+        pairs = [(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+        repeat_scalar_rel = max(dp_close(a, b) for a, b in pairs)
+        repeat_rel = max(float(np.linalg.norm(a['params'] - b['params'])
+                               / np.linalg.norm(d_one)) for a, b in pairs)
+        scalar_gate = max(_DP_RTOL, _DP_NOISE * repeat_scalar_rel)
+        delta_gate = max(_DP_DELTA, _DP_NOISE * repeat_rel)
+        equal_ranks = all(np.array_equal(r['params'], dp['params']) for r in ranks)
+        per_rank = [dict(rank=r['rank'], step_ms=r['step_ms'], mean_step_ms=r['mean_step_ms'],
+                         split_ms=r['split_ms'],
+                         all_reduce_share=r['split_ms'].get('gradient_all_reduce', 0.0)
+                         / sum(r['split_ms'].values()),
+                         peak_mem_gib=r['peak_mem_gib'], cv1_step_ms=r['cv1']['ms'])
+                    for r in ranks]
+        launched = all(dp['launches'].get(k, 0) > 0 for k in _TRAIN)
+        cv1_ok = all(math.isfinite(r['cv1']['total_loss']) and r['cv1']['grads_finite']
+                     and r['cv1']['params_finite'] for r in ranks)
+        finite = all(math.isfinite(st['total_loss']) and st['grads_finite']
+                     and st['params_finite'] for r in ranks for st in r['steps'])
+        path_counts['train_data_parallel'] = dp['launches']
+
+        # train.main with --data_parallel 2's ranks, both on the card.
+        argv = [a for a in _TD_GV1_ARGV] + [
+            '--batch_size', '4', '--num_epochs', '1', '--use_data_frac', _DP_MAIN_FRAC,
+            '--data_path', train_data, '--checkpoint_root', os.path.join(tmp, 'ck'),
+            '--log_root', os.path.join(tmp, 'logs'), '--data_parallel', '2',
+            '--worker_mode', 'process']
+        cfg = train_args(argv)
+        restore = stdout_to(log_fp)
+        try:
+            t0 = time.time()
+            ret = t_train.main(cfg, devices=_DP_DEVICES)
+            main_s = time.time() - t0
+        finally:
+            restore()
+        ckpts = sorted(os.listdir(cfg.output_path))
+        L = load_models(os.path.join(cfg.output_path, 'checkpoint.pkl'), device=dev)
+        rtr = t_train.Trainer(cfg, 'greater', logger=quiet_logger(None, 'reload'))
+        rtr.resume(os.path.join(cfg.output_path, 'checkpoint.pkl'), steps_per_epoch=4)
+        reload_ok = (ret is None and ckpts == ['checkpoint.pkl', 'model_0.pkl']
+                     and L['epoch'] == 0 and rtr.start_epoch == 1 and rtr.step_count == 4
+                     and int(rtr.optimizer.count) == 4
+                     and all(bool(torch.isfinite(p).all()) for p in rtr.optimizer.params))
+        del L, rtr
+        ok = (scalar_rel <= scalar_gate and delta_rel <= delta_gate and equal_ranks and launched
+              and cv1_ok and finite and reload_ok
+              and all(r['backend'] == 'gloo' for r in ranks))
+        emit(dict(phase='train_data_parallel', model='gv1', devices=_DP_DEVICES,
+                  backend=dp['backend'], global_batch=_DP_TRAIN['batch_size'],
+                  rows_per_rank=_DP_TRAIN['batch_size'] // len(_DP_DEVICES),
+                  one_process=dict(step_ms=one['step_ms'], mean_step_ms=one['mean_step_ms'],
+                                   split_ms=one['split_ms'], peak_mem_gib=one['peak_mem_gib']),
+                  ranks=per_rank, spawn_wall_s=spawn_s,
+                  losses_dp=[st['total_loss'] for st in dp['steps']],
+                  losses_one=[st['total_loss'] for st in one['steps']],
+                  scalars_max_rel_diff=scalar_rel, scalars_gate=scalar_gate,
+                  param_delta_rel_l2=delta_rel, param_delta_gate=delta_gate,
+                  one_process_repeats=dict(runs=len(runs),
+                                           scalars_max_rel_diff=repeat_scalar_rel,
+                                           param_delta_rel_l2=repeat_rel,
+                                           mean_step_ms=[r['mean_step_ms'] for r in runs]),
+                  ranks_params_equal=equal_ranks, cv1_ok=cv1_ok,
+                  cv1_losses=[r['cv1']['total_loss'] for r in ranks],
+                  launches=dp['launches'], one_process_launches=one['launches'],
+                  train_main_wall_s=main_s, train_main_checkpoints=ckpts,
+                  checkpoint_reload_ok=reload_ok, ok=bool(ok), gpu=smi))
+        if not ok:
+            raise AssertionError(f'train_data_parallel failed: scalars {scalar_rel}, deltas '
+                                 f'{delta_rel}, ranks equal {equal_ranks}, launched '
+                                 f'{launched}, cv1 {cv1_ok}, finite {finite}, reload '
+                                 f'{reload_ok}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return path_counts['train_data_parallel']
+
+
+def eval_query_parallel(torch, dev, smi, path_counts):
+    """Phase eval_query_parallel: the gv1 dense scene (524288 grid queries)
+    with InferenceEngine over two replicas on the card (devices ['cuda:0',
+    'cuda:0']) against one device at the same chunk and at the replicas'
+    per-device chunk, bit for bit, times printed; then the committed GREATER
+    anchor through the eval driver with the 2-replica engine against the
+    1-device driver, per-frame metrics equal. :return {kernel: launches} of
+    the 2-replica scene."""
+    import shutil
+    import tempfile
+    sys.path.append(os.path.join(_HERE, 'tests'))
+    import anchor_recipe
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.evaluate import InferenceEngine
+    from occlusions4d_torch.ops import _build, blind_points_numpy
+    cfg = TrainConfig(**_GV1)
+    encoder, decoder, _ = seeded_models(torch, cfg, dev, 1)
+    loaded = dict(encoder=encoder, decoder=decoder, device=dev)
+    pcl = np.random.RandomState(0).rand(14336, 8).astype(np.float32) * 2 - 1
+    queries = blind_points_numpy(_NUM_SAMPLE, cfg.min_z, cfg.cr_cube_bounds, 0, 'greater',
+                                 cfg.cube_mode, 'grid')
+    engines = dict(
+        one=InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
+                            implicit_batch_size=_CHUNK),
+        one_half_chunk=InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
+                                       implicit_batch_size=_CHUNK // 2),
+        replicas=InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
+                                 implicit_batch_size=_CHUNK, devices=_DP_DEVICES))
+    outs, times, counts = {}, {}, {}
+    for name in ('one', 'replicas', 'one_half_chunk', 'replicas', 'one'):
+        eng = engines[name]
+        a, g = eng.encode(pcl)                      # warm-up, not timed.
+        eng.decode_all(queries[:_CHUNK], a, g, fetch=False)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        a, g = eng.encode(pcl)
+        out = eng.decode_all(queries, a, g, fetch=False)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.time() - t0) * 1e3)
+        counts[name] = _build.launch_counts()
+        outs[name] = out
+    same_chunk = bool(torch.equal(outs['replicas'], outs['one']))
+    same_launch = bool(torch.equal(outs['replicas'], outs['one_half_chunk']))
+    err = float((outs['replicas'] - outs['one']).abs().max())
+    path_counts['eval_query_parallel'] = counts['replicas']
+    launched = all(counts['replicas'].get(k, 0) > 0 for k in _INFER)
+    del outs, engines
+    torch.cuda.empty_cache()
+
+    # The GREATER anchor through the eval driver, one device and two replicas.
+    tmp = tempfile.mkdtemp(prefix='o4d_qp_')
+    try:
+        name = anchor_recipe.ANCHORS['greater']
+        data = anchor_recipe.make_scene('greater', os.path.join(tmp, name))
+        res = {}
+        for run, devices in (('one', None), ('replicas', _DP_DEVICES)):
+            log = os.path.join(tmp, name, run, 'anchor')
+            argv, committed = anchor_recipe.eval_argv('greater', data, log,
+                                                      ('--eval_precision', 'auto'))
+            summary, c, wall, split = run_driver(torch, argv, log, devices=devices)
+            res[run] = dict(summary=summary, wall=wall, launches=c,
+                            within=all(d['within'] for d in metric_deltas(
+                                summary['per_frame'], committed).values()))
+        anchor_same = res['one']['summary']['per_frame'] == \
+            res['replicas']['summary']['per_frame']
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = (same_launch and (same_chunk or err <= 1e-5) and launched and anchor_same
+          and res['replicas']['within'])
+    emit(dict(phase='eval_query_parallel', model='gv1', devices=_DP_DEVICES,
+              queries=int(queries.shape[0]), chunk=_CHUNK, scene_ms=times,
+              bit_equal_one_device_same_chunk=same_chunk,
+              bit_equal_one_device_same_launches=same_launch,
+              max_abs_diff_same_chunk=err, launches=counts['replicas'],
+              one_device_launches=counts['one'],
+              anchor_frames=len(res['replicas']['summary']['per_frame']),
+              anchor_per_frame_equal=anchor_same,
+              anchor_within_committed=res['replicas']['within'],
+              anchor_wall_s={k: v['wall'] for k, v in res.items()},
+              ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'eval_query_parallel failed: same launches {same_launch}, same '
+                             f'chunk {same_chunk} ({err}), launched {launched}, anchor '
+                             f'{anchor_same}')
+    return counts['replicas']
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4304,8 +4665,13 @@ def main():
         reference_pth(torch, dev, smi, path_counts, train_data)
         train_batchnorm(torch, dev, smi, path_counts)
         train_loader_workers(torch, smi, train_data)
+        torch.cuda.empty_cache()
+        # 5g-5h. Data-parallel training and the query-sharded dense eval.
+        train_data_parallel(torch, dev, smi, path_counts, train_data)
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    eval_query_parallel(torch, dev, smi, path_counts)
     torch.cuda.empty_cache()
 
     # 6. The gv1 train step.
@@ -4418,8 +4784,9 @@ def main():
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',
                    replaces=_REPLACES[name], path=_PATH[name],
                    launches=int(path_counts[_PATH[name]].get(name, 0)))
-        row['eval_driver'] = int(path_counts['eval_driver'].get(name, 0))
-        row['train_driver'] = int(path_counts['train_driver'].get(name, 0))
+        for phase in ('eval_driver', 'train_driver', 'train_data_parallel',
+                      'eval_query_parallel'):
+            row[phase] = int(path_counts[phase].get(name, 0))
         if name in _OFF_PATH:
             row['on_main_path'] = False
             row['note'] = _OFF_PATH[name]

@@ -17,8 +17,12 @@ defaults but for device):
     CPU run is evaluate.test_driver.main(args, device='cpu'). worker_mode
     'process' (fork workers) is the train side's only, as in the JAX
     package: the test loader is built after load_models has started the
-    CUDA runtime. gpu_id and query_parallel are kept for the command line's
-    sake.
+    CUDA runtime. gpu_id is kept for the command line's sake;
+    --query_parallel N shards each decode chunk's queries over N devices
+    (evaluate/inference.py).
+    --data_parallel N trains on N ranks (train.main: spawned, or under
+    torchrun); a batch that does not divide over them raises here, as the
+    JAX Trainer raises.
 '''
 
 import argparse
@@ -137,10 +141,13 @@ class TrainConfig(SharedConfig):
     past_frames: int = 2
     future_frames: int = 0
 
-    # The JAX package's additions, under its names. data_parallel,
-    # query_parallel, check_numerics, watch_networks and profile_steps parse;
-    # verify_args refuses them unless they ask for what one card and the
-    # port already do (_refused_train_flags).
+    # The JAX package's additions, under its names. data_parallel: ranks of
+    # data-parallel training (train.main; -1 the largest divisor of the batch
+    # that the host's cards hold); query_parallel: devices of the dense eval
+    # (the eval side's; the train side parses it and leaves it unused, as
+    # the JAX package does). check_numerics, watch_networks and profile_steps
+    # parse; verify_args refuses them unless they ask for what the port
+    # already does (_refused_train_flags).
     data_parallel: int = -1
     query_parallel: int = 1
     # The decoder in the train step: 'auto' and 'on' take the fused decoder
@@ -180,7 +187,7 @@ class TestConfig(SharedConfig):
     track_mode: str = 'none'
     use_json: bool = False
     live_occl_mode: str = 'normal'
-    query_parallel: int = -1      # one device: -1 or 1 (evaluate/inference.py).
+    query_parallel: int = -1      # eval devices, -1 all (evaluate/inference.py).
     # Eval numerics (evaluate/inference.py::resolve_precision): 'fast' (the
     # bf16 kernels), 'f32' / 'highest' (the f32 kernels), 'auto' = 'f32'.
     eval_precision: str = 'auto'
@@ -219,10 +226,6 @@ def _refused_train_flags(args):
     '''The train flags the port parses but does not implement yet, each with
     the ROADMAP Queue 1 item that will: [(flag, item)].'''
     out = []
-    if args.data_parallel > 1:
-        out.append((f'--data_parallel {args.data_parallel}', 6))
-    if args.query_parallel > 1:
-        out.append((f'--query_parallel {args.query_parallel}', 6))
     if args.check_numerics:
         out.append(('--check_numerics', 7))
     if args.watch_networks or args.use_wandb:
@@ -276,6 +279,11 @@ def verify_args(args, is_train=False):
     assert args.color_mode in ('rgb', 'rgb_nosigmoid', 'hsv', 'bins')
     assert args.fused_decoder in ('auto', 'on', 'off')
     assert args.fused_decoder_dtype in ('auto', 'bf16', 'f32')
+    if args.data_parallel > 1 and args.batch_size % args.data_parallel:
+        raise ValueError(
+            f'batch_size={args.batch_size} is not divisible by the data-parallel mesh size '
+            f'{args.data_parallel}; every step would fail at shard time (and be swallowed by '
+            f'the exception tolerance). Adjust --batch_size or --data_parallel.')
     refused = _refused_train_flags(args)
     if refused:
         raise NotImplementedError('; '.join(

@@ -11,6 +11,7 @@ import collections
 import itertools
 import multiprocessing
 import queue
+import sys
 import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -74,7 +75,7 @@ class Loader:
         where the parent holds no CUDA state the children would need: the
         workers run numpy and the host C++ library only (loaded before the
         fork), and train.main builds its loaders before anything touches
-        CUDA.
+        CUDA (a process that has started CUDA is refused).
     Per-example RNG is derived from (seed, epoch, index), so the produced
     batches are bit-identical across worker modes and counts, and batches
     are always yielded in index order regardless of worker completion order.
@@ -98,6 +99,10 @@ class Loader:
             self._start_process_pool()
 
     def _start_process_pool(self):
+        torch = sys.modules.get('torch')
+        if torch is not None and torch.cuda.is_initialized():
+            raise RuntimeError("worker_mode 'process' forks its workers, and this process has "
+                               'started CUDA: build the loaders before anything touches CUDA')
         native.native_available()   # build / load the host library once, here.
         self._fork_key = next(_FORK_KEYS)
         _FORK_REGISTRY[self._fork_key] = self.dataset

@@ -26,6 +26,7 @@ CUDA every kNN/FPS goes through its kernel; on the CPU the same code runs the
 kernels' plain versions. 'fast' on CUDA runs the bf16 kernels or raises.
 '''
 
+import copy
 import time
 
 import numpy as np
@@ -41,6 +42,7 @@ from ..models.fused import fused_field_apply, supports_fused
 from ..models.implicit import LocalImplicitField
 from ..ops import blind_points_numpy
 from ..ops.knn import nn1_direct
+from ..parallel import local_devices
 from ..utils.misc import multi_track_merge
 
 __all__ = ['load_models', 'squash_eval', 'InferenceEngine', 'resolve_precision',
@@ -142,19 +144,24 @@ def resolve_precision(decoder, precision='auto', fused_decode=None):
 
 class InferenceEngine:
     '''Encode/decode closures over loaded networks; reuse across frames and
-    track reruns. precision / fused_decode: the module docstring.'''
+    track reruns. precision / fused_decode: the module docstring.
+
+    Query sharding (the JAX engine's mesh over query_parallel devices):
+    query_parallel n decodes on parallel.local_devices(n) of the networks'
+    device type (-1: every card; on the CPU, n replicas), or on `devices`
+    where given (e.g. ['cuda:0', 'cuda:0']). The networks' device comes
+    first; every other entry gets a replica of the decoder. The chunk is
+    rounded down to a multiple of the device count (at least one query
+    each), and each chunk's queries are split in contiguous slices, one a
+    device, launched device after device (so that cards overlap), the
+    outputs joined on the first device in query order. Every kernel wrapper
+    launches on its tensors' device. The encoder runs once, on the first
+    device; its abstract cloud and global feature are copied to the
+    others.'''
 
     def __init__(self, loaded, color_mode, predict_segmentation, semantic_classes,
                  track_mode='none', implicit_batch_size=65536, precision='auto',
-                 fused_decode=None, query_parallel=-1):
-        # The engine runs on one device: query_parallel -1 (all devices) and
-        # 1 mean that; sharding the queries over several is not ported
-        # (ROADMAP.md, Queue 1 item 6).
-        if query_parallel not in (-1, 1):
-            raise NotImplementedError(
-                f'query_parallel={query_parallel}: the port evaluates on one device '
-                '(-1 or 1); query-sharded eval is not ported (ROADMAP.md, Queue 1 '
-                'item 6)')
+                 fused_decode=None, query_parallel=-1, devices=None):
         self.encoder = loaded['encoder']
         self.decoder = loaded['decoder']
         self.precision = resolve_precision(self.decoder, precision, fused_decode)
@@ -163,7 +170,13 @@ class InferenceEngine:
         self.predict_segmentation = predict_segmentation
         self.semantic_classes = semantic_classes
         self.track_mode = track_mode
-        self.chunk = int(implicit_batch_size)
+        if devices is None:
+            devices = local_devices(query_parallel, self.device.type)
+        self.devices = [self.device] + [torch.device(d) for d in devices[1:]]
+        self.decoders = [self.decoder] + [copy.deepcopy(self.decoder).to(d)
+                                          for d in self.devices[1:]]
+        n_dev = len(self.devices)
+        self.chunk = max(int(implicit_batch_size) // n_dev, 1) * n_dev
 
     @torch.no_grad()
     def encode(self, pcl_input):
@@ -174,14 +187,15 @@ class InferenceEngine:
         return self.encoder(x)
 
     @torch.no_grad()
-    def _decode(self, q, abstract, fg):
+    def _decode(self, q, abstract, fg, decoder=None):
         # Configurations outside the fused path have no decoder kernel in the
         # JAX package either; they run the module path there and here.
-        if supports_fused(self.decoder):
+        decoder = self.decoder if decoder is None else decoder
+        if supports_fused(decoder):
             dtype = torch.bfloat16 if self.precision == 'fast' else torch.float32
-            out, _ = fused_field_apply(self.decoder, q, abstract, fg, compute_dtype=dtype)
+            out, _ = fused_field_apply(decoder, q, abstract, fg, compute_dtype=dtype)
         else:
-            out, _ = self.decoder(q, abstract, fg)
+            out, _ = decoder(q, abstract, fg)
         return squash_eval(out, self.color_mode, self.predict_segmentation,
                            self.semantic_classes, self.track_mode)
 
@@ -194,8 +208,20 @@ class InferenceEngine:
         :return (P, C) squashed outputs.
         '''
         q = _to_device(points_query, self.device)
-        out = torch.cat([self._decode(q[None, c0:c0 + self.chunk], abstract, fg)[0]
-                         for c0 in range(0, q.shape[0], self.chunk)], 0)
+        # Each device's copy of the encoding (the first device's are the
+        # inputs themselves); with one device a chunk is one slice.
+        enc = [(abstract, fg)] + [(abstract.to(d), fg.to(d)) for d in self.devices[1:]]
+        part = self.chunk // len(self.devices)
+        outs = []
+        for c0 in range(0, q.shape[0], self.chunk):
+            for i, (dev, dec) in enumerate(zip(self.devices, self.decoders)):
+                lo = c0 + i * part
+                hi = min(lo + part, c0 + self.chunk, q.shape[0])
+                if lo >= hi:     # the tail chunk's empty slices.
+                    break
+                qs = q[None, lo:hi].to(dev, non_blocking=True)
+                outs.append(self._decode(qs, *enc[i], decoder=dec)[0])
+        out = torch.cat([o.to(self.device) for o in outs], 0)
         return out.cpu().numpy() if fetch else out
 
 

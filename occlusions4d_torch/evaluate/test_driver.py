@@ -329,10 +329,13 @@ def run_test(args: TestConfig, engine, data_kind, loader, logger):
     return None
 
 
-def main(args: TestConfig, logger=None, device='cuda'):
+def main(args: TestConfig, logger=None, device='cuda', devices=None):
     '''CLI entry: load the checkpoint on `device` ('cuda' raises without a
     card; the tests pass 'cpu'), build the test loader and the engine, run
-    the loop. :return run_test's summary (metrics.json) or None.'''
+    the loop. The engine shards each decode chunk's queries over the devices
+    of args.query_parallel (InferenceEngine), or over `devices` where given
+    (e.g. ['cuda:0', 'cuda:0']); the loop, the loader and the metrics stay
+    in this process. :return run_test's summary (metrics.json) or None.'''
     dev = resolve_device(device)
     # Logger roots at the run's log dir; artifacts go to its test_<tag> subfolder
     # via run_test's folder= argument.
@@ -364,9 +367,9 @@ def main(args: TestConfig, logger=None, device='cuda'):
         semantic_classes=args.semantic_classes, track_mode=args.track_mode,
         implicit_batch_size=args.implicit_batch_size,
         query_parallel=args.query_parallel,
-        precision=args.eval_precision)
+        precision=args.eval_precision, devices=devices)
     logger.info(f'Eval precision: {engine.precision} (--eval_precision '
-                f'{args.eval_precision}), device {dev}')
+                f'{args.eval_precision}), devices {[str(d) for d in engine.devices]}')
 
     logger.use_wandb = logger.use_wandb or args.use_wandb
     logger.init_wandb('occlusions-4d_test', args)

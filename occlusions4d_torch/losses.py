@@ -19,6 +19,7 @@ import torch
 from torch.nn import functional as F
 
 from .models.factory import track_idx
+from .parallel import all_reduce_sum
 from .utils.colors import color_bin_targets, hue_bin_targets
 
 __all__ = ['LossConfig', 'per_slice_losses', 'per_example_losses', 'total_loss']
@@ -105,18 +106,24 @@ def per_slice_losses(output, target, cfg: LossConfig):
         track=_track_loss(output, target, cfg) if cfg.tracking_lw > 0 else z)
 
 
-def per_example_losses(output, target, cfg: LossConfig, frame_weight=None):
+def per_example_losses(output, target, cfg: LossConfig, frame_weight=None, group=None):
     '''
     :param output (B, T, N, C), target (B, T, N, 6).
     :param frame_weight (B, T) bool/float or None: per-(example, frame)
         validity; a degenerate frame gets weight 0.
-    :return dict of scalar losses, the (weighted) mean over the slices.
+    :param group: a data-parallel group (parallel.Group) whose ranks hold
+        the other rows of the global batch, or None.
+    :return dict of scalar losses, the (weighted) mean over the slices. With
+        a group and a frame_weight, each rank's share of the global weighted
+        mean: its weighted sum over the all-reduced weight (averaging the
+        ranks' own means would be wrong wherever their weights differ); the
+        shares sum to the global mean.
     '''
     sliced = per_slice_losses(output, target, cfg)
     if frame_weight is None:
         return {k: v.mean() for k, v in sliced.items()}
     w = frame_weight.to(output.dtype)
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = torch.clamp(all_reduce_sum(w.sum(), group), min=1.0)
     return {k: (v * w).sum() / denom for k, v in sliced.items()}
 
 

@@ -37,8 +37,9 @@ from torch.nn import functional as F
 from ..ops import fps_batched, gather_neighbors, knn
 from ..ops.attention import gather_rows
 from ..ops.self_attention import fused_gathered_attention
+from ..parallel import AllReduceSum, host_sum
 
-__all__ = ['Dense', 'NormLayer', 'take_batch_stats', 'commit_batch_stats',
+__all__ = ['Dense', 'NormLayer', 'set_norm_group', 'take_batch_stats', 'commit_batch_stats',
            'VectorAttention', 'PointTransformerBlock', 'DownTransition']
 
 
@@ -112,6 +113,7 @@ class NormLayer(nn.Module):
         self.dim = dim
         self.dtype = dtype
         self.pending = None
+        self.group = None      # set_norm_group: batch statistics over a group.
         if norm_type != 'none':
             self.weight = nn.Parameter(torch.ones(dim))
             self.bias = nn.Parameter(torch.zeros(dim))
@@ -130,8 +132,15 @@ class NormLayer(nn.Module):
                                 eps=1e-5).to(self.dtype)
         if self.training:
             rows = x32.reshape(-1, self.dim)
-            scale = float(np.float32(1.0 / rows.shape[0]))
             s, s2 = _xla_row_sum(rows), _xla_row_sum(rows * rows)
+            n_rows = rows.shape[0]
+            if self.group is not None:
+                # The global batch's statistics, as flax's BatchNorm under a
+                # sharded jit takes them: each rank's sums added over the
+                # group, with a backward that adds their gradients too.
+                s, s2 = AllReduceSum.apply(torch.stack([s, s2])).unbind(0)
+                n_rows = host_sum(n_rows, self.group)
+            scale = float(np.float32(1.0 / n_rows))
             mean = s * scale
             mean_sq = mean * mean
             # Where it normalises, XLA computes E[x^2] - E[x]^2 as
@@ -151,6 +160,15 @@ class NormLayer(nn.Module):
         inv = torch.rsqrt(var + 1e-3)
         y = (x32 - mean) * (inv * self.weight) + self.bias
         return y.to(self.dtype)
+
+
+def set_norm_group(module, group):
+    '''Make every batch-norm layer of `module` take its train-mode statistics
+    over a data-parallel group (parallel.Group: each rank's rows summed over
+    the ranks), or over its own rows again with None.'''
+    for m in module.modules():
+        if isinstance(m, NormLayer):
+            m.group = group
 
 
 def take_batch_stats(module):

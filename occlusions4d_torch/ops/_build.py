@@ -98,19 +98,25 @@ def build_all(names=None, verbose=False):
     procs = {}
     t0 = time.time()
     for n, (src, out) in todo.items():
+        # A temporary of this process's own: processes that build the same
+        # library at once (data-parallel ranks on a fresh tree) each write
+        # theirs and move it into place whole.
+        tmp = f'{out}.{os.getpid()}.{threading.get_ident()}.tmp'
         cmd = [nvcc] + _BASE_FLAGS + SOURCES[n] + (['-Xptxas', '-v'] if verbose else []) \
-            + ['-o', out + '.tmp', src]
+            + ['-o', tmp, src]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), out)
+                                     stderr=subprocess.STDOUT, text=True), out, tmp)
     secs, failed = {}, []
-    for n, (p, out) in procs.items():
+    for n, (p, out, tmp) in procs.items():
         log, _ = p.communicate()
         secs[n] = time.time() - t0
         if p.returncode != 0:
             failed.append(f'--- nvcc {n}.cu (rc {p.returncode}) ---\n{log}')
+            if os.path.exists(tmp):
+                os.remove(tmp)
             continue
         BUILD_LOGS[n] = log
-        os.replace(out + '.tmp', out)
+        os.replace(tmp, out)
     if failed:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
     return secs

@@ -19,6 +19,13 @@ the batch's statistics, as the JAX pipeline's encoder.apply(..., train=True)
 does. The running statistics' update each forward computes is taken into
 aux['batch_stats'] (models/layers.py::take_batch_stats); only the train
 step commits it (train.py), after the optimizer step.
+
+Data parallel (group, a parallel.Group): each rank runs its rows of the
+global batch. Its losses are its shares of the global weighted means
+(losses.py), which its backward differentiates; aux['global_losses'] holds
+the global means, and sample_ok, sample_ok_frac, solid_sbs and air_sbs are
+the global batch's, all from one all-reduce. Batch norm takes the group's
+statistics (models/layers.py::set_norm_group, which the Trainer calls).
 '''
 
 import dataclasses
@@ -28,6 +35,7 @@ import torch
 from .losses import LossConfig, per_example_losses, total_loss
 from .models.fused import fused_field_apply, supports_fused
 from .models.layers import take_batch_stats
+from .parallel import all_reduce_sum
 from .sampler import GuidedPointSampler, SamplerConfig
 
 __all__ = ['PipelineConfig', 'TrainPipeline', 'resolve_decoder_dtype', 'squash_colors']
@@ -92,10 +100,13 @@ class TrainPipeline:
     state). Construct once; call loss() inside the train step.
     fused_decoder_dtype ('auto' | 'bf16' | 'f32'): the fused decoder's
     compute dtype (resolve_decoder_dtype); the module path, taken when the
-    configuration is not covered, computes in the decoder's dtype.'''
+    configuration is not covered, computes in the decoder's dtype. group:
+    the data-parallel group whose ranks hold the rest of the batch, or None
+    (the module docstring).'''
 
     def __init__(self, encoder, decoder, sampler_cfg: SamplerConfig,
-                 cfg: PipelineConfig, fused_decoder_dtype='auto'):
+                 cfg: PipelineConfig, fused_decoder_dtype='auto', group=None):
+        self.group = group
         self.encoder = encoder
         self.decoder = decoder
         self.sampler = GuidedPointSampler(sampler_cfg)
@@ -153,13 +164,31 @@ class TrainPipeline:
             for f in frames], 1)                                # (B, T, S + A, C).
         target = torch.stack([f['implicit_target'] for f in frames], 1)
         ok_bt = torch.stack([f['ok'] for f in frames], 1)       # (B, T).
-        losses = per_example_losses(output, target, cfg.loss_config, frame_weight=ok_bt)
+        losses = per_example_losses(output, target, cfg.loss_config, frame_weight=ok_bt,
+                                    group=self.group)
+        solid_sbs = torch.stack([f['solid_sbs'] for f in frames], 1)
+        air_sbs = torch.stack([f['air_sbs'] for f in frames], 1)
         aux = dict(abstract=abstract, features_global=features_global,
                    points_query=torch.stack([f['points_query'] for f in frames], 1),
-                   implicit_output=output, implicit_target=target,
-                   solid_sbs=torch.stack([f['solid_sbs'] for f in frames], 1).mean((0, 1)),
-                   air_sbs=torch.stack([f['air_sbs'] for f in frames], 1).mean((0, 1)),
-                   sample_ok=ok_bt.all(), sample_ok_frac=ok_bt.to(torch.float32).mean())
+                   implicit_output=output, implicit_target=target)
+        if self.group is None:
+            aux.update(solid_sbs=solid_sbs.mean((0, 1)), air_sbs=air_sbs.mean((0, 1)),
+                       sample_ok=ok_bt.all(), sample_ok_frac=ok_bt.to(torch.float32).mean())
+            return losses, aux
+        # The global batch's means, from one all-reduce of the sums and counts.
+        names = list(losses)
+        ok = ok_bt.to(torch.float32)
+        n_s, n_a = solid_sbs.shape[-1], air_sbs.shape[-1]
+        packed = all_reduce_sum(torch.cat([
+            torch.stack([losses[k].detach().to(torch.float32) for k in names]),
+            torch.stack([ok.sum(), torch.full_like(ok.sum(), ok.numel())]),
+            solid_sbs.sum((0, 1)), air_sbs.sum((0, 1))]), self.group)
+        n_l = len(names)
+        n_ok, n_bt = packed[n_l], packed[n_l + 1]
+        aux.update(global_losses=dict(zip(names, packed[:n_l].unbind(0))),
+                   solid_sbs=packed[n_l + 2:n_l + 2 + n_s] / n_bt,
+                   air_sbs=packed[n_l + 2 + n_s:n_l + 2 + n_s + n_a] / n_bt,
+                   sample_ok=n_ok == n_bt, sample_ok_frac=n_ok / n_bt)
         return losses, aux
 
     def forward(self, batch, generator, mark=None, return_intermediate=False):
@@ -195,7 +224,8 @@ class TrainPipeline:
 
     def loss(self, batch, generator, mark=None):
         '''Scalar objective plus (losses, aux). `mark` as in forward, and
-        called with 'decoder_forward' once the losses have been enqueued.'''
+        called with 'decoder_forward' once the losses have been enqueued.
+        With a group the objective is this rank's share of the global one.'''
         losses, aux = self.forward(batch, generator, mark)
         loss = total_loss(losses, self.cfg.loss_config)
         if mark is not None:

@@ -54,20 +54,22 @@ that decoder.
     python -m occlusions4d_torch.train [flags of config.TrainConfig]
 '''
 
+import logging
 import os
 import time
 
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import parallel, resolve_device
 from .checkpoint import (adam_state, from_jax_params, jax_moments_to_torch,
                          load_checkpoint, load_reference_checkpoint,
                          resolve_checkpoint_file, save_checkpoint, to_jax_params)
 from .config import TrainConfig, train_args
 from .losses import total_loss
 from .models.factory import build_models, build_sampler_args
-from .models.layers import commit_batch_stats
+from .models.layers import commit_batch_stats, set_norm_group
+from .parallel import all_reduce_flat
 from .pipeline import PipelineConfig, TrainPipeline, resolve_decoder_dtype
 from .sampler import SamplerConfig
 from .utils.logvis import StepLogger
@@ -140,6 +142,14 @@ def build_optimizer(cfg, steps_per_epoch, params):
                  eps=1e-4 if cfg.mixed_precision else 1e-8)
 
 
+def _logged_losses(loss, losses, aux, cfg):
+    '''(total, {name: loss}) to report: the global batch's under data
+    parallelism (pipeline.py), else the step's own.'''
+    if 'global_losses' in aux:
+        return total_loss(aux['global_losses'], cfg), aux['global_losses']
+    return loss.detach(), {k: v.detach() for k, v in losses.items()}
+
+
 def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
     '''
     :return step(batch, generator, mark=None) -> metrics: forward and
@@ -147,13 +157,19 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
         a non-finite gradient. `mark` is an optional phase-timing callback,
         called with the name of each phase as its work has been enqueued:
         'encoder', 'sampler', 'decoder_forward', 'decoder_backward',
-        'encoder_backward', 'optimizer'. Metrics (device tensors, the JAX
-        package's names): total_loss, grad_norm, grads_finite, params_finite
-        (the parameters and the batch-norm statistics), sample_ok,
-        sample_ok_frac, solid_sbs, air_sbs, loss_dens, loss_rgb, loss_segm,
-        loss_track.
+        'encoder_backward', ('gradient_all_reduce',) 'optimizer'. Metrics
+        (device tensors, the JAX package's names): total_loss, grad_norm,
+        grads_finite, params_finite (the parameters and the batch-norm
+        statistics), sample_ok, sample_ok_frac, solid_sbs, air_sbs,
+        loss_dens, loss_rgb, loss_segm, loss_track.
+    Under the pipeline's data-parallel group, each rank's gradients of its
+    share of the loss are summed over the group in one all-reduce of their
+    concatenation ('gradient_all_reduce'), before the norm, the clip and the
+    skip, so every rank takes the same update; the metrics are the global
+    batch's.
     '''
     params = optimizer.params
+    group = pipeline.group
 
     def step(batch, generator, mark=None):
         loss, (losses, aux) = pipeline.loss(batch, generator, mark)
@@ -161,6 +177,10 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
         if mark is not None:
             mark('encoder_backward')
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if group is not None:
+            grads = all_reduce_flat(grads, group)
+            if mark is not None:
+                mark('gradient_all_reduce')
         with torch.no_grad():
             grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
@@ -172,11 +192,12 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
                                          for p in params + stats]).all()
         if mark is not None:
             mark('optimizer')
-        metrics = dict(total_loss=loss.detach(), grad_norm=grad_norm,
+        total, logged = _logged_losses(loss, losses, aux, pipeline.cfg.loss_config)
+        metrics = dict(total_loss=total, grad_norm=grad_norm,
                        grads_finite=grads_finite, params_finite=params_finite,
                        sample_ok=aux['sample_ok'], sample_ok_frac=aux['sample_ok_frac'],
                        solid_sbs=aux['solid_sbs'], air_sbs=aux['air_sbs'],
-                       **{f'loss_{k}': v.detach() for k, v in losses.items()})
+                       **{f'loss_{k}': v for k, v in logged.items()})
         return metrics
 
     return step
@@ -185,15 +206,17 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
 def make_eval_step(pipeline: TrainPipeline):
     '''
     :return step(batch, generator) -> metrics: the pipeline's losses without
-        a gradient (total_loss, sample_ok, loss_*; device tensors).
+        a gradient (total_loss, sample_ok, loss_*; device tensors; the global
+        batch's under a data-parallel group).
     '''
 
     def step(batch, generator):
         with torch.no_grad():
             losses, aux = pipeline.forward(batch, generator)
-            loss = total_loss(losses, pipeline.cfg.loss_config)
-        return dict(total_loss=loss, sample_ok=aux['sample_ok'],
-                    **{f'loss_{k}': v for k, v in losses.items()})
+            total, logged = _logged_losses(total_loss(losses, pipeline.cfg.loss_config),
+                                           losses, aux, pipeline.cfg.loss_config)
+        return dict(total_loss=total, sample_ok=aux['sample_ok'],
+                    **{f'loss_{k}': v for k, v in logged.items()})
 
     return step
 
@@ -239,13 +262,29 @@ class Trainer:
     forwarded to build_models as the JAX Trainer forwards it; 'on' trains
     through the fused self-attention kernels. cfg.fused_decoder_dtype is the
     fused decoder's compute dtype (TrainPipeline); cfg.mixed_precision
-    builds the networks in bf16 (self.dtype) and sets AdamW's eps to 1e-4.'''
+    builds the networks in bf16 (self.dtype) and sets AdamW's eps to 1e-4.
+
+    group (a parallel.Group, None for one process) makes this Trainer one
+    rank of a data-parallel run on the group's device: its steps take its
+    rows of each global batch (run_epoch receives them from rank 0, which
+    alone reads `data_iter`), its losses, batch statistics and gradients are
+    the group's (pipeline.py, train step), its generators are seeded per
+    rank (parallel.rank_seed; rank 0 draws what one process draws), and
+    only rank 0 writes checkpoints, logs and exports.'''
 
     def __init__(self, cfg, data_kind='greater', device=None, fused_attention=None,
-                 logger=None):
+                 logger=None, group=None):
         resolve_decoder_dtype(cfg.fused_decoder_dtype)
         self.cfg = cfg
         self.data_kind = data_kind
+        self.group = group
+        if group is not None:
+            device = group.device
+            if cfg.batch_size % group.size:
+                raise ValueError(f'batch_size={cfg.batch_size} is not divisible by the '
+                                 f'{group.size} data-parallel ranks')
+            if device.type == 'cuda':     # the rank's card, for its collectives too.
+                torch.cuda.set_device(device)
         self.device = resolve_device(cfg.device if device is None else device)
         self.fused_attention = fused_attention
         self.logger = logger or StepLogger(context='train', batch_size=cfg.batch_size)
@@ -292,15 +331,20 @@ class Trainer:
                                          strict=True)
         self.encoder = self.encoder.to(self.device).train()
         self.decoder = self.decoder.to(self.device).train()
+        if self.group is not None:   # every rank starts from rank 0's state.
+            parallel.broadcast_flat(list(self.encoder.state_dict().values())
+                                    + list(self.decoder.state_dict().values()), self.group)
+            set_norm_group(self.encoder, self.group)
         self.pipeline = TrainPipeline(self.encoder, self.decoder,
                                       SamplerConfig(**self.sampler_args), self.pipeline_cfg,
-                                      self.cfg.fused_decoder_dtype)
+                                      self.cfg.fused_decoder_dtype, group=self.group)
         self._nets = dict(encoder=self.encoder, decoder=self.decoder)
         self._param_names = [(net, n) for net, m in self._nets.items()
                              for n, _ in m.named_parameters()]
         named = list(self.encoder.parameters()) + list(self.decoder.parameters())
         self.optimizer = build_optimizer(self.cfg, steps_per_epoch, named)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            parallel.rank_seed(seed, self.group))
         self.step_count = 0
         self._step = make_train_step(self.pipeline, self.optimizer)
         self._eval_step = make_eval_step(self.pipeline)
@@ -359,15 +403,24 @@ class Trainer:
         self.start_epoch = int(ck['epoch']) + 1
         return self
 
+    @property
+    def is_main(self):
+        '''Whether this Trainer writes (one process, or rank 0).'''
+        return self.group is None or self.group.is_main
+
     def save(self, epoch):
         '''model_{epoch}.pkl and the rolling checkpoint.pkl under
-        cfg.output_path, with the JAX Trainer's meta.'''
+        cfg.output_path, with the JAX Trainer's meta; written by rank 0 alone,
+        every rank waiting until it is (the same file a one-process run
+        writes: the ranks' states are equal).'''
         if not self.cfg.output_path:
             return
-        meta = dict(config=dict(vars(self.cfg)), encoder_args=self.encoder_args,
-                    decoder_args=self.decoder_args, sampler_args=self.sampler_args,
-                    data_kind=self.data_kind)
-        save_checkpoint(self.cfg.output_path, epoch, self.state(), meta=meta)
+        if self.is_main:
+            meta = dict(config=dict(vars(self.cfg)), encoder_args=self.encoder_args,
+                        decoder_args=self.decoder_args, sampler_args=self.sampler_args,
+                        data_kind=self.data_kind)
+            save_checkpoint(self.cfg.output_path, epoch, self.state(), meta=meta)
+        parallel.barrier(self.group)
 
     # ------------------------------------------------------------------- steps --
 
@@ -384,13 +437,21 @@ class Trainer:
 
     def run_epoch(self, epoch, stage, data_iter, num_steps=None):
         '''One epoch of `stage` ('train', or 'val' / 'val_aug': the losses
-        without a step) over an iterable of batch dicts.
+        without a step) over an iterable of batch dicts (of global batches,
+        read by rank 0 alone, under a group: the other ranks pass None).
+        Under a group the ranks agree, step by step, on a host-side data
+        error (all skip the step), and all run the viz forward that rank 0's
+        logger asks for.
         :return the metrics of the logged steps (numpy).'''
         assert stage in ('train', 'val', 'val_aug')
         is_train = stage == 'train'
-        gen = torch.Generator(self.device).manual_seed(
-            self.cfg.seed * 1000 + epoch * 10 + (0 if is_train else 1))
+        group = self.group
+        gen = torch.Generator(self.device).manual_seed(parallel.rank_seed(
+            self.cfg.seed * 1000 + epoch * 10 + (0 if is_train else 1), group))
         self.generator = gen
+        log_dir = parallel.broadcast_object(self.logger.log_dir, group)
+        if group is not None:
+            data_iter = parallel.rank_batches(data_iter, group)
         num_exceptions = 0
         metrics_hist = []
         timer = PhaseTimer()
@@ -420,12 +481,22 @@ class Trainer:
                 batch = next(data_iter, None)
             if batch is None:
                 break
+            agreed = False
             try:
+                if isinstance(batch, Exception):   # a batch rank 0 could not shard.
+                    raise batch
                 meta_list = batch.get('meta_data')
                 host_images = {k: batch[k] for k in ('rgb', 'depth') if k in batch}
                 with timer.phase('h2d'):
                     batch = _to_device(batch, self.device)
+                # Every rank runs the step, or none: a skip on one rank alone
+                # would leave the others waiting in the step's collectives.
+                agreed = True
+                if not parallel.all_true(True, group):
+                    raise RuntimeError('a host-side data error on another rank')
             except Exception as e:  # host-side data failure tolerance.
+                if not agreed:
+                    parallel.all_true(False, group)
                 num_exceptions += 1
                 if num_exceptions >= 12:
                     raise
@@ -435,7 +506,7 @@ class Trainer:
                 check_guard()
                 continue
 
-            viz_due = (is_train and self.logger.log_dir is not None
+            viz_due = (is_train and log_dir is not None
                        and cur_step % max(self.cfg.viz_interval, 1) == 0)
             if viz_due:  # the step's draws, on a copy that leaves `gen` as it is.
                 viz_gen = torch.Generator(self.device)
@@ -486,8 +557,13 @@ class Trainer:
         '''npy point-cloud exports of input / abstract / target / implicit
         output / per-layer coordinates, per-channel output histograms, the
         dataset's filtering-ratio histograms, and early-epoch RGB-D galleries
-        when images were loaded (the JAX Trainer's, but for save_video).'''
+        when images were loaded (the JAX Trainer's, but for save_video).
+        Under a group every rank runs the forward (its statistics are the
+        group's) and rank 0 exports its rows' (example 0 is the global
+        batch's first).'''
         raw = self._viz_step(dev_batch, generator)
+        if not self.is_main:
+            return
         viz = {k: _numpy(v) for k, v in raw.items() if k != 'layer_coords'}
         out_pcl = np.concatenate([viz['points_query'][0], viz['implicit_output'][0]],
                                  axis=-1)                      # (T, N, 4 + C).
@@ -541,31 +617,74 @@ class Trainer:
             self.logger.epoch_finished(epoch)
 
 
-def main(cfg: TrainConfig, logger=None):
+def main(cfg: TrainConfig, logger=None, devices=None):
     '''The command line's entry: loaders, Trainer (fresh, or resumed from
     cfg.resume), the epochs. Trains on cfg.device ('cuda' raises without a
-    card). :return the Trainer.'''
+    card) over the devices of cfg.data_parallel (parallel.
+    resolve_data_parallel: -1 is the largest divisor of the batch that the
+    host's cards hold), or over `devices` where given (a list such as
+    ['cuda:0', 'cuda:0']: two ranks on one card). Under torchrun this
+    process is the rank its environment names, on cuda:LOCAL_RANK (or the
+    CPU with --device cpu). More than one device spawns a rank each
+    (parallel.spawn, the kernels built first), rank 0 reading the data.
+    :return the Trainer; None where ranks were spawned.'''
+    env = parallel.torchrun_env()
+    if env is not None:
+        rank, size, local = env
+        cpu = torch.device(cfg.device).type == 'cpu'
+        group = parallel.init_group(rank, size, 'cpu' if cpu else f'cuda:{local}',
+                                    'gloo' if cpu else 'nccl')
+        try:
+            return _run(group, cfg, logger)
+        finally:
+            parallel.destroy_group()
+    if devices is None:
+        devices = parallel.resolve_data_parallel(cfg.data_parallel, cfg.batch_size,
+                                                 cfg.device)
+    if len(devices) == 1:
+        return _run(None, cfg, logger)
+    if any(torch.device(d).type == 'cuda' for d in devices):
+        from .ops import _build
+        _build.build_all()            # once, before the ranks would race to.
+    run_dir = cfg.output_path or os.path.join(cfg.log_root, cfg.tag or cfg.name or 'run')
+    parallel.spawn(_run, devices, args=(cfg,), run_dir=run_dir)
+    return None
+
+
+def _run(group, cfg, logger=None):
+    '''One process's training run: all of it, or rank group.rank's.'''
     from .data import create_train_val_loaders
-    logger = logger or StepLogger(
-        log_dir=os.path.join(cfg.log_root, cfg.tag or cfg.name or 'run'),
-        context='train', batch_size=cfg.batch_size)
+    main_rank = group is None or group.is_main
+    if logger is None:
+        logger = StepLogger(
+            log_dir=os.path.join(cfg.log_root, cfg.tag or cfg.name or 'run') if main_rank
+            else None, context='train' if main_rank else f'train_rank{group.rank}',
+            batch_size=cfg.batch_size)
+        if not main_rank:   # rank 0 reports; the others only warn.
+            logger.logger.setLevel(logging.WARNING)
     logger.info(f'Args: {cfg}')
-    logger.save_args(cfg)
+    if main_rank:
+        logger.save_args(cfg)
     np.random.seed(cfg.seed)
 
-    # Before anything touches CUDA: --worker_mode process forks the loaders'
-    # workers here.
-    data_kind, train_loader, val_loader, _ = create_train_val_loaders(cfg, logger)
+    # Before anything touches CUDA (init_group leaves it alone; the Trainer
+    # selects the card): --worker_mode process forks the loaders' workers
+    # here. Rank 0 alone reads the data.
+    train_loader = val_loader = None
+    if main_rank:
+        data_kind, train_loader, val_loader, _ = create_train_val_loaders(cfg, logger)
+        info = (data_kind, train_loader.steps_per_epoch, val_loader is not None)
+    info = parallel.broadcast_object(info if main_rank else None, group)
+    data_kind, steps_per_epoch, has_val = info
     logger.info(f'data_kind: {data_kind}  output: {cfg.output_path}')
-    trainer = Trainer(cfg, data_kind, logger=logger)
-    steps_per_epoch = train_loader.steps_per_epoch
+    trainer = Trainer(cfg, data_kind, logger=logger, group=group)
     if cfg.resume:
         trainer.resume(cfg.resume, steps_per_epoch)
         logger.info(f'Resumed from {cfg.resume} at epoch {trainer.start_epoch}')
     else:
         trainer.init_state(steps_per_epoch=steps_per_epoch)
-    trainer.fit(lambda e: train_loader.epoch(e),
-                (lambda e: val_loader.epoch(e)) if val_loader else None,
+    trainer.fit(lambda e: train_loader.epoch(e) if main_rank else None,
+                (lambda e: val_loader.epoch(e) if main_rank else None) if has_val else None,
                 steps_per_epoch=steps_per_epoch)
     return trainer
 

@@ -7,8 +7,9 @@ held against the JAX package's on the CPU, at tiny widths:
       command lines, every field, the tag and the output path equal (device
       aside: 'cuda' here, 'tpu' there), --resume v6 resolved alike; each
       flag the port does not implement yet raises NotImplementedError naming
-      its ROADMAP item, and --pt_norm_type batch, --worker_mode process and
-      a .pth --resume parse as in the JAX package;
+      its ROADMAP item, and --pt_norm_type batch, --worker_mode process, a
+      .pth --resume, --data_parallel 2 and --query_parallel 2 parse as in
+      the JAX package;
   (2) the train and val loaders against the JAX loaders on synthetic GREATER
       and CARLA data, 2 epochs, 0 and 2 workers, tracking on: the same
       steps_per_epoch and every batch equal bit for bit;
@@ -148,7 +149,7 @@ def test_train_args_match_jax(name, tmp_path):
 
 
 @pytest.mark.parametrize('flag,value,item', [
-    ('data_parallel', '2', 6), ('query_parallel', '2', 6), ('check_numerics', 'true', 7),
+    ('check_numerics', 'true', 7),
     ('watch_networks', 'true', 7), ('use_wandb', 'true', 7), ('profile_steps', '3', 7),
     ('fused_decoder', 'off', 7), ('checkpoint_format', 'orbax', 5)])
 def test_train_args_refuse_unported_flags(flag, value, item, tmp_path):
@@ -164,11 +165,14 @@ def test_train_args_refuse_unported_flags(flag, value, item, tmp_path):
 
 
 @pytest.mark.parametrize('flag,value', [
-    ('pt_norm_type', 'batch'), ('worker_mode', 'process'), ('resume', 'weights.pth')])
+    ('pt_norm_type', 'batch'), ('worker_mode', 'process'), ('resume', 'weights.pth'),
+    ('data_parallel', '2'), ('query_parallel', '2')])
 def test_train_args_accept_ported_flags(flag, value, tmp_path):
     '''The flags the port took on with batch norm in training, fork loader
-    workers and the reference .pth warm start parse as in the JAX package
-    (every field equal but the device).'''
+    workers, the reference .pth warm start, data-parallel training and the
+    query-sharded eval's flag (parsed and unused on the train side, as in
+    the JAX package) parse as in the JAX package (every field equal but the
+    device).'''
     argv = _argv(_TINY) + ['--checkpoint_root', str(tmp_path)]
     if flag == 'resume':
         value = str(tmp_path / value)
@@ -176,7 +180,7 @@ def test_train_args_accept_ported_flags(flag, value, tmp_path):
     got = dataclasses.asdict(train_args(argv + [f'--{flag}', value]))
     ref = dataclasses.asdict(j_train_args(argv + [f'--{flag}', value]))
     assert got.pop('device') == 'cuda' and ref.pop('device') == 'tpu'
-    assert got == ref and got[flag] == value
+    assert got == ref and str(got[flag]) == value
 
 
 # ------------------------------------------------------------------ (2) --

@@ -129,11 +129,11 @@ each printing one JSON line:
      anchor pipelined and with --eval_overlap false in the order A B B A (the
      same per-frame values bit for bit; the walls and their ratio printed)
      and through the command line in its own process (its metrics.json the
-     same bit for bit); in 'fast' the bf16 kernels and no f32 decoder kernel launched,
-     each metric's largest delta from the committed values printed, not
-     gated; then gv1 at full width (the seeded weights of phase 4, a
+     same bit for bit); in 'fast' (the first step) the bf16 kernels and no
+     f32 decoder kernel launched, each metric's largest delta from the
+     committed values printed, not gated; then gv1 at full width (the seeded weights of phase 4, a
      synthetic GREATER scene of 128-pixel images in which every example
-     fills the 14336 input points, a quarter of the dense grid (131072
+     fills the 14336 input points, an eighth of the dense grid (65536
      queries: the host metrics' time scales with them), --save_metrics, 1
      step of 4 frames) through run_test: finite metrics, the index route's
      kernels launched. Each run prints its wall per frame, phase_split_s,
@@ -155,7 +155,9 @@ each printing one JSON line:
      viz), the step wall and the loader's share, peak memory; then the
      committed convergence recipe (tests/assets/convergence/
      trajectory.json's argv and scenes, 10 epochs of 19 steps) in f32, with
-     --fused_decoder_dtype bf16 and with --mixed_precision true: per-epoch
+     --fused_decoder_dtype bf16 and with --mixed_precision true, the three
+     at once, each in a process of its own (this script with
+     --convergence; its stderr in chiprun_out/): per-epoch
      train and val losses and learning rates printed, the LR drops at
      epochs 4, 6 and 8 and the best of the last 3 val losses below the best
      of the first 3;
@@ -165,7 +167,7 @@ each printing one JSON line:
      MultiStepLR / GradScaler state dicts); the .pkl through the eval
      driver in this process (launches counted), the .pth through python -m
      occlusions4d_torch.evaluate in its own at the same time, on the
-     synthetic gv1 scene at a quarter of the dense grid (131072 queries):
+     synthetic gv1 scene at a sixteenth of the dense grid (32768 queries):
      the per-frame metrics must be equal; then train.main warm-started from the .pth on the gv1
      recipe (3 steps): start epoch, step count (epoch + 1) x steps per
      epoch + the steps run, AdamW's fresh count, finite losses;
@@ -177,13 +179,13 @@ each printing one JSON line:
   5f. train_loader_workers: a child process (this script with
      --loader-workers) builds the gv1 recipe's loaders with thread and with
      process workers before it touches CUDA, warms the Trainer up for 2
-     steps, then times 6-step epochs fed by thread, process, process,
+     steps, then times 4-step epochs fed by thread, process, process,
      thread workers: each epoch's step wall, data share and peak memory,
      and each mode's mean;
   5g. train_data_parallel: gv1 at full width, global batch 4 as 2 ranks x 2
      rows on the one card (parallel.spawn over ['cuda:0', 'cuda:0'], gloo:
      NCCL refuses two ranks on one device), every rank on the fixed
-     supervision with FPS from point 0, 1 warm-up + 3 timed steps against
+     supervision with FPS from point 0, 1 warm-up + 2 timed steps against
      the one-process batch-4 Trainer on the card from the same weights and
      batch, run three times (logged scalars rtol 2e-5, parameter deltas
      1e-4 relative L2, or six times the one-process runs' largest
@@ -248,7 +250,7 @@ each printing one JSON line:
   10b. train_mixed: the gv1 train step with mixed_precision=True (bf16
      networks, AdamW eps 1e-4) with fused_attention 'auto' and 'on' and
      fused_decoder_dtype 'f32' and 'bf16', and the n57344 step with 'on',
-     each beside the f32 run from the same seeded state, 5 steps each (the
+     each beside the f32 run from the same seeded state, 2 steps each (the
      launch counters of the mixed steps after the first: per 'on' step
      sattn_bf16, sattn_bwd_bf16, gather_bf16, scatter_bf16 4 each and no
      f32 self-attention kernel, per 'auto' step none of them), finite
@@ -268,11 +270,41 @@ each printing one JSON line:
      gradient check against the CPU; each width's chunk also in
      precision='fast' against the same decode with the plain bf16 versions
      on the card (density 2e-3, relative L2 1e-3);
-then the card's nvidia-smi line, the {"kernels": [...]} line (each entry
+  12. profile_trace: train.main on the gv1 recipe (one epoch of 5 train
+     steps fed by the loader) with --profile_steps 2 --watch_networks true:
+     the torch.profiler trace under <log_dir>/profile covers train steps
+     1-2 (their train_step_<i> spans) and names o4d_attn, o4d_attn_bwd and
+     o4d_knn_brute; its device-busy share over the traced window beside
+     PERF.md's host-clock proxies, the top 8 device operations by time with
+     their counts and the 3 longest idle gaps; one gradient and one
+     parameter norm per parameter tensor, finite; the step wall with and
+     without the norms (A B B A, the run's Trainer on a preloaded batch);
+  13. train_module_decoder: the gv1 step (batch 3, 4 frames) with
+     --fused_decoder off and remat on: from one state and draw the loss and
+     the decoder's global gradient norm within 1e-4 relative of the fused
+     path's; 1 warm-up + 3 timed steps (no fused decoder kernel launched),
+     peak memory, a phase-split step; then the step with remat off, or its
+     out-of-memory error;
+  14. check_numerics: the gv1 step at batch 1 with --check_numerics: clean
+     train, val_aug and viz steps; a NaN pcl_input and a NaN decoder weight
+     raise naming pcl_input and decoder_output_frame0; the step's time
+     beside the batch-1 step without the flag;
+  15. store_activations: the gv1 dense grid through InferenceEngine(
+     store_activations=True) in f32 and 'fast': outputs bit-equal to the
+     engine's without the flag, (N, 416) float16 activations, finite, in
+     query order, the added time; the GREATER anchor's first step through
+     the eval driver with and without --store_activations: one float16
+     array a frame, one row a predicted-solid query, metrics.json equal;
+  16. encoder_up: the gv1 encoder with its up path (enable_decoder,
+     skip_connections, 3 UpTransitions, d_out 6) against the same encoder
+     with the kNN and FPS entries swapped for their plain versions on the
+     card: every index exact, outputs within 1e-5;
+each phase followed by a phase_seconds line; then the card's nvidia-smi
+line, the {"kernels": [...]} line (each entry
 with its launches on the eval_driver phase under "eval_driver", on the
 train_driver phase's gv1 run under "train_driver", on rank 0's timed steps
-of train_data_parallel and on eval_query_parallel's 2-replica scene under
-their names; the five
+of train_data_parallel, on eval_query_parallel's 2-replica scene and on
+phases 12-16 under their names; the five
 bf16 forward variants count their launches on main_path_fast, the four bf16
 backward ones and interp_g_bwd (the bf16 shared route's interpolation rows)
 on train_bf16, the two bf16 self-attention ones on train_mixed; fps, the FPS
@@ -282,6 +314,18 @@ and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without CUDA,
 or without the package beside this file, it exits non-zero and prints no
 result. Imports nothing of JAX.
+
+    python3 chip_smoke.py --phases name[,name...]
+
+runs the environment, build and kernel lines, then only the named phases
+(PHASES) and those they need (_PHASE_NEEDS); its {"kernels"} line lists the
+rows the run phases launched. An unknown name exits 2. Only the run
+without the flag drives every path. To keep that run within its time
+budget, train_mixed takes 2 steps a run (5 before), train_loader_workers
+4-step epochs (6), train_data_parallel 2 timed steps (3), reference_pth's
+eval 32768 queries (131072), eval_driver's gv1 run 65536 queries (131072)
+and its 'fast' anchor runs their first step (3); the convergence runs of
+train_driver share the time, one process each.
 '''
 
 import ctypes
@@ -484,6 +528,9 @@ _BF16_STEP = {
                 scatter_bf16=4, interp_g_bwd=4, interp_bf16=0, attn_bf16=0,
                 interp_bwd_bf16=0, attn_bwd_bf16=0, **{k: 0 for k in _F32_DECODER})}
 _BF16_TRAIN_STEPS = 5          # from one seeded state; the first is the warm-up.
+# train_mixed's steps a run (the first the warm-up), cut from 5 to keep the
+# whole script within its time budget.
+_MIXED_TRAIN_STEPS = 2
 _BF16_LOSS_RTOL = 3e-2         # JAX's own bf16 gate (tests/test_pallas_ops.py:141-180).
 
 
@@ -1464,7 +1511,10 @@ _GV1_EVAL_STEPS = 1
 # The eval driver's gv1 runs (phases eval_driver and reference_pth) take a
 # quarter of the dense grid: the host metrics' 1-NN, most of a frame's
 # wall, scales with the queries (a full grid took 138-171 s for 4 frames).
-_GV1_EVAL_SAMPLE = _NUM_SAMPLE // 4
+_GV1_EVAL_SAMPLE = _NUM_SAMPLE // 8        # a quarter before the time budget's cut.
+# The anchors' 'fast' runs (their deltas printed, not gated): the first
+# step, where the f32 runs take EVAL_STEPS (3 before the time budget's cut).
+_EVAL_FAST_STEPS = 1
 
 
 def quiet_logger(log_dir, context='test'):
@@ -1626,7 +1676,8 @@ def eval_driver(torch, dev, smi, path_counts):
             res, walls = {}, {}
             for run, extra in runs:
                 log = os.path.join(tmp, name, run, 'anchor')
-                argv, committed = anchor_recipe.eval_argv(kind, data, log, extra)
+                steps = _EVAL_FAST_STEPS if run == 'fast' else anchor_recipe.EVAL_STEPS
+                argv, committed = anchor_recipe.eval_argv(kind, data, log, extra, steps=steps)
                 summary, counts, wall, split = run_driver(torch, argv, log)
                 add(counts)
                 frames = len(summary['per_frame'])
@@ -1639,7 +1690,7 @@ def eval_driver(torch, dev, smi, path_counts):
                     launched = launched and all(counts.get(k, 0) == 0 for k in _FAST_F32)
                 res[run], walls[run] = summary, wall
                 emit(dict(phase='eval_driver', anchor=name, run=run, frames=frames,
-                          steps=anchor_recipe.EVAL_STEPS, scene_gen_s=gen_s, wall_s=wall,
+                          steps=steps, scene_gen_s=gen_s, wall_s=wall,
                           frame_wall_s=wall / max(frames, 1),
                           phase_split_s=split, scene_wall_s=summary['scene_wall_s'],
                           device_infer_share=split.get('device_infer', 0.0) / wall,
@@ -1647,7 +1698,7 @@ def eval_driver(torch, dev, smi, path_counts):
                           within_tolerance=within, floors_hold=fl, launches=counts,
                           launches_per_frame={k: v / max(frames, 1) for k, v in counts.items()
                                               if v}, gpu=smi))
-                if frames != anchor_recipe.EVAL_STEPS or not launched:
+                if frames != steps or not launched:
                     raise AssertionError(f'eval_driver {name} {run}: {frames} frames, '
                                          f'launches {counts}')
                 if run != 'fast' and not (within and fl):
@@ -1783,6 +1834,23 @@ def epoch_losses(tr):
                            if k in row} for row in tr.logger.scalar_history}
 
 
+def convergence_child(spec):
+    """A convergence run of phase train_driver in a process of its own
+    (python3 chip_smoke.py --convergence <json>): train.main on the card;
+    prints one JSON line: the logged losses by epoch, the learning rate at
+    each epoch's last step, the step count, the launches and the wall."""
+    import torch
+    torch.set_num_threads(2)        # three such processes share the host's cores.
+    spec = json.loads(spec)
+    tr, counts, wall, _ = driver_run(torch, spec['argv'], spec['log_root'])
+    spe = spec['steps_per_epoch']
+    lrs = [float(tr.optimizer.lr(torch.tensor((e + 1) * spe - 1, device=tr.device)))
+           for e in range(spec['num_epochs'])]
+    print(json.dumps(dict(rows=epoch_losses(tr), lrs=lrs, step_count=tr.step_count,
+                          launches=counts, wall_s=wall)), flush=True)
+    return 0
+
+
 def train_driver(torch, dev, smi, path_counts):
     """Phase train_driver: (a) the gv1 recipe through train.main for 2 epochs
     of train + val_aug, its checkpoints, a resume from model_0 re-running
@@ -1879,14 +1947,42 @@ def train_driver(torch, dev, smi, path_counts):
         synthetic.make_greater_dataset(conv, **dict(art['gen'],
                                                     stages=tuple(art['gen']['stages'])))
         spe = art['steps_per_epoch']
+        # The three runs at once, a child process each (python3 chip_smoke.py
+        # --convergence): their tiny steps are host-bound, and the host has
+        # the cores.
+        procs = {}
+        try:
+            t0 = time.time()
+            for name, extra in _TD_CONV_MODES:
+                argv = list(art['argv']) + list(extra) + [
+                    '--data_path', conv, '--name', f'conv_{name}',
+                    '--checkpoint_root', os.path.join(tmp, 'ck_conv')]
+                spec = json.dumps(dict(argv=argv, log_root=os.path.join(tmp, 'logs', name),
+                                       steps_per_epoch=spe, num_epochs=art['num_epochs']))
+                out_fp = os.path.join(tmp, f'conv_{name}.out')
+                err_fp = os.path.join(_HERE, 'chiprun_out', f'train_driver_conv_{name}.log')
+                with open(out_fp, 'w') as fo, open(err_fp, 'w') as fe:
+                    procs[name] = (subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), '--convergence', spec],
+                        cwd=_HERE, stdout=fo, stderr=fe, text=True), out_fp, err_fp)
+            for p, _, _ in procs.values():
+                p.wait(timeout=900)
+            conv_wall = time.time() - t0
+        finally:
+            for p, _, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         for name, extra in _TD_CONV_MODES:
-            argv = list(art['argv']) + list(extra) + [
-                '--data_path', conv, '--name', f'conv_{name}',
-                '--checkpoint_root', os.path.join(tmp, 'ck_conv')]
-            tr, counts, wall, epochs = driver_run(torch, argv, os.path.join(tmp, 'logs'))
-            rows = epoch_losses(tr)
-            lrs = [float(tr.optimizer.lr(torch.tensor((e + 1) * spe - 1, device=dev)))
-                   for e in range(art['num_epochs'])]
+            p, out_fp, err_fp = procs[name]
+            with open(out_fp) as f:
+                lines = [ln for ln in f.read().splitlines() if ln.startswith('{')]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f'train_driver convergence {name}: its process exited '
+                                     f'{p.returncode} (see {err_fp})')
+            res = json.loads(lines[-1])
+            rows = {int(k): v for k, v in res['rows'].items()}
+            lrs = res['lrs']
             drops = [e for e in range(1, len(lrs)) if lrs[e] < lrs[e - 1]]
             lr_ok = drops == art['lr_milestone_epochs'] and all(
                 abs(lrs[e] / lrs[e - 1] - art['lr_decay']) < 1e-6 for e in drops)
@@ -1895,17 +1991,17 @@ def train_driver(torch, dev, smi, path_counts):
             finite = all(math.isfinite(v) for v in vals + trains)
             falls = finite and min(vals[-3:]) < min(vals[:3])
             emit(dict(phase='train_driver_convergence', run=name, extra=list(extra),
-                      epochs=art['num_epochs'], steps_per_epoch=spe, wall_s=wall,
-                      train_loss=trains, val_loss=vals, lr=lrs, lr_drops_at=drops,
-                      lr_milestones_ok=lr_ok, val_best_last3=min(vals[-3:]),
-                      val_best_first3=min(vals[:3]), val_falls=falls,
-                      step_count=tr.step_count, launches=counts,
+                      epochs=art['num_epochs'], steps_per_epoch=spe, wall_s=res['wall_s'],
+                      three_runs_wall_s=conv_wall, train_loss=trains, val_loss=vals, lr=lrs,
+                      lr_drops_at=drops, lr_milestones_ok=lr_ok,
+                      val_best_last3=min(vals[-3:]), val_best_first3=min(vals[:3]),
+                      val_falls=falls, step_count=res['step_count'],
+                      launches=res['launches'],
                       committed_jax_cpu_val_loss=[e['val_loss'] for e in art['epochs']],
                       gpu=smi))
-            if not (lr_ok and falls and tr.step_count == art['num_epochs'] * spe):
+            if not (lr_ok and falls and res['step_count'] == art['num_epochs'] * spe):
                 raise AssertionError(f'train_driver convergence {name}: LR drops at {drops}, '
                                      f'val losses {vals}')
-            del tr
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return path_counts['train_driver']
@@ -1913,9 +2009,12 @@ def train_driver(torch, dev, smi, path_counts):
 
 # Phase reference_pth: the eval driver on a reference-layout .pth of the gv1
 # weights of phase eval_driver (seed 1), beside the same weights' .pkl, on
-# the synthetic gv1 scene at _GV1_EVAL_SAMPLE queries, then a train.main
+# the synthetic gv1 scene at _REF_EVAL_SAMPLE queries, then a train.main
 # warm start from it.
 _REF_EPOCH = 0
+# The reference .pth's eval: 32768 grid queries (131072 before the time
+# budget's cut: the host metrics' time scales with them).
+_REF_EVAL_SAMPLE = _NUM_SAMPLE // 16
 # The warm start's train stage: 10 examples, 3 steps of batch 3, no val step.
 _REF_TRAIN_FRAC = str(10 / 960)
 
@@ -1985,7 +2084,7 @@ def reference_pth(torch, dev, smi, path_counts, train_data):
 
         def argv(resume, log):
             return ['--resume', resume, '--data_path', data, '--num_sample',
-                    str(_GV1_EVAL_SAMPLE), '--point_sample_mode', 'grid', '--save_metrics',
+                    str(_REF_EVAL_SAMPLE), '--point_sample_mode', 'grid', '--save_metrics',
                     'true', '--implicit_batch_size', str(_CHUNK), '--use_json', 'false',
                     '--num_workers', '4', '--seed', '7', '--use_data_frac',
                     str((_GV1_EVAL_STEPS + 0.5) / 120), '--log_path', log]
@@ -2033,7 +2132,7 @@ def reference_pth(torch, dev, smi, path_counts, train_data):
                 and all(math.isfinite(v) for r in losses.values() for v in r.values())
                 and len(losses) == 1 and all(t_counts.get(k, 0) > 0 for k in _TRAIN))
         ok = same and finite and launched and frames > 0 and loaded_pth and t_ok
-        emit(dict(phase='reference_pth', model='gv1', queries=_GV1_EVAL_SAMPLE,
+        emit(dict(phase='reference_pth', model='gv1', queries=_REF_EVAL_SAMPLE,
                   frames=frames, concurrent=True, pkl_wall_s=wall, pkl_phase_split_s=split,
                   pth_cli_returncode=proc.returncode, pth_cli_wall_s=cli_s,
                   pth_loaded_as_pth=loaded_pth, per_frame_equal=same,
@@ -2136,7 +2235,7 @@ def train_batchnorm(torch, dev, smi, path_counts):
 # process workers, interleaved A B B A in one process that builds both
 # loaders before it touches CUDA (as train.main does); 6 train steps an
 # epoch, after a 2-step warm-up.
-_LW_FRAC = str(18.5 / 960)
+_LW_FRAC = str(12.5 / 960)       # 4-step epochs (6 before the time budget's cut).
 _LW_ORDER = ('thread', 'process', 'process', 'thread')
 
 
@@ -2768,7 +2867,9 @@ def knn_pruned_line(torch, t_knn, dev, case, q, kk, kn, K, same):
     sorts, arrangement), the brute kernel's time, the library's
     (torch.cdist and torch.topk), the share of (query tile, key block) pairs
     processed, and its bound: each input read once, each output written
-    once, one distance per output neighbour. :return the {"kernels"} row."""
+    once, one distance per output neighbour, or, where larger, the
+    operations of the (query, key) pairs in the visited (query tile, key
+    block) pairs at 8 f32 instructions a pair. :return the {"kernels"} row."""
     B, N, M = q.shape[0], q.shape[1], kk.shape[1]
     visited = torch.zeros(1, dtype=torch.int32, device=dev)
     d_k, i_k = t_knn._pruned_cuda(q, kk, kn, K, same, visited=visited)
@@ -2787,8 +2888,17 @@ def knn_pruned_line(torch, t_knn, dev, case, q, kk, kn, K, same):
     brute_ms = cuda_ms(torch, lambda: t_knn.knn_rank(q, kk, kn, K), 5)
     plain_ms = cuda_ms(torch, lambda: t_knn.knn_rank_plain(q, kk, kn, K), 1)
     lib_ms = cuda_ms(torch, lambda: torch.topk(torch.cdist(q, kk), K, largest=False), 1)
-    b_ms, b_by = bound(B * (N * 3 * 4 + M * 4 * 4) + B * N * K * 8, 7.0 * B * N * K)
+    out_ms, out_by = bound(B * (N * 3 * 4 + M * 4 * 4) + B * N * K * 8, 7.0 * B * N * K)
+    # The work this run's data needs: every (query, key) pair of the
+    # (query tile, key block) pairs the kernel visited, at the brute kernel's
+    # 8 f32 instructions a pair on the CUDA cores.
+    point_pairs = int(visited) * lib.o4d_knn_prune_tile() * lib.o4d_knn_prune_block()
+    visited_ms = 8.0 * point_pairs / _CUDA_CORE_IPS * 1e3
+    b_ms, b_by = max((out_ms, out_by), (visited_ms, 'operations'))
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_uses='max(outputs bound, visited pairs x 8 instructions / 33.5 T/s)',
+               output_bound_ms=out_ms, output_bound_by=out_by,
+               visited_pairs_bound_ms=visited_ms, visited_point_pairs=point_pairs,
                library_ms=lib_ms, library='torch.cdist + torch.topk', shape=[B, N, M, K],
                brute_kernel_ms=brute_ms, sort_and_boxes_ms=prep_ms,
                processed_share=int(visited) / pairs)
@@ -3526,7 +3636,7 @@ def train_mixed(torch, dev, smi, path_counts):
     'auto' and 'on' and fused_decoder_dtype 'f32' and 'bf16', and the
     n57344 step with 'on', each beside the f32 run of the same options
     (mixed_precision=False: f32 networks, eps 1e-8) from the same seeded
-    weights, batch and generator seed, _BF16_TRAIN_STEPS steps each, then
+    weights, batch and generator seed, _MIXED_TRAIN_STEPS steps each, then
     one phase-split step each: mean step ms, split_ms and peak memory side
     by side. The launch counters are zeroed before each mixed step after the
     first and read after it (per step _MIXED_STEP / _MIXED_57K_STEP; the f32
@@ -3542,7 +3652,7 @@ def train_mixed(torch, dev, smi, path_counts):
     from occlusions4d_torch.ops import _build
     from occlusions4d_torch.train import Trainer
     path_counts['train_mixed'] = {}
-    n = _BF16_TRAIN_STEPS - 1
+    n = _MIXED_TRAIN_STEPS - 1
     arms = [('gv1', _GV1_TRAIN, fused, ddt, _MIXED_STEP[fused])
             for fused in ('auto', 'on') for ddt in ('f32', 'bf16')]
     arms.append(('n57344', _N57, 'on', 'auto', _MIXED_57K_STEP))
@@ -3572,7 +3682,7 @@ def train_mixed(torch, dev, smi, path_counts):
         for name, t in (('f32', tr32), ('mixed', tr)):
             torch.cuda.reset_peak_memory_stats()
             steps, counts = [], {}
-            for i in range(_BF16_TRAIN_STEPS):
+            for i in range(_MIXED_TRAIN_STEPS):
                 same = f32_loss_at(tr32, t, batch) if name == 'mixed' else None
                 torch.cuda.synchronize()
                 _build.reset_launch_counts()
@@ -3606,7 +3716,7 @@ def train_mixed(torch, dev, smi, path_counts):
         for k, v in mp['counts'].items():
             path_counts['train_mixed'][k] = path_counts['train_mixed'].get(k, 0) + v
         emit(dict(phase='train_mixed', model=model, fused_attention=fused,
-                  fused_decoder_dtype=ddt, steps=_BF16_TRAIN_STEPS, timed_steps=n,
+                  fused_decoder_dtype=ddt, steps=_MIXED_TRAIN_STEPS, timed_steps=n,
                   mixed_step_ms=[st['ms'] for st in mp['steps']],
                   f32_step_ms=[st['ms'] for st in f32['steps']],
                   mixed_mean_step_ms=mp['mean_step_ms'], f32_mean_step_ms=f32['mean_step_ms'],
@@ -3939,7 +4049,8 @@ def decoder_wide(torch, t_attn, dev, smi):
 _DP_DEVICES = ['cuda:0', 'cuda:0']
 _DP_TRAIN = dict(_GV1_TRAIN, batch_size=4)
 _DP_CV1 = dict(_CV1_TRAIN, batch_size=2)
-_DP_STEPS = 3                    # timed steps, after one warm-up step.
+_DP_STEPS = 2                    # timed steps, after one warm-up step (3 before
+#                                  the time budget's cut).
 # Gates against the one-process run: logged scalars rtol 2e-5, parameter
 # deltas 1e-4 relative L2 (the CPU test's 1e-5 / 1e-4, the scalars' doubled),
 # or six times the one-process runs' largest distance from each other where
@@ -4266,7 +4377,558 @@ def eval_query_parallel(torch, dev, smi, path_counts):
     return counts['replicas']
 
 
-def main():
+# ------------------------------------------- the train step's observability --
+# Phase profile_trace: train.main on the gv1 recipe for one epoch of 5 train
+# steps with --profile_steps 2 --watch_networks true.
+_PROFILE_STEPS = 2
+_PROFILE_FRAC = str(2.0 / 120)
+# PERF.md section 5's host-clock proxies of the card's busy share of a gv1
+# step (tools/profile_train_driver.py): loader-fed, preloaded.
+_BUSY_PROXIES = dict(loader_fed=0.71, preloaded=0.91)
+# The device-side operations of a torch.profiler trace.
+_DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+# Phase train_module_decoder: timed module-path steps; its gate against the
+# fused path (the fused kernels' 3xTF32 products the only difference).
+_MODULE_STEPS = 3
+_MODULE_RTOL = 1e-4
+_MODULE_NONE = ('attn', 'attn_bwd', 'interp', 'interp_bwd', 'gather', 'attn_g', 'scatter')
+# Phase encoder_up: the gv1 encoder with its up path, d_out 6 (the
+# reference's default; gv1's encoder_args carry d_out 1, which the up path's
+# post_mlp, d_out - 3 wide, cannot take).
+_UP_D_OUT = 6
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def trace_summary(path, n_top=8, n_gaps=3):
+    """The device side of a torch.profiler Chrome trace: the busy share of
+    the window from the first train step's span to the last device
+    operation's end (and of the window between the first and the last
+    device operation), the top device operations by time with their counts,
+    the longest idle gaps, the train_step_<i> spans and every o4d_<kernel>
+    span name (CPU or card timeline)."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    dev_ops = [e for e in events if e.get('cat') in _DEVICE_CATS and e.get('ph') == 'X']
+    steps = sorted({e['name'] for e in events if e.get('cat') == 'user_annotation'
+                    and str(e.get('name', '')).startswith('train_step_')})
+    spans = sorted({e['name'] for e in events
+                    if e.get('cat') in ('user_annotation', 'gpu_user_annotation')
+                    and str(e.get('name', '')).startswith('o4d_')})
+    out = dict(file=os.path.basename(path), bytes=os.path.getsize(path), steps=steps,
+               o4d_spans=spans, device_ops=len(dev_ops))
+    if not dev_ops:
+        return out
+    ivs = sorted((float(e['ts']), float(e['ts']) + float(e['dur']), e['name'])
+                 for e in dev_ops)
+    merged = []
+    for a, b, name in ivs:
+        if merged and a <= merged[-1][1]:
+            if b > merged[-1][1]:
+                merged[-1][1], merged[-1][3] = b, name
+        else:
+            merged.append([a, b, name, name])
+    busy = sum(b - a for a, b, _, _ in merged)
+    step1 = [float(e['ts']) for e in events if e.get('cat') == 'user_annotation'
+             and e.get('name') == 'train_step_1']
+    start = min(step1) if step1 else merged[0][0]
+    window = merged[-1][1] - start
+    span = merged[-1][1] - merged[0][0]
+    by_name = {}
+    for a, b, name in ivs:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + b - a, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    gaps = sorted(((merged[i + 1][0] - merged[i][1], merged[i][1] - start, merged[i][3],
+                    merged[i + 1][2]) for i in range(len(merged) - 1)), reverse=True)[:n_gaps]
+    out.update(
+        window_ms=window / 1e3, busy_ms=busy / 1e3, busy_share=busy / window,
+        busy_share_first_to_last_op=busy / span,
+        top_ops=[dict(name=n[:120], ms=t / 1e3, count=c) for n, (t, c) in top],
+        idle_gaps=[dict(ms=g / 1e3, at_ms=at / 1e3, after=a[:120], before=b[:120])
+                   for g, at, a, b in gaps])
+    return out
+
+
+def profile_trace(torch, dev, smi, path_counts, train_data):
+    """Phase profile_trace: train.main on the gv1 recipe (one epoch of 5
+    train steps) with --profile_steps 2 --watch_networks true: the trace
+    under <log_dir>/profile covers train steps 1-2 and names o4d_attn,
+    o4d_attn_bwd and o4d_knn_brute; its device-busy share, top device
+    operations and idle gaps; one per-layer norm per parameter tensor, all
+    finite; then the step wall with and without the norms on the run's
+    Trainer and a preloaded batch."""
+    import glob
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix='o4d_profile_')
+    try:
+        argv = _TD_GV1_ARGV + ['--data_path', train_data, '--checkpoint_root',
+                               os.path.join(tmp, 'ck'), '--num_epochs', '1',
+                               '--use_data_frac', _PROFILE_FRAC,
+                               '--profile_steps', str(_PROFILE_STEPS),
+                               '--watch_networks', 'true']
+        tr, counts, wall, epochs = driver_run(torch, argv, os.path.join(tmp, 'logs'))
+        path_counts['profile_trace'] = counts
+        files = glob.glob(os.path.join(tr.logger.log_dir, 'profile', '*.pt.trace.json'))
+        trace = trace_summary(files[0]) if len(files) == 1 else {}
+        train_e = [e for e in epochs if e['stage'] == 'train']
+        row = tr.logger.scalar_history[0]
+        g = [v for k, v in row.items() if k.startswith('train/grad_norm/')]
+        p = [v for k, v in row.items() if k.startswith('train/param_norm/')]
+        n_params = len(tr.optimizer.params)
+        norms_ok = (len(g) == len(p) == n_params == len(tr.layer_names)
+                    and all(math.isfinite(v) for v in g + p))
+        # The step with and without the norms, A B B A, on a preloaded batch.
+        batch = train_batch(torch, tr.cfg, dev)
+        walls = {'with': [], 'without': []}
+        for want in (True, False, False, True):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = tr.step(batch, want_norms=want)
+            if want:
+                m['layer_grad_norms'].cpu(), m['layer_param_norms'].cpu()
+            torch.cuda.synchronize()
+            walls['with' if want else 'without'].append((time.time() - t0) * 1e3)
+        need = ('o4d_attn', 'o4d_attn_bwd', 'o4d_knn_brute')
+        ok = (len(files) == 1 and trace.get('steps') == ['train_step_1', 'train_step_2']
+              and all(n in trace.get('o4d_spans', ()) for n in need)
+              and trace.get('device_ops', 0) > 0 and norms_ok
+              and train_e and train_e[0]['steps'] >= 4
+              and all(counts.get(k, 0) > 0 for k in _TRAIN))
+        emit(dict(phase='profile_trace', model='gv1', argv_extra=argv[len(_TD_GV1_ARGV):],
+                  trace_files=len(files), trace=trace,
+                  busy_share_proxies_perf_md=_BUSY_PROXIES, train_steps=train_e[0]['steps']
+                  if train_e else 0, epochs=epochs, wall_s=wall,
+                  layer_norms=dict(parameters=n_params, grad_norms=len(g),
+                                   param_norms=len(p), finite=norms_ok,
+                                   grad_norm_max=max(g) if g else None),
+                  step_ms_with_norms=walls['with'], step_ms_without_norms=walls['without'],
+                  launches=nonzero(counts), ok=bool(ok), gpu=smi))
+        if not ok:
+            raise AssertionError(f'profile_trace failed: trace files {files}, steps '
+                                 f'{trace.get("steps")}, spans {trace.get("o4d_spans")}, '
+                                 f'device ops {trace.get("device_ops")}, norms {norms_ok}')
+        del tr, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def seeded_trainer(torch, cfg, seed=2):
+    """A Trainer on the card with seeded numpy weights (the train phase's)."""
+    from occlusions4d_torch.train import Trainer
+    tr = Trainer(cfg, 'greater', 'cuda')
+    wrng = np.random.RandomState(seed)
+    tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                              decoder=random_jax_params(tr.decoder, wrng)),
+                  seed=0, steps_per_epoch=100)
+    return tr
+
+
+def decoder_loss_grads(torch, tr, batch, dev):
+    """The pipeline's loss and its decoder gradients from one seeded draw."""
+    params = list(tr.decoder.parameters())
+    loss, _ = tr.pipeline.loss(batch, torch.Generator(dev).manual_seed(11))
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), [g.detach() for g in grads]
+
+
+def train_module_decoder(torch, dev, smi, path_counts):
+    """Phase train_module_decoder: the gv1 train step (batch 3, 4 frames,
+    full width) with --fused_decoder off, remat on: from one state and one
+    draw, the loss and the decoder's gradients against the fused path's
+    (rel 1e-4: the global gradient norm; each parameter's gradient norm
+    printed); 1 warm-up + 3 timed steps (their launches: the kNN kernels,
+    no fused decoder kernel), peak memory, one phase-split step; then the
+    step with remat off, or its out-of-memory error."""
+    import gc
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.ops import _build
+    cfg = TrainConfig(**_GV1_TRAIN)
+    batch = train_batch(torch, cfg, dev)
+    fused = seeded_trainer(torch, cfg)
+    f_loss, f_grads = decoder_loss_grads(torch, fused, batch, dev)
+    f_norms = [float(g.norm()) for g in f_grads]
+    f_total = math.sqrt(sum(n * n for n in f_norms))
+    del fused, f_grads
+    torch.cuda.empty_cache()
+    tr = seeded_trainer(torch, TrainConfig(**_GV1_TRAIN, fused_decoder='off'))
+    torch.cuda.reset_peak_memory_stats()
+    m_loss, m_grads = decoder_loss_grads(torch, tr, batch, dev)
+    grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m_norms = [float(g.norm()) for g in m_grads]
+    m_total = math.sqrt(sum(n * n for n in m_norms))
+    del m_grads
+    loss_rel = abs(m_loss - f_loss) / abs(f_loss)
+    norm_rel = abs(m_total - f_total) / f_total
+    per_param = [abs(a - b) / b for a, b in zip(m_norms, f_norms) if b > 1e-3 * f_total]
+    steps, counts, changed, peak_gb, split, warm_ms = run_train_phase(torch, tr, batch,
+                                                                      _MODULE_STEPS)
+    path_counts['train_module_decoder'] = counts
+    # Without remat: every frame's attention intermediates kept for the
+    # backward.
+    tr.pipeline.remat = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.time()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        no_remat = dict(ms=(time.time() - t0) * 1e3, finite=bool(m['grads_finite']),
+                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    except torch.cuda.OutOfMemoryError as e:
+        no_remat = dict(out_of_memory=True, error=str(e).splitlines()[0][:300],
+                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    finally:
+        tr.pipeline.remat = True
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = (counts.get('knn_brute', 0) > 0 and counts.get('knn_pruned', 0) > 0
+                and counts.get('fps_cluster', 0) > 0
+                and all(counts.get(k, 0) == 0 for k in _MODULE_NONE))
+    finite = all(np.isfinite(st['total_loss']) and st['grads_finite'] and st['params_finite']
+                 for st in steps)
+    ok = (loss_rel <= _MODULE_RTOL and norm_rel <= _MODULE_RTOL and launched and finite
+          and changed > 0.0 and not tr.pipeline.fused_decoder)
+    emit(dict(phase='train_module_decoder', model='gv1', batch_size=cfg.batch_size,
+              frames=cfg.past_frames, fused_decoder='off', remat=True,
+              loss_fused=f_loss, loss_module=m_loss, loss_rel_diff=loss_rel,
+              decoder_grad_norm_fused=f_total, decoder_grad_norm_module=m_total,
+              decoder_grad_norm_rel_diff=norm_rel, tolerance=f'rel {_MODULE_RTOL}',
+              per_param_grad_norm_max_rel_diff=max(per_param) if per_param else None,
+              grad_check_peak_mem_gib=grad_peak, warmup_ms=warm_ms,
+              step_ms=[st['ms'] for st in steps],
+              mean_step_ms=float(np.mean([st['ms'] for st in steps])), split_ms=split,
+              peak_mem_gib=peak_gb, launches=nonzero(counts),
+              launches_per_step={k: v / _MODULE_STEPS for k, v in counts.items() if v},
+              params_changed_max_abs=changed, no_remat=no_remat, ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'train_module_decoder failed: loss rel {loss_rel}, grad norm '
+                             f'rel {norm_rel}, launches {counts}, finite {finite}')
+    del tr, batch
+
+
+def check_numerics(torch, dev, smi, path_counts):
+    """Phase check_numerics: the gv1 step at batch 1 with --check_numerics
+    (the module paths, remat off, the probes): a clean train, val_aug and
+    viz step pass; a NaN pcl_input raises naming pcl_input; a NaN weight of
+    the decoder's output layer raises naming decoder_output_frame0; the
+    step's time beside the batch-1 step without the flag (A B B A)."""
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.ops import _build
+    kw = dict(_GV1_TRAIN, batch_size=1)
+    tr = seeded_trainer(torch, TrainConfig(**kw, check_numerics=True))
+    batch = train_batch(torch, TrainConfig(**kw), dev)
+    paths_ok = (not tr.pipeline.fused_decoder and not tr.pipeline.remat
+                and tr.pipeline.debug_checks and tr.fused_attention == 'off')
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    m = tr.step(batch)
+    ev = tr._eval_step(batch, torch.Generator(dev).manual_seed(1))
+    viz = tr._viz_step(batch, torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    path_counts['check_numerics'] = counts
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    clean = (bool(m['grads_finite']) and math.isfinite(float(m['total_loss']))
+             and math.isfinite(float(ev['total_loss']))
+             and bool(torch.isfinite(viz['implicit_output']).all()))
+    raised = {}
+    bad = dict(batch, pcl_input=torch.full_like(batch['pcl_input'], float('nan')))
+    w = tr.decoder.lin_out.weight
+    saved = float(w[0, 0].detach())
+    for case, b in (('nan_pcl_input', bad), ('nan_decoder_weight', batch)):
+        if case == 'nan_decoder_weight':
+            with torch.no_grad():
+                w[0, 0] = float('nan')
+        try:
+            tr.step(b)
+            raised[case] = None
+        except RuntimeError as e:
+            raised[case] = str(e)
+        finally:
+            with torch.no_grad():
+                w[0, 0] = saved
+    ref = seeded_trainer(torch, TrainConfig(**kw))
+    ms = {'check_numerics': [], 'without': []}
+    for name, t in (('check_numerics', tr), ('without', ref), ('without', ref),
+                    ('check_numerics', tr)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        t.step(batch)
+        torch.cuda.synchronize()
+        ms[name].append((time.time() - t0) * 1e3)
+    ok = (paths_ok and clean
+          and raised['nan_pcl_input'] == 'NaN/Inf detected in pcl_input'
+          and raised['nan_decoder_weight'] == 'NaN/Inf detected in decoder_output_frame0')
+    emit(dict(phase='check_numerics', model='gv1', batch_size=1, frames=kw['past_frames'],
+              module_paths_remat_off=paths_ok, clean_train_val_aug_viz=clean,
+              raised=raised, step_ms_check_numerics=ms['check_numerics'],
+              step_ms_without=ms['without'], peak_mem_gib=peak_gb, launches=nonzero(counts),
+              ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'check_numerics failed: paths {paths_ok}, clean {clean}, '
+                             f'raised {raised}')
+    del tr, ref, batch
+
+
+def store_activations(torch, dev, smi, path_counts):
+    """Phase store_activations: (a) the gv1 dense grid (534528 queries) with
+    the seeded weights of phase 4 through InferenceEngine(store_activations=
+    True), f32 and 'fast': the outputs bit-equal to the engine's without
+    the flag, the activations (N, 416) float16, finite, in query order (a
+    chunk-aligned slice decoded alone gives its rows), the added ms; (b) the
+    GREATER anchor through the eval driver (its first step) with and
+    without --store_activations: activations_s*.p with one (solid rows,
+    d_hidden) float16 array a frame, metrics.json equal."""
+    import glob
+    import pickle
+    import shutil
+    import tempfile
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.evaluate import InferenceEngine
+    from occlusions4d_torch.ops import _build, blind_points_numpy
+    cfg = TrainConfig(**_GV1)
+    encoder, decoder, dec_args = seeded_models(torch, cfg, dev, 1)
+    loaded = dict(encoder=encoder, decoder=decoder, device=dev)
+    pcl = np.random.RandomState(0).rand(14336, 8).astype(np.float32) * 2 - 1
+    queries = blind_points_numpy(_NUM_SAMPLE, cfg.min_z, cfg.cr_cube_bounds, 0, 'greater',
+                                 cfg.cube_mode, 'grid')
+    part = slice(3 * _CHUNK, 4 * _CHUNK)
+    grid, counts_all = {}, {}
+    for precision in ('f32', 'fast'):
+        plain = InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
+                                implicit_batch_size=_CHUNK, precision=precision)
+        sa = InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
+                             implicit_batch_size=_CHUNK, precision=precision,
+                             store_activations=True)
+        ab, fg = plain.encode(pcl)
+        plain.decode_all(queries[:_CHUNK], ab, fg, fetch=False)        # warm-ups.
+        sa.decode_all(queries[:_CHUNK], ab, fg, fetch=False)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = plain.decode_all(queries, ab, fg, fetch=False)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        _build.reset_launch_counts()
+        out_sa, pen = sa.decode_all(queries, ab, fg, fetch=False)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+        _, pen_part = sa.decode_all(queries[part], ab, fg, fetch=False)
+        torch.cuda.synchronize()
+        grid[precision] = dict(
+            decode_ms=(t1 - t0) * 1e3, decode_ms_store_activations=(t2 - t1) * 1e3,
+            added_ms=(t2 - t1 - (t1 - t0)) * 1e3, bit_equal=bool(torch.equal(out, out_sa)),
+            shape=list(pen.shape), dtype=str(pen.dtype).replace('torch.', ''),
+            finite=bool(torch.isfinite(pen).all()),
+            in_query_order=bool(torch.equal(pen_part, pen[part])),
+            solid=int((out[:, 0] >= 0.5).sum()), launches=nonzero(counts))
+        del out, out_sa, pen, pen_part
+    path_counts['store_activations'] = counts_all
+    grid_ok = all(g['bit_equal'] and g['finite'] and g['in_query_order']
+                  and g['shape'] == [queries.shape[0], dec_args['d_hidden']]
+                  and g['dtype'] == 'float16' for g in grid.values())
+    # (b) The GREATER anchor through the eval driver, with and without.
+    sys.path.append(os.path.join(_HERE, 'tests'))
+    import anchor_recipe
+    tmp = tempfile.mkdtemp(prefix='o4d_sa_')
+    try:
+        data = anchor_recipe.make_scene('greater', tmp)
+        runs = {}
+        for flag in ('true', 'false'):
+            argv, _ = anchor_recipe.eval_argv(
+                'greater', data, os.path.join(tmp, flag, 'anchor'),
+                ('--store_activations', flag), steps=1)
+            runs[flag] = run_driver(torch, argv, None)
+        files = sorted(glob.glob(os.path.join(tmp, 'true', 'test_*', 'activations_s*.p')))
+        pcls = sorted(glob.glob(os.path.join(tmp, 'true', 'test_*', 'pcl_io_s*.p')))
+        none = glob.glob(os.path.join(tmp, 'false', 'test_*', 'activations_s*.p'))
+        shapes, dtypes, rows_ok = [], set(), len(files) == len(pcls) > 0
+        for fa, fp in zip(files, pcls):
+            with open(fa, 'rb') as f:
+                acts = pickle.load(f)
+            with open(fp, 'rb') as f:
+                recs = pickle.load(f)
+            rows_ok = rows_ok and len(acts) == len(recs)
+            for a, rec in zip(acts, recs):
+                shapes.append(list(a.shape))
+                dtypes.add(str(a.dtype))
+                rows_ok = rows_ok and a.shape[0] == len(rec[2])
+        widths = {s[1] for s in shapes}
+        metrics_equal = (runs['true'][0]['per_frame'] == runs['false'][0]['per_frame']
+                         and runs['true'][0]['mean'] == runs['false'][0]['mean'])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    anchor_ok = rows_ok and dtypes == {'float16'} and len(widths) == 1 and not none \
+        and metrics_equal
+    ok = grid_ok and anchor_ok
+    emit(dict(phase='store_activations', model='gv1', queries=int(queries.shape[0]),
+              chunk=_CHUNK, grid=grid, anchor=dict(
+                  files=[os.path.basename(f) for f in files], frame_shapes=shapes,
+                  dtypes=sorted(dtypes), width=sorted(widths), rows_match_solid=rows_ok,
+                  metrics_json_equal=metrics_equal, wall_s={k: v[2] for k, v in runs.items()},
+                  files_without_flag=len(none)),
+              launches=nonzero(counts_all), ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'store_activations failed: grid {grid}, anchor rows {rows_ok}, '
+                             f'dtypes {dtypes}, widths {widths}, metrics equal '
+                             f'{metrics_equal}')
+
+
+class plain_encoder_kernels:
+    """Inside, the encoder's kNN (brute and pruned entries) and FPS kernels
+    are swapped for their plain versions on the card; outside and inside,
+    every result of those entry points is recorded in `calls` (name,
+    indices)."""
+
+    def __init__(self, torch, t_knn, t_fps, plain):
+        self.t_knn, self.t_fps, self.plain, self.calls, self.saved = (t_knn, t_fps, plain,
+                                                                       [], {})
+
+    def __enter__(self):
+        k, f = self.t_knn, self.t_fps
+        self.saved = dict(brute=k._brute_cuda, pruned=k._pruned_cuda, fps=f._fps_cuda)
+        calls, plain, saved = self.calls, self.plain, self.saved
+
+        def brute(q, keys, kn, kk):
+            d, i = k.knn_rank_plain(q, keys, kn, kk) if plain else saved['brute'](q, keys,
+                                                                                    kn, kk)
+            calls.append(('knn', i))
+            return d, i
+
+        def pruned(q, keys, kn, kk, same, visited=None):
+            d, i = k.knn_rank_plain(q, keys, kn, kk) if plain else saved['pruned'](
+                q, keys, kn, kk, same, visited)
+            calls.append(('knn', i))
+            return d, i
+
+        def fps(xyz, n_out, valid, start_idx, plan=None):
+            sel = f.fps_plain(xyz, n_out, valid, start_idx) if plain else saved['fps'](
+                xyz, n_out, valid, start_idx, plan)
+            calls.append(('fps', sel))
+            return sel
+        k._brute_cuda, k._pruned_cuda, f._fps_cuda = brute, pruned, fps
+        return self
+
+    def __exit__(self, *exc):
+        k, f = self.t_knn, self.t_fps
+        k._brute_cuda, k._pruned_cuda = self.saved['brute'], self.saved['pruned']
+        f._fps_cuda = self.saved['fps']
+
+
+def encoder_up(torch, t_knn, t_fps, dev, smi, path_counts):
+    """Phase encoder_up: PointEncoder(enable_decoder=True, skip_connections=
+    True) at gv1 widths (3 down and 3 up levels, d_out 6) with seeded
+    weights, on a 14336-point cloud, eval mode: against the same encoder on
+    the card with the kNN and FPS kernels swapped for their plain versions,
+    every FPS and kNN index exact, the outputs within 1e-5; the kernels'
+    run launches knn_brute or knn_pruned (UpTransition's k 3 searches
+    included) and FPS."""
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.models import build_models
+    from occlusions4d_torch.models.encoder import PointEncoder
+    from occlusions4d_torch.ops import _build
+    _, _, enc_args, _ = build_models(TrainConfig(**_GV1))
+    enc = PointEncoder(**dict(enc_args, enable_decoder=True, skip_connections=True,
+                              d_out=_UP_D_OUT, fps_random_start=False))
+    from occlusions4d_torch.checkpoint import from_jax_params
+    enc.load_state_dict(from_jax_params(random_jax_params(enc, np.random.RandomState(12)),
+                                        enc), strict=True)
+    enc = enc.to(dev).eval()
+    pcl = torch.tensor(np.random.RandomState(13).rand(1, 14336, 8).astype(np.float32) * 2
+                       - 1, device=dev)
+    res = {}
+    for name, plain in (('kernels', False), ('plain', True)):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        with torch.no_grad(), plain_encoder_kernels(torch, t_knn, t_fps, plain) as rec:
+            out, g, coords = enc(pcl, return_intermediate=True)
+        torch.cuda.synchronize()
+        res[name] = dict(out=out, g=g, coords=coords, calls=rec.calls,
+                         ms=(time.time() - t0) * 1e3, launches=_build.launch_counts())
+    path_counts['encoder_up'] = res['kernels']['launches']
+    k, p = res['kernels'], res['plain']
+    same_calls = len(k['calls']) == len(p['calls']) and all(
+        a[0] == b[0] and torch.equal(a[1], b[1]) for a, b in zip(k['calls'], p['calls']))
+    coords_equal = all(torch.equal(a, b) for a, b in zip(k['coords'], p['coords']))
+    err = max(max_err(k['out'], p['out']), max_err(k['g'], p['g']))
+    c = k['launches']
+    launched = (c.get('knn_brute', 0) + c.get('knn_pruned', 0) > 0
+                and c.get('fps', 0) + c.get('fps_cluster', 0) > 0)
+    plain_none = all(v == 0 for kk, v in p['launches'].items()
+                     if kk in ('knn_brute', 'knn_pruned', 'fps', 'fps_cluster'))
+    ok = (same_calls and coords_equal and err <= 1e-5 and launched and plain_none
+          and list(k['out'].shape) == [1, 14336, _UP_D_OUT]
+          and bool(torch.isfinite(k['out']).all()))
+    emit(dict(phase='encoder_up', model='gv1', n_points=14336, d_out=_UP_D_OUT,
+              up_blocks=enc_args['up_blocks'], out_shape=list(k['out'].shape),
+              knn_calls=sum(1 for n, _ in k['calls'] if n == 'knn'),
+              fps_calls=sum(1 for n, _ in k['calls'] if n == 'fps'),
+              indices_exact=same_calls, layer_positions_equal=coords_equal,
+              max_abs_err=err, tolerance='indices exact, outputs atol 1e-5',
+              ms=k['ms'], plain_ms=p['ms'], launches=nonzero(c), plain_launches=nonzero(p['launches']),
+              ok=bool(ok), gpu=smi))
+    if not ok:
+        raise AssertionError(f'encoder_up failed: indices {same_calls}, positions '
+                             f'{coords_equal}, err {err}, launches {c}')
+
+
+# The phases after the kernel lines, in their order (python3 chip_smoke.py
+# --phases a,b runs the named ones only, with those they need).
+PHASES = ('main_path', 'main_path_cv1', 'main_path_fast', 'anchor', 'eval_driver',
+          'train_driver', 'reference_pth', 'train_batchnorm', 'train_loader_workers',
+          'train_data_parallel', 'eval_query_parallel', 'train', 'sampler_moving',
+          'train_cv1', 'train_bf16', 'train_sattn', 'train_57k', 'train_mixed',
+          'decoder_wide', 'profile_trace', 'train_module_decoder', 'check_numerics',
+          'store_activations', 'encoder_up')
+# What a phase reads from an earlier one: main_path_fast holds the two f32
+# scenes against its 'fast' ones; sampler_moving steps the train phase's
+# Trainer and batch.
+_PHASE_NEEDS = {'main_path_fast': ('main_path', 'main_path_cv1'),
+                'sampler_moving': ('train',)}
+# The phases whose launches every {"kernels"} row also shows, beside its path's.
+_PHASE_COLUMNS = ('eval_driver', 'train_driver', 'train_data_parallel',
+                  'eval_query_parallel', 'profile_trace', 'train_module_decoder',
+                  'check_numerics', 'store_activations', 'encoder_up')
+
+
+def phases_to_run(only):
+    """The phases of a --phases list (None: all), with what they need, in
+    PHASES order; an unknown name raises ValueError."""
+    if not only:
+        return PHASES
+    unknown = [n for n in only if n not in PHASES]
+    if unknown:
+        raise ValueError(f'unknown phases {unknown}; the phases are {list(PHASES)}')
+    want = set(only)
+    for n in only:
+        want.update(_PHASE_NEEDS.get(n, ()))
+    return tuple(n for n in PHASES if n in want)
+
+
+def parse_phases(argv):
+    """--phases name[,name...] of the command line, or None."""
+    import argparse
+    parser = argparse.ArgumentParser(description='Smoke test of the PyTorch/CUDA port.')
+    parser.add_argument('--phases', default=None,
+                        help='comma-separated phases to run after the kernel lines '
+                             f'(default: all): {",".join(PHASES)}')
+    args = parser.parse_args(argv)
+    if args.phases is None:
+        return None
+    only = tuple(n.strip() for n in args.phases.split(',') if n.strip())
+    phases_to_run(only)
+    return only
+
+
+def main(only=None):
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; nothing to run',
@@ -4463,335 +5125,359 @@ def main():
     check_self_attention_kernels(torch, dev, np.random.RandomState(21), encoder, rows)
     torch.cuda.empty_cache()
 
-    # 4. The main path: encode + dense decode at gv1 width.
-    loaded = dict(encoder=encoder, decoder=decoder, device=dev)
-    engine = InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
-                             track_mode='none', implicit_batch_size=_CHUNK)
-    pcl = np.random.RandomState(0).rand(14336, 8).astype(np.float32) * 2 - 1
-    queries = blind_points_numpy(_NUM_SAMPLE, cfg.min_z, cfg.cr_cube_bounds, 0,
-                                 'greater', cfg.cube_mode, 'grid')
-    abstract, fg = engine.encode(pcl)          # warm-up run, not counted.
-    engine.decode_all(queries[:_CHUNK], abstract, fg, fetch=False)
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    t0 = time.time()
-    abstract, fg = engine.encode(pcl)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    out = engine.decode_all(queries, abstract, fg, fetch=False)
-    torch.cuda.synchronize()
-    t2 = time.time()
-    counts = _build.launch_counts()
-    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(abstract).all())
-    emit(dict(phase='main_path', model='gv1', n_points=14336,
-              abstract_shape=list(abstract.shape), global_shape=list(fg.shape),
-              queries=int(queries.shape[0]), chunk=_CHUNK, out_shape=list(out.shape),
-              finite=finite, encode_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
-              scene_ms=(t2 - t0) * 1e3, queries_per_s=queries.shape[0] / (t2 - t1),
-              solid_frac=float((out[:, 0] >= 0.5).float().mean()),
-              launches=counts, gpu=smi))
-    if not finite or list(abstract.shape) != [1, 531, 3 + 288] \
-            or list(out.shape) != [queries.shape[0], 5]:
-        raise AssertionError('main path output is not finite or has the wrong shape')
-    missing = [k for k in _INFER if counts.get(k, 0) <= 0]
-    shared = [k for k in _SHARED if counts.get(k, 0) != 0]
-    if missing or shared:
-        raise AssertionError(f'kernels not launched on the main path: {missing}; '
-                             f'shared-gather kernels launched at M = 531: {shared}')
-    path_counts = {'main_path': counts}
-    # The f32 scene that the 'fast' scene of main_path_fast is held against.
-    f32_scenes = {'gv1': dict(density=out[:, 0].clone(), scene_ms=(t2 - t0) * 1e3,
-                              decode_ms=(t2 - t1) * 1e3, pcl=pcl, queries=queries,
-                              cfg=cfg, models=(encoder, decoder), seg=False)}
-    del out
-
-    # 4b. cv1 at full width over the CARLA grid: the shared-gather route.
-    engine = InferenceEngine(dict(encoder=cv1_encoder, decoder=cv1_decoder, device=dev),
-                             ccfg.color_mode, True, ccfg.semantic_classes,
-                             track_mode='none', implicit_batch_size=_CHUNK)
-    queries = blind_points_numpy(_NUM_SAMPLE, ccfg.min_z, ccfg.cr_cube_bounds, 0,
-                                 'carla', ccfg.cube_mode, 'grid')
-    r = np.random.RandomState(5)
-    pcl = r.rand(14336, 8).astype(np.float32) * 2 - 1
-    lo, hi = queries[:, :3].min(0), queries[:, :3].max(0)
-    pcl[:, :3] = r.rand(14336, 3).astype(np.float32) * (hi - lo) + lo  # in the cuboid.
-    abstract, fg = engine.encode(pcl)          # warm-up run, not counted.
-    engine.decode_all(queries[:_CHUNK], abstract, fg, fetch=False)
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    t0 = time.time()
-    abstract, fg = engine.encode(pcl)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    out = engine.decode_all(queries, abstract, fg, fetch=False)
-    torch.cuda.synchronize()
-    t2 = time.time()
-    counts = _build.launch_counts()
-    path_counts['main_path_cv1'] = counts
-    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(abstract).all())
-    # One chunk again on the CPU (plain versions, the same shared-gather
-    # route) from the card's abstract cloud and global vector.
-    cpu = InferenceEngine(dict(encoder=None, decoder=copy.deepcopy(cv1_decoder).cpu(),
-                               device=torch.device('cpu')),
-                          ccfg.color_mode, True, ccfg.semantic_classes,
-                          track_mode='none', implicit_batch_size=_CHECK_CHUNK)
-    t3 = time.time()
-    ref = cpu.decode_all(queries[:_CHECK_CHUNK], abstract.cpu(), fg.cpu())
-    cpu_s = time.time() - t3
-    got = out[:_CHECK_CHUNK].cpu().numpy()
-    d_err = float(np.abs(got[:, 0] - ref[:, 0]).max())
-    all_err = float(np.abs(got - ref).max())
-    chunks = -(-queries.shape[0] // _CHUNK)
-    expect = dict(gather=chunks, interp_g=chunks, attn_g=2 * chunks, attn=0, interp=0)
-    counts_ok = all(counts.get(k, 0) == v for k, v in expect.items())
-    emit(dict(phase='main_path_cv1', model='cv1', n_points=14336,
-              abstract_shape=list(abstract.shape), global_shape=list(fg.shape),
-              queries=int(queries.shape[0]), chunk=_CHUNK, chunks=chunks,
-              out_shape=list(out.shape), finite=finite, encode_ms=(t1 - t0) * 1e3,
-              decode_ms=(t2 - t1) * 1e3, scene_ms=(t2 - t0) * 1e3,
-              queries_per_s=queries.shape[0] / (t2 - t1),
-              solid_frac=float((out[:, 0] >= 0.5).float().mean()), launches=counts,
-              expected_launches=expect, cpu_check_queries=_CHECK_CHUNK,
-              cpu_check_s=cpu_s, density_max_abs_err_vs_cpu=d_err,
-              all_channels_max_abs_err_vs_cpu=all_err, gpu=smi))
-    if not finite or list(abstract.shape) != [1, _CV1_M, 3 + 288] \
-            or list(out.shape) != [queries.shape[0], 18]:
-        raise AssertionError('cv1 output is not finite or has the wrong shape')
-    if not counts_ok:
-        raise AssertionError(f'cv1 launches {counts} differ from {expect}')
-    if not d_err <= 1e-4:
-        raise AssertionError(f'cv1 density differs from the CPU run by {d_err}')
-    f32_scenes['cv1'] = dict(density=out[:, 0].clone(), scene_ms=(t2 - t0) * 1e3,
-                             decode_ms=(t2 - t1) * 1e3, pcl=pcl, queries=queries, cfg=ccfg,
-                             models=(cv1_encoder, cv1_decoder), seg=True)
-    del out, engine, cpu
-
-    # 4c. main_path_fast: both dense scenes again in precision='fast'.
-    path_counts['main_path_fast'] = {}
-    for name, f32 in f32_scenes.items():
-        for k, v in fast_scene(torch, dev, smi, name, f32).items():
-            path_counts['main_path_fast'][k] = path_counts['main_path_fast'].get(k, 0) + v
-    del f32_scenes, cv1_encoder, cv1_decoder
-    torch.cuda.empty_cache()
-
-    # 5. Both anchors on the card, against the CPU plain versions; the
-    # ground-truth labels through nn1_direct (the 'anchor' path's launches).
-    path_counts['anchor'] = {}
-    for name in ('anchor', 'anchor_carla'):
-        path = os.path.join(_HERE, 'tests', 'assets', name, 'checkpoint.pkl')
-        res, fast_counts = {}, {}
-        for run, device, precision in (('cuda', 'cuda', 'auto'), ('cpu', 'cpu', 'auto'),
-                                       ('fast', 'cuda', 'fast')):
-            L = load_models(path, device=device)
-            c = L['train_config']
-            seg = c.segmentation_lw > 0
-            eng = InferenceEngine(L, c.color_mode, seg, c.semantic_classes,
-                                  track_mode='all', implicit_batch_size=_CHUNK,
-                                  precision=precision)
-            r = np.random.RandomState(3)
-            n = L['encoder_args']['n_input']
-            cl = r.rand(n, 8).astype(np.float32) * 2 - 1
-            cl[:, -1] = 0.0
-            inst = (r.rand(n) > 0.5).astype(np.int64)
-            sem = np.stack([inst, inst, np.full(n, 4)], -1)
-            tgt = r.rand(2000, 11).astype(np.float32) * 2 - 1
-            if device == 'cuda':
-                torch.cuda.synchronize()
-                _build.reset_launch_counts()
-            res[run] = perform_inference(
-                cl, sem, tgt, eng, c.min_z, c.cr_cube_bounds, c.color_mode, 0,
-                num_sample=65536, point_sample_mode='grid', predict_segmentation=seg,
-                track_mode='all', semantic_classes=c.semantic_classes,
-                data_kind=L['data_kind'], cube_mode=c.cube_mode)
-            if run == 'cuda':
-                torch.cuda.synchronize()
-                for k, v in _build.launch_counts().items():
-                    path_counts['anchor'][k] = path_counts['anchor'].get(k, 0) + v
-            elif run == 'fast':
-                torch.cuda.synchronize()
-                fast_counts = _build.launch_counts()
-        g, cpu = res['cuda']['implicit_output'], res['cpu']['implicit_output']
-        err = float(np.abs(g[:, 0] - cpu[:, 0]).max())
-        far = np.abs(cpu[:, 0] - 0.5) > 1e-3
-        split_ok = bool(np.array_equal((g[:, 0] >= 0.5)[far], (cpu[:, 0] >= 0.5)[far]))
-        # Labels and 1-NN target rows, query by query, equal to the CPU's.
-        gt_g, gt_c = gt_per_query(res['cuda']), gt_per_query(res['cpu'])
-        gt_equal = bool(np.array_equal(gt_g, gt_c))
-        # precision='fast' on the card against the f32 run: its flip share.
-        fast = res['fast']['implicit_output']
-        f_share, f_n, f_far32, f_far = flip_stats(torch.tensor(fast[:, 0]), torch.tensor(g[:, 0]))
-        fast_bf16 = (fast_counts.get('attn_bf16', 0) + fast_counts.get('attn_g_bf16', 0) > 0
-                     and all(fast_counts.get(k, 0) == 0 for k in _FAST_F32))
-        ok = bool(np.isfinite(g).all()) and err <= 1e-4 and split_ok and gt_equal \
-            and bool(np.isfinite(fast).all()) and fast.shape == g.shape and fast_bf16
-        emit(dict(phase='anchor', name=name, queries=int(g.shape[0]),
-                  reruns=res['cuda']['phase_s']['track_reruns'],
-                  solid=int(len(res['cuda']['output_solid'])),
-                  density_max_abs_err_vs_cpu=err, split_agrees=split_ok,
-                  gt_labels_and_rows_equal_cpu=gt_equal,
-                  gt_label_mismatches=int((gt_g[:, 0] != gt_c[:, 0]).sum()),
-                  gt_solid_labels=int(gt_g[:, 0].sum()),
-                  fast_density_flip_share=f_share, fast_density_flips=f_n,
-                  fast_flip_max_abs_p_f32_minus_half=f_far32,
-                  fast_flip_max_abs_p_fast_minus_half=f_far,
-                  fast_density_max_abs_diff_vs_f32=float(np.abs(fast[:, 0] - g[:, 0]).max()),
-                  fast_launches={k: fast_counts.get(k, 0) for k in _FAST + _FAST_F32},
-                  ok=ok))
-        if not ok:
-            raise AssertionError(f'{name}: GPU inference disagrees with the CPU run, or the '
-                                 f"'fast' run failed (bf16 launches {fast_bf16})")
-        if name == 'anchor':
-            nn1_direct_line(torch, t_knn, dev, res['cuda']['points_query'], tgt,
-                            'anchor_grid_x_target')
-    if path_counts['anchor'].get('nn1_direct', 0) <= 0:
-        raise AssertionError('the anchors\' ground-truth labels did not launch nn1_direct')
-
-    # 5b. The eval driver: both anchors' committed metrics, gv1 at full width.
-    eval_driver(torch, dev, smi, path_counts)
-    torch.cuda.empty_cache()
-    # 5c. The train driver: gv1 at full width, resume, the convergence recipe.
-    train_driver(torch, dev, smi, path_counts)
-    torch.cuda.empty_cache()
-
-    # 5d-5f. A reference .pth through the eval driver and a warm start, the
-    # gv1 step with batch norm, the train loader's process workers.
+    # 4-13. The phases, in order (a --phases list runs the named ones and
+    # the ones they need, _PHASE_NEEDS), each followed by the card's cache
+    # emptied and its seconds.
     import shutil
     import tempfile
-    from occlusions4d_torch.data import synthetic
-    train_tmp = tempfile.mkdtemp(prefix='o4d_train_data_')
-    try:
-        train_data = os.path.join(train_tmp, 'gv1_data')
-        synthetic.make_greater_dataset(train_data, **_TD_GV1_SCENE)
-        reference_pth(torch, dev, smi, path_counts, train_data)
-        train_batchnorm(torch, dev, smi, path_counts)
-        train_loader_workers(torch, smi, train_data)
+    path_counts = {}
+    ctx = {}
+
+    def ph_main_path():
+        """4. The main path: encode + dense decode at gv1 width."""
+        loaded = dict(encoder=encoder, decoder=decoder, device=dev)
+        engine = InferenceEngine(loaded, cfg.color_mode, False, cfg.semantic_classes,
+                                 track_mode='none', implicit_batch_size=_CHUNK)
+        pcl = np.random.RandomState(0).rand(14336, 8).astype(np.float32) * 2 - 1
+        queries = blind_points_numpy(_NUM_SAMPLE, cfg.min_z, cfg.cr_cube_bounds, 0,
+                                     'greater', cfg.cube_mode, 'grid')
+        abstract, fg = engine.encode(pcl)          # warm-up run, not counted.
+        engine.decode_all(queries[:_CHUNK], abstract, fg, fetch=False)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        abstract, fg = engine.encode(pcl)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        out = engine.decode_all(queries, abstract, fg, fetch=False)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        counts = _build.launch_counts()
+        finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(abstract).all())
+        emit(dict(phase='main_path', model='gv1', n_points=14336,
+                  abstract_shape=list(abstract.shape), global_shape=list(fg.shape),
+                  queries=int(queries.shape[0]), chunk=_CHUNK, out_shape=list(out.shape),
+                  finite=finite, encode_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
+                  scene_ms=(t2 - t0) * 1e3, queries_per_s=queries.shape[0] / (t2 - t1),
+                  solid_frac=float((out[:, 0] >= 0.5).float().mean()),
+                  launches=counts, gpu=smi))
+        if not finite or list(abstract.shape) != [1, 531, 3 + 288] \
+                or list(out.shape) != [queries.shape[0], 5]:
+            raise AssertionError('main path output is not finite or has the wrong shape')
+        missing = [k for k in _INFER if counts.get(k, 0) <= 0]
+        shared = [k for k in _SHARED if counts.get(k, 0) != 0]
+        if missing or shared:
+            raise AssertionError(f'kernels not launched on the main path: {missing}; '
+                                 f'shared-gather kernels launched at M = 531: {shared}')
+        path_counts['main_path'] = counts
+        # The f32 scene that the 'fast' scene of main_path_fast is held against.
+        ctx.setdefault('f32_scenes', {})['gv1'] = (dict(density=out[:, 0].clone(), scene_ms=(t2 - t0) * 1e3,
+                                  decode_ms=(t2 - t1) * 1e3, pcl=pcl, queries=queries,
+                                  cfg=cfg, models=(encoder, decoder), seg=False))
+        del out
+
+    def ph_main_path_cv1():
+        """4b. cv1 at full width over the CARLA grid: the shared-gather route."""
+        engine = InferenceEngine(dict(encoder=cv1_encoder, decoder=cv1_decoder, device=dev),
+                                 ccfg.color_mode, True, ccfg.semantic_classes,
+                                 track_mode='none', implicit_batch_size=_CHUNK)
+        queries = blind_points_numpy(_NUM_SAMPLE, ccfg.min_z, ccfg.cr_cube_bounds, 0,
+                                     'carla', ccfg.cube_mode, 'grid')
+        r = np.random.RandomState(5)
+        pcl = r.rand(14336, 8).astype(np.float32) * 2 - 1
+        lo, hi = queries[:, :3].min(0), queries[:, :3].max(0)
+        pcl[:, :3] = r.rand(14336, 3).astype(np.float32) * (hi - lo) + lo  # in the cuboid.
+        abstract, fg = engine.encode(pcl)          # warm-up run, not counted.
+        engine.decode_all(queries[:_CHUNK], abstract, fg, fetch=False)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        abstract, fg = engine.encode(pcl)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        out = engine.decode_all(queries, abstract, fg, fetch=False)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        counts = _build.launch_counts()
+        path_counts['main_path_cv1'] = counts
+        finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(abstract).all())
+        # One chunk again on the CPU (plain versions, the same shared-gather
+        # route) from the card's abstract cloud and global vector.
+        cpu = InferenceEngine(dict(encoder=None, decoder=copy.deepcopy(cv1_decoder).cpu(),
+                                   device=torch.device('cpu')),
+                              ccfg.color_mode, True, ccfg.semantic_classes,
+                              track_mode='none', implicit_batch_size=_CHECK_CHUNK)
+        t3 = time.time()
+        ref = cpu.decode_all(queries[:_CHECK_CHUNK], abstract.cpu(), fg.cpu())
+        cpu_s = time.time() - t3
+        got = out[:_CHECK_CHUNK].cpu().numpy()
+        d_err = float(np.abs(got[:, 0] - ref[:, 0]).max())
+        all_err = float(np.abs(got - ref).max())
+        chunks = -(-queries.shape[0] // _CHUNK)
+        expect = dict(gather=chunks, interp_g=chunks, attn_g=2 * chunks, attn=0, interp=0)
+        counts_ok = all(counts.get(k, 0) == v for k, v in expect.items())
+        emit(dict(phase='main_path_cv1', model='cv1', n_points=14336,
+                  abstract_shape=list(abstract.shape), global_shape=list(fg.shape),
+                  queries=int(queries.shape[0]), chunk=_CHUNK, chunks=chunks,
+                  out_shape=list(out.shape), finite=finite, encode_ms=(t1 - t0) * 1e3,
+                  decode_ms=(t2 - t1) * 1e3, scene_ms=(t2 - t0) * 1e3,
+                  queries_per_s=queries.shape[0] / (t2 - t1),
+                  solid_frac=float((out[:, 0] >= 0.5).float().mean()), launches=counts,
+                  expected_launches=expect, cpu_check_queries=_CHECK_CHUNK,
+                  cpu_check_s=cpu_s, density_max_abs_err_vs_cpu=d_err,
+                  all_channels_max_abs_err_vs_cpu=all_err, gpu=smi))
+        if not finite or list(abstract.shape) != [1, _CV1_M, 3 + 288] \
+                or list(out.shape) != [queries.shape[0], 18]:
+            raise AssertionError('cv1 output is not finite or has the wrong shape')
+        if not counts_ok:
+            raise AssertionError(f'cv1 launches {counts} differ from {expect}')
+        if not d_err <= 1e-4:
+            raise AssertionError(f'cv1 density differs from the CPU run by {d_err}')
+        ctx.setdefault('f32_scenes', {})['cv1'] = dict(density=out[:, 0].clone(), scene_ms=(t2 - t0) * 1e3,
+                                 decode_ms=(t2 - t1) * 1e3, pcl=pcl, queries=queries, cfg=ccfg,
+                                 models=(cv1_encoder, cv1_decoder), seg=True)
+        del out, engine, cpu
+
+    def ph_main_path_fast():
+        """4c. Both dense scenes again in precision='fast'."""
+        path_counts['main_path_fast'] = {}
+        for name, f32 in ctx.pop('f32_scenes').items():
+            for k, v in fast_scene(torch, dev, smi, name, f32).items():
+                path_counts['main_path_fast'][k] = path_counts['main_path_fast'].get(k, 0) + v
         torch.cuda.empty_cache()
-        # 5g-5h. Data-parallel training and the query-sharded dense eval.
-        train_data_parallel(torch, dev, smi, path_counts, train_data)
+
+    def ph_anchor():
+        """5. Both anchors on the card against the CPU plain versions."""
+        # The ground-truth labels through nn1_direct (the 'anchor' path's
+        # launches).
+        path_counts['anchor'] = {}
+        for name in ('anchor', 'anchor_carla'):
+            path = os.path.join(_HERE, 'tests', 'assets', name, 'checkpoint.pkl')
+            res, fast_counts = {}, {}
+            for run, device, precision in (('cuda', 'cuda', 'auto'), ('cpu', 'cpu', 'auto'),
+                                           ('fast', 'cuda', 'fast')):
+                L = load_models(path, device=device)
+                c = L['train_config']
+                seg = c.segmentation_lw > 0
+                eng = InferenceEngine(L, c.color_mode, seg, c.semantic_classes,
+                                      track_mode='all', implicit_batch_size=_CHUNK,
+                                      precision=precision)
+                r = np.random.RandomState(3)
+                n = L['encoder_args']['n_input']
+                cl = r.rand(n, 8).astype(np.float32) * 2 - 1
+                cl[:, -1] = 0.0
+                inst = (r.rand(n) > 0.5).astype(np.int64)
+                sem = np.stack([inst, inst, np.full(n, 4)], -1)
+                tgt = r.rand(2000, 11).astype(np.float32) * 2 - 1
+                if device == 'cuda':
+                    torch.cuda.synchronize()
+                    _build.reset_launch_counts()
+                res[run] = perform_inference(
+                    cl, sem, tgt, eng, c.min_z, c.cr_cube_bounds, c.color_mode, 0,
+                    num_sample=65536, point_sample_mode='grid', predict_segmentation=seg,
+                    track_mode='all', semantic_classes=c.semantic_classes,
+                    data_kind=L['data_kind'], cube_mode=c.cube_mode)
+                if run == 'cuda':
+                    torch.cuda.synchronize()
+                    for k, v in _build.launch_counts().items():
+                        path_counts['anchor'][k] = path_counts['anchor'].get(k, 0) + v
+                elif run == 'fast':
+                    torch.cuda.synchronize()
+                    fast_counts = _build.launch_counts()
+            g, cpu = res['cuda']['implicit_output'], res['cpu']['implicit_output']
+            err = float(np.abs(g[:, 0] - cpu[:, 0]).max())
+            far = np.abs(cpu[:, 0] - 0.5) > 1e-3
+            split_ok = bool(np.array_equal((g[:, 0] >= 0.5)[far], (cpu[:, 0] >= 0.5)[far]))
+            # Labels and 1-NN target rows, query by query, equal to the CPU's.
+            gt_g, gt_c = gt_per_query(res['cuda']), gt_per_query(res['cpu'])
+            gt_equal = bool(np.array_equal(gt_g, gt_c))
+            # precision='fast' on the card against the f32 run: its flip share.
+            fast = res['fast']['implicit_output']
+            f_share, f_n, f_far32, f_far = flip_stats(torch.tensor(fast[:, 0]), torch.tensor(g[:, 0]))
+            fast_bf16 = (fast_counts.get('attn_bf16', 0) + fast_counts.get('attn_g_bf16', 0) > 0
+                         and all(fast_counts.get(k, 0) == 0 for k in _FAST_F32))
+            ok = bool(np.isfinite(g).all()) and err <= 1e-4 and split_ok and gt_equal \
+                and bool(np.isfinite(fast).all()) and fast.shape == g.shape and fast_bf16
+            emit(dict(phase='anchor', name=name, queries=int(g.shape[0]),
+                      reruns=res['cuda']['phase_s']['track_reruns'],
+                      solid=int(len(res['cuda']['output_solid'])),
+                      density_max_abs_err_vs_cpu=err, split_agrees=split_ok,
+                      gt_labels_and_rows_equal_cpu=gt_equal,
+                      gt_label_mismatches=int((gt_g[:, 0] != gt_c[:, 0]).sum()),
+                      gt_solid_labels=int(gt_g[:, 0].sum()),
+                      fast_density_flip_share=f_share, fast_density_flips=f_n,
+                      fast_flip_max_abs_p_f32_minus_half=f_far32,
+                      fast_flip_max_abs_p_fast_minus_half=f_far,
+                      fast_density_max_abs_diff_vs_f32=float(np.abs(fast[:, 0] - g[:, 0]).max()),
+                      fast_launches={k: fast_counts.get(k, 0) for k in _FAST + _FAST_F32},
+                      ok=ok))
+            if not ok:
+                raise AssertionError(f'{name}: GPU inference disagrees with the CPU run, or the '
+                                     f"'fast' run failed (bf16 launches {fast_bf16})")
+            if name == 'anchor':
+                nn1_direct_line(torch, t_knn, dev, res['cuda']['points_query'], tgt,
+                                'anchor_grid_x_target')
+        if path_counts['anchor'].get('nn1_direct', 0) <= 0:
+            raise AssertionError('the anchors\' ground-truth labels did not launch nn1_direct')
+
+    def train_data():
+        """The gv1 recipe's synthetic train / val dataset (made once)."""
+        if 'train_data' not in ctx:
+            from occlusions4d_torch.data import synthetic
+            ctx['train_tmp'] = tempfile.mkdtemp(prefix='o4d_train_data_')
+            data = os.path.join(ctx['train_tmp'], 'gv1_data')
+            synthetic.make_greater_dataset(data, **_TD_GV1_SCENE)
+            ctx['train_data'] = data
+        return ctx['train_data']
+
+    def ph_train():
+        """6. The gv1 train step."""
+        from occlusions4d_torch.train import Trainer
+        tcfg = TrainConfig(**_GV1_TRAIN)
+        tr = Trainer(tcfg, 'greater', 'cuda')
+        wrng = np.random.RandomState(2)
+        tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
+                                  decoder=random_jax_params(tr.decoder, wrng)),
+                      seed=0, steps_per_epoch=100)
+        batch = train_batch(torch, tcfg, dev)
+        steps, counts, changed, peak_gb, split, warm_ms = run_train_phase(torch, tr, batch, 3)
+        path_counts['train'] = counts
+        # The sampler's pruned 1-NN (air rejections) at its gv1 shape.
+        tgt0 = batch['pcl_target'][:, 0, :, :3].contiguous()
+        cand = tgt0[:, :6996] + 0.3
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            tr.encoder(batch['pcl_input'], generator=tr.generator)
+        enc_pruned = _build.launch_counts()['knn_pruned']
+        calls = counts['knn_pruned'] // 3 - enc_pruned   # per step, less the encoder's.
+        pruned_ms = cuda_ms(torch, lambda: t_knn.nn1_min_dist(cand, tgt0), 5)
+        step_ms = float(np.mean([st['ms'] for st in steps]))
+        ok = (all(np.isfinite(st['total_loss']) and st['grads_finite'] and st['params_finite']
+                  for st in steps) and changed > 0.0
+              and list(split) == ['encoder', 'sampler', 'decoder_forward', 'decoder_backward',
+                                  'encoder_backward', 'optimizer'])
+        emit(dict(phase='train', model='gv1', batch_size=tcfg.batch_size,
+                  frames=tcfg.past_frames, queries_per_frame=7168 + 10752,
+                  warmup_ms=warm_ms, step_ms=[st['ms'] for st in steps], mean_step_ms=step_ms,
+                  steps=steps, launches=counts, params_changed_max_abs=changed,
+                  split_ms=split, peak_mem_gib=peak_gb,
+                  sampler_pruned_knn_ms_per_call=pruned_ms, sampler_pruned_knn_calls=calls,
+                  sampler_pruned_knn_share=pruned_ms * calls / step_ms, ok=ok, gpu=smi))
+        missing = [k for k in _TRAIN if counts.get(k, 0) <= 0]
+        if missing or not ok:
+            raise AssertionError(f'train phase failed: not launched {missing}, ok={ok}')
+        # interp_bwd on the indices of one real train frame (sampled queries
+        # against the seeded encoder's abstract cloud), for their key skew.
+        with torch.no_grad():
+            abstract, _ = tr.encoder(batch['pcl_input'], generator=tr.generator)
+            frame = tr.pipeline.sample_frames(batch, tr.generator)[0]
+            ki, kd = t_attn.knn_extract(frame['points_query'][..., :3], abstract[..., :3],
+                                        tcfg.cross_attn_neighbors)
+            gi = torch.randn((ki.shape[0], ki.shape[1], abstract.shape[2] - 3), device=dev)
+            rows['interp_bwd']['real_frame'] = interp_bwd_line(
+                torch, t_attn, dev, ki, kd, gi, abstract.shape[1], tcfg.num_cr_local_feats,
+                'gv1_real_frame')
+            del abstract, frame, ki, kd, gi
+        ctx['train'] = (tr, batch, tcfg)
+
+    def ph_sampler_moving():
+        """7. The sampler's 'moving' branch at gv1 sizes."""
+        tr, batch, tcfg = ctx.pop('train')
+        from occlusions4d_torch.models.factory import build_sampler_args
+        from occlusions4d_torch.sampler import GuidedPointSampler, SamplerConfig
+        sampler = GuidedPointSampler(SamplerConfig(**dict(
+            build_sampler_args(tcfg, 'greater'), point_sample_bias='moving')))
+        tgt = batch['pcl_target'][:, 0]
+        valid = batch['pcl_target_valid'][:, 0]
+        other = tgt.clone()
+        other[:, :2000, :3] += 3.0                   # a moved object.
+        _build.reset_launch_counts()
+        t0 = time.time()
+        res = sampler.sample_frame(tr.generator, tgt, valid, other, valid, batch['valo_ids'],
+                                   batch['num_valo_ids'], 0)
+        torch.cuda.synchronize()
+        s_ms = (time.time() - t0) * 1e3
+        counts = _build.launch_counts()
+        path_counts['sampler_moving'] = counts
+        a, b3 = tgt[..., :3].contiguous(), other[..., :3].contiguous()
+        ka, kb = t_knn.nn1_bidir_rank(a, t_knn.sq_norm(a), b3, t_knn.sq_norm(b3))
+        pa, pb = t_knn.nn1_bidir_plain(a, t_knn.sq_norm(a), b3, t_knn.sq_norm(b3))
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(ka, pa)) and bool(torch.equal(kb, pb))
+        finite = all(bool(torch.isfinite(res[k]).all())
+                     for k in ('solid_input', 'air_input', 'solid_target', 'air_target'))
+        emit(dict(phase='sampler_moving', ms=s_ms, launches=counts, nn1_exact=exact,
+                  finite=finite, solid_sbs=res['solid_sbs'].mean(0).tolist(),
+                  air_sbs=res['air_sbs'].mean(0).tolist(), ok=bool(res['ok'].all()),
+                  air_pool_counts=res['air_pool_counts'].tolist()))
+        if counts['nn1_bidir'] <= 0 or not exact or not finite:
+            raise AssertionError('sampler_moving failed: nn1_bidir launches '
+                                 f'{counts["nn1_bidir"]}, exact {exact}, finite {finite}')
+
+        del tr, batch, res
+
+    def ph_train_cv1():
+        """8. The cv1 train step: the shared-gather route's backward kernels."""
+        rows['scatter']['real_frame'] = train_cv1(torch, dev, smi, path_counts)
+
+    phases = dict(
+        main_path=ph_main_path, main_path_cv1=ph_main_path_cv1,
+        main_path_fast=ph_main_path_fast, anchor=ph_anchor,
+        eval_driver=lambda: eval_driver(torch, dev, smi, path_counts),
+        train_driver=lambda: train_driver(torch, dev, smi, path_counts),
+        reference_pth=lambda: reference_pth(torch, dev, smi, path_counts, train_data()),
+        train_batchnorm=lambda: train_batchnorm(torch, dev, smi, path_counts),
+        train_loader_workers=lambda: train_loader_workers(torch, smi, train_data()),
+        train_data_parallel=lambda: train_data_parallel(torch, dev, smi, path_counts,
+                                                        train_data()),
+        eval_query_parallel=lambda: eval_query_parallel(torch, dev, smi, path_counts),
+        train=ph_train, sampler_moving=ph_sampler_moving, train_cv1=ph_train_cv1,
+        train_bf16=lambda: train_bf16(torch, dev, smi, path_counts),
+        train_sattn=lambda: train_fused_phase(torch, dev, smi, path_counts, 'train_sattn',
+                                              _GV1_TRAIN, _SATTN_STEP, 8),
+        train_57k=lambda: train_fused_phase(torch, dev, smi, path_counts, 'train_57k', _N57,
+                                            _57K_STEP, 10),
+        train_mixed=lambda: train_mixed(torch, dev, smi, path_counts),
+        decoder_wide=lambda: decoder_wide(torch, t_attn, dev, smi),
+        profile_trace=lambda: profile_trace(torch, dev, smi, path_counts, train_data()),
+        train_module_decoder=lambda: train_module_decoder(torch, dev, smi, path_counts),
+        check_numerics=lambda: check_numerics(torch, dev, smi, path_counts),
+        store_activations=lambda: store_activations(torch, dev, smi, path_counts),
+        encoder_up=lambda: encoder_up(torch, t_knn, t_fps, dev, smi, path_counts))
+    assert tuple(phases) == PHASES
+    run = phases_to_run(only)
+    emit(dict(phase='phases', requested=list(only) if only else 'all', run=list(run)))
+    try:
+        for name in run:
+            t0 = time.time()
+            phases[name]()
+            torch.cuda.empty_cache()
+            emit(dict(phase='phase_seconds', name=name, seconds=time.time() - t0))
     finally:
-        shutil.rmtree(train_tmp, ignore_errors=True)
-    torch.cuda.empty_cache()
-    eval_query_parallel(torch, dev, smi, path_counts)
-    torch.cuda.empty_cache()
+        if 'train_tmp' in ctx:
+            shutil.rmtree(ctx['train_tmp'], ignore_errors=True)
 
-    # 6. The gv1 train step.
-    from occlusions4d_torch.train import Trainer
-    tcfg = TrainConfig(**_GV1_TRAIN)
-    tr = Trainer(tcfg, 'greater', 'cuda')
-    wrng = np.random.RandomState(2)
-    tr.init_state(params=dict(encoder=random_jax_params(tr.encoder, wrng),
-                              decoder=random_jax_params(tr.decoder, wrng)),
-                  seed=0, steps_per_epoch=100)
-    batch = train_batch(torch, tcfg, dev)
-    steps, counts, changed, peak_gb, split, warm_ms = run_train_phase(torch, tr, batch, 3)
-    path_counts['train'] = counts
-    # The sampler's pruned 1-NN (air rejections) at its gv1 shape.
-    tgt0 = batch['pcl_target'][:, 0, :, :3].contiguous()
-    cand = tgt0[:, :6996] + 0.3
-    _build.reset_launch_counts()
-    with torch.no_grad():
-        tr.encoder(batch['pcl_input'], generator=tr.generator)
-    enc_pruned = _build.launch_counts()['knn_pruned']
-    calls = counts['knn_pruned'] // 3 - enc_pruned   # per step, less the encoder's.
-    pruned_ms = cuda_ms(torch, lambda: t_knn.nn1_min_dist(cand, tgt0), 5)
-    step_ms = float(np.mean([st['ms'] for st in steps]))
-    ok = (all(np.isfinite(st['total_loss']) and st['grads_finite'] and st['params_finite']
-              for st in steps) and changed > 0.0
-          and list(split) == ['encoder', 'sampler', 'decoder_forward', 'decoder_backward',
-                              'encoder_backward', 'optimizer'])
-    emit(dict(phase='train', model='gv1', batch_size=tcfg.batch_size,
-              frames=tcfg.past_frames, queries_per_frame=7168 + 10752,
-              warmup_ms=warm_ms, step_ms=[st['ms'] for st in steps], mean_step_ms=step_ms,
-              steps=steps, launches=counts, params_changed_max_abs=changed,
-              split_ms=split, peak_mem_gib=peak_gb,
-              sampler_pruned_knn_ms_per_call=pruned_ms, sampler_pruned_knn_calls=calls,
-              sampler_pruned_knn_share=pruned_ms * calls / step_ms, ok=ok, gpu=smi))
-    missing = [k for k in _TRAIN if counts.get(k, 0) <= 0]
-    if missing or not ok:
-        raise AssertionError(f'train phase failed: not launched {missing}, ok={ok}')
-    # interp_bwd on the indices of one real train frame (sampled queries
-    # against the seeded encoder's abstract cloud), for their key skew.
-    with torch.no_grad():
-        abstract, _ = tr.encoder(batch['pcl_input'], generator=tr.generator)
-        frame = tr.pipeline.sample_frames(batch, tr.generator)[0]
-        ki, kd = t_attn.knn_extract(frame['points_query'][..., :3], abstract[..., :3],
-                                    tcfg.cross_attn_neighbors)
-        gi = torch.randn((ki.shape[0], ki.shape[1], abstract.shape[2] - 3), device=dev)
-        rows['interp_bwd']['real_frame'] = interp_bwd_line(
-            torch, t_attn, dev, ki, kd, gi, abstract.shape[1], tcfg.num_cr_local_feats,
-            'gv1_real_frame')
-        del abstract, frame, ki, kd, gi
-
-    # 7. The sampler's 'moving' branch at gv1 sizes.
-    from occlusions4d_torch.models.factory import build_sampler_args
-    from occlusions4d_torch.sampler import GuidedPointSampler, SamplerConfig
-    sampler = GuidedPointSampler(SamplerConfig(**dict(
-        build_sampler_args(tcfg, 'greater'), point_sample_bias='moving')))
-    tgt = batch['pcl_target'][:, 0]
-    valid = batch['pcl_target_valid'][:, 0]
-    other = tgt.clone()
-    other[:, :2000, :3] += 3.0                   # a moved object.
-    _build.reset_launch_counts()
-    t0 = time.time()
-    res = sampler.sample_frame(tr.generator, tgt, valid, other, valid, batch['valo_ids'],
-                               batch['num_valo_ids'], 0)
-    torch.cuda.synchronize()
-    s_ms = (time.time() - t0) * 1e3
-    counts = _build.launch_counts()
-    path_counts['sampler_moving'] = counts
-    a, b3 = tgt[..., :3].contiguous(), other[..., :3].contiguous()
-    ka, kb = t_knn.nn1_bidir_rank(a, t_knn.sq_norm(a), b3, t_knn.sq_norm(b3))
-    pa, pb = t_knn.nn1_bidir_plain(a, t_knn.sq_norm(a), b3, t_knn.sq_norm(b3))
-    torch.cuda.synchronize()
-    exact = bool(torch.equal(ka, pa)) and bool(torch.equal(kb, pb))
-    finite = all(bool(torch.isfinite(res[k]).all())
-                 for k in ('solid_input', 'air_input', 'solid_target', 'air_target'))
-    emit(dict(phase='sampler_moving', ms=s_ms, launches=counts, nn1_exact=exact,
-              finite=finite, solid_sbs=res['solid_sbs'].mean(0).tolist(),
-              air_sbs=res['air_sbs'].mean(0).tolist(), ok=bool(res['ok'].all()),
-              air_pool_counts=res['air_pool_counts'].tolist()))
-    if counts['nn1_bidir'] <= 0 or not exact or not finite:
-        raise AssertionError('sampler_moving failed: nn1_bidir launches '
-                             f'{counts["nn1_bidir"]}, exact {exact}, finite {finite}')
-
-    del tr, batch, res
-    torch.cuda.empty_cache()
-
-    # 8. The cv1 train step: the shared-gather route's backward kernels.
-    rows['scatter']['real_frame'] = train_cv1(torch, dev, smi, path_counts)
-    torch.cuda.empty_cache()
-    # 8b. The gv1 and cv1 train steps with fused_decoder_dtype='bf16'.
-    train_bf16(torch, dev, smi, path_counts)
-    torch.cuda.empty_cache()
-
-    # 9. The gv1 train step through the encoder's fused self-attention.
-    train_fused_phase(torch, dev, smi, path_counts, 'train_sattn', _GV1_TRAIN, _SATTN_STEP,
-                      8)
-    torch.cuda.empty_cache()
-    # 10. The n57344 train step (FPS cluster entry, shared-gather decoder).
-    train_fused_phase(torch, dev, smi, path_counts, 'train_57k', _N57, _57K_STEP, 10)
-    torch.cuda.empty_cache()
-    # 10b. mixed_precision: gv1 'auto' / 'on' x decoder f32 / bf16, n57344 'on'.
-    train_mixed(torch, dev, smi, path_counts)
-
-    torch.cuda.empty_cache()
-    # 11. Decoders wider than one 416-column attention block.
-    decoder_wide(torch, t_attn, dev, smi)
-
-    # 12. Summary lines.
+    # 14. Summary lines: every kernel's row (with a --phases list, the rows
+    # the run phases launched), its launches on its path and on each phase
+    # of _PHASE_COLUMNS.
     kernels = []
     for name, src in _SOURCE.items():
+        path = _PATH[name]
+        ran = [ph for ph in run if ph in path_counts]
+        if only and not any(path_counts[ph].get(name, 0) for ph in ran):
+            continue
         row = dict(name=name, route='cuda', source=f'occlusions4d_torch/csrc/{src}.cu',
-                   replaces=_REPLACES[name], path=_PATH[name],
-                   launches=int(path_counts[_PATH[name]].get(name, 0)))
-        for phase in ('eval_driver', 'train_driver', 'train_data_parallel',
-                      'eval_query_parallel'):
-            row[phase] = int(path_counts[phase].get(name, 0))
+                   replaces=_REPLACES[name], path=path)
+        row['launches'] = int(path_counts[path].get(name, 0) if path in path_counts
+                              else sum(path_counts[ph].get(name, 0) for ph in ran))
+        for phase in _PHASE_COLUMNS:
+            if phase in path_counts:
+                row[phase] = int(path_counts[phase].get(name, 0))
         if name in _OFF_PATH:
             row['on_main_path'] = False
             row['note'] = _OFF_PATH[name]
         elif row['launches'] <= 0:
-            raise AssertionError(f'{name} did not launch on its path {_PATH[name]}')
+            raise AssertionError(f'{name} did not launch on its path {path}')
         row.update(rows[name])
         kernels.append(row)
     emit(dict(phase='done', seconds=time.time() - t_start))
@@ -4807,4 +5493,12 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--loader-workers']:
         sys.path.insert(0, _HERE)
         sys.exit(loader_workers_child(sys.argv[2]))
-    sys.exit(main())
+    if sys.argv[1:2] == ['--convergence']:
+        sys.path.insert(0, _HERE)
+        sys.exit(convergence_child(sys.argv[2]))
+    try:
+        only = parse_phases(sys.argv[1:])
+    except ValueError as e:
+        print(f'chip_smoke: {e}', file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(only))

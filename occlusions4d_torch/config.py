@@ -5,8 +5,10 @@ defaults but for device):
     line (python -m occlusions4d_torch.train), flag for flag the JAX
     package's, with its auto tag, output path and `--resume v6` resolution.
     device is 'cuda' (the JAX package's 'tpu'); '--device cpu' trains with
-    the plain versions. The flags the port does not implement yet parse,
-    and verify_args raises NotImplementedError naming their ROADMAP item.
+    the plain versions. --checkpoint_format orbax parses, and verify_args
+    raises NotImplementedError for it (orbax is not installed where the port
+    runs). --check_numerics, --watch_networks / --use_wandb, --profile_steps
+    and --fused_decoder off train as in the JAX package (train.py).
     Checkpoints carry the full config dict; config_from_dict keeps the
     fields known here and ignores the rest. --resume takes either package's
     .pkl, a reference .pth (a warm start: weights and epoch) or a run
@@ -145,15 +147,15 @@ class TrainConfig(SharedConfig):
     # data-parallel training (train.main; -1 the largest divisor of the batch
     # that the host's cards hold); query_parallel: devices of the dense eval
     # (the eval side's; the train side parses it and leaves it unused, as
-    # the JAX package does). check_numerics, watch_networks and profile_steps
-    # parse; verify_args refuses them unless they ask for what the port
-    # already does (_refused_train_flags).
+    # the JAX package does). check_numerics, watch_networks and
+    # profile_steps: train.py.
     data_parallel: int = -1
     query_parallel: int = 1
     # The decoder in the train step: 'auto' and 'on' take the fused decoder
     # (models/fused.py: kernels on the card, plain versions on the CPU)
-    # where supports_fused covers the configuration; 'off' (the module path
-    # for every configuration) is refused.
+    # where supports_fused covers the configuration; 'off' the module path
+    # (the decoder's modules, each frame recomputed in the backward;
+    # pipeline.py), as --check_numerics does.
     fused_decoder: str = 'auto'
     # The fused decoder's compute dtype, forward and backward: 'bf16',
     # 'f32', or 'auto', which is bf16 on a TPU in the JAX package and f32
@@ -223,17 +225,9 @@ def _add_fields(parser, cls):
 
 
 def _refused_train_flags(args):
-    '''The train flags the port parses but does not implement yet, each with
-    the ROADMAP Queue 1 item that will: [(flag, item)].'''
+    '''The train flags the port parses but does not implement, each with
+    its ROADMAP Queue 1 item: [(flag, item)].'''
     out = []
-    if args.check_numerics:
-        out.append(('--check_numerics', 7))
-    if args.watch_networks or args.use_wandb:
-        out.append(('the per-layer norms of --watch_networks / --use_wandb', 7))
-    if args.profile_steps > 0:
-        out.append((f'--profile_steps {args.profile_steps}', 7))
-    if args.fused_decoder == 'off':
-        out.append(('--fused_decoder off (the module path)', 7))
     if args.checkpoint_format == 'orbax':
         out.append(('--checkpoint_format orbax', 5))
     return out
@@ -242,8 +236,9 @@ def _refused_train_flags(args):
 def verify_args(args, is_train=False):
     '''The JAX package's argument checks and num_workers default. The train
     side accepts --device cuda (the default) or cpu (the plain versions) and
-    raises NotImplementedError, naming the ROADMAP item, for a flag the port
-    does not implement yet; the eval side takes cuda and thread workers only.'''
+    raises NotImplementedError, naming the ROADMAP item, for
+    --checkpoint_format orbax; the eval side takes cuda and thread workers
+    only.'''
     assert args.worker_mode in ('thread', 'process')
     assert getattr(args, 'checkpoint_format', 'pkl') in ('pkl', 'orbax')
     assert args.sample_bias in ('none', 'move', 'occl', 'move_occl', 'occl_move')
@@ -287,7 +282,7 @@ def verify_args(args, is_train=False):
     refused = _refused_train_flags(args)
     if refused:
         raise NotImplementedError('; '.join(
-            f'{flag} is not part of the port yet (ROADMAP.md Queue 1 item {item})'
+            f'{flag} is not part of the port (ROADMAP.md Queue 1 item {item})'
             for flag, item in refused))
     return args
 

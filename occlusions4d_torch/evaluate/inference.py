@@ -20,6 +20,11 @@ __init__ resolves it (self.precision holds the result):
   'auto'          'f32': JAX resolves 'auto' to 'f32' off a TPU, and the
                   anchors' committed metrics were computed that way.
 fused_decode=True / False overrides precision to 'fast' / 'f32'.
+store_activations=True keeps the decoder's penultimate activations (the
+input of its output layer; the fused path's penult in every precision, the
+module path's second output) as float16 beside the outputs: decode_all
+returns both, and finish_inference keeps the predicted-solid rows
+(result['penult_solid']), for offline analysis (--store_activations).
 The encoder keeps f32 in every mode: its kNN and FPS take no compute dtype
 (the TPU kernels have none), and bf16 features would move FPS's picks. On
 CUDA every kNN/FPS goes through its kernel; on the CPU the same code runs the
@@ -154,14 +159,16 @@ class InferenceEngine:
     rounded down to a multiple of the device count (at least one query
     each), and each chunk's queries are split in contiguous slices, one a
     device, launched device after device (so that cards overlap), the
-    outputs joined on the first device in query order. Every kernel wrapper
-    launches on its tensors' device. The encoder runs once, on the first
-    device; its abstract cloud and global feature are copied to the
-    others.'''
+    outputs (and the activations) joined on the first device in query
+    order. Every kernel wrapper launches on its tensors' device. The encoder
+    runs once, on the first device; its abstract cloud and global feature
+    are copied to the others.'''
 
     def __init__(self, loaded, color_mode, predict_segmentation, semantic_classes,
                  track_mode='none', implicit_batch_size=65536, precision='auto',
-                 fused_decode=None, query_parallel=-1, devices=None):
+                 fused_decode=None, query_parallel=-1, devices=None,
+                 store_activations=False):
+        self.store_activations = store_activations
         self.encoder = loaded['encoder']
         self.decoder = loaded['decoder']
         self.precision = resolve_precision(self.decoder, precision, fused_decode)
@@ -188,16 +195,18 @@ class InferenceEngine:
 
     @torch.no_grad()
     def _decode(self, q, abstract, fg, decoder=None):
+        '''(squashed outputs, float16 penultimate activations or None).'''
         # Configurations outside the fused path have no decoder kernel in the
         # JAX package either; they run the module path there and here.
         decoder = self.decoder if decoder is None else decoder
         if supports_fused(decoder):
             dtype = torch.bfloat16 if self.precision == 'fast' else torch.float32
-            out, _ = fused_field_apply(decoder, q, abstract, fg, compute_dtype=dtype)
+            out, penult = fused_field_apply(decoder, q, abstract, fg, compute_dtype=dtype)
         else:
-            out, _ = decoder(q, abstract, fg)
-        return squash_eval(out, self.color_mode, self.predict_segmentation,
-                           self.semantic_classes, self.track_mode)
+            out, penult = decoder(q, abstract, fg)
+        out = squash_eval(out, self.color_mode, self.predict_segmentation,
+                          self.semantic_classes, self.track_mode)
+        return out, (penult.to(torch.float16) if self.store_activations else None)
 
     @torch.no_grad()
     def decode_all(self, points_query, abstract, fg, fetch=True):
@@ -205,14 +214,15 @@ class InferenceEngine:
         Stream the queries through chunks of implicit_batch_size.
         :param points_query (P, 4) numpy array or tensor.
         :param fetch (bool): return numpy (True) or a device tensor (False).
-        :return (P, C) squashed outputs.
+        :return (P, C) squashed outputs; with store_activations the pair
+            (outputs, (P, d_hidden) float16 penultimate activations).
         '''
         q = _to_device(points_query, self.device)
         # Each device's copy of the encoding (the first device's are the
         # inputs themselves); with one device a chunk is one slice.
         enc = [(abstract, fg)] + [(abstract.to(d), fg.to(d)) for d in self.devices[1:]]
         part = self.chunk // len(self.devices)
-        outs = []
+        outs, penults = [], []
         for c0 in range(0, q.shape[0], self.chunk):
             for i, (dev, dec) in enumerate(zip(self.devices, self.decoders)):
                 lo = c0 + i * part
@@ -220,9 +230,16 @@ class InferenceEngine:
                 if lo >= hi:     # the tail chunk's empty slices.
                     break
                 qs = q[None, lo:hi].to(dev, non_blocking=True)
-                outs.append(self._decode(qs, *enc[i], decoder=dec)[0])
-        out = torch.cat([o.to(self.device) for o in outs], 0)
-        return out.cpu().numpy() if fetch else out
+                out, penult = self._decode(qs, *enc[i], decoder=dec)
+                outs.append(out[0])
+                if penult is not None:
+                    penults.append(penult[0])
+        res = [torch.cat([o.to(self.device) for o in outs], 0)]
+        if self.store_activations:
+            res.append(torch.cat([p.to(self.device) for p in penults], 0))
+        if fetch:
+            res = [r.cpu().numpy() for r in res]
+        return tuple(res) if self.store_activations else res[0]
 
 
 def dispatch_inference(pcl_input, pcl_input_sem, engine, min_z, cube_bounds,
@@ -252,6 +269,7 @@ def dispatch_inference(pcl_input, pcl_input_sem, engine, min_z, cube_bounds,
                                       data_kind, cube_mode, point_sample_mode,
                                       rng=rng)
     all_abstract, all_global, all_out = [], [], []
+    penult = None
     pcl_input = np.array(pcl_input, np.float32)
     t0 = time.time()
     for mark_inst_id in track_instance_ids:
@@ -262,11 +280,16 @@ def dispatch_inference(pcl_input, pcl_input_sem, engine, min_z, cube_bounds,
             pcl_marked[..., -1] = mask.astype(np.float32)
         abstract, fg = engine.encode(pcl_marked)
         out = engine.decode_all(points_query, abstract, fg, fetch=False)
+        if engine.store_activations:
+            out, run_penult = out
+            if penult is None:     # the first run's (the unmarked one without reruns).
+                penult = run_penult
         all_abstract.append(abstract)
         all_global.append(fg)
         all_out.append(out)
     return dict(track_instance_ids=track_instance_ids, all_abstract=all_abstract,
-                all_global=all_global, all_out=all_out, points_query=points_query, color_mode=color_mode,
+                all_global=all_global, all_out=all_out, penult=penult,
+                points_query=points_query, color_mode=color_mode,
                 dispatch_s=time.time() - t0)
 
 
@@ -287,15 +310,13 @@ def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=Fal
     '''
     Host stage of one frame: fetch, merge track reruns, 1-NN GT labels,
     density-threshold split, compress_air.
-    :param store_activations: the decoder's penultimate activations are not
-        ported; True raises.
+    :param store_activations: with an engine that kept them, the decoder's
+        penultimate activations of the predicted-solid queries (float16) in
+        result['penult_solid'].
     :return dict with output_solid, output_air, pcl_abstract, features_global,
-        implicit_output, points_query, gt_solid?, gt_air?, phase_s.
+        implicit_output, points_query, gt_solid?, gt_air?, penult_solid?,
+        phase_s.
     '''
-    if store_activations:
-        raise NotImplementedError('store_activations (the decoder\'s penultimate '
-                                  'activations) is not ported (ROADMAP.md, Queue 1 '
-                                  'item 8)')
     gt_available = pcl_target_frame is not None
     output_track_idx = factory.track_idx(pending['color_mode'])
     track_instance_ids = pending['track_instance_ids']
@@ -306,6 +327,9 @@ def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=Fal
     all_abstract = [a[0].cpu().numpy() for a in pending['all_abstract']]
     all_global = [g[0].cpu().numpy() for g in pending['all_global']]
     all_out = [o.cpu().numpy() for o in pending['all_out']]
+    penult = pending.get('penult')
+    if store_activations and penult is not None:
+        penult = penult.cpu().numpy()
     phase_s['d2h_fetch'] = time.time() - t0
     phase_s['device_infer'] = pending['dispatch_s'] + phase_s['d2h_fetch']
     phase_s['track_reruns'] = len(track_instance_ids)
@@ -343,6 +367,8 @@ def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=Fal
     result['phase_s'] = phase_s
     result['output_solid'] = solid_points
     result['output_air'] = air_points
+    if store_activations and penult is not None:
+        result['penult_solid'] = penult[solid_sel]
     if gt_available:
         result['gt_solid'] = points_nngt[solid_sel]
         gt_air = points_nngt[~solid_sel]

@@ -2,7 +2,9 @@
 Test / evaluation driver (port of occlusions4d_tpu/evaluate/test_driver.py):
 load a checkpoint, back-fill test args from its train config, loop over the
 test set, run dense per-frame inference, score the frames (--save_metrics ->
-metrics.json) and export the pcl_io_s{step}.p / metadata_s{step}.p artifacts.
+metrics.json) and export the pcl_io_s{step}.p / metadata_s{step}.p artifacts
+(and activations_s{step}.p, the decoder's penultimate activations of each
+frame's predicted-solid queries, with --store_activations).
 
 Run on the card:   python -m occlusions4d_torch.evaluate --resume <ckpt dir>
                        --data_path <dataset> [flags of config.TestConfig]
@@ -66,6 +68,7 @@ class _FramePost:
         self.all_metrics = []
         self.n_reruns = []
         self.pcl_all = []
+        self.activations = []
         self.last_inf = None
         # Per-scene-step wall clock (completion-to-completion, measured where
         # the artifacts land — the post worker in pipelined mode): step 0
@@ -106,6 +109,8 @@ class _FramePost:
                     nn_air_d=inf.get('nn_air_d'))
             m.update(step=cur_step, time_idx=time_idx)
             self.all_metrics.append(m)
+        if args.store_activations and 'penult_solid' in inf:
+            self.activations.append(inf['penult_solid'])
 
         if cur_step % 4 == 0:
           with self.timer.phase('histograms'):
@@ -133,7 +138,11 @@ class _FramePost:
             if args.store_pcl:
                 logger.save_pickle(self.pcl_all, f'pcl_io_s{cur_step}.p',
                                    folder=self.log_folder)
+            if args.store_activations and self.activations:
+                logger.save_pickle(self.activations, f'activations_s{cur_step}.p',
+                                   folder=self.log_folder)
         self.pcl_all = []
+        self.activations = []
 
         logger.report_scalar('test/pcl_input_size', pcl_input.shape[0],
                              step=cur_step)
@@ -225,8 +234,8 @@ class _PostWorker:
 def run_test(args: TestConfig, engine, data_kind, loader, logger):
     '''Main eval loop. --save_metrics scores every predicted frame with
     evaluate.metrics and writes metrics.json (with the loop's phase_split_s
-    and scene_wall_s); --store_activations is not ported (finish_inference
-    raises).
+    and scene_wall_s); --store_activations exports the scene's frames'
+    predicted-solid activations as activations_s{step}.p.
 
     With --eval_overlap (default), the loop is a two-stage pipeline: this
     thread runs dispatch_inference (track set, query gen, encode/decode
@@ -367,7 +376,8 @@ def main(args: TestConfig, logger=None, device='cuda', devices=None):
         semantic_classes=args.semantic_classes, track_mode=args.track_mode,
         implicit_batch_size=args.implicit_batch_size,
         query_parallel=args.query_parallel,
-        precision=args.eval_precision, devices=devices)
+        precision=args.eval_precision, devices=devices,
+        store_activations=args.store_activations)
     logger.info(f'Eval precision: {engine.precision} (--eval_precision '
                 f'{args.eval_precision}), devices {[str(d) for d in engine.devices]}')
 

@@ -34,13 +34,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops import fps_batched, gather_neighbors, knn
+from ..ops import fps_batched, gather_neighbors, knn, knn_interpolate
 from ..ops.attention import gather_rows
 from ..ops.self_attention import fused_gathered_attention
 from ..parallel import AllReduceSum, host_sum
 
 __all__ = ['Dense', 'NormLayer', 'set_norm_group', 'take_batch_stats', 'commit_batch_stats',
-           'VectorAttention', 'PointTransformerBlock', 'DownTransition']
+           'VectorAttention', 'PointTransformerBlock', 'DownTransition', 'UpTransition']
 
 
 class Dense(nn.Linear):
@@ -325,3 +325,30 @@ class DownTransition(nn.Module):
         _, nbr = knn(p_sub, p, self.knn_k)
         z = gather_neighbors(self.mlp(x), nbr)
         return z.amax(dim=-2), p_sub
+
+
+class UpTransition(nn.Module):
+    '''Skip-connected upsampling (the encoder's enable_decoder path):
+    mlp1(x1) interpolated from the coarse points p1 onto the skip's points
+    p2 (inverse-distance weights over the knn_k nearest, eps 1e-7, through
+    the kNN kernels on CUDA) plus mlp2(x2). Each MLP is Linear -> NormLayer
+    -> ReLU; mlp1 reads d_in channels, mlp2 the skip's d_out.'''
+
+    def __init__(self, d_in, d_out, factor=2, knn_k=3, norm_type='none',
+                 dtype=torch.float32):
+        super().__init__()
+        self.factor = factor
+        self.knn_k = knn_k
+        self.mlp1 = nn.Sequential(Dense(d_in, d_out, dtype=dtype),
+                                  NormLayer(norm_type, d_out, dtype), nn.ReLU())
+        self.mlp2 = nn.Sequential(Dense(d_out, d_out, dtype=dtype),
+                                  NormLayer(norm_type, d_out, dtype), nn.ReLU())
+
+    def forward(self, x1, p1, x2, p2):
+        y1 = self.mlp1(x1)
+        y2 = self.mlp2(x2)
+        # f32 weights over the features as f32 (JAX's einsum promotes a bf16
+        # y1 so); the sum is then f32 too.
+        y1_super = knn_interpolate(y1.to(torch.float32), p1.detach(), p2.detach(),
+                                   self.knn_k, eps=1e-7)
+        return y1_super + y2, p2

@@ -20,6 +20,7 @@ Every C entry point returns cudaGetLastError() after its launch; `check`
 raises on a non-zero code. Pointers and the stream travel as ctypes.c_void_p.
 '''
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +30,7 @@ import threading
 import time
 
 __all__ = ['SOURCES', 'nvcc_path', 'build_all', 'library', 'check', 'ptr',
-           'stream_ptr', 'count_launch', 'launch_counts', 'reset_launch_counts']
+           'stream_ptr', 'count_launch', 'span', 'launch_counts', 'reset_launch_counts']
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      'csrc')
@@ -159,6 +160,17 @@ def count_launch(launches, name):
     '''Add one to a kernel module's launch count, where it launches its kernel.'''
     with _COUNT_LOCK:
         launches[name] += 1
+
+
+def span(name):
+    '''Context of a kernel's launch: while a device trace records
+    (utils/profiling.py), a span named o4d_<name> around it, which the
+    trace also shows on the card's timeline around the kernels it launched;
+    else nothing.'''
+    import torch
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function('o4d_' + name)
+    return contextlib.nullcontext()
 
 
 def _counter_modules():

@@ -200,7 +200,7 @@ def _gather_cuda(fv, ki, k, bf16=False):
     fn = getattr(_build.library('gather'), f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(fv.device):
+    with torch.cuda.device(fv.device), _build.span(name):
         _build.check(fn(_build.ptr(fv), _build.ptr(ki), _build.ptr(g), B, N, M, C, KS,
                         k, _build.stream_ptr(fv.device)), name)
     _build.count_launch(LAUNCHES, name)
@@ -298,7 +298,7 @@ def _scatter_cuda(ki, dg, M, k, bf16=False):
     fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(dg.device):
+    with torch.cuda.device(dg.device), _build.span(name):
         _build.check(fn(_build.ptr(dg), _build.ptr(ki), _build.ptr(iws), _build.ptr(fws),
                         _build.ptr(dfv), B, N, M, KE, KS, k, C,
                         _build.stream_ptr(dg.device)), name)
@@ -436,7 +436,7 @@ def _interp_cuda(ki, kd, feats, k, eps, bf16=False):
     fn = getattr(_build.library('interp'), f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(feats.device):
+    with torch.cuda.device(feats.device), _build.span(name):
         _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(feats),
                         _build.ptr(out), B, N, M, E, KS, k, float(eps),
                         _build.stream_ptr(feats.device)), name)
@@ -531,7 +531,7 @@ def _interp_bwd_launch(ki, kd, g, M, k, eps, bf16=False):
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(g.device):
+    with torch.cuda.device(g.device), _build.span(name):
         _build.check(fn(_build.ptr(ki), _build.ptr(kd), _build.ptr(g), _build.ptr(iws),
                         _build.ptr(fws), _build.ptr(out), B, N, M, E, KS, k,
                         float(eps), _build.stream_ptr(g.device)), name)
@@ -582,7 +582,7 @@ def _interp_g_cuda(kd, g, k, eps, bf16=False):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(g.device):
+    with torch.cuda.device(g.device), _build.span(name):
         _build.check(fn(_build.ptr(kd), _build.ptr(g), _build.ptr(out), B, N, E, KS,
                         KE, k, float(eps), _build.stream_ptr(g.device)), name)
     _build.count_launch(LAUNCHES, name)
@@ -617,7 +617,7 @@ def _interp_g_bwd_cuda(kd, go, k, k_ext, E, eps):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(go.device):
+    with torch.cuda.device(go.device), _build.span('interp_g_bwd'):
         _build.check(fn(_build.ptr(kd), _build.ptr(go), _build.ptr(dg), B, N, E, KS,
                         k_ext, k, float(eps), _build.stream_ptr(go.device)),
                      'interp_g_bwd')
@@ -1200,7 +1200,7 @@ def _attn_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, bf16=False):
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = [q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b) + [out, ws]
-    with torch.cuda.device(q_proj.device):
+    with torch.cuda.device(q_proj.device), _build.span(name):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, dims['M'], D, dims['E'],
                         dims['H'], dims['P'], dims['KS'], k, int(premul), QC,
                         _build.stream_ptr(q_proj.device)), name)
@@ -1226,7 +1226,7 @@ def _attn_g_cuda(q_pos, q_proj, g, params, k, bf16=False):
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [out, ws]
-    with torch.cuda.device(q_proj.device):
+    with torch.cuda.device(q_proj.device), _build.span(name):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
                         _build.stream_ptr(q_proj.device)), name)
     _build.count_launch(LAUNCHES, name)
@@ -1253,7 +1253,7 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g, bf16=False
     fn.restype = ctypes.c_int
     ptrs = ([q_pos, q_proj, ki, pos2, kv, wk, wv] + _weight_ptrs(w, b)
             + [g, dq, dw, dkv, ws, iws])
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.span(name):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, M, D, E, H, P,
                         dims['KS'], k, int(premul), QC, _build.stream_ptr(dev)), name)
     _build.count_launch(LAUNCHES, name)
@@ -1324,7 +1324,7 @@ def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go, bf16=False):
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = [q_pos, q_proj, g, wk, wv] + _weight_ptrs(w, b) + [go, dq, dw, dg, ws]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.span(name):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
                         _build.stream_ptr(dev)), name)
     _build.count_launch(LAUNCHES, name)

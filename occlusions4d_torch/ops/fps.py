@@ -102,7 +102,7 @@ def _fps_cuda(xyz, n_out, valid, start_idx, plan=None):
                      device=xyz.device)
     ptrs = [_build.ptr(t) for t in (xyz, valid, start, out, ws)]
     name = 'fps_cluster' if C > 1 else 'fps'
-    with torch.cuda.device(xyz.device):
+    with torch.cuda.device(xyz.device), _build.span(name):
         stream = _build.stream_ptr(xyz.device)
         _build.check(lib.o4d_fps(*ptrs, B, N, n_out, C, T, stream), name)
     _build.count_launch(LAUNCHES, name)

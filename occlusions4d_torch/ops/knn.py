@@ -134,7 +134,7 @@ def _brute_cuda(q, keys, kn, k):
     fn = lib.o4d_knn_brute
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _build.span('knn_brute'):
         _build.check(fn(_build.ptr(q), _build.ptr(keys4), _build.ptr(out_d),
                         _build.ptr(out_i), B, N, M, k, brute_lanes(B, N),
                         _build.stream_ptr(q.device)), 'knn_brute')
@@ -308,7 +308,7 @@ def _pruned_cuda(q, keys, kn, k, same, visited=None):
     ws, sk, sq = pruned_prepare_cuda(q, keys, kn, same)
     out_d = torch.empty((B, N, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((B, N, k), dtype=torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _build.span('knn_pruned'):
         _build.check(_pruned_lib().o4d_knn_pruned(
             _ptr(sk), _ptr(sq), _ptr(ws), _ptr(out_d), _ptr(out_i), _ptr(visited), B, N, M, k,
             _build.stream_ptr(q.device)), 'knn_pruned')
@@ -421,7 +421,7 @@ def _nn1_bidir_cuda(a, an, b, bn):
     fn = _build.library('knn').o4d_nn1_bidir
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(a.device):
+    with torch.cuda.device(a.device), _build.span('nn1_bidir'):
         _build.check(fn(_build.ptr(a4), _build.ptr(b4), _build.ptr(out_a),
                         _build.ptr(out_b), B, N, M, _build.stream_ptr(a.device)),
                      'nn1_bidir')
@@ -501,7 +501,7 @@ def _nn1_direct_cuda(q, keys):
     fn = _build.library('knn').o4d_nn1_direct
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _build.span('nn1_direct'):
         _build.check(fn(_build.ptr(q), _build.ptr(keys4), _build.ptr(out_d),
                         _build.ptr(out_i), N, M, _build.stream_ptr(q.device)),
                      'nn1_direct')

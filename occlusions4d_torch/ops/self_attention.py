@@ -159,7 +159,7 @@ def _sattn_cuda(q, gf, rel, params, k, bf16=False):
     fn = getattr(lib, f'o4d_{name}')
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _build.span(name):
         _build.check(fn(*[_build.ptr(t) for t in [q, gf, rel] + weights + [out, ws]],
                         B, N, D, E, H, P, k, QC, _build.stream_ptr(q.device)), name)
     _build.count_launch(LAUNCHES, name)
@@ -183,7 +183,7 @@ def _sattn_bwd_cuda(q, gf, rel, params, k, go, bf16=False):
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptrs = [q, gf, rel] + weights + [go, dq, dw, dgf, ws]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.span(name):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, k, QC,
                         _build.stream_ptr(dev)), name)
     _build.count_launch(LAUNCHES, name)

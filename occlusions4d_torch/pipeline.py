@@ -5,13 +5,27 @@ video, then per predicted frame: guided query sampling -> field evaluation
 
 The sampled queries and targets are data, not functions of the weights: they
 are detached before the decoder, as the JAX pipeline stop-gradients them.
-The decoder runs fused_field_apply (kernels on CUDA, plain versions on the
-CPU) when the configuration is covered, in the compute dtype of
-fused_decoder_dtype (resolve_decoder_dtype), else the module path in the
+fused_decoder ('auto' | 'on' | 'off', the JAX pipeline's): 'auto' and 'on'
+run fused_field_apply (kernels on CUDA, plain versions on the CPU) when the
+configuration is covered (supports_fused), in the compute dtype of
+fused_decoder_dtype (resolve_decoder_dtype); 'off', and a configuration the
+fused path does not cover, run the module path, self.decoder(...), in the
 decoder's own dtype (bf16 under mixed_precision, as the JAX pipeline's
-module path). Either way the frame's output reaches the squash and the
-losses in f32. Randomness (FPS starts, other-frame choice, sampling) comes
-from one torch.Generator.
+module path). With remat (the default) the module path recomputes each
+frame's field in the backward (torch.utils.checkpoint, JAX's
+jax.checkpoint): a frame's (N, K, D) attention intermediates are kept for
+one frame at a time, not for every frame; the fused path keeps no outer
+remat, its backward kernels recompute per tile. Either way the frame's
+output reaches the squash and the losses in f32. Randomness (FPS starts,
+other-frame choice, sampling) comes from one torch.Generator, drawn before
+any decoder call, so a recomputed frame draws nothing.
+
+debug_checks (the train driver's --check_numerics): named probes at the
+tensor boundaries of the JAX pipeline's, in its order: pcl_input,
+encoder_abstract, encoder_global after the encoder, decoder_output_frame{t}
+after each frame's squash, loss_{k} for each loss in name order. The first
+tensor that holds a NaN or an Inf raises RuntimeError('NaN/Inf detected in
+<name>'); each probe waits for the card (a copy of one flag to the host).
 
 Batch norm (pt_norm_type 'batch'): the encoder runs in train mode, so every
 forward (the train step's, and the val_aug and viz steps') normalises with
@@ -31,6 +45,7 @@ statistics (models/layers.py::set_norm_group, which the Trainer calls).
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .losses import LossConfig, per_example_losses, total_loss
 from .models.fused import fused_field_apply, supports_fused
@@ -38,7 +53,8 @@ from .models.layers import take_batch_stats
 from .parallel import all_reduce_sum
 from .sampler import GuidedPointSampler, SamplerConfig
 
-__all__ = ['PipelineConfig', 'TrainPipeline', 'resolve_decoder_dtype', 'squash_colors']
+__all__ = ['PipelineConfig', 'TrainPipeline', 'resolve_decoder_dtype', 'squash_colors',
+           'numerics_probe']
 
 _DECODER_DTYPES = {'bf16': torch.bfloat16, 'f32': torch.float32,
                    'auto': torch.float32}
@@ -71,6 +87,12 @@ def squash_colors(out, color_mode):
     raise ValueError(color_mode)
 
 
+def numerics_probe(name, x):
+    '''Raise RuntimeError naming `name` where x holds a NaN or an Inf.'''
+    if not bool(torch.isfinite(x.detach()).all()):
+        raise RuntimeError('NaN/Inf detected in ' + name)
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     color_mode: str = 'rgb'
@@ -99,27 +121,43 @@ class TrainPipeline:
     '''The training forward over torch modules (their parameters are the
     state). Construct once; call loss() inside the train step.
     fused_decoder_dtype ('auto' | 'bf16' | 'f32'): the fused decoder's
-    compute dtype (resolve_decoder_dtype); the module path, taken when the
-    configuration is not covered, computes in the decoder's dtype. group:
-    the data-parallel group whose ranks hold the rest of the batch, or None
-    (the module docstring).'''
+    compute dtype (resolve_decoder_dtype); the module path computes in the
+    decoder's dtype. group: the data-parallel group whose ranks hold the
+    rest of the batch, or None. fused_decoder ('auto' | 'on' | 'off'),
+    remat and debug_checks: the module docstring.'''
 
     def __init__(self, encoder, decoder, sampler_cfg: SamplerConfig,
-                 cfg: PipelineConfig, fused_decoder_dtype='auto', group=None):
+                 cfg: PipelineConfig, fused_decoder_dtype='auto', group=None,
+                 fused_decoder='auto', remat=True, debug_checks=False):
+        if fused_decoder not in ('auto', 'on', 'off'):
+            raise ValueError(f"fused_decoder must be 'auto', 'on' or 'off', got "
+                             f'{fused_decoder!r}')
         self.group = group
         self.encoder = encoder
         self.decoder = decoder
         self.sampler = GuidedPointSampler(sampler_cfg)
         self.cfg = cfg
-        self.fused_decoder = supports_fused(decoder)
+        self.fused_decoder = fused_decoder != 'off' and supports_fused(decoder)
         self.decoder_dtype = resolve_decoder_dtype(fused_decoder_dtype)
+        self.remat = remat
+        self.debug_checks = debug_checks
+
+    def _module_frame(self, points_query, abstract, features_global):
+        return self.decoder(points_query, abstract, features_global)[0].to(torch.float32)
 
     def _decode_frame(self, points_query, abstract, features_global):
         if self.fused_decoder:
             return fused_field_apply(self.decoder, points_query, abstract,
                                      features_global,
                                      compute_dtype=self.decoder_dtype)[0]
-        return self.decoder(points_query, abstract, features_global)[0].to(torch.float32)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._module_frame, points_query, abstract, features_global,
+                              use_reentrant=False, preserve_rng_state=False)
+        return self._module_frame(points_query, abstract, features_global)
+
+    def _probe(self, name, x):
+        if self.debug_checks:
+            numerics_probe(name, x)
 
     def sample_frames(self, batch, generator):
         '''The guided queries and targets of every frame, as data (detached).
@@ -158,14 +196,19 @@ class TrainPipeline:
             implicit_output, implicit_target, solid_sbs, air_sbs, sample_ok
             and sample_ok_frac.'''
         cfg = self.cfg
-        output = torch.stack([
-            squash_colors(self._decode_frame(f['points_query'], abstract,
-                                             features_global), cfg.color_mode)
-            for f in frames], 1)                                # (B, T, S + A, C).
+        outputs = []
+        for t, f in enumerate(frames):
+            out = squash_colors(self._decode_frame(f['points_query'], abstract,
+                                                   features_global), cfg.color_mode)
+            self._probe(f'decoder_output_frame{t}', out)
+            outputs.append(out)
+        output = torch.stack(outputs, 1)                        # (B, T, S + A, C).
         target = torch.stack([f['implicit_target'] for f in frames], 1)
         ok_bt = torch.stack([f['ok'] for f in frames], 1)       # (B, T).
         losses = per_example_losses(output, target, cfg.loss_config, frame_weight=ok_bt,
                                     group=self.group)
+        for k in sorted(losses):
+            self._probe('loss_' + k, losses[k])
         solid_sbs = torch.stack([f['solid_sbs'] for f in frames], 1)
         air_sbs = torch.stack([f['air_sbs'] for f in frames], 1)
         aux = dict(abstract=abstract, features_global=features_global,
@@ -210,6 +253,9 @@ class TrainPipeline:
         abstract, feats_global, *coords = self.encoder(
             batch['pcl_input'], generator=generator, return_intermediate=return_intermediate)
         bn_updates = take_batch_stats(self.encoder)
+        self._probe('pcl_input', batch['pcl_input'])
+        self._probe('encoder_abstract', abstract)
+        self._probe('encoder_global', feats_global)
         if mark is not None:
             mark('encoder')
             if abstract.requires_grad:

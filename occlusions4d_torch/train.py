@@ -34,6 +34,23 @@ tolerates up to 11 host-side data errors per epoch (the 12th re-raises),
 logs the scalars every LOG_EVERY steps and splits its wall into the
 PhaseTimer phases data / h2d / step / guard / sync / viz.
 
+Observability, as in the JAX Trainer:
+  * --watch_networks (on also with --use_wandb, wandb.watch's telemetry):
+    on the logged steps the step stacks the L2 norm of every parameter's
+    gradient (the all-reduced one under data parallelism) and of every
+    parameter after the update into two device tensors, which run_epoch
+    reports as train/grad_norm/<net>.<state-dict key> and
+    train/param_norm/<...> (remembered, committed as epoch histograms);
+  * --profile_steps N: a device trace (utils/profiling.py) of train steps
+    [1, 1 + N) of epoch 0 under <log_dir>/profile, each step a span
+    train_step_<i>, closed when the loop raises too; rank 0's alone;
+  * --check_numerics: the pipeline's named NaN/Inf probes (pipeline.py) in
+    the train, val_aug and viz forwards, with the decoder's module path,
+    the encoder's plain attention chain and no remat, as the JAX Trainer
+    forces its XLA paths for checkify;
+  * --fused_decoder off: the decoder's module path, each frame recomputed
+    in the backward (TrainPipeline's remat).
+
 Checkpoints are the JAX package's pkl envelope (checkpoint.py): the JAX
 evaluation loads what the port writes, and the port resumes from either
 package's files (the JAX optimizer's moments come out of optax's
@@ -54,6 +71,7 @@ that decoder.
     python -m occlusions4d_torch.train [flags of config.TrainConfig]
 '''
 
+import contextlib
 import logging
 import os
 import time
@@ -72,13 +90,15 @@ from .models.layers import commit_batch_stats, set_norm_group
 from .parallel import all_reduce_flat
 from .pipeline import PipelineConfig, TrainPipeline, resolve_decoder_dtype
 from .sampler import SamplerConfig
+from .utils import profiling
 from .utils.logvis import StepLogger
-from .utils.profiling import PhaseTimer
+from .utils.profiling import PhaseTimer, annotate
 
 __all__ = ['AdamW', 'build_optimizer', 'make_train_step', 'make_eval_step',
            'make_viz_step', 'Trainer', 'main', 'LOG_EVERY']
 
-# Host-sync cadence of the scalar logging (the JAX loop's).
+# Host-sync cadence of the scalar logging (the JAX loop's), and of the
+# per-layer norms of --watch_networks, computed on the logged steps only.
 LOG_EVERY = 32
 # The batch entries that stay on the host (bookkeeping and visuals).
 _HOST_KEYS = ('meta_data', 'rgb', 'depth', 'flat', 'snitch', 'cam_RT', 'cam_K')
@@ -150,18 +170,28 @@ def _logged_losses(loss, losses, aux, cfg):
     return loss.detach(), {k: v.detach() for k, v in losses.items()}
 
 
-def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
+def _leaf_norms(tensors):
+    '''(L,) L2 norms of the tensors, in f32, stacked on their device.'''
+    return torch.stack([torch.sqrt(torch.sum(torch.square(t.detach().to(torch.float32))))
+                        for t in tensors])
+
+
+def make_train_step(pipeline: TrainPipeline, optimizer: AdamW, watch_networks=False):
     '''
-    :return step(batch, generator, mark=None) -> metrics: forward and
-        backward through the pipeline, then the optimizer update, skipped on
-        a non-finite gradient. `mark` is an optional phase-timing callback,
+    :return step(batch, generator, mark=None, want_norms=True) -> metrics:
+        forward and backward through the pipeline, then the optimizer
+        update, skipped on a non-finite gradient. `mark` is an optional
+        phase-timing callback,
         called with the name of each phase as its work has been enqueued:
         'encoder', 'sampler', 'decoder_forward', 'decoder_backward',
         'encoder_backward', ('gradient_all_reduce',) 'optimizer'. Metrics
         (device tensors, the JAX package's names): total_loss, grad_norm,
         grads_finite, params_finite (the parameters and the batch-norm
         statistics), sample_ok, sample_ok_frac, solid_sbs, air_sbs,
-        loss_dens, loss_rgb, loss_segm, loss_track.
+        loss_dens, loss_rgb, loss_segm, loss_track; with watch_networks, on
+        a step with want_norms, also layer_grad_norms and layer_param_norms:
+        (P,) tensors, one norm per parameter of optimizer.params, of its
+        gradient and of its value after the update.
     Under the pipeline's data-parallel group, each rank's gradients of its
     share of the loss are summed over the group in one all-reduce of their
     concatenation ('gradient_all_reduce'), before the norm, the clip and the
@@ -171,7 +201,7 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
     params = optimizer.params
     group = pipeline.group
 
-    def step(batch, generator, mark=None):
+    def step(batch, generator, mark=None, want_norms=True):
         loss, (losses, aux) = pipeline.loss(batch, generator, mark)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         if mark is not None:
@@ -198,6 +228,9 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW):
                        sample_ok=aux['sample_ok'], sample_ok_frac=aux['sample_ok_frac'],
                        solid_sbs=aux['solid_sbs'], air_sbs=aux['air_sbs'],
                        **{f'loss_{k}': v for k, v in logged.items()})
+        if watch_networks and want_norms:
+            metrics['layer_grad_norms'] = _leaf_norms(grads)
+            metrics['layer_param_norms'] = _leaf_norms(params)
         return metrics
 
     return step
@@ -260,9 +293,14 @@ class Trainer:
     `device` (None = cfg.device) is where it trains; `fused_attention`
     ('auto'|'on'|'off', None = 'auto') is the encoder's self-attention path,
     forwarded to build_models as the JAX Trainer forwards it; 'on' trains
-    through the fused self-attention kernels. cfg.fused_decoder_dtype is the
-    fused decoder's compute dtype (TrainPipeline); cfg.mixed_precision
-    builds the networks in bf16 (self.dtype) and sets AdamW's eps to 1e-4.
+    through the fused self-attention kernels. cfg.fused_decoder ('auto' |
+    'on' | 'off') and cfg.fused_decoder_dtype choose the decoder's path and
+    its compute dtype (TrainPipeline); cfg.mixed_precision builds the
+    networks in bf16 (self.dtype) and sets AdamW's eps to 1e-4.
+    cfg.check_numerics forces the encoder's attention and the decoder onto
+    their module paths, remat off, and the pipeline's probes on;
+    cfg.watch_networks or cfg.use_wandb reports the per-layer norms
+    (the module docstring).
 
     group (a parallel.Group, None for one process) makes this Trainer one
     rank of a data-parallel run on the group's device: its steps take its
@@ -286,7 +324,14 @@ class Trainer:
             if device.type == 'cuda':     # the rank's card, for its collectives too.
                 torch.cuda.set_device(device)
         self.device = resolve_device(cfg.device if device is None else device)
-        self.fused_attention = fused_attention
+        self.check_numerics = cfg.check_numerics
+        # The probes see tensors, not the inside of a fused operator: under
+        # check_numerics both networks take their module paths (JAX's
+        # checkify cannot see inside its Pallas kernels, so its Trainer
+        # does the same), and remat is off, as in the JAX Trainer.
+        self.fused_attention = 'off' if cfg.check_numerics else fused_attention
+        self.fused_decoder = 'off' if cfg.check_numerics else cfg.fused_decoder
+        self.watch_networks = cfg.watch_networks or cfg.use_wandb
         self.logger = logger or StepLogger(context='train', batch_size=cfg.batch_size)
         self.dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -294,7 +339,7 @@ class Trainer:
         # bf16 products sum in f32 (cuBLAS may otherwise reduce in bf16).
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         (self.encoder, self.decoder, self.encoder_args,
-         self.decoder_args) = build_models(cfg, fused_attention=fused_attention,
+         self.decoder_args) = build_models(cfg, fused_attention=self.fused_attention,
                                            dtype=self.dtype)
         self.sampler_args = build_sampler_args(cfg, data_kind)
         self.pipeline_cfg = PipelineConfig(
@@ -337,16 +382,22 @@ class Trainer:
             set_norm_group(self.encoder, self.group)
         self.pipeline = TrainPipeline(self.encoder, self.decoder,
                                       SamplerConfig(**self.sampler_args), self.pipeline_cfg,
-                                      self.cfg.fused_decoder_dtype, group=self.group)
+                                      self.cfg.fused_decoder_dtype, group=self.group,
+                                      fused_decoder=self.fused_decoder,
+                                      remat=not self.check_numerics,
+                                      debug_checks=self.check_numerics)
         self._nets = dict(encoder=self.encoder, decoder=self.decoder)
         self._param_names = [(net, n) for net, m in self._nets.items()
                              for n, _ in m.named_parameters()]
+        # The per-layer norms' names, one a parameter in optimizer order.
+        self.layer_names = [f'{net}.{n}' for net, n in self._param_names]
         named = list(self.encoder.parameters()) + list(self.decoder.parameters())
         self.optimizer = build_optimizer(self.cfg, steps_per_epoch, named)
         self.generator = torch.Generator(self.device).manual_seed(
             parallel.rank_seed(seed, self.group))
         self.step_count = 0
-        self._step = make_train_step(self.pipeline, self.optimizer)
+        self._step = make_train_step(self.pipeline, self.optimizer,
+                                     watch_networks=self.watch_networks)
         self._eval_step = make_eval_step(self.pipeline)
         self._viz_step = make_viz_step(self.pipeline)
         return self
@@ -424,12 +475,14 @@ class Trainer:
 
     # ------------------------------------------------------------------- steps --
 
-    def step(self, batch, mark=None):
+    def step(self, batch, mark=None, want_norms=True):
         '''One train step on a batch dict (numpy arrays or tensors) with the
         run's generator. Raises on a non-finite parameter; a non-finite
         gradient skips the update (metrics['grads_finite'] is then False).
-        `mark`: the optional phase-timing callback of make_train_step.'''
-        metrics = self._step(_to_device(batch, self.device), self.generator, mark)
+        `mark`: the optional phase-timing callback of make_train_step;
+        want_norms: the per-layer norms, under watch_networks.'''
+        metrics = self._step(_to_device(batch, self.device), self.generator, mark,
+                             want_norms)
         self.step_count += 1
         if not bool(metrics['params_finite']):
             raise RuntimeError('NaN model parameter detected!')
@@ -459,6 +512,22 @@ class Trainer:
         data_iter = iter(data_iter)
         cur_step = -1
         prev_guard = None      # (grads_finite, params_finite) of the last train step.
+        # --profile_steps: a device trace of steps [1, 1 + N) of epoch 0 (step
+        # 0 pays the warm-up and would drown it), rank 0's.
+        prof_until = (1 + self.cfg.profile_steps
+                      if (is_train and epoch == 0 and log_dir and self.is_main
+                          and self.cfg.profile_steps > 0) else None)
+        prof_active = False
+        prof_dir = os.path.join(log_dir, 'profile') if log_dir else None
+
+        def prof_stop():
+            nonlocal prof_active
+            if prof_active:
+                prof_active = False
+                if self.device.type == 'cuda':    # the traced steps' kernels done.
+                    torch.cuda.synchronize(self.device)
+                profiling.stop_trace()
+                self.logger.info(f'Device trace written to {prof_dir}')
 
         def check_guard():
             '''Read and act on the pending step's guard flags.'''
@@ -473,79 +542,99 @@ class Trainer:
             if not p_fin:
                 raise RuntimeError('NaN model parameter detected!')
 
-        while True:
-            cur_step += 1
-            if num_steps is not None and cur_step >= num_steps:
-                break
-            with timer.phase('data'):
-                batch = next(data_iter, None)
-            if batch is None:
-                break
-            agreed = False
-            try:
-                if isinstance(batch, Exception):   # a batch rank 0 could not shard.
-                    raise batch
-                meta_list = batch.get('meta_data')
-                host_images = {k: batch[k] for k in ('rgb', 'depth') if k in batch}
-                with timer.phase('h2d'):
-                    batch = _to_device(batch, self.device)
-                # Every rank runs the step, or none: a skip on one rank alone
-                # would leave the others waiting in the step's collectives.
-                agreed = True
-                if not parallel.all_true(True, group):
-                    raise RuntimeError('a host-side data error on another rank')
-            except Exception as e:  # host-side data failure tolerance.
-                if not agreed:
-                    parallel.all_true(False, group)
-                num_exceptions += 1
-                if num_exceptions >= 12:
-                    raise
-                self.logger.exception(e)
-                # A pending poison pill must not be masked by a data-failure
-                # streak ending in the 12-exception re-raise.
-                check_guard()
-                continue
+        try:
+            while True:
+                cur_step += 1
+                if prof_until is not None:
+                    if prof_active and cur_step >= prof_until:
+                        prof_stop()
+                    elif not prof_active and cur_step == 1:
+                        profiling.start_trace(prof_dir)
+                        prof_active = True
+                if num_steps is not None and cur_step >= num_steps:
+                    break
+                with timer.phase('data'):
+                    batch = next(data_iter, None)
+                if batch is None:
+                    break
+                agreed = False
+                try:
+                    if isinstance(batch, Exception):   # a batch rank 0 could not shard.
+                        raise batch
+                    meta_list = batch.get('meta_data')
+                    host_images = {k: batch[k] for k in ('rgb', 'depth') if k in batch}
+                    with timer.phase('h2d'):
+                        batch = _to_device(batch, self.device)
+                    # Every rank runs the step, or none: a skip on one rank alone
+                    # would leave the others waiting in the step's collectives.
+                    agreed = True
+                    if not parallel.all_true(True, group):
+                        raise RuntimeError('a host-side data error on another rank')
+                except Exception as e:  # host-side data failure tolerance.
+                    if not agreed:
+                        parallel.all_true(False, group)
+                    num_exceptions += 1
+                    if num_exceptions >= 12:
+                        raise
+                    self.logger.exception(e)
+                    # A pending poison pill must not be masked by a data-failure
+                    # streak ending in the 12-exception re-raise.
+                    check_guard()
+                    continue
 
-            viz_due = (is_train and log_dir is not None
-                       and cur_step % max(self.cfg.viz_interval, 1) == 0)
-            if viz_due:  # the step's draws, on a copy that leaves `gen` as it is.
-                viz_gen = torch.Generator(self.device)
-                viz_gen.set_state(gen.get_state())
-            with timer.phase('step'):
+                viz_due = (is_train and log_dir is not None
+                           and cur_step % max(self.cfg.viz_interval, 1) == 0)
+                if viz_due:  # the step's draws, on a copy that leaves `gen` as it is.
+                    viz_gen = torch.Generator(self.device)
+                    viz_gen.set_state(gen.get_state())
+                step_span = (annotate(f'{stage}_step_{cur_step}') if prof_active
+                             else contextlib.nullcontext())
+                with timer.phase('step'), step_span:
+                    if is_train:
+                        metrics = self._step(batch, gen, want_norms=cur_step % LOG_EVERY == 0)
+                        self.step_count += 1
+                        new_guard = (metrics['grads_finite'], metrics['params_finite'])
+                    else:
+                        metrics = self._eval_step(batch, gen)
+                        new_guard = None
+
+                # The guard of step N is read after step N + 1 is queued: the
+                # read waits on a step already retiring, and the poison-pill
+                # raise still precedes the dispatch of step N + 2 (the one step
+                # queued on poisoned parameters is a skipped no-op where the
+                # poisoned leaf touches the loss).
                 if is_train:
-                    metrics = self._step(batch, gen)
-                    self.step_count += 1
-                    new_guard = (metrics['grads_finite'], metrics['params_finite'])
-                else:
-                    metrics = self._eval_step(batch, gen)
-                    new_guard = None
+                    check_guard()
+                    prev_guard = new_guard
 
-            # The guard of step N is read after step N + 1 is queued: the
-            # read waits on a step already retiring, and the poison-pill
-            # raise still precedes the dispatch of step N + 2 (the one step
-            # queued on poisoned parameters is a skipped no-op where the
-            # poisoned leaf touches the loss).
-            if is_train:
-                check_guard()
-                prev_guard = new_guard
+                if viz_due:
+                    with timer.phase('viz'):
+                        self._export_intermediates(epoch, stage, cur_step, batch,
+                                                   host_images, meta_list, viz_gen)
 
-            if viz_due:
-                with timer.phase('viz'):
-                    self._export_intermediates(epoch, stage, cur_step, batch,
-                                               host_images, meta_list, viz_gen)
+                if cur_step % LOG_EVERY == 0:   # host sync for scalar logging only.
+                    with timer.phase('sync'):
+                        m = {k: _numpy(v) for k, v in metrics.items()}
+                    loss_terms = {k: float(v) for k, v in m.items() if k.startswith('loss_')}
+                    self.logger.handle_step(epoch, stage, cur_step, cur_step, num_steps or -1,
+                                            float(m['total_loss']), loss_terms)
+                    for name, val in loss_terms.items():
+                        self.logger.report_scalar(f'{stage}/{name}', val, remember=True)
+                    self.logger.report_scalar(f'{stage}/total_loss', float(m['total_loss']),
+                                              remember=True)
+                    if 'layer_grad_norms' in m and self.is_main:
+                        # wandb.watch's telemetry, committed as epoch histograms.
+                        for kind in ('layer_grad_norms', 'layer_param_norms'):
+                            for name, val in zip(self.layer_names, m[kind]):
+                                self.logger.report_scalar(
+                                    f'{stage}/{kind[6:-1]}/{name}', float(val),
+                                    remember=True, commit_histogram=True)
+                    metrics_hist.append(m)
 
-            if cur_step % LOG_EVERY == 0:   # host sync for scalar logging only.
-                with timer.phase('sync'):
-                    m = {k: _numpy(v) for k, v in metrics.items()}
-                loss_terms = {k: float(v) for k, v in m.items() if k.startswith('loss_')}
-                self.logger.handle_step(epoch, stage, cur_step, cur_step, num_steps or -1,
-                                        float(m['total_loss']), loss_terms)
-                for name, val in loss_terms.items():
-                    self.logger.report_scalar(f'{stage}/{name}', val, remember=True)
-                self.logger.report_scalar(f'{stage}/total_loss', float(m['total_loss']),
-                                          remember=True)
-                metrics_hist.append(m)
-
+        finally:
+            # Close an active trace when the loop raises too (a NaN
+            # parameter, a data error): an unfinished trace is lost.
+            prof_stop()
         check_guard()  # trailing-edge guard for the final step.
         self.logger.info(f'[{stage}] epoch {epoch} finished in {time.time() - start:.1f}s')
         timer.report(self.logger, prefix=f'[{stage}] ')
@@ -557,7 +646,8 @@ class Trainer:
         '''npy point-cloud exports of input / abstract / target / implicit
         output / per-layer coordinates, per-channel output histograms, the
         dataset's filtering-ratio histograms, and early-epoch RGB-D galleries
-        when images were loaded (the JAX Trainer's, but for save_video).
+        and the RGB video when images were loaded (the JAX Trainer's; the
+        video where the optional imageio package is installed).
         Under a group every rank runs the forward (its statistics are the
         group's) and rank 0 exports its rows' (example 0 is the global
         batch's first).'''
@@ -597,8 +687,11 @@ class Trainer:
         if host_images and epoch < 2 and cur_step == 0:
             rgb = np.asarray(host_images['rgb'][0, 0])           # (T, H, W, 3).
             self.logger.save_gallery(rgb, f'{stage}_rgb_e{epoch}', step=cur_step)
-            self.logger.info('the RGB video export (save_video) is not part of the port: '
-                             'the gallery is written instead')
+            try:
+                self.logger.save_video(rgb, f'{stage}_rgb_e{epoch}', step=cur_step)
+            except ImportError as e:
+                self.logger.info(f'the RGB video is not written: the optional package '
+                                 f'imageio is not installed ({e}); the gallery is')
             if 'depth' in host_images:
                 d = np.asarray(host_images['depth'][0, 0])
                 d = d / max(float(d.max()), 1e-6)
@@ -665,6 +758,8 @@ def _run(group, cfg, logger=None):
     logger.info(f'Args: {cfg}')
     if main_rank:
         logger.save_args(cfg)
+        logger.use_wandb = logger.use_wandb or cfg.use_wandb
+        logger.init_wandb('occlusions-4d', cfg)
     np.random.seed(cfg.seed)
 
     # Before anything touches CUDA (init_group leaves it alone; the Trainer

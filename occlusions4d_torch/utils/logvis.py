@@ -5,8 +5,9 @@ logging, scalar memory with deferred per-epoch commit, artifact export
 
 wandb is optional and imported lazily: everything degrades to file / npy
 logging when it is unavailable or disabled. PNG artifacts go through
-data/png.py (no imaging package needed); the JAX package's save_video (mp4 /
-gif through imageio) is not part of the port.
+data/png.py (no imaging package needed); save_video writes mp4, or GIF
+where the ffmpeg plugin is missing, through imageio, an optional package
+imported when it is called (ImportError without it).
 '''
 
 import json
@@ -168,6 +169,24 @@ class Logger:
         write_png(fp, img)
         if self.wandb is not None and wandb_name is not None:
             self.wandb.log({wandb_name: self.wandb.Image(img)}, step=step)
+        return fp
+
+    def save_video(self, frames, file_name, step=None, folder=None, fps=8,
+                   wandb_name=None):
+        '''Save a (T, H, W, 3) frame stack as mp4, or as GIF where imageio's
+        ffmpeg plugin is missing. :return the file's path.'''
+        import imageio.v2 as imageio
+        fn = file_name if step is None else f'{file_name}_s{step}'
+        frames = [self._to_uint8(f) for f in frames]
+        base = self._artifact_dir('visuals', folder)
+        try:
+            fp = os.path.join(base, fn + '.mp4')
+            imageio.mimwrite(fp, frames, fps=fps, quality=8)
+        except Exception:
+            fp = os.path.join(base, fn + '.gif')
+            imageio.mimwrite(fp, frames, fps=fps)
+        if self.wandb is not None and wandb_name is not None:
+            self.wandb.log({wandb_name: self.wandb.Video(fp, fps=fps)}, step=step)
         return fp
 
     def save_gallery(self, frames, file_name, step=None, folder=None,

@@ -23,7 +23,11 @@ Their bf16 mode (sattn_bf16, sattn_bwd_bf16) takes chip_smoke.py's bf16
 gates against the plain bf16 versions, which the f32 kernels fail. The
 gathered interpolation's backward (interp_g_bwd) equals its plain version
 bit for bit (the same arithmetic in the same order). The eval and train
-drivers run end to end on the card at tiny widths.
+drivers run end to end on the card at tiny widths. The decoder's module
+path (--fused_decoder off, remat on) trains a gv1-width step whose loss is
+within 1e-4 of the fused path's; InferenceEngine(store_activations=True)
+keeps the outputs bit for bit and its activations within 2e-3 and a
+float16 step of the CPU engine's.
 '''
 
 import importlib
@@ -1580,3 +1584,81 @@ def test_train_driver_on_card(dev, tmp_path):
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert glob.glob(str(tmp_path / 'eval' / 'test_*' / 'metrics.json'))
+
+
+def _gv1_batch(dev, B, T, N=14336, M=28672, seed=3):
+    rng = np.random.RandomState(seed)
+    tgt = np.zeros((B, T, M, 9), np.float32)
+    tgt[..., :3] = rng.rand(B, T, M, 3) * 10 - 5
+    tgt[..., 2] = np.abs(tgt[..., 2])
+    tgt[..., 5:8] = rng.rand(B, T, M, 3)
+    batch = dict(pcl_input=(rng.rand(B, N, 8) * 2 - 1).astype(np.float32),
+                 pcl_target=tgt, pcl_target_valid=np.ones((B, T, M), bool),
+                 valo_ids=np.tile(np.arange(32, dtype=np.int32), (B, 1)),
+                 num_valo_ids=np.full((B,), 8, np.int32))
+    return {k: _t(v, dev) for k, v in batch.items()}
+
+
+def test_module_path_train_step_on_card(dev):
+    '''The decoder's module path (--fused_decoder off, each frame recomputed
+    in the backward) at gv1 widths on the card, batch 1, 2 frames: from the
+    fused path's initial state and draws, its step-0 loss within 1e-4
+    relative of the fused step's (the fused kernels' 3xTF32 products are the
+    only difference), finite gradients and parameters; its decoder runs the
+    kNN kernel and no fused decoder kernel.'''
+    from occlusions4d_torch.config import TrainConfig
+    from occlusions4d_torch.ops import _build
+    from occlusions4d_torch.train import Trainer
+    kw = dict(n_points=14336, pt_feat_dim=36, up_down_blocks=3, transition_factor=3,
+              pt_num_neighbors=16, down_neighbors=12, global_size=128, implicit_mlp_blocks=6,
+              cross_attn_layers=2, cross_attn_neighbors=14, cr_attn_type='cc',
+              color_mode='rgb_nosigmoid', cr_cube_bounds=5.0, min_z=-1.0,
+              num_cr_local_feats=8, color_lw=1.0, density_lw=1.0, num_cr_solid=7168,
+              air_sampling_ratio=1.5, past_frames=2, future_frames=0, batch_size=1)
+    batch = _gv1_batch(dev, 1, 2)
+    losses, counts = {}, {}
+    for mode in ('auto', 'off'):
+        tr = Trainer(TrainConfig(**kw, fused_decoder=mode), 'greater', 'cuda')
+        tr.init_state(seed=0)
+        assert tr.pipeline.fused_decoder == (mode == 'auto') and tr.pipeline.remat
+        _build.reset_launch_counts()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        counts[mode] = _build.launch_counts()
+        assert bool(m['grads_finite']) and bool(m['params_finite'])
+        losses[mode] = float(m['total_loss'])
+        del tr
+        torch.cuda.empty_cache()
+    assert abs(losses['off'] - losses['auto']) <= 1e-4 * abs(losses['auto']), losses
+    assert counts['auto']['attn'] > 0 and counts['auto']['attn_bwd'] > 0
+    assert counts['off']['attn'] == counts['off']['attn_bwd'] == counts['off']['interp'] == 0
+    assert counts['off']['knn_brute'] > counts['auto']['knn_brute'] > 0
+
+
+def test_store_activations_engine_on_card(dev):
+    '''InferenceEngine(store_activations=True) on the committed GREATER
+    anchor on the card: outputs bit-equal to the run without the flag, the
+    (N, d_hidden) float16 activations in query order, within 2e-3 and one
+    float16 step of the CPU engine's (plain versions) from the same encoding.'''
+    import os
+    from occlusions4d_torch.evaluate.inference import InferenceEngine, load_models
+    from occlusions4d_torch.ops import blind_points_numpy
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'assets', 'anchor')
+    card, cpu = load_models(path, device='cuda'), load_models(path, device='cpu')
+    c = card['train_config']
+    q = blind_points_numpy(16384, c.min_z, c.cr_cube_bounds, 0, 'greater', c.cube_mode,
+                           'grid')
+    pcl = (np.random.RandomState(5).rand(card['encoder_args']['n_input'], 8) * 2
+           - 1).astype(np.float32)
+    engines = [InferenceEngine(L, c.color_mode, False, 13, implicit_batch_size=4096,
+                               store_activations=sa)
+               for L, sa in ((card, False), (card, True), (cpu, True))]
+    ab, fg = engines[0].encode(pcl)
+    out = engines[0].decode_all(q, ab, fg)
+    out_sa, pen = engines[1].decode_all(q, ab, fg)
+    _, pen_cpu = engines[2].decode_all(q, ab.cpu(), fg.cpu())
+    _, part = engines[1].decode_all(q[5000:6000], ab, fg)
+    assert np.array_equal(out, out_sa) and np.array_equal(part, pen[5000:6000])
+    assert pen.dtype == np.float16 and pen.shape == (len(q), card['decoder_args']['d_hidden'])
+    np.testing.assert_allclose(pen.astype(np.float32), pen_cpu.astype(np.float32),
+                               atol=2e-3, rtol=2.0 ** -10)

@@ -16,8 +16,8 @@ JAX package's, on the CPU:
   * --eval_overlap true and false (--track_mode all, --save_gt) give the same
     metrics.json values and artifacts bit for bit; an error on the post
     worker fails run_test;
-  * store_activations (not ported) raises, query_parallel 2 builds two
-    replicas; the command line refuses a --device other than 'cuda' and
+  * --store_activations writes activations_s*.p, one float16 (solid rows,
+    d_hidden) array a frame; query_parallel 2 builds two replicas; the command line refuses a --device other than 'cuda' and
     --worker_mode process.
 '''
 
@@ -199,11 +199,23 @@ def test_overlap_matches_serial_and_worker_error_surfaces(tiny, tmp_path):
 
 
 def test_unported_options_raise(tiny, tmp_path):
+    '''The eval options the port once refused: --store_activations writes
+    activations_s{step}.p, one float16 (solid rows, d_hidden) array a frame,
+    row for row the exported pcl_io solid clouds (the activations against
+    JAX's: tests/test_torch_leftovers.py); query_parallel builds replicas.'''
     _, data, ckpt = tiny
     args = parse_test_args(_argv(data, ckpt, tmp_path / 'sa' / 'run', store_activations='true',
                            eval_overlap='false'))
-    with pytest.raises(NotImplementedError, match='store_activations'):
-        test_driver.main(args, device='cpu')
+    test_driver.main(args, device='cpu')
+    arts = _artifacts(args.log_path, args.test_tag)
+    acts = sorted(n for n in arts if n.startswith('activations_s'))
+    pcls = sorted(n for n in arts if n.startswith('pcl_io_s'))
+    assert acts and len(acts) == len(pcls)
+    d_hidden = load_models(ckpt, device='cpu')['decoder_args']['d_hidden']
+    for a_name, p_name in zip(acts, pcls):
+        assert len(arts[a_name]) == len(arts[p_name])
+        for a, rec in zip(arts[a_name], arts[p_name]):
+            assert a.dtype == np.float16 and a.shape == (len(rec[2]), d_hidden)
     loaded = load_models(ckpt, device='cpu')
     for qp in (-1, 1):
         assert len(InferenceEngine(loaded, 'rgb_nosigmoid', False, 13,

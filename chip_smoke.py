@@ -151,8 +151,8 @@ each printing one JSON line:
      epoch 1 and its logged losses equal the unbroken run's within rel 1e-4
      (bit for bit printed); checkpoint.pkl through evaluate.load_models and
      one dense gv1 frame (524288 grid queries), finite; each epoch's wall,
-     step count and PhaseTimer split (data / h2d / step / guard / sync /
-     viz), the step wall and the loader's share, peak memory; then the
+     step count and the spans' host split (train.data / train.h2d /
+     train_step / train.guard / train.log_sync / train.viz), the step wall and the loader's share, peak memory; then the
      committed convergence recipe (tests/assets/convergence/
      trajectory.json's argv and scenes, 10 epochs of 19 steps) in f32, with
      --fused_decoder_dtype bf16 and with --mixed_precision true, the three
@@ -1791,10 +1791,32 @@ _TD_CONV_MODES = (('f32', ()), ('bf16_decoder', ('--fused_decoder_dtype', 'bf16'
 _TD_RESUME_RTOL = 1e-4
 
 
+def epoch_spans(stage, fn):
+    """fn() (one Trainer.run_epoch of `stage`) with the port's spans recorded
+    (utils/profiling.py). :return (fn's result, steps run, viz exports,
+    {span name: host s}: train.data, train.h2d, <stage>_step_<i> summed as
+    '<stage>_step', train.guard, train.log_sync, train.viz, ...)."""
+    from occlusions4d_torch.utils import profiling
+    profiling.record_spans(True)     # from off: the store starts empty.
+    try:
+        out = fn()
+    finally:
+        profiling.record_spans(False)
+    totals = profiling.span_totals()
+    split = {}
+    for name, t in totals.items():
+        key = f'{stage}_step' if name.startswith(f'{stage}_step_') else name
+        split[key] = split.get(key, 0.0) + t['host_ms'] / 1e3
+    steps = sum(t['calls'] for n, t in totals.items() if n.startswith(f'{stage}_step_'))
+    viz = totals.get('train.viz', {}).get('calls', 0)
+    profiling.reset_spans()
+    return out, steps, viz, split
+
+
 def driver_run(torch, argv, log_root):
     """One train.main(train_args(argv)) on the card with the launch counters
     zeroed just before and read just after; every run_epoch's wall (around a
-    synchronize) and PhaseTimer split recorded. :return (trainer, launches,
+    synchronize) and its spans' host split (epoch_spans) recorded. :return (trainer, launches,
     wall s, epochs: [dict(epoch, stage, wall_s, split_s)])."""
     from occlusions4d_torch import train as t_train
     from occlusions4d_torch.config import train_args
@@ -1806,13 +1828,11 @@ def driver_run(torch, argv, log_root):
     def timed(self, epoch, stage, data_iter, num_steps=None):
         torch.cuda.synchronize()
         t0 = time.time()
-        out = orig(self, epoch, stage, data_iter, num_steps)
+        out, steps, viz, split = epoch_spans(
+            stage, lambda: orig(self, epoch, stage, data_iter, num_steps))
         torch.cuda.synchronize()
         epochs.append(dict(epoch=epoch, stage=stage, wall_s=time.time() - t0,
-                           steps=self.last_phase_timer.counts['step'],
-                           viz=self.last_phase_timer.counts['viz'],
-                           split_s={k: v[0] for k, v in
-                                    self.last_phase_timer.summary().items()}))
+                           steps=steps, viz=viz, split_s=split))
         return out
 
     t_train.Trainer.run_epoch = timed
@@ -1925,7 +1945,7 @@ def train_driver(torch, dev, smi, path_counts):
                   input_points_before_padding=sizes, train_steps=n_train,
                   val_steps=n_val, wall_s=wall, epochs=epochs,
                   step_wall_ms=[1e3 * e['wall_s'] / max(e['steps'], 1) for e in train_e],
-                  data_share=[e['split_s'].get('data', 0.0) / e['wall_s'] for e in train_e],
+                  data_share=[e['split_s'].get('train.data', 0.0) / e['wall_s'] for e in train_e],
                   peak_mem_gib=peak_gb, losses=full, checkpoints=ckpts,
                   resumed_losses=resumed[1], resume_rel_diff=rel, resume_bitwise=bitwise,
                   resume_wall_s=r_wall, resume_epochs=r_epochs,
@@ -2264,14 +2284,13 @@ def loader_workers_child(spec):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        tr.run_epoch(i + 1, 'train', loaders[mode].epoch(i + 1))
+        _, steps, _, split = epoch_spans(
+            'train', lambda: tr.run_epoch(i + 1, 'train', loaders[mode].epoch(i + 1)))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        split = {k: v[0] for k, v in tr.last_phase_timer.summary().items()}
-        steps = tr.last_phase_timer.counts['step']
         runs.append(dict(mode=mode, epoch=i + 1, steps=steps, wall_s=wall,
                          step_wall_ms=1e3 * wall / max(steps, 1),
-                         data_share=split.get('data', 0.0) / wall, split_s=split,
+                         data_share=split.get('train.data', 0.0) / wall, split_s=split,
                          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
     for ld in loaders.values():
         ld.close()

@@ -48,6 +48,7 @@ from ..models.implicit import LocalImplicitField
 from ..ops import blind_points_numpy
 from ..ops.knn import nn1_direct
 from ..parallel import local_devices
+from ..utils import profiling
 from ..utils.misc import multi_track_merge
 
 __all__ = ['load_models', 'squash_eval', 'InferenceEngine', 'resolve_precision',
@@ -187,11 +188,13 @@ class InferenceEngine:
 
     @torch.no_grad()
     def encode(self, pcl_input):
-        '''pcl_input (N, 8) or (1, N, 8) -> (abstract (1, M, 3+E), global (1, D)).'''
-        x = _to_device(pcl_input, self.device)
-        if x.dim() == 2:
-            x = x[None]
-        return self.encoder(x)
+        '''pcl_input (N, 8) or (1, N, 8) -> (abstract (1, M, 3+E), global (1, D)),
+        in the tiled span scene.encode.'''
+        with profiling.span('scene.encode', tile=True):
+            x = _to_device(pcl_input, self.device)
+            if x.dim() == 2:
+                x = x[None]
+            return self.encoder(x)
 
     @torch.no_grad()
     def _decode(self, q, abstract, fg, decoder=None):
@@ -216,29 +219,37 @@ class InferenceEngine:
         :param fetch (bool): return numpy (True) or a device tensor (False).
         :return (P, C) squashed outputs; with store_activations the pair
             (outputs, (P, d_hidden) float16 penultimate activations).
+        In the tiled span scene.decode, each chunk a tiled scene.decode_chunk
+        in it, then the fetch in scene.fetch; counters scene.queries_decoded
+        and scene.decode_chunks.
         '''
-        q = _to_device(points_query, self.device)
-        # Each device's copy of the encoding (the first device's are the
-        # inputs themselves); with one device a chunk is one slice.
-        enc = [(abstract, fg)] + [(abstract.to(d), fg.to(d)) for d in self.devices[1:]]
-        part = self.chunk // len(self.devices)
-        outs, penults = [], []
-        for c0 in range(0, q.shape[0], self.chunk):
-            for i, (dev, dec) in enumerate(zip(self.devices, self.decoders)):
-                lo = c0 + i * part
-                hi = min(lo + part, c0 + self.chunk, q.shape[0])
-                if lo >= hi:     # the tail chunk's empty slices.
-                    break
-                qs = q[None, lo:hi].to(dev, non_blocking=True)
-                out, penult = self._decode(qs, *enc[i], decoder=dec)
-                outs.append(out[0])
-                if penult is not None:
-                    penults.append(penult[0])
-        res = [torch.cat([o.to(self.device) for o in outs], 0)]
-        if self.store_activations:
-            res.append(torch.cat([p.to(self.device) for p in penults], 0))
+        with profiling.span('scene.decode', tile=True):
+            q = _to_device(points_query, self.device)
+            # Each device's copy of the encoding (the first device's are the
+            # inputs themselves); with one device a chunk is one slice.
+            enc = [(abstract, fg)] + [(abstract.to(d), fg.to(d)) for d in self.devices[1:]]
+            part = self.chunk // len(self.devices)
+            outs, penults = [], []
+            for c0 in range(0, q.shape[0], self.chunk):
+                with profiling.span('scene.decode_chunk', tile=True):
+                    for i, (dev, dec) in enumerate(zip(self.devices, self.decoders)):
+                        lo = c0 + i * part
+                        hi = min(lo + part, c0 + self.chunk, q.shape[0])
+                        if lo >= hi:     # the tail chunk's empty slices.
+                            break
+                        qs = q[None, lo:hi].to(dev, non_blocking=True)
+                        out, penult = self._decode(qs, *enc[i], decoder=dec)
+                        outs.append(out[0])
+                        if penult is not None:
+                            penults.append(penult[0])
+                profiling.count('scene.decode_chunks')
+            res = [torch.cat([o.to(self.device) for o in outs], 0)]
+            if self.store_activations:
+                res.append(torch.cat([p.to(self.device) for p in penults], 0))
+        profiling.count('scene.queries_decoded', q.shape[0])
         if fetch:
-            res = [r.cpu().numpy() for r in res]
+            with profiling.span('scene.fetch', tile=True):
+                res = [r.cpu().numpy() for r in res]
         return tuple(res) if self.store_activations else res[0]
 
 
@@ -251,46 +262,54 @@ def dispatch_inference(pcl_input, pcl_input_sem, engine, min_z, cube_bounds,
     encode/decode of every rerun, returning device tensors. Pair with
     finish_inference. sample_implicit must be True (blind queries), as in the
     JAX engine.
+    The frame is an item of utils/profiling.py: a root span scene, ended by
+    finish_inference, tiled by scene.grid (blind_points_numpy), scene.encode
+    and scene.decode (each rerun's; the queries' copy in decode_all),
+    scene.fetch, scene.post and scene.gt_nn1; counter scene.track_reruns.
     '''
     assert sample_implicit
-    input_inst_idx = 0 if data_kind == 'greater' else 1
-    if track_mode in ('none', 'one'):
-        track_instance_ids = [-1]
-    else:
-        sem = np.asarray(pcl_input_sem)
-        if data_kind == 'carla':
-            # CARLA tracking targets are its vehicle/pedestrian classes.
-            sem = sem[np.isin(sem[..., 2], (4, 10))]
-        ids, counts = np.unique(sem[..., input_inst_idx], return_counts=True)
-        track_instance_ids = [int(i) for i, c in zip(ids, counts)
-                              if i >= 0 and c >= 16]
+    root = profiling.begin('scene', root=True)
+    with profiling.within(root):
+        input_inst_idx = 0 if data_kind == 'greater' else 1
+        if track_mode in ('none', 'one'):
+            track_instance_ids = [-1]
+        else:
+            sem = np.asarray(pcl_input_sem)
+            if data_kind == 'carla':
+                # CARLA tracking targets are its vehicle/pedestrian classes.
+                sem = sem[np.isin(sem[..., 2], (4, 10))]
+            ids, counts = np.unique(sem[..., input_inst_idx], return_counts=True)
+            track_instance_ids = [int(i) for i, c in zip(ids, counts)
+                                  if i >= 0 and c >= 16]
+        profiling.count('scene.track_reruns', len(track_instance_ids))
 
-    points_query = blind_points_numpy(num_sample, min_z, cube_bounds, time_idx,
-                                      data_kind, cube_mode, point_sample_mode,
-                                      rng=rng)
-    all_abstract, all_global, all_out = [], [], []
-    penult = None
-    pcl_input = np.array(pcl_input, np.float32)
-    t0 = time.time()
-    for mark_inst_id in track_instance_ids:
-        pcl_marked = pcl_input
-        if mark_inst_id >= 0:
-            mask = pcl_input_sem[..., input_inst_idx] == mark_inst_id
-            pcl_marked = pcl_input.copy()
-            pcl_marked[..., -1] = mask.astype(np.float32)
-        abstract, fg = engine.encode(pcl_marked)
-        out = engine.decode_all(points_query, abstract, fg, fetch=False)
-        if engine.store_activations:
-            out, run_penult = out
-            if penult is None:     # the first run's (the unmarked one without reruns).
-                penult = run_penult
-        all_abstract.append(abstract)
-        all_global.append(fg)
-        all_out.append(out)
-    return dict(track_instance_ids=track_instance_ids, all_abstract=all_abstract,
-                all_global=all_global, all_out=all_out, penult=penult,
-                points_query=points_query, color_mode=color_mode,
-                dispatch_s=time.time() - t0)
+        with profiling.span('scene.grid', tile=True):
+            points_query = blind_points_numpy(num_sample, min_z, cube_bounds, time_idx,
+                                              data_kind, cube_mode, point_sample_mode,
+                                              rng=rng)
+        all_abstract, all_global, all_out = [], [], []
+        penult = None
+        pcl_input = np.array(pcl_input, np.float32)
+        t0 = time.time()
+        for mark_inst_id in track_instance_ids:
+            pcl_marked = pcl_input
+            if mark_inst_id >= 0:
+                mask = pcl_input_sem[..., input_inst_idx] == mark_inst_id
+                pcl_marked = pcl_input.copy()
+                pcl_marked[..., -1] = mask.astype(np.float32)
+            abstract, fg = engine.encode(pcl_marked)
+            out = engine.decode_all(points_query, abstract, fg, fetch=False)
+            if engine.store_activations:
+                out, run_penult = out
+                if penult is None:     # the first run's (the unmarked one without reruns).
+                    penult = run_penult
+            all_abstract.append(abstract)
+            all_global.append(fg)
+            all_out.append(out)
+        return dict(track_instance_ids=track_instance_ids, all_abstract=all_abstract,
+                    all_global=all_global, all_out=all_out, penult=penult,
+                    points_query=points_query, color_mode=color_mode,
+                    dispatch_s=time.time() - t0, span=root)
 
 
 def nn1(query, keys, device):
@@ -309,7 +328,9 @@ def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=Fal
                      density_threshold=0.5, compress_air=False, store_activations=False):
     '''
     Host stage of one frame: fetch, merge track reruns, 1-NN GT labels,
-    density-threshold split, compress_air.
+    density-threshold split, compress_air; the spans scene.fetch, scene.post
+    (the merge, then the split), scene.gt_nn1, tiled in dispatch_inference's
+    root span, which it ends.
     :param store_activations: with an engine that kept them, the decoder's
         penultimate activations of the predicted-solid queries (float16) in
         result['penult_solid'].
@@ -317,66 +338,74 @@ def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=Fal
         implicit_output, points_query, gt_solid?, gt_air?, penult_solid?,
         phase_s.
     '''
-    gt_available = pcl_target_frame is not None
-    output_track_idx = factory.track_idx(pending['color_mode'])
-    track_instance_ids = pending['track_instance_ids']
-    points_query = pending['points_query']
+    span = profiling.span
+    root = pending.get('span')
+    with profiling.within(root):
+        gt_available = pcl_target_frame is not None
+        output_track_idx = factory.track_idx(pending['color_mode'])
+        track_instance_ids = pending['track_instance_ids']
+        points_query = pending['points_query']
 
-    phase_s = {}
-    t0 = time.time()
-    all_abstract = [a[0].cpu().numpy() for a in pending['all_abstract']]
-    all_global = [g[0].cpu().numpy() for g in pending['all_global']]
-    all_out = [o.cpu().numpy() for o in pending['all_out']]
-    penult = pending.get('penult')
-    if store_activations and penult is not None:
-        penult = penult.cpu().numpy()
-    phase_s['d2h_fetch'] = time.time() - t0
-    phase_s['device_infer'] = pending['dispatch_s'] + phase_s['d2h_fetch']
-    phase_s['track_reruns'] = len(track_instance_ids)
-    t0 = time.time()
-    pcl_abstract, features_global, implicit_output = multi_track_merge(
-        track_instance_ids, all_abstract, all_global, all_out, output_track_idx)
-    phase_s['track_merge'] = time.time() - t0
-    t0 = time.time()
-    mark_is_instance_id = not (len(track_instance_ids) == 1
-                               and track_instance_ids[0] == -1)
-    result = dict(pcl_abstract=pcl_abstract, features_global=features_global,
-                  implicit_output=implicit_output, points_query=points_query,
-                  mark_is_instance_id=mark_is_instance_id)
+        phase_s = {}
+        t0 = time.time()
+        with span('scene.fetch', tile=True):
+            all_abstract = [a[0].cpu().numpy() for a in pending['all_abstract']]
+            all_global = [g[0].cpu().numpy() for g in pending['all_global']]
+            all_out = [o.cpu().numpy() for o in pending['all_out']]
+            penult = pending.get('penult')
+            if store_activations and penult is not None:
+                penult = penult.cpu().numpy()
+        phase_s['d2h_fetch'] = time.time() - t0
+        phase_s['device_infer'] = pending['dispatch_s'] + phase_s['d2h_fetch']
+        phase_s['track_reruns'] = len(track_instance_ids)
+        t0 = time.time()
+        with span('scene.post', tile=True):
+            pcl_abstract, features_global, implicit_output = multi_track_merge(
+                track_instance_ids, all_abstract, all_global, all_out, output_track_idx)
+        phase_s['track_merge'] = time.time() - t0
+        t0 = time.time()
+        mark_is_instance_id = not (len(track_instance_ids) == 1
+                                   and track_instance_ids[0] == -1)
+        result = dict(pcl_abstract=pcl_abstract, features_global=features_global,
+                      implicit_output=implicit_output, points_query=points_query,
+                      mark_is_instance_id=mark_is_instance_id)
 
-    if gt_available:
-        d, nn_idx = nn1(points_query, pcl_target_frame, engine.device)
-        target_labels = (d < point_occupancy_radius).astype(np.int64)
-        points_nngt = np.concatenate([target_labels[:, None],
-                                      pcl_target_frame[nn_idx]], axis=-1)
-    phase_s['gt_nn1'] = time.time() - t0
-    t0 = time.time()
+        if gt_available:
+            with span('scene.gt_nn1', tile=True):
+                d, nn_idx = nn1(points_query, pcl_target_frame, engine.device)
+                target_labels = (d < point_occupancy_radius).astype(np.int64)
+                points_nngt = np.concatenate([target_labels[:, None],
+                                              pcl_target_frame[nn_idx]], axis=-1)
+        phase_s['gt_nn1'] = time.time() - t0
+        t0 = time.time()
 
-    points_io = np.concatenate([points_query, implicit_output], axis=-1)
-    solid_sel = points_io[:, 4] >= density_threshold
-    solid_points = points_io[solid_sel]
-    air_points = points_io[~solid_sel]
-    if compress_air:
-        if predict_segmentation:
-            air_segm = air_points[:, -semantic_classes:].argmax(axis=-1)
-        else:
-            air_segm = -np.ones(air_points.shape[0])
-        air_points = np.concatenate(
-            [air_points[:, :3], air_points[:, 4:5], air_segm[:, None]], axis=-1)
-    phase_s['host_post'] = time.time() - t0
-    result['phase_s'] = phase_s
-    result['output_solid'] = solid_points
-    result['output_air'] = air_points
-    if store_activations and penult is not None:
-        result['penult_solid'] = penult[solid_sel]
-    if gt_available:
-        result['gt_solid'] = points_nngt[solid_sel]
-        gt_air = points_nngt[~solid_sel]
-        if compress_air:
-            gt_air = np.concatenate([gt_air[:, :1], gt_air[:, 4:5]], axis=-1)
-        result['gt_air'] = gt_air
-        result['nn_solid'] = (d[solid_sel], nn_idx[solid_sel])
-        result['nn_air_d'] = d[~solid_sel]
+        with span('scene.post', tile=True):
+            points_io = np.concatenate([points_query, implicit_output], axis=-1)
+            solid_sel = points_io[:, 4] >= density_threshold
+            solid_points = points_io[solid_sel]
+            air_points = points_io[~solid_sel]
+            if compress_air:
+                if predict_segmentation:
+                    air_segm = air_points[:, -semantic_classes:].argmax(axis=-1)
+                else:
+                    air_segm = -np.ones(air_points.shape[0])
+                air_points = np.concatenate(
+                    [air_points[:, :3], air_points[:, 4:5], air_segm[:, None]], axis=-1)
+        phase_s['host_post'] = time.time() - t0
+        result['phase_s'] = phase_s
+        result['output_solid'] = solid_points
+        result['output_air'] = air_points
+        if store_activations and penult is not None:
+            result['penult_solid'] = penult[solid_sel]
+        if gt_available:
+            result['gt_solid'] = points_nngt[solid_sel]
+            gt_air = points_nngt[~solid_sel]
+            if compress_air:
+                gt_air = np.concatenate([gt_air[:, :1], gt_air[:, 4:5]], axis=-1)
+            result['gt_air'] = gt_air
+            result['nn_solid'] = (d[solid_sel], nn_idx[solid_sel])
+            result['nn_air_d'] = d[~solid_sel]
+    profiling.end(root)
     return result
 
 

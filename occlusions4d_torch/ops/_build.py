@@ -20,7 +20,6 @@ Every C entry point returns cudaGetLastError() after its launch; `check`
 raises on a non-zero code. Pointers and the stream travel as ctypes.c_void_p.
 '''
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +27,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..utils import profiling
 
 __all__ = ['SOURCES', 'nvcc_path', 'build_all', 'library', 'check', 'ptr',
            'stream_ptr', 'count_launch', 'span', 'launch_counts', 'reset_launch_counts']
@@ -163,14 +164,10 @@ def count_launch(launches, name):
 
 
 def span(name):
-    '''Context of a kernel's launch: while a device trace records
-    (utils/profiling.py), a span named o4d_<name> around it, which the
-    trace also shows on the card's timeline around the kernels it launched;
-    else nothing.'''
-    import torch
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function('o4d_' + name)
-    return contextlib.nullcontext()
+    '''Context of a kernel's launch: the span o4d_<name> of utils/profiling.py
+    (while a device trace records, also on the card's timeline around the
+    kernels it launched; nothing unless spans record).'''
+    return profiling.span('o4d_' + name)
 
 
 def _counter_modules():

@@ -52,6 +52,7 @@ from .models.fused import fused_field_apply, supports_fused
 from .models.layers import take_batch_stats
 from .parallel import all_reduce_sum
 from .sampler import GuidedPointSampler, SamplerConfig
+from .utils import profiling
 
 __all__ = ['PipelineConfig', 'TrainPipeline', 'resolve_decoder_dtype', 'squash_colors',
            'numerics_probe']
@@ -246,24 +247,32 @@ class TrainPipeline:
             when a later backward has passed through the decoder.
         :param return_intermediate: aux also holds layer_coords, the
             encoder's per-layer positions (else None).
-        :return (losses dict, aux dict); aux['batch_stats'] holds the
+        :return (losses dict, aux dict); aux['total_loss'] is the losses'
+            objective (losses.total_loss), aux['batch_stats'] holds the
             encoder's pending running-statistics updates (empty without
-            batch norm).
+            batch norm). The encoder, the sampler and the decoder with the
+            losses run in the tiled spans train.encoder, train.sampler and
+            train.decoder_fwd (utils/profiling.py).
         '''
-        abstract, feats_global, *coords = self.encoder(
-            batch['pcl_input'], generator=generator, return_intermediate=return_intermediate)
-        bn_updates = take_batch_stats(self.encoder)
-        self._probe('pcl_input', batch['pcl_input'])
-        self._probe('encoder_abstract', abstract)
-        self._probe('encoder_global', feats_global)
+        with profiling.span('train.encoder', tile=True):
+            abstract, feats_global, *coords = self.encoder(
+                batch['pcl_input'], generator=generator,
+                return_intermediate=return_intermediate)
+            bn_updates = take_batch_stats(self.encoder)
+            self._probe('pcl_input', batch['pcl_input'])
+            self._probe('encoder_abstract', abstract)
+            self._probe('encoder_global', feats_global)
         if mark is not None:
             mark('encoder')
             if abstract.requires_grad:
                 abstract.register_hook(lambda g: mark('decoder_backward'))
-        frames = self.sample_frames(batch, generator)
+        with profiling.span('train.sampler', tile=True):
+            frames = self.sample_frames(batch, generator)
         if mark is not None:
             mark('sampler')
-        losses, aux = self.decode_frames(frames, abstract, feats_global)
+        with profiling.span('train.decoder_fwd', tile=True):
+            losses, aux = self.decode_frames(frames, abstract, feats_global)
+            aux['total_loss'] = total_loss(losses, self.cfg.loss_config)
         aux['layer_coords'] = coords[0] if coords else None
         aux['batch_stats'] = bn_updates
         return losses, aux
@@ -273,7 +282,6 @@ class TrainPipeline:
         called with 'decoder_forward' once the losses have been enqueued.
         With a group the objective is this rank's share of the global one.'''
         losses, aux = self.forward(batch, generator, mark)
-        loss = total_loss(losses, self.cfg.loss_config)
         if mark is not None:
             mark('decoder_forward')
-        return loss, (losses, aux)
+        return aux['total_loss'], (losses, aux)

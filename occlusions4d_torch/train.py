@@ -30,9 +30,8 @@ guard), so the host never waits on the step it has just queued.
 run_epoch draws from one torch.Generator per epoch and stage, seeded as the
 JAX loop seeds its key (seed * 1000 + epoch * 10 + 0 for train, 1 for val),
 so a run resumed after epoch e draws what an unbroken run draws. It
-tolerates up to 11 host-side data errors per epoch (the 12th re-raises),
-logs the scalars every LOG_EVERY steps and splits its wall into the
-PhaseTimer phases data / h2d / step / guard / sync / viz.
+tolerates up to 11 host-side data errors per epoch (the 12th re-raises)
+and logs the scalars every LOG_EVERY steps.
 
 Observability, as in the JAX Trainer:
   * --watch_networks (on also with --use_wandb, wandb.watch's telemetry):
@@ -41,9 +40,25 @@ Observability, as in the JAX Trainer:
     parameter after the update into two device tensors, which run_epoch
     reports as train/grad_norm/<net>.<state-dict key> and
     train/param_norm/<...> (remembered, committed as epoch histograms);
-  * --profile_steps N: a device trace (utils/profiling.py) of train steps
-    [1, 1 + N) of epoch 0 under <log_dir>/profile, each step a span
-    train_step_<i>, closed when the loop raises too; rank 0's alone;
+  * spans and counters (utils/profiling.py), recorded while a device trace
+    records or after profiling.record_spans(True), else one check each: the
+    epoch is the span train.epoch, tiled by train.data, each step's root
+    span <stage>_step_<i>, train.guard (the lagged guard's read), train.viz
+    and train.log_sync (the LOG_EVERY fetch and report); the step is tiled
+    by train.h2d (the batch's copy), train.encoder, train.sampler,
+    train.decoder_fwd (the decoder and the losses), train.decoder_bwd (to
+    the gradient reaching the abstract cloud), train.encoder_bwd,
+    train.all_reduce (under a group) and train.optimizer (clip, AdamW, the
+    guards, the batch statistics), each starting on the card where the
+    last ended, so their device times sum to the step's; the kernels'
+    o4d_<kernel> spans nest inside. Counters: train.steps,
+    train.steps_skipped (a non-finite gradient read by the guard),
+    train.data_errors, train.queries_sampled (frames x queries);
+  * --profile_steps N: a device trace of train steps [1, 1 + N) of epoch 0
+    under <log_dir>/profile, each step a span train_step_<i>, closed when
+    the loop raises too; rank 0's alone; beside it spans.json
+    (profiling.span_totals() and counters() of those steps: calls, host,
+    device and self ms a span), also logged as a table;
   * --check_numerics: the pipeline's named NaN/Inf probes (pipeline.py) in
     the train, val_aug and viz forwards, with the decoder's module path,
     the encoder's plain attention chain and no remat, as the JAX Trainer
@@ -73,6 +88,7 @@ that decoder.
 
 import contextlib
 import logging
+import math
 import os
 import time
 
@@ -92,7 +108,6 @@ from .pipeline import PipelineConfig, TrainPipeline, resolve_decoder_dtype
 from .sampler import SamplerConfig
 from .utils import profiling
 from .utils.logvis import StepLogger
-from .utils.profiling import PhaseTimer, annotate
 
 __all__ = ['AdamW', 'build_optimizer', 'make_train_step', 'make_eval_step',
            'make_viz_step', 'Trainer', 'main', 'LOG_EVERY']
@@ -176,6 +191,31 @@ def _leaf_norms(tensors):
                         for t in tensors])
 
 
+@contextlib.contextmanager
+def _backward_spans(abstract):
+    '''The backward's two tiled spans: train.decoder_bwd from its start to
+    the gradient reaching the abstract cloud (a hook, registered only while
+    spans record), then train.encoder_bwd to the end of the block. The hook
+    runs on the autograd engine's thread, hence begin / end.'''
+    dec = profiling.begin('train.decoder_bwd', tile=True)
+    if dec is None:
+        yield
+        return
+    enc = []
+
+    def reached(grad):
+        profiling.end(dec)
+        enc.append(profiling.begin('train.encoder_bwd', tile=True, parent=dec.parent))
+
+    handle = abstract.register_hook(reached) if abstract.requires_grad else None
+    try:
+        yield
+    finally:
+        if handle is not None:
+            handle.remove()
+        profiling.end(enc[0] if enc else dec)
+
+
 def make_train_step(pipeline: TrainPipeline, optimizer: AdamW, watch_networks=False):
     '''
     :return step(batch, generator, mark=None, want_norms=True) -> metrics:
@@ -203,15 +243,19 @@ def make_train_step(pipeline: TrainPipeline, optimizer: AdamW, watch_networks=Fa
 
     def step(batch, generator, mark=None, want_norms=True):
         loss, (losses, aux) = pipeline.loss(batch, generator, mark)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        profiling.count('train.steps')
+        profiling.count('train.queries_sampled', math.prod(aux['points_query'].shape[:-1]))
+        with _backward_spans(aux['abstract']):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         if mark is not None:
             mark('encoder_backward')
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         if group is not None:
-            grads = all_reduce_flat(grads, group)
+            with profiling.span('train.all_reduce', tile=True):
+                grads = all_reduce_flat(grads, group)
             if mark is not None:
                 mark('gradient_all_reduce')
-        with torch.no_grad():
+        with profiling.span('train.optimizer', tile=True), torch.no_grad():
             grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
             optimizer.update(grads, grad_norm, grads_finite)
@@ -246,8 +290,8 @@ def make_eval_step(pipeline: TrainPipeline):
     def step(batch, generator):
         with torch.no_grad():
             losses, aux = pipeline.forward(batch, generator)
-            total, logged = _logged_losses(total_loss(losses, pipeline.cfg.loss_config),
-                                           losses, aux, pipeline.cfg.loss_config)
+            total, logged = _logged_losses(aux['total_loss'], losses, aux,
+                                           pipeline.cfg.loss_config)
         return dict(total_loss=total, sample_ok=aux['sample_ok'],
                     **{f'loss_{k}': v for k, v in logged.items()})
 
@@ -276,15 +320,17 @@ def _numpy(t):
 
 
 def _to_device(batch, dev):
-    '''The batch's step inputs on `dev` (the host-side entries left out).'''
+    '''The batch's step inputs on `dev` (the host-side entries left out), in
+    the tiled span train.h2d.'''
     out = {}
-    for k, v in batch.items():
-        if k in _HOST_KEYS:
-            continue
-        if isinstance(v, torch.Tensor):
-            out[k] = v.to(dev)
-        else:  # a copy: the step never aliases the caller's numpy buffers.
-            out[k] = torch.tensor(np.array(v), device=dev)
+    with profiling.span('train.h2d', tile=True):
+        for k, v in batch.items():
+            if k in _HOST_KEYS:
+                continue
+            if isinstance(v, torch.Tensor):
+                out[k] = v.to(dev)
+            else:  # a copy: the step never aliases the caller's numpy buffers.
+                out[k] = torch.tensor(np.array(v), device=dev)
     return out
 
 
@@ -352,7 +398,6 @@ class Trainer:
         self._step = None
         self.step_count = 0            # train steps run (the JAX state's 'step').
         self.start_epoch = cfg.start_epoch
-        self.last_phase_timer = None
 
     # ------------------------------------------------------------------ state --
 
@@ -494,9 +539,20 @@ class Trainer:
         read by rank 0 alone, under a group: the other ranks pass None).
         Under a group the ranks agree, step by step, on a host-side data
         error (all skip the step), and all run the viz forward that rank 0's
-        logger asks for.
+        logger asks for. While spans record (utils/profiling.py) the epoch
+        is the span train.epoch, tiled by train.data, the step's root span
+        <stage>_step_<i> (train.h2d, train.encoder, train.sampler,
+        train.decoder_fwd, train.decoder_bwd, train.encoder_bwd,
+        train.all_reduce, train.optimizer), train.guard, train.viz and
+        train.log_sync; counters train.steps, train.steps_skipped,
+        train.data_errors and train.queries_sampled.
         :return the metrics of the logged steps (numpy).'''
         assert stage in ('train', 'val', 'val_aug')
+        with profiling.span('train.epoch'):
+            return self._run_epoch(epoch, stage, data_iter, num_steps)
+
+    def _run_epoch(self, epoch, stage, data_iter, num_steps):
+        span = profiling.span
         is_train = stage == 'train'
         group = self.group
         gen = torch.Generator(self.device).manual_seed(parallel.rank_seed(
@@ -507,17 +563,18 @@ class Trainer:
             data_iter = parallel.rank_batches(data_iter, group)
         num_exceptions = 0
         metrics_hist = []
-        timer = PhaseTimer()
         start = time.time()
         data_iter = iter(data_iter)
         cur_step = -1
         prev_guard = None      # (grads_finite, params_finite) of the last train step.
         # --profile_steps: a device trace of steps [1, 1 + N) of epoch 0 (step
-        # 0 pays the warm-up and would drown it), rank 0's.
+        # 0 pays the warm-up and would drown it), rank 0's, and the spans of
+        # those steps in spans.json beside it.
         prof_until = (1 + self.cfg.profile_steps
                       if (is_train and epoch == 0 and log_dir and self.is_main
                           and self.cfg.profile_steps > 0) else None)
         prof_active = False
+        prof_mark = None       # the store's position when the trace started.
         prof_dir = os.path.join(log_dir, 'profile') if log_dir else None
 
         def prof_stop():
@@ -527,17 +584,22 @@ class Trainer:
                 if self.device.type == 'cuda':    # the traced steps' kernels done.
                     torch.cuda.synchronize(self.device)
                 profiling.stop_trace()
-                self.logger.info(f'Device trace written to {prof_dir}')
+                os.makedirs(prof_dir, exist_ok=True)
+                totals, counts = profiling.write_spans(os.path.join(prof_dir, 'spans.json'),
+                                                       since=prof_mark)
+                self.logger.info(f'Device trace and spans.json written to {prof_dir}; '
+                                 f'spans:\n' + profiling.spans_table(totals, counts))
 
         def check_guard():
             '''Read and act on the pending step's guard flags.'''
             nonlocal prev_guard
             if prev_guard is None:
                 return
-            with timer.phase('guard'):
+            with span('train.guard', tile=True):
                 g_fin, p_fin = bool(prev_guard[0]), bool(prev_guard[1])
             prev_guard = None
             if not g_fin:
+                profiling.count('train.steps_skipped')
                 self.logger.error('NaN/Inf gradient detected! Step skipped.')
             if not p_fin:
                 raise RuntimeError('NaN model parameter detected!')
@@ -549,47 +611,48 @@ class Trainer:
                     if prof_active and cur_step >= prof_until:
                         prof_stop()
                     elif not prof_active and cur_step == 1:
+                        # The spans of an outer recording stay (record_spans).
                         profiling.start_trace(prof_dir)
+                        prof_mark = profiling.mark()
                         prof_active = True
                 if num_steps is not None and cur_step >= num_steps:
                     break
-                with timer.phase('data'):
+                with span('train.data', tile=True):
                     batch = next(data_iter, None)
                 if batch is None:
                     break
-                agreed = False
-                try:
-                    if isinstance(batch, Exception):   # a batch rank 0 could not shard.
-                        raise batch
-                    meta_list = batch.get('meta_data')
-                    host_images = {k: batch[k] for k in ('rgb', 'depth') if k in batch}
-                    with timer.phase('h2d'):
+                with span(f'{stage}_step_{cur_step}', tile=True, root=True):
+                    agreed = False
+                    try:
+                        if isinstance(batch, Exception):   # a batch rank 0 could not shard.
+                            raise batch
+                        meta_list = batch.get('meta_data')
+                        host_images = {k: batch[k] for k in ('rgb', 'depth') if k in batch}
                         batch = _to_device(batch, self.device)
-                    # Every rank runs the step, or none: a skip on one rank alone
-                    # would leave the others waiting in the step's collectives.
-                    agreed = True
-                    if not parallel.all_true(True, group):
-                        raise RuntimeError('a host-side data error on another rank')
-                except Exception as e:  # host-side data failure tolerance.
-                    if not agreed:
-                        parallel.all_true(False, group)
-                    num_exceptions += 1
-                    if num_exceptions >= 12:
-                        raise
-                    self.logger.exception(e)
-                    # A pending poison pill must not be masked by a data-failure
-                    # streak ending in the 12-exception re-raise.
-                    check_guard()
-                    continue
+                        # Every rank runs the step, or none: a skip on one rank
+                        # alone would leave the others waiting in the step's
+                        # collectives.
+                        agreed = True
+                        if not parallel.all_true(True, group):
+                            raise RuntimeError('a host-side data error on another rank')
+                    except Exception as e:  # host-side data failure tolerance.
+                        if not agreed:
+                            parallel.all_true(False, group)
+                        num_exceptions += 1
+                        profiling.count('train.data_errors')
+                        if num_exceptions >= 12:
+                            raise
+                        self.logger.exception(e)
+                        # A pending poison pill must not be masked by a
+                        # data-failure streak ending in the 12-exception re-raise.
+                        check_guard()
+                        continue
 
-                viz_due = (is_train and log_dir is not None
-                           and cur_step % max(self.cfg.viz_interval, 1) == 0)
-                if viz_due:  # the step's draws, on a copy that leaves `gen` as it is.
-                    viz_gen = torch.Generator(self.device)
-                    viz_gen.set_state(gen.get_state())
-                step_span = (annotate(f'{stage}_step_{cur_step}') if prof_active
-                             else contextlib.nullcontext())
-                with timer.phase('step'), step_span:
+                    viz_due = (is_train and log_dir is not None
+                               and cur_step % max(self.cfg.viz_interval, 1) == 0)
+                    if viz_due:  # the step's draws, on a copy that leaves `gen` as it is.
+                        viz_gen = torch.Generator(self.device)
+                        viz_gen.set_state(gen.get_state())
                     if is_train:
                         metrics = self._step(batch, gen, want_norms=cur_step % LOG_EVERY == 0)
                         self.step_count += 1
@@ -608,28 +671,14 @@ class Trainer:
                     prev_guard = new_guard
 
                 if viz_due:
-                    with timer.phase('viz'):
+                    with span('train.viz', tile=True):
                         self._export_intermediates(epoch, stage, cur_step, batch,
                                                    host_images, meta_list, viz_gen)
 
                 if cur_step % LOG_EVERY == 0:   # host sync for scalar logging only.
-                    with timer.phase('sync'):
-                        m = {k: _numpy(v) for k, v in metrics.items()}
-                    loss_terms = {k: float(v) for k, v in m.items() if k.startswith('loss_')}
-                    self.logger.handle_step(epoch, stage, cur_step, cur_step, num_steps or -1,
-                                            float(m['total_loss']), loss_terms)
-                    for name, val in loss_terms.items():
-                        self.logger.report_scalar(f'{stage}/{name}', val, remember=True)
-                    self.logger.report_scalar(f'{stage}/total_loss', float(m['total_loss']),
-                                              remember=True)
-                    if 'layer_grad_norms' in m and self.is_main:
-                        # wandb.watch's telemetry, committed as epoch histograms.
-                        for kind in ('layer_grad_norms', 'layer_param_norms'):
-                            for name, val in zip(self.layer_names, m[kind]):
-                                self.logger.report_scalar(
-                                    f'{stage}/{kind[6:-1]}/{name}', float(val),
-                                    remember=True, commit_histogram=True)
-                    metrics_hist.append(m)
+                    with span('train.log_sync', tile=True):
+                        self._log_step(epoch, stage, cur_step, num_steps, metrics,
+                                       metrics_hist)
 
         finally:
             # Close an active trace when the loop raises too (a NaN
@@ -637,9 +686,27 @@ class Trainer:
             prof_stop()
         check_guard()  # trailing-edge guard for the final step.
         self.logger.info(f'[{stage}] epoch {epoch} finished in {time.time() - start:.1f}s')
-        timer.report(self.logger, prefix=f'[{stage}] ')
-        self.last_phase_timer = timer
         return metrics_hist
+
+    def _log_step(self, epoch, stage, cur_step, num_steps, metrics, metrics_hist):
+        '''Fetch a logged step's metrics to the host, report them and append
+        them to metrics_hist.'''
+        m = {k: _numpy(v) for k, v in metrics.items()}
+        loss_terms = {k: float(v) for k, v in m.items() if k.startswith('loss_')}
+        self.logger.handle_step(epoch, stage, cur_step, cur_step, num_steps or -1,
+                                float(m['total_loss']), loss_terms)
+        for name, val in loss_terms.items():
+            self.logger.report_scalar(f'{stage}/{name}', val, remember=True)
+        self.logger.report_scalar(f'{stage}/total_loss', float(m['total_loss']),
+                                  remember=True)
+        if 'layer_grad_norms' in m and self.is_main:
+            # wandb.watch's telemetry, committed as epoch histograms.
+            for kind in ('layer_grad_norms', 'layer_param_norms'):
+                for name, val in zip(self.layer_names, m[kind]):
+                    self.logger.report_scalar(
+                        f'{stage}/{kind[6:-1]}/{name}', float(val),
+                        remember=True, commit_histogram=True)
+        metrics_hist.append(m)
 
     def _export_intermediates(self, epoch, stage, cur_step, dev_batch, host_images,
                               meta_list, generator):

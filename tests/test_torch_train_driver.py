@@ -68,6 +68,7 @@ from occlusions4d_torch.config import train_args
 from occlusions4d_torch.data import loader as t_loader
 from occlusions4d_torch.data import synthetic
 from occlusions4d_torch.models import factory as t_factory
+from occlusions4d_torch.utils import profiling
 from occlusions4d_torch.utils.logvis import StepLogger
 from test_torch_train import _JFixedSampler, _supervision, _TFixedSampler
 
@@ -327,15 +328,18 @@ def _assert_logged_close(t_hist, j_hist, what):
                                        err_msg=f'{what} step {i} {k}')
 
 
-def test_run_epoch_lockstep_with_jax(lockstep, monkeypatch):
+def test_run_epoch_lockstep_with_jax(lockstep, monkeypatch, tmp_path):
     lk = lockstep
     tr = _torch_lock_trainer(lk, monkeypatch)
     tr.init_state(params=lk['init'], steps_per_epoch=_STEPS)
     tr.pipeline.sampler = _TFixedSampler(*lk['sup'], 48)
     init = {n: p.detach().clone() for n, p in _named(tr).items()}
     lrs = []
+    profiling.reset_spans()
     for epoch in (0, 1):
-        th = tr.run_epoch(epoch, 'train', iter(lk['batches'][:_STEPS]))
+        # Epoch 1's train steps in a device trace: its spans are recorded.
+        with profiling.device_trace(str(tmp_path / 'trace'), enabled=epoch == 1):
+            th = tr.run_epoch(epoch, 'train', iter(lk['batches'][:_STEPS]))
         _assert_logged_close(th, lk['hist'][2 * epoch], f'train epoch {epoch}')
         assert all(bool(m['grads_finite']) and bool(m['params_finite']) for m in th)
         rel = _rel_delta(tr, lk['params'][epoch], init)
@@ -345,7 +349,10 @@ def test_run_epoch_lockstep_with_jax(lockstep, monkeypatch):
         _assert_logged_close(vh, lk['hist'][2 * epoch + 1], f'val_aug epoch {epoch}')
     assert lrs == [pytest.approx(1e-3), pytest.approx(5e-4)]   # the LR boundary crossed.
     assert tr.step_count == 2 * _STEPS and int(tr.optimizer.count) == 2 * _STEPS
-    assert set(tr.last_phase_timer.totals) >= {'data', 'h2d', 'step', 'sync'}
+    totals = profiling.span_totals()
+    assert set(totals) >= {'train.data', 'train.h2d', 'train_step_0', 'train.log_sync'}
+    assert totals['train.epoch']['calls'] == 1
+    profiling.reset_spans()
 
 
 # ------------------------------------------------------------------ (4) --

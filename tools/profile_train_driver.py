@@ -20,7 +20,7 @@ Runs them in the order loader, preloaded, bare, bare, preloaded, loader
 of loader and preloaded once more under torch.profiler for the device's
 busy share (the union of the kernels' intervals over the wall). Prints the card's nvidia-smi line and one JSON
 line: per run the wall per step (host clock around the epoch, then a
-synchronize), the PhaseTimer split, and the busy shares. Needs CUDA;
+synchronize), the spans' host split (chip_smoke.epoch_spans), and the busy shares. Needs CUDA;
 imports nothing of JAX.
 '''
 
@@ -99,9 +99,9 @@ def main():
                     torch.cuda.synchronize()
                 split = None
             else:
-                tr.run_epoch(epoch, 'train', loader.epoch(epoch) if kind == 'loader'
-                             else iter(preloaded), num_steps=steps)
-                split = {k: v[0] for k, v in tr.last_phase_timer.summary().items()}
+                _, _, _, split = cs.epoch_spans('train', lambda: tr.run_epoch(
+                    epoch, 'train', loader.epoch(epoch) if kind == 'loader'
+                    else iter(preloaded), num_steps=steps))
             torch.cuda.synchronize()
             wall = time.time() - t0
             return dict(kind=kind, epoch=epoch, steps=steps, wall_s=wall,

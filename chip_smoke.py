@@ -4476,9 +4476,11 @@ def profile_trace(torch, dev, smi, path_counts, train_data):
     train steps) with --profile_steps 2 --watch_networks true: the trace
     under <log_dir>/profile covers train steps 1-2 and names o4d_attn,
     o4d_attn_bwd and o4d_knn_brute; its device-busy share, top device
-    operations and idle gaps; one per-layer norm per parameter tensor, all
-    finite; then the step wall with and without the norms on the run's
-    Trainer and a preloaded batch."""
+    operations and idle gaps; the backward's GEMM launches by path in the
+    traced steps (ops/attention.py GEMM_PATHS: the f32 products on the
+    wgmma engine); one per-layer norm per parameter tensor, all finite;
+    then the step wall with and without the norms on the run's Trainer and
+    a preloaded batch."""
     import glob
     import shutil
     import tempfile
@@ -4491,6 +4493,14 @@ def profile_trace(torch, dev, smi, path_counts, train_data):
                                '--watch_networks', 'true']
         tr, counts, wall, epochs = driver_run(torch, argv, os.path.join(tmp, 'logs'))
         path_counts['profile_trace'] = counts
+        # The traced steps' counters, as --profile_steps wrote them beside the
+        # trace (the store itself is emptied after each recorded epoch).
+        spans_json = os.path.join(tr.logger.log_dir, 'profile', 'spans.json')
+        gemms = {}
+        if os.path.isfile(spans_json):
+            with open(spans_json) as f:
+                gemms = {k: v for k, v in json.load(f)['counters'].items()
+                         if k.startswith('kernel.gemm_')}
         files = glob.glob(os.path.join(tr.logger.log_dir, 'profile', '*.pt.trace.json'))
         trace = trace_summary(files[0]) if len(files) == 1 else {}
         train_e = [e for e in epochs if e['stage'] == 'train']
@@ -4516,9 +4526,10 @@ def profile_trace(torch, dev, smi, path_counts, train_data):
               and all(n in trace.get('o4d_spans', ()) for n in need)
               and trace.get('device_ops', 0) > 0 and norms_ok
               and train_e and train_e[0]['steps'] >= 4
+              and gemms.get('kernel.gemm_wgmma', 0) > 0
               and all(counts.get(k, 0) > 0 for k in _TRAIN))
         emit(dict(phase='profile_trace', model='gv1', argv_extra=argv[len(_TD_GV1_ARGV):],
-                  trace_files=len(files), trace=trace,
+                  trace_files=len(files), trace=trace, gemm_launches=gemms,
                   busy_share_proxies_perf_md=_BUSY_PROXIES, train_steps=train_e[0]['steps']
                   if train_e else 0, epochs=epochs, wall_s=wall,
                   layer_norms=dict(parameters=n_params, grad_norms=len(g),
@@ -4529,7 +4540,8 @@ def profile_trace(torch, dev, smi, path_counts, train_data):
         if not ok:
             raise AssertionError(f'profile_trace failed: trace files {files}, steps '
                                  f'{trace.get("steps")}, spans {trace.get("o4d_spans")}, '
-                                 f'device ops {trace.get("device_ops")}, norms {norms_ok}')
+                                 f'device ops {trace.get("device_ops")}, norms {norms_ok}, '
+                                 f'GEMM launches {gemms}')
         del tr, batch
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -55,20 +55,31 @@
 //     row phase recomputes the forward and runs the softmax backward, every
 //     per-row operand (rel, F, relu(theta_h), theta / dtheta, hpre, relu(h1),
 //     dlog, dvpe, dh1, dhpre, dtheta_h) going through device memory;
-//   * every product is one tensor-core GEMM kernel (gemm3_kernel): 128 x 128
-//     output tiles of 8 warps, each warp 64 x 32 through mma.sync m16n8k8
-//     TF32 in the 3xTF32 split (each 8-deep step's three products summed by
-//     the tensor core, then added to the f32 sum in registers, rounded to
-//     nearest), 32-deep k-steps staged by cp.async (16-byte copies where a
-//     tile is whole and aligned, else 4-byte ones at any stride with ragged
-//     edges zero-filled; transposed operands kept in their memory
-//     orientation) in a 3-stage ring, 2 blocks (16 warps) per SM. In
-//     the row phase a weight tile is staged once per 128 rows; the epilogue
-//     applies the bias, the ReLU, the [x > 0] mask, the sign and the
-//     destination row map (dg's (j, n) layout);
-//   * the weight gradients are long-K products over the chunk's rows: a
-//     block owns a 128 x 128 output tile and a fixed slice of the rows,
-//     accumulates in registers and writes its partial once; a reduce adds
+//   * every product is one GEMM launch over 128 x 128 output tiles with the
+//     same epilogue (the bias, the ReLU, the [x > 0] mask, the sign, the
+//     destination row map of dg's (j, n) layout; in the row phase a weight
+//     tile is staged once per 128 rows). The f32 tensor-core products whose
+//     output is at least 64 wide on both sides run on the wgmma engine
+//     (gemm3_wgmma_kernel, csrc/attn_common.cuh): a persistent block per SM;
+//     a producer warpgroup stages each 32-deep k-step's raw f32 tiles by TMA
+//     (cp.async where an operand's pointer or row stride is not a 16-byte
+//     multiple, or a K slice not whole k-steps) and splits the B tile once
+//     into TF32 big and small planes (K-major, 128-byte swizzle: the layout
+//     tf32 wgmma reads, transposing an MN-major B in the same pass); two
+//     consumer warpgroups split their A fragments in registers and issue
+//     three wgmma m64n128k8 products per 8-deep step (small a big b, big a
+//     small b, big a big b) into a fragment that starts from zero every 64
+//     k and is then added to the f32 sum in registers (the promotion: the
+//     tensor core's truncating accumulation never carries a row slice's
+//     long sum). Bounded by the tensor cores' TF32 rate and the shared
+//     memory's bandwidth (wgmma's B reads, the split, the TMA's writes).
+//     The narrow products (dW1's 3 rows, dW2's and dtheta_h's P = 32) keep
+//     gemm3_kernel's mma.sync m16n8k8 in 3xTF32 (each warp splitting its
+//     fragments, each 8-deep step's three products added to the f32 sum),
+//     2 blocks (16 warps) per SM; the shapes alone choose;
+//   * the weight gradients are long-K products over the chunk's rows: each
+//     (128 x 128 output tile, fixed slice of the rows) is summed by one
+//     block in registers and its partial written once; a reduce adds
 //     the slices in slice order and the chunks in chunk order. No atomics:
 //     the result is bit-reproducible from call to call, and the gathered
 //     and index routes, which see the same rows in the same chunks, give the
@@ -113,13 +124,15 @@
 
 namespace {
 
-// The GEMM kernel (gemm3_kernel), its helpers, the row loader and theta's
-// hidden layer: csrc/attn_common.cuh.
+// The GEMM kernels (gemm3_wgmma_kernel, gemm3_kernel), their helpers, the
+// row loader and theta's hidden layer: csrc/attn_common.cuh.
 constexpr int kSplitBlocks = 264;  // 2 blocks on each of the 132 SMs.
 
 // ----------------------------------------------------- weight-gradient phase --
-// Slices of the rows for a long-K product with `tiles` output tiles: at most
-// two blocks per SM (one wave), each slice a multiple of kBK rows.
+// Slices of the rows for a long-K product with `tiles` output tiles: about
+// kSplitBlocks (tile, slice) pairs (one wave of gemm3_kernel's two blocks
+// per SM, two rounds of the wgmma engine's one), each slice a multiple of
+// kBK rows.
 int row_slice(int R, int tiles) {
   const int want = tiles < kSplitBlocks ? kSplitBlocks / tiles : 1;
   int slice = (R + want - 1) / want;
@@ -552,6 +565,41 @@ extern "C" void o4d_attn_bwd_plan(int N, int M, int D, int E, int H, int P, int 
   carve(nullptr, R, D, E, H, P, &used);
   *floats = used + part_max((int)R, D, E, H, P) + o4d_index::sum_floats(R, CW);
   *ints = M > 0 ? o4d_index::index_ints(R, M) : 0;
+}
+
+// The GEMM launches of this library since the last call, by path: out[0]
+// the wgmma engine (f32), out[1] mma.sync f32, out[2] mma.sync bf16,
+// out[3] the f32 FMA chains; the counts restart from zero.
+extern "C" void o4d_gemm_launches(long long* out) {
+  for (int i = 0; i < kPaths; ++i) out[i] = g_gemm_launches[i].exchange(0);
+}
+
+// One f32 tensor-core product as the backward launches it, for the card
+// tests and tools: C (+)= alpha op(A) op(B) with GemmArgs' epilogue over
+// `splits` K slices of kslice (slice z at C + z zstride), op(A) = A^T with
+// ta, op(B) = B^T with tb (the three pairs the backward uses: (0, 0),
+// (0, 1), (1, 0)); the path follows from the shapes as in the backward.
+extern "C" int o4d_gemm_f32(int ta, int tb, const void* A, long long lda, const void* B,
+                            long long ldb, void* C, long long map_q, long long map_j,
+                            int map_rk, long long zstride, const void* bias, const void* mask,
+                            long long ldm, int M, int N, int K, int kslice, int splits,
+                            float alpha, int relu, int accum, void* stream) {
+  GemmArgs a = gemm_args((const float*)A, lda, (const float*)B, ldb, (float*)C, map_q, M, N, K);
+  a.map = RowMap{map_q, map_j, map_rk};
+  a.zstride = zstride;
+  a.bias = (const float*)bias;
+  a.mask = (const float*)mask;
+  a.ldm = ldm;
+  a.kslice = kslice;
+  a.alpha = alpha;
+  a.relu = relu;
+  a.accum = accum;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (map_rk < 1 || splits < 1 || kslice < 1) return (int)cudaErrorInvalidValue;
+  if (!ta && !tb) return (int)gemm<false, false>(a, splits, s);
+  if (!ta && tb) return (int)gemm<false, true>(a, splits, s);
+  if (ta && !tb) return (int)gemm<true, false>(a, splits, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 namespace {

@@ -1,18 +1,24 @@
 // Shared by the attention forward (csrc/attn.cu) and backward
 // (csrc/attn_bwd.cu): the cp.async helpers, the 3xTF32 split and the TF32
-// tensor-core product (mma.sync m16n8k8), the 128 x 128 tiled GEMM of the
-// backward's phases (tensor cores in 3xTF32, f32 FMA chains, or, in the bf16
-// compute mode, bf16 tensor-core products (mma.sync m16n8k16) on operands
-// rounded to bf16; with its epilogue), and the row phase's first kernels:
-// the row loader of the
-// three entry modes (with the forward's bf16 rounding of the key rows as an
-// option) and theta's hidden layer. Everything sits in an unnamed
-// namespace, as it did inside each source: each .cu is its own library.
+// tensor-core product (mma.sync m16n8k8), the 128 x 128 tiled GEMMs of the
+// backward's phases with their epilogue, and the row phase's first kernels:
+// the row loader of the three entry modes (with the forward's bf16 rounding
+// of the key rows as an option) and theta's hidden layer. The GEMMs: f32
+// products of both sides at least kWgMin on the wgmma engine (3xTF32 on
+// wgmma, gemm3_wgmma_kernel); the narrower f32 products on mma.sync m16n8k8
+// in 3xTF32 (gemm3_kernel); f32 FMA chains (gemm3_kernel's FMA); or, in the
+// bf16 compute mode, bf16 tensor-core products (mma.sync m16n8k16) on
+// operands rounded to bf16 (gemm3_kernel's BF16). Everything sits in an
+// unnamed namespace, as it did inside each source: each .cu is its own
+// library.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -171,12 +177,15 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The product of a block's 128 x 128 tile, in registers: on the tensor cores
-// (3xTF32; the thread's fragments of its warp's 64 x 32), or with FMA on
-// the CUDA cores (the thread's 8 x 8 outputs, rows ty + 16 i, columns
-// 4 tx + {0..3} and 64 + 4 tx + {0..3}): every output a sequential chain
-// acc = fma(a_k, b_k, acc) over k = 0, 1, ... from zero, the rounding of a
-// plain f32 matrix product. BF16 (the bf16 compute mode, the TPU kernels'
+// gemm3_kernel: the f32 tensor-core products narrower than kWgMin on a side,
+// the FMA chains and the bf16 mode (the wide f32 products run on
+// gemm3_wgmma_kernel, below). The product of a block's 128 x 128 tile, in
+// registers: on the tensor cores (3xTF32 on mma.sync m16n8k8; the thread's
+// fragments of its warp's 64 x 32, each 8-deep step's three products added
+// to the f32 sum), or with FMA on the CUDA cores (the thread's 8 x 8
+// outputs, rows ty + 16 i, columns 4 tx + {0..3} and 64 + 4 tx + {0..3}):
+// every output a sequential chain acc = fma(a_k, b_k, acc) over k = 0, 1,
+// ... from zero, the rounding of a plain f32 matrix product. BF16 (the bf16 compute mode, the TPU kernels'
 // _mm2): each landed f32 stage rounded once into bf16 [row][k] tiles (both
 // operands), the fragments read from them by ldmatrix, one m16n8k16 bf16
 // product per 16-deep step (each product exact in f32), accumulated by the
@@ -405,9 +414,535 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm3_kernel(GemmArgs p) {
   }
 }
 
+// ------------------------------------------------- 3xTF32 GEMM on wgmma --
+// gemm3_wgmma_kernel: the f32 tensor-core products whose output is at least
+// kWgMin wide on both sides (the row phase's wide products and the long-K
+// weight gradients; gemm() decides from the shapes alone). The 128 x 128
+// output tiles, the K ranges, the z slices and the epilogue are
+// gemm3_kernel's; a persistent block per SM walks over the tiles. Three
+// warpgroups:
+//   * the producer warpgroup stages each 32-deep k-step's raw f32 A and B
+//     tiles into a ring of kWgStages stages, kWgStages - 1 k-steps ahead:
+//     by TMA (one thread, an mbarrier's transaction count) where the
+//     operand's pointer and row stride are 16-byte multiples and the K
+//     slices are whole k-steps, else by cp.async (4-byte copies at any
+//     stride, 16-byte where the tile is whole and aligned) whose completion
+//     arrives on the same mbarrier (cp.async.mbarrier.arrive.noinc). A
+//     K-major operand (A without TA, B with TB) lands as rows x 32 k with
+//     the 128-byte swizzle, an MN-major one as 32 k x rows. It then splits
+//     each landed B tile once into TF32 big and small planes (x = big +
+//     small, tf32_bits: cvt.rna), written K-major with the 128-byte swizzle,
+//     the layout tf32 wgmma reads (it takes no transposed operand: the split
+//     transposes an MN-major tile), into kWgBuffers plane buffers;
+//   * each of the two consumer warpgroups owns 64 rows of the tile: per
+//     8-deep step its threads read their A fragment from the raw tile and
+//     split it in registers (A from registers ran faster than a split A
+//     plane in shared memory, PERF.md), then issue three wgmma m64n128k8
+//     tf32 products with B from the planes: small a big b, big a small b,
+//     big a big b, summed by the tensor core in a fragment that starts from
+//     zero every kWgPromote k-steps (the promotion depth: 64 deep, 24
+//     products) and is then added to the f32 sum in registers, rounded to
+//     nearest. The tensor core's own accumulation truncates; over a weight
+//     gradient's row slice (tens of thousands of rows) that would drift
+//     past the f32 tolerance, over one fragment it does not.
+//   The roles meet only at mbarriers (raw stage landed / read, planes
+//   written / read), so the split and the loads run while the tensor cores
+//   multiply.
+// What bounds it on the H100: the tensor cores' TF32 rate (three products
+// per product) and the shared memory's bandwidth, which carries wgmma's B
+// reads (4 bytes a row of B per 64 multiply-adds: half the bandwidth at
+// the full TF32 rate), the split (a B tile read, two planes written), the
+// A fragments' reads and the TMA's writes.
+constexpr int kWgStages = 3;   // raw f32 stages (A and B tiles) in the ring.
+constexpr int kWgBuffers = 4;  // B plane buffers (big, small).
+constexpr int kWgPromote = 2;  // k-steps a fragment sums before promotion: 64 deep.
+// A fragment holds its k-steps' plane buffers until promoted; the producer
+// needs one more to split ahead.
+static_assert(kWgPromote < kWgBuffers, "plane buffers for the promotion depth");
+constexpr int kWgThreads = 384;       // the producer warpgroup, then two consumers.
+constexpr int kWgMin = 64;            // M and N at least this: the wgmma engine.
+constexpr int kWgTile = kBM * kBK;    // floats of a raw tile or a plane (128 x 32).
+constexpr int kWgBytes = kWgTile * (int)sizeof(float);
+// The raw ring, the plane buffers, the mbarriers (full and empty of each),
+// and room to align the base to 1024 bytes.
+constexpr int kWgSmem = (2 * kWgStages + 2 * kWgBuffers) * kWgBytes +
+                        2 * (kWgStages + kWgBuffers) * 8 + 1024;
+
+// GEMM launches of this library by path, for the wrappers' counters.
+enum { kPathWgmma = 0, kPathMmaF32 = 1, kPathMmaBf16 = 2, kPathFma = 3, kPaths = 4 };
+std::atomic<long long> g_gemm_launches[kPaths];
+
+__device__ __forceinline__ uint32_t wg_smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned long long wg_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits for the mbarrier's phase of the given parity; a copy or an arrival
+// that has not come within two seconds fails the launch (trap) instead of
+// hanging it.
+__device__ __forceinline__ void wg_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = wg_smem(bar);
+  uint32_t done = 0;
+  unsigned long long t0 = 0;
+  for (int spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && (spin & 1023) == 1023) {
+      if (t0 == 0)
+        t0 = wg_ns();
+      else if (wg_ns() - t0 > 2000000000ull)
+        __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void wg_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(wg_smem(bar)) : "memory");
+}
+
+// Arrives on bar once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void wg_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(wg_smem(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void wg_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(wg_smem(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// The box of map at (c0 innermost, c1) into dst; out-of-range elements are
+// zeros. The mbarrier's transaction count takes the box's bytes.
+__device__ __forceinline__ void wg_tma(float* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(wg_smem(dst)),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(wg_smem(bar))
+      : "memory");
+}
+
+// Float offset of (row r, k) in a K-major tile of 32 k a row, 128-byte
+// swizzle: the 16-byte chunk k / 4 of row r sits at chunk (k / 4) ^ (r % 8)
+// (the tile based at a multiple of 1024 bytes).
+__device__ __forceinline__ int wg_kmajor(int r, int k) {
+  return r * kBK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);
+}
+
+// The producer's cp.async copy of one operand's raw tile (t: its thread,
+// 0-127): rows [r0, r0 + 128) of `rows` and k in [k0, k0 + 32) below ke;
+// K-major: element (r, k) = src[r ld + k] at wg_kmajor(r, k); MN-major:
+// element (k, r) = src[k ld + r] at k 128 + r. Zeros outside.
+template <bool KMAJ>
+__device__ __forceinline__ void wg_load(float* dst, const float* src, long long ld, int rows,
+                                        int r0, int k0, int ke, int t) {
+  if (r0 + kBM <= rows && k0 + kBK <= ke && ld % 4 == 0 && ((size_t)src & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < kWgTile / 4 / 128; ++i) {
+      const int u = t + 128 * i;
+      if (KMAJ) {
+        const int r = u >> 3, c = u & 7;
+        cp_async16(dst + wg_kmajor(r, 4 * c), src + (size_t)(r0 + r) * ld + k0 + 4 * c);
+      } else {
+        const int k = u >> 5, c = u & 31;
+        cp_async16(dst + k * kBM + 4 * c, src + (size_t)(k0 + k) * ld + r0 + 4 * c);
+      }
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int i = 0; i < kWgTile / 128; ++i) {
+    const int u = t + 128 * i;
+    const int r = KMAJ ? u >> 5 : u & (kBM - 1), k = KMAJ ? u & (kBK - 1) : u >> 7;
+    const bool ok = r0 + r < rows && k0 + k < ke;
+    const float* s = !ok ? src
+                     : KMAJ ? src + (size_t)(r0 + r) * ld + k0 + k
+                            : src + (size_t)(k0 + k) * ld + r0 + r;
+    cp_async4(dst + (KMAJ ? wg_kmajor(r, k) : k * kBM + r), s, ok);
+  }
+}
+
+// x (4 floats) split into its TF32 big and small parts, stored at big and
+// small (16 bytes each).
+__device__ __forceinline__ void wg_split4(float4 x, float* big, float* small) {
+  uint4 b, s;
+  split_tf32(x.x, b.x, s.x);
+  split_tf32(x.y, b.y, s.y);
+  split_tf32(x.z, b.z, s.z);
+  split_tf32(x.w, b.w, s.w);
+  *reinterpret_cast<uint4*>(big) = b;
+  *reinterpret_cast<uint4*>(small) = s;
+}
+
+// A raw B tile split into the K-major swizzled planes by the producer
+// warpgroup (t: its thread, 0-127).
+template <bool KMAJ>
+__device__ __forceinline__ void wg_split(const float* raw, float* big, float* small, int t) {
+#pragma unroll
+  for (int i = 0; i < kWgTile / 4 / 128; ++i) {
+    if (KMAJ) {  // the raw tile is in the planes' layout already.
+      const int o = 4 * (t + 128 * i);
+      wg_split4(*reinterpret_cast<const float4*>(raw + o), big + o, small + o);
+    } else {  // lanes along the rows: conflict-free reads and swizzled writes.
+      const float4 x = make_float4(raw[(4 * i) * kBM + t], raw[(4 * i + 1) * kBM + t],
+                                   raw[(4 * i + 2) * kBM + t], raw[(4 * i + 3) * kBM + t]);
+      const int o = wg_kmajor(t, 4 * i);
+      wg_split4(x, big + o, small + o);
+    }
+  }
+}
+
+// The shared-memory matrix descriptor of a K-major plane with the 128-byte
+// swizzle (rows of 128 bytes, 8-row groups 1024 bytes apart). The k8 step
+// j of a 32-deep stage starts 32 j bytes on: descriptor + 2 j.
+__device__ __forceinline__ uint64_t wg_desc(const float* plane) {
+  return (uint64_t)((wg_smem(plane) >> 4) & 0x3fff) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (+)= a b, one wgmma m64n128k8 tf32 product of the warpgroup, a from
+// registers, b a plane descriptor (acc: 0 starts d from zero). The thread
+// (warp q, lane l) gives a[4] = A at (row 16 q + l / 4, k l % 4), (row + 8,
+// k), (row, k + 4), (row + 8, k + 4) (mma.sync m16n8k8's A fragment) and
+// holds d[4 j + c] = row 16 q + l / 4 + 8 (c / 2), column 8 j + 2 (l % 4) +
+// c % 2.
+__device__ __forceinline__ void wg_mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// Keeps the compiler from moving register reads or writes of d across the
+// asynchronous products' issue and wait.
+__device__ __forceinline__ void wg_fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Output tile `tile` of the walk: slice z, then rows, then columns.
+struct WgTile {
+  int m0, n0, kb, ke, nk, z;
+};
+
+__device__ __forceinline__ WgTile wg_tile(const GemmArgs& p, int tile) {
+  const int nt = (p.N + kBN - 1) / kBN, mt = (p.M + kBM - 1) / kBM;
+  WgTile t;
+  t.z = tile / (nt * mt);
+  const int r = tile - t.z * nt * mt;
+  t.m0 = (r / nt) * kBM;
+  t.n0 = (r % nt) * kBN;
+  t.kb = t.z * p.kslice;
+  t.ke = min(p.K, t.kb + p.kslice);
+  t.nk = t.ke > t.kb ? (t.ke - t.kb + kBK - 1) / kBK : 0;
+  return t;
+}
+
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    gemm3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_b, const GemmArgs p,
+                       const int splits, const int a_tma, const int b_tma) {
+  extern __shared__ unsigned char wg_raw[];
+  float* base = reinterpret_cast<float*>(((size_t)wg_raw + 1023) & ~(size_t)1023);
+  float* raw_a = base;                                 // kWgStages tiles
+  float* raw_b = base + kWgStages * kWgTile;           // kWgStages tiles
+  float* planes = base + 2 * kWgStages * kWgTile;      // kWgBuffers x (B big, B small)
+  uint64_t* full = reinterpret_cast<uint64_t*>(planes + 2 * kWgBuffers * kWgTile);
+  uint64_t* empty = full + kWgStages;     // a raw stage read (A by the consumers, B split)
+  uint64_t* pfull = empty + kWgStages;    // a plane buffer written
+  uint64_t* pempty = pfull + kWgBuffers;  // a plane buffer read by both consumers' wgmma
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);  // warp-uniform role.
+  const int ntiles = ((p.N + kBN - 1) / kBN) * ((p.M + kBM - 1) / kBM) * splits;
+  const bool all_tma = a_tma && b_tma;
+  // full: the producer's arrivals (thread 0 alone where TMA loads both
+  // operands, else its 128 threads' cp.async arrivals); empty: one lane of
+  // each of the 4 producer and 8 consumer warps; pfull: the 4 producer
+  // warps; pempty: the 8 consumer warps.
+  if (tid == 0) {
+    auto init = [](uint64_t* bar, int n) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(wg_smem(bar)), "r"(n));
+    };
+    for (int s = 0; s < kWgStages; ++s) {
+      init(full + s, all_tma ? 1 : 128);
+      init(empty + s, 12);
+    }
+    for (int b = 0; b < kWgBuffers; ++b) {
+      init(pfull + b, 4);
+      init(pempty + b, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: loads kWgStages - 1 k-steps ahead, splits B ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const uint32_t tx = (a_tma ? kWgBytes : 0) + (b_tma ? kWgBytes : 0);
+    int tile = blockIdx.x, kt = 0;  // the next k-step to load
+    WgTile lt = wg_tile(p, tile < ntiles ? tile : 0);
+    int nl = 0;  // k-steps loaded
+    auto skip = [&]() {  // on to a k-step that exists, or past the last tile
+      while (tile < ntiles && kt >= lt.nk) {
+        tile += gridDim.x;
+        kt = 0;
+        if (tile < ntiles) lt = wg_tile(p, tile);
+      }
+    };
+    auto load = [&]() {
+      const int s = nl % kWgStages, f = nl / kWgStages, k0 = lt.kb + kt * kBK;
+      if (f > 0) wg_wait(empty + s, (f - 1) & 1);
+      float* ra = raw_a + s * kWgTile;
+      float* rb = raw_b + s * kWgTile;
+      if (tid == 0 && tx != 0) {
+        wg_expect_tx(full + s, tx);
+        if (a_tma) wg_tma(ra, &map_a, TA ? lt.m0 : k0, TA ? k0 : lt.m0, full + s);
+        if (b_tma) wg_tma(rb, &map_b, TB ? k0 : lt.n0, TB ? lt.n0 : k0, full + s);
+      }
+      if (!a_tma) wg_load<!TA>(ra, p.A, p.lda, p.M, lt.m0, k0, lt.ke, tid);
+      if (!b_tma) wg_load<TB>(rb, p.B, p.ldb, p.N, lt.n0, k0, lt.ke, tid);
+      if (!all_tma)
+        wg_arrive_cp_async(full + s);
+      else if (tid == 0)
+        wg_arrive(full + s);
+      ++nl;
+      ++kt;
+      skip();
+    };
+    skip();
+    for (int i = 0; i < kWgStages - 1 && tile < ntiles; ++i) load();
+    for (int st = 0; st < nl; ++st) {
+      const int s = st % kWgStages, b = st % kWgBuffers;
+      wg_wait(full + s, (st / kWgStages) & 1);
+      if (st >= kWgBuffers) wg_wait(pempty + b, (st / kWgBuffers - 1) & 1);
+      float* pl = planes + b * 2 * kWgTile;
+      wg_split<TB>(raw_b + s * kWgTile, pl, pl + kWgTile, tid);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) {
+        wg_arrive(pfull + b);
+        wg_arrive(empty + s);
+      }
+      if (tile < ntiles) load();  // into the slot of k-step st - 1.
+    }
+  } else {
+    // ---- consumers: warpgroup w owns rows [64 w, 64 w + 64) of the tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int w = wg - 1, wt = tid - 128 * wg;
+    const int wq = wt >> 5, gq = lane >> 2, tq = lane & 3;
+    const int r0 = 64 * w + 16 * wq + gq;  // the thread's rows r0, r0 + 8 of the tile
+    float acc[64], f[64];                  // the f32 sum; the fragment
+#pragma unroll
+    for (int i = 0; i < 64; ++i) f[i] = 0.f;  // (each fragment's first product ignores it)
+    int st = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const WgTile t = wg_tile(p, tile);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < t.nk;) {
+        const int n = min(kWgPromote, t.nk - kt);  // k-steps into this fragment
+        for (int q = 0; q < n; ++q) {
+          const int sq = st + q, s = sq % kWgStages, b = sq % kWgBuffers;
+          const float* ra = raw_a + s * kWgTile;
+          const float* pl = planes + b * 2 * kWgTile;
+          const uint64_t bb = wg_desc(pl), bs = wg_desc(pl + kWgTile);
+          wg_wait(pfull + b, (sq / kWgBuffers) & 1);  // (after the raw stage's full)
+          // Per 8-deep step the thread's A fragment read from the raw tile
+          // and split in registers (two sets: a set is refilled once its
+          // step's products are done), then small a big b, big a small b,
+          // big a big b.
+          uint32_t ab[2][4], as[2][4];
+          wg_fence_regs(f);
+#pragma unroll
+          for (int j = 0; j < kBK / 8; ++j) {
+            if (j >= 2) asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              const int r = r0 + 8 * (h & 1), k = 8 * j + tq + 4 * (h >> 1);
+              split_tf32(TA ? ra[k * kBM + r] : ra[wg_kmajor(r, k)], ab[j & 1][h],
+                         as[j & 1][h]);
+            }
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+            wg_mma_rs(f, as[j & 1], bb + 2 * j, q > 0 || j > 0);
+            wg_mma_rs(f, ab[j & 1], bs + 2 * j, 1);
+            wg_mma_rs(f, ab[j & 1], bb + 2 * j, 1);
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          }
+          __syncwarp();
+          if (lane == 0) wg_arrive(empty + s);  // the warp's reads of raw A done
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        wg_fence_regs(f);
+        __syncwarp();
+        if (lane == 0)
+          for (int q = 0; q < n; ++q) wg_arrive(pempty + (st + q) % kWgBuffers);
+        // Promotion: the fragment added to the f32 sum.
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += f[i];
+        kt += n;
+        st += n;
+      }
+      // The epilogue: the thread's two rows (r = 0, 1: 8 apart) mapped once;
+      // per group of four column pairs, the loads (bias, mask, accumulated
+      // values) issued before the stores. acc[4 j + 2 r + c] is (row r,
+      // column n0 + 8 j + 2 tq + c).
+      float* C = p.C + (size_t)t.z * p.zstride;
+      const int n_t = t.n0 + 2 * tq;
+      float* crow[2];
+      const float* mrow[2];
+      bool rok[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = t.m0 + r0 + 8 * r;
+        rok[r] = m < p.M;
+        crow[r] = C + (rok[r] ? (size_t)(m / p.map.rk) * p.map.q +
+                                    (size_t)(m % p.map.rk) * p.map.j
+                              : 0);
+        mrow[r] = p.mask + (rok[r] && p.mask != nullptr ? (size_t)m * p.ldm : 0);
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < kBN / 8; j0 += 4) {
+        float bv[8], mv[16], ov[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const int jj = u >> 2, r = (u >> 1) & 1, c = u & 1;
+          const int n = n_t + 8 * (j0 + jj) + c;
+          const bool ok = rok[r] && n < p.N;
+          if (r == 0) bv[2 * jj + c] = ok && p.bias != nullptr ? p.bias[n] : 0.f;
+          mv[u] = ok && p.mask != nullptr ? mrow[r][n] : 1.f;
+          ov[u] = ok && p.accum ? crow[r][n] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const int jj = u >> 2, r = (u >> 1) & 1, c = u & 1;
+          const int n = n_t + 8 * (j0 + jj) + c;
+          if (!rok[r] || n >= p.N) continue;
+          float v = p.alpha * acc[4 * (j0 + jj) + 2 * r + c];
+          if (p.bias != nullptr) v += bv[2 * jj + c];
+          if (p.relu) v = fmaxf(v, 0.f);
+          if (!(mv[u] > 0.f)) v = 0.f;
+          crow[r][n] = p.accum ? ov[u] + v : v;
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (no link to the driver
+// library); nullptr where the driver lacks it.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
+        cudaSuccess)
+#endif
+      return (EncodeTiledFn) nullptr;
+    return q == cudaDriverEntryPointSuccess ? (EncodeTiledFn)f : (EncodeTiledFn) nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of an operand's raw tiles, or false where TMA cannot load it
+// (pointer or row stride not a 16-byte multiple). K-major (`rows` rows of K
+// floats, stride ld): boxes of 128 rows x 32 k with the 128-byte swizzle;
+// MN-major (K rows of `rows` floats): boxes of 32 k x 128, unswizzled.
+bool wg_map(CUtensorMap* map, const float* src, long long ld, int rows, int K, bool kmajor) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || ((size_t)src & 15) != 0 || ld % 4 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)(kmajor ? K : rows), (cuuint64_t)(kmajor ? rows : K)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint32_t boxes[2] = {(cuuint32_t)(kmajor ? kBK : kBM), (cuuint32_t)(kmajor ? kBM : kBK)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)src, dims, strides, boxes, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            kmajor ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <bool TA, bool TB>
+cudaError_t gemm_wgmma(const GemmArgs& a, int splits, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gemm3_wgmma_kernel<TA, TB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (e != cudaSuccess) return e;
+  // TMA boxes stop only at the operand's end: every K slice must be whole
+  // k-steps, or its last box would read the next slice's rows.
+  const bool whole = splits == 1 || a.kslice % kBK == 0;
+  CUtensorMap ma = {}, mb = {};
+  const int a_tma = whole && wg_map(&ma, a.A, a.lda, a.M, a.K, !TA);
+  const int b_tma = whole && wg_map(&mb, a.B, a.ldb, a.N, a.K, TB);
+  const long long tiles = (long long)((a.N + kBN - 1) / kBN) * ((a.M + kBM - 1) / kBM) * splits;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gemm3_wgmma_kernel<TA, TB><<<grid, kWgThreads, kWgSmem, s>>>(ma, mb, a, splits, a_tma,
+                                                                  b_tma);
+  return cudaGetLastError();
+}
+
+// C = alpha op(A) op(B) (see GemmArgs) on the path its shapes choose: the
+// f32 tensor-core products with M and N both at least kWgMin on the wgmma
+// engine, the narrower ones (dW1's 3 rows, dW2's and dtheta_h's P = 32) on
+// gemm3_kernel's mma.sync; FMA and BF16 on gemm3_kernel.
 template <bool TA, bool TB, bool FMA = false, bool BF16 = false>
 cudaError_t gemm(const GemmArgs& a, int splits, cudaStream_t s) {
   if (a.M <= 0 || a.N <= 0) return cudaSuccess;
+  if constexpr (!FMA && !BF16) {
+    if (a.M >= kWgMin && a.N >= kWgMin) {
+      ++g_gemm_launches[kPathWgmma];
+      return gemm_wgmma<TA, TB>(a, splits, s);
+    }
+  }
+  ++g_gemm_launches[FMA ? kPathFma : BF16 ? kPathMmaBf16 : kPathMmaF32];
   constexpr int smem = BF16 ? kGemmSmemBf16 : kGemmSmem;
   cudaError_t e = cudaFuncSetAttribute(gemm3_kernel<TA, TB, FMA, BF16>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -55,7 +55,12 @@ softmax, the running sums and every output stay f32. The bf16 kernels
 (o4d_attn_bf16, o4d_attn_g_bf16, o4d_interp_bf16, o4d_interp_g_bf16,
 o4d_gather_bf16, and the backward ones o4d_attn_bwd_bf16,
 o4d_attn_g_bwd_bf16, o4d_interp_bwd_bf16, o4d_scatter_bf16) count their
-launches under their own names ('attn_bf16', ...).
+launches under their own names ('attn_bf16', ...). The backward entries also
+add their GEMM launches by path to the process's counters
+(utils/profiling.py::count, while recording): kernel.gemm_wgmma (f32 products
+on the wgmma engine), kernel.gemm_mma_f32 (the narrow f32 products on
+mma.sync), kernel.gemm_mma_bf16 (the bf16 mode) and kernel.gemm_fma (the f32
+FMA chains).
 The bf16 backward follows the TPU VJPs (pallas_attention.py:368-405,
 538-545, 709-712, 780, 855, 928, 1107-1134, 1243-1248): every product of the
 recomputed forward and of the backward (theta, k, v, h1, the transposed
@@ -90,6 +95,7 @@ import math
 import torch
 
 from . import _build
+from ..utils import profiling
 from .knn import _prepare, gather_neighbors, knn_rank, sq_norm
 
 __all__ = ['knn_extract', 'knn_gather_rows', 'knn_gather_interp', 'gather_rows',
@@ -101,7 +107,7 @@ __all__ = ['knn_extract', 'knn_gather_rows', 'knn_gather_interp', 'gather_rows',
            'attn_bwd', 'attn_g_bwd', 'attn_bwd_rows_plain', 'attn_fwd_rows_plain',
            'gather_bwd', 'interp_bwd',
            'interp_g_bwd',
-           'use_premul', 'round_bf16', 'LAUNCHES']
+           'use_premul', 'round_bf16', 'LAUNCHES', 'GEMM_PATHS']
 
 LAUNCHES = {'interp': 0, 'attn': 0, 'interp_bwd': 0, 'attn_bwd': 0, 'gather': 0,
             'interp_g': 0, 'attn_g': 0, 'scatter': 0, 'interp_g_bwd': 0,
@@ -1257,12 +1263,15 @@ def _attn_bwd_cuda(q_pos, q_proj, ki, pos2, kv, params, k, premul, g, bf16=False
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, M, D, E, H, P,
                         dims['KS'], k, int(premul), QC, _build.stream_ptr(dev)), name)
     _build.count_launch(LAUNCHES, name)
+    _count_gemms(lib)
     return dq, dkv, _split_weight_grads(dw, D, E, H, P, premul)
 
 
 def _attn_bwd_lib():
     '''The backward kernels' library, its size queries typed.'''
     lib = _build.library('attn_bwd')
+    lib.o4d_gemm_launches.restype = None
+    lib.o4d_gemm_launches.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
     lib.o4d_attn_bwd_weight_floats.restype = ctypes.c_longlong
     lib.o4d_attn_bwd_weight_floats.argtypes = [ctypes.c_int] * 5
     lib.o4d_attn_bwd_plan.restype = None
@@ -1270,6 +1279,21 @@ def _attn_bwd_lib():
                                       + [ctypes.POINTER(ctypes.c_int)]
                                       + [ctypes.POINTER(ctypes.c_longlong)] * 2)
     return lib
+
+
+# The backward library's GEMM paths, in o4d_gemm_launches' order.
+GEMM_PATHS = ('kernel.gemm_wgmma', 'kernel.gemm_mma_f32', 'kernel.gemm_mma_bf16',
+              'kernel.gemm_fma')
+
+
+def _count_gemms(lib):
+    '''Add the backward library's GEMM launches since the last read, by path
+    (GEMM_PATHS), to the process's counters.'''
+    n = (ctypes.c_longlong * len(GEMM_PATHS))()
+    lib.o4d_gemm_launches(n)
+    for name, c in zip(GEMM_PATHS, n):
+        if c:
+            profiling.count(name, c)
 
 
 def _split_weight_grads(dw, D, E, H, P, premul):
@@ -1328,6 +1352,7 @@ def _attn_g_bwd_cuda(q_pos, q_proj, g, params, k, go, bf16=False):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, KE, k, QC,
                         _build.stream_ptr(dev)), name)
     _build.count_launch(LAUNCHES, name)
+    _count_gemms(lib)
     return dq, dg, _split_weight_grads(dw, D, E, H, P, False)
 
 

@@ -40,8 +40,8 @@ import math
 import torch
 
 from . import _build
-from .attention import (_attn_bwd_lib, _attn_lib, _bwd_plan, _cuda_f32, _fwd_plan,
-                        _grad_names, _is_bf16, _params, _rounder, _split_weight_grads,
+from .attention import (_attn_bwd_lib, _attn_lib, _bwd_plan, _count_gemms, _cuda_f32,
+                        _fwd_plan, _grad_names, _is_bf16, _params, _rounder, _split_weight_grads,
                         _weight_operands, _weight_ptrs, round_bf16)
 
 __all__ = ['fused_gathered_attention', 'sattn_plain', 'sattn_bwd_plain', 'sattn_bwd',
@@ -187,6 +187,7 @@ def _sattn_bwd_cuda(q, gf, rel, params, k, go, bf16=False):
         _build.check(fn(*[_build.ptr(t) for t in ptrs], B, N, D, E, H, P, k, QC,
                         _build.stream_ptr(dev)), name)
     _build.count_launch(LAUNCHES, name)
+    _count_gemms(lib)
     return dq, dgf, _split_weight_grads(dw, D, E, H, P, False)
 
 

@@ -16,7 +16,9 @@ Tolerances, each with its reason:
   * against the port's plain versions: atol 5e-6 x max(1, max|plain|), the
     card's tolerance for the backward kernels (chip_smoke.py), since the
     decomposition only reorders the same f32 sums;
-  * the 3xTF32 emulation: 5e-6 x max(1, max|exact|) over 10^4-row sums, the
+  * the 3xTF32 emulation: 5e-6 x max(1, max|exact|) over 10^4-row sums and
+    over a weight gradient's row slice (8 x 10^4 rows) in the wgmma engine's
+    order (fragments of 64 rows, truncated, promoted into the f32 sum), the
     same scaled tolerance.
 '''
 
@@ -196,21 +198,65 @@ def _split(x):
     return big, _tf32((x - big).astype(np.float32))
 
 
-@pytest.mark.parametrize('scale', [1.0, 1e-3, 300.0])
-def test_3xtf32_products_stay_within_the_card_tolerance(scale):
-    '''A weight gradient's shape of sum: X^T Y over 10^4 rows, each product
-    as small_a big_b + big_a small_b + big_a big_b in f32 (the kernel's
-    order), against float64; plain TF32 (big_a big_b alone) misses it.'''
+def _round_toward_zero(x):
+    '''float64 values rounded to float32 toward zero (the tensor core's own
+    accumulation truncates).'''
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _staged_products(pairs, R, depth=64):
+    '''X^T Y in the wgmma engine's order (csrc/attn_common.cuh): per 8-deep
+    step the products of `pairs` ((x part, y part), in order), each an exact
+    8-deep sum added to the fragment with truncation; the fragment starts
+    from zero each `depth` rows (the engine's promotion depth: two 32-deep
+    k-steps) and is then added to the float32 sum, rounded to nearest.'''
+    steps = R // 8
+    terms = [np.einsum('skc,skn->scn', a.reshape(steps, 8, -1).astype(np.float64),
+                       b.reshape(steps, 8, -1).astype(np.float64)) for a, b in pairs]
+    per = depth // 8
+    acc = np.zeros(terms[0].shape[1:], np.float32)
+    for s0 in range(0, steps, per):
+        frag = np.zeros_like(acc)
+        for st in range(s0, min(steps, s0 + per)):
+            for t in terms:
+                frag = _round_toward_zero(frag.astype(np.float64) + t[st])
+        acc = acc + frag
+    return acc
+
+
+# (scale, order, rows): 'sum' takes each of the three products whole in f32;
+# 'stage' is the wgmma engine's order (_staged_products), at 10^4 rows and
+# at a weight gradient's row slice (about 8 x 10^4 rows at the train cells).
+_TF32_CASES = [(1.0, 'sum', 10000), (1e-3, 'sum', 10000), (300.0, 'sum', 10000),
+               (1.0, 'stage', 10000), (1e-3, 'stage', 10000), (300.0, 'stage', 10000),
+               (1.0, 'stage', 80000), (1e-3, 'stage', 80000), (300.0, 'stage', 80000)]
+_TF32_IDS = ['1.0', '0.001', '300.0'] + [f'{o}-{r}-{s}' for s, o, r in _TF32_CASES[3:]]
+
+
+@pytest.mark.parametrize('scale, order, R', _TF32_CASES, ids=_TF32_IDS)
+def test_3xtf32_products_stay_within_the_card_tolerance(scale, order, R):
+    '''A weight gradient's shape of sum: X^T Y over R rows, each product as
+    small_a big_b + big_a small_b + big_a big_b (the kernel's order), against
+    float64; plain TF32 (big_a big_b alone) misses it. 'sum': each product
+    summed whole in f32; 'stage': the wgmma engine's fragments of 64 rows
+    promoted into the f32 sum.'''
     rng = np.random.RandomState(7)
-    R, K1, N = 10000, 24, 20
+    K1, N = 24, 20
     X = (rng.randn(R, K1) * scale).astype(np.float32)
     Y = rng.randn(R, N).astype(np.float32)
     Xb, Xs = _split(X)
     Yb, Ys = _split(Y)
     exact = X.astype(np.float64).T @ Y.astype(np.float64)
-    f32 = lambda a, b: (torch.tensor(a).T @ torch.tensor(b)).numpy()  # noqa: E731
-    three = (f32(Xs, Yb) + f32(Xb, Ys)) + f32(Xb, Yb)
-    one = f32(Xb, Yb)
+    if order == 'sum':
+        f32 = lambda a, b: (torch.tensor(a).T @ torch.tensor(b)).numpy()  # noqa: E731
+        three = (f32(Xs, Yb) + f32(Xb, Ys)) + f32(Xb, Yb)
+        one = f32(Xb, Yb)
+    else:
+        three = _staged_products([(Xs, Yb), (Xb, Ys), (Xb, Yb)], R)
+        one = _staged_products([(Xb, Yb)], R)
     tol = 5e-6 * max(1.0, float(np.abs(exact).max()))
     assert float(np.abs(three - exact).max()) <= tol
     assert float(np.abs(one - exact).max()) > tol

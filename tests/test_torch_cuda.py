@@ -30,6 +30,7 @@ keeps the outputs bit for bit and its activations within 2e-3 and a
 float16 step of the CPU engine's.
 '''
 
+import ctypes
 import importlib
 
 import numpy as np
@@ -426,6 +427,122 @@ def test_attn_bwd_kernel_matches_plain(dev, K, premul):
         _close(dw[name], rw[name])
         assert torch.equal(dw[name], dw2[name]), name
     assert torch.equal(dq, dq2) and torch.equal(dkv, dkv2)
+
+
+# The backward's f32 GEMM engine alone (csrc/attn_common.cuh, entry
+# o4d_gemm_f32): (ta, tb, M, N, K, lda, ldb, options). Ragged M, N and K
+# against the 128 x 128 x 32 tiles; 4-byte strides (3, 291) and a pointer
+# off 16 bytes (cp.async copies where TMA cannot load); each epilogue
+# option; z slices of a long K; the narrow products (M or N under 64) that
+# stay on mma.sync.
+_GEMM_CASES = {
+    'nn_ragged': (0, 0, 203, 150, 77, 77, 150, {}),
+    'nt_bias_relu': (0, 1, 300, 129, 100, 100, 100, {'bias': True, 'relu': True}),
+    'nt_mask_alpha_accum': (0, 1, 257, 200, 64, 64, 64,
+                            {'mask': True, 'alpha': -1.0, 'accum': True}),
+    'nt_row_map_291': (0, 1, 14 * 20, 288, 416, 416, 416, {'map': (14, 20, 291)}),
+    'tn_z_slices': (1, 0, 96, 416, 20000, 96, 416, {'kslice': 1600}),
+    'tn_z_ragged_slice': (1, 0, 130, 70, 3001, 130, 70, {'kslice': 700}),
+    'nn_lda3': (0, 0, 200, 100, 3, 3, 100, {}),
+    'nt_ld291': (0, 1, 150, 416, 288, 291, 291, {}),
+    'tn_ld291': (1, 0, 288, 100, 500, 291, 100, {'kslice': 256}),
+    'nn_off16': (0, 0, 190, 260, 100, 100, 260, {'offset': 1}),
+    'tn_narrow_dw1': (1, 0, 3, 32, 5000, 3, 32, {'kslice': 1024}),
+    'nt_narrow_p32': (0, 1, 300, 32, 416, 416, 416, {'mask': True}),
+}
+
+
+def _gemm_lib():
+    from occlusions4d_torch.ops import _build
+    lib = _build.library('attn_bwd')
+    lib.o4d_gemm_f32.restype = ctypes.c_int
+    lib.o4d_gemm_f32.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+        + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
+    lib.o4d_gemm_launches.restype = None
+    lib.o4d_gemm_launches.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    return lib, _build
+
+
+@pytest.mark.parametrize('case', sorted(_GEMM_CASES))
+def test_gemm_engine_matches_float64(dev, case):
+    """One f32 tensor-core product of the backward's GEMM engine against a
+    float64 product on the CPU at 5e-6 of its largest entry (the 3xTF32
+    emulation's tolerance), with its epilogue (bias, ReLU, the [x > 0] mask,
+    alpha, accumulation, the destination row map, z slices of a long K);
+    the same bits on two calls; the path the shapes choose counted (the
+    wgmma engine where M and N are both at least 64)."""
+    ta, tb, M, N, K, lda, ldb, opt = _GEMM_CASES[case]
+    lib, _build = _gemm_lib()
+    rng = np.random.RandomState(sum(map(ord, case)))
+    off = opt.get('offset', 0)
+    a_rows, a_cols = (K, M) if ta else (M, K)
+    b_rows, b_cols = (N, K) if tb else (K, N)
+    a_buf = rng.randn(off + a_rows * lda).astype(np.float32)
+    b_buf = rng.randn(b_rows * ldb).astype(np.float32)
+    a_np = a_buf[off:].reshape(a_rows, lda)[:, :a_cols].astype(np.float64)
+    b_np = b_buf.reshape(b_rows, ldb)[:, :b_cols].astype(np.float64)
+    op_a = a_np.T if ta else a_np
+    op_b = b_np.T if tb else b_np
+    kslice = opt.get('kslice', K)
+    splits = -(-K // kslice)
+    ref = np.stack([op_a[:, z * kslice:(z + 1) * kslice] @ op_b[z * kslice:(z + 1) * kslice]
+                    for z in range(splits)])
+    alpha = opt.get('alpha', 1.0)
+    ref = alpha * ref
+    bias = rng.randn(N).astype(np.float32) if opt.get('bias') else None
+    if bias is not None:
+        ref = ref + bias
+    if opt.get('relu'):
+        ref = np.maximum(ref, 0.0)
+    mask = rng.randn(M, N).astype(np.float32) if opt.get('mask') else None
+    if mask is not None:
+        ref = np.where(mask > 0, ref, 0.0)
+    rk, nq, ldc = opt.get('map', (1, M, N))
+    # Row m goes to (m / rk) q + (m % rk) j: the gathered route's dg layout
+    # (j, n) with q = ldc, j = nq ldc; else row-major (q = N).
+    q, j = (ldc, nq * ldc) if rk > 1 else (N, 0)
+    c_len = splits * M * N if rk == 1 else M * ldc
+    c0 = rng.randn(c_len).astype(np.float32)
+
+    def dst_index():
+        m = np.arange(M)
+        return ((m // rk) * q + (m % rk) * j)[:, None] + np.arange(N)[None, :]
+    idx = dst_index()
+    want = np.stack([c0[z * M * N + idx] for z in range(splits)]).astype(np.float64) \
+        if opt.get('accum') else 0.0
+    want = want + ref
+    a_t = _t(a_buf, dev)
+    b_t = _t(b_buf, dev)
+    extra = [_t(x, dev) if x is not None else None for x in (bias, mask)]
+    counts = (ctypes.c_longlong * 4)()
+    lib.o4d_gemm_launches(counts)
+    outs = []
+    for _ in range(2):
+        c_t = _t(c0, dev)
+        rc = lib.o4d_gemm_f32(
+            ta, tb, a_t.data_ptr() + 4 * off, lda, b_t.data_ptr(), ldb, c_t.data_ptr(),
+            q, j, rk, M * N, *[x.data_ptr() if x is not None else None for x in extra],
+            N, M, N, K, kslice, splits, alpha, int(bool(opt.get('relu'))),
+            int(bool(opt.get('accum'))), torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, 'gemm_f32')
+        outs.append(c_t)
+    torch.cuda.synchronize()
+    lib.o4d_gemm_launches(counts)
+    wide = M >= 64 and N >= 64
+    assert list(counts) == ([2, 0, 0, 0] if wide else [0, 2, 0, 0]), list(counts)
+    got = outs[0].cpu().numpy()
+    assert torch.equal(outs[0], outs[1])
+    got = np.stack([got[z * M * N + idx] for z in range(splits)]).astype(np.float64)
+    tol = 5e-6 * max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= tol, (err, tol)
+    if rk > 1:  # the rows the map skips are untouched.
+        hit = np.zeros(c_len, bool)
+        hit[idx.ravel()] = True
+        assert np.array_equal(outs[0].cpu().numpy()[~hit], c0[~hit])
 
 
 # (B, N, M, D, E, K, K_ext, chunks): every case runs the gathered forward

@@ -19,7 +19,9 @@ the layer boundaries of the train step and the dense scene, on the CPU
     alone, and leaves an outer recording's spans in the store;
   * the store is emptied when recording starts from off, and keeps the last
     MAX_SPANS spans;
-  * self time, and the store under many threads.
+  * self time, and the store under many threads;
+  * the attention backward's GEMM launches by path (kernel.gemm_wgmma, ...)
+    taken from its library into the counters.
 '''
 
 import glob
@@ -331,3 +333,30 @@ def test_store_under_many_threads():
             parent = rows[r['parent']]
             assert parent['name'] == 't.outer' and parent['tid'] == r['tid']
             assert parent['item'] == r['item']
+
+
+def test_gemm_counters_take_the_backward_library_by_path():
+    '''ops/attention.py::_count_gemms reads the backward library's GEMM
+    launches (o4d_gemm_launches, read and restarted) and adds each path's
+    to the counters while recording: kernel.gemm_wgmma and the others, a
+    path with no launch left out; nothing while off.'''
+    import importlib
+    t_attn = importlib.import_module('occlusions4d_torch.ops.attention')
+
+    class Lib:
+        def __init__(self):
+            self.calls = 0
+
+        def o4d_gemm_launches(self, out):
+            self.calls += 1
+            for i, v in enumerate((75, 45, 0, 30)):
+                out[i] = v
+    lib = Lib()
+    t_attn._count_gemms(lib)
+    assert lib.calls == 1 and profiling.counters() == {}
+    profiling.record_spans(True)
+    t_attn._count_gemms(lib)
+    t_attn._count_gemms(lib)
+    assert profiling.counters() == {'kernel.gemm_wgmma': 150, 'kernel.gemm_mma_f32': 90,
+                                    'kernel.gemm_fma': 60}
+    assert t_attn.GEMM_PATHS[0] == 'kernel.gemm_wgmma'

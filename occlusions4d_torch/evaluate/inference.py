@@ -263,9 +263,10 @@ def dispatch_inference(pcl_input, pcl_input_sem, engine, min_z, cube_bounds,
     finish_inference. sample_implicit must be True (blind queries), as in the
     JAX engine.
     The frame is an item of utils/profiling.py: a root span scene, ended by
-    finish_inference, tiled by scene.grid (blind_points_numpy), scene.encode
-    and scene.decode (each rerun's; the queries' copy in decode_all),
-    scene.fetch, scene.post and scene.gt_nn1; counter scene.track_reruns.
+    finish_inference (or by the eval loop after the frame's metrics), tiled
+    by scene.grid (blind_points_numpy), scene.encode and scene.decode (each
+    rerun's; the queries' copy in decode_all), scene.fetch, scene.post and
+    scene.gt_nn1; counter scene.track_reruns.
     '''
     assert sample_implicit
     root = profiling.begin('scene', root=True)
@@ -325,12 +326,14 @@ def nn1(query, keys, device):
 
 def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=False,
                      point_occupancy_radius=0.2, semantic_classes=13,
-                     density_threshold=0.5, compress_air=False, store_activations=False):
+                     density_threshold=0.5, compress_air=False, store_activations=False,
+                     end_root=True):
     '''
     Host stage of one frame: fetch, merge track reruns, 1-NN GT labels,
     density-threshold split, compress_air; the spans scene.fetch, scene.post
     (the merge, then the split), scene.gt_nn1, tiled in dispatch_inference's
-    root span, which it ends.
+    root span, which it ends unless end_root is false (the eval loop ends it
+    after the frame's metrics and export: test_driver._FramePost.frame).
     :param store_activations: with an engine that kept them, the decoder's
         penultimate activations of the predicted-solid queries (float16) in
         result['penult_solid'].
@@ -405,7 +408,8 @@ def finish_inference(pending, pcl_target_frame, engine, predict_segmentation=Fal
             result['gt_air'] = gt_air
             result['nn_solid'] = (d[solid_sel], nn_idx[solid_sel])
             result['nn_air_d'] = d[~solid_sel]
-    profiling.end(root)
+    if end_root:
+        profiling.end(root)
     return result
 
 

@@ -29,6 +29,7 @@ import torch
 from .. import native, resolve_device
 from ..config import TestConfig, test_args
 from ..data import create_test_loader
+from ..utils import profiling
 from ..utils.logvis import StepLogger
 from .inference import InferenceEngine, load_models
 
@@ -78,6 +79,20 @@ class _FramePost:
 
     def frame(self, cur_step, time_idx, pending, tgt_frame, pcl_input,
               pcl_input_sem):
+        '''The frame's host stage. Its root span (dispatch_inference's) stays
+        open through finish_inference and is tiled on by scene.metrics
+        (frame_metrics with its host 1-NN) and scene.export (the histograms
+        and the record for the scene's pickle), then ended here.'''
+        root = pending.get('span')
+        try:
+            with profiling.within(root):
+                self._frame(cur_step, time_idx, pending, tgt_frame, pcl_input,
+                            pcl_input_sem)
+        finally:
+            profiling.end(root)
+
+    def _frame(self, cur_step, time_idx, pending, tgt_frame, pcl_input,
+               pcl_input_sem):
         from .inference import finish_inference
         args = self.args
         with self.timer.phase('finish_wall'):
@@ -87,7 +102,8 @@ class _FramePost:
                 point_occupancy_radius=args.point_occupancy_radius,
                 semantic_classes=args.semantic_classes,
                 density_threshold=args.density_threshold,
-                compress_air=True, store_activations=args.store_activations)
+                compress_air=True, store_activations=args.store_activations,
+                end_root=False)
         for name in ('device_infer', 'd2h_fetch', 'track_merge', 'gt_nn1',
                      'host_post'):
             self.timer.totals[name] += inf['phase_s'][name]
@@ -96,7 +112,7 @@ class _FramePost:
 
         if args.save_metrics:
             from .metrics import frame_metrics
-            with self.timer.phase('metrics'):
+            with self.timer.phase('metrics'), profiling.span('scene.metrics', tile=True):
                 m = frame_metrics(
                     inf['output_solid'], inf['output_air'], tgt_frame,
                     self.data_kind, args.point_occupancy_radius,
@@ -109,6 +125,12 @@ class _FramePost:
                     nn_air_d=inf.get('nn_air_d'))
             m.update(step=cur_step, time_idx=time_idx)
             self.all_metrics.append(m)
+        with profiling.span('scene.export', tile=True):
+            self._export(cur_step, time_idx, inf, tgt_frame, pcl_input, pcl_input_sem)
+        self.last_inf = inf
+
+    def _export(self, cur_step, time_idx, inf, tgt_frame, pcl_input, pcl_input_sem):
+        args = self.args
         if args.store_activations and 'penult_solid' in inf:
             self.activations.append(inf['penult_solid'])
 
@@ -130,7 +152,6 @@ class _FramePost:
         if args.save_gt:
             record = record + (np.asarray(pcl_input_sem), inf['points_query'])
         self.pcl_all.append(record)
-        self.last_inf = inf
 
     def scene_end(self, cur_step, meta, cam_RT, cam_K, pcl_input):
         args, logger, inf = self.args, self.logger, self.last_inf

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.fps import random_start_indices
+from ..utils import profiling
 from .layers import Dense, DownTransition, PointTransformerBlock, UpTransition
 
 __all__ = ['PointEncoder']
@@ -99,51 +100,78 @@ class PointEncoder(nn.Module):
             enable_decoder, every up level, then the input's), as the JAX
             encoder's layer_coords. With enable_decoder pcl_out is (B, N,
             d_out): the input's positions and post_mlp's output.
+        While spans record (utils/profiling.py) the forward is tiled in the
+        caller's span by encoder.extract (each PT block's kNN graph; each
+        DownTransition's FPS start, FPS, kNN and max-pool) and
+        encoder.blocks (the pre-MLP, the PT blocks, the transitions' MLPs,
+        the skip and global MLPs, the up path); counters encoder.points (the
+        input's points over the batch) and encoder.fps_picks (the points FPS
+        keeps, all levels, over the batch).
         '''
         random_start = self.training and self.fps_random_start and generator is not None
         dt = self.dtype
         pos = pcl[..., :3]
         coords = [pos, pos]
-        x = self.pre_mlp(pcl.to(dt))
+        profiling.count('encoder.points', pcl.shape[0] * pcl.shape[1])
+        with _blocks():
+            x = self.pre_mlp(pcl.to(dt))
         skips = []
         skip_data = []          # (features, positions) before each DownTransition.
         blocks = list(self.blocks)
         for i in range(self.down_blocks):
-            x, pos = blocks[2 * i](x, pos)
+            trans = blocks[2 * i + 1]
+            with _extract():
+                nbr = blocks[2 * i].layer2.neighbours(pos)
+            with _blocks():
+                x, pos = blocks[2 * i](x, pos, nbr=nbr)
+                y = trans.mlp(x)
             coords.append(pos)
             if self.skip_connections:
                 skip_data.append((x, pos))
-            start = (random_start_indices(generator, x.shape[0], x.shape[1],
-                                          device=x.device) if random_start else None)
-            x, pos = blocks[2 * i + 1](x, pos, start_idx=start)
+            with _extract():
+                start = (random_start_indices(generator, x.shape[0], x.shape[1],
+                                              device=x.device) if random_start else None)
+                profiling.count('encoder.fps_picks', x.shape[0] * -(-x.shape[1] // trans.factor))
+                x, pos = trans.pool(y, pos, start_idx=start)
             coords.append(pos)
             j = self._skip_at.get(x.shape[-1])
             if j is not None:
-                y = self.abstract_skip_mlps[j](x)
-                y = torch.cat([y[..., :-1], torch.full_like(y[..., -1:], j + 1.0)], -1)
-                skips.append(torch.cat([pos.to(dt), y], -1))
+                with _blocks():
+                    y = self.abstract_skip_mlps[j](x)
+                    y = torch.cat([y[..., :-1], torch.full_like(y[..., -1:], j + 1.0)], -1)
+                    skips.append(torch.cat([pos.to(dt), y], -1))
         center = 2 * self.down_blocks
-        x, pos = blocks[center](x, pos)
-        coords.append(pos)
-        extra = (coords,) if return_intermediate else ()
+        with _extract():
+            nbr = blocks[center].layer2.neighbours(pos)
+        with _blocks():
+            x, pos = blocks[center](x, pos, nbr=nbr)
+            coords.append(pos)
+            extra = (coords,) if return_intermediate else ()
+            x_global = None
+            if self.output_global_emb:
+                x_global = self.global_mlp(x.mean(dim=1))
+            if self.enable_decoder:
+                for i in range(self.up_blocks):
+                    x2, p2 = skip_data.pop(-1)
+                    x, pos = blocks[center + 1 + 2 * i](x, pos, x2, p2)
+                    x, pos = blocks[center + 2 + 2 * i](x, pos)
+                    coords.append(pos)
+                coords.append(coords[0])
+                return (torch.cat([coords[0].to(dt), self.post_mlp(x)], -1), x_global) + extra
+            if not self.output_featurized:
+                return (None, x_global) + extra
+            pcl_out = torch.cat([pos.to(dt), x], -1)
+            if self.abstract_levels > 1:
+                # Last feature channel of every level holds the 1-based level index.
+                pcl_out = torch.cat([pcl_out[..., :-1], torch.full_like(
+                    pcl_out[..., -1:], float(self.abstract_levels))], -1)
+                pcl_out = torch.cat(skips + [pcl_out], dim=1)
+            return (pcl_out, x_global) + extra
 
-        x_global = None
-        if self.output_global_emb:
-            x_global = self.global_mlp(x.mean(dim=1))
-        if self.enable_decoder:
-            for i in range(self.up_blocks):
-                x2, p2 = skip_data.pop(-1)
-                x, pos = blocks[center + 1 + 2 * i](x, pos, x2, p2)
-                x, pos = blocks[center + 2 + 2 * i](x, pos)
-                coords.append(pos)
-            coords.append(coords[0])
-            return (torch.cat([coords[0].to(dt), self.post_mlp(x)], -1), x_global) + extra
-        if not self.output_featurized:
-            return (None, x_global) + extra
-        pcl_out = torch.cat([pos.to(dt), x], -1)
-        if self.abstract_levels > 1:
-            # Last feature channel of every level holds the 1-based level index.
-            pcl_out = torch.cat([pcl_out[..., :-1], torch.full_like(
-                pcl_out[..., -1:], float(self.abstract_levels))], -1)
-            pcl_out = torch.cat(skips + [pcl_out], dim=1)
-        return (pcl_out, x_global) + extra
+
+def _extract():
+    return profiling.span('encoder.extract', tile=True)
+
+
+def _blocks():
+    return profiling.span('encoder.blocks', tile=True)

@@ -254,18 +254,26 @@ class VectorAttention(nn.Module):
                 'pos_mlp_0': lin(self.pos_mlp[0]), 'pos_mlp_2': lin(self.pos_mlp[2]),
                 'attn_mlp_0': lin(self.attn_mlp[0]), 'attn_mlp_2': lin(self.attn_mlp[2])}
 
-    def forward(self, x, pos, x2=None, pos2=None, key_mask=None):
-        '''x (B, N, D), pos (B, N, 3); x2 (B, M, D2), pos2 (B, M, 3) for cross
-        attention (None: self attention); key_mask (B, M) bool or None.'''
-        self_attention = x2 is None
+    def neighbours(self, pos, pos2=None, key_mask=None):
+        '''The kNN graph of the queries pos (B, N, 3) among the keys pos2
+        (None: pos itself, self attention): (idx (B, N, K) int32, the
+        neighbours' positions (B, N, K, 3)).'''
         # Positions carry no gradient (JAX's stop_gradient of both sets).
         pos = pos.detach()
-        pos2 = pos if self_attention else pos2.detach()
-        if self_attention:
-            x2 = x
+        pos2 = pos if pos2 is None else pos2.detach()
         # The same object as query and key set lets the pruned kNN sort once.
         _, idx = knn(pos, pos2, self.num_neighbors, key_mask=key_mask)
-        knn_xyz = gather_neighbors(pos2[..., :3], idx)
+        return idx, gather_neighbors(pos2[..., :3], idx)
+
+    def forward(self, x, pos, x2=None, pos2=None, key_mask=None, nbr=None):
+        '''x (B, N, D), pos (B, N, 3); x2 (B, M, D2), pos2 (B, M, 3) for cross
+        attention (None: self attention); key_mask (B, M) bool or None; nbr
+        the graph of neighbours(pos, pos2, key_mask), computed here if None.'''
+        self_attention = x2 is None
+        pos = pos.detach()
+        if self_attention:
+            x2 = x
+        idx, knn_xyz = self.neighbours(pos, pos2, key_mask) if nbr is None else nbr
         q = self.to_q(x)
         dt = self.dtype
         if (self.fused == 'on' and self_attention and key_mask is None
@@ -298,8 +306,10 @@ class PointTransformerBlock(nn.Module):
                                       dtype=dtype)
         self.layer3 = Dense(d_hidden, d_out, dtype=dtype)
 
-    def forward(self, x, p, x2=None, p2=None, key_mask=None):
-        y = self.layer2(self.layer1(x), p, x2=x2, pos2=p2, key_mask=key_mask)
+    def forward(self, x, p, x2=None, p2=None, key_mask=None, nbr=None):
+        '''nbr: the attention's kNN graph (VectorAttention.neighbours), or
+        None to compute it here.'''
+        y = self.layer2(self.layer1(x), p, x2=x2, pos2=p2, key_mask=key_mask, nbr=nbr)
         return x + self.layer3(y), p
 
 
@@ -318,13 +328,17 @@ class DownTransition(nn.Module):
                                  NormLayer(norm_type, d_out, dtype), nn.ReLU())
 
     def forward(self, x, p, start_idx=None):
-        B, N, _ = x.shape
+        return self.pool(self.mlp(x), p, start_idx)
+
+    def pool(self, y, p, start_idx=None):
+        '''The extraction after the MLP: FPS, the kNN of the kept points and
+        the max-pool of the MLP's output y (B, N, d_out) over it.'''
+        B, N, _ = y.shape
         n_new = -(-N // self.factor)
         sub_idx = fps_batched(p, n_new, start_idx=start_idx)          # (B, n_new).
         p_sub = torch.gather(p, 1, sub_idx[..., None].expand(B, n_new, p.shape[-1]))
         _, nbr = knn(p_sub, p, self.knn_k)
-        z = gather_neighbors(self.mlp(x), nbr)
-        return z.amax(dim=-2), p_sub
+        return gather_neighbors(y, nbr).amax(dim=-2), p_sub
 
 
 class UpTransition(nn.Module):

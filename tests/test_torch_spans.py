@@ -7,8 +7,9 @@ the layer boundaries of the train step and the dense scene, on the CPU
   * under profiling.device_trace, two run_epoch steps on a synthetic
     GREATER tree: each step's root span train_step_<i> is tiled, in order,
     by train.h2d, train.encoder, train.sampler, train.decoder_fwd,
-    train.decoder_bwd, train.encoder_bwd and train.optimizer; the counters
-    read the steps and the queries their shapes hold; the written trace
+    train.decoder_bwd, train.encoder_bwd and train.optimizer (the
+    encoder's own tiles inside train.encoder); the counters read the steps,
+    the queries their shapes hold and the encoder's points and FPS picks; the written trace
     holds the spans as user_annotation events, none of them named o4d_;
   * a dispatch_inference + finish_inference on the committed GREATER
     anchor: the scene's root span tiled by scene.grid, scene.encode,
@@ -96,6 +97,17 @@ def _children(rows, i):
     return [r for r in rows if r['parent'] == i]
 
 
+def _encoder_counts(examples, cfg):
+    '''The encoder's counters over `examples` encoded clouds of cfg's size
+    (a TrainConfig or a dict of its fields).'''
+    get = cfg.get if isinstance(cfg, dict) else lambda k: getattr(cfg, k)
+    n, picks = get('n_points'), 0
+    for _ in range(get('up_down_blocks')):
+        n = -(-n // get('transition_factor'))
+        picks += n
+    return {'encoder.points': examples * get('n_points'), 'encoder.fps_picks': examples * picks}
+
+
 def _assert_tiled(parent, kids, names):
     '''kids are named `names` in order and tile parent from its start.'''
     assert [k['name'] for k in kids] == names
@@ -128,7 +140,11 @@ def test_spans_off_record_nothing_and_register_no_hook(greater, monkeypatch):
     tr.step(batches[1])
     assert len(hooks) == 1
     names = [r['name'] for r in profiling.spans()]
-    assert names == _STEP_SPANS
+    # The encoder's own tiles (encoder.extract, encoder.blocks) close inside
+    # train.encoder, before it.
+    assert [n for n in names if not n.startswith('encoder.')] == _STEP_SPANS
+    assert {n for n in names if n.startswith('encoder.')} == {'encoder.extract',
+                                                              'encoder.blocks'}
 
 
 def test_run_epoch_spans_tile_each_step(greater, tmp_path):
@@ -161,7 +177,8 @@ def test_run_epoch_spans_tile_each_step(greater, tmp_path):
     # Two steps of batch x frames x (the sampler's solid + air queries).
     per_frame = tr.pipeline.sampler.cfg.num_solid + tr.pipeline.sampler.cfg.num_air
     queries = 2 * tr.cfg.batch_size * tr.pipeline.cfg.num_frames * per_frame
-    assert profiling.counters() == {'train.steps': 2, 'train.queries_sampled': queries}
+    assert profiling.counters() == {'train.steps': 2, 'train.queries_sampled': queries,
+                                    **_encoder_counts(2 * tr.cfg.batch_size, tr.cfg)}
     totals = profiling.span_totals()
     assert totals['train_step_0']['calls'] == 1 and totals['train.h2d']['calls'] == 2
     assert all(t['self_ms'] <= t['device_ms'] + 1e-9 for t in totals.values())
@@ -219,6 +236,8 @@ def test_scene_spans_tile_each_scene():
         assert sorted(res['phase_s']) == ['d2h_fetch', 'device_infer', 'gt_nn1',
                                           'host_post', 'track_merge', 'track_reruns']
     assert profiling.counters() == {
+        **_encoder_counts(2, dict(n_points=pcl.shape[0], up_down_blocks=cfg.up_down_blocks,
+                                  transition_factor=cfg.transition_factor)),
         'scene.track_reruns': 2, 'scene.queries_decoded': n_queries,
         'scene.decode_chunks': sum(math.ceil(r['points_query'].shape[0] / 1024)
                                    for r in results)}
